@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (elimaloc_tpu_torch) on one GPU.
 
-Drives the port's main path — fused P2P localization replay through
-``LocalizationPipeline.run_fused`` — at the headline width of bench.py:
-make_world(seed=3, extent=120, 400k ground + 200k wall points), 131,072 raw
-points per scan sampled 1/5, P2P with qb=16 and budgets sized from the log.
+Drives the port's main path — fused localization replay through
+``LocalizationPipeline.run_fused`` — once per ICP method (P2P, GICP, VGICP,
+AVGICP) at the headline width of bench.py: make_world(seed=3, extent=120,
+400k ground + 200k wall points), 131,072 raw points per scan sampled 1/5,
+qb=16 and budgets sized from the log, the bench.py ``_cfg(method)``
+configuration. One BuiltMap with both covariances (bench.py:567-571) is
+packed at halo margin 1 (P2P, GICP, VGICP) and 2 (AVGICP).
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the four CUDA kernels from elimaloc_tpu_torch/csrc/;
-  3. kernel vs plain: each kernel against its plain PyTorch version on the
-     inputs the main path gave it (recorded during a warm-up replay), with
-     times from CUDA events (median of 20);
-  4. the slice: a timed replay, the launch count of every kernel in it,
-     applied ratio, ATE against ground truth, slot drops, downsample budget,
-     scans/s, a per-stage split and the frame time p50/p95 from CUDA events;
-  5. reference: a small log on the card against the same port on the CPU
-     (plain versions, held to the JAX package by the CPU tests).
+  2. build: the seven CUDA kernels from elimaloc_tpu_torch/csrc/, then the
+     map and its two packings, each timed;
+  3. per method, one path:
+     a. a warm-up replay that records one main-path call of each kernel;
+     b. kernel vs plain: the method's fused search + GN kernel (A, E, F, G)
+        and, on the P2P path, kernels B, C and D against their plain
+        PyTorch versions on those inputs, with times from CUDA events
+        (median of 20);
+     c. the timed replay: the launch counts set to 0 just before it and
+        read just after (every kernel of the path must have launched),
+        applied ratio, ATE against ground truth, slot drops, downsample
+        budget, scans/s, a per-stage split and the frame time p50/p95;
+  4. reference, per method: a small log on the card against the same port
+     on the CPU (plain versions, held to the JAX package by the CPU tests)
+     under the repo's closed-loop contract.
 Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network, no JAX, one card:
@@ -25,6 +34,7 @@ JSON line, and the card's name and power limit; the last line is
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -36,6 +46,30 @@ N_SCANS = 20
 RAW_POINTS = 131072
 INDEX_SAMPLING = 5
 REPEATS = 20
+METHODS = ("P2P", "GICP", "VGICP", "AVGICP")
+#: per method: its fused search + GN kernel (wrapper), the kernel's source,
+#: the JAX hot ops it replaces and the plain version in register/icp.py
+KERNEL = {
+    "P2P": ("p2p_correspond", "correspond.cu",
+            "elimaloc_tpu/map/tiles.py:712 + elimaloc_tpu/register/icp.py:283",
+            "p2p_search_reduce_plain"),
+    "GICP": ("gicp_correspond", "gicp.cu",
+             "elimaloc_tpu/map/tiles.py:712 (with_point_cov) + "
+             "elimaloc_tpu/register/icp.py:324", "gicp_search_reduce_plain"),
+    "VGICP": ("vgicp_correspond", "vgicp.cu",
+              "elimaloc_tpu/map/tiles.py:803 + elimaloc_tpu/register/icp.py:354",
+              "vgicp_search_reduce_plain"),
+    "AVGICP": ("avgicp_correspond", "avgicp.cu",
+               "elimaloc_tpu/map/tiles.py:869 + elimaloc_tpu/register/icp.py:381",
+               "avgicp_search_reduce_plain"),
+}
+SHARED = ("deskew", "voxel_downsample", "assign_slots")
+#: truth ATE gate per method on the headline log, m. AVGICP does not
+#: converge within max_iteration on this sparse map (8 iterations a frame
+#: against ~2 for the other methods, 0.19 m on the H100): its gate follows the
+#: reference's own looser AVGICP truth bounds (tests/test_icp.py 0.45 m,
+#: tests/test_oracle_parity.py:221 0.8 m), not the other methods' 0.15 m.
+ATE_GATE = {"P2P": 0.1, "GICP": 0.15, "VGICP": 0.15, "AVGICP": 0.3}
 
 
 def log_line(*parts):
@@ -60,13 +94,43 @@ def build_phase(build):
     build.library()
     log_line(f"build: {time.time() - t0:.1f} s -> {build.library_path()}")
     report = (build.library_path().parent / "nvcc.log").read_text()
+    name = "?"
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log_line("  ptxas:", line.strip())
+        if "Function properties for" in line:
+            name = _kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            log_line(f"  ptxas {name}:", line.split(":", 1)[-1].strip())
 
 
-def make_slice(cfg_mod, runtime, tiles, log_mod):
-    """The bench.py:140-169 configuration, rebuilt from the port's copies."""
+def _kernel_name(line):
+    """The ``*_kernel`` identifier inside a mangled name: a length-prefixed
+    segment (``18gicp_search_kernel``)."""
+    for m in re.finditer(r"\d+", line):
+        for i in range(len(m.group())):  # the run may end a hash: "c322reduce_..."
+            seg = line[m.end():m.end() + int(m.group()[i:])]
+            if seg.endswith("_kernel"):
+                return seg
+    return "?"
+
+
+def method_cfg(cfg_mod, method):
+    """bench.py:_cfg(method), rebuilt from the port's config copy."""
+    cfg = cfg_mod.ElimalocConfig()
+    cfg.pcm.icp_method = cfg_mod.IcpMethod[method]
+    cfg.pcm.lidar_time_delay = 0.0
+    cfg.ekf.ekf_init_x_m = 60.0
+    cfg.ekf.ekf_init_y_m = 0.0
+    cfg.ekf.ekf_init_yaw_deg = 90.0
+    cfg.calib.ego_to_lidar_trans = (0.0, 0.0, 0.0)
+    cfg.calib.ego_to_lidar_rot_deg = (0.0, 0.0, 0.0)
+    if method in ("VGICP", "AVGICP"):
+        cfg.pcm.max_fitness_score = 2.0  # voxel-mean fitness floor
+    return cfg
+
+
+def make_headline(cfg_mod, runtime, builder, tiles, log_mod):
+    """The bench.py:140-169 world and log, one map built with both
+    covariances and packed at halo margins 1 and 2, and the budgets."""
     world = log_mod.make_world(seed=3, extent=120.0, n_ground=400_000, n_wall=200_000)
     log = log_mod.synthesize_log(world, duration=(N_SCANS + 3) * 0.1,
                                  points_per_scan=RAW_POINTS, max_range=100.0, seed=4)
@@ -74,35 +138,32 @@ def make_slice(cfg_mod, runtime, tiles, log_mod):
     log.scan_points = np.ascontiguousarray(log.scan_points[:, sl])
     log.scan_times = np.ascontiguousarray(log.scan_times[:, sl])
     log.scan_valid = np.ascontiguousarray(log.scan_valid[:, sl])
-    cfg = cfg_mod.ElimalocConfig()
-    cfg.pcm.icp_method = cfg_mod.IcpMethod.P2P
-    cfg.pcm.lidar_time_delay = 0.0
-    cfg.ekf.ekf_init_x_m = 60.0
-    cfg.ekf.ekf_init_y_m = 0.0
-    cfg.ekf.ekf_init_yaw_deg = 90.0
-    cfg.calib.ego_to_lidar_trans = (0.0, 0.0, 0.0)
-    cfg.calib.ego_to_lidar_rot_deg = (0.0, 0.0, 0.0)
-    ds_points, max_slots = runtime.autosize_budgets(
-        log, float(cfg.pcm.input_voxel_ds_m), 4.0 * cfg.pcm.pcm_voxel_size, qb=16)
+    pcm = cfg_mod.ElimalocConfig().pcm
     t0 = time.time()
-    pipe = runtime.LocalizationPipeline(
-        cfg, world, device="cuda", ds_points=ds_points,
-        tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
-        ego_ring_size=512, imu_ring_size=256)
-    log_line(f"slice: {len(log.scan_t)} scans x {log.scan_points.shape[1]} points, "
-             f"map halo {tuple(pipe.map.halo_points.shape)}, ds_points {ds_points}, "
-             f"max_slots {max_slots}, map build {time.time() - t0:.1f} s")
-    return pipe, log
+    built = builder.build_voxel_map(
+        world, pcm.pcm_voxel_size, pcm.pcm_voxel_max_point, compute_voxel_cov=True,
+        compute_point_cov=True, gicp_cov_search_dist=pcm.gicp_cov_search_dist)
+    log_line(f"map: {len(world)} points -> {built.counts.shape[0]} voxels, build with "
+             f"voxel and point covariances {time.time() - t0:.1f} s")
+    packed = {}
+    for margin in (1, 2):
+        t0 = time.time()
+        packed[margin] = tiles.build_tile_map(built, tile_voxels=4, halo_margin=margin)
+        log_line(f"map: packed at halo margin {margin} in {time.time() - t0:.2f} s: "
+                 f"points {packed[margin].halo_points.shape}, "
+                 f"voxels {packed[margin].halo_vox_mean.shape}")
+    ds_points, max_slots = runtime.autosize_budgets(
+        log, float(pcm.input_voxel_ds_m), 4.0 * pcm.pcm_voxel_size, qb=16)
+    return log, packed, ds_points, max_slots
 
 
 class Recorder:
     """Wraps the kernel launchers to keep the arguments of one main-path call
-    each (taken at frame ``at``), so phase 3 runs on real inputs."""
+    each (taken at frame ``at``), so the kernel phase runs on real inputs."""
 
-    def __init__(self, kernels, at):
+    def __init__(self, kernels, names, at):
         self.kernels, self.at, self.calls, self.seen = kernels, at, {}, {}
-        self.orig = {n: getattr(kernels, n) for n in
-                     ("deskew", "voxel_downsample", "assign_slots", "p2p_correspond")}
+        self.orig = {n: getattr(kernels, n) for n in names}
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -135,9 +196,10 @@ def time_ms(fn):
     return float(np.median(times))
 
 
-def kernel_phase(pipe, calls, mods):
-    kernels, deskew, grid, tiles, icp = mods
-    tmap, params = pipe.map, pipe.params.icp
+def shared_kernel_rows(pipe, calls, mods):
+    """Kernels B, C, D against their plain versions (the P2P path's calls)."""
+    kernels, deskew, grid, tiles, _ = mods
+    tmap = pipe.map
     budget = pipe.static.icp_static.tile_budget
     rows = []
 
@@ -174,65 +236,52 @@ def kernel_phase(pipe, calls, mods):
                      ms=time_ms(lambda: kernels.assign_slots(*a, **k)),
                      plain_ms=time_ms(lambda: tiles.assign_slots_plain(
                          tmap, queries, valid, budget))))
-
-    a, k = calls["p2p_correspond"]
-    _, slot_tile, sbuf, qmask, pose, _ = a
-    sums, tgt, ok = kernels.p2p_correspond(*a, **k, with_matches=True)
-    matched, JTJ, JTr, fit, rtgt, rok = icp.p2p_search_reduce_plain(
-        tmap, slot_tile, sbuf, qmask, pose, params, budget)
-    if not (torch.equal(ok, rok) and torch.equal(tgt, rtgt)):
-        raise AssertionError("p2p_correspond search differs from its plain version")
-    k_matched, k_JTJ, k_JTr, _ = icp.assemble_p2p(sums)
-    if int(k_matched) != int(matched):
-        raise AssertionError(f"matched {int(k_matched)} != {int(matched)}")
-    err = 0.0
-    for x, y in ((k_JTJ, JTJ), (k_JTr, JTr)):
-        rel = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
-        if not rel <= 1e-4:
-            raise AssertionError(f"p2p_correspond JTJ/JTr rel err {rel} > 1e-4")
-        err = max(err, float((x - y).abs().max()))
-    rows.append(dict(name="p2p_correspond", source="elimaloc_tpu_torch/csrc/correspond.cu",
-                     replaces="elimaloc_tpu/map/tiles.py:712 + elimaloc_tpu/register/icp.py:283",
-                     max_abs_err=err, ms=time_ms(lambda: kernels.p2p_correspond(*a, **k)),
-                     plain_ms=time_ms(lambda: icp.p2p_search_reduce_plain(
-                         tmap, slot_tile, sbuf, qmask, pose, params, budget))))
-    for r in rows:
-        log_line(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
-                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms")
     log_line(f"  shapes: scan {tuple(calls['deskew'][0][0].shape)}, "
-             f"queries {tuple(queries.shape)}, slots {tuple(qmask.shape)}, "
-             f"halo {tuple(tmap.halo_points.shape)}")
+             f"queries {tuple(queries.shape)}, halo {tuple(tmap.halo_points.shape)}")
     return rows
 
 
-def reference_phase(cfg_mod, runtime, tiles, log_mod):
-    """The small ``tiny_pipe`` configuration of tests/test_pipeline_modes.py
-    on the card (kernels) against the same port on the CPU (plain versions,
-    which tests/test_torch_slice.py holds to the JAX package), under the
-    repo's closed-loop contract: max < 3 cm, median < 5 mm, last 3 < 5 mm."""
-    world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
-    log = log_mod.synthesize_log(world, duration=3.0, points_per_scan=1024,
-                                 max_range=50.0, seed=10, gps_hz=1.0)
-    cfg = cfg_mod.ElimalocConfig()
-    cfg.pcm.icp_method = cfg_mod.IcpMethod.P2P
-    cfg.pcm.input_voxel_ds_m = 1.0
-    cfg.pcm.lidar_time_delay = 0.0
-    cfg.ekf.ekf_init_x_m = 60.0
-    cfg.ekf.ekf_init_yaw_deg = 90.0
-    cfg.calib.ego_to_lidar_trans = (0.0, 0.0, 0.0)
-    cfg.calib.ego_to_lidar_rot_deg = (0.0, 0.0, 0.0)
-    pos = {}
-    for device in ("cuda", "cpu"):
-        pipe = runtime.LocalizationPipeline(
-            cfg, world, device=device, ds_points=1024,
-            tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
-            ego_ring_size=128, imu_ring_size=128)
-        pos[device] = pipe.run_fused(log)[1]["ego_pos"]
-    err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
-    log_line(f"reference: card vs CPU port over {len(err)} frames: max {err.max():.2e} m, "
-             f"median {np.median(err):.2e} m, last 3 max {err[-3:].max():.2e} m")
-    if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
-        raise AssertionError("the card's trajectory left the closed-loop contract")
+def method_kernel_row(method, pipe, calls, mods):
+    """The method's fused search + GN kernel against its plain version: the
+    matches exactly equal, ``matched`` equal, JTJ / JTr / fitness numerator
+    within rtol 1e-4 on the norms (per-row products with FMAs, sums in
+    another order)."""
+    kernels, icp = mods[0], mods[4]
+    wrapper, src, replaces, plain_name = KERNEL[method]
+    tmap, params = pipe.map, pipe.params.icp
+    budget = pipe.static.icp_static.tile_budget
+    a, k = calls[wrapper]
+    if method == "P2P":
+        slot_tile, sbuf, qmask, pose = a[1:5]
+    else:
+        slot_tile, sbuf, qmask, pose = a[3:7]
+    plain = getattr(icp, plain_name)
+    ref = plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)
+    out = getattr(kernels, wrapper)(*a, **k, with_matches=True)
+    if method == "P2P":
+        got = icp.assemble_p2p(out[0])
+    else:
+        got = icp.assemble_gn(out[0])
+    for i, (x, y) in enumerate(zip(out[1:], ref[4:])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{wrapper}: match output {i} differs from its plain "
+                                 "version")
+    if int(got[0]) != int(ref[0]):
+        raise AssertionError(f"{wrapper}: matched {int(got[0])} != {int(ref[0])}")
+    err = worst = 0.0
+    for x, y in zip(got[1:], ref[1:4]):
+        rel = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+        if not rel <= 1e-4:
+            raise AssertionError(f"{wrapper}: JTJ/JTr/fitness rel err {rel} > 1e-4")
+        err = max(err, float((x - y).abs().max()))
+        worst = max(worst, rel)
+    log_line(f"  {wrapper}: slots {tuple(qmask.shape)}, halo {tuple(a[0].shape)}, "
+             f"matched {int(got[0])}, |JTJ| {float(torch.linalg.norm(ref[1])):.3e}, "
+             f"worst rel err {worst:.2e}")
+    return dict(name=wrapper, source=f"elimaloc_tpu_torch/csrc/{src}", replaces=replaces,
+                max_abs_err=err, ms=time_ms(lambda: getattr(kernels, wrapper)(*a, **k)),
+                plain_ms=time_ms(lambda: plain(tmap, slot_tile, sbuf, qmask, pose,
+                                               params, budget)))
 
 
 class StageTimer:
@@ -264,29 +313,29 @@ class StageTimer:
         return {k: v / max(frames, 1) for k, v in tot.items()}, frames, per_frame
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke run needs one GPU",
-              file=sys.stderr)
-        return 1
-    import elimaloc_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
-    from elimaloc_tpu_torch import config as cfg_mod
-    from elimaloc_tpu_torch import deskew, kernels
-    from elimaloc_tpu_torch.kernels import build
-    from elimaloc_tpu_torch.map import grid, tiles
-    from elimaloc_tpu_torch.pipeline import ate_rmse, runtime
-    from elimaloc_tpu_torch.pipeline import log as log_mod
-    from elimaloc_tpu_torch.register import icp
-
-    smi = device_phase()
-    build_phase(build)
-    pipe, log = make_slice(cfg_mod, runtime, tiles, log_mod)
-
-    # warm-up replay; it also records one main-path call of each kernel
-    with Recorder(kernels, at=N_SCANS // 2) as rec:
+def run_path(method, log, packed, ds_points, max_slots, mods, ate_rmse):
+    """One method's path: warm-up replay (recording the kernels' inputs), the
+    kernel-vs-plain rows, then the timed replay with its launch counts."""
+    kernels, cfg_mod, runtime, tiles = mods[0], mods[5], mods[6], mods[3]
+    t0 = time.time()
+    pipe = runtime.LocalizationPipeline(
+        method_cfg(cfg_mod, method), packed[2 if method == "AVGICP" else 1],
+        device="cuda", ds_points=ds_points,
+        tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
+        ego_ring_size=512, imu_ring_size=256)
+    log_line(f"[{method}] {len(log.scan_t)} scans x {log.scan_points.shape[1]} points, "
+             f"ds_points {ds_points}, max_slots {max_slots}, map upload "
+             f"{time.time() - t0:.1f} s")
+    wrapper = KERNEL[method][0]
+    names = SHARED + (wrapper,) if method == "P2P" else (wrapper,)
+    with Recorder(kernels, names, at=N_SCANS // 2) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
-    rows = kernel_phase(pipe, rec.calls, (kernels, deskew, grid, tiles, icp))
+    rows = shared_kernel_rows(pipe, rec.calls, mods[:5]) if method == "P2P" else []
+    rows.append(method_kernel_row(method, pipe, rec.calls, mods[:5]))
+    for r in rows:
+        log_line(f"[{method}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
+                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms")
 
     # the timed main-path run: counts from zero, then read back
     stages = StageTimer()
@@ -300,9 +349,9 @@ def main():
     split, frames, per_frame = stages.split()
     p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
     n = len(log.scan_t)
-    log_line(f"slice: {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
+    log_line(f"[{method}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
              f"host batch prep + upload included), launches {launches}")
-    log_line("stage ms/frame (frames 1..%d): " % frames
+    log_line(f"[{method}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
              f"p95 {p95:.3f}")
@@ -311,27 +360,102 @@ def main():
     applied = float(outs["applied"].mean())
     dropped = int(outs["slots_dropped"].max())
     ds_max = int(outs["ds_kept"].max())
-    log_line(f"slice: applied {applied:.3f}, ATE {ate:.4f} m, slots_dropped {dropped}, "
-             f"ds_kept max {ds_max} of {pipe.static.ds_points}, "
-             f"iterations mean {outs['iterations'].mean():.2f}")
+    iters = float(outs["iterations"].mean())
+    log_line(f"[{method}] applied {applied:.3f}, ATE {ate:.4f} m, slots_dropped "
+             f"{dropped}, ds_kept max {ds_max} of {ds_points}, iterations mean "
+             f"{iters:.2f}")
     if not np.all(np.isfinite(outs["ego_pos"])) or outs["ego_pos"].shape != (n, 3):
-        raise AssertionError("non-finite or misshapen trajectory")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    if not (applied >= 0.9 and ate < 0.1 and dropped == 0
-            and ds_max < pipe.static.ds_points):
-        raise AssertionError("slice failed its acceptance bounds")
-    reference_phase(cfg_mod, runtime, tiles, log_mod)
-
+        raise AssertionError(f"[{method}] non-finite or misshapen trajectory")
+    for name in SHARED + (wrapper,):
+        if launches[name] <= 0:
+            raise AssertionError(f"[{method}] kernel {name} was not launched on the path")
+    if not (applied >= 0.9 and ate < ATE_GATE[method] and dropped == 0
+            and ds_max < ds_points):
+        raise AssertionError(f"[{method}] slice failed its acceptance bounds")
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = launches[r["name"]]
+    summary = {"scans_per_s": n / wall, "stage_ms": split, "frame_ms_p50": p50,
+               "frame_ms_p95": p95, "ate_m": ate, "applied": applied,
+               "iterations_mean": iters}
+    return rows, summary
+
+
+def reference_phase(method, cfg_mod, runtime, builder, tiles, log_mod):
+    """A small log on the card (kernels) against the same port on the CPU
+    (plain versions, which tests/test_torch_*.py hold to the JAX package),
+    under the repo's closed-loop contract: max < 3 cm, median < 5 mm, last 3
+    < 5 mm. The logs are those of tests/test_torch_slice.py (P2P) and
+    tests/test_torch_methods_replay.py (where each method converges)."""
+    cfg = method_cfg(cfg_mod, method)
+    cfg.pcm.input_voxel_ds_m = 1.0
+    ds_points = 1024
+    if method in ("P2P", "GICP"):
+        world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
+        log = log_mod.synthesize_log(world, duration=3.0, max_range=50.0, seed=10,
+                                     gps_hz=1.0,
+                                     points_per_scan=1024 if method == "P2P" else 4096)
+        ds_points = 1024 if method == "P2P" else 2048
+    else:
+        world = log_mod.make_world(seed=7, extent=60.0, n_ground=150_000, n_wall=80_000)
+        log = log_mod.synthesize_log(world, duration=2.0, points_per_scan=8192,
+                                     max_range=60.0, seed=8, imu_noise_gyro=0.001,
+                                     imu_noise_acc=0.01)
+        ds_points = 4096
+    built = builder.build_voxel_map(world, 1.0, 30, compute_voxel_cov=method != "GICP",
+                                    compute_point_cov=method == "GICP")
+    pos = {}
+    for device in ("cuda", "cpu"):
+        pipe = runtime.LocalizationPipeline(
+            cfg, built, device=device, ds_points=ds_points,
+            tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
+            ego_ring_size=128, imu_ring_size=128)
+        pos[device] = pipe.run_fused(log)[1]["ego_pos"]
+    err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
+    log_line(f"[{method}] reference: card vs CPU port over {len(err)} frames: max "
+             f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
+             f"{err[-3:].max():.2e} m")
+    if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
+        raise AssertionError(f"[{method}] the card's trajectory left the closed-loop "
+                             "contract")
+    return {"max_m": float(err.max()), "median_m": float(np.median(err)),
+            "last3_m": float(err[-3:].max())}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs one GPU",
+              file=sys.stderr)
+        return 1
+    import elimaloc_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
+    from elimaloc_tpu_torch import config as cfg_mod
+    from elimaloc_tpu_torch import deskew, kernels
+    from elimaloc_tpu_torch.kernels import build
+    from elimaloc_tpu_torch.map import builder, grid, tiles
+    from elimaloc_tpu_torch.pipeline import ate_rmse, runtime
+    from elimaloc_tpu_torch.pipeline import log as log_mod
+    from elimaloc_tpu_torch.register import icp
+
+    t_start = time.time()
+    smi = device_phase()
+    build_phase(build)
+    log, packed, ds_points, max_slots = make_headline(cfg_mod, runtime, builder, tiles,
+                                                      log_mod)
+    mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime)
+    rows, slices = [], {}
+    for method in METHODS:
+        r, slices[method] = run_path(method, log, packed, ds_points, max_slots, mods,
+                                     ate_rmse)
+        rows += r
+        torch.cuda.empty_cache()
+    for method in METHODS:
+        slices[method]["reference"] = reference_phase(method, cfg_mod, runtime, builder,
+                                                      tiles, log_mod)
+    log_line(f"chip_smoke: {time.time() - t_start:.1f} s")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms")
-    log_line(json.dumps({"slice": {"scans_per_s": n / wall, "stage_ms": split,
-                                   "frame_ms_p50": p50, "frame_ms_p95": p95,
-                                   "ate_m": ate, "applied": applied, "card": smi}}))
+    log_line(json.dumps({"slices": slices, "card": smi}))
     log_line(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log_line(smi)
     log_line(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import typing
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ def to_struct(cls, fields: dict, *, dtype=torch.float32, device=None):
         t = hints[f.name]
         if dataclasses.is_dataclass(t):
             kwargs[f.name] = to_struct(t, v, dtype=dtype, device=device)
-        elif t is torch.Tensor:
+        elif t is torch.Tensor or (t == Optional[torch.Tensor] and v is not None):
             kwargs[f.name] = _tensor(v, dtype, device)
         else:
             kwargs[f.name] = v
@@ -66,8 +67,9 @@ def pipeline_state(fields, *, dtype=torch.float32, device=None) -> PipelineState
 
 
 def tile_map(fields, *, dtype=torch.float32, device=None) -> TileMap:
-    """A device ``TileMap`` from a flattened tile map (point level only; the
-    port serves full maps, so a window anchor must be zero)."""
+    """A device ``TileMap`` from a flattened tile map, covariance fields
+    included where present (the port serves full maps, so a window anchor
+    must be zero)."""
     anchor = fields.get("tile_anchor")
     if anchor is not None and np.any(np.asarray(anchor) != 0):
         raise NotImplementedError(

@@ -56,4 +56,321 @@ __device__ int block_scan(int v, Op op, int* sh, int* total) {
   return v;
 }
 
+// --------------------------------------------------------------------------
+// The slot search shared by kernels A, E, F and G (one CTA per slot, QB
+// groups of kThreads / QB threads, one group per query).
+// --------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 1024;              // candidates staged per pass
+constexpr int kFarVoxel = 1 << 29;        // voxel coord that fails every cube test
+constexpr int kCoordSentinel = 1 << 30;   // halo_vox_coord pad (map/tiles.py)
+constexpr int kGnSums = 44;               // partial sums per slot of E, F, G
+
+// One query of a slot: the pose, the sensor-frame point s, the world query
+// q = R s + t formed in the fixed order ((R0 s0 + R1 s1) + R2 s2) + t of the
+// plain transform_slots, its voxel floor(q / voxel), and q on tile-local
+// coordinates (tile centre c, z centre 0).
+struct SlotQuery {
+  float r[9], t[3], s[3], q[3], ql[3], c0, c1;
+  int qv[3], tile, row, j, gl, tpq;
+  bool live;
+};
+
+__device__ __forceinline__ SlotQuery slot_query(
+    const int* slot_tile, const float* sbuf, const bool* qmask, int qb,
+    const float* pose, float voxel, float tile_size, int tx0, int ty0, int ty_dim) {
+  SlotQuery u;
+  const int s = blockIdx.x;
+  u.tpq = kThreads / qb;
+  u.j = threadIdx.x / u.tpq;
+  u.gl = threadIdx.x % u.tpq;
+  u.row = s * qb + u.j;
+  for (int i = 0; i < 3; ++i) {
+    u.r[3 * i] = pose[4 * i];
+    u.r[3 * i + 1] = pose[4 * i + 1];
+    u.r[3 * i + 2] = pose[4 * i + 2];
+    u.t[i] = pose[4 * i + 3];
+    u.s[i] = sbuf[3 * u.row + i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    u.q[i] = add(add(add(mul(u.r[3 * i], u.s[0]), mul(u.r[3 * i + 1], u.s[1])),
+                     mul(u.r[3 * i + 2], u.s[2])), u.t[i]);
+    u.qv[i] = (int)floorf(u.q[i] / voxel);
+  }
+  u.tile = slot_tile[s];
+  u.c0 = mul(add((float)(u.tile / ty_dim + tx0), 0.5f), tile_size);
+  u.c1 = mul(add((float)(u.tile % ty_dim + ty0), 0.5f), tile_size);
+  u.ql[0] = sub(u.q[0], u.c0);
+  u.ql[1] = sub(u.q[1], u.c1);
+  u.ql[2] = u.q[2];
+  u.live = qmask[u.row];
+  return u;
+}
+
+// 1 when any query of the slot is live (the whole CTA agrees).
+__device__ __forceinline__ bool slot_any_live(const SlotQuery& u, int* flag) {
+  if (threadIdx.x == 0) *flag = 0;
+  __syncthreads();
+  if (u.live && u.gl == 0) *flag = 1;
+  __syncthreads();
+  return *flag != 0;
+}
+
+// Stages halo point i as candidate k: tile-local coords and voxel coords;
+// non-finite pads get a far voxel so +inf never enters arithmetic.
+struct PointStage {
+  const float* row;
+  float c0, c1, voxel;
+  __device__ __forceinline__ void operator()(int i, int k, float* cl, int* cv) const {
+    const float x = row[3 * i], y = row[3 * i + 1], z = row[3 * i + 2];
+    if (isfinite(x)) {
+      cl[3 * k] = sub(x, c0);
+      cl[3 * k + 1] = sub(y, c1);
+      cl[3 * k + 2] = z;
+      cv[3 * k] = (int)floorf(x / voxel);
+      cv[3 * k + 1] = (int)floorf(y / voxel);
+      cv[3 * k + 2] = (int)floorf(z / voxel);
+    } else {
+      cl[3 * k] = cl[3 * k + 1] = cl[3 * k + 2] = 0.0f;
+      cv[3 * k] = cv[3 * k + 1] = cv[3 * k + 2] = kFarVoxel;
+    }
+  }
+};
+
+// Stages halo voxel i as candidate k: its mean on tile-local coords and its
+// stored voxel coords; unoccupied pads (sentinel coords, +inf means) get a
+// far voxel.
+struct VoxelStage {
+  const float* mean;
+  const int* coord;
+  float c0, c1;
+  __device__ __forceinline__ void operator()(int i, int k, float* cl, int* cv) const {
+    if (coord[3 * i] != kCoordSentinel) {
+      cl[3 * k] = sub(mean[3 * i], c0);
+      cl[3 * k + 1] = sub(mean[3 * i + 1], c1);
+      cl[3 * k + 2] = mean[3 * i + 2];
+      cv[3 * k] = coord[3 * i];
+      cv[3 * k + 1] = coord[3 * i + 1];
+      cv[3 * k + 2] = coord[3 * i + 2];
+    } else {
+      cl[3 * k] = cl[3 * k + 1] = cl[3 * k + 2] = 0.0f;
+      cv[3 * k] = cv[3 * k + 1] = cv[3 * k + 2] = kFarVoxel;
+    }
+  }
+};
+
+// Nearest of a halo row's m candidates inside the query's 27-voxel cube:
+// d2 as the exact ((dx^2 + dy^2) + dz^2) sum with no FMA (equal to the plain
+// PyTorch version bit for bit), the argmin kept with ties to the lower
+// candidate index inside the thread and across its group. Every thread of
+// the CTA must call it (it stages through ``cl``/``cv`` with barriers).
+// Returns best_d2 = +inf and best = INT_MAX where the cube is empty.
+template <class Stage>
+__device__ __forceinline__ void cube_argmin(
+    const SlotQuery& u, bool any_live, int m, const Stage& stage, float* cl, int* cv,
+    float& best_d2, int& best) {
+  best_d2 = __int_as_float(0x7f800000);  // +inf
+  best = 0x7fffffff;
+  if (any_live) {
+    for (int base = 0; base < m; base += kChunk) {
+      const int cn = min(kChunk, m - base);
+      __syncthreads();
+      for (int k = threadIdx.x; k < cn; k += kThreads) stage(base + k, k, cl, cv);
+      __syncthreads();
+      if (!u.live) continue;
+      for (int k = u.gl; k < cn; k += u.tpq) {
+        if (abs(cv[3 * k] - u.qv[0]) > 1 || abs(cv[3 * k + 1] - u.qv[1]) > 1 ||
+            abs(cv[3 * k + 2] - u.qv[2]) > 1)
+          continue;
+        const float d0 = sub(u.ql[0], cl[3 * k]);
+        const float d1 = sub(u.ql[1], cl[3 * k + 1]);
+        const float d2 = sub(u.ql[2], cl[3 * k + 2]);
+        const float dd = add(add(mul(d0, d0), mul(d1, d1)), mul(d2, d2));
+        if (dd < best_d2) {
+          best_d2 = dd;
+          best = base + k;
+        }
+      }
+    }
+  }
+  for (int o = u.tpq / 2; o > 0; o >>= 1) {
+    const float od = __shfl_down_sync(0xffffffffu, best_d2, o, u.tpq);
+    const int oi = __shfl_down_sync(0xffffffffu, best, o, u.tpq);
+    if (od < best_d2 || (od == best_d2 && oi < best)) {
+      best_d2 = od;
+      best = oi;
+    }
+  }
+}
+
+// Threads < np sum the slot's [qb, np] rows of ``part`` in query order into
+// ``out`` (the slot's partials). Call after a barrier.
+__device__ __forceinline__ void slot_partials(const float* part, int qb, int np,
+                                              float* out) {
+  if (threadIdx.x < np) {
+    float acc = 0.0f;
+    for (int q = 0; q < qb; ++q) acc += part[q * np + threadIdx.x];
+    out[threadIdx.x] = acc;
+  }
+}
+
+// --------------------------------------------------------------------------
+// Small 3x3 algebra of the GN tails (row-major float[9]).
+// --------------------------------------------------------------------------
+
+// Closed-form inverse, adjugate / det (ops/lie.py:inv3x3).
+__device__ __forceinline__ void inv3x3(const float* m, float* o) {
+  const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5];
+  const float g = m[6], h = m[7], i = m[8];
+  const float A = e * i - f * h, B = -(d * i - f * g), C = d * h - e * g;
+  const float inv_det = 1.0f / (a * A + b * B + c * C);
+  o[0] = A * inv_det;
+  o[1] = -(b * i - c * h) * inv_det;
+  o[2] = (b * f - c * e) * inv_det;
+  o[3] = B * inv_det;
+  o[4] = (a * i - c * g) * inv_det;
+  o[5] = -(a * f - c * d) * inv_det;
+  o[6] = C * inv_det;
+  o[7] = -(a * h - b * g) * inv_det;
+  o[8] = (a * e - b * d) * inv_det;
+}
+
+// R^T M R for the pose rotation r.
+__device__ __forceinline__ void conj_rt(const float* r, const float* m, float* o) {
+  float mr[9];
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l)
+      mr[3 * i + l] = m[3 * i] * r[l] + m[3 * i + 1] * r[3 + l] + m[3 * i + 2] * r[6 + l];
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l)
+      o[3 * i + l] = r[i] * mr[l] + r[3 + i] * mr[3 + l] + r[6 + i] * mr[6 + l];
+}
+
+// R^T v.
+__device__ __forceinline__ void rot_t(const float* r, const float* v, float* o) {
+  for (int i = 0; i < 3; ++i) o[i] = r[i] * v[0] + r[3 + i] * v[1] + r[6 + i] * v[2];
+}
+
+// Residual in the sensor frame: R^T mu - R^T t - s (lie.transform_inverse).
+__device__ __forceinline__ void sensor_residual(const SlotQuery& u, const float* mu,
+                                                float* e) {
+  float a[3], b[3];
+  rot_t(u.r, mu, a);
+  rot_t(u.r, u.t, b);
+  for (int i = 0; i < 3; ++i) e[i] = a[i] - b[i] - u.s[i];
+}
+
+// Unit eigenvector of the smallest eigenvalue of a symmetric 3x3 in closed
+// form (register/icp.py:_smallest_eigvec): trigonometric eigenvalues, then
+// the longest cross product of two rows of C - lambda I (first on ties);
+// (0, 0, 1) when all are ~0.
+__device__ __forceinline__ void smallest_eigvec(const float* a, float* v) {
+  const float q = (a[0] + a[4] + a[8]) / 3.0f;
+  float b[9];
+  for (int k = 0; k < 9; ++k) b[k] = a[k];
+  b[0] -= q;
+  b[4] -= q;
+  b[8] -= q;
+  float p2 = 0.0f;
+  for (int k = 0; k < 9; ++k) p2 += b[k] * b[k];
+  const float p = sqrtf(fmaxf(p2 / 6.0f, 1e-30f));
+  for (int k = 0; k < 9; ++k) b[k] /= p;
+  const float det = b[0] * (b[4] * b[8] - b[5] * b[7]) -
+                    b[1] * (b[3] * b[8] - b[5] * b[6]) +
+                    b[2] * (b[3] * b[7] - b[4] * b[6]);
+  const float phi = acosf(fminf(fmaxf(det / 2.0f, -1.0f), 1.0f)) / 3.0f;
+  const float lam = q + 2.0f * p * cosf(phi + 2.0943951023931953f);  // + 2 pi / 3
+  float c[9];
+  for (int k = 0; k < 9; ++k) c[k] = a[k];
+  c[0] -= lam;
+  c[4] -= lam;
+  c[8] -= lam;
+  const int pairs[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+  float best_n = -1.0f;
+  float w[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < 3; ++k) {
+    const float* x = c + 3 * pairs[k][0];
+    const float* y = c + 3 * pairs[k][1];
+    const float cx[3] = {x[1] * y[2] - x[2] * y[1], x[2] * y[0] - x[0] * y[2],
+                         x[0] * y[1] - x[1] * y[0]};
+    const float n = sqrtf(cx[0] * cx[0] + cx[1] * cx[1] + cx[2] * cx[2]);
+    if (n > best_n) {
+      best_n = n;
+      w[0] = cx[0];
+      w[1] = cx[1];
+      w[2] = cx[2];
+    }
+  }
+  if (best_n > 1e-20f) {
+    const float inv = 1.0f / fmaxf(best_n, 1e-30f);
+    v[0] = w[0] * inv;
+    v[1] = w[1] * inv;
+    v[2] = w[2] * inv;
+  } else {
+    v[0] = v[1] = 0.0f;
+    v[2] = 1.0f;
+  }
+}
+
+// One row's J^T M J and J^T M r for J = [I | -skew(p)], given A = w M and
+// A r in the sensor frame, written to out[0..41]: the blocks tl = A,
+// tr = -A S, bl = S A, br = -S A S (row-major 3x3 each; A need not be
+// symmetric), then A r and S A r (register/icp.py:_gn_blocks).
+__device__ __forceinline__ void gn_row(const float* A, const float* Ar, const float* p,
+                                       float* out) {
+  const float S[9] = {0.0f, -p[2], p[1], p[2], 0.0f, -p[0], -p[1], p[0], 0.0f};
+  float AS[9];
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l) {
+      AS[3 * i + l] = A[3 * i] * S[l] + A[3 * i + 1] * S[3 + l] + A[3 * i + 2] * S[6 + l];
+      out[3 * i + l] = A[3 * i + l];
+      out[9 + 3 * i + l] = -AS[3 * i + l];
+    }
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l) {
+      out[18 + 3 * i + l] = S[3 * i] * A[l] + S[3 * i + 1] * A[3 + l] + S[3 * i + 2] * A[6 + l];
+      out[27 + 3 * i + l] =
+          -(S[3 * i] * AS[l] + S[3 * i + 1] * AS[3 + l] + S[3 * i + 2] * AS[6 + l]);
+    }
+  for (int i = 0; i < 3; ++i) {
+    out[36 + i] = Ar[i];
+    out[39 + i] = S[3 * i] * Ar[0] + S[3 * i + 1] * Ar[1] + S[3 * i + 2] * Ar[2];
+  }
+}
+
+// The dynamic shared memory a kernel of this family needs above the 48 KB
+// default is opted into per launch.
+template <class K>
+__host__ inline cudaError_t allow_dynamic_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 }  // namespace elm
+
+// One unnamed namespace per translation unit (a second one inside ``elm``
+// would make nvcc's generated launch stubs ambiguous).
+namespace {
+
+// Fixed-order reduction of [S, np] slot partials: thread t sums rows t,
+// t + 256, ... in order, then a fixed shared-memory tree; no atomics, so a
+// float32 result is the same on every run. One CTA of elm::kThreads.
+__global__ void reduce_partials_kernel(const float* __restrict__ partials, int s,
+                                       int np, float* __restrict__ out) {
+  constexpr int kThreads = elm::kThreads;
+  __shared__ float buf[kThreads];
+  for (int k = 0; k < np; ++k) {
+    float acc = 0.0f;
+    for (int r = threadIdx.x; r < s; r += kThreads) acc += partials[(size_t)r * np + k];
+    buf[threadIdx.x] = acc;
+    __syncthreads();
+    for (int h = kThreads / 2; h > 0; h >>= 1) {
+      if (threadIdx.x < h) buf[threadIdx.x] += buf[threadIdx.x + h];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) out[k] = buf[0];
+    __syncthreads();
+  }
+}
+
+}  // namespace

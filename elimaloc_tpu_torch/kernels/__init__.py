@@ -14,6 +14,10 @@ A         p2p_correspond      map/tiles.py:nearest_point_slots + icp._p2p_tail
 B         assign_slots        map/tiles.py:assign_slots
 C         voxel_downsample    map/grid.py:voxel_downsample
 D         deskew              deskew.py:_find_rotation_batch + deskew_points
+E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
+                              icp._gicp_tail
+F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
+G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail
 ========  ==================  ===================================================
 """
 
@@ -27,7 +31,8 @@ from .build import library
 
 #: launches per kernel since the last :func:`reset_launches`
 launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
-            "deskew": 0}
+            "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
+            "avgicp_correspond": 0}
 
 
 def reset_launches() -> None:
@@ -166,6 +171,17 @@ def assign_slots(queries, valid, qb: int, max_slots: int, *, voxel_size,
     return out
 
 
+def _qb_of(qmask, name):
+    s, qb = qmask.shape
+    if qb < 8 or qb > 256 or qb & (qb - 1):
+        raise ValueError(f"{name}: qb must be a power of two in [8, 256], got {qb}")
+    return s, qb
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 #: order of kernel A's sums: sum w, sum w p (3), sum w p p^T (xx xy xz yy yz
 #: zz), sum w r (3), sum w p x r (3), fitness numerator, matched count
 P2P_SUMS = 18
@@ -174,12 +190,10 @@ P2P_SUMS = 18
 def p2p_correspond(halo_points, slot_tile, sbuf, qmask, pose, max_dist, *,
                    voxel_size, tile_size, tx0, ty0, ty_dim,
                    with_matches: bool = False):
-    """Kernel A (icp.p2p_search_reduce): the [18] P2P sums of one GN
+    """Kernel A (icp.p2p_search_reduce_plain): the [18] P2P sums of one GN
     iteration at ``pose``, plus (tgt [S,QB,3], ok [S,QB]) when
     ``with_matches``."""
-    s, qb = qmask.shape
-    if qb < 8 or qb > 256 or qb & (qb - 1):
-        raise ValueError(f"p2p_correspond: qb must be a power of two in [8, 256], got {qb}")
+    s, qb = _qb_of(qmask, "p2p_correspond")
     t1, mhp = halo_points.shape[:2]
     f32 = torch.float32
     dev = sbuf.device
@@ -201,9 +215,99 @@ def p2p_correspond(halo_points, slot_tile, sbuf, qmask, pose, max_dist, *,
     if with_matches:
         tgt = torch.empty((s, qb, 3), dtype=f32, device=dev)
         ok = torch.empty((s, qb), dtype=torch.bool, device=dev)
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     rc = library().elm_p2p_search_reduce(
-        *args, ptr(partials), ptr(sums), ptr(tgt), ptr(ok), _stream(sbuf))
+        *args, _ptr(partials), _ptr(sums), _ptr(tgt), _ptr(ok), _stream(sbuf))
     _raise_on(rc, "p2p_correspond")
     launches["p2p_correspond"] += 1
     return sums, tgt, ok
+
+
+#: order of kernels E/F/G's sums: J^T M J blocks tl, tr, bl, br (3x3
+#: row-major each), J^T M r top and bottom, fitness numerator, matched count
+GN_SUMS = 44
+
+
+def _cov_search(name, entry, rows, slot_tile, sbuf, qmask, pose, max_dist,
+                geometry, with_matches, pairs):
+    """Shared launch of kernels E, F and G: ``rows`` are the (name, tensor,
+    dtype, trailing shape) halo inputs of one map row each; ``pairs`` is 7
+    for AVGICP's per-offset matches, 0 for one match per query."""
+    s, qb = _qb_of(qmask, name)
+    for field, t, _, _ in rows:
+        if t is None:
+            raise ValueError(f"{name}: the tile map has no {field} "
+                             "(build it with the covariances this method needs)")
+    t1, m = rows[0][1].shape[:2]
+    f32 = torch.float32
+    dev = sbuf.device
+    args = [_check(t, n, dt, (t1, m) + tail) for n, t, dt, tail in rows]
+    args += [ctypes.c_int(m), _check(slot_tile, "slot_tile", torch.int32, (s,)),
+             _check(sbuf, "sbuf", f32, (s, qb, 3)),
+             _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s),
+             ctypes.c_int(qb), _check(pose, "pose", f32, (4, 4)),
+             _check(max_dist, "max_dist", f32, ()), *geometry]
+    partials = torch.empty((s, GN_SUMS), dtype=f32, device=dev)
+    sums = torch.empty(GN_SUMS, dtype=f32, device=dev)
+    cov = mean = ok = None
+    if with_matches:
+        lead = (s, qb, pairs) if pairs else (s, qb)
+        cov = torch.empty(lead + (3, 3), dtype=f32, device=dev)
+        mean = torch.empty(lead + (3,), dtype=f32, device=dev)
+        ok = torch.empty(lead, dtype=torch.bool, device=dev)
+    rc = getattr(library(), entry)(*args, _ptr(partials), _ptr(sums), _ptr(cov),
+                                   _ptr(mean), _ptr(ok), _stream(sbuf))
+    _raise_on(rc, name)
+    launches[name] += 1
+    return sums, cov, mean, ok
+
+
+def _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim):
+    return [ctypes.c_float(voxel_size), ctypes.c_float(tile_size), ctypes.c_int(tx0),
+            ctypes.c_int(ty0), ctypes.c_int(ty_dim)]
+
+
+def gicp_correspond(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile,
+                    sbuf, qmask, pose, max_dist, *, voxel_size, tile_size, tx0, ty0,
+                    ty_dim, with_matches: bool = False):
+    """Kernel E (icp.gicp_search_reduce_plain): the [44] GICP sums of one GN
+    iteration at ``pose``, plus (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])
+    when ``with_matches``."""
+    f32 = torch.float32
+    return _cov_search(
+        "gicp_correspond", "elm_gicp_search_reduce",
+        [("halo_points", halo_points, f32, (3,)),
+         ("halo_point_cov", halo_point_cov, f32, (3, 3)),
+         ("halo_point_cov_mean", halo_point_cov_mean, f32, (3,))],
+        slot_tile, sbuf, qmask, pose, max_dist,
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0)
+
+
+def vgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf,
+                     qmask, pose, max_dist, *, voxel_size, tile_size, tx0, ty0,
+                     ty_dim, with_matches: bool = False):
+    """Kernel F (icp.vgicp_search_reduce_plain): the [44] VGICP sums of one GN
+    iteration at ``pose``, plus (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])
+    when ``with_matches``."""
+    f32 = torch.float32
+    return _cov_search(
+        "vgicp_correspond", "elm_vgicp_search_reduce",
+        [("halo_vox_mean", halo_vox_mean, f32, (3,)),
+         ("halo_vox_cov", halo_vox_cov, f32, (3, 3)),
+         ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
+        slot_tile, sbuf, qmask, pose, max_dist,
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0)
+
+
+def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf,
+                      qmask, pose, max_dist, *, voxel_size, with_matches: bool = False):
+    """Kernel G (icp.avgicp_search_reduce_plain): the [44] AVGICP sums of one
+    GN iteration at ``pose``, plus (cov [S,QB,7,3,3], mean [S,QB,7,3],
+    ok [S,QB,7]) when ``with_matches``."""
+    f32 = torch.float32
+    return _cov_search(
+        "avgicp_correspond", "elm_avgicp_search_reduce",
+        [("halo_vox_mean", halo_vox_mean, f32, (3,)),
+         ("halo_vox_cov", halo_vox_cov, f32, (3, 3)),
+         ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
+        slot_tile, sbuf, qmask, pose, max_dist, [ctypes.c_float(voxel_size)],
+        with_matches, 7)

@@ -4,8 +4,10 @@ plain C interface, loaded with ``ctypes``.
 The library lands in ``elimaloc_tpu_torch/build/<hash>/`` (git-ignored),
 keyed by a hash of the sources and the flags, and is built at first use —
 never at import, so the package imports on hosts without a CUDA toolkit.
-``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills per
-kernel) is kept beside it as ``nvcc.log``.
+Each ``.cu`` compiles to an object in its own ``nvcc`` process, all started
+together, then one link makes the library. ``nvcc``'s ``-Xptxas -v`` report
+(registers, shared memory, spills per kernel) is kept beside it as
+``nvcc.log``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -38,6 +40,12 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P],
     "elm_p2p_search_reduce": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _F, _F, _I,
                               _I, _I, _P, _P, _P, _P, _P],
+    "elm_gicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
+                               _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "elm_vgicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
+                                _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "elm_avgicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
+                                 _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -69,13 +77,33 @@ def build() -> Path:
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = so.parent / f".{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-4000:]}")
+    tmp = so.with_name(f".{so.name}.{tag}")
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *(str(obj) for _, obj, _ in jobs)],
+                             capture_output=True, text=True)
+        log.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (so.parent / "nvcc.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -16,6 +16,11 @@ from .. import kernels
 
 _M32 = 0xFFFFFFFF
 
+#: the 7 face-adjacent voxel offsets of AVGICP, in the order of
+#: elimaloc_tpu/map/grid.py:36 (GetCorrespondencesAllCov)
+OFFSETS_7 = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+             (0, 0, -1))
+
 
 def div(x, s):
     """``x / s`` as a true division. ``s`` goes in as a device tensor:

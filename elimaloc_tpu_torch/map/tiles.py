@@ -7,18 +7,22 @@ exactly the candidates an in-tile query's 27-voxel cube can reach.
 
 Device half: ``TileMap`` (tensors on the device), ``TileQueryBudget``,
 ``assign_slots`` (scan queries sorted by tile and packed into [S, QB]
-slots) and ``nearest_point_slots`` (per slot, the nearest halo point inside
-each query's exact 27-voxel cube). ``assign_slots`` launches kernel B
+slots) and the three slot searches: ``nearest_point_slots`` (per slot, the
+nearest halo point inside each query's exact 27-voxel cube, and for GICP
+that point's covariance and neighbourhood mean), ``nearest_voxel_cov_slots``
+(the nearest voxel mean in the cube, VGICP) and ``all_voxel_cov_slots`` (the
+7 face-adjacent voxels, AVGICP). ``assign_slots`` launches kernel B
 (csrc/assign.cu) on a CUDA tensor and runs :func:`assign_slots_plain` on a
-CPU one. The CUDA form of ``nearest_point_slots`` is fused with the P2P
-reduction into kernel A (register/icp.py); the plain version here is its
-search half. The windowed-map crop and shift (K14) and the voxel-level
-queries (K9/K10) are ROADMAP Queue 1 #11/#14.
+CPU one. On CUDA each search is fused with its method's GN reduction into
+one kernel (A, E, F, G; register/icp.py); the plain versions here are their
+search halves. The windowed-map crop and shift (K14) are ROADMAP Queue 1
+#14.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,15 +30,16 @@ import torch
 from .. import kernels
 from ..struct import Struct
 from .builder import BuiltMap
-from .grid import div
+from .grid import OFFSETS_7, div
 
 _COORD_SENTINEL = np.int32(2**30)
 
 
 @dataclasses.dataclass
 class TileMap(Struct):
-    """Device tile map (point level). Row T (last) of ``halo_points`` is the
-    sentinel row: all +inf."""
+    """Device tile map. Row T (last) of every tile-indexed tensor is the
+    sentinel row (+inf geometry, eye covariances, sentinel coords). The
+    covariance fields are None where the map was built without them."""
 
     halo_points: torch.Tensor   # [T+1, MHP, 3], pad +inf
     voxel_size: float
@@ -44,6 +49,11 @@ class TileMap(Struct):
     tx_dim: int
     ty_dim: int
     origin: torch.Tensor        # [2] world offset, zero for full maps
+    halo_point_cov: Optional[torch.Tensor] = None       # [T+1, MHP, 3, 3], pad eye
+    halo_point_cov_mean: Optional[torch.Tensor] = None  # [T+1, MHP, 3], pad +inf
+    halo_vox_mean: Optional[torch.Tensor] = None        # [T+1, MHV, 3], pad +inf
+    halo_vox_cov: Optional[torch.Tensor] = None         # [T+1, MHV, 3, 3], pad eye
+    halo_vox_coord: Optional[torch.Tensor] = None       # [T+1, MHV, 3] int32, pad 2^30
 
     @property
     def num_tiles(self) -> int:
@@ -126,9 +136,16 @@ class HostTileMap:
     halo_margin: int = 1
 
     def to_device(self, device=None, dtype=torch.float32) -> TileMap:
+        def cast(a, dt=dtype):
+            return None if a is None else torch.as_tensor(a, dtype=dt, device=device)
+
         return TileMap(
-            halo_points=torch.as_tensor(self.halo_points, dtype=dtype,
-                                        device=device),
+            halo_points=cast(self.halo_points),
+            halo_point_cov=cast(self.halo_point_cov),
+            halo_point_cov_mean=cast(self.halo_point_cov_mean),
+            halo_vox_mean=cast(self.halo_vox_mean),
+            halo_vox_cov=cast(self.halo_vox_cov),
+            halo_vox_coord=cast(self.halo_vox_coord, torch.int32),
             voxel_size=self.voxel_size,
             tile_size=self.tile_size,
             tx0=self.tx0,
@@ -302,34 +319,119 @@ def _sq_norm3(d):
     return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
+def _cube_argmin(q, qv, ctr, cand_safe, cvox, present):
+    """Per query, the candidate with the least exact diff^2 distance inside
+    the 27-voxel cube, on tile-local coordinates, the first index winning
+    ties (tiles.py:663 ``_cube_mask`` + the argmin of :712/:803). ``q`` [C,QB,3]
+    world queries, ``qv`` their voxels, ``cand_safe`` [C,M,3] world candidates
+    (0 where not ``present``), ``cvox`` [C,M,3] their voxels. Returns
+    (best_d2 [C,QB], best [C,QB]); best_d2 is +inf with no candidate."""
+    cube = present[:, None, :]
+    for d in range(3):
+        cube = cube & (torch.abs(cvox[:, None, :, d] - qv[:, :, None, d]) <= 1)
+    ql = q - ctr[:, None, :]
+    cl = torch.where(present[..., None], cand_safe - ctr[:, None, :],
+                     torch.zeros_like(cand_safe))
+    d2 = _sq_norm3(ql[:, :, None, :] - cl[:, None, :, :])       # [C,QB,M]
+    d2 = torch.where(cube, d2, torch.full_like(d2, torch.inf))
+    return torch.min(d2, dim=2)
+
+
+def _take(rows, best):
+    """rows [C,M,...] at index best [C,QB] -> [C,QB,...] (an exact copy)."""
+    return rows[torch.arange(rows.shape[0], device=rows.device)[:, None], best]
+
+
+def _eye_like(x):
+    """Identity 3x3 broadcast to x [..., 3, 3]."""
+    return torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape)
+
+
+def _chunks(s: int, budget: TileQueryBudget):
+    chunk = max(1, min(budget.chunk, s))
+    return [slice(lo, lo + chunk) for lo in range(0, s, chunk)]
+
+
 def nearest_point_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
-                        budget: TileQueryBudget):
+                        budget: TileQueryBudget, *, with_point_cov: bool = False):
     """Per slot, the nearest finite halo point inside each query's exact
     27-voxel cube, on tile-local coordinates, first index winning ties, gated
-    by ``d2 < max_dist^2`` (tiles.py:712-773, P2P form). Returns
-    (target [S,QB,3], ok [S,QB]); target is the query where not ok."""
-    s = slot_tile.shape[0]
+    by ``d2 < max_dist^2`` (tiles.py:712-773). Returns (target [S,QB,3],
+    ok [S,QB]); target is the query where not ok. With ``with_point_cov``
+    (GICP) also (cov [S,QB,3,3], mean [S,QB,3]): the winner's covariance and
+    neighbourhood mean, the identity and the query where not ok."""
     centers = slot_centers(tmap, slot_tile, qbuf.dtype)
-    tgts, oks = [], []
-    chunk = max(1, min(budget.chunk, s))
-    for lo in range(0, s, chunk):
-        sl = slice(lo, lo + chunk)
+    outs = []
+    for sl in _chunks(slot_tile.shape[0], budget):
         q, qv, qm, ctr = qbuf[sl], qvox[sl], qmask[sl], centers[sl]
-        cand = tmap.halo_points[slot_tile[sl].long()]           # [C,MHP,3]
+        tid = slot_tile[sl].long()
+        cand = tmap.halo_points[tid]                            # [C,MHP,3]
         finite = torch.isfinite(cand[..., 0])
         cand_safe = torch.where(finite[..., None], cand, torch.zeros_like(cand))
         cvox = torch.floor(div(cand_safe, tmap.voxel_size)).to(torch.int32)
-        cube = finite[:, None, :]
-        for d in range(3):
-            cube = cube & (torch.abs(cvox[:, None, :, d] - qv[:, :, None, d]) <= 1)
-        ql = q - ctr[:, None, :]
-        cl = torch.where(finite[..., None], cand_safe - ctr[:, None, :],
-                         torch.zeros_like(cand_safe))
-        d2 = _sq_norm3(ql[:, :, None, :] - cl[:, None, :, :])   # [C,QB,MHP]
-        d2 = torch.where(cube, d2, torch.full_like(d2, torch.inf))
-        best_d2, best = torch.min(d2, dim=2)
+        best_d2, best = _cube_argmin(q, qv, ctr, cand_safe, cvox, finite)
         ok = qm & (best_d2 < max_dist * max_dist)
-        sel = torch.gather(cand_safe, 1, best[..., None].expand(-1, -1, 3))
-        tgts.append(torch.where(ok[..., None], sel, q))
-        oks.append(ok)
-    return torch.cat(tgts), torch.cat(oks)
+        out = [torch.where(ok[..., None], _take(cand_safe, best), q), ok]
+        if with_point_cov:
+            cov = _take(tmap.halo_point_cov[tid], best)
+            mean = _take(tmap.halo_point_cov_mean[tid], best)
+            out += [torch.where(ok[..., None, None], cov, _eye_like(cov)),
+                    torch.where(ok[..., None], mean, q)]
+        outs.append(out)
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def nearest_voxel_cov_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask,
+                            max_dist, budget: TileQueryBudget):
+    """VGICP search (tiles.py:803-845): per query, the occupied halo voxel of
+    the 27-voxel cube (by stored voxel coords) whose mean is nearest, on
+    tile-local coordinates, first index winning ties, gated by
+    ``d2 < max_dist^2``. Returns (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB]);
+    the identity and the query where not ok."""
+    centers = slot_centers(tmap, slot_tile, qbuf.dtype)
+    outs = []
+    for sl in _chunks(slot_tile.shape[0], budget):
+        q, qv, qm, ctr = qbuf[sl], qvox[sl], qmask[sl], centers[sl]
+        tid = slot_tile[sl].long()
+        means = tmap.halo_vox_mean[tid]                          # [C,MHV,3]
+        cvox = tmap.halo_vox_coord[tid]
+        occupied = cvox[..., 0] != int(_COORD_SENTINEL)
+        m_safe = torch.where(occupied[..., None], means, torch.zeros_like(means))
+        best_d2, best = _cube_argmin(q, qv, ctr, m_safe, cvox, occupied)
+        ok = qm & (best_d2 < max_dist * max_dist)
+        cov = _take(tmap.halo_vox_cov[tid], best)
+        outs.append((torch.where(ok[..., None, None], cov, _eye_like(cov)),
+                     torch.where(ok[..., None], _take(m_safe, best), q), ok))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def all_voxel_cov_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
+                        budget: TileQueryBudget):
+    """AVGICP search (tiles.py:869-906): per query and each offset of
+    ``OFFSETS_7``, the halo voxel whose stored coord equals ``qvox + off``
+    (a coord occurs at most once per halo row), gated by
+    ``d2 < max_dist^2`` with d2 in world coordinates. Returns
+    (cov [S,QB,7,3,3], mean [S,QB,7,3], ok [S,QB,7]); the identity and the
+    query where not ok."""
+    off7 = torch.tensor(OFFSETS_7, dtype=torch.int32, device=qvox.device)
+    outs = []
+    for sl in _chunks(slot_tile.shape[0], budget):
+        q, qv, qm = qbuf[sl], qvox[sl], qmask[sl]
+        tid = slot_tile[sl].long()
+        cvox = tmap.halo_vox_coord[tid]                          # [C,MHV,3]
+        occupied = cvox[..., 0] != int(_COORD_SENTINEL)
+        want = qv[:, :, None, :] + off7                          # [C,QB,7,3]
+        eq = torch.all(cvox[:, None, None, :, :] == want[..., None, :], dim=-1)
+        eq = eq & occupied[:, None, None, :]                     # [C,QB,7,MHV]
+        found = torch.any(eq, dim=-1)
+        idx = torch.argmax(eq.to(torch.int8), dim=-1).reshape(eq.shape[0], -1)
+        means = tmap.halo_vox_mean[tid]
+        m_safe = torch.where(occupied[..., None], means, torch.zeros_like(means))
+        mean = _take(m_safe, idx).reshape(q.shape[:2] + (7, 3))
+        mean = torch.where(found[..., None], mean, torch.zeros_like(mean))
+        d2 = _sq_norm3(mean - q[:, :, None, :])
+        ok = qm[..., None] & found & (d2 < max_dist * max_dist)
+        cov = _take(tmap.halo_vox_cov[tid], idx).reshape(q.shape[:2] + (7, 3, 3))
+        outs.append((torch.where(ok[..., None, None], cov, _eye_like(cov)),
+                     torch.where(ok[..., None], mean, q[:, :, None, :]), ok))
+    return tuple(torch.cat(x) for x in zip(*outs))

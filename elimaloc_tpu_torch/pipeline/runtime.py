@@ -1,18 +1,19 @@
-"""The fused localization runtime, P2P main path — port of
-``elimaloc_tpu/pipeline/runtime.py``.
+"""The fused localization runtime — port of
+``elimaloc_tpu/pipeline/runtime.py`` (P2P, GICP, VGICP and AVGICP on the
+tile backend).
 
 One :class:`PipelineState` (EKF state + ego/IMU rings) runs through
 :func:`fused_frame` once per LiDAR scan: :func:`imu_subbatch` (the frame's
 IMU samples through the EKF prediction, then one batch push into each
 ring), then :func:`scan_step` (range gate -> deskew -> pose sync -> voxel
-downsample -> P2P registration -> covariance shaping -> latency
+downsample -> ICP registration -> covariance shaping -> latency
 compensation -> EKF PCM update). :func:`replay_fused` is the Python loop
 that replaces the JAX ``lax.scan`` over frames; batches come from the NumPy
 :func:`build_fused_batches` and move to the device once per log.
 
 Refused with NotImplementedError (ROADMAP Queue 1): GPS / CAN fusion in
 the fused frame (#12), the hash backend (#13), active-window maps (#14) and
-every ICP method but P2P (#11).
+the radar covariances (#11); see ``register.icp.check_supported``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..ops.frames import global_to_local_velocity, imu_to_ego
 from ..register.icp import (
     IcpParams,
     IcpStatic,
+    check_supported,
     make_icp_params,
     make_icp_static,
     run_register,
@@ -399,7 +401,14 @@ def autosize_budgets(log: ReplayLog, voxel_ds, tile_size, qb=32, headroom=0.15):
 
 class LocalizationPipeline:
     """End-to-end localization over a prebuilt map on one device
-    (runtime.py:644-1588, the full-map fused P2P path).
+    (runtime.py:644-1588, the full-map fused path for every ICP method).
+
+    ``map_points`` is a raw [N,3] cloud (built here with the covariances the
+    method needs: per-voxel for VGICP/AVGICP, per-point for GICP,
+    runtime.py:696-704), a ``BuiltMap`` or a packed ``HostTileMap``, used as
+    they are. ``halo_margin`` defaults to 2 for AVGICP and 1 otherwise
+    (runtime.py:728-731): the wider halo keeps the hoisted slot assignment
+    exact for AVGICP's 7-voxel sums.
 
     Timestamps are rebased to ``time_base`` (set on the first event) in
     float64 on the host before any float32 store; returned trajectories are
@@ -413,20 +422,24 @@ class LocalizationPipeline:
                  map_window_radius: Optional[float] = None,
                  halo_margin: Optional[int] = None):
         method = cfg.pcm.icp_method
-        if method != IcpMethod.P2P:
-            raise NotImplementedError(
-                f"ICP method {IcpMethod(method).name}: only P2P is ported "
-                "(ROADMAP Queue 1 #11)")
-        if backend != "tile":
-            raise NotImplementedError(
-                f"backend={backend!r}: the hash backend is ROADMAP Queue 1 #13")
         if map_window_radius is not None:
             raise NotImplementedError(
                 "map_window_radius: active-window maps are ROADMAP Queue 1 #14")
+        prebuilt = isinstance(map_points, map_tiles.HostTileMap)
+        if halo_margin is None:
+            halo_margin = 2 if method == IcpMethod.AVGICP else 1
+        if prebuilt:
+            halo_margin = map_points.halo_margin
+        # a property of the MAP: with a margin >= 2 halo the hoisted
+        # assignment is exact for every method (runtime.py:735-736)
+        self.static = make_pipeline_static(
+            cfg, backend=backend, tile_budget=tile_budget, ds_points=ds_points,
+            reassign_each_iter=False if halo_margin >= 2 else None)
+        check_supported(self.static.icp_static)
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device) if device is not None else torch.device("cpu")
-        if isinstance(map_points, map_tiles.HostTileMap):
+        if prebuilt:
             host_tmap = map_points
         else:
             if isinstance(map_points, map_builder.BuiltMap):
@@ -434,17 +447,26 @@ class LocalizationPipeline:
             else:
                 built = map_builder.build_voxel_map(
                     map_points, cfg.pcm.pcm_voxel_size,
-                    cfg.pcm.pcm_voxel_max_point, use_native=use_native)
+                    cfg.pcm.pcm_voxel_max_point,
+                    compute_voxel_cov=method in (IcpMethod.VGICP, IcpMethod.AVGICP),
+                    compute_point_cov=method == IcpMethod.GICP,
+                    gicp_cov_search_dist=cfg.pcm.gicp_cov_search_dist,
+                    use_native=use_native)
             host_tmap = map_tiles.build_tile_map(
-                built, tile_voxels=tile_voxels,
-                halo_margin=1 if halo_margin is None else halo_margin)
+                built, tile_voxels=tile_voxels, halo_margin=halo_margin)
+        if method == IcpMethod.GICP and host_tmap.halo_point_cov is None:
+            raise ValueError(
+                "GICP needs per-point covariances: build the map with "
+                "build_voxel_map(..., compute_point_cov=True)")
+        if method in (IcpMethod.VGICP, IcpMethod.AVGICP) and np.all(
+                host_tmap.halo_vox_cov == np.eye(3, dtype=np.float32)):
+            raise ValueError(
+                f"{IcpMethod(method).name} needs per-voxel covariances and every "
+                "voxel covariance of this map is the identity: build it with "
+                "build_voxel_map(..., compute_voxel_cov=True)")
         self.host_map = host_tmap
         self.map = host_tmap.to_device(self.device, dtype)
-        reassign = False if host_tmap.halo_margin >= 2 else None
         self.params = make_pipeline_params(cfg, dtype=dtype, device=self.device)
-        self.static = make_pipeline_static(
-            cfg, backend=backend, tile_budget=tile_budget, ds_points=ds_points,
-            reassign_each_iter=reassign)
         self._ego_ring_size = ego_ring_size
         self._imu_ring_size = imu_ring_size
         self.time_base = None

@@ -1,29 +1,32 @@
-"""Scan-to-map registration, P2P on the tile backend — port of
-``elimaloc_tpu/register/icp.py`` (reference: registration.cpp).
+"""Scan-to-map registration, P2P / GICP / VGICP / AVGICP on the tile
+backend — port of ``elimaloc_tpu/register/icp.py`` (reference:
+registration.cpp).
 
 ``run_register`` assigns the scan to tile slots once from the initial guess
 (the hoisted assignment, icp.py:660-675) and runs the GN/LM loop on the host:
-one search + P2P reduction per iteration, the LM-damped 6x6 solve, the SE(3)
+one search + GN reduction per iteration, the LM-damped 6x6 solve, the SE(3)
 step, the overlap and termination gates, and ONE scalar readback per
 iteration (``done | failed``) to decide whether to go on. That is the
 ``lax.while_loop`` exactly: same trip count, same carry. The window-origin
 conjugation (icp.py:630-632, 824-825) is kept; it is a zero shift for full
-maps.
+maps. Only GICP exports ``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
 
-One GN iteration's search + reduction is :func:`p2p_search_reduce`: kernel A
-(csrc/correspond.cu) on a CUDA tensor, :func:`p2p_search_reduce_plain` (the
-composition of ``tiles.nearest_point_slots`` and :func:`_p2p_tail`) on a CPU
-tensor.
+One GN iteration's search + reduction is :func:`search_reduce`: on a CUDA
+tensor the method's fused kernel (csrc/: A ``correspond.cu`` P2P, E
+``gicp.cu``, F ``vgicp.cu``, G ``avgicp.cu``), on a CPU tensor its plain
+version (``*_search_reduce_plain``: the tiles search composed with the
+method's tail, icp.py:495-555).
 
-Not ported, refused with NotImplementedError: GICP / VGICP / AVGICP and the
-radar covariances (ROADMAP Queue 1 #11), the hash backend (#13), the
-correspondence-reuse and per-iteration reassignment loops (ROADMAP "Not
-ported") and the sharded modes (#19).
+Not ported, refused with NotImplementedError: the radar covariances (K12
+and the radar variants of the tails, ROADMAP Queue 1 #11), the hash backend
+(#13), the correspondence-reuse and per-iteration reassignment loops
+(ROADMAP "Not ported") and the sharded modes (#19).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -53,8 +56,8 @@ class IcpParams(Struct):
 
 @dataclasses.dataclass(frozen=True)
 class IcpStatic:
-    """Static registration switches (icp.py:67-110); the port runs
-    ``method=P2P``, ``backend="tile"`` with the hoisted assignment."""
+    """Static registration switches (icp.py:67-110); the port runs every
+    method on ``backend="tile"`` with the hoisted assignment."""
 
     method: int = int(IcpMethod.GICP)
     max_iteration: int = 10
@@ -109,7 +112,7 @@ class IcpResult(Struct):
     pose: torch.Tensor        # [4,4] refined sensor pose (global)
     success: torch.Tensor     # bool
     fitness: torch.Tensor
-    local_cov: torch.Tensor   # [6,6], identity for P2P (cpp:280)
+    local_cov: torch.Tensor   # [6,6] (JTJ + lambda diag)^-1, GICP only (cpp:140-142)
     iterations: torch.Tensor  # int32
     overlap: torch.Tensor     # last correspondence ratio
     dropped: torch.Tensor     # queries dropped on tile-slot overflow
@@ -117,21 +120,19 @@ class IcpResult(Struct):
 
 def check_supported(static: IcpStatic) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP item."""
-    if static.method != int(IcpMethod.P2P):
-        raise NotImplementedError(
-            f"ICP method {IcpMethod(static.method).name}: only P2P is ported "
-            "(GICP/VGICP/AVGICP are ROADMAP Queue 1 #11)")
     if static.backend != "tile":
         raise NotImplementedError(
             f"backend={static.backend!r}: only the tile backend is ported "
             "(the hash grid is ROADMAP Queue 1 #13)")
     if static.use_radar_cov:
-        raise NotImplementedError("use_radar_cov is ROADMAP Queue 1 #11")
+        raise NotImplementedError(
+            "use_radar_cov (radar_point_cov, K12, and the radar forms of the "
+            "GICP/VGICP/AVGICP tails) is ROADMAP Queue 1 #11")
     if static.corr_reuse or static.reassign_each_iter:
         raise NotImplementedError(
             "corr_reuse / reassign_each_iter are not ported (ROADMAP "
             "'Not ported'): the port searches every iteration on the hoisted "
-            "assignment")
+            "assignment; AVGICP needs a halo_margin=2 tile map")
     if static.psum_axis is not None or static.slot_shard_axis is not None:
         raise NotImplementedError(
             "psum_axis / slot_shard_axis: multi-device registration is "
@@ -139,7 +140,7 @@ def check_supported(static: IcpStatic) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# One GN iteration: search + P2P reduction
+# One GN iteration: search + reduction (P2P: kernel A)
 # --------------------------------------------------------------------------- #
 
 def transform_slots(pose, sbuf):
@@ -215,18 +216,217 @@ def assemble_p2p(sums):
     return sums[17].round().to(torch.int64), JTJ, torch.cat([swr, spxr]), sums[16]
 
 
-def p2p_search_reduce(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
-                      budget: maptiles.TileQueryBudget):
-    """One GN iteration's search + reduction -> (matched, JTJ, JTr, fit_num).
-    Kernel A on CUDA, the plain version on CPU."""
+# --------------------------------------------------------------------------- #
+# GICP / VGICP / AVGICP tails (icp.py:175-227, 324-426)
+# --------------------------------------------------------------------------- #
+
+def _gn_blocks(A, Ar, src):
+    """Sum over rows of J^T M J and J^T M r for J = [I | -skew(p)], given
+    A = w M [K,3,3] and A r [K,3] in the sensor frame. A need not be
+    symmetric (the SVD-regularised covariances are U diag V^T), so all four
+    blocks are summed: tl = sum A, tr = -sum A S, bl = sum S A,
+    br = -sum S A S (icp.py:186-198)."""
+    S = lie.skew(src)
+    AS = A @ S
+    JTJ = torch.cat([
+        torch.cat([torch.sum(A, dim=0), -torch.sum(AS, dim=0)], dim=1),
+        torch.cat([torch.einsum("kij,kjl->il", S, A),
+                   -torch.einsum("kij,kjl->il", S, AS)], dim=1),
+    ], dim=0)
+    JTr = torch.cat([torch.sum(Ar, dim=0), torch.einsum("kij,kj->i", S, Ar)])
+    return JTJ, JTr
+
+
+def _accumulate_gn(src_local, tgt_global, maha, w, mask, pose):
+    """Masked J^T M J and J^T M r over flat [K,...] rows (cpp:36-48 /
+    115-125 / 193-205; icp.py:175-199). Returns (JTJ, JTr, r)."""
+    inv_pose = lie.transform_inverse(pose)
+    tgt_local = tgt_global @ inv_pose[:3, :3].T + inv_pose[:3, 3]
+    r = tgt_local - src_local
+    A = (w * mask)[:, None, None] * maha
+    JTJ, JTr = _gn_blocks(A, torch.einsum("kij,kj->ki", A, r), src_local)
+    return JTJ, JTr, r
+
+
+def _smallest_eigvec(covs):
+    """Unit eigenvector of the smallest eigenvalue of [..., 3, 3] symmetric
+    matrices in closed form (icp.py:214-248): trigonometric eigenvalues, then
+    the longest cross product of two rows of C - lambda I; (0, 0, 1) when all
+    are ~0. Its sign is arbitrary; the consumer takes |r . n|."""
+    a = covs
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    q = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1) / 3.0
+    b = a - q[..., None, None] * eye
+    p = torch.sqrt(torch.clamp(torch.sum(b * b, dim=(-2, -1)) / 6.0, min=1e-30))
+    bn = b / p[..., None, None]
+    det = (
+        bn[..., 0, 0] * (bn[..., 1, 1] * bn[..., 2, 2] - bn[..., 1, 2] * bn[..., 2, 1])
+        - bn[..., 0, 1] * (bn[..., 1, 0] * bn[..., 2, 2] - bn[..., 1, 2] * bn[..., 2, 0])
+        + bn[..., 0, 2] * (bn[..., 1, 0] * bn[..., 2, 1] - bn[..., 1, 1] * bn[..., 2, 0])
+    )
+    phi = torch.arccos(torch.clamp(det / 2.0, -1.0, 1.0)) / 3.0
+    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    c = a - lam_min[..., None, None] * eye
+    r0, r1, r2 = c[..., 0, :], c[..., 1, :], c[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], dim=-2)
+    best = torch.argmax(lie.norm(cands), dim=-1)
+    v = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+    n = lie.norm(v, keepdim=True)
+    fallback = torch.zeros_like(v)
+    fallback[..., 2] = 1.0
+    return torch.where(n > 1e-20, v / torch.clamp(n, min=1e-30), fallback)
+
+
+def _gicp_tail(pose, src, cov, cov_mean, valid, params: IcpParams):
+    """GICP GN partials (AlignCloudsLocalPointCov, cpp:68-152; icp.py:324-351):
+    M = (R^T C R)^-1, residuals against the neighbourhood MEAN, weight
+    0.8 th^2 / (th + r^2)^2 + 0.2, fitness |r . n| with n the sensor-frame
+    normal of C. Returns (matched, JTJ, JTr, fit_num)."""
+    rot_inv = pose[:3, :3].T
+    matched = torch.sum(valid)
+    maha = lie.inv3x3(rot_inv @ cov @ rot_inv.T)
+    inv_pose = lie.transform_inverse(pose)
+    r = cov_mean @ inv_pose[:3, :3].T + inv_pose[:3, 3] - src
+    r2 = torch.sum(r * r, dim=-1)
+    th = params.max_search_dist
+    w = th * th / (th + r2) ** 2 * 0.8 + 0.2
+    JTJ, JTr, _ = _accumulate_gn(src, cov_mean, maha, w, valid.to(src.dtype), pose)
+    normal = _smallest_eigvec(cov) @ rot_inv.T
+    normal = normal / torch.clamp(lie.norm(normal, keepdim=True), min=1e-30)
+    dot = torch.abs(torch.sum(r * normal, dim=-1))
+    fit_num = torch.sum(torch.where(valid, dot, torch.zeros_like(dot)))
+    return matched, JTJ, JTr, fit_num
+
+
+def _voxcov_tail(pose, src, cov, mean, valid, params: IcpParams):
+    """VGICP GN partials (AlignCloudsLocalVoxelCov, cpp:154-225;
+    icp.py:354-378 without the radar term): rows with weight < 0.01 leave
+    both the sums and the fitness numerator, but every valid match counts."""
+    rot_inv = pose[:3, :3].T
+    matched = torch.sum(valid)
+    maha = lie.inv3x3(rot_inv @ cov @ rot_inv.T)
+    inv_pose = lie.transform_inverse(pose)
+    r = mean @ inv_pose[:3, :3].T + inv_pose[:3, 3] - src
+    r2 = torch.sum(r * r, dim=-1)
+    th = params.max_search_dist
+    w = th * th / (th + r2) ** 2
+    keep = valid & (w >= 0.01)
+    JTJ, JTr, _ = _accumulate_gn(src, mean, maha, w, keep.to(src.dtype), pose)
+    fit_num = torch.sum(torch.where(keep, torch.sqrt(r2), torch.zeros_like(r2)))
+    return matched, JTJ, JTr, fit_num
+
+
+def _avg_voxcov_tail(pose, src, q_world, cov, mean, ok, params: IcpParams):
+    """AVGICP GN partials with the 7-voxel axis reduced in the world frame
+    first (icp.py:381-426): P = sum w C^-1, bw = sum w C^-1 (mu - q), then
+    A = R^T P R and b = R^T bw once per point. ``matched`` counts (point,
+    voxel) PAIRS, so the overlap ratio can exceed 1 (a reference quirk)."""
+    matched = torch.sum(ok)
+    d = mean - q_world[:, None, :]                       # [K,7,3] world frame
+    r2 = torch.sum(d * d, dim=-1)
+    th = params.max_search_dist
+    w = th * th / (th + r2) ** 2
+    keep = ok & (w >= 0.01)
+    wk = torch.where(keep, w, torch.zeros_like(w))
+    cinv = lie.inv3x3(cov)
+    P = torch.einsum("ko,koij->kij", wk, cinv)
+    bw = torch.einsum("ko,koij,koj->ki", wk, cinv, d)
+    rot = pose[:3, :3]
+    JTJ, JTr = _gn_blocks(rot.T @ P @ rot, bw @ rot, src)
+    fit_num = torch.sum(torch.where(keep, torch.sqrt(r2), torch.zeros_like(r2)))
+    return matched, JTJ, JTr, fit_num
+
+
+def _slot_queries(tmap, pose, sbuf):
+    """The queries at ``pose`` on the slot layout and their voxels."""
+    qbuf = transform_slots(pose, sbuf)
+    return qbuf, torch.floor(div(qbuf, tmap.voxel_size)).to(torch.int32)
+
+
+def gicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
+                             budget: maptiles.TileQueryBudget):
+    """Plain PyTorch version of kernel E: the GICP search (icp.py:502-507)
+    then :func:`_gicp_tail`. Returns (matched, JTJ, JTr, fit_num,
+    cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])."""
+    qbuf, qvox = _slot_queries(tmap, pose, sbuf)
+    _, ok, cov, mean = maptiles.nearest_point_slots(
+        tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget,
+        with_point_cov=True)
+    sums = _gicp_tail(pose, sbuf.reshape(-1, 3), cov.reshape(-1, 3, 3),
+                      mean.reshape(-1, 3), ok.reshape(-1), params)
+    return (*sums, cov, mean, ok)
+
+
+def vgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
+                              budget: maptiles.TileQueryBudget):
+    """Plain PyTorch version of kernel F: the VGICP search (icp.py:509-514)
+    then :func:`_voxcov_tail`. Returns (matched, JTJ, JTr, fit_num,
+    cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])."""
+    qbuf, qvox = _slot_queries(tmap, pose, sbuf)
+    cov, mean, ok = maptiles.nearest_voxel_cov_slots(
+        tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget)
+    sums = _voxcov_tail(pose, sbuf.reshape(-1, 3), cov.reshape(-1, 3, 3),
+                        mean.reshape(-1, 3), ok.reshape(-1), params)
+    return (*sums, cov, mean, ok)
+
+
+def avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
+                               budget: maptiles.TileQueryBudget):
+    """Plain PyTorch version of kernel G: the AVGICP search (icp.py:516-521)
+    then :func:`_avg_voxcov_tail`. Returns (matched, JTJ, JTr, fit_num,
+    cov [S,QB,7,3,3], mean [S,QB,7,3], ok [S,QB,7])."""
+    qbuf, qvox = _slot_queries(tmap, pose, sbuf)
+    cov, mean, ok = maptiles.all_voxel_cov_slots(
+        tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget)
+    sums = _avg_voxcov_tail(pose, sbuf.reshape(-1, 3), qbuf.reshape(-1, 3),
+                            cov.reshape(-1, 7, 3, 3), mean.reshape(-1, 7, 3),
+                            ok.reshape(-1, 7), params)
+    return (*sums, cov, mean, ok)
+
+
+def assemble_gn(sums):
+    """Kernels E/F/G's 44 sums -> (matched, JTJ, JTr, fit_num): the JTJ blocks
+    tl, tr, bl, br (each 3x3 row-major), JTr top and bottom, the fitness
+    numerator, the matched count (icp.py:197-198)."""
+    b = sums[:36].reshape(4, 3, 3)
+    JTJ = torch.cat([torch.cat([b[0], b[1]], dim=1),
+                     torch.cat([b[2], b[3]], dim=1)], dim=0)
+    return sums[43].round().to(torch.int64), JTJ, sums[36:42], sums[42]
+
+
+_PLAIN = {
+    int(IcpMethod.P2P): p2p_search_reduce_plain,
+    int(IcpMethod.GICP): gicp_search_reduce_plain,
+    int(IcpMethod.VGICP): vgicp_search_reduce_plain,
+    int(IcpMethod.AVGICP): avgicp_search_reduce_plain,
+}
+
+
+def search_reduce(method: int, tmap, slot_tile, sbuf, qmask, pose,
+                  params: IcpParams, budget: maptiles.TileQueryBudget):
+    """One GN iteration of ``method`` -> (matched, JTJ, JTr, fit_num): the
+    method's kernel (A, E, F or G) on CUDA, its plain version on CPU."""
     if sbuf.device.type == "cpu":
-        return p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose,
-                                       params, budget)[:4]
-    sums, _, _ = kernels.p2p_correspond(
-        tmap.halo_points, slot_tile, sbuf, qmask, pose, params.max_search_dist,
-        voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=tmap.tx0,
-        ty0=tmap.ty0, ty_dim=tmap.ty_dim)
-    return assemble_p2p(sums)
+        return _PLAIN[method](tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
+    args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
+    geo = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=tmap.tx0,
+               ty0=tmap.ty0, ty_dim=tmap.ty_dim)
+    if method == int(IcpMethod.P2P):
+        return assemble_p2p(kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0])
+    if method == int(IcpMethod.GICP):
+        sums = kernels.gicp_correspond(
+            tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, *args,
+            **geo)[0]
+    elif method == int(IcpMethod.VGICP):
+        sums = kernels.vgicp_correspond(
+            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
+            **geo)[0]
+    else:
+        sums = kernels.avgicp_correspond(
+            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
+            voxel_size=tmap.voxel_size)[0]
+    return assemble_gn(sums)
 
 
 def _solve_step(JTJ, JTr, lm_lambda):
@@ -272,16 +472,17 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
     pose = pose0
     fitness = torch.zeros((), dtype=dtype, device=src_local.device)
     overlap = torch.zeros((), dtype=dtype, device=src_local.device)
+    local_cov = torch.eye(6, dtype=dtype, device=src_local.device)
     it = 0
     while it < static.max_iteration:
-        matched, JTJ, JTr, fit_num = p2p_search_reduce(
-            tmap, asg.slot_tile, sbuf, asg.qmask, pose, params,
+        matched, JTJ, JTr, fit_num = search_reduce(
+            static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose, params,
             static.tile_budget)
         fit = fit_num / torch.clamp(matched, min=1).to(dtype)
         ratio = matched.to(dtype) / total
         overlap_ok = ratio >= params.min_overlap_ratio
 
-        x, _ = _solve_step(JTJ, JTr, params.lm_lambda)
+        x, reg = _solve_step(JTJ, JTr, params.lm_lambda)
         x = torch.where(overlap_ok, x, torch.zeros_like(x))
         step_tf = _step_transform(x)
         pose = torch.where(overlap_ok, lie.compose(pose, step_tf), pose)
@@ -290,6 +491,9 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
         transform_norm = rot_norm + lie.norm(x[0:3])
         done = overlap_ok & (transform_norm < params.termination_threshold)
         fitness = torch.where(overlap_ok, fit, fitness)
+        if static.method == int(IcpMethod.GICP):
+            # only the GICP solver exports (JTJ + lambda diag)^-1 (cpp:140-142)
+            local_cov = torch.where(overlap_ok, torch.linalg.inv_ex(reg)[0], local_cov)
         overlap = ratio
         it += 1
         failed = ~overlap_ok
@@ -306,7 +510,7 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
         pose=pose,
         success=~failed & (fitness <= params.max_fitness_score),
         fitness=fitness,
-        local_cov=torch.eye(6, dtype=dtype, device=src_local.device),
+        local_cov=local_cov,
         iterations=torch.full((), it, dtype=torch.int32, device=src_local.device),
         overlap=overlap,
         dropped=asg.dropped.to(torch.int32),

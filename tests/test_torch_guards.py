@@ -134,7 +134,9 @@ def test_pipeline_refuses_unported(both_worlds, change):
     cfg = tiny_cfg(tconfig)
     kw = {}
     if change == "gicp":
+        # GICP runs; its radar form (K12) does not
         cfg.pcm.icp_method = tconfig.IcpMethod.GICP
+        cfg.pcm.use_radar_cov = True
     elif change == "window":
         kw["map_window_radius"] = 40.0
     else:

@@ -67,8 +67,11 @@ def test_run_register_p2p(dt_name, init):
 
 
 @pytest.mark.parametrize("change", [
-    dict(method=int(IcpMethod.GICP)), dict(method=int(IcpMethod.VGICP)),
-    dict(method=int(IcpMethod.AVGICP)), dict(backend="hash"),
+    # the methods run; their radar forms and AVGICP's per-iteration
+    # reassignment (a halo margin 1 map) do not
+    dict(method=int(IcpMethod.GICP), use_radar_cov=True),
+    dict(method=int(IcpMethod.VGICP), use_radar_cov=True),
+    dict(method=int(IcpMethod.AVGICP), reassign_each_iter=True), dict(backend="hash"),
     dict(corr_reuse=True), dict(reassign_each_iter=True),
     dict(use_radar_cov=True), dict(psum_axis="sp"), dict(slot_shard_axis="sp"),
 ], ids=["gicp", "vgicp", "avgicp", "hash", "corr_reuse", "reassign",

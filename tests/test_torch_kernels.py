@@ -9,7 +9,11 @@ plain version on the same CUDA inputs. Bounds: kernels B (assign) and C
 (downsample) exact; kernel D (deskew) atol 1e-4 m at ranges up to 60 m (the
 interval sum and the rotation run in another order and with FMAs); kernel
 A: ``tgt``/``ok`` exactly equal (exact diff^2 sums on both sides) and JTJ /
-JTr rtol 1e-4 (the f32 sums over ~1k rows are reduced in another order).
+JTr rtol 1e-4 (the f32 sums over ~1k rows are reduced in another order);
+kernels E, F, G (GICP, VGICP, AVGICP): ``ok`` and the selected covariances
+and means exactly equal (the same exact search, then copies), JTJ, JTr and
+the fitness numerator rtol 1e-4 on the norms (the per-row 3x3 inverses and
+products run with FMAs and the sums in another order).
 Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (tests/conftest.py
 imports jax, which the GPU host does not have).
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from elimaloc_tpu_torch import deskew, kernels
+from elimaloc_tpu_torch.config import IcpMethod
 from elimaloc_tpu_torch.kernels import build
 from elimaloc_tpu_torch.map import builder, grid, tiles
 from elimaloc_tpu_torch.pipeline import log as tlog
@@ -27,18 +32,26 @@ from elimaloc_tpu_torch.pipeline import rings
 from elimaloc_tpu_torch.register import icp
 
 
+METHODS = (IcpMethod.GICP, IcpMethod.VGICP, IcpMethod.AVGICP)
+#: each method's kernel wrapper (kernel E, F, G)
+WRAPPER = {IcpMethod.GICP: "gicp_correspond", IcpMethod.VGICP: "vgicp_correspond",
+           IcpMethod.AVGICP: "avgicp_correspond"}
+
+
 @pytest.fixture(scope="module")
 def scene():
-    """A small map, its tile map, one scan and the deskew inputs (NumPy)."""
+    """A small map with both covariances, its tile maps at halo margins 1
+    and 2, one scan and the deskew inputs (NumPy)."""
     world = tlog.make_world(seed=9, extent=40.0, n_ground=20_000, n_wall=10_000)
     log = tlog.synthesize_log(world, duration=0.5, points_per_scan=2048,
                               max_range=40.0, seed=10, radius=20.0)
-    built = builder.build_voxel_map(world, 1.0, 30, use_native=False)
-    return world, log, tiles.build_tile_map(built)
+    built = builder.build_voxel_map(world, 1.0, 30, compute_voxel_cov=True,
+                                    compute_point_cov=True, use_native=False)
+    return world, log, {m: tiles.build_tile_map(built, halo_margin=m) for m in (1, 2)}
 
 
 def _inputs(scene, device, dtype=torch.float32):
-    world, log, host_map = scene
+    world, log, host_maps = scene
     rng = np.random.default_rng(41)
     t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
     pts = t(log.scan_points[1])
@@ -57,12 +70,18 @@ def _inputs(scene, device, dtype=torch.float32):
         t(imu_t), t(rng.normal(0, 0.05, (40, 3)) + [0, 0, 0.3]),
         t(np.ones(40, bool), torch.bool), ring.t, ring.pos, ring.rpy,
         ring.vel_local, ring.gyro, ring.valid_mask(), t(1.0), t(1.1))
-    tmap = host_map.to_device(device, dtype)
+    tmap = host_maps[1].to_device(device, dtype)
+    tmap2 = host_maps[2].to_device(device, dtype)
     pose = np.eye(4)
     pose[:3, :3] = icp.lie.so3_exp(torch.tensor([0.01, 0.0, 1.2], dtype=torch.float64)).numpy()
     pose[:3, 3] = [19.7, 0.4, 0.1]
-    return dict(pts=pts, valid=valid, rel=rel, info=info, tmap=tmap, pose=t(pose),
-                max_dist=t(5.0), voxel=t(1.5))
+    return dict(pts=pts, valid=valid, rel=rel, info=info, tmap=tmap, tmap2=tmap2,
+                pose=t(pose), max_dist=t(5.0), voxel=t(1.5))
+
+
+def _method_map(inp, method):
+    """AVGICP runs on the halo margin 2 map, the other methods on margin 1."""
+    return inp["tmap2"] if method == IcpMethod.AVGICP else inp["tmap"]
 
 
 def _calls(inp, budget, out_size=1024, bug_compat_z=False):
@@ -82,8 +101,10 @@ def _calls(inp, budget, out_size=1024, bug_compat_z=False):
                        torch.zeros((), dtype=ds.dtype, device=ds.device))
     params = icp.make_icp_params(icp.PcmConfig(), dtype=ds.dtype, device=ds.device)
     out["p2p"] = (asg, sbuf, params)
-    out["p2p_sums"] = icp.p2p_search_reduce(tmap, asg.slot_tile, sbuf, asg.qmask,
-                                            inp["pose"], params, budget)
+    for method in (IcpMethod.P2P,) + METHODS:
+        out[method] = icp.search_reduce(int(method), _method_map(inp, method),
+                                        asg.slot_tile, sbuf, asg.qmask, inp["pose"],
+                                        params, budget)
     return out
 
 
@@ -105,14 +126,42 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
     for a, b in zip(out["downsample"], ref):
         assert torch.equal(a, b)
     assert int(out["assign"].qmask.sum()) > 100
+    asg, sbuf, params = out["p2p"]
+    for method in (IcpMethod.P2P,) + METHODS:
+        ref = icp._PLAIN[int(method)](_method_map(inp, method), asg.slot_tile, sbuf,
+                                      asg.qmask, inp["pose"], params, budget)
+        for a, b in zip(out[method], ref):
+            assert torch.equal(a, b), method
+        assert int(out[method][0]) > 100, method
+
+
+def test_launch_counters_name_all_seven_kernels():
+    assert sorted(kernels.launches) == sorted([
+        "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
+        "gicp_correspond", "vgicp_correspond", "avgicp_correspond"])
 
 
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
-                                   "p2p_correspond"])
+                                   "p2p_correspond", "gicp_correspond",
+                                   "vgicp_correspond", "avgicp_correspond"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
     inp = _inputs(scene, "cpu")
+    tm = inp["tmap"]
+    s = torch.zeros(8, dtype=torch.int32)
+    slot_args = (s, torch.zeros(8, 16, 3), torch.zeros(8, 16, dtype=torch.bool),
+                 inp["pose"], inp["max_dist"])
+    geo = dict(voxel_size=1.0, tile_size=4.0, tx0=0, ty0=0, ty_dim=4)
     with pytest.raises(ValueError, match="CUDA tensor required"):
-        if which == "deskew":
+        if which == "gicp_correspond":
+            kernels.gicp_correspond(tm.halo_points, tm.halo_point_cov,
+                                    tm.halo_point_cov_mean, *slot_args, **geo)
+        elif which == "vgicp_correspond":
+            kernels.vgicp_correspond(tm.halo_vox_mean, tm.halo_vox_cov,
+                                     tm.halo_vox_coord, *slot_args, **geo)
+        elif which == "avgicp_correspond":
+            kernels.avgicp_correspond(tm.halo_vox_mean, tm.halo_vox_cov,
+                                      tm.halo_vox_coord, *slot_args, voxel_size=1.0)
+        elif which == "deskew":
             kernels.deskew(inp["pts"], inp["rel"], inp["valid"], inp["info"], False)
         elif which == "voxel_downsample":
             kernels.voxel_downsample(inp["pts"], inp["valid"], inp["voxel"], 64)
@@ -176,3 +225,30 @@ def test_kernels_match_plain_on_card(scene, cuda, qb, max_slots, out_size,
         assert int(out["assign"].dropped) > 0 and int(out["downsample"][2]) == out_size
     for a, b in ((k_JTJ, JTJ), (k_JTr, JTr), (k_fit, fit)):
         assert float(torch.linalg.norm(a - b)) <= 1e-4 * float(torch.linalg.norm(b))
+    for a, b in zip(out[IcpMethod.P2P], (k_matched, k_JTJ, k_JTr, k_fit)):
+        assert torch.equal(a, b)
+
+    for method in METHODS:
+        tm = _method_map(inp, method)
+        geo = dict(voxel_size=tm.voxel_size)
+        if method == IcpMethod.GICP:
+            rows = (tm.halo_points, tm.halo_point_cov, tm.halo_point_cov_mean)
+        else:
+            rows = (tm.halo_vox_mean, tm.halo_vox_cov, tm.halo_vox_coord)
+        if method != IcpMethod.AVGICP:
+            geo.update(tile_size=tm.tile_size, tx0=tm.tx0, ty0=tm.ty0, ty_dim=tm.ty_dim)
+        sums, cov, mean, ok = getattr(kernels, WRAPPER[method])(
+            *rows, asg.slot_tile, sbuf, asg.qmask, inp["pose"], params.max_search_dist,
+            **geo, with_matches=True)
+        ref = icp._PLAIN[int(method)](tm, asg.slot_tile, sbuf, asg.qmask, inp["pose"],
+                                      params, budget)
+        assert torch.equal(ok, ref[6]), method
+        assert torch.equal(cov, ref[4]), method
+        assert torch.equal(mean, ref[5]), method
+        got = icp.assemble_gn(sums)
+        assert int(got[0]) == int(ref[0]) > 10, method
+        for a, b in zip(got[1:], ref[1:4]):
+            assert float(torch.linalg.norm(a - b)) <= 1e-4 * float(torch.linalg.norm(b)), method
+        # and the caller's dispatch launched this same kernel on the main path
+        for a, b in zip(out[method], got):
+            assert torch.equal(a, b), method

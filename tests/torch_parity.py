@@ -10,7 +10,20 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port while a test module that imports
+    this fixture runs: under the test runner's parallel workers PyTorch's
+    default (a thread per core, in every worker) oversubscribes the CPU many
+    times over (the methods' test files ran 3-7x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flatten(obj):
@@ -63,6 +76,17 @@ def tiny_cfg(cfg_mod):
     cfg.ekf.ekf_init_yaw_deg = 90.0
     cfg.calib.ego_to_lidar_trans = (0.0, 0.0, 0.0)
     cfg.calib.ego_to_lidar_rot_deg = (0.0, 0.0, 0.0)
+    return cfg
+
+
+def method_cfg(cfg_mod, method):
+    """:func:`tiny_cfg` with the ICP method ``method`` (a name such as
+    "GICP"); VGICP and AVGICP get bench.py's ``max_fitness_score=2.0`` (the
+    mean |residual| to voxel means is ~0.5 m at 1 m voxels)."""
+    cfg = tiny_cfg(cfg_mod)
+    cfg.pcm.icp_method = cfg_mod.IcpMethod[method]
+    if method in ("VGICP", "AVGICP"):
+        cfg.pcm.max_fitness_score = 2.0
     return cfg
 
 
