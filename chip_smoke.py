@@ -2,29 +2,39 @@
 """Smoke run of the PyTorch + CUDA port (elimaloc_tpu_torch) on one GPU.
 
 Drives the port's main path — fused localization replay through
-``LocalizationPipeline.run_fused`` — once per ICP method (P2P, GICP, VGICP,
-AVGICP) at the headline width of bench.py: make_world(seed=3, extent=120,
-400k ground + 200k wall points), 131,072 raw points per scan sampled 1/5,
-qb=16 and budgets sized from the log, the bench.py ``_cfg(method)``
-configuration. One BuiltMap with both covariances (bench.py:567-571) is
-packed at halo margin 1 (P2P, GICP, VGICP) and 2 (AVGICP).
+``LocalizationPipeline.run_fused`` — once per path: each ICP method (P2P,
+GICP, VGICP, AVGICP), then AVGICP with GPS and CAN fusion (BASELINE config
+5, bench.py:573-582), at the headline width of bench.py: make_world(seed=3,
+extent=120, 400k ground + 200k wall points), 131,072 raw points per scan
+sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and budgets sized
+from the log, the bench.py ``_cfg(method)`` configuration. One BuiltMap
+with both covariances (bench.py:567-571) is packed at halo margin 1 (P2P,
+GICP, VGICP) and 2 (AVGICP).
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the seven CUDA kernels from elimaloc_tpu_torch/csrc/, then the
+  2. build: the nine CUDA kernels from elimaloc_tpu_torch/csrc/, then the
      map and its two packings, each timed;
-  3. per method, one path:
-     a. a warm-up replay that records one main-path call of each kernel;
-     b. kernel vs plain: the method's fused search + GN kernel (A, E, F, G)
-        and, on the P2P path, kernels B, C and D against their plain
-        PyTorch versions on those inputs, with times from CUDA events
-        (median of 20);
+  3. per path:
+     a. a warm-up replay that records main-path calls of the kernels;
+     b. kernel vs plain: the method's fused search + GN kernel (A, E, F, G),
+        on the P2P path kernels B, C and D, on the fusion path kernels H
+        (the IMU chain) and I (the CAN, GPS and PCM updates), against their
+        plain PyTorch versions on those inputs, with times from CUDA events
+        (median of 20) and each kernel's bound (the least time the H100
+        could take: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+        counted from these inputs);
      c. the timed replay: the launch counts set to 0 just before it and
-        read just after (every kernel of the path must have launched),
-        applied ratio, ATE against ground truth, slot drops, downsample
-        budget, scans/s, a per-stage split and the frame time p50/p95;
-  4. reference, per method: a small log on the card against the same port
-     on the CPU (plain versions, held to the JAX package by the CPU tests)
+        read just after (every kernel of the path, H and I on every path,
+        must have launched), applied ratio, ATE against ground truth, slot
+        drops, downsample budget, scans/s, a per-stage split and the frame
+        time p50/p95, and on the fusion path the CAN and GPS samples the
+        filter's gates admitted;
+  4. torch.profiler, after every timed replay: kernels H and I alone on the
+     device, and one more replay per path for the device's busy share and
+     its top kernels;
+  5. reference, per path: a small log on the card against the same port on
+     the CPU (plain versions, held to the JAX package by the CPU tests)
      under the repo's closed-loop contract.
 Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
@@ -46,7 +56,21 @@ N_SCANS = 20
 RAW_POINTS = 131072
 INDEX_SAMPLING = 5
 REPEATS = 20
-METHODS = ("P2P", "GICP", "VGICP", "AVGICP")
+FUSION = "AVGICP+GPS+CAN"
+PATHS = ("P2P", "GICP", "VGICP", "AVGICP", FUSION)
+#: the EKF kernels, launched on every path: wrapper -> (source, replaces)
+EKF_KERNELS = {
+    "imu_chain": ("imu_chain.cu",
+                  "elimaloc_tpu/ekf/filter.py:520 predict_imu (+ :344, :306, :390, :424, "
+                  ":493) as driven by elimaloc_tpu/pipeline/runtime.py:405 imu_subbatch"),
+    "ekf_update": ("ekf_update.cu",
+                   "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 "
+                   "update_gnss + :705 update_can"),
+}
+#: published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and
+#: float32 operations/s outside the tensor cores
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
 #: per method: its fused search + GN kernel (wrapper), the kernel's source,
 #: the JAX hot ops it replaces and the plain version in register/icp.py
 KERNEL = {
@@ -63,6 +87,11 @@ KERNEL = {
                "elimaloc_tpu/map/tiles.py:869 + elimaloc_tpu/register/icp.py:381",
                "avgicp_search_reduce_plain"),
 }
+#: per method, for the bound: bytes per halo candidate (point, or voxel mean
+#: + coord), bytes gathered per match (covariance, mean) and f32 operations
+#: per match (P2P's 18 sums; the 3x3 conjugation, inverse and 44 sums)
+SEARCH_COST = {"P2P": (12, 0, 40), "GICP": (12, 48, 300), "VGICP": (24, 36, 300),
+               "AVGICP": (24, 36, 300)}
 SHARED = ("deskew", "voxel_downsample", "assign_slots")
 #: truth ATE gate per method on the headline log, m. AVGICP does not
 #: converge within max_iteration on this sparse map (8 iterations a frame
@@ -74,6 +103,21 @@ ATE_GATE = {"P2P": 0.1, "GICP": 0.15, "VGICP": 0.15, "AVGICP": 0.3}
 
 def log_line(*parts):
     print(*parts, flush=True)
+
+
+def path_method(path):
+    return path.split("+")[0]
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the bytes over HBM_BPS and the
+    operations over F32_OPS."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def device_phase():
@@ -113,10 +157,13 @@ def _kernel_name(line):
     return "?"
 
 
-def method_cfg(cfg_mod, method):
-    """bench.py:_cfg(method), rebuilt from the port's config copy."""
+def method_cfg(cfg_mod, path):
+    """bench.py:_cfg(method), rebuilt from the port's config copy; the
+    fusion path adds ``use_gps = use_can = True`` (bench.py:579-582)."""
+    method = path_method(path)
     cfg = cfg_mod.ElimalocConfig()
     cfg.pcm.icp_method = cfg_mod.IcpMethod[method]
+    cfg.ekf.use_gps = cfg.ekf.use_can = path == FUSION
     cfg.pcm.lidar_time_delay = 0.0
     cfg.ekf.ekf_init_x_m = 60.0
     cfg.ekf.ekf_init_y_m = 0.0
@@ -159,10 +206,13 @@ def make_headline(cfg_mod, runtime, builder, tiles, log_mod):
 
 class Recorder:
     """Wraps the kernel launchers to keep the arguments of one main-path call
-    each (taken at frame ``at``), so the kernel phase runs on real inputs."""
+    each (taken at call ``at``), so the kernel phase runs on real inputs;
+    ``ekf_update``'s calls are all kept (``every``): the rows pick a CAN, a
+    GPS and a PCM call among them."""
 
     def __init__(self, kernels, names, at):
         self.kernels, self.at, self.calls, self.seen = kernels, at, {}, {}
+        self.every = {"ekf_update": []}
         self.orig = {n: getattr(kernels, n) for n in names}
 
     def __enter__(self):
@@ -172,6 +222,8 @@ class Recorder:
                 self.seen[_n] = i + 1
                 if _n not in self.calls and i >= self.at:
                     self.calls[_n] = (a, k)
+                if _n in self.every:
+                    self.every[_n].append((a, k))
                 return _f(*a, **k)
             setattr(self.kernels, name, wrapped)
         return self
@@ -209,20 +261,31 @@ def shared_kernel_rows(pipe, calls, mods):
     err = float((got - ref).abs().max())
     if not err <= 1e-4:
         raise AssertionError(f"deskew kernel vs plain: max abs err {err} > 1e-4")
+    points, rel, valid, info = a[:4]
+    # per valid point: ~10 operations per IMU interval of the rotation sum,
+    # ~60 for the rotation and the transform
+    ops = int(valid.sum()) * (10 * info.imu_time.shape[0] + 60)
     rows.append(dict(name="deskew", source="elimaloc_tpu_torch/csrc/deskew.cu",
                      replaces="elimaloc_tpu/deskew.py:196 (+ deskew_points :229)",
                      max_abs_err=err, ms=time_ms(lambda: kernels.deskew(*a, **k)),
-                     plain_ms=time_ms(lambda: deskew.deskew_points_plain(*a))))
+                     plain_ms=time_ms(lambda: deskew.deskew_points_plain(*a)),
+                     bound=bound(ops, nbytes(points, rel, valid, info.imu_time, info.imu_rot,
+                                             info.imu_included, got))))
 
     a, k = calls["voxel_downsample"]
     got = kernels.voxel_downsample(*a, **k)
     ref = grid.voxel_downsample_plain(*a, **k)
     if not all(torch.equal(x, y) for x, y in zip(got, ref)):
         raise AssertionError("voxel_downsample kernel differs from its plain version")
+    n, nv, kept = a[0].shape[0], int(a[1].sum()), int(got[2])
+    # per valid point: voxel key (~14) and its sum (3); the key sort
+    # (n log2 n comparisons); per kept voxel its mean (3)
+    ops = nv * 17 + n * int(np.ceil(np.log2(n))) + kept * 3
     rows.append(dict(name="voxel_downsample", source="elimaloc_tpu_torch/csrc/downsample.cu",
                      replaces="elimaloc_tpu/map/grid.py:271", max_abs_err=0.0,
                      ms=time_ms(lambda: kernels.voxel_downsample(*a, **k)),
-                     plain_ms=time_ms(lambda: grid.voxel_downsample_plain(*a, **k))))
+                     plain_ms=time_ms(lambda: grid.voxel_downsample_plain(*a, **k)),
+                     bound=bound(ops, nbytes(a[0], a[1], *got))))
 
     a, k = calls["assign_slots"]
     queries, valid = a[0], a[1]
@@ -231,11 +294,15 @@ def shared_kernel_rows(pipe, calls, mods):
     for name in got:
         if not torch.equal(got[name], getattr(ref, name)):
             raise AssertionError(f"assign_slots kernel differs from plain in {name}")
+    n = queries.shape[0]
+    # per valid query: voxel and tile keys (~14); the tile-key sort
+    ops = int(valid.sum()) * 14 + n * int(np.ceil(np.log2(n)))
     rows.append(dict(name="assign_slots", source="elimaloc_tpu_torch/csrc/assign.cu",
                      replaces="elimaloc_tpu/map/tiles.py:577", max_abs_err=0.0,
                      ms=time_ms(lambda: kernels.assign_slots(*a, **k)),
                      plain_ms=time_ms(lambda: tiles.assign_slots_plain(
-                         tmap, queries, valid, budget))))
+                         tmap, queries, valid, budget)),
+                     bound=bound(ops, nbytes(queries, valid, *got.values()))))
     log_line(f"  shapes: scan {tuple(calls['deskew'][0][0].shape)}, "
              f"queries {tuple(queries.shape)}, halo {tuple(tmap.halo_points.shape)}")
     return rows
@@ -275,19 +342,210 @@ def method_kernel_row(method, pipe, calls, mods):
             raise AssertionError(f"{wrapper}: JTJ/JTr/fitness rel err {rel} > 1e-4")
         err = max(err, float((x - y).abs().max()))
         worst = max(worst, rel)
+    live = int(qmask.sum())
+    n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
+    matched, row = int(ref[0]), a[0].shape[1]
+    cand_b, match_b, match_ops = SEARCH_COST[method]
+    # the halo rows of the tiles in use, the live queries, the masks, the
+    # matched rows' covariance gathers and the sums; 6 operations per
+    # candidate (the 27-voxel cube test) and the per-match GN arithmetic
+    moved = (n_tiles * row * cand_b + live * 12 + nbytes(qmask, slot_tile, pose, out[0])
+             + matched * match_b)
     log_line(f"  {wrapper}: slots {tuple(qmask.shape)}, halo {tuple(a[0].shape)}, "
-             f"matched {int(got[0])}, |JTJ| {float(torch.linalg.norm(ref[1])):.3e}, "
-             f"worst rel err {worst:.2e}")
+             f"live queries {live}, tiles {n_tiles}, matched {matched}, "
+             f"|JTJ| {float(torch.linalg.norm(ref[1])):.3e}, worst rel err {worst:.2e}")
     return dict(name=wrapper, source=f"elimaloc_tpu_torch/csrc/{src}", replaces=replaces,
                 max_abs_err=err, ms=time_ms(lambda: getattr(kernels, wrapper)(*a, **k)),
                 plain_ms=time_ms(lambda: plain(tmap, slot_tile, sbuf, qmask, pose,
-                                               params, budget)))
+                                               params, budget)),
+                bound=bound(live * row * 6 + matched * match_ops, moved))
+
+
+def device_profile(fn):
+    """({kernel name: device us summed}, wall ms) of fn() under one
+    torch.profiler pass; the dict is empty where the profiler saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return per, wall
+
+
+def kernel_device_ms(fn, kernel):
+    """Device time of one call of fn (ms, from REPEATS calls under the
+    profiler) in the kernels whose name holds ``kernel``, or None."""
+    per, _ = device_profile(lambda: [fn() for _ in range(REPEATS)])
+    us = sum(v for k, v in per.items() if kernel in k)
+    return us / REPEATS * 1e-3 if us else None
+
+
+def kalman_ops(m):
+    """f32 operations of one Kalman update of size m on the 27x27 P: H P,
+    the m x m solve, the gain rows, K Y, P -= K H P and the injection."""
+    return m * 27 + m ** 3 + 27 * 2 * m * m + 27 * 2 * m + 729 * 2 * m + 60
+
+
+def state_bytes(kernels, state):
+    return nbytes(*(getattr(state, f) for f, _, _ in kernels.EKF_FIELDS))
+
+
+def params_bytes(kernels, params):
+    return nbytes(*(getattr(params, f) for f, _ in kernels.PARAM_FIELDS))
+
+
+def ekf_field_errors(kernels, got, ref):
+    """{field: max |got - ref| / max |ref|} over the float fields; the flags
+    and counters must be equal."""
+    rel = {}
+    for f, dtype, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if dtype != torch.float32:
+            if not torch.equal(a, b):
+                raise AssertionError(f"EKF kernel vs plain: field {f} differs")
+            continue
+        scale = float(b.abs().max()) or 1.0
+        rel[f] = float((a - b).abs().max()) / scale
+    return rel
+
+
+def p_entry_err(got, ref, prior, tol):
+    """P's error as a share of its limit (at most 1 passes): max over (i, j)
+    of |got_ij - ref_ij| / (tol sqrt(ref_ii ref_jj) + 8 eps sqrt(prior_ii
+    prior_jj)), eps the float32 epsilon. Each entry is held to its own
+    variances, so the small observed blocks (pos, rot, vel: variances far
+    below 1) are held as tightly as the unobserved states near
+    INIT_STATE_COV = 100. The second term is the rounding that P -= K H P
+    leaves, in any order of operations, on an entry whose variance an
+    update collapses (a 6-DOF fix with zero rotation noise): eight ulps of
+    the entry's scale before the call."""
+    def scale(p):
+        d = torch.sqrt(torch.diagonal(p).clamp(min=0.0))
+        return d[:, None] * d[None, :]
+
+    limit = tol * scale(ref) + 8 * torch.finfo(torch.float32).eps * scale(prior)
+    return float(((got - ref).abs() / limit.clamp(min=1e-30)).max())
+
+
+def imu_chain_row(calls, mods):
+    """Kernel H against ``imu_chain_plain`` + ``ego_history`` on one frame's
+    IMU budget: pos / vel and the history's pos / vel_local within 1e-4 m,
+    the quaternions 1e-6, the history's angles 1e-5 rad, each P entry within
+    1e-4 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``; the plain
+    version's small products go through cuBLAS, whose order and FMAs differ
+    from the kernel's ordered sums)."""
+    kernels, efilter = mods[0], mods[7]
+    a, _ = calls["imu_chain"]
+    st, ts, acc, gyro, valid, params, flags = a
+    got, ghist = kernels.imu_chain(*a)
+    ref, rhist = efilter.imu_chain_plain(*a)
+    rhist = efilter.ego_history(*rhist)
+    err = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+           for f in ("pos", "vel", "rot", "imu_rot")}
+    err["P"] = float((got.P - ref.P).abs().max())
+    err["P share of its limit"] = p_entry_err(got.P, ref.P, st.P, 1e-4)
+    diag = torch.diagonal(ref.P)
+    ekf_field_errors(kernels, got, ref)
+    hist_err = [float((x - y).abs().max()) for x, y in zip(ghist, rhist)]
+    gates = [err["pos"] <= 1e-4, err["vel"] <= 1e-4, err["rot"] <= 1e-6,
+             err["imu_rot"] <= 1e-6, err["P share of its limit"] <= 1.0]
+    gates += [e <= g for e, g in zip(hist_err, (0.0, 1e-4, 1e-5, 1e-4, 1e-4))]
+    log_line(f"  imu_chain: {ts.shape[0]} samples ({int(valid.sum())} valid), errors "
+             + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+             + f" (P_ii {float(diag.min()):.2e} to {float(diag.max()):.2e}), history "
+             "(t, pos, rpy, vel_local, gyro) " + ", ".join(f"{e:.2e}" for e in hist_err))
+    if not all(gates):
+        raise AssertionError("imu_chain kernel vs plain: outside its gates")
+    # per valid sample: the nominal step (~400), B = A P, C = A B^T and the
+    # P update (~7,200), the complementary filter (m = 2), the calibration
+    # (m = 3) where on, and the history entry (~100)
+    per = 7700 + (kalman_ops(2) + 200 if flags.run_cf else 0) + (
+        kalman_ops(3) + 300 if flags.imu_estimate_calibration else 0)
+    moved = (2 * state_bytes(kernels, st) + params_bytes(kernels, params)
+             + nbytes(ts, acc, gyro, valid, *ghist))
+    return dict(name="imu_chain", source="elimaloc_tpu_torch/csrc/imu_chain.cu",
+                replaces=EKF_KERNELS["imu_chain"][1],
+                max_abs_err=max(err["pos"], err["vel"], err["rot"], err["imu_rot"],
+                                *hist_err),
+                ms=time_ms(lambda: kernels.imu_chain(*a)),
+                plain_ms=time_ms(lambda: efilter.ego_history(
+                    *efilter.imu_chain_plain(*a)[1])),
+                device_fn=(lambda: kernels.imu_chain(*a), "imu_chain_kernel"),
+                bound=bound(int(valid.sum()) * per, moved))
+
+
+def ekf_update_row(rec, mods):
+    """Kernel I against ``update_chain_plain`` on a CAN sub-batch, a GPS
+    fix and a PCM pose the main path gave it: each P entry within 1e-5
+    sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``), every other
+    float field within rel
+    1e-5 of its largest entry, the flags and counters equal. Its time is
+    one frame's two launches (the CAN + GPS sub-batch, then the PCM update,
+    as the path made them at the recorded frame)."""
+    kernels, efilter = mods[0], mods[7]
+
+    def plain(*a, gps_source=None, **k):  # the plain chain reads it from the flags
+        return efilter.update_chain_plain(*a, **k)
+
+    calls = rec.every["ekf_update"]
+    late = calls[rec.at:]
+    frame_can = next(c for c in late if c[1].get("can") is not None)
+    frame_pcm = next(c for c in late if c[1].get("pcm") is not None)
+    gps = next(c for c in calls if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
+    pcm = next(c for c in calls if c[1].get("pcm") is not None and bool(c[1]["pcm"][1]))
+    checks = {
+        "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
+        "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source", "gnss_uncertainty_max")}),
+        "PCM": pcm,
+    }
+    worst = 0.0
+    for what, (a, k) in checks.items():
+        got = kernels.ekf_update(*a, **k)
+        ref = plain(*a, **k)
+        rel = ekf_field_errors(kernels, got, ref)
+        rel.pop("P")
+        p_err = p_entry_err(got.P, ref.P, a[0].P, 1e-5)
+        moved = float((ref.P - a[0].P).abs().max())
+        log_line(f"  ekf_update {what}: P moved by {moved:.2e}, P share of its limit "
+                 f"{p_err:.2e}, worst rel err of the rest {max(rel.values()):.2e} "
+                 f"({max(rel, key=rel.get)})")
+        if not (p_err <= 1.0 and max(rel.values()) <= 1e-5 and moved > 0.0):
+            raise AssertionError(f"ekf_update kernel vs plain on {what}: outside its gate")
+        worst = max(worst, max(float((getattr(got, f) - getattr(ref, f)).abs().max())
+                               for f in (*rel, "P")))
+
+    def frame(fn):
+        return lambda: [fn(*a, **k) for a, k in (frame_can, frame_pcm)]
+
+    st, params = frame_can[0][0], frame_can[0][1]
+    t, vx, yaw, cvalid = frame_can[1]["can"]
+    gt, gpos, gcov, gvalid = frame_can[1]["gps"]
+    meas, apply = frame_pcm[1]["pcm"]
+    ops = (int(cvalid.sum()) * (kalman_ops(4) + 150) + int(gvalid.sum()) * (kalman_ops(3) + 250)
+           + int(bool(apply)) * (kalman_ops(6) + 250))
+    moved = (4 * state_bytes(kernels, st) + 2 * params_bytes(kernels, params)
+             + nbytes(t, vx, yaw, cvalid, gt, gpos, gcov, gvalid, meas.timestamp, meas.pos,
+                      meas.rot, meas.pos_cov, meas.rot_cov, apply))
+    return dict(name="ekf_update", source="elimaloc_tpu_torch/csrc/ekf_update.cu",
+                replaces=EKF_KERNELS["ekf_update"][1], max_abs_err=worst,
+                ms=time_ms(frame(kernels.ekf_update)),
+                plain_ms=time_ms(frame(plain)),
+                device_fn=(frame(kernels.ekf_update), "ekf_update_kernel"),
+                bound=bound(ops, moved))
 
 
 class StageTimer:
     """``mark`` callback of the pipeline: one CUDA event per stage boundary."""
 
-    ORDER = ("imu", "deskew", "downsample", "assign", "gn", "ekf_update")
+    ORDER = ("imu", "can_gps", "deskew", "downsample", "assign", "gn", "ekf_update")
 
     def __init__(self):
         self.events = []
@@ -313,45 +571,73 @@ class StageTimer:
         return {k: v / max(frames, 1) for k, v in tot.items()}, frames, per_frame
 
 
-def run_path(method, log, packed, ds_points, max_slots, mods, ate_rmse):
-    """One method's path: warm-up replay (recording the kernels' inputs), the
-    kernel-vs-plain rows, then the timed replay with its launch counts."""
+def admitted_can_gps(runtime, pipe, log, state):
+    """The CAN samples and GPS fixes the filter's gates admit on this log
+    (valid; CAN at least 0.01 s after the last admitted sample, GPS within
+    ``gnss_uncertainty_max`` on x and y), counted on the host in float32 as
+    the filter compares; the final state's last CAN stamp must be the last
+    admitted one."""
+    b = runtime.build_fused_batches(log, time_base=pipe.time_base)
+    prev, n_can = np.float32(0.0), 0
+    for t in b["can_t"][b["can_valid"]]:
+        if abs(t - prev) >= 0.01:
+            prev, n_can = t, n_can + 1
+    var = b["gps_cov"] * b["gps_cov"]
+    gate = np.float32(float(pipe.params.gnss_uncertainty_max))
+    n_gps = int((b["gps_valid"] & (var[..., 0] <= gate) & (var[..., 1] <= gate)).sum())
+    if float(state.ekf.prev_can_timestamp) != float(prev):
+        raise AssertionError("the last CAN update is not the last admitted sample")
+    return n_can, n_gps
+
+
+def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
+    """One path: warm-up replay (recording the kernels' inputs), the
+    kernel-vs-plain rows, then the timed replay with its launch counts. Its
+    torch.profiler pass goes into ``deferred``: it runs after every path's
+    timed replay, so that no timed replay follows a profiler session."""
     kernels, cfg_mod, runtime, tiles = mods[0], mods[5], mods[6], mods[3]
+    method = path_method(path)
     t0 = time.time()
     pipe = runtime.LocalizationPipeline(
-        method_cfg(cfg_mod, method), packed[2 if method == "AVGICP" else 1],
+        method_cfg(cfg_mod, path), packed[2 if method == "AVGICP" else 1],
         device="cuda", ds_points=ds_points,
         tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
         ego_ring_size=512, imu_ring_size=256)
-    log_line(f"[{method}] {len(log.scan_t)} scans x {log.scan_points.shape[1]} points, "
+    log_line(f"[{path}] {len(log.scan_t)} scans x {log.scan_points.shape[1]} points, "
              f"ds_points {ds_points}, max_slots {max_slots}, map upload "
              f"{time.time() - t0:.1f} s")
     wrapper = KERNEL[method][0]
-    names = SHARED + (wrapper,) if method == "P2P" else (wrapper,)
-    with Recorder(kernels, names, at=N_SCANS // 2) as rec:
+    path_kernels = SHARED + (wrapper,) + tuple(EKF_KERNELS)
+    with Recorder(kernels, path_kernels, at=N_SCANS // 2) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
-    rows = shared_kernel_rows(pipe, rec.calls, mods[:5]) if method == "P2P" else []
-    rows.append(method_kernel_row(method, pipe, rec.calls, mods[:5]))
+    rows = []
+    if path == "P2P":
+        rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
+    if path == FUSION:
+        rows += [imu_chain_row(rec.calls, mods), ekf_update_row(rec, mods)]
+    else:
+        rows.append(method_kernel_row(method, pipe, rec.calls, mods[:5]))
     for r in rows:
-        log_line(f"[{method}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
-                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms")
+        log_line(f"[{path}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
+                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
 
     # the timed main-path run: counts from zero, then read back
     stages = StageTimer()
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, outs = pipe.run_fused(log, mark=stages)
+    state, outs = pipe.run_fused(log, mark=stages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     split, frames, per_frame = stages.split()
     p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
     n = len(log.scan_t)
-    log_line(f"[{method}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
+    log_line(f"[{path}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
              f"host batch prep + upload included), launches {launches}")
-    log_line(f"[{method}] stage ms/frame (frames 1..{frames}): "
+    log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
              f"p95 {p95:.3f}")
@@ -361,33 +647,56 @@ def run_path(method, log, packed, ds_points, max_slots, mods, ate_rmse):
     dropped = int(outs["slots_dropped"].max())
     ds_max = int(outs["ds_kept"].max())
     iters = float(outs["iterations"].mean())
-    log_line(f"[{method}] applied {applied:.3f}, ATE {ate:.4f} m, slots_dropped "
+    log_line(f"[{path}] applied {applied:.3f}, ATE {ate:.4f} m, slots_dropped "
              f"{dropped}, ds_kept max {ds_max} of {ds_points}, iterations mean "
              f"{iters:.2f}")
-    if not np.all(np.isfinite(outs["ego_pos"])) or outs["ego_pos"].shape != (n, 3):
-        raise AssertionError(f"[{method}] non-finite or misshapen trajectory")
-    for name in SHARED + (wrapper,):
-        if launches[name] <= 0:
-            raise AssertionError(f"[{method}] kernel {name} was not launched on the path")
-    if not (applied >= 0.9 and ate < ATE_GATE[method] and dropped == 0
-            and ds_max < ds_points):
-        raise AssertionError(f"[{method}] slice failed its acceptance bounds")
-    for r in rows:
-        r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
     summary = {"scans_per_s": n / wall, "stage_ms": split, "frame_ms_p50": p50,
                "frame_ms_p95": p95, "ate_m": ate, "applied": applied,
                "iterations_mean": iters}
+
+    def profiled_replay():
+        """One more replay under torch.profiler: the device's busy share and
+        the kernels that take most of its time."""
+        per, prof_wall = device_profile(lambda: pipe.run_fused(log))
+        busy = sum(per.values()) * 1e-3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        log_line(f"[{path}] torch.profiler replay: device busy {busy:.1f} ms of "
+                 f"{prof_wall:.1f} ms wall ({100 * busy / prof_wall:.1f}%); top: "
+                 + "; ".join(f"{k[:48]} {v * 1e-3 / n:.3f} ms/frame" for k, v in top))
+        summary["device_busy_share_profiled"] = busy / prof_wall if per else None
+
+    deferred.append(profiled_replay)
+    if path == FUSION:
+        summary["can_admitted"], summary["gps_admitted"] = admitted_can_gps(
+            runtime, pipe, log, state)
+        log_line(f"[{path}] CAN samples admitted {summary['can_admitted']} of "
+                 f"{len(log.can_t)}, GPS fixes admitted {summary['gps_admitted']} of "
+                 f"{len(log.gps_t)}")
+        if summary["can_admitted"] == 0 or summary["gps_admitted"] == 0:
+            raise AssertionError(f"[{path}] no CAN or no GPS update ran")
+    if not np.all(np.isfinite(outs["ego_pos"])) or outs["ego_pos"].shape != (n, 3):
+        raise AssertionError(f"[{path}] non-finite or misshapen trajectory")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"[{path}] kernel {name} was not launched on the path")
+    if not (applied >= 0.9 and ate < ATE_GATE[method] and dropped == 0
+            and ds_max < ds_points):
+        raise AssertionError(f"[{path}] slice failed its acceptance bounds")
+    for r in rows:
+        r["route"] = "cuda"
+        r["launches"] = launches[r["name"]]
     return rows, summary
 
 
-def reference_phase(method, cfg_mod, runtime, builder, tiles, log_mod):
+def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     """A small log on the card (kernels) against the same port on the CPU
     (plain versions, which tests/test_torch_*.py hold to the JAX package),
     under the repo's closed-loop contract: max < 3 cm, median < 5 mm, last 3
     < 5 mm. The logs are those of tests/test_torch_slice.py (P2P) and
-    tests/test_torch_methods_replay.py (where each method converges)."""
-    cfg = method_cfg(cfg_mod, method)
+    tests/test_torch_methods_replay.py (where each method converges); the
+    fusion path runs AVGICP's, with its 1 Hz GPS and 50 Hz CAN."""
+    method = path_method(path)
+    cfg = method_cfg(cfg_mod, path)
     cfg.pcm.input_voxel_ds_m = 1.0
     ds_points = 1024
     if method in ("P2P", "GICP"):
@@ -412,11 +721,11 @@ def reference_phase(method, cfg_mod, runtime, builder, tiles, log_mod):
             ego_ring_size=128, imu_ring_size=128)
         pos[device] = pipe.run_fused(log)[1]["ego_pos"]
     err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
-    log_line(f"[{method}] reference: card vs CPU port over {len(err)} frames: max "
+    log_line(f"[{path}] reference: card vs CPU port over {len(err)} frames: max "
              f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
              f"{err[-3:].max():.2e} m")
     if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
-        raise AssertionError(f"[{method}] the card's trajectory left the closed-loop "
+        raise AssertionError(f"[{path}] the card's trajectory left the closed-loop "
                              "contract")
     return {"max_m": float(err.max()), "median_m": float(np.median(err)),
             "last3_m": float(err[-3:].max())}
@@ -430,6 +739,7 @@ def main():
     import elimaloc_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
     from elimaloc_tpu_torch import config as cfg_mod
     from elimaloc_tpu_torch import deskew, kernels
+    from elimaloc_tpu_torch.ekf import filter as efilter
     from elimaloc_tpu_torch.kernels import build
     from elimaloc_tpu_torch.map import builder, grid, tiles
     from elimaloc_tpu_torch.pipeline import ate_rmse, runtime
@@ -441,22 +751,37 @@ def main():
     build_phase(build)
     log, packed, ds_points, max_slots = make_headline(cfg_mod, runtime, builder, tiles,
                                                       log_mod)
-    mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime)
-    rows, slices = [], {}
-    for method in METHODS:
-        r, slices[method] = run_path(method, log, packed, ds_points, max_slots, mods,
-                                     ate_rmse)
+    mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter)
+    rows, slices, deferred = [], {}, []
+    for path in PATHS:
+        r, slices[path] = run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse,
+                                   deferred)
         rows += r
         torch.cuda.empty_cache()
-    for method in METHODS:
-        slices[method]["reference"] = reference_phase(method, cfg_mod, runtime, builder,
-                                                      tiles, log_mod)
+    # the profiler passes, after every timed replay
+    for r in rows:
+        if "device_fn" in r:
+            dev = kernel_device_ms(*r.pop("device_fn"))
+            log_line(f"kernel {r['name']}: on the device alone "
+                     + (f"{dev:.4f} ms" if dev else "not measured")
+                     + " (torch.profiler)")
+    for job in deferred:
+        job()
+    for path in PATHS:
+        slices[path]["reference"] = reference_phase(path, cfg_mod, runtime, builder,
+                                                    tiles, log_mod)
     log_line(f"chip_smoke: {time.time() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms")
+    table = []
+    for r in rows:
+        row = {k: r[k] for k in keys}
+        row["bound_ms"], row["bound_by"] = r["bound"]
+        row["library_ms"] = None  # no single PyTorch call computes any of them
+        table.append(row)
     log_line(json.dumps({"slices": slices, "card": smi}))
-    log_line(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log_line(json.dumps({"kernels": table}))
     log_line(smi)
     log_line(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,19 @@
 """elimaloc_tpu_torch — the PyTorch + CUDA port of elimaloc_tpu.
 
 A second package beside ``elimaloc_tpu`` (the JAX reference, which it never
-imports). It ports the fused P2P localization slice: the IMU EKF chain and
-ring pushes, deskew, pose sync, voxel downsample, tile-slot assignment, the
-GN/LM P2P registration loop, covariance shaping, latency compensation and
-the EKF PCM update. The four hot ops the JAX package laid out by hand for
-the TPU run as hand-written CUDA kernels on Hopper (csrc/); on CPU tensors
-their plain PyTorch versions run instead.
+imports). It ports the fused localization frame: the IMU EKF chain and ring
+pushes, the CAN and GPS updates, deskew, pose sync, voxel downsample,
+tile-slot assignment, the GN/LM registration loop (P2P, GICP, VGICP,
+AVGICP), covariance shaping, latency compensation and the EKF PCM update.
+The paths: each ICP method, with or without GPS + CAN fusion.
+
+The hot ops the JAX package laid out by hand for the TPU run as
+hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G
+(one search + Gauss-Newton kernel per ICP method), B (slot assignment), C
+(voxel downsample), D (deskew), H (the IMU chain) and I (the EKF
+measurement updates). On CPU tensors their plain PyTorch versions run
+instead. ``LocalizationPipeline`` runs on the card unless given
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,571 @@
+// Shared device code of kernels H (imu_chain.cu) and I (ekf_update.cu): the
+// 27-state EKF held in shared memory by one CTA, the quaternion / rotation
+// helpers of ops/lie.py, the right Jacobian, and one Kalman update over an
+// index list for m = 2, 3, 4, 6 (ekf/filter.py:_ekf_measurement_update).
+//
+// Numerics. Each helper repeats the plain PyTorch version's arithmetic in
+// its order, one IEEE-rounded operation at a time (elm::mul / add / sub /
+// __fdiv_rn: nvcc never contracts them into FMAs), with the CUDA math
+// library's sinf / cosf / atan2f / asinf / sqrtf, never the __sinf family
+// (the package builds without --use_fast_math). That matters most in the
+// right Jacobian: at the headline rates |w| dt ~ 1.3e-3, and the f32 terms
+// (1 - cos t) / t^2 and (t - sin t) / t^3 cancel catastrophically, so one
+// ulp of t or of cos t moves them by percent. Small dot products are summed
+// left to right, as PyTorch's reductions over 2-6 terms are. PyTorch's CUDA
+// tensor / Python-scalar division multiplies by the float reciprocal; divs()
+// does the same.
+//
+// Every loop that the CTA shares is strided by blockDim.x and every serial
+// step runs on thread 0 between barriers, so the result does not depend on
+// the block size.
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace elm {
+namespace ekf {
+
+constexpr int kN = 27;          // STATE_ORDER
+constexpr double kPi = 3.14159265358979323846;
+constexpr double kD2R = kPi / 180.0;  // math.pi / 180.0 in the plain version
+
+// EkfState's fields in declaration order (ekf/state.py); the wrappers pass
+// one device pointer per field, in and out (kernels/__init__.py:EKF_FIELDS).
+enum Field {
+  POS, ROT, VEL, GYRO, ACC, BG, BA, GRAV, IMU_ROT, COV,
+  RESET, STATE_INIT, YAW_INIT, ROT_STAB, STATE_STAB, PCM_INIT_GOING, CALIB_STARTED,
+  CAN_BIAS, PCM_COUNT, PREV_T, PREV_GNSS_T, PREV_CAN_T, CF_INIT, CF_PREV_VX, CF_PREV_T,
+  kFields
+};
+
+// EkfParams' fields in declaration order (ekf/state.py), device scalars
+// except INIT_POS / INIT_RPY [3] and GNSS_MIN_COV [6].
+enum Param {
+  INIT_POS, INIT_RPY, IMU_GRAVITY, STD_POS, STD_ROT, STD_VEL, STD_GYRO_DPS, STD_ACC,
+  IMU_STD_GYRO, IMU_STD_ACC, BIAS_COV_GYRO, BIAS_COV_ACC, GNSS_MIN_COV, CAN_VEL_SCALE,
+  CAN_UNC_VEL, CAN_UNC_YAW, kParams
+};
+
+struct Fields {
+  void* f[kFields];
+};
+struct Params {
+  const float* f[kParams];
+};
+
+// The filter in shared memory.
+struct State {
+  float P[kN * kN];
+  float pos[3], rot[4], vel[3], gyro[3], acc[3], bg[3], ba[3], grav[3], imu_rot[4];
+  float can_bias, prev_t, prev_gnss_t, prev_can_t, cf_prev_vx, cf_prev_t;
+  int pcm_count;
+  bool reset, state_init, yaw_init, rot_stab, state_stab, pcm_init_going, calib_started,
+      cf_init;
+};
+
+// Scratch of one Kalman update (m <= 6).
+struct Update {
+  int m, idx[6], piv[6];
+  float Y[6], R[36], S[36], Pi[6 * kN], K[kN * 6], su[kN];
+};
+
+__device__ __forceinline__ float dv(float a, float b) { return __fdiv_rn(a, b); }
+// PyTorch's CUDA ``tensor / python_float``: a times the float reciprocal.
+__device__ __forceinline__ float divs(float a, float c) { return mul(a, 1.0f / c); }
+__device__ __forceinline__ float sq(float a) { return mul(a, a); }
+
+__device__ __forceinline__ void copy(const float* a, float* o, int n) {
+  for (int i = 0; i < n; ++i) o[i] = a[i];
+}
+
+// ---- lie.py -------------------------------------------------------------
+
+__device__ __forceinline__ float norm2(float a, float b) { return sqrtf(add(sq(a), sq(b))); }
+__device__ __forceinline__ float norm3(const float* v) {
+  return sqrtf(add(add(sq(v[0]), sq(v[1])), sq(v[2])));
+}
+__device__ __forceinline__ float norm4(const float* v) {
+  return sqrtf(add(add(add(sq(v[0]), sq(v[1])), sq(v[2])), sq(v[3])));
+}
+
+// m v (lie.matvec), row-major m.
+__device__ __forceinline__ void matvec(const float* m, const float* v, float* o) {
+  for (int i = 0; i < 3; ++i)
+    o[i] = add(add(mul(m[3 * i], v[0]), mul(m[3 * i + 1], v[1])), mul(m[3 * i + 2], v[2]));
+}
+
+// a b for row-major 3x3 (bt: b transposed).
+__device__ __forceinline__ void matmul3(const float* a, const float* b, float* o, bool bt) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      float acc = 0.0f;
+      for (int k = 0; k < 3; ++k) acc = add(acc, mul(a[3 * i + k], bt ? b[3 * j + k] : b[3 * k + j]));
+      o[3 * i + j] = acc;
+    }
+}
+
+__device__ __forceinline__ void quat_normalize(const float* q, float* o) {
+  float n = norm4(q);
+  if (n < 1e-30f) n = 1.0f;
+  for (int i = 0; i < 4; ++i) o[i] = dv(q[i], n);
+}
+
+// Hamilton product a (x) b.
+__device__ __forceinline__ void quat_mul(const float* a, const float* b, float* o) {
+  const float aw = a[0], ax = a[1], ay = a[2], az = a[3];
+  const float bw = b[0], bx = b[1], by = b[2], bz = b[3];
+  o[0] = sub(sub(sub(mul(aw, bw), mul(ax, bx)), mul(ay, by)), mul(az, bz));
+  o[1] = sub(add(add(mul(aw, bx), mul(ax, bw)), mul(ay, bz)), mul(az, by));
+  o[2] = add(add(sub(mul(aw, by), mul(ax, bz)), mul(ay, bw)), mul(az, bx));
+  o[3] = add(sub(add(mul(aw, bz), mul(ax, by)), mul(ay, bx)), mul(az, bw));
+}
+
+__device__ __forceinline__ void quat_conj(const float* q, float* o) {
+  o[0] = q[0];
+  o[1] = -q[1];
+  o[2] = -q[2];
+  o[3] = -q[3];
+}
+
+// Unit quaternion -> rotation matrix (normalizes first).
+__device__ __forceinline__ void quat_to_rot(const float* q_in, float* r) {
+  float q[4];
+  quat_normalize(q_in, q);
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  r[0] = sub(1.0f, mul(2.0f, add(mul(y, y), mul(z, z))));
+  r[1] = mul(2.0f, sub(mul(x, y), mul(w, z)));
+  r[2] = mul(2.0f, add(mul(x, z), mul(w, y)));
+  r[3] = mul(2.0f, add(mul(x, y), mul(w, z)));
+  r[4] = sub(1.0f, mul(2.0f, add(mul(x, x), mul(z, z))));
+  r[5] = mul(2.0f, sub(mul(y, z), mul(w, x)));
+  r[6] = mul(2.0f, sub(mul(x, z), mul(w, y)));
+  r[7] = mul(2.0f, add(mul(y, z), mul(w, x)));
+  r[8] = sub(1.0f, mul(2.0f, add(mul(x, x), mul(y, y))));
+}
+
+// Rotate v by q (lie.quat_rotate); conj: by q's conjugate.
+__device__ __forceinline__ void quat_rotate(const float* q, const float* v, float* o,
+                                            bool conj = false) {
+  float c[4], r[9];
+  if (conj) {
+    quat_conj(q, c);
+    quat_to_rot(c, r);
+  } else {
+    quat_to_rot(q, r);
+  }
+  matvec(r, v, o);
+}
+
+// Rotation matrix -> unit quaternion with w >= 0, the branch the plain
+// version's max-pivot select keeps.
+__device__ __forceinline__ void rot_to_quat(const float* m, float* o) {
+  const float m00 = m[0], m01 = m[1], m02 = m[2], m10 = m[3], m11 = m[4], m12 = m[5];
+  const float m20 = m[6], m21 = m[7], m22 = m[8];
+  const float tr = add(add(m00, m11), m22);
+  float q[4];
+  if (tr > 0.0f) {
+    const float s = mul(sqrtf(fmaxf(add(1.0f, tr), 1e-30f)), 2.0f);
+    q[0] = mul(0.25f, s);
+    q[1] = dv(sub(m21, m12), s);
+    q[2] = dv(sub(m02, m20), s);
+    q[3] = dv(sub(m10, m01), s);
+  } else if (m00 >= m11 && m00 >= m22) {
+    const float s = mul(sqrtf(fmaxf(sub(sub(add(1.0f, m00), m11), m22), 1e-30f)), 2.0f);
+    q[0] = dv(sub(m21, m12), s);
+    q[1] = mul(0.25f, s);
+    q[2] = dv(add(m01, m10), s);
+    q[3] = dv(add(m02, m20), s);
+  } else if (m11 >= m22) {
+    const float s = mul(sqrtf(fmaxf(sub(add(sub(1.0f, m00), m11), m22), 1e-30f)), 2.0f);
+    q[0] = dv(sub(m02, m20), s);
+    q[1] = dv(add(m01, m10), s);
+    q[2] = mul(0.25f, s);
+    q[3] = dv(add(m12, m21), s);
+  } else {
+    const float s = mul(sqrtf(fmaxf(add(sub(sub(1.0f, m00), m11), m22), 1e-30f)), 2.0f);
+    q[0] = dv(sub(m10, m01), s);
+    q[1] = dv(add(m02, m20), s);
+    q[2] = dv(add(m12, m21), s);
+    q[3] = mul(0.25f, s);
+  }
+  quat_normalize(q, o);
+  if (o[0] < 0.0f)
+    for (int i = 0; i < 4; ++i) o[i] = -o[i];
+}
+
+__device__ __forceinline__ void skew(const float* u, float* k) {
+  k[0] = 0.0f;
+  k[1] = -u[2];
+  k[2] = u[1];
+  k[3] = u[2];
+  k[4] = 0.0f;
+  k[5] = -u[0];
+  k[6] = -u[1];
+  k[7] = u[0];
+  k[8] = 0.0f;
+}
+
+// omega -> (theta, k = skew(omega / theta) with theta -> 1 below the 1e-5
+// guard, small).
+__device__ __forceinline__ bool axis_of(const float* omega, float& theta, float* k) {
+  theta = norm3(omega);
+  const bool small = theta < 1e-5f;
+  const float safe = small ? 1.0f : theta;
+  const float u[3] = {dv(omega[0], safe), dv(omega[1], safe), dv(omega[2], safe)};
+  skew(u, k);
+  return small;
+}
+
+// Rodrigues (lie.so3_exp).
+__device__ __forceinline__ void so3_exp(const float* omega, float* r) {
+  float theta, k[9], kk[9];
+  const bool small = axis_of(omega, theta, k);
+  matmul3(k, k, kk, false);
+  const float s = sinf(theta), c1 = sub(1.0f, cosf(theta));
+  for (int i = 0; i < 9; ++i) {
+    const float e = (i % 4 == 0) ? 1.0f : 0.0f;
+    r[i] = small ? e : add(add(e, mul(s, k[i])), mul(c1, kk[i]));
+  }
+}
+
+// Quaternion increment from body rates over dt (lie.exp_gyro_to_quat).
+__device__ __forceinline__ void exp_gyro_to_quat(const float* gyro, float dt, float* q) {
+  const float omega[3] = {mul(gyro[0], dt), mul(gyro[1], dt), mul(gyro[2], dt)};
+  float r[9];
+  so3_exp(omega, r);
+  rot_to_quat(r, q);
+}
+
+// d Exp(gyro dt) / d gyro (lie.right_jacobian_d_rot_d_gyro), its formula
+// and order; zero below the guard.
+__device__ __forceinline__ void right_jacobian_d_rot_d_gyro(const float* gyro, float dt,
+                                                            float* jac) {
+  const float omega[3] = {mul(gyro[0], dt), mul(gyro[1], dt), mul(gyro[2], dt)};
+  float theta, k[9], kk[9];
+  const bool small = axis_of(omega, theta, k);
+  const float t = small ? 1.0f : theta;
+  matmul3(k, k, kk, false);
+  const float tt = mul(t, t);
+  const float a = dv(sub(1.0f, cosf(t)), tt);
+  const float b = dv(sub(t, sinf(t)), mul(tt, t));
+  for (int i = 0; i < 9; ++i) {
+    const float e = (i % 4 == 0) ? 1.0f : 0.0f;
+    jac[i] = small ? 0.0f : mul(dt, add(add(e, mul(a, k[i])), mul(b, kk[i])));
+  }
+}
+
+// Rotation vector -> quaternion, identity below 1e-12 (lie.quat_from_axis_angle).
+__device__ __forceinline__ void quat_from_axis_angle(const float* v, float* q) {
+  const float angle = norm3(v);
+  if (angle < 1e-12f) {
+    q[0] = 1.0f;
+    q[1] = q[2] = q[3] = 0.0f;
+    return;
+  }
+  const float half = mul(0.5f, angle), s = sinf(half);
+  q[0] = cosf(half);
+  for (int i = 0; i < 3; ++i) q[i + 1] = mul(s, dv(v[i], angle));
+}
+
+// C fmod renormalisation of lie.rot_to_euler.
+__device__ __forceinline__ float wrap_fmod(float a) {
+  return sub(fmodf(add(a, (float)kPi), (float)(2.0 * kPi)), (float)kPi);
+}
+
+// Wrap to (-pi, pi] (lie.norm_angle_rad; torch.remainder has the sign of
+// the divisor).
+__device__ __forceinline__ float norm_angle_rad(float a) {
+  const float b = (float)(2.0 * kPi);
+  float r = fmodf(add(a, (float)kPi), b);
+  if (r != 0.0f && ((b < 0.0f) != (r < 0.0f))) r = add(r, b);
+  const float w = sub(r, (float)kPi);
+  return w == -(float)kPi ? (float)kPi : w;
+}
+
+// Rotation matrix -> (roll, pitch, yaw) with the gimbal-lock branch.
+__device__ __forceinline__ void rot_to_euler(const float* r, float* rpy) {
+  const float r20 = r[6];
+  if (fabsf(r20) > 0.998f) {
+    rpy[0] = 0.0f;
+    rpy[1] = mul((float)(kPi / 2.0), r20 >= 0.0f ? 1.0f : -1.0f);
+    rpy[2] = atan2f(-r[5], r[4]);
+  } else {
+    rpy[1] = asinf(-fminf(fmaxf(r20, -1.0f), 1.0f));
+    float cp = cosf(rpy[1]);
+    if (fabsf(cp) < 1e-12f) cp = 1.0f;
+    rpy[0] = atan2f(dv(r[7], cp), dv(r[8], cp));
+    rpy[2] = atan2f(dv(r[3], cp), dv(r[0], cp));
+  }
+  for (int i = 0; i < 3; ++i) rpy[i] = wrap_fmod(rpy[i]);
+}
+
+__device__ __forceinline__ void quat_to_euler(const float* q, float* rpy) {
+  float r[9];
+  quat_to_rot(q, r);
+  rot_to_euler(r, rpy);
+}
+
+// Rz(yaw) Ry(pitch) Rx(roll) (lie.euler_to_rot).
+__device__ __forceinline__ void euler_to_rot(const float* rpy, float* m) {
+  const float cr = cosf(rpy[0]), sr = sinf(rpy[0]);
+  const float cp = cosf(rpy[1]), sp = sinf(rpy[1]);
+  const float cy = cosf(rpy[2]), sy = sinf(rpy[2]);
+  m[0] = mul(cy, cp);
+  m[1] = sub(mul(mul(cy, sp), sr), mul(sy, cr));
+  m[2] = add(mul(mul(cy, sp), cr), mul(sy, sr));
+  m[3] = mul(sy, cp);
+  m[4] = add(mul(mul(sy, sp), sr), mul(cy, cr));
+  m[5] = sub(mul(mul(sy, sp), cr), mul(cy, sr));
+  m[6] = -sp;
+  m[7] = mul(cp, sr);
+  m[8] = mul(cp, cr);
+}
+
+// R(rpy)^T v (frames.global_to_local_velocity).
+__device__ __forceinline__ void global_to_local(const float* v, const float* rpy, float* o) {
+  float m[9], mt[9];
+  euler_to_rot(rpy, m);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) mt[3 * i + j] = m[3 * j + i];
+  matvec(mt, v, o);
+}
+
+// Per-axis wrapped Euler residual of two quaternions.
+__device__ __forceinline__ void euler_residual_from_quats(const float* sq_, const float* mq,
+                                                          float* res) {
+  float s[3], m[3];
+  quat_to_euler(sq_, s);
+  quat_to_euler(mq, m);
+  for (int i = 0; i < 3; ++i) res[i] = norm_angle_rad(sub(m[i], s[i]));
+}
+
+// Closed-form 3x3 inverse, adjugate / det (lie.inv3x3), exact rounding.
+__device__ __forceinline__ void inv3x3(const float* m, float* o) {
+  const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5];
+  const float g = m[6], h = m[7], i = m[8];
+  const float A = sub(mul(e, i), mul(f, h));
+  const float B = -sub(mul(d, i), mul(f, g));
+  const float C = sub(mul(d, h), mul(e, g));
+  const float inv_det = dv(1.0f, add(add(mul(a, A), mul(b, B)), mul(c, C)));
+  o[0] = mul(A, inv_det);
+  o[1] = mul(-sub(mul(b, i), mul(c, h)), inv_det);
+  o[2] = mul(sub(mul(b, f), mul(c, e)), inv_det);
+  o[3] = mul(B, inv_det);
+  o[4] = mul(sub(mul(a, i), mul(c, g)), inv_det);
+  o[5] = mul(-sub(mul(a, f), mul(c, d)), inv_det);
+  o[6] = mul(C, inv_det);
+  o[7] = mul(-sub(mul(a, h), mul(b, g)), inv_det);
+  o[8] = mul(sub(mul(a, e), mul(b, d)), inv_det);
+}
+
+// ---- the filter -----------------------------------------------------------
+
+__device__ __forceinline__ float std_of(const State& s, int i) {
+  return sqrtf(fmaxf(s.P[i * kN + i], 0.0f));
+}
+
+// check_rotation_stabilized (filter.py, ekf_algorithm.hpp:148-209)
+__device__ __forceinline__ bool rotation_stabilized(const State& s) {
+  const float lim = (float)(0.2 * kD2R);
+  return std_of(s, 3) < lim && std_of(s, 4) < lim && std_of(s, 5) < lim;
+}
+
+// The flag refresh of update_gnss (cpp:351-354), from P.
+__device__ __forceinline__ void refresh_flags(State& s) {
+  const float l5 = (float)(5.0 * kD2R), l02 = (float)(0.2 * kD2R);
+  const float sx = std_of(s, 0), sy = std_of(s, 1);
+  const float sr = std_of(s, 3), sp = std_of(s, 4), syaw = std_of(s, 5);
+  s.yaw_init = syaw < l5;
+  s.state_init = sr < l5 && sp < l5 && syaw < l5 && sx < 1.0f && sy < 1.0f;
+  s.rot_stab = sr < l02 && sp < l02 && syaw < l02;
+  s.state_stab = sr < l02 && sp < l02 && syaw < l02 && sx < 0.5f && sy < 0.5f;
+}
+
+__device__ __forceinline__ void load_state(const Fields& in, State& s) {
+  const float* P = (const float*)in.f[COV];
+  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) s.P[e] = P[e];
+  if (threadIdx.x != 0) return;
+  const float* const* f = (const float* const*)in.f;
+  copy(f[POS], s.pos, 3);
+  copy(f[ROT], s.rot, 4);
+  copy(f[VEL], s.vel, 3);
+  copy(f[GYRO], s.gyro, 3);
+  copy(f[ACC], s.acc, 3);
+  copy(f[BG], s.bg, 3);
+  copy(f[BA], s.ba, 3);
+  copy(f[GRAV], s.grav, 3);
+  copy(f[IMU_ROT], s.imu_rot, 4);
+  s.can_bias = *f[CAN_BIAS];
+  s.prev_t = *f[PREV_T];
+  s.prev_gnss_t = *f[PREV_GNSS_T];
+  s.prev_can_t = *f[PREV_CAN_T];
+  s.cf_prev_vx = *f[CF_PREV_VX];
+  s.cf_prev_t = *f[CF_PREV_T];
+  s.pcm_count = *(const int*)in.f[PCM_COUNT];
+  const bool* const* b = (const bool* const*)in.f;
+  s.reset = *b[RESET];
+  s.state_init = *b[STATE_INIT];
+  s.yaw_init = *b[YAW_INIT];
+  s.rot_stab = *b[ROT_STAB];
+  s.state_stab = *b[STATE_STAB];
+  s.pcm_init_going = *b[PCM_INIT_GOING];
+  s.calib_started = *b[CALIB_STARTED];
+  s.cf_init = *b[CF_INIT];
+}
+
+__device__ __forceinline__ void store_state(const State& s, const Fields& out) {
+  float* P = (float*)out.f[COV];
+  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) P[e] = s.P[e];
+  if (threadIdx.x != 0) return;
+  float* const* f = (float* const*)out.f;
+  copy(s.pos, f[POS], 3);
+  copy(s.rot, f[ROT], 4);
+  copy(s.vel, f[VEL], 3);
+  copy(s.gyro, f[GYRO], 3);
+  copy(s.acc, f[ACC], 3);
+  copy(s.bg, f[BG], 3);
+  copy(s.ba, f[BA], 3);
+  copy(s.grav, f[GRAV], 3);
+  copy(s.imu_rot, f[IMU_ROT], 4);
+  *f[CAN_BIAS] = s.can_bias;
+  *f[PREV_T] = s.prev_t;
+  *f[PREV_GNSS_T] = s.prev_gnss_t;
+  *f[PREV_CAN_T] = s.prev_can_t;
+  *f[CF_PREV_VX] = s.cf_prev_vx;
+  *f[CF_PREV_T] = s.cf_prev_t;
+  *(int*)out.f[PCM_COUNT] = s.pcm_count;
+  bool* const* b = (bool* const*)out.f;
+  *b[RESET] = s.reset;
+  *b[STATE_INIT] = s.state_init;
+  *b[YAW_INIT] = s.yaw_init;
+  *b[ROT_STAB] = s.rot_stab;
+  *b[STATE_STAB] = s.state_stab;
+  *b[PCM_INIT_GOING] = s.pcm_init_going;
+  *b[CALIB_STARTED] = s.calib_started;
+  *b[CF_INIT] = s.cf_init;
+}
+
+// Thread 0: S = H P H^T + R, then its inverse (m = 2 adjugate, m = 3
+// inv3x3, both for the small f32 form) or its LU with partial pivoting
+// (m = 4, 6: S^T in place, the factorization torch.linalg.solve_ex(S^T, .)
+// makes; S is SPD, so no pivot is zero).
+__device__ __forceinline__ void factor_s(Update& u) {
+  const int m = u.m;
+  for (int a = 0; a < m; ++a)
+    for (int b = 0; b < m; ++b) u.S[a * m + b] = add(u.Pi[a * kN + u.idx[b]], u.R[a * m + b]);
+  if (m == 2) {
+    const float* S = u.S;
+    const float det = sub(mul(S[0], S[3]), mul(S[1], S[2]));
+    const float inv[4] = {dv(S[3], det), dv(-S[1], det), dv(-S[2], det), dv(S[0], det)};
+    copy(inv, u.S, 4);
+  } else if (m == 3) {
+    float inv[9];
+    inv3x3(u.S, inv);
+    copy(inv, u.S, 9);
+  } else {
+    float A[36];
+    for (int a = 0; a < m; ++a)
+      for (int b = 0; b < m; ++b) A[a * m + b] = u.S[b * m + a];  // S^T
+    for (int c = 0; c < m; ++c) {
+      int p = c;
+      for (int r = c + 1; r < m; ++r)
+        if (fabsf(A[r * m + c]) > fabsf(A[p * m + c])) p = r;
+      u.piv[c] = p;
+      if (p != c)
+        for (int k = 0; k < m; ++k) {
+          const float t = A[c * m + k];
+          A[c * m + k] = A[p * m + k];
+          A[p * m + k] = t;
+        }
+      for (int r = c + 1; r < m; ++r) {
+        const float l = dv(A[r * m + c], A[c * m + c]);
+        A[r * m + c] = l;
+        for (int k = c + 1; k < m; ++k) A[r * m + k] = sub(A[r * m + k], mul(l, A[c * m + k]));
+      }
+    }
+    copy(A, u.S, m * m);
+  }
+}
+
+// Row i of K = P H^T S^-1: the small forms multiply by S^-1; m = 4, 6
+// solve S^T k = (P H^T)[i] with the LU of factor_s.
+__device__ __forceinline__ void gain_row(const State& s, Update& u, int i) {
+  const int m = u.m;
+  float ph[6], k[6];
+  for (int b = 0; b < m; ++b) ph[b] = s.P[i * kN + u.idx[b]];
+  if (m <= 3) {
+    for (int b = 0; b < m; ++b) {
+      float acc = 0.0f;
+      for (int a = 0; a < m; ++a) acc = add(acc, mul(ph[a], u.S[a * m + b]));
+      k[b] = acc;
+    }
+  } else {
+    const float* A = u.S;
+    for (int c = 0; c < m; ++c) {
+      const int p = u.piv[c];
+      const float t = ph[c];
+      ph[c] = ph[p];
+      ph[p] = t;
+    }
+    for (int r = 0; r < m; ++r)
+      for (int c = 0; c < r; ++c) ph[r] = sub(ph[r], mul(A[r * m + c], ph[c]));
+    for (int r = m - 1; r >= 0; --r) {
+      float acc = ph[r];
+      for (int c = r + 1; c < m; ++c) acc = sub(acc, mul(A[r * m + c], k[c]));
+      k[r] = dv(acc, A[r * m + r]);
+    }
+  }
+  float su = 0.0f;
+  for (int b = 0; b < m; ++b) {
+    u.K[i * 6 + b] = k[b];
+    su = add(su, mul(k[b], u.Y[b]));
+  }
+  u.su[i] = su;
+}
+
+// Thread 0: the nominal state += the error-state correction su.
+__device__ __forceinline__ void inject(State& s, const float* su) {
+  float dq[4], q[4];
+  for (int i = 0; i < 3; ++i) {
+    s.pos[i] = add(s.pos[i], su[i]);
+    s.vel[i] = add(s.vel[i], su[6 + i]);
+    s.gyro[i] = add(s.gyro[i], su[9 + i]);
+    s.acc[i] = add(s.acc[i], su[12 + i]);
+    s.bg[i] = add(s.bg[i], su[15 + i]);
+    s.ba[i] = add(s.ba[i], su[18 + i]);
+    s.grav[i] = add(s.grav[i], su[21 + i]);
+  }
+  quat_from_axis_angle(su + 3, dq);
+  quat_mul(s.rot, dq, q);
+  quat_normalize(q, s.rot);
+  quat_from_axis_angle(su + 24, dq);
+  quat_mul(s.imu_rot, dq, q);
+  quat_normalize(q, s.imu_rot);
+}
+
+// One Kalman update with H the selector of u.idx[0..m) (the reference's
+// P -= K H P form). Thread 0 has written u.m, u.idx, u.Y, u.R; every thread
+// of the CTA calls this after a barrier.
+__device__ __forceinline__ void measurement_update(State& s, Update& u) {
+  const int m = u.m;
+  for (int e = threadIdx.x; e < m * kN; e += blockDim.x)
+    u.Pi[e] = s.P[u.idx[e / kN] * kN + e % kN];
+  __syncthreads();
+  if (threadIdx.x == 0) factor_s(u);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kN; i += blockDim.x) gain_row(s, u, i);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) {
+    const int i = e / kN, j = e % kN;
+    float acc = 0.0f;
+    for (int k = 0; k < m; ++k) acc = add(acc, mul(u.K[i * 6 + k], u.Pi[k * kN + j]));
+    s.P[e] = sub(s.P[e], acc);
+  }
+  if (threadIdx.x == 0) inject(s, u.su);
+  __syncthreads();
+}
+
+}  // namespace ekf
+}  // namespace elm

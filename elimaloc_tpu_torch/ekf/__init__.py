@@ -1,10 +1,21 @@
-"""27-state error-state EKF (port of elimaloc_tpu.ekf, main-path half)."""
+"""27-state error-state EKF (port of elimaloc_tpu.ekf)."""
 
 from .filter import (  # noqa: F401
     EkfFlags,
     ego_state,
+    imu_chain,
     init_state,
     predict_imu,
+    update_can,
+    update_chain,
     update_gnss,
+    update_gps,
 )
-from .state import EkfParams, EkfState, GnssMeas, ImuMeas, make_params  # noqa: F401
+from .state import (  # noqa: F401
+    CanMeas,
+    EkfParams,
+    EkfState,
+    GnssMeas,
+    ImuMeas,
+    make_params,
+)

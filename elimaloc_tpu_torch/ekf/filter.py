@@ -7,11 +7,15 @@ reference quirks and its dtype dispatch: float32 takes the sparse block
 F P F^T and the broadcast-multiply-reduce products (``_vpu_forms``), float64
 the dense forms that the float64 oracle parity rests on.
 
-Ported: ``init_state``, the ``check_*`` gates, ``_ekf_measurement_update``,
-``_fpf_dense``/``_fpf_sparse``, ``_propagate_imu``, ``_zupt_imu``,
-``_complementary_filter``, ``_calibrate_vehicle_to_imu``, ``predict_imu``,
-``update_gnss`` and ``ego_state``. The constant-acceleration ``predict``
-tick and ``update_can`` are ROADMAP Queue 1 #12.
+Ported: ``init_state``, the ``check_*`` gates, ``_ekf_measurement_update``
+(any selector), ``_fpf_dense``/``_fpf_sparse``, ``_propagate_imu``,
+``_zupt_imu``, ``_complementary_filter``, ``_calibrate_vehicle_to_imu``,
+``predict_imu``, ``update_gnss``, ``update_can`` and ``ego_state``, plus
+the filter half of the pipeline's GPS step (``update_gps``). A frame's
+sequences have one dispatch each: :func:`imu_chain` (the IMU samples; kernel
+H on the card) and :func:`update_chain` (CAN, GPS and PCM updates; kernel
+I). The constant-acceleration ``predict`` tick and the Joseph form on the
+card are ROADMAP Queue 1 #12.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ from typing import Tuple
 
 import torch
 
+from .. import kernels
 from ..config import EkfConfig, GnssSource, GpsType
 from ..ops import lie
 from ..ops.frames import global_to_local_velocity
 from ..struct import select
 from .state import (
+    CanMeas,
     EkfParams,
     EkfState,
     GnssMeas,
@@ -47,6 +53,7 @@ from .state import (
     S_VZ,
     S_X,
     S_YAW,
+    S_YAW_RATE,
     S_Z,
 )
 
@@ -180,15 +187,13 @@ def check_state_stabilized(P):
 
 def _ekf_measurement_update(state: EkfState, idx: Tuple[int, ...], Y, R,
                             joseph: bool = False) -> EkfState:
-    """One Kalman update with H a 0/1 selector of state indices ``idx``."""
+    """One Kalman update with H a 0/1 selector of state indices ``idx``
+    (any order; CAN observes (6, 7, 8, 11))."""
     P = state.P
-    # every observation model selects a contiguous index range
-    if list(idx) != list(range(idx[0], idx[-1] + 1)):
-        raise ValueError(f"non-contiguous measurement indices {idx}")
-    sel = slice(idx[0], idx[-1] + 1)
-    Pi = P[sel, :]                      # H P
-    S = Pi[:, sel] + R                  # H P H^T + R
-    PHt = P[:, sel]
+    sel = torch.as_tensor(idx, device=P.device)
+    Pi = P.index_select(0, sel)         # H P
+    S = Pi.index_select(1, sel) + R     # H P H^T + R
+    PHt = P.index_select(1, sel)
     m = len(idx)
     small = m <= 3 and _vpu_forms(P.dtype)
     mm = _bmm if small else torch.matmul
@@ -547,6 +552,147 @@ def update_gnss(state: EkfState, meas: GnssMeas, params: EkfParams,
                                       joseph=flags.joseph_form)
     return out.replace(prev_gnss_timestamp=torch.as_tensor(
         meas.timestamp, dtype=state.prev_gnss_timestamp.dtype, device=dev))
+
+
+#: the GNSS source a GPS fix takes per configured gps_type (runtime.py:216-220)
+GPS_SOURCE = {
+    int(GpsType.NAVSATFIX): int(GnssSource.NAVSATFIX),
+    int(GpsType.BESTPOS): int(GnssSource.BESTPOS),
+    int(GpsType.ODOMETRY): int(GnssSource.NOVATEL),
+}
+
+
+def update_gps(state: EkfState, t, pos, cov_diag, params: EkfParams,
+               flags: EkfFlags, gnss_uncertainty_max) -> EkfState:
+    """The filter half of the pipeline's GPS fix step (JAX ``runtime.py:205``
+    gps_step): NAVSATFIX / BESTPOS take the 3-DOF path of ``update_gnss``,
+    ODOMETRY the NOVATEL 6-DOF one; the fix is dropped unless both
+    horizontal variances pass ``gnss_uncertainty_max``. Reference quirk: the
+    NavSatFix covariance field is squared again (ekf_localization.cpp:
+    104-106)."""
+    var = cov_diag * cov_diag
+    ok = (var[0] <= gnss_uncertainty_max) & (var[1] <= gnss_uncertainty_max)
+    meas = GnssMeas(timestamp=t, source=GPS_SOURCE[flags.gps_type], pos=pos,
+                    rot=lie.quat_identity(pos.dtype, pos.device),
+                    pos_cov=torch.diag(var),
+                    rot_cov=torch.zeros((3, 3), dtype=pos.dtype, device=pos.device))
+    return select(ok, update_gnss(state, meas, params, flags), state)
+
+
+# --------------------------------------------------------------------------- #
+# CAN update (ekf_algorithm.cpp:434-506)
+# --------------------------------------------------------------------------- #
+
+def can_meas(t, vel_x, yaw_rate) -> CanMeas:
+    """One CAN sample as the pipeline builds it (JAX ``runtime.py:260``)."""
+    z = torch.zeros_like(vel_x)
+    return CanMeas(timestamp=t, vel=torch.stack([vel_x, z, z]),
+                   gyro=torch.stack([z, z, yaw_rate]))
+
+
+def update_can(state: EkfState, can: CanMeas, params: EkfParams,
+               flags: EkfFlags) -> EkfState:
+    """UpdateCan: the global velocity and the yaw rate (m = 4 on state
+    indices 6, 7, 8, 11), skipped within 0.01 s of the last CAN update, then
+    ZuptCan on the raw (biased) input (cpp:567-587)."""
+    dtype = state.P.dtype
+    run = torch.abs(can.timestamp - state.prev_can_timestamp) >= 0.01
+
+    unbiased_gyro_z = can.gyro[2] - state.can_yaw_rate_bias
+    unbiased_vel = torch.cat([(can.vel[0] * params.can_vel_scale.to(dtype))[None],
+                              can.vel[1:]])
+    rot_m = lie.quat_to_rot(state.rot)
+    Y = torch.cat([lie.matvec(rot_m, unbiased_vel) - state.vel,
+                   (unbiased_gyro_z - state.gyro[2])[None]])
+
+    unc = params.can_meas_uncertainty_vel.to(dtype)
+    R_local = torch.diag(torch.stack([unc ** 2, (2 * unc) ** 2, (2 * unc) ** 2]))
+    R = torch.zeros((4, 4), dtype=dtype, device=state.P.device)
+    R[:3, :3] = rot_m @ R_local @ rot_m.T
+    R[3, 3] = params.can_meas_uncertainty_yaw_rate_rad.to(dtype) ** 2
+
+    updated = _ekf_measurement_update(state, (S_VX, S_VX + 1, S_VZ, S_YAW_RATE),
+                                      Y, R, joseph=flags.joseph_form)
+    zupt_on = lie.norm(can.vel) <= 0.05
+    a = 0.05
+    bias = updated.can_yaw_rate_bias
+    zupted = updated.replace(
+        prev_can_timestamp=can.timestamp,
+        can_yaw_rate_bias=torch.where(zupt_on, a * can.gyro[2] + (1.0 - a) * bias,
+                                      bias),
+        vel=torch.where(zupt_on, (1.0 - a) * updated.vel, updated.vel),
+    )
+    return select(run, zupted, state)
+
+
+# --------------------------------------------------------------------------- #
+# A frame's sequences: the plain versions of kernels H and I, and the one
+# dispatch for each (plain for CPU tensors, the kernel for CUDA ones)
+# --------------------------------------------------------------------------- #
+
+def imu_chain_plain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
+                    flags: EkfFlags):
+    """The frame's ego-frame IMU samples through :func:`predict_imu` one at a
+    time, each masked by ``valid`` (the scan body of JAX ``runtime.py:405``
+    imu_subbatch). Returns (state, (t, pos, rot, vel, gyro)) with the
+    history stacked per sample."""
+    hist = []
+    for i in range(ts.shape[0]):
+        nxt = predict_imu(state, ImuMeas(timestamp=ts[i], acc=acc[i], gyro=gyro[i]),
+                          params, flags)
+        state = select(valid[i], nxt, state)
+        hist.append((state.prev_timestamp, state.pos, state.rot, state.vel,
+                     state.gyro))
+    return state, tuple(torch.stack(x) for x in zip(*hist))
+
+
+def ego_history(t, pos, rot, vel, gyro):
+    """(t, pos, rot, vel, gyro) per sample -> (t, pos, rpy, vel_local, gyro),
+    the ego ring's fields (JAX runtime.py:435-436)."""
+    rpy = lie.rot_to_euler(lie.quat_to_rot(rot))
+    return t, pos, rpy, global_to_local_velocity(vel, rpy), gyro
+
+
+def imu_chain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
+              flags: EkfFlags):
+    """:func:`imu_chain_plain` + :func:`ego_history` for CPU tensors, kernel H
+    for CUDA ones: (state, (t, pos, rpy, vel_local, gyro))."""
+    if ts.device.type == "cpu":
+        state, hist = imu_chain_plain(state, ts, acc, gyro, valid, params, flags)
+        return state, ego_history(*hist)
+    return kernels.imu_chain(state, ts, acc, gyro, valid, params, flags)
+
+
+def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,
+                       can=None, gps=None, gnss_uncertainty_max=None, pcm=None):
+    """A frame's measurement updates in the fused frame's order (JAX
+    ``runtime.py:453-480`` and ``:358-360``): the CAN samples
+    ``can = (t, vel_x, yaw_rate, valid)`` through :func:`update_can`, then
+    the GPS fixes ``gps = (t, pos, cov_diag, valid)`` through
+    :func:`update_gps`, each masked by its ``valid``, then the PCM pose
+    ``pcm = (GnssMeas, apply)`` through :func:`update_gnss` masked by
+    ``apply``."""
+    if can is not None:
+        for t, vx, yr, v in zip(*can):
+            state = select(v, update_can(state, can_meas(t, vx, yr), params, flags),
+                           state)
+    if gps is not None:
+        for t, pos, cov, v in zip(*gps):
+            state = select(v, update_gps(state, t, pos, cov, params, flags,
+                                         gnss_uncertainty_max), state)
+    if pcm is not None:
+        meas, apply = pcm
+        state = select(apply, update_gnss(state, meas, params, flags), state)
+    return state
+
+
+def update_chain(state: EkfState, params: EkfParams, flags: EkfFlags, **kw):
+    """:func:`update_chain_plain` for CPU tensors, kernel I for CUDA ones."""
+    if state.P.device.type == "cpu":
+        return update_chain_plain(state, params, flags, **kw)
+    if kw.get("gps") is not None:
+        kw["gps_source"] = GPS_SOURCE[flags.gps_type]
+    return kernels.ekf_update(state, params, flags, **kw)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,4 +1,5 @@
-"""EKF state records — port of ``elimaloc_tpu/ekf/state.py:39-173``.
+"""EKF state records — port of ``elimaloc_tpu/ekf/state.py:39-173``
+(``CanMeas`` :103 included).
 
 Plain dataclasses of tensors (see ``struct.Struct``) with the reference's
 27-state layout (ekf_algorithm.hpp:41-67):
@@ -84,6 +85,16 @@ class GnssMeas(Struct):
     rot: torch.Tensor     # [4]
     pos_cov: torch.Tensor  # [3,3]
     rot_cov: torch.Tensor  # [3,3]
+
+
+@dataclasses.dataclass
+class CanMeas(Struct):
+    """CAN wheel-speed sample (CanStruct, localization_struct.hpp:120;
+    ``elimaloc_tpu/ekf/state.py:103``)."""
+
+    timestamp: torch.Tensor
+    vel: torch.Tensor   # [3] local, only x valid
+    gyro: torch.Tensor  # [3] local, only z valid
 
 
 @dataclasses.dataclass

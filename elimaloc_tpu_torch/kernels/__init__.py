@@ -3,9 +3,12 @@
 Each wrapper checks device, dtype (float32 only), shape and contiguity,
 allocates its outputs, launches on PyTorch's current stream, raises on a
 non-zero ``cudaGetLastError`` and adds one to its entry of :data:`launches`.
-The callers (deskew.py, map/grid.py, map/tiles.py, register/icp.py) run the
-plain PyTorch version for a CPU tensor and one of these for any other; a
-non-CUDA tensor that reaches a wrapper raises.
+The callers (deskew.py, map/grid.py, map/tiles.py, register/icp.py,
+ekf/filter.py) run the plain PyTorch version for a CPU tensor and one of
+these for any other; a non-CUDA tensor that reaches a wrapper raises.
+Every kernel runs on every path of the fused frame (P2P, GICP, VGICP,
+AVGICP, and any of them with GPS + CAN) except the method kernels A, E, F,
+G, one per ICP method.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -18,6 +21,10 @@ E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
                               icp._gicp_tail
 F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
 G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail
+H         imu_chain           ekf/filter.py:predict_imu chain (runtime.imu_subbatch)
+I         ekf_update          filter._ekf_measurement_update + update_gnss +
+                              update_can (the CAN / GPS sub-batches, the PCM
+                              update)
 ========  ==================  ===================================================
 """
 
@@ -32,7 +39,7 @@ from .build import library
 #: launches per kernel since the last :func:`reset_launches`
 launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
-            "avgicp_correspond": 0}
+            "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0}
 
 
 def reset_launches() -> None:
@@ -311,3 +318,135 @@ def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sb
          ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
         slot_tile, sbuf, qmask, pose, max_dist, [ctypes.c_float(voxel_size)],
         with_matches, 7)
+
+
+# --------------------------------------------------------------------------- #
+# Kernels H and I: the EKF in one CTA (csrc/ekf.cuh)
+# --------------------------------------------------------------------------- #
+
+_F32, _BOOL = torch.float32, torch.bool
+_V3, _V4 = (3,), (4,)
+#: EkfState's fields in the order of csrc/ekf.cuh's ``Field`` enum (the
+#: dataclass order), with their dtype and shape
+EKF_FIELDS = (
+    ("pos", _F32, _V3), ("rot", _F32, _V4), ("vel", _F32, _V3), ("gyro", _F32, _V3),
+    ("acc", _F32, _V3), ("bg", _F32, _V3), ("ba", _F32, _V3), ("grav", _F32, _V3),
+    ("imu_rot", _F32, _V4), ("P", _F32, (27, 27)),
+    ("reset_for_init_prediction", _BOOL, ()), ("state_initialized", _BOOL, ()),
+    ("yaw_initialized", _BOOL, ()), ("rotation_stabilized", _BOOL, ()),
+    ("state_stabilized", _BOOL, ()), ("pcm_init_on_going", _BOOL, ()),
+    ("vehicle_imu_calib_started", _BOOL, ()), ("can_yaw_rate_bias", _F32, ()),
+    ("pcm_update_count", torch.int32, ()), ("prev_timestamp", _F32, ()),
+    ("prev_gnss_timestamp", _F32, ()), ("prev_can_timestamp", _F32, ()),
+    ("cf_initialized", _BOOL, ()), ("cf_prev_vel_local_x", _F32, ()),
+    ("cf_prev_time", _F32, ()),
+)
+#: EkfParams' fields in the order of csrc/ekf.cuh's ``Param`` enum
+PARAM_FIELDS = (
+    ("init_pos", _V3), ("init_rpy", _V3), ("imu_gravity", ()), ("state_std_pos_m", ()),
+    ("state_std_rot_rad", ()), ("state_std_vel_mps", ()), ("state_std_gyro_dps", ()),
+    ("state_std_acc_mps", ()), ("imu_std_gyro_rad", ()), ("imu_std_acc_mps", ()),
+    ("imu_bias_cov_gyro", ()), ("imu_bias_cov_acc", ()), ("gnss_min_cov", (6,)),
+    ("can_vel_scale", ()), ("can_meas_uncertainty_vel", ()),
+    ("can_meas_uncertainty_yaw_rate_rad", ()),
+)
+#: kernel H's flag bits (csrc/imu_chain.cu)
+_ZUPT, _RUN_CF, _GRAVITY, _CALIBRATION = 1, 2, 4, 8
+_PCM = 3  # config.GnssSource.PCM
+
+
+def _ptr_array(ptrs):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _ekf_io(state, name):
+    """(the input field pointers, fresh outputs per field, their pointers):
+    each field goes in and out by its own pointer; allocating launches
+    nothing, and no pack or unpack kernel runs around the EKF kernels."""
+    if state.P.dtype != _F32:
+        raise TypeError(f"{name}: float32 EKF state required, got {state.P.dtype}")
+    ins = _ptr_array([_check(getattr(state, f), f, dt, shape).value
+                      for f, dt, shape in EKF_FIELDS])
+    outs = {f: torch.empty_like(getattr(state, f)) for f, _, _ in EKF_FIELDS}
+    return ins, outs, _ptr_array([outs[f].data_ptr() for f, _, _ in EKF_FIELDS])
+
+
+def _params(params):
+    return _ptr_array([_check(getattr(params, f), f, _F32, shape).value
+                       for f, shape in PARAM_FIELDS])
+
+
+def _refuse_joseph(name, flags):
+    if flags.joseph_form:
+        raise NotImplementedError(
+            f"{name}: the Joseph-form covariance update on the card is ROADMAP "
+            "Queue 1 #12")
+
+
+def imu_chain(state, ts, acc, gyro, valid, params, flags):
+    """Kernel H (ekf.filter.imu_chain_plain + ego_history): the frame's
+    ego-frame IMU samples through ``predict_imu`` one at a time, masked by
+    ``valid``. Returns (state, (t, pos, rpy, vel_local, gyro)) with the
+    ego-ring history per sample."""
+    _refuse_joseph("imu_chain", flags)
+    n = ts.shape[0]
+    args = [_check(ts, "ts", _F32, (n,)), _check(acc, "acc", _F32, (n, 3)),
+            _check(gyro, "gyro", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,))]
+    ins, outs, out_ptrs = _ekf_io(state, "imu_chain")
+    hist = (torch.empty(n, dtype=_F32, device=ts.device),) + tuple(
+        torch.empty((n, 3), dtype=_F32, device=ts.device) for _ in range(4))
+    bits = ((_ZUPT if flags.use_zupt else 0) | (_RUN_CF if flags.run_cf else 0)
+            | (_GRAVITY if flags.imu_estimate_gravity else 0)
+            | (_CALIBRATION if flags.imu_estimate_calibration else 0))
+    rc = library().elm_imu_chain(ins, out_ptrs, _params(params), *args, ctypes.c_int(n),
+                                 ctypes.c_int(bits), *(_ptr(h) for h in hist),
+                                 _stream(ts))
+    _raise_on(rc, "imu_chain")
+    launches["imu_chain"] += 1
+    return state.replace(**outs), hist
+
+
+def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
+               gnss_uncertainty_max=None, pcm=None):
+    """Kernel I (ekf.filter.update_chain_plain): the CAN samples
+    ``can = (t, vel_x, yaw_rate, valid)``, then the GPS fixes
+    ``gps = (t, pos, cov_diag, valid)`` (as GNSS source ``gps_source``,
+    with ``gnss_uncertainty_max``), then the PCM pose
+    ``pcm = (GnssMeas, apply)``, in one launch."""
+    _refuse_joseph("ekf_update", flags)
+    ins, outs, out_ptrs = _ekf_io(state, "ekf_update")
+    null = ctypes.c_void_p(None)
+    can_args = [ctypes.c_int(0), null, null, null, null]
+    if can is not None:
+        nc = can[0].shape[0]
+        can_args = [ctypes.c_int(nc)] + [
+            _check(x, f"can_{k}", dt, (nc,))
+            for x, k, dt in zip(can, ("t", "vel", "yaw", "valid"), (_F32,) * 3 + (_BOOL,))]
+    gps_args = [ctypes.c_int(0), ctypes.c_int(0), null, null, null, null, null]
+    if gps is not None:
+        ng = gps[0].shape[0]
+        if gps_source is None:
+            raise ValueError("ekf_update: GPS fixes need their gps_source")
+        gps_args = [ctypes.c_int(ng), ctypes.c_int(gps_source),
+                    _check(gnss_uncertainty_max, "gnss_uncertainty_max", _F32, ()),
+                    _check(gps[0], "gps_t", _F32, (ng,)),
+                    _check(gps[1], "gps_pos", _F32, (ng, 3)),
+                    _check(gps[2], "gps_cov", _F32, (ng, 3)),
+                    _check(gps[3], "gps_valid", _BOOL, (ng,))]
+    pcm_args = [ctypes.c_int(0)] + [null] * 6
+    if pcm is not None:
+        meas, apply = pcm
+        if int(meas.source) != _PCM:
+            raise ValueError(f"ekf_update: the pose update takes the PCM source, got "
+                             f"{int(meas.source)}")
+        pcm_args = [ctypes.c_int(1), _check(meas.timestamp, "pcm_t", _F32, ()),
+                    _check(meas.pos, "pcm_pos", _F32, _V3),
+                    _check(meas.rot, "pcm_rot", _F32, _V4),
+                    _check(meas.pos_cov, "pcm_pos_cov", _F32, (3, 3)),
+                    _check(meas.rot_cov, "pcm_rot_cov", _F32, (3, 3)),
+                    _check(apply, "pcm_apply", _BOOL, ())]
+    rc = library().elm_ekf_update(ins, out_ptrs, _params(params), *can_args, *gps_args,
+                                  *pcm_args, _stream(state.P))
+    _raise_on(rc, "ekf_update")
+    launches["ekf_update"] += 1
+    return state.replace(**outs)

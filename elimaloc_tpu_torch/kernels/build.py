@@ -30,6 +30,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "elm_deskew": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                    _P, _P],
@@ -46,6 +47,9 @@ _SIGNATURES = {
                                 _F, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "elm_avgicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
                                  _P, _P, _P, _P, _P, _P],
+    "elm_imu_chain": [_PP, _PP, _PP, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "elm_ekf_update": [_PP, _PP, _PP, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                       _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,19 +1,21 @@
 """The fused localization runtime — port of
 ``elimaloc_tpu/pipeline/runtime.py`` (P2P, GICP, VGICP and AVGICP on the
-tile backend).
+tile backend, with GPS and CAN fusion).
 
 One :class:`PipelineState` (EKF state + ego/IMU rings) runs through
 :func:`fused_frame` once per LiDAR scan: :func:`imu_subbatch` (the frame's
-IMU samples through the EKF prediction, then one batch push into each
-ring), then :func:`scan_step` (range gate -> deskew -> pose sync -> voxel
-downsample -> ICP registration -> covariance shaping -> latency
-compensation -> EKF PCM update). :func:`replay_fused` is the Python loop
-that replaces the JAX ``lax.scan`` over frames; batches come from the NumPy
-:func:`build_fused_batches` and move to the device once per log.
+IMU samples through the EKF prediction, kernel H on the card, then one
+batch push into each ring), the frame's CAN and GPS samples when the
+configuration fuses them (kernel I), then :func:`scan_step` (range gate ->
+deskew -> pose sync -> voxel downsample -> ICP registration -> covariance
+shaping -> latency compensation -> EKF PCM update, kernel I).
+:func:`replay_fused` is the Python loop that replaces the JAX ``lax.scan``
+over frames; batches come from the NumPy :func:`build_fused_batches` and
+move to the device once per log.
 
-Refused with NotImplementedError (ROADMAP Queue 1): GPS / CAN fusion in
-the fused frame (#12), the hash backend (#13), active-window maps (#14) and
-the radar covariances (#11); see ``register.icp.check_supported``.
+Refused with NotImplementedError (ROADMAP Queue 1): the hash backend (#13),
+active-window maps (#14) and the radar covariances (#11); see
+``register.icp.check_supported``.
 """
 
 from __future__ import annotations
@@ -32,18 +34,17 @@ from ..ekf import (
     EkfParams,
     EkfState,
     GnssMeas,
-    ImuMeas,
     ego_state,
+    imu_chain,
     init_state,
     make_params,
-    predict_imu,
-    update_gnss,
+    update_chain,
 )
 from ..map import builder as map_builder
 from ..map import tiles as map_tiles
 from ..map.grid import voxel_downsample
 from ..ops import lie
-from ..ops.frames import global_to_local_velocity, imu_to_ego
+from ..ops.frames import imu_to_ego
 from ..register.icp import (
     IcpParams,
     IcpStatic,
@@ -52,7 +53,7 @@ from ..register.icp import (
     make_icp_static,
     run_register,
 )
-from ..struct import Struct, select
+from ..struct import Struct
 from . import rings
 from .log import ReplayLog
 
@@ -158,8 +159,10 @@ def shape_icp_covariance(rot_ego, local_cov, fitness):
 
     t_cov = rot_ego @ local_cov[:3, :3] @ rot_ego.T
     r_cov = local_cov[3:, 3:]
-    return (normalize(t_cov) * std * std,
-            normalize(r_cov) * angle_std * angle_std)
+    # row-major, as kernel I reads them (an inverse on the card may come
+    # back column-major, and elementwise results keep its strides)
+    return ((normalize(t_cov) * std * std).contiguous(),
+            (normalize(r_cov) * angle_std * angle_std).contiguous())
 
 
 def _no_mark(name):
@@ -213,8 +216,8 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
     apply = usable & res.success & comp_ok
     if not ps.use_pcm:
         apply = torch.zeros_like(apply)
-    ekf2 = update_gnss(state.ekf, meas, pp.ekf, ps.ekf_flags)
-    new_state = select(apply, state.replace(ekf=ekf2), state)
+    new_state = state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
+                                               pcm=(meas, apply)))
 
     out = {
         "scan_end": scan_end,
@@ -233,43 +236,71 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
     return new_state, out
 
 
+def _one(*xs):
+    """One sample as a sub-batch of one, valid."""
+    return tuple(x[None] for x in xs) + (torch.ones(1, dtype=torch.bool,
+                                                    device=xs[0].device),)
+
+
+def gps_step(state: PipelineState, t, pos, cov_diag, pp: PipelineParams,
+             ps: PipelineStatic) -> PipelineState:
+    """GPS fix update (runtime.py:205-234): the configured gps_type picks the
+    source, NAVSATFIX / BESTPOS 3-DOF and ODOMETRY the NOVATEL 6-DOF path;
+    see ``ekf.filter.update_gps``. A GPS sub-batch of one through
+    ``update_chain`` (kernel I on the card)."""
+    if not ps.use_gps:
+        return state
+    return state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
+                                          gps=_one(t, pos, cov_diag),
+                                          gnss_uncertainty_max=pp.gnss_uncertainty_max))
+
+
+def can_step(state: PipelineState, t, vel_x, yaw_rate, pp: PipelineParams,
+             ps: PipelineStatic) -> PipelineState:
+    """CAN wheel-speed update (runtime.py:260-272): a CAN sub-batch of one
+    through ``update_chain`` (kernel I on the card)."""
+    if not ps.use_can:
+        return state
+    return state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
+                                          can=_one(t, vel_x, yaw_rate)))
+
+
 def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
                  ps: PipelineStatic) -> PipelineState:
-    """The frame's IMU samples through ``predict_imu`` one at a time (masked
-    by validity), the ego-state conversions batched after the loop, then one
-    batch push into each ring (runtime.py:405-441)."""
+    """The frame's IMU samples through the EKF prediction one at a time
+    (masked by validity; ``ekf.filter.imu_chain``: kernel H on the card),
+    then one batch push into each ring (runtime.py:405-441)."""
     ts, accs, gyros, valids = b["imu_t"], b["imu_acc"], b["imu_gyro"], b["imu_valid"]
     acc_e, gyro_e = imu_to_ego(accs, gyros, pp.ego_to_imu_rot, pp.ego_to_imu_trans)
     # PCM's IMU intake rotates but does not lever-arm compensate (cpp:328)
     gyro_pcm = gyros @ pp.ego_to_imu_rot.T
     acc_pcm = accs @ pp.ego_to_imu_rot.T
 
-    ekf = st.ekf
-    hist = []
-    for i in range(ts.shape[0]):
-        ekf2 = predict_imu(ekf, ImuMeas(timestamp=ts[i], acc=acc_e[i],
-                                        gyro=gyro_e[i]), pp.ekf, ps.ekf_flags)
-        ekf = select(valids[i], ekf2, ekf)
-        hist.append((ekf.prev_timestamp, ekf.pos, ekf.rot, ekf.vel, ekf.gyro))
-    t_s, pos_s, rot_s, vel_s, gyro_s = (torch.stack(x) for x in zip(*hist))
-    rpy_s = lie.rot_to_euler(lie.quat_to_rot(rot_s))
-    vloc_s = global_to_local_velocity(vel_s, rpy_s)
-    ego_ring = rings.push_ego_batch(st.ego_ring, t_s, pos_s, rpy_s, vloc_s,
-                                    gyro_s, valids)
+    ekf, hist = imu_chain(st.ekf, ts, acc_e, gyro_e, valids, pp.ekf, ps.ekf_flags)
+    ego_ring = rings.push_ego_batch(st.ego_ring, *hist, valids)
     imu_ring = rings.push_imu_batch(st.imu_ring, ts, gyro_pcm, acc_pcm, valids)
     return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
 
 
 def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
                 ps: PipelineStatic, mark=_no_mark):
-    """One scan frame: the IMU sub-batch then the scan (runtime.py:444-491).
-    ``mark(name)`` gets "imu" after the IMU chain, the scan_step marks, and
-    "ekf_update" at the end of the frame."""
-    if ps.use_gps or ps.use_can:
-        raise NotImplementedError(
-            "GPS / CAN fusion in the fused frame is ROADMAP Queue 1 #12")
+    """One scan frame: the IMU sub-batch, the CAN then the GPS sub-batch
+    (each sample masked by validity), then the scan (runtime.py:444-491).
+    ``mark(name)`` gets "imu" after the IMU chain, "can_gps" after the CAN /
+    GPS updates, the scan_step marks, and "ekf_update" at the end of the
+    frame."""
     st = imu_subbatch(st, b, pp, ps)
     mark("imu")
+    if ps.use_can or ps.use_gps:
+        can = gps = None
+        if ps.use_can:
+            can = (b["can_t"], b["can_vel"], b["can_yaw"], b["can_valid"])
+        if ps.use_gps:
+            gps = (b["gps_t"], b["gps_pos"], b["gps_cov"], b["gps_valid"])
+        st = st.replace(ekf=update_chain(
+            st.ekf, pp.ekf, ps.ekf_flags, can=can, gps=gps,
+            gnss_uncertainty_max=pp.gnss_uncertainty_max))
+    mark("can_gps")
     st, out = scan_step(st, b["scan_t"], b["scan_points"], b["scan_times"],
                         b["scan_valid"], tmap, pp, ps, mark=mark)
     es = ego_state(st.ekf)
@@ -410,12 +441,15 @@ class LocalizationPipeline:
     (runtime.py:728-731): the wider halo keeps the hoisted slot assignment
     exact for AVGICP's 7-voxel sums.
 
+    ``device`` is the card unless the caller asks for another: CUDA tensors
+    run the hand-written kernels, ``device="cpu"`` their plain versions.
+
     Timestamps are rebased to ``time_base`` (set on the first event) in
     float64 on the host before any float32 store; returned trajectories are
     absolute again (``ego_t_abs``)."""
 
     def __init__(self, cfg: ElimalocConfig, map_points, *,
-                 dtype=torch.float32, device=None, backend: str = "tile",
+                 dtype=torch.float32, device="cuda", backend: str = "tile",
                  tile_budget=None, ds_points: int = 8192,
                  ego_ring_size: int = 1024, imu_ring_size: int = 512,
                  tile_voxels: int = 4, use_native: bool = True,
@@ -438,7 +472,7 @@ class LocalizationPipeline:
         check_supported(self.static.icp_static)
         self.cfg = cfg
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(device)
         if prebuilt:
             host_tmap = map_points
         else:

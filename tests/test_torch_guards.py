@@ -5,7 +5,7 @@
 * The port's NumPy copies (config, the synthetic world and log, the voxel
   map builder, the tile packer, the fused batch builder) produce
   bit-identical output to the JAX package's on the same seeds.
-* Features the slice does not run raise NotImplementedError naming the
+* Features the port does not run raise NotImplementedError naming the
   ROADMAP item instead of running silently.
 """
 
@@ -142,12 +142,6 @@ def test_pipeline_refuses_unported(both_worlds, change):
     else:
         kw["backend"] = "hash"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        truntime.LocalizationPipeline(cfg, tw[:1000], use_native=False, **kw)
+        truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
+                                      **kw)
 
-
-@pytest.mark.parametrize("flag", ["use_gps", "use_can"])
-def test_fused_frame_refuses_gps_can(flag):
-    static = dataclasses.replace(
-        truntime.make_pipeline_static(tiny_cfg(tconfig)), **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        truntime.fused_frame(None, {}, None, None, static)

@@ -13,22 +13,38 @@ JTr rtol 1e-4 (the f32 sums over ~1k rows are reduced in another order);
 kernels E, F, G (GICP, VGICP, AVGICP): ``ok`` and the selected covariances
 and means exactly equal (the same exact search, then copies), JTJ, JTr and
 the fitness numerator rtol 1e-4 on the norms (the per-row 3x3 inverses and
-products run with FMAs and the sums in another order).
+products run with FMAs and the sums in another order); kernel H (the IMU
+chain, per flag set): pos / vel and the history's pos / vel_local atol
+1e-4 m, the quaternions 1e-6, the history's angles 1e-5 rad, each P entry
+within 1e-4 sqrt(P_ii P_jj) plus eight float32 ulps of its scale before the
+call (the plain version's small products go through cuBLAS, whose summation
+order and FMAs differ from the kernel's ordered sums); kernel I (CAN, GPS
+3- and 6-DOF, the PCM pose with ``apply`` true and false, and the
+pipeline's one-sample CAN and GPS steps): each P entry within 1e-5
+sqrt(P_ii P_jj) plus the same rounding term, every other float field of
+the state within rel 1e-5 of its largest entry, the flags and counters
+equal.
 Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (tests/conftest.py
 imports jax, which the GPU host does not have).
 """
+
+import dataclasses
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from elimaloc_tpu_torch import deskew, kernels
-from elimaloc_tpu_torch.config import IcpMethod
+from elimaloc_tpu_torch.config import ElimalocConfig, GpsType, IcpMethod
+from elimaloc_tpu_torch.ekf import EkfParams, EkfState, GnssMeas
+from elimaloc_tpu_torch.ekf import filter as efilter
 from elimaloc_tpu_torch.kernels import build
 from elimaloc_tpu_torch.map import builder, grid, tiles
 from elimaloc_tpu_torch.pipeline import log as tlog
 from elimaloc_tpu_torch.pipeline import rings
+from elimaloc_tpu_torch.pipeline import runtime
 from elimaloc_tpu_torch.register import icp
 
 
@@ -136,15 +152,99 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 
 def test_launch_counters_name_all_seven_kernels():
+    """Every kernel's counter: A-G and, since the EKF kernels, H and I."""
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
-        "gicp_correspond", "vgicp_correspond", "avgicp_correspond"])
+        "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
+        "ekf_update"])
+
+
+def test_ekf_field_tables_match_the_records_and_the_kernels():
+    """The wrappers pass one pointer per EkfState / EkfParams field in the
+    order of csrc/ekf.cuh's enums: the same fields, the same count."""
+    assert [f[0] for f in kernels.EKF_FIELDS] == [
+        f.name for f in dataclasses.fields(EkfState)]
+    assert [f[0] for f in kernels.PARAM_FIELDS] == [
+        f.name for f in dataclasses.fields(EkfParams)]
+    src = (build.SRC_DIR / "ekf.cuh").read_text()
+    for enum, table in (("Field", kernels.EKF_FIELDS), ("Param", kernels.PARAM_FIELDS)):
+        body = re.search(r"enum %s \{([^}]*)\}" % enum, src).group(1)
+        names = [n.strip() for n in body.split(",") if n.strip()]
+        assert names[-1].startswith("k") and len(names) - 1 == len(table), enum
+
+
+def _ekf_inputs(device, dtype=torch.float32, flags="default"):
+    """A filter past initialization (moving at 5 m/s with a tight P, or
+    stationary for ZUPT), one frame's IMU budget (an invalid sample, two of
+    padding, a repeated stamp), and one frame's CAN, GPS and PCM inputs."""
+    rng = np.random.default_rng(31)
+    cfg = ElimalocConfig()
+    kw = {"zupt": dict(use_zupt=True), "calibration": dict(imu_estimate_calibration=True),
+          "no_gravity": dict(imu_estimate_gravity=False),
+          "no_cf": dict(use_complementary_filter=False), "default": {},
+          "odometry": dict(gps_type=GpsType.ODOMETRY)}[flags]
+    for k, v in kw.items():
+        setattr(cfg.ekf, k, v)
+    pp = runtime.make_pipeline_params(cfg, dtype=dtype, device=device)
+    ps = runtime.make_pipeline_static(cfg)
+    f = lambda a, dt=dtype: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    # calibration runs only once rotation is stabilized (std < 0.2 deg)
+    a = rng.normal(size=(27, 27)) * (1e-4 if flags == "calibration" else 1e-3)
+    q = np.array([1.0, 0.01, -0.02, 0.3])
+    still = flags == "zupt"
+    st = efilter.init_state(pp.ekf, dtype=dtype).replace(
+        P=f(a @ a.T + np.eye(27) * 1e-6), rot=f(q / np.linalg.norm(q)),
+        pos=f([60.0, 2.0, 0.1]), vel=f([0.02, -0.01, 0.0] if still else [4.0, 3.0, 0.0]),
+        state_initialized=f(True, torch.bool), yaw_initialized=f(True, torch.bool),
+        prev_timestamp=f(1.0), prev_can_timestamp=f(1.0))
+    n = 12
+    ts = 1.0 + 0.01 * np.arange(1, n + 1)
+    ts[7] = ts[6]
+    if still:
+        acc = rng.normal(0, 0.01, (n, 3)) + [0.0, 0.0, 9.81]
+        gyro = np.zeros((n, 3))
+    else:
+        acc = rng.normal(0, 0.3, (n, 3)) + [0.5, 0.1, 9.81]
+        gyro = rng.normal(0, 0.05, (n, 3)) + [0.0, 0.0, 0.13]
+    valid = np.ones(n, bool)
+    valid[[4, 10, 11]] = False
+    ts[-2:], acc[-2:], gyro[-2:] = 0.0, 0.0, 0.0
+    imu = (f(ts), f(acc), f(gyro), f(valid, torch.bool))
+    can = (f([1.005, 1.02, 1.04, 1.06, 0.0]), f([5.1, 5.0, 0.03, 4.9, 0.0]),
+           f([0.13, 0.12, 0.002, 0.11, 0.0]), f([True, True, True, True, False], torch.bool))
+    gps = (f([1.05]), f([[60.2, 1.7, 0.1]]), f([[0.3, 0.3, 0.3]]), f([True], torch.bool))
+    qm = np.array([1.0, 0.012, -0.021, 0.31])
+    b = rng.normal(size=(3, 3)) * 0.05
+    meas = GnssMeas(timestamp=f(1.1), source=3, pos=f([60.3, 2.1, 0.12]),
+                    rot=f(qm / np.linalg.norm(qm)), pos_cov=f(b @ b.T + 0.01 * np.eye(3)),
+                    rot_cov=f(np.eye(3) * 1e-4))
+    return st, pp, ps.ekf_flags, imu, can, gps, meas
+
+
+@pytest.mark.parametrize("which", ["imu_chain", "ekf_update"])
+def test_ekf_kernels_refuse_joseph_form(which):
+    st, pp, flags, imu, *_ = _ekf_inputs("cpu")
+    flags = dataclasses.replace(flags, joseph_form=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if which == "imu_chain":
+            kernels.imu_chain(st, *imu, pp.ekf, flags)
+        else:
+            kernels.ekf_update(st, pp.ekf, flags)
 
 
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
                                    "p2p_correspond", "gicp_correspond",
-                                   "vgicp_correspond", "avgicp_correspond"])
+                                   "vgicp_correspond", "avgicp_correspond", "imu_chain",
+                                   "ekf_update"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
+    if which in ("imu_chain", "ekf_update"):
+        st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            if which == "imu_chain":
+                kernels.imu_chain(st, *imu, pp.ekf, flags)
+            else:
+                kernels.ekf_update(st, pp.ekf, flags, can=can)
+        return
     inp = _inputs(scene, "cpu")
     tm = inp["tmap"]
     s = torch.zeros(8, dtype=torch.int32)
@@ -195,7 +295,9 @@ def test_kernels_match_plain_on_card(scene, cuda, qb, max_slots, out_size,
     kernels.reset_launches()
     out = _calls(inp, budget, out_size, bug_compat_z)
     torch.cuda.synchronize()
-    assert all(v == 1 for v in kernels.launches.values()), kernels.launches
+    # each scan-path kernel once (the EKF kernels H and I are not called here)
+    assert all(v == (k not in ("imu_chain", "ekf_update"))
+               for k, v in kernels.launches.items()), kernels.launches
 
     ref = deskew.deskew_points_plain(inp["pts"], inp["rel"], inp["valid"], inp["info"],
                                      bug_compat_z)
@@ -252,3 +354,121 @@ def test_kernels_match_plain_on_card(scene, cuda, qb, max_slots, out_size,
         # and the caller's dispatch launched this same kernel on the main path
         for a, b in zip(out[method], got):
             assert torch.equal(a, b), method
+
+
+def _rel(a, b):
+    """max |a - b| over the largest |b| (1 for an all-zero b)."""
+    scale = float(b.abs().max()) or 1.0
+    return float((a.double() - b.double()).abs().max()) / scale
+
+
+def _p_entry_err(got, ref, prior, tol):
+    """P's error as a share of its limit (at most 1 passes): max over (i, j)
+    of |got_ij - ref_ij| / (tol sqrt(ref_ii ref_jj) + 8 eps sqrt(prior_ii
+    prior_jj)). Each entry is held to its own variances; the second term is
+    the rounding P -= K H P leaves on an entry whose variance an update
+    collapses (the 6-DOF fix has zero rotation noise), eight float32 ulps of
+    the entry's scale before the call."""
+    def scale(p):
+        d = torch.sqrt(torch.diagonal(p).double().clamp(min=0.0))
+        return d[:, None] * d[None, :]
+
+    limit = tol * scale(ref) + 8 * torch.finfo(torch.float32).eps * scale(prior)
+    return float(((got.double() - ref.double()).abs() / limit.clamp(min=1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["default", "zupt", "calibration", "no_gravity", "no_cf"])
+def test_imu_chain_matches_plain_on_card(cuda, flags):
+    st, pp, eflags, imu, *_ = _ekf_inputs(cuda, flags=flags)
+    kernels.reset_launches()
+    got, ghist = efilter.imu_chain(st, *imu, pp.ekf, eflags)
+    torch.cuda.synchronize()
+    assert kernels.launches["imu_chain"] == 1
+    ref, rhist = efilter.imu_chain_plain(st, *imu, pp.ekf, eflags)
+    rhist = efilter.ego_history(*rhist)
+    for name in ("pos", "vel"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-4)
+    for name in ("rot", "imu_rot"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-6)
+    assert _p_entry_err(got.P, ref.P, st.P, 1e-4) <= 1.0
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if a.dtype != torch.float32:
+            assert torch.equal(a, b), f
+    for a, b, atol in zip(ghist, rhist, (0.0, 1e-4, 1e-5, 1e-4, 1e-4)):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    if flags == "zupt":
+        assert not torch.equal(got.ba, st.ba)
+    if flags == "calibration":
+        assert bool(got.vehicle_imu_calib_started)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["can", "gps3", "gps6", "pcm", "pcm_skipped", "frame"])
+def test_ekf_update_matches_plain_on_card(cuda, case):
+    st, pp, flags, _, can, gps, meas = _ekf_inputs(
+        cuda, flags="odometry" if case == "gps6" else "default")
+    gate = pp.gnss_uncertainty_max
+    apply = torch.tensor(case != "pcm_skipped", device=cuda)
+    kw = {"can": dict(can=can), "gps3": dict(gps=gps, gnss_uncertainty_max=gate),
+          "gps6": dict(gps=gps, gnss_uncertainty_max=gate),
+          "pcm": dict(pcm=(meas, apply)), "pcm_skipped": dict(pcm=(meas, apply)),
+          "frame": dict(can=can, gps=gps, gnss_uncertainty_max=gate,
+                        pcm=(meas, apply))}[case]
+    kernels.reset_launches()
+    got = efilter.update_chain(st, pp.ekf, flags, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["ekf_update"] == 1
+    ref = efilter.update_chain_plain(st, pp.ekf, flags, **kw)
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if f == "P":
+            assert _p_entry_err(a, b, st.P, 1e-5) <= 1.0, _p_entry_err(a, b, st.P, 1e-5)
+        elif a.dtype == torch.float32:
+            assert _rel(a, b) <= 1e-5, (f, _rel(a, b))
+        else:
+            assert torch.equal(a, b), f
+    moved = float((ref.P - st.P).abs().max())
+    assert (moved == 0.0) == (case == "pcm_skipped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["can_step", "gps_step"])
+def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
+    """The pipeline's one-sample CAN and GPS steps launch kernel I once."""
+    st, pp, flags, _, can, gps, _ = _ekf_inputs(cuda)
+    ps = dataclasses.replace(runtime.make_pipeline_static(ElimalocConfig()),
+                             ekf_flags=flags, use_can=True, use_gps=True)
+    pst = runtime.PipelineState(ekf=st, ego_ring=rings.make_ego_ring(8, torch.float32, cuda),
+                                imu_ring=rings.make_imu_ring(8, torch.float32, cuda))
+    kernels.reset_launches()
+    if step == "can_step":
+        got = runtime.can_step(pst, can[0][1], can[1][1], can[2][1], pp, ps).ekf
+        ref = efilter.update_chain_plain(st, pp.ekf, flags, can=tuple(x[1:2] for x in can))
+    else:
+        got = runtime.gps_step(pst, gps[0][0], gps[1][0], gps[2][0], pp, ps).ekf
+        ref = efilter.update_chain_plain(st, pp.ekf, flags, gps=gps,
+                                         gnss_uncertainty_max=pp.gnss_uncertainty_max)
+    torch.cuda.synchronize()
+    assert kernels.launches["ekf_update"] == 1
+    assert float((ref.P - st.P).abs().max()) > 0.0
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if f == "P":
+            assert _p_entry_err(a, b, st.P, 1e-5) <= 1.0, _p_entry_err(a, b, st.P, 1e-5)
+        elif a.dtype == torch.float32:
+            assert _rel(a, b) <= 1e-5, (f, _rel(a, b))
+        else:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["imu_chain", "ekf_update"])
+def test_ekf_kernels_refuse_float64_on_card(cuda, which):
+    st, pp, flags, imu, can, *_ = _ekf_inputs(cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        if which == "imu_chain":
+            kernels.imu_chain(st, *imu, pp.ekf, flags)
+        else:
+            kernels.ekf_update(st, pp.ekf, flags, can=can)

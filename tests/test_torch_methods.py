@@ -323,7 +323,7 @@ def test_pipeline_refuses_a_map_without_its_covariances(tiny_built, method):
     host = ttiles.build_tile_map(tbuilt, halo_margin=2)
     cfg = tconfig.ElimalocConfig()
     cfg.pcm.icp_method = tconfig.IcpMethod(int(METHODS[method]))
-    TPipeline(cfg, host, ds_points=256)         # the full map is accepted
+    TPipeline(cfg, host, device="cpu", ds_points=256)  # the full map is accepted
     if method == "gicp":
         bare = dataclasses.replace(host, halo_point_cov=None, halo_point_cov_mean=None)
     else:
@@ -331,7 +331,7 @@ def test_pipeline_refuses_a_map_without_its_covariances(tiny_built, method):
             host, halo_vox_cov=np.broadcast_to(np.eye(3, dtype=np.float32),
                                                host.halo_vox_cov.shape))
     with pytest.raises(ValueError, match="covariances"):
-        TPipeline(cfg, bare, ds_points=256)
+        TPipeline(cfg, bare, device="cpu", ds_points=256)
 
 
 def test_to_device_uploads_every_covariance_field(tiny_built):

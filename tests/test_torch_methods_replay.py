@@ -76,7 +76,7 @@ def test_whole_log_f32_closed_loop_contract(scenes, method):
     tbuilt = tbuilder.BuiltMap(**{k: getattr(built, k) for k in
                                   tbuilder.BuiltMap.__dataclass_fields__})
     tpipe = TPipeline(
-        method_cfg(tconfig, method), tbuilt, ds_points=ds_points,
+        method_cfg(tconfig, method), tbuilt, device="cpu", ds_points=ds_points,
         tile_budget=TBudget(qb=8, max_slots=1024), ego_ring_size=128,
         imu_ring_size=128)
     _, touts = tpipe.run_fused(log)

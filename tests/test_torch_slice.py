@@ -73,7 +73,7 @@ def test_whole_log_f32_closed_loop_contract():
         ego_ring_size=128, imu_ring_size=128)
     _, jouts = jpipe.run_fused(log)
     tpipe = TPipeline(
-        tiny_cfg(tconfig), world, ds_points=1024,
+        tiny_cfg(tconfig), world, device="cpu", ds_points=1024,
         tile_budget=TBudget(qb=8, max_slots=1024), use_native=False,
         ego_ring_size=128, imu_ring_size=128)
     _, touts = tpipe.run_fused(log)
