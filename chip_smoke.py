@@ -1,41 +1,51 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (elimaloc_tpu_torch) on one GPU.
 
-Drives the port's main path — fused localization replay through
-``LocalizationPipeline.run_fused`` — once per path: each ICP method (P2P,
-GICP, VGICP, AVGICP), then AVGICP with GPS and CAN fusion (BASELINE config
-5, bench.py:573-582), at the headline width of bench.py: make_world(seed=3,
-extent=120, 400k ground + 200k wall points), 131,072 raw points per scan
-sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and budgets sized
-from the log, the bench.py ``_cfg(method)`` configuration. One BuiltMap
-with both covariances (bench.py:567-571) is packed at halo margin 1 (P2P,
-GICP, VGICP) and 2 (AVGICP).
+Drives the port's entry points at the headline width of bench.py:
+make_world(seed=3, extent=120, 400k ground + 200k wall points), 131,072 raw
+points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
+budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
+BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
+(P2P, GICP, VGICP) and 2 (AVGICP). Seven paths:
+``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
+AVGICP) and for AVGICP with GPS and CAN fusion (BASELINE config 5,
+bench.py:573-582); ``run_frames`` (the online mode) on the GICP pipeline
+("GICP frames"); ``run`` (the per-event loop) on the config-5 pipeline
+("FUSION events"). Then ``initialize_at`` (relocalization) on the P2P
+pipeline.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the nine CUDA kernels from elimaloc_tpu_torch/csrc/, then the
-     map and its two packings, each timed;
-  3. per path:
+  2. build: the 13 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
+     source, all started together), then the map and its two packings;
+  3. per run_fused path:
      a. a warm-up replay that records main-path calls of the kernels;
-     b. kernel vs plain: the method's fused search + GN kernel (A, E, F, G),
-        on the P2P path kernels B, C and D, on the fusion path kernels H
-        (the IMU chain) and I (the CAN, GPS and PCM updates), against their
-        plain PyTorch versions on those inputs, with times from CUDA events
+     b. kernel vs plain on those inputs, with times from CUDA events
         (median of 20) and each kernel's bound (the least time the H100
         could take: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
-        counted from these inputs);
+        counted from these inputs): the method's fused search + GN kernel
+        (A, E, F, G) and kernel M (the GN step) on every method path; on the
+        P2P path kernels B, C, D and J, K, L (the ring pushes, the ring
+        queries at the scan's times, the PCM measurement); on the fusion
+        path kernels H (the IMU chain) and I (the CAN, GPS and PCM updates);
      c. the timed replay: the launch counts set to 0 just before it and
-        read just after (every kernel of the path, H and I on every path,
-        must have launched), applied ratio, ATE against ground truth, slot
-        drops, downsample budget, scans/s, a per-stage split and the frame
-        time p50/p95, and on the fusion path the CAN and GPS samples the
-        filter's gates admitted;
-  4. torch.profiler, after every timed replay: kernels H and I alone on the
-     device, and one more replay per path for the device's busy share and
-     its top kernels;
-  5. reference, per path: a small log on the card against the same port on
-     the CPU (plain versions, held to the JAX package by the CPU tests)
-     under the repo's closed-loop contract.
+        read just after (every kernel of the path must have launched),
+        applied ratio, ATE against ground truth, slot drops, downsample
+        budget, scans/s, a per-stage split and the frame time p50/p95, and
+        on the fusion path the CAN and GPS samples the filter's gates
+        admitted;
+  4. "GICP frames" and "FUSION events", each with its launch counts: the
+     frame loop must equal run_fused to 1e-6 m; the event loop must hold
+     applied >= 0.9, ATE < 0.3 m, its last pose within 0.15 m of run_fused's
+     and admit CAN and GPS; then relocalization from a click 1 m and 1 deg
+     off the truth;
+  5. torch.profiler, after every timed replay: kernels H, I, J, K, L and M
+     alone on the device, and one more replay per run_fused path for the
+     device's busy share and its top kernels;
+  6. reference, per run_fused path: a small log on the card against the
+     same port on the CPU (plain versions, held to the JAX package by the
+     CPU tests) under the repo's closed-loop contract; on the fusion log also
+     the event loop ``run``.
 Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network, no JAX, one card:
@@ -48,6 +58,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -93,6 +104,21 @@ KERNEL = {
 SEARCH_COST = {"P2P": (12, 0, 40), "GICP": (12, 48, 300), "VGICP": (24, 36, 300),
                "AVGICP": (24, 36, 300)}
 SHARED = ("deskew", "voxel_downsample", "assign_slots")
+#: the scan-time kernels, launched on every path: wrapper -> (source, replaces)
+SCAN_KERNELS = {
+    "ring_push": ("rings.cu", "elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch "
+                              "(+ :75, :183, :192)"),
+    "scan_ring_query": ("scan_ring.cu", "elimaloc_tpu/deskew.py:157 make_deskew_info "
+                                        "(+ :82, :109) + elimaloc_tpu/pipeline/rings.py:204 "
+                                        "get_interpolated_pose + runtime.py:338 compose"),
+    "pcm_measurement": ("pcm_meas.cu", "elimaloc_tpu/pipeline/runtime.py:275 "
+                                       "shape_icp_covariance + elimaloc_tpu/pipeline/"
+                                       "rings.py:251 gnss_time_compensation + runtime.py:"
+                                       "341-358"),
+    "gn_step": ("gn_step.cu", "elimaloc_tpu/register/icp.py:202 _solve_step + :209 "
+                              "_step_transform + the loop body :761-795"),
+}
+FRAMES, EVENTS = "GICP frames", "FUSION events"
 #: truth ATE gate per method on the headline log, m. AVGICP does not
 #: converge within max_iteration on this sparse map (8 iterations a frame
 #: against ~2 for the other methods, 0.19 m on the H100): its gate follows the
@@ -542,10 +568,203 @@ def ekf_update_row(rec, mods):
                 bound=bound(ops, moved))
 
 
+def ring_row(calls, mods):
+    """Kernel J against ``push_rings_plain`` on the P2P path's frame: both
+    rings exactly equal (the same copies and float32 comparisons)."""
+    kernels, rings = mods[0], mods[8]
+    a, _ = calls["ring_push"]
+    got = kernels.ring_push(*a)
+    ref = rings.push_rings_plain(*a)
+    for g, r in zip(got, ref):
+        for f in ("t", "count") + tuple(k for k in ("pos", "rpy", "vel_local", "gyro", "acc")
+                                        if hasattr(r, k)):
+            if not torch.equal(getattr(g, f), getattr(r, f)):
+                raise AssertionError(f"ring_push kernel differs from its plain version in {f}")
+    ego, imu, ego_new, imu_new, valid = a
+    # the rings' valid rows: the old ones read, the new ones written (the
+    # rows past a ring's count carry nothing), and the samples read
+    moved = nbytes(*ego_new, *imu_new, valid)
+    for ring, out, fields in ((ego, got[0], ("t", "pos", "rpy", "vel_local", "gyro")),
+                              (imu, got[1], ("t", "gyro", "acc"))):
+        moved += nbytes(ring.count, out.count)
+        for n in (int(ring.count), int(out.count)):
+            moved += nbytes(*(getattr(ring, f)[:n] for f in fields))
+    log_line(f"  ring_push: {valid.shape[0]} samples ({int(valid.sum())} valid) into rings of "
+             f"{ego.capacity} and {imu.capacity}, counts {int(got[0].count)}, "
+             f"{int(got[1].count)}")
+    return dict(name="ring_push", source="elimaloc_tpu_torch/csrc/rings.cu",
+                replaces=SCAN_KERNELS["ring_push"][1], max_abs_err=0.0,
+                ms=time_ms(lambda: kernels.ring_push(*a)),
+                plain_ms=time_ms(lambda: rings.push_rings_plain(*a)),
+                device_fn=(lambda: kernels.ring_push(*a), "ring_push_kernel"),
+                bound=bound(valid.shape[0] * 8, moved))
+
+
+def ring_query_rows(imu, ego, cur, end, w):
+    """The ring rows kernel K's function needs on this input, from its
+    searches (scan_ring.cu, float32 as it compares): (IMU time rows: the
+    valid ones and the window's; gyro rows integrated; distinct ego rows
+    whose pos and rpy it reads; those whose vel_local and gyro it reads to
+    extrapolate)."""
+    f = np.float32
+    cur, end = f(cur.item()), f(end.item())
+    n_imu, n_ego = int(imu.count), int(ego.count)
+    it = imu.t[:n_imu].cpu().numpy()
+    inc = np.flatnonzero((it >= cur - f(0.01)) & (it <= end + f(0.01)))
+    first = int(inc[0]) if inc.size else 0
+    start = min(max(first, 0), imu.capacity - w)
+    imu_t_rows = max(n_imu, start + w) if start <= n_imu else n_imu + w
+    gyro_rows = int(((inc > first) & (inc < start + w)).sum())
+
+    et = ego.t[:n_ego].cpu().numpy()
+    fresh = np.flatnonzero(et >= cur - f(0.1))
+    last_fresh = int(fresh[-1]) if fresh.size else ego.capacity - 1
+    ge_cur = fresh[et[fresh] >= cur]
+    ge_end = fresh[et[fresh] >= end]
+    le, gt = np.flatnonzero(et <= end), np.flatnonzero(et > end)
+    pose = {int(ge_cur[0]) if ge_cur.size else last_fresh, int(le[-1]) if le.size else 0}
+    rate = set()
+    pose.add(int(ge_end[0]) if ge_end.size else last_fresh)
+    if not ge_end.size:
+        rate.add(last_fresh)
+    pose.add(int(gt[0]) if gt.size else n_ego - 1)
+    if not gt.size:
+        rate.add(n_ego - 1)
+    return imu_t_rows, gyro_rows, len(pose), len(rate)
+
+
+def query_row(calls, mods):
+    """Kernel K against ``scan_ring_query_plain`` on the P2P path's frame:
+    the masks, indices and flags equal, the float outputs within 1e-4 (the
+    guess's translation is ~100 m; the plain version's cumsum is a parallel
+    scan and its 4x4 products go through cuBLAS)."""
+    kernels, deskew = mods[0], mods[1]
+    a, _ = calls["scan_ring_query"]
+    imu, ego, cur, end, tf, window, run_deskew = a
+    got = kernels.scan_ring_query(*a)
+    info, guess, found, usable = deskew.scan_ring_query_plain(*a)
+    ref = (info.imu_time, info.imu_rot, info.imu_included, info.first_idx, info.last_idx,
+           info.odom_incre, info.imu_available, info.odom_available, info.imu_covers_start,
+           guess, found, usable)
+    err = 0.0
+    for g, r in zip(got, ref):
+        if g.dtype == torch.float32:
+            err = max(err, float((g - r).abs().max()))
+        elif not torch.equal(g, r):
+            raise AssertionError("scan_ring_query kernel vs plain: a flag or index differs")
+    if not err <= 1e-4:
+        raise AssertionError(f"scan_ring_query kernel vs plain: max abs err {err} > 1e-4")
+    w = info.imu_time.shape[0]
+    log_line(f"  scan_ring_query: IMU ring {imu.capacity} ({int(imu.count)} valid), ego ring "
+             f"{ego.capacity} ({int(ego.count)}), window {w}, included "
+             f"{int(info.imu_included.sum())}, found {bool(found)}, usable {bool(usable)}")
+    n_imu, n_ego = int(imu.count), int(ego.count)
+    imu_t_rows, gyro_rows, pose_rows, rate_rows = ring_query_rows(imu, ego, cur, end, w)
+    moved = nbytes(imu.t[:imu_t_rows], imu.gyro[:gyro_rows], imu.count, ego.t[:n_ego],
+                   ego.pos[:pose_rows], ego.rpy[:pose_rows], ego.vel_local[:rate_rows],
+                   ego.gyro[:rate_rows], ego.count, cur, end, tf, *got)
+    ops = 10 * (n_imu + n_ego) + 20 * w + 2000
+    return dict(name="scan_ring_query", source="elimaloc_tpu_torch/csrc/scan_ring.cu",
+                replaces=SCAN_KERNELS["scan_ring_query"][1], max_abs_err=err,
+                ms=time_ms(lambda: kernels.scan_ring_query(*a)),
+                plain_ms=time_ms(lambda: deskew.scan_ring_query_plain(*a)),
+                device_fn=(lambda: kernels.scan_ring_query(*a), "scan_ring_query_kernel"),
+                bound=bound(ops, moved))
+
+
+def measurement_row(calls, mods):
+    """Kernel L against ``pcm_measurement_plain`` on the P2P path's frame:
+    the pose and position within 1e-4 m (~100 m values), the quaternion
+    1e-6, the covariances rel 1e-5 of their largest entry, ``apply``
+    equal."""
+    kernels, runtime = mods[0], mods[6]
+    a, _ = calls["pcm_measurement"]
+    pose, tf, local_cov, fitness, success, usable, ego, end, use_pcm = a
+    res = SimpleNamespace(pose=pose, local_cov=local_cov, fitness=fitness, success=success)
+
+    def plain():
+        return runtime.pcm_measurement_plain(res, tf, ego, end, usable, use_pcm)
+
+    got = kernels.pcm_measurement(*a)
+    rpose, meas, apply = plain()
+    ref = (rpose, meas.timestamp, meas.pos, meas.rot, meas.pos_cov, meas.rot_cov, apply)
+    errs = [float((g - r).abs().max()) for g, r in zip(got[:6], ref[:6])]
+    rel = [e / max(float(r.abs().max()), 1e-30) for e, r in zip(errs[4:], ref[4:6])]
+    gates = [errs[0] <= 1e-4, errs[1] == 0.0, errs[2] <= 1e-4, errs[3] <= 1e-6,
+             max(rel) <= 1e-5, bool(got[6]) == bool(apply)]
+    log_line("  pcm_measurement: errors pose, t, pos, quat " + ", ".join(
+        f"{e:.2e}" for e in errs[:4]) + f", covariances rel {max(rel):.2e}, apply "
+        f"{bool(apply)}")
+    if not all(gates):
+        raise AssertionError("pcm_measurement kernel vs plain: outside its gates")
+    # the ring's valid times (the search), pos and rpy at its newest entry
+    # and at the first one after the measurement (pcm_meas.cu)
+    n_ego = int(ego.count)
+    later = np.flatnonzero(ego.t[:n_ego].cpu().numpy() > np.float32(end.item()))
+    rows = len({n_ego - 1, later[0] if later.size else n_ego - 1}) if n_ego else 0
+    moved = nbytes(pose, tf, local_cov, fitness, success, usable, ego.t[:n_ego],
+                   ego.pos[:rows], ego.rpy[:rows], ego.count, end, *got)
+    return dict(name="pcm_measurement", source="elimaloc_tpu_torch/csrc/pcm_meas.cu",
+                replaces=SCAN_KERNELS["pcm_measurement"][1], max_abs_err=max(errs),
+                ms=time_ms(lambda: kernels.pcm_measurement(*a)), plain_ms=time_ms(plain),
+                device_fn=(lambda: kernels.pcm_measurement(*a), "pcm_measurement_kernel"),
+                bound=bound(2 * n_ego + 700, moved))
+
+
+def gn_step_row(path, calls, mods):
+    """Kernel M against ``gn_update_plain`` on an iteration of the path's
+    GN loop (the sums its kernel A, E, F or G reduced): pose within 1e-4
+    (entries up to ~100 m), local_cov within rel 1e-3 (reg^-1 from an LU in
+    another order than cuSOLVER's), fitness and overlap equal, the stop
+    flags equal unless the termination norm sits at its threshold to
+    within rounding (reported). Its library reference: torch.linalg.solve_ex
+    on the same damped 6x6, part of M's function only."""
+    kernels, icp = mods[0], mods[4]
+    a, _ = calls["gn_step"]
+    sums, pose, fitness, local_cov, total, params, gicp = a
+    assemble = icp.assemble_p2p if sums.shape[0] == kernels.P2P_SUMS else icp.assemble_gn
+    eq = assemble(sums)
+
+    def plain():
+        return icp.gn_update_plain(*eq, pose, fitness, local_cov, total, params, gicp)
+
+    got = kernels.gn_step(*a)
+    ref = plain()
+    err = float((got[0] - ref[0]).abs().max())
+    cov_err = float((got[1] - ref[1]).abs().max())
+    cov_rel = cov_err / max(float(ref[1].abs().max()), 1e-30)
+    same = [torch.equal(g, r) for g, r in zip(got[2:], ref[2:])]
+    if not same[2]:
+        # a flipped stop flag: where does the termination norm sit?
+        step = torch.linalg.inv(pose.double()) @ ref[0].double()
+        w = icp.lie.so3_log(step[:3, :3])
+        tn = float(icp.lie.norm(w) + icp.lie.norm(step[:3, 3]))
+        thr = float(params.termination_threshold)
+        log_line(f"  gn_step[{path}]: the stop flag flipped; termination norm {tn:.9g} vs "
+                 f"threshold {thr:.9g}")
+        same[2] = abs(tn - thr) <= 1e-5 * max(thr, 1e-3)
+    if not (err <= 1e-4 and cov_rel <= 1e-3 and all(same)):
+        raise AssertionError(f"gn_step[{path}] kernel vs plain: pose err {err}, local_cov "
+                             f"rel {cov_rel}, equal (fitness, overlap, stop, failed) {same}")
+    reg = eq[1] + params.lm_lambda * torch.diag(torch.diagonal(eq[1]))
+    solve_ms = time_ms(lambda: torch.linalg.solve_ex(reg, eq[2]))
+    log_line(f"  gn_step[{path}]: {sums.shape[0]} sums, matched {int(eq[0])}, pose err "
+             f"{err:.2e}, local_cov rel {cov_rel:.2e}, stop {bool(got[4])}; "
+             f"torch.linalg.solve_ex on the 6x6 alone {solve_ms:.4f} ms")
+    ops = 6 * 6 * 6 + (6 * 6 * 6 * 2 if gicp else 0) + 400
+    return dict(name=f"gn_step[{path}]", source="elimaloc_tpu_torch/csrc/gn_step.cu",
+                replaces=SCAN_KERNELS["gn_step"][1], max_abs_err=max(err, cov_err),
+                ms=time_ms(lambda: kernels.gn_step(*a)), plain_ms=time_ms(plain),
+                device_fn=(lambda: kernels.gn_step(*a), "gn_step_kernel"),
+                solve_ex_ms=solve_ms, launches_key="gn_step",
+                bound=bound(ops, nbytes(sums, pose, fitness, local_cov, total, *got)))
+
+
 class StageTimer:
     """``mark`` callback of the pipeline: one CUDA event per stage boundary."""
 
-    ORDER = ("imu", "can_gps", "deskew", "downsample", "assign", "gn", "ekf_update")
+    ORDER = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
+             "assign", "gn", "measurement", "pcm_update", "outputs")
 
     def __init__(self):
         self.events = []
@@ -557,7 +776,10 @@ class StageTimer:
 
     def split(self):
         """(mean ms per stage, frame count, per-frame ms), frames 1.. only:
-        frame 0 also waits for the batch upload."""
+        frame 0 also waits for the batch upload. Each interval counts for
+        the mark that ends it; a frame starts at its "imu" mark and ends at
+        "outputs" (the event loop marks "imu" as a scan starts: its "imu"
+        stage is then every event between two scans)."""
         torch.cuda.synchronize()
         tot = dict.fromkeys(self.ORDER, 0.0)
         frames = 0
@@ -566,28 +788,53 @@ class StageTimer:
                 frames += 1
             if frames >= 1:
                 tot[name] += a.elapsed_time(b)
-        ends = [e for name, e in self.events if name == "ekf_update"]
+        ends = [e for name, e in self.events if name == "outputs"]
         per_frame = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
         return {k: v / max(frames, 1) for k, v in tot.items()}, frames, per_frame
 
 
-def admitted_can_gps(runtime, pipe, log, state):
-    """The CAN samples and GPS fixes the filter's gates admit on this log
-    (valid; CAN at least 0.01 s after the last admitted sample, GPS within
-    ``gnss_uncertainty_max`` on x and y), counted on the host in float32 as
-    the filter compares; the final state's last CAN stamp must be the last
-    admitted one."""
-    b = runtime.build_fused_batches(log, time_base=pipe.time_base)
-    prev, n_can = np.float32(0.0), 0
-    for t in b["can_t"][b["can_valid"]]:
-        if abs(t - prev) >= 0.01:
-            prev, n_can = t, n_can + 1
-    var = b["gps_cov"] * b["gps_cov"]
-    gate = np.float32(float(pipe.params.gnss_uncertainty_max))
-    n_gps = int((b["gps_valid"] & (var[..., 0] <= gate) & (var[..., 1] <= gate)).sum())
-    if float(state.ekf.prev_can_timestamp) != float(prev):
-        raise AssertionError("the last CAN update is not the last admitted sample")
-    return n_can, n_gps
+class AdmissionProbe:
+    """The CAN and GPS legs of the run's ``update_chain`` calls that the
+    filter admitted, read from the run's own states (the PCM update runs in
+    calls of its own and is passed through). A CAN leg admitted a sample
+    when it moved ``prev_can_timestamp`` (a sample within 0.01 s of it is
+    refused). A GPS leg admitted a fix when it moved
+    ``prev_gnss_timestamp``, or, in a call with no CAN leg, moved P: in the
+    event loop a fix can share its time with the PCM update just before it.
+    A leg is a frame's sub-batch in the frame loops, one sample in the event
+    loop. The states are compared once, after the run."""
+
+    def __init__(self, runtime):
+        self.runtime, self.orig = runtime, runtime.update_chain
+        self.calls = []
+
+    def __enter__(self):
+        def probe(state, params, flags, **kw):
+            out = self.orig(state, params, flags, **kw)
+            if kw.get("can") is not None or kw.get("gps") is not None:
+                self.calls.append((kw.get("can") is not None, kw.get("gps") is not None,
+                                   state, out))
+            return out
+
+        self.runtime.update_chain = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.runtime.update_chain = self.orig
+
+    def admitted(self):
+        """{"can" / "gps": (legs run, legs that admitted)}."""
+        out = {"can": [0, 0], "gps": [0, 0]}
+        for can, gps, a, b in self.calls:
+            moved = {f: bool((getattr(a, f) != getattr(b, f)).any())
+                     for f in ("prev_can_timestamp", "prev_gnss_timestamp", "P")}
+            if can:
+                out["can"][0] += 1
+                out["can"][1] += moved["prev_can_timestamp"]
+            if gps:
+                out["gps"][0] += 1
+                out["gps"][1] += moved["prev_gnss_timestamp"] or (not can and moved["P"])
+        return {k: tuple(v) for k, v in out.items()}
 
 
 def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
@@ -607,17 +854,20 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
              f"ds_points {ds_points}, max_slots {max_slots}, map upload "
              f"{time.time() - t0:.1f} s")
     wrapper = KERNEL[method][0]
-    path_kernels = SHARED + (wrapper,) + tuple(EKF_KERNELS)
+    path_kernels = SHARED + (wrapper,) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
     rows = []
     if path == "P2P":
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
+        rows += [ring_row(rec.calls, mods), query_row(rec.calls, mods),
+                 measurement_row(rec.calls, mods)]
     if path == FUSION:
         rows += [imu_chain_row(rec.calls, mods), ekf_update_row(rec, mods)]
     else:
-        rows.append(method_kernel_row(method, pipe, rec.calls, mods[:5]))
+        rows += [method_kernel_row(method, pipe, rec.calls, mods[:5]),
+                 gn_step_row(path, rec.calls, mods)]
     for r in rows:
         log_line(f"[{path}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
@@ -625,10 +875,12 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
 
     # the timed main-path run: counts from zero, then read back
     stages = StageTimer()
+    probe = AdmissionProbe(runtime)
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, outs = pipe.run_fused(log, mark=stages)
+    with probe:
+        _, outs = pipe.run_fused(log, mark=stages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -667,13 +919,15 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
 
     deferred.append(profiled_replay)
     if path == FUSION:
-        summary["can_admitted"], summary["gps_admitted"] = admitted_can_gps(
-            runtime, pipe, log, state)
-        log_line(f"[{path}] CAN samples admitted {summary['can_admitted']} of "
-                 f"{len(log.can_t)}, GPS fixes admitted {summary['gps_admitted']} of "
-                 f"{len(log.gps_t)}")
-        if summary["can_admitted"] == 0 or summary["gps_admitted"] == 0:
-            raise AssertionError(f"[{path}] no CAN or no GPS update ran")
+        adm = probe.admitted()
+        summary["can_frames_admitted"], summary["gps_frames_admitted"] = (
+            adm["can"][1], adm["gps"][1])
+        log_line(f"[{path}] frames whose CAN sub-batch the filter admitted (from its "
+                 f"states) {adm['can'][1]} of {adm['can'][0]}, whose GPS sub-batch "
+                 f"{adm['gps'][1]} of {adm['gps'][0]} ({len(log.can_t)} CAN samples, "
+                 f"{len(log.gps_t)} GPS fixes in the log)")
+        if adm["can"][1] == 0 or adm["gps"][1] == 0:
+            raise AssertionError(f"[{path}] no CAN or no GPS update was admitted")
     if not np.all(np.isfinite(outs["ego_pos"])) or outs["ego_pos"].shape != (n, 3):
         raise AssertionError(f"[{path}] non-finite or misshapen trajectory")
     for name in path_kernels:
@@ -684,8 +938,141 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
         raise AssertionError(f"[{path}] slice failed its acceptance bounds")
     for r in rows:
         r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
-    return rows, summary
+        r["launches"] = launches[r.pop("launches_key", r["name"])]
+        if "solve_ex_ms" in r:
+            summary["gn_step_solve_ex_ms"] = r.pop("solve_ex_ms")
+    return rows, summary, pipe, outs
+
+
+def check_launches(what, launches, names):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"[{what}] kernel {name} was not launched on the path")
+
+
+def frames_path(pipe, log, fused, kernels):
+    """``run_frames`` (the online mode) on the GICP pipeline: the launch
+    counts from 0 around it, its frames against that pipeline's run_fused
+    (ego_pos within 1e-6 m, applied equal: the same kernels in the same
+    order), scans/s and the frame time p50/p95."""
+    stages = StageTimer()
+    seen = []
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs = pipe.run_frames(log, on_scan=seen.append, mark=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    split, frames, per_frame = stages.split()
+    p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
+    n = len(log.scan_t)
+    err = float(np.abs(outs["ego_pos"] - fused["ego_pos"]).max())
+    same_applied = bool(np.array_equal(outs["applied"], fused["applied"]))
+    log_line(f"[{FRAMES}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans), frame ms p50 "
+             f"{p50:.3f} p95 {p95:.3f}, on_scan calls {len(seen)}, ego_pos vs run_fused max "
+             f"{err:.2e} m, applied equal {same_applied}, launches {launches}")
+    log_line(f"[{FRAMES}] stage ms/frame: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    check_launches(FRAMES, launches, SHARED + (KERNEL["GICP"][0],) + tuple(EKF_KERNELS)
+                   + tuple(SCAN_KERNELS))
+    if not (err <= 1e-6 and same_applied and len(seen) == n):
+        raise AssertionError(f"[{FRAMES}] run_frames differs from run_fused")
+    return {"scans_per_s": n / wall, "frame_ms_p50": p50, "frame_ms_p95": p95,
+            "stage_ms": split, "ego_pos_vs_fused_m": err}
+
+
+def events_path(pipe, log, fused, mods, ate_rmse):
+    """``run`` (the per-event loop) on the config-5 pipeline: the launch
+    counts from 0 around it, the events of each kind and their time (CUDA
+    events around each step: the enqueue, while the device keeps up),
+    scans/s, and the gates applied >= 0.9, ATE < 0.3 m, the last pose within
+    0.15 m of run_fused's (the event order differs within a frame,
+    tests/test_pipeline_modes.py:194-203), CAN and GPS admitted."""
+    kernels, runtime = mods[0], mods[6]
+    steps = ("imu_step", "scan_step", "gps_step", "can_step")
+    orig = {n: getattr(runtime, n) for n in steps}
+    spans = {n: [] for n in steps}
+
+    def timed(name, fn):
+        def step(*a, **k):
+            b, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            b.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[name].append((b, e))
+            return out
+        return step
+
+    stages = StageTimer()
+
+    def scan_step(*a, **k):
+        stages("imu")
+        return orig["scan_step"](*a, mark=stages, **k)
+
+    for name, fn in orig.items():
+        setattr(runtime, name, timed(name, scan_step if name == "scan_step" else fn))
+    probe = AdmissionProbe(runtime)
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with probe:
+            _, traj = pipe.run(log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in orig.items():
+            setattr(runtime, name, fn)
+    launches = dict(kernels.launches)
+    split = stages.split()[0]
+    split.pop("outputs")
+    per_kind = {n.replace("_step", ""): (len(v), float(np.mean([b.elapsed_time(e) for b, e in v]))
+                                         if v else 0.0) for n, v in spans.items()}
+    n = len(log.scan_t)
+    applied = float(np.mean([s["applied"] for s in traj["scans"]]))
+    ate = ate_rmse(traj["t"], traj["pos"], log.truth_t, log.truth_pos)
+    last = float(np.linalg.norm(traj["pos"][-1] - fused["ego_pos"][-1]))
+    # one leg per CAN or GPS event: admitted samples, read from the states
+    adm = probe.admitted()
+    n_can, n_gps = adm["can"][1], adm["gps"][1]
+    log_line(f"[{EVENTS}] {n / wall:.2f} scans/s ({wall:.3f} s), events (count, ms each): "
+             + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in per_kind.items())
+             + f"; applied {applied:.3f}, ATE {ate:.4f} m, last pose vs run_fused {last:.4f} m, "
+             f"CAN admitted {n_can} of {len(log.can_t)}, GPS {n_gps} of {len(log.gps_t)}, "
+             f"launches {launches}")
+    log_line(f"[{EVENTS}] stage ms per scan (imu = every event between two scans): "
+             + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    check_launches(EVENTS, launches, SHARED + (KERNEL["AVGICP"][0],) + tuple(EKF_KERNELS)
+                   + tuple(SCAN_KERNELS))
+    if not (applied >= 0.9 and ate < 0.3 and last < 0.15 and n_can > 0 and n_gps > 0
+            and np.all(np.isfinite(traj["pos"]))):
+        raise AssertionError(f"[{EVENTS}] the event loop failed its acceptance bounds")
+    return {"scans_per_s": n / wall, "events": {k: c for k, (c, _) in per_kind.items()},
+            "event_ms": {k: ms for k, (_, ms) in per_kind.items()}, "applied": applied,
+            "ate_m": ate, "last_vs_fused_m": last, "can_admitted": n_can, "gps_admitted": n_gps,
+            "stage_ms": split}
+
+
+def reloc_phase(pipe, log, kernels):
+    """``initialize_at`` on the P2P pipeline (a packed tile map: the ground
+    probe reads its halo rows) from a click ~1 m and 1 deg off the truth at
+    scan 0 (tests/test_pipeline.py:313-327): ok, the PCM_INIT warm-up on,
+    the position within 1.5 m of the truth."""
+    x, y = log.truth_pos[0][:2] + 0.7
+    yaw = log.truth_rpy[0][2] + np.deg2rad(1.0)
+    kernels.reset_launches()
+    state, ok = pipe.initialize_at(pipe.reset(), x, y, yaw, log.scan_points[0],
+                                   log.scan_valid[0], log.scan_t[0])
+    launches = dict(kernels.launches)
+    err = float(np.linalg.norm(state.ekf.pos.cpu().numpy()[:2] - log.truth_pos[0][:2]))
+    log_line(f"[reloc] initialize_at from ({x:.2f}, {y:.2f}, yaw {np.rad2deg(yaw):.2f} deg): "
+             f"ok {ok}, pcm_init_on_going {bool(state.ekf.pcm_init_on_going)}, position "
+             f"error {err:.3f} m, launches {launches}")
+    check_launches("reloc", launches, ("voxel_downsample", "assign_slots", "p2p_correspond",
+                                       "gn_step"))
+    if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5):
+        raise AssertionError("[reloc] relocalization failed")
+    return {"ok": ok, "position_error_m": err}
 
 
 def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
@@ -694,7 +1081,8 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     under the repo's closed-loop contract: max < 3 cm, median < 5 mm, last 3
     < 5 mm. The logs are those of tests/test_torch_slice.py (P2P) and
     tests/test_torch_methods_replay.py (where each method converges); the
-    fusion path runs AVGICP's, with its 1 Hz GPS and 50 Hz CAN."""
+    fusion path runs AVGICP's, with its 1 Hz GPS and 50 Hz CAN, through
+    run_fused and through the event loop run."""
     method = path_method(path)
     cfg = method_cfg(cfg_mod, path)
     cfg.pcm.input_voxel_ds_m = 1.0
@@ -713,22 +1101,29 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
         ds_points = 4096
     built = builder.build_voxel_map(world, 1.0, 30, compute_voxel_cov=method != "GICP",
                                     compute_point_cov=method == "GICP")
+    loops = {"run_fused": lambda p: p.run_fused(log)[1]["ego_pos"]}
+    if path == FUSION:
+        loops["run"] = lambda p: p.run(log)[1]["pos"]
     pos = {}
     for device in ("cuda", "cpu"):
         pipe = runtime.LocalizationPipeline(
             cfg, built, device=device, ds_points=ds_points,
             tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
             ego_ring_size=128, imu_ring_size=128)
-        pos[device] = pipe.run_fused(log)[1]["ego_pos"]
-    err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
-    log_line(f"[{path}] reference: card vs CPU port over {len(err)} frames: max "
-             f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
-             f"{err[-3:].max():.2e} m")
-    if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
-        raise AssertionError(f"[{path}] the card's trajectory left the closed-loop "
-                             "contract")
-    return {"max_m": float(err.max()), "median_m": float(np.median(err)),
-            "last3_m": float(err[-3:].max())}
+        for loop, fn in loops.items():
+            pos[loop, device] = fn(pipe)
+    out = {}
+    for loop in loops:
+        err = np.linalg.norm(pos[loop, "cuda"] - pos[loop, "cpu"], axis=1)
+        log_line(f"[{path}] reference ({loop}): card vs CPU port over {len(err)} scans: max "
+                 f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
+                 f"{err[-3:].max():.2e} m")
+        if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
+            raise AssertionError(f"[{path}] the card's trajectory ({loop}) left the "
+                                 "closed-loop contract")
+        out[loop] = {"max_m": float(err.max()), "median_m": float(np.median(err)),
+                     "last3_m": float(err[-3:].max())}
+    return out
 
 
 def main():
@@ -744,6 +1139,7 @@ def main():
     from elimaloc_tpu_torch.map import builder, grid, tiles
     from elimaloc_tpu_torch.pipeline import ate_rmse, runtime
     from elimaloc_tpu_torch.pipeline import log as log_mod
+    from elimaloc_tpu_torch.pipeline import rings
     from elimaloc_tpu_torch.register import icp
 
     t_start = time.time()
@@ -751,13 +1147,16 @@ def main():
     build_phase(build)
     log, packed, ds_points, max_slots = make_headline(cfg_mod, runtime, builder, tiles,
                                                       log_mod)
-    mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter)
-    rows, slices, deferred = [], {}, []
+    mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter, rings)
+    rows, slices, deferred, pipes, fused = [], {}, [], {}, {}
     for path in PATHS:
-        r, slices[path] = run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse,
-                                   deferred)
+        r, slices[path], pipes[path], fused[path] = run_path(
+            path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred)
         rows += r
         torch.cuda.empty_cache()
+    slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
+    slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse)
+    slices["reloc"] = reloc_phase(pipes["P2P"], log, kernels)
     # the profiler passes, after every timed replay
     for r in rows:
         if "device_fn" in r:

@@ -1,19 +1,22 @@
 """elimaloc_tpu_torch — the PyTorch + CUDA port of elimaloc_tpu.
 
 A second package beside ``elimaloc_tpu`` (the JAX reference, which it never
-imports). It ports the fused localization frame: the IMU EKF chain and ring
+imports). It ports the localization runtime: the IMU EKF chain and ring
 pushes, the CAN and GPS updates, deskew, pose sync, voxel downsample,
 tile-slot assignment, the GN/LM registration loop (P2P, GICP, VGICP,
-AVGICP), covariance shaping, latency compensation and the EKF PCM update.
-The paths: each ICP method, with or without GPS + CAN fusion.
+AVGICP), covariance shaping, latency compensation and the EKF PCM update,
+driven three ways (the event loop ``run``, the online frame loop
+``run_frames``, the whole-log ``run_fused``), with relocalization
+(``initialize_at``), config hot reload and the geodetic projection.
 
 The hot ops the JAX package laid out by hand for the TPU run as
 hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G
 (one search + Gauss-Newton kernel per ICP method), B (slot assignment), C
-(voxel downsample), D (deskew), H (the IMU chain) and I (the EKF
-measurement updates). On CPU tensors their plain PyTorch versions run
-instead. ``LocalizationPipeline`` runs on the card unless given
-``device="cpu"``.
+(voxel downsample), D (deskew), H (the IMU chain), I (the EKF measurement
+updates), J (the ring pushes), K (the ring queries at a scan's times), L
+(the PCM measurement) and M (the GN step). On CPU tensors their plain
+PyTorch versions run instead. ``LocalizationPipeline`` runs on the card
+unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,11 @@
 // 27-state EKF held in shared memory by one CTA, the quaternion / rotation
 // helpers of ops/lie.py, the right Jacobian, and one Kalman update over an
 // index list for m = 2, 3, 4, 6 (ekf/filter.py:_ekf_measurement_update).
+// Kernels K (scan_ring.cu), L (pcm_meas.cu) and M (gn_step.cu) use its
+// rotation helpers too, with so3_log, the 4x4 rigid transforms of lie.py
+// (compose, transform_inverse, interpolate_tf_with_time) and the LU with
+// partial pivoting (lu_factor / lu_solve) that kernel I's m = 4, 6 solves
+// and kernel M's 6x6 LM step share.
 //
 // Numerics. Each helper repeats the plain PyTorch version's arithmetic in
 // its order, one IEEE-rounded operation at a time (elm::mul / add / sub /
@@ -360,6 +365,123 @@ __device__ __forceinline__ void inv3x3(const float* m, float* o) {
   o[8] = mul(sub(mul(a, e), mul(b, d)), inv_det);
 }
 
+// so(3) vector of a rotation matrix (lie.so3_log), zero below the 1e-5 guard.
+__device__ __forceinline__ void so3_log(const float* r, float* v) {
+  const float tr = add(add(r[0], r[4]), r[8]);
+  const float c = fminf(fmaxf(mul(sub(tr, 1.0f), 0.5f), -1.0f), 1.0f);
+  const float theta = acosf(c);
+  const bool small = fabsf(theta) < 1e-5f;
+  const float d = mul(2.0f, small ? 1.0f : sinf(theta));
+  const float w[3] = {dv(sub(r[7], r[5]), d), dv(sub(r[2], r[6]), d), dv(sub(r[3], r[1]), d)};
+  for (int i = 0; i < 3; ++i) v[i] = small ? 0.0f : mul(theta, w[i]);
+}
+
+// ---- SE(3), row-major 4x4 (lie.py) ------------------------------------------
+
+// (3x3 rotation, translation) -> 4x4 (lie.make_transform).
+__device__ __forceinline__ void make_transform(const float* r, const float* t, float* o) {
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) o[4 * i + j] = r[3 * i + j];
+    o[4 * i + 3] = t[i];
+  }
+  o[12] = o[13] = o[14] = 0.0f;
+  o[15] = 1.0f;
+}
+
+__device__ __forceinline__ void rot_of(const float* tf, float* r) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) r[3 * i + j] = tf[4 * i + j];
+}
+
+// a b (lie.compose), each entry summed over k in order.
+__device__ __forceinline__ void compose(const float* a, const float* b, float* o) {
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      float acc = 0.0f;
+      for (int k = 0; k < 4; ++k) acc = add(acc, mul(a[4 * i + k], b[4 * k + j]));
+      o[4 * i + j] = acc;
+    }
+}
+
+// Closed-form rigid inverse [R^T | -R^T t] (lie.transform_inverse).
+__device__ __forceinline__ void transform_inverse(const float* tf, float* o) {
+  float rt[9], t[3], u[3];
+  for (int i = 0; i < 3; ++i) {
+    t[i] = tf[4 * i + 3];
+    for (int j = 0; j < 3; ++j) rt[3 * i + j] = tf[4 * j + i];
+  }
+  matvec(rt, t, u);
+  for (int i = 0; i < 3; ++i) u[i] = -u[i];
+  make_transform(rt, u, o);
+}
+
+// Fractional rigid transform: ratio * translation, slerp(I, R); identity
+// when dt_trans == 0 (lie.interpolate_tf_with_time).
+__device__ __forceinline__ void interpolate_tf_with_time(const float* between, float dt_scan,
+                                                         float dt_trans, float* o) {
+  const bool zero = dt_trans == 0.0f;
+  const float ratio = zero ? 0.0f : dv(dt_scan, zero ? 1.0f : dt_trans);
+  float r[9], w[3], rr[9];
+  rot_of(between, r);
+  so3_log(r, w);
+  for (int i = 0; i < 3; ++i) w[i] = mul(w[i], ratio);
+  so3_exp(w, rr);
+  const float t[3] = {mul(between[3], ratio), mul(between[7], ratio), mul(between[11], ratio)};
+  make_transform(rr, t, o);
+  if (zero)
+    for (int e = 0; e < 16; ++e) o[e] = (e % 5 == 0) ? 1.0f : 0.0f;
+}
+
+// Pose of an Euler angle + position ring entry (rings.get_interpolated_pose
+// tf_of).
+__device__ __forceinline__ void pose_of(const float* rpy, const float* pos, float* o) {
+  float r[9];
+  euler_to_rot(rpy, r);
+  make_transform(r, pos, o);
+}
+
+// ---- LU with partial pivoting, row-major m x m (m <= 6) -----------------------
+
+// In place: A = P L U, the pivot row of column c recorded in piv[c] (the
+// first row of the largest |entry|, LAPACK's getrf choice).
+__device__ __forceinline__ void lu_factor(float* A, int* piv, int m) {
+  for (int c = 0; c < m; ++c) {
+    int p = c;
+    for (int r = c + 1; r < m; ++r)
+      if (fabsf(A[r * m + c]) > fabsf(A[p * m + c])) p = r;
+    piv[c] = p;
+    if (p != c)
+      for (int k = 0; k < m; ++k) {
+        const float t = A[c * m + k];
+        A[c * m + k] = A[p * m + k];
+        A[p * m + k] = t;
+      }
+    for (int r = c + 1; r < m; ++r) {
+      const float l = dv(A[r * m + c], A[c * m + c]);
+      A[r * m + c] = l;
+      for (int k = c + 1; k < m; ++k) A[r * m + k] = sub(A[r * m + k], mul(l, A[c * m + k]));
+    }
+  }
+}
+
+// x = A^-1 b with the factors of lu_factor; b is permuted in place.
+__device__ __forceinline__ void lu_solve(const float* A, const int* piv, float* b, float* x,
+                                         int m) {
+  for (int c = 0; c < m; ++c) {
+    const int p = piv[c];
+    const float t = b[c];
+    b[c] = b[p];
+    b[p] = t;
+  }
+  for (int r = 0; r < m; ++r)
+    for (int c = 0; c < r; ++c) b[r] = sub(b[r], mul(A[r * m + c], b[c]));
+  for (int r = m - 1; r >= 0; --r) {
+    float acc = b[r];
+    for (int c = r + 1; c < m; ++c) acc = sub(acc, mul(A[r * m + c], x[c]));
+    x[r] = dv(acc, A[r * m + r]);
+  }
+}
+
 // ---- the filter -----------------------------------------------------------
 
 __device__ __forceinline__ float std_of(const State& s, int i) {
@@ -468,23 +590,7 @@ __device__ __forceinline__ void factor_s(Update& u) {
     float A[36];
     for (int a = 0; a < m; ++a)
       for (int b = 0; b < m; ++b) A[a * m + b] = u.S[b * m + a];  // S^T
-    for (int c = 0; c < m; ++c) {
-      int p = c;
-      for (int r = c + 1; r < m; ++r)
-        if (fabsf(A[r * m + c]) > fabsf(A[p * m + c])) p = r;
-      u.piv[c] = p;
-      if (p != c)
-        for (int k = 0; k < m; ++k) {
-          const float t = A[c * m + k];
-          A[c * m + k] = A[p * m + k];
-          A[p * m + k] = t;
-        }
-      for (int r = c + 1; r < m; ++r) {
-        const float l = dv(A[r * m + c], A[c * m + c]);
-        A[r * m + c] = l;
-        for (int k = c + 1; k < m; ++k) A[r * m + k] = sub(A[r * m + k], mul(l, A[c * m + k]));
-      }
-    }
+    lu_factor(A, u.piv, m);
     copy(A, u.S, m * m);
   }
 }
@@ -502,20 +608,7 @@ __device__ __forceinline__ void gain_row(const State& s, Update& u, int i) {
       k[b] = acc;
     }
   } else {
-    const float* A = u.S;
-    for (int c = 0; c < m; ++c) {
-      const int p = u.piv[c];
-      const float t = ph[c];
-      ph[c] = ph[p];
-      ph[p] = t;
-    }
-    for (int r = 0; r < m; ++r)
-      for (int c = 0; c < r; ++c) ph[r] = sub(ph[r], mul(A[r * m + c], ph[c]));
-    for (int r = m - 1; r >= 0; --r) {
-      float acc = ph[r];
-      for (int c = r + 1; c < m; ++c) acc = sub(acc, mul(A[r * m + c], k[c]));
-      k[r] = dv(acc, A[r * m + r]);
-    }
+    lu_solve(u.S, u.piv, ph, k, m);
   }
   float su = 0.0f;
   for (int b = 0; b < m; ++b) {

@@ -1,13 +1,16 @@
 """LiDAR motion compensation (deskew) — port of ``elimaloc_tpu/deskew.py``
 (reference: pcm_matching.cpp:467-824).
 
-``normalize_scan_times``, ``imu_deskew_info``, ``odom_deskew_info`` and
-``make_deskew_info`` are small per-scan tensor ops. ``deskew_points`` is the
-per-point hot op (JAX ``_find_rotation_batch`` + ``deskew_points``,
-deskew.py:196-264): on a CUDA tensor it launches kernel D
-(csrc/deskew.cu); on a CPU tensor it runs :func:`deskew_points_plain`, its
-plain PyTorch version. The ``bug_compat_z`` flag keeps the reference's
-z-translation typo (cpp:804) reproducible.
+``normalize_scan_times`` is a small per-scan tensor op. ``imu_deskew_info``,
+``odom_deskew_info`` and ``make_deskew_info``, with the pose sync at the
+scan's end and the ICP initial guess, are :func:`scan_ring_query`: kernel K
+(csrc/scan_ring.cu) on a CUDA tensor, :func:`scan_ring_query_plain` on a
+CPU one. ``deskew_points`` is the per-point hot op (JAX
+``_find_rotation_batch`` + ``deskew_points``, deskew.py:196-264): on a CUDA
+tensor it launches kernel D (csrc/deskew.cu); on a CPU tensor it runs
+:func:`deskew_points_plain`, its plain PyTorch version. The
+``bug_compat_z`` flag keeps the reference's z-translation typo (cpp:804)
+reproducible.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from . import kernels
 from .ops import lie
 from .ops.frames import local_to_global_velocity
-from .pipeline.rings import _first_true, _last_true, take
+from .pipeline.rings import _first_true, _last_true, get_interpolated_pose, take
 from .struct import Struct
 
 
@@ -134,6 +137,42 @@ def make_deskew_info(imu_time, imu_gyro, imu_valid, ring_time, ring_pos,
         odom_available=odom_ok,
         imu_covers_start=covers,
     )
+
+
+def scan_ring_query_plain(imu_ring, ego_ring, scan_cur, scan_end, tf_ego_to_lidar,
+                          window: int = 64, run_deskew: bool = True):
+    """Plain PyTorch version of kernel K: every query of the rings at the
+    scan's start and end (JAX runtime.py:315-338): :func:`make_deskew_info`,
+    ``rings.get_interpolated_pose`` at ``scan_end`` and the ICP initial
+    guess ``compose(sync_pose, tf_ego_to_lidar)``. Returns (info,
+    init_guess [4,4], found, usable) with usable = the deskew info's
+    availability (when deskewing), ``found`` and a non-empty ego ring."""
+    info = make_deskew_info(
+        imu_ring.t, imu_ring.gyro, imu_ring.valid_mask(), ego_ring.t, ego_ring.pos,
+        ego_ring.rpy, ego_ring.vel_local, ego_ring.gyro, ego_ring.valid_mask(), scan_cur,
+        scan_end, window)
+    sync_pose, found = get_interpolated_pose(ego_ring, scan_end)
+    usable = found & (ego_ring.count > 0)
+    if run_deskew:
+        usable = usable & info.imu_available & info.odom_available
+    return info, lie.compose(sync_pose, tf_ego_to_lidar), found, usable
+
+
+def scan_ring_query(imu_ring, ego_ring, scan_cur, scan_end, tf_ego_to_lidar,
+                    window: int = 64, run_deskew: bool = True):
+    """:func:`scan_ring_query_plain` for CPU tensors, kernel K for CUDA
+    ones."""
+    if scan_end.device.type == "cpu":
+        return scan_ring_query_plain(imu_ring, ego_ring, scan_cur, scan_end,
+                                     tf_ego_to_lidar, window, run_deskew)
+    (imu_time, imu_rot, imu_included, first_idx, last_idx, odom_incre, imu_ok, odom_ok,
+     covers, init_guess, found, usable) = kernels.scan_ring_query(
+        imu_ring, ego_ring, scan_cur, scan_end, tf_ego_to_lidar, window, run_deskew)
+    info = DeskewInfo(imu_time=imu_time, imu_rot=imu_rot, imu_included=imu_included,
+                      first_idx=first_idx, last_idx=last_idx, odom_incre=odom_incre,
+                      scan_cur=scan_cur, scan_end=scan_end, imu_available=imu_ok,
+                      odom_available=odom_ok, imu_covers_start=covers)
+    return info, init_guess, found, usable
 
 
 def find_rotation_plain(info: DeskewInfo, point_times):

@@ -4,11 +4,12 @@ Each wrapper checks device, dtype (float32 only), shape and contiguity,
 allocates its outputs, launches on PyTorch's current stream, raises on a
 non-zero ``cudaGetLastError`` and adds one to its entry of :data:`launches`.
 The callers (deskew.py, map/grid.py, map/tiles.py, register/icp.py,
-ekf/filter.py) run the plain PyTorch version for a CPU tensor and one of
-these for any other; a non-CUDA tensor that reaches a wrapper raises.
-Every kernel runs on every path of the fused frame (P2P, GICP, VGICP,
-AVGICP, and any of them with GPS + CAN) except the method kernels A, E, F,
-G, one per ICP method.
+ekf/filter.py, pipeline/rings.py, pipeline/runtime.py) run the plain
+PyTorch version for a CPU tensor and one of these for any other; a
+non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
+path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
+GPS + CAN) and of the event loop except the method kernels A, E, F, G, one
+per ICP method.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -25,6 +26,14 @@ H         imu_chain           ekf/filter.py:predict_imu chain (runtime.imu_subba
 I         ekf_update          filter._ekf_measurement_update + update_gnss +
                               update_can (the CAN / GPS sub-batches, the PCM
                               update)
+J         ring_push           pipeline/rings.py:_push_arrays_batch (push_ego_batch
+                              + push_imu_batch, and imu_step's one-row push)
+K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
+                              + the initial guess's compose (runtime.py:338)
+L         pcm_measurement     runtime.shape_icp_covariance +
+                              rings.gnss_time_compensation + scan_step's glue
+M         gn_step             register/icp.py:_solve_step + _step_transform + the
+                              GN loop body (compose, so3_log, the gates)
 ========  ==================  ===================================================
 """
 
@@ -39,7 +48,8 @@ from .build import library
 #: launches per kernel since the last :func:`reset_launches`
 launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
-            "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0}
+            "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0, "ring_push": 0,
+            "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0}
 
 
 def reset_launches() -> None:
@@ -450,3 +460,128 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
     _raise_on(rc, "ekf_update")
     launches["ekf_update"] += 1
     return state.replace(**outs)
+
+
+# --------------------------------------------------------------------------- #
+# Kernels J, K, L, M: the scan-time ring ops and the GN step (one CTA each;
+# their outputs are views into one or two fresh buffers, so a launch costs
+# a few allocations, not one per field)
+# --------------------------------------------------------------------------- #
+
+_EGO_FIELDS = ("pos", "rpy", "vel_local", "gyro")
+_IMU_FIELDS = ("gyro", "acc")
+
+
+def _ring_ptrs(name, ring, fields, new_t, new_f, m, buf, count_out):
+    """(the C entry's pointer list for one ring, its output views)."""
+    cap = ring.capacity
+    views = {"t": buf[:cap]}
+    for k, f in enumerate(fields):
+        views[f] = buf[cap * (1 + 3 * k):cap * (4 + 3 * k)].view(cap, 3)
+    ptrs = [_check(ring.t, f"{name}.t", _F32, (cap,)).value]
+    ptrs += [_check(getattr(ring, f), f"{name}.{f}", _F32, (cap, 3)).value for f in fields]
+    ptrs += [_check(ring.count, f"{name}.count", torch.int32, ()).value,
+             views["t"].data_ptr()]
+    ptrs += [views[f].data_ptr() for f in fields]
+    ptrs += [count_out.data_ptr(), _check(new_t, f"{name} new t", _F32, (m,)).value]
+    ptrs += [_check(v, f"{name} new {f}", _F32, (m, 3)).value for f, v in zip(fields, new_f)]
+    return _ptr_array(ptrs), views
+
+
+def ring_push(ego, imu, ego_new, imu_new, valid):
+    """Kernel J (pipeline.rings.push_rings_plain): the batch
+    ``ego_new = (t, pos, rpy, vel_local, gyro)`` into the ego ring (dedupe
+    eps 1e-5) and ``imu_new = (t, gyro, acc)`` into the IMU ring (eps 0),
+    both masked by ``valid``, in one launch. Returns (ego ring, IMU ring)."""
+    m = valid.shape[0]
+    dev = valid.device
+    re, ri = ego.capacity, imu.capacity
+    p_valid = _check(valid, "valid", _BOOL, (m,))
+    buf = torch.empty(re * 13 + ri * 7, dtype=_F32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    ego_ptrs, ego_out = _ring_ptrs("ego_ring", ego, _EGO_FIELDS, ego_new[0], ego_new[1:], m,
+                                   buf[:re * 13], counts[0])
+    imu_ptrs, imu_out = _ring_ptrs("imu_ring", imu, _IMU_FIELDS, imu_new[0], imu_new[1:], m,
+                                   buf[re * 13:], counts[1])
+    rc = library().elm_ring_push(ego_ptrs, ctypes.c_int(re), imu_ptrs, ctypes.c_int(ri),
+                                 ctypes.c_int(m), p_valid, _stream(valid))
+    _raise_on(rc, "ring_push")
+    launches["ring_push"] += 1
+    return (ego.replace(count=counts[0], **ego_out), imu.replace(count=counts[1], **imu_out))
+
+
+def scan_ring_query(imu, ego, scan_cur, scan_end, tf_ego_to_lidar, window: int,
+                    run_deskew: bool):
+    """Kernel K (deskew.scan_ring_query_plain): the deskew info's tensors
+    (imu_time [w], imu_rot [w,3], imu_included [w], first_idx, last_idx,
+    odom_incre [3], imu_available, odom_available, imu_covers_start), the
+    ICP initial guess [4,4], ``found`` and ``usable``; w = min(window, IMU
+    ring capacity)."""
+    ri, re = imu.capacity, ego.capacity
+    w = min(int(window), ri)
+    dev = scan_end.device
+    args = [_check(imu.t, "imu_ring.t", _F32, (ri,)),
+            _check(imu.gyro, "imu_ring.gyro", _F32, (ri, 3)),
+            _check(imu.count, "imu_ring.count", torch.int32, ()), ctypes.c_int(ri)]
+    args += [_check(ego.t, "ego_ring.t", _F32, (re,))]
+    args += [_check(getattr(ego, f), f"ego_ring.{f}", _F32, (re, 3)) for f in _EGO_FIELDS]
+    args += [_check(ego.count, "ego_ring.count", torch.int32, ()), ctypes.c_int(re),
+             _check(scan_cur, "scan_cur", _F32, ()), _check(scan_end, "scan_end", _F32, ()),
+             _check(tf_ego_to_lidar, "tf_ego_to_lidar", _F32, (4, 4)), ctypes.c_int(w),
+             ctypes.c_int(int(run_deskew))]
+    f = torch.empty(4 * w + 19, dtype=_F32, device=dev)
+    i = torch.empty(2, dtype=torch.int64, device=dev)
+    b = torch.empty(w + 5, dtype=_BOOL, device=dev)
+    rc = library().elm_scan_ring_query(*args, _ptr(f), _ptr(i), _ptr(b), _stream(scan_end))
+    _raise_on(rc, "scan_ring_query")
+    launches["scan_ring_query"] += 1
+    return (f[:w], f[w:4 * w].view(w, 3), b[:w], i[0], i[1], f[4 * w:4 * w + 3], b[w],
+            b[w + 1], b[w + 2], f[4 * w + 3:].view(4, 4), b[w + 3], b[w + 4])
+
+
+def pcm_measurement(icp_pose, tf_lidar_to_ego, local_cov, fitness, success, usable, ego,
+                    scan_end, use_pcm: bool):
+    """Kernel L (runtime.pcm_measurement_plain): (icp_pose [4,4] in the ego
+    frame, the PCM GnssMeas fields t, pos [3], quat [4], pos_cov [3,3],
+    rot_cov [3,3], apply)."""
+    re = ego.capacity
+    dev = scan_end.device
+    args = [_check(icp_pose, "icp_pose", _F32, (4, 4)),
+            _check(tf_lidar_to_ego, "tf_lidar_to_ego", _F32, (4, 4)),
+            _check(local_cov, "local_cov", _F32, (6, 6)), _check(fitness, "fitness", _F32, ()),
+            _check(success, "success", _BOOL, ()), _check(usable, "usable", _BOOL, ()),
+            _check(ego.t, "ego_ring.t", _F32, (re,)),
+            _check(ego.pos, "ego_ring.pos", _F32, (re, 3)),
+            _check(ego.rpy, "ego_ring.rpy", _F32, (re, 3)),
+            _check(ego.count, "ego_ring.count", torch.int32, ()), ctypes.c_int(re),
+            _check(scan_end, "scan_end", _F32, ()), ctypes.c_int(int(use_pcm))]
+    out = torch.empty(42, dtype=_F32, device=dev)
+    apply = torch.empty((), dtype=_BOOL, device=dev)
+    rc = library().elm_pcm_measurement(*args, _ptr(out), _ptr(apply), _stream(scan_end))
+    _raise_on(rc, "pcm_measurement")
+    launches["pcm_measurement"] += 1
+    return (out[:16].view(4, 4), out[16], out[17:20], out[20:24], out[24:33].view(3, 3),
+            out[33:42].view(3, 3), apply)
+
+
+def gn_step(sums, pose, fitness, local_cov, total, params, gicp: bool):
+    """Kernel M (register.icp.gn_update_plain on assemble_p2p / assemble_gn
+    of ``sums``): one LM step after kernel A, E, F or G. Returns (pose
+    [4,4], local_cov [6,6], fitness, overlap, stop, failed)."""
+    n = sums.shape[0]
+    if n not in (P2P_SUMS, GN_SUMS):
+        raise ValueError(f"gn_step: {P2P_SUMS} or {GN_SUMS} sums required, got {n}")
+    dev = sums.device
+    args = [_check(sums, "sums", _F32, (n,)), ctypes.c_int(n), _check(pose, "pose", _F32, (4, 4)),
+            _check(fitness, "fitness", _F32, ()), _check(local_cov, "local_cov", _F32, (6, 6)),
+            _check(total, "total", _F32, ()),
+            _check(params.min_overlap_ratio, "min_overlap_ratio", _F32, ()),
+            _check(params.lm_lambda, "lm_lambda", _F32, ()),
+            _check(params.termination_threshold, "termination_threshold", _F32, ()),
+            ctypes.c_int(int(gicp))]
+    out = torch.empty(54, dtype=_F32, device=dev)
+    flags = torch.empty(2, dtype=_BOOL, device=dev)
+    rc = library().elm_gn_step(*args, _ptr(out), _ptr(flags), _stream(sums))
+    _raise_on(rc, "gn_step")
+    launches["gn_step"] += 1
+    return (out[:16].view(4, 4), out[16:52].view(6, 6), out[52], out[53], flags[0], flags[1])

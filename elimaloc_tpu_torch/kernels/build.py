@@ -50,6 +50,11 @@ _SIGNATURES = {
     "elm_imu_chain": [_PP, _PP, _PP, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "elm_ekf_update": [_PP, _PP, _PP, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                        _I, _P, _P, _P, _P, _P, _P, _P],
+    "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
+    "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P],
+    "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 

@@ -4,6 +4,11 @@ Chronologically ordered fixed arrays + a count, as in the JAX version:
 "pop front when full" is a roll, the reference's clear-on-time-regression
 guards (pcm_matching.cpp:330-334, 345-350; ekf_localization.cpp:405) are
 masked resets, and a batch push gives the same result as sequential pushes.
+
+On the card the pushes of both rings run as kernel J (:func:`push_rings`),
+the pose sync inside kernel K (``deskew.scan_ring_query``) and the latency
+compensation inside kernel L (``runtime.pcm_measurement``); the functions
+here are their plain versions, which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import dataclasses
 
 import torch
 
+from .. import kernels
 from ..ops import lie
 from ..struct import Struct
 
@@ -137,6 +143,21 @@ def push_ego_batch(ring: EgoRing, t, pos, rpy, vel_local, gyro, valid) -> EgoRin
 def push_imu_batch(ring: ImuRing, t, gyro, acc, valid) -> ImuRing:
     return _push_arrays_batch(ring, dict(t=t, gyro=gyro, acc=acc), t, valid,
                               guard_eps=0.0)
+
+
+def push_rings_plain(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
+    """Plain PyTorch version of kernel J: ``ego_new = (t, pos, rpy,
+    vel_local, gyro)`` through :func:`push_ego_batch` and ``imu_new = (t,
+    gyro, acc)`` through :func:`push_imu_batch`, both masked by ``valid``."""
+    return push_ego_batch(ego, *ego_new, valid), push_imu_batch(imu, *imu_new, valid)
+
+
+def push_rings(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
+    """A frame's (or one IMU sample's) pushes into both rings:
+    :func:`push_rings_plain` for CPU tensors, kernel J for CUDA ones."""
+    if valid.device.type == "cpu":
+        return push_rings_plain(ego, imu, ego_new, imu_new, valid)
+    return kernels.ring_push(ego, imu, ego_new, imu_new, valid)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,21 +1,27 @@
-"""The fused localization runtime — port of
-``elimaloc_tpu/pipeline/runtime.py`` (P2P, GICP, VGICP and AVGICP on the
-tile backend, with GPS and CAN fusion).
+"""The localization runtime — port of ``elimaloc_tpu/pipeline/runtime.py``
+(P2P, GICP, VGICP and AVGICP on the tile backend, with GPS and CAN fusion).
 
-One :class:`PipelineState` (EKF state + ego/IMU rings) runs through
-:func:`fused_frame` once per LiDAR scan: :func:`imu_subbatch` (the frame's
-IMU samples through the EKF prediction, kernel H on the card, then one
-batch push into each ring), the frame's CAN and GPS samples when the
-configuration fuses them (kernel I), then :func:`scan_step` (range gate ->
-deskew -> pose sync -> voxel downsample -> ICP registration -> covariance
-shaping -> latency compensation -> EKF PCM update, kernel I).
-:func:`replay_fused` is the Python loop that replaces the JAX ``lax.scan``
-over frames; batches come from the NumPy :func:`build_fused_batches` and
-move to the device once per log.
+One :class:`PipelineState` (EKF state + ego/IMU rings) runs through the
+event steps: :func:`imu_step` (one IMU sample), :func:`gps_step`,
+:func:`can_step`, :func:`scan_step` (range gate -> scan times -> ring
+queries, kernel K -> deskew, kernel D -> voxel downsample, kernel C -> ICP
+registration, kernels B, A/E/F/G and M -> the PCM measurement, kernel L ->
+the EKF PCM update, kernel I) and :func:`pcm_init_step` (a relocalization
+result). :func:`fused_frame` is one LiDAR frame: :func:`imu_subbatch` (the
+frame's IMU samples through the EKF prediction, kernel H, then one push
+into each ring, kernel J), the frame's CAN and GPS samples when the
+configuration fuses them (kernel I), then :func:`scan_step`.
+
+:class:`LocalizationPipeline` drives them three ways, as the JAX package
+does: ``run`` (the per-event loop over a log in time order), ``run_frames``
+(the online mode, one fused frame per scan) and ``run_fused`` (the same
+frame loop, without the per-frame config poll); batches come from the
+NumPy :func:`build_fused_batches` and move to the device once per log.
 
 Refused with NotImplementedError (ROADMAP Queue 1): the hash backend (#13),
-active-window maps (#14) and the radar covariances (#11); see
-``register.icp.check_supported``.
+active-window maps and chunked frames (#14), the radar covariances (#11;
+see ``register.icp.check_supported``), the ``use_imu=False`` tick mode
+(K7b, #12) and the live dashboard (#16).
 """
 
 from __future__ import annotations
@@ -28,22 +34,23 @@ import numpy as np
 import torch
 
 from .. import deskew as deskew_mod
-from ..config import ElimalocConfig, GnssSource, IcpMethod
+from .. import kernels
+from ..config import ConfigWatcher, ElimalocConfig, GnssSource, IcpMethod
 from ..ekf import (
     EkfFlags,
     EkfParams,
     EkfState,
     GnssMeas,
-    ego_state,
     imu_chain,
     init_state,
     make_params,
     update_chain,
+    update_gnss,
 )
 from ..map import builder as map_builder
 from ..map import tiles as map_tiles
 from ..map.grid import voxel_downsample
-from ..ops import lie
+from ..ops import geo, lie
 from ..ops.frames import imu_to_ego
 from ..register.icp import (
     IcpParams,
@@ -165,6 +172,41 @@ def shape_icp_covariance(rot_ego, local_cov, fitness):
             (normalize(r_cov) * angle_std * angle_std).contiguous())
 
 
+def pcm_measurement_plain(res, tf_lidar_to_ego, ego_ring, scan_end, usable,
+                          use_pcm: bool):
+    """Plain PyTorch version of kernel L (JAX runtime.py:341-358): the ICP
+    pose in the ego frame, its covariance shaped by
+    :func:`shape_icp_covariance`, latency-compensated against the ego ring
+    (``rings.gnss_time_compensation``) into the PCM GnssMeas, and ``apply``
+    = usable & ICP success & compensation ok & use_pcm. Returns (icp ego
+    pose [4,4], meas, apply)."""
+    icp_ego_pose = lie.compose(res.pose, tf_lidar_to_ego)
+    rot_ego = icp_ego_pose[:3, :3]
+    quat = lie.rot_to_quat(rot_ego)
+    pos_cov, rot_cov = shape_icp_covariance(rot_ego, res.local_cov, res.fitness)
+    ct, cpos, cquat, comp_ok = rings.gnss_time_compensation(
+        ego_ring, scan_end, icp_ego_pose[:3, 3], quat)
+    meas = GnssMeas(timestamp=ct, source=int(GnssSource.PCM), pos=cpos, rot=cquat,
+                    pos_cov=pos_cov, rot_cov=rot_cov)
+    apply = usable & res.success & comp_ok
+    if not use_pcm:
+        apply = torch.zeros_like(apply)
+    return icp_ego_pose, meas, apply
+
+
+def pcm_measurement(res, tf_lidar_to_ego, ego_ring, scan_end, usable, use_pcm: bool):
+    """:func:`pcm_measurement_plain` for CPU tensors, kernel L for CUDA
+    ones."""
+    if scan_end.device.type == "cpu":
+        return pcm_measurement_plain(res, tf_lidar_to_ego, ego_ring, scan_end, usable,
+                                     use_pcm)
+    pose, t, pos, quat, pos_cov, rot_cov, apply = kernels.pcm_measurement(
+        res.pose, tf_lidar_to_ego, res.local_cov, res.fitness, res.success, usable,
+        ego_ring, scan_end, use_pcm)
+    return pose, GnssMeas(timestamp=t, source=int(GnssSource.PCM), pos=pos, rot=quat,
+                          pos_cov=pos_cov, rot_cov=rot_cov), apply
+
+
 def _no_mark(name):
     return None
 
@@ -173,51 +215,39 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
               pp: PipelineParams, ps: PipelineStatic, mark=_no_mark):
     """One LiDAR frame through the matching pipeline (runtime.py:299-382).
     Returns (state', out dict). ``mark(name)`` is called at the stage
-    boundaries "deskew", "downsample", "assign", "gn" (for timing)."""
+    boundaries "gate", "scan_times", "ring_query", "deskew", "downsample",
+    "assign", "gn", "measurement" and "pcm_update" (for timing)."""
     stamp = stamp - pp.lidar_time_delay
 
     # range gate (FilterPointsByDistance, cpp:451-465)
     valid = valid & (lie.norm(points) <= pp.input_max_dist)
+    mark("gate")
     rel, scan_cur, scan_end = deskew_mod.normalize_scan_times(
         rel_raw, valid, stamp, ps.scan_time_end)
+    mark("scan_times")
 
-    imu_r = state.imu_ring
-    ego_r = state.ego_ring
-    info = deskew_mod.make_deskew_info(
-        imu_r.t, imu_r.gyro, imu_r.valid_mask(),
-        ego_r.t, ego_r.pos, ego_r.rpy, ego_r.vel_local, ego_r.gyro,
-        ego_r.valid_mask(), scan_cur, scan_end)
+    info, init_guess, found, usable = deskew_mod.scan_ring_query(
+        state.imu_ring, state.ego_ring, scan_cur, scan_end, pp.tf_ego_to_lidar,
+        run_deskew=ps.run_deskew)
+    mark("ring_query")
     pts_d, desk_ok = deskew_mod.deskew_points(
         points, rel, valid, info, run_deskew=ps.run_deskew,
         bug_compat_z=ps.bug_compat_deskew_z)
-    usable = desk_ok if ps.run_deskew else torch.ones_like(desk_ok)
     mark("deskew")
 
-    sync_pose, found = rings.get_interpolated_pose(ego_r, scan_end)
-    usable = usable & found & (ego_r.count > 0)
     ds_pts, ds_valid, ds_kept = voxel_downsample(
         pts_d, valid, pp.input_voxel_ds, ps.ds_points)
     mark("downsample")
 
-    init_guess = lie.compose(sync_pose, pp.tf_ego_to_lidar)
     res = run_register(ds_pts, ds_valid, tmap, init_guess, pp.icp,
                        ps.icp_static, mark=mark)
 
-    icp_ego_pose = lie.compose(res.pose, pp.tf_lidar_to_ego)
-    rot_ego = icp_ego_pose[:3, :3]
-    pos = icp_ego_pose[:3, 3]
-    quat = lie.rot_to_quat(rot_ego)
-    pos_cov, rot_cov = shape_icp_covariance(rot_ego, res.local_cov, res.fitness)
-
-    ct, cpos, cquat, comp_ok = rings.gnss_time_compensation(
-        ego_r, scan_end, pos, quat)
-    meas = GnssMeas(timestamp=ct, source=int(GnssSource.PCM), pos=cpos,
-                    rot=cquat, pos_cov=pos_cov, rot_cov=rot_cov)
-    apply = usable & res.success & comp_ok
-    if not ps.use_pcm:
-        apply = torch.zeros_like(apply)
+    icp_ego_pose, meas, apply = pcm_measurement(
+        res, pp.tf_lidar_to_ego, state.ego_ring, scan_end, usable, ps.use_pcm)
+    mark("measurement")
     new_state = state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
                                                pcm=(meas, apply)))
+    mark("pcm_update")
 
     out = {
         "scan_end": scan_end,
@@ -234,6 +264,20 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
         "ds_kept": ds_kept,
     }
     return new_state, out
+
+
+def pcm_init_step(state: PipelineState, t, pose, pp: PipelineParams,
+                  ps: PipelineStatic) -> PipelineState:
+    """Feed a relocalization result into the EKF (runtime.py:385-398;
+    CallbackPcmInitOdom, ekf_localization.cpp:181-204: covariance 1e-9,
+    source PCM_INIT). The PCM_INIT branch of ``update_gnss`` is a hard reset
+    of the state, no Kalman update, once per relocalization: it runs as
+    plain torch on either device (kernel I takes only the PCM source)."""
+    dtype, dev = pose.dtype, pose.device
+    eye = torch.eye(3, dtype=dtype, device=dev) * 1e-9
+    meas = GnssMeas(timestamp=t, source=int(GnssSource.PCM_INIT), pos=pose[:3, 3],
+                    rot=lie.rot_to_quat(pose[:3, :3]), pos_cov=eye, rot_cov=eye)
+    return state.replace(ekf=update_gnss(state.ekf, meas, pp.ekf, ps.ekf_flags))
 
 
 def _one(*xs):
@@ -269,7 +313,8 @@ def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
                  ps: PipelineStatic) -> PipelineState:
     """The frame's IMU samples through the EKF prediction one at a time
     (masked by validity; ``ekf.filter.imu_chain``: kernel H on the card),
-    then one batch push into each ring (runtime.py:405-441)."""
+    then one batch push into each ring (``rings.push_rings``: kernel J on
+    the card) (runtime.py:405-441)."""
     ts, accs, gyros, valids = b["imu_t"], b["imu_acc"], b["imu_gyro"], b["imu_valid"]
     acc_e, gyro_e = imu_to_ego(accs, gyros, pp.ego_to_imu_rot, pp.ego_to_imu_trans)
     # PCM's IMU intake rotates but does not lever-arm compensate (cpp:328)
@@ -277,18 +322,38 @@ def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
     acc_pcm = accs @ pp.ego_to_imu_rot.T
 
     ekf, hist = imu_chain(st.ekf, ts, acc_e, gyro_e, valids, pp.ekf, ps.ekf_flags)
-    ego_ring = rings.push_ego_batch(st.ego_ring, *hist, valids)
-    imu_ring = rings.push_imu_batch(st.imu_ring, ts, gyro_pcm, acc_pcm, valids)
+    ego_ring, imu_ring = rings.push_rings(st.ego_ring, st.imu_ring, hist,
+                                          (ts, gyro_pcm, acc_pcm), valids)
     return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
+
+
+def imu_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,
+             ps: PipelineStatic) -> PipelineState:
+    """IMU sample -> EKF prediction -> published state into the rings
+    (runtime.py:187-202): :func:`imu_subbatch` on a budget of one valid
+    sample (kernels H and J on the card). The one-sample push of the JAX
+    step (rings.py:75, with its clear on a time regression, dedupe and roll
+    when full) is the batch push of one row."""
+    one = torch.ones(1, dtype=torch.bool, device=acc_raw.device)
+    return imu_subbatch(state, {"imu_t": t.reshape(1), "imu_acc": acc_raw[None],
+                                "imu_gyro": gyro_raw[None], "imu_valid": one}, pp, ps)
+
+
+def ego_pose(ekf: EkfState):
+    """The published pose of the filter: (timestamp, pos, rpy), the part of
+    ``ekf.ego_state`` the run loops output (the rest of ego_state, eight more
+    conversions, would run eagerly here for nothing)."""
+    return {"timestamp": ekf.prev_timestamp, "pos": ekf.pos,
+            "rpy": lie.rot_to_euler(lie.quat_to_rot(ekf.rot))}
 
 
 def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
                 ps: PipelineStatic, mark=_no_mark):
     """One scan frame: the IMU sub-batch, the CAN then the GPS sub-batch
     (each sample masked by validity), then the scan (runtime.py:444-491).
-    ``mark(name)`` gets "imu" after the IMU chain, "can_gps" after the CAN /
-    GPS updates, the scan_step marks, and "ekf_update" at the end of the
-    frame."""
+    ``mark(name)`` gets "imu" after the IMU chain and the ring pushes,
+    "can_gps" after the CAN / GPS updates, the scan_step marks, and
+    "outputs" at the end of the frame."""
     st = imu_subbatch(st, b, pp, ps)
     mark("imu")
     if ps.use_can or ps.use_gps:
@@ -303,27 +368,15 @@ def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
     mark("can_gps")
     st, out = scan_step(st, b["scan_t"], b["scan_points"], b["scan_times"],
                         b["scan_valid"], tmap, pp, ps, mark=mark)
-    es = ego_state(st.ekf)
+    es = ego_pose(st.ekf)
     out["ego_pos"] = es["pos"]
     out["ego_rpy"] = es["rpy"]
     out["ego_t"] = es["timestamp"]
     P = st.ekf.P
     out["p_asym"] = torch.max(torch.abs(P - P.T))
     out["p_min_diag"] = torch.min(torch.diagonal(P))
-    mark("ekf_update")
+    mark("outputs")
     return st, out
-
-
-def replay_fused(state: PipelineState, batches, tmap, pp: PipelineParams,
-                 ps: PipelineStatic, mark=_no_mark):
-    """:func:`fused_frame` over every frame of a device batch dict; the
-    per-frame outputs are stacked on the device."""
-    outs = []
-    for k in range(batches["scan_t"].shape[0]):
-        state, out = fused_frame(state, {key: v[k] for key, v in batches.items()},
-                                 tmap, pp, ps, mark=mark)
-        outs.append(out)
-    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # --------------------------------------------------------------------------- #
@@ -432,7 +485,11 @@ def autosize_budgets(log: ReplayLog, voxel_ds, tile_size, qb=32, headroom=0.15):
 
 class LocalizationPipeline:
     """End-to-end localization over a prebuilt map on one device
-    (runtime.py:644-1588, the full-map fused path for every ICP method).
+    (runtime.py:644-1588 on a full map, every ICP method): the event loop
+    :meth:`run`, the online frame loop :meth:`run_frames`, the whole-log
+    :meth:`run_fused`, relocalization (:meth:`initialize_at`), config hot
+    reload (:meth:`reload_config`, :meth:`watch_config`) and the geodetic
+    projection (:meth:`project_gps`, :meth:`unproject`).
 
     ``map_points`` is a raw [N,3] cloud (built here with the covariances the
     method needs: per-voxel for VGICP/AVGICP, per-point for GICP,
@@ -464,15 +521,21 @@ class LocalizationPipeline:
             halo_margin = 2 if method == IcpMethod.AVGICP else 1
         if prebuilt:
             halo_margin = map_points.halo_margin
-        # a property of the MAP: with a margin >= 2 halo the hoisted
-        # assignment is exact for every method (runtime.py:735-736)
+        # a property of the MAP, kept across hot reloads: with a margin >= 2
+        # halo the hoisted assignment is exact for every method
+        # (runtime.py:735-736)
+        self._reassign_override = False if halo_margin >= 2 else None
         self.static = make_pipeline_static(
             cfg, backend=backend, tile_budget=tile_budget, ds_points=ds_points,
-            reassign_each_iter=False if halo_margin >= 2 else None)
+            reassign_each_iter=self._reassign_override)
         check_supported(self.static.icp_static)
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
+        # kept for relocalization's ground-height probe (runtime.py:691-700);
+        # a packed HostTileMap has no BuiltMap and probes its own halo rows
+        self.built = None
+        self._config_watcher = None
         if prebuilt:
             host_tmap = map_points
         else:
@@ -488,6 +551,7 @@ class LocalizationPipeline:
                     use_native=use_native)
             host_tmap = map_tiles.build_tile_map(
                 built, tile_voxels=tile_voxels, halo_margin=halo_margin)
+            self.built = built
         if method == IcpMethod.GICP and host_tmap.halo_point_cov is None:
             raise ValueError(
                 "GICP needs per-point covariances: build the map with "
@@ -510,6 +574,12 @@ class LocalizationPipeline:
             self.time_base = float(np.floor(np.min(np.asarray(t))))
         return np.asarray(t, np.float64) - self.time_base
 
+    def _tensor(self, a):
+        """Host array -> device tensor; float arrays take the pipeline's dtype."""
+        a = np.asarray(a)
+        return torch.as_tensor(a, device=self.device,
+                               dtype=self.dtype if a.dtype.kind == "f" else None)
+
     def reset(self) -> PipelineState:
         self.time_base = None
         return PipelineState(
@@ -518,23 +588,242 @@ class LocalizationPipeline:
             imu_ring=rings.make_imu_ring(self._imu_ring_size, self.dtype, self.device),
         )
 
-    def frame(self, state: PipelineState, b, mark=_no_mark):
-        """:func:`fused_frame` for one frame's device batch dict."""
-        return fused_frame(state, b, self.map, self.params, self.static, mark=mark)
+    def imu_step(self, state: PipelineState, t, acc_raw, gyro_raw) -> PipelineState:
+        """:func:`imu_step` with this pipeline's parameters (device tensors)."""
+        return imu_step(state, t, acc_raw, gyro_raw, self.params, self.static)
+
+    def pcm_init_step(self, state: PipelineState, t, pose) -> PipelineState:
+        """:func:`pcm_init_step` with this pipeline's parameters."""
+        return pcm_init_step(state, t, pose, self.params, self.static)
+
+    # ---- config hot reload (runtime.py:1159-1183, 1358-1376) ----
+    def reload_config(self, cfg: ElimalocConfig) -> None:
+        """Hot reload (the reference's ProcessINI + UpdateDynamicConfig,
+        ekf_localization.cpp:218-320 / ekf_algorithm.cpp:68-79): the
+        continuous parameters swap in; changed feature flags make a new
+        :class:`PipelineStatic`. The map and the filter state are kept."""
+        old = self.static
+        static = make_pipeline_static(
+            cfg, backend=old.icp_static.backend, tile_budget=old.icp_static.tile_budget,
+            ds_points=old.ds_points, bug_compat_deskew_z=old.bug_compat_deskew_z,
+            reassign_each_iter=self._reassign_override)
+        if static != old:
+            check_supported(static.icp_static)
+            self.static = static
+        self.cfg = cfg
+        self.params = make_pipeline_params(cfg, dtype=self.dtype, device=self.device)
+
+    def watch_config(self, localization_ini: str,
+                     calibration_ini: Optional[str] = None) -> None:
+        """Arm the per-frame (per-IMU-event in :meth:`run`) ini hot reload of
+        :meth:`run` and :meth:`run_frames`: a host mtime check each time, and
+        :meth:`reload_config` on a change, the filter state untouched."""
+        self._config_watcher = ConfigWatcher(localization_ini, calibration_ini)
+        # the files as they are now are the configuration already applied
+        self._config_watcher.cfg = self.cfg
+
+    def _poll_config(self) -> None:
+        w = self._config_watcher
+        if w is not None and w.poll():
+            self.reload_config(w.cfg)
+
+    def _refuse_dashboard(self) -> None:
+        if self.cfg.ekf.debug_print:
+            raise NotImplementedError(
+                "debug_print: the live state dashboard (utils/observability.py) is "
+                "ROADMAP Queue 1 #16")
+
+    # ---- geodetic projection (runtime.py:1185-1210, float64 on the host) ----
+    def project_gps(self, lat, lon, height):
+        """lat/lon/h -> local xyz about the configured geodetic origin
+        (ProjectGpsPoint, ekf_localization.cpp:643-648): ENU, or the UTM
+        plane when ``projection_mode`` is "UTM"."""
+        e = self.cfg.ekf
+        fwd = (geo.project_gps_point_utm if self.cfg.pcm.projection_mode.upper() == "UTM"
+               else geo.project_gps_point)
+        return np.asarray(fwd(lat, lon, height, e.ref_latitude, e.ref_longitude,
+                              e.ref_height))
+
+    def unproject(self, xyz):
+        """Local xyz -> (lat, lon, h) (LocalCartesian::Reverse,
+        ekf_localization.cpp:412-418), honouring ``projection_mode``."""
+        e = self.cfg.ekf
+        rev = (geo.unproject_local_point_utm if self.cfg.pcm.projection_mode.upper() == "UTM"
+               else geo.unproject_local_point)
+        lat, lon, h = rev(xyz, e.ref_latitude, e.ref_longitude, e.ref_height)
+        return np.asarray(lat), np.asarray(lon), np.asarray(h)
+
+    # ---- relocalization (CallbackInitialPose, pcm_matching.cpp:356-447) ----
+    def _ground_from_tiles(self, position_xy, search_range: float = 5.0):
+        """FindGroundHeight from the packed tile map (runtime.py:1125-1144),
+        for a pipeline built from a HostTileMap: mean z of the 5 lowest halo
+        points of the query tile within range."""
+        h = self.host_map
+        ts = h.tile_size
+        tx = int(np.floor(position_xy[0] / ts)) - h.tx0
+        ty = int(np.floor(position_xy[1] / ts)) - h.ty0
+        if not (0 <= tx < h.tx_dim and 0 <= ty < h.ty_dim):
+            return False, 0.0
+        pts = np.asarray(h.halo_points[tx * h.ty_dim + ty])
+        pts = pts[np.isfinite(pts[:, 0])]
+        d2 = np.sum((pts[:, :2] - np.asarray(position_xy)) ** 2, axis=1)
+        within = pts[d2 <= search_range * search_range]
+        if within.shape[0] <= 3:
+            return False, 0.0
+        low = within[np.argsort(within[:, 2])[:5]]
+        return True, float(low[:, 2].mean())
+
+    def initialize_at(self, state: PipelineState, x, y, yaw, scan_points, scan_valid,
+                      timestamp):
+        """The rviz-click flow (runtime.py:1213-1246): ground height at the
+        click, the scan downsampled (kernel C) and registered from the
+        clicked pose (kernels B, A/E/F/G and M), then the PCM_INIT hard reset
+        of the filter. Returns (state, ok)."""
+        timestamp = float(self._rebase(timestamp))
+        if self.built is not None:
+            found, ground_z = map_builder.find_ground_height(self.built, [x, y])
+        else:
+            found, ground_z = self._ground_from_tiles([x, y])
+        if not found:
+            return state, False
+        pose = np.eye(4)
+        pose[:3, :3] = lie.euler_to_rot(
+            torch.tensor([0.0, 0.0, yaw], dtype=torch.float64)).numpy()
+        pose[:3, 3] = [x, y, ground_z]
+        init_lidar = lie.compose(self._tensor(pose), self.params.tf_ego_to_lidar)
+        ds_pts, ds_valid, _ = voxel_downsample(
+            self._tensor(scan_points), self._tensor(scan_valid), self.params.input_voxel_ds,
+            self.static.ds_points)
+        res = run_register(ds_pts, ds_valid, self.map, init_lidar, self.params.icp,
+                           self.static.icp_static)
+        if not bool(res.success):
+            return state, False
+        final = lie.compose(res.pose, self.params.tf_lidar_to_ego)
+        return self.pcm_init_step(state, self._tensor(timestamp), final), True
+
+    # ---- the host event loop (runtime.py:1249-1355) ----
+    def run(self, log: ReplayLog, state: Optional[PipelineState] = None,
+            collect_every_imu: bool = False, on_scan=None):
+        """Replay a log in event-time order: IMU samples, scans (delivered
+        at :func:`scan_arrival_times`), GPS fixes and CAN samples, each
+        through its event step; the config is polled before every IMU
+        event. The log's per-sample arrays go to the device once, each scan
+        when it is delivered. Returns (state, trajectory dict: ``t``
+        (absolute), ``pos`` and ``rpy`` after every scan, and every IMU
+        sample with ``collect_every_imu``; ``scans``, each scan's outputs).
+        ``on_scan(out)`` sees a scan's outputs as NumPy plus ``ego_pos`` and
+        ``ego_t``, one readback per scan."""
+        if not self.cfg.ekf.use_imu:
+            raise NotImplementedError(
+                "use_imu=False: the CA-prediction tick mode (ekf.filter.predict, K7b, and "
+                "imu_ring_step) is ROADMAP Queue 1 #12")
+        self._refuse_dashboard()
+        state = state if state is not None else self.reset()
+        self._rebase(min(log.imu_t[0], log.scan_t[0]))
+        streams = {"imu": (log.imu_t, log.imu_acc, log.imu_gyro)}
+        if log.gps_t is not None and self.static.use_gps:
+            streams["gps"] = (log.gps_t, log.gps_pos, log.gps_cov)
+        if log.can_t is not None and self.static.use_can:
+            streams["can"] = (log.can_t, log.can_vel, log.can_yaw_rate)
+        events = [("scan", i, t) for i, t in enumerate(self._rebase(scan_arrival_times(log)))]
+        dev = {}
+        for kind, (t, *vals) in streams.items():
+            t = self._rebase(t)
+            events += [(kind, i, ti) for i, ti in enumerate(t)]
+            dev[kind] = [self._tensor(t)] + [self._tensor(v) for v in vals]
+        # equal times run imu, scan, gps, can (runtime.py's stable sort)
+        rank = {"imu": 0, "scan": 1, "gps": 2, "can": 3}
+        events.sort(key=lambda e: (e[2], rank[e[0]]))
+        stamps = self._tensor(self._rebase(log.scan_t))
+
+        ego, outs = [], []
+        for kind, i, _ in events:
+            if kind == "imu":
+                # the reference polls ProcessINI in every IMU callback
+                # (ekf_localization.cpp:141)
+                self._poll_config()
+                state = imu_step(state, *(x[i] for x in dev["imu"]), self.params, self.static)
+                if collect_every_imu:
+                    ego.append(ego_pose(state.ekf))
+            elif kind == "scan":
+                state, out = scan_step(
+                    state, stamps[i], self._tensor(log.scan_points[i]),
+                    self._tensor(log.scan_times[i]), self._tensor(log.scan_valid[i]),
+                    self.map, self.params, self.static)
+                ego.append(ego_pose(state.ekf))
+                outs.append(out)
+                if on_scan is not None:
+                    on_scan({**{k: v.cpu().numpy() for k, v in out.items()},
+                             "ego_pos": ego[-1]["pos"].cpu().numpy(),
+                             "ego_t": float(ego[-1]["timestamp"]) + self.time_base})
+                self._refuse_dashboard()
+            elif kind == "gps":
+                state = gps_step(state, *(x[i] for x in dev["gps"]), self.params, self.static)
+            else:
+                state = can_step(state, *(x[i] for x in dev["can"]), self.params, self.static)
+        traj = {"t": np.zeros(0), "pos": np.zeros((0, 3)), "rpy": np.zeros((0, 3)),
+                "scans": []}
+        if ego:
+            traj["t"] = torch.stack([e["timestamp"] for e in ego]).cpu().numpy().astype(
+                np.float64) + self.time_base
+            traj["pos"] = torch.stack([e["pos"] for e in ego]).cpu().numpy()
+            traj["rpy"] = torch.stack([e["rpy"] for e in ego]).cpu().numpy()
+        if outs:
+            stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+            traj["scans"] = [{k: np.asarray(v[j]) for k, v in stacked.items()}
+                             for j in range(len(outs))]
+        return state, traj
+
+    # ---- the frame loop: online (run_frames) and whole-log (run_fused) ----
+    def _frames(self, log: ReplayLog, state, batches, on_scan, mark, poll: bool):
+        """One :func:`fused_frame` per scan over the log's batches (moved to
+        the device once), ``on_scan(out)`` after each with the frame's
+        device outputs, the config polled (and the dashboard refused) before
+        each when ``poll``; the outputs are stacked on the device and read
+        back once. ``run_fused`` (no poll) has no dashboard to refuse, as in
+        the JAX package."""
+        if poll:
+            self._refuse_dashboard()
+        state = state if state is not None else self.reset()
+        self._rebase(min(log.imu_t[0], log.scan_t[0]))
+        if batches is None:
+            batches = build_fused_batches(log, time_base=self.time_base)
+        batches = batches_to_device(batches, self.device, self.dtype)
+        outs = []
+        for k in range(batches["scan_t"].shape[0]):
+            if poll:
+                self._poll_config()
+            # self.params / self.static are read per frame: a hot reload
+            # between frames takes effect at the next one
+            state, out = fused_frame(state, {key: v[k] for key, v in batches.items()},
+                                     self.map, self.params, self.static, mark=mark)
+            outs.append(out)
+            if on_scan is not None:
+                on_scan(out)
+            if poll:
+                self._refuse_dashboard()
+        stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        stacked["ego_t_abs"] = stacked["ego_t"].astype(np.float64) + self.time_base
+        return state, stacked
+
+    def run_frames(self, log: ReplayLog, state: Optional[PipelineState] = None, *,
+                   batches=None, on_scan=None, chunk: Optional[int] = None,
+                   mark=_no_mark):
+        """The online mode (runtime.py:1393-1570, its per-frame branch): one
+        fused frame per scan, the ini polled before each (see
+        :meth:`watch_config`), ``on_scan(out)`` after each with the frame's
+        device outputs. ``batches``: a :func:`build_fused_batches` dict, else
+        built from the log. Returns (state, outs) as :meth:`run_fused`."""
+        if chunk is not None and chunk > 1:
+            raise NotImplementedError(
+                f"run_frames(chunk={chunk}): the chunked windowed dispatch is ROADMAP "
+                "Queue 1 #14")
+        return self._frames(log, state, batches, on_scan, mark, poll=True)
 
     def run_fused(self, log: ReplayLog, state: Optional[PipelineState] = None,
                   mark=_no_mark):
-        """Whole-log fused replay: batches built on the host, moved to the
-        device once, frames run in order. Returns (state, outs) with outs as
-        NumPy arrays stacked over frames plus ``ego_t_abs``."""
-        state = state if state is not None else self.reset()
-        self._rebase(min(log.imu_t[0], log.scan_t[0]))
-        batches = batches_to_device(
-            build_fused_batches(log, time_base=self.time_base), self.device,
-            self.dtype)
-        state, outs = replay_fused(state, batches, self.map, self.params,
-                                   self.static, mark=mark)
-        outs = {k: v.cpu().numpy() for k, v in outs.items()}
-        outs["ego_t_abs"] = outs["ego_t"].astype(np.float64) + self.time_base
-        return state, outs
-
+        """Whole-log fused replay (runtime.py:1573-1588 on a full map): the
+        frame loop of :meth:`run_frames` without the config poll. Returns
+        (state, outs) with outs as NumPy arrays stacked over frames plus
+        ``ego_t_abs``."""
+        return self._frames(log, state, None, None, mark, poll=False)

@@ -11,11 +11,14 @@ iteration (``done | failed``) to decide whether to go on. That is the
 conjugation (icp.py:630-632, 824-825) is kept; it is a zero shift for full
 maps. Only GICP exports ``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
 
-One GN iteration's search + reduction is :func:`search_reduce`: on a CUDA
-tensor the method's fused kernel (csrc/: A ``correspond.cu`` P2P, E
-``gicp.cu``, F ``vgicp.cu``, G ``avgicp.cu``), on a CPU tensor its plain
-version (``*_search_reduce_plain``: the tiles search composed with the
-method's tail, icp.py:495-555).
+One GN iteration is :func:`gn_iteration`. On a CUDA tensor it is two
+launches on one stream: the method's fused search + reduction kernel
+(:func:`search_sums`; csrc/: A ``correspond.cu`` P2P, E ``gicp.cu``, F
+``vgicp.cu``, G ``avgicp.cu``), then kernel M (``gn_step.cu``: the LM
+step, the gates and the carries), whose stop flag is the iteration's one
+readback. On a CPU tensor it is the plain versions: the tiles search
+composed with the method's tail (``*_search_reduce_plain``,
+icp.py:495-555) and :func:`gn_update_plain`.
 
 Not ported, refused with NotImplementedError: the radar covariances (K12
 and the radar variants of the tails, ROADMAP Queue 1 #11), the hash backend
@@ -403,30 +406,37 @@ _PLAIN = {
 }
 
 
-def search_reduce(method: int, tmap, slot_tile, sbuf, qmask, pose,
-                  params: IcpParams, budget: maptiles.TileQueryBudget):
-    """One GN iteration of ``method`` -> (matched, JTJ, JTr, fit_num): the
-    method's kernel (A, E, F or G) on CUDA, its plain version on CPU."""
-    if sbuf.device.type == "cpu":
-        return _PLAIN[method](tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
+def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams):
+    """One GN iteration's search + reduction on the card: the method's
+    kernel (A, E, F or G) -> the reduced sums, [18] for P2P
+    (:func:`assemble_p2p`'s layout) or [44] (:func:`assemble_gn`'s)."""
     args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
     geo = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=tmap.tx0,
                ty0=tmap.ty0, ty_dim=tmap.ty_dim)
     if method == int(IcpMethod.P2P):
-        return assemble_p2p(kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0])
+        return kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0]
     if method == int(IcpMethod.GICP):
-        sums = kernels.gicp_correspond(
+        return kernels.gicp_correspond(
             tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, *args,
             **geo)[0]
-    elif method == int(IcpMethod.VGICP):
-        sums = kernels.vgicp_correspond(
-            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
-            **geo)[0]
-    else:
-        sums = kernels.avgicp_correspond(
-            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
-            voxel_size=tmap.voxel_size)[0]
-    return assemble_gn(sums)
+    if method == int(IcpMethod.VGICP):
+        return kernels.vgicp_correspond(
+            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args, **geo)[0]
+    return kernels.avgicp_correspond(
+        tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
+        voxel_size=tmap.voxel_size)[0]
+
+
+def search_reduce(method: int, tmap, slot_tile, sbuf, qmask, pose,
+                  params: IcpParams, budget: maptiles.TileQueryBudget):
+    """One GN iteration's search + reduction of ``method`` on CPU tensors ->
+    (matched, JTJ, JTr, fit_num), the plain version of kernel A, E, F or G.
+    On the card :func:`gn_iteration` takes :func:`search_sums` and kernel M
+    instead."""
+    if sbuf.device.type != "cpu":
+        raise ValueError("search_reduce is the plain route for CPU tensors; on the card "
+                         "use search_sums (kernel A, E, F or G)")
+    return _PLAIN[method](tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
 
 
 def _solve_step(JTJ, JTr, lm_lambda):
@@ -440,6 +450,49 @@ def _solve_step(JTJ, JTr, lm_lambda):
 def _step_transform(x):
     """6-vector -> small SE(3) transform (cpp:58-62)."""
     return lie.make_transform(lie.so3_exp(x[3:6]), x[0:3])
+
+
+def gn_update_plain(matched, JTJ, JTr, fit_num, pose, fitness, local_cov, total,
+                    params: IcpParams, gicp: bool):
+    """Plain PyTorch version of kernel M: the GN loop body after the
+    reduction (icp.py:761-795): fitness and overlap ratio, the overlap
+    gate, the LM-damped solve, the SE(3) step and compose, the termination
+    norm, and for GICP ``local_cov = (JTJ + lambda diag)^-1``. Returns
+    (pose, local_cov, fitness, overlap, stop, failed), stop = done | failed."""
+    dtype = pose.dtype
+    fit = fit_num / torch.clamp(matched, min=1).to(dtype)
+    ratio = matched.to(dtype) / total
+    overlap_ok = ratio >= params.min_overlap_ratio
+
+    x, reg = _solve_step(JTJ, JTr, params.lm_lambda)
+    x = torch.where(overlap_ok, x, torch.zeros_like(x))
+    step_tf = _step_transform(x)
+    pose = torch.where(overlap_ok, lie.compose(pose, step_tf), pose)
+
+    rot_norm = lie.norm(lie.so3_log(step_tf[:3, :3]))
+    transform_norm = rot_norm + lie.norm(x[0:3])
+    done = overlap_ok & (transform_norm < params.termination_threshold)
+    fitness = torch.where(overlap_ok, fit, fitness)
+    if gicp:
+        # only the GICP solver exports (JTJ + lambda diag)^-1 (cpp:140-142)
+        local_cov = torch.where(overlap_ok, torch.linalg.inv_ex(reg)[0], local_cov)
+    return pose, local_cov, fitness, ratio, done | ~overlap_ok, ~overlap_ok
+
+
+def gn_iteration(method: int, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                 total, params: IcpParams, budget: maptiles.TileQueryBudget):
+    """One GN iteration: on a CPU tensor the plain search + reduction and
+    :func:`gn_update_plain`; on a CUDA one kernel A, E, F or G, then kernel M
+    on the same stream. Returns (pose, local_cov, fitness, overlap, stop,
+    failed)."""
+    gicp = method == int(IcpMethod.GICP)
+    carry = (pose, fitness, local_cov, total, params)
+    if sbuf.device.type == "cpu":
+        return gn_update_plain(
+            *search_reduce(method, tmap, slot_tile, sbuf, qmask, pose, params, budget),
+            *carry, gicp)
+    return kernels.gn_step(search_sums(method, tmap, slot_tile, sbuf, qmask, pose, params),
+                           *carry, gicp)
 
 
 # --------------------------------------------------------------------------- #
@@ -470,42 +523,23 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
         mark("assign")
 
     pose = pose0
-    fitness = torch.zeros((), dtype=dtype, device=src_local.device)
-    overlap = torch.zeros((), dtype=dtype, device=src_local.device)
+    zero = torch.zeros((), dtype=dtype, device=src_local.device)
+    fitness = overlap = zero
     local_cov = torch.eye(6, dtype=dtype, device=src_local.device)
+    failed = torch.zeros((), dtype=torch.bool, device=src_local.device)
     it = 0
     while it < static.max_iteration:
-        matched, JTJ, JTr, fit_num = search_reduce(
-            static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose, params,
-            static.tile_budget)
-        fit = fit_num / torch.clamp(matched, min=1).to(dtype)
-        ratio = matched.to(dtype) / total
-        overlap_ok = ratio >= params.min_overlap_ratio
-
-        x, reg = _solve_step(JTJ, JTr, params.lm_lambda)
-        x = torch.where(overlap_ok, x, torch.zeros_like(x))
-        step_tf = _step_transform(x)
-        pose = torch.where(overlap_ok, lie.compose(pose, step_tf), pose)
-
-        rot_norm = lie.norm(lie.so3_log(step_tf[:3, :3]))
-        transform_norm = rot_norm + lie.norm(x[0:3])
-        done = overlap_ok & (transform_norm < params.termination_threshold)
-        fitness = torch.where(overlap_ok, fit, fitness)
-        if static.method == int(IcpMethod.GICP):
-            # only the GICP solver exports (JTJ + lambda diag)^-1 (cpp:140-142)
-            local_cov = torch.where(overlap_ok, torch.linalg.inv_ex(reg)[0], local_cov)
-        overlap = ratio
+        pose, local_cov, fitness, overlap, stop, failed = gn_iteration(
+            static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness,
+            local_cov, total, params, static.tile_budget)
         it += 1
-        failed = ~overlap_ok
-        if bool(done | failed):      # the one readback per iteration
+        if bool(stop):      # the one readback per iteration
             break
     if mark is not None:
         mark("gn")
 
     pose = pose.clone()
     pose[:2, 3] += origin
-    failed = ~overlap_ok if it > 0 else torch.zeros((), dtype=torch.bool,
-                                                    device=src_local.device)
     return IcpResult(
         pose=pose,
         success=~failed & (fitness <= params.max_fitness_score),

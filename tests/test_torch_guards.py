@@ -145,3 +145,49 @@ def test_pipeline_refuses_unported(both_worlds, change):
         truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
                                       **kw)
 
+
+
+#: the port's modules that the online entry points, kernels J-M and their
+#: plain versions live in, and the smoke script
+SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
+               "elimaloc_tpu_torch/pipeline/rings.py", "elimaloc_tpu_torch/deskew.py",
+               "elimaloc_tpu_torch/register/icp.py", "elimaloc_tpu_torch/kernels/__init__.py",
+               "elimaloc_tpu_torch/config.py", "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SLICE_FILES)
+def test_no_jax_import_anywhere_in_source(path):
+    """Every import statement of the file, at any depth (a function-level
+    import runs only when the function does), names neither jax nor the JAX
+    package."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "elimaloc_tpu")]
+    assert not bad, (path, bad)
+
+
+def test_every_kernel_entry_point_has_its_ctypes_signature():
+    """Each ``extern "C" int elm_*`` of csrc/*.cu is bound in
+    kernels/build.py with as many argument types as the C function has
+    parameters (ctypes would pass an unbound pointer as a 32-bit int)."""
+    import re
+
+    from elimaloc_tpu_torch.kernels import build
+
+    found = {}
+    for src in build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (elm_\w+)\(([^)]*)\)', text):
+            found[m.group(1)] = len([p for p in m.group(2).split(",") if p.strip()])
+    assert set(found) == set(build._SIGNATURES)
+    for name, n in found.items():
+        assert len(build._SIGNATURES[name]) == n, name
+    assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
+            "elm_gn_step"} <= set(found)

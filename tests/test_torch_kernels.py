@@ -23,7 +23,12 @@ order and FMAs differ from the kernel's ordered sums); kernel I (CAN, GPS
 pipeline's one-sample CAN and GPS steps): each P entry within 1e-5
 sqrt(P_ii P_jj) plus the same rounding term, every other float field of
 the state within rel 1e-5 of its largest entry, the flags and counters
-equal.
+equal; kernel J (the ring pushes) exactly equal; kernel K (the ring queries)
+masks, indices and flags equal, floats atol 1e-5 (the plain cumsum is a
+parallel scan on the card, the 4x4 products go through cuBLAS); kernel L
+(the PCM measurement) rel 1e-5 and ``apply`` equal; kernel M (the GN step,
+on each method's sums) pose atol 1e-4, local_cov rel 1e-3 (an LU in
+another order than cuSOLVER's), fitness, overlap and the flags equal.
 Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (tests/conftest.py
 imports jax, which the GPU host does not have).
@@ -118,9 +123,13 @@ def _calls(inp, budget, out_size=1024, bug_compat_z=False):
     params = icp.make_icp_params(icp.PcmConfig(), dtype=ds.dtype, device=ds.device)
     out["p2p"] = (asg, sbuf, params)
     for method in (IcpMethod.P2P,) + METHODS:
-        out[method] = icp.search_reduce(int(method), _method_map(inp, method),
-                                        asg.slot_tile, sbuf, asg.qmask, inp["pose"],
-                                        params, budget)
+        args = (int(method), _method_map(inp, method), asg.slot_tile, sbuf, asg.qmask,
+                inp["pose"], params)
+        if sbuf.device.type == "cpu":
+            out[method] = icp.search_reduce(*args, budget)
+        else:
+            assemble = icp.assemble_p2p if method == IcpMethod.P2P else icp.assemble_gn
+            out[method] = assemble(icp.search_sums(*args))
     return out
 
 
@@ -152,11 +161,12 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 
 def test_launch_counters_name_all_seven_kernels():
-    """Every kernel's counter: A-G and, since the EKF kernels, H and I."""
+    """Every kernel's counter: A-G, the EKF kernels H and I, and the
+    scan-time ring ops and GN step J, K, L, M."""
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
-        "ekf_update"])
+        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -235,8 +245,24 @@ def test_ekf_kernels_refuse_joseph_form(which):
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
                                    "p2p_correspond", "gicp_correspond",
                                    "vgicp_correspond", "avgicp_correspond", "imu_chain",
-                                   "ekf_update"])
+                                   "ekf_update", "ring_push", "scan_ring_query",
+                                   "pcm_measurement", "gn_step"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
+    if which in ("ring_push", "scan_ring_query", "pcm_measurement", "gn_step"):
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            if which == "ring_push":
+                kernels.ring_push(*_push_inputs("cpu", "append"))
+            elif which == "scan_ring_query":
+                kernels.scan_ring_query(*_query_inputs("cpu", "inside"), 64, True)
+            elif which == "pcm_measurement":
+                res, tf, ring, end, usable = _measurement_inputs("cpu", "gicp_cov")
+                kernels.pcm_measurement(res.pose, tf, res.local_cov, res.fitness,
+                                        res.success, usable, ring, end, True)
+            else:
+                params = icp.make_icp_params(icp.PcmConfig())
+                kernels.gn_step(torch.zeros(18), torch.eye(4), torch.zeros(()),
+                                torch.eye(6), torch.ones(()), params, False)
+        return
     if which in ("imu_chain", "ekf_update"):
         st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
         with pytest.raises(ValueError, match="CUDA tensor required"):
@@ -295,8 +321,10 @@ def test_kernels_match_plain_on_card(scene, cuda, qb, max_slots, out_size,
     kernels.reset_launches()
     out = _calls(inp, budget, out_size, bug_compat_z)
     torch.cuda.synchronize()
-    # each scan-path kernel once (the EKF kernels H and I are not called here)
-    assert all(v == (k not in ("imu_chain", "ekf_update"))
+    # each scan-path kernel once (the EKF kernels H and I, and J, K, L, M,
+    # are not called here)
+    assert all(v == (k in ("deskew", "voxel_downsample", "assign_slots", "p2p_correspond",
+                           "gicp_correspond", "vgicp_correspond", "avgicp_correspond"))
                for k, v in kernels.launches.items()), kernels.launches
 
     ref = deskew.deskew_points_plain(inp["pts"], inp["rel"], inp["valid"], inp["info"],
@@ -472,3 +500,217 @@ def test_ekf_kernels_refuse_float64_on_card(cuda, which):
             kernels.imu_chain(st, *imu, pp.ekf, flags)
         else:
             kernels.ekf_update(st, pp.ekf, flags, can=can)
+
+
+# --------------------------------------------------------------------------- #
+# Kernels J, K, L, M: the scan-time ring ops and the GN step
+# --------------------------------------------------------------------------- #
+
+#: ring pushes: (ego ring count, new sample times, valid mask); the IMU ring
+#: (capacity 8) takes the same times shifted by 1 us
+PUSHES = {
+    "append": (4, 1.0 + 0.01 * np.arange(6), np.ones(6, bool)),
+    "overflow": (12, 1.0 + 0.01 * np.arange(9), np.r_[np.ones(8, bool), False]),
+    "regress_clears": (10, 0.5 + 0.01 * np.arange(5), np.ones(5, bool)),
+    "longer_than_ring": (3, 1.0 + 0.01 * np.arange(20), np.ones(20, bool)),
+    "eps_dedupe": (10, 1.0 + np.array([0.0, 4e-6, 2e-5, 2.5e-5, 0.01]), np.ones(5, bool)),
+    "masked": (6, 1.0 + 0.01 * np.arange(6), np.array([0, 1, 1, 0, 1, 0], bool)),
+    "none_valid": (6, 1.0 + 0.01 * np.arange(6), np.zeros(6, bool)),
+    "one_sample": (0, np.array([1.0]), np.ones(1, bool)),
+}
+
+
+def _rings(device, ego_count, imu_count, seed=7, ego_t0=0.9, imu_t0=0.985):
+    """An ego ring of 16 rows at 100 Hz and an IMU ring of 32 rows at
+    200 Hz, random fields, the given counts."""
+    rng = np.random.default_rng(seed)
+    f = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    t = ego_t0 + 0.01 * np.arange(16)
+    ego = rings.make_ego_ring(16, torch.float32, device).replace(
+        t=f(t), pos=f(np.c_[60 + 8.0 * (t - ego_t0), 0.5 * (t - ego_t0), np.zeros(16)]),
+        rpy=f(np.c_[rng.normal(0, 0.01, (16, 2)), 1.5 + 0.1 * (t - ego_t0)]),
+        vel_local=f(np.c_[np.full(16, 8.0), rng.normal(0, 0.1, (16, 2))]),
+        gyro=f(np.c_[np.zeros((16, 2)), np.full(16, 0.1)]),
+        count=f(ego_count, torch.int32))
+    ti = imu_t0 + 0.005 * np.arange(32)
+    imu = rings.make_imu_ring(32, torch.float32, device).replace(
+        t=f(ti), gyro=f(np.c_[rng.normal(0, 0.02, (32, 2)), 0.3 + rng.normal(0, 0.02, 32)]),
+        acc=f(rng.normal(0, 1.0, (32, 3))), count=f(imu_count, torch.int32))
+    return ego, imu
+
+
+def _push_inputs(device, case):
+    count, new_t, valid = PUSHES[case]
+    ego, imu = _rings(device, count, min(count, 32))
+    rng = np.random.default_rng(11)
+    f = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    m = len(new_t)
+    vals = [f(rng.normal(size=(m, 3))) for _ in range(4)]
+    return ego, imu, (f(new_t), *vals), (f(new_t + 1e-6), vals[0], vals[1]), f(valid, torch.bool)
+
+
+def _query_inputs(device, case):
+    """(imu ring, ego ring, scan_cur, scan_end, tf_ego_to_lidar): a scan
+    inside both rings, one past the ego ring (extrapolated), one whose
+    window overflows the 8-wide budget, empty rings, and a zero-length
+    interpolation interval."""
+    ego_count, imu_count, cur, span = {
+        "inside": (16, 30, 1.0, 0.1), "extrapolate": (10, 30, 1.02, 0.1),
+        "window_overflow": (16, 32, 1.0, 0.1), "empty": (0, 0, 1.0, 0.1),
+        "zero_interval": (16, 30, 1.0, 0.0)}[case]
+    ego, imu = _rings(device, ego_count, imu_count)
+    tf = np.eye(4)
+    tf[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    tf[:3, 3] = [1.0, 0.2, 1.5]
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    return imu, ego, f(cur), f(cur + span), f(tf)
+
+
+def _measurement_inputs(device, case):
+    """An ICP result (GICP-like local_cov, or the identity of the other
+    methods) and the ego ring it is compensated against."""
+    rng = np.random.default_rng(13)
+    ego, _ = _rings(device, 16 if case != "empty_ring" else 0, 0)
+    f = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    pose = np.eye(4)
+    pose[:3, :3] = icp.lie.so3_exp(torch.tensor([0.01, -0.02, 1.55], dtype=torch.float64)).numpy()
+    pose[:3, 3] = [60.5, 0.3, 0.1]
+    a = rng.normal(size=(6, 6))
+    local_cov = a @ a.T * 1e-6 if case != "identity_cov" else np.eye(6)
+    res = icp.IcpResult(pose=f(pose), success=f(True, torch.bool), fitness=f(0.12),
+                        local_cov=f(local_cov), iterations=f(3, torch.int32),
+                        overlap=f(0.9), dropped=f(0, torch.int32))
+    tf = np.eye(4)
+    tf[:3, 3] = [-1.0, 0.0, -1.5]
+    return res, f(tf), ego, f(0.95), f(True, torch.bool)
+
+
+def _gn_inputs(scene, device, method):
+    """The sums of one GN iteration of ``method`` (kernel A, E, F or G on the
+    card, their plain versions' JTJ / JTr in the same layout on the CPU)
+    and the loop's carries."""
+    inp = _inputs(scene, device)
+    budget = tiles.TileQueryBudget(qb=16, max_slots=512)
+    ds, ds_valid, _ = grid.voxel_downsample(inp["pts"], inp["valid"], inp["voxel"], 1024)
+    tm = _method_map(inp, method)
+    asg = tiles.assign_slots(tm, icp.lie.transform_points(inp["pose"], ds), ds_valid, budget)
+    n = ds.shape[0]
+    sbuf = torch.where(asg.qmask[..., None], ds[asg.qidx.long().clamp(max=n - 1)],
+                       torch.zeros((), dtype=ds.dtype, device=ds.device))
+    params = icp.make_icp_params(icp.PcmConfig(), dtype=ds.dtype, device=ds.device)
+    total = torch.clamp(torch.sum(ds_valid), min=1).to(ds.dtype)
+    carry = (inp["pose"], torch.zeros((), device=device), torch.eye(6, device=device), total)
+    return tm, asg, sbuf, params, budget, carry
+
+
+def test_cpu_scan_time_callers_run_plain_versions_only(scene, monkeypatch):
+    """The callers of J, K, L, M on CPU tensors: the plain versions, no
+    library, no launch."""
+    def no_library():
+        raise AssertionError("the kernel library was requested for CPU tensors")
+
+    monkeypatch.setattr(build, "library", no_library)
+    monkeypatch.setattr(kernels, "library", no_library)
+    kernels.reset_launches()
+    ego, imu, ego_new, imu_new, valid = _push_inputs("cpu", "append")
+    got = rings.push_rings(ego, imu, ego_new, imu_new, valid)
+    ref = rings.push_rings_plain(ego, imu, ego_new, imu_new, valid)
+    for a, b in zip(got, ref):
+        assert all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("t", "count"))
+    query = _query_inputs("cpu", "inside")
+    info, guess, found, usable = deskew.scan_ring_query(*query)
+    assert bool(found) and bool(usable) and bool(info.imu_available)
+    res, tf, ring, end, usable = _measurement_inputs("cpu", "gicp_cov")
+    _, meas, apply = runtime.pcm_measurement(res, tf, ring, end, usable, True)
+    assert bool(apply) and meas.pos_cov.is_contiguous()
+    tm, asg, sbuf, params, budget, carry = _gn_inputs(scene, "cpu", IcpMethod.GICP)
+    out = icp.gn_iteration(int(IcpMethod.GICP), tm, asg.slot_tile, sbuf, asg.qmask, *carry,
+                           params, budget)
+    assert not bool(out[5])
+    assert all(v == 0 for v in kernels.launches.values()), kernels.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PUSHES))
+def test_ring_push_matches_plain_on_card(cuda, case):
+    """Kernel J against ``push_rings_plain``: both rings exactly equal (the
+    same copies and float32 comparisons)."""
+    args = _push_inputs(cuda, case)
+    kernels.reset_launches()
+    got = rings.push_rings(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["ring_push"] == 1
+    ref = rings.push_rings_plain(*args)
+    for a, b in zip(got, ref):
+        for f in dataclasses.fields(b):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), (case, f.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inside", "extrapolate", "window_overflow", "empty",
+                                  "zero_interval"])
+def test_scan_ring_query_matches_plain_on_card(cuda, case):
+    """Kernel K against ``scan_ring_query_plain``: the masks, indices and
+    flags equal; the float outputs within 1e-5 (the plain version's cumsum
+    is a parallel scan on the card, the kernel's a sequential double sum;
+    the 4x4 products run with FMAs in cuBLAS)."""
+    args = _query_inputs(cuda, case)
+    window = 8 if case == "window_overflow" else 64
+    kernels.reset_launches()
+    info, guess, found, usable = deskew.scan_ring_query(*args, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launches["scan_ring_query"] == 1
+    rinfo, rguess, rfound, rusable = deskew.scan_ring_query_plain(*args, window=window)
+    for f in dataclasses.fields(rinfo):
+        a, b = getattr(info, f.name), getattr(rinfo, f.name)
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        else:
+            assert torch.equal(a, b), (case, f.name)
+    torch.testing.assert_close(guess, rguess, rtol=0, atol=1e-5)
+    assert bool(found) == bool(rfound) and bool(usable) == bool(rusable)
+    if case == "window_overflow":
+        assert not bool(info.imu_covers_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gicp_cov", "identity_cov", "empty_ring"])
+def test_pcm_measurement_matches_plain_on_card(cuda, case):
+    """Kernel L against ``pcm_measurement_plain``: every float output within
+    rel 1e-5 of its largest entry, ``apply`` equal."""
+    res, tf, ring, end, usable = _measurement_inputs(cuda, case)
+    kernels.reset_launches()
+    pose, meas, apply = runtime.pcm_measurement(res, tf, ring, end, usable, True)
+    torch.cuda.synchronize()
+    assert kernels.launches["pcm_measurement"] == 1
+    rpose, rmeas, rapply = runtime.pcm_measurement_plain(res, tf, ring, end, usable, True)
+    for a, b in ((pose, rpose), (meas.timestamp, rmeas.timestamp), (meas.pos, rmeas.pos),
+                 (meas.rot, rmeas.rot), (meas.pos_cov, rmeas.pos_cov),
+                 (meas.rot_cov, rmeas.rot_cov)):
+        assert _rel(a, b) <= 1e-5, (case, a, b)
+    assert bool(apply) == bool(rapply) == (case != "empty_ring")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [IcpMethod.P2P, *METHODS], ids=lambda m: m.name)
+def test_gn_step_matches_plain_on_card(scene, cuda, method):
+    """Kernel M against ``gn_update_plain`` on the sums kernel A, E, F or G
+    gave on the card: pose within 1e-4 (entries up to ~60 m), local_cov
+    within rel 1e-3 (the inverse of reg, conditioned ~1e3, from an LU in
+    another order than cuSOLVER's), fitness and overlap equal (the same
+    divisions), the stop flags equal."""
+    tm, asg, sbuf, params, budget, carry = _gn_inputs(scene, cuda, method)
+    sums = icp.search_sums(int(method), tm, asg.slot_tile, sbuf, asg.qmask, carry[0], params)
+    gicp = method == IcpMethod.GICP
+    kernels.reset_launches()
+    got = kernels.gn_step(sums, *carry, params, gicp)
+    torch.cuda.synchronize()
+    assert kernels.launches["gn_step"] == 1
+    assemble = icp.assemble_p2p if method == IcpMethod.P2P else icp.assemble_gn
+    ref = icp.gn_update_plain(*assemble(sums), *carry, params, gicp)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    assert _rel(got[1], ref[1]) <= 1e-3
+    assert not torch.equal(got[0], carry[0])
+    assert gicp == (not torch.equal(got[1], carry[2]))
+    for a, b in zip(got[2:], ref[2:]):
+        assert torch.equal(a, b), method

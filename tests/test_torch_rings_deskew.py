@@ -3,7 +3,11 @@
 Rings and scans are generated from a seeded NumPy generator and fed to both
 sides. Tolerances: float64 atol 1e-12 (same formulas, rounding-order ulps);
 float32 atol 1e-5 m (a few ulps at the ~60 m ranges used). Ring pushes copy
-values, so they are compared at those same bounds.
+values, so they are compared at those same bounds (one-row pushes exactly).
+The plain versions of kernels J (``push_rings_plain``), K
+(``scan_ring_query_plain``) and L (``runtime.pcm_measurement_plain``) are
+held to the JAX functions they stand for; L's covariances at those bounds
+relative to their largest entry.
 """
 
 import jax.numpy as jnp
@@ -12,9 +16,13 @@ import pytest
 import torch
 
 from elimaloc_tpu import deskew as jdeskew
+from elimaloc_tpu.ops import lie as jlie
 from elimaloc_tpu.pipeline import rings as jrings
+from elimaloc_tpu.pipeline import runtime as jruntime
 from elimaloc_tpu_torch import deskew as tdeskew
 from elimaloc_tpu_torch.pipeline import rings as trings
+from elimaloc_tpu_torch.pipeline import runtime as truntime
+from elimaloc_tpu_torch.register import icp as ticp
 from torch_parity import assert_tree_close, flatten
 
 DTYPES = {"f64": (jnp.float64, torch.float64, 1e-12),
@@ -166,3 +174,142 @@ def test_deskew(dt_name, bug_compat_z, scan_time_end):
     # deskew moved the valid points and left the invalid ones untouched
     assert np.abs(tout.numpy()[valid] - pts[valid]).max() > 1e-3
     np.testing.assert_array_equal(tout.numpy()[~valid], np.asarray(pts, tout.numpy().dtype)[~valid])
+
+
+# --------------------------------------------------------------------------- #
+# The plain versions of kernels J, K and L against the JAX functions
+# --------------------------------------------------------------------------- #
+
+def _imu_ring(jdt, cap=16, count=10, t0=0.9):
+    ring = _ego_ring(jdt, cap=cap, count=count, t0=t0)
+    return jrings.ImuRing(t=ring.t, gyro=ring.gyro, acc=ring.pos, count=ring.count)
+
+
+@pytest.mark.parametrize("case", sorted(PUSHES))
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+def test_push_rings_plain_matches_jax(dt_name, case):
+    """Kernel J's plain version: both rings' batch pushes of one frame, the
+    IMU ring fed its own stamps (1 us later than the ego ring's)."""
+    jdt, tdt, atol = DTYPES[dt_name]
+    count, new_t, valid = PUSHES[case]
+    rng = np.random.default_rng(6)
+    m = len(new_t)
+    vals = [rng.normal(size=(m, 3)) for _ in range(4)]
+    je, ji = _ego_ring(jdt, count=count), _imu_ring(jdt, count=min(count, 16))
+    jout = (jrings.push_ego_batch(je, jnp.asarray(new_t, jdt),
+                                  *(jnp.asarray(v, jdt) for v in vals), jnp.asarray(valid)),
+            jrings.push_imu_batch(ji, jnp.asarray(new_t + 1e-6, jdt), jnp.asarray(vals[0], jdt),
+                                  jnp.asarray(vals[1], jdt), jnp.asarray(valid)))
+    tout = trings.push_rings_plain(
+        _port_ring(je, trings.EgoRing, tdt), _port_ring(ji, trings.ImuRing, tdt),
+        (_t(new_t, tdt), *(_t(v, tdt) for v in vals)),
+        (_t(new_t + 1e-6, tdt), _t(vals[0], tdt), _t(vals[1], tdt)), _t(valid, tdt))
+    for t, j in zip(tout, jout):
+        assert_tree_close(flatten(t), flatten(j), atol=atol)
+
+
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+def test_one_row_push_matches_jax_sequential_push(dt_name):
+    """imu_step's push is the batch push of one row: 13 one-row pushes into
+    rings of 8 (an overflow, a repeat within 1e-5, a time regression) equal
+    JAX's sequential push_ego / push_imu (rings.py:75-123) exactly."""
+    jdt, tdt, _ = DTYPES[dt_name]
+    rng = np.random.default_rng(8)
+    je, ji = jrings.make_ego_ring(8, jdt), jrings.make_imu_ring(8, jdt)
+    te, ti = _port_ring(je, trings.EgoRing, tdt), _port_ring(ji, trings.ImuRing, tdt)
+    one = _t(np.ones(1, bool), tdt)
+    stamps = np.r_[0.01 * np.arange(1, 10), 0.09 + 5e-6, 0.05, 0.06, 0.07]
+    for t in stamps:
+        v = rng.normal(size=(4, 3))
+        je = jrings.push_ego(je, jnp.asarray(t, jdt), *(jnp.asarray(x, jdt) for x in v))
+        ji = jrings.push_imu(ji, jnp.asarray(t, jdt), jnp.asarray(v[0], jdt),
+                             jnp.asarray(v[1], jdt))
+        te, ti = trings.push_rings_plain(
+            te, ti, (_t([t], tdt), *(_t(x[None], tdt) for x in v)),
+            (_t([t], tdt), _t(v[0][None], tdt), _t(v[1][None], tdt)), one)
+        assert_tree_close(flatten(te), flatten(je), atol=0.0)
+        assert_tree_close(flatten(ti), flatten(ji), atol=0.0)
+    assert int(te.count) == 3 and int(ti.count) == 3
+
+
+def _tf_ego_to_lidar():
+    tf = np.eye(4)
+    tf[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    tf[:3, 3] = [1.0, 0.2, 1.5]
+    return tf
+
+
+@pytest.mark.parametrize("case", ["inside", "extrapolate", "overflow", "empty"])
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+def test_scan_ring_query_plain_matches_jax(dt_name, case):
+    """Kernel K's plain version against JAX make_deskew_info +
+    get_interpolated_pose + compose(sync_pose, tf_ego_to_lidar)
+    (runtime.py:317-338)."""
+    jdt, tdt, atol = DTYPES[dt_name]
+    rng = np.random.default_rng(17)
+    imu_t, imu_gyro, *_ = _deskew_inputs(rng)
+    ego_count, imu_count, cur, window = {
+        "inside": (16, 30, 1.0, 64), "extrapolate": (10, 30, 1.02, 64),
+        "overflow": (16, 32, 1.0, 8), "empty": (0, 0, 1.0, 64)}[case]
+    end = cur + 0.1
+    jr = _ego_ring(jdt, count=ego_count)
+    ji = jrings.ImuRing(t=jnp.asarray(imu_t, jdt), gyro=jnp.asarray(imu_gyro, jdt),
+                        acc=jnp.zeros((32, 3), jdt), count=jnp.asarray(imu_count, jnp.int32))
+    tf = _tf_ego_to_lidar()
+    jinfo = jdeskew.make_deskew_info(ji.t, ji.gyro, ji.valid_mask(), jr.t, jr.pos, jr.rpy,
+                                     jr.vel_local, jr.gyro, jr.valid_mask(),
+                                     jnp.asarray(cur, jdt), jnp.asarray(end, jdt),
+                                     window_budget=window)
+    jsync, jfound = jrings.get_interpolated_pose(jr, jnp.asarray(end, jdt))
+    jguess = jlie.compose(jsync, jnp.asarray(tf, jdt))
+    tinfo, tguess, tfound, tusable = tdeskew.scan_ring_query_plain(
+        _port_ring(ji, trings.ImuRing, tdt), _port_ring(jr, trings.EgoRing, tdt),
+        torch.tensor(cur, dtype=tdt), torch.tensor(end, dtype=tdt), _t(tf, tdt), window)
+    assert_tree_close(flatten(tinfo), flatten(jinfo), atol=atol)
+    np.testing.assert_allclose(tguess.numpy(), np.asarray(jguess), atol=atol)
+    assert bool(tfound) == bool(jfound)
+    usable = bool(jinfo.imu_available & jinfo.odom_available & jfound) and ego_count > 0
+    assert bool(tusable) == usable == (case != "empty")
+
+
+@pytest.mark.parametrize("cov", ["gicp", "identity", "tiny"])
+@pytest.mark.parametrize("dt_name", sorted(DTYPES))
+def test_pcm_measurement_plain_matches_jax(dt_name, cov):
+    """Kernel L's plain version against JAX's scan tail (runtime.py:341-358):
+    compose with tf_lidar_to_ego, rot_to_quat, shape_icp_covariance (the
+    "tiny" covariance takes the 1e-9 rescale) and gnss_time_compensation."""
+    jdt, tdt, atol = DTYPES[dt_name]
+    rng = np.random.default_rng(23)
+    jr = _ego_ring(jdt)
+    pose = np.eye(4)
+    c, s = np.cos(1.52), np.sin(1.52)
+    pose[:3, :3] = [[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]
+    pose[:3, 3] = [60.4, 0.3, 0.1]
+    a = rng.normal(size=(6, 6))
+    local_cov = {"gicp": a @ a.T * 1e-4, "identity": np.eye(6),
+                 "tiny": a @ a.T * 1e-13}[cov]
+    tf = np.linalg.inv(_tf_ego_to_lidar())
+    fitness, end = 0.4, 0.955
+    jpose = jlie.compose(jnp.asarray(pose, jdt), jnp.asarray(tf, jdt))
+    jquat = jlie.rot_to_quat(jpose[:3, :3])
+    jpos_cov, jrot_cov = jruntime.shape_icp_covariance(
+        jpose[:3, :3], jnp.asarray(local_cov, jdt), jnp.asarray(fitness, jdt))
+    jt, jpos, jq, jok = jrings.gnss_time_compensation(jr, jnp.asarray(end, jdt),
+                                                      jpose[:3, 3], jquat)
+    res = ticp.IcpResult(pose=_t(pose, tdt), success=torch.tensor(True),
+                         fitness=torch.tensor(fitness, dtype=tdt),
+                         local_cov=_t(local_cov, tdt), iterations=torch.tensor(3),
+                         overlap=torch.tensor(0.9, dtype=tdt), dropped=torch.tensor(0))
+    tpose, meas, apply = truntime.pcm_measurement_plain(
+        res, _t(tf, tdt), _port_ring(jr, trings.EgoRing, tdt), torch.tensor(end, dtype=tdt),
+        torch.tensor(True), True)
+    for got, want in ((tpose, jpose), (meas.timestamp, jt), (meas.pos, jpos), (meas.rot, jq),
+                      (meas.pos_cov, jpos_cov), (meas.rot_cov, jrot_cov)):
+        scale = max(1.0, float(np.abs(np.asarray(want)).max()))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol * scale)
+    assert bool(apply) == bool(jok) is True
+    assert meas.pos_cov.is_contiguous() and meas.rot_cov.is_contiguous()
+    off = truntime.pcm_measurement_plain(res, _t(tf, tdt), _port_ring(jr, trings.EgoRing, tdt),
+                                         torch.tensor(end, dtype=tdt), torch.tensor(True),
+                                         False)[2]
+    assert not bool(off)
