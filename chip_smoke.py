@@ -6,17 +6,24 @@ make_world(seed=3, extent=120, 400k ground + 200k wall points), 131,072 raw
 points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
-(P2P, GICP, VGICP) and 2 (AVGICP). Seven paths:
+(P2P, GICP, VGICP) and 2 (AVGICP). Eight paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
 AVGICP) and for AVGICP with GPS and CAN fusion (BASELINE config 5,
 bench.py:573-582); ``run_frames`` (the online mode) on the GICP pipeline
 ("GICP frames"); ``run`` (the per-event loop) on the config-5 pipeline
 ("FUSION events"). Then ``initialize_at`` (relocalization) on the P2P
-pipeline.
+pipeline, and "P2P windowed": active-window serving, the bench.py:327-346
+row (``_cfg(P2P)`` with a 40 m sensor gate, ``map_window_radius=48``) over
+the margin-1 map written with ``build_tile_map(storage_dir=)`` and reopened
+disk-backed with ``load_tile_map(mmap=True)``, on the bench.py headline log
+length (40 scans, bench.py:86, 140-146: the 20-scan log moves 7 m, too
+little for a 48 m window to swap), run three ways: ``run_fused
+(window_chunk=8)``, ``run_frames`` per frame, and per frame with each
+prefetch finished before any swap ("forced").
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the 13 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
+  2. build: the 14 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
      source, all started together), then the map and its two packings;
   3. per run_fused path:
      a. a warm-up replay that records main-path calls of the kernels;
@@ -39,13 +46,30 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      applied >= 0.9, ATE < 0.3 m, its last pose within 0.15 m of run_fused's
      and admit CAN and GPS; then relocalization from a click 1 m and 1 deg
      off the truth;
-  5. torch.profiler, after every timed replay: kernels H, I, J, K, L and M
-     alone on the device, and one more replay per run_fused path for the
-     device's busy share and its top kernels;
-  6. reference, per run_fused path: a small log on the card against the
+  5. "P2P windowed" (after the relocalization above): a warm-up windowed
+     replay that records kernel N's first call, N against
+     ``shift_window_plain`` on it (bit for bit) with its bound (bytes read
+     and written over 3.35 TB/s) and the time of ``index_select`` on the
+     row roll alone; a chain of 1-, 2- and 3-tile
+     shifts on both axes into the map corner against fresh crops at the
+     same origin (bit for bit); then the timed windowed replays, launch
+     counts from 0 around the first, each gated: swaps and incremental
+     crops occur, N launched, applied >= 0.9, no dropped slots, the forced
+     run with no synchronous swap and a prefetch hit per swap, and every
+     windowed trajectory against a full-map pipeline of the same
+     configuration under the closed-loop contract; ``window_stats`` and the
+     device bytes of the window against the full map; then ``initialize_at``
+     on a windowed pipeline whose window lies ~100 m from the click, given
+     the log's scan as it is (the card held to the CPU port) and the scan
+     gated to the sensor range (within 1.5 m of the truth);
+  6. torch.profiler, after every timed replay: kernels H, I, J, K, L, M and N
+     alone on the device, and one more replay per run_fused path and of the
+     windowed run_fused for the device's busy share and its top kernels;
+  7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract; on the fusion log also
-     the event loop ``run``.
+     the event loop ``run``; and the windowed ``run`` on the small windowed
+     drive of tests/test_torch_window_replay.py.
 Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network, no JAX, one card:
@@ -57,6 +81,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -119,6 +144,15 @@ SCAN_KERNELS = {
                               "_step_transform + the loop body :761-795"),
 }
 FRAMES, EVENTS = "GICP frames", "FUSION events"
+WINDOWED = "P2P windowed"
+#: the windowed row's log length (bench.py:86 N_SCANS) and configuration
+#: (bench.py:327-346)
+WINDOW_SCANS = 40
+WINDOW_RADIUS = 48.0
+WINDOW_SENSOR = 40.0
+#: kernel N: its source and the JAX function it replaces
+SHIFT = ("elimaloc_tpu_torch/csrc/window_shift.cu",
+         "elimaloc_tpu/map/tiles.py:511 _shift_window_impl + :546 shift_window")
 #: truth ATE gate per method on the headline log, m. AVGICP does not
 #: converge within max_iteration on this sparse map (8 iterations a frame
 #: against ~2 for the other methods, 0.19 m on the H100): its gate follows the
@@ -227,7 +261,7 @@ def make_headline(cfg_mod, runtime, builder, tiles, log_mod):
                  f"voxels {packed[margin].halo_vox_mean.shape}")
     ds_points, max_slots = runtime.autosize_budgets(
         log, float(pcm.input_voxel_ds_m), 4.0 * pcm.pcm_voxel_size, qb=16)
-    return log, packed, ds_points, max_slots
+    return world, built, log, packed, ds_points, max_slots
 
 
 class Recorder:
@@ -1075,6 +1109,323 @@ def reloc_phase(pipe, log, kernels):
     return {"ok": ok, "position_error_m": err}
 
 
+def window_log(world, log_mod):
+    """The bench.py headline log at its own length (WINDOW_SCANS scans),
+    sampled 1/5 like the other paths' log."""
+    log = log_mod.synthesize_log(world, duration=(WINDOW_SCANS + 3) * 0.1,
+                                 points_per_scan=RAW_POINTS, max_range=100.0, seed=4)
+    sl = slice(None, None, INDEX_SAMPLING)
+    log.scan_points = np.ascontiguousarray(log.scan_points[:, sl])
+    log.scan_times = np.ascontiguousarray(log.scan_times[:, sl])
+    log.scan_valid = np.ascontiguousarray(log.scan_valid[:, sl])
+    return log
+
+
+def window_cfg(cfg_mod):
+    """bench.py:_cfg(P2P) with the windowed row's 40 m sensor gate
+    (bench.py:336-337)."""
+    cfg = method_cfg(cfg_mod, "P2P")
+    cfg.pcm.input_max_dist = WINDOW_SENSOR
+    return cfg
+
+
+def contract(err):
+    """The repo's closed-loop contract (tests/test_pipeline_modes.py:217-236):
+    max < 3 cm, median < 5 mm, last 3 frames < 5 mm."""
+    return bool(err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005)
+
+
+def shift_row(call, pipe, mods):
+    """Kernel N against ``shift_window_plain`` on the call the windowed path
+    recorded: all six tensors equal bit for bit. Bound: the bytes its
+    function must move over 3.35 TB/s: the distinct rows it reads (retained
+    old rows, the sentinel, the entering payload rows) and the T + 1 rows it
+    writes, plus ``dst_rows``. Beside it, the time of ``index_select`` on
+    the row roll alone (one call per tensor), a part of N's work, as a
+    library yardstick that the port does not use."""
+    kernels, tiles = mods[0], mods[3]
+    a, _ = call
+    base, nx, ny, dx, dy, dst, payload = a
+    got = kernels.shift_window(*a)
+    tmap = pipe.map.replace(**base, tile_anchor=(0, 0))
+
+    def plain():
+        return tiles.shift_window_plain(tmap, dx, dy, dst, payload)
+
+    ref = plain()
+    for f in tiles.HALO_FIELDS:
+        g, r = got[f], getattr(ref, f)
+        if (g is None) != (r is None) or (g is not None and not torch.equal(g, r)):
+            raise AssertionError(f"shift_window kernel differs from its plain version in {f}")
+    t = nx * ny
+    src_t = tiles.shift_sources(nx, ny, dx, dy, dst.device)
+    src = src_t.cpu().numpy()
+    d = dst.cpu().numpy()
+    over = d[d <= t]
+    old_rows = np.unique(src[np.setdiff1d(np.arange(t + 1), over)])
+    row_bytes = sum(x[0].numel() * x.element_size() for x in base.values() if x is not None)
+    moved = (len(old_rows) + len(over) + t + 1) * row_bytes + nbytes(dst)
+    roll_ms = time_ms(lambda: [x.index_select(0, src_t) for x in base.values()
+                               if x is not None])
+    log_line(f"  shift_window: window {nx}x{ny} + sentinel, shift ({dx}, {dy}), "
+             f"{len(over)} entering rows of {len(d)} padded, {row_bytes} B a row over "
+             f"{sum(x is not None for x in base.values())} tensors, {moved / 1e6:.2f} MB "
+             f"moved; index_select on the row roll alone {roll_ms:.4f} ms")
+    return dict(name="shift_window", source=SHIFT[0], replaces=SHIFT[1], max_abs_err=0.0,
+                ms=time_ms(lambda: kernels.shift_window(*a)), plain_ms=time_ms(plain),
+                device_fn=(lambda: kernels.shift_window(*a), "shift_window_kernel"),
+                bound=bound(0, moved)), roll_ms
+
+
+def shift_chain_check(host, mods):
+    """A chain of 1-, 2- and 3-tile shifts on both axes through kernel N,
+    into the map's north-east corner and back, against the same rows packed
+    fresh at the same origin: every tensor equal bit for bit. Returns the
+    shifts run."""
+    tiles = mods[3]
+    dims = (25, 25)
+    ts = host.tile_size
+    c = np.array([(host.tx0 + host.tx_dim - 20) * ts, (host.ty0 + host.ty_dim - 20) * ts])
+    origin = host.window_anchor(c, dims)
+    dev = host.crop_window(c, 12, dims=dims).to_device("cuda")
+    anchor, shifts = origin, []
+    for step in [(1, 0), (0, 2), (3, 1), (2, 3), (3, 3), (-3, -2), (-1, -3), (0, -1)]:
+        new = (int(np.clip(anchor[0] + step[0], host.tx0, host.tx0 + host.tx_dim - dims[0])),
+               int(np.clip(anchor[1] + step[1], host.ty0, host.ty0 + host.ty_dim - dims[1])))
+        k = max(abs(new[0] - anchor[0]), abs(new[1] - anchor[1]))
+        if not k:
+            continue
+        dst, payload = host.crop_entering_rows(anchor, new, dims, origin, k * sum(dims))
+        dev = tiles.shift_window(
+            dev, new[0] - anchor[0], new[1] - anchor[1], torch.as_tensor(dst, device="cuda"),
+            {f: None if v is None else torch.as_tensor(v, device="cuda")
+             for f, v in payload.items()})
+        fresh = host._pack_rows(host.window_rows(new, dims), *host._origin_offsets(origin))
+        for f in tiles.HALO_FIELDS:
+            if fresh[f] is not None and not np.array_equal(getattr(dev, f).cpu().numpy(),
+                                                           fresh[f]):
+                raise AssertionError(f"shift chain: {f} differs from a fresh crop at {new}")
+        shifts.append((new[0] - anchor[0], new[1] - anchor[1]))
+        anchor = new
+    if sorted({max(abs(a), abs(b)) for a, b in shifts}) != [1, 2, 3]:
+        raise AssertionError(f"shift chain: 1-, 2- and 3-tile shifts expected, ran {shifts}")
+    log_line(f"[{WINDOWED}] shift chain into the map corner and back, equal to fresh crops "
+             f"bit for bit: {shifts}")
+    return shifts
+
+
+def window_reloc(wlog, disk, cfg_mod, runtime, kernels, kw):
+    """``initialize_at`` on a windowed pipeline whose first window lies ~100
+    m from the click (configured at (-40, -60)), from a click 1 m and 1 deg
+    off the truth: each call re-crops around the click (one synchronous
+    swap), launching kernels C, B, A and M. Two scans:
+
+    * the log's scan as a caller hands it over (100 m range).
+      ``initialize_at`` does not gate it to the sensor range, in the JAX
+      package either, and its points beyond the 48 m window find no map, so
+      the registration may fail its overlap ratio (0.4). Gate: the card
+      returns what the CPU port (the plain versions) returns on the same
+      inputs, ``ok`` equal and the position within the contract's 3 cm;
+    * the scan gated to the 40 m sensor range, as ``scan_step`` gates it: it
+      must relocalize as ``reloc_phase`` does, within 1.5 m of the truth."""
+    cfg = window_cfg(cfg_mod)
+    cfg.ekf.ekf_init_x_m, cfg.ekf.ekf_init_y_m = -40.0, -60.0
+    x, y = wlog.truth_pos[0][:2] + 0.7
+    yaw = wlog.truth_rpy[0][2] + np.deg2rad(1.0)
+    pts, valid = wlog.scan_points[0], wlog.scan_valid[0]
+    rng = np.linalg.norm(pts, axis=1)
+    out = {}
+    for name, v in (("as given", valid), ("gated", valid & (rng <= WINDOW_SENSOR))):
+        pipe = runtime.LocalizationPipeline(cfg, disk, map_window_radius=WINDOW_RADIUS, **kw)
+        first = pipe._window_offset_tiles
+        kernels.reset_launches()
+        state, ok = pipe.initialize_at(pipe.reset(), x, y, yaw, pts, v, wlog.scan_t[0])
+        launches = dict(kernels.launches)
+        pos = state.ekf.pos.cpu().numpy()
+        err = float(np.linalg.norm(pos[:2] - wlog.truth_pos[0][:2]))
+        within = float(np.mean(rng[v] <= WINDOW_RADIUS))
+        log_line(f"[{WINDOWED}] initialize_at, scan {name} ({100 * within:.1f}% of its valid "
+                 f"points within {WINDOW_RADIUS:.0f} m), from ({x:.2f}, {y:.2f}): ok {ok}, "
+                 f"window anchor {first} -> {pipe._window_offset_tiles}, window_stats "
+                 f"{json.dumps(pipe.window_stats)}, position error {err:.3f} m, "
+                 f"launches {launches}")
+        check_launches(f"{WINDOWED} reloc", launches, ("voxel_downsample", "assign_slots",
+                                                       "p2p_correspond", "gn_step"))
+        if not (pipe._window_offset_tiles != first and pipe.window_stats["sync_swaps"] == 1):
+            raise AssertionError(f"[{WINDOWED}] relocalization did not re-window")
+        rec = {"ok": ok, "position_error_m": err, "share_within_window_radius": within}
+        if name == "as given":
+            cpu = runtime.LocalizationPipeline(cfg, disk, map_window_radius=WINDOW_RADIUS,
+                                               **dict(kw, device="cpu"))
+            cstate, cok = cpu.initialize_at(cpu.reset(), x, y, yaw, pts, v, wlog.scan_t[0])
+            gap = float(np.linalg.norm(cstate.ekf.pos.numpy() - pos))
+            rec.update(cpu_ok=cok, vs_cpu_m=gap)
+            log_line(f"[{WINDOWED}] initialize_at, scan {name}, on the CPU port: ok {cok}, "
+                     f"card vs CPU position {gap:.2e} m")
+            if cok != ok or gap > 0.03:
+                raise AssertionError(f"[{WINDOWED}] relocalization: the card disagrees with "
+                                     "the CPU port")
+        elif not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5):
+            raise AssertionError(f"[{WINDOWED}] windowed relocalization failed")
+        out[name] = rec
+    return out
+
+
+def windowed_path(built, wlog, packed, mods, ate_rmse):
+    """"P2P windowed": the bench.py windowed row over a disk-backed map, run
+    three ways, each against a full-map pipeline of the same configuration
+    on the card (see the module docstring)."""
+    kernels, tiles, cfg_mod, runtime = mods[0], mods[3], mods[5], mods[6]
+    pcm = cfg_mod.ElimalocConfig().pcm
+    ds_points, max_slots = runtime.autosize_budgets(
+        wlog, float(pcm.input_voxel_ds_m), 4.0 * pcm.pcm_voxel_size, qb=16)
+    kw = dict(device="cuda", ds_points=ds_points, ego_ring_size=512, imu_ring_size=256,
+              tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots))
+    cfg = window_cfg(cfg_mod)
+    n = len(wlog.scan_t)
+    path_kernels = SHARED + (KERNEL["P2P"][0],) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS) + (
+        "shift_window",)
+    with tempfile.TemporaryDirectory() as store:
+        t0 = time.time()
+        tiles.build_tile_map(built, tile_voxels=4, halo_margin=1, storage_dir=store)
+        disk = tiles.load_tile_map(store, mmap=True)
+        log_line(f"[{WINDOWED}] {n} scans, ds_points {ds_points}, max_slots {max_slots}; map "
+                 f"packed to {store} and reopened disk-backed in {time.time() - t0:.1f} s")
+
+        def windowed():
+            return runtime.LocalizationPipeline(cfg, disk, map_window_radius=WINDOW_RADIUS, **kw)
+
+        full = runtime.LocalizationPipeline(cfg, packed[1], **kw)
+        _, fouts = full.run_fused(wlog)
+        full_ate = ate_rmse(fouts["ego_t_abs"], fouts["ego_pos"], wlog.truth_t, wlog.truth_pos)
+        pipe = windowed()
+        with Recorder(kernels, ("shift_window",), at=0) as rec:
+            pipe.run_fused(wlog, window_chunk=8)
+        torch.cuda.synchronize()
+        if "shift_window" not in rec.calls:
+            raise AssertionError(f"[{WINDOWED}] the warm-up replay shifted no window "
+                                 f"({pipe.window_stats})")
+        row, roll_ms = shift_row(rec.calls["shift_window"], pipe, mods)
+        log_line(f"[{WINDOWED}] kernel shift_window: max_abs_err 0, {row['ms']:.4f} ms vs plain "
+                 f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms (bytes)")
+        shifts = shift_chain_check(packed[1], mods)
+
+        def forced(p):
+            orig = p._start_prefetch
+
+            def start_and_wait(pos_xy):
+                orig(pos_xy)
+                if p._prefetch is not None:
+                    p._prefetch["done"].wait()
+            p._start_prefetch = start_and_wait
+            return p
+
+        runs = {
+            "run_fused(window_chunk=8)": (windowed, lambda p, m: p.run_fused(
+                wlog, window_chunk=8, mark=m)),
+            "run_frames": (windowed, lambda p, m: p.run_frames(wlog, mark=m)),
+            "run_frames forced": (lambda: forced(windowed()),
+                                  lambda p, m: p.run_frames(wlog, mark=m)),
+        }
+        summary, launches = {}, None
+        for name, (make, drive) in runs.items():
+            p = make()
+            stages = StageTimer()
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, outs = drive(p, stages)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if launches is None:
+                launches = dict(kernels.launches)
+            split, frames, per_frame = stages.split()
+            p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
+            st = dict(p.window_stats)
+            err = np.linalg.norm(outs["ego_pos"] - fouts["ego_pos"], axis=1)
+            ate = ate_rmse(outs["ego_t_abs"], outs["ego_pos"], wlog.truth_t, wlog.truth_pos)
+            applied = float(outs["applied"].mean())
+            dropped = int(outs["slots_dropped"].max())
+            log_line(f"[{WINDOWED}] {name}: {n / wall:.2f} scans/s ({wall:.3f} s), frame ms p50 "
+                     f"{p50:.3f} p95 {p95:.3f}, applied {applied:.3f}, ATE {ate:.4f} m (full map "
+                     f"{full_ate:.4f} m), slots_dropped {dropped}, vs full map max "
+                     f"{err.max():.2e} median {np.median(err):.2e} last 3 {err[-3:].max():.2e} m, "
+                     f"window_stats {json.dumps(st)}")
+            log_line(f"[{WINDOWED}] {name} stage ms/frame: "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+            summary[name] = {"scans_per_s": n / wall, "frame_ms_p50": p50, "frame_ms_p95": p95,
+                             "stage_ms": split, "ate_m": ate, "applied": applied,
+                             "vs_full_max_m": float(err.max()),
+                             "vs_full_median_m": float(np.median(err)),
+                             "vs_full_last3_m": float(err[-3:].max()), "window_stats": st}
+            if not (np.all(np.isfinite(outs["ego_pos"])) and outs["ego_pos"].shape == (n, 3)):
+                raise AssertionError(f"[{WINDOWED}] {name}: non-finite or misshapen trajectory")
+            if not (st["swaps"] >= 1 and st["incr_crops"] >= 1 and applied >= 0.9
+                    and dropped == 0 and contract(err)):
+                raise AssertionError(f"[{WINDOWED}] {name} failed its gates")
+            if "forced" in name and not (st["sync_swaps"] == 0
+                                         and st["prefetch_hits"] == st["swaps"]):
+                raise AssertionError(f"[{WINDOWED}] {name}: a swap was not a prefetch hit")
+        log_line(f"[{WINDOWED}] launches (run_fused(window_chunk=8)) {launches}")
+        for k in path_kernels:
+            if launches[k] <= 0:
+                raise AssertionError(f"[{WINDOWED}] kernel {k} was not launched on the path")
+        reloc = window_reloc(wlog, disk, cfg_mod, runtime, kernels, kw)
+        win_bytes = nbytes(*(getattr(pipe.map, f) for f in tiles.HALO_FIELDS))
+        full_bytes = sum(a.nbytes for a in (getattr(packed[1], f) for f in tiles.HALO_FIELDS)
+                         if a is not None)
+        log_line(f"[{WINDOWED}] device bytes: window {win_bytes / 1e6:.1f} MB "
+                 f"({pipe.map.tx_dim}x{pipe.map.ty_dim} tiles + sentinel) against the full "
+                 f"map {full_bytes / 1e6:.1f} MB ({packed[1].tx_dim}x{packed[1].ty_dim})")
+
+        # one more replay under torch.profiler (the last timed replay of the
+        # script is behind it): the device's busy share and top kernels
+        p = windowed()
+        per, prof_wall = device_profile(lambda: p.run_fused(wlog, window_chunk=8))
+        busy = sum(per.values()) * 1e-3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        log_line(f"[{WINDOWED}] torch.profiler replay (run_fused(window_chunk=8)): device busy "
+                 f"{busy:.1f} ms of {prof_wall:.1f} ms wall ({100 * busy / prof_wall:.1f}%); "
+                 "top: " + "; ".join(f"{k[:48]} {v * 1e-3 / n:.3f} ms/frame" for k, v in top))
+        summary["device_busy_share_profiled"] = busy / prof_wall if per else None
+    row["route"] = "cuda"
+    row["launches"] = launches["shift_window"]
+    summary.update(full_map_ate_m=full_ate, window_mb=win_bytes / 1e6,
+                   full_map_mb=full_bytes / 1e6, index_select_roll_ms=roll_ms,
+                   shift_chain=shifts, reloc=reloc)
+    return [row], summary
+
+
+def window_reference_phase(cfg_mod, runtime, builder, tiles, log_mod):
+    """The windowed event loop ``run`` on the small windowed drive of
+    tests/test_torch_window_replay.py (29 scans, 40 m gate, 48 m window),
+    card against the CPU port, under the closed-loop contract."""
+    cfg = window_cfg(cfg_mod)
+    cfg.pcm.input_voxel_ds_m = 1.0
+    world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
+    log = log_mod.synthesize_log(world, duration=3.05, points_per_scan=1024, max_range=40.0,
+                                 seed=10)
+    built = builder.build_voxel_map(world, 1.0, 30)
+    pos, stats = {}, {}
+    for device in ("cuda", "cpu"):
+        pipe = runtime.LocalizationPipeline(
+            cfg, built, device=device, ds_points=1024, map_window_radius=WINDOW_RADIUS,
+            tile_budget=tiles.TileQueryBudget(qb=32, max_slots=512), ego_ring_size=128,
+            imu_ring_size=128)
+        pos[device] = pipe.run(log)[1]["pos"]
+        stats[device] = dict(pipe.window_stats)
+    err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
+    log_line(f"[{WINDOWED}] reference (run): card vs CPU port over {len(err)} scans: max "
+             f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
+             f"{err[-3:].max():.2e} m; swaps card {stats['cuda']['swaps']}, CPU "
+             f"{stats['cpu']['swaps']}")
+    if not (contract(err) and stats["cuda"]["swaps"] >= 1):
+        raise AssertionError(f"[{WINDOWED}] the card's windowed run left the closed-loop "
+                             "contract")
+    return {"max_m": float(err.max()), "median_m": float(np.median(err)),
+            "last3_m": float(err[-3:].max()), "swaps": stats["cuda"]["swaps"]}
+
+
 def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     """A small log on the card (kernels) against the same port on the CPU
     (plain versions, which tests/test_torch_*.py hold to the JAX package),
@@ -1118,7 +1469,7 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
         log_line(f"[{path}] reference ({loop}): card vs CPU port over {len(err)} scans: max "
                  f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
                  f"{err[-3:].max():.2e} m")
-        if not (err.max() < 0.03 and np.median(err) < 0.005 and err[-3:].max() < 0.005):
+        if not contract(err):
             raise AssertionError(f"[{path}] the card's trajectory ({loop}) left the "
                                  "closed-loop contract")
         out[loop] = {"max_m": float(err.max()), "median_m": float(np.median(err)),
@@ -1145,8 +1496,8 @@ def main():
     t_start = time.time()
     smi = device_phase()
     build_phase(build)
-    log, packed, ds_points, max_slots = make_headline(cfg_mod, runtime, builder, tiles,
-                                                      log_mod)
+    world, built, log, packed, ds_points, max_slots = make_headline(
+        cfg_mod, runtime, builder, tiles, log_mod)
     mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter, rings)
     rows, slices, deferred, pipes, fused = [], {}, [], {}, {}
     for path in PATHS:
@@ -1157,6 +1508,9 @@ def main():
     slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
     slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse)
     slices["reloc"] = reloc_phase(pipes["P2P"], log, kernels)
+    r, slices[WINDOWED] = windowed_path(built, window_log(world, log_mod), packed, mods,
+                                        ate_rmse)
+    rows += r
     # the profiler passes, after every timed replay
     for r in rows:
         if "device_fn" in r:
@@ -1169,6 +1523,8 @@ def main():
     for path in PATHS:
         slices[path]["reference"] = reference_phase(path, cfg_mod, runtime, builder,
                                                     tiles, log_mod)
+    slices[WINDOWED]["reference"] = window_reference_phase(cfg_mod, runtime, builder, tiles,
+                                                           log_mod)
     log_line(f"chip_smoke: {time.time() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -6,7 +6,8 @@ pushes, the CAN and GPS updates, deskew, pose sync, voxel downsample,
 tile-slot assignment, the GN/LM registration loop (P2P, GICP, VGICP,
 AVGICP), covariance shaping, latency compensation and the EKF PCM update,
 driven three ways (the event loop ``run``, the online frame loop
-``run_frames``, the whole-log ``run_fused``), with relocalization
+``run_frames``, the whole-log ``run_fused``), on a full map or an active
+window of a disk-backed one (``map_window_radius``), with relocalization
 (``initialize_at``), config hot reload and the geodetic projection.
 
 The hot ops the JAX package laid out by hand for the TPU run as
@@ -14,9 +15,9 @@ hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G
 (one search + Gauss-Newton kernel per ICP method), B (slot assignment), C
 (voxel downsample), D (deskew), H (the IMU chain), I (the EKF measurement
 updates), J (the ring pushes), K (the ring queries at a scan's times), L
-(the PCM measurement) and M (the GN step). On CPU tensors their plain
-PyTorch versions run instead. ``LocalizationPipeline`` runs on the card
-unless given ``device="cpu"``.
+(the PCM measurement), M (the GN step) and N (the window shift). On CPU
+tensors their plain PyTorch versions run instead. ``LocalizationPipeline``
+runs on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -68,10 +68,9 @@ def pipeline_state(fields, *, dtype=torch.float32, device=None) -> PipelineState
 
 def tile_map(fields, *, dtype=torch.float32, device=None) -> TileMap:
     """A device ``TileMap`` from a flattened tile map, covariance fields
-    included where present (the port serves full maps, so a window anchor
-    must be zero)."""
+    included where present; the window anchor (the JAX package's [2] int32
+    leaf) becomes the port's host ints."""
     anchor = fields.get("tile_anchor")
-    if anchor is not None and np.any(np.asarray(anchor) != 0):
-        raise NotImplementedError(
-            "shifted active windows are ROADMAP Queue 1 #14")
+    fields = {**fields, "tile_anchor": (0, 0) if anchor is None
+              else tuple(int(v) for v in np.asarray(anchor))}
     return to_struct(TileMap, fields, dtype=dtype, device=device)

@@ -9,7 +9,7 @@ PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method kernels A, E, F, G, one
-per ICP method.
+per ICP method, and N.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -34,7 +34,11 @@ L         pcm_measurement     runtime.shape_icp_covariance +
                               rings.gnss_time_compensation + scan_step's glue
 M         gn_step             register/icp.py:_solve_step + _step_transform + the
                               GN loop body (compose, so3_log, the gates)
+N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
+                              incremental move of an active map window
 ========  ==================  ===================================================
+
+Kernel N runs only on the active-window path (``map_window_radius``).
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ from .build import library
 launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0, "ring_push": 0,
-            "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0}
+            "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
+            "shift_window": 0}
 
 
 def reset_launches() -> None:
@@ -585,3 +590,39 @@ def gn_step(sums, pose, fitness, local_cov, total, params, gicp: bool):
     _raise_on(rc, "gn_step")
     launches["gn_step"] += 1
     return (out[:16].view(4, 4), out[16:52].view(6, 6), out[52], out[53], flags[0], flags[1])
+
+
+# --------------------------------------------------------------------------- #
+# Kernel N: the window shift (a pointer table over the halo tensors)
+# --------------------------------------------------------------------------- #
+
+def shift_window(base, nx: int, ny: int, dx: int, dy: int, dst_rows, payload):
+    """Kernel N (map.tiles.shift_window_plain): ``base`` and ``payload`` map
+    each halo field name to its tensor, [T+1, M, ...] and [r_pad, M, ...]
+    (None for a field the map lacks, in both); returns the shifted window's
+    tensors by field, new tensors written out of place."""
+    t1 = nx * ny + 1
+    r_pad = dst_rows.shape[0]
+    names = [f for f, a in base.items() if a is not None]
+    ptrs = {"base": [], "out": [], "payload": []}
+    words = []
+    out = {f: None for f in base}
+    for f in names:
+        a, p = base[f], payload[f]
+        if p is None:
+            raise ValueError(f"shift_window: no payload for {f}")
+        dt = torch.int32 if f == "halo_vox_coord" else _F32
+        ptrs["base"].append(_check(a, f, dt, (t1,) + tuple(a.shape[1:])).value)
+        ptrs["payload"].append(_check(p, f"{f} payload", dt, (r_pad,) + tuple(a.shape[1:])).value)
+        out[f] = torch.empty_like(a)
+        ptrs["out"].append(out[f].data_ptr())
+        words.append(a[0].numel())  # 4-byte elements
+    p_dst = _check(dst_rows, "dst_rows", torch.int32, (r_pad,))
+    rc = library().elm_shift_window(
+        _ptr_array(ptrs["base"]), _ptr_array(ptrs["out"]), _ptr_array(ptrs["payload"]),
+        (ctypes.c_int * len(words))(*words), ctypes.c_int(len(names)), ctypes.c_int(nx),
+        ctypes.c_int(ny), ctypes.c_int(dx), ctypes.c_int(dy), p_dst, ctypes.c_int(r_pad),
+        _stream(dst_rows))
+    _raise_on(rc, "shift_window")
+    launches["shift_window"] += 1
+    return out

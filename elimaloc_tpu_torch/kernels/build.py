@@ -55,6 +55,7 @@ _SIGNATURES = {
                             _P, _P, _P, _P],
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "elm_shift_window": [_PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

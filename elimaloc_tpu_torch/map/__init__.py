@@ -8,5 +8,7 @@ from .tiles import (  # noqa: F401
     TileQueryBudget,
     assign_slots,
     build_tile_map,
+    load_tile_map,
     nearest_point_slots,
+    shift_window,
 )

@@ -1,9 +1,12 @@
 """Tile-blocked correspondence engine — port of ``elimaloc_tpu/map/tiles.py``.
 
 Host half (NumPy copy, bit-identical packing): ``_halo_membership``,
-``_pack_halo``, ``build_tile_map`` and ``HostTileMap``. Each map tile owns a
-HALO row: every map point inside the tile's footprint grown by one voxel,
-exactly the candidates an in-tile query's 27-voxel cube can reach.
+``_pack_halo``, ``build_tile_map`` (in RAM, or disk-backed with
+``storage_dir``), ``load_tile_map`` and ``HostTileMap`` with the
+active-window crops ``crop_window`` and ``crop_entering_rows``. Each map
+tile owns a HALO row: every map point inside the tile's footprint grown by
+one voxel, exactly the candidates an in-tile query's 27-voxel cube can
+reach.
 
 Device half: ``TileMap`` (tensors on the device), ``TileQueryBudget``,
 ``assign_slots`` (scan queries sorted by tile and packed into [S, QB]
@@ -15,8 +18,10 @@ that point's covariance and neighbourhood mean), ``nearest_voxel_cov_slots``
 (csrc/assign.cu) on a CUDA tensor and runs :func:`assign_slots_plain` on a
 CPU one. On CUDA each search is fused with its method's GN reduction into
 one kernel (A, E, F, G; register/icp.py); the plain versions here are their
-search halves. The windowed-map crop and shift (K14) are ROADMAP Queue 1
-#14.
+search halves. ``shift_window`` moves a resident window incrementally:
+kernel N (csrc/window_shift.cu) on CUDA, :func:`shift_window_plain` on CPU.
+A window's ``tile_anchor`` reaches every search through
+``TileMap.grid_origin``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,18 @@ class TileMap(Struct):
     halo_vox_mean: Optional[torch.Tensor] = None        # [T+1, MHV, 3], pad +inf
     halo_vox_cov: Optional[torch.Tensor] = None         # [T+1, MHV, 3, 3], pad eye
     halo_vox_coord: Optional[torch.Tensor] = None       # [T+1, MHV, 3] int32, pad 2^30
+    # the window's anchor in tile units relative to ``origin``: zero for
+    # full maps and fresh crops; an incremental shift (:func:`shift_window`)
+    # keeps ``origin`` and moves this instead. Host ints: the host decides
+    # every shift, so it knows the anchor without a readback, and the
+    # kernels take it in their grid origin (``grid_origin``) as before
+    tile_anchor: tuple = (0, 0)
+
+    @property
+    def grid_origin(self) -> tuple:
+        """(tx0, ty0) plus the window anchor: the tile that row 0 holds,
+        in the units of the map's coordinates (JAX tiles.py:585-586)."""
+        return self.tx0 + self.tile_anchor[0], self.ty0 + self.tile_anchor[1]
 
     @property
     def num_tiles(self) -> int:
@@ -99,26 +116,56 @@ def _halo_membership(vox_xy, tile_voxels, tx0, ty0, tx_dim, ty_dim,
     return np.concatenate(rows), np.concatenate(idxs)
 
 
-def _pack_halo(rows, idxs, t, fills_payloads):
+def _pack_halo(rows, idxs, t, fills_payloads, out_path=None):
     """Scatter (tile_row, item) membership into padded [T+1, M, ...] blocks;
-    ``fills_payloads`` = [(fill_value_or_array, payload [K, ...]), ...]."""
+    ``fills_payloads`` = [(name, fill_value_or_array, payload [K, ...]), ...].
+    With ``out_path`` the blocks are disk-backed ``np.memmap`` files
+    (<out_path>/<name>.npy), so a city-scale map never holds the dense
+    tensors in host RAM (tiles.py:147-170)."""
     order = np.argsort(rows, kind="stable")
     sr = rows[order]
     rank = np.arange(len(order)) - np.searchsorted(sr, sr)
     m = int(np.bincount(sr, minlength=t).max()) if len(sr) else 1
     out = []
-    for fill, payload in fills_payloads:
-        block = np.empty((t + 1, m) + payload.shape[1:], payload.dtype)
+    for name, fill, payload in fills_payloads:
+        shape = (t + 1, m) + payload.shape[1:]
+        if out_path is None:
+            block = np.empty(shape, payload.dtype)
+        else:
+            block = np.lib.format.open_memmap(
+                str(out_path / f"{name}.npy"), mode="w+", dtype=payload.dtype,
+                shape=shape)
         block[...] = np.asarray(fill, payload.dtype)
         block[sr, rank] = payload[idxs[order]]
         out.append(block)
     return out
 
 
+def _h2d(a, device, dtype, staging=None):
+    """Host array -> tensor on ``device`` (float arrays take ``dtype``).
+    With a ``staging`` list and a CUDA device the array goes through a
+    pinned host buffer, appended to the list, and is copied ``non_blocking``
+    on the current stream: the caller keeps the list until that stream has
+    passed the copy. Otherwise the copy is synchronous."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    dt = dtype if a.dtype.kind == "f" else None
+    if staging is None or torch.device(device).type != "cuda":
+        return torch.as_tensor(a, dtype=dt, device=device)
+    pinned = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                         pin_memory=True)
+    pinned.numpy()[...] = a
+    staging.append(pinned)
+    return pinned.to(device=device, dtype=dt, non_blocking=True)
+
+
 @dataclasses.dataclass
 class HostTileMap:
-    """Packed host tile map (the fields the JAX ``HostTileMap`` carries; the
-    windowed-crop methods are ROADMAP Queue 1 #14)."""
+    """Packed host tile map (tiles.py:296-506): the halo blocks, in RAM or
+    disk-backed (:func:`load_tile_map`), and the active-window crops
+    :meth:`crop_window` (a whole window) and :meth:`crop_entering_rows` (the
+    rows an incremental shift brings in)."""
 
     halo_points: np.ndarray
     halo_point_cov: np.ndarray | None
@@ -135,9 +182,12 @@ class HostTileMap:
     world_offset: tuple = (0.0, 0.0)
     halo_margin: int = 1
 
-    def to_device(self, device=None, dtype=torch.float32) -> TileMap:
-        def cast(a, dt=dtype):
-            return None if a is None else torch.as_tensor(a, dtype=dt, device=device)
+    def to_device(self, device=None, dtype=torch.float32, staging=None) -> TileMap:
+        """The device :class:`TileMap` (window anchor zero). ``staging``: a
+        list, for an asynchronous upload to the card through pinned buffers
+        that the list keeps (see :func:`_h2d`)."""
+        def cast(a):
+            return _h2d(a, device, dtype, staging)
 
         return TileMap(
             halo_points=cast(self.halo_points),
@@ -145,21 +195,191 @@ class HostTileMap:
             halo_point_cov_mean=cast(self.halo_point_cov_mean),
             halo_vox_mean=cast(self.halo_vox_mean),
             halo_vox_cov=cast(self.halo_vox_cov),
-            halo_vox_coord=cast(self.halo_vox_coord, torch.int32),
+            halo_vox_coord=cast(self.halo_vox_coord),
             voxel_size=self.voxel_size,
             tile_size=self.tile_size,
             tx0=self.tx0,
             ty0=self.ty0,
             tx_dim=self.tx_dim,
             ty_dim=self.ty_dim,
-            origin=torch.tensor(self.world_offset, dtype=dtype, device=device),
+            origin=cast(np.asarray(self.world_offset, np.float64)),
         )
 
+    def drop_page_cache(self):
+        """Release file-backed pages of memmapped halo tensors (crops copy
+        what they need; the touched pages would otherwise accumulate in RSS
+        for the life of the process). No-op for RAM-backed maps."""
+        import mmap as _mmap
 
-def build_tile_map(built: BuiltMap, tile_voxels: int = 4,
+        for a in (self.halo_points, self.halo_point_cov,
+                  self.halo_point_cov_mean, self.halo_vox_mean,
+                  self.halo_vox_cov, self.halo_vox_coord):
+            mm = getattr(a, "_mmap", None)
+            if mm is not None:
+                try:
+                    mm.madvise(_mmap.MADV_DONTNEED)
+                except (AttributeError, OSError):
+                    # keep evicting the OTHER tensors: one transiently
+                    # failing madvise must not pin the rest in RSS
+                    continue
+
+    def window_anchor(self, center_xy, dims):
+        """(x0, y0) tile anchor a crop_window at this centre would use,
+        clamped at the map edges, where the window cannot follow the pose."""
+        nx, ny = dims
+        cx = int(np.floor(center_xy[0] / self.tile_size))
+        cy = int(np.floor(center_xy[1] / self.tile_size))
+        x0 = int(np.clip(cx - nx // 2, self.tx0, self.tx0 + self.tx_dim - nx))
+        y0 = int(np.clip(cy - ny // 2, self.ty0, self.ty0 + self.ty_dim - ny))
+        return x0, y0
+
+    def window_rows(self, anchor, dims):
+        """The full-map rows of the window with tile ``anchor`` and ``dims``,
+        row-major, then the sentinel row; tiles off the map take the
+        sentinel (tiles.py:440-447)."""
+        nx, ny = dims
+        t_full = self.tx_dim * self.ty_dim  # sentinel row index
+        gx = np.arange(anchor[0] - self.tx0, anchor[0] - self.tx0 + nx)
+        gy = np.arange(anchor[1] - self.ty0, anchor[1] - self.ty0 + ny)
+        in_map = (gx[:, None] >= 0) & (gx[:, None] < self.tx_dim) \
+            & (gy[None, :] >= 0) & (gy[None, :] < self.ty_dim)
+        rows = np.where(in_map, gx[:, None] * self.ty_dim + gy[None, :], t_full)
+        return np.concatenate([rows.reshape(-1), [t_full]])
+
+    def _origin_offsets(self, anchor, offset_dtype=np.float32):
+        """(coordinate shift, voxel-coordinate shift) for a window whose
+        coordinate origin is tile ``anchor``. Quantized to the DEVICE dtype
+        (a NumPy dtype): the same value must be subtracted here and added
+        back by run_register's origin conjugation, or city-scale coordinates
+        (~1e6 m, f32 ulp ~0.06 m) pick up a per-window pose bias."""
+        off = np.array([anchor[0] * self.tile_size,
+                        anchor[1] * self.tile_size])
+        off = off.astype(offset_dtype).astype(np.float64)
+        voff = (np.array(anchor)
+                * int(round(self.tile_size / self.voxel_size)))
+        return off, voff
+
+    def _pack_rows(self, rows, off, voff):
+        """Gather full-map halo rows ``rows`` (sentinel index allowed) and
+        shift their coordinates into the origin frame (``off``, ``voff``):
+        the shared part of :meth:`crop_window` (all window rows) and
+        :meth:`crop_entering_rows` (the rows an incremental shift uploads)."""
+        def sel(a):
+            return None if a is None else a[rows]
+
+        def shift_xy(a, o, sentinel=None):
+            if a is None:
+                return None
+            a = a.copy()
+            # padded entries (coord sentinel) KEEP their sentinel value: the
+            # voxel searches test coords against _COORD_SENTINEL exactly,
+            # and a shifted pad would read as occupied
+            keep = None if sentinel is None else (a[..., 0] == sentinel)
+            a[..., 0] -= o[0]
+            a[..., 1] -= o[1]
+            if keep is not None:
+                a[keep] = sentinel
+            return a
+
+        return dict(
+            halo_points=shift_xy(sel(self.halo_points), off),
+            halo_point_cov=sel(self.halo_point_cov),
+            halo_point_cov_mean=shift_xy(sel(self.halo_point_cov_mean), off),
+            halo_vox_mean=shift_xy(sel(self.halo_vox_mean), off),
+            halo_vox_cov=sel(self.halo_vox_cov),
+            halo_vox_coord=shift_xy(sel(self.halo_vox_coord), voff,
+                                    sentinel=_COORD_SENTINEL),
+        )
+
+    def crop_window(self, center_xy, radius_tiles: int,
+                    dims: Optional[tuple] = None,
+                    offset_dtype=np.float32) -> "HostTileMap":
+        """Fixed-size active-window crop in WINDOW-LOCAL coordinates
+        (tiles.py:410-461): the (2 radius_tiles + 1)^2 tiles around
+        ``center_xy`` (``dims`` overrides the size), coordinates shifted by
+        the window origin (``world_offset``, quantized to ``offset_dtype``),
+        the grid anchored at tx0 = ty0 = 0, so every crop has the same
+        static geometry. Out-of-map tiles take the sentinel row; halo rows
+        keep their full-map contents, so results equal the full map for any
+        query whose tile lies inside the window."""
+        if dims is None:
+            nx = min(2 * radius_tiles + 1, self.tx_dim)
+            ny = min(2 * radius_tiles + 1, self.ty_dim)
+        else:
+            nx, ny = dims
+        x0, y0 = self.window_anchor(center_xy, (nx, ny))
+        off, voff = self._origin_offsets((x0, y0), offset_dtype)
+        packed = self._pack_rows(self.window_rows((x0, y0), (nx, ny)), off, voff)
+        return HostTileMap(
+            **packed,
+            voxel_size=self.voxel_size,
+            tile_size=self.tile_size,
+            tx0=0,
+            ty0=0,
+            tx_dim=nx,
+            ty_dim=ny,
+            world_offset=(float(off[0]), float(off[1])),
+            halo_margin=self.halo_margin,
+        )
+
+    def crop_entering_rows(self, old_anchor, new_anchor, dims,
+                           origin_anchor, r_pad: int,
+                           offset_dtype=np.float32):
+        """The rows an incremental window shift ``old_anchor ->
+        new_anchor`` must upload (tiles.py:463-506): window rows (new
+        layout) whose source tile was not resident before, their
+        coordinates shifted by ``origin_anchor``, the FIXED origin of the
+        incrementally maintained window (see :func:`shift_window`), so they
+        are bit-identical to a fresh crop at that origin. Returns
+        ``(dst_rows [r_pad] int32, payload dict)``; pad entries point past
+        the sentinel row and the shift drops them."""
+        nx, ny = dims
+        dx = new_anchor[0] - old_anchor[0]
+        dy = new_anchor[1] - old_anchor[1]
+        ii, jj = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+        src_i, src_j = ii + dx, jj + dy
+        entering = ((src_i < 0) | (src_i >= nx)
+                    | (src_j < 0) | (src_j >= ny))
+        wrows = np.nonzero(entering.reshape(-1))[0].astype(np.int32)
+        if len(wrows) > r_pad:
+            raise ValueError(
+                f"entering rows {len(wrows)} exceed pad budget {r_pad} "
+                f"(shift ({dx},{dy}) on {nx}x{ny})"
+            )
+        gx = new_anchor[0] + (wrows // ny) - self.tx0
+        gy = new_anchor[1] + (wrows % ny) - self.ty0
+        t_full = self.tx_dim * self.ty_dim
+        in_map = ((gx >= 0) & (gx < self.tx_dim)
+                  & (gy >= 0) & (gy < self.ty_dim))
+        rows_full = np.where(in_map, gx * self.ty_dim + gy, t_full)
+        off, voff = self._origin_offsets(origin_anchor, offset_dtype)
+        packed = self._pack_rows(rows_full, off, voff)
+
+        def pad(a):
+            if a is None:
+                return None
+            out = np.zeros((r_pad,) + a.shape[1:], a.dtype)
+            out[: len(a)] = a
+            return out
+
+        dst = np.full(r_pad, nx * ny + 1, np.int32)  # pad -> dropped
+        dst[: len(wrows)] = wrows
+        return dst, {k: pad(v) for k, v in packed.items()}
+
+
+def build_tile_map(built: BuiltMap, tile_voxels: int = 4, storage_dir=None,
                    halo_margin: int = 1) -> HostTileMap:
     """Re-block a BuiltMap into per-tile halo candidate tensors (host side,
-    tiles.py:173-266 without the disk-backed ``storage_dir`` mode)."""
+    tiles.py:173-266). ``storage_dir``: back the packed tensors with
+    ``np.memmap`` files there (with a ``meta.json``) instead of RAM, as a
+    city-scale map needs; reopen with :func:`load_tile_map`."""
+    import json
+    import pathlib
+
+    out_path = None
+    if storage_dir is not None:
+        out_path = pathlib.Path(storage_dir)
+        out_path.mkdir(parents=True, exist_ok=True)
     vs = built.voxel_size
     ts = vs * tile_voxels
     vox_tx = built.vox_coords[:, 0] // tile_voxels
@@ -176,10 +396,12 @@ def build_tile_map(built: BuiltMap, tile_voxels: int = 4,
     halo_vox_mean, halo_vox_cov, halo_vox_coord = _pack_halo(
         vrows, vidxs, t,
         [
-            (np.inf, built.vox_mean.astype(np.float32)),
-            (np.eye(3, dtype=np.float32), built.vox_cov.astype(np.float32)),
-            (_COORD_SENTINEL, built.vox_coords.astype(np.int32)),
+            ("halo_vox_mean", np.inf, built.vox_mean.astype(np.float32)),
+            ("halo_vox_cov", np.eye(3, dtype=np.float32),
+             built.vox_cov.astype(np.float32)),
+            ("halo_vox_coord", _COORD_SENTINEL, built.vox_coords.astype(np.int32)),
         ],
+        out_path=out_path,
     )
 
     pt_mask = np.arange(m)[None, :] < built.counts[:, None]
@@ -188,15 +410,25 @@ def build_tile_map(built: BuiltMap, tile_voxels: int = 4,
     prows, pidxs = _halo_membership(
         built.vox_coords[pt_vox][:, :2], tile_voxels, tx0, ty0,
         tx_dim, ty_dim, margin=halo_margin)
-    payloads = [(np.inf, flat_pts)]
-    if built.point_cov is not None:
-        payloads += [
-            (np.eye(3, dtype=np.float32),
-             built.point_cov[pt_mask].astype(np.float32)),
-            (np.inf, built.point_cov_mean[pt_mask].astype(np.float32)),
-        ]
-    packed = _pack_halo(prows, pidxs, t, payloads)
+    payloads = [("halo_points", np.inf, flat_pts)]
     has_cov = built.point_cov is not None
+    if has_cov:
+        payloads += [
+            ("halo_point_cov", np.eye(3, dtype=np.float32),
+             built.point_cov[pt_mask].astype(np.float32)),
+            ("halo_point_cov_mean", np.inf,
+             built.point_cov_mean[pt_mask].astype(np.float32)),
+        ]
+    packed = _pack_halo(prows, pidxs, t, payloads, out_path=out_path)
+
+    if out_path is not None:
+        meta = dict(voxel_size=float(vs), tile_size=float(ts), tx0=tx0,
+                    ty0=ty0, tx_dim=tx_dim, ty_dim=ty_dim,
+                    halo_margin=int(halo_margin), has_point_cov=has_cov)
+        (out_path / "meta.json").write_text(json.dumps(meta))
+        for b in packed + [halo_vox_mean, halo_vox_cov, halo_vox_coord]:
+            b.flush()
+
     return HostTileMap(
         halo_points=packed[0],
         halo_point_cov=packed[1] if has_cov else None,
@@ -214,6 +446,97 @@ def build_tile_map(built: BuiltMap, tile_voxels: int = 4,
     )
 
 
+def load_tile_map(storage_dir, mmap: bool = True) -> HostTileMap:
+    """Reopen a tile map persisted by ``build_tile_map(storage_dir=...)``
+    (tiles.py:269-293). With ``mmap`` (default) the halo tensors stay
+    disk-backed and pages are read on demand: the host RSS of active-window
+    serving is bounded by the window, not the map."""
+    import json
+    import pathlib
+
+    p = pathlib.Path(storage_dir)
+    meta = json.loads((p / "meta.json").read_text())
+    meta.setdefault("halo_margin", 1)  # maps persisted before the margin field
+    mode = "r" if mmap else None
+
+    def ld(name):
+        return np.load(str(p / f"{name}.npy"), mmap_mode=mode)
+
+    has_cov = meta.pop("has_point_cov")
+    return HostTileMap(
+        halo_points=ld("halo_points"),
+        halo_point_cov=ld("halo_point_cov") if has_cov else None,
+        halo_point_cov_mean=ld("halo_point_cov_mean") if has_cov else None,
+        halo_vox_mean=ld("halo_vox_mean"),
+        halo_vox_cov=ld("halo_vox_cov"),
+        halo_vox_coord=ld("halo_vox_coord"),
+        **meta,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Incremental window shift (K14): kernel N on the card
+# --------------------------------------------------------------------------- #
+
+#: a TileMap's tile-indexed tensors, in kernel N's table order
+HALO_FIELDS = ("halo_points", "halo_point_cov", "halo_point_cov_mean",
+               "halo_vox_mean", "halo_vox_cov", "halo_vox_coord")
+
+
+def shift_sources(nx: int, ny: int, dx: int, dy: int, device=None):
+    """[T+1] int64: the old row that each row of an (nx, ny) window shifted
+    by (dx, dy) copies before the entering rows come in, the sentinel T for
+    vacated rows and for the sentinel row itself (tiles.py:512-521)."""
+    si = torch.arange(nx, device=device)[:, None] + dx
+    sj = torch.arange(ny, device=device)[None, :] + dy
+    ok = (si >= 0) & (si < nx) & (sj >= 0) & (sj < ny)
+    lin = si * ny + sj
+    src = torch.where(ok, lin, torch.full_like(lin, nx * ny)).reshape(-1)
+    return torch.cat([src, src.new_full((1,), nx * ny)])
+
+
+def shift_window_plain(tmap: TileMap, dx: int, dy: int, dst_rows, payload) -> TileMap:
+    """Plain PyTorch version of kernel N (tiles.py:511-540): new row
+    ``i ny + j`` copies old row ``(i + dx) ny + (j + dy)`` where that lies
+    inside the window and the sentinel row otherwise (``index_select``),
+    then payload row k overwrites row ``dst_rows[k]`` where that is at most
+    T (``index_copy_``; pad entries point past the sentinel and are
+    dropped); the sentinel row stays. The anchor moves by (dx, dy), the
+    coordinate ``origin`` stays."""
+    t = tmap.num_tiles
+    src = shift_sources(tmap.tx_dim, tmap.ty_dim, dx, dy, tmap.halo_points.device)
+    keep = dst_rows <= t
+    rows = dst_rows[keep].long()
+
+    def move(a, new):
+        if a is None:
+            return None
+        out = a.index_select(0, src)
+        out.index_copy_(0, rows, new[keep].to(a.dtype))
+        return out
+
+    moved = {f: move(getattr(tmap, f), payload[f]) for f in HALO_FIELDS}
+    a0, a1 = tmap.tile_anchor
+    return tmap.replace(**moved, tile_anchor=(a0 + dx, a1 + dy))
+
+
+def shift_window(tmap: TileMap, dx: int, dy: int, dst_rows, payload) -> TileMap:
+    """Move a resident window by (dx, dy) tiles without re-uploading it
+    (tiles.py:546-562): the retained rows roll on the device, the entering
+    rows of :meth:`HostTileMap.crop_entering_rows` (``dst_rows`` [r_pad]
+    int32 and ``payload``, on the map's device) come in, and the anchor
+    moves while the coordinate origin stays, so retained coordinates keep
+    their bits and the result equals a fresh crop at that origin. Kernel N
+    (csrc/window_shift.cu) writes the new window out of place on a CUDA
+    map; :func:`shift_window_plain` runs on a CPU one."""
+    if tmap.halo_points.device.type == "cpu":
+        return shift_window_plain(tmap, dx, dy, dst_rows, payload)
+    out = kernels.shift_window({f: getattr(tmap, f) for f in HALO_FIELDS},
+                               tmap.tx_dim, tmap.ty_dim, dx, dy, dst_rows, payload)
+    a0, a1 = tmap.tile_anchor
+    return tmap.replace(**out, tile_anchor=(a0 + dx, a1 + dy))
+
+
 # --------------------------------------------------------------------------- #
 # Slot assignment: sort queries by tile, pack into [max_slots, qb] blocks
 # --------------------------------------------------------------------------- #
@@ -229,18 +552,20 @@ class SlotAssignment(Struct):
 
 
 def query_tiles(tmap: TileMap, queries, valid):
-    """Per-query voxel coords and tile id (tiles.py:582-603): the edge clamp
+    """Per-query voxel coords and tile id (tiles.py:582-603) on the grid
+    from ``tmap.grid_origin`` (the window anchor included): the edge clamp
     keeps a query up to one voxel outside the grid on the edge tile, farther
     ones (and invalid rows) get the sentinel tile."""
+    ax0, ay0 = tmap.grid_origin
     qv = torch.floor(div(queries, tmap.voxel_size)).to(torch.int32)
-    tx = torch.floor(div(queries[:, 0], tmap.tile_size)).to(torch.int32) - tmap.tx0
-    ty = torch.floor(div(queries[:, 1], tmap.tile_size)).to(torch.int32) - tmap.ty0
+    tx = torch.floor(div(queries[:, 0], tmap.tile_size)).to(torch.int32) - ax0
+    ty = torch.floor(div(queries[:, 1], tmap.tile_size)).to(torch.int32) - ay0
     tv = int(round(tmap.tile_size / tmap.voxel_size))
     in_reach = (
-        (qv[:, 0] >= tmap.tx0 * tv - 1)
-        & (qv[:, 0] <= (tmap.tx0 + tmap.tx_dim) * tv)
-        & (qv[:, 1] >= tmap.ty0 * tv - 1)
-        & (qv[:, 1] <= (tmap.ty0 + tmap.ty_dim) * tv)
+        (qv[:, 0] >= ax0 * tv - 1)
+        & (qv[:, 0] <= (ax0 + tmap.tx_dim) * tv)
+        & (qv[:, 1] >= ay0 * tv - 1)
+        & (qv[:, 1] <= (ay0 + tmap.ty_dim) * tv)
     )
     tx = torch.clamp(tx, 0, tmap.tx_dim - 1)
     ty = torch.clamp(ty, 0, tmap.ty_dim - 1)
@@ -294,9 +619,10 @@ def assign_slots(tmap: TileMap, queries, valid,
     """Tile-slot assignment; kernel B on CUDA, the plain version on CPU."""
     if queries.device.type == "cpu":
         return assign_slots_plain(tmap, queries, valid, budget)
+    ax0, ay0 = tmap.grid_origin
     out = kernels.assign_slots(
         queries, valid, budget.qb, budget.max_slots, voxel_size=tmap.voxel_size,
-        tile_size=tmap.tile_size, tx0=tmap.tx0, ty0=tmap.ty0,
+        tile_size=tmap.tile_size, tx0=ax0, ty0=ay0,
         tx_dim=tmap.tx_dim, ty_dim=tmap.ty_dim)
     return SlotAssignment(**out)
 
@@ -308,8 +634,9 @@ def assign_slots(tmap: TileMap, queries, valid,
 def slot_centers(tmap: TileMap, slot_tile, dtype):
     """Per-slot tile-centre offsets (tiles.py:648-660): distances are taken
     on tile-local coordinates so f32 keeps its precision at map scale."""
-    tx = (slot_tile // tmap.ty_dim + tmap.tx0).to(dtype)
-    ty = (slot_tile % tmap.ty_dim + tmap.ty0).to(dtype)
+    ax0, ay0 = tmap.grid_origin
+    tx = (slot_tile // tmap.ty_dim + ax0).to(dtype)
+    ty = (slot_tile % tmap.ty_dim + ay0).to(dtype)
     return torch.stack([(tx + 0.5) * tmap.tile_size, (ty + 0.5) * tmap.tile_size,
                         torch.zeros_like(tx)], dim=-1)
 

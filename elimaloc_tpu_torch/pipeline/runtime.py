@@ -14,20 +14,27 @@ configuration fuses them (kernel I), then :func:`scan_step`.
 
 :class:`LocalizationPipeline` drives them three ways, as the JAX package
 does: ``run`` (the per-event loop over a log in time order), ``run_frames``
-(the online mode, one fused frame per scan) and ``run_fused`` (the same
-frame loop, without the per-frame config poll); batches come from the
-NumPy :func:`build_fused_batches` and move to the device once per log.
+(the online mode, one fused frame per scan, or ``chunk`` frames per consult
+of the window ladder) and ``run_fused`` (the same frame loop, without the
+per-frame config poll); batches come from the NumPy
+:func:`build_fused_batches` and move to the device once per log. With
+``map_window_radius`` only a window of the map is resident on the device
+(active-window serving, runtime.py:839-1123): a prefetch worker crops the
+next window from the host map on a side CUDA stream and moves it in place
+with kernel N (``tiles.shift_window``) while frames run on the old one.
 
 Refused with NotImplementedError (ROADMAP Queue 1): the hash backend (#13),
-active-window maps and chunked frames (#14), the radar covariances (#11;
-see ``register.icp.check_supported``), the ``use_imu=False`` tick mode
-(K7b, #12) and the live dashboard (#16).
+the radar covariances (#11; see ``register.icp.check_supported``), the
+``use_imu=False`` tick mode (K7b, #12), fleet replay (#15) and the live
+dashboard (#16).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -480,15 +487,90 @@ def autosize_budgets(log: ReplayLog, voxel_ds, tile_size, qb=32, headroom=0.15):
 
 
 # --------------------------------------------------------------------------- #
+# Active-window serving: host helpers
+# --------------------------------------------------------------------------- #
+
+# Active-window incremental shifts (tiles.shift_window, runtime.py:537-543):
+# the largest per-axis tile shift served incrementally (bigger jumps, a
+# relocalization, take a full crop), and the window-local coordinate drift
+# at which a full crop re-centres the origin (f32 ulp at 2 km is ~1e-4 m,
+# two orders below the voxel scale).
+_MAX_INCR_SHIFT = 3
+_INCR_DRIFT_LIMIT_M = 2048.0
+
+
+class _HostFetch:
+    """A device->host copy in flight (runtime.py:546-553, the stale-by-one
+    window poses): ``non_blocking`` into pinned memory with an event after
+    it, so queuing it does not wait; ``landed()`` queries the event,
+    ``value()`` waits for it. A CPU tensor is copied at once."""
+
+    def __init__(self, t):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t.clone()
+
+    def landed(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def value(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+@dataclasses.dataclass
+class _Window:
+    """A window ready to adopt: the device map, its centre (m), its tile
+    anchor and its coordinate origin's anchor, the seconds its host crop
+    took, and on the card the event after its upload (and shift) on the
+    stream that made it, with the pinned staging buffers the upload reads."""
+
+    map: map_tiles.TileMap
+    center: np.ndarray
+    anchor: tuple
+    origin_anchor: tuple
+    host_s: float
+    event: Optional[torch.cuda.Event] = None
+    staging: list = dataclasses.field(default_factory=list)
+
+
+def _fit_motion(ppos, f0):
+    """(frame of the last observed pose, its xy, per-frame velocity,
+    per-frame acceleration) from a chunk's poses starting at frame ``f0``
+    (runtime.py:1457-1466)."""
+    xy = np.asarray(ppos, np.float64)[:, :2]
+    f_last = f0 + len(xy) - 1
+    if len(xy) >= 3:
+        d = xy[1:] - xy[:-1]
+        return f_last, xy[-1], d[-1], (d[-1] - d[0]) / max(len(d) - 1, 1)
+    if len(xy) == 2:
+        return f_last, xy[-1], xy[-1] - xy[0], np.zeros(2)
+    return f_last, xy[-1], np.zeros(2), np.zeros(2)
+
+
+def _predict(motion, f):
+    """The motion model's xy at frame ``f`` (runtime.py:1468-1471)."""
+    f_last, xy, d, a = motion
+    k = max(f - f_last, 0)
+    return xy + k * d + a * (k * (k + 1)) / 2.0
+
+
+# --------------------------------------------------------------------------- #
 # Host-facing pipeline
 # --------------------------------------------------------------------------- #
 
 class LocalizationPipeline:
     """End-to-end localization over a prebuilt map on one device
-    (runtime.py:644-1588 on a full map, every ICP method): the event loop
-    :meth:`run`, the online frame loop :meth:`run_frames`, the whole-log
-    :meth:`run_fused`, relocalization (:meth:`initialize_at`), config hot
-    reload (:meth:`reload_config`, :meth:`watch_config`) and the geodetic
+    (runtime.py:644-1588, every ICP method): the event loop :meth:`run`, the
+    online frame loop :meth:`run_frames`, the whole-log :meth:`run_fused`,
+    relocalization (:meth:`initialize_at`), config hot reload
+    (:meth:`reload_config`, :meth:`watch_config`) and the geodetic
     projection (:meth:`project_gps`, :meth:`unproject`).
 
     ``map_points`` is a raw [N,3] cloud (built here with the covariances the
@@ -497,6 +579,16 @@ class LocalizationPipeline:
     they are. ``halo_margin`` defaults to 2 for AVGICP and 1 otherwise
     (runtime.py:728-731): the wider halo keeps the hoisted slot assignment
     exact for AVGICP's 7-voxel sums.
+
+    ``map_window_radius`` (m) turns on active-window serving for maps too
+    large for the device, typically a disk-backed ``HostTileMap`` from
+    ``map.tiles.load_tile_map(dir, mmap=True)``: only the
+    (2r+1) x (2r+1)-tile window around the vehicle is resident, re-cropped
+    with hysteresis as the pose nears its edge. With ``map_window_prefetch``
+    (default) the next window is cropped and uploaded by a worker thread on
+    a side CUDA stream while frames run on the current one; small moves go
+    through kernel N (``tiles.shift_window``). ``window_stats`` counts the
+    swaps, how each was served and the seconds of crop, upload and stall.
 
     ``device`` is the card unless the caller asks for another: CUDA tensors
     run the hand-written kernels, ``device="cpu"`` their plain versions.
@@ -511,11 +603,9 @@ class LocalizationPipeline:
                  ego_ring_size: int = 1024, imu_ring_size: int = 512,
                  tile_voxels: int = 4, use_native: bool = True,
                  map_window_radius: Optional[float] = None,
+                 map_window_prefetch: bool = True,
                  halo_margin: Optional[int] = None):
         method = cfg.pcm.icp_method
-        if map_window_radius is not None:
-            raise NotImplementedError(
-                "map_window_radius: active-window maps are ROADMAP Queue 1 #14")
         prebuilt = isinstance(map_points, map_tiles.HostTileMap)
         if halo_margin is None:
             halo_margin = 2 if method == IcpMethod.AVGICP else 1
@@ -563,11 +653,44 @@ class LocalizationPipeline:
                 "voxel covariance of this map is the identity: build it with "
                 "build_voxel_map(..., compute_voxel_cov=True)")
         self.host_map = host_tmap
-        self.map = host_tmap.to_device(self.device, dtype)
         self.params = make_pipeline_params(cfg, dtype=dtype, device=self.device)
         self._ego_ring_size = ego_ring_size
         self._imu_ring_size = imu_ring_size
         self.time_base = None
+
+        # active-window state (runtime.py:705-746)
+        self.map_window_radius = map_window_radius
+        self._window_prefetch = map_window_prefetch
+        self._window_center = None
+        self._window_offset_tiles = None
+        self._window_origin_anchor = None
+        self._prefetch = None    # the prefetch the ladder may adopt
+        self.window_stats = {
+            "swaps": 0, "prefetch_hits": 0, "prefetch_joins": 0,
+            "sync_swaps": 0, "incr_crops": 0,
+            # host crop seconds and upload seconds (wherever they run, the
+            # worker included), and the seconds the FRAME LOOP stalled on a
+            # swap (joins + sync swaps): the only part on the critical path
+            "crop_s": 0.0, "h2d_s": 0.0, "swap_wait_s": 0.0,
+        }
+        if map_window_radius is not None:
+            self._workers = []   # every prefetch whose worker may still fail
+            # the frame loop and the prefetch workers (two may overlap) add
+            # to the same counters
+            self._stats_lock = threading.Lock()
+            # the prefetch worker's stream: its uploads and kernel N overlap
+            # the frames on the main stream
+            self._side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                          else None)
+            self._window_tiles = max(int(np.ceil(map_window_radius / host_tmap.tile_size)), 2)
+            # the first window around the configured initial pose
+            self._set_window(np.array([cfg.ekf.ekf_init_x_m, cfg.ekf.ekf_init_y_m]))
+        else:
+            self.map = host_tmap.to_device(self.device, dtype)
+
+    @property
+    def windowed(self) -> bool:
+        return self.map_window_radius is not None
 
     def _rebase(self, t):
         if self.time_base is None:
@@ -595,6 +718,286 @@ class LocalizationPipeline:
     def pcm_init_step(self, state: PipelineState, t, pose) -> PipelineState:
         """:func:`pcm_init_step` with this pipeline's parameters."""
         return pcm_init_step(state, t, pose, self.params, self.static)
+
+    # ---- active-window management (runtime.py:839-1123) ----
+    def _stat(self, key, value):
+        with self._stats_lock:
+            self.window_stats[key] += value
+
+    def _window_dims(self):
+        h = self.host_map
+        n = 2 * self._window_tiles + 1
+        return (min(n, h.tx_dim), min(n, h.ty_dim))
+
+    def _adopt_window(self, win: _Window):
+        if win.event is not None:
+            # The upload racing its consumer: the window was made on another
+            # stream. The main stream waits for its event (the host does
+            # not), and every tensor records the main stream, so the
+            # allocator keeps its memory until the frames queued there that
+            # read it are done.
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(win.event)
+            for f in map_tiles.HALO_FIELDS + ("origin",):
+                t = getattr(win.map, f)
+                if t is not None:
+                    t.record_stream(main)
+        self.map = win.map
+        self._window_center = win.center
+        self._window_offset_tiles = win.anchor
+        self._window_origin_anchor = win.origin_anchor
+
+    def _window_enqueue(self, center_xy, base_map=None, base_anchor=None,
+                        origin_anchor=None) -> _Window:
+        """Build the window at ``center_xy`` and ENQUEUE its upload on the
+        current stream without waiting for it (runtime.py:850-907); the
+        caller follows up with :meth:`_window_finalize`, maybe from another
+        thread. Given a resident window whose move is a small shift, the
+        window moves INCREMENTALLY (kernel N on the card): only the entering
+        rows go up, and retained rows keep their bits because the coordinate
+        origin stays. A full crop, which re-centres the origin, is taken for
+        the first window, big jumps (relocalization) and once the drift from
+        the origin nears f32's limits. Full crops and entering rows go up
+        from pinned buffers, ``non_blocking``; the buffers ride in the
+        returned window until :meth:`_window_finalize` has waited out the
+        upload."""
+        h = self.host_map
+        dims = self._window_dims()
+        center_xy = np.asarray(center_xy, float)
+        anchor = h.window_anchor(center_xy, dims)
+        offset_dtype = torch.empty(0, dtype=self.dtype).numpy().dtype
+        incr = None
+        if base_map is not None and origin_anchor is not None:
+            dx = anchor[0] - base_anchor[0]
+            dy = anchor[1] - base_anchor[1]
+            k = max(abs(dx), abs(dy))
+            drift = max(abs(anchor[0] - origin_anchor[0]) + dims[0],
+                        abs(anchor[1] - origin_anchor[1]) + dims[1])
+            if 0 < k <= _MAX_INCR_SHIFT and drift * h.tile_size <= _INCR_DRIFT_LIMIT_M:
+                incr = (dx, dy, k)
+        staging = []
+        t0 = time.time()
+        if incr is None:
+            host_win = h.crop_window(center_xy, self._window_tiles, dims=dims,
+                                     offset_dtype=offset_dtype)
+            t1 = time.time()
+            dev = host_win.to_device(self.device, self.dtype, staging=staging)
+            center = np.array(host_win.world_offset) + 0.5 * np.array(
+                [host_win.tx_dim, host_win.ty_dim]) * h.tile_size
+            oa = anchor
+        else:
+            dx, dy, k = incr
+            r_pad = k * (dims[0] + dims[1])
+            dst, payload = h.crop_entering_rows(base_anchor, anchor, dims, origin_anchor,
+                                                r_pad, offset_dtype=offset_dtype)
+            t1 = time.time()
+
+            def up(a):
+                return map_tiles._h2d(a, self.device, self.dtype, staging)
+
+            if self.device.type == "cuda":
+                # Freed memory under the worker: kernel N reads the resident
+                # window on this stream while the main thread may adopt a new
+                # window and drop this one; recording this stream on each
+                # tensor N reads keeps the allocator from reusing its memory
+                # before N has run.
+                cur = torch.cuda.current_stream(self.device)
+                for f in map_tiles.HALO_FIELDS:
+                    t = getattr(base_map, f)
+                    if t is not None:
+                        t.record_stream(cur)
+            dev = map_tiles.shift_window(base_map, dx, dy, up(dst),
+                                         {f: up(v) for f, v in payload.items()})
+            self._stat("incr_crops", 1)
+            off, _ = h._origin_offsets(anchor, offset_dtype)
+            center = off + 0.5 * np.array(dims) * h.tile_size
+            oa = origin_anchor
+        event = None
+        if self.device.type == "cuda":
+            # "built": the upload and kernel N are enqueued; the event marks
+            # their end on this stream
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return _Window(dev, center, anchor, oa, t1 - t0, event, staging)
+
+    def _window_finalize(self, win: _Window):
+        """Wait out an enqueued window's upload (the pinned staging buffers
+        are released only then), account for it and release the crop's file
+        pages, in the JAX order (runtime.py:909-922: evicting any later
+        overlapped the next crop, which re-faulted the pages)."""
+        t1 = time.time()
+        if win.event is not None:
+            win.event.synchronize()
+        t2 = time.time()
+        win.staging.clear()
+        self.host_map.drop_page_cache()
+        self._stat("crop_s", win.host_s)
+        self._stat("h2d_s", t2 - t1)
+
+    def _build_window(self, center_xy, base_map=None, base_anchor=None,
+                      origin_anchor=None) -> _Window:
+        """Synchronous enqueue + finalize (see :meth:`_window_enqueue`)."""
+        win = self._window_enqueue(center_xy, base_map=base_map, base_anchor=base_anchor,
+                                   origin_anchor=origin_anchor)
+        self._window_finalize(win)
+        return win
+
+    def _set_window(self, center_xy):
+        self._adopt_window(self._build_window(
+            center_xy, base_map=getattr(self, "map", None),
+            base_anchor=self._window_offset_tiles,
+            origin_anchor=self._window_origin_anchor))
+
+    def _window_margin(self):
+        ts = self.host_map.tile_size
+        half = self._window_tiles * ts
+        sensor = float(self.cfg.pcm.input_max_dist)
+        return max(half - sensor - 2.0 * ts, ts)
+
+    def _check_worker(self):
+        """No hidden fallback: a prefetch worker that failed (kernel N
+        included, adopted or not) fails the run here, on the main thread,
+        at the consult or join after it (JAX turns it into a synchronous
+        crop, runtime.py:1090-1106)."""
+        for pf in [w for w in self._workers if w["done"].is_set()]:
+            self._workers.remove(pf)
+            if "error" in pf:
+                if self._prefetch is pf:
+                    self._prefetch = None
+                raise RuntimeError("the window prefetch worker failed") from pf["error"]
+
+    def _join_prefetch(self):
+        """Wait for every prefetch worker still running and re-raise a
+        failure."""
+        for pf in list(self._workers):
+            pf["done"].wait()
+        self._check_worker()
+
+    def _start_prefetch(self, pos_xy):
+        """Crop + upload the window centred at ``pos_xy`` in a worker thread
+        (runtime.py:949-1003; double buffering: the old window keeps serving
+        frames until the new one is adopted). Two stages: ``built`` once the
+        upload is ENQUEUED (the window is adoptable: the main stream waits
+        for its event), ``done`` once it has landed and the crop's file
+        pages are released."""
+        self._check_worker()
+        anchor = self.host_map.window_anchor(np.asarray(pos_xy, float), self._window_dims())
+        pf = self._prefetch
+        if anchor == self._window_offset_tiles:
+            return
+        if pf is not None:
+            if not pf["done"].is_set():
+                return  # let the crop in flight finish
+            if pf["anchor"] == anchor:
+                return  # the finished one is already ideal
+        holder = {"anchor": anchor, "built": threading.Event(), "done": threading.Event()}
+        center_xy = np.asarray(pos_xy, float).copy()
+        # snapshot the resident window on the MAIN thread: adoption may
+        # replace self.map while the worker runs
+        base = (self.map, self._window_offset_tiles, self._window_origin_anchor)
+        ready = None
+        if self._side is not None:
+            # kernel N on the side stream reads the base window only after
+            # the main stream's work up to here (which made it)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+
+        def work():
+            try:
+                # The worker's current stream: kernels launch on the current
+                # stream, so the uploads and kernel N go to the side stream
+                # only inside this block (None on the CPU: no stream).
+                with torch.cuda.stream(self._side):
+                    if ready is not None:
+                        self._side.wait_event(ready)
+                    win = self._window_enqueue(center_xy, *base)
+                holder["window"] = win
+                holder["built"].set()
+                self._window_finalize(win)
+            except BaseException as e:  # kept, re-raised on the main thread
+                holder["error"] = e
+            finally:
+                holder["built"].set()
+                holder["done"].set()
+
+        self._prefetch = holder
+        self._workers.append(holder)
+        # non-daemon (runtime.py:1000-1003): a clean exit waits out the crop
+        # and upload in flight instead of tearing the process down under it
+        threading.Thread(target=work, daemon=False).start()
+
+    def _maybe_rewindow(self, pos_xy, lookahead_xy=None):
+        """Re-window before sensor-range correspondences can truncate at the
+        window edge, never re-uploading an identical window
+        (runtime.py:1005-1123). With prefetch, the anchor-divergence ladder
+        warms the window at one tile of divergence and swaps at two (when
+        the pose is also past the margin), adopting the warmed window when
+        it is within the sensor slack of ideal: a hit if it was built, a
+        join (waiting for ``built`` only) if not. Otherwise, and without
+        prefetch, the swap is a synchronous crop. ``lookahead_xy``: the
+        displacement (m) expected before the next consult; the prefetch
+        stage looks there, the swap decision stays at ``pos_xy``."""
+        if not self.windowed:
+            return
+        self._check_worker()
+        pos = np.asarray(pos_xy, float)
+        ts = self.host_map.tile_size
+        margin = self._window_margin()
+        dist = np.max(np.abs(pos - self._window_center))
+        anchor = self.host_map.window_anchor(pos, self._window_dims())
+        div = max(abs(anchor[0] - self._window_offset_tiles[0]),
+                  abs(anchor[1] - self._window_offset_tiles[1]))
+        if not (dist > margin and div >= 2):
+            ahead, dist_a, div_a = pos, dist, div
+            if lookahead_xy is not None:
+                ahead = pos + np.asarray(lookahead_xy, float)
+                dist_a = np.max(np.abs(ahead - self._window_center))
+                anchor_a = self.host_map.window_anchor(ahead, self._window_dims())
+                div_a = max(abs(anchor_a[0] - self._window_offset_tiles[0]),
+                            abs(anchor_a[1] - self._window_offset_tiles[1]))
+            if self._window_prefetch and div_a >= 1 and dist_a > max(margin - 6.0 * ts, 0.0):
+                self._start_prefetch(ahead)
+            return
+        pf = self._prefetch
+        # adopt when the warmed window is within the sensor's slack of the
+        # anchor a synchronous swap would pick (one tile for windows smaller
+        # than the sensor range)
+        sensor = float(self.cfg.pcm.input_max_dist)
+        slack_tiles = max(int((self._window_tiles * ts - sensor) / ts) - 1, 1)
+        adopted = False
+        if pf is not None and max(abs(pf["anchor"][0] - anchor[0]),
+                                  abs(pf["anchor"][1] - anchor[1])) <= slack_tiles:
+            if pf["built"].is_set():
+                key = "prefetch_hits"
+            else:
+                # the crop is in flight: join it (its host crop and enqueue,
+                # not the upload, which the main stream's wait orders)
+                key = "prefetch_joins"
+                t0 = time.time()
+                pf["built"].wait()
+                self._stat("swap_wait_s", time.time() - t0)
+            if "window" not in pf:  # the worker failed before its window was built
+                pf["done"].wait()
+                self._check_worker()
+            self._adopt_window(pf["window"])
+            self._stat(key, 1)
+            adopted = True
+        if not adopted:
+            t0 = time.time()
+            if pf is not None and not pf["done"].is_set():
+                # a stale crop in flight must not run beside the synchronous
+                # one (they would compete for the core and the page cache)
+                pf["done"].wait()
+                self._check_worker()
+            self._set_window(pos)
+            self._stat("sync_swaps", 1)
+            self._stat("swap_wait_s", time.time() - t0)
+        self._prefetch = None
+        self._stat("swaps", 1)
+        if self._window_prefetch and lookahead_xy is not None:
+            # warm the NEXT window at once: at speed the time between swaps
+            # is all the worker gets
+            self._start_prefetch(pos + np.asarray(lookahead_xy, float))
 
     # ---- config hot reload (runtime.py:1159-1183, 1358-1376) ----
     def reload_config(self, cfg: ElimalocConfig) -> None:
@@ -657,7 +1060,8 @@ class LocalizationPipeline:
     def _ground_from_tiles(self, position_xy, search_range: float = 5.0):
         """FindGroundHeight from the packed tile map (runtime.py:1125-1144),
         for a pipeline built from a HostTileMap: mean z of the 5 lowest halo
-        points of the query tile within range."""
+        points of the query tile within range. It reads the full host map,
+        also when a window is active."""
         h = self.host_map
         ts = h.tile_size
         tx = int(np.floor(position_xy[0] / ts)) - h.tx0
@@ -686,6 +1090,10 @@ class LocalizationPipeline:
             found, ground_z = self._ground_from_tiles([x, y])
         if not found:
             return state, False
+        if self.windowed:
+            # a relocalization usually lands outside the resident window:
+            # re-window around the click before registering
+            self._maybe_rewindow(np.asarray([x, y], float))
         pose = np.eye(4)
         pose[:3, :3] = lie.euler_to_rot(
             torch.tensor([0.0, 0.0, yaw], dtype=torch.float64)).numpy()
@@ -712,7 +1120,10 @@ class LocalizationPipeline:
         (absolute), ``pos`` and ``rpy`` after every scan, and every IMU
         sample with ``collect_every_imu``; ``scans``, each scan's outputs).
         ``on_scan(out)`` sees a scan's outputs as NumPy plus ``ego_pos`` and
-        ``ego_t``, one readback per scan."""
+        ``ego_t``, one readback per scan. A windowed pipeline consults its
+        window ladder before each scan at the filter's position, with ~1 s
+        of motion at its velocity as the prefetch's lookahead
+        (runtime.py:1315-1320)."""
         if not self.cfg.ekf.use_imu:
             raise NotImplementedError(
                 "use_imu=False: the CA-prediction tick mode (ekf.filter.predict, K7b, and "
@@ -746,6 +1157,9 @@ class LocalizationPipeline:
                 if collect_every_imu:
                     ego.append(ego_pose(state.ekf))
             elif kind == "scan":
+                if self.windowed:
+                    pv = torch.cat([state.ekf.pos[:2], state.ekf.vel[:2]]).cpu().numpy()
+                    self._maybe_rewindow(pv[:2], pv[2:] * 1.0)
                 state, out = scan_step(
                     state, stamps[i], self._tensor(log.scan_points[i]),
                     self._tensor(log.scan_times[i]), self._tensor(log.scan_valid[i]),
@@ -761,6 +1175,8 @@ class LocalizationPipeline:
                 state = gps_step(state, *(x[i] for x in dev["gps"]), self.params, self.static)
             else:
                 state = can_step(state, *(x[i] for x in dev["can"]), self.params, self.static)
+        if self.windowed:
+            self._join_prefetch()
         traj = {"t": np.zeros(0), "pos": np.zeros((0, 3)), "rpy": np.zeros((0, 3)),
                 "scans": []}
         if ego:
@@ -775,13 +1191,23 @@ class LocalizationPipeline:
         return state, traj
 
     # ---- the frame loop: online (run_frames) and whole-log (run_fused) ----
-    def _frames(self, log: ReplayLog, state, batches, on_scan, mark, poll: bool):
+    def _frames(self, log: ReplayLog, state, batches, on_scan, mark, poll: bool,
+                chunk: Optional[int] = None):
         """One :func:`fused_frame` per scan over the log's batches (moved to
-        the device once), ``on_scan(out)`` after each with the frame's
-        device outputs, the config polled (and the dashboard refused) before
-        each when ``poll``; the outputs are stacked on the device and read
-        back once. ``run_fused`` (no poll) has no dashboard to refuse, as in
-        the JAX package."""
+        the device once), the outputs stacked on the device and read back
+        once. With ``poll`` the config is polled (and the dashboard refused)
+        before each frame, or each chunk. ``run_fused`` on a full map (no
+        poll) has no dashboard to refuse, as in the JAX package.
+
+        Per frame (runtime.py:1533-1564): a windowed pipeline consults its
+        window ladder before each frame at the previous frame's pose, whose
+        read waits for that frame to finish; ``on_scan(out)`` gets each frame's device
+        outputs. With ``chunk`` > 1 (runtime.py:1422-1532): the ladder is
+        consulted once per ``chunk`` frames, at the end of the chunk that a
+        motion model (fitted to the newest chunk of poses that has landed)
+        predicts, with one further chunk as the prefetch's lookahead; one
+        pose fetch per chunk; ``on_scan(out)`` gets the chunk's outputs
+        stacked, ``n - k0`` rows for the final ragged chunk."""
         if poll:
             self._refuse_dashboard()
         state = state if state is not None else self.reset()
@@ -789,41 +1215,94 @@ class LocalizationPipeline:
         if batches is None:
             batches = build_fused_batches(log, time_base=self.time_base)
         batches = batches_to_device(batches, self.device, self.dtype)
+        n = batches["scan_t"].shape[0]
+        step = chunk if chunk is not None and chunk > 1 else 1
+        windowed = self.windowed
+        pend = []       # (first frame, the fetch of its chunk's poses)
+        motion = None   # _fit_motion's model, once a chunk has landed
+        if windowed and step > 1 and self._window_prefetch:
+            # warm the FORWARD window before the first frame, along the
+            # configured initial heading (the ladder sees no motion before
+            # the first chunk lands)
+            yaw = np.deg2rad(self.cfg.ekf.ekf_init_yaw_deg)
+            fwd = 2.0 * self.host_map.tile_size * np.array([np.cos(yaw), np.sin(yaw)])
+            self._start_prefetch(np.asarray(self._window_center) + fwd)
         outs = []
-        for k in range(batches["scan_t"].shape[0]):
+        for ci, k0 in enumerate(range(0, n, step)):
             if poll:
                 self._poll_config()
-            # self.params / self.static are read per frame: a hot reload
-            # between frames takes effect at the next one
-            state, out = fused_frame(state, {key: v[k] for key, v in batches.items()},
-                                     self.map, self.params, self.static, mark=mark)
+            if windowed and step == 1:
+                # the previous frame's pose, one frame stale (JAX reads it
+                # with np.asarray, runtime.py:1543): the read waits for the
+                # frame queued last, so the host waits for the device once
+                # per frame before it queues the next one
+                self._maybe_rewindow(pend[-1][1].value()[:2] if pend
+                                     else state.ekf.pos[:2].cpu().numpy())
+            elif windowed:
+                if motion is None and ci == 1:
+                    # seed the motion model: one blocking read, once
+                    motion = _fit_motion(pend[0][1].value(), pend[0][0])
+                    pend = pend[1:]
+                else:
+                    # re-anchor from the newest chunk whose fetch has landed,
+                    # never blocking the dispatch loop
+                    for i in range(len(pend) - 1, -1, -1):
+                        if pend[i][1].landed():
+                            motion = _fit_motion(pend[i][1].value(), pend[i][0])
+                            pend = pend[i + 1:]
+                            break
+                if motion is not None:
+                    pred = _predict(motion, k0 + step - 1)
+                    self._maybe_rewindow(pred, _predict(motion, k0 + 2 * step - 1) - pred)
+            frame_outs = []
+            for k in range(k0, min(k0 + step, n)):
+                # self.params / self.static / self.map are read per frame: a
+                # hot reload or a window swap takes effect at the next one
+                state, out = fused_frame(state, {key: v[k] for key, v in batches.items()},
+                                         self.map, self.params, self.static, mark=mark)
+                frame_outs.append(out)
+            if step > 1:
+                out = {key: torch.stack([o[key] for o in frame_outs]) for key in frame_outs[0]}
+            if windowed:
+                pend.append((k0, _HostFetch(out["ego_pos"])))
+                del pend[:-8]  # the model needs only the newest few
             outs.append(out)
             if on_scan is not None:
                 on_scan(out)
             if poll:
                 self._refuse_dashboard()
-        stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        if windowed:
+            self._join_prefetch()
+        cat = torch.cat if step > 1 else torch.stack
+        stacked = {k: cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
         stacked["ego_t_abs"] = stacked["ego_t"].astype(np.float64) + self.time_base
         return state, stacked
 
     def run_frames(self, log: ReplayLog, state: Optional[PipelineState] = None, *,
                    batches=None, on_scan=None, chunk: Optional[int] = None,
                    mark=_no_mark):
-        """The online mode (runtime.py:1393-1570, its per-frame branch): one
-        fused frame per scan, the ini polled before each (see
-        :meth:`watch_config`), ``on_scan(out)`` after each with the frame's
-        device outputs. ``batches``: a :func:`build_fused_batches` dict, else
-        built from the log. Returns (state, outs) as :meth:`run_fused`."""
-        if chunk is not None and chunk > 1:
-            raise NotImplementedError(
-                f"run_frames(chunk={chunk}): the chunked windowed dispatch is ROADMAP "
-                "Queue 1 #14")
-        return self._frames(log, state, batches, on_scan, mark, poll=True)
+        """The online mode (runtime.py:1393-1570): one fused frame per scan,
+        the ini polled before each (see :meth:`watch_config`), ``on_scan(out)``
+        after each with the frame's device outputs; with ``chunk`` > 1 the
+        window ladder, the poll and ``on_scan`` go per ``chunk`` frames (see
+        :meth:`_frames`), on a full map too. ``batches``: a
+        :func:`build_fused_batches` dict, else built from the log. Returns
+        (state, outs) as :meth:`run_fused`."""
+        return self._frames(log, state, batches, on_scan, mark, poll=True, chunk=chunk)
 
     def run_fused(self, log: ReplayLog, state: Optional[PipelineState] = None,
-                  mark=_no_mark):
-        """Whole-log fused replay (runtime.py:1573-1588 on a full map): the
-        frame loop of :meth:`run_frames` without the config poll. Returns
-        (state, outs) with outs as NumPy arrays stacked over frames plus
-        ``ego_t_abs``."""
+                  window_chunk: int = 8, mark=_no_mark):
+        """Whole-log fused replay (runtime.py:1573-1588): on a full map the
+        frame loop of :meth:`run_frames` without the config poll; a windowed
+        pipeline runs ``run_frames(chunk=window_chunk)``, with window
+        management between chunks. Returns (state, outs) with outs as NumPy
+        arrays stacked over frames plus ``ego_t_abs``."""
+        if self.windowed:
+            return self.run_frames(log, state, chunk=max(int(window_chunk), 1), mark=mark)
         return self._frames(log, state, None, None, mark, poll=False)
+
+    def run_fused_fleet(self, logs, states=None):
+        """Multi-stream fused replay (runtime.py:1590-1649): not ported."""
+        raise NotImplementedError(
+            "run_fused_fleet: fleet lanes (a batch dimension in every kernel) are "
+            "ROADMAP Queue 1 #15")

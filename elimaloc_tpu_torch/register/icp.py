@@ -411,8 +411,10 @@ def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpPara
     kernel (A, E, F or G) -> the reduced sums, [18] for P2P
     (:func:`assemble_p2p`'s layout) or [44] (:func:`assemble_gn`'s)."""
     args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
-    geo = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=tmap.tx0,
-               ty0=tmap.ty0, ty_dim=tmap.ty_dim)
+    # the grid origin carries a shifted window's anchor (host ints)
+    ax0, ay0 = tmap.grid_origin
+    geo = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0,
+               ty0=ay0, ty_dim=tmap.ty_dim)
     if method == int(IcpMethod.P2P):
         return kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0]
     if method == int(IcpMethod.GICP):

@@ -128,7 +128,7 @@ def test_fused_batches_bit_identical(both_worlds):
             np.testing.assert_array_equal(tb[k], np.asarray(jb[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("change", ["gicp", "window", "hash"])
+@pytest.mark.parametrize("change", ["gicp", "fleet", "hash"])
 def test_pipeline_refuses_unported(both_worlds, change):
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
@@ -137,22 +137,25 @@ def test_pipeline_refuses_unported(both_worlds, change):
         # GICP runs; its radar form (K12) does not
         cfg.pcm.icp_method = tconfig.IcpMethod.GICP
         cfg.pcm.use_radar_cov = True
-    elif change == "window":
-        kw["map_window_radius"] = 40.0
-    else:
+    elif change == "hash":
         kw["backend"] = "hash"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
-                                      **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP" if change != "fleet" else "#15"):
+        pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
+                                             **kw)
+        # the pipeline is built; fleet replay (JAX runtime.py:1590) is refused
+        pipe.run_fused_fleet([])
 
 
 
-#: the port's modules that the online entry points, kernels J-M and their
-#: plain versions live in, and the smoke script
+#: the port's modules that the online entry points, the active-window
+#: serving path (the host crops, the shift and the window management),
+#: kernels J-N and their plain versions live in, and the smoke script
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/pipeline/rings.py", "elimaloc_tpu_torch/deskew.py",
                "elimaloc_tpu_torch/register/icp.py", "elimaloc_tpu_torch/kernels/__init__.py",
-               "elimaloc_tpu_torch/config.py", "chip_smoke.py"]
+               "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
+               "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
+               "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
@@ -190,4 +193,4 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     for name, n in found.items():
         assert len(build._SIGNATURES[name]) == n, name
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
-            "elm_gn_step"} <= set(found)
+            "elm_gn_step", "elm_shift_window"} <= set(found)

@@ -28,7 +28,10 @@ masks, indices and flags equal, floats atol 1e-5 (the plain cumsum is a
 parallel scan on the card, the 4x4 products go through cuBLAS); kernel L
 (the PCM measurement) rel 1e-5 and ``apply`` equal; kernel M (the GN step,
 on each method's sums) pose atol 1e-4, local_cov rel 1e-3 (an LU in
-another order than cuSOLVER's), fitness, overlap and the flags equal.
+another order than cuSOLVER's), fitness, overlap and the flags equal;
+kernel N (the window shift, over a drive of 1-, 2- and 3-tile shifts on
+both axes into the map corner) every tensor bit-identical to its plain
+version and to a fresh crop at the same origin.
 Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (tests/conftest.py
 imports jax, which the GPU host does not have).
@@ -161,12 +164,13 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 
 def test_launch_counters_name_all_seven_kernels():
-    """Every kernel's counter: A-G, the EKF kernels H and I, and the
-    scan-time ring ops and GN step J, K, L, M."""
+    """Every kernel's counter: A-G, the EKF kernels H and I, the scan-time
+    ring ops and GN step J, K, L, M, and the window shift N."""
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
-        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step"])
+        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
+        "shift_window"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -246,7 +250,7 @@ def test_ekf_kernels_refuse_joseph_form(which):
                                    "p2p_correspond", "gicp_correspond",
                                    "vgicp_correspond", "avgicp_correspond", "imu_chain",
                                    "ekf_update", "ring_push", "scan_ring_query",
-                                   "pcm_measurement", "gn_step"])
+                                   "pcm_measurement", "gn_step", "shift_window"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
     if which in ("ring_push", "scan_ring_query", "pcm_measurement", "gn_step"):
         with pytest.raises(ValueError, match="CUDA tensor required"):
@@ -273,6 +277,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
         return
     inp = _inputs(scene, "cpu")
     tm = inp["tmap"]
+    if which == "shift_window":
+        base = {f: getattr(tm, f) for f in tiles.HALO_FIELDS}
+        payload = {f: None if a is None else a[:4] for f, a in base.items()}
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            kernels.shift_window(base, tm.tx_dim, tm.ty_dim, 1, 0,
+                                 torch.zeros(4, dtype=torch.int32), payload)
+        return
     s = torch.zeros(8, dtype=torch.int32)
     slot_args = (s, torch.zeros(8, 16, 3), torch.zeros(8, 16, dtype=torch.bool),
                  inp["pose"], inp["max_dist"])
@@ -714,3 +725,42 @@ def test_gn_step_matches_plain_on_card(scene, cuda, method):
     assert gicp == (not torch.equal(got[1], carry[2]))
     for a, b in zip(got[2:], ref[2:]):
         assert torch.equal(a, b), method
+
+
+#: a drive of window shifts (tiles units): both axes, 1, 2 and 3 tiles, into
+#: the map corner and back
+WINDOW_DRIVE = [(1, 0), (1, 1), (0, 2), (3, 1), (2, 2), (3, 3), (-3, -2), (0, -1)]
+
+
+@pytest.mark.cuda
+def test_shift_window_matches_plain_on_card(scene, cuda):
+    """Kernel N against ``shift_window_plain`` after every step of a drive
+    of a 7x7 window over the scene's map (all six halo tensors), and both
+    against the same rows packed fresh at the same origin."""
+    h = scene[2][1]
+    dims = (7, 7)
+    origin = h.window_anchor(np.array([-20.0, -20.0]), dims)
+    got = ref = h.crop_window(np.array([-20.0, -20.0]), 3, dims=dims).to_device(cuda)
+    anchor, moved = origin, 0
+    kernels.reset_launches()
+    for step in WINDOW_DRIVE:
+        new = (int(np.clip(anchor[0] + step[0], h.tx0, h.tx0 + h.tx_dim - dims[0])),
+               int(np.clip(anchor[1] + step[1], h.ty0, h.ty0 + h.ty_dim - dims[1])))
+        k = max(abs(new[0] - anchor[0]), abs(new[1] - anchor[1]))
+        if not k:
+            continue
+        dst, payload = h.crop_entering_rows(anchor, new, dims, origin, k * sum(dims))
+        d = torch.as_tensor(dst, device=cuda)
+        p = {f: None if v is None else torch.as_tensor(v, device=cuda)
+             for f, v in payload.items()}
+        dx, dy = new[0] - anchor[0], new[1] - anchor[1]
+        got = tiles.shift_window(got, dx, dy, d, p)
+        ref = tiles.shift_window_plain(ref, dx, dy, d, p)
+        torch.cuda.synchronize()
+        fresh = h._pack_rows(h.window_rows(new, dims), *h._origin_offsets(origin))
+        for f in tiles.HALO_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(ref, f)), (f, new)
+            assert np.array_equal(getattr(got, f).cpu().numpy(), fresh[f]), (f, new)
+        assert got.tile_anchor == ref.tile_anchor == (new[0] - origin[0], new[1] - origin[1])
+        anchor, moved = new, moved + 1
+    assert moved >= 5 and kernels.launches["shift_window"] == moved

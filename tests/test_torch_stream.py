@@ -17,7 +17,8 @@ bit-identical, tests/test_torch_guards.py). Bounds:
   own loop under the closed-loop contract (max < 3 cm, median < 5 mm, last
   3 < 5 mm).
 * ``run_frames`` is ``run_fused``'s frame loop: equal outputs, ``on_scan``
-  once per frame.
+  once per frame; with ``chunk=2`` on a full map, the same frames to 1e-6 m
+  and ``on_scan`` once per chunk.
 * ``initialize_at`` on tests/test_pipeline.py:313's inputs: the same ``ok``
   and the filter state within 1e-6 (f64; one registration, rounding only).
 * ``project_gps`` / ``unproject``, ENU and UTM: within 1e-9 m / 1e-9 deg of
@@ -201,8 +202,20 @@ def test_run_frames_is_run_fused_frame_loop(tiny, fused32):
     assert set(frames) == set(fused)
     np.testing.assert_allclose(frames["ego_pos"], fused["ego_pos"], rtol=0, atol=1e-6)
     np.testing.assert_array_equal(frames["applied"], fused["applied"])
-    with pytest.raises(NotImplementedError, match="#14"):
-        tpipe.run_frames(log, chunk=2)
+
+
+def test_run_frames_chunked_on_full_map(tiny, fused32):
+    """``run_frames(chunk=2)`` on a full map (JAX runtime.py:1422): the same
+    frames as ``run_fused`` to 1e-6 m, ``on_scan`` once per chunk with the
+    chunk's outputs stacked."""
+    _, log, pipes = tiny
+    seen = []
+    _, chunked = pipes["f32"][1].run_frames(log, chunk=2, on_scan=seen.append)
+    n = len(log.scan_t)
+    assert [len(o["ego_pos"]) for o in seen] == [min(2, n - k0) for k0 in range(0, n, 2)]
+    assert set(chunked) == set(fused32)
+    np.testing.assert_allclose(chunked["ego_pos"], fused32["ego_pos"], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(chunked["applied"], fused32["applied"])
 
 
 def _reloc_setup(cfg_mod):
@@ -343,13 +356,12 @@ def test_ini_hot_reload_mid_run_frames(tiny, tmp_path):
     assert ate < 0.5, ate
 
 
-@pytest.mark.parametrize("mode", ["use_imu", "debug_print_run", "debug_print_frames",
-                                  "chunk"])
+@pytest.mark.parametrize("mode", ["use_imu", "debug_print_run", "debug_print_frames"])
 def test_unported_modes_refuse(tiny, mode):
     world, log, _ = tiny
     pipe = _reload_pipe(world)
-    match = {"use_imu": "K7b.*#12", "debug_print_run": "#16", "debug_print_frames": "#16",
-             "chunk": "#14"}[mode]
+    match = {"use_imu": "K7b.*#12", "debug_print_run": "#16",
+             "debug_print_frames": "#16"}[mode]
     if mode == "use_imu":
         pipe.cfg.ekf.use_imu = False
     elif mode.startswith("debug_print"):
@@ -358,7 +370,7 @@ def test_unported_modes_refuse(tiny, mode):
         if mode in ("use_imu", "debug_print_run"):
             pipe.run(log)
         else:
-            pipe.run_frames(log, chunk=2 if mode == "chunk" else None)
+            pipe.run_frames(log)
 
 
 def test_run_fused_accepts_debug_print(tiny, fused32):
