@@ -6,12 +6,17 @@ make_world(seed=3, extent=120, 400k ground + 200k wall points), 131,072 raw
 points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
-(P2P, GICP, VGICP) and 2 (AVGICP). Eight paths:
+(P2P, GICP, VGICP) and 2 (AVGICP). Thirteen paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
-AVGICP) and for AVGICP with GPS and CAN fusion (BASELINE config 5,
-bench.py:573-582); ``run_frames`` (the online mode) on the GICP pipeline
-("GICP frames"); ``run`` (the per-event loop) on the config-5 pipeline
-("FUSION events"). Then ``initialize_at`` (relocalization) on the P2P
+AVGICP), for AVGICP with GPS and CAN fusion (BASELINE config 5,
+bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
+covariances (``use_radar_cov``: kernel P and the radar forms of E, F, G);
+``run_frames`` (the online mode) on the GICP pipeline ("GICP frames");
+``run`` (the per-event loop) on the config-5 pipeline ("FUSION events"); the
+config-5 replay with the Joseph-form updates (kernels H and I with
+``joseph_form``); ``run`` with ``use_imu=False`` on the P2P configuration
+("P2P tick events": a CA tick at 100 Hz, kernel O, and the IMU ring
+intake). Then ``initialize_at`` (relocalization) on the P2P
 pipeline, and "P2P windowed": active-window serving, the bench.py:327-346
 row (``_cfg(P2P)`` with a 40 m sensor gate, ``map_window_radius=48``) over
 the margin-1 map written with ``build_tile_map(storage_dir=)`` and reopened
@@ -23,7 +28,7 @@ prefetch finished before any swap ("forced").
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the 14 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
+  2. build: the 16 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
      source, all started together), then the map and its two packings;
   3. per run_fused path:
      a. a warm-up replay that records main-path calls of the kernels;
@@ -35,17 +40,25 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         P2P path kernels B, C, D and J, K, L (the ring pushes, the ring
         queries at the scan's times, the PCM measurement); on the fusion
         path kernels H (the IMU chain) and I (the CAN, GPS and PCM updates);
+        on the radar paths the method's kernel in its radar form (rtol 1e-3)
+        and, on GICP's, kernel P;
      c. the timed replay: the launch counts set to 0 just before it and
         read just after (every kernel of the path must have launched),
         applied ratio, ATE against ground truth, slot drops, downsample
         budget, scans/s, a per-stage split and the frame time p50/p95, and
         on the fusion path the CAN and GPS samples the filter's gates
-        admitted;
+        admitted; a radar path is held to its method's ATE gate where it
+        converges (applied >= 0.9) and otherwise recorded with the reason;
   4. "GICP frames" and "FUSION events", each with its launch counts: the
      frame loop must equal run_fused to 1e-6 m; the event loop must hold
      applied >= 0.9, ATE < 0.3 m, its last pose within 0.15 m of run_fused's
-     and admit CAN and GPS; then relocalization from a click 1 m and 1 deg
-     off the truth;
+     and admit CAN and GPS; the Joseph form: H and I with ``joseph_form``
+     against their plain versions on the fusion path's inputs, then its
+     replay (applied >= 0.9, under the closed-loop contract against the
+     reference form's, P asymmetry no larger, P diagonal positive); the
+     tick mode: O and J's one-ring form against their plain versions, O
+     launched once per tick, no IMU chain, ATE under JAX's 2.0 m tick-mode
+     bound; then relocalization from a click 1 m and 1 deg off the truth;
   5. "P2P windowed" (after the relocalization above): a warm-up windowed
      replay that records kernel N's first call, N against
      ``shift_window_plain`` on it (bit for bit) with its bound (bytes read
@@ -62,14 +75,19 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      on a windowed pipeline whose window lies ~100 m from the click, given
      the log's scan as it is (the card held to the CPU port) and the scan
      gated to the sensor range (within 1.5 m of the truth);
-  6. torch.profiler, after every timed replay: kernels H, I, J, K, L, M and N
-     alone on the device, and one more replay per run_fused path and of the
-     windowed run_fused for the device's busy share and its top kernels;
+  6. torch.profiler, after every timed replay: kernels H-P alone on the
+     device, and one more replay per run_fused path and of the windowed
+     run_fused for the device's busy share and its top kernels;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract; on the fusion log also
-     the event loop ``run``; and the windowed ``run`` on the small windowed
-     drive of tests/test_torch_window_replay.py.
+     the event loop ``run``; the radar paths on small logs in a map frame
+     1 km off the origin (where the reference's world-frame radar model is
+     well-posed; outside the contract, held to twice the CPU port's own
+     float32-vs-float64 spread); the tick-mode ``run`` on
+     tiny_pipe(use_imu=False); and the
+     windowed ``run`` on the small windowed drive of
+     tests/test_torch_window_replay.py.
 Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network, no JAX, one card:
@@ -77,6 +95,7 @@ JSON line, and the card's name and power limit; the last line is
     python3 chip_smoke.py
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -94,6 +113,19 @@ INDEX_SAMPLING = 5
 REPEATS = 20
 FUSION = "AVGICP+GPS+CAN"
 PATHS = ("P2P", "GICP", "VGICP", "AVGICP", FUSION)
+#: the run_fused paths with the radar covariances (use_radar_cov): kernel P
+#: and the radar forms of E, F, G
+RADAR_PATHS = ("GICP+radar", "VGICP+radar", "AVGICP+radar")
+#: the fusion path's replay with the Joseph-form updates (kernels H, I)
+JOSEPH = FUSION + " joseph"
+#: the event loop with use_imu=False: CA ticks (kernel O) and the IMU ring
+#: intake (kernel J with one ring)
+TICK = "P2P tick events"
+TICK_ATE_GATE = 2.0  # JAX's own tick-mode bound, tests/test_pipeline_modes.py:82-90
+#: the map frame of the radar paths' card-vs-CPU references: the same drive
+#: with every position 1 km off the map origin, where the reference's
+#: world-frame radar covariance is well-posed (tests/test_torch_radar.py)
+FAR_X = 1000.0
 #: the EKF kernels, launched on every path: wrapper -> (source, replaces)
 EKF_KERNELS = {
     "imu_chain": ("imu_chain.cu",
@@ -169,6 +201,10 @@ def path_method(path):
     return path.split("+")[0]
 
 
+def is_radar(path):
+    return path.endswith("+radar")
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the bytes over HBM_BPS and the
     operations over F32_OPS."""
@@ -224,6 +260,7 @@ def method_cfg(cfg_mod, path):
     cfg = cfg_mod.ElimalocConfig()
     cfg.pcm.icp_method = cfg_mod.IcpMethod[method]
     cfg.ekf.use_gps = cfg.ekf.use_can = path == FUSION
+    cfg.pcm.use_radar_cov = is_radar(path)
     cfg.pcm.lidar_time_delay = 0.0
     cfg.ekf.ekf_init_x_m = 60.0
     cfg.ekf.ekf_init_y_m = 0.0
@@ -270,9 +307,9 @@ class Recorder:
     ``ekf_update``'s calls are all kept (``every``): the rows pick a CAN, a
     GPS and a PCM call among them."""
 
-    def __init__(self, kernels, names, at):
+    def __init__(self, kernels, names, at, every=("ekf_update",)):
         self.kernels, self.at, self.calls, self.seen = kernels, at, {}, {}
-        self.every = {"ekf_update": []}
+        self.every = {n: [] for n in every}
         self.orig = {n: getattr(kernels, n) for n in names}
 
     def __enter__(self):
@@ -368,22 +405,68 @@ def shared_kernel_rows(pipe, calls, mods):
     return rows
 
 
+#: the radar forms (use_radar_cov) of kernels E, F, G and the JAX code they
+#: also replace
+RADAR_REPLACES = {"GICP": " + :331-333 (radar)", "VGICP": " + :361-363 (radar)",
+                  "AVGICP": " + :551-562 (radar: the flattened pairs of _voxcov_tail :354)"}
+
+
+def _rel(x, y):
+    """(rel err of x against y on y's finite entries, whether the non-finite
+    entries agree): a non-finite sum (the radar form's singular rows) must
+    be so on both sides."""
+    fin = torch.isfinite(y)
+    same = torch.equal(torch.isfinite(x), fin)
+    if not bool(fin.any()):
+        return 0.0, same
+    x, y = x[fin].double(), y[fin].double()
+    ny = float(torch.linalg.norm(y))
+    return (float(torch.linalg.norm(x - y)) / ny if ny else float(torch.linalg.norm(x))), same
+
+
+def radar_tail64(method, icp, pipe, sbuf, pose, radar, ref):
+    """The radar tail in float64 on the plain version's own matches (the
+    reference math without float32 rounding): (JTJ, JTr, fit_num)."""
+    f64 = torch.float64
+    p64 = icp.make_icp_params(pipe.cfg.pcm, dtype=f64, device=sbuf.device)
+    src, rad = sbuf.reshape(-1, 3).to(f64), radar.reshape(-1, 3, 3).to(f64)
+    cov, mean, ok = ref[4].reshape(-1, 3, 3).to(f64), ref[5].reshape(-1, 3).to(f64), ref[6]
+    if method == "GICP":
+        out = icp._gicp_tail(pose.to(f64), src, cov, mean, ok.reshape(-1), p64, rad)
+    elif method == "VGICP":
+        out = icp._voxcov_tail(pose.to(f64), src, cov, mean, ok.reshape(-1), p64, rad)
+    else:
+        out = icp._voxcov_tail(pose.to(f64), torch.repeat_interleave(src, 7, dim=0), cov, mean,
+                               ok.reshape(-1), p64, torch.repeat_interleave(rad, 7, dim=0))
+    return out[1:]
+
+
 def method_kernel_row(method, pipe, calls, mods):
     """The method's fused search + GN kernel against its plain version: the
     matches exactly equal, ``matched`` equal, JTJ / JTr / fitness numerator
     within rtol 1e-4 on the norms (per-row products with FMAs, sums in
-    another order)."""
+    another order). In its radar form (the recorded call carries kernel P's
+    ``radar``) R^T C R + radar is not symmetric and rows can be near-
+    singular, so the float32 sums carry the rows' condition numbers: both
+    the kernel and its plain version are held to the same tail evaluated in
+    float64 on the same matches, and on each of JTJ, JTr and the fitness
+    numerator the kernel must lie no farther from it than twice the plain
+    float32 version's largest relative error on them, plus 1e-4 (the rows'
+    conditioning, measured on this input; non-finite sums equal on both
+    sides)."""
     kernels, icp = mods[0], mods[4]
     wrapper, src, replaces, plain_name = KERNEL[method]
     tmap, params = pipe.map, pipe.params.icp
     budget = pipe.static.icp_static.tile_budget
     a, k = calls[wrapper]
+    radar = k.get("radar")
+    extra = () if radar is None else (radar,)
     if method == "P2P":
         slot_tile, sbuf, qmask, pose = a[1:5]
     else:
         slot_tile, sbuf, qmask, pose = a[3:7]
     plain = getattr(icp, plain_name)
-    ref = plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)
+    ref = plain(tmap, slot_tile, sbuf, qmask, pose, params, budget, *extra)
     out = getattr(kernels, wrapper)(*a, **k, with_matches=True)
     if method == "P2P":
         got = icp.assemble_p2p(out[0])
@@ -396,11 +479,23 @@ def method_kernel_row(method, pipe, calls, mods):
     if int(got[0]) != int(ref[0]):
         raise AssertionError(f"{wrapper}: matched {int(got[0])} != {int(ref[0])}")
     err = worst = 0.0
-    for x, y in zip(got[1:], ref[1:4]):
-        rel = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
-        if not rel <= 1e-4:
-            raise AssertionError(f"{wrapper}: JTJ/JTr/fitness rel err {rel} > 1e-4")
-        err = max(err, float((x - y).abs().max()))
+    ref64 = None if radar is None else radar_tail64(method, icp, pipe, sbuf, pose, radar, ref)
+    acc = [] if ref64 is None else [(_rel(x, r)[0], _rel(y, r)[0])
+                                    for x, y, r in zip(got[1:], ref[1:4], ref64)]
+    for i, (x, y) in enumerate(zip(got[1:], ref[1:4])):
+        rel, same = _rel(x, y)
+        if not same:
+            raise AssertionError(f"{wrapper}: the kernel's non-finite sums differ from the "
+                                 "plain version's")
+        if ref64 is None:
+            if not rel <= 1e-4:
+                raise AssertionError(f"{wrapper}: JTJ/JTr/fitness rel err {rel} > 1e-4")
+        elif not acc[i][0] <= 2.0 * max(p for _, p in acc) + 1e-4:
+            raise AssertionError(f"{wrapper}[radar]: rel err against float64 {acc[i][0]:.3e}, "
+                                 f"plain float32's largest {max(p for _, p in acc):.3e}")
+        fin = torch.isfinite(y)
+        if bool(fin.any()):
+            err = max(err, float((x[fin] - y[fin]).abs().max()))
         worst = max(worst, rel)
     live = int(qmask.sum())
     n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
@@ -410,15 +505,51 @@ def method_kernel_row(method, pipe, calls, mods):
     # matched rows' covariance gathers and the sums; 6 operations per
     # candidate (the 27-voxel cube test) and the per-match GN arithmetic
     moved = (n_tiles * row * cand_b + live * 12 + nbytes(qmask, slot_tile, pose, out[0])
-             + matched * match_b)
-    log_line(f"  {wrapper}: slots {tuple(qmask.shape)}, halo {tuple(a[0].shape)}, "
+             + matched * match_b + live * 36 * (radar is not None))
+    name = wrapper if radar is None else f"{wrapper}[radar]"
+    log_line(f"  {name}: slots {tuple(qmask.shape)}, halo {tuple(a[0].shape)}, "
              f"live queries {live}, tiles {n_tiles}, matched {matched}, "
-             f"|JTJ| {float(torch.linalg.norm(ref[1])):.3e}, worst rel err {worst:.2e}")
-    return dict(name=wrapper, source=f"elimaloc_tpu_torch/csrc/{src}", replaces=replaces,
+             f"|JTJ| {float(torch.linalg.norm(ref[1])):.3e}, worst rel err {worst:.2e}"
+             + ("" if not acc else ", against float64 (JTJ, JTr, fit) kernel / plain: "
+                + ", ".join(f"{k:.2e} / {p:.2e}" for k, p in acc)))
+    return dict(name=name, source=f"elimaloc_tpu_torch/csrc/{src}",
+                replaces=replaces + (RADAR_REPLACES[method] if radar is not None else ""),
                 max_abs_err=err, ms=time_ms(lambda: getattr(kernels, wrapper)(*a, **k)),
                 plain_ms=time_ms(lambda: plain(tmap, slot_tile, sbuf, qmask, pose,
-                                               params, budget)),
-                bound=bound(live * row * 6 + matched * match_ops, moved))
+                                               params, budget, *extra)),
+                launches_key=wrapper,
+                bound=bound(live * row * 6 + matched * (match_ops + 9 * (radar is not None)),
+                            moved))
+
+
+def radar_cov_row(calls, mods):
+    """Kernel P against ``radar_slots_plain`` on the GICP radar path's
+    registration: atol 1e-5 on entries up to ~1 m^2 (the plain transform is
+    a cuBLAS product with FMAs, the trigonometry the same libm), dead rows
+    exactly zero."""
+    kernels, icp = mods[0], mods[4]
+    a, _ = calls["radar_cov"]
+    src, qidx, qmask, pose, params = a
+    got = kernels.radar_cov(*a)
+    ref = icp.radar_slots_plain(*a)
+    err = float((got - ref).abs().max())
+    live = int(qmask.sum())
+    if not (err <= 1e-5 and bool((got[~qmask] == 0).all())):
+        raise AssertionError(f"radar_cov kernel vs plain: max abs err {err} > 1e-5")
+    log_line(f"  radar_cov: slots {tuple(qmask.shape)}, live rows {live} of {qmask.numel()}, "
+             f"scan {tuple(src.shape)}, max |R S| {float(ref.abs().max()):.3f}, "
+             f"max abs err {err:.2e}")
+    # per row its index and mask, per live row its point and ~40 operations
+    # with four transcendentals (~20 each); the [S, QB, 9] output
+    moved = nbytes(qidx, qmask, pose, params.range_variance_m, params.azimuth_variance_deg,
+                   params.elevation_variance_deg, got) + live * 12
+    return dict(name="radar_cov", source="elimaloc_tpu_torch/csrc/radar_cov.cu",
+                replaces="elimaloc_tpu/register/icp.py:251 radar_point_cov + :619-623 and "
+                         ":652-655 (the slot packing of run_register)",
+                max_abs_err=err, ms=time_ms(lambda: kernels.radar_cov(*a)),
+                plain_ms=time_ms(lambda: icp.radar_slots_plain(*a)),
+                device_fn=(lambda: kernels.radar_cov(*a), "radar_cov_kernel"),
+                bound=bound(live * 120, moved))
 
 
 def device_profile(fn):
@@ -448,10 +579,12 @@ def kernel_device_ms(fn, kernel):
     return us / REPEATS * 1e-3 if us else None
 
 
-def kalman_ops(m):
+def kalman_ops(m, joseph=False):
     """f32 operations of one Kalman update of size m on the 27x27 P: H P,
-    the m x m solve, the gain rows, K Y, P -= K H P and the injection."""
-    return m * 27 + m ** 3 + 27 * 2 * m * m + 27 * 2 * m + 729 * 2 * m + 60
+    the m x m solve, the gain rows, K Y, P -= K H P and the injection; in
+    the Joseph form also K R and the two m-term passes over P."""
+    return (m * 27 + m ** 3 + 27 * 2 * m * m + 27 * 2 * m + 729 * 2 * m + 60
+            + (27 * 2 * m * m + 729 * 4 * m + 729 if joseph else 0))
 
 
 def state_bytes(kernels, state):
@@ -495,15 +628,25 @@ def p_entry_err(got, ref, prior, tol):
     return float(((got - ref).abs() / limit.clamp(min=1e-30)).max())
 
 
-def imu_chain_row(calls, mods):
+def with_joseph(call, at):
+    """A recorded (args, kwargs) call with its EkfFlags (argument ``at``)
+    switched to the Joseph form."""
+    a, k = call
+    a = list(a)
+    a[at] = dataclasses.replace(a[at], joseph_form=True)
+    return tuple(a), k
+
+
+def imu_chain_row(calls, mods, joseph=False):
     """Kernel H against ``imu_chain_plain`` + ``ego_history`` on one frame's
     IMU budget: pos / vel and the history's pos / vel_local within 1e-4 m,
     the quaternions 1e-6, the history's angles 1e-5 rad, each P entry within
     1e-4 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``; the plain
     version's small products go through cuBLAS, whose order and FMAs differ
-    from the kernel's ordered sums)."""
+    from the kernel's ordered sums). With ``joseph`` the same call with the
+    Joseph-form updates, held the same way."""
     kernels, efilter = mods[0], mods[7]
-    a, _ = calls["imu_chain"]
+    a, _ = with_joseph(calls["imu_chain"], 6) if joseph else calls["imu_chain"]
     st, ts, acc, gyro, valid, params, flags = a
     got, ghist = kernels.imu_chain(*a)
     ref, rhist = efilter.imu_chain_plain(*a)
@@ -518,21 +661,24 @@ def imu_chain_row(calls, mods):
     gates = [err["pos"] <= 1e-4, err["vel"] <= 1e-4, err["rot"] <= 1e-6,
              err["imu_rot"] <= 1e-6, err["P share of its limit"] <= 1.0]
     gates += [e <= g for e, g in zip(hist_err, (0.0, 1e-4, 1e-5, 1e-4, 1e-4))]
-    log_line(f"  imu_chain: {ts.shape[0]} samples ({int(valid.sum())} valid), errors "
+    name = "imu_chain[joseph]" if joseph else "imu_chain"
+    log_line(f"  {name}: {ts.shape[0]} samples ({int(valid.sum())} valid), errors "
              + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
              + f" (P_ii {float(diag.min()):.2e} to {float(diag.max()):.2e}), history "
              "(t, pos, rpy, vel_local, gyro) " + ", ".join(f"{e:.2e}" for e in hist_err))
     if not all(gates):
-        raise AssertionError("imu_chain kernel vs plain: outside its gates")
+        raise AssertionError(f"{name} kernel vs plain: outside its gates")
     # per valid sample: the nominal step (~400), B = A P, C = A B^T and the
     # P update (~7,200), the complementary filter (m = 2), the calibration
     # (m = 3) where on, and the history entry (~100)
-    per = 7700 + (kalman_ops(2) + 200 if flags.run_cf else 0) + (
-        kalman_ops(3) + 300 if flags.imu_estimate_calibration else 0)
+    per = 7700 + (kalman_ops(2, joseph) + 200 if flags.run_cf else 0) + (
+        kalman_ops(3, joseph) + 300 if flags.imu_estimate_calibration else 0)
     moved = (2 * state_bytes(kernels, st) + params_bytes(kernels, params)
              + nbytes(ts, acc, gyro, valid, *ghist))
-    return dict(name="imu_chain", source="elimaloc_tpu_torch/csrc/imu_chain.cu",
-                replaces=EKF_KERNELS["imu_chain"][1],
+    return dict(name=name, source="elimaloc_tpu_torch/csrc/imu_chain.cu",
+                replaces=EKF_KERNELS["imu_chain"][1] + (
+                    " with joseph_form (filter.py:252-259)" if joseph else ""),
+                launches_key="imu_chain",
                 max_abs_err=max(err["pos"], err["vel"], err["rot"], err["imu_rot"],
                                 *hist_err),
                 ms=time_ms(lambda: kernels.imu_chain(*a)),
@@ -542,20 +688,24 @@ def imu_chain_row(calls, mods):
                 bound=bound(int(valid.sum()) * per, moved))
 
 
-def ekf_update_row(rec, mods):
+def ekf_update_row(rec, mods, joseph=False):
     """Kernel I against ``update_chain_plain`` on a CAN sub-batch, a GPS
     fix and a PCM pose the main path gave it: each P entry within 1e-5
     sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``), every other
     float field within rel
     1e-5 of its largest entry, the flags and counters equal. Its time is
     one frame's two launches (the CAN + GPS sub-batch, then the PCM update,
-    as the path made them at the recorded frame)."""
+    as the path made them at the recorded frame). With ``joseph`` the same
+    calls with the Joseph-form updates, held the same way."""
     kernels, efilter = mods[0], mods[7]
 
     def plain(*a, gps_source=None, **k):  # the plain chain reads it from the flags
         return efilter.update_chain_plain(*a, **k)
 
     calls = rec.every["ekf_update"]
+    if joseph:
+        calls = [with_joseph(c, 2) for c in calls]
+    name = "ekf_update[joseph]" if joseph else "ekf_update"
     late = calls[rec.at:]
     frame_can = next(c for c in late if c[1].get("can") is not None)
     frame_pcm = next(c for c in late if c[1].get("pcm") is not None)
@@ -574,11 +724,11 @@ def ekf_update_row(rec, mods):
         rel.pop("P")
         p_err = p_entry_err(got.P, ref.P, a[0].P, 1e-5)
         moved = float((ref.P - a[0].P).abs().max())
-        log_line(f"  ekf_update {what}: P moved by {moved:.2e}, P share of its limit "
+        log_line(f"  {name} {what}: P moved by {moved:.2e}, P share of its limit "
                  f"{p_err:.2e}, worst rel err of the rest {max(rel.values()):.2e} "
                  f"({max(rel, key=rel.get)})")
         if not (p_err <= 1.0 and max(rel.values()) <= 1e-5 and moved > 0.0):
-            raise AssertionError(f"ekf_update kernel vs plain on {what}: outside its gate")
+            raise AssertionError(f"{name} kernel vs plain on {what}: outside its gate")
         worst = max(worst, max(float((getattr(got, f) - getattr(ref, f)).abs().max())
                                for f in (*rel, "P")))
 
@@ -589,13 +739,16 @@ def ekf_update_row(rec, mods):
     t, vx, yaw, cvalid = frame_can[1]["can"]
     gt, gpos, gcov, gvalid = frame_can[1]["gps"]
     meas, apply = frame_pcm[1]["pcm"]
-    ops = (int(cvalid.sum()) * (kalman_ops(4) + 150) + int(gvalid.sum()) * (kalman_ops(3) + 250)
-           + int(bool(apply)) * (kalman_ops(6) + 250))
+    ops = (int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
+           + int(gvalid.sum()) * (kalman_ops(3, joseph) + 250)
+           + int(bool(apply)) * (kalman_ops(6, joseph) + 250))
     moved = (4 * state_bytes(kernels, st) + 2 * params_bytes(kernels, params)
              + nbytes(t, vx, yaw, cvalid, gt, gpos, gcov, gvalid, meas.timestamp, meas.pos,
                       meas.rot, meas.pos_cov, meas.rot_cov, apply))
-    return dict(name="ekf_update", source="elimaloc_tpu_torch/csrc/ekf_update.cu",
-                replaces=EKF_KERNELS["ekf_update"][1], max_abs_err=worst,
+    return dict(name=name, source="elimaloc_tpu_torch/csrc/ekf_update.cu",
+                replaces=EKF_KERNELS["ekf_update"][1] + (
+                    " with joseph_form (filter.py:252-259)" if joseph else ""),
+                launches_key="ekf_update", max_abs_err=worst,
                 ms=time_ms(frame(kernels.ekf_update)),
                 plain_ms=time_ms(frame(plain)),
                 device_fn=(frame(kernels.ekf_update), "ekf_update_kernel"),
@@ -888,10 +1041,30 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
              f"ds_points {ds_points}, max_slots {max_slots}, map upload "
              f"{time.time() - t0:.1f} s")
     wrapper = KERNEL[method][0]
-    path_kernels = SHARED + (wrapper,) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
-    with Recorder(kernels, path_kernels, at=N_SCANS // 2) as rec:
+    radar = is_radar(path)
+    path_kernels = (SHARED + (wrapper,) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
+                    + (("radar_cov",) if radar else ()))
+    with Recorder(kernels, path_kernels, at=N_SCANS // 2,
+                  every=("ekf_update",) + ((wrapper,) if radar else ())) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
+    if radar:
+        # the kernel-vs-plain row takes the first iteration from the recorded
+        # frame on whose pose is finite and that matched something: a
+        # diverging registration can carry a NaN pose into its next
+        # iteration, or leave the map (no match, all sums zero), the same on
+        # both sides
+        calls = rec.every[wrapper]
+        finite = [bool(torch.isfinite(a[6]).all()) for a, _ in calls]
+        matched = [int(getattr(kernels, wrapper)(*a, **k)[0][43]) if f else 0
+                   for (a, k), f in zip(calls, finite)]
+        usable = [f and m > 0 for f, m in zip(finite, matched)]
+        pick = next((i for i in range(rec.at, len(calls)) if usable[i]),
+                    next(i for i in range(len(calls)) if usable[i]))
+        rec.calls[wrapper] = calls[pick]
+        log_line(f"[{path}] GN iterations: {len(calls)}, with a non-finite pose "
+                 f"{finite.count(False)}, with no match {matched.count(0)}; the row takes "
+                 f"iteration {pick} ({matched[pick]} matched)")
     rows = []
     if path == "P2P":
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
@@ -899,6 +1072,10 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
                  measurement_row(rec.calls, mods)]
     if path == FUSION:
         rows += [imu_chain_row(rec.calls, mods), ekf_update_row(rec, mods)]
+    elif radar:
+        rows += [method_kernel_row(method, pipe, rec.calls, mods[:5])]
+        if method == "GICP":
+            rows += [radar_cov_row(rec.calls, mods)]
     else:
         rows += [method_kernel_row(method, pipe, rec.calls, mods[:5]),
                  gn_step_row(path, rec.calls, mods)]
@@ -967,15 +1144,29 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
     for name in path_kernels:
         if launches[name] <= 0:
             raise AssertionError(f"[{path}] kernel {name} was not launched on the path")
-    if not (applied >= 0.9 and ate < ATE_GATE[method] and dropped == 0
-            and ds_max < ds_points):
+    if radar:
+        # Radar: the ATE gate holds where the registration converges
+        # (applied >= 0.9); otherwise the run is recorded with its reason.
+        summary["converged"] = converged = applied >= 0.9
+        if not converged:
+            log_line(f"[{path}] not converged (applied {applied:.3f}): the reference's "
+                     "radar covariance is taken in the world frame, R S without R^T, and "
+                     "near the map origin R^T C R + R S is indefinite for points whose "
+                     "world azimuth is far from zero; ATE recorded, not gated")
+        if converged and not ate < ATE_GATE[method]:
+            raise AssertionError(f"[{path}] converged but ATE {ate:.4f} m >= "
+                                 f"{ATE_GATE[method]} m")
+        if not (dropped == 0 and ds_max < ds_points):
+            raise AssertionError(f"[{path}] slice failed its acceptance bounds")
+    elif not (applied >= 0.9 and ate < ATE_GATE[method] and dropped == 0
+              and ds_max < ds_points):
         raise AssertionError(f"[{path}] slice failed its acceptance bounds")
     for r in rows:
         r["route"] = "cuda"
         r["launches"] = launches[r.pop("launches_key", r["name"])]
         if "solve_ex_ms" in r:
             summary["gn_step_solve_ex_ms"] = r.pop("solve_ex_ms")
-    return rows, summary, pipe, outs
+    return rows, summary, pipe, outs, rec
 
 
 def check_launches(what, launches, names):
@@ -1107,6 +1298,217 @@ def reloc_phase(pipe, log, kernels):
     if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5):
         raise AssertionError("[reloc] relocalization failed")
     return {"ok": ok, "position_error_m": err}
+
+
+def joseph_path(pipe, log, fused, rec, mods):
+    """Kernels H and I with ``joseph_form`` against their plain versions on
+    the fusion path's recorded inputs, then one run_fused replay of the
+    fusion pipeline switched to the Joseph form after construction (as
+    tests/test_long_horizon.py:59-66 switches JAX's): launch counts from 0
+    around it, applied >= 0.9, its trajectory against the reference form's
+    replay under the closed-loop contract (JAX's long-horizon test holds the
+    two forms together), its largest P asymmetry no larger than the
+    reference form's and every P diagonal positive."""
+    kernels = mods[0]
+    rows = [imu_chain_row(rec.calls, mods, joseph=True), ekf_update_row(rec, mods, joseph=True)]
+    for r in rows:
+        log_line(f"[{JOSEPH}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
+                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound'][0]:.7f} ms ({r['bound'][1]})")
+    plain_static = pipe.static
+    pipe.static = dataclasses.replace(plain_static, ekf_flags=dataclasses.replace(
+        plain_static.ekf_flags, joseph_form=True))
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = pipe.run_fused(log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipe.static = plain_static
+    launches = dict(kernels.launches)
+    err = np.linalg.norm(outs["ego_pos"] - fused["ego_pos"], axis=1)
+    applied = float(outs["applied"].mean())
+    asym, asym_plain = float(outs["p_asym"].max()), float(fused["p_asym"].max())
+    dmin = float(outs["p_min_diag"].min())
+    n = len(log.scan_t)
+    log_line(f"[{JOSEPH}] {n / wall:.2f} scans/s, applied {applied:.3f}, vs the reference "
+             f"form: max {err.max():.2e} m, median {np.median(err):.2e} m, last 3 "
+             f"{err[-3:].max():.2e} m; P asymmetry max {asym:.3e} (reference form "
+             f"{asym_plain:.3e}), min diagonal {dmin:.3e}, launches {launches}")
+    check_launches(JOSEPH, launches, SHARED + (KERNEL["AVGICP"][0],) + tuple(EKF_KERNELS)
+                   + tuple(SCAN_KERNELS))
+    if not (applied >= 0.9 and contract(err) and asym <= asym_plain and dmin > 0.0):
+        raise AssertionError(f"[{JOSEPH}] the Joseph-form replay failed its gates")
+    for r in rows:
+        r["route"] = "cuda"
+        r["launches"] = launches[r.pop("launches_key")]
+    return rows, {"scans_per_s": n / wall, "applied": applied, "max_m": float(err.max()),
+                  "median_m": float(np.median(err)), "last3_m": float(err[-3:].max()),
+                  "p_asym_max": asym, "p_asym_max_reference_form": asym_plain,
+                  "p_min_diag": dmin}
+
+
+def ca_tick_row(call, mods):
+    """Kernel O against ``ca_tick_plain`` on a recorded tick of the tick
+    path: pos / vel within 1e-4 m, the quaternion 1e-6, each P entry within
+    1e-5 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``; the plain
+    dense F P F^T goes through cuBLAS), the flags equal, the ego-ring row as
+    kernel H's history."""
+    kernels, efilter = mods[0], mods[7]
+    st, t, params = call
+    got, ghist = kernels.ca_tick(*call)
+    ref, rhist = efilter.ca_tick_plain(*call)
+    err = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+           for f in ("pos", "vel", "rot")}
+    err["P share of its limit"] = p_entry_err(got.P, ref.P, st.P, 1e-5)
+    ekf_field_errors(kernels, got, ref)
+    hist_err = [float((x - y).abs().max()) for x, y in zip(ghist, rhist)]
+    gates = [err["pos"] <= 1e-4, err["vel"] <= 1e-4, err["rot"] <= 1e-6,
+             err["P share of its limit"] <= 1.0, not torch.equal(ref.P, st.P)]
+    gates += [e <= g for e, g in zip(hist_err, (0.0, 1e-4, 1e-5, 1e-4, 1e-4))]
+    log_line("  ca_tick: errors " + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+             + ", ego row " + ", ".join(f"{e:.2e}" for e in hist_err))
+    if not all(gates):
+        raise AssertionError("ca_tick kernel vs plain: outside its gates")
+    # G = F P and G F^T: 39 nonzeros of F per column of P, a multiply and an
+    # add each, twice; the nominal step and the ego row (~600)
+    moved = 2 * state_bytes(kernels, st) + params_bytes(kernels, params) + nbytes(t, *ghist)
+    return dict(name="ca_tick", source="elimaloc_tpu_torch/csrc/ca_tick.cu",
+                replaces="elimaloc_tpu/ekf/filter.py:568 predict + elimaloc_tpu/pipeline/"
+                         "runtime.py:249 tick_step (+ :174 _push_ego's ego_state)",
+                max_abs_err=max(err["pos"], err["vel"], err["rot"], *hist_err),
+                ms=time_ms(lambda: kernels.ca_tick(*call)),
+                plain_ms=time_ms(lambda: efilter.ca_tick_plain(*call)),
+                device_fn=(lambda: kernels.ca_tick(*call), "ca_tick_kernel"),
+                bound=bound(2 * 2 * 39 * 27 + 600, moved))
+
+
+def tick_push_row(call, mods):
+    """Kernel J with its IMU ring left out (the tick's ego push) against
+    ``push_rings_plain``: exactly equal."""
+    kernels, rings = mods[0], mods[8]
+    got = kernels.ring_push(*call)
+    ref = rings.push_rings_plain(*call)
+    ego, _, row, _, valid = call
+    for f in ("t", "count", "pos", "rpy", "vel_local", "gyro"):
+        if not torch.equal(getattr(got[0], f), getattr(ref[0], f)):
+            raise AssertionError(f"ring_push[tick] kernel differs from its plain version in {f}")
+    if got[1] is not None or ref[1] is not None:
+        raise AssertionError("ring_push[tick]: the IMU ring was not left out")
+    n0, n1 = int(ego.count), int(got[0].count)
+    fields = ("t", "pos", "rpy", "vel_local", "gyro")
+    moved = nbytes(*row, valid, ego.count, got[0].count,
+                   *(getattr(ego, f)[:n0] for f in fields),
+                   *(getattr(got[0], f)[:n1] for f in fields))
+    return dict(name="ring_push[tick]", source="elimaloc_tpu_torch/csrc/rings.cu",
+                replaces=SCAN_KERNELS["ring_push"][1] + " as elimaloc_tpu/pipeline/"
+                "runtime.py:174 _push_ego (tick) and :237 imu_ring_step push one ring",
+                max_abs_err=0.0, ms=time_ms(lambda: kernels.ring_push(*call)),
+                plain_ms=time_ms(lambda: rings.push_rings_plain(*call)),
+                device_fn=(lambda: kernels.ring_push(*call), "ring_push_kernel"),
+                launches_key="ring_push", bound=bound(8, moved))
+
+
+def tick_count(log):
+    """The ticks the event loop makes over the log: np.arange over the
+    rebased float64 IMU span at the 100 Hz tick rate (runtime.run)."""
+    base = np.floor(min(log.imu_t[0], log.scan_t[0]))
+    return len(np.arange(log.imu_t[0] - base, log.imu_t[-1] - base, 0.01))
+
+
+def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
+    """``run`` with use_imu=False (the reference's tick mode) on the P2P
+    configuration: a warm-up run recording the 100th tick's inputs and its
+    ego push, kernel O and J's one-ring form against their plain versions,
+    then the timed run: launch counts from 0 around it (O once per tick, no
+    IMU chain, J once per tick and per IMU sample), the events of each kind
+    and their time, applied, and the truth ATE under JAX's own tick-mode
+    bound (2.0 m)."""
+    kernels, tiles, cfg_mod, runtime = mods[0], mods[3], mods[5], mods[6]
+    cfg = method_cfg(cfg_mod, "P2P")
+    cfg.ekf.use_imu = False
+    pipe = runtime.LocalizationPipeline(
+        cfg, packed[1], device="cuda", ds_points=ds_points,
+        tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
+        ego_ring_size=512, imu_ring_size=256)
+    rec = {"n": 0}
+    orig_tick, orig_push = kernels.ca_tick, kernels.ring_push
+
+    def tick(*a):
+        rec["n"] += 1
+        if rec["n"] == 100:
+            rec["ca_tick"] = a
+        return orig_tick(*a)
+
+    def push(*a):
+        if "ca_tick" in rec and "ring_push" not in rec and a[1] is None:
+            rec["ring_push"] = a
+        return orig_push(*a)
+
+    kernels.ca_tick, kernels.ring_push = tick, push
+    try:
+        pipe.run(log)
+    finally:
+        kernels.ca_tick, kernels.ring_push = orig_tick, orig_push
+    torch.cuda.synchronize()
+    rows = [ca_tick_row(rec["ca_tick"], mods), tick_push_row(rec["ring_push"], mods)]
+    for r in rows:
+        log_line(f"[{TICK}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
+                 f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound'][0]:.8f} ms ({r['bound'][1]})")
+
+    steps = ("tick_step", "imu_ring_step", "scan_step")
+    orig = {n: getattr(runtime, n) for n in steps}
+    spans = {n: [] for n in steps}
+
+    def timed(name, fn):
+        def step(*a, **k):
+            b, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            b.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[name].append((b, e))
+            return out
+        return step
+
+    for name, fn in orig.items():
+        setattr(runtime, name, timed(name, fn))
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traj = pipe.run(log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in orig.items():
+            setattr(runtime, name, fn)
+    launches = dict(kernels.launches)
+    per_kind = {n.replace("_step", ""): (len(v), float(np.mean([b.elapsed_time(e) for b, e in v]))
+                                         if v else 0.0) for n, v in spans.items()}
+    n, n_ticks, n_imu = len(log.scan_t), tick_count(log), len(log.imu_t)
+    applied = float(np.mean([s["applied"] for s in traj["scans"]]))
+    ate = ate_rmse(traj["t"], traj["pos"], log.truth_t, log.truth_pos)
+    log_line(f"[{TICK}] {n / wall:.2f} scans/s ({wall:.3f} s), events (count, ms each): "
+             + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in per_kind.items())
+             + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
+             f"ATE {ate:.4f} m, launches {launches}")
+    check_launches(TICK, launches, SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update")
+                   + tuple(SCAN_KERNELS))
+    if not (launches["ca_tick"] == n_ticks and launches["imu_chain"] == 0
+            and launches["ring_push"] == n_ticks + n_imu):
+        raise AssertionError(f"[{TICK}] launch counts: {launches}")
+    if not (ate < TICK_ATE_GATE and np.all(np.isfinite(traj["pos"]))
+            and traj["pos"].shape == (n, 3)):
+        raise AssertionError(f"[{TICK}] the tick mode failed its acceptance bounds")
+    for r in rows:
+        r["route"] = "cuda"
+        r["launches"] = launches[r.pop("launches_key", r["name"])]
+    return rows, {"scans_per_s": n / wall, "events": {k: c for k, (c, _) in per_kind.items()},
+                  "event_ms": {k: ms for k, (_, ms) in per_kind.items()}, "applied": applied,
+                  "ate_m": ate}
 
 
 def window_log(world, log_mod):
@@ -1477,6 +1879,96 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     return out
 
 
+def _stats(err):
+    return {"max_m": float(err.max()), "median_m": float(np.median(err)),
+            "last3_m": float(err[-3:].max())}
+
+
+def card_vs_cpu(what, loop, make_pipe, noise_floor=False):
+    """``loop(pipe)`` -> positions, on a card pipeline and on a CPU one,
+    held to each other under the closed-loop contract. With
+    ``noise_floor``, a replay outside the contract is held instead to the
+    CPU port's own float32-vs-float64 spread on the same log: max, median
+    and last 3 each at most twice the spread's (each float32 replay, card or
+    CPU, carries its own rounding walk of that size; the contract assumes
+    a closed loop that contracts it away, which an ill-conditioned radar
+    objective does not)."""
+    pos = {device: loop(make_pipe(device, torch.float32)) for device in ("cuda", "cpu")}
+    err = np.linalg.norm(pos["cuda"] - pos["cpu"], axis=1)
+    log_line(f"[{what}] reference: card vs CPU port over {len(err)} scans: max "
+             f"{err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
+             f"{err[-3:].max():.2e} m")
+    out = _stats(err)
+    if contract(err):
+        return out
+    if not noise_floor:
+        raise AssertionError(f"[{what}] the card's trajectory left the closed-loop contract")
+    spread = np.linalg.norm(pos["cpu"] - loop(make_pipe("cpu", torch.float64)), axis=1)
+    out["cpu_f32_vs_f64"] = floor = _stats(spread)
+    log_line(f"[{what}] reference outside the contract; the CPU port's own float32 vs "
+             f"float64 replay: max {floor['max_m']:.2e} m, median {floor['median_m']:.2e} m, "
+             f"last 3 max {floor['last3_m']:.2e} m")
+    if not all(out[k] <= 2.0 * floor[k] for k in floor):
+        raise AssertionError(f"[{what}] the card's trajectory left twice the CPU port's "
+                             "float32 spread")
+    return out
+
+
+def tick_reference_phase(cfg_mod, runtime, builder, tiles, log_mod):
+    """The tick-mode event loop on the small log of tests/test_torch_tick.py
+    (tiny_pipe(use_imu=False), 30 scans of 1024 points), card against the
+    CPU port."""
+    cfg = method_cfg(cfg_mod, "P2P")
+    cfg.pcm.input_voxel_ds_m = 1.0
+    cfg.ekf.use_imu = False
+    world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
+    log = log_mod.synthesize_log(world, duration=3.0, points_per_scan=1024, max_range=50.0,
+                                 seed=10, gps_hz=1.0)
+    built = builder.build_voxel_map(world, 1.0, 30)
+    return card_vs_cpu(TICK, lambda p: p.run(log)[1]["pos"], lambda device, dtype:
+                       runtime.LocalizationPipeline(
+                           cfg, built, device=device, dtype=dtype, ds_points=1024,
+                           tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
+                           ego_ring_size=128, imu_ring_size=128))
+
+
+def radar_reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
+    """A radar path's run_fused on a small log, card against the CPU port,
+    in a map frame whose origin lies FAR_X m away (the same drive, every
+    position shifted): near the origin the reference's world-frame radar
+    model diverges and a chaotic divergence says nothing about the port.
+    GICP and VGICP replay the tiny_pipe world at 4096 points a scan
+    (tests/test_torch_radar_replay.py), AVGICP the bench_methods world.
+    AVGICP's radar objective is flat along the directions the large radar
+    variances damp, and its float32 replay wanders by ~1 cm on the CPU port
+    alone (float32 vs float64: median ~1 cm on this log): a replay outside
+    the contract is held to twice that spread, measured in the same run
+    (``card_vs_cpu``)."""
+    method = path_method(path)
+    cfg = method_cfg(cfg_mod, path)
+    cfg.pcm.input_voxel_ds_m = 1.0
+    cfg.ekf.ekf_init_x_m += FAR_X
+    off = np.array([FAR_X, 0.0, 0.0])
+    if method in ("GICP", "VGICP"):
+        world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
+        log = log_mod.synthesize_log(world, duration=3.0, points_per_scan=4096, max_range=50.0,
+                                     seed=10, gps_hz=1.0)
+        ds_points = 2048
+    else:
+        world = log_mod.make_world(seed=7, extent=60.0, n_ground=150_000, n_wall=80_000)
+        log = log_mod.synthesize_log(world, duration=2.0, points_per_scan=8192, max_range=60.0,
+                                     seed=8, imu_noise_gyro=0.001, imu_noise_acc=0.01)
+        ds_points = 4096
+    log = dataclasses.replace(log, truth_pos=log.truth_pos + off, gps_pos=log.gps_pos + off)
+    built = builder.build_voxel_map(world + off, 1.0, 30, compute_voxel_cov=method != "GICP",
+                                    compute_point_cov=method == "GICP")
+    return card_vs_cpu(path, lambda p: p.run_fused(log)[1]["ego_pos"], lambda device, dtype:
+                       runtime.LocalizationPipeline(
+                           cfg, built, device=device, dtype=dtype, ds_points=ds_points,
+                           tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
+                           ego_ring_size=128, imu_ring_size=128), noise_floor=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -1499,14 +1991,20 @@ def main():
     world, built, log, packed, ds_points, max_slots = make_headline(
         cfg_mod, runtime, builder, tiles, log_mod)
     mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter, rings)
-    rows, slices, deferred, pipes, fused = [], {}, [], {}, {}
-    for path in PATHS:
-        r, slices[path], pipes[path], fused[path] = run_path(
+    rows, slices, deferred, pipes, fused, recs = [], {}, [], {}, {}, {}
+    for path in PATHS + RADAR_PATHS:
+        r, slices[path], pipes[path], fused[path], recs[path] = run_path(
             path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred)
         rows += r
+        if is_radar(path):
+            del pipes[path]
         torch.cuda.empty_cache()
     slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
     slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse)
+    r, slices[JOSEPH] = joseph_path(pipes[FUSION], log, fused[FUSION], recs[FUSION], mods)
+    rows += r
+    r, slices[TICK] = tick_path(packed, log, ds_points, max_slots, mods, ate_rmse)
+    rows += r
     slices["reloc"] = reloc_phase(pipes["P2P"], log, kernels)
     r, slices[WINDOWED] = windowed_path(built, window_log(world, log_mod), packed, mods,
                                         ate_rmse)
@@ -1523,6 +2021,10 @@ def main():
     for path in PATHS:
         slices[path]["reference"] = reference_phase(path, cfg_mod, runtime, builder,
                                                     tiles, log_mod)
+    for path in RADAR_PATHS:
+        slices[path]["reference"] = radar_reference_phase(path, cfg_mod, runtime, builder,
+                                                          tiles, log_mod)
+    slices[TICK]["reference"] = tick_reference_phase(cfg_mod, runtime, builder, tiles, log_mod)
     slices[WINDOWED]["reference"] = window_reference_phase(cfg_mod, runtime, builder, tiles,
                                                            log_mod)
     log_line(f"chip_smoke: {time.time() - t_start:.1f} s")

@@ -25,6 +25,16 @@
 //      exceed 1 (a reference quirk, icp.py:22-24);
 //   4. the slot's 44 partial sums, summed in query order, and the
 //      fixed-order single-CTA reduction of the [S, 44] partials, as kernel E.
+// Radar form (use_radar_cov, icp.py:551-562): the radar term inside the
+// inverse breaks the world-frame reduction, so with a non-null ``radar``
+// [S, QB, 9] the query's first thread takes each matched pair on its own,
+// as the flattened _voxcov_tail does: the sensor-frame residual against the
+// voxel mean, w = th^2 / (th + r^2)^2 with r^2 its squared norm, the 0.01
+// cutoff, M = (R^T C R + radar)^-1 and the pair's J^T M J / J^T M r blocks
+// added into the row's partials; the fitness numerator sums sqrt r^2 over
+// the kept pairs and ``matched`` counts the matched pairs; the pairs the
+// plain sums mask out still form their M (common.cuh: masked_radar_row).
+// The partial-sum layout and the fixed-order reduction are the same.
 // Bound: the S * QB * MHV coord comparisons (~2000 * 16 * 240 = 8M per GN
 // iteration at the headline scan) and up to 7 3x3 inverses per query, FP32
 // issue; the mean/cov reads are 48 B per found pair.
@@ -46,13 +56,14 @@ __device__ __forceinline__ int offset_index(int d0, int d1, int d2) {
   return 0;
 }
 
+template <bool kRadar>
 __global__ void avgicp_search_kernel(
     const float* __restrict__ vmean, const float* __restrict__ vcov,
     const int* __restrict__ vcoord, int mhv, const int* __restrict__ slot_tile,
     const float* __restrict__ sbuf, const bool* __restrict__ qmask, int qb,
     const float* __restrict__ pose, const float* __restrict__ max_dist,
-    float voxel, float* __restrict__ partials, float* __restrict__ cov_out,
-    float* __restrict__ mean_out, bool* __restrict__ ok_out) {
+    float voxel, const float* __restrict__ radar, float* __restrict__ partials,
+    float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
   __shared__ int cv[kChunk * 3];
   __shared__ int any_live;
   extern __shared__ float part[];  // [qb, kGnSums]
@@ -91,6 +102,8 @@ __global__ void avgicp_search_kernel(
     float P[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     float bw[3] = {0.0f, 0.0f, 0.0f};
     float fit = 0.0f, matched = 0.0f;
+    float* pr = part + u.j * kGnSums;
+    for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
     for (int o = 0; o < 7; ++o) {
       float C[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
       float mu[3] = {u.q[0], u.q[1], u.q[2]};
@@ -107,13 +120,37 @@ __global__ void avgicp_search_kernel(
         }
       }
       if (cov_out != nullptr) {
-        const size_t pr = (size_t)u.row * 7 + o;
-        for (int k = 0; k < 9; ++k) cov_out[pr * 9 + k] = C[k];
-        for (int k = 0; k < 3; ++k) mean_out[pr * 3 + k] = mu[k];
-        ok_out[pr] = ok;
+        const size_t pair = (size_t)u.row * 7 + o;
+        for (int k = 0; k < 9; ++k) cov_out[pair * 9 + k] = C[k];
+        for (int k = 0; k < 3; ++k) mean_out[pair * 3 + k] = mu[k];
+        ok_out[pair] = ok;
       }
-      if (!ok) continue;
+      if (!ok) {
+        if (kRadar && u.live) masked_radar_row(u, radar, C, mu, pr);
+        continue;
+      }
       matched += 1.0f;
+      if (kRadar) {  // the flattened per-pair form
+        float e[3];
+        sensor_residual(u, mu, e);
+        const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+        const float den = md + r2;
+        const float w = md * md / (den * den);
+        if (w < 0.01f) {
+          masked_radar_row(u, radar, C, mu, pr);
+          continue;
+        }
+        float rcr[9], A[9], Ar[3];
+        conj_rt(u.r, C, rcr);
+        add_radar(radar, u.row, rcr);
+        inv3x3(rcr, A);
+        for (int k = 0; k < 9; ++k) A[k] *= w;
+        for (int i = 0; i < 3; ++i)
+          Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
+        gn_row(A, Ar, u.s, pr, true);
+        fit += sqrtf(r2);
+        continue;
+      }
       const float den = md + d2;
       const float w = md * md / (den * den);
       if (w < 0.01f) continue;
@@ -124,11 +161,12 @@ __global__ void avgicp_search_kernel(
         bw[i] += w * (ci[3 * i] * d[0] + ci[3 * i + 1] * d[1] + ci[3 * i + 2] * d[2]);
       fit += sqrtf(d2);
     }
-    float* pr = part + u.j * kGnSums;
-    float A[9], b[3];
-    conj_rt(u.r, P, A);
-    rot_t(u.r, bw, b);
-    gn_row(A, b, u.s, pr);
+    if (!kRadar) {
+      float A[9], b[3];
+      conj_rt(u.r, P, A);
+      rot_t(u.r, bw, b);
+      gn_row(A, b, u.s, pr, false);
+    }
     pr[42] = fit;
     pr[43] = matched;
   }
@@ -141,16 +179,20 @@ __global__ void avgicp_search_kernel(
 extern "C" int elm_avgicp_search_reduce(
     const float* vmean, const float* vcov, const int* vcoord, int mhv,
     const int* slot_tile, const float* sbuf, const bool* qmask, int s, int qb,
-    const float* pose, const float* max_dist, float voxel, float* partials,
-    float* sums, float* cov_out, float* mean_out, bool* ok_out,
+    const float* pose, const float* max_dist, float voxel, const float* radar,
+    float* partials, float* sums, float* cov_out, float* mean_out, bool* ok_out,
     cudaStream_t stream) {
   const int smem = qb * kGnSums * (int)sizeof(float);
-  cudaError_t err = allow_dynamic_smem(avgicp_search_kernel, smem);
+  // the radar form is its own instantiation: the reference form keeps its
+  // registers
+  const auto kernel =
+      radar != nullptr ? avgicp_search_kernel<true> : avgicp_search_kernel<false>;
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (s > 0) {
-    avgicp_search_kernel<<<s, kThreads, smem, stream>>>(
+    kernel<<<s, kThreads, smem, stream>>>(
         vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose, max_dist, voxel,
-        partials, cov_out, mean_out, ok_out);
+        radar, partials, cov_out, mean_out, ok_out);
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();

@@ -247,6 +247,15 @@ __device__ __forceinline__ void conj_rt(const float* r, const float* m, float* o
       o[3 * i + l] = r[i] * mr[l] + r[3 + i] * mr[3 + l] + r[6 + i] * mr[6 + l];
 }
 
+// The radar form of kernels E, F and G (use_radar_cov, icp.py:331-333,
+// 361-363): row ``row``'s slot-packed radar covariance (kernel P's 9 floats,
+// R S, not symmetric) added to R^T C R before the inverse; nothing when
+// ``radar`` is null.
+__device__ __forceinline__ void add_radar(const float* radar, int row, float* rcr) {
+  if (radar == nullptr) return;
+  for (int k = 0; k < 9; ++k) rcr[k] += radar[(size_t)row * 9 + k];
+}
+
 // R^T v.
 __device__ __forceinline__ void rot_t(const float* r, const float* v, float* o) {
   for (int i = 0; i < 3; ++i) o[i] = r[i] * v[0] + r[3 + i] * v[1] + r[6 + i] * v[2];
@@ -314,29 +323,54 @@ __device__ __forceinline__ void smallest_eigvec(const float* a, float* v) {
 }
 
 // One row's J^T M J and J^T M r for J = [I | -skew(p)], given A = w M and
-// A r in the sensor frame, written to out[0..41]: the blocks tl = A,
-// tr = -A S, bl = S A, br = -S A S (row-major 3x3 each; A need not be
-// symmetric), then A r and S A r (register/icp.py:_gn_blocks).
+// A r in the sensor frame, written to out[0..41] (added to it with
+// ``accumulate``: kernel G's radar form sums a row's pairs): the blocks
+// tl = A, tr = -A S, bl = S A, br = -S A S (row-major 3x3 each; A need not
+// be symmetric), then A r and S A r (register/icp.py:_gn_blocks).
 __device__ __forceinline__ void gn_row(const float* A, const float* Ar, const float* p,
-                                       float* out) {
+                                       float* out, bool accumulate) {
   const float S[9] = {0.0f, -p[2], p[1], p[2], 0.0f, -p[0], -p[1], p[0], 0.0f};
+  auto put = [&](int k, float v) { out[k] = accumulate ? out[k] + v : v; };
   float AS[9];
   for (int i = 0; i < 3; ++i)
     for (int l = 0; l < 3; ++l) {
       AS[3 * i + l] = A[3 * i] * S[l] + A[3 * i + 1] * S[3 + l] + A[3 * i + 2] * S[6 + l];
-      out[3 * i + l] = A[3 * i + l];
-      out[9 + 3 * i + l] = -AS[3 * i + l];
+      put(3 * i + l, A[3 * i + l]);
+      put(9 + 3 * i + l, -AS[3 * i + l]);
     }
   for (int i = 0; i < 3; ++i)
     for (int l = 0; l < 3; ++l) {
-      out[18 + 3 * i + l] = S[3 * i] * A[l] + S[3 * i + 1] * A[3 + l] + S[3 * i + 2] * A[6 + l];
-      out[27 + 3 * i + l] =
-          -(S[3 * i] * AS[l] + S[3 * i + 1] * AS[3 + l] + S[3 * i + 2] * AS[6 + l]);
+      put(18 + 3 * i + l, S[3 * i] * A[l] + S[3 * i + 1] * A[3 + l] + S[3 * i + 2] * A[6 + l]);
+      put(27 + 3 * i + l,
+          -(S[3 * i] * AS[l] + S[3 * i + 1] * AS[3 + l] + S[3 * i + 2] * AS[6 + l]));
     }
   for (int i = 0; i < 3; ++i) {
-    out[36 + i] = Ar[i];
-    out[39 + i] = S[3 * i] * Ar[0] + S[3 * i + 1] * Ar[1] + S[3 * i + 2] * Ar[2];
+    put(36 + i, Ar[i]);
+    put(39 + i, S[3 * i] * Ar[0] + S[3 * i + 1] * Ar[1] + S[3 * i + 2] * Ar[2]);
   }
+}
+
+// A row of the radar form that the plain sums mask out (unmatched, or
+// under a weight cutoff): the plain version (and JAX) still forms
+// M = (R^T C R + radar)^-1 for it and multiplies it by a zero weight, so a
+// non-finite M (R^T C R + R S is not symmetric and can be singular) turns
+// the sums NaN there. Where M is finite the row adds exact zeros and is
+// skipped; otherwise it is added with A = 0 * M, whose NaNs reach the same
+// sums as the plain version's.
+__device__ __forceinline__ void masked_radar_row(const SlotQuery& u, const float* radar,
+                                                 const float* C, const float* mu,
+                                                 float* out) {
+  float rcr[9], A[9], e[3], Ar[3];
+  conj_rt(u.r, C, rcr);
+  add_radar(radar, u.row, rcr);
+  inv3x3(rcr, A);
+  bool finite = true;
+  for (int k = 0; k < 9; ++k) finite = finite && isfinite(A[k]);
+  if (finite) return;
+  for (int k = 0; k < 9; ++k) A[k] *= 0.0f;
+  sensor_residual(u, mu, e);
+  for (int i = 0; i < 3; ++i) Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
+  gn_row(A, Ar, u.s, out, true);
 }
 
 // The dynamic shared memory a kernel of this family needs above the 48 KB

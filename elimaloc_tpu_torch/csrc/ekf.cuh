@@ -1,7 +1,9 @@
 // Shared device code of kernels H (imu_chain.cu) and I (ekf_update.cu): the
 // 27-state EKF held in shared memory by one CTA, the quaternion / rotation
 // helpers of ops/lie.py, the right Jacobian, and one Kalman update over an
-// index list for m = 2, 3, 4, 6 (ekf/filter.py:_ekf_measurement_update).
+// index list for m = 2, 3, 4, 6 (ekf/filter.py:_ekf_measurement_update), in
+// the reference's P -= K H P form or the Joseph form. Kernel O
+// (ca_tick.cu) shares the state, its load and store and the helpers.
 // Kernels K (scan_ring.cu), L (pcm_meas.cu) and M (gn_step.cu) use its
 // rotation helpers too, with so3_log, the 4x4 rigid transforms of lie.py
 // (compose, transform_inverse, interpolate_tf_with_time) and the LU with
@@ -70,10 +72,11 @@ struct State {
       cf_init;
 };
 
-// Scratch of one Kalman update (m <= 6).
+// Scratch of one Kalman update (m <= 6); Pi holds H P, then in the Joseph
+// form the observed columns of (I - K H) P, and KR holds K R.
 struct Update {
   int m, idx[6], piv[6];
-  float Y[6], R[36], S[36], Pi[6 * kN], K[kN * 6], su[kN];
+  float Y[6], R[36], S[36], Pi[6 * kN], K[kN * 6], KR[kN * 6], su[kN];
 };
 
 __device__ __forceinline__ float dv(float a, float b) { return __fdiv_rn(a, b); }
@@ -638,10 +641,21 @@ __device__ __forceinline__ void inject(State& s, const float* su) {
   quat_normalize(q, s.imu_rot);
 }
 
-// One Kalman update with H the selector of u.idx[0..m) (the reference's
-// P -= K H P form). Thread 0 has written u.m, u.idx, u.Y, u.R; every thread
-// of the CTA calls this after a barrier.
-__device__ __forceinline__ void measurement_update(State& s, Update& u) {
+// One Kalman update with H the selector of u.idx[0..m): the reference's
+// P -= K H P form, or with ``joseph`` (I - K H) P (I - K H)^T + K R K^T
+// (filter.py:_ekf_measurement_update, joseph=True). With H a selector, K H
+// scatters K's m columns into the observed columns, so the Joseph form is
+// A = P - K H P (the reference form's result), then
+// A - (A H^T) K^T + (K R) K^T: one more CTA-strided pass of 2m terms per
+// entry, after the observed columns of A and K R are gathered. The Joseph
+// form is symmetric in exact arithmetic, and what it is for is a P that
+// stays symmetric in long float32 runs: the pass evaluates the upper
+// triangle and mirrors it, so P leaves every Joseph update exactly
+// symmetric (A itself, and the plain version's two 27x27 products, are
+// symmetric only to rounding; the entries differ from the plain version's
+// by that rounding). Thread 0 has written u.m, u.idx, u.Y, u.R; every
+// thread of the CTA calls this after a barrier.
+__device__ __forceinline__ void measurement_update(State& s, Update& u, bool joseph) {
   const int m = u.m;
   for (int e = threadIdx.x; e < m * kN; e += blockDim.x)
     u.Pi[e] = s.P[u.idx[e / kN] * kN + e % kN];
@@ -657,6 +671,30 @@ __device__ __forceinline__ void measurement_update(State& s, Update& u) {
     s.P[e] = sub(s.P[e], acc);
   }
   if (threadIdx.x == 0) inject(s, u.su);
+  __syncthreads();
+  if (!joseph) return;
+  for (int e = threadIdx.x; e < kN * m; e += blockDim.x) {
+    const int i = e / m, b = e % m;
+    u.Pi[b * kN + i] = s.P[i * kN + u.idx[b]];  // (A H^T)[i, b]
+    float acc = 0.0f;
+    for (int a = 0; a < m; ++a) acc = add(acc, mul(u.K[i * 6 + a], u.R[a * m + b]));
+    u.KR[i * 6 + b] = acc;
+  }
+  __syncthreads();
+  // the upper triangle, mirrored: each thread reads only A's upper entry
+  // (i <= j) it replaces, so the in-place writes race with no read
+  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) {
+    const int i = e / kN, j = e % kN;
+    if (j < i) continue;
+    float ak = 0.0f, krk = 0.0f;
+    for (int b = 0; b < m; ++b) {
+      ak = add(ak, mul(u.Pi[b * kN + i], u.K[j * 6 + b]));
+      krk = add(krk, mul(u.KR[i * 6 + b], u.K[j * 6 + b]));
+    }
+    const float v = add(sub(s.P[e], ak), krk);
+    s.P[e] = v;
+    s.P[j * kN + i] = v;
+  }
   __syncthreads();
 }
 

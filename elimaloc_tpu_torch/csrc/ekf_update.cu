@@ -19,8 +19,9 @@
 // frame calls it once for CAN + GPS before the scan and once for PCM at the
 // scan's end. Thread 0 sets each measurement up and solves S (LU with
 // partial pivoting for m = 4, 6, no library call); the gain rows and the
-// P update run across the block. The masks are device flags, read in the
-// kernel: no host sync.
+// P update run across the block, in the reference's P -= K H P form or,
+// with ``joseph``, the Joseph form (ekf.cuh: measurement_update). The masks
+// are device flags, read in the kernel: no host sync.
 #include "ekf.cuh"
 
 using namespace elm;
@@ -123,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
     const bool* __restrict__ gps_valid, int has_pcm, const float* __restrict__ pcm_t,
     const float* __restrict__ pcm_pos, const float* __restrict__ pcm_rot,
     const float* __restrict__ pcm_pos_cov, const float* __restrict__ pcm_rot_cov,
-    const bool* __restrict__ pcm_apply) {
+    const bool* __restrict__ pcm_apply, bool joseph) {
   __shared__ State s;
   __shared__ Update u;
   __shared__ Ctrl c;
@@ -170,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
     }
     __syncthreads();
     if (c.run) {
-      measurement_update(s, u);
+      measurement_update(s, u, joseph);
       if (threadIdx.x == 0) {
         if (is_can)
           can_finish(s, c.t, c.vx, c.yaw);
@@ -193,7 +194,7 @@ extern "C" int elm_ekf_update(void* const* in, void* const* out, const float* co
                               const bool* gps_valid, int has_pcm, const float* pcm_t,
                               const float* pcm_pos, const float* pcm_rot,
                               const float* pcm_pos_cov, const float* pcm_rot_cov,
-                              const bool* pcm_apply, cudaStream_t stream) {
+                              const bool* pcm_apply, int joseph, cudaStream_t stream) {
   Fields fi, fo;
   Params prm;
   for (int i = 0; i < kFields; ++i) {
@@ -204,6 +205,6 @@ extern "C" int elm_ekf_update(void* const* in, void* const* out, const float* co
   ekf_update_kernel<<<1, kThreads, 0, stream>>>(
       fi, fo, prm, n_can, can_t, can_vel, can_yaw, can_valid, n_gps, gps_src, gnss_max, gps_t,
       gps_pos, gps_cov, gps_valid, has_pcm, pcm_t, pcm_pos, pcm_rot, pcm_pos_cov, pcm_rot_cov,
-      pcm_apply);
+      pcm_apply, joseph != 0);
   return (int)cudaGetLastError();
 }

@@ -24,23 +24,29 @@
 //      query order from dynamic shared memory (QB x 44 floats), and a
 //      single-CTA kernel reduces the [S, 44] partials in a fixed order. No
 //      atomics: a float32 result is the same on every run.
+// Radar form (use_radar_cov): a non-null ``radar`` [S, QB, 9] (kernel P's
+// slot-packed R S) adds the row's 9 floats to R^T C R before the inverse
+// (icp.py:331-333); M is then not symmetric, which gn_row already takes.
+// A live row without a match still forms its M, as the plain sums do
+// (common.cuh: masked_radar_row).
 // Bound: the search, as kernel A (S * QB * MHP cube tests and distances per
 // GN iteration); the tail is ~300 FLOP per query, the covariance gather
-// 48 B per query.
+// 48 B per query (84 B with radar).
 #include "common.cuh"
 
 using namespace elm;
 
 namespace {
 
+template <bool kRadar>
 __global__ void gicp_search_kernel(
     const float* __restrict__ halo, const float* __restrict__ pcov,
     const float* __restrict__ pmean, int mhp, const int* __restrict__ slot_tile,
     const float* __restrict__ sbuf, const bool* __restrict__ qmask, int qb,
     const float* __restrict__ pose, const float* __restrict__ max_dist,
     float voxel, float tile_size, int tx0, int ty0, int ty_dim,
-    float* __restrict__ partials, float* __restrict__ cov_out,
-    float* __restrict__ mean_out, bool* __restrict__ ok_out) {
+    const float* __restrict__ radar, float* __restrict__ partials,
+    float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
   __shared__ float cl[kChunk * 3];
   __shared__ int cv[kChunk * 3];
   __shared__ int any_live;
@@ -74,6 +80,7 @@ __global__ void gicp_search_kernel(
     if (ok) {
       float rcr[9], A[9], e[3], Ar[3];
       conj_rt(u.r, C, rcr);
+      if (kRadar) add_radar(radar, u.row, rcr);
       inv3x3(rcr, A);
       sensor_residual(u, mu, e);
       const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
@@ -81,13 +88,15 @@ __global__ void gicp_search_kernel(
       const float w = md * md / (den * den) * 0.8f + 0.2f;
       for (int k = 0; k < 9; ++k) A[k] *= w;
       for (int i = 0; i < 3; ++i) Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
-      gn_row(A, Ar, u.s, pr);
+      gn_row(A, Ar, u.s, pr, false);
       float v[3], n[3];
       smallest_eigvec(C, v);
       rot_t(u.r, v, n);
       const float nn = fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1e-30f);
       pr[42] = fabsf((e[0] * n[0] + e[1] * n[1] + e[2] * n[2]) / nn);
       pr[43] = 1.0f;
+    } else if (kRadar && u.live) {
+      masked_radar_row(u, radar, C, mu, pr);
     }
   }
   __syncthreads();
@@ -100,15 +109,19 @@ extern "C" int elm_gicp_search_reduce(
     const float* halo, const float* pcov, const float* pmean, int mhp,
     const int* slot_tile, const float* sbuf, const bool* qmask, int s, int qb,
     const float* pose, const float* max_dist, float voxel, float tile_size, int tx0,
-    int ty0, int ty_dim, float* partials, float* sums, float* cov_out,
+    int ty0, int ty_dim, const float* radar, float* partials, float* sums, float* cov_out,
     float* mean_out, bool* ok_out, cudaStream_t stream) {
   const int smem = qb * kGnSums * (int)sizeof(float);
-  cudaError_t err = allow_dynamic_smem(gicp_search_kernel, smem);
+  // the radar form is its own instantiation: the reference form keeps its
+  // registers
+  const auto kernel =
+      radar != nullptr ? gicp_search_kernel<true> : gicp_search_kernel<false>;
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (s > 0) {
-    gicp_search_kernel<<<s, kThreads, smem, stream>>>(
+    kernel<<<s, kThreads, smem, stream>>>(
         halo, pcov, pmean, mhp, slot_tile, sbuf, qmask, qb, pose, max_dist, voxel,
-        tile_size, tx0, ty0, ty_dim, partials, cov_out, mean_out, ok_out);
+        tile_size, tx0, ty0, ty_dim, radar, partials, cov_out, mean_out, ok_out);
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();

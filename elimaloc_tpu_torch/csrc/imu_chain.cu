@@ -17,9 +17,11 @@
 // C = A B^T (15x15), then P += B + B^T + C + Q, the sparse form the plain
 // f32 version takes. ZUPT, the complementary filter (m = 2 on roll, pitch)
 // and the mounting calibration (m = 3) follow in the reference's gate
-// order. Each sample's (t, pos, rpy, vel_local, gyro), the ego ring's
-// fields, is written for the batch push, so the batched Euler and
-// local-velocity conversions of the plain path need no launch either.
+// order, each in the reference's P -= K H P form or, with the Joseph flag
+// bit, the Joseph form (ekf.cuh: measurement_update). Each sample's (t,
+// pos, rpy, vel_local, gyro), the ego ring's fields, is written for the
+// batch push, so the batched Euler and local-velocity conversions of the
+// plain path need no launch either.
 #include "ekf.cuh"
 
 using namespace elm;
@@ -27,7 +29,7 @@ using namespace elm::ekf;
 
 namespace {
 
-constexpr int kUseZupt = 1, kRunCf = 2, kGravity = 4, kCalibration = 8;
+constexpr int kUseZupt = 1, kRunCf = 2, kGravity = 4, kCalibration = 8, kJoseph = 16;
 
 struct Step {
   // the sample's gates, set by thread 0 before the barrier that the CTA
@@ -218,6 +220,7 @@ __global__ void __launch_bounds__(kThreads) imu_chain_kernel(
   __shared__ Step w;
   __shared__ Update u;
   const bool gravity = flags & kGravity;
+  const bool joseph = flags & kJoseph;
   load_state(in, s);
   __syncthreads();
   for (int k = 0; k < n; ++k) {
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) imu_chain_kernel(
                    cf_setup(s, w, u, vx_now);
       __syncthreads();
       if (w.cf_run) {
-        measurement_update(s, u);
+        measurement_update(s, u, joseph);
         if (threadIdx.x == 0) {
           s.cf_prev_vx = vx_now;
           s.cf_prev_t = w.t;
@@ -259,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) imu_chain_kernel(
       if (threadIdx.x == 0) w.cal_run = calib_setup(s, u);
       __syncthreads();
       if (w.cal_run) {
-        measurement_update(s, u);
+        measurement_update(s, u, joseph);
         if (threadIdx.x == 0) s.calib_started = true;
       }
     }

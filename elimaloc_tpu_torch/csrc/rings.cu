@@ -12,7 +12,8 @@
 //
 // Bound: latency. A frame moves ~11 samples into rings of 512 and 256 rows
 // (~30 KB read and written); no bandwidth or FLOP limit is near. Design: one
-// launch, one CTA per ring. Thread 0 runs the acceptance chain (sequential
+// launch, one CTA per ring; a ring passed as null is left out (the tick
+// mode's ego push after kernel O, and its IMU-only intake). Thread 0 runs the acceptance chain (sequential
 // by definition) and records the sample of each rank in shared memory; then
 // every thread writes its strided output rows, each from the rolled old ring
 // or from the sample of its rank. The rings are written out of place, so no
@@ -114,11 +115,18 @@ void fill(Ring& g, int cap, int nf, float eps, void* const* p) {
 extern "C" int elm_ring_push(void* const* ego, int ego_cap, void* const* imu, int imu_cap,
                              int m, const bool* valid, cudaStream_t stream) {
   Rings rings;
-  fill(rings.r[0], ego_cap, 4, 1e-5f, ego);
-  fill(rings.r[1], imu_cap, 2, 0.0f, imu);
-  const int cap = ego_cap > imu_cap ? ego_cap : imu_cap;
+  int nr = 0, cap = 0;
+  if (ego != nullptr) {
+    fill(rings.r[nr++], ego_cap, 4, 1e-5f, ego);
+    cap = ego_cap;
+  }
+  if (imu != nullptr) {
+    fill(rings.r[nr++], imu_cap, 2, 0.0f, imu);
+    cap = imu_cap > cap ? imu_cap : cap;
+  }
+  if (nr == 0) return 0;
   const int ranks = m < cap ? m : cap;
-  ring_push_kernel<<<2, kRingThreads, (ranks > 0 ? ranks : 1) * sizeof(int), stream>>>(
+  ring_push_kernel<<<nr, kRingThreads, (ranks > 0 ? ranks : 1) * sizeof(int), stream>>>(
       rings, m, valid);
   return (int)cudaGetLastError();
 }

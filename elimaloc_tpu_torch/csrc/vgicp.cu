@@ -20,6 +20,9 @@
 //      every valid match counts (cpp:199-207);
 //   4. the slot's 44 partial sums, summed in query order, and the
 //      fixed-order single-CTA reduction of the [S, 44] partials, as kernel E.
+// Radar form (use_radar_cov): a non-null ``radar`` [S, QB, 9] adds the row's
+// 9 floats to R^T C R before the inverse (icp.py:361-363), as kernel E,
+// masked rows included (common.cuh: masked_radar_row).
 // Bound: the S * QB * MHV cube tests and distances (~2000 * 16 * 152 = 5M
 // per GN iteration at the headline scan), FP32 issue and shared memory.
 #include "common.cuh"
@@ -28,14 +31,15 @@ using namespace elm;
 
 namespace {
 
+template <bool kRadar>
 __global__ void vgicp_search_kernel(
     const float* __restrict__ vmean, const float* __restrict__ vcov,
     const int* __restrict__ vcoord, int mhv, const int* __restrict__ slot_tile,
     const float* __restrict__ sbuf, const bool* __restrict__ qmask, int qb,
     const float* __restrict__ pose, const float* __restrict__ max_dist,
     float voxel, float tile_size, int tx0, int ty0, int ty_dim,
-    float* __restrict__ partials, float* __restrict__ cov_out,
-    float* __restrict__ mean_out, bool* __restrict__ ok_out) {
+    const float* __restrict__ radar, float* __restrict__ partials,
+    float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
   __shared__ float cl[kChunk * 3];
   __shared__ int cv[kChunk * 3];
   __shared__ int any_live;
@@ -76,14 +80,19 @@ __global__ void vgicp_search_kernel(
       if (w >= 0.01f) {
         float rcr[9], A[9], Ar[3];
         conj_rt(u.r, C, rcr);
+        if (kRadar) add_radar(radar, u.row, rcr);
         inv3x3(rcr, A);
         for (int k = 0; k < 9; ++k) A[k] *= w;
         for (int i = 0; i < 3; ++i)
           Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
-        gn_row(A, Ar, u.s, pr);
+        gn_row(A, Ar, u.s, pr, false);
         pr[42] = sqrtf(r2);
+      } else if (kRadar) {
+        masked_radar_row(u, radar, C, mu, pr);
       }
       pr[43] = 1.0f;
+    } else if (kRadar && u.live) {
+      masked_radar_row(u, radar, C, mu, pr);
     }
   }
   __syncthreads();
@@ -96,15 +105,19 @@ extern "C" int elm_vgicp_search_reduce(
     const float* vmean, const float* vcov, const int* vcoord, int mhv,
     const int* slot_tile, const float* sbuf, const bool* qmask, int s, int qb,
     const float* pose, const float* max_dist, float voxel, float tile_size, int tx0,
-    int ty0, int ty_dim, float* partials, float* sums, float* cov_out,
+    int ty0, int ty_dim, const float* radar, float* partials, float* sums, float* cov_out,
     float* mean_out, bool* ok_out, cudaStream_t stream) {
   const int smem = qb * kGnSums * (int)sizeof(float);
-  cudaError_t err = allow_dynamic_smem(vgicp_search_kernel, smem);
+  // the radar form is its own instantiation: the reference form keeps its
+  // registers
+  const auto kernel =
+      radar != nullptr ? vgicp_search_kernel<true> : vgicp_search_kernel<false>;
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (s > 0) {
-    vgicp_search_kernel<<<s, kThreads, smem, stream>>>(
+    kernel<<<s, kThreads, smem, stream>>>(
         vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose, max_dist, voxel,
-        tile_size, tx0, ty0, ty_dim, partials, cov_out, mean_out, ok_out);
+        tile_size, tx0, ty0, ty_dim, radar, partials, cov_out, mean_out, ok_out);
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();

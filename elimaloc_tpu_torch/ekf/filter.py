@@ -10,12 +10,13 @@ the dense forms that the float64 oracle parity rests on.
 Ported: ``init_state``, the ``check_*`` gates, ``_ekf_measurement_update``
 (any selector), ``_fpf_dense``/``_fpf_sparse``, ``_propagate_imu``,
 ``_zupt_imu``, ``_complementary_filter``, ``_calibrate_vehicle_to_imu``,
-``predict_imu``, ``update_gnss``, ``update_can`` and ``ego_state``, plus
-the filter half of the pipeline's GPS step (``update_gps``). A frame's
-sequences have one dispatch each: :func:`imu_chain` (the IMU samples; kernel
-H on the card) and :func:`update_chain` (CAN, GPS and PCM updates; kernel
-I). The constant-acceleration ``predict`` tick and the Joseph form on the
-card are ROADMAP Queue 1 #12.
+``predict_imu``, ``predict`` (the constant-acceleration tick of
+``use_imu=False``), ``update_gnss``, ``update_can`` and ``ego_state``, plus
+the filter half of the pipeline's GPS step (``update_gps``). Each sequence
+has one dispatch: :func:`imu_chain` (a frame's IMU samples; kernel H on the
+card), :func:`ca_tick` (one CA tick; kernel O) and :func:`update_chain`
+(CAN, GPS and PCM updates; kernel I). ``EkfFlags.joseph_form`` selects the
+Joseph-form covariance update in the plain versions and in kernels H and I.
 """
 
 from __future__ import annotations
@@ -481,6 +482,51 @@ def predict_imu(state: EkfState, imu: ImuMeas, params: EkfParams,
 
 
 # --------------------------------------------------------------------------- #
+# Non-IMU constant-acceleration prediction (ekf_algorithm.cpp:81-165)
+# --------------------------------------------------------------------------- #
+
+def predict(state: EkfState, timestamp, params: EkfParams) -> EkfState:
+    """RunPrediction, the system-clock CA tick when use_imu is off (JAX
+    ``filter.py:568``): skipped under the reset and PCM-init gates and for
+    |dt| < 1e-6 (then dt = 1e-3 feeds the masked-out branch), the dense
+    F P F^T + Q in both dtypes, and the gyro std used in deg/s (cpp:138-139)."""
+    dtype, dev = state.P.dtype, state.P.device
+    t = torch.as_tensor(timestamp, dtype=dtype, device=dev)
+    reset = state.reset_for_init_prediction
+    gate_early = reset | state.pcm_init_on_going
+    dt = t - state.prev_timestamp
+    do_predict = (~gate_early) & (torch.abs(dt) >= 1e-6)
+    dts = torch.where(do_predict, dt, torch.full_like(dt, 1e-3))
+
+    delta_rot = lie.exp_gyro_to_quat(state.gyro, dts)
+    pos_new = state.pos + state.vel * dts + 0.5 * state.acc * dts * dts
+    rot_new = lie.quat_normalize(lie.quat_mul(state.rot, delta_rot))
+    vel_new = state.vel + state.acc * dts
+
+    dt2 = dts * dts
+    qd = torch.zeros(STATE_ORDER, dtype=dtype, device=dev)
+    for lo, std in ((S_X, params.state_std_pos_m), (S_ROLL, params.state_std_rot_rad),
+                    (S_VX, params.state_std_vel_mps),
+                    # quirk preserved: the gyro std in deg/s unconverted
+                    (S_ROLL_RATE, params.state_std_gyro_dps),
+                    (S_AX, params.state_std_acc_mps)):
+        qd[lo:lo + 3] = std ** 2 * dt2
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    F = torch.eye(STATE_ORDER, dtype=dtype, device=dev)
+    F[S_X:S_X + 3, S_VX:S_VX + 3] = eye3 * dts
+    F[S_ROLL:S_ROLL + 3, S_ROLL_RATE:S_ROLL_RATE + 3] = eye3 * dts
+    F[S_X:S_X + 3, S_AX:S_AX + 3] = eye3 * 0.5 * dt2
+    F[S_VX:S_VX + 3, S_AX:S_AX + 3] = eye3 * dts
+    P_new = F @ state.P @ F.T + torch.diag(qd)
+
+    predicted = state.replace(pos=pos_new, rot=rot_new, vel=vel_new, P=P_new)
+    state = select(do_predict, predicted, state)
+    prev_ts = torch.where(gate_early | do_predict, t, state.prev_timestamp)
+    return state.replace(prev_timestamp=prev_ts,
+                         reset_for_init_prediction=torch.zeros_like(reset))
+
+
+# --------------------------------------------------------------------------- #
 # GNSS / PCM pose update (ekf_algorithm.cpp:318-432)
 # --------------------------------------------------------------------------- #
 
@@ -661,6 +707,22 @@ def imu_chain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
         state, hist = imu_chain_plain(state, ts, acc, gyro, valid, params, flags)
         return state, ego_history(*hist)
     return kernels.imu_chain(state, ts, acc, gyro, valid, params, flags)
+
+
+def ca_tick_plain(state: EkfState, t, params: EkfParams):
+    """Plain PyTorch version of kernel O: :func:`predict` at ``t``, then the
+    tick's ego-ring entry (t, pos, rpy, vel_local, gyro), each of one row
+    (JAX ``runtime.py:249`` tick_step before its push)."""
+    state = predict(state, t, params)
+    row = (state.prev_timestamp, state.pos, state.rot, state.vel, state.gyro)
+    return state, ego_history(*(x[None] for x in row))
+
+
+def ca_tick(state: EkfState, t, params: EkfParams):
+    """:func:`ca_tick_plain` for CPU tensors, kernel O for CUDA ones."""
+    if state.P.device.type == "cpu":
+        return ca_tick_plain(state, t, params)
+    return kernels.ca_tick(state, t, params)
 
 
 def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,

@@ -9,7 +9,7 @@ PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method kernels A, E, F, G, one
-per ICP method, and N.
+per ICP method, N, O and P.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -36,9 +36,17 @@ M         gn_step             register/icp.py:_solve_step + _step_transform + th
                               GN loop body (compose, so3_log, the gates)
 N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
                               incremental move of an active map window
+O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False,
+                              runtime.tick_step) + its ego-ring entry
+P         radar_cov           register/icp.py:radar_point_cov + the slot packing
+                              of run_register (use_radar_cov)
 ========  ==================  ===================================================
 
-Kernel N runs only on the active-window path (``map_window_radius``).
+Kernel N runs only on the active-window path (``map_window_radius``), O only
+in the event loop's tick mode (``use_imu=False``), P once per registration
+with ``use_radar_cov``. Flagged forms: H and I take ``EkfFlags.joseph_form``
+(the Joseph-form covariance update), E, F and G a slot-packed ``radar``
+(kernel P's output) added before their 3x3 inverse.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0, "ring_push": 0,
             "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
-            "shift_window": 0}
+            "shift_window": 0, "ca_tick": 0, "radar_cov": 0}
 
 
 def reset_launches() -> None:
@@ -250,10 +258,12 @@ GN_SUMS = 44
 
 
 def _cov_search(name, entry, rows, slot_tile, sbuf, qmask, pose, max_dist,
-                geometry, with_matches, pairs):
+                geometry, with_matches, pairs, radar):
     """Shared launch of kernels E, F and G: ``rows`` are the (name, tensor,
     dtype, trailing shape) halo inputs of one map row each; ``pairs`` is 7
-    for AVGICP's per-offset matches, 0 for one match per query."""
+    for AVGICP's per-offset matches, 0 for one match per query; ``radar``
+    the slot-packed radar covariances [S, QB, 3, 3] of the radar form, or
+    None."""
     s, qb = _qb_of(qmask, name)
     for field, t, _, _ in rows:
         if t is None:
@@ -267,7 +277,9 @@ def _cov_search(name, entry, rows, slot_tile, sbuf, qmask, pose, max_dist,
              _check(sbuf, "sbuf", f32, (s, qb, 3)),
              _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s),
              ctypes.c_int(qb), _check(pose, "pose", f32, (4, 4)),
-             _check(max_dist, "max_dist", f32, ()), *geometry]
+             _check(max_dist, "max_dist", f32, ()), *geometry,
+             ctypes.c_void_p(None) if radar is None
+             else _check(radar, "radar", f32, (s, qb, 3, 3))]
     partials = torch.empty((s, GN_SUMS), dtype=f32, device=dev)
     sums = torch.empty(GN_SUMS, dtype=f32, device=dev)
     cov = mean = ok = None
@@ -290,10 +302,10 @@ def _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim):
 
 def gicp_correspond(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile,
                     sbuf, qmask, pose, max_dist, *, voxel_size, tile_size, tx0, ty0,
-                    ty_dim, with_matches: bool = False):
+                    ty_dim, with_matches: bool = False, radar=None):
     """Kernel E (icp.gicp_search_reduce_plain): the [44] GICP sums of one GN
-    iteration at ``pose``, plus (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])
-    when ``with_matches``."""
+    iteration at ``pose`` (the radar form with ``radar`` [S,QB,3,3]), plus
+    (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB]) when ``with_matches``."""
     f32 = torch.float32
     return _cov_search(
         "gicp_correspond", "elm_gicp_search_reduce",
@@ -301,15 +313,15 @@ def gicp_correspond(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile,
          ("halo_point_cov", halo_point_cov, f32, (3, 3)),
          ("halo_point_cov_mean", halo_point_cov_mean, f32, (3,))],
         slot_tile, sbuf, qmask, pose, max_dist,
-        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0)
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0, radar)
 
 
 def vgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf,
                      qmask, pose, max_dist, *, voxel_size, tile_size, tx0, ty0,
-                     ty_dim, with_matches: bool = False):
+                     ty_dim, with_matches: bool = False, radar=None):
     """Kernel F (icp.vgicp_search_reduce_plain): the [44] VGICP sums of one GN
-    iteration at ``pose``, plus (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])
-    when ``with_matches``."""
+    iteration at ``pose`` (the radar form with ``radar`` [S,QB,3,3]), plus
+    (cov [S,QB,3,3], mean [S,QB,3], ok [S,QB]) when ``with_matches``."""
     f32 = torch.float32
     return _cov_search(
         "vgicp_correspond", "elm_vgicp_search_reduce",
@@ -317,13 +329,15 @@ def vgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbu
          ("halo_vox_cov", halo_vox_cov, f32, (3, 3)),
          ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
         slot_tile, sbuf, qmask, pose, max_dist,
-        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0)
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), with_matches, 0, radar)
 
 
 def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf,
-                      qmask, pose, max_dist, *, voxel_size, with_matches: bool = False):
+                      qmask, pose, max_dist, *, voxel_size, with_matches: bool = False,
+                      radar=None):
     """Kernel G (icp.avgicp_search_reduce_plain): the [44] AVGICP sums of one
-    GN iteration at ``pose``, plus (cov [S,QB,7,3,3], mean [S,QB,7,3],
+    GN iteration at ``pose`` (with ``radar`` [S,QB,3,3] the flattened
+    per-pair radar form), plus (cov [S,QB,7,3,3], mean [S,QB,7,3],
     ok [S,QB,7]) when ``with_matches``."""
     f32 = torch.float32
     return _cov_search(
@@ -332,7 +346,7 @@ def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sb
          ("halo_vox_cov", halo_vox_cov, f32, (3, 3)),
          ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
         slot_tile, sbuf, qmask, pose, max_dist, [ctypes.c_float(voxel_size)],
-        with_matches, 7)
+        with_matches, 7, radar)
 
 
 # --------------------------------------------------------------------------- #
@@ -366,7 +380,7 @@ PARAM_FIELDS = (
     ("can_meas_uncertainty_yaw_rate_rad", ()),
 )
 #: kernel H's flag bits (csrc/imu_chain.cu)
-_ZUPT, _RUN_CF, _GRAVITY, _CALIBRATION = 1, 2, 4, 8
+_ZUPT, _RUN_CF, _GRAVITY, _CALIBRATION, _JOSEPH = 1, 2, 4, 8, 16
 _PCM = 3  # config.GnssSource.PCM
 
 
@@ -391,33 +405,46 @@ def _params(params):
                        for f, shape in PARAM_FIELDS])
 
 
-def _refuse_joseph(name, flags):
-    if flags.joseph_form:
-        raise NotImplementedError(
-            f"{name}: the Joseph-form covariance update on the card is ROADMAP "
-            "Queue 1 #12")
+def _history(n, device):
+    """Fresh ego-ring rows (t [n], pos, rpy, vel_local, gyro [n, 3])."""
+    return (torch.empty(n, dtype=_F32, device=device),) + tuple(
+        torch.empty((n, 3), dtype=_F32, device=device) for _ in range(4))
 
 
 def imu_chain(state, ts, acc, gyro, valid, params, flags):
     """Kernel H (ekf.filter.imu_chain_plain + ego_history): the frame's
     ego-frame IMU samples through ``predict_imu`` one at a time, masked by
-    ``valid``. Returns (state, (t, pos, rpy, vel_local, gyro)) with the
-    ego-ring history per sample."""
-    _refuse_joseph("imu_chain", flags)
+    ``valid``, the updates in the Joseph form with ``flags.joseph_form``.
+    Returns (state, (t, pos, rpy, vel_local, gyro)) with the ego-ring
+    history per sample."""
     n = ts.shape[0]
     args = [_check(ts, "ts", _F32, (n,)), _check(acc, "acc", _F32, (n, 3)),
             _check(gyro, "gyro", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,))]
     ins, outs, out_ptrs = _ekf_io(state, "imu_chain")
-    hist = (torch.empty(n, dtype=_F32, device=ts.device),) + tuple(
-        torch.empty((n, 3), dtype=_F32, device=ts.device) for _ in range(4))
+    hist = _history(n, ts.device)
     bits = ((_ZUPT if flags.use_zupt else 0) | (_RUN_CF if flags.run_cf else 0)
             | (_GRAVITY if flags.imu_estimate_gravity else 0)
-            | (_CALIBRATION if flags.imu_estimate_calibration else 0))
+            | (_CALIBRATION if flags.imu_estimate_calibration else 0)
+            | (_JOSEPH if flags.joseph_form else 0))
     rc = library().elm_imu_chain(ins, out_ptrs, _params(params), *args, ctypes.c_int(n),
                                  ctypes.c_int(bits), *(_ptr(h) for h in hist),
                                  _stream(ts))
     _raise_on(rc, "imu_chain")
     launches["imu_chain"] += 1
+    return state.replace(**outs), hist
+
+
+def ca_tick(state, t, params):
+    """Kernel O (ekf.filter.ca_tick_plain): ``predict`` at the device scalar
+    ``t`` (one constant-acceleration tick), then the tick's ego-ring entry.
+    Returns (state, (t [1], pos, rpy, vel_local, gyro [1, 3]))."""
+    p_t = _check(t, "t", _F32, ())
+    ins, outs, out_ptrs = _ekf_io(state, "ca_tick")
+    hist = _history(1, t.device)
+    rc = library().elm_ca_tick(ins, out_ptrs, _params(params), p_t, *(_ptr(h) for h in hist),
+                               _stream(t))
+    _raise_on(rc, "ca_tick")
+    launches["ca_tick"] += 1
     return state.replace(**outs), hist
 
 
@@ -427,8 +454,8 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
     ``can = (t, vel_x, yaw_rate, valid)``, then the GPS fixes
     ``gps = (t, pos, cov_diag, valid)`` (as GNSS source ``gps_source``,
     with ``gnss_uncertainty_max``), then the PCM pose
-    ``pcm = (GnssMeas, apply)``, in one launch."""
-    _refuse_joseph("ekf_update", flags)
+    ``pcm = (GnssMeas, apply)``, in one launch, each update in the Joseph
+    form with ``flags.joseph_form``."""
     ins, outs, out_ptrs = _ekf_io(state, "ekf_update")
     null = ctypes.c_void_p(None)
     can_args = [ctypes.c_int(0), null, null, null, null]
@@ -461,7 +488,8 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
                     _check(meas.rot_cov, "pcm_rot_cov", _F32, (3, 3)),
                     _check(apply, "pcm_apply", _BOOL, ())]
     rc = library().elm_ekf_update(ins, out_ptrs, _params(params), *can_args, *gps_args,
-                                  *pcm_args, _stream(state.P))
+                                  *pcm_args, ctypes.c_int(int(flags.joseph_form)),
+                                  _stream(state.P))
     _raise_on(rc, "ekf_update")
     launches["ekf_update"] += 1
     return state.replace(**outs)
@@ -497,22 +525,29 @@ def ring_push(ego, imu, ego_new, imu_new, valid):
     """Kernel J (pipeline.rings.push_rings_plain): the batch
     ``ego_new = (t, pos, rpy, vel_local, gyro)`` into the ego ring (dedupe
     eps 1e-5) and ``imu_new = (t, gyro, acc)`` into the IMU ring (eps 0),
-    both masked by ``valid``, in one launch. Returns (ego ring, IMU ring)."""
+    both masked by ``valid``, in one launch. A ring given as None (its
+    samples None) is left out and comes back None. Returns (ego ring, IMU
+    ring)."""
     m = valid.shape[0]
     dev = valid.device
-    re, ri = ego.capacity, imu.capacity
+    re = 0 if ego is None else ego.capacity
+    ri = 0 if imu is None else imu.capacity
     p_valid = _check(valid, "valid", _BOOL, (m,))
     buf = torch.empty(re * 13 + ri * 7, dtype=_F32, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
-    ego_ptrs, ego_out = _ring_ptrs("ego_ring", ego, _EGO_FIELDS, ego_new[0], ego_new[1:], m,
-                                   buf[:re * 13], counts[0])
-    imu_ptrs, imu_out = _ring_ptrs("imu_ring", imu, _IMU_FIELDS, imu_new[0], imu_new[1:], m,
-                                   buf[re * 13:], counts[1])
+    ego_ptrs = imu_ptrs = None
+    if ego is not None:
+        ego_ptrs, ego_out = _ring_ptrs("ego_ring", ego, _EGO_FIELDS, ego_new[0], ego_new[1:],
+                                       m, buf[:re * 13], counts[0])
+    if imu is not None:
+        imu_ptrs, imu_out = _ring_ptrs("imu_ring", imu, _IMU_FIELDS, imu_new[0], imu_new[1:],
+                                       m, buf[re * 13:], counts[1])
     rc = library().elm_ring_push(ego_ptrs, ctypes.c_int(re), imu_ptrs, ctypes.c_int(ri),
                                  ctypes.c_int(m), p_valid, _stream(valid))
     _raise_on(rc, "ring_push")
     launches["ring_push"] += 1
-    return (ego.replace(count=counts[0], **ego_out), imu.replace(count=counts[1], **imu_out))
+    return (None if ego is None else ego.replace(count=counts[0], **ego_out),
+            None if imu is None else imu.replace(count=counts[1], **imu_out))
 
 
 def scan_ring_query(imu, ego, scan_cur, scan_end, tf_ego_to_lidar, window: int,
@@ -625,4 +660,28 @@ def shift_window(base, nx: int, ny: int, dx: int, dy: int, dst_rows, payload):
         _stream(dst_rows))
     _raise_on(rc, "shift_window")
     launches["shift_window"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Kernel P: the slot-packed radar covariances of a registration
+# --------------------------------------------------------------------------- #
+
+def radar_cov(src_local, qidx, qmask, pose, params):
+    """Kernel P (register.icp.radar_slots_plain): ``radar_point_cov`` of the
+    scan [N, 3] at the world pose [4, 4], on the rows of the slot assignment
+    (``qidx``, ``qmask`` [S, QB]), zero where ``qmask`` is false. Returns
+    [S, QB, 3, 3]."""
+    n = src_local.shape[0]
+    s, qb = qmask.shape
+    args = [_check(src_local, "src_local", _F32, (n, 3)), ctypes.c_int(n),
+            _check(qidx, "qidx", torch.int32, (s, qb)), _check(qmask, "qmask", _BOOL, (s, qb)),
+            ctypes.c_int(s * qb), _check(pose, "pose", _F32, (4, 4)),
+            _check(params.range_variance_m, "range_variance_m", _F32, ()),
+            _check(params.azimuth_variance_deg, "azimuth_variance_deg", _F32, ()),
+            _check(params.elevation_variance_deg, "elevation_variance_deg", _F32, ())]
+    out = torch.empty((s, qb, 3, 3), dtype=_F32, device=src_local.device)
+    rc = library().elm_radar_cov(*args, _ptr(out), _stream(src_local))
+    _raise_on(rc, "radar_cov")
+    launches["radar_cov"] += 1
     return out

@@ -1,7 +1,7 @@
 """Voxel helpers and the scan downsample — port of the downsample part of
 ``elimaloc_tpu/map/grid.py`` (``point_to_voxel`` :122, ``_mix`` :127,
-``voxel_downsample`` :271). The hash-grid backend and its queries are ROADMAP
-Queue 1 #13.
+``voxel_downsample`` :271). The hash-grid backend and its queries are in
+ROADMAP Queue 1, "The hash-grid backend".
 
 ``voxel_downsample`` is the hot op: on a CUDA tensor it launches kernel C
 (csrc/downsample.cu, with ``torch.sort`` in the middle); on a CPU tensor it

@@ -148,12 +148,16 @@ def push_imu_batch(ring: ImuRing, t, gyro, acc, valid) -> ImuRing:
 def push_rings_plain(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
     """Plain PyTorch version of kernel J: ``ego_new = (t, pos, rpy,
     vel_local, gyro)`` through :func:`push_ego_batch` and ``imu_new = (t,
-    gyro, acc)`` through :func:`push_imu_batch`, both masked by ``valid``."""
-    return push_ego_batch(ego, *ego_new, valid), push_imu_batch(imu, *imu_new, valid)
+    gyro, acc)`` through :func:`push_imu_batch`, both masked by ``valid``. A
+    ring given as None (with its samples None) is left out and comes back
+    None."""
+    return (None if ego is None else push_ego_batch(ego, *ego_new, valid),
+            None if imu is None else push_imu_batch(imu, *imu_new, valid))
 
 
 def push_rings(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
-    """A frame's (or one IMU sample's) pushes into both rings:
+    """A frame's (or one IMU sample's) pushes into both rings, or into one
+    of them (the tick mode's ego push, its IMU intake):
     :func:`push_rings_plain` for CPU tensors, kernel J for CUDA ones."""
     if valid.device.type == "cpu":
         return push_rings_plain(ego, imu, ego_new, imu_new, valid)

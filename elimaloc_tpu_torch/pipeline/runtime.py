@@ -23,10 +23,15 @@ per-frame config poll); batches come from the NumPy
 next window from the host map on a side CUDA stream and moves it in place
 with kernel N (``tiles.shift_window``) while frames run on the old one.
 
-Refused with NotImplementedError (ROADMAP Queue 1): the hash backend (#13),
-the radar covariances (#11; see ``register.icp.check_supported``), the
-``use_imu=False`` tick mode (K7b, #12), fleet replay (#15) and the live
-dashboard (#16).
+With ``use_imu=False`` the event loop runs the reference's tick mode: a
+constant-acceleration prediction per system-clock tick (:func:`tick_step`,
+kernel O, then the ego push, kernel J) while raw IMU only feeds the IMU ring
+(:func:`imu_ring_step`, kernel J).
+
+Refused with NotImplementedError, naming the ROADMAP Queue 1 item: the
+hash backend ("The hash-grid backend"; see ``register.icp.check_supported``),
+fleet replay ("Fleet") and the live dashboard ("Host modules and
+utilities").
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..ekf import (
     EkfParams,
     EkfState,
     GnssMeas,
+    ca_tick,
     imu_chain,
     init_state,
     make_params,
@@ -98,8 +104,9 @@ class PipelineParams(Struct):
 @dataclasses.dataclass(frozen=True)
 class PipelineStatic:
     """Static switches shared by all steps (runtime.py:89-114 without the
-    TPU-only ``sub_unroll`` and the event-loop fields ``use_imu`` and
-    ``tick_hz``, which the fused path never reads)."""
+    TPU-only ``sub_unroll``). ``use_imu`` and ``tick_hz`` are read by the
+    event loop only: the frame loops run the IMU chain either way, as JAX's
+    ``fused_frame`` does."""
 
     ekf_flags: EkfFlags
     icp_static: IcpStatic
@@ -110,6 +117,8 @@ class PipelineStatic:
     use_gps: bool = False
     use_can: bool = False
     use_pcm: bool = True
+    use_imu: bool = True
+    tick_hz: float = 100.0  # CA-prediction rate when use_imu is off
 
 
 def make_pipeline_params(cfg: ElimalocConfig, dtype=torch.float32,
@@ -156,6 +165,7 @@ def make_pipeline_static(cfg: ElimalocConfig, backend: str = "tile",
         use_gps=cfg.ekf.use_gps,
         use_can=cfg.ekf.use_can,
         use_pcm=cfg.ekf.use_pcm_matching,
+        use_imu=cfg.ekf.use_imu,
     )
 
 
@@ -344,6 +354,33 @@ def imu_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,
     one = torch.ones(1, dtype=torch.bool, device=acc_raw.device)
     return imu_subbatch(state, {"imu_t": t.reshape(1), "imu_acc": acc_raw[None],
                                 "imu_gyro": gyro_raw[None], "imu_valid": one}, pp, ps)
+
+
+def imu_ring_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,
+                  ps: PipelineStatic) -> PipelineState:
+    """PCM-side IMU intake only, no EKF prediction (runtime.py:237-246): with
+    use_imu off the matching node still consumes IMU for deskewing
+    (pcm_matching.cpp:39, 326-336). The sample rotated into the ego frame
+    without lever-arm compensation, as :func:`imu_subbatch` does, then a
+    push of one row into the IMU ring alone (kernel J on the card)."""
+    one = torch.ones(1, dtype=torch.bool, device=acc_raw.device)
+    imu_new = (t.reshape(1), gyro_raw[None] @ pp.ego_to_imu_rot.T,
+               acc_raw[None] @ pp.ego_to_imu_rot.T)
+    _, imu_ring = rings.push_rings(None, state.imu_ring, None, imu_new, one)
+    return state.replace(imu_ring=imu_ring)
+
+
+def tick_step(state: PipelineState, t, pp: PipelineParams,
+              ps: PipelineStatic) -> PipelineState:
+    """System-clock CA prediction tick of use_imu=False (runtime.py:249-257;
+    the reference's 100 Hz MainLoop -> RunPrediction, ekf_localization.cpp:
+    206-216, 660-676): ``ekf.filter.ca_tick`` (kernel O on the card), then
+    its ego state pushed into the ego ring alone (``_push_ego``,
+    runtime.py:174-180; kernel J)."""
+    ekf, row = ca_tick(state.ekf, t, pp.ekf)
+    one = torch.ones(1, dtype=torch.bool, device=t.device)
+    ego_ring, _ = rings.push_rings(state.ego_ring, None, row, None, one)
+    return state.replace(ekf=ekf, ego_ring=ego_ring)
 
 
 def ego_pose(ekf: EkfState):
@@ -1033,8 +1070,8 @@ class LocalizationPipeline:
     def _refuse_dashboard(self) -> None:
         if self.cfg.ekf.debug_print:
             raise NotImplementedError(
-                "debug_print: the live state dashboard (utils/observability.py) is "
-                "ROADMAP Queue 1 #16")
+                "debug_print: the live state dashboard (utils/observability.py) is in "
+                'ROADMAP Queue 1, "Host modules and utilities"')
 
     # ---- geodetic projection (runtime.py:1185-1210, float64 on the host) ----
     def project_gps(self, lat, lon, height):
@@ -1115,23 +1152,30 @@ class LocalizationPipeline:
         """Replay a log in event-time order: IMU samples, scans (delivered
         at :func:`scan_arrival_times`), GPS fixes and CAN samples, each
         through its event step; the config is polled before every IMU
-        event. The log's per-sample arrays go to the device once, each scan
-        when it is delivered. Returns (state, trajectory dict: ``t``
-        (absolute), ``pos`` and ``rpy`` after every scan, and every IMU
-        sample with ``collect_every_imu``; ``scans``, each scan's outputs).
-        ``on_scan(out)`` sees a scan's outputs as NumPy plus ``ego_pos`` and
-        ``ego_t``, one readback per scan. A windowed pipeline consults its
-        window ladder before each scan at the filter's position, with ~1 s
-        of motion at its velocity as the prefetch's lookahead
-        (runtime.py:1315-1320)."""
-        if not self.cfg.ekf.use_imu:
-            raise NotImplementedError(
-                "use_imu=False: the CA-prediction tick mode (ekf.filter.predict, K7b, and "
-                "imu_ring_step) is ROADMAP Queue 1 #12")
+        event. With ``use_imu`` off (runtime.py:1260-1273) the IMU samples
+        only feed the IMU ring (:func:`imu_ring_step`) and CA ticks at
+        ``tick_hz`` over the rebased float64 IMU span drive the filter
+        (:func:`tick_step`); the config is polled before each of both. The
+        log's per-sample arrays go to the device once, each scan when it is
+        delivered. Returns (state, trajectory dict: ``t`` (absolute),
+        ``pos`` and ``rpy`` after every scan, and every IMU sample with
+        ``collect_every_imu`` (none in the tick mode); ``scans``, each
+        scan's outputs). ``on_scan(out)`` sees a scan's outputs as NumPy
+        plus ``ego_pos`` and ``ego_t``, one readback per scan. A windowed
+        pipeline consults its window ladder before each scan at the
+        filter's position, with ~1 s of motion at its velocity as the
+        prefetch's lookahead (runtime.py:1315-1320)."""
         self._refuse_dashboard()
         state = state if state is not None else self.reset()
         self._rebase(min(log.imu_t[0], log.scan_t[0]))
-        streams = {"imu": (log.imu_t, log.imu_acc, log.imu_gyro)}
+        use_imu = self.static.use_imu
+        streams = {"imu" if use_imu else "pcm_imu": (log.imu_t, log.imu_acc, log.imu_gyro)}
+        if not use_imu:
+            # the reference's MainLoop drives the CA predictions (runtime.py:
+            # 1266-1273)
+            t0r = float(self._rebase(log.imu_t[0]))
+            t1r = float(self._rebase(log.imu_t[-1]))
+            ticks = np.arange(t0r, t1r, 1.0 / self.static.tick_hz)
         if log.gps_t is not None and self.static.use_gps:
             streams["gps"] = (log.gps_t, log.gps_pos, log.gps_cov)
         if log.can_t is not None and self.static.use_can:
@@ -1142,20 +1186,30 @@ class LocalizationPipeline:
             t = self._rebase(t)
             events += [(kind, i, ti) for i, ti in enumerate(t)]
             dev[kind] = [self._tensor(t)] + [self._tensor(v) for v in vals]
-        # equal times run imu, scan, gps, can (runtime.py's stable sort)
-        rank = {"imu": 0, "scan": 1, "gps": 2, "can": 3}
+        if not use_imu:
+            events += [("tick", i, ti) for i, ti in enumerate(ticks)]
+            dev["tick"] = self._tensor(ticks)
+        # equal times run in JAX's list order under its stable sort
+        # (runtime.py:1259-1287): imu (or pcm_imu, tick), scan, gps, can
+        rank = {"imu": 0, "pcm_imu": 0, "tick": 1, "scan": 2, "gps": 3, "can": 4}
         events.sort(key=lambda e: (e[2], rank[e[0]]))
         stamps = self._tensor(self._rebase(log.scan_t))
 
         ego, outs = [], []
         for kind, i, _ in events:
-            if kind == "imu":
+            if kind in ("imu", "pcm_imu", "tick"):
                 # the reference polls ProcessINI in every IMU callback
                 # (ekf_localization.cpp:141)
                 self._poll_config()
+            if kind == "imu":
                 state = imu_step(state, *(x[i] for x in dev["imu"]), self.params, self.static)
                 if collect_every_imu:
                     ego.append(ego_pose(state.ekf))
+            elif kind == "pcm_imu":
+                state = imu_ring_step(state, *(x[i] for x in dev["pcm_imu"]), self.params,
+                                      self.static)
+            elif kind == "tick":
+                state = tick_step(state, dev["tick"][i], self.params, self.static)
             elif kind == "scan":
                 if self.windowed:
                     pv = torch.cat([state.ekf.pos[:2], state.ekf.vel[:2]]).cpu().numpy()
@@ -1304,5 +1358,5 @@ class LocalizationPipeline:
     def run_fused_fleet(self, logs, states=None):
         """Multi-stream fused replay (runtime.py:1590-1649): not ported."""
         raise NotImplementedError(
-            "run_fused_fleet: fleet lanes (a batch dimension in every kernel) are "
-            "ROADMAP Queue 1 #15")
+            "run_fused_fleet: fleet lanes (a batch dimension in every kernel) are in "
+            'ROADMAP Queue 1, "Fleet"')

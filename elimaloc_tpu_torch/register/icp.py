@@ -20,10 +20,18 @@ readback. On a CPU tensor it is the plain versions: the tiles search
 composed with the method's tail (``*_search_reduce_plain``,
 icp.py:495-555) and :func:`gn_update_plain`.
 
-Not ported, refused with NotImplementedError: the radar covariances (K12
-and the radar variants of the tails, ROADMAP Queue 1 #11), the hash backend
-(#13), the correspondence-reuse and per-iteration reassignment loops
-(ROADMAP "Not ported") and the sharded modes (#19).
+With ``use_radar_cov`` every GICP / VGICP / AVGICP row adds its point's
+range / azimuth / elevation covariance (:func:`radar_point_cov`) to
+R^T C R before the inverse. It is computed once per registration from the
+WORLD initial pose, before the window-origin shift, and packed into the
+slot layout (icp.py:619-632, 652-655): :func:`radar_slots`, kernel P
+``radar_cov.cu`` on the card. AVGICP then takes the flattened per-pair tail
+(icp.py:551-562) instead of the world-frame reduction.
+
+Not ported, refused with NotImplementedError: the hash backend (ROADMAP
+Queue 1, "The hash-grid backend"), the correspondence-reuse and
+per-iteration reassignment loops (ROADMAP "Not ported") and the sharded
+modes (ROADMAP Queue 1, ``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -126,11 +134,7 @@ def check_supported(static: IcpStatic) -> None:
     if static.backend != "tile":
         raise NotImplementedError(
             f"backend={static.backend!r}: only the tile backend is ported "
-            "(the hash grid is ROADMAP Queue 1 #13)")
-    if static.use_radar_cov:
-        raise NotImplementedError(
-            "use_radar_cov (radar_point_cov, K12, and the radar forms of the "
-            "GICP/VGICP/AVGICP tails) is ROADMAP Queue 1 #11")
+            '(the hash grid is in ROADMAP Queue 1, "The hash-grid backend")')
     if static.corr_reuse or static.reassign_each_iter:
         raise NotImplementedError(
             "corr_reuse / reassign_each_iter are not ported (ROADMAP "
@@ -138,8 +142,8 @@ def check_supported(static: IcpStatic) -> None:
             "assignment; AVGICP needs a halo_margin=2 tile map")
     if static.psum_axis is not None or static.slot_shard_axis is not None:
         raise NotImplementedError(
-            "psum_axis / slot_shard_axis: multi-device registration is "
-            "ROADMAP Queue 1 #19")
+            "psum_axis / slot_shard_axis: multi-device registration is in "
+            "ROADMAP Queue 1, parallel/sharding.py")
 
 
 # --------------------------------------------------------------------------- #
@@ -281,14 +285,59 @@ def _smallest_eigvec(covs):
     return torch.where(n > 1e-20, v / torch.clamp(n, min=1e-30), fallback)
 
 
-def _gicp_tail(pose, src, cov, cov_mean, valid, params: IcpParams):
+def radar_point_cov(points, params: IcpParams):
+    """Per-point range / azimuth / elevation covariance (CalPointCov,
+    registration.hpp:186-208; icp.py:251-276) with d the horizontal range:
+    S = diag(range var, max(0.1, d sin(azimuth var)), max(0.1, d sin(elevation
+    var))), R = Rz(azi) Ry(ele). Quirk preserved: returns R S (no R^T), which
+    is not symmetric. [N, 3] -> [N, 3, 3]."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    dist = torch.sqrt(x * x + y * y)
+    d2r = math.pi / 180.0
+    s_x = params.range_variance_m.expand(dist.shape)
+    s_y = torch.clamp(dist * torch.sin(params.azimuth_variance_deg * d2r), min=0.1)
+    s_z = torch.clamp(dist * torch.sin(params.elevation_variance_deg * d2r), min=0.1)
+    ele = torch.atan2(z, dist)
+    azi = torch.atan2(y, x)
+    cy, sy = torch.cos(azi), torch.sin(azi)
+    cp, sp = torch.cos(ele), torch.sin(ele)
+    R = torch.stack([
+        torch.stack([cy * cp, -sy, cy * sp], -1),
+        torch.stack([sy * cp, cy, sy * sp], -1),
+        torch.stack([-sp, torch.zeros_like(azi), cp], -1),
+    ], dim=-2)
+    # R @ diag(s): each column scaled by its variance
+    return R * torch.stack([s_x, s_y, s_z], -1)[..., None, :]
+
+
+def radar_slots_plain(src_local, qidx, qmask, pose, params: IcpParams):
+    """Plain PyTorch version of kernel P: :func:`radar_point_cov` of the scan
+    at the world pose ``pose``, gathered into the slot layout of the
+    assignment (``qidx``, ``qmask`` [S, QB]) and zero where ``qmask`` is
+    false (icp.py:619-623, 652-655). Returns [S, QB, 3, 3]."""
+    radar = radar_point_cov(lie.transform_points(pose, src_local), params)
+    safe_idx = torch.clamp(qidx.to(torch.int64), max=src_local.shape[0] - 1)
+    return torch.where(qmask[..., None, None], radar[safe_idx],
+                       torch.zeros((), dtype=radar.dtype, device=radar.device))
+
+
+def radar_slots(src_local, qidx, qmask, pose, params: IcpParams):
+    """:func:`radar_slots_plain` for CPU tensors, kernel P for CUDA ones."""
+    if src_local.device.type == "cpu":
+        return radar_slots_plain(src_local, qidx, qmask, pose, params)
+    return kernels.radar_cov(src_local, qidx, qmask, pose, params)
+
+
+def _gicp_tail(pose, src, cov, cov_mean, valid, params: IcpParams, radar=None):
     """GICP GN partials (AlignCloudsLocalPointCov, cpp:68-152; icp.py:324-351):
-    M = (R^T C R)^-1, residuals against the neighbourhood MEAN, weight
-    0.8 th^2 / (th + r^2)^2 + 0.2, fitness |r . n| with n the sensor-frame
-    normal of C. Returns (matched, JTJ, JTr, fit_num)."""
+    M = (R^T C R + radar)^-1 (``radar`` [K, 3, 3] or None), residuals
+    against the neighbourhood MEAN, weight 0.8 th^2 / (th + r^2)^2 + 0.2,
+    fitness |r . n| with n the sensor-frame normal of C. Returns (matched,
+    JTJ, JTr, fit_num)."""
     rot_inv = pose[:3, :3].T
     matched = torch.sum(valid)
-    maha = lie.inv3x3(rot_inv @ cov @ rot_inv.T)
+    rcr = rot_inv @ cov @ rot_inv.T
+    maha = lie.inv3x3(rcr if radar is None else rcr + radar)
     inv_pose = lie.transform_inverse(pose)
     r = cov_mean @ inv_pose[:3, :3].T + inv_pose[:3, 3] - src
     r2 = torch.sum(r * r, dim=-1)
@@ -302,13 +351,15 @@ def _gicp_tail(pose, src, cov, cov_mean, valid, params: IcpParams):
     return matched, JTJ, JTr, fit_num
 
 
-def _voxcov_tail(pose, src, cov, mean, valid, params: IcpParams):
+def _voxcov_tail(pose, src, cov, mean, valid, params: IcpParams, radar=None):
     """VGICP GN partials (AlignCloudsLocalVoxelCov, cpp:154-225;
-    icp.py:354-378 without the radar term): rows with weight < 0.01 leave
-    both the sums and the fitness numerator, but every valid match counts."""
+    icp.py:354-378), M = (R^T C R + radar)^-1: rows with weight < 0.01 leave
+    both the sums and the fitness numerator, but every valid match counts.
+    With radar, AVGICP's (point, voxel) pairs come here flattened."""
     rot_inv = pose[:3, :3].T
     matched = torch.sum(valid)
-    maha = lie.inv3x3(rot_inv @ cov @ rot_inv.T)
+    rcr = rot_inv @ cov @ rot_inv.T
+    maha = lie.inv3x3(rcr if radar is None else rcr + radar)
     inv_pose = lie.transform_inverse(pose)
     r = mean @ inv_pose[:3, :3].T + inv_pose[:3, 3] - src
     r2 = torch.sum(r * r, dim=-1)
@@ -347,44 +398,60 @@ def _slot_queries(tmap, pose, sbuf):
     return qbuf, torch.floor(div(qbuf, tmap.voxel_size)).to(torch.int32)
 
 
+def _flat_radar(radar):
+    return None if radar is None else radar.reshape(-1, 3, 3)
+
+
 def gicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
-                             budget: maptiles.TileQueryBudget):
+                             budget: maptiles.TileQueryBudget, radar=None):
     """Plain PyTorch version of kernel E: the GICP search (icp.py:502-507)
-    then :func:`_gicp_tail`. Returns (matched, JTJ, JTr, fit_num,
-    cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])."""
+    then :func:`_gicp_tail`, with the slot-packed ``radar`` [S,QB,3,3] when
+    given. Returns (matched, JTJ, JTr, fit_num, cov [S,QB,3,3],
+    mean [S,QB,3], ok [S,QB])."""
     qbuf, qvox = _slot_queries(tmap, pose, sbuf)
     _, ok, cov, mean = maptiles.nearest_point_slots(
         tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget,
         with_point_cov=True)
     sums = _gicp_tail(pose, sbuf.reshape(-1, 3), cov.reshape(-1, 3, 3),
-                      mean.reshape(-1, 3), ok.reshape(-1), params)
+                      mean.reshape(-1, 3), ok.reshape(-1), params, _flat_radar(radar))
     return (*sums, cov, mean, ok)
 
 
 def vgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
-                              budget: maptiles.TileQueryBudget):
+                              budget: maptiles.TileQueryBudget, radar=None):
     """Plain PyTorch version of kernel F: the VGICP search (icp.py:509-514)
-    then :func:`_voxcov_tail`. Returns (matched, JTJ, JTr, fit_num,
-    cov [S,QB,3,3], mean [S,QB,3], ok [S,QB])."""
+    then :func:`_voxcov_tail`, with the slot-packed ``radar`` when given.
+    Returns (matched, JTJ, JTr, fit_num, cov [S,QB,3,3], mean [S,QB,3],
+    ok [S,QB])."""
     qbuf, qvox = _slot_queries(tmap, pose, sbuf)
     cov, mean, ok = maptiles.nearest_voxel_cov_slots(
         tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget)
     sums = _voxcov_tail(pose, sbuf.reshape(-1, 3), cov.reshape(-1, 3, 3),
-                        mean.reshape(-1, 3), ok.reshape(-1), params)
+                        mean.reshape(-1, 3), ok.reshape(-1), params, _flat_radar(radar))
     return (*sums, cov, mean, ok)
 
 
 def avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
-                               budget: maptiles.TileQueryBudget):
+                               budget: maptiles.TileQueryBudget, radar=None):
     """Plain PyTorch version of kernel G: the AVGICP search (icp.py:516-521)
-    then :func:`_avg_voxcov_tail`. Returns (matched, JTJ, JTr, fit_num,
-    cov [S,QB,7,3,3], mean [S,QB,7,3], ok [S,QB,7])."""
+    then :func:`_avg_voxcov_tail`; with the slot-packed ``radar`` the
+    flattened per-pair :func:`_voxcov_tail` instead (icp.py:551-562: the
+    radar term inside the inverse breaks the world-frame reduction), each
+    row's point and radar covariance repeated over its 7 pairs. Returns
+    (matched, JTJ, JTr, fit_num, cov [S,QB,7,3,3], mean [S,QB,7,3],
+    ok [S,QB,7])."""
     qbuf, qvox = _slot_queries(tmap, pose, sbuf)
     cov, mean, ok = maptiles.all_voxel_cov_slots(
         tmap, slot_tile, qbuf, qvox, qmask, params.max_search_dist, budget)
-    sums = _avg_voxcov_tail(pose, sbuf.reshape(-1, 3), qbuf.reshape(-1, 3),
-                            cov.reshape(-1, 7, 3, 3), mean.reshape(-1, 7, 3),
-                            ok.reshape(-1, 7), params)
+    src = sbuf.reshape(-1, 3)
+    if radar is None:
+        sums = _avg_voxcov_tail(pose, src, qbuf.reshape(-1, 3),
+                                cov.reshape(-1, 7, 3, 3), mean.reshape(-1, 7, 3),
+                                ok.reshape(-1, 7), params)
+    else:
+        sums = _voxcov_tail(pose, torch.repeat_interleave(src, 7, dim=0),
+                            cov.reshape(-1, 3, 3), mean.reshape(-1, 3), ok.reshape(-1),
+                            params, torch.repeat_interleave(_flat_radar(radar), 7, dim=0))
     return (*sums, cov, mean, ok)
 
 
@@ -406,10 +473,12 @@ _PLAIN = {
 }
 
 
-def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams):
+def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
+                radar=None):
     """One GN iteration's search + reduction on the card: the method's
-    kernel (A, E, F or G) -> the reduced sums, [18] for P2P
-    (:func:`assemble_p2p`'s layout) or [44] (:func:`assemble_gn`'s)."""
+    kernel (A, E, F or G; E, F, G in their radar form when ``radar`` is
+    given) -> the reduced sums, [18] for P2P (:func:`assemble_p2p`'s
+    layout) or [44] (:func:`assemble_gn`'s)."""
     args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
     # the grid origin carries a shifted window's anchor (host ints)
     ax0, ay0 = tmap.grid_origin
@@ -420,25 +489,27 @@ def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpPara
     if method == int(IcpMethod.GICP):
         return kernels.gicp_correspond(
             tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, *args,
-            **geo)[0]
+            radar=radar, **geo)[0]
     if method == int(IcpMethod.VGICP):
         return kernels.vgicp_correspond(
-            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args, **geo)[0]
+            tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
+            radar=radar, **geo)[0]
     return kernels.avgicp_correspond(
         tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, *args,
-        voxel_size=tmap.voxel_size)[0]
+        voxel_size=tmap.voxel_size, radar=radar)[0]
 
 
 def search_reduce(method: int, tmap, slot_tile, sbuf, qmask, pose,
-                  params: IcpParams, budget: maptiles.TileQueryBudget):
+                  params: IcpParams, budget: maptiles.TileQueryBudget, radar=None):
     """One GN iteration's search + reduction of ``method`` on CPU tensors ->
-    (matched, JTJ, JTr, fit_num), the plain version of kernel A, E, F or G.
-    On the card :func:`gn_iteration` takes :func:`search_sums` and kernel M
-    instead."""
+    (matched, JTJ, JTr, fit_num), the plain version of kernel A, E, F or G
+    (with the slot-packed ``radar`` for E, F, G when given). On the card
+    :func:`gn_iteration` takes :func:`search_sums` and kernel M instead."""
     if sbuf.device.type != "cpu":
         raise ValueError("search_reduce is the plain route for CPU tensors; on the card "
                          "use search_sums (kernel A, E, F or G)")
-    return _PLAIN[method](tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
+    extra = () if radar is None else (radar,)
+    return _PLAIN[method](tmap, slot_tile, sbuf, qmask, pose, params, budget, *extra)[:4]
 
 
 def _solve_step(JTJ, JTr, lm_lambda):
@@ -482,19 +553,20 @@ def gn_update_plain(matched, JTJ, JTr, fit_num, pose, fitness, local_cov, total,
 
 
 def gn_iteration(method: int, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                 total, params: IcpParams, budget: maptiles.TileQueryBudget):
+                 total, params: IcpParams, budget: maptiles.TileQueryBudget, radar=None):
     """One GN iteration: on a CPU tensor the plain search + reduction and
     :func:`gn_update_plain`; on a CUDA one kernel A, E, F or G, then kernel M
-    on the same stream. Returns (pose, local_cov, fitness, overlap, stop,
-    failed)."""
+    on the same stream. ``radar``: the slot-packed radar covariances of
+    :func:`radar_slots`, or None. Returns (pose, local_cov, fitness,
+    overlap, stop, failed)."""
     gicp = method == int(IcpMethod.GICP)
     carry = (pose, fitness, local_cov, total, params)
     if sbuf.device.type == "cpu":
         return gn_update_plain(
-            *search_reduce(method, tmap, slot_tile, sbuf, qmask, pose, params, budget),
-            *carry, gicp)
-    return kernels.gn_step(search_sums(method, tmap, slot_tile, sbuf, qmask, pose, params),
-                           *carry, gicp)
+            *search_reduce(method, tmap, slot_tile, sbuf, qmask, pose, params, budget,
+                           radar), *carry, gicp)
+    return kernels.gn_step(search_sums(method, tmap, slot_tile, sbuf, qmask, pose, params,
+                                      radar), *carry, gicp)
 
 
 # --------------------------------------------------------------------------- #
@@ -508,11 +580,11 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
     after the slot assignment ("assign") and after the GN loop ("gn")."""
     check_supported(static)
     dtype = src_local.dtype
-    pose0 = initial_guess.to(dtype)
+    pose_world = initial_guess.to(dtype)
     total = torch.clamp(torch.sum(src_valid), min=1).to(dtype)
 
     origin = tmap.origin.to(dtype)
-    pose0 = pose0.clone()
+    pose0 = pose_world.clone()
     pose0[:2, 3] -= origin
 
     asg = maptiles.assign_slots(tmap, lie.transform_points(pose0, src_local),
@@ -521,6 +593,11 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
     safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
     sbuf = torch.where(asg.qmask[..., None], src_local[safe_idx],
                        torch.zeros((), dtype=dtype, device=src_local.device))
+    radar = None
+    if static.use_radar_cov and static.method != int(IcpMethod.P2P):
+        # once per registration, from the WORLD initial pose (before the
+        # window-origin shift), packed into the slot layout
+        radar = radar_slots(src_local, asg.qidx, asg.qmask, pose_world, params)
     if mark is not None:
         mark("assign")
 
@@ -533,7 +610,7 @@ def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
     while it < static.max_iteration:
         pose, local_cov, fitness, overlap, stop, failed = gn_iteration(
             static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness,
-            local_cov, total, params, static.tile_budget)
+            local_cov, total, params, static.tile_budget, radar)
         it += 1
         if bool(stop):      # the one readback per iteration
             break

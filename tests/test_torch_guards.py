@@ -128,29 +128,47 @@ def test_fused_batches_bit_identical(both_worlds):
             np.testing.assert_array_equal(tb[k], np.asarray(jb[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("change", ["gicp", "fleet", "hash"])
+@pytest.mark.parametrize("change", ["fleet", "hash"])
 def test_pipeline_refuses_unported(both_worlds, change):
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
     kw = {}
-    if change == "gicp":
-        # GICP runs; its radar form (K12) does not
-        cfg.pcm.icp_method = tconfig.IcpMethod.GICP
-        cfg.pcm.use_radar_cov = True
-    elif change == "hash":
+    if change == "hash":
         kw["backend"] = "hash"
-    with pytest.raises(NotImplementedError, match="ROADMAP" if change != "fleet" else "#15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
                                              **kw)
         # the pipeline is built; fleet replay (JAX runtime.py:1590) is refused
         pipe.run_fused_fleet([])
 
 
+@pytest.mark.parametrize("change", ["gicp_radar", "tick_mode"])
+def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change):
+    """A GICP pipeline with radar covariances and a use_imu=False pipeline
+    build and carry their switches into the static configuration the steps
+    read (test_torch_radar.py and test_torch_tick.py run them)."""
+    _, tw = both_worlds
+    cfg = tiny_cfg(tconfig)
+    if change == "gicp_radar":
+        cfg.pcm.icp_method = tconfig.IcpMethod.GICP
+        cfg.pcm.use_radar_cov = True
+    else:
+        cfg.ekf.use_imu = False
+    pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False)
+    if change == "gicp_radar":
+        assert pipe.static.icp_static.use_radar_cov
+        assert pipe.host_map.halo_point_cov is not None
+    else:
+        assert pipe.static.use_imu is False and pipe.static.tick_hz == 100.0
+
+
 
 #: the port's modules that the online entry points, the active-window
-#: serving path (the host crops, the shift and the window management),
-#: kernels J-N and their plain versions live in, and the smoke script
+#: serving path (the host crops, the shift and the window management), the
+#: tick mode and the radar covariances, kernels J-P and their plain versions
+#: live in, and the smoke script
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
+               "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/map/grid.py",
                "elimaloc_tpu_torch/pipeline/rings.py", "elimaloc_tpu_torch/deskew.py",
                "elimaloc_tpu_torch/register/icp.py", "elimaloc_tpu_torch/kernels/__init__.py",
                "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
@@ -193,4 +211,4 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     for name, n in found.items():
         assert len(build._SIGNATURES[name]) == n, name
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
-            "elm_gn_step", "elm_shift_window"} <= set(found)
+            "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov"} <= set(found)

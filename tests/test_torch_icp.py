@@ -72,19 +72,50 @@ def test_run_register_p2p(dt_name, init):
 
 
 @pytest.mark.parametrize("change", [
-    # the methods run; their radar forms and AVGICP's per-iteration
-    # reassignment (a halo margin 1 map) do not
-    dict(method=int(IcpMethod.GICP), use_radar_cov=True),
-    dict(method=int(IcpMethod.VGICP), use_radar_cov=True),
+    # AVGICP's per-iteration reassignment (a halo margin 1 map) does not run
     dict(method=int(IcpMethod.AVGICP), reassign_each_iter=True), dict(backend="hash"),
     dict(corr_reuse=True), dict(reassign_each_iter=True),
-    dict(use_radar_cov=True), dict(psum_axis="sp"), dict(slot_shard_axis="sp"),
-], ids=["gicp", "vgicp", "avgicp", "hash", "corr_reuse", "reassign",
-        "radar_cov", "psum", "slot_shard"])
+    dict(psum_axis="sp"), dict(slot_shard_axis="sp"),
+], ids=["avgicp", "hash", "corr_reuse", "reassign", "psum", "slot_shard"])
 def test_unported_features_refuse(change):
     static = ticp.IcpStatic(**{"method": int(IcpMethod.P2P), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ticp.check_supported(static)
+
+
+@pytest.mark.parametrize("method", [IcpMethod.GICP, IcpMethod.VGICP, IcpMethod.P2P],
+                         ids=["gicp", "vgicp", "radar_cov"])
+def test_radar_configurations_run(method, monkeypatch):
+    """``use_radar_cov`` is supported: the radar forms of GICP and VGICP
+    register with the slot-packed radar covariances computed once (the plain
+    version of kernel P on CPU tensors); P2P has no radar term, as in JAX
+    (``_p2p_tail`` takes none), and registers as without it."""
+    map_pts = make_world()
+    built = tbuilder.build_voxel_map(map_pts, 1.0, 30, use_native=False,
+                                     compute_point_cov=method == IcpMethod.GICP,
+                                     compute_voxel_cov=method == IcpMethod.VGICP)
+    tmap = ttiles.build_tile_map(built, tile_voxels=4).to_device("cpu", torch.float64)
+    true_pose = pose_xyzyaw(3.0, 1.0, 0.0, 0.5)
+    scan = torch.as_tensor(make_scan(map_pts, true_pose, n=512))
+    calls = []
+    plain = ticp.radar_slots_plain
+    monkeypatch.setattr(ticp, "radar_slots_plain",
+                        lambda *a: calls.append(a[1].shape) or plain(*a))
+    res = {}
+    for radar in (True, False):
+        cfg = tconfig.PcmConfig(icp_method=tconfig.IcpMethod(int(method)), use_radar_cov=radar,
+                                max_fitness_score=2.0, max_iteration=3)
+        static = ticp.make_icp_static(cfg, tile_budget=ttiles.TileQueryBudget(qb=32,
+                                                                             max_slots=512))
+        ticp.check_supported(static)
+        res[radar] = ticp.run_register(scan, torch.ones(len(scan), dtype=torch.bool), tmap,
+                                       torch.as_tensor(pose_xyzyaw(3.2, 0.8, 0.0, 0.52)),
+                                       ticp.make_icp_params(cfg, torch.float64), static)
+    same = torch.equal(res[True].pose, res[False].pose)
+    if method == IcpMethod.P2P:
+        assert same and calls == []
+    else:
+        assert not same and len(calls) == 1
 
 
 def _jax_loop_body(matched, JTJ, JTr, fit_num, pose, fitness, local_cov, total, params,

@@ -31,7 +31,14 @@ on each method's sums) pose atol 1e-4, local_cov rel 1e-3 (an LU in
 another order than cuSOLVER's), fitness, overlap and the flags equal;
 kernel N (the window shift, over a drive of 1-, 2- and 3-tile shifts on
 both axes into the map corner) every tensor bit-identical to its plain
-version and to a fresh crop at the same origin.
+version and to a fresh crop at the same origin; kernel O (the CA tick,
+through every gate) as kernel H but P within 1e-5 sqrt(P_ii P_jj) plus the
+rounding term (two sparse passes against the plain dense F P F^T through
+cuBLAS); kernel P (the slot-packed radar covariances) atol 1e-5 on entries
+up to ~1 (the plain transform is a cuBLAS product, the trigonometry the
+same libm); the Joseph forms of H and I as their reference forms; the radar
+forms of E, F, G as their plain forms (matches exactly equal, sums rtol
+1e-4); kernel J with one ring left out exactly equal.
 Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (tests/conftest.py
 imports jax, which the GPU host does not have).
@@ -165,12 +172,13 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 def test_launch_counters_name_all_seven_kernels():
     """Every kernel's counter: A-G, the EKF kernels H and I, the scan-time
-    ring ops and GN step J, K, L, M, and the window shift N."""
+    ring ops and GN step J, K, L, M, the window shift N, the CA tick O and
+    the radar covariances P."""
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
         "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
-        "shift_window"])
+        "shift_window", "ca_tick", "radar_cov"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -236,21 +244,38 @@ def _ekf_inputs(device, dtype=torch.float32, flags="default"):
 
 
 @pytest.mark.parametrize("which", ["imu_chain", "ekf_update"])
-def test_ekf_kernels_refuse_joseph_form(which):
-    st, pp, flags, imu, *_ = _ekf_inputs("cpu")
-    flags = dataclasses.replace(flags, joseph_form=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if which == "imu_chain":
-            kernels.imu_chain(st, *imu, pp.ekf, flags)
-        else:
-            kernels.ekf_update(st, pp.ekf, flags)
+def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
+    """With ``joseph_form`` a CPU caller runs the plain Joseph form (no
+    kernel library, no launch): P comes out symmetric to rounding and not
+    equal to the reference form's (tests/test_torch_joseph.py holds it to
+    the JAX package)."""
+    def no_library():
+        raise AssertionError("the kernel library was requested for CPU tensors")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    st, pp, flags, imu, can, gps, meas = _ekf_inputs("cpu", flags="calibration")
+    joseph = dataclasses.replace(flags, joseph_form=True)
+    kernels.reset_launches()
+    if which == "imu_chain":
+        got = efilter.imu_chain(st, *imu, pp.ekf, joseph)[0]
+        ref = efilter.imu_chain(st, *imu, pp.ekf, flags)[0]
+    else:
+        kw = dict(can=can, gps=gps, gnss_uncertainty_max=pp.gnss_uncertainty_max,
+                  pcm=(meas, torch.tensor(True)))
+        got = efilter.update_chain(st, pp.ekf, joseph, **kw)
+        ref = efilter.update_chain(st, pp.ekf, flags, **kw)
+    assert all(v == 0 for v in kernels.launches.values()), kernels.launches
+    assert float((got.P - got.P.T).abs().max()) <= 1e-6 * float(got.P.abs().max())
+    assert not torch.equal(got.P, ref.P)
+    assert _p_entry_err(got.P, ref.P, st.P, 1e-3) <= 1.0
 
 
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
                                    "p2p_correspond", "gicp_correspond",
                                    "vgicp_correspond", "avgicp_correspond", "imu_chain",
                                    "ekf_update", "ring_push", "scan_ring_query",
-                                   "pcm_measurement", "gn_step", "shift_window"])
+                                   "pcm_measurement", "gn_step", "shift_window", "ca_tick",
+                                   "radar_cov"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
     if which in ("ring_push", "scan_ring_query", "pcm_measurement", "gn_step"):
         with pytest.raises(ValueError, match="CUDA tensor required"):
@@ -267,13 +292,21 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
                 kernels.gn_step(torch.zeros(18), torch.eye(4), torch.zeros(()),
                                 torch.eye(6), torch.ones(()), params, False)
         return
-    if which in ("imu_chain", "ekf_update"):
+    if which in ("imu_chain", "ekf_update", "ca_tick"):
         st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
         with pytest.raises(ValueError, match="CUDA tensor required"):
             if which == "imu_chain":
                 kernels.imu_chain(st, *imu, pp.ekf, flags)
+            elif which == "ca_tick":
+                kernels.ca_tick(st, torch.tensor(1.01), pp.ekf)
             else:
                 kernels.ekf_update(st, pp.ekf, flags, can=can)
+        return
+    if which == "radar_cov":
+        params = icp.make_icp_params(icp.PcmConfig())
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            kernels.radar_cov(torch.zeros(16, 3), torch.zeros(2, 8, dtype=torch.int32),
+                              torch.ones(2, 8, dtype=torch.bool), torch.eye(4), params)
         return
     inp = _inputs(scene, "cpu")
     tm = inp["tmap"]
@@ -764,3 +797,181 @@ def test_shift_window_matches_plain_on_card(scene, cuda):
         assert got.tile_anchor == ref.tile_anchor == (new[0] - origin[0], new[1] - origin[1])
         anchor, moved = new, moved + 1
     assert moved >= 5 and kernels.launches["shift_window"] == moved
+
+
+# --------------------------------------------------------------------------- #
+# Kernels O and P, the Joseph forms of H and I, the radar forms of E, F, G
+# --------------------------------------------------------------------------- #
+
+#: CA ticks: (state overrides before the tick, tick time); the state's
+#: prev_timestamp is 1.0 and its reset-for-init flag is cleared
+TICKS = {
+    "predict": ({}, 1.01),
+    "small_dt": ({}, 1.0 + 5e-7),
+    "negative_dt": ({}, 0.99),
+    "reset": ({"reset_for_init_prediction": True}, 1.01),
+    "pcm_init": ({"pcm_init_on_going": True}, 1.01),
+}
+
+
+def _tick_state(device, case):
+    st, pp, *_ = _ekf_inputs(device)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    st = st.replace(acc=f([0.3, -0.2, 0.05]), gyro=f([0.01, -0.02, 0.2]),
+                    reset_for_init_prediction=torch.tensor(False, device=device))
+    over, t = TICKS[case]
+    st = st.replace(**{k: torch.tensor(v, device=device) for k, v in over.items()})
+    return st, pp, f(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TICKS))
+def test_ca_tick_matches_plain_on_card(cuda, case):
+    st, pp, t = _tick_state(cuda, case)
+    kernels.reset_launches()
+    got, ghist = efilter.ca_tick(st, t, pp.ekf)
+    torch.cuda.synchronize()
+    assert kernels.launches["ca_tick"] == 1
+    ref, rhist = efilter.ca_tick_plain(st, t, pp.ekf)
+    for name in ("pos", "vel"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.rot, ref.rot, rtol=0, atol=1e-6)
+    assert _p_entry_err(got.P, ref.P, st.P, 1e-5) <= 1.0
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if a.dtype != torch.float32:
+            assert torch.equal(a, b), f
+    assert torch.equal(got.prev_timestamp, ref.prev_timestamp)
+    for a, b, atol in zip(ghist, rhist, (0.0, 1e-4, 1e-5, 1e-4, 1e-4)):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    assert torch.equal(got.P, st.P) == (case not in ("predict", "negative_dt"))
+
+
+@pytest.mark.cuda
+def test_radar_cov_matches_plain_on_card(scene, cuda):
+    """Kernel P on a slot assignment of the scene's scan (live and dead
+    rows, a world pose far from the map origin)."""
+    inp = _inputs(scene, cuda)
+    out = _calls(inp, tiles.TileQueryBudget(qb=16, max_slots=256))
+    asg = out["assign"]
+    ds = out["downsample"][0]
+    params = icp.make_icp_params(icp.PcmConfig(), device=cuda)
+    kernels.reset_launches()
+    got = icp.radar_slots(ds, asg.qidx, asg.qmask, inp["pose"], params)
+    torch.cuda.synchronize()
+    assert kernels.launches["radar_cov"] == 1
+    ref = icp.radar_slots_plain(ds, asg.qidx, asg.qmask, inp["pose"], params)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert torch.equal(got[~asg.qmask], torch.zeros_like(got[~asg.qmask]))
+    assert int(asg.qmask.sum()) > 100
+    # not symmetric: R S with no R^T
+    live = got[asg.qmask]
+    assert float((live - live.transpose(-1, -2)).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["default", "calibration"])
+def test_imu_chain_joseph_matches_plain_on_card(cuda, flags):
+    st, pp, eflags, imu, *_ = _ekf_inputs(cuda, flags=flags)
+    eflags = dataclasses.replace(eflags, joseph_form=True)
+    kernels.reset_launches()
+    got, ghist = efilter.imu_chain(st, *imu, pp.ekf, eflags)
+    torch.cuda.synchronize()
+    assert kernels.launches["imu_chain"] == 1
+    ref, rhist = efilter.imu_chain_plain(st, *imu, pp.ekf, eflags)
+    rhist = efilter.ego_history(*rhist)
+    for name in ("pos", "vel"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-4)
+    for name in ("rot", "imu_rot"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-6)
+    assert _p_entry_err(got.P, ref.P, st.P, 1e-4) <= 1.0
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if a.dtype != torch.float32:
+            assert torch.equal(a, b), f
+    for a, b, atol in zip(ghist, rhist, (0.0, 1e-4, 1e-5, 1e-4, 1e-4)):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["can", "gps3", "gps6", "pcm", "frame"])
+def test_ekf_update_joseph_matches_plain_on_card(cuda, case):
+    st, pp, flags, _, can, gps, meas = _ekf_inputs(
+        cuda, flags="odometry" if case == "gps6" else "default")
+    flags = dataclasses.replace(flags, joseph_form=True)
+    gate = pp.gnss_uncertainty_max
+    apply = torch.tensor(True, device=cuda)
+    kw = {"can": dict(can=can), "gps3": dict(gps=gps, gnss_uncertainty_max=gate),
+          "gps6": dict(gps=gps, gnss_uncertainty_max=gate), "pcm": dict(pcm=(meas, apply)),
+          "frame": dict(can=can, gps=gps, gnss_uncertainty_max=gate,
+                        pcm=(meas, apply))}[case]
+    kernels.reset_launches()
+    got = efilter.update_chain(st, pp.ekf, flags, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["ekf_update"] == 1
+    ref = efilter.update_chain_plain(st, pp.ekf, flags, **kw)
+    for f, _, _ in kernels.EKF_FIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        if f == "P":
+            assert _p_entry_err(a, b, st.P, 1e-5) <= 1.0, _p_entry_err(a, b, st.P, 1e-5)
+        elif a.dtype == torch.float32:
+            assert _rel(a, b) <= 1e-5, (f, _rel(a, b))
+        else:
+            assert torch.equal(a, b), f
+    assert float((ref.P - st.P).abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS, ids=lambda m: m.name)
+def test_radar_forms_match_plain_on_card(scene, cuda, method):
+    """Kernels E, F, G with the slot-packed radar covariances (kernel P's)
+    against their plain versions with the same radar input: matched equal,
+    JTJ / JTr / fitness numerator rtol 1e-3 on the norms. The radar term
+    makes R^T C R + radar non-symmetric and some rows near-singular: on
+    this input the plain float32 radar forms themselves lie up to 4.2e-4
+    (JTJ) and 8.6e-4 (JTr) from float64 (AVGICP; 1.5e-6 without radar)."""
+    inp = _inputs(scene, cuda)
+    budget = tiles.TileQueryBudget(qb=16, max_slots=256)
+    out = _calls(inp, budget)
+    asg, sbuf, params = out["p2p"]
+    radar = icp.radar_slots(out["downsample"][0], asg.qidx, asg.qmask, inp["pose"], params)
+    tm = _method_map(inp, method)
+    kernels.reset_launches()
+    sums = icp.search_sums(int(method), tm, asg.slot_tile, sbuf, asg.qmask, inp["pose"],
+                           params, radar)
+    torch.cuda.synchronize()
+    assert kernels.launches[WRAPPER[method]] == 1
+    got = icp.assemble_gn(sums)
+    ref = icp._PLAIN[int(method)](tm, asg.slot_tile, sbuf, asg.qmask, inp["pose"], params,
+                                  budget, radar)
+    plain_form = icp._PLAIN[int(method)](tm, asg.slot_tile, sbuf, asg.qmask, inp["pose"],
+                                         params, budget)
+    assert int(got[0]) == int(ref[0]) > 10, method
+    for a, b in zip(got[1:], ref[1:4]):
+        assert float(torch.linalg.norm(a - b)) <= 1e-3 * float(torch.linalg.norm(b)), method
+    # the radar term changed the sums
+    assert float(torch.linalg.norm(ref[1] - plain_form[1])) > 1e-3 * float(
+        torch.linalg.norm(plain_form[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["ego", "imu"])
+def test_ring_push_one_side_matches_plain_on_card(cuda, side):
+    """Kernel J with one ring left out (the tick mode's pushes)."""
+    ego, imu, ego_new, imu_new, valid = _push_inputs(cuda, "append")
+    if side == "ego":
+        imu = imu_new = None
+    else:
+        ego = ego_new = None
+    kernels.reset_launches()
+    got = rings.push_rings(ego, imu, ego_new, imu_new, valid)
+    torch.cuda.synchronize()
+    assert kernels.launches["ring_push"] == 1
+    ref = rings.push_rings_plain(ego, imu, ego_new, imu_new, valid)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is None:
+            continue
+        for f in ("t", "count") + tuple(k for k in ("pos", "rpy", "vel_local", "gyro", "acc")
+                                        if hasattr(r, k)):
+            assert torch.equal(getattr(g, f), getattr(r, f)), f

@@ -356,21 +356,53 @@ def test_ini_hot_reload_mid_run_frames(tiny, tmp_path):
     assert ate < 0.5, ate
 
 
-@pytest.mark.parametrize("mode", ["use_imu", "debug_print_run", "debug_print_frames"])
+@pytest.mark.parametrize("mode", ["debug_print_run", "debug_print_frames"])
 def test_unported_modes_refuse(tiny, mode):
     world, log, _ = tiny
     pipe = _reload_pipe(world)
-    match = {"use_imu": "K7b.*#12", "debug_print_run": "#16",
-             "debug_print_frames": "#16"}[mode]
-    if mode == "use_imu":
-        pipe.cfg.ekf.use_imu = False
-    elif mode.startswith("debug_print"):
-        pipe.cfg.ekf.debug_print = True
-    with pytest.raises(NotImplementedError, match=match):
-        if mode in ("use_imu", "debug_print_run"):
+    pipe.cfg.ekf.debug_print = True
+    with pytest.raises(NotImplementedError, match='Queue 1, "Host modules and utilities"'):
+        if mode == "debug_print_run":
             pipe.run(log)
         else:
             pipe.run_frames(log)
+
+
+def test_use_imu_off_by_hot_reload_switches_run_to_the_tick_mode(tiny):
+    """use_imu=False, the refusal this test once held, now runs: switched
+    off by a hot reload, the event loop runs the tick mode (CA ticks and the
+    IMU ring intake, no IMU prediction) and still localizes under JAX's own
+    tick-mode bound (tests/test_pipeline_modes.py:82-90, ATE < 2.0 m); the
+    frame loops ignore the switch as JAX's fused_frame does."""
+    world, log, _ = tiny
+    pipe = _reload_pipe(world)
+    cfg = copy.deepcopy(pipe.cfg)
+    cfg.ekf.use_imu = False
+    pipe.reload_config(cfg)
+    assert pipe.static.use_imu is False
+    seen = {"imu": 0, "tick": 0, "pcm_imu": 0}
+    orig = {k: getattr(truntime, f"{k}_step") for k in ("imu", "tick")}
+    orig["pcm_imu"] = truntime.imu_ring_step
+
+    def count(kind):
+        def step(*a, **k):
+            seen[kind] += 1
+            return orig[kind](*a, **k)
+        return step
+
+    mp = pytest.MonkeyPatch()
+    with mp.context() as m:
+        m.setattr(truntime, "imu_step", count("imu"))
+        m.setattr(truntime, "tick_step", count("tick"))
+        m.setattr(truntime, "imu_ring_step", count("pcm_imu"))
+        _, traj = pipe.run(log)
+    assert seen["imu"] == 0 and seen["pcm_imu"] == len(log.imu_t)
+    base = np.floor(min(log.imu_t[0], log.scan_t[0]))
+    assert seen["tick"] == len(np.arange(log.imu_t[0] - base, log.imu_t[-1] - base, 0.01))
+    ate = ate_rmse(traj["t"], traj["pos"], log.truth_t, log.truth_pos)
+    assert ate < 2.0, ate
+    _, outs = pipe.run_frames(log)
+    assert np.isfinite(outs["ego_pos"]).all() and len(outs["ego_pos"]) == len(log.scan_t)
 
 
 def test_run_fused_accepts_debug_print(tiny, fused32):

@@ -49,6 +49,7 @@ from elimaloc_tpu_torch import config as tconfig
 from elimaloc_tpu_torch import convert, kernels
 from elimaloc_tpu_torch.map import tiles as ttiles
 from elimaloc_tpu_torch.pipeline import LocalizationPipeline as TPipeline
+from elimaloc_tpu_torch.pipeline import runtime as truntime
 from elimaloc_tpu_torch.register import icp as ticp
 from torch_parity import flatten, one_torch_thread, tiny_cfg  # noqa: F401
 
@@ -396,3 +397,65 @@ def test_window_stats_updates_are_atomic():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert pipe.window_stats == {"incr_crops": n_threads * n, "crop_s": 0.5 * n_threads * n}
+
+
+def test_windowed_initialize_at_fails_the_overlap_ratio_as_jax(monkeypatch):
+    """Relocalization on a windowed pipeline from a scan that reaches far
+    past the window (a 60 m scan against a 24 m window radius: most valid
+    points find no map, as the 100 m scan of the chip smoke run against its
+    48 m window): both packages register the whole scan, with no sensor-range
+    gate (JAX runtime.py:1213-1246), stop on the 0.4 overlap ratio after the
+    same number of iterations and return ok False; the same scan gated to the
+    window's reach relocalizes on both."""
+    world = jlog.make_world(seed=5, extent=90.0, n_ground=120_000, n_wall=60_000)
+    log = jlog.synthesize_log(world, duration=1.0, points_per_scan=2048, max_range=60.0,
+                              seed=6, imu_noise_gyro=0.001, imu_noise_acc=0.01)
+    kw = dict(ds_points=2048, use_native=False, ego_ring_size=256, imu_ring_size=128,
+              map_window_radius=24.0)
+
+    def cfg(mod):
+        c = tiny_cfg(mod)
+        c.pcm.input_max_dist = 20.0
+        return c
+
+    jpipe = LocalizationPipeline(cfg(jconfig), world, dtype=jnp.float64,
+                                 tile_budget=TileQueryBudget(qb=32, max_slots=768), **kw)
+    tpipe = TPipeline(cfg(tconfig), world, dtype=torch.float64, device="cpu",
+                      tile_budget=ttiles.TileQueryBudget(qb=32, max_slots=768), **kw)
+    seen = {"jax": [], "port": []}
+    jreg = jpipe._register
+
+    def jrec(*a):
+        res = jreg(*a)
+        seen["jax"].append((int(res.iterations), bool(res.success), float(res.overlap)))
+        return res
+
+    monkeypatch.setattr(jpipe, "_register", jrec)
+    treg = truntime.run_register
+
+    def trec(*a, **k):
+        res = treg(*a, **k)
+        seen["port"].append((int(res.iterations), bool(res.success), float(res.overlap)))
+        return res
+
+    monkeypatch.setattr(truntime, "run_register", trec)
+    pts, valid = log.scan_points[0], log.scan_valid[0]
+    reach = np.linalg.norm(pts, axis=1) <= 20.0
+    click = (log.truth_pos[0][0] + 0.5, log.truth_pos[0][1] - 0.4,
+             log.truth_rpy[0][2] + np.deg2rad(1.0))
+    out = {}
+    for name, v in (("whole", valid), ("gated", valid & reach)):
+        jst, jok = jpipe.initialize_at(jpipe.reset(), *click, pts, v, log.scan_t[0])
+        tst, tok = tpipe.initialize_at(tpipe.reset(), *click, pts, v, log.scan_t[0])
+        out[name] = (jok, tok, jst, tst)
+    assert (valid & reach).sum() < 0.4 * valid.sum()
+    jok, tok, _, _ = out["whole"]
+    assert jok is False and tok is False
+    assert seen["port"][0][:2] == seen["jax"][0][:2]      # iterations, success
+    assert seen["port"][0][2] == pytest.approx(seen["jax"][0][2], abs=1e-12)
+    assert seen["port"][0][2] < 0.4
+    jok, tok, jst, tst = out["gated"]
+    assert jok is True and tok is True
+    assert seen["port"][1][:2] == seen["jax"][1][:2]
+    np.testing.assert_allclose(tst.ekf.pos.numpy(), np.asarray(jst.ekf.pos), rtol=0, atol=1e-6)
+    assert np.linalg.norm(tst.ekf.pos.numpy()[:2] - log.truth_pos[0][:2]) < 1.5
