@@ -6,7 +6,8 @@ make_world(seed=3, extent=120, 400k ground + 200k wall points), 131,072 raw
 points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
-(P2P, GICP, VGICP) and 2 (AVGICP). Thirteen paths:
+(P2P, GICP, VGICP) and 2 (AVGICP); the hash paths put the same BuiltMap
+on the card as the hash grid (``backend="hash"``). Twenty-two paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
 AVGICP), for AVGICP with GPS and CAN fusion (BASELINE config 5,
 bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
@@ -24,11 +25,17 @@ disk-backed with ``load_tile_map(mmap=True)``, on the bench.py headline log
 length (40 scans, bench.py:86, 140-146: the 20-scan log moves 7 m, too
 little for a 48 m window to swap), run three ways: ``run_fused
 (window_chunk=8)``, ``run_frames`` per frame, and per frame with each
-prefetch finished before any swap ("forced").
+prefetch finished before any swap ("forced"). Then the hash backend
+(K13, kernel Q once per GN iteration in place of B and A, E, F, G):
+``run_fused`` as "P2P hash", "GICP hash", "VGICP hash", "AVGICP hash" and
+the radar forms "GICP / VGICP / AVGICP hash+radar"; "GICP hash frames"
+(``run_frames``); "reloc hash" (``initialize_at`` on the P2P hash
+pipeline); and "hash grid": the grid's own lookup, four queries (Q's other
+entries) and ground probe (kernel R) on the card.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the 16 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
+  2. build: the 18 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
      source, all started together), then the map and its two packings;
   3. per run_fused path:
      a. a warm-up replay that records main-path calls of the kernels;
@@ -41,7 +48,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         queries at the scan's times, the PCM measurement); on the fusion
         path kernels H (the IMU chain) and I (the CAN, GPS and PCM updates);
         on the radar paths the method's kernel in its radar form (rtol 1e-3)
-        and, on GICP's, kernel P;
+        and, on GICP's, kernel P; on the hash paths kernel Q (its radar form
+        against a float64 tail, as E, F, G's) and M;
      c. the timed replay: the launch counts set to 0 just before it and
         read just after (every kernel of the path must have launched),
         applied ratio, ATE against ground truth, slot drops, downsample
@@ -75,12 +83,20 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      on a windowed pipeline whose window lies ~100 m from the click, given
      the log's scan as it is (the card held to the CPU port) and the scan
      gated to the sensor range (within 1.5 m of the truth);
-  6. torch.profiler, after every timed replay: kernels H-P alone on the
+  5b. the hash backend: each hash path held to its method's gates (as its
+     tile path) with Q and M launched once per GN iteration and no tile
+     kernel; "GICP hash frames" = its run_fused to 1e-6 m; "reloc hash"
+     within 1.5 m; "hash grid": lookup and the queries bit for bit against
+     their plain versions, R's found equal and z within one ulp; each hash
+     path's trajectory against its method's tile path (P2P, GICP, VGICP
+     under the closed-loop contract; AVGICP's ATE beside the tile path's);
+  6. torch.profiler, after every timed replay: kernels D, H-R alone on the
      device, and one more replay per run_fused path and of the windowed
      run_fused for the device's busy share and its top kernels;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
-     CPU tests) under the repo's closed-loop contract; on the fusion log also
+     CPU tests) under the repo's closed-loop contract, and "P2P hash" on
+     P2P's log; on the fusion log also
      the event loop ``run``; the radar paths on small logs in a map frame
      1 km off the origin (where the reference's world-frame radar model is
      well-posed; outside the contract, held to twice the CPU port's own
@@ -185,6 +201,21 @@ WINDOW_SENSOR = 40.0
 #: kernel N: its source and the JAX function it replaces
 SHIFT = ("elimaloc_tpu_torch/csrc/window_shift.cu",
          "elimaloc_tpu/map/tiles.py:511 _shift_window_impl + :546 shift_window")
+#: the hash backend (K13, kernel Q): run_fused per method on the hash grid
+#: of the same BuiltMap, and its radar forms
+HASH_PATHS = ("P2P hash", "GICP hash", "VGICP hash", "AVGICP hash")
+HASH_RADAR_PATHS = ("GICP hash+radar", "VGICP hash+radar", "AVGICP hash+radar")
+HASH_FRAMES = "GICP hash frames"
+HASH_GRID = "hash grid"
+#: kernels Q and R: their sources and the JAX functions they replace
+HASH = ("elimaloc_tpu_torch/csrc/hash_correspond.cu",
+        "elimaloc_tpu/map/grid.py:153 lookup (+ :144-150) + :181-268 query_* + "
+        "elimaloc_tpu/register/icp.py:429 _iteration (+ the tails :283, :324, :354, :381)")
+GROUND = ("elimaloc_tpu_torch/csrc/ground_height.cu",
+          "elimaloc_tpu/map/grid.py:320 find_ground_height")
+#: the tile backend's kernels, never launched on a hash path
+TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_correspond",
+             "avgicp_correspond")
 #: truth ATE gate per method on the headline log, m. AVGICP does not
 #: converge within max_iteration on this sparse map (8 iterations a frame
 #: against ~2 for the other methods, 0.19 m on the H100): its gate follows the
@@ -198,11 +229,15 @@ def log_line(*parts):
 
 
 def path_method(path):
-    return path.split("+")[0]
+    return path.split("+")[0].split(" ")[0]
 
 
 def is_radar(path):
     return path.endswith("+radar")
+
+
+def is_hash(path):
+    return " hash" in path
 
 
 def bound(ops, nbytes):
@@ -366,6 +401,7 @@ def shared_kernel_rows(pipe, calls, mods):
                      replaces="elimaloc_tpu/deskew.py:196 (+ deskew_points :229)",
                      max_abs_err=err, ms=time_ms(lambda: kernels.deskew(*a, **k)),
                      plain_ms=time_ms(lambda: deskew.deskew_points_plain(*a)),
+                     device_fn=(lambda a=a, k=k: kernels.deskew(*a, **k), "deskew_kernel"),
                      bound=bound(ops, nbytes(points, rel, valid, info.imu_time, info.imu_rot,
                                              info.imu_included, got))))
 
@@ -441,6 +477,39 @@ def radar_tail64(method, icp, pipe, sbuf, pose, radar, ref):
     return out[1:]
 
 
+def compare_sums(name, got, ref, ref64, spread=0.0):
+    """A search + GN kernel's (matched, JTJ, JTr, fit_num) against its plain
+    version's: matched equal; JTJ / JTr / fitness numerator within rtol 1e-4
+    on the norms, or, with the float64 tail ``ref64`` of the radar form, no
+    farther from it than twice the larger of the plain float32 version's
+    largest relative error and ``spread`` (kernel Q: that of the plain
+    float32 version with the radar input moved by one ulp) plus 1e-4;
+    non-finite sums on both sides alike. Returns (max abs err, worst rel
+    err, [(kernel, plain) rel err against float64])."""
+    if int(got[0]) != int(ref[0]):
+        raise AssertionError(f"{name}: matched {int(got[0])} != {int(ref[0])}")
+    err = worst = 0.0
+    acc = [] if ref64 is None else [(_rel(x, r)[0], _rel(y, r)[0])
+                                    for x, y, r in zip(got[1:], ref[1:4], ref64)]
+    for i, (x, y) in enumerate(zip(got[1:], ref[1:4])):
+        rel, same = _rel(x, y)
+        if not same:
+            raise AssertionError(f"{name}: the kernel's non-finite sums differ from the "
+                                 "plain version's")
+        if ref64 is None:
+            if not rel <= 1e-4:
+                raise AssertionError(f"{name}: JTJ/JTr/fitness rel err {rel} > 1e-4")
+        elif not acc[i][0] <= 2.0 * max(max(p for _, p in acc), spread) + 1e-4:
+            raise AssertionError(f"{name}: rel err against float64 {acc[i][0]:.3e}, plain "
+                                 f"float32's largest {max(p for _, p in acc):.3e}, one-ulp "
+                                 f"spread {spread:.3e}")
+        fin = torch.isfinite(y)
+        if bool(fin.any()):
+            err = max(err, float((x[fin] - y[fin]).abs().max()))
+        worst = max(worst, rel)
+    return err, worst, acc
+
+
 def method_kernel_row(method, pipe, calls, mods):
     """The method's fused search + GN kernel against its plain version: the
     matches exactly equal, ``matched`` equal, JTJ / JTr / fitness numerator
@@ -476,27 +545,8 @@ def method_kernel_row(method, pipe, calls, mods):
         if not torch.equal(x, y):
             raise AssertionError(f"{wrapper}: match output {i} differs from its plain "
                                  "version")
-    if int(got[0]) != int(ref[0]):
-        raise AssertionError(f"{wrapper}: matched {int(got[0])} != {int(ref[0])}")
-    err = worst = 0.0
     ref64 = None if radar is None else radar_tail64(method, icp, pipe, sbuf, pose, radar, ref)
-    acc = [] if ref64 is None else [(_rel(x, r)[0], _rel(y, r)[0])
-                                    for x, y, r in zip(got[1:], ref[1:4], ref64)]
-    for i, (x, y) in enumerate(zip(got[1:], ref[1:4])):
-        rel, same = _rel(x, y)
-        if not same:
-            raise AssertionError(f"{wrapper}: the kernel's non-finite sums differ from the "
-                                 "plain version's")
-        if ref64 is None:
-            if not rel <= 1e-4:
-                raise AssertionError(f"{wrapper}: JTJ/JTr/fitness rel err {rel} > 1e-4")
-        elif not acc[i][0] <= 2.0 * max(p for _, p in acc) + 1e-4:
-            raise AssertionError(f"{wrapper}[radar]: rel err against float64 {acc[i][0]:.3e}, "
-                                 f"plain float32's largest {max(p for _, p in acc):.3e}")
-        fin = torch.isfinite(y)
-        if bool(fin.any()):
-            err = max(err, float((x[fin] - y[fin]).abs().max()))
-        worst = max(worst, rel)
+    err, worst, acc = compare_sums(wrapper, got, ref, ref64)
     live = int(qmask.sum())
     n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
     matched, row = int(ref[0]), a[0].shape[1]
@@ -520,6 +570,170 @@ def method_kernel_row(method, pipe, calls, mods):
                 launches_key=wrapper,
                 bound=bound(live * row * 6 + matched * (match_ops + 9 * (radar is not None)),
                             moved))
+
+
+def hash_tail64(method, icp, grid_mod, pipe, grid, src, valid, pose, radar):
+    """Kernel Q's radar tail in float64 on the plain version's own matches
+    (the grid queries at the float32 queries): (JTJ, JTr, fit_num)."""
+    f64 = torch.float64
+    q = icp.transform_slots(pose, src)
+    md = pipe.params.icp.max_search_dist
+    p64 = icp.make_icp_params(pipe.cfg.pcm, dtype=f64, device=src.device)
+    pose64, src64, rad = pose.to(f64), src.to(f64), radar.to(f64)
+    if method == "GICP":
+        _, cov, mean, ok = grid_mod.query_nearest_point_cov_plain(grid, q, md)
+        return icp._gicp_tail(pose64, src64, cov.to(f64), mean.to(f64), ok & valid, p64,
+                              rad)[1:]
+    if method == "VGICP":
+        cov, mean, ok = grid_mod.query_nearest_voxel_cov_plain(grid, q, md)
+        return icp._voxcov_tail(pose64, src64, cov.to(f64), mean.to(f64), ok & valid, p64,
+                                rad)[1:]
+    cov, mean, ok = grid_mod.query_all_voxel_cov_plain(grid, q, md)
+    return icp._voxcov_tail(pose64, torch.repeat_interleave(src64, 7, dim=0),
+                            cov.reshape(-1, 3, 3).to(f64), mean.reshape(-1, 3).to(f64),
+                            (ok & valid[:, None]).reshape(-1), p64,
+                            torch.repeat_interleave(rad, 7, dim=0))[1:]
+
+
+def hash_search_bytes_ops(method, grid_mod, grid, queries, matched):
+    """(bytes, operations) the hash search needs on these queries: each
+    neighbour voxel it touches read once (its probe slot, 8 B, its count, 4
+    B, and its points, 12 B each, or its mean), the matched payloads
+    (``matched`` distinct rows x the method's match bytes); ~9 operations a
+    candidate (3 sub, 3 mul, 2 add, 1 compare) and ~40 a lookup (the two
+    hashes)."""
+    offsets = grid_mod.OFFSETS_7 if method == "AVGICP" else grid_mod.OFFSETS_27
+    rows = grid_mod._neighbour_rows(grid, queries, offsets).long()
+    uniq = torch.unique(rows)
+    counts = grid.counts[uniq]
+    per_voxel = counts.sum() * 12 if method in ("P2P", "GICP") else (counts > 0).sum() * 12
+    cand_all = grid.counts[rows]
+    cands = cand_all.sum() if method in ("P2P", "GICP") else (cand_all > 0).sum()
+    match_b = SEARCH_COST[method][1]
+    return (int(uniq.numel()) * 12 + int(per_voxel) + matched * match_b,
+            int(cands) * 9 + rows.numel() * 40)
+
+
+def hash_kernel_row(path, pipe, calls, mods):
+    """Kernel Q's fused entry on a GN iteration of the hash path against
+    ``hash_search_reduce_plain`` on the same inputs (``compare_sums``: rtol
+    1e-4; the radar form against its float64 tail)."""
+    kernels, grid_mod, icp, cfg_mod = mods[0], mods[2], mods[4], mods[5]
+    method = path_method(path)
+    a, k = calls["hash_correspond"]
+    grid, src, valid, pose, max_dist, _, radar = a
+    params = pipe.params.icp
+    code = int(cfg_mod.IcpMethod[method])
+
+    def plain():
+        return icp.hash_search_reduce_plain(grid, src, valid, pose, params, code, radar)
+
+    ref = plain()
+    sums = kernels.hash_correspond(*a, **k)
+    got = icp.assemble_p2p(sums) if method == "P2P" else icp.assemble_gn(sums)
+    ref64 = spread = None
+    if radar is not None:
+        # near the map origin the radar rows are near-singular (PERF.md): the
+        # float32 tail is then as sensitive as moving the radar input by one
+        # ulp, which the kernel's other (equally valid) rounding may do
+        ref64 = hash_tail64(method, icp, grid_mod, pipe, grid, src, valid, pose, radar)
+        spread = max(_rel(x, r)[0] for f in (1 + 2 ** -23, 1 - 2 ** -23)
+                     for x, r in zip(icp.hash_search_reduce_plain(
+                         grid, src, valid, pose, params, code, radar * f)[1:4], ref64))
+    name = f"hash_correspond[{method}{' radar' if radar is not None else ''}]"
+    err, worst, acc = compare_sums(name, got, ref, ref64, spread or 0.0)
+    n, matched = src.shape[0], int(ref[0])
+    moved, ops = hash_search_bytes_ops(method, grid_mod, grid, icp.transform_slots(pose, src),
+                                       matched)
+    moved += nbytes(src, valid, pose, max_dist, sums, radar)
+    ops += matched * (SEARCH_COST[method][2] + 9 * (radar is not None))
+    log_line(f"  {name}: queries {n}, valid {int(valid.sum())}, matched {matched}, grid "
+             f"{tuple(grid.points.shape)}, max_probe {grid.max_probe}, |JTJ| "
+             f"{float(torch.linalg.norm(ref[1])):.3e}, worst rel err {worst:.2e}"
+             + ("" if not acc else ", against float64 (JTJ, JTr, fit) kernel / plain: "
+                + ", ".join(f"{x:.2e} / {p:.2e}" for x, p in acc)
+                + f"; plain with the radar input one ulp off: {spread:.2e}"))
+    return dict(name=name, source=HASH[0], replaces=HASH[1], max_abs_err=err,
+                ms=time_ms(lambda: kernels.hash_correspond(*a, **k)), plain_ms=time_ms(plain),
+                device_fn=(lambda: kernels.hash_correspond(*a, **k), "hash_search_kernel"),
+                launches_key="hash_correspond", bound=bound(ops, moved))
+
+
+def hash_grid_phase(pipe, calls, mods):
+    """The grid's own functions on the card at the P2P hash path's last
+    recorded GN iteration (its world queries, their voxels, the scan's
+    position): ``lookup`` and the four queries (kernel Q's lookup and query
+    entries) and ``find_ground_height`` (kernel R), the counts set to 0
+    just before and read just after. Then each against its plain version:
+    the lookup and the queries bit for bit (the same exact search, then
+    copies), R's ``found`` equal and z within one float32 ulp."""
+    kernels, grid_mod, icp = mods[0], mods[2], mods[4]
+    g = pipe.map
+    a, _ = calls["hash_correspond"]
+    src, valid, pose = a[1], a[2], a[3]
+    md = pipe.params.icp.max_search_dist
+    q = icp.transform_slots(pose, src)
+    coords = grid_mod.point_to_voxel(q, g.voxel_size)
+    xy = tuple(float(v) for v in pose[:2, 3])
+    queries = {"P2P": (grid_mod.query_nearest_point, grid_mod.query_nearest_point_plain),
+               "GICP": (grid_mod.query_nearest_point_cov,
+                        grid_mod.query_nearest_point_cov_plain),
+               "VGICP": (grid_mod.query_nearest_voxel_cov,
+                         grid_mod.query_nearest_voxel_cov_plain),
+               "AVGICP": (grid_mod.query_all_voxel_cov, grid_mod.query_all_voxel_cov_plain)}
+    kernels.reset_launches()
+    got = {m: fn(g, q, md) for m, (fn, _) in queries.items()}
+    rows = grid_mod.lookup(g, coords)
+    found, z = grid_mod.find_ground_height(g, xy)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if not (launches["hash_query"] == 4 and launches["hash_lookup"] == 1
+            and launches["ground_height"] == 1):
+        raise AssertionError(f"[{HASH_GRID}] launches {launches}")
+    out = []
+    n = q.shape[0]
+    for m, (fn, plain) in queries.items():
+        ref = plain(g, q, md)
+        for i, (x, y) in enumerate(zip(got[m], ref)):
+            if not torch.equal(x, y.to(x.dtype)):
+                raise AssertionError(f"[{HASH_GRID}] query {m} output {i} differs from plain")
+        valid_q = ref[1] if m == "P2P" else ref[-1]
+        moved, ops = hash_search_bytes_ops(m, grid_mod, g, q, int(valid_q.sum()))
+        moved += nbytes(q, md, *got[m])
+        out.append(dict(name=f"hash_query[{m}]", source=HASH[0], replaces=HASH[1],
+                        max_abs_err=0.0, ms=time_ms(lambda: fn(g, q, md)),
+                        plain_ms=time_ms(lambda: plain(g, q, md)),
+                        launches=1, bound=bound(ops, moved)))
+        log_line(f"  hash_query[{m}]: {n} queries, {int(valid_q.sum())} valid, bit for bit")
+    ref_rows = grid_mod.lookup_plain(g, coords)
+    if not torch.equal(rows, ref_rows):
+        raise AssertionError(f"[{HASH_GRID}] lookup differs from its plain version")
+    probes = torch.unique(grid_mod._hash(coords, g.table_size)).numel()
+    out.append(dict(name="hash_lookup", source=HASH[0], replaces=HASH[1], max_abs_err=0.0,
+                    ms=time_ms(lambda: grid_mod.lookup(g, coords)),
+                    plain_ms=time_ms(lambda: grid_mod.lookup_plain(g, coords)), launches=1,
+                    bound=bound(n * 40, nbytes(coords, rows) + probes * 8)))
+    rf, rz = grid_mod.find_ground_height_plain(g, xy)
+    ulp = float(torch.finfo(torch.float32).eps) * max(abs(float(rz)), 1e-30)
+    z_err = abs(float(z) - float(rz)) if torch.isfinite(rz) else float(z != rz)
+    if not (bool(found) == bool(rf) and z_err <= ulp):
+        raise AssertionError(f"[{HASH_GRID}] ground height ({bool(found)}, {float(z)}) vs "
+                             f"plain ({bool(rf)}, {float(rz)})")
+    v, m_pts = g.points.shape[0] - 1, g.points.shape[1]
+    out.append(dict(name="ground_height", source=GROUND[0], replaces=GROUND[1],
+                    max_abs_err=z_err, ms=time_ms(lambda: grid_mod.find_ground_height(g, xy)),
+                    plain_ms=time_ms(lambda: grid_mod.find_ground_height_plain(g, xy)),
+                    launches=1, device_fn=(lambda: grid_mod.find_ground_height(g, xy),
+                                           "ground_"),
+                    bound=bound(v * m_pts * 6, v * m_pts * 12 + 8)))
+    log_line(f"[{HASH_GRID}] lookup of {n} voxels bit for bit; ground height at "
+             f"({xy[0]:.2f}, {xy[1]:.2f}): found {bool(found)}, z {float(z):.6f} (plain "
+             f"{float(rz):.6f}); launches {launches}")
+    for r in out:
+        r["route"] = "cuda"
+    return out, {"launches": {k: launches[k] for k in ("hash_query", "hash_lookup",
+                                                         "ground_height")},
+                 "ground": {"found": bool(found), "z": float(z)}}
 
 
 def radar_cov_row(calls, mods):
@@ -1024,26 +1238,41 @@ class AdmissionProbe:
         return {k: tuple(v) for k, v in out.items()}
 
 
-def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
+def sums_of(kernels, wrapper, a, k):
+    """The reduced sums of one recorded search + GN call (kernel Q returns
+    them alone, A, E, F, G first of a tuple)."""
+    out = getattr(kernels, wrapper)(*a, **k)
+    return out if wrapper == "hash_correspond" else out[0]
+
+
+def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, deferred):
     """One path: warm-up replay (recording the kernels' inputs), the
     kernel-vs-plain rows, then the timed replay with its launch counts. Its
     torch.profiler pass goes into ``deferred``: it runs after every path's
-    timed replay, so that no timed replay follows a profiler session."""
+    timed replay, so that no timed replay follows a profiler session. A
+    hash path registers on the hash grid of ``built`` (kernel Q once per GN
+    iteration, no tile kernel)."""
     kernels, cfg_mod, runtime, tiles = mods[0], mods[5], mods[6], mods[3]
     method = path_method(path)
+    hashed = is_hash(path)
     t0 = time.time()
-    pipe = runtime.LocalizationPipeline(
-        method_cfg(cfg_mod, path), packed[2 if method == "AVGICP" else 1],
-        device="cuda", ds_points=ds_points,
-        tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
-        ego_ring_size=512, imu_ring_size=256)
+    if hashed:
+        pipe = runtime.LocalizationPipeline(
+            method_cfg(cfg_mod, path), built, backend="hash", device="cuda",
+            ds_points=ds_points, ego_ring_size=512, imu_ring_size=256)
+    else:
+        pipe = runtime.LocalizationPipeline(
+            method_cfg(cfg_mod, path), packed[2 if method == "AVGICP" else 1],
+            device="cuda", ds_points=ds_points,
+            tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
+            ego_ring_size=512, imu_ring_size=256)
     log_line(f"[{path}] {len(log.scan_t)} scans x {log.scan_points.shape[1]} points, "
              f"ds_points {ds_points}, max_slots {max_slots}, map upload "
              f"{time.time() - t0:.1f} s")
-    wrapper = KERNEL[method][0]
+    wrapper = "hash_correspond" if hashed else KERNEL[method][0]
     radar = is_radar(path)
-    path_kernels = (SHARED + (wrapper,) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
-                    + (("radar_cov",) if radar else ()))
+    path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
+                    + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ()))
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
                   every=("ekf_update",) + ((wrapper,) if radar else ())) as rec:
         pipe.run_fused(log)
@@ -1055,8 +1284,8 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
         # iteration, or leave the map (no match, all sums zero), the same on
         # both sides
         calls = rec.every[wrapper]
-        finite = [bool(torch.isfinite(a[6]).all()) for a, _ in calls]
-        matched = [int(getattr(kernels, wrapper)(*a, **k)[0][43]) if f else 0
+        finite = [bool(torch.isfinite(a[3 if hashed else 6]).all()) for a, _ in calls]
+        matched = [int(sums_of(kernels, wrapper, a, k)[43]) if f else 0
                    for (a, k), f in zip(calls, finite)]
         usable = [f and m > 0 for f, m in zip(finite, matched)]
         pick = next((i for i in range(rec.at, len(calls)) if usable[i]),
@@ -1072,6 +1301,10 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
                  measurement_row(rec.calls, mods)]
     if path == FUSION:
         rows += [imu_chain_row(rec.calls, mods), ekf_update_row(rec, mods)]
+    elif hashed:
+        rows += [hash_kernel_row(path, pipe, rec.calls, mods)]
+        if not radar:
+            rows += [gn_step_row(path, rec.calls, mods)]
     elif radar:
         rows += [method_kernel_row(method, pipe, rec.calls, mods[:5])]
         if method == "GICP":
@@ -1116,6 +1349,17 @@ def run_path(path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred):
     summary = {"scans_per_s": n / wall, "stage_ms": split, "frame_ms_p50": p50,
                "frame_ms_p95": p95, "ate_m": ate, "applied": applied,
                "iterations_mean": iters}
+    if hashed:
+        # kernel Q once per GN iteration (then M), and no tile kernel
+        total_iters = int(np.sum(outs["iterations"]))
+        summary["gn_iterations"] = total_iters
+        if not launches["hash_correspond"] == launches["gn_step"] == total_iters:
+            raise AssertionError(f"[{path}] hash_correspond {launches['hash_correspond']} and "
+                                 f"gn_step {launches['gn_step']} launches, {total_iters} GN "
+                                 "iterations")
+        if any(launches[k] for k in TILE_ONLY):
+            raise AssertionError(f"[{path}] a tile kernel ran on the hash path: "
+                                 + str({k: launches[k] for k in TILE_ONLY}))
 
     def profiled_replay():
         """One more replay under torch.profiler: the device's busy share and
@@ -1175,11 +1419,14 @@ def check_launches(what, launches, names):
             raise AssertionError(f"[{what}] kernel {name} was not launched on the path")
 
 
-def frames_path(pipe, log, fused, kernels):
-    """``run_frames`` (the online mode) on the GICP pipeline: the launch
+def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
+    """``run_frames`` (the online mode) on the GICP pipeline (``what``: the
+    tile or the hash one, whose kernels ``names`` must launch): the launch
     counts from 0 around it, its frames against that pipeline's run_fused
     (ego_pos within 1e-6 m, applied equal: the same kernels in the same
     order), scans/s and the frame time p50/p95."""
+    names = names or (SHARED + (KERNEL["GICP"][0],) + tuple(EKF_KERNELS)
+                      + tuple(SCAN_KERNELS))
     stages = StageTimer()
     seen = []
     kernels.reset_launches()
@@ -1194,14 +1441,13 @@ def frames_path(pipe, log, fused, kernels):
     n = len(log.scan_t)
     err = float(np.abs(outs["ego_pos"] - fused["ego_pos"]).max())
     same_applied = bool(np.array_equal(outs["applied"], fused["applied"]))
-    log_line(f"[{FRAMES}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans), frame ms p50 "
+    log_line(f"[{what}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans), frame ms p50 "
              f"{p50:.3f} p95 {p95:.3f}, on_scan calls {len(seen)}, ego_pos vs run_fused max "
              f"{err:.2e} m, applied equal {same_applied}, launches {launches}")
-    log_line(f"[{FRAMES}] stage ms/frame: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    check_launches(FRAMES, launches, SHARED + (KERNEL["GICP"][0],) + tuple(EKF_KERNELS)
-                   + tuple(SCAN_KERNELS))
+    log_line(f"[{what}] stage ms/frame: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    check_launches(what, launches, names)
     if not (err <= 1e-6 and same_applied and len(seen) == n):
-        raise AssertionError(f"[{FRAMES}] run_frames differs from run_fused")
+        raise AssertionError(f"[{what}] run_frames differs from run_fused")
     return {"scans_per_s": n / wall, "frame_ms_p50": p50, "frame_ms_p95": p95,
             "stage_ms": split, "ego_pos_vs_fused_m": err}
 
@@ -1278,11 +1524,13 @@ def events_path(pipe, log, fused, mods, ate_rmse):
             "stage_ms": split}
 
 
-def reloc_phase(pipe, log, kernels):
+def reloc_phase(pipe, log, kernels, what="reloc",
+                names=("voxel_downsample", "assign_slots", "p2p_correspond", "gn_step")):
     """``initialize_at`` on the P2P pipeline (a packed tile map: the ground
-    probe reads its halo rows) from a click ~1 m and 1 deg off the truth at
-    scan 0 (tests/test_pipeline.py:313-327): ok, the PCM_INIT warm-up on,
-    the position within 1.5 m of the truth."""
+    probe reads its halo rows; or the hash one: the BuiltMap's) from a click
+    ~1 m and 1 deg off the truth at scan 0 (tests/test_pipeline.py:313-327):
+    ok, the PCM_INIT warm-up on, the position within 1.5 m of the truth,
+    the kernels ``names`` launched."""
     x, y = log.truth_pos[0][:2] + 0.7
     yaw = log.truth_rpy[0][2] + np.deg2rad(1.0)
     kernels.reset_launches()
@@ -1290,13 +1538,12 @@ def reloc_phase(pipe, log, kernels):
                                    log.scan_valid[0], log.scan_t[0])
     launches = dict(kernels.launches)
     err = float(np.linalg.norm(state.ekf.pos.cpu().numpy()[:2] - log.truth_pos[0][:2]))
-    log_line(f"[reloc] initialize_at from ({x:.2f}, {y:.2f}, yaw {np.rad2deg(yaw):.2f} deg): "
+    log_line(f"[{what}] initialize_at from ({x:.2f}, {y:.2f}, yaw {np.rad2deg(yaw):.2f} deg): "
              f"ok {ok}, pcm_init_on_going {bool(state.ekf.pcm_init_on_going)}, position "
              f"error {err:.3f} m, launches {launches}")
-    check_launches("reloc", launches, ("voxel_downsample", "assign_slots", "p2p_correspond",
-                                       "gn_step"))
+    check_launches(what, launches, names)
     if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5):
-        raise AssertionError("[reloc] relocalization failed")
+        raise AssertionError(f"[{what}] relocalization failed")
     return {"ok": ok, "position_error_m": err}
 
 
@@ -1835,7 +2082,8 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     < 5 mm. The logs are those of tests/test_torch_slice.py (P2P) and
     tests/test_torch_methods_replay.py (where each method converges); the
     fusion path runs AVGICP's, with its 1 Hz GPS and 50 Hz CAN, through
-    run_fused and through the event loop run."""
+    run_fused and through the event loop run; a hash path runs its method's
+    log on the hash backend."""
     method = path_method(path)
     cfg = method_cfg(cfg_mod, path)
     cfg.pcm.input_voxel_ds_m = 1.0
@@ -1861,6 +2109,7 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     for device in ("cuda", "cpu"):
         pipe = runtime.LocalizationPipeline(
             cfg, built, device=device, ds_points=ds_points,
+            backend="hash" if is_hash(path) else "tile",
             tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024),
             ego_ring_size=128, imu_ring_size=128)
         for loop, fn in loops.items():
@@ -1876,6 +2125,27 @@ def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
                                  "closed-loop contract")
         out[loop] = {"max_m": float(err.max()), "median_m": float(np.median(err)),
                      "last3_m": float(err[-3:].max())}
+    return out
+
+
+def hash_vs_tile(fused, slices):
+    """Each hash path's trajectory against the tile path of its method, in
+    the same run: P2P, GICP and VGICP under the closed-loop contract (the
+    same matches up to ties, the same sums up to their order); AVGICP's
+    ATE beside the tile path's (the tile path's slot assignment is hoisted
+    out of the GN loop, the hash backend looks the voxels up from the
+    current pose every iteration: ROADMAP Queue 3's open question)."""
+    out = {}
+    for path in HASH_PATHS:
+        method = path_method(path)
+        err = np.linalg.norm(fused[path]["ego_pos"] - fused[method]["ego_pos"], axis=1)
+        out[method] = _stats(err)
+        out[method].update(ate_hash_m=slices[path]["ate_m"], ate_tile_m=slices[method]["ate_m"])
+        log_line(f"[{path}] vs {method} (tile): max {err.max():.2e} m, median "
+                 f"{np.median(err):.2e} m, last 3 max {err[-3:].max():.2e} m; ATE hash "
+                 f"{slices[path]['ate_m']:.4f} m, tile {slices[method]['ate_m']:.4f} m")
+        if method != "AVGICP" and not contract(err):
+            raise AssertionError(f"[{path}] left the closed-loop contract of the tile path")
     return out
 
 
@@ -1992,9 +2262,9 @@ def main():
         cfg_mod, runtime, builder, tiles, log_mod)
     mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter, rings)
     rows, slices, deferred, pipes, fused, recs = [], {}, [], {}, {}, {}
-    for path in PATHS + RADAR_PATHS:
+    for path in PATHS + RADAR_PATHS + HASH_PATHS + HASH_RADAR_PATHS:
         r, slices[path], pipes[path], fused[path], recs[path] = run_path(
-            path, log, packed, ds_points, max_slots, mods, ate_rmse, deferred)
+            path, log, packed, built, ds_points, max_slots, mods, ate_rmse, deferred)
         rows += r
         if is_radar(path):
             del pipes[path]
@@ -2009,6 +2279,16 @@ def main():
     r, slices[WINDOWED] = windowed_path(built, window_log(world, log_mod), packed, mods,
                                         ate_rmse)
     rows += r
+    hash_kernels = SHARED[:2] + ("hash_correspond",) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
+    slices[HASH_FRAMES] = frames_path(pipes["GICP hash"], log, fused["GICP hash"], kernels,
+                                      HASH_FRAMES, hash_kernels)
+    slices["reloc hash"] = reloc_phase(pipes["P2P hash"], log, kernels, "reloc hash",
+                                       ("voxel_downsample", "hash_correspond", "gn_step"))
+    if any(kernels.launches[k] for k in TILE_ONLY):
+        raise AssertionError(f"[reloc hash] a tile kernel ran: {kernels.launches}")
+    r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)
+    rows += r
+    slices["hash vs tile"] = hash_vs_tile(fused, slices)
     # the profiler passes, after every timed replay
     for r in rows:
         if "device_fn" in r:
@@ -2018,7 +2298,7 @@ def main():
                      + " (torch.profiler)")
     for job in deferred:
         job()
-    for path in PATHS:
+    for path in PATHS + ("P2P hash",):
         slices[path]["reference"] = reference_phase(path, cfg_mod, runtime, builder,
                                                     tiles, log_mod)
     for path in RADAR_PATHS:

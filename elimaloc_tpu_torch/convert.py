@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ekf.state import EkfParams, EkfState
+from .map.grid import MapGrid
 from .map.tiles import TileMap
 from .pipeline.runtime import PipelineParams, PipelineState
 from .register.icp import IcpParams
@@ -74,3 +75,10 @@ def tile_map(fields, *, dtype=torch.float32, device=None) -> TileMap:
     fields = {**fields, "tile_anchor": (0, 0) if anchor is None
               else tuple(int(v) for v in np.asarray(anchor))}
     return to_struct(TileMap, fields, dtype=dtype, device=device)
+
+
+def map_grid(fields, *, dtype=torch.float32, device=None) -> MapGrid:
+    """A device ``MapGrid`` from a flattened hash grid (the JAX package's
+    ``map.grid.MapGrid``): the uint32 fingerprints keep their bits as int32."""
+    fp = np.ascontiguousarray(np.asarray(fields["table_fp"], np.uint32)).view(np.int32)
+    return to_struct(MapGrid, {**fields, "table_fp": fp}, dtype=dtype, device=device)

@@ -99,9 +99,7 @@ __global__ void avgicp_search_kernel(
 
   if (u.gl == 0) {
     const float md = max_dist[0];
-    float P[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float bw[3] = {0.0f, 0.0f, 0.0f};
-    float fit = 0.0f, matched = 0.0f;
+    AvgAcc acc = avg_acc();
     float* pr = part + u.j * kGnSums;
     for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
     for (int o = 0; o < 7; ++o) {
@@ -125,50 +123,9 @@ __global__ void avgicp_search_kernel(
         for (int k = 0; k < 3; ++k) mean_out[pair * 3 + k] = mu[k];
         ok_out[pair] = ok;
       }
-      if (!ok) {
-        if (kRadar && u.live) masked_radar_row(u, radar, C, mu, pr);
-        continue;
-      }
-      matched += 1.0f;
-      if (kRadar) {  // the flattened per-pair form
-        float e[3];
-        sensor_residual(u, mu, e);
-        const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
-        const float den = md + r2;
-        const float w = md * md / (den * den);
-        if (w < 0.01f) {
-          masked_radar_row(u, radar, C, mu, pr);
-          continue;
-        }
-        float rcr[9], A[9], Ar[3];
-        conj_rt(u.r, C, rcr);
-        add_radar(radar, u.row, rcr);
-        inv3x3(rcr, A);
-        for (int k = 0; k < 9; ++k) A[k] *= w;
-        for (int i = 0; i < 3; ++i)
-          Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
-        gn_row(A, Ar, u.s, pr, true);
-        fit += sqrtf(r2);
-        continue;
-      }
-      const float den = md + d2;
-      const float w = md * md / (den * den);
-      if (w < 0.01f) continue;
-      float ci[9];
-      inv3x3(C, ci);
-      for (int k = 0; k < 9; ++k) P[k] += w * ci[k];
-      for (int i = 0; i < 3; ++i)
-        bw[i] += w * (ci[3 * i] * d[0] + ci[3 * i + 1] * d[1] + ci[3 * i + 2] * d[2]);
-      fit += sqrtf(d2);
+      avgicp_pair<kRadar>(u, ok, C, mu, d, d2, md, radar, acc, pr);
     }
-    if (!kRadar) {
-      float A[9], b[3];
-      conj_rt(u.r, P, A);
-      rot_t(u.r, bw, b);
-      gn_row(A, b, u.s, pr, false);
-    }
-    pr[42] = fit;
-    pr[43] = matched;
+    avgicp_finish<kRadar>(u, acc, pr);
   }
   __syncthreads();
   slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);

@@ -77,6 +77,25 @@ struct SlotQuery {
   bool live;
 };
 
+// The pose, the sensor point s (3 floats at ``src``), q = R s + t and its
+// voxel floor(q / voxel) (IEEE division: a reciprocal product can move a
+// point across a voxel boundary).
+__device__ __forceinline__ void pose_query(SlotQuery& u, const float* pose, const float* src,
+                                           float voxel) {
+  for (int i = 0; i < 3; ++i) {
+    u.r[3 * i] = pose[4 * i];
+    u.r[3 * i + 1] = pose[4 * i + 1];
+    u.r[3 * i + 2] = pose[4 * i + 2];
+    u.t[i] = pose[4 * i + 3];
+    u.s[i] = src[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    u.q[i] = add(add(add(mul(u.r[3 * i], u.s[0]), mul(u.r[3 * i + 1], u.s[1])),
+                     mul(u.r[3 * i + 2], u.s[2])), u.t[i]);
+    u.qv[i] = (int)floorf(u.q[i] / voxel);
+  }
+}
+
 __device__ __forceinline__ SlotQuery slot_query(
     const int* slot_tile, const float* sbuf, const bool* qmask, int qb,
     const float* pose, float voxel, float tile_size, int tx0, int ty0, int ty_dim) {
@@ -86,18 +105,7 @@ __device__ __forceinline__ SlotQuery slot_query(
   u.j = threadIdx.x / u.tpq;
   u.gl = threadIdx.x % u.tpq;
   u.row = s * qb + u.j;
-  for (int i = 0; i < 3; ++i) {
-    u.r[3 * i] = pose[4 * i];
-    u.r[3 * i + 1] = pose[4 * i + 1];
-    u.r[3 * i + 2] = pose[4 * i + 2];
-    u.t[i] = pose[4 * i + 3];
-    u.s[i] = sbuf[3 * u.row + i];
-  }
-  for (int i = 0; i < 3; ++i) {
-    u.q[i] = add(add(add(mul(u.r[3 * i], u.s[0]), mul(u.r[3 * i + 1], u.s[1])),
-                     mul(u.r[3 * i + 2], u.s[2])), u.t[i]);
-    u.qv[i] = (int)floorf(u.q[i] / voxel);
-  }
+  pose_query(u, pose, sbuf + 3 * u.row, voxel);
   u.tile = slot_tile[s];
   u.c0 = mul(add((float)(u.tile / ty_dim + tx0), 0.5f), tile_size);
   u.c1 = mul(add((float)(u.tile % ty_dim + ty0), 0.5f), tile_size);
@@ -371,6 +379,203 @@ __device__ __forceinline__ void masked_radar_row(const SlotQuery& u, const float
   sensor_residual(u, mu, e);
   for (int i = 0; i < 3; ++i) Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
   gn_row(A, Ar, u.s, out, true);
+}
+
+// --------------------------------------------------------------------------
+// The per-row GN tails shared by the tile kernels (A, E, F, G) and the hash
+// kernel Q. ``u`` carries the pose, the sensor point, the query and the row
+// (the radar covariance's index); ``pr`` the row's partial sums.
+// --------------------------------------------------------------------------
+
+// One matched row's 18 P2P partial sums (register/icp.py:_p2p_tail): the
+// target g in the sensor frame, the robust weight th^2 / (th + r^2)^2, then
+// sum w, w p, w p p^T (xx xy xz yy yz zz), w r, (w p) x r, |r|, 1.
+__device__ __forceinline__ void p2p_row(const SlotQuery& u, const float* g, float md,
+                                        float* pr) {
+  const float r00 = u.r[0], r01 = u.r[1], r02 = u.r[2];
+  const float r10 = u.r[3], r11 = u.r[4], r12 = u.r[5];
+  const float r20 = u.r[6], r21 = u.r[7], r22 = u.r[8];
+  const float t0 = u.t[0], t1 = u.t[1], t2 = u.t[2];
+  const float s0 = u.s[0], s1 = u.s[1], s2 = u.s[2];
+  const float g0 = g[0], g1 = g[1], g2 = g[2];
+  // tgt in the sensor frame: R^T tgt - R^T t (lie.transform_inverse)
+  const float it0 = -(r00 * t0 + r10 * t1 + r20 * t2);
+  const float it1 = -(r01 * t0 + r11 * t1 + r21 * t2);
+  const float it2 = -(r02 * t0 + r12 * t1 + r22 * t2);
+  const float e0 = r00 * g0 + r10 * g1 + r20 * g2 + it0 - s0;
+  const float e1 = r01 * g0 + r11 * g1 + r21 * g2 + it1 - s1;
+  const float e2 = r02 * g0 + r12 * g1 + r22 * g2 + it2 - s2;
+  const float r2 = e0 * e0 + e1 * e1 + e2 * e2;
+  const float den = md + r2;
+  const float w = md * md / (den * den);
+  const float wp0 = w * s0, wp1 = w * s1, wp2 = w * s2;
+  pr[0] = w;
+  pr[1] = wp0;
+  pr[2] = wp1;
+  pr[3] = wp2;
+  pr[4] = wp0 * s0;
+  pr[5] = wp0 * s1;
+  pr[6] = wp0 * s2;
+  pr[7] = wp1 * s1;
+  pr[8] = wp1 * s2;
+  pr[9] = wp2 * s2;
+  pr[10] = w * e0;
+  pr[11] = w * e1;
+  pr[12] = w * e2;
+  pr[13] = wp1 * e2 - wp2 * e1;
+  pr[14] = wp2 * e0 - wp0 * e2;
+  pr[15] = wp0 * e1 - wp1 * e0;
+  pr[16] = sqrtf(r2);
+  pr[17] = 1.0f;
+}
+
+// One row of GICP's 44 partial sums (register/icp.py:_gicp_tail), written
+// over ``pr``: with a match (``ok``), M = (R^T C R [+ radar])^-1 with the
+// match's covariance C, the sensor-frame residual against its mean mu, the
+// weight 0.8 th^2 / (th + r^2)^2 + 0.2, the J^T M J blocks and J^T M r, the
+// fitness term |r . n| (n = R^T v / |R^T v|, v the smallest eigenvector of
+// C) and 1. Without one, zeros; in the radar form a ``u.live`` row still
+// forms its M (masked_radar_row) with the C and mu given.
+template <bool kRadar>
+__device__ __forceinline__ void gicp_row(const SlotQuery& u, bool ok, const float* C,
+                                         const float* mu, float md, const float* radar,
+                                         float* pr) {
+  for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
+  if (ok) {
+    float rcr[9], A[9], e[3], Ar[3];
+    conj_rt(u.r, C, rcr);
+    if (kRadar) add_radar(radar, u.row, rcr);
+    inv3x3(rcr, A);
+    sensor_residual(u, mu, e);
+    const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+    const float den = md + r2;
+    const float w = md * md / (den * den) * 0.8f + 0.2f;
+    for (int k = 0; k < 9; ++k) A[k] *= w;
+    for (int i = 0; i < 3; ++i) Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
+    gn_row(A, Ar, u.s, pr, false);
+    float v[3], n[3];
+    smallest_eigvec(C, v);
+    rot_t(u.r, v, n);
+    const float nn = fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1e-30f);
+    pr[42] = fabsf((e[0] * n[0] + e[1] * n[1] + e[2] * n[2]) / nn);
+    pr[43] = 1.0f;
+  } else if (kRadar && u.live) {
+    masked_radar_row(u, radar, C, mu, pr);
+  }
+}
+
+// One row of VGICP's 44 partial sums (register/icp.py:_voxcov_tail), over
+// ``pr``: a match with weight w = th^2 / (th + r^2)^2 >= 0.01 adds its
+// blocks (M = (R^T C R [+ radar])^-1) and |r| to the fitness; every match
+// counts 1. Rows the sums mask out form their M in the radar form, as in
+// gicp_row.
+template <bool kRadar>
+__device__ __forceinline__ void vgicp_row(const SlotQuery& u, bool ok, const float* C,
+                                          const float* mu, float md, const float* radar,
+                                          float* pr) {
+  for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
+  if (ok) {
+    float e[3];
+    sensor_residual(u, mu, e);
+    const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+    const float den = md + r2;
+    const float w = md * md / (den * den);
+    if (w >= 0.01f) {
+      float rcr[9], A[9], Ar[3];
+      conj_rt(u.r, C, rcr);
+      if (kRadar) add_radar(radar, u.row, rcr);
+      inv3x3(rcr, A);
+      for (int k = 0; k < 9; ++k) A[k] *= w;
+      for (int i = 0; i < 3; ++i)
+        Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
+      gn_row(A, Ar, u.s, pr, false);
+      pr[42] = sqrtf(r2);
+    } else if (kRadar) {
+      masked_radar_row(u, radar, C, mu, pr);
+    }
+    pr[43] = 1.0f;
+  } else if (kRadar && u.live) {
+    masked_radar_row(u, radar, C, mu, pr);
+  }
+}
+
+// AVGICP's running sums over one point's (point, voxel) pairs: P = sum w
+// C^-1 and bw = sum w C^-1 (mu - q) in the world frame, the fitness
+// numerator and the matched pair count.
+struct AvgAcc {
+  float P[9], bw[3], fit, matched;
+};
+
+__device__ __forceinline__ AvgAcc avg_acc() {
+  AvgAcc a;
+  for (int k = 0; k < 9; ++k) a.P[k] = 0.0f;
+  for (int k = 0; k < 3; ++k) a.bw[k] = 0.0f;
+  a.fit = a.matched = 0.0f;
+  return a;
+}
+
+// One (point, voxel) pair of AVGICP (register/icp.py:_avg_voxcov_tail;
+// radar form: the flattened pairs of _voxcov_tail): d = mu - q, d2 its
+// squared norm in the world frame. A matched pair (``ok``) counts; pairs
+// with w = th^2 / (th + d2)^2 < 0.01 leave the sums and the fitness. The
+// reference form adds w C^-1 and w C^-1 d to ``a``; the radar form (the
+// radar term inside the inverse breaks the world-frame reduction) adds the
+// pair's own sensor-frame blocks (w from its residual's norm) to ``pr``.
+// Pairs the sums mask out form their M in the radar form when ``u.live``.
+template <bool kRadar>
+__device__ __forceinline__ void avgicp_pair(const SlotQuery& u, bool ok, const float* C,
+                                            const float* mu, const float* d, float d2,
+                                            float md, const float* radar, AvgAcc& a,
+                                            float* pr) {
+  if (!ok) {
+    if (kRadar && u.live) masked_radar_row(u, radar, C, mu, pr);
+    return;
+  }
+  a.matched += 1.0f;
+  if (kRadar) {
+    float e[3];
+    sensor_residual(u, mu, e);
+    const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+    const float den = md + r2;
+    const float w = md * md / (den * den);
+    if (w < 0.01f) {
+      masked_radar_row(u, radar, C, mu, pr);
+      return;
+    }
+    float rcr[9], A[9], Ar[3];
+    conj_rt(u.r, C, rcr);
+    add_radar(radar, u.row, rcr);
+    inv3x3(rcr, A);
+    for (int k = 0; k < 9; ++k) A[k] *= w;
+    for (int i = 0; i < 3; ++i)
+      Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
+    gn_row(A, Ar, u.s, pr, true);
+    a.fit += sqrtf(r2);
+    return;
+  }
+  const float den = md + d2;
+  const float w = md * md / (den * den);
+  if (w < 0.01f) return;
+  float ci[9];
+  inv3x3(C, ci);
+  for (int k = 0; k < 9; ++k) a.P[k] += w * ci[k];
+  for (int i = 0; i < 3; ++i)
+    a.bw[i] += w * (ci[3 * i] * d[0] + ci[3 * i + 1] * d[1] + ci[3 * i + 2] * d[2]);
+  a.fit += sqrtf(d2);
+}
+
+// After a point's pairs: the reference form's A = R^T P R and b = R^T bw
+// feed one row's blocks; both forms write the fitness and the pair count.
+template <bool kRadar>
+__device__ __forceinline__ void avgicp_finish(const SlotQuery& u, const AvgAcc& a, float* pr) {
+  if (!kRadar) {
+    float A[9], b[3];
+    conj_rt(u.r, a.P, A);
+    rot_t(u.r, a.bw, b);
+    gn_row(A, b, u.s, pr, false);
+  }
+  pr[42] = a.fit;
+  pr[43] = a.matched;
 }
 
 // The dynamic shared memory a kernel of this family needs above the 48 KB

@@ -76,41 +76,8 @@ __global__ void p2p_search_kernel(
     float* pr = part + u.j * kParts;
     for (int k = 0; k < kParts; ++k) pr[k] = 0.0f;
     if (ok) {
-      const float r00 = u.r[0], r01 = u.r[1], r02 = u.r[2];
-      const float r10 = u.r[3], r11 = u.r[4], r12 = u.r[5];
-      const float r20 = u.r[6], r21 = u.r[7], r22 = u.r[8];
-      const float t0 = u.t[0], t1 = u.t[1], t2 = u.t[2];
-      const float s0 = u.s[0], s1 = u.s[1], s2 = u.s[2];
-      // tgt in the sensor frame: R^T tgt - R^T t (lie.transform_inverse)
-      const float it0 = -(r00 * t0 + r10 * t1 + r20 * t2);
-      const float it1 = -(r01 * t0 + r11 * t1 + r21 * t2);
-      const float it2 = -(r02 * t0 + r12 * t1 + r22 * t2);
-      const float e0 = r00 * g0 + r10 * g1 + r20 * g2 + it0 - s0;
-      const float e1 = r01 * g0 + r11 * g1 + r21 * g2 + it1 - s1;
-      const float e2 = r02 * g0 + r12 * g1 + r22 * g2 + it2 - s2;
-      const float r2 = e0 * e0 + e1 * e1 + e2 * e2;
-      const float th = md;
-      const float den = th + r2;
-      const float w = th * th / (den * den);
-      const float wp0 = w * s0, wp1 = w * s1, wp2 = w * s2;
-      pr[0] = w;
-      pr[1] = wp0;
-      pr[2] = wp1;
-      pr[3] = wp2;
-      pr[4] = wp0 * s0;   // sum w p p^T: xx xy xz yy yz zz
-      pr[5] = wp0 * s1;
-      pr[6] = wp0 * s2;
-      pr[7] = wp1 * s1;
-      pr[8] = wp1 * s2;
-      pr[9] = wp2 * s2;
-      pr[10] = w * e0;    // sum w r
-      pr[11] = w * e1;
-      pr[12] = w * e2;
-      pr[13] = wp1 * e2 - wp2 * e1;  // sum (w p) x r
-      pr[14] = wp2 * e0 - wp0 * e2;
-      pr[15] = wp0 * e1 - wp1 * e0;
-      pr[16] = sqrtf(r2);
-      pr[17] = 1.0f;
+      const float g[3] = {g0, g1, g2};
+      p2p_row(u, g, md, pr);
     }
   }
   __syncthreads();

@@ -75,29 +75,7 @@ __global__ void gicp_search_kernel(
       for (int k = 0; k < 3; ++k) mean_out[(size_t)u.row * 3 + k] = mu[k];
       ok_out[u.row] = ok;
     }
-    float* pr = part + u.j * kGnSums;
-    for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
-    if (ok) {
-      float rcr[9], A[9], e[3], Ar[3];
-      conj_rt(u.r, C, rcr);
-      if (kRadar) add_radar(radar, u.row, rcr);
-      inv3x3(rcr, A);
-      sensor_residual(u, mu, e);
-      const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
-      const float den = md + r2;
-      const float w = md * md / (den * den) * 0.8f + 0.2f;
-      for (int k = 0; k < 9; ++k) A[k] *= w;
-      for (int i = 0; i < 3; ++i) Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
-      gn_row(A, Ar, u.s, pr, false);
-      float v[3], n[3];
-      smallest_eigvec(C, v);
-      rot_t(u.r, v, n);
-      const float nn = fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1e-30f);
-      pr[42] = fabsf((e[0] * n[0] + e[1] * n[1] + e[2] * n[2]) / nn);
-      pr[43] = 1.0f;
-    } else if (kRadar && u.live) {
-      masked_radar_row(u, radar, C, mu, pr);
-    }
+    gicp_row<kRadar>(u, ok, C, mu, md, radar, part + u.j * kGnSums);
   }
   __syncthreads();
   slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);

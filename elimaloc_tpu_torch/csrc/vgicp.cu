@@ -69,31 +69,7 @@ __global__ void vgicp_search_kernel(
       for (int k = 0; k < 3; ++k) mean_out[(size_t)u.row * 3 + k] = mu[k];
       ok_out[u.row] = ok;
     }
-    float* pr = part + u.j * kGnSums;
-    for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
-    if (ok) {
-      float e[3];
-      sensor_residual(u, mu, e);
-      const float r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
-      const float den = md + r2;
-      const float w = md * md / (den * den);
-      if (w >= 0.01f) {
-        float rcr[9], A[9], Ar[3];
-        conj_rt(u.r, C, rcr);
-        if (kRadar) add_radar(radar, u.row, rcr);
-        inv3x3(rcr, A);
-        for (int k = 0; k < 9; ++k) A[k] *= w;
-        for (int i = 0; i < 3; ++i)
-          Ar[i] = A[3 * i] * e[0] + A[3 * i + 1] * e[1] + A[3 * i + 2] * e[2];
-        gn_row(A, Ar, u.s, pr, false);
-        pr[42] = sqrtf(r2);
-      } else if (kRadar) {
-        masked_radar_row(u, radar, C, mu, pr);
-      }
-      pr[43] = 1.0f;
-    } else if (kRadar && u.live) {
-      masked_radar_row(u, radar, C, mu, pr);
-    }
+    vgicp_row<kRadar>(u, ok, C, mu, md, radar, part + u.j * kGnSums);
   }
   __syncthreads();
   slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);

@@ -40,13 +40,23 @@ O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=Fals
                               runtime.tick_step) + its ego-ring entry
 P         radar_cov           register/icp.py:radar_point_cov + the slot packing
                               of run_register (use_radar_cov)
+Q         hash_correspond     map/grid.py:lookup + query_* + icp._iteration (the
+                              hash backend's search fused with the method's GN
+                              reduction, one launch per GN iteration)
+Q         hash_query          map/grid.py:query_nearest_point(_cov),
+                              query_nearest_voxel_cov, query_all_voxel_cov
+Q         hash_lookup         map/grid.py:lookup
+R         ground_height       map/grid.py:find_ground_height
 ========  ==================  ===================================================
 
 Kernel N runs only on the active-window path (``map_window_radius``), O only
 in the event loop's tick mode (``use_imu=False``), P once per registration
-with ``use_radar_cov``. Flagged forms: H and I take ``EkfFlags.joseph_form``
+with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
+place of B and of A, E, F, G; its query and lookup entries and R serve the
+grid's own functions. Flagged forms: H and I take ``EkfFlags.joseph_form``
 (the Joseph-form covariance update), E, F and G a slot-packed ``radar``
-(kernel P's output) added before their 3x3 inverse.
+(kernel P's output) and Q a ``radar`` in query order, added before their
+3x3 inverse.
 """
 
 from __future__ import annotations
@@ -62,7 +72,8 @@ launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0, "ring_push": 0,
             "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
-            "shift_window": 0, "ca_tick": 0, "radar_cov": 0}
+            "shift_window": 0, "ca_tick": 0, "radar_cov": 0, "hash_correspond": 0,
+            "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
 
 
 def reset_launches() -> None:
@@ -685,3 +696,131 @@ def radar_cov(src_local, qidx, qmask, pose, params):
     _raise_on(rc, "radar_cov")
     launches["radar_cov"] += 1
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Kernels Q and R: the hash grid (csrc/hash_correspond.cu, csrc/hash.cuh,
+# csrc/ground_height.cu)
+# --------------------------------------------------------------------------- #
+
+#: kernel Q's method codes (csrc/hash_correspond.cu ``Method``)
+HASH_METHODS = {"P2P": 0, "GICP": 1, "VGICP": 2, "AVGICP": 3}
+_HASH_THREADS = 128
+
+
+def _grid_table(grid):
+    t = grid.table.shape[0]
+    return [_check(grid.table, "table", torch.int32, (t,)),
+            _check(grid.table_fp, "table_fp", torch.int32, (t,)),
+            ctypes.c_int(grid.table_size), ctypes.c_int(grid.max_probe),
+            ctypes.c_int(grid.sentinel)]
+
+
+def _grid_args(grid, method):
+    """The C entries' map arguments: the table, then the geometry; the
+    per-point covariances only for GICP (null otherwise)."""
+    v1, m = grid.points.shape[:2]
+    gicp = method == "GICP"
+    if gicp and grid.point_cov is None:
+        raise ValueError("hash GICP: the grid has no per-point covariances "
+                         "(build the map with compute_point_cov=True)")
+    null = ctypes.c_void_p(None)
+    return _grid_table(grid) + [
+        _check(grid.points, "points", _F32, (v1, m, 3)), ctypes.c_int(m),
+        _check(grid.counts, "counts", torch.int32, (v1,)),
+        _check(grid.point_cov, "point_cov", _F32, (v1, m, 3, 3)) if gicp else null,
+        _check(grid.point_cov_mean, "point_cov_mean", _F32, (v1, m, 3)) if gicp else null,
+        _check(grid.vox_mean, "vox_mean", _F32, (v1, 3)),
+        _check(grid.vox_cov, "vox_cov", _F32, (v1, 3, 3)),
+        ctypes.c_float(grid.voxel_size)]
+
+
+def hash_correspond(grid, src, valid, pose, max_dist, method: str, radar=None):
+    """Kernel Q (icp.hash_search_reduce_plain): the sums of one GN iteration
+    of ``method`` at ``pose`` over the scan ``src`` [N, 3] (mask ``valid``),
+    [18] for P2P (:func:`gn_step`'s P2P layout) or [44]; ``radar`` [N, 3, 3]
+    (query order) selects the radar form of GICP, VGICP and AVGICP."""
+    n = src.shape[0]
+    code = HASH_METHODS[method]
+    np_ = P2P_SUMS if method == "P2P" else GN_SUMS
+    args = _grid_args(grid, method) + [
+        _check(src, "src", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,)), ctypes.c_int(n),
+        _check(pose, "pose", _F32, (4, 4)), _check(max_dist, "max_dist", _F32, ()),
+        ctypes.c_void_p(None) if radar is None or method == "P2P"
+        else _check(radar, "radar", _F32, (n, 3, 3)), ctypes.c_int(code)]
+    blocks = max((n + _HASH_THREADS - 1) // _HASH_THREADS, 1)
+    partials = torch.empty((blocks, np_), dtype=_F32, device=src.device)
+    sums = torch.empty(np_, dtype=_F32, device=src.device)
+    rc = library().elm_hash_search_reduce(*args, _ptr(partials), _ptr(sums), _stream(src))
+    _raise_on(rc, "hash_correspond")
+    launches["hash_correspond"] += 1
+    return sums
+
+
+def hash_query(grid, queries, max_dist, method: str):
+    """Kernel Q's query entry (map.grid.query_*_plain): per world query
+    [N, 3], a dict of ``rows``, ``slots`` (int32), ``valid`` and the method's
+    ``target`` [N, 3] (P2P, GICP), ``mean``, ``cov`` (GICP, VGICP: [N, 3] /
+    [N, 3, 3]; AVGICP: [N, 7, 3] / [N, 7, 3, 3], and rows, slots, valid
+    [N, 7])."""
+    n = queries.shape[0]
+    dev = queries.device
+    lead = (n, 7) if method == "AVGICP" else (n,)
+    out = {"rows": torch.empty(lead, dtype=torch.int32, device=dev),
+           "slots": torch.empty(lead, dtype=torch.int32, device=dev),
+           "valid": torch.empty(lead, dtype=_BOOL, device=dev)}
+    if method in ("P2P", "GICP"):
+        out["target"] = torch.empty((n, 3), dtype=_F32, device=dev)
+    if method != "P2P":
+        out["mean"] = torch.empty(lead + (3,), dtype=_F32, device=dev)
+        out["cov"] = torch.empty(lead + (3, 3), dtype=_F32, device=dev)
+    md = _scalar(max_dist, queries)
+    args = _grid_args(grid, method) + [
+        _check(queries, "queries", _F32, (n, 3)), ctypes.c_int(n),
+        _check(md, "max_dist", _F32, ()), ctypes.c_int(HASH_METHODS[method])]
+    args += [_ptr(out.get(k)) for k in ("rows", "slots", "valid", "target", "mean", "cov")]
+    rc = library().elm_hash_query(*args, _stream(queries))
+    _raise_on(rc, "hash_query")
+    launches["hash_query"] += 1
+    return out
+
+
+def hash_lookup(grid, coords):
+    """Kernel Q's lookup entry (map.grid.lookup_plain): voxel coords
+    [..., 3] int32 -> rows [...] int32, misses the sentinel row."""
+    flat = coords.reshape(-1, 3)
+    n = flat.shape[0]
+    args = _grid_table(grid) + [_check(flat, "coords", torch.int32, (n, 3)), ctypes.c_int(n)]
+    rows = torch.empty(n, dtype=torch.int32, device=coords.device)
+    rc = library().elm_hash_lookup(*args, _ptr(rows), _stream(coords))
+    _raise_on(rc, "hash_lookup")
+    launches["hash_lookup"] += 1
+    return rows.reshape(coords.shape[:-1])
+
+
+#: kernel R's first pass: CTAs of 256 threads, at most this many
+_GROUND_BLOCKS = 264
+
+
+def ground_height(points, position_xy, search_range: float, k: int):
+    """Kernel R (map.grid.find_ground_height_plain) over the grid's points
+    [V+1, M, 3] without the sentinel row: (found, ground_z) device scalars."""
+    v1, m = points.shape[:2]
+    if not 1 <= k <= 8:
+        raise ValueError(f"ground_height: k in [1, 8] required, got {k}")
+    n = (v1 - 1) * m
+    x, y = (float(v) for v in position_xy)
+    blocks = max(min((n + 255) // 256, _GROUND_BLOCKS), 1)
+    args = [_check(points, "points", _F32, (v1, m, 3)), ctypes.c_longlong(n), ctypes.c_float(x),
+            ctypes.c_float(y), ctypes.c_float(search_range * search_range), ctypes.c_int(k),
+            ctypes.c_int(blocks)]
+    dev = points.device
+    block_top = torch.empty((blocks, 8), dtype=_F32, device=dev)
+    block_count = torch.empty(blocks, dtype=torch.int32, device=dev)
+    found = torch.empty((), dtype=_BOOL, device=dev)
+    ground_z = torch.empty((), dtype=_F32, device=dev)
+    rc = library().elm_ground_height(*args, _ptr(block_top), _ptr(block_count), _ptr(found),
+                                     _ptr(ground_z), _stream(points))
+    _raise_on(rc, "ground_height")
+    launches["ground_height"] += 1
+    return found, ground_z

@@ -58,6 +58,12 @@ _SIGNATURES = {
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "elm_shift_window": [_PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P, _I, _P],
+    "elm_hash_search_reduce": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P,
+                               _I, _P, _P, _P, _I, _P, _P, _P],
+    "elm_hash_query": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _I, _P, _I,
+                       _P, _P, _P, _P, _P, _P, _P],
+    "elm_hash_lookup": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+    "elm_ground_height": [_P, ctypes.c_longlong, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,7 +1,23 @@
-"""Map building and the tile correspondence engine (port of elimaloc_tpu.map)."""
+"""Map building, the hash grid and the tile correspondence engine (port of
+elimaloc_tpu.map)."""
 
 from .builder import BuiltMap, build_voxel_map  # noqa: F401
-from .grid import voxel_downsample  # noqa: F401
+from .builder import find_ground_height as find_ground_height_host  # noqa: F401
+from .builder import voxel_downsample_host  # noqa: F401
+from .grid import (  # noqa: F401
+    MapGrid,
+    OFFSETS_7,
+    OFFSETS_27,
+    find_ground_height,
+    lookup,
+    point_to_voxel,
+    query_all_voxel_cov,
+    query_nearest_point,
+    query_nearest_point_cov,
+    query_nearest_voxel_cov,
+    to_device,
+    voxel_downsample,
+)
 from .tiles import (  # noqa: F401
     HostTileMap,
     TileMap,

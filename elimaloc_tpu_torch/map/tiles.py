@@ -35,7 +35,7 @@ import torch
 from .. import kernels
 from ..struct import Struct
 from .builder import BuiltMap
-from .grid import OFFSETS_7, div
+from .grid import OFFSETS_7, div, sq_norm3
 
 _COORD_SENTINEL = np.int32(2**30)
 
@@ -641,11 +641,6 @@ def slot_centers(tmap: TileMap, slot_tile, dtype):
                         torch.zeros_like(tx)], dim=-1)
 
 
-def _sq_norm3(d):
-    """((dx*dx + dy*dy) + dz*dz), the summation order kernel A uses."""
-    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-
-
 def _cube_argmin(q, qv, ctr, cand_safe, cvox, present):
     """Per query, the candidate with the least exact diff^2 distance inside
     the 27-voxel cube, on tile-local coordinates, the first index winning
@@ -659,7 +654,7 @@ def _cube_argmin(q, qv, ctr, cand_safe, cvox, present):
     ql = q - ctr[:, None, :]
     cl = torch.where(present[..., None], cand_safe - ctr[:, None, :],
                      torch.zeros_like(cand_safe))
-    d2 = _sq_norm3(ql[:, :, None, :] - cl[:, None, :, :])       # [C,QB,M]
+    d2 = sq_norm3(ql[:, :, None, :] - cl[:, None, :, :])       # [C,QB,M]
     d2 = torch.where(cube, d2, torch.full_like(d2, torch.inf))
     return torch.min(d2, dim=2)
 
@@ -756,7 +751,7 @@ def all_voxel_cov_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
         m_safe = torch.where(occupied[..., None], means, torch.zeros_like(means))
         mean = _take(m_safe, idx).reshape(q.shape[:2] + (7, 3))
         mean = torch.where(found[..., None], mean, torch.zeros_like(mean))
-        d2 = _sq_norm3(mean - q[:, :, None, :])
+        d2 = sq_norm3(mean - q[:, :, None, :])
         ok = qm[..., None] & found & (d2 < max_dist * max_dist)
         cov = _take(tmap.halo_vox_cov[tid], idx).reshape(q.shape[:2] + (7, 3, 3))
         outs.append((torch.where(ok[..., None, None], cov, _eye_like(cov)),

@@ -1,11 +1,13 @@
 """The localization runtime — port of ``elimaloc_tpu/pipeline/runtime.py``
-(P2P, GICP, VGICP and AVGICP on the tile backend, with GPS and CAN fusion).
+(P2P, GICP, VGICP and AVGICP on the tile or the hash backend, with GPS and
+CAN fusion).
 
 One :class:`PipelineState` (EKF state + ego/IMU rings) runs through the
 event steps: :func:`imu_step` (one IMU sample), :func:`gps_step`,
 :func:`can_step`, :func:`scan_step` (range gate -> scan times -> ring
 queries, kernel K -> deskew, kernel D -> voxel downsample, kernel C -> ICP
-registration, kernels B, A/E/F/G and M -> the PCM measurement, kernel L ->
+registration, kernels B, A/E/F/G and M (the hash backend: Q and M) -> the
+PCM measurement, kernel L ->
 the EKF PCM update, kernel I) and :func:`pcm_init_step` (a relocalization
 result). :func:`fused_frame` is one LiDAR frame: :func:`imu_subbatch` (the
 frame's IMU samples through the EKF prediction, kernel H, then one push
@@ -28,10 +30,8 @@ constant-acceleration prediction per system-clock tick (:func:`tick_step`,
 kernel O, then the ego push, kernel J) while raw IMU only feeds the IMU ring
 (:func:`imu_ring_step`, kernel J).
 
-Refused with NotImplementedError, naming the ROADMAP Queue 1 item: the
-hash backend ("The hash-grid backend"; see ``register.icp.check_supported``),
-fleet replay ("Fleet") and the live dashboard ("Host modules and
-utilities").
+Refused with NotImplementedError, naming the ROADMAP Queue 1 item: fleet
+replay ("Fleet") and the live dashboard ("Host modules and utilities").
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from ..ekf import (
     update_gnss,
 )
 from ..map import builder as map_builder
+from ..map import grid as map_grid
 from ..map import tiles as map_tiles
 from ..map.grid import voxel_downsample
 from ..ops import geo, lie
@@ -617,6 +618,11 @@ class LocalizationPipeline:
     (runtime.py:728-731): the wider halo keeps the hoisted slot assignment
     exact for AVGICP's 7-voxel sums.
 
+    ``backend="hash"`` (runtime.py:751-753) registers on the hash grid
+    (``map.grid.MapGrid``, built from the BuiltMap; kernel Q on the card)
+    instead of the packed tile map; it takes a raw cloud or a BuiltMap
+    and no window (ValueError otherwise, as in JAX).
+
     ``map_window_radius`` (m) turns on active-window serving for maps too
     large for the device, typically a disk-backed ``HostTileMap`` from
     ``map.tiles.load_tile_map(dir, mmap=True)``: only the
@@ -644,14 +650,20 @@ class LocalizationPipeline:
                  halo_margin: Optional[int] = None):
         method = cfg.pcm.icp_method
         prebuilt = isinstance(map_points, map_tiles.HostTileMap)
+        hashed = backend == "hash"
+        if hashed and prebuilt:
+            raise ValueError("a HostTileMap input requires the tile backend")
+        if hashed and map_window_radius is not None:
+            raise ValueError("map_window_radius requires the tile backend")
         if halo_margin is None:
             halo_margin = 2 if method == IcpMethod.AVGICP else 1
         if prebuilt:
             halo_margin = map_points.halo_margin
         # a property of the MAP, kept across hot reloads: with a margin >= 2
         # halo the hoisted assignment is exact for every method
-        # (runtime.py:735-736)
-        self._reassign_override = False if halo_margin >= 2 else None
+        # (runtime.py:735-736); the hash backend keeps make_icp_static's
+        # default, which it does not read
+        self._reassign_override = False if halo_margin >= 2 and not hashed else None
         self.static = make_pipeline_static(
             cfg, backend=backend, tile_budget=tile_budget, ds_points=ds_points,
             reassign_each_iter=self._reassign_override)
@@ -663,6 +675,7 @@ class LocalizationPipeline:
         # a packed HostTileMap has no BuiltMap and probes its own halo rows
         self.built = None
         self._config_watcher = None
+        host_tmap = None
         if prebuilt:
             host_tmap = map_points
         else:
@@ -676,15 +689,18 @@ class LocalizationPipeline:
                     compute_point_cov=method == IcpMethod.GICP,
                     gicp_cov_search_dist=cfg.pcm.gicp_cov_search_dist,
                     use_native=use_native)
-            host_tmap = map_tiles.build_tile_map(
-                built, tile_voxels=tile_voxels, halo_margin=halo_margin)
+            if not hashed:
+                host_tmap = map_tiles.build_tile_map(
+                    built, tile_voxels=tile_voxels, halo_margin=halo_margin)
             self.built = built
-        if method == IcpMethod.GICP and host_tmap.halo_point_cov is None:
+        point_cov = self.built.point_cov if hashed else host_tmap.halo_point_cov
+        vox_cov = self.built.vox_cov if hashed else host_tmap.halo_vox_cov
+        if method == IcpMethod.GICP and point_cov is None:
             raise ValueError(
                 "GICP needs per-point covariances: build the map with "
                 "build_voxel_map(..., compute_point_cov=True)")
         if method in (IcpMethod.VGICP, IcpMethod.AVGICP) and np.all(
-                host_tmap.halo_vox_cov == np.eye(3, dtype=np.float32)):
+                vox_cov == np.eye(3, dtype=np.float32)):
             raise ValueError(
                 f"{IcpMethod(method).name} needs per-voxel covariances and every "
                 "voxel covariance of this map is the identity: build it with "
@@ -722,6 +738,8 @@ class LocalizationPipeline:
             self._window_tiles = max(int(np.ceil(map_window_radius / host_tmap.tile_size)), 2)
             # the first window around the configured initial pose
             self._set_window(np.array([cfg.ekf.ekf_init_x_m, cfg.ekf.ekf_init_y_m]))
+        elif hashed:
+            self.map = map_grid.to_device(self.built, self.device, dtype)
         else:
             self.map = host_tmap.to_device(self.device, dtype)
 

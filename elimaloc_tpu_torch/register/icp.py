@@ -1,5 +1,5 @@
-"""Scan-to-map registration, P2P / GICP / VGICP / AVGICP on the tile
-backend — port of ``elimaloc_tpu/register/icp.py`` (reference:
+"""Scan-to-map registration, P2P / GICP / VGICP / AVGICP on the tile and
+hash backends — port of ``elimaloc_tpu/register/icp.py`` (reference:
 registration.cpp).
 
 ``run_register`` assigns the scan to tile slots once from the initial guess
@@ -28,10 +28,20 @@ slot layout (icp.py:619-632, 652-655): :func:`radar_slots`, kernel P
 ``radar_cov.cu`` on the card. AVGICP then takes the flattened per-pair tail
 (icp.py:551-562) instead of the world-frame reduction.
 
-Not ported, refused with NotImplementedError: the hash backend (ROADMAP
-Queue 1, "The hash-grid backend"), the correspondence-reuse and
-per-iteration reassignment loops (ROADMAP "Not ported") and the sharded
-modes (ROADMAP Queue 1, ``parallel/sharding.py``).
+The hash backend (``backend="hash"``, icp.py:612-675, the JAX package's
+semantic reference for the tile engine) registers against a
+``map.grid.MapGrid`` in world coordinates: no slot assignment (``dropped``
+is 0), no window origin, and every GN iteration looks the voxels up again
+from the current pose (:func:`gn_iteration_hash`: kernel Q
+``hash_correspond.cu``, then kernel M, on the card; on a CPU tensor
+:func:`hash_search_reduce_plain`, the grid queries composed with the same
+tails, icp.py:429-467, and :func:`gn_update_plain`). The radar covariances
+come in query order, from kernel P on the rows 0..N-1. As in JAX,
+``corr_reuse`` and ``reassign_each_iter`` do nothing there.
+
+Not ported, refused with NotImplementedError: the tile backend's
+correspondence-reuse and per-iteration reassignment loops (ROADMAP "Not
+ported") and the sharded modes (ROADMAP Queue 1, ``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 
 from .. import kernels
 from ..config import IcpMethod, PcmConfig
+from ..map import grid as mapgrid
 from ..map import tiles as maptiles
 from ..map.grid import div
 from ..ops import lie
@@ -67,8 +78,9 @@ class IcpParams(Struct):
 
 @dataclasses.dataclass(frozen=True)
 class IcpStatic:
-    """Static registration switches (icp.py:67-110); the port runs every
-    method on ``backend="tile"`` with the hoisted assignment."""
+    """Static registration switches (icp.py:67-110): ``backend`` "tile"
+    (the hoisted slot assignment) or "hash" (the grid, looked up from the
+    current pose every iteration)."""
 
     method: int = int(IcpMethod.GICP)
     max_iteration: int = 10
@@ -131,11 +143,9 @@ class IcpResult(Struct):
 
 def check_supported(static: IcpStatic) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP item."""
-    if static.backend != "tile":
-        raise NotImplementedError(
-            f"backend={static.backend!r}: only the tile backend is ported "
-            '(the hash grid is in ROADMAP Queue 1, "The hash-grid backend")')
-    if static.corr_reuse or static.reassign_each_iter:
+    if static.backend not in ("tile", "hash"):
+        raise ValueError(f"backend={static.backend!r}: 'tile' or 'hash'")
+    if static.backend == "tile" and (static.corr_reuse or static.reassign_each_iter):
         raise NotImplementedError(
             "corr_reuse / reassign_each_iter are not ported (ROADMAP "
             "'Not ported'): the port searches every iteration on the hoisted "
@@ -570,61 +580,138 @@ def gn_iteration(method: int, tmap, slot_tile, sbuf, qmask, pose, fitness, local
 
 
 # --------------------------------------------------------------------------- #
+# The hash backend's GN iteration (kernel Q)
+# --------------------------------------------------------------------------- #
+
+def hash_search_reduce_plain(grid, src, valid, pose, params: IcpParams, method: int,
+                             radar=None):
+    """Plain PyTorch version of kernel Q's fused entry: one RunRegister loop
+    body on the hash grid (icp.py:429-467). The queries q = R s + t (in
+    :func:`transform_slots`' order) go through the method's grid query, the
+    matches are masked by ``valid``, then the method's tail; AVGICP's radar
+    form takes the flattened per-pair :func:`_voxcov_tail`. ``radar``
+    [N, 3, 3] in query order or None. Returns (matched, JTJ, JTr, fit_num)."""
+    q = transform_slots(pose, src)
+    md = params.max_search_dist
+    if method == int(IcpMethod.P2P):
+        target, ok, _, _ = mapgrid.query_nearest_point_plain(grid, q, md)
+        return _p2p_tail(pose, src, target, ok & valid, params)
+    if method == int(IcpMethod.GICP):
+        _, cov, mean, ok = mapgrid.query_nearest_point_cov_plain(grid, q, md)
+        return _gicp_tail(pose, src, cov, mean, ok & valid, params, radar)
+    if method == int(IcpMethod.VGICP):
+        cov, mean, ok = mapgrid.query_nearest_voxel_cov_plain(grid, q, md)
+        return _voxcov_tail(pose, src, cov, mean, ok & valid, params, radar)
+    cov, mean, ok = mapgrid.query_all_voxel_cov_plain(grid, q, md)
+    ok = ok & valid[:, None]
+    if radar is None:
+        return _avg_voxcov_tail(pose, src, q, cov, mean, ok, params)
+    return _voxcov_tail(pose, torch.repeat_interleave(src, 7, dim=0), cov.reshape(-1, 3, 3),
+                        mean.reshape(-1, 3), ok.reshape(-1), params,
+                        torch.repeat_interleave(radar, 7, dim=0))
+
+
+def gn_iteration_hash(method: int, grid, src, valid, pose, fitness, local_cov, total,
+                      params: IcpParams, radar=None):
+    """One GN iteration on the hash backend: on a CPU tensor
+    :func:`hash_search_reduce_plain` and :func:`gn_update_plain`; on a CUDA
+    one kernel Q (the search + reduction from the current pose), then kernel
+    M, on the same stream. Returns (pose, local_cov, fitness, overlap, stop,
+    failed)."""
+    gicp = method == int(IcpMethod.GICP)
+    carry = (pose, fitness, local_cov, total, params)
+    if src.device.type == "cpu":
+        return gn_update_plain(
+            *hash_search_reduce_plain(grid, src, valid, pose, params, method, radar),
+            *carry, gicp)
+    sums = kernels.hash_correspond(grid, src, valid, pose, params.max_search_dist,
+                                   IcpMethod(method).name, radar)
+    return kernels.gn_step(sums, *carry, gicp)
+
+
+def radar_points(src_local, pose, params: IcpParams):
+    """:func:`radar_point_cov` of the scan at the world pose, in query order
+    [N, 3, 3] (icp.py:619-623): :func:`radar_slots` on the rows 0..N-1 (kernel
+    P on the card)."""
+    n = src_local.shape[0]
+    qidx = torch.arange(n, dtype=torch.int32, device=src_local.device).view(1, n)
+    qmask = torch.ones((1, n), dtype=torch.bool, device=src_local.device)
+    return radar_slots(src_local, qidx, qmask, pose, params).view(n, 3, 3)
+
+
+# --------------------------------------------------------------------------- #
 # RunRegister (cpp:273-418)
 # --------------------------------------------------------------------------- #
 
-def run_register(src_local, src_valid, tmap: maptiles.TileMap, initial_guess,
-                 params: IcpParams, static: IcpStatic, mark=None) -> IcpResult:
-    """Register a sensor-frame scan [N,3] (mask [N]) against the tile map
-    from a global initial pose [4,4]. ``mark(name)``, when given, is called
-    after the slot assignment ("assign") and after the GN loop ("gn")."""
+def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
+                 static: IcpStatic, mark=None) -> IcpResult:
+    """Register a sensor-frame scan [N,3] (mask [N]) against the map (a
+    ``TileMap`` on the tile backend, a ``MapGrid`` on the hash backend) from
+    a global initial pose [4,4]. ``mark(name)``, when given, is called
+    after the set-up (the slot assignment and the radar covariances,
+    "assign") and after the GN loop ("gn")."""
     check_supported(static)
     dtype = src_local.dtype
+    dev = src_local.device
     pose_world = initial_guess.to(dtype)
     total = torch.clamp(torch.sum(src_valid), min=1).to(dtype)
+    use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
 
-    origin = tmap.origin.to(dtype)
-    pose0 = pose_world.clone()
-    pose0[:2, 3] -= origin
+    if static.backend == "hash":
+        # world coordinates, no window origin (icp.py:630: the grid has none)
+        origin = None
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        radar = radar_points(src_local, pose_world, params) if use_radar else None
 
-    asg = maptiles.assign_slots(tmap, lie.transform_points(pose0, src_local),
-                                src_valid, static.tile_budget)
-    n = src_local.shape[0]
-    safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
-    sbuf = torch.where(asg.qmask[..., None], src_local[safe_idx],
-                       torch.zeros((), dtype=dtype, device=src_local.device))
-    radar = None
-    if static.use_radar_cov and static.method != int(IcpMethod.P2P):
+        def step(pose, fitness, local_cov):
+            return gn_iteration_hash(static.method, tmap, src_local, src_valid, pose,
+                                     fitness, local_cov, total, params, radar)
+        pose = pose_world
+    else:
+        origin = tmap.origin.to(dtype)
+        pose = pose_world.clone()
+        pose[:2, 3] -= origin
+        asg = maptiles.assign_slots(tmap, lie.transform_points(pose, src_local),
+                                    src_valid, static.tile_budget)
+        dropped = asg.dropped.to(torch.int32)
+        n = src_local.shape[0]
+        safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
+        sbuf = torch.where(asg.qmask[..., None], src_local[safe_idx],
+                           torch.zeros((), dtype=dtype, device=dev))
         # once per registration, from the WORLD initial pose (before the
         # window-origin shift), packed into the slot layout
-        radar = radar_slots(src_local, asg.qidx, asg.qmask, pose_world, params)
+        radar = (radar_slots(src_local, asg.qidx, asg.qmask, pose_world, params)
+                 if use_radar else None)
+
+        def step(pose, fitness, local_cov):
+            return gn_iteration(static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose,
+                                fitness, local_cov, total, params, static.tile_budget,
+                                radar)
     if mark is not None:
         mark("assign")
 
-    pose = pose0
-    zero = torch.zeros((), dtype=dtype, device=src_local.device)
+    zero = torch.zeros((), dtype=dtype, device=dev)
     fitness = overlap = zero
-    local_cov = torch.eye(6, dtype=dtype, device=src_local.device)
-    failed = torch.zeros((), dtype=torch.bool, device=src_local.device)
+    local_cov = torch.eye(6, dtype=dtype, device=dev)
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
     it = 0
     while it < static.max_iteration:
-        pose, local_cov, fitness, overlap, stop, failed = gn_iteration(
-            static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness,
-            local_cov, total, params, static.tile_budget, radar)
+        pose, local_cov, fitness, overlap, stop, failed = step(pose, fitness, local_cov)
         it += 1
         if bool(stop):      # the one readback per iteration
             break
     if mark is not None:
         mark("gn")
 
-    pose = pose.clone()
-    pose[:2, 3] += origin
+    if origin is not None:
+        pose = pose.clone()
+        pose[:2, 3] += origin
     return IcpResult(
         pose=pose,
         success=~failed & (fitness <= params.max_fitness_score),
         fitness=fitness,
         local_cov=local_cov,
-        iterations=torch.full((), it, dtype=torch.int32, device=src_local.device),
+        iterations=torch.full((), it, dtype=torch.int32, device=dev),
         overlap=overlap,
-        dropped=asg.dropped.to(torch.int32),
+        dropped=dropped,
     )

@@ -6,7 +6,8 @@
   map builder, the tile packer, the fused batch builder) produce
   bit-identical output to the JAX package's on the same seeds.
 * Features the port does not run raise NotImplementedError naming the
-  ROADMAP item instead of running silently.
+  ROADMAP item instead of running silently; those it once refused (the
+  radar covariances, the tick mode, the hash backend) build.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from elimaloc_tpu.pipeline import log as jlog
 from elimaloc_tpu.pipeline import runtime as jruntime
 from elimaloc_tpu_torch import config as tconfig
 from elimaloc_tpu_torch.map import builder as tbuilder
+from elimaloc_tpu_torch.map import grid as tgrid
 from elimaloc_tpu_torch.map import tiles as ttiles
 from elimaloc_tpu_torch.pipeline import log as tlog
 from elimaloc_tpu_torch.pipeline import runtime as truntime
@@ -134,6 +136,8 @@ def test_pipeline_refuses_unported(both_worlds, change):
     cfg = tiny_cfg(tconfig)
     kw = {}
     if change == "hash":
+        # a hash-backend pipeline builds (the test below); its fleet replay
+        # is refused like the tile backend's
         kw["backend"] = "hash"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
@@ -142,24 +146,34 @@ def test_pipeline_refuses_unported(both_worlds, change):
         pipe.run_fused_fleet([])
 
 
-@pytest.mark.parametrize("change", ["gicp_radar", "tick_mode"])
+@pytest.mark.parametrize("change", ["gicp_radar", "tick_mode", "hash", "hash_gicp_radar"])
 def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change):
-    """A GICP pipeline with radar covariances and a use_imu=False pipeline
-    build and carry their switches into the static configuration the steps
-    read (test_torch_radar.py and test_torch_tick.py run them)."""
+    """A GICP pipeline with radar covariances, a use_imu=False pipeline and
+    hash-backend pipelines build and carry their switches into the static
+    configuration the steps read (test_torch_radar.py, test_torch_tick.py
+    and test_torch_hash_*.py run them)."""
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
-    if change == "gicp_radar":
+    if change.endswith("gicp_radar"):
         cfg.pcm.icp_method = tconfig.IcpMethod.GICP
         cfg.pcm.use_radar_cov = True
-    else:
+    elif change == "tick_mode":
         cfg.ekf.use_imu = False
-    pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False)
+    backend = "hash" if change.startswith("hash") else "tile"
+    pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
+                                         backend=backend)
+    assert pipe.static.icp_static.backend == backend
     if change == "gicp_radar":
         assert pipe.static.icp_static.use_radar_cov
         assert pipe.host_map.halo_point_cov is not None
-    else:
+    elif change == "tick_mode":
         assert pipe.static.use_imu is False and pipe.static.tick_hz == 100.0
+    else:
+        # the hash grid on the device, built from the BuiltMap; no tile map
+        assert isinstance(pipe.map, tgrid.MapGrid) and pipe.host_map is None
+        assert pipe.map.num_voxels == pipe.built.num_voxels
+        assert (pipe.map.point_cov is not None) == (change == "hash_gicp_radar")
+        assert pipe.static.icp_static.use_radar_cov == (change == "hash_gicp_radar")
 
 
 
@@ -211,4 +225,6 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     for name, n in found.items():
         assert len(build._SIGNATURES[name]) == n, name
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
-            "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov"} <= set(found)
+            "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov",
+            "elm_hash_search_reduce", "elm_hash_query", "elm_hash_lookup",
+            "elm_ground_height"} <= set(found)

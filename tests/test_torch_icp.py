@@ -73,14 +73,31 @@ def test_run_register_p2p(dt_name, init):
 
 @pytest.mark.parametrize("change", [
     # AVGICP's per-iteration reassignment (a halo margin 1 map) does not run
-    dict(method=int(IcpMethod.AVGICP), reassign_each_iter=True), dict(backend="hash"),
+    dict(method=int(IcpMethod.AVGICP), reassign_each_iter=True),
     dict(corr_reuse=True), dict(reassign_each_iter=True),
     dict(psum_axis="sp"), dict(slot_shard_axis="sp"),
-], ids=["avgicp", "hash", "corr_reuse", "reassign", "psum", "slot_shard"])
+    # the hash backend runs (test_hash_backend_is_supported); its sharded
+    # mode does not
+    dict(backend="hash", psum_axis="sp"),
+], ids=["avgicp", "corr_reuse", "reassign", "psum", "slot_shard", "hash"])
 def test_unported_features_refuse(change):
     static = ticp.IcpStatic(**{"method": int(IcpMethod.P2P), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ticp.check_supported(static)
+
+
+@pytest.mark.parametrize("change", [
+    dict(), dict(method=int(IcpMethod.AVGICP), reassign_each_iter=True),
+    dict(corr_reuse=True),
+], ids=["hash", "avgicp_reassign", "corr_reuse"])
+def test_hash_backend_is_supported(change):
+    """The hash backend runs (tests/test_torch_hash_register.py holds it to
+    JAX's); as in JAX, corr_reuse and reassign_each_iter do nothing there.
+    An unknown backend is an error."""
+    ticp.check_supported(ticp.IcpStatic(**{"method": int(IcpMethod.P2P), "backend": "hash",
+                                           **change}))
+    with pytest.raises(ValueError, match="'tile' or 'hash'"):
+        ticp.check_supported(ticp.IcpStatic(backend="octree"))
 
 
 @pytest.mark.parametrize("method", [IcpMethod.GICP, IcpMethod.VGICP, IcpMethod.P2P],

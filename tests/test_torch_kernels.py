@@ -72,17 +72,18 @@ WRAPPER = {IcpMethod.GICP: "gicp_correspond", IcpMethod.VGICP: "vgicp_correspond
 @pytest.fixture(scope="module")
 def scene():
     """A small map with both covariances, its tile maps at halo margins 1
-    and 2, one scan and the deskew inputs (NumPy)."""
+    and 2, one scan and the deskew inputs (NumPy), and the BuiltMap (the
+    hash grid's source)."""
     world = tlog.make_world(seed=9, extent=40.0, n_ground=20_000, n_wall=10_000)
     log = tlog.synthesize_log(world, duration=0.5, points_per_scan=2048,
                               max_range=40.0, seed=10, radius=20.0)
     built = builder.build_voxel_map(world, 1.0, 30, compute_voxel_cov=True,
                                     compute_point_cov=True, use_native=False)
-    return world, log, {m: tiles.build_tile_map(built, halo_margin=m) for m in (1, 2)}
+    return world, log, {m: tiles.build_tile_map(built, halo_margin=m) for m in (1, 2)}, built
 
 
 def _inputs(scene, device, dtype=torch.float32):
-    world, log, host_maps = scene
+    world, log, host_maps = scene[:3]
     rng = np.random.default_rng(41)
     t = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
     pts = t(log.scan_points[1])
@@ -172,13 +173,15 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 def test_launch_counters_name_all_seven_kernels():
     """Every kernel's counter: A-G, the EKF kernels H and I, the scan-time
-    ring ops and GN step J, K, L, M, the window shift N, the CA tick O and
-    the radar covariances P."""
+    ring ops and GN step J, K, L, M, the window shift N, the CA tick O, the
+    radar covariances P, the hash grid's Q (its fused, query and lookup
+    entries) and the ground probe R."""
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
         "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
-        "shift_window", "ca_tick", "radar_cov"])
+        "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
+        "hash_lookup", "ground_height"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -275,8 +278,23 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
                                    "vgicp_correspond", "avgicp_correspond", "imu_chain",
                                    "ekf_update", "ring_push", "scan_ring_query",
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
-                                   "radar_cov"])
+                                   "radar_cov", "hash_correspond", "hash_query",
+                                   "hash_lookup", "ground_height"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
+    if which in ("hash_correspond", "hash_query", "hash_lookup", "ground_height"):
+        g = grid.to_device(scene[3], "cpu")
+        q = torch.zeros(16, 3)
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            if which == "hash_correspond":
+                kernels.hash_correspond(g, q, torch.ones(16, dtype=torch.bool), torch.eye(4),
+                                        torch.tensor(1.0), "GICP")
+            elif which == "hash_query":
+                kernels.hash_query(g, q, 1.0, "AVGICP")
+            elif which == "hash_lookup":
+                kernels.hash_lookup(g, torch.zeros(16, 3, dtype=torch.int32))
+            else:
+                kernels.ground_height(g.points, (0.0, 0.0), 5.0, 5)
+        return
     if which in ("ring_push", "scan_ring_query", "pcm_measurement", "gn_step"):
         with pytest.raises(ValueError, match="CUDA tensor required"):
             if which == "ring_push":
@@ -975,3 +993,100 @@ def test_ring_push_one_side_matches_plain_on_card(cuda, side):
         for f in ("t", "count") + tuple(k for k in ("pos", "rpy", "vel_local", "gyro", "acc")
                                         if hasattr(r, k)):
             assert torch.equal(getattr(g, f), getattr(r, f)), f
+
+
+def _hash_inputs(scene, device):
+    """The scene's hash grid on ``device``, the downsampled scan and the
+    pose of ``_inputs`` and the scan's world queries."""
+    inp = _inputs(scene, device)
+    ds, ds_valid, _ = grid.voxel_downsample(inp["pts"], inp["valid"], inp["voxel"], 1024)
+    params = icp.make_icp_params(icp.PcmConfig(), device=device)
+    return (grid.to_device(scene[3], device), ds, ds_valid, inp["pose"], params,
+            icp.transform_slots(inp["pose"], ds))
+
+
+#: each grid query's plain version and its kernel-Q outputs, in its order
+HASH_QUERIES = {
+    "P2P": (grid.query_nearest_point_plain, ("target", "valid", "rows", "slots")),
+    "GICP": (grid.query_nearest_point_cov_plain, ("target", "cov", "mean", "valid")),
+    "VGICP": (grid.query_nearest_voxel_cov_plain, ("cov", "mean", "valid")),
+    "AVGICP": (grid.query_all_voxel_cov_plain, ("cov", "mean", "valid")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(HASH_QUERIES))
+def test_hash_queries_match_plain_on_card(scene, cuda, method):
+    """Kernel Q's query entry against the plain grid queries on the scan's
+    world queries (and a lookup of every voxel, of misses and of negative
+    coords): every output bit for bit (the same exact search, then copies)."""
+    g, _, _, _, params, q = _hash_inputs(scene, cuda)
+    plain, keys = HASH_QUERIES[method]
+    kernels.reset_launches()
+    out = kernels.hash_query(g, q, params.max_search_dist, method)
+    torch.cuda.synchronize()
+    assert kernels.launches["hash_query"] == 1
+    for k, r in zip(keys, plain(g, q, params.max_search_dist)):
+        assert torch.equal(out[k], r.to(out[k].dtype)), (method, k)
+    assert 0 < int(out["valid"].sum()) < out["valid"].numel()
+    v = g.num_voxels
+    coords = torch.cat([g.vox_coords[:v], -g.vox_coords[:v] - 1, g.vox_coords[:v] + 7])
+    rows = grid.lookup(g, coords)
+    assert kernels.launches["hash_lookup"] == 1
+    assert torch.equal(rows, grid.lookup_plain(g, coords))
+    assert torch.equal(rows[:v], torch.arange(v, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radar", [False, True], ids=["reference", "radar"])
+@pytest.mark.parametrize("method", ["P2P", "GICP", "VGICP", "AVGICP"])
+def test_hash_correspond_matches_plain_on_card(scene, cuda, method, radar):
+    """Kernel Q's fused entry against ``hash_search_reduce_plain``: matched
+    equal, JTJ / JTr / fitness numerator within rtol 1e-4 on the norms
+    (1e-3 in the radar form, whose rows can be near-singular: the plain
+    float32 forms lie up to ~1e-3 from float64, test_radar_forms_match_...),
+    then one ``gn_iteration_hash``: Q and M launched once each."""
+    if radar and method == "P2P":
+        pytest.skip("P2P has no radar form (its tail takes no radar term)")
+    g, ds, ds_valid, pose, params, _ = _hash_inputs(scene, cuda)
+    rad = icp.radar_points(ds, pose, params) if radar else None
+    code = int(IcpMethod[method])
+    kernels.reset_launches()
+    sums = kernels.hash_correspond(g, ds, ds_valid, pose, params.max_search_dist, method, rad)
+    torch.cuda.synchronize()
+    assert kernels.launches["hash_correspond"] == 1
+    got = icp.assemble_p2p(sums) if method == "P2P" else icp.assemble_gn(sums)
+    ref = icp.hash_search_reduce_plain(g, ds, ds_valid, pose, params, code, rad)
+    assert int(got[0]) == int(ref[0]) > 100, method
+    rtol = 1e-3 if radar else 1e-4
+    for a, b in zip(got[1:], ref[1:]):
+        assert float(torch.linalg.norm(a - b)) <= rtol * float(torch.linalg.norm(b)), method
+    kernels.reset_launches()
+    total = ds_valid.sum().to(torch.float32)
+    out = icp.gn_iteration_hash(code, g, ds, ds_valid, pose, torch.zeros((), device=cuda),
+                                torch.eye(6, device=cuda), total, params, rad)
+    torch.cuda.synchronize()
+    assert kernels.launches["hash_correspond"] == kernels.launches["gn_step"] == 1
+    assert bool(torch.isfinite(out[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xy,r", [((20.0, 0.0), 5.0), ((-7.5, 12.25), 5.0),
+                                  ((500.0, 0.0), 5.0), ((20.0, 0.0), 0.4)],
+                         ids=["centre", "off_centre", "off_map", "small_radius"])
+def test_ground_height_matches_plain_on_card(scene, cuda, xy, r):
+    """Kernel R against ``find_ground_height_plain``: found equal, z within
+    one float32 ulp (the plain mean sums its 5 values in another order);
+    +inf on both sides where fewer than 5 points are in range."""
+    g = grid.to_device(scene[3], cuda)
+    kernels.reset_launches()
+    found, z = grid.find_ground_height(g, xy, r)
+    torch.cuda.synchronize()
+    assert kernels.launches["ground_height"] == 1
+    rf, rz = grid.find_ground_height_plain(g, xy, r)
+    assert bool(found) == bool(rf)
+    if torch.isfinite(rz):
+        assert abs(float(z) - float(rz)) <= float(torch.finfo(torch.float32).eps) * max(
+            abs(float(rz)), 1e-30)
+    else:
+        assert float(z) == float(rz)
