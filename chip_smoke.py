@@ -45,7 +45,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         counted from these inputs): the method's fused search + GN kernel
         (A, E, F, G) and kernel M (the GN step) on every method path; on the
         P2P path kernels B, C, D and J, K, L (the ring pushes, the ring
-        queries at the scan's times, the PCM measurement); on the fusion
+        queries at the scan's times, the PCM measurement), B and C beside
+        ``torch.sort(stable=True)`` of their keys alone (a partial
+        yardstick) and on the sort's edge inputs (tests/sort_edges.py, bit
+        for bit, one launch a call); on the fusion
         path kernels H (the IMU chain) and I (the CAN, GPS and PCM updates);
         on the radar paths the method's kernel in its radar form (rtol 1e-3)
         and, on GICP's, kernel P; on the hash paths kernel Q (its radar form
@@ -90,9 +93,11 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels D, H-R alone on the
-     device, and one more replay per run_fused path and of the windowed
-     run_fused for the device's busy share and its top kernels;
+  6. torch.profiler, after every timed replay: kernels B-D, H-R alone on
+     the device, and one more replay per run_fused path and of the windowed
+     run_fused for the device's busy share and its top kernels; no kernel
+     of a run_fused replay may be a library sort (a name with "sort" or
+     "Radix"): B and C sort on the card themselves;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract, and "P2P hash" on
@@ -118,6 +123,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -410,15 +416,24 @@ def shared_kernel_rows(pipe, calls, mods):
     ref = grid.voxel_downsample_plain(*a, **k)
     if not all(torch.equal(x, y) for x, y in zip(got, ref)):
         raise AssertionError("voxel_downsample kernel differs from its plain version")
-    n, nv, kept = a[0].shape[0], int(a[1].sum()), int(got[2])
-    # per valid point: voxel key (~14) and its sum (3); the key sort
-    # (n log2 n comparisons); per kept voxel its mean (3)
-    ops = nv * 17 + n * int(np.ceil(np.log2(n))) + kept * 3
-    rows.append(dict(name="voxel_downsample", source="elimaloc_tpu_torch/csrc/downsample.cu",
-                     replaces="elimaloc_tpu/map/grid.py:271", max_abs_err=0.0,
-                     ms=time_ms(lambda: kernels.voxel_downsample(*a, **k)),
+    points, valid, voxel = a[0], a[1], a[2]
+    n = points.shape[0]
+    # per point: voxel key (~17 operations) and 4 radix passes (~6 each);
+    # per kept point its copy (3)
+    ops = n * (17 + 6 * 4) + int(got[2]) * 3
+    key = torch.where(valid, torch.clamp(grid._mix(grid.point_to_voxel(points, voxel)),
+                                         max=0xFFFFFFFE), 0xFFFFFFFF)
+    sort_ms = time_ms(lambda: torch.sort(key, stable=True))
+    rows.append(dict(name="voxel_downsample", source="elimaloc_tpu_torch/csrc/downsample.cu "
+                     "+ sort.cuh", replaces="elimaloc_tpu/map/grid.py:271 (+ the sort :300)",
+                     max_abs_err=0.0, ms=time_ms(lambda: kernels.voxel_downsample(*a, **k)),
                      plain_ms=time_ms(lambda: grid.voxel_downsample_plain(*a, **k)),
-                     bound=bound(ops, nbytes(a[0], a[1], *got))))
+                     device_fn=(lambda a=a, k=k: kernels.voxel_downsample(*a, **k),
+                                "voxel_downsample_kernel"),
+                     partial_library_ms=sort_ms,
+                     partial_library_call=f"torch.sort(stable=True) of the {n} int64 keys "
+                                          "alone: part of the function only",
+                     bound=bound(ops, nbytes(points, valid, *got))))
 
     a, k = calls["assign_slots"]
     queries, valid = a[0], a[1]
@@ -428,17 +443,71 @@ def shared_kernel_rows(pipe, calls, mods):
         if not torch.equal(got[name], getattr(ref, name)):
             raise AssertionError(f"assign_slots kernel differs from plain in {name}")
     n = queries.shape[0]
-    # per valid query: voxel and tile keys (~14); the tile-key sort
-    ops = int(valid.sum()) * 14 + n * int(np.ceil(np.log2(n)))
-    rows.append(dict(name="assign_slots", source="elimaloc_tpu_torch/csrc/assign.cu",
-                     replaces="elimaloc_tpu/map/tiles.py:577", max_abs_err=0.0,
+    passes = max(1, -(-tmap.sentinel.bit_length() // 8))
+    # per query: voxel and tile keys (~14) and the radix passes (~6 each);
+    # per tile its count, start and base (~6)
+    ops = n * (14 + 6 * passes) + (tmap.sentinel + 1) * 6
+    _, tile = tiles.query_tiles(tmap, queries, valid)
+    sort_ms = time_ms(lambda: torch.sort(tile, stable=True))
+    rows.append(dict(name="assign_slots", source="elimaloc_tpu_torch/csrc/assign.cu + sort.cuh",
+                     replaces="elimaloc_tpu/map/tiles.py:577 (+ the sort :609)", max_abs_err=0.0,
                      ms=time_ms(lambda: kernels.assign_slots(*a, **k)),
                      plain_ms=time_ms(lambda: tiles.assign_slots_plain(
                          tmap, queries, valid, budget)),
+                     device_fn=(lambda a=a, k=k: kernels.assign_slots(*a, **k),
+                                "assign_slots_kernel"),
+                     partial_library_ms=sort_ms,
+                     partial_library_call=f"torch.sort(stable=True) of the {n} int32 tile "
+                                          "ids alone: part of the function only",
                      bound=bound(ops, nbytes(queries, valid, *got.values()))))
+    log_line(f"  voxel_downsample / assign_slots: torch.sort(stable=True) of their keys "
+             f"alone {rows[-2]['partial_library_ms']:.4f} / {sort_ms:.4f} ms; {passes} "
+             f"radix passes on the {tmap.sentinel.bit_length()}-bit tile id")
+    sort_edge_phase(kernels, grid, tiles)
     log_line(f"  shapes: scan {tuple(calls['deskew'][0][0].shape)}, "
              f"queries {tuple(queries.shape)}, halo {tuple(tmap.halo_points.shape)}")
     return rows
+
+
+def sort_edge_phase(kernels, grid, tiles):
+    """Kernels B and C against their plain versions, bit for bit and one
+    launch a call, on the sort's edge inputs (tests/sort_edges.py: every row
+    invalid, n = 1 / 31 / 1025 / 131,072, all queries in one tile, a
+    257 x 257 tile grid with its tables in global scratch and 3 passes, an
+    interleaved hash collision)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import sort_edges
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for case, (p, valid, voxel, out_size) in sort_edges.downsample_cases().items():
+        pts = torch.as_tensor(p, dtype=torch.float32, device=dev)
+        ok = torch.as_tensor(valid, device=dev)
+        kernels.reset_launches()
+        got = kernels.voxel_downsample(pts, ok, voxel, out_size)
+        torch.cuda.synchronize()
+        ref = grid.voxel_downsample_plain(pts, ok, voxel, out_size)
+        if kernels.launches["voxel_downsample"] != 1 or not all(
+                torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"voxel_downsample kernel vs plain on the edge case {case}")
+    for case, (q, valid, geo, qb, slots) in sort_edges.assign_cases().items():
+        tm = tiles.TileMap(halo_points=torch.zeros((1, 1, 3), device=dev),
+                           voxel_size=sort_edges.VOXEL, tile_size=sort_edges.TILE,
+                           origin=torch.zeros(2, device=dev), **geo)
+        qs = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        ok = torch.as_tensor(valid, device=dev)
+        budget = tiles.TileQueryBudget(qb=qb, max_slots=slots)
+        kernels.reset_launches()
+        got = tiles.assign_slots(tm, qs, ok, budget)
+        torch.cuda.synchronize()
+        ref = tiles.assign_slots_plain(tm, qs, ok, budget)
+        if kernels.launches["assign_slots"] != 1 or not all(
+                torch.equal(getattr(got, f.name), getattr(ref, f.name))
+                for f in dataclasses.fields(ref)):
+            raise AssertionError(f"assign_slots kernel vs plain on the edge case {case}")
+    log_line(f"  sort edge cases: voxel_downsample {len(sort_edges.DOWNSAMPLE_CASES)}, "
+             f"assign_slots {len(sort_edges.ASSIGN_CASES)}, each bit for bit and one launch "
+             f"({time.perf_counter() - t0:.1f} s, the inputs' NumPy set-up included)")
 
 
 #: the radar forms (use_radar_cov) of kernels E, F, G and the JAX code they
@@ -1371,6 +1440,12 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
                  f"{prof_wall:.1f} ms wall ({100 * busy / prof_wall:.1f}%); top: "
                  + "; ".join(f"{k[:48]} {v * 1e-3 / n:.3f} ms/frame" for k, v in top))
         summary["device_busy_share_profiled"] = busy / prof_wall if per else None
+        # kernels B and C sort on the card themselves: no library sort runs
+        sorts = [k for k in per if "sort" in k.lower() or "Radix" in k]
+        if not per or sorts:
+            raise AssertionError(f"[{path}] the profiled replay saw no device kernel or a "
+                                 f"library sort: {sorts}")
+        summary["device_kernels_profiled"] = len(per)
 
     deferred.append(profiled_replay)
     if path == FUSION:
@@ -2316,6 +2391,9 @@ def main():
         row = {k: r[k] for k in keys}
         row["bound_ms"], row["bound_by"] = r["bound"]
         row["library_ms"] = None  # no single PyTorch call computes any of them
+        if "partial_library_ms" in r:  # B, C: the library sort of their keys alone
+            row["partial_library_ms"] = r["partial_library_ms"]
+            row["partial_library_call"] = r["partial_library_call"]
         table.append(row)
     log_line(json.dumps({"slices": slices, "card": smi}))
     log_line(json.dumps({"kernels": table}))

@@ -20,12 +20,16 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 struct AddOp {
   __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
 };
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
+
+// floor(p / voxel) per axis: the voxel coords of a point, with the IEEE
+// division of the plain versions (grid.div), so both agree at boundaries.
+__device__ __forceinline__ int3 voxel_of(const float* __restrict__ p, float voxel) {
+  return make_int3((int)floorf(p[0] / voxel), (int)floorf(p[1] / voxel),
+                   (int)floorf(p[2] / voxel));
+}
 
 // Block-wide inclusive scan of one int per thread, for ops whose identity is
-// 0 on the non-negative values the kernels scan (sum, max). blockDim.x must
+// 0 on the non-negative values the kernels scan (sums). blockDim.x must
 // be a multiple of 32 and at most 1024; ``sh`` holds 32 ints of shared
 // memory. Returns the thread's inclusive prefix and writes the block total.
 template <class Op>

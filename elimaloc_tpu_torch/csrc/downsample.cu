@@ -1,112 +1,143 @@
 // Kernel C: first-point-per-voxel downsample with a static output budget.
 //
-// Replaces elimaloc_tpu/map/grid.py:voxel_downsample (:271) and _mix (:127).
+// Replaces elimaloc_tpu/map/grid.py:voxel_downsample (:271) and _mix (:127),
+// the latter as hash.cuh's mix with the table seed.
 // The TPU form sorts a tuple of eight lanes through XLA's sort because
-// payload gathers are scalar-core-bound there. On Hopper: (1) a per-point
-// kernel writes the mixed 32-bit voxel key (0xFFFFFFFF for invalid rows,
-// valid keys clamped to 0xFFFFFFFE) widened to int64, plus the int32 voxel
-// coords; (2) torch.sort(stable=True) orders the keys — stability is part of
-// the semantics, "first" means first in input order; (3) one CTA walks the
-// sorted order in 1024-element chunks, keeps an element when its voxel
-// coords differ from its sorted neighbour's (coords, not keys: a rare hash
-// collision must not swallow a voxel) and it is valid, and compacts the kept
-// points with a block prefix scan that carries its offset across chunks.
-// Bound: launch latency and the serial chunk walk (26k points = 26 chunks);
-// the bytes are ~1 MB.
-#include "common.cuh"
+// payload gathers are scalar-core-bound there. On Hopper the whole function
+// is one launch of one 16-CTA cluster (sort.cuh):
+//   1. per point, the mixed 32-bit voxel key (0xFFFFFFFF for invalid rows,
+//      valid keys clamped to 0xFFFFFFFE) and its index;
+//   2. the stable 4-pass radix sort of sort.cuh — stability is part of the
+//      semantics, "first" means first in input order;
+//   3. a sorted element is kept when it is valid (its key is not
+//      0xFFFFFFFF) and its voxel coords differ from its sorted
+//      predecessor's (coords, not keys: a rare hash collision must not
+//      swallow a voxel, grid.py:290-296);
+//   4. the kept points are compacted by a cluster-wide scan: each CTA counts
+//      the kept points of its stripe of the sorted order (4 consecutive
+//      elements a thread), the counts meet in distributed shared memory, and
+//      a block scan per chunk places them;
+//   5. ``out`` is written in full (zeros past the kept count), ``out_valid``
+//      and the kept count clamped to the budget.
+// Bound: latency (sort.cuh); the bytes are ~1 MB at the headline 26,215
+// points.
+#include "hash.cuh"
+#include "sort.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t mix(int x, int y, int z) {
-  const uint32_t cx = (uint32_t)x, cy = (uint32_t)y, cz = (uint32_t)z;
-  uint32_t h = 0x9E3779B1u ^ (cx * 0x85EBCA6Bu);
-  h = (h ^ (h >> 13)) * 0xC2B2AE35u;
-  h = h ^ (cy * 0x27D4EB2Fu);
-  h = (h ^ (h >> 13)) * 0x165667B1u;
-  h = h ^ (cz * 0x9E3779B1u);
-  h = h ^ (h >> 16);
-  h = h * 0x7FEB352Du;
-  h = h ^ (h >> 15);
-  h = h * 0x846CA68Bu;
-  h = h ^ (h >> 16);
-  return h;
-}
+constexpr uint32_t kInvalidKey = 0xFFFFFFFFu;
 
-__global__ void voxel_keys_kernel(const float* __restrict__ points,
-                                  const bool* __restrict__ valid, int n,
-                                  const float* __restrict__ voxel,
-                                  long long* __restrict__ key,
-                                  int* __restrict__ coords) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(elm::kSortThreads)
+voxel_downsample_kernel(const float* __restrict__ points, const bool* __restrict__ valid,
+                        int n, const float* __restrict__ voxel, int out_size,
+                        uint32_t* k0, int* v0, uint32_t* k1, int* v1,
+                        float* __restrict__ out, bool* __restrict__ out_valid,
+                        long long* __restrict__ kept_out) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  elm::SortShared& sm = *reinterpret_cast<elm::SortShared*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
   const float v = voxel[0];
-  const int cx = (int)floorf(points[3 * i] / v);
-  const int cy = (int)floorf(points[3 * i + 1] / v);
-  const int cz = (int)floorf(points[3 * i + 2] / v);
-  coords[3 * i] = cx;
-  coords[3 * i + 1] = cy;
-  coords[3 * i + 2] = cz;
-  uint32_t h = mix(cx, cy, cz);
-  if (h > 0xFFFFFFFEu) h = 0xFFFFFFFEu;
-  key[i] = valid[i] ? (long long)h : (long long)0xFFFFFFFFu;
+  int lo, hi;
+  elm::sort_stripe(n, rank, &lo, &hi);
+
+  // 1. keys of this CTA's stripe of the input
+#pragma unroll 4
+  for (int i = lo + tid; i < hi; i += elm::kSortThreads) {
+    const int3 c = elm::voxel_of(points + 3 * i, v);
+    const int cc[3] = {c.x, c.y, c.z};
+    const uint32_t h = min(elm::mix(cc, elm::kHashSeed), 0xFFFFFFFEu);
+    k0[i] = valid[i] ? h : kInvalidKey;
+    v0[i] = i;
+  }
+  // 2. the sort
+  uint32_t* ks;
+  int* vs;
+  elm::cluster_sort(k0, v0, k1, v1, n, 4, sm, &ks, &vs);
+
+  // 3. keep flags of kSortItems consecutive sorted elements from i0 (one
+  // thread's run of a chunk; the run's predecessor is read once), kept in
+  // the sort's free scratch half for the compaction
+  constexpr int kItems = elm::kSortItems;
+  int* keep = reinterpret_cast<int*>(ks == k0 ? k1 : k0);
+  int mine = 0;
+  for (int b = lo; b < hi; b += elm::kSortChunk) {
+    const int i0 = b + tid * kItems;
+    if (i0 >= hi) continue;
+    int3 prev = i0 > 0 ? elm::voxel_of(points + 3 * vs[i0 - 1], v) : make_int3(0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = i0 + j;
+      if (i < hi) {
+        const int3 c = elm::voxel_of(points + 3 * vs[i], v);
+        const bool first = i == 0 || c.x != prev.x || c.y != prev.y || c.z != prev.z;
+        keep[i] = first && ks[i] != kInvalidKey ? 1 : 0;
+        mine += keep[i];
+        prev = c;
+      }
+    }
+  }
+  // 4. cluster-wide scan of the kept counts, then the compaction
+  int all;
+  elm::block_scan(mine, elm::AddOp(), sm.scan, &all);
+  elm::cluster_exclusive(all, 0, sm);
+  const int total = sm.total[0];
+  int carry = sm.offset[0];
+  for (int b = lo; b < hi; b += elm::kSortChunk) {
+    const int i0 = b + tid * kItems;
+    int flag[kItems];
+    int count = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      flag[j] = i0 + j < hi ? keep[i0 + j] : 0;
+      count += flag[j];
+    }
+    int chunk;
+    int r = carry + elm::block_scan(count, elm::AddOp(), sm.scan, &chunk) - count;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (!flag[j]) continue;
+      if (r < out_size) {
+        const int p = vs[i0 + j];
+        out[3 * r] = points[3 * p];
+        out[3 * r + 1] = points[3 * p + 1];
+        out[3 * r + 2] = points[3 * p + 2];
+      }
+      ++r;
+    }
+    carry += chunk;
+  }
+  // 5. the rest of the budget
+  int olo, ohi;
+  elm::sort_stripe(out_size, rank, &olo, &ohi);
+  for (int j = olo + tid; j < ohi; j += elm::kSortThreads) {
+    if (j >= total) {
+      out[3 * j] = 0.0f;
+      out[3 * j + 1] = 0.0f;
+      out[3 * j + 2] = 0.0f;
+    }
+    out_valid[j] = j < total;
+  }
+  if (rank == 0 && tid == 0) kept_out[0] = total < out_size ? total : out_size;
+  cluster.sync();  // no CTA leaves while another may still read its count
 }
 
-__global__ void voxel_compact_kernel(const float* __restrict__ points,
-                                     const bool* __restrict__ valid,
-                                     const int* __restrict__ coords,
-                                     const long long* __restrict__ perm, int n,
-                                     int out_size, float* __restrict__ out,
-                                     bool* __restrict__ out_valid,
-                                     long long* __restrict__ kept_out) {
-  __shared__ int sh[32];
-  int carry = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int keep = 0;
-    long long p = 0;
-    if (i < n) {
-      p = perm[i];
-      bool first = true;
-      if (i > 0) {
-        const long long q = perm[i - 1];
-        first = coords[3 * p] != coords[3 * q] ||
-                coords[3 * p + 1] != coords[3 * q + 1] ||
-                coords[3 * p + 2] != coords[3 * q + 2];
-      }
-      keep = (first && valid[p]) ? 1 : 0;
-    }
-    int total;
-    const int incl = elm::block_scan(keep, elm::AddOp(), sh, &total);
-    const int rank = carry + incl - 1;
-    if (keep && rank < out_size) {
-      out[3 * rank] = points[3 * p];
-      out[3 * rank + 1] = points[3 * p + 1];
-      out[3 * rank + 2] = points[3 * p + 2];
-    }
-    carry += total;
-  }
-  for (int j = threadIdx.x; j < out_size; j += blockDim.x) out_valid[j] = j < carry;
-  if (threadIdx.x == 0) kept_out[0] = carry < out_size ? carry : out_size;
-}
+bool g_checked = false;
 
 }  // namespace
 
-extern "C" int elm_voxel_keys(const float* points, const bool* valid, int n,
-                              const float* voxel, long long* key, int* coords,
-                              cudaStream_t stream) {
-  if (n > 0) {
-    const int threads = 256;
-    voxel_keys_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        points, valid, n, voxel, key, coords);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int elm_voxel_compact(const float* points, const bool* valid,
-                                 const int* coords, const long long* perm, int n,
-                                 int out_size, float* out, bool* out_valid,
-                                 long long* kept, cudaStream_t stream) {
-  voxel_compact_kernel<<<1, 1024, 0, stream>>>(points, valid, coords, perm, n,
-                                               out_size, out, out_valid, kept);
-  return (int)cudaGetLastError();
+// scratch: 4 * n int32 (the sort's two key and two index halves)
+extern "C" int elm_voxel_downsample(const float* points, const bool* valid, int n,
+                                    const float* voxel, int out_size, int* scratch,
+                                    float* out, bool* out_valid, long long* kept,
+                                    cudaStream_t stream) {
+  uint32_t* k0 = reinterpret_cast<uint32_t*>(scratch);
+  const size_t smem = sizeof(elm::SortShared);
+  return elm::launch_cluster(voxel_downsample_kernel, smem, smem, &g_checked, stream,
+                             points, valid, n, voxel, out_size, k0, scratch + n,
+                             k0 + 2 * (size_t)n, scratch + 3 * (size_t)n, out, out_valid,
+                             kept);
 }

@@ -103,6 +103,9 @@ def _stream(t):
 
 
 def _raise_on(rc, name):
+    if rc == NO_CLUSTER:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters finds no room for "
+                           f"the sort's {SORT_CTAS}-CTA cluster on this card")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
@@ -137,34 +140,33 @@ def deskew(points, rel_times, valid, info, bug_compat_z: bool):
     return out
 
 
+#: the sort of kernels B and C (csrc/sort.cuh): CTAs of its one cluster, and
+#: the most tiles (T + 1) whose per-tile tables kernel B keeps in shared
+#: memory (csrc/assign.cu kSharedTiles); beyond, the wrapper gives it a
+#: global scratch of 3 tables of T + 1 ints per CTA
+SORT_CTAS = 16
+SHARED_TILES = 8192
+#: what a sorting kernel's entry returns when no such cluster fits the card
+#: (csrc/sort.cuh kNoCluster)
+NO_CLUSTER = -1
+
+
 def voxel_downsample(points, valid, voxel_size, out_size: int):
     """Kernel C (map.grid.voxel_downsample): (points [out,3], valid [out],
-    kept). ``torch.sort(stable=True)`` orders the keys between its two
-    launches."""
+    kept), one launch: keys, the cluster's radix sort and the compaction."""
     n = points.shape[0]
     f32 = torch.float32
+    dev = points.device
     voxel = _scalar(voxel_size, points)
-    p_pts = _check(points, "points", f32, (n, 3))
-    p_valid = _check(valid, "valid", torch.bool, (n,))
-    key = torch.empty(n, dtype=torch.int64, device=points.device)
-    coords = torch.empty((n, 3), dtype=torch.int32, device=points.device)
-    lib = library()
-    stream = _stream(points)
-    rc = lib.elm_voxel_keys(p_pts, p_valid, ctypes.c_int(n),
-                            _check(voxel, "voxel_size", f32, ()),
-                            ctypes.c_void_p(key.data_ptr()),
-                            ctypes.c_void_p(coords.data_ptr()), stream)
-    _raise_on(rc, "voxel_keys")
-    _, perm = torch.sort(key, stable=True)
-    out = torch.zeros((out_size, 3), dtype=f32, device=points.device)
-    out_valid = torch.empty(out_size, dtype=torch.bool, device=points.device)
-    kept = torch.empty((), dtype=torch.int64, device=points.device)
-    rc = lib.elm_voxel_compact(
-        p_pts, p_valid, ctypes.c_void_p(coords.data_ptr()),
-        ctypes.c_void_p(perm.data_ptr()), ctypes.c_int(n), ctypes.c_int(out_size),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(out_valid.data_ptr()),
-        ctypes.c_void_p(kept.data_ptr()), stream)
-    _raise_on(rc, "voxel_compact")
+    args = [_check(points, "points", f32, (n, 3)), _check(valid, "valid", torch.bool, (n,)),
+            ctypes.c_int(n), _check(voxel, "voxel_size", f32, ()), ctypes.c_int(out_size)]
+    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
+    out = torch.empty((out_size, 3), dtype=f32, device=dev)
+    out_valid = torch.empty(out_size, dtype=torch.bool, device=dev)
+    kept = torch.empty((), dtype=torch.int64, device=dev)
+    rc = library().elm_voxel_downsample(*args, _ptr(scratch), _ptr(out), _ptr(out_valid),
+                                        _ptr(kept), _stream(points))
+    _raise_on(rc, "voxel_downsample")
     launches["voxel_downsample"] += 1
     return out, out_valid, kept
 
@@ -172,42 +174,32 @@ def voxel_downsample(points, valid, voxel_size, out_size: int):
 def assign_slots(queries, valid, qb: int, max_slots: int, *, voxel_size,
                  tile_size, tx0, ty0, tx_dim, ty_dim):
     """Kernel B (map.tiles.assign_slots): the SlotAssignment fields as a
-    dict. ``torch.sort(stable=True)`` orders the tile keys between its two
-    launches."""
+    dict, one launch: tile keys, the cluster's radix sort on them, the
+    per-tile slot arithmetic and the scatter (every entry written)."""
     n = queries.shape[0]
     s = max_slots
     dev = queries.device
     t_sent = tx_dim * ty_dim
-    p_q = _check(queries, "queries", torch.float32, (n, 3))
-    p_valid = _check(valid, "valid", torch.bool, (n,))
-    qv = torch.empty((n, 3), dtype=torch.int32, device=dev)
-    tile = torch.empty(n, dtype=torch.int64, device=dev)
-    lib = library()
-    stream = _stream(queries)
-    tv = int(round(tile_size / voxel_size))
-    rc = lib.elm_tile_keys(
-        p_q, p_valid, ctypes.c_int(n), ctypes.c_float(voxel_size),
-        ctypes.c_float(tile_size), ctypes.c_int(tv), ctypes.c_int(tx0),
-        ctypes.c_int(ty0), ctypes.c_int(tx_dim), ctypes.c_int(ty_dim),
-        ctypes.c_void_p(qv.data_ptr()), ctypes.c_void_p(tile.data_ptr()), stream)
-    _raise_on(rc, "tile_keys")
-    st, perm = torch.sort(tile, stable=True)
+    args = [_check(queries, "queries", torch.float32, (n, 3)),
+            _check(valid, "valid", torch.bool, (n,)), ctypes.c_int(n),
+            ctypes.c_float(voxel_size), ctypes.c_float(tile_size),
+            ctypes.c_int(int(round(tile_size / voxel_size))), ctypes.c_int(tx0),
+            ctypes.c_int(ty0), ctypes.c_int(tx_dim), ctypes.c_int(ty_dim),
+            ctypes.c_int(qb), ctypes.c_int(s)]
+    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
+    table = (None if t_sent + 1 <= SHARED_TILES else
+             torch.empty(SORT_CTAS * 3 * (t_sent + 1), dtype=torch.int32, device=dev))
     out = dict(
-        qbuf=torch.zeros((s, qb, 3), dtype=torch.float32, device=dev),
-        qvox=torch.zeros((s, qb, 3), dtype=torch.int32, device=dev),
-        qmask=torch.zeros((s, qb), dtype=torch.bool, device=dev),
-        qidx=torch.full((s, qb), n, dtype=torch.int32, device=dev),
-        slot_tile=torch.full((s,), t_sent, dtype=torch.int32, device=dev),
-        dropped=torch.zeros((), dtype=torch.int64, device=dev),
+        qbuf=torch.empty((s, qb, 3), dtype=torch.float32, device=dev),
+        qvox=torch.empty((s, qb, 3), dtype=torch.int32, device=dev),
+        qmask=torch.empty((s, qb), dtype=torch.bool, device=dev),
+        qidx=torch.empty((s, qb), dtype=torch.int32, device=dev),
+        slot_tile=torch.empty((s,), dtype=torch.int32, device=dev),
+        dropped=torch.empty((), dtype=torch.int64, device=dev),
     )
-    rc = lib.elm_assign_scatter(
-        p_q, ctypes.c_void_p(qv.data_ptr()), ctypes.c_void_p(perm.data_ptr()),
-        ctypes.c_void_p(st.data_ptr()), ctypes.c_int(n), ctypes.c_int(qb),
-        ctypes.c_int(s), ctypes.c_longlong(t_sent),
-        *(ctypes.c_void_p(out[k].data_ptr())
-          for k in ("qbuf", "qvox", "qmask", "qidx", "slot_tile", "dropped")),
-        stream)
-    _raise_on(rc, "assign_scatter")
+    rc = library().elm_assign_slots(*args, _ptr(scratch), _ptr(table),
+                                    *(_ptr(v) for v in out.values()), _stream(queries))
+    _raise_on(rc, "assign_slots")
     launches["assign_slots"] += 1
     return out
 

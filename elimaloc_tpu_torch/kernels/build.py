@@ -34,11 +34,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "elm_deskew": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                    _P, _P],
-    "elm_voxel_keys": [_P, _P, _I, _P, _P, _P, _P],
-    "elm_voxel_compact": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "elm_tile_keys": [_P, _P, _I, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P],
-    "elm_assign_scatter": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
-                           _P, _P, _P, _P, _P, _P, _P],
+    "elm_voxel_downsample": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "elm_assign_slots": [_P, _P, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P],
     "elm_p2p_search_reduce": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _F, _F, _I,
                               _I, _I, _P, _P, _P, _P, _P],
     "elm_gicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,

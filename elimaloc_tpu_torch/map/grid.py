@@ -23,8 +23,8 @@ int32 bit pattern (the kernels reinterpret it) and widened to int64 in the
 plain versions, as :func:`_mix` computes the hashes in int64.
 
 ``voxel_downsample`` (grid.py:271) launches kernel C (csrc/downsample.cu,
-with ``torch.sort`` in the middle) on a CUDA tensor and runs
-:func:`voxel_downsample_plain` on a CPU one.
+one launch with the radix sort of csrc/sort.cuh inside) on a CUDA tensor
+and runs :func:`voxel_downsample_plain` on a CPU one.
 """
 
 from __future__ import annotations

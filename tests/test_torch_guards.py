@@ -180,14 +180,14 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: the port's modules that the online entry points, the active-window
 #: serving path (the host crops, the shift and the window management), the
 #: tick mode and the radar covariances, kernels J-P and their plain versions
-#: live in, and the smoke script
+#: live in, the smoke script and the timing script of kernels B and C
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/map/grid.py",
                "elimaloc_tpu_torch/pipeline/rings.py", "elimaloc_tpu_torch/deskew.py",
                "elimaloc_tpu_torch/register/icp.py", "elimaloc_tpu_torch/kernels/__init__.py",
                "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
-               "chip_smoke.py"]
+               "chip_smoke.py", "tools/time_sort_kernels.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
@@ -227,4 +227,54 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
             "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov",
             "elm_hash_search_reduce", "elm_hash_query", "elm_hash_lookup",
-            "elm_ground_height"} <= set(found)
+            "elm_ground_height", "elm_assign_slots", "elm_voxel_downsample"} <= set(found)
+    # kernels B and C are one entry each; their former two-launch halves are gone
+    assert not {"elm_tile_keys", "elm_assign_scatter", "elm_voxel_keys",
+                "elm_voxel_compact"} & set(found)
+
+
+def _wrappers_ast():
+    import ast
+
+    return ast.parse(open(os.path.join(ROOT, "elimaloc_tpu_torch/kernels/__init__.py")).read())
+
+
+def test_kernel_wrappers_call_no_library_sort():
+    """No wrapper sorts with PyTorch: kernels B and C sort on the card in
+    csrc/sort.cuh (the plain versions in map/ keep ``torch.sort``)."""
+    import ast
+
+    calls = [n.func.attr for n in ast.walk(_wrappers_ast())
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)]
+    assert not {"sort", "argsort", "msort", "unique", "unique_consecutive", "topk"} & set(calls)
+
+
+@pytest.mark.parametrize("wrapper,entry", [("assign_slots", "elm_assign_slots"),
+                                           ("voxel_downsample", "elm_voxel_downsample")])
+def test_sorting_wrappers_make_one_library_call(wrapper, entry):
+    """Kernels B and C: one ``lib.elm_*`` call (one launch) per wrapper call."""
+    import ast
+
+    fn = next(n for n in ast.walk(_wrappers_ast())
+              if isinstance(n, ast.FunctionDef) and n.name == wrapper)
+    entries = [n.func.attr for n in ast.walk(fn) if isinstance(n, ast.Call)
+               and isinstance(n.func, ast.Attribute) and n.func.attr.startswith("elm_")]
+    assert entries == [entry]
+
+
+def test_sort_constants_match_the_sources():
+    """The wrappers' copies of the sort's cluster size, kernel B's shared
+    table limit and the no-cluster return code are the sources' own."""
+    import re
+
+    from elimaloc_tpu_torch import kernels
+    from elimaloc_tpu_torch.kernels import build
+
+    sort_h = (build.SRC_DIR / "sort.cuh").read_text()
+    assign = (build.SRC_DIR / "assign.cu").read_text()
+    assert re.search(r"constexpr int kSortCtas = (\d+);", sort_h).group(1) == \
+        str(kernels.SORT_CTAS)
+    assert re.search(r"constexpr int kNoCluster = (-?\d+);", sort_h).group(1) == \
+        str(kernels.NO_CLUSTER)
+    assert re.search(r"constexpr int kSharedTiles = (\d+);", assign).group(1) == \
+        str(kernels.SHARED_TILES)

@@ -6,7 +6,8 @@ wrapper given a CPU tensor raises instead of falling back.
 
 On the card (``cuda`` marker; skipped without one): each kernel against its
 plain version on the same CUDA inputs. Bounds: kernels B (assign) and C
-(downsample) exact; kernel D (deskew) atol 1e-4 m at ranges up to 60 m (the
+(downsample) exact, on the scene's scan and on the sort's edge inputs of
+tests/sort_edges.py (one launch a call); kernel D (deskew) atol 1e-4 m at ranges up to 60 m (the
 interval sum and the rotation run in another order and with FMAs); kernel
 A: ``tgt``/``ok`` exactly equal (exact diff^2 sums on both sides) and JTJ /
 JTr rtol 1e-4 (the f32 sums over ~1k rows are reduced in another order);
@@ -62,6 +63,7 @@ from elimaloc_tpu_torch.pipeline import rings
 from elimaloc_tpu_torch.pipeline import runtime
 from elimaloc_tpu_torch.register import icp
 
+import sort_edges
 
 METHODS = (IcpMethod.GICP, IcpMethod.VGICP, IcpMethod.AVGICP)
 #: each method's kernel wrapper (kernel E, F, G)
@@ -465,6 +467,42 @@ def _p_entry_err(got, ref, prior, tol):
 
     limit = tol * scale(ref) + 8 * torch.finfo(torch.float32).eps * scale(prior)
     return float(((got.double() - ref.double()).abs() / limit.clamp(min=1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sort_edges.DOWNSAMPLE_CASES)
+def test_voxel_downsample_edges_match_plain_on_card(cuda, case):
+    """Kernel C, one launch a call, bit for bit on the sort's edge inputs."""
+    p, valid, voxel, out_size = sort_edges.downsample_cases()[case]
+    pts = torch.as_tensor(p, dtype=torch.float32, device=cuda)
+    ok = torch.as_tensor(valid, device=cuda)
+    kernels.reset_launches()
+    got = grid.voxel_downsample(pts, ok, voxel, out_size)
+    torch.cuda.synchronize()
+    assert kernels.launches["voxel_downsample"] == 1 == sum(kernels.launches.values())
+    for a, b in zip(got, grid.voxel_downsample_plain(pts, ok, voxel, out_size)):
+        assert torch.equal(a, b), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sort_edges.ASSIGN_CASES)
+def test_assign_slots_edges_match_plain_on_card(cuda, case):
+    """Kernel B, one launch a call, bit for bit on the sort's edge inputs
+    (the 257 x 257 grid: per-tile tables in global scratch, 3 passes)."""
+    q, valid, geo, qb, slots = sort_edges.assign_cases()[case]
+    tm = tiles.TileMap(halo_points=torch.zeros((1, 1, 3), device=cuda),
+                       voxel_size=sort_edges.VOXEL, tile_size=sort_edges.TILE,
+                       origin=torch.zeros(2, device=cuda), **geo)
+    qs = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    ok = torch.as_tensor(valid, device=cuda)
+    budget = tiles.TileQueryBudget(qb=qb, max_slots=slots)
+    kernels.reset_launches()
+    got = tiles.assign_slots(tm, qs, ok, budget)
+    torch.cuda.synchronize()
+    assert kernels.launches["assign_slots"] == 1 == sum(kernels.launches.values())
+    ref = tiles.assign_slots_plain(tm, qs, ok, budget)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), (case, f.name)
 
 
 @pytest.mark.cuda
