@@ -44,17 +44,23 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         could take: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
         counted from these inputs): the method's fused search + GN kernel
         (A, E, F, G) and kernel M (the GN step) on every method path; on the
-        P2P path kernels B, C, D and J, K, L (the ring pushes, the ring
-        queries at the scan's times, the PCM measurement), B and C beside
+        P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
+        stage: the sensor-frame conversion, the EKF chain and both ring
+        pushes, against its plain composition; one profiled call of the
+        stage must show H alone on the device), I's one launch a frame (the
+        PCM pose), K and L (the ring queries at the scan's times, the PCM
+        measurement), B and C beside
         ``torch.sort(stable=True)`` of their keys alone (a partial
         yardstick) and on the sort's edge inputs (tests/sort_edges.py, bit
         for bit, one launch a call); on the fusion
-        path kernels H (the IMU chain) and I (the CAN, GPS and PCM updates);
+        path kernel I's frame pair (the CAN + GPS launch, then the PCM one);
         on the radar paths the method's kernel in its radar form (rtol 1e-3)
         and, on GICP's, kernel P; on the hash paths kernel Q (its radar form
         against a float64 tail, as E, F, G's) and M;
      c. the timed replay: the launch counts set to 0 just before it and
-        read just after (every kernel of the path must have launched),
+        read just after (every kernel of the path must have launched; H once
+        a frame, J never, no EKF state or params packed: the same on every
+        replay with IMU below, H once an IMU event in ``run``),
         applied ratio, ATE against ground truth, slot drops, downsample
         budget, scans/s, a per-stage split and the frame time p50/p95, and
         on the fusion path the CAN and GPS samples the filter's gates
@@ -68,7 +74,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      replay (applied >= 0.9, under the closed-loop contract against the
      reference form's, P asymmetry no larger, P diagonal positive); the
      tick mode: O and J's one-ring form against their plain versions, O
-     launched once per tick, no IMU chain, ATE under JAX's 2.0 m tick-mode
+     launched once per tick, no kernel H, ATE under JAX's 2.0 m tick-mode
      bound; then relocalization from a click 1 m and 1 deg off the truth;
   5. "P2P windowed" (after the relocalization above): a warm-up windowed
      replay that records kernel N's first call, N against
@@ -150,13 +156,19 @@ TICK_ATE_GATE = 2.0  # JAX's own tick-mode bound, tests/test_pipeline_modes.py:8
 FAR_X = 1000.0
 #: the EKF kernels, launched on every path: wrapper -> (source, replaces)
 EKF_KERNELS = {
-    "imu_chain": ("imu_chain.cu",
-                  "elimaloc_tpu/ekf/filter.py:520 predict_imu (+ :344, :306, :390, :424, "
-                  ":493) as driven by elimaloc_tpu/pipeline/runtime.py:405 imu_subbatch"),
+    "imu_stage": ("imu_chain.cu + rings.cuh",
+                  "elimaloc_tpu/pipeline/runtime.py:405 imu_subbatch: elimaloc_tpu/ops/frames.py"
+                  ":27 imu_to_ego, elimaloc_tpu/ekf/filter.py:520 predict_imu (+ :344, :306, "
+                  ":390, :424, :493), elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch "
+                  "as :183, :192"),
     "ekf_update": ("ekf_update.cu",
                    "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 "
                    "update_gnss + :705 update_can"),
 }
+#: kernel J, whose one-ring entry serves the tick mode (kernel H pushes a
+#: frame's and an IMU event's rows itself): its source and what it replaces
+RING_PUSH = ("elimaloc_tpu_torch/csrc/rings.cu + rings.cuh",
+             "elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch (+ :75, :183, :192)")
 #: published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and
 #: float32 operations/s outside the tensor cores
 HBM_BPS = 3.35e12
@@ -185,8 +197,6 @@ SEARCH_COST = {"P2P": (12, 0, 40), "GICP": (12, 48, 300), "VGICP": (24, 36, 300)
 SHARED = ("deskew", "voxel_downsample", "assign_slots")
 #: the scan-time kernels, launched on every path: wrapper -> (source, replaces)
 SCAN_KERNELS = {
-    "ring_push": ("rings.cu", "elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch "
-                              "(+ :75, :183, :192)"),
     "scan_ring_query": ("scan_ring.cu", "elimaloc_tpu/deskew.py:157 make_deskew_info "
                                         "(+ :82, :109) + elimaloc_tpu/pipeline/rings.py:204 "
                                         "get_interpolated_pose + runtime.py:338 compose"),
@@ -871,11 +881,12 @@ def kalman_ops(m, joseph=False):
 
 
 def state_bytes(kernels, state):
-    return nbytes(*(getattr(state, f) for f, _, _ in kernels.EKF_FIELDS))
+    """The packed state record a kernel reads or writes whole."""
+    return kernels.ekf_state.record_layout(torch.float32).nbytes
 
 
 def params_bytes(kernels, params):
-    return nbytes(*(getattr(params, f) for f, _ in kernels.PARAM_FIELDS))
+    return kernels.ekf_state.PARAM_WORDS * 4
 
 
 def ekf_field_errors(kernels, got, ref):
@@ -920,66 +931,98 @@ def with_joseph(call, at):
     return tuple(a), k
 
 
-def imu_chain_row(calls, mods, joseph=False):
-    """Kernel H against ``imu_chain_plain`` + ``ego_history`` on one frame's
-    IMU budget: pos / vel and the history's pos / vel_local within 1e-4 m,
-    the quaternions 1e-6, the history's angles 1e-5 rad, each P entry within
-    1e-4 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``; the plain
-    version's small products go through cuBLAS, whose order and FMAs differ
-    from the kernel's ordered sums). With ``joseph`` the same call with the
+def stage_of(a, pipe, runtime):
+    """(pipeline state, frame batch, params, static) of a recorded
+    ``kernels.imu_stage`` call ``a`` on the pipeline ``pipe`` (its flags
+    argument taken as given)."""
+    st = runtime.PipelineState(ekf=a[0], ego_ring=a[1], imu_ring=a[2])
+    b = dict(zip(("imu_t", "imu_acc", "imu_gyro", "imu_valid"), a[3:7]))
+    return st, b, pipe.params, dataclasses.replace(pipe.static, ekf_flags=a[10])
+
+
+def imu_stage_row(calls, pipe, mods, joseph=False):
+    """Kernel H, the frame's whole IMU stage in one launch, against its plain
+    composition ``runtime.imu_subbatch_plain`` on one frame's raw IMU
+    budget: pos / vel within 1e-4 m, the quaternions 1e-6, each P entry
+    within 1e-4 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``;
+    the plain version's small products go through cuBLAS, whose order and
+    FMAs differ from the kernel's ordered sums), flags and counters equal;
+    both rings' t and count exactly, their fields within the ego rows' gates
+    (pos, vel_local, gyro, acc 1e-4, rpy 1e-5 rad). One call of the
+    stage's entry (``runtime.imu_subbatch``, ``stage_fn``) must show exactly
+    one device kernel, H's, under torch.profiler (with the other profiler
+    passes, after every timed replay). With ``joseph`` the same call with the
     Joseph-form updates, held the same way."""
-    kernels, efilter = mods[0], mods[7]
-    a, _ = with_joseph(calls["imu_chain"], 6) if joseph else calls["imu_chain"]
-    st, ts, acc, gyro, valid, params, flags = a
-    got, ghist = kernels.imu_chain(*a)
-    ref, rhist = efilter.imu_chain_plain(*a)
-    rhist = efilter.ego_history(*rhist)
-    err = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+    kernels, runtime = mods[0], mods[6]
+    a, _ = with_joseph(calls["imu_stage"], 10) if joseph else calls["imu_stage"]
+    st, b, pp, ps = stage_of(a, pipe, runtime)
+    got = runtime.imu_subbatch(st, b, pp, ps)
+    ref = runtime.imu_subbatch_plain(st, b, pp, ps)
+    err = {f: float((getattr(got.ekf, f) - getattr(ref.ekf, f)).abs().max())
            for f in ("pos", "vel", "rot", "imu_rot")}
-    err["P"] = float((got.P - ref.P).abs().max())
-    err["P share of its limit"] = p_entry_err(got.P, ref.P, st.P, 1e-4)
-    diag = torch.diagonal(ref.P)
-    ekf_field_errors(kernels, got, ref)
-    hist_err = [float((x - y).abs().max()) for x, y in zip(ghist, rhist)]
+    err["P"] = float((got.ekf.P - ref.ekf.P).abs().max())
+    err["P share of its limit"] = p_entry_err(got.ekf.P, ref.ekf.P, st.ekf.P, 1e-4)
+    diag = torch.diagonal(ref.ekf.P)
+    ekf_field_errors(kernels, got.ekf, ref.ekf)
     gates = [err["pos"] <= 1e-4, err["vel"] <= 1e-4, err["rot"] <= 1e-6,
              err["imu_rot"] <= 1e-6, err["P share of its limit"] <= 1.0]
-    gates += [e <= g for e, g in zip(hist_err, (0.0, 1e-4, 1e-5, 1e-4, 1e-4))]
-    name = "imu_chain[joseph]" if joseph else "imu_chain"
-    log_line(f"  {name}: {ts.shape[0]} samples ({int(valid.sum())} valid), errors "
+    ring_err = {}
+    for ring, tols in (("ego_ring", dict(pos=1e-4, rpy=1e-5, vel_local=1e-4, gyro=1e-4)),
+                       ("imu_ring", dict(gyro=1e-4, acc=1e-4))):
+        g, r = getattr(got, ring), getattr(ref, ring)
+        gates += [torch.equal(g.t, r.t), torch.equal(g.count, r.count)]
+        for f, tol in tols.items():
+            ring_err[f"{ring}.{f}"] = float((getattr(g, f) - getattr(r, f)).abs().max())
+            gates.append(ring_err[f"{ring}.{f}"] <= tol)
+    name = "imu_stage[joseph]" if joseph else "imu_stage"
+    valid = b["imu_valid"]
+    log_line(f"  {name}: {valid.shape[0]} samples ({int(valid.sum())} valid), rings "
+             f"{int(got.ego_ring.count)} / {got.ego_ring.capacity} and "
+             f"{int(got.imu_ring.count)} / {got.imu_ring.capacity}, errors "
              + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
-             + f" (P_ii {float(diag.min()):.2e} to {float(diag.max()):.2e}), history "
-             "(t, pos, rpy, vel_local, gyro) " + ", ".join(f"{e:.2e}" for e in hist_err))
+             + f" (P_ii {float(diag.min()):.2e} to {float(diag.max()):.2e}), rings "
+             + ", ".join(f"{k} {v:.2e}" for k, v in ring_err.items()))
     if not all(gates):
         raise AssertionError(f"{name} kernel vs plain: outside its gates")
-    # per valid sample: the nominal step (~400), B = A P, C = A B^T and the
-    # P update (~7,200), the complementary filter (m = 2), the calibration
-    # (m = 3) where on, and the history entry (~100)
-    per = 7700 + (kalman_ops(2, joseph) + 200 if flags.run_cf else 0) + (
+    flags = a[10]
+    # per valid sample: the conversion (~60), the nominal step (~400), B = A
+    # P, C = A B^T and the P update (~7,200), the complementary filter (m =
+    # 2), the calibration (m = 3) where on, the ego row (~100); per pushed
+    # row its copy (13 + 7)
+    per_sample = 7760 + (kalman_ops(2, joseph) + 200 if flags.run_cf else 0) + (
         kalman_ops(3, joseph) + 300 if flags.imu_estimate_calibration else 0)
-    moved = (2 * state_bytes(kernels, st) + params_bytes(kernels, params)
-             + nbytes(ts, acc, gyro, valid, *ghist))
-    return dict(name=name, source="elimaloc_tpu_torch/csrc/imu_chain.cu",
-                replaces=EKF_KERNELS["imu_chain"][1] + (
+    moved = (2 * state_bytes(kernels, st.ekf) + params_bytes(kernels, pp.ekf)
+             + nbytes(*a[3:9]))
+    for ring, out, fields in ((st.ego_ring, got.ego_ring, ("t", "pos", "rpy", "vel_local", "gyro")),
+                              (st.imu_ring, got.imu_ring, ("t", "gyro", "acc"))):
+        moved += nbytes(ring.count, out.count)
+        for n in (int(ring.count), int(out.count)):
+            moved += nbytes(*(getattr(ring, f)[:n] for f in fields))
+    return dict(name=name, source="elimaloc_tpu_torch/csrc/imu_chain.cu + rings.cuh",
+                replaces=EKF_KERNELS["imu_stage"][1] + (
                     " with joseph_form (filter.py:252-259)" if joseph else ""),
-                launches_key="imu_chain",
+                launches_key="imu_stage",
                 max_abs_err=max(err["pos"], err["vel"], err["rot"], err["imu_rot"],
-                                *hist_err),
-                ms=time_ms(lambda: kernels.imu_chain(*a)),
-                plain_ms=time_ms(lambda: efilter.ego_history(
-                    *efilter.imu_chain_plain(*a)[1])),
-                device_fn=(lambda: kernels.imu_chain(*a), "imu_chain_kernel"),
-                bound=bound(int(valid.sum()) * per, moved))
+                                *ring_err.values()),
+                ms=time_ms(lambda: kernels.imu_stage(*a)),
+                plain_ms=time_ms(lambda: runtime.imu_subbatch_plain(st, b, pp, ps)),
+                device_fn=(lambda: kernels.imu_stage(*a), "imu_stage_kernel"),
+                stage_fn=lambda: runtime.imu_subbatch(st, b, pp, ps),
+                bound=bound(int(valid.sum()) * per_sample + 20 * valid.shape[0], moved))
 
 
-def ekf_update_row(rec, mods, joseph=False):
+def ekf_update_row(rec, mods, joseph=False, pcm_only=False):
     """Kernel I against ``update_chain_plain`` on a CAN sub-batch, a GPS
     fix and a PCM pose the main path gave it: each P entry within 1e-5
     sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``), every other
     float field within rel
     1e-5 of its largest entry, the flags and counters equal. Its time is
-    one frame's two launches (the CAN + GPS sub-batch, then the PCM update,
-    as the path made them at the recorded frame). With ``joseph`` the same
-    calls with the Joseph-form updates, held the same way."""
+    one fusion frame's two launches (the CAN + GPS sub-batch, then the PCM
+    update, as the path made them at the recorded frame). With ``joseph``
+    the same calls with the Joseph-form updates, held the same way. With
+    ``pcm_only`` (the main path, P2P: no CAN, no GPS) the one launch a frame
+    makes, the PCM pose alone: held on the run's first applied one, timed
+    on the recorded frame's."""
     kernels, efilter = mods[0], mods[7]
 
     def plain(*a, gps_source=None, **k):  # the plain chain reads it from the flags
@@ -988,17 +1031,27 @@ def ekf_update_row(rec, mods, joseph=False):
     calls = rec.every["ekf_update"]
     if joseph:
         calls = [with_joseph(c, 2) for c in calls]
-    name = "ekf_update[joseph]" if joseph else "ekf_update"
+    name = "ekf_update[joseph]" if joseph else (
+        "ekf_update" if pcm_only else "ekf_update[fusion frame]")
     late = calls[rec.at:]
-    frame_can = next(c for c in late if c[1].get("can") is not None)
-    frame_pcm = next(c for c in late if c[1].get("pcm") is not None)
-    gps = next(c for c in calls if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
     pcm = next(c for c in calls if c[1].get("pcm") is not None and bool(c[1]["pcm"][1]))
-    checks = {
-        "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
-        "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source", "gnss_uncertainty_max")}),
-        "PCM": pcm,
-    }
+    if pcm_only:
+        # held on the run's first applied PCM pose, as the fusion row holds
+        # it; timed on the recorded frame's
+        frame_calls = [next(c for c in late if c[1].get("pcm") is not None
+                            and bool(c[1]["pcm"][1]))]
+        checks = {"PCM": pcm}
+    else:
+        frame_can = next(c for c in late if c[1].get("can") is not None)
+        frame_calls = [frame_can, next(c for c in late if c[1].get("pcm") is not None)]
+        gps = next(c for c in calls
+                   if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
+        checks = {
+            "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
+            "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source",
+                                                    "gnss_uncertainty_max")}),
+            "PCM": pcm,
+        }
     worst = 0.0
     for what, (a, k) in checks.items():
         got = kernels.ekf_update(*a, **k)
@@ -1016,58 +1069,34 @@ def ekf_update_row(rec, mods, joseph=False):
                                for f in (*rel, "P")))
 
     def frame(fn):
-        return lambda: [fn(*a, **k) for a, k in (frame_can, frame_pcm)]
+        return lambda: [fn(*a, **k) for a, k in frame_calls]
 
-    st, params = frame_can[0][0], frame_can[0][1]
-    t, vx, yaw, cvalid = frame_can[1]["can"]
-    gt, gpos, gcov, gvalid = frame_can[1]["gps"]
-    meas, apply = frame_pcm[1]["pcm"]
-    ops = (int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
-           + int(gvalid.sum()) * (kalman_ops(3, joseph) + 250)
-           + int(bool(apply)) * (kalman_ops(6, joseph) + 250))
-    moved = (4 * state_bytes(kernels, st) + 2 * params_bytes(kernels, params)
-             + nbytes(t, vx, yaw, cvalid, gt, gpos, gcov, gvalid, meas.timestamp, meas.pos,
-                      meas.rot, meas.pos_cov, meas.rot_cov, apply))
+    ops, moved = 0, 0
+    for a, k in frame_calls:
+        st, params = a[0], a[1]
+        moved += 2 * state_bytes(kernels, st) + params_bytes(kernels, params)
+        if k.get("can") is not None:
+            t, vx, yaw, cvalid = k["can"]
+            ops += int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
+            moved += nbytes(t, vx, yaw, cvalid)
+        if k.get("gps") is not None:
+            gt, gpos, gcov, gvalid = k["gps"]
+            ops += int(gvalid.sum()) * (kalman_ops(3, joseph) + 250)
+            moved += nbytes(gt, gpos, gcov, gvalid)
+        if k.get("pcm") is not None:
+            meas, apply = k["pcm"]
+            ops += int(bool(apply)) * (kalman_ops(6, joseph) + 250)
+            moved += nbytes(meas.timestamp, meas.pos, meas.rot, meas.pos_cov, meas.rot_cov,
+                            apply)
     return dict(name=name, source="elimaloc_tpu_torch/csrc/ekf_update.cu",
                 replaces=EKF_KERNELS["ekf_update"][1] + (
-                    " with joseph_form (filter.py:252-259)" if joseph else ""),
+                    " with joseph_form (filter.py:252-259)" if joseph else "") + (
+                    " (the PCM pose alone: runtime.py:358-360)" if pcm_only else ""),
                 launches_key="ekf_update", max_abs_err=worst,
                 ms=time_ms(frame(kernels.ekf_update)),
                 plain_ms=time_ms(frame(plain)),
                 device_fn=(frame(kernels.ekf_update), "ekf_update_kernel"),
                 bound=bound(ops, moved))
-
-
-def ring_row(calls, mods):
-    """Kernel J against ``push_rings_plain`` on the P2P path's frame: both
-    rings exactly equal (the same copies and float32 comparisons)."""
-    kernels, rings = mods[0], mods[8]
-    a, _ = calls["ring_push"]
-    got = kernels.ring_push(*a)
-    ref = rings.push_rings_plain(*a)
-    for g, r in zip(got, ref):
-        for f in ("t", "count") + tuple(k for k in ("pos", "rpy", "vel_local", "gyro", "acc")
-                                        if hasattr(r, k)):
-            if not torch.equal(getattr(g, f), getattr(r, f)):
-                raise AssertionError(f"ring_push kernel differs from its plain version in {f}")
-    ego, imu, ego_new, imu_new, valid = a
-    # the rings' valid rows: the old ones read, the new ones written (the
-    # rows past a ring's count carry nothing), and the samples read
-    moved = nbytes(*ego_new, *imu_new, valid)
-    for ring, out, fields in ((ego, got[0], ("t", "pos", "rpy", "vel_local", "gyro")),
-                              (imu, got[1], ("t", "gyro", "acc"))):
-        moved += nbytes(ring.count, out.count)
-        for n in (int(ring.count), int(out.count)):
-            moved += nbytes(*(getattr(ring, f)[:n] for f in fields))
-    log_line(f"  ring_push: {valid.shape[0]} samples ({int(valid.sum())} valid) into rings of "
-             f"{ego.capacity} and {imu.capacity}, counts {int(got[0].count)}, "
-             f"{int(got[1].count)}")
-    return dict(name="ring_push", source="elimaloc_tpu_torch/csrc/rings.cu",
-                replaces=SCAN_KERNELS["ring_push"][1], max_abs_err=0.0,
-                ms=time_ms(lambda: kernels.ring_push(*a)),
-                plain_ms=time_ms(lambda: rings.push_rings_plain(*a)),
-                device_fn=(lambda: kernels.ring_push(*a), "ring_push_kernel"),
-                bound=bound(valid.shape[0] * 8, moved))
 
 
 def ring_query_rows(imu, ego, cur, end, w):
@@ -1366,10 +1395,10 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     rows = []
     if path == "P2P":
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
-        rows += [ring_row(rec.calls, mods), query_row(rec.calls, mods),
-                 measurement_row(rec.calls, mods)]
+        rows += [imu_stage_row(rec.calls, pipe, mods), ekf_update_row(rec, mods, pcm_only=True),
+                 query_row(rec.calls, mods), measurement_row(rec.calls, mods)]
     if path == FUSION:
-        rows += [imu_chain_row(rec.calls, mods), ekf_update_row(rec, mods)]
+        rows += [ekf_update_row(rec, mods)]
     elif hashed:
         rows += [hash_kernel_row(path, pipe, rec.calls, mods)]
         if not radar:
@@ -1396,12 +1425,13 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
         _, outs = pipe.run_fused(log, mark=stages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches, packs = dict(kernels.launches), dict(kernels.packs)
     split, frames, per_frame = stages.split()
     p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
     n = len(log.scan_t)
     log_line(f"[{path}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
-             f"host batch prep + upload included), launches {launches}")
+             f"host batch prep + upload included), launches {launches}, packs {packs}")
+    check_imu_stage(path, launches, packs, n)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
@@ -1494,6 +1524,17 @@ def check_launches(what, launches, names):
             raise AssertionError(f"[{what}] kernel {name} was not launched on the path")
 
 
+def check_imu_stage(what, launches, packs, frames):
+    """A replay with IMU: the IMU stage is one launch of kernel H a frame
+    (an IMU event in ``run``), kernel J never launched, no EKF state or
+    params packed."""
+    if not (launches["imu_stage"] == frames and launches["ring_push"] == 0
+            and not any(packs.values())):
+        raise AssertionError(f"[{what}] imu_stage launched {launches['imu_stage']} times for "
+                             f"{frames} frames or IMU events, ring_push "
+                             f"{launches['ring_push']}, packs {packs}")
+
+
 def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
     """``run_frames`` (the online mode) on the GICP pipeline (``what``: the
     tile or the hash one, whose kernels ``names`` must launch): the launch
@@ -1510,10 +1551,11 @@ def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
     _, outs = pipe.run_frames(log, on_scan=seen.append, mark=stages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches, packs = dict(kernels.launches), dict(kernels.packs)
     split, frames, per_frame = stages.split()
     p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
     n = len(log.scan_t)
+    check_imu_stage(what, launches, packs, n)
     err = float(np.abs(outs["ego_pos"] - fused["ego_pos"]).max())
     same_applied = bool(np.array_equal(outs["applied"], fused["applied"]))
     log_line(f"[{what}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans), frame ms p50 "
@@ -1569,7 +1611,7 @@ def events_path(pipe, log, fused, mods, ate_rmse):
     finally:
         for name, fn in orig.items():
             setattr(runtime, name, fn)
-    launches = dict(kernels.launches)
+    launches, packs = dict(kernels.launches), dict(kernels.packs)
     split = stages.split()[0]
     split.pop("outputs")
     per_kind = {n.replace("_step", ""): (len(v), float(np.mean([b.elapsed_time(e) for b, e in v]))
@@ -1590,6 +1632,7 @@ def events_path(pipe, log, fused, mods, ate_rmse):
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     check_launches(EVENTS, launches, SHARED + (KERNEL["AVGICP"][0],) + tuple(EKF_KERNELS)
                    + tuple(SCAN_KERNELS))
+    check_imu_stage(EVENTS, launches, packs, per_kind["imu"][0])
     if not (applied >= 0.9 and ate < 0.3 and last < 0.15 and n_can > 0 and n_gps > 0
             and np.all(np.isfinite(traj["pos"]))):
         raise AssertionError(f"[{EVENTS}] the event loop failed its acceptance bounds")
@@ -1613,11 +1656,14 @@ def reloc_phase(pipe, log, kernels, what="reloc",
                                    log.scan_valid[0], log.scan_t[0])
     launches = dict(kernels.launches)
     err = float(np.linalg.norm(state.ekf.pos.cpu().numpy()[:2] - log.truth_pos[0][:2]))
+    packs = dict(kernels.packs)
     log_line(f"[{what}] initialize_at from ({x:.2f}, {y:.2f}, yaw {np.rad2deg(yaw):.2f} deg): "
              f"ok {ok}, pcm_init_on_going {bool(state.ekf.pcm_init_on_going)}, position "
-             f"error {err:.3f} m, launches {launches}")
+             f"error {err:.3f} m, launches {launches}, packs {packs}")
     check_launches(what, launches, names)
-    if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5):
+    # the PCM_INIT reset's state is packed once, for the EKF kernels after it
+    if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5
+            and packs == {"ekf_state": 1, "ekf_params": 0}):
         raise AssertionError(f"[{what}] relocalization failed")
     return {"ok": ok, "position_error_m": err}
 
@@ -1632,7 +1678,8 @@ def joseph_path(pipe, log, fused, rec, mods):
     two forms together), its largest P asymmetry no larger than the
     reference form's and every P diagonal positive."""
     kernels = mods[0]
-    rows = [imu_chain_row(rec.calls, mods, joseph=True), ekf_update_row(rec, mods, joseph=True)]
+    rows = [imu_stage_row(rec.calls, pipe, mods, joseph=True),
+            ekf_update_row(rec, mods, joseph=True)]
     for r in rows:
         log_line(f"[{JOSEPH}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
@@ -1649,7 +1696,8 @@ def joseph_path(pipe, log, fused, rec, mods):
         wall = time.perf_counter() - t0
     finally:
         pipe.static = plain_static
-    launches = dict(kernels.launches)
+    launches, packs = dict(kernels.launches), dict(kernels.packs)
+    check_imu_stage(JOSEPH, launches, packs, len(log.scan_t))
     err = np.linalg.norm(outs["ego_pos"] - fused["ego_pos"], axis=1)
     applied = float(outs["applied"].mean())
     asym, asym_plain = float(outs["p_asym"].max()), float(fused["p_asym"].max())
@@ -1724,8 +1772,8 @@ def tick_push_row(call, mods):
     moved = nbytes(*row, valid, ego.count, got[0].count,
                    *(getattr(ego, f)[:n0] for f in fields),
                    *(getattr(got[0], f)[:n1] for f in fields))
-    return dict(name="ring_push[tick]", source="elimaloc_tpu_torch/csrc/rings.cu",
-                replaces=SCAN_KERNELS["ring_push"][1] + " as elimaloc_tpu/pipeline/"
+    return dict(name="ring_push[tick]", source=RING_PUSH[0],
+                replaces=RING_PUSH[1] + " as elimaloc_tpu/pipeline/"
                 "runtime.py:174 _push_ego (tick) and :237 imu_ring_step push one ring",
                 max_abs_err=0.0, ms=time_ms(lambda: kernels.ring_push(*call)),
                 plain_ms=time_ms(lambda: rings.push_rings_plain(*call)),
@@ -1817,9 +1865,9 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
              + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in per_kind.items())
              + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
              f"ATE {ate:.4f} m, launches {launches}")
-    check_launches(TICK, launches, SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update")
-                   + tuple(SCAN_KERNELS))
-    if not (launches["ca_tick"] == n_ticks and launches["imu_chain"] == 0
+    check_launches(TICK, launches, SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update",
+                                             "ring_push") + tuple(SCAN_KERNELS))
+    if not (launches["ca_tick"] == n_ticks and launches["imu_stage"] == 0
             and launches["ring_push"] == n_ticks + n_imu):
         raise AssertionError(f"[{TICK}] launch counts: {launches}")
     if not (ate < TICK_ATE_GATE and np.all(np.isfinite(traj["pos"]))
@@ -2061,6 +2109,7 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
             _, outs = drive(p, stages)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            check_imu_stage(f"{WINDOWED} {name}", kernels.launches, kernels.packs, n)
             if launches is None:
                 launches = dict(kernels.launches)
             split, frames, per_frame = stages.split()
@@ -2366,6 +2415,14 @@ def main():
     slices["hash vs tile"] = hash_vs_tile(fused, slices)
     # the profiler passes, after every timed replay
     for r in rows:
+        if "stage_fn" in r:
+            # one call of the IMU stage's entry: kernel H alone on the device
+            per, _ = device_profile(r.pop("stage_fn"))
+            log_line(f"kernel {r['name']}: one call of runtime.imu_subbatch under "
+                     f"torch.profiler, device kernels {per}")
+            if len(per) != 1 or "imu_stage_kernel" not in next(iter(per)):
+                raise AssertionError(f"{r['name']}: the IMU stage launched {sorted(per)} on "
+                                     "the device, not kernel H alone")
         if "device_fn" in r:
             dev = kernel_device_ms(*r.pop("device_fn"))
             log_line(f"kernel {r['name']}: on the device alone "

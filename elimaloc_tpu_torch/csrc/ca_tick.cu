@@ -13,7 +13,7 @@
 // Bound: latency. A tick reads and writes the 3 KB filter and does ~4k FLOP
 // (two passes of at most 3 terms per entry); no bandwidth or FLOP limit is
 // near. Design: one CTA with the state in shared memory (ekf.cuh's State,
-// load_state / store_state, as kernel H). Thread 0 runs the gates and the
+// in and out as one packed record, load_state / store_state, as kernel H). Thread 0 runs the gates and the
 // nominal step; the CTA forms G = F P, then P = G F^T + Q, each entry a sum
 // over the at most 3 nonzeros of F's row in column order (F's sparsity, the
 // dense product's order with its zero terms left out). Thread 0 then writes
@@ -60,12 +60,15 @@ __device__ __forceinline__ int f_row(int r, float dt, float hdt2, int* col, floa
 }
 
 __global__ void __launch_bounds__(kThreads) ca_tick_kernel(
-    Fields in, Fields out, Params prm, const float* __restrict__ t_in,
+    const int* __restrict__ rec_in, int* __restrict__ rec_out,
+    const float* __restrict__ prm_rec, const float* __restrict__ t_in,
     float* __restrict__ h_t, float* __restrict__ h_pos, float* __restrict__ h_rpy,
     float* __restrict__ h_vloc, float* __restrict__ h_gyro) {
   __shared__ State s;
+  __shared__ Params prm;
   __shared__ Tick w;
-  load_state(in, s);
+  load_state(rec_in, s);
+  load_params(prm_rec, prm);
   __syncthreads();
   const float t = *t_in;
   if (threadIdx.x == 0) {
@@ -86,7 +89,7 @@ __global__ void __launch_bounds__(kThreads) ca_tick_kernel(
       const int std_of_block[9] = {STD_POS, STD_ROT, STD_VEL, STD_GYRO_DPS, STD_ACC,
                                    -1, -1, -1, -1};
       for (int b = 0; b < 9; ++b) {
-        const float v = std_of_block[b] < 0 ? 0.0f : mul(sq(*prm.f[std_of_block[b]]), dt2);
+        const float v = std_of_block[b] < 0 ? 0.0f : mul(sq(prm.v[std_of_block[b]]), dt2);
         w.qd[3 * b] = w.qd[3 * b + 1] = w.qd[3 * b + 2] = v;
       }
     }
@@ -129,22 +132,15 @@ __global__ void __launch_bounds__(kThreads) ca_tick_kernel(
     }
   }
   __syncthreads();
-  store_state(s, out);
+  store_state(s, rec_out);
 }
 
 }  // namespace
 
-extern "C" int elm_ca_tick(void* const* in, void* const* out, const float* const* params,
+extern "C" int elm_ca_tick(const void* rec_in, void* rec_out, const float* params,
                            const float* t, float* h_t, float* h_pos, float* h_rpy,
                            float* h_vloc, float* h_gyro, cudaStream_t stream) {
-  Fields fi, fo;
-  Params prm;
-  for (int i = 0; i < kFields; ++i) {
-    fi.f[i] = in[i];
-    fo.f[i] = out[i];
-  }
-  for (int i = 0; i < kParams; ++i) prm.f[i] = params[i];
-  ca_tick_kernel<<<1, kThreads, 0, stream>>>(fi, fo, prm, t, h_t, h_pos, h_rpy, h_vloc,
-                                             h_gyro);
+  ca_tick_kernel<<<1, kThreads, 0, stream>>>((const int*)rec_in, (int*)rec_out, params, t,
+                                             h_t, h_pos, h_rpy, h_vloc, h_gyro);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,12 @@
 // index list for m = 2, 3, 4, 6 (ekf/filter.py:_ekf_measurement_update), in
 // the reference's P -= K H P form or the Joseph form. Kernel O
 // (ca_tick.cu) shares the state, its load and store and the helpers.
+//
+// The state and the parameters come and go as packed records (ekf/state.py
+// RECORD_FIELDS, PARAM_FIELDS): ``State`` below IS the state record's
+// layout, so load_state / store_state are one coalesced copy of 768 words
+// by the whole CTA, and ``Params`` the params record's; after them no
+// serial step of a kernel reads global memory for the filter.
 // Kernels K (scan_ring.cu), L (pcm_meas.cu) and M (gn_step.cu) use its
 // rotation helpers too, with so3_log, the 4x4 rigid transforms of lie.py
 // (compose, transform_inverse, interpolate_tf_with_time) and the LU with
@@ -28,6 +34,7 @@
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 
 #include "common.cuh"
 
@@ -38,31 +45,22 @@ constexpr int kN = 27;          // STATE_ORDER
 constexpr double kPi = 3.14159265358979323846;
 constexpr double kD2R = kPi / 180.0;  // math.pi / 180.0 in the plain version
 
-// EkfState's fields in declaration order (ekf/state.py); the wrappers pass
-// one device pointer per field, in and out (kernels/__init__.py:EKF_FIELDS).
-enum Field {
-  POS, ROT, VEL, GYRO, ACC, BG, BA, GRAV, IMU_ROT, COV,
-  RESET, STATE_INIT, YAW_INIT, ROT_STAB, STATE_STAB, PCM_INIT_GOING, CALIB_STARTED,
-  CAN_BIAS, PCM_COUNT, PREV_T, PREV_GNSS_T, PREV_CAN_T, CF_INIT, CF_PREV_VX, CF_PREV_T,
-  kFields
-};
-
-// EkfParams' fields in declaration order (ekf/state.py), device scalars
-// except INIT_POS / INIT_RPY [3] and GNSS_MIN_COV [6].
+// EkfParams' fields: each one's offset in the params record, in floats
+// (ekf/state.py PARAM_FIELDS; INIT_POS, INIT_RPY [3], GNSS_MIN_COV [6]).
 enum Param {
-  INIT_POS, INIT_RPY, IMU_GRAVITY, STD_POS, STD_ROT, STD_VEL, STD_GYRO_DPS, STD_ACC,
-  IMU_STD_GYRO, IMU_STD_ACC, BIAS_COV_GYRO, BIAS_COV_ACC, GNSS_MIN_COV, CAN_VEL_SCALE,
-  CAN_UNC_VEL, CAN_UNC_YAW, kParams
+  INIT_POS = 0, INIT_RPY = 3, IMU_GRAVITY = 6, STD_POS = 7, STD_ROT = 8, STD_VEL = 9,
+  STD_GYRO_DPS = 10, STD_ACC = 11, IMU_STD_GYRO = 12, IMU_STD_ACC = 13, BIAS_COV_GYRO = 14,
+  BIAS_COV_ACC = 15, GNSS_MIN_COV = 16, CAN_VEL_SCALE = 22, CAN_UNC_VEL = 23, CAN_UNC_YAW = 24,
+  kParamWords = 32
 };
 
-struct Fields {
-  void* f[kFields];
-};
 struct Params {
-  const float* f[kParams];
+  float v[kParamWords];
 };
 
-// The filter in shared memory.
+// The filter in shared memory, in the state record's layout (ekf/state.py
+// RECORD_FIELDS for float32): P, the nominal vectors, the float scalars,
+// the counter, the eight flags, padding to 16 bytes.
 struct State {
   float P[kN * kN];
   float pos[3], rot[4], vel[3], gyro[3], acc[3], bg[3], ba[3], grav[3], imu_rot[4];
@@ -70,7 +68,26 @@ struct State {
   int pcm_count;
   bool reset, state_init, yaw_init, rot_stab, state_stab, pcm_init_going, calib_started,
       cf_init;
+  char pad[4];
 };
+
+// Byte offsets of the record's fields in RECORD_FIELDS order, and its size;
+// the wrappers' layout (ekf/state.py record_layout(float32)) is held to them
+// by tests/test_torch_kernels.py.
+constexpr int kRecordOffsets[] = {0,    2916, 2928, 2944, 2956, 2968, 2980, 2992, 3004,
+                                  3016, 3032, 3036, 3040, 3044, 3048, 3052, 3056, 3060,
+                                  3061, 3062, 3063, 3064, 3065, 3066, 3067};
+constexpr int kRecordBytes = 3072;
+constexpr int kRecordWords = kRecordBytes / 4;
+static_assert(sizeof(State) == kRecordBytes, "State is the record");
+static_assert(offsetof(State, pos) == kRecordOffsets[1] &&
+                  offsetof(State, imu_rot) == kRecordOffsets[9] &&
+                  offsetof(State, can_bias) == kRecordOffsets[10] &&
+                  offsetof(State, cf_prev_t) == kRecordOffsets[15] &&
+                  offsetof(State, pcm_count) == kRecordOffsets[16] &&
+                  offsetof(State, reset) == kRecordOffsets[17] &&
+                  offsetof(State, cf_init) == kRecordOffsets[24],
+              "State's members at the record's offsets");
 
 // Scratch of one Kalman update (m <= 6); Pi holds H P, then in the Joseph
 // form the observed columns of (I - K H) P, and KR holds K R.
@@ -508,68 +525,21 @@ __device__ __forceinline__ void refresh_flags(State& s) {
   s.state_stab = sr < l02 && sp < l02 && syaw < l02 && sx < 0.5f && sy < 0.5f;
 }
 
-__device__ __forceinline__ void load_state(const Fields& in, State& s) {
-  const float* P = (const float*)in.f[COV];
-  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) s.P[e] = P[e];
-  if (threadIdx.x != 0) return;
-  const float* const* f = (const float* const*)in.f;
-  copy(f[POS], s.pos, 3);
-  copy(f[ROT], s.rot, 4);
-  copy(f[VEL], s.vel, 3);
-  copy(f[GYRO], s.gyro, 3);
-  copy(f[ACC], s.acc, 3);
-  copy(f[BG], s.bg, 3);
-  copy(f[BA], s.ba, 3);
-  copy(f[GRAV], s.grav, 3);
-  copy(f[IMU_ROT], s.imu_rot, 4);
-  s.can_bias = *f[CAN_BIAS];
-  s.prev_t = *f[PREV_T];
-  s.prev_gnss_t = *f[PREV_GNSS_T];
-  s.prev_can_t = *f[PREV_CAN_T];
-  s.cf_prev_vx = *f[CF_PREV_VX];
-  s.cf_prev_t = *f[CF_PREV_T];
-  s.pcm_count = *(const int*)in.f[PCM_COUNT];
-  const bool* const* b = (const bool* const*)in.f;
-  s.reset = *b[RESET];
-  s.state_init = *b[STATE_INIT];
-  s.yaw_init = *b[YAW_INIT];
-  s.rot_stab = *b[ROT_STAB];
-  s.state_stab = *b[STATE_STAB];
-  s.pcm_init_going = *b[PCM_INIT_GOING];
-  s.calib_started = *b[CALIB_STARTED];
-  s.cf_init = *b[CF_INIT];
+// The whole CTA: the state record into shared memory, word by word
+// (coalesced); the caller's barrier publishes it.
+__device__ __forceinline__ void load_state(const int* __restrict__ rec, State& s) {
+  int* w = reinterpret_cast<int*>(&s);
+  for (int i = threadIdx.x; i < kRecordWords; i += blockDim.x) w[i] = rec[i];
 }
 
-__device__ __forceinline__ void store_state(const State& s, const Fields& out) {
-  float* P = (float*)out.f[COV];
-  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) P[e] = s.P[e];
-  if (threadIdx.x != 0) return;
-  float* const* f = (float* const*)out.f;
-  copy(s.pos, f[POS], 3);
-  copy(s.rot, f[ROT], 4);
-  copy(s.vel, f[VEL], 3);
-  copy(s.gyro, f[GYRO], 3);
-  copy(s.acc, f[ACC], 3);
-  copy(s.bg, f[BG], 3);
-  copy(s.ba, f[BA], 3);
-  copy(s.grav, f[GRAV], 3);
-  copy(s.imu_rot, f[IMU_ROT], 4);
-  *f[CAN_BIAS] = s.can_bias;
-  *f[PREV_T] = s.prev_t;
-  *f[PREV_GNSS_T] = s.prev_gnss_t;
-  *f[PREV_CAN_T] = s.prev_can_t;
-  *f[CF_PREV_VX] = s.cf_prev_vx;
-  *f[CF_PREV_T] = s.cf_prev_t;
-  *(int*)out.f[PCM_COUNT] = s.pcm_count;
-  bool* const* b = (bool* const*)out.f;
-  *b[RESET] = s.reset;
-  *b[STATE_INIT] = s.state_init;
-  *b[YAW_INIT] = s.yaw_init;
-  *b[ROT_STAB] = s.rot_stab;
-  *b[STATE_STAB] = s.state_stab;
-  *b[PCM_INIT_GOING] = s.pcm_init_going;
-  *b[CALIB_STARTED] = s.calib_started;
-  *b[CF_INIT] = s.cf_init;
+// The whole CTA, after a barrier: the state out to a fresh record.
+__device__ __forceinline__ void store_state(const State& s, int* __restrict__ rec) {
+  const int* w = reinterpret_cast<const int*>(&s);
+  for (int i = threadIdx.x; i < kRecordWords; i += blockDim.x) rec[i] = w[i];
+}
+
+__device__ __forceinline__ void load_params(const float* __restrict__ rec, Params& p) {
+  for (int i = threadIdx.x; i < kParamWords; i += blockDim.x) p.v[i] = rec[i];
 }
 
 // Thread 0: S = H P H^T + R, then its inverse (m = 2 adjugate, m = 3

@@ -14,7 +14,8 @@
 // Bound: latency. Each update is an m x m solve (m = 3, 4 or 6) and a
 // rank-m correction of the 27x27 P (~4k FLOP); a frame holds ~5 CAN
 // samples, at most one GPS fix and one PCM pose. Design: one CTA with P in
-// shared memory (ekf.cuh) walks the CAN samples, then the GPS fixes, then
+// shared memory (ekf.cuh; the state and the parameters in by one packed
+// record each, the state out by one) walks the CAN samples, then the GPS fixes, then
 // the PCM pose, in one launch or in one launch per call site: the fused
 // frame calls it once for CAN + GPS before the scan and once for PCM at the
 // scan's end. Thread 0 sets each measurement up and solves S (LU with
@@ -43,9 +44,9 @@ __device__ bool can_setup(const State& s, const Params& prm, float t, float vx, 
   if (!(fabsf(sub(t, s.prev_can_t)) >= 0.01f)) return false;
   float rm[9], cvg[3], rl[9], tmp[9], R3[9];
   quat_to_rot(s.rot, rm);
-  const float uv[3] = {mul(vx, *prm.f[CAN_VEL_SCALE]), 0.0f, 0.0f};
+  const float uv[3] = {mul(vx, prm.v[CAN_VEL_SCALE]), 0.0f, 0.0f};
   matvec(rm, uv, cvg);
-  const float unc = *prm.f[CAN_UNC_VEL], unc2 = sq(mul(2.0f, unc));
+  const float unc = prm.v[CAN_UNC_VEL], unc2 = sq(mul(2.0f, unc));
   for (int e = 0; e < 9; ++e) rl[e] = 0.0f;
   rl[0] = sq(unc);
   rl[4] = unc2;
@@ -60,7 +61,7 @@ __device__ bool can_setup(const State& s, const Params& prm, float t, float vx, 
   for (int e = 0; e < 16; ++e) u.R[e] = 0.0f;
   for (int a = 0; a < 3; ++a)
     for (int b = 0; b < 3; ++b) u.R[4 * a + b] = R3[3 * a + b];
-  u.R[15] = sq(*prm.f[CAN_UNC_YAW]);
+  u.R[15] = sq(prm.v[CAN_UNC_YAW]);
   return true;
 }
 
@@ -88,7 +89,7 @@ __device__ void gnss_setup(State& s, const Params& prm, const Gnss& g, Update& u
       R6[6 * (a + 3) + b + 3] = g.rot_cov[3 * a + b];
     }
   if (g.src != PCM)
-    for (int i = 0; i < 6; ++i) R6[7 * i] = add(R6[7 * i], prm.f[GNSS_MIN_COV][i]);
+    for (int i = 0; i < 6; ++i) R6[7 * i] = add(R6[7 * i], prm.v[GNSS_MIN_COV + i]);
   float mq[4], res[3];
   quat_normalize(g.rot, mq);
   euler_residual_from_quats(s.rot, mq, res);
@@ -116,7 +117,8 @@ struct Ctrl {
 };
 
 __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
-    Fields in, Fields out, Params prm, int n_can, const float* __restrict__ can_t,
+    const int* __restrict__ rec_in, int* __restrict__ rec_out,
+    const float* __restrict__ prm_rec, int n_can, const float* __restrict__ can_t,
     const float* __restrict__ can_vel, const float* __restrict__ can_yaw,
     const bool* __restrict__ can_valid, int n_gps, int gps_src,
     const float* __restrict__ gnss_max, const float* __restrict__ gps_t,
@@ -126,9 +128,11 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
     const float* __restrict__ pcm_pos_cov, const float* __restrict__ pcm_rot_cov,
     const bool* __restrict__ pcm_apply, bool joseph) {
   __shared__ State s;
+  __shared__ Params prm;
   __shared__ Update u;
   __shared__ Ctrl c;
-  load_state(in, s);
+  load_state(rec_in, s);
+  load_params(prm_rec, prm);
   __syncthreads();
   const int n = n_can + n_gps + (has_pcm ? 1 : 0);
   for (int k = 0; k < n; ++k) {
@@ -181,12 +185,12 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
     }
     __syncthreads();
   }
-  store_state(s, out);
+  store_state(s, rec_out);
 }
 
 }  // namespace
 
-extern "C" int elm_ekf_update(void* const* in, void* const* out, const float* const* params,
+extern "C" int elm_ekf_update(const void* rec_in, void* rec_out, const float* params,
                               int n_can, const float* can_t, const float* can_vel,
                               const float* can_yaw, const bool* can_valid, int n_gps,
                               int gps_src, const float* gnss_max, const float* gps_t,
@@ -195,16 +199,9 @@ extern "C" int elm_ekf_update(void* const* in, void* const* out, const float* co
                               const float* pcm_pos, const float* pcm_rot,
                               const float* pcm_pos_cov, const float* pcm_rot_cov,
                               const bool* pcm_apply, int joseph, cudaStream_t stream) {
-  Fields fi, fo;
-  Params prm;
-  for (int i = 0; i < kFields; ++i) {
-    fi.f[i] = in[i];
-    fo.f[i] = out[i];
-  }
-  for (int i = 0; i < kParams; ++i) prm.f[i] = params[i];
   ekf_update_kernel<<<1, kThreads, 0, stream>>>(
-      fi, fo, prm, n_can, can_t, can_vel, can_yaw, can_valid, n_gps, gps_src, gnss_max, gps_t,
-      gps_pos, gps_cov, gps_valid, has_pcm, pcm_t, pcm_pos, pcm_rot, pcm_pos_cov, pcm_rot_cov,
-      pcm_apply, joseph != 0);
+      (const int*)rec_in, (int*)rec_out, params, n_can, can_t, can_vel, can_yaw, can_valid,
+      n_gps, gps_src, gnss_max, gps_t, gps_pos, gps_cov, gps_valid, has_pcm, pcm_t, pcm_pos,
+      pcm_rot, pcm_pos_cov, pcm_rot_cov, pcm_apply, joseph != 0);
   return (int)cudaGetLastError();
 }

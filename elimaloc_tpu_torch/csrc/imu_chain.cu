@@ -1,28 +1,40 @@
-// Kernel H: the frame's IMU chain (K7).
+// Kernel H: the frame's IMU stage (K7 and the K8 ring pushes), one launch.
 //
-// Replaces elimaloc_tpu/ekf/filter.py:predict_imu (:520) with
-// _propagate_imu (:344), _fpf_sparse (:306), _zupt_imu (:390),
-// _complementary_filter (:424) and _calibrate_vehicle_to_imu (:493), as
-// driven by elimaloc_tpu/pipeline/runtime.py:imu_subbatch (:405): a
-// lax.scan over the frame's ~10 IMU samples. The TPU form fuses each sample
-// into VPU code; the plain PyTorch version is several hundred eager launches
-// per sample, and their latency was 75-82% of a frame on the H100.
+// Replaces elimaloc_tpu/pipeline/runtime.py:imu_subbatch (:405-441), which
+// the JAX package runs as one XLA program: the sensor-frame conversion
+// (ops/frames.py:imu_to_ego with its lever-arm term, and PCM's rotation-only
+// intake, runtime.py:420-423), the lax.scan of elimaloc_tpu/ekf/filter.py:
+// predict_imu (:520) over the frame's IMU samples with _propagate_imu (:344),
+// _fpf_sparse (:306), _zupt_imu (:390), _complementary_filter (:424) and
+// _calibrate_vehicle_to_imu (:493), the ego-ring rows (:435-436) and the
+// batch pushes into the ego and IMU rings (pipeline/rings.py:183, :192). The
+// event loop's imu_step is the same stage on one sample.
 //
 // Bound: latency. The work is ~10 samples x (~25k FLOP for F P F^T + the
-// two small Kalman updates) on 3 KB of state; a serial chain, no bandwidth
-// or FLOP limit is near. Design: one CTA for the whole frame. The 27x27 P
-// and the nominal state live in shared memory for every sample (ekf.cuh);
-// the nominal propagation, the gates and the measurement set-up run on
-// thread 0, the covariance work across the block: B = A P (15x27),
-// C = A B^T (15x15), then P += B + B^T + C + Q, the sparse form the plain
-// f32 version takes. ZUPT, the complementary filter (m = 2 on roll, pitch)
-// and the mounting calibration (m = 3) follow in the reference's gate
-// order, each in the reference's P -= K H P form or, with the Joseph flag
-// bit, the Joseph form (ekf.cuh: measurement_update). Each sample's (t,
-// pos, rpy, vel_local, gyro), the ego ring's fields, is written for the
-// batch push, so the batched Euler and local-velocity conversions of the
-// plain path need no launch either.
+// two small Kalman updates) on a 3 KB state and rings of a few hundred rows;
+// a serial chain, no bandwidth or FLOP limit is near. Design: one launch of
+// two CTAs that share nothing.
+//   CTA 1 rotates the samples into the ego frame (no lever arm) and pushes
+//   the IMU ring (rings.cuh), which depends on the raw samples alone: it
+//   runs beside the chain.
+//   CTA 0 stages the state record, the params record and every sample (each
+//   converted by one thread, acc + w x (w x (-r)) after the rotation) into
+//   shared memory, so no serial step reads global memory. Per sample thread
+//   0 runs the gates and the nominal step (F's blocks, Q); then warp 0 runs
+//   ZUPT and the complementary filter's set-up, which read only the nominal
+//   state, while warps 1.. form B = A P (15x27), C = A B^T (15x15) and
+//   P += B + B^T + C + Q (the sparse form of the plain f32 version) under
+//   their own named barrier; then the CTA runs the complementary filter's
+//   m = 2 and the mounting calibration's m = 3 update (each in the
+//   reference's P -= K H P form or, with the Joseph bit, the Joseph form:
+//   ekf.cuh measurement_update), and thread 0 records the sample's
+//   (t, pos, rot, vel, gyro). After the chain every thread converts its
+//   samples' rows (Euler angles, local velocity), the CTA writes the state
+//   record and pushes the ego ring from those rows in shared memory.
+// Every arithmetic step is the plain version's, in its order, with the
+// rounding helpers of common.cuh and ekf.cuh (no FMA contraction).
 #include "ekf.cuh"
+#include "rings.cuh"
 
 using namespace elm;
 using namespace elm::ekf;
@@ -36,7 +48,7 @@ struct Step {
   // reads them after (one flag per update: no flag is rewritten while
   // another thread may still read it)
   bool valid, gate_early, initialized, do_predict, cf_run, cal_run;
-  float t, dt, acc[3], gyro[3];
+  float t, dt, acc[3], gyro[3], vx_now;
   float G[9], J[9], qd[kN];     // F's blocks and Q's diagonal
   float B[15 * kN], C[15 * 15];
 };
@@ -97,23 +109,28 @@ __device__ void propagate_nominal(State& s, Step& w, const Params& prm) {
                         BIAS_COV_GYRO, BIAS_COV_ACC, BIAS_COV_ACC, STD_ROT};
   const float dt2 = mul(dt, dt);
   for (int b = 0; b < 9; ++b) {
-    const float v = mul(sq(*prm.f[order[b]]), dt2);
+    const float v = mul(sq(prm.v[order[b]]), dt2);
     w.qd[3 * b] = w.qd[3 * b + 1] = w.qd[3 * b + 2] = v;
   }
   right_jacobian_d_rot_d_gyro(cg, dt, w.J);
 }
 
-// Every thread: P <- F P F^T + Q in the sparse block form.
+// Warps 1..: P <- F P F^T + Q in the sparse block form, while warp 0 runs
+// the nominal-state work that reads no P; their own barrier (bar 1) between
+// the passes, the caller's __syncthreads after the last.
+__device__ __forceinline__ void cov_sync(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
 __device__ void propagate_cov(State& s, Step& w, bool gravity) {
+  const int tid = threadIdx.x - 32, nt = blockDim.x - 32;
   auto p = [&](int r, int c) { return s.P[r * kN + c]; };
-  for (int e = threadIdx.x; e < 15 * kN; e += blockDim.x)
-    w.B[e] = a_row(w, gravity, e / kN, e % kN, p);
-  __syncthreads();
+  for (int e = tid; e < 15 * kN; e += nt) w.B[e] = a_row(w, gravity, e / kN, e % kN, p);
+  cov_sync(nt);
   auto bt = [&](int r, int c) { return w.B[c * kN + r]; };
-  for (int e = threadIdx.x; e < 15 * 15; e += blockDim.x)
-    w.C[e] = a_row(w, gravity, e / 15, e % 15, bt);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kN * kN; e += blockDim.x) {
+  for (int e = tid; e < 15 * 15; e += nt) w.C[e] = a_row(w, gravity, e / 15, e % 15, bt);
+  cov_sync(nt);
+  for (int e = tid; e < kN * kN; e += nt) {
     const int i = e / kN, j = e % kN;
     float v = s.P[e];
     if (i < 15) v = add(v, w.B[i * kN + j]);
@@ -121,7 +138,6 @@ __device__ void propagate_cov(State& s, Step& w, bool gravity) {
     if (i < 15 && j < 15) v = add(v, w.C[i * 15 + j]);
     s.P[e] = add(v, i == j ? w.qd[i] : 0.0f);
   }
-  __syncthreads();
 }
 
 // Thread 0: zero-velocity potential update (filter._zupt_imu).
@@ -210,26 +226,113 @@ __device__ bool calib_setup(const State& s, Update& u) {
   return run;
 }
 
-__global__ void __launch_bounds__(kThreads) imu_chain_kernel(
-    Fields in, Fields out, Params prm, const float* __restrict__ ts,
-    const float* __restrict__ acc, const float* __restrict__ gyro,
-    const bool* __restrict__ valid, int n, int flags, float* __restrict__ h_t,
-    float* __restrict__ h_pos, float* __restrict__ h_rpy, float* __restrict__ h_vloc,
-    float* __restrict__ h_gyro) {
+// Per-sample arrays in dynamic shared memory: the times, the converted acc
+// and gyro [n, 3] and, on CTA 0, the ego rows (t, pos, rpy, vel_local,
+// gyro: 13 floats a sample) and the chain's snapshots of rot and vel; then
+// the push's ranks and the validity flags.
+struct Samples {
+  float *t, *a, *g, *ht, *hpos, *hrpy, *hvloc, *hgyro, *rot, *vel;
+  int* ranks;
+  bool* valid;
+};
+
+__host__ __device__ __forceinline__ size_t samples_bytes(int n, int cap) {
+  return (size_t)27 * n * sizeof(float) + (size_t)(n < cap ? n : cap) * sizeof(int) + n;
+}
+
+__device__ __forceinline__ Samples carve(char* base, int n, int cap) {
+  float* f = reinterpret_cast<float*>(base);
+  Samples m;
+  m.t = f;
+  m.a = f + n;
+  m.g = f + 4 * n;
+  m.ht = f + 7 * n;
+  m.hpos = f + 8 * n;
+  m.hrpy = f + 11 * n;
+  m.hvloc = f + 14 * n;
+  m.hgyro = f + 17 * n;
+  m.rot = f + 20 * n;
+  m.vel = f + 24 * n;
+  m.ranks = reinterpret_cast<int*>(f + 27 * n);
+  m.valid = reinterpret_cast<bool*>(m.ranks + (n < cap ? n : cap));
+  return m;
+}
+
+__device__ __forceinline__ void cross(const float* a, const float* b, float* o) {
+  o[0] = sub(mul(a[1], b[2]), mul(a[2], b[1]));
+  o[1] = sub(mul(a[2], b[0]), mul(a[0], b[2]));
+  o[2] = sub(mul(a[0], b[1]), mul(a[1], b[0]));
+}
+
+struct Args {
+  const int* rec_in;
+  int* rec_out;
+  const float* prm;
+  const float *ts, *acc, *gyro;
+  const bool* valid;  // null: every sample valid
+  int n, flags;
+  const float *rot, *trans;  // ego_to_imu [3, 3], [3]
+  ring::Ring ego, imu;
+};
+
+__global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) char smem[];
   __shared__ State s;
+  __shared__ Params prm;
   __shared__ Step w;
   __shared__ Update u;
-  const bool gravity = flags & kGravity;
-  const bool joseph = flags & kJoseph;
-  load_state(in, s);
+  __shared__ float R[9], neg_r[3];
+  const int n = a.n;
+  const bool ekf = blockIdx.x == 0;
+  const Samples m = carve(smem, n, ekf ? a.ego.cap : a.imu.cap);
+  if (threadIdx.x < 9) R[threadIdx.x] = a.rot[threadIdx.x];
+  if (threadIdx.x < 3) neg_r[threadIdx.x] = -a.trans[threadIdx.x];
+  if (ekf) {
+    load_state(a.rec_in, s);
+    load_params(a.prm, prm);
+  }
   __syncthreads();
+  // the samples in the ego frame (ops/frames.py imu_to_ego on CTA 0, the
+  // rotation alone on CTA 1: runtime.py:420-423)
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    m.t[j] = a.ts[j];
+    m.valid[j] = a.valid == nullptr || a.valid[j];
+    float ai[3], gi[3], ar[3], gr[3];
+    for (int c = 0; c < 3; ++c) {
+      ai[c] = a.acc[3 * j + c];
+      gi[c] = a.gyro[3 * j + c];
+    }
+    matvec(R, gi, gr);
+    matvec(R, ai, ar);
+    if (ekf) {
+      float c1[3], c2[3];
+      cross(gr, neg_r, c1);
+      cross(gr, c1, c2);
+      for (int c = 0; c < 3; ++c) ar[c] = add(ar[c], c2[c]);
+    }
+    for (int c = 0; c < 3; ++c) {
+      m.a[3 * j + c] = ar[c];
+      m.g[3 * j + c] = gr[c];
+    }
+  }
+  __syncthreads();
+  if (!ekf) {
+    ring::Ring g = a.imu;
+    g.new_t = m.t;
+    g.new_f[0] = m.g;
+    g.new_f[1] = m.a;
+    ring::push(g, n, m.valid, m.ranks);
+    return;
+  }
+  const bool gravity = a.flags & kGravity, joseph = a.flags & kJoseph;
+  const bool run_cf = a.flags & kRunCf, use_zupt = a.flags & kUseZupt;
   for (int k = 0; k < n; ++k) {
     if (threadIdx.x == 0) {
-      w.valid = valid[k];
-      w.t = ts[k];
+      w.valid = m.valid[k];
+      w.t = m.t[k];
       for (int i = 0; i < 3; ++i) {
-        w.acc[i] = acc[3 * k + i];
-        w.gyro[i] = gyro[3 * k + i];
+        w.acc[i] = m.a[3 * k + i];
+        w.gyro[i] = m.g[3 * k + i];
       }
       // predict_imu's gates, in the reference's order
       w.gate_early = s.reset || s.pcm_init_going;
@@ -240,25 +343,26 @@ __global__ void __launch_bounds__(kThreads) imu_chain_kernel(
       if (w.do_predict) propagate_nominal(s, w, prm);
     }
     __syncthreads();
-    if (w.do_predict) {
-      propagate_cov(s, w, gravity);
-      if ((flags & kUseZupt) && threadIdx.x == 0) zupt(s, w, gravity);
-    }
-    if (w.valid && (flags & kRunCf)) {
-      float vx_now = 0.0f;
-      if (threadIdx.x == 0)
-        w.cf_run = (w.do_predict || (!w.gate_early && !w.initialized && s.yaw_init)) &&
-                   cf_setup(s, w, u, vx_now);
+    const bool cf_here = w.valid && run_cf;
+    if (w.do_predict || cf_here) {
+      if (threadIdx.x == 0) {
+        if (w.do_predict && use_zupt) zupt(s, w, gravity);
+        w.cf_run = cf_here &&
+                   (w.do_predict || (!w.gate_early && !w.initialized && s.yaw_init)) &&
+                   cf_setup(s, w, u, w.vx_now);
+      } else if (threadIdx.x >= 32 && w.do_predict) {
+        propagate_cov(s, w, gravity);
+      }
       __syncthreads();
       if (w.cf_run) {
         measurement_update(s, u, joseph);
         if (threadIdx.x == 0) {
-          s.cf_prev_vx = vx_now;
+          s.cf_prev_vx = w.vx_now;
           s.cf_prev_t = w.t;
         }
       }
     }
-    if ((flags & kCalibration) && w.do_predict) {
+    if ((a.flags & kCalibration) && w.do_predict) {
       if (threadIdx.x == 0) w.cal_run = calib_setup(s, u);
       __syncthreads();
       if (w.cal_run) {
@@ -271,38 +375,69 @@ __global__ void __launch_bounds__(kThreads) imu_chain_kernel(
         if (w.gate_early || !w.initialized || w.do_predict) s.prev_t = w.t;
         s.reset = false;
       }
-      // the sample's ego-ring entry
-      float rpy[3], vloc[3];
-      quat_to_euler(s.rot, rpy);
-      global_to_local(s.vel, rpy, vloc);
-      h_t[k] = s.prev_t;
+      // the sample's ego-ring entry, converted after the chain
+      m.ht[k] = s.prev_t;
       for (int i = 0; i < 3; ++i) {
-        h_pos[3 * k + i] = s.pos[i];
-        h_rpy[3 * k + i] = rpy[i];
-        h_vloc[3 * k + i] = vloc[i];
-        h_gyro[3 * k + i] = s.gyro[i];
+        m.hpos[3 * k + i] = s.pos[i];
+        m.hgyro[3 * k + i] = s.gyro[i];
+        m.vel[3 * k + i] = s.vel[i];
       }
+      for (int i = 0; i < 4; ++i) m.rot[4 * k + i] = s.rot[i];
     }
     __syncthreads();
   }
-  store_state(s, out);
+  // ego_history: one sample a thread
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    quat_to_euler(m.rot + 4 * j, m.hrpy + 3 * j);
+    global_to_local(m.vel + 3 * j, m.hrpy + 3 * j, m.hvloc + 3 * j);
+  }
+  __syncthreads();
+  store_state(s, a.rec_out);
+  ring::Ring g = a.ego;
+  g.new_t = m.ht;
+  g.new_f[0] = m.hpos;
+  g.new_f[1] = m.hrpy;
+  g.new_f[2] = m.hvloc;
+  g.new_f[3] = m.hgyro;
+  ring::push(g, n, m.valid, m.ranks);
 }
 
 }  // namespace
 
-extern "C" int elm_imu_chain(void* const* in, void* const* out, const float* const* params,
+// ego: t, pos, rpy, vel_local, gyro, count of the ego ring in; imu: t, gyro,
+// acc, count of the IMU ring in; rings_out: the ego ring's t [ego_cap] and
+// its four [ego_cap, 3] fields, the IMU ring's t [imu_cap] and its two
+// [imu_cap, 3] fields, then the two int32 counts.
+extern "C" int elm_imu_stage(const void* rec_in, void* rec_out, const float* params,
                              const float* ts, const float* acc, const float* gyro,
-                             const bool* valid, int n, int flags, float* h_t, float* h_pos,
-                             float* h_rpy, float* h_vloc, float* h_gyro,
-                             cudaStream_t stream) {
-  Fields fi, fo;
-  Params prm;
-  for (int i = 0; i < kFields; ++i) {
-    fi.f[i] = in[i];
-    fo.f[i] = out[i];
+                             const bool* valid, int n, const float* rot, const float* trans,
+                             int flags, void* const* ego, int ego_cap, void* const* imu,
+                             int imu_cap, float* rings_out, cudaStream_t stream) {
+  Args a;
+  a.rec_in = (const int*)rec_in;
+  a.rec_out = (int*)rec_out;
+  a.prm = params;
+  a.ts = ts;
+  a.acc = acc;
+  a.gyro = gyro;
+  a.valid = valid;
+  a.n = n;
+  a.flags = flags;
+  a.rot = rot;
+  a.trans = trans;
+  ring::fill_in(a.ego, ego_cap, 4, 1e-5f, ego);
+  ring::fill_in(a.imu, imu_cap, 2, 0.0f, imu);
+  int* counts = (int*)(rings_out + 13 * ego_cap + 7 * imu_cap);
+  ring::fill_out(a.ego, rings_out, counts);
+  ring::fill_out(a.imu, rings_out + 13 * ego_cap, counts + 1);
+  const size_t bytes = samples_bytes(n, ego_cap > imu_cap ? ego_cap : imu_cap);
+  static size_t allowed = 48 * 1024;
+  if (bytes > allowed) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        imu_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    allowed = bytes;
   }
-  for (int i = 0; i < kParams; ++i) prm.f[i] = params[i];
-  imu_chain_kernel<<<1, kThreads, 0, stream>>>(fi, fo, prm, ts, acc, gyro, valid, n, flags,
-                                               h_t, h_pos, h_rpy, h_vloc, h_gyro);
+  imu_stage_kernel<<<2, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,6 @@ from .filter import (  # noqa: F401
     EkfFlags,
     ca_tick,
     ego_state,
-    imu_chain,
     init_state,
     predict,
     predict_imu,

@@ -12,11 +12,16 @@ Ported: ``init_state``, the ``check_*`` gates, ``_ekf_measurement_update``
 ``_zupt_imu``, ``_complementary_filter``, ``_calibrate_vehicle_to_imu``,
 ``predict_imu``, ``predict`` (the constant-acceleration tick of
 ``use_imu=False``), ``update_gnss``, ``update_can`` and ``ego_state``, plus
-the filter half of the pipeline's GPS step (``update_gps``). Each sequence
-has one dispatch: :func:`imu_chain` (a frame's IMU samples; kernel H on the
-card), :func:`ca_tick` (one CA tick; kernel O) and :func:`update_chain`
-(CAN, GPS and PCM updates; kernel I). ``EkfFlags.joseph_form`` selects the
-Joseph-form covariance update in the plain versions and in kernels H and I.
+the filter half of the pipeline's GPS step (``update_gps``). A frame's IMU
+samples run through :func:`imu_chain_plain` and :func:`ego_history` in the
+plain composition of ``pipeline.runtime.imu_subbatch_plain``; on the card
+the whole IMU stage (sensor-frame conversion, this chain, the ego-ring rows
+and both ring pushes) is one launch of kernel H, ``kernels.imu_stage``.
+:func:`ca_tick` (one CA tick; kernel O) and :func:`update_chain` (CAN, GPS
+and PCM updates; kernel I) dispatch by device. ``EkfFlags.joseph_form``
+selects the Joseph-form covariance update in the plain versions and in
+kernels H and I, which take and give the state as one packed record
+(``state.RECORD_FIELDS``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .state import (
     S_YAW,
     S_YAW_RATE,
     S_Z,
+    empty_state,
 )
 
 _D2R = math.pi / 180.0
@@ -108,47 +114,25 @@ def _scalar(v, like, dtype=None):
 # --------------------------------------------------------------------------- #
 
 def init_state(params: EkfParams, dtype=torch.float32) -> EkfState:
-    dev = params.init_pos.device
-    rot = lie.rot_to_quat(lie.euler_to_rot(params.init_rpy.to(dtype)))
-    P = torch.eye(STATE_ORDER, dtype=dtype, device=dev) * INIT_STATE_COV
+    """The initial state, packed in one record (``state.RECORD_FIELDS``) as
+    the EKF kernels take it: every field not set here starts at zero or
+    false."""
+    st = empty_state(dtype, params.init_pos.device)
+    st.pos.copy_(params.init_pos)
+    st.rot.copy_(lie.rot_to_quat(lie.euler_to_rot(params.init_rpy.to(dtype))))
+    P = st.P
+    P.copy_(torch.eye(STATE_ORDER, dtype=dtype, device=P.device) * INIT_STATE_COV)
     bias_gyro = params.imu_bias_cov_gyro.to(dtype)
     bias_acc = params.imu_bias_cov_acc.to(dtype)
     for lo, val in ((S_B_ROLL_RATE, bias_gyro), (S_B_AX, bias_acc),
                     (S_G_X, bias_acc), (S_IMU_ROLL, bias_gyro)):
         for i in range(lo, lo + 3):
             P[i, i] = val
-    z3 = torch.zeros(3, dtype=dtype, device=dev)
-
-    def f(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
-
-    def b(v):
-        return torch.tensor(v, dtype=torch.bool, device=dev)
-
-    return EkfState(
-        pos=params.init_pos.to(dtype),
-        rot=rot,
-        vel=z3, gyro=z3, acc=z3, bg=z3, ba=z3,
-        grav=torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
-        * params.imu_gravity.to(dtype),
-        imu_rot=lie.quat_identity(dtype, dev),
-        P=P,
-        reset_for_init_prediction=b(True),
-        state_initialized=b(False),
-        yaw_initialized=b(False),
-        rotation_stabilized=b(False),
-        state_stabilized=b(False),
-        pcm_init_on_going=b(False),
-        vehicle_imu_calib_started=b(False),
-        can_yaw_rate_bias=f(0.0),
-        pcm_update_count=torch.tensor(0, dtype=torch.int32, device=dev),
-        prev_timestamp=f(0.0),
-        prev_gnss_timestamp=f(0.0),
-        prev_can_timestamp=f(0.0),
-        cf_initialized=b(False),
-        cf_prev_vel_local_x=f(0.0),
-        cf_prev_time=f(0.0),
-    )
+    st.grav.copy_(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=P.device)
+                  * params.imu_gravity.to(dtype))
+    st.imu_rot.copy_(lie.quat_identity(dtype, P.device))
+    st.reset_for_init_prediction.fill_(True)
+    return st
 
 
 # --------------------------------------------------------------------------- #
@@ -672,8 +656,9 @@ def update_can(state: EkfState, can: CanMeas, params: EkfParams,
 
 
 # --------------------------------------------------------------------------- #
-# A frame's sequences: the plain versions of kernels H and I, and the one
-# dispatch for each (plain for CPU tensors, the kernel for CUDA ones)
+# A frame's sequences: the plain versions of kernels H (the chain half), O
+# and I, and the dispatch of O and I (plain for CPU tensors, the kernel for
+# CUDA ones; kernel H's is runtime.imu_subbatch)
 # --------------------------------------------------------------------------- #
 
 def imu_chain_plain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
@@ -697,16 +682,6 @@ def ego_history(t, pos, rot, vel, gyro):
     the ego ring's fields (JAX runtime.py:435-436)."""
     rpy = lie.rot_to_euler(lie.quat_to_rot(rot))
     return t, pos, rpy, global_to_local_velocity(vel, rpy), gyro
-
-
-def imu_chain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
-              flags: EkfFlags):
-    """:func:`imu_chain_plain` + :func:`ego_history` for CPU tensors, kernel H
-    for CUDA ones: (state, (t, pos, rpy, vel_local, gyro))."""
-    if ts.device.type == "cpu":
-        state, hist = imu_chain_plain(state, ts, acc, gyro, valid, params, flags)
-        return state, ego_history(*hist)
-    return kernels.imu_chain(state, ts, acc, gyro, valid, params, flags)
 
 
 def ca_tick_plain(state: EkfState, t, params: EkfParams):

@@ -6,6 +6,17 @@ Plain dataclasses of tensors (see ``struct.Struct``) with the reference's
   0:3 position   3:6 rotation (rpy)   6:9 velocity   9:12 body rates
   12:15 accel    15:18 gyro bias      18:21 acc bias 21:24 gravity
   24:27 imu mount rotation
+
+The packed records. An ``EkfState`` whose fields are the typed views of one
+contiguous byte buffer in the layout of :data:`RECORD_FIELDS` (csrc/ekf.cuh
+``State``, whose offsets ``kOff*`` it mirrors) goes into and out of the EKF
+kernels by one pointer. :func:`init_state` (ekf/filter.py) and the kernels
+make such states, as :class:`RecordState`s, whose fields are viewed only
+when read; :func:`state_record` recognizes one by its fields (each field the
+view at its offset of one record of the right size), so a state with a
+replaced field is not taken for packed, and :func:`pack_state` copies any
+state into a fresh record (counted in :data:`packs`). ``EkfParams`` is
+packed the same way, once per params object, by :func:`make_params`.
 """
 
 from __future__ import annotations
@@ -97,9 +108,10 @@ class CanMeas(Struct):
     gyro: torch.Tensor  # [3] local, only z valid
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class EkfParams(Struct):
-    """Continuous EKF parameters (tensors), built by :func:`make_params`."""
+    """Continuous EKF parameters (tensors), built by :func:`make_params`;
+    frozen, so a params object keeps the record it was packed in."""
 
     init_pos: torch.Tensor
     init_rpy: torch.Tensor
@@ -120,34 +132,223 @@ class EkfParams(Struct):
 
 
 def make_params(cfg, dtype=torch.float32, device=None) -> EkfParams:
-    """EkfConfig -> EkfParams (unit conversions as in ekf_algorithm.cpp)."""
+    """EkfConfig -> EkfParams (unit conversions as in ekf_algorithm.cpp),
+    packed in one record (:data:`PARAM_FIELDS`)."""
     def r(deg):  # same rounding as the reference's deg * pi / 180
         return deg * math.pi / 180.0
 
-    def f(v):
-        return torch.tensor(v, dtype=dtype, device=device)
-
-    return EkfParams(
-        init_pos=f([cfg.ekf_init_x_m, cfg.ekf_init_y_m, cfg.ekf_init_z_m]),
-        init_rpy=f([r(cfg.ekf_init_roll_deg), r(cfg.ekf_init_pitch_deg),
-                    r(cfg.ekf_init_yaw_deg)]),
-        imu_gravity=f(cfg.imu_gravity),
-        state_std_pos_m=f(cfg.state_std_pos_m),
-        state_std_rot_rad=f(r(cfg.state_std_rot_deg)),
-        state_std_vel_mps=f(cfg.state_std_vel_mps),
-        state_std_gyro_dps=f(cfg.state_std_gyro_dps),
-        state_std_acc_mps=f(cfg.state_std_acc_mps),
-        imu_std_gyro_rad=f(r(cfg.imu_std_gyro_dps)),
-        imu_std_acc_mps=f(cfg.imu_std_acc_mps),
-        imu_bias_cov_gyro=f(cfg.imu_bias_cov_gyro),
-        imu_bias_cov_acc=f(cfg.imu_bias_cov_acc),
-        gnss_min_cov=f([
+    values = dict(
+        init_pos=[cfg.ekf_init_x_m, cfg.ekf_init_y_m, cfg.ekf_init_z_m],
+        init_rpy=[r(cfg.ekf_init_roll_deg), r(cfg.ekf_init_pitch_deg),
+                  r(cfg.ekf_init_yaw_deg)],
+        imu_gravity=cfg.imu_gravity,
+        state_std_pos_m=cfg.state_std_pos_m,
+        state_std_rot_rad=r(cfg.state_std_rot_deg),
+        state_std_vel_mps=cfg.state_std_vel_mps,
+        state_std_gyro_dps=cfg.state_std_gyro_dps,
+        state_std_acc_mps=cfg.state_std_acc_mps,
+        imu_std_gyro_rad=r(cfg.imu_std_gyro_dps),
+        imu_std_acc_mps=cfg.imu_std_acc_mps,
+        imu_bias_cov_gyro=cfg.imu_bias_cov_gyro,
+        imu_bias_cov_acc=cfg.imu_bias_cov_acc,
+        gnss_min_cov=[
             cfg.gnss_min_cov_x_m, cfg.gnss_min_cov_y_m, cfg.gnss_min_cov_z_m,
             r(cfg.gnss_min_cov_roll_deg), r(cfg.gnss_min_cov_pitch_deg),
             r(cfg.gnss_min_cov_yaw_deg),
-        ]),
-        can_vel_scale=f(cfg.can_vel_scale_factor),
-        can_meas_uncertainty_vel=f(cfg.can_meas_uncertainty_vel_mps),
-        can_meas_uncertainty_yaw_rate_rad=f(
-            r(cfg.can_meas_uncertainty_yaw_rate_deg)),
+        ],
+        can_vel_scale=cfg.can_vel_scale_factor,
+        can_meas_uncertainty_vel=cfg.can_meas_uncertainty_vel_mps,
+        can_meas_uncertainty_yaw_rate_rad=r(cfg.can_meas_uncertainty_yaw_rate_deg),
     )
+    flat = []
+    for name, _ in PARAM_FIELDS:
+        v = values[name]
+        flat += v if isinstance(v, list) else [v]
+    rec = torch.tensor(flat + [0.0] * (PARAM_WORDS - len(flat)), dtype=dtype, device=device)
+    return EkfParams(**_param_views(rec))
+
+
+# --------------------------------------------------------------------------- #
+# The packed records (csrc/ekf.cuh)
+# --------------------------------------------------------------------------- #
+
+#: EkfParams' fields in record order with their shapes (csrc/ekf.cuh
+#: ``Param``: each field's offset in the record, in elements); the record is
+#: padded to PARAM_WORDS elements of the params' float dtype
+PARAM_FIELDS = (
+    ("init_pos", (3,)), ("init_rpy", (3,)), ("imu_gravity", ()), ("state_std_pos_m", ()),
+    ("state_std_rot_rad", ()), ("state_std_vel_mps", ()), ("state_std_gyro_dps", ()),
+    ("state_std_acc_mps", ()), ("imu_std_gyro_rad", ()), ("imu_std_acc_mps", ()),
+    ("imu_bias_cov_gyro", ()), ("imu_bias_cov_acc", ()), ("gnss_min_cov", (6,)),
+    ("can_vel_scale", ()), ("can_meas_uncertainty_vel", ()),
+    ("can_meas_uncertainty_yaw_rate_rad", ()),
+)
+PARAM_WORDS = 32
+
+#: EkfState's fields in record order: (name, kind, shape), kind "f" the
+#: state's float dtype, "i" int32, "b" bool (one byte); P first, then the
+#: nominal vectors, the float scalars, the counter and the eight flags, the
+#: record padded to a multiple of 16 bytes (csrc/ekf.cuh ``State``)
+RECORD_FIELDS = (
+    ("P", "f", (STATE_ORDER, STATE_ORDER)),
+    ("pos", "f", (3,)), ("rot", "f", (4,)), ("vel", "f", (3,)), ("gyro", "f", (3,)),
+    ("acc", "f", (3,)), ("bg", "f", (3,)), ("ba", "f", (3,)), ("grav", "f", (3,)),
+    ("imu_rot", "f", (4,)),
+    ("can_yaw_rate_bias", "f", ()), ("prev_timestamp", "f", ()),
+    ("prev_gnss_timestamp", "f", ()), ("prev_can_timestamp", "f", ()),
+    ("cf_prev_vel_local_x", "f", ()), ("cf_prev_time", "f", ()),
+    ("pcm_update_count", "i", ()),
+    ("reset_for_init_prediction", "b", ()), ("state_initialized", "b", ()),
+    ("yaw_initialized", "b", ()), ("rotation_stabilized", "b", ()),
+    ("state_stabilized", "b", ()), ("pcm_init_on_going", "b", ()),
+    ("vehicle_imu_calib_started", "b", ()), ("cf_initialized", "b", ()),
+)
+
+#: states and params copied into a fresh record (:func:`pack_state`,
+#: :func:`pack_params`) since the counts were last set to 0; the pipeline
+#: packs at construction and relocalization only
+packs = {"ekf_state": 0, "ekf_params": 0}
+
+_KIND = {"i": torch.int32, "b": torch.bool}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    nbytes: int
+    fields: tuple   # (name, byte offset, torch dtype, shape)
+    views: dict     # name -> (torch dtype, shape, strides, offset in that dtype)
+
+
+def _numel(shape):
+    return math.prod(shape)
+
+
+def record_layout(dtype) -> _Layout:
+    """The record's byte layout for a state of float ``dtype``."""
+    if dtype not in _LAYOUTS:
+        off, fields, views = 0, [], {}
+        for name, kind, shape in RECORD_FIELDS:
+            dt = dtype if kind == "f" else _KIND[kind]
+            size = torch.empty((), dtype=dt).element_size()
+            fields.append((name, off, dt, shape))
+            strides = tuple(_numel(shape[i + 1:]) for i in range(len(shape)))
+            views[name] = (dt, shape, strides, off // size)
+            off += size * _numel(shape)
+        _LAYOUTS[dtype] = _Layout(-(-off // 16) * 16, tuple(fields), views)
+    return _LAYOUTS[dtype]
+
+
+_LAYOUTS = {}
+
+
+class RecordState(EkfState):
+    """An EkfState read from a record (``root``, uint8, of a state of float
+    ``dtype``): each field is made on first access as its typed view of the
+    record, so a state handed from one EKF kernel to the next is never
+    viewed field by field. Built from fields (``dataclasses.replace``,
+    ``struct.select``) it is an EkfState like any other."""
+
+    def __init__(self, root=None, dtype=torch.float32, **fields):
+        if fields:
+            EkfState.__init__(self, **fields)
+        else:
+            self.__dict__.update(_root=root, _layout=record_layout(dtype), _typed={},
+                                 _views={})
+
+    def __getattr__(self, name):
+        d = self.__dict__
+        if "_root" not in d or name not in d["_layout"].views:
+            raise AttributeError(name)
+        dtype, shape, strides, offset = d["_layout"].views[name]
+        typed = d["_typed"].get(dtype)
+        if typed is None:
+            typed = d["_typed"][dtype] = d["_root"].view(dtype)
+        v = typed.as_strided(shape, strides, offset)
+        d[name] = d["_views"][name] = v
+        return v
+
+    def intact_record(self):
+        """Its record (uint8) while every field it holds is the view made
+        from it, else None (a field assigned since)."""
+        d = self.__dict__
+        views = d.get("_views")
+        if views is None or len(d) != 4 + len(views):
+            return None
+        for k, v in views.items():
+            if d[k] is not v:
+                return None
+        return d["_root"]
+
+
+def empty_state(dtype, device) -> RecordState:
+    """A state in a fresh record, every field zero or false."""
+    root = torch.zeros(record_layout(dtype).nbytes, dtype=torch.uint8, device=device)
+    return RecordState(root, dtype)
+
+
+def state_record(state: EkfState):
+    """The storage of the record whose typed views ``state``'s fields are,
+    or None when any field is not (a replaced field, a state built field by
+    field): P starts a storage of the record's size, and every field's
+    address lies at its offset from P's, so inside that storage."""
+    if isinstance(state, RecordState):
+        root = state.intact_record()
+        if root is not None:
+            return root.untyped_storage()
+    P = state.P
+    lay = _LAYOUTS.get(P.dtype)
+    if lay is None or P.storage_offset() != 0 or not P.is_contiguous():
+        return None
+    root = P.untyped_storage()
+    if root.nbytes() != lay.nbytes:
+        return None
+    base = P.data_ptr()
+    for name, off, _, _ in lay.fields:
+        if getattr(state, name).data_ptr() - base != off:
+            return None
+    return root
+
+
+def pack_state(state: EkfState) -> EkfState:
+    """``state`` copied field by field into a fresh record (counted)."""
+    out = empty_state(state.P.dtype, state.P.device)
+    for name, _, _ in RECORD_FIELDS:
+        getattr(out, name).copy_(getattr(state, name))
+    packs["ekf_state"] += 1
+    return out
+
+
+def _param_views(rec) -> dict:
+    views, off = {}, 0
+    for name, shape in PARAM_FIELDS:
+        views[name] = rec[off:off + _numel(shape)].view(shape)
+        off += _numel(shape)
+    return views
+
+
+def params_record(params: EkfParams):
+    """The record whose views ``params``' fields are, or None (as
+    :func:`state_record`)."""
+    p = params.init_pos
+    if p.storage_offset() != 0:
+        return None
+    root = p.untyped_storage()
+    if root.nbytes() != PARAM_WORDS * p.element_size():
+        return None
+    base, off = p.data_ptr(), 0
+    for name, shape in PARAM_FIELDS:
+        if getattr(params, name).data_ptr() - base != off * p.element_size():
+            return None
+        off += _numel(shape)
+    return root
+
+
+def pack_params(params: EkfParams) -> EkfParams:
+    """``params`` copied into a fresh record (counted)."""
+    p = params.init_pos
+    rec = torch.zeros(PARAM_WORDS, dtype=p.dtype, device=p.device)
+    views = _param_views(rec)
+    for name, v in views.items():
+        v.copy_(getattr(params, name))
+    packs["ekf_params"] += 1
+    return EkfParams(**views)

@@ -22,12 +22,14 @@ E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
                               icp._gicp_tail
 F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
 G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail
-H         imu_chain           ekf/filter.py:predict_imu chain (runtime.imu_subbatch)
+H         imu_stage           pipeline/runtime.py:imu_subbatch, the whole IMU stage:
+                              frames.imu_to_ego, the predict_imu chain, the
+                              ego rows and both rings' batch pushes
 I         ekf_update          filter._ekf_measurement_update + update_gnss +
                               update_can (the CAN / GPS sub-batches, the PCM
                               update)
-J         ring_push           pipeline/rings.py:_push_arrays_batch (push_ego_batch
-                              + push_imu_batch, and imu_step's one-row push)
+J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
+                              (the tick mode's ego push, its IMU intake)
 K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
                               + the initial guess's compose (runtime.py:338)
 L         pcm_measurement     runtime.shape_icp_covariance +
@@ -49,11 +51,15 @@ Q         hash_lookup         map/grid.py:lookup
 R         ground_height       map/grid.py:find_ground_height
 ========  ==================  ===================================================
 
-Kernel N runs only on the active-window path (``map_window_radius``), O only
-in the event loop's tick mode (``use_imu=False``), P once per registration
+Kernel N runs only on the active-window path (``map_window_radius``), O and
+J only in the event loop's tick mode (``use_imu=False``), P once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
 place of B and of A, E, F, G; its query and lookup entries and R serve the
-grid's own functions. Flagged forms: H and I take ``EkfFlags.joseph_form``
+grid's own functions. H, I and O take and give the EKF state as one packed
+record and read the parameters from one (``ekf.state``): a state whose
+fields are not the views of one record is packed first, and counted in
+:data:`packs`; they return ``ekf.state.RecordState``, whose fields are
+viewed only when read. Flagged forms: H and I take ``EkfFlags.joseph_form``
 (the Joseph-form covariance update), E, F and G a slot-packed ``radar``
 (kernel P's output) and Q a ``radar`` in query order, added before their
 3x3 inverse.
@@ -62,31 +68,41 @@ grid's own functions. Flagged forms: H and I take ``EkfFlags.joseph_form``
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import operator
 
 import torch
 
+from ..ekf import state as ekf_state
 from .build import library
 
 #: launches per kernel since the last :func:`reset_launches`
 launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
             "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
-            "avgicp_correspond": 0, "imu_chain": 0, "ekf_update": 0, "ring_push": 0,
+            "avgicp_correspond": 0, "imu_stage": 0, "ekf_update": 0, "ring_push": 0,
             "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
             "shift_window": 0, "ca_tick": 0, "radar_cov": 0, "hash_correspond": 0,
             "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
 
 
+#: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
+#: ``pack_params``) since the last :func:`reset_launches`
+packs = ekf_state.packs
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for k in packs:
+        packs[k] = 0
 
 
 def _check(t, name, dtype, shape=None):
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: {dtype} required, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(shape)} required, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: contiguous tensor required")
@@ -353,102 +369,170 @@ def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sb
 
 
 # --------------------------------------------------------------------------- #
-# Kernels H and I: the EKF in one CTA (csrc/ekf.cuh)
+# Kernels H, I and O: the EKF in one CTA (csrc/ekf.cuh), the state and the
+# parameters as packed records (ekf/state.py)
 # --------------------------------------------------------------------------- #
 
 _F32, _BOOL = torch.float32, torch.bool
 _V3, _V4 = (3,), (4,)
-#: EkfState's fields in the order of csrc/ekf.cuh's ``Field`` enum (the
-#: dataclass order), with their dtype and shape
-EKF_FIELDS = (
-    ("pos", _F32, _V3), ("rot", _F32, _V4), ("vel", _F32, _V3), ("gyro", _F32, _V3),
-    ("acc", _F32, _V3), ("bg", _F32, _V3), ("ba", _F32, _V3), ("grav", _F32, _V3),
-    ("imu_rot", _F32, _V4), ("P", _F32, (27, 27)),
-    ("reset_for_init_prediction", _BOOL, ()), ("state_initialized", _BOOL, ()),
-    ("yaw_initialized", _BOOL, ()), ("rotation_stabilized", _BOOL, ()),
-    ("state_stabilized", _BOOL, ()), ("pcm_init_on_going", _BOOL, ()),
-    ("vehicle_imu_calib_started", _BOOL, ()), ("can_yaw_rate_bias", _F32, ()),
-    ("pcm_update_count", torch.int32, ()), ("prev_timestamp", _F32, ()),
-    ("prev_gnss_timestamp", _F32, ()), ("prev_can_timestamp", _F32, ()),
-    ("cf_initialized", _BOOL, ()), ("cf_prev_vel_local_x", _F32, ()),
-    ("cf_prev_time", _F32, ()),
-)
-#: EkfParams' fields in the order of csrc/ekf.cuh's ``Param`` enum
-PARAM_FIELDS = (
-    ("init_pos", _V3), ("init_rpy", _V3), ("imu_gravity", ()), ("state_std_pos_m", ()),
-    ("state_std_rot_rad", ()), ("state_std_vel_mps", ()), ("state_std_gyro_dps", ()),
-    ("state_std_acc_mps", ()), ("imu_std_gyro_rad", ()), ("imu_std_acc_mps", ()),
-    ("imu_bias_cov_gyro", ()), ("imu_bias_cov_acc", ()), ("gnss_min_cov", (6,)),
-    ("can_vel_scale", ()), ("can_meas_uncertainty_vel", ()),
-    ("can_meas_uncertainty_yaw_rate_rad", ()),
-)
+_RECORD = ekf_state.record_layout(_F32)
+#: EkfState's fields in the dataclass order with their dtype and shape on
+#: the card (their place in the record: ekf.state.RECORD_FIELDS)
+EKF_FIELDS = tuple((f.name,) + next(r[2:] for r in _RECORD.fields if r[0] == f.name)
+                   for f in dataclasses.fields(ekf_state.EkfState))
 #: kernel H's flag bits (csrc/imu_chain.cu)
 _ZUPT, _RUN_CF, _GRAVITY, _CALIBRATION, _JOSEPH = 1, 2, 4, 8, 16
 _PCM = 3  # config.GnssSource.PCM
+#: the most IMU samples one launch of kernel H stages in shared memory
+IMU_STAGE_MAX_SAMPLES = 1024
 
 
 def _ptr_array(ptrs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _ekf_io(state, name):
-    """(the input field pointers, fresh outputs per field, their pointers):
-    each field goes in and out by its own pointer; allocating launches
-    nothing, and no pack or unpack kernel runs around the EKF kernels."""
-    if state.P.dtype != _F32:
-        raise TypeError(f"{name}: float32 EKF state required, got {state.P.dtype}")
-    ins = _ptr_array([_check(getattr(state, f), f, dt, shape).value
-                      for f, dt, shape in EKF_FIELDS])
-    outs = {f: torch.empty_like(getattr(state, f)) for f, _, _ in EKF_FIELDS}
-    return ins, outs, _ptr_array([outs[f].data_ptr() for f, _, _ in EKF_FIELDS])
+#: the rings the last launch of H made, each with its fields and the
+#: pointer list the next launch passes for it: a frame loop hands them back,
+#: and they are known by the identity of every field (each one of the views
+#: made from the fresh buffer); other rings are checked in full
+_made = {}
+
+
+def _remember(key, obj, ptr):
+    _made[key] = (obj, tuple(obj.__dict__.values()), ptr)
+
+
+def _known(key, obj):
+    m = _made.get(key)
+    if m is not None and m[0] is obj and all(map(operator.is_, obj.__dict__.values(), m[1])):
+        return m[2]
+    return None
+
+
+def _state_in(state):
+    """(the pointer of ``state``'s float32 record, the state that holds the
+    record): a kernel's output whose fields are untouched goes in as it is;
+    a state that is not one record's views is packed into a fresh one first
+    (counted in packs), which the caller keeps until the launch is queued."""
+    if isinstance(state, ekf_state.RecordState):
+        rec = state.intact_record()
+        if rec is not None:
+            return _check(rec, "EKF state record", torch.uint8, (_RECORD.nbytes,)), state
+    _check(state.P, "P", _F32, (27, 27))
+    if ekf_state.state_record(state) is None:
+        state = ekf_state.pack_state(state)
+    return ctypes.c_void_p(state.P.data_ptr()), state
+
+
+def _state_out(dev):
+    """(a fresh record, its pointer)."""
+    rec = torch.empty(_RECORD.nbytes, dtype=torch.uint8, device=dev)
+    return rec, ctypes.c_void_p(rec.data_ptr())
+
+
+#: the last packed EkfParams given and its record's pointer: a params
+#: object is frozen and its fields are views of its record, so it keeps it
+_params_cache = [None, None]
 
 
 def _params(params):
-    return _ptr_array([_check(getattr(params, f), f, _F32, shape).value
-                       for f, shape in PARAM_FIELDS])
+    """(the pointer of ``params``' record, the params that hold it): params
+    that are not one record's views are packed per call (counted), never
+    cached; the caller keeps them until the launch is queued."""
+    if params is _params_cache[0]:
+        return _params_cache[1], params
+    _check(params.init_pos, "init_pos", _F32, _V3)
+    packed = ekf_state.params_record(params) is not None
+    if not packed:
+        params = ekf_state.pack_params(params)
+    ptr = ctypes.c_void_p(params.init_pos.data_ptr())
+    if packed:
+        _params_cache[:] = [params, ptr]
+    return ptr, params
 
 
-def _history(n, device):
-    """Fresh ego-ring rows (t [n], pos, rpy, vel_local, gyro [n, 3])."""
-    return (torch.empty(n, dtype=_F32, device=device),) + tuple(
-        torch.empty((n, 3), dtype=_F32, device=device) for _ in range(4))
+_flag_cache = {}
 
 
-def imu_chain(state, ts, acc, gyro, valid, params, flags):
-    """Kernel H (ekf.filter.imu_chain_plain + ego_history): the frame's
-    ego-frame IMU samples through ``predict_imu`` one at a time, masked by
-    ``valid``, the updates in the Joseph form with ``flags.joseph_form``.
-    Returns (state, (t, pos, rpy, vel_local, gyro)) with the ego-ring
-    history per sample."""
-    n = ts.shape[0]
-    args = [_check(ts, "ts", _F32, (n,)), _check(acc, "acc", _F32, (n, 3)),
-            _check(gyro, "gyro", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,))]
-    ins, outs, out_ptrs = _ekf_io(state, "imu_chain")
-    hist = _history(n, ts.device)
-    bits = ((_ZUPT if flags.use_zupt else 0) | (_RUN_CF if flags.run_cf else 0)
+def _flag_bits(flags):
+    if flags not in _flag_cache:
+        _flag_cache[flags] = (
+            (_ZUPT if flags.use_zupt else 0) | (_RUN_CF if flags.run_cf else 0)
             | (_GRAVITY if flags.imu_estimate_gravity else 0)
             | (_CALIBRATION if flags.imu_estimate_calibration else 0)
             | (_JOSEPH if flags.joseph_form else 0))
-    rc = library().elm_imu_chain(ins, out_ptrs, _params(params), *args, ctypes.c_int(n),
-                                 ctypes.c_int(bits), *(_ptr(h) for h in hist),
-                                 _stream(ts))
-    _raise_on(rc, "imu_chain")
-    launches["imu_chain"] += 1
-    return state.replace(**outs), hist
+    return _flag_cache[flags]
+
+
+_EGO_FIELDS = ("pos", "rpy", "vel_local", "gyro")
+_IMU_FIELDS = ("gyro", "acc")
+
+
+def _ring_in(ring, name, fields):
+    """The pointer list of a ring going in: t, its [cap, 3] fields, count."""
+    ptrs = _known(name, ring)
+    if ptrs is not None:
+        return ptrs
+    cap = ring.capacity
+    ptrs = [_check(ring.t, f"{name}.t", _F32, (cap,)).value]
+    ptrs += [_check(getattr(ring, f), f"{name}.{f}", _F32, (cap, 3)).value for f in fields]
+    ptrs.append(_check(ring.count, f"{name}.count", torch.int32, ()).value)
+    return _ptr_array(ptrs)
+
+
+def imu_stage(state, ego, imu, ts, acc, gyro, valid, rot, trans, params, flags):
+    """Kernel H (runtime.imu_subbatch's plain composition: frames.imu_to_ego,
+    the PCM intake's rotation, filter.imu_chain_plain + ego_history and
+    rings.push_rings_plain): the frame's raw IMU samples (``valid`` None:
+    all valid) through the sensor-frame conversion (``rot``, ``trans``: the
+    ego-to-IMU calibration), the ``predict_imu`` chain (the updates in the
+    Joseph form with ``flags.joseph_form``), the ego rows and the batch
+    pushes into the ego and IMU rings, in one launch. Returns (state, ego
+    ring, IMU ring), the rings' fields views of one fresh buffer."""
+    n = ts.shape[0]
+    if n > IMU_STAGE_MAX_SAMPLES:
+        raise ValueError(f"imu_stage: at most {IMU_STAGE_MAX_SAMPLES} IMU samples a "
+                         f"launch, got {n}")
+    re, ri = ego.capacity, imu.capacity
+    dev = ts.device
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    args = [p_state, None, p_params, _check(ts, "ts", _F32, (n,)),
+            _check(acc, "acc", _F32, (n, 3)), _check(gyro, "gyro", _F32, (n, 3)),
+            ctypes.c_void_p(None) if valid is None else _check(valid, "valid", _BOOL, (n,)),
+            ctypes.c_int(n), _check(rot, "ego_to_imu_rot", _F32, (3, 3)),
+            _check(trans, "ego_to_imu_trans", _F32, _V3), ctypes.c_int(_flag_bits(flags)),
+            _ring_in(ego, "ego_ring", _EGO_FIELDS), ctypes.c_int(re),
+            _ring_in(imu, "imu_ring", _IMU_FIELDS), ctypes.c_int(ri)]
+    out, args[1] = _state_out(dev)
+    buf = torch.empty(13 * re + 7 * ri + 2, dtype=_F32, device=dev)
+    rc = library().elm_imu_stage(*args, ctypes.c_void_p(buf.data_ptr()), _stream(ts))
+    _raise_on(rc, "imu_stage")
+    launches["imu_stage"] += 1
+    t_e, f_e, t_i, f_i, counts = buf.split_with_sizes((re, 12 * re, ri, 6 * ri, 2))
+    f_e, f_i = f_e.view(4, re, 3).unbind(), f_i.view(2, ri, 3).unbind()
+    counts = counts.view(torch.int32).unbind()
+    ego = type(ego)(t=t_e, pos=f_e[0], rpy=f_e[1], vel_local=f_e[2], gyro=f_e[3],
+                    count=counts[0])
+    imu = type(imu)(t=t_i, gyro=f_i[0], acc=f_i[1], count=counts[1])
+    # the rings' pointer lists as _ring_in makes them: t, fields, count
+    _remember("ego_ring", ego, _ptr_array([v.data_ptr() for v in (t_e, *f_e, counts[0])]))
+    _remember("imu_ring", imu, _ptr_array([v.data_ptr() for v in (t_i, *f_i, counts[1])]))
+    return ekf_state.RecordState(out), ego, imu
 
 
 def ca_tick(state, t, params):
     """Kernel O (ekf.filter.ca_tick_plain): ``predict`` at the device scalar
     ``t`` (one constant-acceleration tick), then the tick's ego-ring entry.
     Returns (state, (t [1], pos, rpy, vel_local, gyro [1, 3]))."""
-    p_t = _check(t, "t", _F32, ())
-    ins, outs, out_ptrs = _ekf_io(state, "ca_tick")
-    hist = _history(1, t.device)
-    rc = library().elm_ca_tick(ins, out_ptrs, _params(params), p_t, *(_ptr(h) for h in hist),
-                               _stream(t))
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    args = [p_state, None, p_params, _check(t, "t", _F32, ())]
+    out, args[1] = _state_out(t.device)
+    hist = torch.empty(13, dtype=_F32, device=t.device)
+    rc = library().elm_ca_tick(*args, *(ctypes.c_void_p(hist.data_ptr() + 4 * k)
+                                         for k in (0, 1, 4, 7, 10)), _stream(t))
     _raise_on(rc, "ca_tick")
     launches["ca_tick"] += 1
-    return state.replace(**outs), hist
+    return ekf_state.RecordState(out), (hist[:1],) + hist[1:].view(4, 1, 3).unbind()
 
 
 def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
@@ -459,7 +543,6 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
     with ``gnss_uncertainty_max``), then the PCM pose
     ``pcm = (GnssMeas, apply)``, in one launch, each update in the Joseph
     form with ``flags.joseph_form``."""
-    ins, outs, out_ptrs = _ekf_io(state, "ekf_update")
     null = ctypes.c_void_p(None)
     can_args = [ctypes.c_int(0), null, null, null, null]
     if can is not None:
@@ -490,12 +573,14 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
                     _check(meas.pos_cov, "pcm_pos_cov", _F32, (3, 3)),
                     _check(meas.rot_cov, "pcm_rot_cov", _F32, (3, 3)),
                     _check(apply, "pcm_apply", _BOOL, ())]
-    rc = library().elm_ekf_update(ins, out_ptrs, _params(params), *can_args, *gps_args,
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    out, out_ptr = _state_out(params.init_pos.device)
+    rc = library().elm_ekf_update(p_state, out_ptr, p_params, *can_args, *gps_args,
                                   *pcm_args, ctypes.c_int(int(flags.joseph_form)),
-                                  _stream(state.P))
+                                  _stream(params.init_pos))
     _raise_on(rc, "ekf_update")
     launches["ekf_update"] += 1
-    return state.replace(**outs)
+    return ekf_state.RecordState(out)
 
 
 # --------------------------------------------------------------------------- #
@@ -503,9 +588,6 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
 # their outputs are views into one or two fresh buffers, so a launch costs
 # a few allocations, not one per field)
 # --------------------------------------------------------------------------- #
-
-_EGO_FIELDS = ("pos", "rpy", "vel_local", "gyro")
-_IMU_FIELDS = ("gyro", "acc")
 
 
 def _ring_ptrs(name, ring, fields, new_t, new_f, m, buf, count_out):
@@ -529,7 +611,9 @@ def ring_push(ego, imu, ego_new, imu_new, valid):
     ``ego_new = (t, pos, rpy, vel_local, gyro)`` into the ego ring (dedupe
     eps 1e-5) and ``imu_new = (t, gyro, acc)`` into the IMU ring (eps 0),
     both masked by ``valid``, in one launch. A ring given as None (its
-    samples None) is left out and comes back None. Returns (ego ring, IMU
+    samples None) is left out and comes back None. Kernel H pushes the
+    frame's and the IMU event's rows itself; this entry serves the tick
+    mode (kernel O's row, the IMU-only intake). Returns (ego ring, IMU
     ring)."""
     m = valid.shape[0]
     dev = valid.device

@@ -45,10 +45,10 @@ _SIGNATURES = {
                                 _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_avgicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
                                  _P, _P, _P, _P, _P, _P, _P],
-    "elm_imu_chain": [_PP, _PP, _PP, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "elm_ekf_update": [_PP, _PP, _PP, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+    "elm_imu_stage": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _PP, _I, _PP, _I, _P, _P],
+    "elm_ekf_update": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                        _I, _P, _P, _P, _P, _P, _P, _I, _P],
-    "elm_ca_tick": [_PP, _PP, _PP, _P, _P, _P, _P, _P, _P, _P],
+    "elm_ca_tick": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "elm_radar_cov": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

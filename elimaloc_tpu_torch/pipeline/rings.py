@@ -5,10 +5,12 @@ Chronologically ordered fixed arrays + a count, as in the JAX version:
 guards (pcm_matching.cpp:330-334, 345-350; ekf_localization.cpp:405) are
 masked resets, and a batch push gives the same result as sequential pushes.
 
-On the card the pushes of both rings run as kernel J (:func:`push_rings`),
-the pose sync inside kernel K (``deskew.scan_ring_query``) and the latency
-compensation inside kernel L (``runtime.pcm_measurement``); the functions
-here are their plain versions, which CPU tensors run.
+On the card a frame's (and an IMU event's) pushes into both rings run
+inside kernel H (``runtime.imu_subbatch``), the tick mode's one-ring
+pushes as kernel J (:func:`push_rings`), the pose sync inside kernel K
+(``deskew.scan_ring_query``) and the latency compensation inside kernel L
+(``runtime.pcm_measurement``); the functions here are their plain versions,
+which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -156,9 +158,9 @@ def push_rings_plain(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
 
 
 def push_rings(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
-    """A frame's (or one IMU sample's) pushes into both rings, or into one
-    of them (the tick mode's ego push, its IMU intake):
-    :func:`push_rings_plain` for CPU tensors, kernel J for CUDA ones."""
+    """Pushes into both rings or into one of them (the tick mode's ego push,
+    its IMU intake): :func:`push_rings_plain` for CPU tensors, kernel J for
+    CUDA ones."""
     if valid.device.type == "cpu":
         return push_rings_plain(ego, imu, ego_new, imu_new, valid)
     return kernels.ring_push(ego, imu, ego_new, imu_new, valid)

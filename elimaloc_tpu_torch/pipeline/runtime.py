@@ -10,9 +10,11 @@ registration, kernels B, A/E/F/G and M (the hash backend: Q and M) -> the
 PCM measurement, kernel L ->
 the EKF PCM update, kernel I) and :func:`pcm_init_step` (a relocalization
 result). :func:`fused_frame` is one LiDAR frame: :func:`imu_subbatch` (the
-frame's IMU samples through the EKF prediction, kernel H, then one push
-into each ring, kernel J), the frame's CAN and GPS samples when the
-configuration fuses them (kernel I), then :func:`scan_step`.
+frame's IMU samples into the ego frame, through the EKF prediction, then
+one push into each ring: one launch of kernel H), the frame's CAN and GPS
+samples when the configuration fuses them (kernel I), then
+:func:`scan_step`. The EKF state lives on the card as one packed record
+(``ekf.state``), which kernels H, I and O take and give.
 
 :class:`LocalizationPipeline` drives them three ways, as the JAX package
 does: ``run`` (the per-event loop over a log in time order), ``run_frames``
@@ -27,8 +29,8 @@ with kernel N (``tiles.shift_window``) while frames run on the old one.
 
 With ``use_imu=False`` the event loop runs the reference's tick mode: a
 constant-acceleration prediction per system-clock tick (:func:`tick_step`,
-kernel O, then the ego push, kernel J) while raw IMU only feeds the IMU ring
-(:func:`imu_ring_step`, kernel J).
+kernel O, then the ego push, kernel J's one-ring entry) while raw IMU only
+feeds the IMU ring (:func:`imu_ring_step`, kernel J).
 
 Refused with NotImplementedError, naming the ROADMAP Queue 1 item: fleet
 replay ("Fleet") and the live dashboard ("Host modules and utilities").
@@ -54,12 +56,13 @@ from ..ekf import (
     EkfState,
     GnssMeas,
     ca_tick,
-    imu_chain,
     init_state,
     make_params,
     update_chain,
     update_gnss,
 )
+from ..ekf.filter import ego_history, imu_chain_plain
+from ..ekf.state import pack_state
 from ..map import builder as map_builder
 from ..map import grid as map_grid
 from ..map import tiles as map_tiles
@@ -290,12 +293,13 @@ def pcm_init_step(state: PipelineState, t, pose, pp: PipelineParams,
     CallbackPcmInitOdom, ekf_localization.cpp:181-204: covariance 1e-9,
     source PCM_INIT). The PCM_INIT branch of ``update_gnss`` is a hard reset
     of the state, no Kalman update, once per relocalization: it runs as
-    plain torch on either device (kernel I takes only the PCM source)."""
+    plain torch on either device (kernel I takes only the PCM source), and
+    the reset state is packed into a fresh record for the EKF kernels."""
     dtype, dev = pose.dtype, pose.device
     eye = torch.eye(3, dtype=dtype, device=dev) * 1e-9
     meas = GnssMeas(timestamp=t, source=int(GnssSource.PCM_INIT), pos=pose[:3, 3],
                     rot=lie.rot_to_quat(pose[:3, :3]), pos_cov=eye, rot_cov=eye)
-    return state.replace(ekf=update_gnss(state.ekf, meas, pp.ekf, ps.ekf_flags))
+    return state.replace(ekf=pack_state(update_gnss(state.ekf, meas, pp.ekf, ps.ekf_flags)))
 
 
 def _one(*xs):
@@ -327,21 +331,36 @@ def can_step(state: PipelineState, t, vel_x, yaw_rate, pp: PipelineParams,
                                           can=_one(t, vel_x, yaw_rate)))
 
 
-def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
-                 ps: PipelineStatic) -> PipelineState:
-    """The frame's IMU samples through the EKF prediction one at a time
-    (masked by validity; ``ekf.filter.imu_chain``: kernel H on the card),
-    then one batch push into each ring (``rings.push_rings``: kernel J on
-    the card) (runtime.py:405-441)."""
+def imu_subbatch_plain(st: PipelineState, b, pp: PipelineParams,
+                       ps: PipelineStatic) -> PipelineState:
+    """Plain PyTorch version of kernel H (runtime.py:405-441): the frame's
+    IMU samples into the ego frame (``frames.imu_to_ego``; PCM's intake
+    rotated only), through ``ekf.filter.imu_chain_plain`` + ``ego_history``,
+    then one batch push into each ring (``rings.push_rings_plain``).
+    ``b["imu_valid"]`` None: every sample valid."""
     ts, accs, gyros, valids = b["imu_t"], b["imu_acc"], b["imu_gyro"], b["imu_valid"]
+    if valids is None:
+        valids = torch.ones(ts.shape[0], dtype=torch.bool, device=ts.device)
     acc_e, gyro_e = imu_to_ego(accs, gyros, pp.ego_to_imu_rot, pp.ego_to_imu_trans)
     # PCM's IMU intake rotates but does not lever-arm compensate (cpp:328)
     gyro_pcm = gyros @ pp.ego_to_imu_rot.T
     acc_pcm = accs @ pp.ego_to_imu_rot.T
+    ekf, hist = imu_chain_plain(st.ekf, ts, acc_e, gyro_e, valids, pp.ekf, ps.ekf_flags)
+    ego_ring, imu_ring = rings.push_rings_plain(st.ego_ring, st.imu_ring, ego_history(*hist),
+                                                (ts, gyro_pcm, acc_pcm), valids)
+    return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
 
-    ekf, hist = imu_chain(st.ekf, ts, acc_e, gyro_e, valids, pp.ekf, ps.ekf_flags)
-    ego_ring, imu_ring = rings.push_rings(st.ego_ring, st.imu_ring, hist,
-                                          (ts, gyro_pcm, acc_pcm), valids)
+
+def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
+                 ps: PipelineStatic) -> PipelineState:
+    """The frame's IMU stage (runtime.py:405-441): :func:`imu_subbatch_plain`
+    for CPU tensors, one launch of kernel H (``kernels.imu_stage``) for CUDA
+    ones."""
+    if b["imu_t"].device.type == "cpu":
+        return imu_subbatch_plain(st, b, pp, ps)
+    ekf, ego_ring, imu_ring = kernels.imu_stage(
+        st.ekf, st.ego_ring, st.imu_ring, b["imu_t"], b["imu_acc"], b["imu_gyro"],
+        b["imu_valid"], pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, ps.ekf_flags)
     return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
 
 
@@ -349,12 +368,11 @@ def imu_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,
              ps: PipelineStatic) -> PipelineState:
     """IMU sample -> EKF prediction -> published state into the rings
     (runtime.py:187-202): :func:`imu_subbatch` on a budget of one valid
-    sample (kernels H and J on the card). The one-sample push of the JAX
-    step (rings.py:75, with its clear on a time regression, dedupe and roll
-    when full) is the batch push of one row."""
-    one = torch.ones(1, dtype=torch.bool, device=acc_raw.device)
+    sample (one launch of kernel H on the card). The one-sample push of the
+    JAX step (rings.py:75, with its clear on a time regression, dedupe and
+    roll when full) is the batch push of one row."""
     return imu_subbatch(state, {"imu_t": t.reshape(1), "imu_acc": acc_raw[None],
-                                "imu_gyro": gyro_raw[None], "imu_valid": one}, pp, ps)
+                                "imu_gyro": gyro_raw[None], "imu_valid": None}, pp, ps)
 
 
 def imu_ring_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,

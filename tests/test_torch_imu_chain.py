@@ -32,6 +32,7 @@ from elimaloc_tpu.pipeline import runtime as jruntime
 from elimaloc_tpu_torch import config as tconfig
 from elimaloc_tpu_torch import convert
 from elimaloc_tpu_torch.ekf import filter as tfilter
+from elimaloc_tpu_torch.pipeline import rings as trings
 from elimaloc_tpu_torch.pipeline import runtime as truntime
 from torch_parity import assert_tree_close, flatten, one_torch_thread, t  # noqa: F401
 
@@ -134,21 +135,30 @@ def test_imu_chain_matches_jax(dt_name, flags):
 
 @pytest.mark.parametrize("dt_name", sorted(DTYPES))
 def test_imu_chain_dispatch_returns_the_ego_history(dt_name):
-    """``imu_chain`` on CPU tensors = the plain chain + the ring's batched
-    Euler / local-velocity conversions (JAX runtime.py:435-436)."""
+    """``runtime.imu_subbatch`` on CPU tensors is its plain composition: the
+    plain chain, the ring's batched Euler / local-velocity conversions (JAX
+    runtime.py:435-436) pushed into the ego ring, and PCM's rotated samples
+    into the IMU ring."""
     _, tdt, _ = DTYPES[dt_name]
     rng = np.random.default_rng(23)
     tcfg = _cfg(tconfig, "default")
     tpp = truntime.make_pipeline_params(tcfg, dtype=tdt)
-    flags = truntime.make_pipeline_static(tcfg).ekf_flags
+    tps = truntime.make_pipeline_static(tcfg)
     st = tfilter.init_state(tpp.ekf, dtype=tdt).replace(
         state_initialized=torch.tensor(True), prev_timestamp=torch.tensor(1.0, dtype=tdt))
     ts, acc, gyro, valid = (t(x, tdt) for x in _batch("default", rng))
+    pst = truntime.PipelineState(ekf=st, ego_ring=trings.make_ego_ring(16, tdt),
+                                 imu_ring=trings.make_imu_ring(16, tdt))
+    out = truntime.imu_subbatch(pst, dict(imu_t=ts, imu_acc=acc, imu_gyro=gyro,
+                                          imu_valid=valid), tpp, tps)
+    acc_e, gyro_e = truntime.imu_to_ego(acc, gyro, tpp.ego_to_imu_rot, tpp.ego_to_imu_trans)
     e1, (t_s, pos_s, rot_s, vel_s, gyro_s) = tfilter.imu_chain_plain(
-        st, ts, acc, gyro, valid, tpp.ekf, flags)
-    e2, hist = tfilter.imu_chain(st, ts, acc, gyro, valid, tpp.ekf, flags)
-    assert_tree_close(flatten(e2), flatten(e1), atol=0.0)
+        st, ts, acc_e, gyro_e, valid, tpp.ekf, tps.ekf_flags)
+    assert_tree_close(flatten(out.ekf), flatten(e1), atol=0.0)
     rpy = tfilter.lie.rot_to_euler(tfilter.lie.quat_to_rot(rot_s))
-    want = (t_s, pos_s, rpy, tfilter.global_to_local_velocity(vel_s, rpy), gyro_s)
-    for a, b in zip(hist, want):
-        assert torch.equal(a, b)
+    want = trings.push_ego_batch(pst.ego_ring, t_s, pos_s, rpy,
+                                 tfilter.global_to_local_velocity(vel_s, rpy), gyro_s, valid)
+    assert_tree_close(flatten(out.ego_ring), flatten(want), atol=0.0)
+    want = trings.push_imu_batch(pst.imu_ring, ts, gyro @ tpp.ego_to_imu_rot.T,
+                                 acc @ tpp.ego_to_imu_rot.T, valid)
+    assert_tree_close(flatten(out.imu_ring), flatten(want), atol=0.0)

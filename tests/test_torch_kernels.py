@@ -14,12 +14,15 @@ JTr rtol 1e-4 (the f32 sums over ~1k rows are reduced in another order);
 kernels E, F, G (GICP, VGICP, AVGICP): ``ok`` and the selected covariances
 and means exactly equal (the same exact search, then copies), JTJ, JTr and
 the fitness numerator rtol 1e-4 on the norms (the per-row 3x3 inverses and
-products run with FMAs and the sums in another order); kernel H (the IMU
-chain, per flag set): pos / vel and the history's pos / vel_local atol
-1e-4 m, the quaternions 1e-6, the history's angles 1e-5 rad, each P entry
-within 1e-4 sqrt(P_ii P_jj) plus eight float32 ulps of its scale before the
-call (the plain version's small products go through cuBLAS, whose summation
-order and FMAs differ from the kernel's ordered sums); kernel I (CAN, GPS
+products run with FMAs and the sums in another order); kernel H (the whole
+IMU stage in one launch, per flag set and on the rings' edge cases, against
+``runtime.imu_subbatch_plain``): pos / vel atol 1e-4 m, the quaternions
+1e-6, each P entry within 1e-4 sqrt(P_ii P_jj) plus eight float32 ulps of
+its scale before the call (the plain version's small products go through
+cuBLAS, whose summation order and FMAs differ from the kernel's ordered
+sums), both rings' t and count exactly, their pos / vel_local / gyro / acc
+atol 1e-4 and rpy 1e-5 rad; H's packed output through I and O with no
+pack, and a hot reload's parameters reaching I; kernel I (CAN, GPS
 3- and 6-DOF, the PCM pose with ``apply`` true and false, and the
 pipeline's one-sample CAN and GPS steps): each P entry within 1e-5
 sqrt(P_ii P_jj) plus the same rounding term, every other float field of
@@ -174,30 +177,46 @@ def test_cpu_callers_run_plain_versions_only(scene, monkeypatch):
 
 
 def test_launch_counters_name_all_seven_kernels():
-    """Every kernel's counter: A-G, the EKF kernels H and I, the scan-time
-    ring ops and GN step J, K, L, M, the window shift N, the CA tick O, the
-    radar covariances P, the hash grid's Q (its fused, query and lookup
-    entries) and the ground probe R."""
+    """Every kernel's counter: A-G, the EKF kernels H (the whole IMU stage)
+    and I, the scan-time ring ops and GN step J, K, L, M, the window shift N,
+    the CA tick O, the radar covariances P, the hash grid's Q (its fused,
+    query and lookup entries) and the ground probe R; the record packs
+    apart."""
+    assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
-        "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_chain",
+        "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_stage",
         "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
         "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
-    """The wrappers pass one pointer per EkfState / EkfParams field in the
-    order of csrc/ekf.cuh's enums: the same fields, the same count."""
+    """The packed records' layouts (ekf/state.py) are csrc/ekf.cuh's: every
+    EkfState field once, at the byte offsets of ``kRecordOffsets`` in the
+    record of ``kRecordBytes``, and every EkfParams field at the float
+    offset of its ``Param`` enumerator in a record of ``kParamWords``."""
+    from elimaloc_tpu_torch.ekf import state as estate
+
     assert [f[0] for f in kernels.EKF_FIELDS] == [
         f.name for f in dataclasses.fields(EkfState)]
-    assert [f[0] for f in kernels.PARAM_FIELDS] == [
+    assert sorted(f[0] for f in estate.RECORD_FIELDS) == sorted(
+        f.name for f in dataclasses.fields(EkfState))
+    assert [f[0] for f in estate.PARAM_FIELDS] == [
         f.name for f in dataclasses.fields(EkfParams)]
     src = (build.SRC_DIR / "ekf.cuh").read_text()
-    for enum, table in (("Field", kernels.EKF_FIELDS), ("Param", kernels.PARAM_FIELDS)):
-        body = re.search(r"enum %s \{([^}]*)\}" % enum, src).group(1)
-        names = [n.strip() for n in body.split(",") if n.strip()]
-        assert names[-1].startswith("k") and len(names) - 1 == len(table), enum
+    lay = estate.record_layout(torch.float32)
+    offsets = re.search(r"kRecordOffsets\[\] = \{([^}]*)\}", src).group(1)
+    assert [int(v) for v in offsets.split(",")] == [off for _, off, _, _ in lay.fields]
+    assert int(re.search(r"constexpr int kRecordBytes = (\d+);", src).group(1)) == lay.nbytes
+    body = re.search(r"enum Param \{([^}]*)\}", src).group(1)
+    enum = dict((k.strip(), int(v)) for k, v in (e.split("=") for e in body.split(",")))
+    assert enum.pop("kParamWords") == estate.PARAM_WORDS
+    off, want = 0, []
+    for _, shape in estate.PARAM_FIELDS:
+        want.append(off)
+        off += int(np.prod(shape))
+    assert list(enum.values()) == want and off <= estate.PARAM_WORDS
 
 
 def _ekf_inputs(device, dtype=torch.float32, flags="default"):
@@ -262,8 +281,12 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
     joseph = dataclasses.replace(flags, joseph_form=True)
     kernels.reset_launches()
     if which == "imu_chain":
-        got = efilter.imu_chain(st, *imu, pp.ekf, joseph)[0]
-        ref = efilter.imu_chain(st, *imu, pp.ekf, flags)[0]
+        pst = runtime.PipelineState(ekf=st, ego_ring=rings.make_ego_ring(8),
+                                    imu_ring=rings.make_imu_ring(8))
+        b = dict(zip(("imu_t", "imu_acc", "imu_gyro", "imu_valid"), imu))
+        ps = runtime.make_pipeline_static(ElimalocConfig())
+        got = runtime.imu_subbatch(pst, b, pp, dataclasses.replace(ps, ekf_flags=joseph)).ekf
+        ref = runtime.imu_subbatch(pst, b, pp, dataclasses.replace(ps, ekf_flags=flags)).ekf
     else:
         kw = dict(can=can, gps=gps, gnss_uncertainty_max=pp.gnss_uncertainty_max,
                   pcm=(meas, torch.tensor(True)))
@@ -277,7 +300,7 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
 
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
                                    "p2p_correspond", "gicp_correspond",
-                                   "vgicp_correspond", "avgicp_correspond", "imu_chain",
+                                   "vgicp_correspond", "avgicp_correspond", "imu_stage",
                                    "ekf_update", "ring_push", "scan_ring_query",
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
                                    "radar_cov", "hash_correspond", "hash_query",
@@ -312,11 +335,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
                 kernels.gn_step(torch.zeros(18), torch.eye(4), torch.zeros(()),
                                 torch.eye(6), torch.ones(()), params, False)
         return
-    if which in ("imu_chain", "ekf_update", "ca_tick"):
+    if which in ("imu_stage", "ekf_update", "ca_tick"):
         st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
         with pytest.raises(ValueError, match="CUDA tensor required"):
-            if which == "imu_chain":
-                kernels.imu_chain(st, *imu, pp.ekf, flags)
+            if which == "imu_stage":
+                kernels.imu_stage(st, rings.make_ego_ring(8), rings.make_imu_ring(8), *imu,
+                                  pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, flags)
             elif which == "ca_tick":
                 kernels.ca_tick(st, torch.tensor(1.01), pp.ekf)
             else:
@@ -505,31 +529,178 @@ def test_assign_slots_edges_match_plain_on_card(cuda, case):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), (case, f.name)
 
 
+#: ring cases of kernel H's pushes: the ego and IMU rings' capacities, then
+#: (count, first time) of each (None: empty rings); the frame's 12 samples
+#: are more than the smaller rings hold
+STAGE_RINGS = {"append": (16, 8, None), "fill_and_roll": (16, 8, ((16, 0.8), (8, 0.9))),
+               "regress_clears": (16, 8, ((10, 1.5), (5, 1.5))),
+               "longer_than_ring": (8, 4, ((3, 0.9), (2, 0.9)))}
+
+
+def _stage_inputs(device, flags="default", joseph=False, rings_case="append"):
+    """A pipeline state (the filter of ``_ekf_inputs``, rings per
+    ``rings_case``), the frame's raw IMU batch and an ego-to-IMU
+    calibration with a rotation and a lever arm."""
+    st, pp, eflags, imu, *_ = _ekf_inputs(device, flags=flags)
+    eflags = dataclasses.replace(eflags, joseph_form=joseph)
+    rng = np.random.default_rng(5)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    rot = icp.lie.euler_to_rot(torch.tensor([0.01, -0.005, 0.02], dtype=torch.float64))
+    pp = pp.replace(ego_to_imu_rot=f(rot.numpy()), ego_to_imu_trans=f([0.2, 0.0, 0.1]))
+    re, ri, fill = STAGE_RINGS[rings_case]
+    ego = rings.make_ego_ring(re, device=device)
+    imu_ring = rings.make_imu_ring(ri, device=device)
+    if fill is not None:
+        (ce, te), (ci, ti) = fill
+        rows = lambda n: f(rng.normal(size=(n, 3)))  # noqa: E731
+        ego = ego.replace(t=f(te + 0.01 * np.arange(re)), pos=rows(re), rpy=rows(re),
+                          vel_local=rows(re), gyro=rows(re),
+                          count=torch.tensor(ce, dtype=torch.int32, device=device))
+        imu_ring = imu_ring.replace(t=f(ti + 0.01 * np.arange(ri)), gyro=rows(ri), acc=rows(ri),
+                                    count=torch.tensor(ci, dtype=torch.int32, device=device))
+    pst = runtime.PipelineState(ekf=st, ego_ring=ego, imu_ring=imu_ring)
+    b = dict(zip(("imu_t", "imu_acc", "imu_gyro", "imu_valid"), imu))
+    ps = dataclasses.replace(runtime.make_pipeline_static(ElimalocConfig()), ekf_flags=eflags)
+    return pst, b, pp, ps
+
+
+def _check_stage(got, ref, prior):
+    """Kernel H's gates against its plain composition: pos / vel 1e-4 m, the
+    quaternions 1e-6, P within its share of 1e-4 sqrt(P_ii P_jj) plus the
+    rounding term, flags and counters equal; the rings' t and count
+    exactly, their fields within the history gates (pos, vel_local, gyro,
+    acc 1e-4, rpy 1e-5 rad)."""
+    for name in ("pos", "vel"):
+        torch.testing.assert_close(getattr(got.ekf, name), getattr(ref.ekf, name), rtol=0,
+                                   atol=1e-4)
+    for name in ("rot", "imu_rot"):
+        torch.testing.assert_close(getattr(got.ekf, name), getattr(ref.ekf, name), rtol=0,
+                                   atol=1e-6)
+    assert _p_entry_err(got.ekf.P, ref.ekf.P, prior.P, 1e-4) <= 1.0
+    for f, dt, _ in kernels.EKF_FIELDS:
+        if dt != torch.float32:
+            assert torch.equal(getattr(got.ekf, f), getattr(ref.ekf, f)), f
+    for ring, atol in (("ego_ring", dict(pos=1e-4, rpy=1e-5, vel_local=1e-4, gyro=1e-4)),
+                       ("imu_ring", dict(gyro=1e-4, acc=1e-4))):
+        a, b = getattr(got, ring), getattr(ref, ring)
+        assert torch.equal(a.t, b.t) and torch.equal(a.count, b.count), ring
+        for f, tol in atol.items():
+            torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", ["default", "zupt", "calibration", "no_gravity", "no_cf"])
 def test_imu_chain_matches_plain_on_card(cuda, flags):
-    st, pp, eflags, imu, *_ = _ekf_inputs(cuda, flags=flags)
+    """Kernel H, the frame's whole IMU stage in one launch, against its plain
+    composition ``runtime.imu_subbatch_plain`` on the same raw samples."""
+    pst, b, pp, ps = _stage_inputs(cuda, flags)
     kernels.reset_launches()
-    got, ghist = efilter.imu_chain(st, *imu, pp.ekf, eflags)
+    got = runtime.imu_subbatch(pst, b, pp, ps)
     torch.cuda.synchronize()
-    assert kernels.launches["imu_chain"] == 1
-    ref, rhist = efilter.imu_chain_plain(st, *imu, pp.ekf, eflags)
-    rhist = efilter.ego_history(*rhist)
-    for name in ("pos", "vel"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-4)
-    for name in ("rot", "imu_rot"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-6)
-    assert _p_entry_err(got.P, ref.P, st.P, 1e-4) <= 1.0
-    for f, _, _ in kernels.EKF_FIELDS:
-        a, b = getattr(got, f), getattr(ref, f)
-        if a.dtype != torch.float32:
-            assert torch.equal(a, b), f
-    for a, b, atol in zip(ghist, rhist, (0.0, 1e-4, 1e-5, 1e-4, 1e-4)):
-        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    assert kernels.launches["imu_stage"] == 1 == sum(kernels.launches.values())
+    ref = runtime.imu_subbatch_plain(pst, b, pp, ps)
+    _check_stage(got, ref, pst.ekf)
     if flags == "zupt":
-        assert not torch.equal(got.ba, st.ba)
+        assert not torch.equal(got.ekf.ba, pst.ekf.ba)
     if flags == "calibration":
-        assert bool(got.vehicle_imu_calib_started)
+        assert bool(got.ekf.vehicle_imu_calib_started)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fill_and_roll", "regress_clears", "dedupe", "none_valid",
+                                  "one_sample", "longer_than_ring"])
+def test_imu_stage_ring_edges_match_plain_on_card(cuda, case):
+    """Kernel H's pushes on the rings' edge cases: a ring that fills and
+    rolls, a time regression at the first valid sample (clear), duplicate
+    and near-duplicate stamps (the ego ring's 1e-5 dedupe), a frame with no
+    valid sample, one sample with ``valid`` None (``imu_step``), and more
+    samples than either ring holds."""
+    pst, b, pp, ps = _stage_inputs(cuda, rings_case=case if case in STAGE_RINGS else "append")
+    if case == "dedupe":
+        t = b["imu_t"].clone()
+        t[2], t[3] = t[1], t[1] + 5e-6
+        b["imu_t"] = t
+    elif case == "none_valid":
+        b["imu_valid"] = torch.zeros_like(b["imu_valid"])
+    elif case == "one_sample":
+        b = {k: None if v.dtype == torch.bool else v[:1] for k, v in b.items()}
+    kernels.reset_launches()
+    got = runtime.imu_subbatch(pst, b, pp, ps)
+    torch.cuda.synchronize()
+    assert kernels.launches["imu_stage"] == 1 == sum(kernels.launches.values())
+    _check_stage(got, runtime.imu_subbatch_plain(pst, b, pp, ps), pst.ekf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["frames", "events"])
+def test_imu_stage_chains_its_own_outputs_on_card(cuda, loop):
+    """Kernel H fed its own outputs (the state and the rings it made, taken
+    back by identity), frame after frame or one IMU event after another:
+    each launch against the plain composition on the same input, the
+    rings' old rows included."""
+    pst, b, pp, ps = _stage_inputs(cuda, rings_case="fill_and_roll")
+    got = pst
+    for step in range(4 if loop == "frames" else 12):
+        if loop == "frames":
+            bs = {**b, "imu_t": b["imu_t"] + 0.12 * step}
+        else:
+            k = step % 10
+            bs = {"imu_t": b["imu_t"][k:k + 1] + 0.12 * (step // 10),
+                  "imu_acc": b["imu_acc"][k:k + 1], "imu_gyro": b["imu_gyro"][k:k + 1],
+                  "imu_valid": None}
+        kernels.reset_launches()
+        nxt = runtime.imu_subbatch(got, bs, pp, ps)
+        assert kernels.launches["imu_stage"] == 1 and not any(kernels.packs.values()) or \
+            step == 0
+        _check_stage(nxt, runtime.imu_subbatch_plain(got, bs, pp, ps), got.ekf)
+        got = nxt
+
+
+@pytest.mark.cuda
+def test_packed_states_flow_through_kernels_h_i_o_on_card(cuda):
+    """One pack where a state is built field by field, none after: kernel H's
+    packed output goes into kernels I and O as it is, each one launch and
+    each against its plain version on that packed state."""
+    pst, b, pp, ps = _stage_inputs(cuda)
+    _, _, flags, _, can, gps, meas = _ekf_inputs(cuda)
+    kernels.reset_launches()
+    st = runtime.imu_subbatch(pst, b, pp, ps)
+    assert kernels.packs["ekf_state"] == 1
+    from elimaloc_tpu_torch.ekf import state as estate
+
+    assert estate.state_record(st.ekf) is not None
+    kw = dict(can=can, gps=gps, gnss_uncertainty_max=pp.gnss_uncertainty_max,
+              pcm=(meas, torch.tensor(True, device=cuda)))
+    upd = efilter.update_chain(st.ekf, pp.ekf, flags, **kw)
+    tick, _ = efilter.ca_tick(upd, torch.tensor(1.2, device=cuda), pp.ekf)
+    torch.cuda.synchronize()
+    assert kernels.packs == {"ekf_state": 1, "ekf_params": 0}
+    assert (kernels.launches["imu_stage"], kernels.launches["ekf_update"],
+            kernels.launches["ca_tick"]) == (1, 1, 1)
+    ref = efilter.update_chain_plain(st.ekf, pp.ekf, flags, **kw)
+    assert _p_entry_err(upd.P, ref.P, st.ekf.P, 1e-5) <= 1.0
+    for f in ("pos", "vel", "rot"):
+        assert _rel(getattr(upd, f), getattr(ref, f)) <= 1e-5, f
+    ref, _ = efilter.ca_tick_plain(upd, torch.tensor(1.2, device=cuda), pp.ekf)
+    assert _p_entry_err(tick.P, ref.P, upd.P, 1e-5) <= 1.0
+    torch.testing.assert_close(tick.pos, ref.pos, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hot_reload_reaches_kernel_i_on_card(cuda):
+    """A value-only reload (a new params record) changes kernel I's CAN
+    gain as it changes the plain version's."""
+    st, pp, flags, _, can, *_ = _ekf_inputs(cuda)
+    cfg = ElimalocConfig()
+    cfg.ekf.can_meas_uncertainty_vel_mps *= 0.01
+    pp2 = runtime.make_pipeline_params(cfg, device=cuda)
+    a = efilter.update_chain(st, pp.ekf, flags, can=can)
+    b = efilter.update_chain(st, pp2.ekf, flags, can=can)
+    assert float((a.vel - b.vel).abs().max()) > 1e-3
+    for got, params in ((a, pp.ekf), (b, pp2.ekf)):
+        ref = efilter.update_chain_plain(st, params, flags, can=can)
+        assert _rel(got.vel, ref.vel) <= 1e-5
+        assert _p_entry_err(got.P, ref.P, st.P, 1e-5) <= 1.0
 
 
 @pytest.mark.cuda
@@ -592,12 +763,14 @@ def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["imu_chain", "ekf_update"])
+@pytest.mark.parametrize("which", ["imu_stage", "ekf_update"])
 def test_ekf_kernels_refuse_float64_on_card(cuda, which):
     st, pp, flags, imu, can, *_ = _ekf_inputs(cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        if which == "imu_chain":
-            kernels.imu_chain(st, *imu, pp.ekf, flags)
+        if which == "imu_stage":
+            kernels.imu_stage(st, rings.make_ego_ring(8, torch.float64, cuda),
+                              rings.make_imu_ring(8, torch.float64, cuda), *imu,
+                              pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, flags)
         else:
             kernels.ekf_update(st, pp.ekf, flags, can=can)
 
@@ -928,25 +1101,12 @@ def test_radar_cov_matches_plain_on_card(scene, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", ["default", "calibration"])
 def test_imu_chain_joseph_matches_plain_on_card(cuda, flags):
-    st, pp, eflags, imu, *_ = _ekf_inputs(cuda, flags=flags)
-    eflags = dataclasses.replace(eflags, joseph_form=True)
+    pst, b, pp, ps = _stage_inputs(cuda, flags, joseph=True)
     kernels.reset_launches()
-    got, ghist = efilter.imu_chain(st, *imu, pp.ekf, eflags)
+    got = runtime.imu_subbatch(pst, b, pp, ps)
     torch.cuda.synchronize()
-    assert kernels.launches["imu_chain"] == 1
-    ref, rhist = efilter.imu_chain_plain(st, *imu, pp.ekf, eflags)
-    rhist = efilter.ego_history(*rhist)
-    for name in ("pos", "vel"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-4)
-    for name in ("rot", "imu_rot"):
-        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=0, atol=1e-6)
-    assert _p_entry_err(got.P, ref.P, st.P, 1e-4) <= 1.0
-    for f, _, _ in kernels.EKF_FIELDS:
-        a, b = getattr(got, f), getattr(ref, f)
-        if a.dtype != torch.float32:
-            assert torch.equal(a, b), f
-    for a, b, atol in zip(ghist, rhist, (0.0, 1e-4, 1e-5, 1e-4, 1e-4)):
-        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    assert kernels.launches["imu_stage"] == 1
+    _check_stage(got, runtime.imu_subbatch_plain(pst, b, pp, ps), pst.ekf)
 
 
 @pytest.mark.cuda
