@@ -35,15 +35,22 @@ entries) and ground probe (kernel R) on the card.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
-  2. build: the 18 CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
+  2. build: the CUDA kernels from elimaloc_tpu_torch/csrc/ (one nvcc per
      source, all started together), then the map and its two packings;
   3. per run_fused path:
      a. a warm-up replay that records main-path calls of the kernels;
      b. kernel vs plain on those inputs, with times from CUDA events
         (median of 20) and each kernel's bound (the least time the H100
         could take: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
-        counted from these inputs): the method's fused search + GN kernel
-        (A, E, F, G) and kernel M (the GN step) on every method path; on the
+        counted from these inputs): on the tile P2P path the loop kernel
+        (``p2p_register``: kernels A and M as one cooperative launch a
+        registration) on every frame's recorded call, bit for bit against
+        the three-launch chain it replaces (kernel A's search +
+        reduce_partials_kernel, kernel M, the stop flag read back each
+        iteration) and within A's and M's tolerances of its plain version,
+        then kernel A and kernel M alone on frame 10's first iteration; on
+        the other method paths the method's fused search + GN kernel (E, F,
+        G) and kernel M (the GN step); on the
         P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
         stage: the sensor-frame conversion, the EKF chain and both ring
         pushes, against its plain composition; one profiled call of the
@@ -60,7 +67,11 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      c. the timed replay: the launch counts set to 0 just before it and
         read just after (every kernel of the path must have launched; H once
         a frame, J never, no EKF state or params packed: the same on every
-        replay with IMU below, H once an IMU event in ``run``),
+        replay with IMU below, H once an IMU event in ``run``; on every tile
+        P2P path, the replays, the tick mode, the relocalizations and the
+        windowed runs below, the loop kernel once a registration and kernels
+        A and M never), on the P2P path the GN stage a frame and the scans/s
+        beside the three-launch GN loop's (CHAIN_P2P),
         applied ratio, ATE against ground truth, slot drops, downsample
         budget, scans/s, a per-stage split and the frame time p50/p95, and
         on the fusion path the CAN and GPS samples the filter's gates
@@ -99,11 +110,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels B-D, H-R alone on
-     the device, and one more replay per run_fused path and of the windowed
-     run_fused for the device's busy share and its top kernels; no kernel
-     of a run_fused replay may be a library sort (a name with "sort" or
-     "Radix"): B and C sort on the card themselves;
+  6. torch.profiler, after every timed replay: kernels B-D, H-R and the
+     loop kernel alone on the device, and one more replay per run_fused
+     path and of the windowed run_fused for the device's busy share and
+     its top kernels; no kernel of a run_fused replay may be a library sort
+     (a name with "sort" or "Radix"): B and C sort on the card themselves;
+     on the P2P path one more replay, each frame under
+     ``torch.cuda.set_sync_debug_mode("error")``: one loop kernel a frame
+     and no kernel A, reduce_partials_kernel or M on the device, no
+     synchronizing or copying runtime call between the first frame's start
+     and the last frame's end, no device-to-host copy before the last loop
+     kernel ends;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract, and "P2P hash" on
@@ -207,6 +224,21 @@ SCAN_KERNELS = {
     "gn_step": ("gn_step.cu", "elimaloc_tpu/register/icp.py:202 _solve_step + :209 "
                               "_step_transform + the loop body :761-795"),
 }
+#: the P2P registration on the tile backend: kernels A and M as one
+#: cooperative launch a registration (the whole GN loop on the card), its
+#: source and the JAX loop it replaces
+LOOP = "p2p_register"
+LOOP_SOURCE = ("elimaloc_tpu_torch/csrc/p2p_register.cu + correspond.cuh + gn_step.cuh")
+LOOP_REPLACES = ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (P2P, "
+                 "tile): per iteration elimaloc_tpu/map/tiles.py:712 + register/icp.py:283 + "
+                 ":202 + :209 + the body :761-795")
+#: the per-iteration kernels A and M, which launch on no tile P2P path
+PER_ITERATION = ("p2p_correspond", "gn_step")
+#: the tile P2P headline path's GN stage, scans/s and frame p50 with the
+#: three-launch GN loop (kernel A's search, reduce_partials_kernel, kernel
+#: M; PERF.md section 5 before the loop kernel; H100 80GB HBM3, 700 W),
+#: printed beside this run's
+CHAIN_P2P = {"gn_ms": 0.412, "scans_per_s": 262.15, "frame_ms_p50": 3.42}
 FRAMES, EVENTS = "GICP frames", "FUSION events"
 WINDOWED = "P2P windowed"
 #: the windowed row's log length (bench.py:86 N_SCANS) and configuration
@@ -267,10 +299,15 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def device_phase():
-    smi = subprocess.run(
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def device_phase():
+    smi = card()
     log_line(smi)
     log_line(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
              f"torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -781,8 +818,9 @@ def hash_grid_phase(pipe, calls, mods):
         moved += nbytes(q, md, *got[m])
         out.append(dict(name=f"hash_query[{m}]", source=HASH[0], replaces=HASH[1],
                         max_abs_err=0.0, ms=time_ms(lambda: fn(g, q, md)),
-                        plain_ms=time_ms(lambda: plain(g, q, md)),
-                        launches=1, bound=bound(ops, moved)))
+                        plain_ms=time_ms(lambda: plain(g, q, md)), launches=1,
+                        device_fn=(lambda fn=fn: fn(g, q, md), "hash_query_kernel"),
+                        bound=bound(ops, moved)))
         log_line(f"  hash_query[{m}]: {n} queries, {int(valid_q.sum())} valid, bit for bit")
     ref_rows = grid_mod.lookup_plain(g, coords)
     if not torch.equal(rows, ref_rows):
@@ -791,6 +829,7 @@ def hash_grid_phase(pipe, calls, mods):
     out.append(dict(name="hash_lookup", source=HASH[0], replaces=HASH[1], max_abs_err=0.0,
                     ms=time_ms(lambda: grid_mod.lookup(g, coords)),
                     plain_ms=time_ms(lambda: grid_mod.lookup_plain(g, coords)), launches=1,
+                    device_fn=(lambda: grid_mod.lookup(g, coords), "hash_lookup_kernel"),
                     bound=bound(n * 40, nbytes(coords, rows) + probes * 8)))
     rf, rz = grid_mod.find_ground_height_plain(g, xy)
     ulp = float(torch.finfo(torch.float32).eps) * max(abs(float(rz)), 1e-30)
@@ -1259,6 +1298,194 @@ def gn_step_row(path, calls, mods):
                 bound=bound(ops, nbytes(sums, pose, fitness, local_cov, total, *got)))
 
 
+def p2p_chain(kernels, a, k):
+    """The three-launch chain the loop kernel replaces, on one recorded call
+    of it: per iteration kernel A's search + reduce_partials_kernel, then
+    kernel M, and the stop flag read back. Returns the loop's outputs (the
+    iteration count an int) and each iteration's reduced sums."""
+    halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_it = a
+    overlap = torch.zeros_like(fitness)
+    failed = torch.zeros((), dtype=torch.bool, device=sbuf.device)
+    sums, it = [], 0
+    while it < max_it:
+        sums.append(kernels.p2p_correspond(halo, slot_tile, sbuf, qmask, pose,
+                                           params.max_search_dist, **k)[0])
+        pose, local_cov, fitness, overlap, stop, failed = kernels.gn_step(
+            sums[-1], pose, fitness, local_cov, total, params, False)
+        it += 1
+        if bool(stop):
+            break
+    return (pose, local_cov, fitness, overlap, failed, it), sums
+
+
+def flip_norm(icp, pipe, a, at):
+    """The plain loop's termination norm at iteration ``at`` (1-based) on a
+    recorded call, and the threshold: where the kernel and the plain loop
+    stop after different counts, the norm must sit at the threshold."""
+    tmap, budget = pipe.map, pipe.static.icp_static.tile_budget
+    _, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, _ = a
+    prev = pose
+    for _ in range(at):
+        eq = icp.p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
+        prev = pose
+        pose, local_cov, fitness, _, _, _ = icp.gn_update_plain(
+            *eq, pose, fitness, local_cov, total, params, False)
+    step = torch.linalg.inv(prev.double()) @ pose.double()
+    tn = float(icp.lie.norm(icp.lie.so3_log(step[:3, :3])) + icp.lie.norm(step[:3, 3]))
+    return tn, float(params.termination_threshold)
+
+
+def loop_row(pipe, rec, mods):
+    """The P2P loop kernel on every frame's recorded call of the replay:
+    bit-equal to the three-launch chain (pose, local_cov, fitness, overlap,
+    failed, iterations), and against ``icp.p2p_register_plain`` (the plain
+    versions' host loop) with iterations and failed equal, the pose within
+    1e-4 (kernel M's row) and fitness and overlap within rel 1e-4 (kernel
+    A's row: the float32 sums in another order); where the two stop after
+    different counts, the plain loop's termination norm there must lie
+    within 0.1% of the threshold (the sums' rtol moves the step that much)
+    and the poses within the threshold. Then kernel A's and M's calls for
+    their own rows: the first iteration of frame ``rec.at``."""
+    kernels, icp = mods[0], mods[4]
+    tmap, budget = pipe.map, pipe.static.icp_static.tile_budget
+    calls = rec.every[LOOP]
+    worst, iters, flips = 0.0, [], []
+    for i, (a, k) in enumerate(calls):
+        got = kernels.p2p_register(*a, **k)
+        ref, _ = p2p_chain(kernels, a, k)
+        same = [torch.equal(x, y) for x, y in zip(got[:5], ref[:5])] + [int(got[5]) == ref[5]]
+        if not all(same):
+            raise AssertionError(f"{LOOP}: frame {i} differs from the three-launch chain; "
+                                 "equal (pose, local_cov, fitness, overlap, failed, "
+                                 f"iterations): {same}")
+        plain = icp.p2p_register_plain(tmap, *a[1:9], budget, a[9])
+        err = float((got[0] - plain[0]).abs().max())
+        rel = [abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+               for x, y in ((got[2], plain[2]), (got[3], plain[3]))]
+        n_k, n_p = int(got[5]), int(plain[5])
+        tol = 1e-4
+        if n_k != n_p:
+            tn, thr = flip_norm(icp, pipe, a, min(n_k, n_p))
+            flips.append((i, n_k, n_p, tn, thr))
+            log_line(f"  {LOOP}: frame {i} stops after {n_k} iterations, the plain loop after "
+                     f"{n_p}; the plain termination norm there {tn:.9g} vs threshold {thr:.9g}")
+            if not abs(tn - thr) <= 1e-3 * thr:
+                raise AssertionError(f"{LOOP}: frame {i} iteration counts differ away from "
+                                     "the termination threshold")
+            tol, rel = thr + 1e-4, [0.0, 0.0]
+        if not (bool(got[4]) == bool(plain[4]) and err <= tol and max(rel) <= 1e-4):
+            raise AssertionError(f"{LOOP}: frame {i} vs p2p_register_plain: pose err {err}, "
+                                 f"fitness / overlap rel {rel}, failed {bool(got[4])} / "
+                                 f"{bool(plain[4])}")
+        worst = max(worst, err)
+        iters.append(n_k)
+    a, k = rec.calls[LOOP]
+    halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_it = a
+    (_, _, _, _, _, n_it), sums = p2p_chain(kernels, a, k)
+    cap = kernels.p2p_register_capacity()
+    s = qmask.shape[0]
+    live = int(qmask.sum())
+    n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
+    row = halo.shape[1]
+    matched = [int(x[17]) for x in sums]
+    # every iteration's candidate tests (6 operations each) and matched rows
+    # (SEARCH_COST), kernel M's step (~600); each input byte read once: the
+    # halo rows of the tiles in use, the live queries, the masks, the carry
+    # in and out
+    ops = sum(live * row * 6 + m * SEARCH_COST["P2P"][2] + 600 for m in matched)
+    moved = (n_tiles * row * 12 + live * 12 + nbytes(qmask, slot_tile, pose, fitness, local_cov,
+                                                     total) + 54 * 4 + 2 + 4)
+    log_line(f"  {LOOP}: {len(calls)} registrations bit-equal to the three-launch chain, "
+             f"iterations {iters}, pose vs plain max {worst:.2e}, count flips "
+             f"{len(flips)}; frame {rec.at}: slots {s}, grid {min(max(s, 1), cap)} of "
+             f"{cap} co-resident CTAs, {n_it} iterations, matched {matched}")
+    out = dict(name=LOOP, source=LOOP_SOURCE, replaces=LOOP_REPLACES, max_abs_err=worst,
+               ms=time_ms(lambda: kernels.p2p_register(*a, **k)),
+               plain_ms=time_ms(lambda: icp.p2p_register_plain(tmap, *a[1:9], budget, max_it)),
+               device_fn=(lambda: kernels.p2p_register(*a, **k), "p2p_register_kernel"),
+               bound=bound(ops, moved), launches_key=LOOP)
+    # kernel A's and M's rows: the first iteration of frame rec.at
+    a_call = ((halo, slot_tile, sbuf, qmask, pose, params.max_search_dist), k)
+    m_call = ((sums[0], pose, fitness, local_cov, total, params, False), {})
+    return out, a_call, m_call, {"registrations_checked": len(calls), "iterations": iters,
+                                 "count_flips_vs_plain": len(flips), "grid_ctas": cap}
+
+
+def loop_trace_check(pipe, log, runtime, n):
+    """One more tile P2P run_fused replay under torch.profiler, each frame in
+    a record_function range and under torch.cuda.set_sync_debug_mode
+    ("error") (a synchronizing call inside a frame raises): on the device no
+    p2p_search_kernel, reduce_partials_kernel or gn_step_kernel and one loop
+    kernel a frame; between the first frame's start and the last frame's end
+    no runtime call that synchronizes; no device-to-host copy issued by an
+    operation inside a frame (the copy's linked operation, where the trace
+    links them; else no such copy before the last loop kernel ends). Memory
+    copies on the device inside a frame (clones, device to device) are
+    counted by kind, not refused."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    orig = runtime.fused_frame
+
+    def frame(*a, **k):
+        with record_function("chip_smoke.frame"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    runtime.fused_frame = frame
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.run_fused(log)
+            torch.cuda.synchronize()
+    finally:
+        runtime.fused_frame = orig
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = list(prof.events())
+    spans = [e for e in evs if e.device_type == cpu and e.name == "chip_smoke.frame"]
+    t0, t1 = min(e.time_range.start for e in spans), max(e.time_range.end for e in spans)
+
+    def in_frames(e):
+        return e is not None and t0 <= e.time_range.start <= t1
+
+    inside = [e.name for e in evs if e.device_type == cpu and in_frames(e)]
+    runtime_launches = sum(name.startswith("cudaLaunch") for name in inside)
+    blocking = sorted({name for name in inside if "Synchronize" in name})
+    kern = [e for e in evs if e.device_type == dev]
+    old = sorted({e.name for e in kern if any(
+        s in e.name for s in ("p2p_search_kernel", "reduce_partials_kernel", "gn_step_kernel"))})
+    loops = [e for e in kern if "p2p_register_kernel" in e.name]
+    # each device copy's issuing operation (its linked correlation id)
+    ops = {e.id: e for e in evs
+           if e.device_type == cpu and getattr(e, "linked_correlation_id", 0) == 0}
+    copies = [e for e in kern if e.name.startswith("Memcpy")]
+    linked = all(getattr(e, "linked_correlation_id", 0) > 0 for e in copies)
+    kinds = {}
+    if linked:
+        for e in copies:
+            if in_frames(ops.get(e.linked_correlation_id)):
+                kind = e.name.split(" ")[1]
+                kinds[kind] = kinds.get(kind, 0) + 1
+        dtoh = kinds.get("DtoH", 0)
+    else:
+        end = max((e.time_range.end for e in loops), default=0)
+        dtoh = sum("DtoH" in e.name and e.time_range.start < end for e in copies)
+    log_line(f"[P2P] traced replay: {len(spans)} frames, {len(loops)} loop kernels, "
+             f"{runtime_launches} runtime launch calls inside the frames, synchronizing "
+             f"runtime calls inside {blocking}, old GN kernels {old}, device copies issued "
+             "inside the frames by kind " + (str(kinds) if linked else "(not linked in this "
+                                            "trace; DtoH before the last loop kernel ends: "
+                                            f"{dtoh})")
+             + "; no synchronizing call inside a frame (sync debug mode: error)")
+    if not (len(spans) == n and len(loops) == n and not old and not blocking and not dtoh
+            and runtime_launches > 0):
+        raise AssertionError("[P2P] the traced replay breaks the one-launch GN loop contract")
+    return {"traced_loop_kernels": len(loops), "traced_runtime_launches": runtime_launches,
+            "traced_copies_in_frames": kinds if linked else None}
+
+
 class StageTimer:
     """``mark`` callback of the pipeline: one CUDA event per stage boundary."""
 
@@ -1371,8 +1598,13 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     radar = is_radar(path)
     path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
                     + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ()))
+    # P2P on the tile backend: the GN loop is one launch of the loop kernel
+    tile_p2p = method == "P2P" and not hashed
+    if tile_p2p:
+        path_kernels = tile_p2p_kernels(path_kernels)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
-                  every=("ekf_update",) + ((wrapper,) if radar else ())) as rec:
+                  every=("ekf_update",) + ((wrapper,) if radar else ())
+                  + ((LOOP,) if tile_p2p else ())) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
     if radar:
@@ -1393,6 +1625,13 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
                  f"{finite.count(False)}, with no match {matched.count(0)}; the row takes "
                  f"iteration {pick} ({matched[pick]} matched)")
     rows = []
+    loop_summary = {}
+    if tile_p2p:
+        # the loop kernel against the chain on every frame; A's and M's rows
+        # take the first iteration of frame rec.at
+        row, rec.calls["p2p_correspond"], rec.calls["gn_step"], loop_summary = loop_row(
+            pipe, rec, mods)
+        rows.append(row)
     if path == "P2P":
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
         rows += [imu_stage_row(rec.calls, pipe, mods), ekf_update_row(rec, mods, pcm_only=True),
@@ -1432,6 +1671,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     log_line(f"[{path}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
              f"host batch prep + upload included), launches {launches}, packs {packs}")
     check_imu_stage(path, launches, packs, n)
+    if tile_p2p:
+        check_loop(path, launches, n)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
@@ -1447,7 +1688,12 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
              f"{iters:.2f}")
     summary = {"scans_per_s": n / wall, "stage_ms": split, "frame_ms_p50": p50,
                "frame_ms_p95": p95, "ate_m": ate, "applied": applied,
-               "iterations_mean": iters}
+               "iterations_mean": iters, **loop_summary}
+    if path == "P2P":
+        log_line(f"[{path}] GN stage {split['gn']:.3f} ms a frame (three-launch loop: "
+                 f"{CHAIN_P2P['gn_ms']}), {n / wall:.2f} scans/s (three-launch loop: "
+                 f"{CHAIN_P2P['scans_per_s']}), frame p50 {p50:.3f} ms (three-launch "
+                 f"loop: {CHAIN_P2P['frame_ms_p50']}); card {card()}")
     if hashed:
         # kernel Q once per GN iteration (then M), and no tile kernel
         total_iters = int(np.sum(outs["iterations"]))
@@ -1476,6 +1722,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
             raise AssertionError(f"[{path}] the profiled replay saw no device kernel or a "
                                  f"library sort: {sorts}")
         summary["device_kernels_profiled"] = len(per)
+        if path == "P2P":
+            summary.update(loop_trace_check(pipe, log, runtime, n))
 
     deferred.append(profiled_replay)
     if path == FUSION:
@@ -1522,6 +1770,21 @@ def check_launches(what, launches, names):
     for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"[{what}] kernel {name} was not launched on the path")
+
+
+def tile_p2p_kernels(names):
+    """A tile P2P path's kernels: ``names`` with the per-iteration kernels A
+    and M replaced by the loop kernel."""
+    return tuple(n for n in names if n not in PER_ITERATION) + (LOOP,)
+
+
+def check_loop(what, launches, registrations):
+    """A tile P2P path: one launch of the loop kernel a registration, none of
+    kernel A or M."""
+    if not (launches[LOOP] == registrations and not any(launches[k] for k in PER_ITERATION)):
+        raise AssertionError(f"[{what}] {LOOP} launched {launches[LOOP]} times for "
+                             f"{registrations} registrations, "
+                             + ", ".join(f"{k} {launches[k]}" for k in PER_ITERATION))
 
 
 def check_imu_stage(what, launches, packs, frames):
@@ -1642,13 +1905,13 @@ def events_path(pipe, log, fused, mods, ate_rmse):
             "stage_ms": split}
 
 
-def reloc_phase(pipe, log, kernels, what="reloc",
-                names=("voxel_downsample", "assign_slots", "p2p_correspond", "gn_step")):
+def reloc_phase(pipe, log, kernels, what="reloc", names=None):
     """``initialize_at`` on the P2P pipeline (a packed tile map: the ground
     probe reads its halo rows; or the hash one: the BuiltMap's) from a click
     ~1 m and 1 deg off the truth at scan 0 (tests/test_pipeline.py:313-327):
     ok, the PCM_INIT warm-up on, the position within 1.5 m of the truth,
-    the kernels ``names`` launched."""
+    the kernels ``names`` launched (the tile map's: C, B and one launch of
+    the loop kernel, neither A nor M)."""
     x, y = log.truth_pos[0][:2] + 0.7
     yaw = log.truth_rpy[0][2] + np.deg2rad(1.0)
     kernels.reset_launches()
@@ -1660,7 +1923,9 @@ def reloc_phase(pipe, log, kernels, what="reloc",
     log_line(f"[{what}] initialize_at from ({x:.2f}, {y:.2f}, yaw {np.rad2deg(yaw):.2f} deg): "
              f"ok {ok}, pcm_init_on_going {bool(state.ekf.pcm_init_on_going)}, position "
              f"error {err:.3f} m, launches {launches}, packs {packs}")
-    check_launches(what, launches, names)
+    check_launches(what, launches, names or ("voxel_downsample", "assign_slots", LOOP))
+    if names is None:
+        check_loop(what, launches, 1)
     # the PCM_INIT reset's state is packed once, for the EKF kernels after it
     if not (ok and bool(state.ekf.pcm_init_on_going) and err < 1.5
             and packs == {"ekf_state": 1, "ekf_params": 0}):
@@ -1865,8 +2130,10 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
              + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in per_kind.items())
              + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
              f"ATE {ate:.4f} m, launches {launches}")
-    check_launches(TICK, launches, SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update",
-                                             "ring_push") + tuple(SCAN_KERNELS))
+    check_launches(TICK, launches, tile_p2p_kernels(
+        SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update", "ring_push")
+        + tuple(SCAN_KERNELS)))
+    check_loop(TICK, launches, per_kind["scan"][0])
     if not (launches["ca_tick"] == n_ticks and launches["imu_stage"] == 0
             and launches["ring_push"] == n_ticks + n_imu):
         raise AssertionError(f"[{TICK}] launch counts: {launches}")
@@ -1990,7 +2257,7 @@ def window_reloc(wlog, disk, cfg_mod, runtime, kernels, kw):
     """``initialize_at`` on a windowed pipeline whose first window lies ~100
     m from the click (configured at (-40, -60)), from a click 1 m and 1 deg
     off the truth: each call re-crops around the click (one synchronous
-    swap), launching kernels C, B, A and M. Two scans:
+    swap), launching kernels C, B and the P2P loop kernel. Two scans:
 
     * the log's scan as a caller hands it over (100 m range).
       ``initialize_at`` does not gate it to the sensor range, in the JAX
@@ -2022,7 +2289,8 @@ def window_reloc(wlog, disk, cfg_mod, runtime, kernels, kw):
                  f"{json.dumps(pipe.window_stats)}, position error {err:.3f} m, "
                  f"launches {launches}")
         check_launches(f"{WINDOWED} reloc", launches, ("voxel_downsample", "assign_slots",
-                                                       "p2p_correspond", "gn_step"))
+                                                       LOOP))
+        check_loop(f"{WINDOWED} reloc", launches, 1)
         if not (pipe._window_offset_tiles != first and pipe.window_stats["sync_swaps"] == 1):
             raise AssertionError(f"[{WINDOWED}] relocalization did not re-window")
         rec = {"ok": ok, "position_error_m": err, "share_within_window_radius": within}
@@ -2055,8 +2323,8 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
               tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots))
     cfg = window_cfg(cfg_mod)
     n = len(wlog.scan_t)
-    path_kernels = SHARED + (KERNEL["P2P"][0],) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS) + (
-        "shift_window",)
+    path_kernels = tile_p2p_kernels(SHARED + (KERNEL["P2P"][0],) + tuple(EKF_KERNELS)
+                                    + tuple(SCAN_KERNELS) + ("shift_window",))
     with tempfile.TemporaryDirectory() as store:
         t0 = time.time()
         tiles.build_tile_map(built, tile_voxels=4, halo_margin=1, storage_dir=store)
@@ -2110,6 +2378,7 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             check_imu_stage(f"{WINDOWED} {name}", kernels.launches, kernels.packs, n)
+            check_loop(f"{WINDOWED} {name}", kernels.launches, n)
             if launches is None:
                 launches = dict(kernels.launches)
             split, frames, per_frame = stages.split()

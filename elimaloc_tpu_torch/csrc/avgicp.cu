@@ -69,7 +69,7 @@ __global__ void avgicp_search_kernel(
   extern __shared__ float part[];  // [qb, kGnSums]
 
   // tile centres are not needed: the gate runs in world coordinates
-  const SlotQuery u = slot_query(slot_tile, sbuf, qmask, qb, pose, voxel, 1.0f,
+  const SlotQuery u = slot_query(blockIdx.x, slot_tile, sbuf, qmask, qb, pose, voxel, 1.0f,
                                  0, 0, 1);
   const bool live_slot = slot_any_live(u, &any_live);
   const size_t base = (size_t)u.tile * mhv;

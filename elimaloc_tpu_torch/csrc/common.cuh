@@ -100,11 +100,12 @@ __device__ __forceinline__ void pose_query(SlotQuery& u, const float* pose, cons
   }
 }
 
+// Slot ``s``'s query of this thread (a CTA owns one slot at a time: kernels
+// E, F, G take s = blockIdx.x, A's and the P2P loop's CTAs walk slots).
 __device__ __forceinline__ SlotQuery slot_query(
-    const int* slot_tile, const float* sbuf, const bool* qmask, int qb,
+    int s, const int* slot_tile, const float* sbuf, const bool* qmask, int qb,
     const float* pose, float voxel, float tile_size, int tx0, int ty0, int ty_dim) {
   SlotQuery u;
-  const int s = blockIdx.x;
   u.tpq = kThreads / qb;
   u.j = threadIdx.x / u.tpq;
   u.gl = threadIdx.x % u.tpq;

@@ -2,10 +2,14 @@
 //
 // Replaces elimaloc_tpu/map/tiles.py:nearest_point_slots (:712, with
 // _slot_centers :648 and _cube_mask :663) and register/icp.py:_p2p_tail
-// (:283). On the TPU the search is a dense [QB, MHP] distance plane per slot
-// plus a one-hot matmul to select the winner, because gathers are
-// scalar-core-bound there; the GN sums run as separate reductions over the
-// [S*QB] rows. On Hopper one CTA owns one slot:
+// (:283) for one GN iteration. The P2P registration on the card runs the
+// same slot code (correspond.cuh: p2p_slot) for every iteration in one
+// launch of the loop kernel (p2p_register.cu); this one-iteration entry is
+// the reference that loop is held to. On the TPU the search is a dense
+// [QB, MHP] distance plane per slot plus a one-hot matmul to select the
+// winner, because gathers are scalar-core-bound there; the GN sums run as
+// separate reductions over the [S*QB] rows. On Hopper one CTA owns one
+// slot:
 //   1-3. the slot search shared with kernels E, F and G (common.cuh:
 //      slot_query, PointStage, cube_argmin): the slot's halo row (MHP
 //      points, 8.5 KB at MHP=711) is staged in shared memory in
@@ -28,13 +32,11 @@
 // Bound: the distance plane, S * QB * MHP candidate tests (~2000 * 16 * 711
 // = 23M per GN iteration at the headline scan), i.e. FP32 instruction rate and shared
 // memory bandwidth, not HBM (the halo rows read are ~17 MB per pass).
-#include "common.cuh"
+#include "correspond.cuh"
 
 using namespace elm;
 
 namespace {
-
-constexpr int kParts = 18;    // partial sums per slot
 
 __global__ void p2p_search_kernel(
     const float* __restrict__ halo, int mhp, const int* __restrict__ slot_tile,
@@ -43,45 +45,9 @@ __global__ void p2p_search_kernel(
     float voxel, float tile_size, int tx0, int ty0, int ty_dim,
     float* __restrict__ partials, float* __restrict__ tgt_out,
     bool* __restrict__ ok_out) {
-  __shared__ float cl[kChunk * 3];
-  __shared__ int cv[kChunk * 3];
-  __shared__ float part[kThreads * kParts];  // qb <= 256 rows of kParts
-  __shared__ int any_live;
-
-  const SlotQuery u = slot_query(slot_tile, sbuf, qmask, qb, pose, voxel,
-                                 tile_size, tx0, ty0, ty_dim);
-  const bool live_slot = slot_any_live(u, &any_live);
-  const float* hrow = halo + (size_t)u.tile * mhp * 3;
-  float best_d2;
-  int best;
-  cube_argmin(u, live_slot, mhp, PointStage{hrow, u.c0, u.c1, voxel}, cl, cv,
-              best_d2, best);
-
-  if (u.gl == 0) {
-    const float md = max_dist[0];
-    const bool ok = u.live && best_d2 < mul(md, md);
-    float g0 = u.q[0], g1 = u.q[1], g2 = u.q[2];
-    if (ok) {
-      g0 = hrow[3 * best];
-      g1 = hrow[3 * best + 1];
-      g2 = hrow[3 * best + 2];
-    }
-    const int row = u.row;
-    if (tgt_out != nullptr) {
-      tgt_out[3 * row] = g0;
-      tgt_out[3 * row + 1] = g1;
-      tgt_out[3 * row + 2] = g2;
-      ok_out[row] = ok;
-    }
-    float* pr = part + u.j * kParts;
-    for (int k = 0; k < kParts; ++k) pr[k] = 0.0f;
-    if (ok) {
-      const float g[3] = {g0, g1, g2};
-      p2p_row(u, g, md, pr);
-    }
-  }
-  __syncthreads();
-  slot_partials(part, qb, kParts, partials + (size_t)blockIdx.x * kParts);
+  __shared__ P2pShared sm;
+  p2p_slot(blockIdx.x, halo, mhp, slot_tile, sbuf, qmask, qb, pose, max_dist[0], voxel,
+           tile_size, tx0, ty0, ty_dim, partials, tgt_out, ok_out, sm);
 }
 
 }  // namespace
@@ -96,6 +62,6 @@ extern "C" int elm_p2p_search_reduce(
         halo, mhp, slot_tile, sbuf, qmask, qb, pose, max_dist, voxel, tile_size,
         tx0, ty0, ty_dim, partials, tgt_out, ok_out);
   }
-  reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kParts, sums);
+  reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kP2pParts, sums);
   return (int)cudaGetLastError();
 }

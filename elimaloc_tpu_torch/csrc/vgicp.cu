@@ -45,7 +45,7 @@ __global__ void vgicp_search_kernel(
   __shared__ int any_live;
   extern __shared__ float part[];  // [qb, kGnSums]
 
-  const SlotQuery u = slot_query(slot_tile, sbuf, qmask, qb, pose, voxel,
+  const SlotQuery u = slot_query(blockIdx.x, slot_tile, sbuf, qmask, qb, pose, voxel,
                                  tile_size, tx0, ty0, ty_dim);
   const bool live_slot = slot_any_live(u, &any_live);
   const size_t base = (size_t)u.tile * mhv;

@@ -8,13 +8,21 @@ ekf/filter.py, pipeline/rings.py, pipeline/runtime.py) run the plain
 PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
-GPS + CAN) and of the event loop except the method kernels A, E, F, G, one
-per ICP method, N, O and P.
+GPS + CAN) and of the event loop except the method kernels (the P2P loop
+on the tile backend, E, F, G), N, O and P, and the per-iteration entries A
+and M where the loop kernel takes their place.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
 ========  ==================  ===================================================
-A         p2p_correspond      map/tiles.py:nearest_point_slots + icp._p2p_tail
+A + M     p2p_register        register/icp.py:run_register's lax.while_loop for
+                              P2P on the tile backend: A's search and partials,
+                              the reduction and M's step every iteration, the
+                              termination test; one cooperative launch per
+                              registration, no readback
+A         p2p_correspond      map/tiles.py:nearest_point_slots + icp._p2p_tail,
+                              one GN iteration (the loop's reference; its slot
+                              code runs inside p2p_register)
 B         assign_slots        map/tiles.py:assign_slots
 C         voxel_downsample    map/grid.py:voxel_downsample
 D         deskew              deskew.py:_find_rotation_batch + deskew_points
@@ -35,7 +43,9 @@ K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolate
 L         pcm_measurement     runtime.shape_icp_covariance +
                               rings.gnss_time_compensation + scan_step's glue
 M         gn_step             register/icp.py:_solve_step + _step_transform + the
-                              GN loop body (compose, so3_log, the gates)
+                              GN loop body (compose, so3_log, the gates) after
+                              E, F, G or Q; its step (gn_step.cuh) runs inside
+                              p2p_register for P2P on the tile backend
 N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
                               incremental move of an active map window
 O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False,
@@ -77,8 +87,8 @@ from ..ekf import state as ekf_state
 from .build import library
 
 #: launches per kernel since the last :func:`reset_launches`
-launches = {"p2p_correspond": 0, "assign_slots": 0, "voxel_downsample": 0,
-            "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
+launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
+            "voxel_downsample": 0, "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_stage": 0, "ekf_update": 0, "ring_push": 0,
             "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
             "shift_window": 0, "ca_tick": 0, "radar_cov": 0, "hash_correspond": 0,
@@ -122,6 +132,12 @@ def _raise_on(rc, name):
     if rc == NO_CLUSTER:
         raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters finds no room for "
                            f"the sort's {SORT_CTAS}-CTA cluster on this card")
+    if rc == NO_COOPERATIVE:
+        raise RuntimeError(f"{name}: this card cannot launch a cooperative kernel "
+                           "(cudaDevAttrCooperativeLaunch is 0)")
+    if rc == NO_ROOM:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveBlocksPerMultiprocessor finds "
+                           "no room for one CTA of the loop kernel")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
@@ -165,6 +181,11 @@ SHARED_TILES = 8192
 #: what a sorting kernel's entry returns when no such cluster fits the card
 #: (csrc/sort.cuh kNoCluster)
 NO_CLUSTER = -1
+#: what the P2P loop's entry returns when the card has no cooperative launch,
+#: or when no CTA of the loop kernel fits an SM (csrc/p2p_register.cu
+#: kNoCooperative, kNoRoom)
+NO_COOPERATIVE = -2
+NO_ROOM = -3
 
 
 def voxel_downsample(points, valid, voxel_size, out_size: int):
@@ -712,6 +733,52 @@ def gn_step(sums, pose, fitness, local_cov, total, params, gicp: bool):
     _raise_on(rc, "gn_step")
     launches["gn_step"] += 1
     return (out[:16].view(4, 4), out[16:52].view(6, 6), out[52], out[53], flags[0], flags[1])
+
+
+def p2p_register_capacity() -> int:
+    """The CTAs of the P2P loop kernel that the current card holds at once
+    (its grid is the smaller of this and the slot count)."""
+    ctas = ctypes.c_int(0)
+    _raise_on(library().elm_p2p_register_capacity(ctypes.byref(ctas)), "p2p_register")
+    return ctas.value
+
+
+def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                 params, max_iteration: int, *, voxel_size, tile_size, tx0, ty0, ty_dim):
+    """Kernels A and M as one loop (icp.p2p_register_plain): the whole P2P
+    GN/LM loop of one registration on the tile backend, from the carry
+    (``pose`` [4,4], ``fitness``, ``local_cov`` [6,6]) for at most
+    ``max_iteration`` iterations, in one cooperative launch; nothing is read
+    back. Returns (pose [4,4], local_cov [6,6], fitness, overlap, failed,
+    iterations int32)."""
+    s, qb = _qb_of(qmask, "p2p_register")
+    t1, mhp = halo_points.shape[:2]
+    dev = sbuf.device
+    args = [
+        _check(halo_points, "halo_points", _F32, (t1, mhp, 3)), ctypes.c_int(mhp),
+        _check(slot_tile, "slot_tile", torch.int32, (s,)),
+        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
+        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
+        _check(pose, "pose", _F32, (4, 4)), _check(fitness, "fitness", _F32, ()),
+        _check(local_cov, "local_cov", _F32, (6, 6)), _check(total, "total", _F32, ()),
+        _check(params.max_search_dist, "max_search_dist", _F32, ()),
+        _check(params.min_overlap_ratio, "min_overlap_ratio", _F32, ()),
+        _check(params.lm_lambda, "lm_lambda", _F32, ()),
+        _check(params.termination_threshold, "termination_threshold", _F32, ()),
+        ctypes.c_int(max_iteration), ctypes.c_float(voxel_size), ctypes.c_float(tile_size),
+        ctypes.c_int(tx0), ctypes.c_int(ty0), ctypes.c_int(ty_dim)]
+    partials = torch.empty((max(s, 1), P2P_SUMS), dtype=_F32, device=dev)
+    sums = torch.empty(P2P_SUMS, dtype=_F32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)   # zeroed by the kernel
+    carry = torch.empty(54, dtype=_F32, device=dev)
+    flags = torch.empty(2, dtype=_BOOL, device=dev)
+    iterations = torch.empty((), dtype=torch.int32, device=dev)
+    rc = library().elm_p2p_register(*args, _ptr(partials), _ptr(sums), _ptr(counters),
+                                    _ptr(carry), _ptr(flags), _ptr(iterations), _stream(sbuf))
+    _raise_on(rc, "p2p_register")
+    launches["p2p_register"] += 1
+    return (carry[:16].view(4, 4), carry[16:52].view(6, 6), carry[52], carry[53], flags[1],
+            iterations)
 
 
 # --------------------------------------------------------------------------- #

@@ -55,6 +55,9 @@ _SIGNATURES = {
                             _P, _P, _P, _P],
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "elm_p2p_register": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "elm_p2p_register_capacity": [ctypes.POINTER(_I)],
     "elm_shift_window": [_PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P, _I, _P],
     "elm_hash_search_reduce": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P,
                                _I, _P, _P, _P, _I, _P, _P, _P],

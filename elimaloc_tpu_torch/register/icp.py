@@ -3,22 +3,33 @@ hash backends — port of ``elimaloc_tpu/register/icp.py`` (reference:
 registration.cpp).
 
 ``run_register`` assigns the scan to tile slots once from the initial guess
-(the hoisted assignment, icp.py:660-675) and runs the GN/LM loop on the host:
-one search + GN reduction per iteration, the LM-damped 6x6 solve, the SE(3)
-step, the overlap and termination gates, and ONE scalar readback per
-iteration (``done | failed``) to decide whether to go on. That is the
+(the hoisted assignment, icp.py:660-675) and runs the GN/LM loop: one
+search + GN reduction per iteration, the LM-damped 6x6 solve, the SE(3)
+step, and the overlap and termination gates. That is the
 ``lax.while_loop`` exactly: same trip count, same carry. The window-origin
-conjugation (icp.py:630-632, 824-825) is kept; it is a zero shift for full
-maps. Only GICP exports ``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
+conjugation (icp.py:630-632, 824-825) is kept on the host around the loop;
+it is a zero shift for full maps. Only GICP exports
+``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
 
-One GN iteration is :func:`gn_iteration`. On a CUDA tensor it is two
-launches on one stream: the method's fused search + reduction kernel
-(:func:`search_sums`; csrc/: A ``correspond.cu`` P2P, E ``gicp.cu``, F
-``vgicp.cu``, G ``avgicp.cu``), then kernel M (``gn_step.cu``: the LM
-step, the gates and the carries), whose stop flag is the iteration's one
-readback. On a CPU tensor it is the plain versions: the tiles search
-composed with the method's tail (``*_search_reduce_plain``,
-icp.py:495-555) and :func:`gn_update_plain`.
+P2P on the tile backend runs the whole loop in one call: on a CUDA tensor
+one cooperative launch of ``kernels.p2p_register`` (csrc/
+``p2p_register.cu``: kernel A's slot search and partials, the reduction and
+kernel M's step every iteration, the termination test on the card; the host
+reads nothing back); on a CPU tensor :func:`p2p_register_plain`, the host
+loop of the plain versions with one readback per iteration.
+
+The other methods loop on the host, one GN iteration (:func:`gn_iteration`)
+at a time, and read ONE scalar back per iteration (``done | failed``) to
+decide whether to go on. On a CUDA tensor an iteration is two launches on
+one stream: the method's fused search + reduction kernel
+(:func:`search_sums`; csrc/: E ``gicp.cu``, F ``vgicp.cu``, G
+``avgicp.cu``), then kernel M (``gn_step.cu``: the LM step, the gates and
+the carries), whose stop flag is the iteration's one readback. On a CPU
+tensor it is the plain versions: the tiles search composed with the
+method's tail (``*_search_reduce_plain``, icp.py:495-555) and
+:func:`gn_update_plain`. Kernel A (``correspond.cu``, P2P) keeps its
+one-iteration entry (:func:`search_sums`), the reference the loop kernel is
+held to.
 
 With ``use_radar_cov`` every GICP / VGICP / AVGICP row adds its point's
 range / azimuth / elevation covariance (:func:`radar_point_cov`) to
@@ -154,6 +165,12 @@ def check_supported(static: IcpStatic) -> None:
         raise NotImplementedError(
             "psum_axis / slot_shard_axis: multi-device registration is in "
             "ROADMAP Queue 1, parallel/sharding.py")
+
+
+def _on_card(t) -> bool:
+    """Whether the GN loop's callers launch kernels for ``t`` (any device but
+    the CPU, where they run the plain versions)."""
+    return t.device.type != "cpu"
 
 
 # --------------------------------------------------------------------------- #
@@ -571,12 +588,59 @@ def gn_iteration(method: int, tmap, slot_tile, sbuf, qmask, pose, fitness, local
     overlap, stop, failed)."""
     gicp = method == int(IcpMethod.GICP)
     carry = (pose, fitness, local_cov, total, params)
-    if sbuf.device.type == "cpu":
+    if not _on_card(sbuf):
         return gn_update_plain(
             *search_reduce(method, tmap, slot_tile, sbuf, qmask, pose, params, budget,
                            radar), *carry, gicp)
     return kernels.gn_step(search_sums(method, tmap, slot_tile, sbuf, qmask, pose, params,
                                       radar), *carry, gicp)
+
+
+def host_loop(step, pose, fitness, local_cov, max_iteration: int):
+    """The GN/LM loop on the host (the ``lax.while_loop``'s trip count and
+    carry, icp.py:728-821): ``step(pose, fitness, local_cov)`` -> (pose,
+    local_cov, fitness, overlap, stop, failed) at most ``max_iteration``
+    times, ONE readback of ``stop`` per iteration. Returns (pose,
+    local_cov, fitness, overlap, failed, iterations int32)."""
+    overlap = torch.zeros_like(fitness)
+    failed = torch.zeros((), dtype=torch.bool, device=pose.device)
+    it = 0
+    while it < max_iteration:
+        pose, local_cov, fitness, overlap, stop, failed = step(pose, fitness, local_cov)
+        it += 1
+        if bool(stop):      # the one readback per iteration
+            break
+    return (pose, local_cov, fitness, overlap, failed,
+            torch.full((), it, dtype=torch.int32, device=pose.device))
+
+
+def p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                       params: IcpParams, budget: maptiles.TileQueryBudget,
+                       max_iteration: int):
+    """Plain PyTorch version of the P2P loop kernel (``kernels.p2p_register``):
+    :func:`host_loop` of :func:`p2p_search_reduce_plain` then
+    :func:`gn_update_plain` from the carry (``pose``, ``fitness``,
+    ``local_cov``). Returns (pose, local_cov, fitness, overlap, failed,
+    iterations int32)."""
+    def step(pose, fitness, local_cov):
+        eq = p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
+        return gn_update_plain(*eq, pose, fitness, local_cov, total, params, False)
+
+    return host_loop(step, pose, fitness, local_cov, max_iteration)
+
+
+def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                 params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int):
+    """The P2P registration loop on the tile backend: :func:`p2p_register_plain`
+    for CPU tensors, one launch of the loop kernel for CUDA ones."""
+    if not _on_card(sbuf):
+        return p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                  total, params, budget, max_iteration)
+    ax0, ay0 = tmap.grid_origin   # a shifted window's anchor (host ints)
+    return kernels.p2p_register(
+        tmap.halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+        max_iteration, voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0,
+        ty0=ay0, ty_dim=tmap.ty_dim)
 
 
 # --------------------------------------------------------------------------- #
@@ -620,7 +684,7 @@ def gn_iteration_hash(method: int, grid, src, valid, pose, fitness, local_cov, t
     failed)."""
     gicp = method == int(IcpMethod.GICP)
     carry = (pose, fitness, local_cov, total, params)
-    if src.device.type == "cpu":
+    if not _on_card(src):
         return gn_update_plain(
             *hash_search_reduce_plain(grid, src, valid, pose, params, method, radar),
             *carry, gicp)
@@ -690,16 +754,16 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     if mark is not None:
         mark("assign")
 
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    fitness = overlap = zero
+    fitness = torch.zeros((), dtype=dtype, device=dev)
     local_cov = torch.eye(6, dtype=dtype, device=dev)
-    failed = torch.zeros((), dtype=torch.bool, device=dev)
-    it = 0
-    while it < static.max_iteration:
-        pose, local_cov, fitness, overlap, stop, failed = step(pose, fitness, local_cov)
-        it += 1
-        if bool(stop):      # the one readback per iteration
-            break
+    if static.backend == "tile" and static.method == int(IcpMethod.P2P):
+        # the whole loop in one call: no readback on the card
+        pose, local_cov, fitness, overlap, failed, iterations = p2p_register(
+            tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, params,
+            static.tile_budget, static.max_iteration)
+    else:
+        pose, local_cov, fitness, overlap, failed, iterations = host_loop(
+            step, pose, fitness, local_cov, static.max_iteration)
     if mark is not None:
         mark("gn")
 
@@ -711,7 +775,7 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
         success=~failed & (fitness <= params.max_fitness_score),
         fitness=fitness,
         local_cov=local_cov,
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        iterations=iterations,
         overlap=overlap,
         dropped=dropped,
     )

@@ -181,7 +181,7 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: serving path (the host crops, the shift and the window management), the
 #: tick mode and the radar covariances, kernels J-P and their plain versions
 #: live in, the packed EKF records, the smoke script and the timing scripts
-#: of kernels B and C and of the IMU stage
+#: of kernels B and C, of the IMU stage and of the P2P GN loop
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -189,7 +189,8 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/register/icp.py", "elimaloc_tpu_torch/kernels/__init__.py",
                "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
-               "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py"]
+               "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
+               "tools/time_gn_loop.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)

@@ -180,11 +180,11 @@ def test_launch_counters_name_all_seven_kernels():
     """Every kernel's counter: A-G, the EKF kernels H (the whole IMU stage)
     and I, the scan-time ring ops and GN step J, K, L, M, the window shift N,
     the CA tick O, the radar covariances P, the hash grid's Q (its fused,
-    query and lookup entries) and the ground probe R; the record packs
-    apart."""
+    query and lookup entries), the ground probe R and the P2P loop kernel
+    (A and M in one launch); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
-        "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
+        "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_stage",
         "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
         "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
@@ -299,7 +299,7 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["deskew", "voxel_downsample", "assign_slots",
-                                   "p2p_correspond", "gicp_correspond",
+                                   "p2p_register", "p2p_correspond", "gicp_correspond",
                                    "vgicp_correspond", "avgicp_correspond", "imu_stage",
                                    "ekf_update", "ring_push", "scan_ring_query",
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
@@ -382,6 +382,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
         elif which == "assign_slots":
             kernels.assign_slots(inp["pts"], inp["valid"], 16, 64, voxel_size=1.0,
                                  tile_size=4.0, tx0=0, ty0=0, tx_dim=4, ty_dim=4)
+        elif which == "p2p_register":
+            params = icp.make_icp_params(icp.PcmConfig())
+            kernels.p2p_register(inp["tmap"].halo_points, *slot_args[:4], torch.zeros(()),
+                                 torch.eye(6), torch.ones(()), params, 10, **geo)
         else:
             s = torch.zeros(8, dtype=torch.int32)
             kernels.p2p_correspond(inp["tmap"].halo_points, s,
