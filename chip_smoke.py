@@ -14,7 +14,7 @@ bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
 covariances (``use_radar_cov``: kernel P and the radar forms of E, F, G);
 ``run_frames`` (the online mode) on the GICP pipeline ("GICP frames");
 ``run`` (the per-event loop) on the config-5 pipeline ("FUSION events"); the
-config-5 replay with the Joseph-form updates (kernels H and I with
+config-5 replay with the Joseph-form updates (kernels H, I and S with
 ``joseph_form``); ``run`` with ``use_imu=False`` on the P2P configuration
 ("P2P tick events": a CA tick at 100 Hz, kernel O, and the IMU ring
 intake). Then ``initialize_at`` (relocalization) on the P2P
@@ -54,24 +54,32 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
         stage: the sensor-frame conversion, the EKF chain and both ring
         pushes, against its plain composition; one profiled call of the
-        stage must show H alone on the device), I's one launch a frame (the
-        PCM pose), K and L (the ring queries at the scan's times, the PCM
-        measurement), B and C beside
+        stage must show H alone on the device), S (the scan's end in one
+        launch: the PCM measurement, the PCM update and the frame's
+        outputs) bit for bit against kernel L then kernel I on every
+        frame's call and against its plain composition on one (one profiled
+        call of the stage must show S alone on the device), K and L (the
+        ring queries at the scan's times; L, S's reference entry, on S's
+        inputs), B and C beside
         ``torch.sort(stable=True)`` of their keys alone (a partial
         yardstick) and on the sort's edge inputs (tests/sort_edges.py, bit
         for bit, one launch a call); on the fusion
-        path kernel I's frame pair (the CAN + GPS launch, then the PCM one);
+        path kernel I's launch a frame (the CAN + GPS sub-batches);
         on the radar paths the method's kernel in its radar form (rtol 1e-3)
         and, on GICP's, kernel P; on the hash paths kernel Q (its radar form
         against a float64 tail, as E, F, G's) and M;
      c. the timed replay: the launch counts set to 0 just before it and
         read just after (every kernel of the path must have launched; H once
         a frame, J never, no EKF state or params packed: the same on every
-        replay with IMU below, H once an IMU event in ``run``; on every tile
+        replay with IMU below, H once an IMU event in ``run``; on every path
+        below that runs scan_step, S once a scan, L never, I once a fusion
+        frame or CAN / GPS event and never without them; on every tile
         P2P path, the replays, the tick mode, the relocalizations and the
         windowed runs below, the loop kernel once a registration and kernels
         A and M never), on the P2P path the GN stage a frame and the scans/s
-        beside the three-launch GN loop's (CHAIN_P2P),
+        beside the three-launch GN loop's (CHAIN_P2P), the scan's end
+        (kernel S's stage) beside L, I and the eager epilogue's
+        (CHAIN_SCAN_END),
         applied ratio, ATE against ground truth, slot drops, downsample
         budget, scans/s, a per-stage split and the frame time p50/p95, and
         on the fusion path the CAN and GPS samples the filter's gates
@@ -80,7 +88,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
   4. "GICP frames" and "FUSION events", each with its launch counts: the
      frame loop must equal run_fused to 1e-6 m; the event loop must hold
      applied >= 0.9, ATE < 0.3 m, its last pose within 0.15 m of run_fused's
-     and admit CAN and GPS; the Joseph form: H and I with ``joseph_form``
+     and admit CAN and GPS; the Joseph form: H, I and S with ``joseph_form``
      against their plain versions on the fusion path's inputs, then its
      replay (applied >= 0.9, under the closed-loop contract against the
      reference form's, P asymmetry no larger, P diagonal positive); the
@@ -110,8 +118,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels B-D, H-R and the
-     loop kernel alone on the device, and one more replay per run_fused
+  6. torch.profiler, after every timed replay: kernels B-D, H-S and the
+     loop kernel alone on the device (and kernel L then kernel I beside S),
+     and one more replay per run_fused
      path and of the windowed run_fused for the device's busy share and
      its top kernels; no kernel of a run_fused replay may be a library sort
      (a name with "sort" or "Radix"): B and C sort on the card themselves;
@@ -120,7 +129,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      and no kernel A, reduce_partials_kernel or M on the device, no
      synchronizing or copying runtime call between the first frame's start
      and the last frame's end, no device-to-host copy before the last loop
-     kernel ends;
+     kernel ends; the device kernels a frame counted, each frame ending in
+     one kernel S after its loop kernel with no kernel L, I or eager
+     epilogue kernel after the loop;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract, and "P2P hash" on
@@ -178,10 +189,14 @@ EKF_KERNELS = {
                   ":27 imu_to_ego, elimaloc_tpu/ekf/filter.py:520 predict_imu (+ :344, :306, "
                   ":390, :424, :493), elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch "
                   "as :183, :192"),
-    "ekf_update": ("ekf_update.cu",
-                   "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 "
-                   "update_gnss + :705 update_can"),
 }
+#: kernel I, launched for the CAN and GPS updates alone (a fusion frame's
+#: sub-batches, the event loop's CAN and GPS events): its source and what it
+#: replaces; its PCM leg is kernel S's reference
+EKF_UPDATE = ("elimaloc_tpu_torch/csrc/ekf_update.cu + ekf_update.cuh",
+              "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 update_gnss + "
+              ":705 update_can as elimaloc_tpu/pipeline/runtime.py:453-480 (the CAN / GPS "
+              "sub-batches)")
 #: kernel J, whose one-ring entry serves the tick mode (kernel H pushes a
 #: frame's and an IMU event's rows itself): its source and what it replaces
 RING_PUSH = ("elimaloc_tpu_torch/csrc/rings.cu + rings.cuh",
@@ -217,13 +232,26 @@ SCAN_KERNELS = {
     "scan_ring_query": ("scan_ring.cu", "elimaloc_tpu/deskew.py:157 make_deskew_info "
                                         "(+ :82, :109) + elimaloc_tpu/pipeline/rings.py:204 "
                                         "get_interpolated_pose + runtime.py:338 compose"),
-    "pcm_measurement": ("pcm_meas.cu", "elimaloc_tpu/pipeline/runtime.py:275 "
-                                       "shape_icp_covariance + elimaloc_tpu/pipeline/"
-                                       "rings.py:251 gnss_time_compensation + runtime.py:"
-                                       "341-358"),
+    "pcm_stage": ("pcm_stage.cu + pcm_meas.cuh + ekf_update.cuh",
+                  "elimaloc_tpu/pipeline/runtime.py:341-362 (the scan tail: :275 "
+                  "shape_icp_covariance, elimaloc_tpu/pipeline/rings.py:251 "
+                  "gnss_time_compensation, elimaloc_tpu/ekf/filter.py:616 update_gnss + :221 "
+                  "as the PCM update, _select_state) + runtime.py:481-490 (fused_frame's "
+                  "epilogue: ego_state's pos, rpy, timestamp, P's asymmetry and smallest "
+                  "diagonal)"),
     "gn_step": ("gn_step.cu", "elimaloc_tpu/register/icp.py:202 _solve_step + :209 "
                               "_step_transform + the loop body :761-795"),
 }
+#: kernel L, whose body runs inside kernel S: the reference entry S is held
+#: to (kernel L, then kernel I's PCM leg), its source and what it replaces
+PCM_MEAS = ("elimaloc_tpu_torch/csrc/pcm_meas.cu + pcm_meas.cuh",
+            "elimaloc_tpu/pipeline/runtime.py:275 shape_icp_covariance + "
+            "elimaloc_tpu/pipeline/rings.py:251 gnss_time_compensation + runtime.py:341-358")
+#: the tile P2P path's scan end with kernel L, kernel I and the eager
+#: epilogue (its "measurement" + "pcm_update" + "outputs" stages, PERF.md
+#: section 5 before kernel S; H100 80GB HBM3, 700 W), printed beside this
+#: run's kernel S stage
+CHAIN_SCAN_END = {"ms": 1.256, "frame_ms_p50": 2.80}
 #: the P2P registration on the tile backend: kernels A and M as one
 #: cooperative launch a registration (the whole GN loop on the card), its
 #: source and the JAX loop it replaces
@@ -1046,22 +1074,19 @@ def imu_stage_row(calls, pipe, mods, joseph=False):
                 ms=time_ms(lambda: kernels.imu_stage(*a)),
                 plain_ms=time_ms(lambda: runtime.imu_subbatch_plain(st, b, pp, ps)),
                 device_fn=(lambda: kernels.imu_stage(*a), "imu_stage_kernel"),
-                stage_fn=lambda: runtime.imu_subbatch(st, b, pp, ps),
+                stage_fn=(lambda: runtime.imu_subbatch(st, b, pp, ps), "imu_stage_kernel"),
                 bound=bound(int(valid.sum()) * per_sample + 20 * valid.shape[0], moved))
 
 
-def ekf_update_row(rec, mods, joseph=False, pcm_only=False):
-    """Kernel I against ``update_chain_plain`` on a CAN sub-batch, a GPS
-    fix and a PCM pose the main path gave it: each P entry within 1e-5
-    sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``), every other
-    float field within rel
-    1e-5 of its largest entry, the flags and counters equal. Its time is
-    one fusion frame's two launches (the CAN + GPS sub-batch, then the PCM
-    update, as the path made them at the recorded frame). With ``joseph``
-    the same calls with the Joseph-form updates, held the same way. With
-    ``pcm_only`` (the main path, P2P: no CAN, no GPS) the one launch a frame
-    makes, the PCM pose alone: held on the run's first applied one, timed
-    on the recorded frame's."""
+def ekf_update_row(rec, mods, joseph=False):
+    """Kernel I against ``update_chain_plain`` on a CAN sub-batch and a GPS
+    fix the fusion path gave it: each P entry within 1e-5 sqrt(P_ii P_jj)
+    plus the rounding term (``p_entry_err``), every other float field within
+    rel 1e-5 of its largest entry, the flags and counters equal. Its time is
+    one fusion frame's launch (the CAN + GPS sub-batches, as the path made
+    it at the recorded frame; the PCM pose runs in kernel S). With
+    ``joseph`` the same calls with the Joseph-form updates, held the same
+    way."""
     kernels, efilter = mods[0], mods[7]
 
     def plain(*a, gps_source=None, **k):  # the plain chain reads it from the flags
@@ -1070,27 +1095,13 @@ def ekf_update_row(rec, mods, joseph=False, pcm_only=False):
     calls = rec.every["ekf_update"]
     if joseph:
         calls = [with_joseph(c, 2) for c in calls]
-    name = "ekf_update[joseph]" if joseph else (
-        "ekf_update" if pcm_only else "ekf_update[fusion frame]")
-    late = calls[rec.at:]
-    pcm = next(c for c in calls if c[1].get("pcm") is not None and bool(c[1]["pcm"][1]))
-    if pcm_only:
-        # held on the run's first applied PCM pose, as the fusion row holds
-        # it; timed on the recorded frame's
-        frame_calls = [next(c for c in late if c[1].get("pcm") is not None
-                            and bool(c[1]["pcm"][1]))]
-        checks = {"PCM": pcm}
-    else:
-        frame_can = next(c for c in late if c[1].get("can") is not None)
-        frame_calls = [frame_can, next(c for c in late if c[1].get("pcm") is not None)]
-        gps = next(c for c in calls
-                   if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
-        checks = {
-            "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
-            "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source",
-                                                    "gnss_uncertainty_max")}),
-            "PCM": pcm,
-        }
+    name = "ekf_update[joseph]" if joseph else "ekf_update[fusion frame]"
+    frame_can = next(c for c in calls[rec.at:] if c[1].get("can") is not None)
+    gps = next(c for c in calls if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
+    checks = {
+        "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
+        "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source", "gnss_uncertainty_max")}),
+    }
     worst = 0.0
     for what, (a, k) in checks.items():
         got = kernels.ekf_update(*a, **k)
@@ -1106,36 +1117,134 @@ def ekf_update_row(rec, mods, joseph=False, pcm_only=False):
             raise AssertionError(f"{name} kernel vs plain on {what}: outside its gate")
         worst = max(worst, max(float((getattr(got, f) - getattr(ref, f)).abs().max())
                                for f in (*rel, "P")))
-
-    def frame(fn):
-        return lambda: [fn(*a, **k) for a, k in frame_calls]
-
-    ops, moved = 0, 0
-    for a, k in frame_calls:
-        st, params = a[0], a[1]
-        moved += 2 * state_bytes(kernels, st) + params_bytes(kernels, params)
-        if k.get("can") is not None:
-            t, vx, yaw, cvalid = k["can"]
-            ops += int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
-            moved += nbytes(t, vx, yaw, cvalid)
-        if k.get("gps") is not None:
-            gt, gpos, gcov, gvalid = k["gps"]
-            ops += int(gvalid.sum()) * (kalman_ops(3, joseph) + 250)
-            moved += nbytes(gt, gpos, gcov, gvalid)
-        if k.get("pcm") is not None:
-            meas, apply = k["pcm"]
-            ops += int(bool(apply)) * (kalman_ops(6, joseph) + 250)
-            moved += nbytes(meas.timestamp, meas.pos, meas.rot, meas.pos_cov, meas.rot_cov,
-                            apply)
-    return dict(name=name, source="elimaloc_tpu_torch/csrc/ekf_update.cu",
-                replaces=EKF_KERNELS["ekf_update"][1] + (
-                    " with joseph_form (filter.py:252-259)" if joseph else "") + (
-                    " (the PCM pose alone: runtime.py:358-360)" if pcm_only else ""),
+    a, k = frame_can
+    t, vx, yaw, cvalid = k["can"]
+    gt, gpos, gcov, gvalid = k["gps"]
+    ops = (int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
+           + int(gvalid.sum()) * (kalman_ops(3, joseph) + 250))
+    moved = (2 * state_bytes(kernels, a[0]) + params_bytes(kernels, a[1])
+             + nbytes(t, vx, yaw, cvalid, gt, gpos, gcov, gvalid))
+    return dict(name=name, source=EKF_UPDATE[0],
+                replaces=EKF_UPDATE[1] + (" with joseph_form (filter.py:252-259)"
+                                          if joseph else ""),
                 launches_key="ekf_update", max_abs_err=worst,
-                ms=time_ms(frame(kernels.ekf_update)),
-                plain_ms=time_ms(frame(plain)),
-                device_fn=(frame(kernels.ekf_update), "ekf_update_kernel"),
+                ms=time_ms(lambda: kernels.ekf_update(*a, **k)),
+                plain_ms=time_ms(lambda: plain(*a, **k)),
+                device_fn=(lambda: kernels.ekf_update(*a, **k), "ekf_update_kernel"),
                 bound=bound(ops, moved))
+
+
+def stage_args(a):
+    """``runtime.pcm_stage``'s arguments of a recorded ``kernels.pcm_stage``
+    call ``a``."""
+    ekf, params, flags, pose, tf, local_cov, fitness, success, usable, ring, end, use_pcm = a
+    res = SimpleNamespace(pose=pose, local_cov=local_cov, fitness=fitness, success=success)
+    return ekf, res, tf, ring, end, usable, params, flags, use_pcm
+
+
+def l_then_i(mods, a):
+    """The two launches kernel S replaces, on a recorded ``kernels.pcm_stage``
+    call ``a``: kernel L's measurement, then kernel I's PCM update. Returns
+    (state, L's outputs)."""
+    kernels, efilter = mods[0], mods[7]
+    meas = kernels.pcm_measurement(*a[3:])
+    pcm = efilter.GnssMeas(timestamp=meas[1], source=int(mods[5].GnssSource.PCM),
+                           pos=meas[2], rot=meas[3], pos_cov=meas[4], rot_cov=meas[5])
+    return kernels.ekf_update(*a[:3], pcm=(pcm, meas[6])), meas
+
+
+def ring_rows(ego, end):
+    """The ego-ring rows the scan's end reads at ``end``: every valid time
+    (the search), pos and rpy at the newest entry and at the first one after
+    the measurement (pcm_meas.cuh). Returns (valid rows, pos / rpy rows)."""
+    n_ego = int(ego.count)
+    later = np.flatnonzero(ego.t[:n_ego].cpu().numpy() > np.float32(end.item()))
+    return n_ego, len({n_ego - 1, later[0] if later.size else n_ego - 1}) if n_ego else 0
+
+
+def pcm_stage_row(rec, mods, joseph=False):
+    """Kernel S, the scan's end in one launch, on every frame's recorded call
+    of the path: bit-equal to kernel L then kernel I (the state record, every
+    measurement field, ``applied``); on the run's first applied PCM pose
+    against its plain version ``runtime.pcm_stage_plain``: each P entry
+    within 1e-5 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``),
+    every other float field of the state within rel 1e-5, flags and
+    counters equal, icp_pose within 1e-4 (entries up to ~100 m), ego_rpy
+    within 1e-5 rad and p_asym, p_min_diag within 1e-5 of P's largest
+    diagonal entry of the plain version's; on S's own state its ego_pos and
+    ego_t equal, ego_rpy within 1e-6 rad of the plain conversion and p_asym,
+    p_min_diag equal to the plain reductions. One call of the stage's entry
+    (``runtime.pcm_stage``, ``stage_fn``) must show exactly one device
+    kernel, S's. With ``joseph`` the same calls in the Joseph form."""
+    kernels, runtime = mods[0], mods[6]
+    calls = rec.every["pcm_stage"]
+    if joseph:
+        calls = [with_joseph(c, 2) for c in calls]
+    name = "pcm_stage[joseph]" if joseph else "pcm_stage"
+    applied = []
+    for i, (a, _) in enumerate(calls):
+        got, out = kernels.pcm_stage(*a)
+        ref, meas = l_then_i(mods, a)
+        same = [torch.equal(got.intact_record(), ref.intact_record())]
+        same += [torch.equal(x, y) for x, y in zip(out[:7], meas)]
+        if not all(same):
+            raise AssertionError(f"{name}: frame {i} differs from kernel L then kernel I; "
+                                 f"equal (state record, icp_pose, t, pos, quat, pos_cov, "
+                                 f"rot_cov, applied): {same}")
+        applied.append(bool(out[6]))
+    # against the plain version on the run's first applied PCM pose, as
+    # kernel I's PCM leg was held before: on later frames the 6x6 solve
+    # differs from cuSOLVER's by ~3e-4 of a small gyro (PERF.md section 7)
+    at = applied.index(True)
+    a, _ = calls[at]
+    args = stage_args(a)
+    got, _, pub = runtime.pcm_stage(*args)
+    ref, _, rpub = runtime.pcm_stage_plain(*args)
+    rel = ekf_field_errors(kernels, got, ref)
+    rel.pop("P")
+    p_err = p_entry_err(got.P, ref.P, a[0].P, 1e-5)
+    P = got.P
+    scale = float(torch.diagonal(ref.P).abs().max())
+    err = {k: float((pub[k] - rpub[k]).abs().max()) for k in ("icp_pose", "ego_pos", "ego_rpy",
+                                                             "ego_t", "p_asym", "p_min_diag")}
+    own_rpy = float((pub["ego_rpy"] - runtime.ego_pose(got)["rpy"]).abs().max())
+    gates = [p_err <= 1.0, max(rel.values()) <= 1e-5, bool(pub["applied"]),
+             bool(pub["applied"]) == bool(rpub["applied"]), err["icp_pose"] <= 1e-4,
+             err["ego_rpy"] <= 1e-5, err["p_asym"] <= 1e-5 * scale,
+             err["p_min_diag"] <= 1e-5 * scale, own_rpy <= 1e-6,
+             torch.equal(pub["ego_pos"], got.pos), torch.equal(pub["ego_t"], got.prev_timestamp),
+             torch.equal(pub["p_asym"], torch.max(torch.abs(P - P.T))),
+             torch.equal(pub["p_min_diag"], torch.min(torch.diagonal(P)))]
+    log_line(f"  {name}: {len(calls)} frames bit-equal to kernel L then kernel I "
+             f"({sum(applied)} applied); frame {at} vs plain: P share of its limit "
+             f"{p_err:.2e}, worst rel err of the rest {max(rel.values()):.2e} "
+             f"({max(rel, key=rel.get)}), "
+             + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+             + f"; ego_rpy vs the plain conversion of its own state {own_rpy:.2e}")
+    if not all(gates):
+        raise AssertionError(f"{name} kernel vs plain: outside its gates {gates}")
+    # the measurement (~700 operations, 2 a valid ring row for the search),
+    # the PCM update, the P statistics (2 x 729) and the Euler angles (~60);
+    # bytes: both state records, the params, the ring rows it reads, the
+    # ICP result and the output buffer
+    n_ego, rows = ring_rows(a[9], a[10])
+    ops = 2 * n_ego + 700 + (kalman_ops(6, joseph) + 250 if bool(pub["applied"]) else 0) \
+        + 2 * 729 + 60
+    moved = (2 * state_bytes(kernels, a[0]) + params_bytes(kernels, a[1])
+             + nbytes(*a[3:9], a[9].t[:n_ego], a[9].pos[:rows], a[9].rpy[:rows], a[9].count,
+                      a[10]) + 4 * kernels.PCM_STAGE_FLOATS + 1)
+    log_line(f"  {name}: kernel L then kernel I, their event time "
+             f"{time_ms(lambda: l_then_i(mods, a)):.4f} ms")
+    return dict(name=name, source="elimaloc_tpu_torch/csrc/" + SCAN_KERNELS["pcm_stage"][0],
+                replaces=SCAN_KERNELS["pcm_stage"][1] + (
+                    " with joseph_form (filter.py:252-259)" if joseph else ""),
+                launches_key="pcm_stage",
+                max_abs_err=max(err["icp_pose"], err["ego_pos"], err["ego_rpy"]),
+                ms=time_ms(lambda: kernels.pcm_stage(*a)),
+                plain_ms=time_ms(lambda: runtime.pcm_stage_plain(*args)),
+                device_fn=(lambda: kernels.pcm_stage(*a), "pcm_stage_kernel"),
+                stage_fn=(lambda: runtime.pcm_stage(*args), "pcm_stage_kernel"),
+                chain_fn=lambda: l_then_i(mods, a), bound=bound(ops, moved))
 
 
 def ring_query_rows(imu, ego, cur, end, w):
@@ -1211,12 +1320,13 @@ def query_row(calls, mods):
 
 
 def measurement_row(calls, mods):
-    """Kernel L against ``pcm_measurement_plain`` on the P2P path's frame:
-    the pose and position within 1e-4 m (~100 m values), the quaternion
-    1e-6, the covariances rel 1e-5 of their largest entry, ``apply``
-    equal."""
+    """Kernel L, the reference entry of kernel S, against
+    ``pcm_measurement_plain`` on the P2P path's frame (the inputs of its
+    recorded kernel S call): the pose and position within 1e-4 m (~100 m
+    values), the quaternion 1e-6, the covariances rel 1e-5 of their largest
+    entry, ``apply`` equal."""
     kernels, runtime = mods[0], mods[6]
-    a, _ = calls["pcm_measurement"]
+    a = calls["pcm_stage"][0][3:]
     pose, tf, local_cov, fitness, success, usable, ego, end, use_pcm = a
     res = SimpleNamespace(pose=pose, local_cov=local_cov, fitness=fitness, success=success)
 
@@ -1235,16 +1345,12 @@ def measurement_row(calls, mods):
         f"{bool(apply)}")
     if not all(gates):
         raise AssertionError("pcm_measurement kernel vs plain: outside its gates")
-    # the ring's valid times (the search), pos and rpy at its newest entry
-    # and at the first one after the measurement (pcm_meas.cu)
-    n_ego = int(ego.count)
-    later = np.flatnonzero(ego.t[:n_ego].cpu().numpy() > np.float32(end.item()))
-    rows = len({n_ego - 1, later[0] if later.size else n_ego - 1}) if n_ego else 0
+    n_ego, rows = ring_rows(ego, end)
     moved = nbytes(pose, tf, local_cov, fitness, success, usable, ego.t[:n_ego],
                    ego.pos[:rows], ego.rpy[:rows], ego.count, end, *got)
-    return dict(name="pcm_measurement", source="elimaloc_tpu_torch/csrc/pcm_meas.cu",
-                replaces=SCAN_KERNELS["pcm_measurement"][1], max_abs_err=max(errs),
-                ms=time_ms(lambda: kernels.pcm_measurement(*a)), plain_ms=time_ms(plain),
+    return dict(name="pcm_measurement", source=PCM_MEAS[0], replaces=PCM_MEAS[1],
+                max_abs_err=max(errs), ms=time_ms(lambda: kernels.pcm_measurement(*a)),
+                plain_ms=time_ms(plain),
                 device_fn=(lambda: kernels.pcm_measurement(*a), "pcm_measurement_kernel"),
                 bound=bound(2 * n_ego + 700, moved))
 
@@ -1421,7 +1527,12 @@ def loop_trace_check(pipe, log, runtime, n):
     operation inside a frame (the copy's linked operation, where the trace
     links them; else no such copy before the last loop kernel ends). Memory
     copies on the device inside a frame (clones, device to device) are
-    counted by kind, not refused."""
+    counted by kind, not refused. The device kernels of each frame (from
+    one kernel H, which opens a frame, to the next, in device order) are
+    counted (all but the last, which the outputs' stacking follows); each
+    such frame's last kernel must be kernel S, one a frame after its loop
+    kernel, and no kernel L, kernel I or eager epilogue kernel runs after
+    it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     orig = runtime.fused_frame
@@ -1472,6 +1583,25 @@ def loop_trace_check(pipe, log, runtime, n):
     else:
         end = max((e.time_range.end for e in loops), default=0)
         dtoh = sum("DtoH" in e.name and e.time_range.start < end for e in copies)
+    # the frames on the device: kernel H opens each; the kernels after the
+    # loop kernel up to the frame's end (run_register's pose and success,
+    # then the scan's end)
+    order = sorted((e for e in kern if not e.name.startswith(("Memcpy", "Memset"))
+                    and e.name != "chip_smoke.frame"), key=lambda e: e.time_range.start)
+    starts = [i for i, e in enumerate(order) if "imu_stage_kernel" in e.name] + [len(order)]
+    frames = [order[a:b] for a, b in zip(starts, starts[1:])]
+    per_frame = [len(f) for f in frames[:-1]]
+    tails = []
+    for f in frames[:-1]:
+        at = max((i for i, e in enumerate(f) if "p2p_register_kernel" in e.name), default=-1)
+        tails.append([e.name for e in f[at + 1:]])
+    bad_tail = [t for t in tails if not t or "pcm_stage_kernel" not in t[-1]
+                or sum("pcm_stage_kernel" in k for k in t) != 1
+                or any("pcm_measurement_kernel" in k or "ekf_update_kernel" in k for k in t)]
+    log_line(f"[P2P] traced replay: device kernels a frame {per_frame} (median "
+             f"{float(np.median(per_frame)) if per_frame else 0:.0f}); after the loop kernel "
+             f"{len(tails[0]) if tails else 0} kernels, the frame's last "
+             + (repr(tails[0][-1][:60]) if tails and tails[0] else "none"))
     log_line(f"[P2P] traced replay: {len(spans)} frames, {len(loops)} loop kernels, "
              f"{runtime_launches} runtime launch calls inside the frames, synchronizing "
              f"runtime calls inside {blocking}, old GN kernels {old}, device copies issued "
@@ -1482,15 +1612,20 @@ def loop_trace_check(pipe, log, runtime, n):
     if not (len(spans) == n and len(loops) == n and not old and not blocking and not dtoh
             and runtime_launches > 0):
         raise AssertionError("[P2P] the traced replay breaks the one-launch GN loop contract")
+    if len(frames) != n or bad_tail:
+        raise AssertionError(f"[P2P] the traced replay's frames do not end in one kernel S: "
+                             f"{len(frames)} frames, tails {bad_tail[:2]}")
     return {"traced_loop_kernels": len(loops), "traced_runtime_launches": runtime_launches,
-            "traced_copies_in_frames": kinds if linked else None}
+            "traced_copies_in_frames": kinds if linked else None,
+            "traced_device_kernels_per_frame": per_frame,
+            "traced_kernels_after_loop": [len(t) for t in tails]}
 
 
 class StageTimer:
     """``mark`` callback of the pipeline: one CUDA event per stage boundary."""
 
     ORDER = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-             "assign", "gn", "measurement", "pcm_update", "outputs")
+             "assign", "gn", "pcm_stage", "outputs")
 
     def __init__(self):
         self.events = []
@@ -1522,7 +1657,7 @@ class StageTimer:
 class AdmissionProbe:
     """The CAN and GPS legs of the run's ``update_chain`` calls that the
     filter admitted, read from the run's own states (the PCM update runs in
-    calls of its own and is passed through). A CAN leg admitted a sample
+    kernel S, not through ``update_chain``). A CAN leg admitted a sample
     when it moved ``prev_can_timestamp`` (a sample within 0.01 s of it is
     refused). A GPS leg admitted a fix when it moved
     ``prev_gnss_timestamp``, or, in a call with no CAN leg, moved P: in the
@@ -1596,14 +1731,16 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
              f"{time.time() - t0:.1f} s")
     wrapper = "hash_correspond" if hashed else KERNEL[method][0]
     radar = is_radar(path)
+    fusion = path == FUSION
     path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
-                    + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ()))
+                    + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ())
+                    + (("ekf_update",) if fusion else ()))
     # P2P on the tile backend: the GN loop is one launch of the loop kernel
     tile_p2p = method == "P2P" and not hashed
     if tile_p2p:
         path_kernels = tile_p2p_kernels(path_kernels)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
-                  every=("ekf_update",) + ((wrapper,) if radar else ())
+                  every=("ekf_update", "pcm_stage") + ((wrapper,) if radar else ())
                   + ((LOOP,) if tile_p2p else ())) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
@@ -1634,9 +1771,9 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
         rows.append(row)
     if path == "P2P":
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
-        rows += [imu_stage_row(rec.calls, pipe, mods), ekf_update_row(rec, mods, pcm_only=True),
+        rows += [imu_stage_row(rec.calls, pipe, mods), pcm_stage_row(rec, mods),
                  query_row(rec.calls, mods), measurement_row(rec.calls, mods)]
-    if path == FUSION:
+    if fusion:
         rows += [ekf_update_row(rec, mods)]
     elif hashed:
         rows += [hash_kernel_row(path, pipe, rec.calls, mods)]
@@ -1671,6 +1808,7 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     log_line(f"[{path}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans, "
              f"host batch prep + upload included), launches {launches}, packs {packs}")
     check_imu_stage(path, launches, packs, n)
+    check_scan_end(path, launches, n, n if fusion else 0)
     if tile_p2p:
         check_loop(path, launches, n)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
@@ -1694,6 +1832,12 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
                  f"{CHAIN_P2P['gn_ms']}), {n / wall:.2f} scans/s (three-launch loop: "
                  f"{CHAIN_P2P['scans_per_s']}), frame p50 {p50:.3f} ms (three-launch "
                  f"loop: {CHAIN_P2P['frame_ms_p50']}); card {card()}")
+        log_line(f"[{path}] scan end (kernel S: the PCM measurement, update and the frame's "
+                 "outputs; stages pcm_stage + outputs) "
+                 f"{split['pcm_stage'] + split['outputs']:.3f} ms a frame (kernel L, kernel I "
+                 f"and the eager epilogue: "
+                 f"{CHAIN_SCAN_END['ms']}), frame p50 {p50:.3f} ms (with them: "
+                 f"{CHAIN_SCAN_END['frame_ms_p50']})")
     if hashed:
         # kernel Q once per GN iteration (then M), and no tile kernel
         total_iters = int(np.sum(outs["iterations"]))
@@ -1726,7 +1870,7 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
             summary.update(loop_trace_check(pipe, log, runtime, n))
 
     deferred.append(profiled_replay)
-    if path == FUSION:
+    if fusion:
         adm = probe.admitted()
         summary["can_frames_admitted"], summary["gps_frames_admitted"] = (
             adm["can"][1], adm["gps"][1])
@@ -1787,6 +1931,17 @@ def check_loop(what, launches, registrations):
                              + ", ".join(f"{k} {launches[k]}" for k in PER_ITERATION))
 
 
+def check_scan_end(what, launches, scans, updates):
+    """Every scan ends in one launch of kernel S; kernel L never launches, and
+    kernel I only for the CAN and GPS updates (``updates`` launches: one a
+    fusion frame, one an event in ``run``, none without GPS and CAN)."""
+    if not (launches["pcm_stage"] == scans and launches["pcm_measurement"] == 0
+            and launches["ekf_update"] == updates):
+        raise AssertionError(f"[{what}] pcm_stage launched {launches['pcm_stage']} times for "
+                             f"{scans} scans, pcm_measurement {launches['pcm_measurement']}, "
+                             f"ekf_update {launches['ekf_update']} (expected {updates})")
+
+
 def check_imu_stage(what, launches, packs, frames):
     """A replay with IMU: the IMU stage is one launch of kernel H a frame
     (an IMU event in ``run``), kernel J never launched, no EKF state or
@@ -1819,6 +1974,7 @@ def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
     p50, p95 = (float(np.percentile(per_frame, q)) for q in (50, 95))
     n = len(log.scan_t)
     check_imu_stage(what, launches, packs, n)
+    check_scan_end(what, launches, n, 0)
     err = float(np.abs(outs["ego_pos"] - fused["ego_pos"]).max())
     same_applied = bool(np.array_equal(outs["applied"], fused["applied"]))
     log_line(f"[{what}] {n / wall:.2f} scans/s ({wall:.3f} s for {n} scans), frame ms p50 "
@@ -1893,9 +2049,11 @@ def events_path(pipe, log, fused, mods, ate_rmse):
              f"launches {launches}")
     log_line(f"[{EVENTS}] stage ms per scan (imu = every event between two scans): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    check_launches(EVENTS, launches, SHARED + (KERNEL["AVGICP"][0],) + tuple(EKF_KERNELS)
-                   + tuple(SCAN_KERNELS))
+    check_launches(EVENTS, launches, SHARED + (KERNEL["AVGICP"][0], "ekf_update")
+                   + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS))
     check_imu_stage(EVENTS, launches, packs, per_kind["imu"][0])
+    check_scan_end(EVENTS, launches, per_kind["scan"][0],
+                   per_kind["gps"][0] + per_kind["can"][0])
     if not (applied >= 0.9 and ate < 0.3 and last < 0.15 and n_can > 0 and n_gps > 0
             and np.all(np.isfinite(traj["pos"]))):
         raise AssertionError(f"[{EVENTS}] the event loop failed its acceptance bounds")
@@ -1934,7 +2092,7 @@ def reloc_phase(pipe, log, kernels, what="reloc", names=None):
 
 
 def joseph_path(pipe, log, fused, rec, mods):
-    """Kernels H and I with ``joseph_form`` against their plain versions on
+    """Kernels H, I and S with ``joseph_form`` against their plain versions on
     the fusion path's recorded inputs, then one run_fused replay of the
     fusion pipeline switched to the Joseph form after construction (as
     tests/test_long_horizon.py:59-66 switches JAX's): launch counts from 0
@@ -1944,7 +2102,7 @@ def joseph_path(pipe, log, fused, rec, mods):
     reference form's and every P diagonal positive."""
     kernels = mods[0]
     rows = [imu_stage_row(rec.calls, pipe, mods, joseph=True),
-            ekf_update_row(rec, mods, joseph=True)]
+            ekf_update_row(rec, mods, joseph=True), pcm_stage_row(rec, mods, joseph=True)]
     for r in rows:
         log_line(f"[{JOSEPH}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
@@ -1963,6 +2121,7 @@ def joseph_path(pipe, log, fused, rec, mods):
         pipe.static = plain_static
     launches, packs = dict(kernels.launches), dict(kernels.packs)
     check_imu_stage(JOSEPH, launches, packs, len(log.scan_t))
+    check_scan_end(JOSEPH, launches, len(log.scan_t), len(log.scan_t))
     err = np.linalg.norm(outs["ego_pos"] - fused["ego_pos"], axis=1)
     applied = float(outs["applied"].mean())
     asym, asym_plain = float(outs["p_asym"].max()), float(fused["p_asym"].max())
@@ -1972,8 +2131,8 @@ def joseph_path(pipe, log, fused, rec, mods):
              f"form: max {err.max():.2e} m, median {np.median(err):.2e} m, last 3 "
              f"{err[-3:].max():.2e} m; P asymmetry max {asym:.3e} (reference form "
              f"{asym_plain:.3e}), min diagonal {dmin:.3e}, launches {launches}")
-    check_launches(JOSEPH, launches, SHARED + (KERNEL["AVGICP"][0],) + tuple(EKF_KERNELS)
-                   + tuple(SCAN_KERNELS))
+    check_launches(JOSEPH, launches, SHARED + (KERNEL["AVGICP"][0], "ekf_update")
+                   + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS))
     if not (applied >= 0.9 and contract(err) and asym <= asym_plain and dmin > 0.0):
         raise AssertionError(f"[{JOSEPH}] the Joseph-form replay failed its gates")
     for r in rows:
@@ -2131,9 +2290,9 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
              + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
              f"ATE {ate:.4f} m, launches {launches}")
     check_launches(TICK, launches, tile_p2p_kernels(
-        SHARED + (KERNEL["P2P"][0], "ca_tick", "ekf_update", "ring_push")
-        + tuple(SCAN_KERNELS)))
+        SHARED + (KERNEL["P2P"][0], "ca_tick", "ring_push") + tuple(SCAN_KERNELS)))
     check_loop(TICK, launches, per_kind["scan"][0])
+    check_scan_end(TICK, launches, per_kind["scan"][0], 0)
     if not (launches["ca_tick"] == n_ticks and launches["imu_stage"] == 0
             and launches["ring_push"] == n_ticks + n_imu):
         raise AssertionError(f"[{TICK}] launch counts: {launches}")
@@ -2379,6 +2538,7 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
             wall = time.perf_counter() - t0
             check_imu_stage(f"{WINDOWED} {name}", kernels.launches, kernels.packs, n)
             check_loop(f"{WINDOWED} {name}", kernels.launches, n)
+            check_scan_end(f"{WINDOWED} {name}", kernels.launches, n, 0)
             if launches is None:
                 launches = dict(kernels.launches)
             split, frames, per_frame = stages.split()
@@ -2685,18 +2845,22 @@ def main():
     # the profiler passes, after every timed replay
     for r in rows:
         if "stage_fn" in r:
-            # one call of the IMU stage's entry: kernel H alone on the device
-            per, _ = device_profile(r.pop("stage_fn"))
-            log_line(f"kernel {r['name']}: one call of runtime.imu_subbatch under "
+            # one call of the stage's runtime entry: its kernel alone on the
+            # device (the IMU stage: H; the scan's end: S)
+            fn, kernel = r.pop("stage_fn")
+            per, _ = device_profile(fn)
+            log_line(f"kernel {r['name']}: one call of its runtime entry under "
                      f"torch.profiler, device kernels {per}")
-            if len(per) != 1 or "imu_stage_kernel" not in next(iter(per)):
-                raise AssertionError(f"{r['name']}: the IMU stage launched {sorted(per)} on "
-                                     "the device, not kernel H alone")
+            if len(per) != 1 or kernel not in next(iter(per)):
+                raise AssertionError(f"{r['name']}: its stage launched {sorted(per)} on the "
+                                     f"device, not {kernel} alone")
         if "device_fn" in r:
             dev = kernel_device_ms(*r.pop("device_fn"))
+            chain = kernel_device_ms(r.pop("chain_fn"), "_kernel") if "chain_fn" in r else None
             log_line(f"kernel {r['name']}: on the device alone "
                      + (f"{dev:.4f} ms" if dev else "not measured")
-                     + " (torch.profiler)")
+                     + " (torch.profiler)" + (f"; kernel L then kernel I {chain:.4f} ms"
+                                              if chain else ""))
     for job in deferred:
         job()
     for path in PATHS + ("P2P hash",):

@@ -12,12 +12,16 @@ window of a disk-backed one (``map_window_radius``), with relocalization
 
 The hot ops the JAX package laid out by hand for the TPU run as
 hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G
-(one search + Gauss-Newton kernel per ICP method), B (slot assignment), C
-(voxel downsample), D (deskew), H (the IMU chain), I (the EKF measurement
+(one search + Gauss-Newton kernel per ICP method; A with M as one
+cooperative loop kernel for P2P on tiles), B (slot assignment), C (voxel
+downsample), D (deskew), H (the frame's IMU stage), I (the CAN and GPS
 updates), J (the ring pushes), K (the ring queries at a scan's times), L
-(the PCM measurement), M (the GN step) and N (the window shift). On CPU
-tensors their plain PyTorch versions run instead. ``LocalizationPipeline``
-runs on the card unless given ``device="cpu"``.
+(the PCM measurement), M (the GN step), N (the window shift), O (the CA
+tick), P (the radar covariances), Q (the hash grid's search and queries),
+R (the ground probe) and S (the scan's end: L's measurement, the PCM
+update and the frame's published outputs in one launch). On CPU tensors
+their plain PyTorch versions run instead. ``LocalizationPipeline`` runs on
+the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,9 @@ PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method kernels (the P2P loop
-on the tile backend, E, F, G), N, O and P, and the per-iteration entries A
-and M where the loop kernel takes their place.
+on the tile backend, E, F, G), N, O and P, kernel I, which runs only for
+CAN and GPS, the per-iteration entries A and M where the loop kernel takes
+their place, and L, whose body runs inside S.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -34,14 +35,15 @@ H         imu_stage           pipeline/runtime.py:imu_subbatch, the whole IMU st
                               frames.imu_to_ego, the predict_imu chain, the
                               ego rows and both rings' batch pushes
 I         ekf_update          filter._ekf_measurement_update + update_gnss +
-                              update_can (the CAN / GPS sub-batches, the PCM
-                              update)
+                              update_can (the CAN / GPS sub-batches; its PCM
+                              leg is kernel S's reference)
 J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
                               (the tick mode's ego push, its IMU intake)
 K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
                               + the initial guess's compose (runtime.py:338)
 L         pcm_measurement     runtime.shape_icp_covariance +
                               rings.gnss_time_compensation + scan_step's glue
+                              (kernel S's reference; its body runs inside S)
 M         gn_step             register/icp.py:_solve_step + _step_transform + the
                               GN loop body (compose, so3_log, the gates) after
                               E, F, G or Q; its step (gn_step.cuh) runs inside
@@ -59,17 +61,21 @@ Q         hash_query          map/grid.py:query_nearest_point(_cov),
                               query_nearest_voxel_cov, query_all_voxel_cov
 Q         hash_lookup         map/grid.py:lookup
 R         ground_height       map/grid.py:find_ground_height
+S         pcm_stage           runtime.pcm_stage_plain: the scan's end, L's PCM
+                              measurement, I's PCM update and the fused
+                              frame's epilogue (the ego pose, P's asymmetry
+                              and smallest diagonal), one launch a scan
 ========  ==================  ===================================================
 
 Kernel N runs only on the active-window path (``map_window_radius``), O and
 J only in the event loop's tick mode (``use_imu=False``), P once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
 place of B and of A, E, F, G; its query and lookup entries and R serve the
-grid's own functions. H, I and O take and give the EKF state as one packed
+grid's own functions. H, I, O and S take and give the EKF state as one packed
 record and read the parameters from one (``ekf.state``): a state whose
 fields are not the views of one record is packed first, and counted in
 :data:`packs`; they return ``ekf.state.RecordState``, whose fields are
-viewed only when read. Flagged forms: H and I take ``EkfFlags.joseph_form``
+viewed only when read. Flagged forms: H, I and S take ``EkfFlags.joseph_form``
 (the Joseph-form covariance update), E, F and G a slot-packed ``radar``
 (kernel P's output) and Q a ``radar`` in query order, added before their
 3x3 inverse.
@@ -90,7 +96,7 @@ from .build import library
 launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "voxel_downsample": 0, "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_stage": 0, "ekf_update": 0, "ring_push": 0,
-            "scan_ring_query": 0, "pcm_measurement": 0, "gn_step": 0,
+            "scan_ring_query": 0, "pcm_measurement": 0, "pcm_stage": 0, "gn_step": 0,
             "shift_window": 0, "ca_tick": 0, "radar_cov": 0, "hash_correspond": 0,
             "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
 
@@ -710,6 +716,47 @@ def pcm_measurement(icp_pose, tf_lidar_to_ego, local_cov, fitness, success, usab
     launches["pcm_measurement"] += 1
     return (out[:16].view(4, 4), out[16], out[17:20], out[20:24], out[24:33].view(3, 3),
             out[33:42].view(3, 3), apply)
+
+
+#: kernel S's output buffer: the measurement in kernel L's layout (42
+#: floats), the ego pos [3], rpy [3] and t, p_asym and p_min_diag, in
+#: floats; ``applied`` one byte after them (csrc/pcm_stage.cu)
+PCM_STAGE_FLOATS = 51
+
+
+def pcm_stage(state, params, flags, icp_pose, tf_lidar_to_ego, local_cov, fitness, success,
+              usable, ego, scan_end, use_pcm: bool):
+    """Kernel S (runtime.pcm_stage_plain): kernel L's PCM measurement, kernel
+    I's PCM update (in the Joseph form with ``flags.joseph_form``) and the
+    frame's published outputs, in one launch. Returns (state, (icp_pose
+    [4,4] in the ego frame, the PCM GnssMeas fields t, pos [3], quat [4],
+    pos_cov [3,3], rot_cov [3,3], applied, ego_pos [3], ego_rpy [3], ego_t,
+    p_asym, p_min_diag)): the outputs are views of one fresh buffer."""
+    re = ego.capacity
+    dev = scan_end.device
+    args = [_check(icp_pose, "icp_pose", _F32, (4, 4)),
+            _check(tf_lidar_to_ego, "tf_lidar_to_ego", _F32, (4, 4)),
+            _check(local_cov, "local_cov", _F32, (6, 6)), _check(fitness, "fitness", _F32, ()),
+            _check(success, "success", _BOOL, ()), _check(usable, "usable", _BOOL, ()),
+            _check(ego.t, "ego_ring.t", _F32, (re,)),
+            _check(ego.pos, "ego_ring.pos", _F32, (re, 3)),
+            _check(ego.rpy, "ego_ring.rpy", _F32, (re, 3)),
+            _check(ego.count, "ego_ring.count", torch.int32, ()), ctypes.c_int(re),
+            _check(scan_end, "scan_end", _F32, ()), ctypes.c_int(int(use_pcm)),
+            ctypes.c_int(int(flags.joseph_form))]
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    out, out_ptr = _state_out(dev)
+    nf = 4 * PCM_STAGE_FLOATS
+    buf = torch.empty(nf + 4, dtype=torch.uint8, device=dev)
+    rc = library().elm_pcm_stage(p_state, out_ptr, p_params, *args, _ptr(buf),
+                                 ctypes.c_void_p(buf.data_ptr() + nf), _stream(scan_end))
+    _raise_on(rc, "pcm_stage")
+    launches["pcm_stage"] += 1
+    f = buf[:nf].view(_F32)
+    return ekf_state.RecordState(out), (
+        f[:16].view(4, 4), f[16], f[17:20], f[20:24], f[24:33].view(3, 3),
+        f[33:42].view(3, 3), buf[nf:nf + 1].view(_BOOL)[0], f[42:45], f[45:48], f[48], f[49],
+        f[50])
 
 
 def gn_step(sums, pose, fitness, local_cov, total, params, gicp: bool):

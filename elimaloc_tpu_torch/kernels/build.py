@@ -54,6 +54,8 @@ _SIGNATURES = {
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P],
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    "elm_pcm_stage": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                      _P, _P],
     "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "elm_p2p_register": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],

@@ -7,14 +7,14 @@ event steps: :func:`imu_step` (one IMU sample), :func:`gps_step`,
 :func:`can_step`, :func:`scan_step` (range gate -> scan times -> ring
 queries, kernel K -> deskew, kernel D -> voxel downsample, kernel C -> ICP
 registration, kernels B, A/E/F/G and M (the hash backend: Q and M) -> the
-PCM measurement, kernel L ->
-the EKF PCM update, kernel I) and :func:`pcm_init_step` (a relocalization
+scan's end, kernel S: the PCM measurement, the EKF PCM update and the
+frame's published outputs) and :func:`pcm_init_step` (a relocalization
 result). :func:`fused_frame` is one LiDAR frame: :func:`imu_subbatch` (the
 frame's IMU samples into the ego frame, through the EKF prediction, then
 one push into each ring: one launch of kernel H), the frame's CAN and GPS
 samples when the configuration fuses them (kernel I), then
 :func:`scan_step`. The EKF state lives on the card as one packed record
-(``ekf.state``), which kernels H, I and O take and give.
+(``ekf.state``), which kernels H, I, O and S take and give.
 
 :class:`LocalizationPipeline` drives them three ways, as the JAX package
 does: ``run`` (the per-event loop over a log in time order), ``run_frames``
@@ -61,7 +61,7 @@ from ..ekf import (
     update_chain,
     update_gnss,
 )
-from ..ekf.filter import ego_history, imu_chain_plain
+from ..ekf.filter import ego_history, imu_chain_plain, update_chain_plain
 from ..ekf.state import pack_state
 from ..map import builder as map_builder
 from ..map import grid as map_grid
@@ -228,16 +228,70 @@ def pcm_measurement(res, tf_lidar_to_ego, ego_ring, scan_end, usable, use_pcm: b
                           pos_cov=pos_cov, rot_cov=rot_cov), apply
 
 
+def pcm_stage_plain(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usable,
+                    params: EkfParams, flags: EkfFlags, use_pcm: bool):
+    """Plain PyTorch version of kernel S, the scan's end (JAX runtime.py:
+    341-362 and fused_frame's epilogue :481-490): :func:`pcm_measurement_plain`,
+    the PCM update (``ekf.filter.update_chain_plain``, masked by ``apply``),
+    then the frame's published outputs from the updated filter. Returns
+    (ekf', meas, published): ``published`` holds ``icp_pose`` and
+    ``applied`` (scan_step's outputs) and ``ego_pos``, ``ego_rpy``,
+    ``ego_t`` (:func:`ego_pose`), ``p_asym`` = max |P - P^T| and
+    ``p_min_diag`` (fused_frame's)."""
+    icp_ego_pose, meas, apply = pcm_measurement_plain(res, tf_lidar_to_ego, ego_ring,
+                                                      scan_end, usable, use_pcm)
+    ekf = update_chain_plain(ekf, params, flags, pcm=(meas, apply))
+    es = ego_pose(ekf)
+    P = ekf.P
+    return ekf, meas, {"icp_pose": icp_ego_pose, "applied": apply, "ego_pos": es["pos"],
+                       "ego_rpy": es["rpy"], "ego_t": es["timestamp"],
+                       "p_asym": torch.max(torch.abs(P - P.T)),
+                       "p_min_diag": torch.min(torch.diagonal(P))}
+
+
+def _on_card(t) -> bool:
+    """Whether the scan's end launches kernel S for ``t`` (any device but the
+    CPU, where it runs the plain version)."""
+    return t.device.type != "cpu"
+
+
+def pcm_stage(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usable,
+              params: EkfParams, flags: EkfFlags, use_pcm: bool):
+    """The scan's end: :func:`pcm_stage_plain` for CPU tensors, one launch of
+    kernel S (``kernels.pcm_stage``) for CUDA ones."""
+    if not _on_card(scan_end):
+        return pcm_stage_plain(ekf, res, tf_lidar_to_ego, ego_ring, scan_end, usable, params,
+                               flags, use_pcm)
+    ekf, (pose, t, pos, quat, pos_cov, rot_cov, apply, ego_pos, ego_rpy, ego_t, p_asym,
+          p_min_diag) = kernels.pcm_stage(
+        ekf, params, flags, res.pose, tf_lidar_to_ego, res.local_cov, res.fitness,
+        res.success, usable, ego_ring, scan_end, use_pcm)
+    meas = GnssMeas(timestamp=t, source=int(GnssSource.PCM), pos=pos, rot=quat,
+                    pos_cov=pos_cov, rot_cov=rot_cov)
+    return ekf, meas, {"icp_pose": pose, "applied": apply, "ego_pos": ego_pos,
+                       "ego_rpy": ego_rpy, "ego_t": ego_t, "p_asym": p_asym,
+                       "p_min_diag": p_min_diag}
+
+
+#: the frame's outputs that fused_frame adds to scan_step's (JAX
+#: runtime.py:481-490), in its order
+PUBLISHED = ("ego_pos", "ego_rpy", "ego_t", "p_asym", "p_min_diag")
+
+
 def _no_mark(name):
     return None
 
 
 def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
-              pp: PipelineParams, ps: PipelineStatic, mark=_no_mark):
+              pp: PipelineParams, ps: PipelineStatic, mark=_no_mark, published=None):
     """One LiDAR frame through the matching pipeline (runtime.py:299-382).
-    Returns (state', out dict). ``mark(name)`` is called at the stage
-    boundaries "gate", "scan_times", "ring_query", "deskew", "downsample",
-    "assign", "gn", "measurement" and "pcm_update" (for timing)."""
+    Returns (state', out dict), ``out`` with JAX's keys. ``mark(name)`` is
+    called at the stage boundaries "gate", "scan_times", "ring_query",
+    "deskew", "downsample", "assign", "gn" and "pcm_stage" (for timing). The
+    scan's end (the PCM measurement, the PCM update and the frame's
+    published outputs) is :func:`pcm_stage`; a ``published`` dict receives
+    the outputs of it that ``out`` does not hold (:data:`PUBLISHED`: the
+    filter's pose after the update, P's asymmetry and smallest diagonal)."""
     stamp = stamp - pp.lidar_time_delay
 
     # range gate (FilterPointsByDistance, cpp:451-465)
@@ -263,17 +317,17 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
     res = run_register(ds_pts, ds_valid, tmap, init_guess, pp.icp,
                        ps.icp_static, mark=mark)
 
-    icp_ego_pose, meas, apply = pcm_measurement(
-        res, pp.tf_lidar_to_ego, state.ego_ring, scan_end, usable, ps.use_pcm)
-    mark("measurement")
-    new_state = state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
-                                               pcm=(meas, apply)))
-    mark("pcm_update")
+    ekf, _, pub = pcm_stage(state.ekf, res, pp.tf_lidar_to_ego, state.ego_ring, scan_end,
+                            usable, pp.ekf, ps.ekf_flags, ps.use_pcm)
+    mark("pcm_stage")
+    new_state = state.replace(ekf=ekf)
+    if published is not None:
+        published.update((k, pub[k]) for k in PUBLISHED)
 
     out = {
         "scan_end": scan_end,
-        "icp_pose": icp_ego_pose,
-        "applied": apply,
+        "icp_pose": pub["icp_pose"],
+        "applied": pub["applied"],
         "icp_success": res.success,
         "deskew_ok": desk_ok,
         "pose_sync_ok": found,
@@ -413,9 +467,10 @@ def ego_pose(ekf: EkfState):
 def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
                 ps: PipelineStatic, mark=_no_mark):
     """One scan frame: the IMU sub-batch, the CAN then the GPS sub-batch
-    (each sample masked by validity), then the scan (runtime.py:444-491).
-    ``mark(name)`` gets "imu" after the IMU chain and the ring pushes,
-    "can_gps" after the CAN / GPS updates, the scan_step marks, and
+    (each sample masked by validity), then the scan (runtime.py:444-491),
+    whose end (kernel S on the card) also gives the frame's published
+    outputs. ``mark(name)`` gets "imu" after the IMU chain and the ring
+    pushes, "can_gps" after the CAN / GPS updates, the scan_step marks, and
     "outputs" at the end of the frame."""
     st = imu_subbatch(st, b, pp, ps)
     mark("imu")
@@ -429,15 +484,10 @@ def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
             st.ekf, pp.ekf, ps.ekf_flags, can=can, gps=gps,
             gnss_uncertainty_max=pp.gnss_uncertainty_max))
     mark("can_gps")
+    pub = {}
     st, out = scan_step(st, b["scan_t"], b["scan_points"], b["scan_times"],
-                        b["scan_valid"], tmap, pp, ps, mark=mark)
-    es = ego_pose(st.ekf)
-    out["ego_pos"] = es["pos"]
-    out["ego_rpy"] = es["rpy"]
-    out["ego_t"] = es["timestamp"]
-    P = st.ekf.P
-    out["p_asym"] = torch.max(torch.abs(P - P.T))
-    out["p_min_diag"] = torch.min(torch.diagonal(P))
+                        b["scan_valid"], tmap, pp, ps, mark=mark, published=pub)
+    out.update(pub)
     mark("outputs")
     return st, out
 
@@ -1250,11 +1300,13 @@ class LocalizationPipeline:
                 if self.windowed:
                     pv = torch.cat([state.ekf.pos[:2], state.ekf.vel[:2]]).cpu().numpy()
                     self._maybe_rewindow(pv[:2], pv[2:] * 1.0)
+                pub = {}
                 state, out = scan_step(
                     state, stamps[i], self._tensor(log.scan_points[i]),
                     self._tensor(log.scan_times[i]), self._tensor(log.scan_valid[i]),
-                    self.map, self.params, self.static)
-                ego.append(ego_pose(state.ekf))
+                    self.map, self.params, self.static, published=pub)
+                ego.append({"timestamp": pub["ego_t"], "pos": pub["ego_pos"],
+                            "rpy": pub["ego_rpy"]})
                 outs.append(out)
                 if on_scan is not None:
                     on_scan({**{k: v.cpu().numpy() for k, v in out.items()},

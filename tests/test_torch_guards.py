@@ -190,7 +190,7 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
                "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
-               "tools/time_gn_loop.py"]
+               "tools/time_gn_loop.py", "tools/time_pcm_stage.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
@@ -281,3 +281,62 @@ def test_sort_constants_match_the_sources():
         str(kernels.NO_CLUSTER)
     assert re.search(r"constexpr int kSharedTiles = (\d+);", assign).group(1) == \
         str(kernels.SHARED_TILES)
+
+
+def test_scan_step_card_branch_ends_the_scan_in_kernel_s(both_worlds, monkeypatch):
+    """On the card route (``runtime._on_card``) the scan's end is one call of
+    kernel S's wrapper a scan (``kernels.pcm_stage``, stubbed here by its
+    plain version), in fused_frame and in ``run``: kernel L
+    (``kernels.pcm_measurement``) is never called, nor kernel I or
+    ``update_chain`` with a PCM pose, and the outputs are the CPU route's."""
+    from types import SimpleNamespace
+
+    from elimaloc_tpu_torch import kernels
+    from elimaloc_tpu_torch.ekf import filter as tfilter
+    from elimaloc_tpu_torch.pipeline import LocalizationPipeline
+
+    _, tw = both_worlds
+    log = tlog.synthesize_log(tw, duration=0.8, points_per_scan=512, max_range=50.0,
+                              seed=10)
+    pipe = LocalizationPipeline(tiny_cfg(tconfig), tw, device="cpu", ds_points=512,
+                                tile_budget=ttiles.TileQueryBudget(qb=8, max_slots=512),
+                                use_native=False, ego_ring_size=64, imu_ring_size=64)
+    _, ref_frames = pipe.run_fused(log)
+    _, ref_events = pipe.run(log)
+    calls = []
+
+    def stage(ekf, params, flags, pose, tf, local_cov, fitness, success, usable, ring, end,
+              use_pcm):
+        calls.append(pose)
+        res = SimpleNamespace(pose=pose, local_cov=local_cov, fitness=fitness, success=success)
+        ekf, meas, pub = truntime.pcm_stage_plain(ekf, res, tf, ring, end, usable, params,
+                                                  flags, use_pcm)
+        return ekf, (pub["icp_pose"], meas.timestamp, meas.pos, meas.rot, meas.pos_cov,
+                     meas.rot_cov, pub["applied"], *(pub[k] for k in truntime.PUBLISHED))
+
+    def refused(name):
+        def fn(*a, **k):
+            raise AssertionError(f"{name} called on the card route of the scan's end")
+        return fn
+
+    def no_pcm(fn):
+        def chain(*a, **k):
+            assert k.get("pcm") is None, "a PCM pose went through update_chain"
+            return fn(*a, **k)
+        return chain
+
+    monkeypatch.setattr(truntime, "_on_card", lambda t: True)
+    monkeypatch.setattr(kernels, "pcm_stage", stage)
+    monkeypatch.setattr(kernels, "pcm_measurement", refused("kernels.pcm_measurement"))
+    monkeypatch.setattr(kernels, "ekf_update", refused("kernels.ekf_update"))
+    monkeypatch.setattr(truntime, "update_chain", no_pcm(truntime.update_chain))
+    monkeypatch.setattr(tfilter, "update_chain", no_pcm(tfilter.update_chain))
+    _, frames = pipe.run_fused(log)
+    n = len(log.scan_t)
+    assert len(calls) == n > 0
+    _, events = pipe.run(log)
+    assert len(calls) == 2 * n
+    for k, v in ref_frames.items():
+        np.testing.assert_array_equal(frames[k], v, err_msg=k)
+    for k in ("t", "pos", "rpy"):
+        np.testing.assert_array_equal(events[k], ref_events[k], err_msg=k)

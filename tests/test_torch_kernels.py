@@ -180,14 +180,15 @@ def test_launch_counters_name_all_seven_kernels():
     """Every kernel's counter: A-G, the EKF kernels H (the whole IMU stage)
     and I, the scan-time ring ops and GN step J, K, L, M, the window shift N,
     the CA tick O, the radar covariances P, the hash grid's Q (its fused,
-    query and lookup entries), the ground probe R and the P2P loop kernel
-    (A and M in one launch); the record packs apart."""
+    query and lookup entries), the ground probe R, the P2P loop kernel (A
+    and M in one launch) and the scan's end S (L and I's PCM leg in one
+    launch); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_stage",
-        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "gn_step",
-        "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
+        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "pcm_stage",
+        "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height"])
 
 

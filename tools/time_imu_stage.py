@@ -49,7 +49,7 @@ CALLS = 50
 N_SCANS = 20
 FRAME = 10
 STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-          "assign", "gn", "measurement", "pcm_update", "outputs")
+          "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
 WRAPPERS = ("imu_stage", "imu_chain", "ring_push", "ekf_update", "ca_tick")
 
 

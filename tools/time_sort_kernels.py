@@ -40,7 +40,7 @@ import torch
 CALLS = 50
 N_SCANS = 20
 STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-          "assign", "gn", "measurement", "pcm_update", "outputs")
+          "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
 
 
 def event_ms(fn):
