@@ -58,9 +58,16 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         launch: the PCM measurement, the PCM update and the frame's
         outputs) bit for bit against kernel L then kernel I on every
         frame's call and against its plain composition on one (one profiled
-        call of the stage must show S alone on the device), K and L (the
-        ring queries at the scan's times; L, S's reference entry, on S's
-        inputs), B and C beside
+        call of the stage must show S alone on the device), T (the scan's
+        front in one host call: the range gate, the scan times, K's ring
+        queries and D's deskew) bit for bit against the chain it replaced
+        (the gate and the scan times in torch, kernel K, then kernel D) on
+        every frame's call and on one frame with each of scan_time_end off,
+        run_deskew off and bug_compat_z, its valid' point for point the
+        torch gate's, and against its plain composition on one (one
+        profiled call of the stage must show T's two kernels alone on the
+        device), D and K (T's reference entries, on the chain's inputs) and
+        L (S's reference entry, on S's inputs), B and C beside
         ``torch.sort(stable=True)`` of their keys alone (a partial
         yardstick) and on the sort's edge inputs (tests/sort_edges.py, bit
         for bit, one launch a call); on the fusion
@@ -72,8 +79,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         read just after (every kernel of the path must have launched; H once
         a frame, J never, no EKF state or params packed: the same on every
         replay with IMU below, H once an IMU event in ``run``; on every path
-        below that runs scan_step, S once a scan, L never, I once a fusion
-        frame or CAN / GPS event and never without them; on every tile
+        below that runs scan_step, T once a scan, K and D never, S once a
+        scan, L never, I once a fusion frame or CAN / GPS event and never
+        without them; on every tile
         P2P path, the replays, the tick mode, the relocalizations and the
         windowed runs below, the loop kernel once a registration and kernels
         A and M never), on the P2P path the GN stage a frame and the scans/s
@@ -118,8 +126,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels B-D, H-S and the
-     loop kernel alone on the device (and kernel L then kernel I beside S),
+  6. torch.profiler, after every timed replay: kernels B-D, H-T and the
+     loop kernel alone on the device (and kernel L then kernel I beside S,
+     the gate, scan times, K and D beside T),
      and one more replay per run_fused
      path and of the windowed run_fused for the device's busy share and
      its top kernels; no kernel of a run_fused replay may be a library sort
@@ -131,7 +140,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      and the last frame's end, no device-to-host copy before the last loop
      kernel ends; the device kernels a frame counted, each frame ending in
      one kernel S after its loop kernel with no kernel L, I or eager
-     epilogue kernel after the loop;
+     epilogue kernel after the loop, and running kernel T's two kernels
+     once, K and D never, with no eager range-gate or scan-times kernel
+     between kernel H and T (the kernels there are listed);
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract, and "P2P hash" on
@@ -226,12 +237,30 @@ KERNEL = {
 #: per match (P2P's 18 sums; the 3x3 conjugation, inverse and 44 sums)
 SEARCH_COST = {"P2P": (12, 0, 40), "GICP": (12, 48, 300), "VGICP": (24, 36, 300),
                "AVGICP": (24, 36, 300)}
-SHARED = ("deskew", "voxel_downsample", "assign_slots")
+SHARED = ("scan_front", "voxel_downsample", "assign_slots")
+#: kernel T, the scan's front in one host call, launched once a scan on
+#: every path: its source and what it replaces
+FRONT = ("elimaloc_tpu_torch/csrc/scan_front.cu + scan_ring.cuh + deskew.cuh",
+         "elimaloc_tpu/pipeline/runtime.py:299-338 (the front of scan_step: stamp - "
+         "lidar_time_delay, the range gate :305-309, elimaloc_tpu/deskew.py:60 "
+         "normalize_scan_times, :157 make_deskew_info (+ :82, :109), :196 + :229 "
+         "deskew_points, elimaloc_tpu/pipeline/rings.py:204 get_interpolated_pose, usable, "
+         ":338 compose)")
+#: kernels K and D, whose bodies run inside kernel T: the reference entries T
+#: is held to (the gate and the scan times in torch, then K, then D), their
+#: sources and what they replace
+RING_QUERY = ("elimaloc_tpu_torch/csrc/scan_ring.cu + scan_ring.cuh",
+              "elimaloc_tpu/deskew.py:157 make_deskew_info (+ :82, :109) + "
+              "elimaloc_tpu/pipeline/rings.py:204 get_interpolated_pose + runtime.py:338 compose")
+DESKEW = ("elimaloc_tpu_torch/csrc/deskew.cu + deskew.cuh",
+          "elimaloc_tpu/deskew.py:196 (+ deskew_points :229)")
+#: the tile P2P path's scan front before kernel T: the range gate, the scan
+#: times, kernel K and kernel D ("gate" + "scan_times" + "ring_query" +
+#: "deskew", PERF.md section 5 before kernel T; H100 80GB HBM3, 700 W),
+#: printed beside this run's "front" stage
+CHAIN_FRONT = {"ms": 0.470, "frame_ms_p50": 1.57}
 #: the scan-time kernels, launched on every path: wrapper -> (source, replaces)
 SCAN_KERNELS = {
-    "scan_ring_query": ("scan_ring.cu", "elimaloc_tpu/deskew.py:157 make_deskew_info "
-                                        "(+ :82, :109) + elimaloc_tpu/pipeline/rings.py:204 "
-                                        "get_interpolated_pose + runtime.py:338 compose"),
     "pcm_stage": ("pcm_stage.cu + pcm_meas.cuh + ekf_update.cuh",
                   "elimaloc_tpu/pipeline/runtime.py:341-362 (the scan tail: :275 "
                   "shape_icp_covariance, elimaloc_tpu/pipeline/rings.py:251 "
@@ -462,7 +491,8 @@ def time_ms(fn):
 
 
 def shared_kernel_rows(pipe, calls, mods):
-    """Kernels B, C, D against their plain versions (the P2P path's calls)."""
+    """Kernels B, C, D against their plain versions (the P2P path's calls;
+    D's from the chain on kernel T's call, ``front_chain``)."""
     kernels, deskew, grid, tiles, _ = mods
     tmap = pipe.map
     budget = pipe.static.icp_static.tile_budget
@@ -478,8 +508,7 @@ def shared_kernel_rows(pipe, calls, mods):
     # per valid point: ~10 operations per IMU interval of the rotation sum,
     # ~60 for the rotation and the transform
     ops = int(valid.sum()) * (10 * info.imu_time.shape[0] + 60)
-    rows.append(dict(name="deskew", source="elimaloc_tpu_torch/csrc/deskew.cu",
-                     replaces="elimaloc_tpu/deskew.py:196 (+ deskew_points :229)",
+    rows.append(dict(name="deskew", source=DESKEW[0], replaces=DESKEW[1],
                      max_abs_err=err, ms=time_ms(lambda: kernels.deskew(*a, **k)),
                      plain_ms=time_ms(lambda: deskew.deskew_points_plain(*a)),
                      device_fn=(lambda a=a, k=k: kernels.deskew(*a, **k), "deskew_kernel"),
@@ -1280,8 +1309,136 @@ def ring_query_rows(imu, ego, cur, end, w):
     return imu_t_rows, gyro_rows, len(pose), len(rate)
 
 
+def front_args(a):
+    """``runtime.scan_front``'s arguments of a recorded ``kernels.scan_front``
+    call ``a``: (state, stamp, points, times, valid, params, static), the
+    state, params and static as the fields it reads."""
+    points, times, valid, stamp, delay, max_dist, imu, ego, tf, ste, run_deskew, bug_z = a
+    return (SimpleNamespace(imu_ring=imu, ego_ring=ego), stamp, points, times, valid,
+            SimpleNamespace(lidar_time_delay=delay, input_max_dist=max_dist,
+                            tf_ego_to_lidar=tf),
+            SimpleNamespace(scan_time_end=ste, run_deskew=run_deskew,
+                            bug_compat_deskew_z=bug_z))
+
+
+def front_chain(mods, a):
+    """The launches kernel T replaces, on a recorded ``kernels.scan_front``
+    call ``a``: the delayed stamp, the range gate and the scan times in torch
+    (``deskew.normalize_scan_times``), kernel K, then kernel D. Returns (the
+    outputs in T's wrapper's order, K's arguments, D's arguments)."""
+    from elimaloc_tpu_torch.ops import lie
+
+    kernels, deskew = mods[0], mods[1]
+    points, times, valid, stamp, delay, max_dist, imu, ego, tf, ste, run_deskew, bug_z = a
+    stamp = stamp - delay
+    valid = valid & (lie.norm(points) <= max_dist)
+    rel, cur, end = deskew.normalize_scan_times(times, valid, stamp, ste)
+    k_args = (imu, ego, cur, end, tf, 64, run_deskew)
+    (imu_time, imu_rot, included, first_idx, last_idx, incre, imu_ok, odom_ok, covers, guess,
+     found, usable) = kernels.scan_ring_query(*k_args)
+    info = deskew.DeskewInfo(imu_time=imu_time, imu_rot=imu_rot, imu_included=included,
+                             first_idx=first_idx, last_idx=last_idx, odom_incre=incre,
+                             scan_cur=cur, scan_end=end, imu_available=imu_ok,
+                             odom_available=odom_ok, imu_covers_start=covers)
+    d_args = (points, rel, valid, info, bug_z)
+    pts = kernels.deskew(*d_args) if run_deskew else points
+    return ((valid, pts, cur, end, guess, found, usable, imu_ok & odom_ok, imu_time, imu_rot,
+             included, first_idx, last_idx, incre, imu_ok, odom_ok, covers), k_args, d_args)
+
+
+#: kernel T's outputs, in its wrapper's order
+FRONT_OUTPUTS = ("valid", "points", "scan_cur", "scan_end", "init_guess", "found", "usable",
+                 "deskew_ok", "imu_time", "imu_rot", "imu_included", "first_idx", "last_idx",
+                 "odom_incre", "imu_available", "odom_available", "imu_covers_start")
+
+
+def front_fields(front):
+    """A ``runtime.ScanFront`` as {name: tensor} in :data:`FRONT_OUTPUTS`, the
+    deskew info's fields among them."""
+    return {k: getattr(front, k) if hasattr(front, k) else getattr(front.info, k)
+            for k in FRONT_OUTPUTS}
+
+
+def front_row(rec, mods):
+    """Kernel T, the scan's front in one host call, on every frame's recorded
+    call of the P2P path and on frame ``rec.at``'s with each flag flipped
+    (``scan_time_end`` False, its raw times moved 0.1 s later into the start
+    convention; ``run_deskew`` False; ``bug_compat_z``): bit-equal to the
+    chain it replaced (``front_chain``: the gate and the scan times in torch,
+    kernel K, then kernel D), valid' point by point equal to the torch
+    gate's; on frame ``rec.at`` against its plain version
+    ``runtime.scan_front_plain``: masks, indices and flags equal, floats
+    within 1e-4 (kernel K's and D's own bounds). One call of the stage's
+    entry (``runtime.scan_front``, ``stage_fn``) must show T's two kernels
+    and nothing else on the device."""
+    kernels, runtime = mods[0], mods[6]
+    calls = [a for a, _ in rec.every["scan_front"]]
+    at = calls[rec.at]
+    start, plain_off, bug_z = list(at), list(at), list(at)
+    start[1], start[9] = at[1] + 0.1, False
+    plain_off[10] = False
+    bug_z[11] = True
+    frames = [(f"frame {i}", a) for i, a in enumerate(calls)] + [
+        ("scan_time_end=False", tuple(start)), ("run_deskew=False", tuple(plain_off)),
+        ("bug_compat_z", tuple(bug_z))]
+    gate_diff = 0
+    for what, a in frames:
+        got = kernels.scan_front(*a)
+        ref = front_chain(mods, a)[0]
+        differ = int((got[0] != ref[0]).sum())
+        gate_diff += differ
+        same = [torch.equal(x, y) for x, y in zip(got, ref)]
+        if differ or not all(same):
+            raise AssertionError(f"scan_front: {what} differs from the gate, scan times, K and D "
+                                 f"chain: {differ} points of valid' differ from the torch "
+                                 f"gate's; equal {dict(zip(FRONT_OUTPUTS, same))}")
+    args = front_args(at)
+    got = front_fields(runtime.scan_front(*args))
+    ref = front_fields(runtime.scan_front_plain(*args))
+    err = 0.0
+    for k, v in ref.items():
+        if v.dtype == torch.float32:
+            err = max(err, float((got[k] - v).abs().max()))
+        elif not torch.equal(got[k], v):
+            raise AssertionError(f"scan_front kernel vs plain: {k} differs")
+    if not err <= 1e-4:
+        raise AssertionError(f"scan_front kernel vs plain: max abs err {err} > 1e-4")
+    points, valid, n = at[0], got["valid"], at[0].shape[0]
+    n_valid, w = int(valid.sum()), got["imu_time"].shape[0]
+    imu, ego = at[6], at[7]
+    log_line(f"  scan_front: {len(calls)} frames and 3 flag frames bit-equal to the gate, scan "
+             f"times, K and D chain ({gate_diff} points of valid' differ from the torch "
+             f"gate's); frame {rec.at} vs plain: max abs err {err:.2e}; {n} points, {n_valid} "
+             f"valid after the gate, window {w}, usable {bool(got['usable'])}")
+    log_line(f"  scan_front: the chain it replaced, event time "
+             f"{time_ms(lambda: front_chain(mods, at)):.4f} ms")
+    # bytes: per point xyz, time and valid in, valid' and xyz' out; the ring
+    # rows kernel K's queries read; the stamp, the parameters and the output
+    # buffer. Operations: the gate (~7 a point), the deskew (kernel D's) and
+    # kernel K's
+    imu_t_rows, gyro_rows, pose_rows, rate_rows = ring_query_rows(
+        imu, ego, got["scan_cur"], got["scan_end"], w)
+    outs = [v for k, v in got.items() if k != "points"]
+    moved = (nbytes(points, at[1], at[2], at[3], at[4], at[5], at[8], got["points"], *outs)
+             + nbytes(imu.t[:imu_t_rows], imu.gyro[:gyro_rows], imu.count,
+                      ego.t[:int(ego.count)], ego.pos[:pose_rows], ego.rpy[:pose_rows],
+                      ego.vel_local[:rate_rows], ego.gyro[:rate_rows], ego.count))
+    ops = 7 * n + n_valid * (10 * w + 60) + 10 * (int(imu.count) + int(ego.count)) + 20 * w + 2000
+    return dict(name="scan_front", source=FRONT[0], replaces=FRONT[1], max_abs_err=err,
+                ms=time_ms(lambda: kernels.scan_front(*at)),
+                plain_ms=time_ms(lambda: runtime.scan_front_plain(*args)),
+                device_fn=(lambda: kernels.scan_front(*at), "scan_"),
+                stage_fn=(lambda: runtime.scan_front(*args),
+                          ("scan_gate_query_kernel", "scan_deskew_points_kernel")),
+                chain_fn=lambda: front_chain(mods, at),
+                chain_label="the gate and scan times in torch, kernel K, kernel D",
+                bound=bound(ops, moved))
+
+
 def query_row(calls, mods):
-    """Kernel K against ``scan_ring_query_plain`` on the P2P path's frame:
+    """Kernel K, the reference entry of kernel T, against
+    ``scan_ring_query_plain`` on the P2P path's frame (its call in the chain
+    on kernel T's inputs, ``front_chain``):
     the masks, indices and flags equal, the float outputs within 1e-4 (the
     guess's translation is ~100 m; the plain version's cumsum is a parallel
     scan and its 4x4 products go through cuBLAS)."""
@@ -1311,8 +1468,8 @@ def query_row(calls, mods):
                    ego.pos[:pose_rows], ego.rpy[:pose_rows], ego.vel_local[:rate_rows],
                    ego.gyro[:rate_rows], ego.count, cur, end, tf, *got)
     ops = 10 * (n_imu + n_ego) + 20 * w + 2000
-    return dict(name="scan_ring_query", source="elimaloc_tpu_torch/csrc/scan_ring.cu",
-                replaces=SCAN_KERNELS["scan_ring_query"][1], max_abs_err=err,
+    return dict(name="scan_ring_query", source=RING_QUERY[0], replaces=RING_QUERY[1],
+                max_abs_err=err,
                 ms=time_ms(lambda: kernels.scan_ring_query(*a)),
                 plain_ms=time_ms(lambda: deskew.scan_ring_query_plain(*a)),
                 device_fn=(lambda: kernels.scan_ring_query(*a), "scan_ring_query_kernel"),
@@ -1532,7 +1689,9 @@ def loop_trace_check(pipe, log, runtime, n):
     counted (all but the last, which the outputs' stacking follows); each
     such frame's last kernel must be kernel S, one a frame after its loop
     kernel, and no kernel L, kernel I or eager epilogue kernel runs after
-    it."""
+    it; each runs kernel T's two kernels once and kernels K and D never,
+    and the kernels between kernel H and T's first are listed: no eager
+    range-gate or scan-times kernel may be among them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     orig = runtime.fused_frame
@@ -1598,6 +1757,29 @@ def loop_trace_check(pipe, log, runtime, n):
     bad_tail = [t for t in tails if not t or "pcm_stage_kernel" not in t[-1]
                 or sum("pcm_stage_kernel" in k for k in t) != 1
                 or any("pcm_measurement_kernel" in k or "ekf_update_kernel" in k for k in t)]
+    # the scan's front: kernel T's two kernels once a frame, K and D never,
+    # and between kernel H and T's first kernel no eager gate or scan-times
+    # kernel (the norm, the argmaxes, the flip, the index_selects)
+    fronts, between = [], []
+    for f in frames[:-1]:
+        names = [e.name for e in f]
+        fronts.append((sum("scan_gate_query_kernel" in k for k in names),
+                       sum("scan_deskew_points_kernel" in k for k in names),
+                       sum("scan_ring_query_kernel" in k or "deskew_kernel" in k for k in names)))
+        at = next((i for i, k in enumerate(names) if "scan_gate_query_kernel" in k), 0)
+        between.append(names[1:at])
+    # every eager kernel the gate and the scan times ran before kernel T
+    # (the norm's mul, sum and sqrt, the compare, the casts, the argmaxes,
+    # the flip, the index_selects) is one of PyTorch's at::native kernels
+    eager = sorted({k for b in between for k in b if "at::native" in k})
+    log_line(f"[P2P] traced replay: between kernel H and kernel T's first kernel "
+             f"{[len(b) for b in between]} kernels a frame "
+             f"({sorted({k[:60] for b in between for k in b})}); kernel T's two kernels and "
+             f"K / D a frame {sorted(set(fronts))}")
+    if any(f != (1, 1, 0) for f in fronts) or eager:
+        raise AssertionError(f"[P2P] the traced replay's scan front is not kernel T's two "
+                             f"kernels once a frame with no eager kernel before them: "
+                             f"{sorted(set(fronts))}, eager {eager[:4]}")
     log_line(f"[P2P] traced replay: device kernels a frame {per_frame} (median "
              f"{float(np.median(per_frame)) if per_frame else 0:.0f}); after the loop kernel "
              f"{len(tails[0]) if tails else 0} kernels, the frame's last "
@@ -1618,14 +1800,14 @@ def loop_trace_check(pipe, log, runtime, n):
     return {"traced_loop_kernels": len(loops), "traced_runtime_launches": runtime_launches,
             "traced_copies_in_frames": kinds if linked else None,
             "traced_device_kernels_per_frame": per_frame,
-            "traced_kernels_after_loop": [len(t) for t in tails]}
+            "traced_kernels_after_loop": [len(t) for t in tails],
+            "traced_kernels_between_h_and_t": [len(b) for b in between]}
 
 
 class StageTimer:
     """``mark`` callback of the pipeline: one CUDA event per stage boundary."""
 
-    ORDER = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-             "assign", "gn", "pcm_stage", "outputs")
+    ORDER = ("imu", "can_gps", "front", "downsample", "assign", "gn", "pcm_stage", "outputs")
 
     def __init__(self):
         self.events = []
@@ -1741,7 +1923,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
         path_kernels = tile_p2p_kernels(path_kernels)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
                   every=("ekf_update", "pcm_stage") + ((wrapper,) if radar else ())
-                  + ((LOOP,) if tile_p2p else ())) as rec:
+                  + ((LOOP,) if tile_p2p else ()) + (("scan_front",) if path == "P2P" else ())
+                  ) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
     if radar:
@@ -1770,9 +1953,14 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
             pipe, rec, mods)
         rows.append(row)
     if path == "P2P":
+        # kernels K and D, T's reference entries, take their calls in the
+        # chain on T's call of frame rec.at
+        _, k_args, d_args = front_chain(mods, rec.calls["scan_front"][0])
+        rec.calls["scan_ring_query"], rec.calls["deskew"] = (k_args, {}), (d_args, {})
         rows += shared_kernel_rows(pipe, rec.calls, mods[:5])
         rows += [imu_stage_row(rec.calls, pipe, mods), pcm_stage_row(rec, mods),
-                 query_row(rec.calls, mods), measurement_row(rec.calls, mods)]
+                 front_row(rec, mods), query_row(rec.calls, mods),
+                 measurement_row(rec.calls, mods)]
     if fusion:
         rows += [ekf_update_row(rec, mods)]
     elif hashed:
@@ -1832,6 +2020,10 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
                  f"{CHAIN_P2P['gn_ms']}), {n / wall:.2f} scans/s (three-launch loop: "
                  f"{CHAIN_P2P['scans_per_s']}), frame p50 {p50:.3f} ms (three-launch "
                  f"loop: {CHAIN_P2P['frame_ms_p50']}); card {card()}")
+        log_line(f"[{path}] scan front (kernel T: the range gate, the scan times, the ring "
+                 f"queries and the deskew; stage front) {split['front']:.3f} ms a frame (the "
+                 f"gate and scan times in torch, kernel K and kernel D: {CHAIN_FRONT['ms']}), "
+                 f"frame p50 {p50:.3f} ms (with them: {CHAIN_FRONT['frame_ms_p50']})")
         log_line(f"[{path}] scan end (kernel S: the PCM measurement, update and the frame's "
                  "outputs; stages pcm_stage + outputs) "
                  f"{split['pcm_stage'] + split['outputs']:.3f} ms a frame (kernel L, kernel I "
@@ -1932,9 +2124,16 @@ def check_loop(what, launches, registrations):
 
 
 def check_scan_end(what, launches, scans, updates):
-    """Every scan ends in one launch of kernel S; kernel L never launches, and
-    kernel I only for the CAN and GPS updates (``updates`` launches: one a
-    fusion frame, one an event in ``run``, none without GPS and CAN)."""
+    """Every scan starts in one call of kernel T, whose reference entries K
+    and D never launch, and ends in one launch of kernel S; kernel L never
+    launches, and kernel I only for the CAN and GPS updates (``updates``
+    launches: one a fusion frame, one an event in ``run``, none without GPS
+    and CAN)."""
+    if not (launches["scan_front"] == scans and launches["scan_ring_query"] == 0
+            and launches["deskew"] == 0):
+        raise AssertionError(f"[{what}] scan_front launched {launches['scan_front']} times for "
+                             f"{scans} scans, scan_ring_query {launches['scan_ring_query']}, "
+                             f"deskew {launches['deskew']}")
     if not (launches["pcm_stage"] == scans and launches["pcm_measurement"] == 0
             and launches["ekf_update"] == updates):
         raise AssertionError(f"[{what}] pcm_stage launched {launches['pcm_stage']} times for "
@@ -2845,22 +3044,24 @@ def main():
     # the profiler passes, after every timed replay
     for r in rows:
         if "stage_fn" in r:
-            # one call of the stage's runtime entry: its kernel alone on the
-            # device (the IMU stage: H; the scan's end: S)
-            fn, kernel = r.pop("stage_fn")
+            # one call of the stage's runtime entry: its kernels alone on the
+            # device (the IMU stage: H; the scan's front: T's two; the scan's
+            # end: S)
+            fn, names = r.pop("stage_fn")
+            names = names if isinstance(names, tuple) else (names,)
             per, _ = device_profile(fn)
             log_line(f"kernel {r['name']}: one call of its runtime entry under "
                      f"torch.profiler, device kernels {per}")
-            if len(per) != 1 or kernel not in next(iter(per)):
+            if len(per) != len(names) or not all(any(n in k for k in per) for n in names):
                 raise AssertionError(f"{r['name']}: its stage launched {sorted(per)} on the "
-                                     f"device, not {kernel} alone")
+                                     f"device, not {names} alone")
         if "device_fn" in r:
             dev = kernel_device_ms(*r.pop("device_fn"))
-            chain = kernel_device_ms(r.pop("chain_fn"), "_kernel") if "chain_fn" in r else None
+            chain = kernel_device_ms(r.pop("chain_fn"), "") if "chain_fn" in r else None
+            label = r.pop("chain_label", "kernel L then kernel I")
             log_line(f"kernel {r['name']}: on the device alone "
                      + (f"{dev:.4f} ms" if dev else "not measured")
-                     + " (torch.profiler)" + (f"; kernel L then kernel I {chain:.4f} ms"
-                                              if chain else ""))
+                     + " (torch.profiler)" + (f"; {label} {chain:.4f} ms" if chain else ""))
     for job in deferred:
         job()
     for path in PATHS + ("P2P hash",):

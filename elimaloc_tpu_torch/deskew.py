@@ -10,7 +10,9 @@ CPU one. ``deskew_points`` is the per-point hot op (JAX
 tensor it launches kernel D (csrc/deskew.cu); on a CPU tensor it runs
 :func:`deskew_points_plain`, its plain PyTorch version. The
 ``bug_compat_z`` flag keeps the reference's z-translation typo (cpp:804)
-reproducible.
+reproducible. The pipeline runs these with the range gate and the scan
+times as one call of kernel T (``runtime.scan_front``); K and D are its
+reference entries.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method kernels (the P2P loop
 on the tile backend, E, F, G), N, O and P, kernel I, which runs only for
 CAN and GPS, the per-iteration entries A and M where the loop kernel takes
-their place, and L, whose body runs inside S.
+their place, L, whose body runs inside S, and D and K, whose bodies run
+inside T.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -27,6 +28,7 @@ A         p2p_correspond      map/tiles.py:nearest_point_slots + icp._p2p_tail,
 B         assign_slots        map/tiles.py:assign_slots
 C         voxel_downsample    map/grid.py:voxel_downsample
 D         deskew              deskew.py:_find_rotation_batch + deskew_points
+                              (kernel T's reference; its body runs inside T)
 E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
                               icp._gicp_tail
 F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
@@ -41,6 +43,7 @@ J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
                               (the tick mode's ego push, its IMU intake)
 K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
                               + the initial guess's compose (runtime.py:338)
+                              (kernel T's reference; its body runs inside T)
 L         pcm_measurement     runtime.shape_icp_covariance +
                               rings.gnss_time_compensation + scan_step's glue
                               (kernel S's reference; its body runs inside S)
@@ -65,6 +68,10 @@ S         pcm_stage           runtime.pcm_stage_plain: the scan's end, L's PCM
                               measurement, I's PCM update and the fused
                               frame's epilogue (the ego pose, P's asymmetry
                               and smallest diagonal), one launch a scan
+T         scan_front          runtime.scan_front_plain: the scan's front, the
+                              delayed stamp, the range gate, the scan times,
+                              K's ring queries and D's deskew, one host call
+                              (two launches) a scan
 ========  ==================  ===================================================
 
 Kernel N runs only on the active-window path (``map_window_radius``), O and
@@ -96,9 +103,9 @@ from .build import library
 launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "voxel_downsample": 0, "deskew": 0, "gicp_correspond": 0, "vgicp_correspond": 0,
             "avgicp_correspond": 0, "imu_stage": 0, "ekf_update": 0, "ring_push": 0,
-            "scan_ring_query": 0, "pcm_measurement": 0, "pcm_stage": 0, "gn_step": 0,
-            "shift_window": 0, "ca_tick": 0, "radar_cov": 0, "hash_correspond": 0,
-            "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
+            "scan_ring_query": 0, "scan_front": 0, "pcm_measurement": 0, "pcm_stage": 0,
+            "gn_step": 0, "shift_window": 0, "ca_tick": 0, "radar_cov": 0,
+            "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -691,6 +698,79 @@ def scan_ring_query(imu, ego, scan_cur, scan_end, tf_ego_to_lidar, window: int,
     launches["scan_ring_query"] += 1
     return (f[:w], f[w:4 * w].view(w, 3), b[:w], i[0], i[1], f[4 * w:4 * w + 3], b[w],
             b[w + 1], b[w + 2], f[4 * w + 3:].view(4, 4), b[w + 3], b[w + 4])
+
+
+#: kernel T's flag bits and the float scalars after kernel K's outputs (the
+#: delayed stamp, scan_cur, scan_end, front_t), csrc/scan_front.cu
+_SCAN_TIME_END, _RUN_DESKEW, _BUG_COMPAT_Z = 1, 2, 4
+FRONT_SCALARS = 4
+#: kernel T's workspace on each device (the done counter, the first and the
+#: last valid index: 0, INT_MAX, -1 between calls; the last CTA resets it)
+_front_work = {}
+#: the last (delay, max_dist, tf_ego_to_lidar) given and their pointers: a
+#: pipeline passes the same parameter tensors every scan
+_front_params = [None, None]
+
+
+def _front_in(delay, max_dist, tf):
+    key = _front_params[0]
+    if key is not None and key[0] is delay and key[1] is max_dist and key[2] is tf:
+        return _front_params[1]
+    ptrs = [_check(delay, "lidar_time_delay", _F32, ()),
+            _check(max_dist, "input_max_dist", _F32, ()),
+            _check(tf, "tf_ego_to_lidar", _F32, (4, 4))]
+    _front_params[:] = [(delay, max_dist, tf), ptrs]
+    return ptrs
+
+
+def scan_front(points, times, valid, stamp, delay, max_dist, imu, ego, tf_ego_to_lidar,
+               scan_time_end: bool, run_deskew: bool, bug_compat_z: bool, window: int = 64):
+    """Kernel T (runtime.scan_front_plain): the delayed stamp, the range
+    gate, the scan times, kernel K's ring queries and, with ``run_deskew``,
+    kernel D's deskew, one host call (two launches). Returns (valid' [n],
+    points' [n,3] (``points`` itself without ``run_deskew``), scan_cur,
+    scan_end, init_guess [4,4], found, usable, deskew_ok, then the deskew
+    info's imu_time [w], imu_rot [w,3], imu_included [w], first_idx,
+    last_idx, odom_incre [3], imu_available, odom_available,
+    imu_covers_start); all but points' are views of one fresh buffer; w =
+    min(window, IMU ring capacity)."""
+    n = points.shape[0]
+    if n == 0:
+        raise ValueError("scan_front: a scan of at least one point required")
+    ri, re = imu.capacity, ego.capacity
+    w = min(int(window), ri)
+    dev = points.device
+    p_delay, p_dist, p_tf = _front_in(delay, max_dist, tf_ego_to_lidar)
+    args = [_check(points, "points", _F32, (n, 3)), _check(times, "times", _F32, (n,)),
+            _check(valid, "valid", _BOOL, (n,)), ctypes.c_int(n),
+            _check(stamp, "stamp", _F32, ()), p_delay, p_dist,
+            _ring_in(imu, "imu_ring", _IMU_FIELDS), ctypes.c_int(ri),
+            _ring_in(ego, "ego_ring", _EGO_FIELDS), ctypes.c_int(re), p_tf]
+    # kernels launch on one stream at a time: each call's last CTA leaves
+    # the workspace clean for the next
+    work = _front_work.get(dev)
+    if work is None:
+        work = _front_work[dev] = torch.tensor([0, 2 ** 31 - 1, -1], dtype=torch.int32,
+                                               device=dev)
+    flags = ((_SCAN_TIME_END if scan_time_end else 0) | (_RUN_DESKEW if run_deskew else 0)
+             | (_BUG_COMPAT_Z if bug_compat_z else 0))
+    nf = 4 * (4 * w + 19 + FRONT_SCALARS)
+    buf = torch.empty(16 + nf + w + 6 + n, dtype=torch.uint8, device=dev)
+    pts = torch.empty_like(points) if run_deskew else points
+    rc = library().elm_scan_front(*args, ctypes.c_int(w), ctypes.c_int(flags), _ptr(work),
+                                  _ptr(buf), _ptr(pts) if run_deskew else _ptr(None),
+                                  _stream(points))
+    _raise_on(rc, "scan_front")
+    launches["scan_front"] += 1
+    i, f, b = buf.split_with_sizes((16, nf, w + 6 + n))
+    imu_time, imu_rot, incre, guess, scalars = f.view(_F32).split_with_sizes(
+        (w, 3 * w, 3, 16, FRONT_SCALARS))
+    included, flag_views, valid_out = b.view(_BOOL).split_with_sizes((w, 6, n))
+    imu_ok, odom_ok, covers, found, usable, desk_ok = flag_views.unbind()
+    first_idx, last_idx = i.view(torch.int64).unbind()
+    _, cur, end, _ = scalars.unbind()
+    return (valid_out, pts, cur, end, guess.view(4, 4), found, usable, desk_ok, imu_time,
+            imu_rot.view(w, 3), included, first_idx, last_idx, incre, imu_ok, odom_ok, covers)
 
 
 def pcm_measurement(icp_pose, tf_lidar_to_ego, local_cov, fitness, success, usable, ego,

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P],
+    "elm_scan_front": [_P, _P, _P, _I, _P, _P, _P, _PP, _I, _PP, _I, _P, _I, _I, _P, _P, _P, _P],
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "elm_pcm_stage": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
                       _P, _P],

@@ -7,10 +7,10 @@ masked resets, and a batch push gives the same result as sequential pushes.
 
 On the card a frame's (and an IMU event's) pushes into both rings run
 inside kernel H (``runtime.imu_subbatch``), the tick mode's one-ring
-pushes as kernel J (:func:`push_rings`), the pose sync inside kernel K
-(``deskew.scan_ring_query``) and the latency compensation inside kernel L
-(``runtime.pcm_measurement``); the functions here are their plain versions,
-which CPU tensors run.
+pushes as kernel J (:func:`push_rings`), the pose sync inside kernel T
+(kernel K's body, ``runtime.scan_front``) and the latency compensation
+inside kernel S (kernel L's body, ``runtime.pcm_stage``); the functions
+here are their plain versions, which CPU tensors run.
 """
 
 from __future__ import annotations

@@ -4,17 +4,18 @@ CAN fusion).
 
 One :class:`PipelineState` (EKF state + ego/IMU rings) runs through the
 event steps: :func:`imu_step` (one IMU sample), :func:`gps_step`,
-:func:`can_step`, :func:`scan_step` (range gate -> scan times -> ring
-queries, kernel K -> deskew, kernel D -> voxel downsample, kernel C -> ICP
-registration, kernels B, A/E/F/G and M (the hash backend: Q and M) -> the
-scan's end, kernel S: the PCM measurement, the EKF PCM update and the
-frame's published outputs) and :func:`pcm_init_step` (a relocalization
-result). :func:`fused_frame` is one LiDAR frame: :func:`imu_subbatch` (the
-frame's IMU samples into the ego frame, through the EKF prediction, then
-one push into each ring: one launch of kernel H), the frame's CAN and GPS
-samples when the configuration fuses them (kernel I), then
-:func:`scan_step`. The EKF state lives on the card as one packed record
-(``ekf.state``), which kernels H, I, O and S take and give.
+:func:`can_step`, :func:`scan_step` (the scan's front, kernel T: the
+range gate, the scan times, the ring queries and the deskew -> voxel
+downsample, kernel C -> ICP registration, kernels B, A/E/F/G and M (the
+hash backend: Q and M) -> the scan's end, kernel S: the PCM measurement,
+the EKF PCM update and the frame's published outputs) and
+:func:`pcm_init_step` (a relocalization result). :func:`fused_frame` is
+one LiDAR frame: :func:`imu_subbatch` (the frame's IMU samples into the
+ego frame, through the EKF prediction, then one push into each ring: one
+launch of kernel H), the frame's CAN and GPS samples when the
+configuration fuses them (kernel I), then :func:`scan_step`. The EKF
+state lives on the card as one packed record (``ekf.state``), which
+kernels H, I, O and S take and give.
 
 :class:`LocalizationPipeline` drives them three ways, as the JAX package
 does: ``run`` (the per-event loop over a log in time order), ``run_frames``
@@ -250,8 +251,8 @@ def pcm_stage_plain(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usa
 
 
 def _on_card(t) -> bool:
-    """Whether the scan's end launches kernel S for ``t`` (any device but the
-    CPU, where it runs the plain version)."""
+    """Whether the scan's front and end launch kernels T and S for ``t`` (any
+    device but the CPU, where they run their plain versions)."""
     return t.device.type != "cpu"
 
 
@@ -273,6 +274,66 @@ def pcm_stage(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usable,
                        "p_min_diag": p_min_diag}
 
 
+@dataclasses.dataclass
+class ScanFront(Struct):
+    """The scan's front (JAX runtime.py:299-338): the gated point mask, the
+    points in the scan-end frame, the scan's times, the ICP initial guess,
+    ``found`` (the pose sync), ``usable``, ``deskew_ok`` (the deskew info's
+    availability) and the deskew info itself."""
+
+    valid: torch.Tensor       # [N] bool, after the range gate
+    points: torch.Tensor      # [N,3] deskewed (the input without run_deskew)
+    scan_cur: torch.Tensor
+    scan_end: torch.Tensor
+    init_guess: torch.Tensor  # [4,4]
+    found: torch.Tensor
+    usable: torch.Tensor
+    deskew_ok: torch.Tensor
+    info: deskew_mod.DeskewInfo
+
+
+def scan_front_plain(state: PipelineState, stamp, points, rel_raw, valid,
+                     pp: PipelineParams, ps: PipelineStatic) -> ScanFront:
+    """Plain PyTorch version of kernel T, the scan's front (JAX runtime.py:
+    299-338): ``stamp - lidar_time_delay``, the range gate
+    (FilterPointsByDistance, cpp:451-465), ``deskew.normalize_scan_times``,
+    ``deskew.scan_ring_query_plain`` (kernel K's plain version) and, with
+    ``run_deskew``, ``deskew.deskew_points_plain`` (kernel D's)."""
+    stamp = stamp - pp.lidar_time_delay
+    valid = valid & (lie.norm(points) <= pp.input_max_dist)
+    rel, scan_cur, scan_end = deskew_mod.normalize_scan_times(
+        rel_raw, valid, stamp, ps.scan_time_end)
+    info, init_guess, found, usable = deskew_mod.scan_ring_query_plain(
+        state.imu_ring, state.ego_ring, scan_cur, scan_end, pp.tf_ego_to_lidar,
+        run_deskew=ps.run_deskew)
+    ok = info.imu_available & info.odom_available
+    if ps.run_deskew:
+        points = deskew_mod.deskew_points_plain(points, rel, valid, info,
+                                                ps.bug_compat_deskew_z)
+    return ScanFront(valid=valid, points=points, scan_cur=scan_cur, scan_end=scan_end,
+                     init_guess=init_guess, found=found, usable=usable, deskew_ok=ok,
+                     info=info)
+
+
+def scan_front(state: PipelineState, stamp, points, rel_raw, valid, pp: PipelineParams,
+               ps: PipelineStatic) -> ScanFront:
+    """The scan's front: :func:`scan_front_plain` for CPU tensors, one call of
+    kernel T (``kernels.scan_front``: two launches) for CUDA ones."""
+    if not _on_card(points):
+        return scan_front_plain(state, stamp, points, rel_raw, valid, pp, ps)
+    (valid, pts, cur, end, guess, found, usable, ok, imu_time, imu_rot, included, first_idx,
+     last_idx, incre, imu_ok, odom_ok, covers) = kernels.scan_front(
+        points, rel_raw, valid, stamp, pp.lidar_time_delay, pp.input_max_dist,
+        state.imu_ring, state.ego_ring, pp.tf_ego_to_lidar, ps.scan_time_end,
+        ps.run_deskew, ps.bug_compat_deskew_z)
+    info = deskew_mod.DeskewInfo(
+        imu_time=imu_time, imu_rot=imu_rot, imu_included=included, first_idx=first_idx,
+        last_idx=last_idx, odom_incre=incre, scan_cur=cur, scan_end=end,
+        imu_available=imu_ok, odom_available=odom_ok, imu_covers_start=covers)
+    return ScanFront(valid=valid, points=pts, scan_cur=cur, scan_end=end, init_guess=guess,
+                     found=found, usable=usable, deskew_ok=ok, info=info)
+
+
 #: the frame's outputs that fused_frame adds to scan_step's (JAX
 #: runtime.py:481-490), in its order
 PUBLISHED = ("ego_pos", "ego_rpy", "ego_t", "p_asym", "p_min_diag")
@@ -286,52 +347,39 @@ def scan_step(state: PipelineState, stamp, points, rel_raw, valid, tmap,
               pp: PipelineParams, ps: PipelineStatic, mark=_no_mark, published=None):
     """One LiDAR frame through the matching pipeline (runtime.py:299-382).
     Returns (state', out dict), ``out`` with JAX's keys. ``mark(name)`` is
-    called at the stage boundaries "gate", "scan_times", "ring_query",
-    "deskew", "downsample", "assign", "gn" and "pcm_stage" (for timing). The
-    scan's end (the PCM measurement, the PCM update and the frame's
-    published outputs) is :func:`pcm_stage`; a ``published`` dict receives
-    the outputs of it that ``out`` does not hold (:data:`PUBLISHED`: the
-    filter's pose after the update, P's asymmetry and smallest diagonal)."""
-    stamp = stamp - pp.lidar_time_delay
-
-    # range gate (FilterPointsByDistance, cpp:451-465)
-    valid = valid & (lie.norm(points) <= pp.input_max_dist)
-    mark("gate")
-    rel, scan_cur, scan_end = deskew_mod.normalize_scan_times(
-        rel_raw, valid, stamp, ps.scan_time_end)
-    mark("scan_times")
-
-    info, init_guess, found, usable = deskew_mod.scan_ring_query(
-        state.imu_ring, state.ego_ring, scan_cur, scan_end, pp.tf_ego_to_lidar,
-        run_deskew=ps.run_deskew)
-    mark("ring_query")
-    pts_d, desk_ok = deskew_mod.deskew_points(
-        points, rel, valid, info, run_deskew=ps.run_deskew,
-        bug_compat_z=ps.bug_compat_deskew_z)
-    mark("deskew")
+    called at the stage boundaries "front", "downsample", "assign", "gn" and
+    "pcm_stage" (for timing). The scan's front (the delayed stamp, the range
+    gate, the scan times, the ring queries and the deskew) is
+    :func:`scan_front`, kernel T on the card; the scan's end (the PCM
+    measurement, the PCM update and the frame's published outputs) is
+    :func:`pcm_stage`, kernel S; a ``published`` dict receives the outputs
+    of it that ``out`` does not hold (:data:`PUBLISHED`: the filter's pose
+    after the update, P's asymmetry and smallest diagonal)."""
+    front = scan_front(state, stamp, points, rel_raw, valid, pp, ps)
+    mark("front")
 
     ds_pts, ds_valid, ds_kept = voxel_downsample(
-        pts_d, valid, pp.input_voxel_ds, ps.ds_points)
+        front.points, front.valid, pp.input_voxel_ds, ps.ds_points)
     mark("downsample")
 
-    res = run_register(ds_pts, ds_valid, tmap, init_guess, pp.icp,
+    res = run_register(ds_pts, ds_valid, tmap, front.init_guess, pp.icp,
                        ps.icp_static, mark=mark)
 
-    ekf, _, pub = pcm_stage(state.ekf, res, pp.tf_lidar_to_ego, state.ego_ring, scan_end,
-                            usable, pp.ekf, ps.ekf_flags, ps.use_pcm)
+    ekf, _, pub = pcm_stage(state.ekf, res, pp.tf_lidar_to_ego, state.ego_ring,
+                            front.scan_end, front.usable, pp.ekf, ps.ekf_flags, ps.use_pcm)
     mark("pcm_stage")
     new_state = state.replace(ekf=ekf)
     if published is not None:
         published.update((k, pub[k]) for k in PUBLISHED)
 
     out = {
-        "scan_end": scan_end,
+        "scan_end": front.scan_end,
         "icp_pose": pub["icp_pose"],
         "applied": pub["applied"],
         "icp_success": res.success,
-        "deskew_ok": desk_ok,
-        "pose_sync_ok": found,
-        "deskew_full_cover": info.imu_covers_start,
+        "deskew_ok": front.deskew_ok,
+        "pose_sync_ok": front.found,
+        "deskew_full_cover": front.info.imu_covers_start,
         "fitness": res.fitness,
         "overlap": res.overlap,
         "iterations": res.iterations,

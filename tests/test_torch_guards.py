@@ -181,7 +181,8 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: serving path (the host crops, the shift and the window management), the
 #: tick mode and the radar covariances, kernels J-P and their plain versions
 #: live in, the packed EKF records, the smoke script and the timing scripts
-#: of kernels B and C, of the IMU stage and of the P2P GN loop
+#: of kernels B and C, of the IMU stage, of the P2P GN loop, of the scan's
+#: end and of its front
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -190,7 +191,8 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/kernels/build.py", "elimaloc_tpu_torch/map/tiles.py",
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
                "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
-               "tools/time_gn_loop.py", "tools/time_pcm_stage.py"]
+               "tools/time_gn_loop.py", "tools/time_pcm_stage.py",
+               "tools/time_scan_front.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
@@ -283,6 +285,28 @@ def test_sort_constants_match_the_sources():
         str(kernels.SHARED_TILES)
 
 
+def _front_by_plain(calls):
+    """A stand-in for kernel T's wrapper on CPU tensors: its plain version,
+    returned in the wrapper's order; each call's points go to ``calls``."""
+    from types import SimpleNamespace
+
+    def front(points, times, valid, stamp, delay, max_dist, imu, ego, tf, scan_time_end,
+              run_deskew, bug_compat_z, window=64):
+        calls.append(points)
+        f = truntime.scan_front_plain(
+            SimpleNamespace(imu_ring=imu, ego_ring=ego), stamp, points, times, valid,
+            SimpleNamespace(lidar_time_delay=delay, input_max_dist=max_dist,
+                            tf_ego_to_lidar=tf),
+            SimpleNamespace(scan_time_end=scan_time_end, run_deskew=run_deskew,
+                            bug_compat_deskew_z=bug_compat_z))
+        i = f.info
+        return (f.valid, f.points, f.scan_cur, f.scan_end, f.init_guess, f.found, f.usable,
+                f.deskew_ok, i.imu_time, i.imu_rot, i.imu_included, i.first_idx, i.last_idx,
+                i.odom_incre, i.imu_available, i.odom_available, i.imu_covers_start)
+
+    return front
+
+
 def test_scan_step_card_branch_ends_the_scan_in_kernel_s(both_worlds, monkeypatch):
     """On the card route (``runtime._on_card``) the scan's end is one call of
     kernel S's wrapper a scan (``kernels.pcm_stage``, stubbed here by its
@@ -326,11 +350,62 @@ def test_scan_step_card_branch_ends_the_scan_in_kernel_s(both_worlds, monkeypatc
         return chain
 
     monkeypatch.setattr(truntime, "_on_card", lambda t: True)
+    monkeypatch.setattr(kernels, "scan_front", _front_by_plain([]))
     monkeypatch.setattr(kernels, "pcm_stage", stage)
     monkeypatch.setattr(kernels, "pcm_measurement", refused("kernels.pcm_measurement"))
     monkeypatch.setattr(kernels, "ekf_update", refused("kernels.ekf_update"))
     monkeypatch.setattr(truntime, "update_chain", no_pcm(truntime.update_chain))
     monkeypatch.setattr(tfilter, "update_chain", no_pcm(tfilter.update_chain))
+    _, frames = pipe.run_fused(log)
+    n = len(log.scan_t)
+    assert len(calls) == n > 0
+    _, events = pipe.run(log)
+    assert len(calls) == 2 * n
+    for k, v in ref_frames.items():
+        np.testing.assert_array_equal(frames[k], v, err_msg=k)
+    for k in ("t", "pos", "rpy"):
+        np.testing.assert_array_equal(events[k], ref_events[k], err_msg=k)
+
+
+def test_scan_step_card_branch_runs_the_front_in_kernel_t(both_worlds, monkeypatch):
+    """On the card route (``runtime._on_card``) the scan's front is one call
+    of kernel T's wrapper a scan (``kernels.scan_front``, stubbed here by its
+    plain version), in fused_frame and in ``run``: kernel K
+    (``kernels.scan_ring_query``) and kernel D (``kernels.deskew``) are never
+    called, and the outputs are the CPU route's."""
+    from types import SimpleNamespace
+
+    from elimaloc_tpu_torch import kernels
+    from elimaloc_tpu_torch.pipeline import LocalizationPipeline
+
+    _, tw = both_worlds
+    log = tlog.synthesize_log(tw, duration=0.8, points_per_scan=512, max_range=50.0,
+                              seed=10)
+    pipe = LocalizationPipeline(tiny_cfg(tconfig), tw, device="cpu", ds_points=512,
+                                tile_budget=ttiles.TileQueryBudget(qb=8, max_slots=512),
+                                use_native=False, ego_ring_size=64, imu_ring_size=64)
+    _, ref_frames = pipe.run_fused(log)
+    _, ref_events = pipe.run(log)
+    calls = []
+
+    def stage(ekf, params, flags, pose, tf, local_cov, fitness, success, usable, ring, end,
+              use_pcm):
+        res = SimpleNamespace(pose=pose, local_cov=local_cov, fitness=fitness, success=success)
+        ekf, meas, pub = truntime.pcm_stage_plain(ekf, res, tf, ring, end, usable, params,
+                                                  flags, use_pcm)
+        return ekf, (pub["icp_pose"], meas.timestamp, meas.pos, meas.rot, meas.pos_cov,
+                     meas.rot_cov, pub["applied"], *(pub[k] for k in truntime.PUBLISHED))
+
+    def refused(name):
+        def fn(*a, **k):
+            raise AssertionError(f"{name} called on the card route of the scan's front")
+        return fn
+
+    monkeypatch.setattr(truntime, "_on_card", lambda t: True)
+    monkeypatch.setattr(kernels, "scan_front", _front_by_plain(calls))
+    monkeypatch.setattr(kernels, "pcm_stage", stage)
+    monkeypatch.setattr(kernels, "scan_ring_query", refused("kernels.scan_ring_query"))
+    monkeypatch.setattr(kernels, "deskew", refused("kernels.deskew"))
     _, frames = pipe.run_fused(log)
     n = len(log.scan_t)
     assert len(calls) == n > 0

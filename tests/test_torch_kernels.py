@@ -181,13 +181,15 @@ def test_launch_counters_name_all_seven_kernels():
     and I, the scan-time ring ops and GN step J, K, L, M, the window shift N,
     the CA tick O, the radar covariances P, the hash grid's Q (its fused,
     query and lookup entries), the ground probe R, the P2P loop kernel (A
-    and M in one launch) and the scan's end S (L and I's PCM leg in one
-    launch); the record packs apart."""
+    and M in one launch), the scan's end S (L and I's PCM leg in one
+    launch) and the scan's front T (the gate, the scan times, K and D in
+    one host call); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
         "gicp_correspond", "vgicp_correspond", "avgicp_correspond", "imu_stage",
-        "ekf_update", "ring_push", "scan_ring_query", "pcm_measurement", "pcm_stage",
+        "ekf_update", "ring_push", "scan_ring_query", "scan_front", "pcm_measurement",
+        "pcm_stage",
         "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height"])
 

@@ -52,8 +52,8 @@ import numpy as np
 import torch
 
 N_SCANS = 20
-STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-          "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
+STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "front",
+          "downsample", "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
 GN_KERNELS = ("p2p_search_kernel", "reduce_partials_kernel", "gn_step_kernel",
               "p2p_register_kernel")
 RELOC_CALLS = 30

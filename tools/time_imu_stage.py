@@ -48,8 +48,8 @@ import torch
 CALLS = 50
 N_SCANS = 20
 FRAME = 10
-STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-          "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
+STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "front",
+          "downsample", "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
 WRAPPERS = ("imu_stage", "imu_chain", "ring_push", "ekf_update", "ca_tick")
 
 

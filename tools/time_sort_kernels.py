@@ -39,8 +39,8 @@ import torch
 
 CALLS = 50
 N_SCANS = 20
-STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "downsample",
-          "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
+STAGES = ("imu", "can_gps", "gate", "scan_times", "ring_query", "deskew", "front",
+          "downsample", "assign", "gn", "measurement", "pcm_update", "pcm_stage", "outputs")
 
 
 def event_ms(fn):
