@@ -26,7 +26,8 @@ length (40 scans, bench.py:86, 140-146: the 20-scan log moves 7 m, too
 little for a 48 m window to swap), run three ways: ``run_fused
 (window_chunk=8)``, ``run_frames`` per frame, and per frame with each
 prefetch finished before any swap ("forced"). Then the hash backend
-(K13, kernel Q once per GN iteration in place of B and A, E, F, G):
+(K13: the hash loop kernel, kernels Q and M as one cooperative launch a
+registration, in place of B and A, E, F, G):
 ``run_fused`` as "P2P hash", "GICP hash", "VGICP hash", "AVGICP hash" and
 the radar forms "GICP / VGICP / AVGICP hash+radar"; "GICP hash frames"
 (``run_frames``); "reloc hash" (``initialize_at`` on the P2P hash
@@ -49,8 +50,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         reduce_partials_kernel, kernel M, the stop flag read back each
         iteration) and within A's and M's tolerances of its plain version,
         then kernel A and kernel M alone on frame 10's first iteration; on
-        the other method paths the method's fused search + GN kernel (E, F,
-        G) and kernel M (the GN step); on the
+        the tile AVGICP paths (AVGICP, its radar form, the fusion path) the
+        AVGICP loop kernel (``avgicp_register``: kernels G and M as one
+        cooperative launch) and on every hash path the hash loop kernel
+        (``hash_register``: kernels Q and M) the same way, bit for bit
+        against their chains on every registration (in the radar forms the
+        distance from the plain loop is recorded, not gated: the search
+        kernels' radar rows are held to a float64 tail), then G or Q and M
+        alone on frame 10's first iteration (the radar rows on an iteration
+        with a finite pose and a match); on the tile GICP and VGICP paths
+        the method's fused search + GN kernel (E, F) and kernel M (the GN
+        step); on the
         P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
         stage: the sensor-frame conversion, the EKF chain and both ring
         pushes, against its plain composition; one profiled call of the
@@ -84,7 +94,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         without them; on every tile
         P2P path, the replays, the tick mode, the relocalizations and the
         windowed runs below, the loop kernel once a registration and kernels
-        A and M never), on the P2P path the GN stage a frame and the scans/s
+        A and M never; on every tile AVGICP path (with the event loop and the
+        Joseph replay) the AVGICP loop once a registration, G and M never;
+        on every hash path (with its frames and relocalization) the hash
+        loop once a registration, Q and M never), on the P2P path the GN stage a frame and the scans/s
         beside the three-launch GN loop's (CHAIN_P2P), the scan's end
         (kernel S's stage) beside L, I and the eager epilogue's
         (CHAIN_SCAN_END),
@@ -120,8 +133,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      the log's scan as it is (the card held to the CPU port) and the scan
      gated to the sensor range (within 1.5 m of the truth);
   5b. the hash backend: each hash path held to its method's gates (as its
-     tile path) with Q and M launched once per GN iteration and no tile
-     kernel; "GICP hash frames" = its run_fused to 1e-6 m; "reloc hash"
+     tile path) with the hash loop launched once a registration, Q and M
+     never, and no tile kernel; "GICP hash frames" = its run_fused to 1e-6 m; "reloc hash"
      within 1.5 m; "hash grid": lookup and the queries bit for bit against
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
@@ -142,7 +155,13 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      one kernel S after its loop kernel with no kernel L, I or eager
      epilogue kernel after the loop, and running kernel T's two kernels
      once, K and D never, with no eager range-gate or scan-times kernel
-     between kernel H and T (the kernels there are listed);
+     between kernel H and T (the kernels there are listed); the same traced
+     replay on the tile AVGICP path (its loop kernel, no kernel G,
+     reduce_partials_kernel or M); on "AVGICP hash" one more replay with
+     each registration (the "assign" mark to the "gn" mark) under
+     set_sync_debug_mode("error") and the rest of each frame under "warn":
+     no synchronizing call inside a registration, any other listed by its
+     Python location;
   7. reference, per run_fused path: a small log on the card against the
      same port on the CPU (plain versions, held to the JAX package by the
      CPU tests) under the repo's closed-loop contract, and "P2P hash" on
@@ -285,12 +304,37 @@ CHAIN_SCAN_END = {"ms": 1.256, "frame_ms_p50": 2.80}
 #: cooperative launch a registration (the whole GN loop on the card), its
 #: source and the JAX loop it replaces
 LOOP = "p2p_register"
-LOOP_SOURCE = ("elimaloc_tpu_torch/csrc/p2p_register.cu + correspond.cuh + gn_step.cuh")
-LOOP_REPLACES = ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (P2P, "
-                 "tile): per iteration elimaloc_tpu/map/tiles.py:712 + register/icp.py:283 + "
-                 ":202 + :209 + the body :761-795")
-#: the per-iteration kernels A and M, which launch on no tile P2P path
-PER_ITERATION = ("p2p_correspond", "gn_step")
+#: the AVGICP registration on the tile backend and every registration on the
+#: hash backend: kernels G and Q with M as one cooperative launch a
+#: registration (csrc/gn_loop.cuh around G's and Q's bodies)
+AVG_LOOP, HASH_LOOP = "avgicp_register", "hash_register"
+#: each loop kernel's source and the JAX loop it replaces
+LOOP_SOURCE = {
+    LOOP: "elimaloc_tpu_torch/csrc/p2p_register.cu + correspond.cuh + gn_loop.cuh + gn_step.cuh",
+    AVG_LOOP: "elimaloc_tpu_torch/csrc/avgicp.cu + avgicp.cuh + gn_loop.cuh + gn_step.cuh",
+    HASH_LOOP: ("elimaloc_tpu_torch/csrc/hash_correspond.cu + hash_correspond.cuh + hash.cuh + "
+                "gn_loop.cuh + gn_step.cuh")}
+LOOP_REPLACES = {
+    LOOP: ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (P2P, tile): "
+           "per iteration elimaloc_tpu/map/tiles.py:712 + register/icp.py:283 + :202 + :209 + "
+           "the body :761-795"),
+    AVG_LOOP: ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (AVGICP, "
+               "tile): per iteration elimaloc_tpu/map/tiles.py:869 + register/icp.py:381 (radar: "
+               ":551-562) + :202 + :209 + the body :761-795"),
+    HASH_LOOP: ("elimaloc_tpu/register/icp.py:588-821 run_register's lax.while_loop (hash): "
+                "per iteration :429 _iteration with elimaloc_tpu/map/grid.py:181, :209, :228, "
+                ":251 and the tails :283, :324, :354, :381 (radar :331-333, :361-363, :459-467) "
+                "+ :202 + :209 + the body :761-795")}
+#: each loop kernel's one-iteration search kernel (kernel A, G or Q), which
+#: with kernel M is the chain the loop is held to and launches on no path
+#: the loop serves
+LOOP_SEARCH = {LOOP: "p2p_correspond", AVG_LOOP: "avgicp_correspond",
+               HASH_LOOP: "hash_correspond"}
+#: each loop kernel's device kernel and its chain's (torch.profiler names)
+LOOP_DEVICE = {LOOP: "p2p_register_kernel", AVG_LOOP: "avgicp_register_kernel",
+               HASH_LOOP: "hash_register_kernel"}
+CHAIN_DEVICE = {LOOP: "p2p_search_kernel", AVG_LOOP: "avgicp_search_kernel",
+                HASH_LOOP: "hash_search_kernel"}
 #: the tile P2P headline path's GN stage, scans/s and frame p50 with the
 #: three-launch GN loop (kernel A's search, reduce_partials_kernel, kernel
 #: M; PERF.md section 5 before the loop kernel; H100 80GB HBM3, 700 W),
@@ -343,6 +387,22 @@ def is_radar(path):
 
 def is_hash(path):
     return " hash" in path
+
+
+def path_loop(path):
+    """The loop kernel that runs a path's registrations (the P2P or AVGICP
+    tile loop, the hash loop), or None (GICP, VGICP on tiles: E / F + M)."""
+    if is_hash(path):
+        return HASH_LOOP
+    return {"P2P": LOOP, "AVGICP": AVG_LOOP}.get(path_method(path))
+
+
+def same_bits(x, y):
+    """x and y equal, NaN where the other is NaN."""
+    if torch.equal(x, y):
+        return True
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x), torch.where(ny, 0.0, y))
 
 
 def bound(ops, nbytes):
@@ -1561,125 +1621,266 @@ def gn_step_row(path, calls, mods):
                 bound=bound(ops, nbytes(sums, pose, fitness, local_cov, total, *got)))
 
 
-def p2p_chain(kernels, a, k):
-    """The three-launch chain the loop kernel replaces, on one recorded call
-    of it: per iteration kernel A's search + reduce_partials_kernel, then
-    kernel M, and the stop flag read back. Returns the loop's outputs (the
-    iteration count an int) and each iteration's reduced sums."""
-    halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_it = a
+def loop_parts(name, pipe, mods, a, k):
+    """One recorded call of loop kernel ``name``: the per-iteration search
+    call at a pose (``search(pose)`` -> (args, kwargs) of kernel A, G or Q),
+    M's gicp flag, the carry, the trip limit and its place in the call's
+    arguments, the plain loop (``plain(max_iteration)``) and the plain
+    search + reduction at a pose (``eq(pose)`` -> (matched, JTJ, JTr,
+    fit_num))."""
+    icp, cfg_mod = mods[4], mods[5]
+    tmap, budget = pipe.map, pipe.static.icp_static.tile_budget
+    if name == LOOP:
+        halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_it = a
+        carry = (pose, fitness, local_cov, total, params)
+
+        def search(p):
+            return (halo, slot_tile, sbuf, qmask, p, params.max_search_dist), k
+
+        def eq(p):
+            return icp.p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, p, params,
+                                               budget)[:4]
+
+        def plain(m=max_it):
+            return icp.p2p_register_plain(tmap, *a[1:9], budget, m)
+        radar, gicp, it_at = None, False, 9
+    elif name == AVG_LOOP:
+        vmean, vcov, vcoord, slot_tile, sbuf, qmask, *carry, max_it = a
+        pose, fitness, local_cov, total, params = carry
+        radar = k.get("radar")
+        extra = () if radar is None else (radar,)
+
+        def search(p):
+            return ((vmean, vcov, vcoord, slot_tile, sbuf, qmask, p, params.max_search_dist),
+                    dict(voxel_size=k["voxel_size"], radar=radar))
+
+        def eq(p):
+            return icp.avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, p, params,
+                                                  budget, *extra)[:4]
+
+        def plain(m=max_it):
+            return icp.avgicp_register_plain(tmap, slot_tile, sbuf, qmask, *carry, budget, m,
+                                             radar)
+        gicp, it_at = False, 11
+    else:
+        grid, src, valid, *carry, max_it, method, radar = a
+        pose, fitness, local_cov, total, params = carry
+        code = int(cfg_mod.IcpMethod[method])
+
+        def search(p):
+            return (grid, src, valid, p, params.max_search_dist, method, radar), {}
+
+        def eq(p):
+            return icp.hash_search_reduce_plain(grid, src, valid, p, params, code, radar)
+
+        def plain(m=max_it):
+            return icp.hash_register_plain(code, grid, src, valid, *carry, m, radar)
+        gicp, it_at = method == "GICP", 8
+    return SimpleNamespace(search=search, eq=eq, plain=plain, gicp=gicp, carry=tuple(carry),
+                           max_it=max_it, it_at=it_at, radar=radar, wrapper=LOOP_SEARCH[name])
+
+
+def loop_chain(kernels, parts):
+    """The three-launch chain a loop kernel replaces, on one recorded call of
+    it: per iteration kernel A, G or Q's search + reduce_partials_kernel,
+    then kernel M, and the stop flag read back. Returns the loop's outputs
+    (the iteration count an int), each iteration's reduced sums and each
+    iteration's search call."""
+    pose, fitness, local_cov, total, params = parts.carry
     overlap = torch.zeros_like(fitness)
-    failed = torch.zeros((), dtype=torch.bool, device=sbuf.device)
-    sums, it = [], 0
-    while it < max_it:
-        sums.append(kernels.p2p_correspond(halo, slot_tile, sbuf, qmask, pose,
-                                           params.max_search_dist, **k)[0])
+    failed = torch.zeros((), dtype=torch.bool, device=pose.device)
+    sums, calls, it = [], [], 0
+    while it < parts.max_it:
+        calls.append(parts.search(pose))
+        sums.append(sums_of(kernels, parts.wrapper, *calls[-1]))
         pose, local_cov, fitness, overlap, stop, failed = kernels.gn_step(
-            sums[-1], pose, fitness, local_cov, total, params, False)
+            sums[-1], pose, fitness, local_cov, total, params, parts.gicp)
         it += 1
         if bool(stop):
             break
-    return (pose, local_cov, fitness, overlap, failed, it), sums
+    return (pose, local_cov, fitness, overlap, failed, it), sums, calls
 
 
-def flip_norm(icp, pipe, a, at):
+def flip_norm(icp, parts, at):
     """The plain loop's termination norm at iteration ``at`` (1-based) on a
     recorded call, and the threshold: where the kernel and the plain loop
     stop after different counts, the norm must sit at the threshold."""
-    tmap, budget = pipe.map, pipe.static.icp_static.tile_budget
-    _, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, _ = a
+    pose, fitness, local_cov, total, params = parts.carry
     prev = pose
     for _ in range(at):
-        eq = icp.p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
         prev = pose
         pose, local_cov, fitness, _, _, _ = icp.gn_update_plain(
-            *eq, pose, fitness, local_cov, total, params, False)
+            *parts.eq(pose), pose, fitness, local_cov, total, params, parts.gicp)
     step = torch.linalg.inv(prev.double()) @ pose.double()
     tn = float(icp.lie.norm(icp.lie.so3_log(step[:3, :3])) + icp.lie.norm(step[:3, 3]))
     return tn, float(params.termination_threshold)
 
 
-def loop_row(pipe, rec, mods):
-    """The P2P loop kernel on every frame's recorded call of the replay:
+def loop_bytes_ops(name, pipe, mods, parts, calls, sums):
+    """(bytes, operations) one recorded registration needs: every
+    iteration's search (candidate tests, ~6 operations each; the matched
+    rows' GN arithmetic, SEARCH_COST) and kernel M's step (~600); each input
+    byte read once (the halo rows of the tiles in use or the grid's voxels
+    the searches touch, at their largest over the iterations; the live
+    queries, the masks, the carry in and out)."""
+    kernels, grid_mod, icp = mods[0], mods[2], mods[4]
+    pose = parts.carry[0]
+    if name == HASH_LOOP:
+        grid, src, valid, _, _, method, radar = calls[0][0]
+        per = [hash_search_bytes_ops(method, grid_mod, grid, icp.transform_slots(c[0][3], src),
+                                     int(x[-1])) for c, x in zip(calls, sums)]
+        ops = sum(o + int(x[-1]) * (SEARCH_COST[method][2] + 9 * (radar is not None))
+                  for (_, o), x in zip(per, sums)) + 600 * len(sums)
+        moved = max(b for b, _ in per) + nbytes(src, valid, radar)
+    else:
+        a = calls[0][0]
+        halo, (slot_tile, sbuf, qmask) = a[0], a[-5:-2]
+        method = "P2P" if name == LOOP else "AVGICP"
+        radar = parts.radar
+        live = int(qmask.sum())
+        n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
+        row = halo.shape[1]
+        cand_b, match_b, match_ops = SEARCH_COST[method]
+        matched = [int(x[-1]) for x in sums]
+        ops = sum(live * row * 6 + m * (match_ops + 9 * (radar is not None)) + 600
+                  for m in matched)
+        moved = (n_tiles * row * cand_b + live * 12 + max(matched, default=0) * match_b
+                 + nbytes(qmask, slot_tile, radar))
+    moved += nbytes(pose, *parts.carry[1:4]) + 54 * 4 + 2 + 4
+    return moved, ops
+
+
+def loop_capacity(kernels, name, parts):
+    """The loop kernel's co-resident CTAs for this call, and its slots (tile)
+    or 128-point blocks (hash)."""
+    a = parts.search(parts.carry[0])[0]
+    if name == LOOP:
+        return kernels.p2p_register_capacity(), a[3].shape[0]
+    if name == AVG_LOOP:
+        qmask = a[5]
+        return (kernels.avgicp_register_capacity(qmask.shape[1], parts.radar is not None),
+                qmask.shape[0])
+    method = a[5]
+    return (kernels.hash_register_capacity(method, parts.radar is not None),
+            (a[1].shape[0] + 127) // 128)
+
+
+def loop_row(name, label, pipe, rec, mods, row=True):
+    """Loop kernel ``name`` on every recorded registration of the replay:
     bit-equal to the three-launch chain (pose, local_cov, fitness, overlap,
-    failed, iterations), and against ``icp.p2p_register_plain`` (the plain
-    versions' host loop) with iterations and failed equal, the pose within
-    1e-4 (kernel M's row) and fitness and overlap within rel 1e-4 (kernel
-    A's row: the float32 sums in another order); where the two stop after
+    failed, iterations; NaN where the chain has NaN in the radar forms),
+    and against its plain version (the plain versions' host loop): over
+    the loop's first iteration alone (the call
+    with max_iteration 1) the pose within 1e-4 (kernel M's row) and fitness
+    and overlap within rel 1e-4 (the search kernels' rows: the float32 sums
+    in another order), failed equal; over the whole loop iterations and
+    failed equal, the pose within 1e-4 and fitness and overlap within rel
+    1e-4 (P2P, which converges in 1-3 iterations), or within 1e-4 and rel
+    1e-4 a GN iteration run (AVGICP and the hash methods: each iteration's
+    float32 sums carry their rounding into the next pose, which moves a few
+    (point, voxel) pairs across the distance gate, and AVGICP runs 8-10
+    iterations a frame on this map without converging); where the two stop after
     different counts, the plain loop's termination norm there must lie
     within 0.1% of the threshold (the sums' rtol moves the step that much)
-    and the poses within the threshold. Then kernel A's and M's calls for
-    their own rows: the first iteration of frame ``rec.at``."""
+    and the poses within the threshold. In the radar forms
+    the float32 sums carry the near-singular rows' conditioning (the search
+    kernels' radar rows are held to a float64 tail instead): the loop is
+    held to its chain there, and its distance from the plain loop is
+    recorded, not gated. The chain's search calls of every registration go
+    to ``rec.every`` under the search kernel's name, and frame ``rec.at``'s
+    first iteration (its search call and M's call) to ``rec.calls``: the
+    search kernel's and M's own rows take them. Returns (row or None,
+    summary)."""
     kernels, icp = mods[0], mods[4]
-    tmap, budget = pipe.map, pipe.static.icp_static.tile_budget
-    calls = rec.every[LOOP]
-    worst, iters, flips = 0.0, [], []
+    calls = rec.every[name]
+    worst, worst1, iters, flips, searched = 0.0, 0.0, [], [], []
+    first = None
     for i, (a, k) in enumerate(calls):
-        got = kernels.p2p_register(*a, **k)
-        ref, _ = p2p_chain(kernels, a, k)
-        same = [torch.equal(x, y) for x, y in zip(got[:5], ref[:5])] + [int(got[5]) == ref[5]]
+        parts = loop_parts(name, pipe, mods, a, k)
+        got = getattr(kernels, name)(*a, **k)
+        ref, sums, search = loop_chain(kernels, parts)
+        searched += search
+        if i == rec.at:
+            first = (parts, sums, search)
+        # a diverging radar registration may carry NaNs through both sides
+        eq = torch.equal if parts.radar is None else same_bits
+        same = [eq(x, y) for x, y in zip(got[:5], ref[:5])] + [int(got[5]) == ref[5]]
         if not all(same):
-            raise AssertionError(f"{LOOP}: frame {i} differs from the three-launch chain; "
+            raise AssertionError(f"{label}: frame {i} differs from the three-launch chain; "
                                  "equal (pose, local_cov, fitness, overlap, failed, "
                                  f"iterations): {same}")
-        plain = icp.p2p_register_plain(tmap, *a[1:9], budget, a[9])
+        plain = parts.plain()
         err = float((got[0] - plain[0]).abs().max())
         rel = [abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
                for x, y in ((got[2], plain[2]), (got[3], plain[3]))]
         n_k, n_p = int(got[5]), int(plain[5])
-        tol = 1e-4
+        iters.append(n_k)
+        if parts.radar is not None:
+            worst = max(worst, err) if np.isfinite(err) else worst
+            continue
+        one = list(a)
+        one[parts.it_at] = 1
+        one, one_ref = getattr(kernels, name)(*one, **k), parts.plain(1)
+        err1 = float((one[0] - one_ref[0]).abs().max())
+        rel1 = [abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+                for x, y in ((one[2], one_ref[2]), (one[3], one_ref[3]))]
+        worst1 = max(worst1, err1)
+        if not (err1 <= 1e-4 and max(rel1) <= 1e-4 and bool(one[4]) == bool(one_ref[4])):
+            raise AssertionError(f"{label}: frame {i}'s first iteration vs its plain version: "
+                                 f"pose err {err1}, fitness / overlap rel {rel1}")
+        tol = rtol = 1e-4 if name == LOOP else 1e-4 * max(n_k, 1)
         if n_k != n_p:
-            tn, thr = flip_norm(icp, pipe, a, min(n_k, n_p))
+            tn, thr = flip_norm(icp, parts, min(n_k, n_p))
             flips.append((i, n_k, n_p, tn, thr))
-            log_line(f"  {LOOP}: frame {i} stops after {n_k} iterations, the plain loop after "
+            log_line(f"  {label}: frame {i} stops after {n_k} iterations, the plain loop after "
                      f"{n_p}; the plain termination norm there {tn:.9g} vs threshold {thr:.9g}")
             if not abs(tn - thr) <= 1e-3 * thr:
-                raise AssertionError(f"{LOOP}: frame {i} iteration counts differ away from "
+                raise AssertionError(f"{label}: frame {i} iteration counts differ away from "
                                      "the termination threshold")
             tol, rel = thr + 1e-4, [0.0, 0.0]
-        if not (bool(got[4]) == bool(plain[4]) and err <= tol and max(rel) <= 1e-4):
-            raise AssertionError(f"{LOOP}: frame {i} vs p2p_register_plain: pose err {err}, "
+        if not (bool(got[4]) == bool(plain[4]) and err <= tol and max(rel) <= rtol):
+            raise AssertionError(f"{label}: frame {i} vs its plain version: pose err {err}, "
                                  f"fitness / overlap rel {rel}, failed {bool(got[4])} / "
                                  f"{bool(plain[4])}")
         worst = max(worst, err)
-        iters.append(n_k)
-    a, k = rec.calls[LOOP]
-    halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_it = a
-    (_, _, _, _, _, n_it), sums = p2p_chain(kernels, a, k)
-    cap = kernels.p2p_register_capacity()
-    s = qmask.shape[0]
-    live = int(qmask.sum())
-    n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
-    row = halo.shape[1]
-    matched = [int(x[17]) for x in sums]
-    # every iteration's candidate tests (6 operations each) and matched rows
-    # (SEARCH_COST), kernel M's step (~600); each input byte read once: the
-    # halo rows of the tiles in use, the live queries, the masks, the carry
-    # in and out
-    ops = sum(live * row * 6 + m * SEARCH_COST["P2P"][2] + 600 for m in matched)
-    moved = (n_tiles * row * 12 + live * 12 + nbytes(qmask, slot_tile, pose, fitness, local_cov,
-                                                     total) + 54 * 4 + 2 + 4)
-    log_line(f"  {LOOP}: {len(calls)} registrations bit-equal to the three-launch chain, "
-             f"iterations {iters}, pose vs plain max {worst:.2e}, count flips "
-             f"{len(flips)}; frame {rec.at}: slots {s}, grid {min(max(s, 1), cap)} of "
-             f"{cap} co-resident CTAs, {n_it} iterations, matched {matched}")
-    out = dict(name=LOOP, source=LOOP_SOURCE, replaces=LOOP_REPLACES, max_abs_err=worst,
-               ms=time_ms(lambda: kernels.p2p_register(*a, **k)),
-               plain_ms=time_ms(lambda: icp.p2p_register_plain(tmap, *a[1:9], budget, max_it)),
-               device_fn=(lambda: kernels.p2p_register(*a, **k), "p2p_register_kernel"),
-               bound=bound(ops, moved), launches_key=LOOP)
-    # kernel A's and M's rows: the first iteration of frame rec.at
-    a_call = ((halo, slot_tile, sbuf, qmask, pose, params.max_search_dist), k)
-    m_call = ((sums[0], pose, fitness, local_cov, total, params, False), {})
-    return out, a_call, m_call, {"registrations_checked": len(calls), "iterations": iters,
-                                 "count_flips_vs_plain": len(flips), "grid_ctas": cap}
+    parts, sums, search = first
+    wrapper = parts.wrapper
+    rec.every[wrapper] = searched
+    rec.calls[wrapper] = search[0]
+    pose, fitness, local_cov, total, params = parts.carry
+    rec.calls["gn_step"] = ((sums[0], pose, fitness, local_cov, total, params, parts.gicp), {})
+    cap, slots = loop_capacity(kernels, name, parts)
+    grid = min(max(slots, 1), cap)
+    log_line(f"  {label}: {len(calls)} registrations bit-equal to the three-launch chain, "
+             f"iterations {iters}, pose vs plain max {worst:.2e}"
+             + (" (radar form: recorded, not gated)" if parts.radar is not None else
+                f" (first iteration alone {worst1:.2e})")
+             + f", count flips {len(flips)}; frame {rec.at}: "
+             f"{'blocks' if name == HASH_LOOP else 'slots'} {slots}, grid {grid} of {cap} "
+             f"co-resident CTAs, {len(sums)} iterations, matched {[int(x[-1]) for x in sums]}")
+    summary = {"registrations_checked": len(calls), "iterations": iters,
+               "count_flips_vs_plain": len(flips), "grid_ctas": grid,
+               "co_resident_ctas": cap, "pose_vs_plain_max": worst,
+               "first_iteration_pose_vs_plain_max": worst1}
+    if not row:
+        return None, summary
+    a, k = rec.calls[name]
+    moved, ops = loop_bytes_ops(name, pipe, mods, parts, search, sums)
+    return dict(name=label, source=LOOP_SOURCE[name], replaces=LOOP_REPLACES[name],
+                max_abs_err=worst, ms=time_ms(lambda: getattr(kernels, name)(*a, **k)),
+                plain_ms=time_ms(parts.plain),
+                device_fn=(lambda: getattr(kernels, name)(*a, **k), LOOP_DEVICE[name]),
+                bound=bound(ops, moved), launches_key=name), summary
 
 
-def loop_trace_check(pipe, log, runtime, n):
-    """One more tile P2P run_fused replay under torch.profiler, each frame in
-    a record_function range and under torch.cuda.set_sync_debug_mode
-    ("error") (a synchronizing call inside a frame raises): on the device no
-    p2p_search_kernel, reduce_partials_kernel or gn_step_kernel and one loop
-    kernel a frame; between the first frame's start and the last frame's end
+def loop_trace_check(pipe, log, runtime, n, path="P2P", loop=LOOP):
+    """One more run_fused replay of a tile path whose registrations a loop
+    kernel runs (``path``: P2P or AVGICP, ``loop``: its loop kernel) under
+    torch.profiler, each frame in a record_function range and under
+    torch.cuda.set_sync_debug_mode("error") (a synchronizing call inside a
+    frame raises): on the device no search kernel of the chain (kernel A's
+    p2p_search_kernel, G's avgicp_search_kernel), reduce_partials_kernel or
+    gn_step_kernel and one loop kernel a frame; between the first frame's start and the last frame's end
     no runtime call that synchronizes; no device-to-host copy issued by an
     operation inside a frame (the copy's linked operation, where the trace
     links them; else no such copy before the last loop kernel ends). Memory
@@ -1725,8 +1926,8 @@ def loop_trace_check(pipe, log, runtime, n):
     blocking = sorted({name for name in inside if "Synchronize" in name})
     kern = [e for e in evs if e.device_type == dev]
     old = sorted({e.name for e in kern if any(
-        s in e.name for s in ("p2p_search_kernel", "reduce_partials_kernel", "gn_step_kernel"))})
-    loops = [e for e in kern if "p2p_register_kernel" in e.name]
+        s in e.name for s in (CHAIN_DEVICE[loop], "reduce_partials_kernel", "gn_step_kernel"))})
+    loops = [e for e in kern if LOOP_DEVICE[loop] in e.name]
     # each device copy's issuing operation (its linked correlation id)
     ops = {e.id: e for e in evs
            if e.device_type == cpu and getattr(e, "linked_correlation_id", 0) == 0}
@@ -1752,7 +1953,7 @@ def loop_trace_check(pipe, log, runtime, n):
     per_frame = [len(f) for f in frames[:-1]]
     tails = []
     for f in frames[:-1]:
-        at = max((i for i, e in enumerate(f) if "p2p_register_kernel" in e.name), default=-1)
+        at = max((i for i, e in enumerate(f) if LOOP_DEVICE[loop] in e.name), default=-1)
         tails.append([e.name for e in f[at + 1:]])
     bad_tail = [t for t in tails if not t or "pcm_stage_kernel" not in t[-1]
                 or sum("pcm_stage_kernel" in k for k in t) != 1
@@ -1772,19 +1973,19 @@ def loop_trace_check(pipe, log, runtime, n):
     # (the norm's mul, sum and sqrt, the compare, the casts, the argmaxes,
     # the flip, the index_selects) is one of PyTorch's at::native kernels
     eager = sorted({k for b in between for k in b if "at::native" in k})
-    log_line(f"[P2P] traced replay: between kernel H and kernel T's first kernel "
+    log_line(f"[{path}] traced replay: between kernel H and kernel T's first kernel "
              f"{[len(b) for b in between]} kernels a frame "
              f"({sorted({k[:60] for b in between for k in b})}); kernel T's two kernels and "
              f"K / D a frame {sorted(set(fronts))}")
     if any(f != (1, 1, 0) for f in fronts) or eager:
-        raise AssertionError(f"[P2P] the traced replay's scan front is not kernel T's two "
+        raise AssertionError(f"[{path}] the traced replay's scan front is not kernel T's two "
                              f"kernels once a frame with no eager kernel before them: "
                              f"{sorted(set(fronts))}, eager {eager[:4]}")
-    log_line(f"[P2P] traced replay: device kernels a frame {per_frame} (median "
+    log_line(f"[{path}] traced replay: device kernels a frame {per_frame} (median "
              f"{float(np.median(per_frame)) if per_frame else 0:.0f}); after the loop kernel "
              f"{len(tails[0]) if tails else 0} kernels, the frame's last "
              + (repr(tails[0][-1][:60]) if tails and tails[0] else "none"))
-    log_line(f"[P2P] traced replay: {len(spans)} frames, {len(loops)} loop kernels, "
+    log_line(f"[{path}] traced replay: {len(spans)} frames, {len(loops)} loop kernels, "
              f"{runtime_launches} runtime launch calls inside the frames, synchronizing "
              f"runtime calls inside {blocking}, old GN kernels {old}, device copies issued "
              "inside the frames by kind " + (str(kinds) if linked else "(not linked in this "
@@ -1793,15 +1994,60 @@ def loop_trace_check(pipe, log, runtime, n):
              + "; no synchronizing call inside a frame (sync debug mode: error)")
     if not (len(spans) == n and len(loops) == n and not old and not blocking and not dtoh
             and runtime_launches > 0):
-        raise AssertionError("[P2P] the traced replay breaks the one-launch GN loop contract")
+        raise AssertionError(f"[{path}] the traced replay breaks the one-launch GN loop contract")
     if len(frames) != n or bad_tail:
-        raise AssertionError(f"[P2P] the traced replay's frames do not end in one kernel S: "
+        raise AssertionError(f"[{path}] the traced replay's frames do not end in one kernel S: "
                              f"{len(frames)} frames, tails {bad_tail[:2]}")
     return {"traced_loop_kernels": len(loops), "traced_runtime_launches": runtime_launches,
             "traced_copies_in_frames": kinds if linked else None,
             "traced_device_kernels_per_frame": per_frame,
             "traced_kernels_after_loop": [len(t) for t in tails],
             "traced_kernels_between_h_and_t": [len(b) for b in between]}
+
+
+def hash_sync_check(pipe, log, runtime, n, path):
+    """One more run_fused replay of a hash path, each frame under
+    torch.cuda.set_sync_debug_mode("warn") and its registration (from the
+    "assign" mark to the "gn" mark: the hash loop's one launch) under
+    "error": a synchronizing call inside the registration raises; every
+    other synchronizing call inside a frame is recorded by its Python
+    location and message, and printed."""
+    import warnings
+
+    orig = runtime.fused_frame
+
+    def mark(name):
+        if name == "assign":
+            torch.cuda.set_sync_debug_mode("error")
+        elif name == "gn":
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def frame(*a, **k):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runtime.fused_frame = frame
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            pipe.run_fused(log, mark=mark)
+            torch.cuda.synchronize()
+    finally:
+        runtime.fused_frame = orig
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            where = f"{Path(w.filename).name}:{w.lineno}: {str(w.message)[:80]}"
+            syncs[where] = syncs.get(where, 0) + 1
+    log_line(f"[{path}] sync-checked replay: no synchronizing call inside a registration "
+             f"(assign .. gn, sync debug mode error) in {n} frames; elsewhere in the frames "
+             + (", ".join(f"{k} x{v}" for k, v in sorted(syncs.items())) if syncs else "none"))
+    return {"sync_free_registrations": n, "syncs_elsewhere_in_frame": syncs}
 
 
 class StageTimer:
@@ -1892,8 +2138,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     kernel-vs-plain rows, then the timed replay with its launch counts. Its
     torch.profiler pass goes into ``deferred``: it runs after every path's
     timed replay, so that no timed replay follows a profiler session. A
-    hash path registers on the hash grid of ``built`` (kernel Q once per GN
-    iteration, no tile kernel)."""
+    hash path registers on the hash grid of ``built`` (the hash loop kernel
+    once a registration, no tile kernel)."""
     kernels, cfg_mod, runtime, tiles = mods[0], mods[5], mods[6], mods[3]
     method = path_method(path)
     hashed = is_hash(path)
@@ -1917,16 +2163,29 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
                     + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ())
                     + (("ekf_update",) if fusion else ()))
-    # P2P on the tile backend: the GN loop is one launch of the loop kernel
-    tile_p2p = method == "P2P" and not hashed
-    if tile_p2p:
-        path_kernels = tile_p2p_kernels(path_kernels)
+    # P2P and AVGICP on the tile backend and every hash path: the GN loop is
+    # one launch of a loop kernel a registration
+    loop = path_loop(path)
+    if loop:
+        path_kernels = loop_kernels(path_kernels, loop)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
-                  every=("ekf_update", "pcm_stage") + ((wrapper,) if radar else ())
-                  + ((LOOP,) if tile_p2p else ()) + (("scan_front",) if path == "P2P" else ())
+                  every=("ekf_update", "pcm_stage") + ((wrapper,) if radar and not loop else ())
+                  + ((loop,) if loop else ()) + (("scan_front",) if path == "P2P" else ())
                   ) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
+    rows = []
+    loop_summary = {}
+    if loop:
+        # the loop kernel against its chain on every registration; the search
+        # kernel's and M's rows take frame rec.at's first iteration (the radar
+        # rows pick one below among every registration's iterations)
+        label = (LOOP if loop == LOOP else f"{loop}[{method}{' radar' if radar else ''}]"
+                 if hashed else f"{AVG_LOOP}{'[radar]' if radar else ''}")
+        if fusion:
+            label = f"{AVG_LOOP}[fusion]"
+        row, loop_summary = loop_row(loop, label, pipe, rec, mods, row=not fusion)
+        rows += [row] if row else []
     if radar:
         # the kernel-vs-plain row takes the first iteration from the recorded
         # frame on whose pose is finite and that matched something: a
@@ -1944,14 +2203,6 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
         log_line(f"[{path}] GN iterations: {len(calls)}, with a non-finite pose "
                  f"{finite.count(False)}, with no match {matched.count(0)}; the row takes "
                  f"iteration {pick} ({matched[pick]} matched)")
-    rows = []
-    loop_summary = {}
-    if tile_p2p:
-        # the loop kernel against the chain on every frame; A's and M's rows
-        # take the first iteration of frame rec.at
-        row, rec.calls["p2p_correspond"], rec.calls["gn_step"], loop_summary = loop_row(
-            pipe, rec, mods)
-        rows.append(row)
     if path == "P2P":
         # kernels K and D, T's reference entries, take their calls in the
         # chain on T's call of frame rec.at
@@ -1997,8 +2248,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
              f"host batch prep + upload included), launches {launches}, packs {packs}")
     check_imu_stage(path, launches, packs, n)
     check_scan_end(path, launches, n, n if fusion else 0)
-    if tile_p2p:
-        check_loop(path, launches, n)
+    if loop:
+        check_loop(path, launches, n, loop)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
@@ -2031,13 +2282,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
                  f"{CHAIN_SCAN_END['ms']}), frame p50 {p50:.3f} ms (with them: "
                  f"{CHAIN_SCAN_END['frame_ms_p50']})")
     if hashed:
-        # kernel Q once per GN iteration (then M), and no tile kernel
-        total_iters = int(np.sum(outs["iterations"]))
-        summary["gn_iterations"] = total_iters
-        if not launches["hash_correspond"] == launches["gn_step"] == total_iters:
-            raise AssertionError(f"[{path}] hash_correspond {launches['hash_correspond']} and "
-                                 f"gn_step {launches['gn_step']} launches, {total_iters} GN "
-                                 "iterations")
+        # the hash loop once a registration (checked above), and no tile kernel
+        summary["gn_iterations"] = int(np.sum(outs["iterations"]))
         if any(launches[k] for k in TILE_ONLY):
             raise AssertionError(f"[{path}] a tile kernel ran on the hash path: "
                                  + str({k: launches[k] for k in TILE_ONLY}))
@@ -2058,8 +2304,10 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
             raise AssertionError(f"[{path}] the profiled replay saw no device kernel or a "
                                  f"library sort: {sorts}")
         summary["device_kernels_profiled"] = len(per)
-        if path == "P2P":
-            summary.update(loop_trace_check(pipe, log, runtime, n))
+        if path in ("P2P", "AVGICP"):
+            summary.update(loop_trace_check(pipe, log, runtime, n, path, loop))
+        if path == "AVGICP hash":
+            summary.update(hash_sync_check(pipe, log, runtime, n, path))
 
     deferred.append(profiled_replay)
     if fusion:
@@ -2108,19 +2356,21 @@ def check_launches(what, launches, names):
             raise AssertionError(f"[{what}] kernel {name} was not launched on the path")
 
 
-def tile_p2p_kernels(names):
-    """A tile P2P path's kernels: ``names`` with the per-iteration kernels A
-    and M replaced by the loop kernel."""
-    return tuple(n for n in names if n not in PER_ITERATION) + (LOOP,)
+def loop_kernels(names, loop=LOOP):
+    """A path's kernels where ``loop`` runs its registrations: ``names`` with
+    the per-iteration kernels (A, G or Q, and M) replaced by the loop
+    kernel."""
+    return tuple(n for n in names if n not in (LOOP_SEARCH[loop], "gn_step")) + (loop,)
 
 
-def check_loop(what, launches, registrations):
-    """A tile P2P path: one launch of the loop kernel a registration, none of
-    kernel A or M."""
-    if not (launches[LOOP] == registrations and not any(launches[k] for k in PER_ITERATION)):
-        raise AssertionError(f"[{what}] {LOOP} launched {launches[LOOP]} times for "
+def check_loop(what, launches, registrations, loop=LOOP):
+    """A path whose registrations ``loop`` runs: one launch of the loop
+    kernel a registration, none of its search kernel (A, G or Q) or M."""
+    per_iteration = (LOOP_SEARCH[loop], "gn_step")
+    if not (launches[loop] == registrations and not any(launches[k] for k in per_iteration)):
+        raise AssertionError(f"[{what}] {loop} launched {launches[loop]} times for "
                              f"{registrations} registrations, "
-                             + ", ".join(f"{k} {launches[k]}" for k in PER_ITERATION))
+                             + ", ".join(f"{k} {launches[k]}" for k in per_iteration))
 
 
 def check_scan_end(what, launches, scans, updates):
@@ -2248,8 +2498,10 @@ def events_path(pipe, log, fused, mods, ate_rmse):
              f"launches {launches}")
     log_line(f"[{EVENTS}] stage ms per scan (imu = every event between two scans): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    check_launches(EVENTS, launches, SHARED + (KERNEL["AVGICP"][0], "ekf_update")
-                   + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS))
+    check_launches(EVENTS, launches, loop_kernels(
+        SHARED + (KERNEL["AVGICP"][0], "ekf_update") + tuple(EKF_KERNELS)
+        + tuple(SCAN_KERNELS), AVG_LOOP))
+    check_loop(EVENTS, launches, per_kind["scan"][0], AVG_LOOP)
     check_imu_stage(EVENTS, launches, packs, per_kind["imu"][0])
     check_scan_end(EVENTS, launches, per_kind["scan"][0],
                    per_kind["gps"][0] + per_kind["can"][0])
@@ -2330,8 +2582,10 @@ def joseph_path(pipe, log, fused, rec, mods):
              f"form: max {err.max():.2e} m, median {np.median(err):.2e} m, last 3 "
              f"{err[-3:].max():.2e} m; P asymmetry max {asym:.3e} (reference form "
              f"{asym_plain:.3e}), min diagonal {dmin:.3e}, launches {launches}")
-    check_launches(JOSEPH, launches, SHARED + (KERNEL["AVGICP"][0], "ekf_update")
-                   + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS))
+    check_launches(JOSEPH, launches, loop_kernels(
+        SHARED + (KERNEL["AVGICP"][0], "ekf_update") + tuple(EKF_KERNELS)
+        + tuple(SCAN_KERNELS), AVG_LOOP))
+    check_loop(JOSEPH, launches, n, AVG_LOOP)
     if not (applied >= 0.9 and contract(err) and asym <= asym_plain and dmin > 0.0):
         raise AssertionError(f"[{JOSEPH}] the Joseph-form replay failed its gates")
     for r in rows:
@@ -2488,7 +2742,7 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
              + ", ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in per_kind.items())
              + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
              f"ATE {ate:.4f} m, launches {launches}")
-    check_launches(TICK, launches, tile_p2p_kernels(
+    check_launches(TICK, launches, loop_kernels(
         SHARED + (KERNEL["P2P"][0], "ca_tick", "ring_push") + tuple(SCAN_KERNELS)))
     check_loop(TICK, launches, per_kind["scan"][0])
     check_scan_end(TICK, launches, per_kind["scan"][0], 0)
@@ -2681,7 +2935,7 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
               tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots))
     cfg = window_cfg(cfg_mod)
     n = len(wlog.scan_t)
-    path_kernels = tile_p2p_kernels(SHARED + (KERNEL["P2P"][0],) + tuple(EKF_KERNELS)
+    path_kernels = loop_kernels(SHARED + (KERNEL["P2P"][0],) + tuple(EKF_KERNELS)
                                     + tuple(SCAN_KERNELS) + ("shift_window",))
     with tempfile.TemporaryDirectory() as store:
         t0 = time.time()
@@ -3031,11 +3285,14 @@ def main():
     r, slices[WINDOWED] = windowed_path(built, window_log(world, log_mod), packed, mods,
                                         ate_rmse)
     rows += r
-    hash_kernels = SHARED[:2] + ("hash_correspond",) + tuple(EKF_KERNELS) + tuple(SCAN_KERNELS)
+    hash_kernels = loop_kernels(SHARED[:2] + ("hash_correspond",) + tuple(EKF_KERNELS)
+                                + tuple(SCAN_KERNELS), HASH_LOOP)
     slices[HASH_FRAMES] = frames_path(pipes["GICP hash"], log, fused["GICP hash"], kernels,
                                       HASH_FRAMES, hash_kernels)
+    check_loop(HASH_FRAMES, kernels.launches, len(log.scan_t), HASH_LOOP)
     slices["reloc hash"] = reloc_phase(pipes["P2P hash"], log, kernels, "reloc hash",
-                                       ("voxel_downsample", "hash_correspond", "gn_step"))
+                                       ("voxel_downsample", HASH_LOOP))
+    check_loop("reloc hash", kernels.launches, 1, HASH_LOOP)
     if any(kernels.launches[k] for k in TILE_ONLY):
         raise AssertionError(f"[reloc hash] a tile kernel ran: {kernels.launches}")
     r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)

@@ -38,23 +38,48 @@
 // Bound: the S * QB * MHV coord comparisons (~2000 * 16 * 240 = 8M per GN
 // iteration at the headline scan) and up to 7 3x3 inverses per query, FP32
 // issue; the mean/cov reads are 48 B per found pair.
-#include "common.cuh"
+// Kernel G's one-iteration entry (elm_avgicp_search_reduce) is the
+// reference the AVGICP loop below is held to.
+//
+// The AVGICP registration loop on the card (avgicp_register_kernel): kernels
+// G and M as one cooperative launch per registration on the tile backend
+// (K10 + K11c + K3 and the loop around them).
+//
+// Replaces elimaloc_tpu/register/icp.py:run_register's lax.while_loop
+// (:728-821) for AVGICP on the tile backend: every iteration's search + GN
+// partials (tiles.py:all_voxel_cov_slots :869 + icp.py:_avg_voxcov_tail
+// :381; the radar form the flattened pairs of _voxcov_tail, :551-562), the
+// fixed-order reduction, the LM step and the termination test, with the
+// same trip count and carry. The host loop it replaces on the card was
+// three launches (kernel G's search, reduce_partials_kernel, kernel M) and
+// one stop-flag readback per iteration, ~8 iterations a headline frame.
+//
+// Design: gn_loop.cuh's loop (a cooperative grid of min(S, co-resident
+// CTAs) CTAs of 256 threads, slots from an alternating atomic counter, the
+// 44 columns reduced one a CTA in reduce_partials_kernel's order, M's step
+// out of line on CTA 0, the stop flag after the last grid.sync()) around
+// kernel G's slot code (avgicp.cuh: avgicp_slot, the matches not written;
+// one __noinline__ copy in this translation unit, which kernel G and the
+// loop both call, so the loop rounds as G does instruction for instruction:
+// the body inlined into two kernels in two files rounded an AVGICP radar
+// registration differently in its last bits),
+// the same [S, 44] partials, each in its slot's row; the radar form is its
+// own instantiation. The shared memory is G's: the staged voxel coords
+// (12 KB static) and the slot's [qb, 44] rows (dynamic), which the
+// reduction reuses. The grid is sized per instantiation and qb with
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor. G ignores the tile
+// geometry (its gate runs in world coordinates), so a window swap only
+// hands new tensors to the next launch. The result equals the
+// three-launch chain's bit for bit.
+// Bound: as kernel G's per iteration (the S * QB * MHV coord comparisons
+// and up to 7 3x3 inverses a query, FP32 issue), times the iterations;
+// grid.sync and the serial LM step are latency.
+#include "avgicp.cuh"
+#include "gn_loop.cuh"
 
 using namespace elm;
 
 namespace {
-
-constexpr int kNone = 0x7fffffff;
-
-// Index into OFFSETS_7 of the voxel offset (d0, d1, d2), or -1.
-__device__ __forceinline__ int offset_index(int d0, int d1, int d2) {
-  if (abs(d0) > 1 || abs(d1) > 1 || abs(d2) > 1) return -1;
-  if (abs(d0) + abs(d1) + abs(d2) > 1) return -1;
-  if (d0 != 0) return d0 > 0 ? 1 : 2;
-  if (d1 != 0) return d1 > 0 ? 3 : 4;
-  if (d2 != 0) return d2 > 0 ? 5 : 6;
-  return 0;
-}
 
 template <bool kRadar>
 __global__ void avgicp_search_kernel(
@@ -64,71 +89,67 @@ __global__ void avgicp_search_kernel(
     const float* __restrict__ pose, const float* __restrict__ max_dist,
     float voxel, const float* __restrict__ radar, float* __restrict__ partials,
     float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
-  __shared__ int cv[kChunk * 3];
-  __shared__ int any_live;
+  __shared__ AvgShared sm;
   extern __shared__ float part[];  // [qb, kGnSums]
+  avgicp_slot<kRadar>(blockIdx.x, vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose,
+                      max_dist, voxel, radar, partials, cov_out, mean_out, ok_out, sm, part);
+}
 
-  // tile centres are not needed: the gate runs in world coordinates
-  const SlotQuery u = slot_query(blockIdx.x, slot_tile, sbuf, qmask, qb, pose, voxel, 1.0f,
-                                 0, 0, 1);
-  const bool live_slot = slot_any_live(u, &any_live);
-  const size_t base = (size_t)u.tile * mhv;
-  int found[7];
-  for (int o = 0; o < 7; ++o) found[o] = kNone;
-  if (live_slot) {
-    for (int c0 = 0; c0 < mhv; c0 += kChunk) {
-      const int cn = min(kChunk, mhv - c0);
-      __syncthreads();
-      for (int k = threadIdx.x; k < cn; k += kThreads) {
-        const int* src = vcoord + (base + c0 + k) * 3;
-        const bool occupied = src[0] != kCoordSentinel;
-        for (int d = 0; d < 3; ++d) cv[3 * k + d] = occupied ? src[d] : kFarVoxel;
-      }
-      __syncthreads();
-      if (!u.live) continue;
-      for (int k = u.gl; k < cn; k += u.tpq) {
-        const int o = offset_index(cv[3 * k] - u.qv[0], cv[3 * k + 1] - u.qv[1],
-                                   cv[3 * k + 2] - u.qv[2]);
-        if (o >= 0 && found[o] == kNone) found[o] = c0 + k;
-      }
-    }
-  }
-  for (int o = 0; o < 7; ++o)
-    for (int sh = u.tpq / 2; sh > 0; sh >>= 1)
-      found[o] = min(found[o], __shfl_down_sync(0xffffffffu, found[o], sh, u.tpq));
 
-  if (u.gl == 0) {
-    const float md = max_dist[0];
-    AvgAcc acc = avg_acc();
-    float* pr = part + u.j * kGnSums;
-    for (int k = 0; k < kGnSums; ++k) pr[k] = 0.0f;
-    for (int o = 0; o < 7; ++o) {
-      float C[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-      float mu[3] = {u.q[0], u.q[1], u.q[2]};
-      bool ok = false;
-      float d[3] = {0.0f, 0.0f, 0.0f}, d2 = 0.0f;
-      if (u.live && found[o] != kNone) {
-        const size_t v = base + found[o];
-        for (int k = 0; k < 3; ++k) d[k] = sub(vmean[v * 3 + k], u.q[k]);
-        d2 = add(add(mul(d[0], d[0]), mul(d[1], d[1])), mul(d[2], d[2]));
-        ok = d2 < mul(md, md);
-        if (ok) {
-          for (int k = 0; k < 9; ++k) C[k] = vcov[v * 9 + k];
-          for (int k = 0; k < 3; ++k) mu[k] = vmean[v * 3 + k];
-        }
-      }
-      if (cov_out != nullptr) {
-        const size_t pair = (size_t)u.row * 7 + o;
-        for (int k = 0; k < 9; ++k) cov_out[pair * 9 + k] = C[k];
-        for (int k = 0; k < 3; ++k) mean_out[pair * 3 + k] = mu[k];
-        ok_out[pair] = ok;
-      }
-      avgicp_pair<kRadar>(u, ok, C, mu, d, d2, md, radar, acc, pr);
-    }
-    avgicp_finish<kRadar>(u, acc, pr);
+// The largest slot block a loop launch takes (kernels.py _qb_of), for the
+// dynamic shared memory the kernel opts into.
+constexpr int kMaxQb = 256;
+
+// One slot of kernel G at the staged pose (gn_loop's ``slots``).
+template <bool kRadar>
+struct AvgSlots {
+  const float* vmean;
+  const float* vcov;
+  const int* vcoord;
+  int mhv;
+  const int* slot_tile;
+  const float* sbuf;
+  const bool* qmask;
+  int qb;
+  const float* max_dist;
+  float voxel;
+  const float* radar;
+  float* partials;
+  AvgShared* sm;
+  float* part;
+  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
+    avgicp_slot<kRadar>(slot, vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose,
+                        max_dist, voxel, radar, partials, nullptr, nullptr, nullptr, *sm,
+                        part);
   }
-  __syncthreads();
-  slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);
+};
+
+template <bool kRadar>
+__global__ void __launch_bounds__(kThreads) avgicp_register_kernel(
+    const float* __restrict__ vmean, const float* __restrict__ vcov,
+    const int* __restrict__ vcoord, int mhv, const int* __restrict__ slot_tile,
+    const float* __restrict__ sbuf, const bool* __restrict__ qmask, int s, int qb,
+    const float* __restrict__ max_dist, float voxel, const float* __restrict__ radar,
+    const GnLoop loop) {
+  __shared__ AvgShared sm;
+  extern __shared__ float part[];  // [qb, kGnSums]; the reduction's 256 floats after
+  const AvgSlots<kRadar> slots{vmean, vcov,    vcoord, mhv,          slot_tile, sbuf, qmask,
+                               qb,    max_dist, voxel, radar, loop.partials, &sm,  part};
+  gn_loop(loop, s, slots, part);
+}
+
+const void* loop_kernel(bool radar) {
+  return radar ? (const void*)avgicp_register_kernel<true>
+               : (const void*)avgicp_register_kernel<false>;
+}
+
+int smem_of(int qb) { return qb * kGnSums * (int)sizeof(float); }
+
+// One cache key per instantiation and qb (a power of two in [8, 256]).
+int key_of(int qb, bool radar) {
+  int k = 0;
+  while ((8 << k) < qb) ++k;
+  return 8 * (int)radar + k;
 }
 
 }  // namespace
@@ -153,4 +174,33 @@ extern "C" int elm_avgicp_search_reduce(
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();
+}
+
+// The co-resident CTAs of the loop kernel on the current device for slot
+// blocks of ``qb`` queries (the radar form with ``radar`` != 0).
+extern "C" int elm_avgicp_register_capacity(int qb, int radar, int* ctas) {
+  return co_resident(loop_kernel(radar != 0), kThreads, smem_of(qb),
+                     smem_of(kMaxQb), key_of(qb, radar != 0), ctas);
+}
+
+// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
+// failed; iterations: int32. Scratch: partials [max(s, 1), 44], sums [44],
+// counters [2]. ``radar`` [s, qb, 3, 3] or null (the radar form).
+extern "C" int elm_avgicp_register(
+    const float* vmean, const float* vcov, const int* vcoord, int mhv, const int* slot_tile,
+    const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
+    const float* fitness, const float* local_cov, const float* total, const float* max_dist,
+    const float* min_overlap_ratio, const float* lm_lambda,
+    const float* termination_threshold, int max_iteration, float voxel, const float* radar,
+    float* partials, float* sums, int* counters, float* carry, bool* flags, int* iterations,
+    cudaStream_t stream) {
+  if (qb < 8 || qb > kMaxQb) return (int)cudaErrorInvalidValue;
+  const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
+                    termination_threshold, max_iteration, kGnSums, 0, partials, sums,
+                    counters, carry, flags, iterations};
+  void* args[] = {&vmean, &vcov, &vcoord, &mhv, &slot_tile, &sbuf, &qmask, &s, &qb,
+                  &max_dist, &voxel, &radar, (void*)&loop};
+  const bool r = radar != nullptr;
+  return launch_loop(loop_kernel(r), s, kThreads, smem_of(qb), smem_of(kMaxQb),
+                     key_of(qb, r), args, stream);
 }

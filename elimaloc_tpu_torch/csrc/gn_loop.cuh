@@ -1,0 +1,220 @@
+// The registration's GN/LM loop on the card, shared by the loop kernels
+// (p2p_register.cu; avgicp.cu and hash_correspond.cu, beside their
+// one-iteration kernels G and Q): one cooperative
+// launch runs every iteration of one registration (K1 + K2 + K3 and the
+// loop around them), with no readback.
+//
+// Replaces elimaloc_tpu/register/icp.py:run_register's lax.while_loop
+// (:728-821): per iteration the method's search + GN partials, the
+// fixed-order reduction, the LM step (icp.py:_solve_step :202,
+// _step_transform :209, the body :761-795) and the termination test, with
+// the same trip count and carry. The host loop it replaces on the card was
+// three launches (the method's search, reduce_partials_kernel, kernel M) and
+// one stop-flag readback per iteration.
+//
+// A loop kernel is a cooperative (persistent) grid of min(S, co-resident
+// CTAs) CTAs, S the method's slots (rows of the [S, n_sums] partials). Per
+// iteration (gn_loop):
+//   1. each CTA stages the current pose in shared memory (the carry, read
+//      past L1 with __ldcg: CTA 0 wrote it in the previous iteration of this
+//      launch) and takes slots from a global counter (one atomicAdd per
+//      slot, as the block scheduler hands the one-iteration kernel's
+//      one-slot CTAs to free SMs: the live slots are the first ones, so a
+//      fixed stride would leave some CTAs a slot behind), running the
+//      method's slot code, which writes the slot's partials into its row,
+//      so the order of the sums does not depend on who took it;
+//   2. grid.sync(); CTAs 0..n_sums-1 reduce one column each in
+//      reduce_partials_kernel's order (lane t of 256 adds rows t, t + 256,
+//      ... in order, then the same shared-memory tree; a CTA of fewer
+//      threads forms several lanes a thread): one CTA doing every column,
+//      as that kernel does, waits on n_sums x S / 256 L2 loads a thread;
+//   3. grid.sync(); thread 0 of CTA 0 runs kernel M's step (gn_step.cuh:
+//      gn_update, out of line) on the sums into the carry and the flags;
+//   4. grid.sync(); every thread reads the stop flag (volatile) and the
+//      loop ends on it or at max_iteration.
+// The two slot counters alternate between iterations: CTA 0 zeroes the next
+// one during the LM step, both before a first grid.sync at the start.
+// The pose, local_cov, fitness, overlap and flags are kernel M's, the
+// iteration count the host loop's, so the result equals the three-launch
+// chain's bit for bit. max_iteration == 0 returns the initial carry after 0
+// iterations; S == 0 (one CTA, zero sums) fails the overlap gate after 1.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+#include "gn_step.cuh"
+
+namespace elm {
+
+// What a loop entry returns when the card cannot launch a cooperative
+// kernel, or when not one CTA of the loop kernel fits an SM (the wrapper
+// raises).
+constexpr int kNoCooperative = -2;
+constexpr int kNoRoom = -3;
+
+// The loop's carry in, its constants and its outputs: carry = pose [16],
+// local_cov [36], fitness, overlap; flags = stop, failed; scratch: partials
+// [max(S, 1), n_sums], sums [n_sums], counters [2].
+struct GnLoop {
+  const float* pose0;
+  const float* fitness0;
+  const float* local_cov0;
+  const float* total;
+  const float* min_overlap_ratio;
+  const float* lm_lambda;
+  const float* termination_threshold;
+  int max_iteration, n_sums, gicp;
+  float* partials;
+  float* sums;
+  int* counters;
+  float* carry;
+  bool* flags;
+  int* iterations;
+};
+
+}  // namespace elm
+
+namespace {
+
+// Kernel M's step (gn_step.cuh) out of line: the LU's registers and stack
+// stay out of the search's register allocation. (In an unnamed namespace: a
+// non-static __noinline__ device function in a header gets a host symbol in
+// every object that includes it.)
+__device__ __noinline__ void lm_step(const float* sums, int n_sums, const float* pose,
+                                     float fitness, const float* local_cov, float total,
+                                     float min_overlap_ratio, float lambda,
+                                     float termination_threshold, int gicp, float* out,
+                                     bool* flags) {
+  elm::gn_update(sums, n_sums, pose, fitness, local_cov, total, min_overlap_ratio, lambda,
+                 termination_threshold, gicp, out, flags);
+}
+
+// Column k of the [s, np] slot partials summed into sums[k] exactly as
+// reduce_partials_kernel sums it: lane t of its 256 adds rows t, t + 256,
+// ... in order, then the same shared-memory tree over ``buf`` (256 floats).
+// A CTA of fewer threads forms several lanes a thread. Every thread of the
+// CTA calls it.
+__device__ __forceinline__ void reduce_column(const float* partials, int s, int np, int k,
+                                              float* buf, float* sums) {
+  constexpr int kLanes = elm::kThreads;
+  for (int l = threadIdx.x; l < kLanes; l += blockDim.x) {
+    float acc = 0.0f;
+    for (int r = l; r < s; r += kLanes) acc += __ldcg(partials + (size_t)r * np + k);
+    buf[l] = acc;
+  }
+  __syncthreads();
+  for (int h = kLanes / 2; h > 0; h >>= 1) {
+    for (int l = threadIdx.x; l < h; l += blockDim.x) buf[l] += buf[l + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) sums[k] = buf[0];
+  __syncthreads();
+}
+
+// Every iteration of one registration (see above): ``slots(slot, pose)``
+// runs one slot of the method's search at the staged ``pose`` (shared
+// memory) and writes its partials into row ``slot``; every thread of the CTA
+// calls it, for each slot the CTA takes. ``red``: 256 floats of shared
+// memory for the reduction, free after the slots' grid.sync().
+template <class Slots>
+__device__ __forceinline__ void gn_loop(const elm::GnLoop& a, int n_slots, const Slots& slots,
+                                        float* red) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float pose[16];
+  __shared__ int taken;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  if (lead) {  // the initial carry (run_register: fitness = overlap = 0, not failed)
+    for (int e = 0; e < 16; ++e) a.carry[e] = a.pose0[e];
+    for (int e = 0; e < 36; ++e) a.carry[16 + e] = a.local_cov0[e];
+    a.carry[52] = *a.fitness0;
+    a.carry[53] = 0.0f;
+    a.flags[0] = a.flags[1] = false;
+    a.counters[0] = a.counters[1] = 0;
+  }
+  int it = 0;
+  if (a.max_iteration > 0) grid.sync();  // the counters are zero
+  while (it < a.max_iteration) {
+    if (threadIdx.x < 16)
+      pose[threadIdx.x] = it == 0 ? a.pose0[threadIdx.x] : __ldcg(a.carry + threadIdx.x);
+    int* counter = a.counters + (it & 1);
+    for (;;) {
+      if (threadIdx.x == 0) taken = atomicAdd(counter, 1);
+      __syncthreads();  // (also publishes the staged pose)
+      const int slot = taken;
+      if (slot >= n_slots) break;  // the whole CTA leaves together
+      slots(slot, pose);
+    }
+    grid.sync();
+    for (int k = blockIdx.x; k < a.n_sums; k += gridDim.x)
+      reduce_column(a.partials, n_slots, a.n_sums, k, red, a.sums);
+    grid.sync();
+    if (lead) {
+      float p[16], cov[36], sum[elm::kGnSums];
+      for (int k = 0; k < a.n_sums; ++k) sum[k] = __ldcg(a.sums + k);
+      for (int e = 0; e < 16; ++e) p[e] = a.carry[e];
+      for (int e = 0; e < 36; ++e) cov[e] = a.carry[16 + e];
+      lm_step(sum, a.n_sums, p, a.carry[52], cov, *a.total, *a.min_overlap_ratio,
+              *a.lm_lambda, *a.termination_threshold, a.gicp, a.carry, a.flags);
+      a.counters[(it + 1) & 1] = 0;  // no CTA takes from it until the next iteration
+    }
+    ++it;
+    grid.sync();
+    if (*(volatile const bool*)a.flags) break;
+  }
+  if (lead) *a.iterations = it;
+}
+
+// The most CTAs of ``kernel`` (``threads`` a CTA, ``smem`` bytes of dynamic
+// shared memory, opted into up to ``max_smem``) that the current device
+// holds at once (0 when none fits), or kNoCooperative; cached per device
+// and ``key`` (< 16: one per kernel instantiation and shared-memory size
+// the file launches).
+inline int co_resident(const void* kernel, int threads, int smem, int max_smem, int key,
+                       int* ctas) {
+  constexpr int kDevices = 64, kKeys = 16;
+  static int cached[kDevices][kKeys];
+  static bool known[kDevices][kKeys];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool keep = dev < kDevices && key >= 0 && key < kKeys;
+  if (keep && known[dev][key]) {
+    *ctas = cached[dev][key];
+    return 0;
+  }
+  int coop = 0, sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return elm::kNoCooperative;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && max_smem > 0)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  *ctas = per_sm * sms;
+  if (keep) {
+    cached[dev][key] = *ctas;
+    known[dev][key] = true;
+  }
+  return 0;
+}
+
+// One cooperative launch of a loop kernel over min(n_slots, co-resident
+// CTAs) CTAs (at least one), or the error / kNoRoom.
+inline int launch_loop(const void* kernel, int n_slots, int threads, int smem, int max_smem,
+                       int key, void** args, cudaStream_t stream) {
+  int ctas = 0;
+  const int rc = co_resident(kernel, threads, smem, max_smem, key, &ctas);
+  if (rc != 0) return rc;
+  if (ctas == 0) return elm::kNoRoom;
+  const int grid = n_slots < 1 ? 1 : (n_slots < ctas ? n_slots : ctas);
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

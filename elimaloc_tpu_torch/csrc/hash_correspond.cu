@@ -47,85 +47,46 @@
 // and mean (48 B; 84 B with radar); ~6 operations per candidate and ~300
 // per matched row. One thread per point leaves the gathers latency-bound;
 // a warp per point is a later design.
-#include "common.cuh"
-#include "hash.cuh"
-
-using namespace elm;
+//
+// The fused entry (hash_search_kernel) is the one-iteration reference the
+// hash loop below is held to.
+//
+// The hash backend's registration loop on the card (hash_register_kernel):
+// kernels Q and M as one cooperative launch per registration (K13 + K3 and
+// the loop around them), for every method and radar form.
+//
+// Replaces elimaloc_tpu/register/icp.py:run_register's lax.while_loop
+// (:588-821) on the hash backend: every iteration's grid search from the
+// current pose + GN partials (icp.py:_iteration :429 with the grid queries
+// map/grid.py:181, 209, 228, 251 and the tails :283, :324, :354, :381; the
+// radar forms :331-333, 361-363, 459-467), the fixed-order reduction, the LM
+// step and the termination test, with the same trip count and carry. The
+// host loop it replaces on the card was three launches (kernel Q's search,
+// reduce_partials_kernel, kernel M) and one stop-flag readback per
+// iteration.
+//
+// Design: gn_loop.cuh's loop (a cooperative grid of min(S, co-resident
+// CTAs) CTAs, slots from an alternating atomic counter, the columns reduced
+// one a CTA in reduce_partials_kernel's order, M's step out of line on CTA
+// 0, the stop flag after the last grid.sync()) around kernel Q's body
+// (hash_correspond.cuh: hash_block, whose per-point body hash_point is one
+// __noinline__ copy in this translation unit, called by Q's fused entry and
+// the loop alike, so both round alike instruction for instruction). A slot
+// is one block of kHashThreads = 128 points, so the partials are Q's
+// [ceil(N / 128), 18 or 44] rows in block order; a CTA has Q's 128 threads
+// and forms the reduction's 256 lanes two a thread. Each method and radar
+// form is its own instantiation (Q's templates), its grid sized with
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; the shared memory is Q's
+// 128 x 18 or 44 rows (9 or 22.5 KB static), which the reduction reuses.
+// GICP exports local_cov (M's gicp flag). The result equals the
+// three-launch chain's bit for bit.
+// Bound: as kernel Q's per iteration (bytes: the probe windows, the
+// neighbour voxels' points or means, the match payloads), times the
+// iterations; grid.sync and the serial LM step are latency.
+#include "gn_loop.cuh"
+#include "hash_correspond.cuh"
 
 namespace {
-
-constexpr int kHashThreads = 128;
-constexpr int kP2PSums = 18;
-enum Method { kP2P = 0, kGICP = 1, kVGICP = 2, kAVGICP = 3 };
-
-struct Nearest {
-  int row, slot;
-  float d2;
-};
-
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-
-__device__ __forceinline__ float sq_dist(const float* p, const float* q) {
-  const float d0 = sub(p[0], q[0]), d1 = sub(p[1], q[1]), d2 = sub(p[2], q[2]);
-  return add(add(mul(d0, d0), mul(d1, d1)), mul(d2, d2));
-}
-
-__device__ __forceinline__ int neighbour(const HashGrid& g, const int* qv, int o, bool seven) {
-  int d[3], c[3];
-  if (seven) {
-    offset7(o, d);
-  } else {
-    offset27(o, d);
-  }
-  for (int i = 0; i < 3; ++i) c[i] = qv[i] + d[i];
-  return lookup(g, c);
-}
-
-// The nearest map point of the 27-voxel neighbourhood (grid.py:181-208).
-__device__ __forceinline__ Nearest nearest_point(const HashGrid& g, const float* q,
-                                                 const int* qv) {
-  Nearest b{0, 0, inf()};
-  for (int o = 0; o < 27; ++o) {
-    const int row = neighbour(g, qv, o, false);
-    if (o == 0) b.row = row;
-    const float* p = g.points + (size_t)row * g.m * 3;
-    const int cnt = g.counts[row];
-    for (int k = 0; k < cnt; ++k) {
-      const float dd = sq_dist(p + 3 * k, q);
-      if (dd < b.d2) {
-        b.d2 = dd;
-        b.row = row;
-        b.slot = k;
-      }
-    }
-  }
-  return b;
-}
-
-// The neighbourhood voxel whose mean is nearest (grid.py:233-251).
-__device__ __forceinline__ Nearest nearest_voxel(const HashGrid& g, const float* q,
-                                                 const int* qv) {
-  Nearest b{0, 0, inf()};
-  for (int o = 0; o < 27; ++o) {
-    const int row = neighbour(g, qv, o, false);
-    if (o == 0) b.row = row;
-    if (g.counts[row] <= 0) continue;
-    const float dd = sq_dist(g.vmean + (size_t)row * 3, q);
-    if (dd < b.d2) {
-      b.d2 = dd;
-      b.row = row;
-    }
-  }
-  return b;
-}
-
-__device__ __forceinline__ void identity(float* C) {
-  for (int k = 0; k < 9; ++k) C[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-}
-
-__device__ __forceinline__ void copy(const float* from, int n, float* to) {
-  for (int k = 0; k < n; ++k) to[k] = from[k];
-}
 
 template <int kMethod, bool kRadar>
 __global__ void __launch_bounds__(kHashThreads) hash_search_kernel(
@@ -134,67 +95,8 @@ __global__ void __launch_bounds__(kHashThreads) hash_search_kernel(
     const float* __restrict__ radar, float* __restrict__ partials) {
   constexpr int kParts = kMethod == kP2P ? kP2PSums : kGnSums;
   __shared__ float part[kHashThreads * kParts];
-  const int i = blockIdx.x * kHashThreads + threadIdx.x;
-  float* pr = part + threadIdx.x * kParts;
-  for (int k = 0; k < kParts; ++k) pr[k] = 0.0f;
-  if (i < n) {
-    SlotQuery u;
-    pose_query(u, pose, src + 3 * (size_t)i, g.voxel);
-    u.row = i;
-    u.live = true;  // every row reaches the tails (the radar form's masked M)
-    const bool live = valid[i];
-    const float md = max_dist[0];
-    const float md2 = mul(md, md);
-    if (kMethod == kP2P || kMethod == kGICP) {
-      const Nearest b = nearest_point(g, u.q, u.qv);
-      const bool near = b.d2 < md2;
-      const size_t at = (size_t)b.row * g.m + b.slot;
-      if (kMethod == kP2P) {
-        if (near && live) p2p_row(u, g.points + at * 3, md, pr);
-      } else {
-        float C[9], mu[3] = {u.q[0], u.q[1], u.q[2]};
-        identity(C);
-        if (near) {
-          copy(g.pcov + at * 9, 9, C);
-          copy(g.pmean + at * 3, 3, mu);
-        }
-        gicp_row<kRadar>(u, near && live, C, mu, md, radar, pr);
-      }
-    } else if (kMethod == kVGICP) {
-      const Nearest b = nearest_voxel(g, u.q, u.qv);
-      const bool near = b.d2 < md2;
-      float C[9], mu[3] = {u.q[0], u.q[1], u.q[2]};
-      identity(C);
-      if (near) {
-        copy(g.vcov + (size_t)b.row * 9, 9, C);
-        copy(g.vmean + (size_t)b.row * 3, 3, mu);
-      }
-      vgicp_row<kRadar>(u, near && live, C, mu, md, radar, pr);
-    } else {
-      AvgAcc acc = avg_acc();
-      for (int o = 0; o < 7; ++o) {
-        const int row = neighbour(g, u.qv, o, true);
-        float C[9], mu[3] = {u.q[0], u.q[1], u.q[2]};
-        float d[3] = {0.0f, 0.0f, 0.0f}, d2 = 0.0f;
-        bool near = false;
-        identity(C);
-        if (g.counts[row] > 0) {
-          const float* vm = g.vmean + (size_t)row * 3;
-          for (int k = 0; k < 3; ++k) d[k] = sub(vm[k], u.q[k]);
-          d2 = add(add(mul(d[0], d[0]), mul(d[1], d[1])), mul(d[2], d[2]));
-          near = d2 < md2;
-        }
-        if (near) {
-          copy(g.vcov + (size_t)row * 9, 9, C);
-          copy(g.vmean + (size_t)row * 3, 3, mu);
-        }
-        avgicp_pair<kRadar>(u, near && live, C, mu, d, d2, md, radar, acc, pr);
-      }
-      avgicp_finish<kRadar>(u, acc, pr);
-    }
-  }
-  __syncthreads();
-  slot_partials(part, kHashThreads, kParts, partials + (size_t)blockIdx.x * kParts);
+  hash_block<kMethod, kRadar>(blockIdx.x, g, src, valid, n, pose, max_dist, radar, part,
+                              partials);
 }
 
 // Per-query outputs of the four grid queries (``k`` = 1 row per query, 7
@@ -270,6 +172,55 @@ void launch_search(const HashGrid& g, const float* src, const bool* valid, int n
       g, src, valid, n, pose, max_dist, radar, partials);
 }
 
+
+// One block of kernel Q at the staged pose (gn_loop's ``slots``).
+template <int kMethod, bool kRadar>
+struct HashSlots {
+  HashGrid g;
+  const float* src;
+  const bool* valid;
+  int n;
+  const float* max_dist;
+  const float* radar;
+  float* partials;
+  float* part;
+  __device__ __forceinline__ void operator()(int block, const float* pose) const {
+    hash_block<kMethod, kRadar>(block, g, src, valid, n, pose, max_dist, radar, part,
+                                partials);
+  }
+};
+
+template <int kMethod, bool kRadar>
+__global__ void __launch_bounds__(kHashThreads) hash_register_kernel(
+    const HashGrid g, const float* __restrict__ src, const bool* __restrict__ valid, int n,
+    const float* __restrict__ max_dist, const float* __restrict__ radar, const GnLoop loop) {
+  constexpr int kParts = kMethod == kP2P ? kP2PSums : kGnSums;
+  __shared__ float part[kHashThreads * kParts];
+  const HashSlots<kMethod, kRadar> slots{g, src, valid, n, max_dist, radar, loop.partials,
+                                         part};
+  gn_loop(loop, (n + kHashThreads - 1) / kHashThreads, slots, part);
+}
+
+// The instantiation of ``method`` (its radar form with ``radar``; P2P has
+// none), or null.
+const void* loop_kernel(int method, bool radar) {
+  switch (method) {
+    case kP2P:
+      return (const void*)hash_register_kernel<kP2P, false>;
+    case kGICP:
+      return radar ? (const void*)hash_register_kernel<kGICP, true>
+                   : (const void*)hash_register_kernel<kGICP, false>;
+    case kVGICP:
+      return radar ? (const void*)hash_register_kernel<kVGICP, true>
+                   : (const void*)hash_register_kernel<kVGICP, false>;
+    case kAVGICP:
+      return radar ? (const void*)hash_register_kernel<kAVGICP, true>
+                   : (const void*)hash_register_kernel<kAVGICP, false>;
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 // One GN iteration's search + reduction: ``sums`` [18] (P2P) or [44];
@@ -340,4 +291,41 @@ extern "C" int elm_hash_lookup(const int* table, const int* table_fp, int table_
   if (n > 0)
     hash_lookup_kernel<<<blocks_for(n), kHashThreads, 0, stream>>>(g, coords, n, rows_out);
   return (int)cudaGetLastError();
+}
+
+// The co-resident CTAs of the loop kernel of ``method`` (its radar form
+// with ``radar`` != 0) on the current device.
+extern "C" int elm_hash_register_capacity(int method, int radar, int* ctas) {
+  const bool r = radar != 0 && method != kP2P;
+  const void* kernel = loop_kernel(method, r);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return co_resident(kernel, kHashThreads, 0, 0, 2 * method + (int)r, ctas);
+}
+
+// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
+// failed; iterations: int32. Scratch: partials [max(ceil(n / 128), 1), 18
+// (P2P) or 44], sums [18 or 44], counters [2]. ``radar`` [n, 3, 3] or null
+// (the radar form; ignored for P2P).
+extern "C" int elm_hash_register(
+    const int* table, const int* table_fp, int table_size, int max_probe, int sentinel,
+    const float* points, int m, const int* counts, const float* pcov, const float* pmean,
+    const float* vmean, const float* vcov, float voxel, const float* src, const bool* valid,
+    int n, const float* pose, const float* fitness, const float* local_cov,
+    const float* total, const float* max_dist, const float* min_overlap_ratio,
+    const float* lm_lambda, const float* termination_threshold, int max_iteration,
+    const float* radar, int method, float* partials, float* sums, int* counters,
+    float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+  const bool r = radar != nullptr && method != kP2P;
+  const void* kernel = loop_kernel(method, r);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const HashGrid g{table, table_fp, table_size, max_probe, sentinel, points, m,
+                   counts, pcov, pmean, vmean, vcov, voxel};
+  const float* rad = r ? radar : nullptr;
+  const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
+                    termination_threshold, max_iteration, method == kP2P ? kP2PSums : kGnSums,
+                    method == kGICP ? 1 : 0, partials, sums, counters, carry, flags,
+                    iterations};
+  void* args[] = {(void*)&g, &src, &valid, &n, &max_dist, &rad, (void*)&loop};
+  return launch_loop(kernel, (n + kHashThreads - 1) / kHashThreads, kHashThreads, 0, 0,
+                     2 * method + (int)r, args, stream);
 }

@@ -8,11 +8,11 @@ ekf/filter.py, pipeline/rings.py, pipeline/runtime.py) run the plain
 PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
-GPS + CAN) and of the event loop except the method kernels (the P2P loop
-on the tile backend, E, F, G), N, O and P, kernel I, which runs only for
-CAN and GPS, the per-iteration entries A and M where the loop kernel takes
-their place, L, whose body runs inside S, and D and K, whose bodies run
-inside T.
+GPS + CAN) and of the event loop except the method kernels (the P2P and
+AVGICP loops on the tile backend, E, F), N, O and P, kernel I, which runs
+only for CAN and GPS, the per-iteration entries A, G, Q and M where a loop
+kernel takes their place, L, whose body runs inside S, and D and K, whose
+bodies run inside T.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -22,6 +22,16 @@ A + M     p2p_register        register/icp.py:run_register's lax.while_loop for
                               the reduction and M's step every iteration, the
                               termination test; one cooperative launch per
                               registration, no readback
+G + M     avgicp_register     register/icp.py:run_register's lax.while_loop for
+                              AVGICP on the tile backend (the radar form too):
+                              G's search and partials, the reduction and M's
+                              step every iteration; one cooperative launch per
+                              registration, no readback
+Q + M     hash_register       register/icp.py:run_register's lax.while_loop on
+                              the hash backend, every method and radar form:
+                              Q's search from the current pose and partials,
+                              the reduction and M's step every iteration; one
+                              cooperative launch per registration, no readback
 A         p2p_correspond      map/tiles.py:nearest_point_slots + icp._p2p_tail,
                               one GN iteration (the loop's reference; its slot
                               code runs inside p2p_register)
@@ -32,7 +42,9 @@ D         deskew              deskew.py:_find_rotation_batch + deskew_points
 E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
                               icp._gicp_tail
 F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
-G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail
+G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail,
+                              one GN iteration (the loop's reference; its slot
+                              code runs inside avgicp_register)
 H         imu_stage           pipeline/runtime.py:imu_subbatch, the whole IMU stage:
                               frames.imu_to_ego, the predict_imu chain, the
                               ego rows and both rings' batch pushes
@@ -49,8 +61,9 @@ L         pcm_measurement     runtime.shape_icp_covariance +
                               (kernel S's reference; its body runs inside S)
 M         gn_step             register/icp.py:_solve_step + _step_transform + the
                               GN loop body (compose, so3_log, the gates) after
-                              E, F, G or Q; its step (gn_step.cuh) runs inside
-                              p2p_register for P2P on the tile backend
+                              E or F; its step (gn_step.cuh) runs inside the
+                              loop kernels (p2p_register, avgicp_register,
+                              hash_register)
 N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
                               incremental move of an active map window
 O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False,
@@ -59,7 +72,8 @@ P         radar_cov           register/icp.py:radar_point_cov + the slot packing
                               of run_register (use_radar_cov)
 Q         hash_correspond     map/grid.py:lookup + query_* + icp._iteration (the
                               hash backend's search fused with the method's GN
-                              reduction, one launch per GN iteration)
+                              reduction, one GN iteration: the loop's
+                              reference; its body runs inside hash_register)
 Q         hash_query          map/grid.py:query_nearest_point(_cov),
                               query_nearest_voxel_cov, query_all_voxel_cov
 Q         hash_lookup         map/grid.py:lookup
@@ -77,7 +91,8 @@ T         scan_front          runtime.scan_front_plain: the scan's front, the
 Kernel N runs only on the active-window path (``map_window_radius``), O and
 J only in the event loop's tick mode (``use_imu=False``), P once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
-place of B and of A, E, F, G; its query and lookup entries and R serve the
+place of B and of A, E, F, G (inside hash_register on the registration
+path); its query and lookup entries and R serve the
 grid's own functions. H, I, O and S take and give the EKF state as one packed
 record and read the parameters from one (``ekf.state``): a state whose
 fields are not the views of one record is packed first, and counted in
@@ -105,7 +120,8 @@ launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "avgicp_correspond": 0, "imu_stage": 0, "ekf_update": 0, "ring_push": 0,
             "scan_ring_query": 0, "scan_front": 0, "pcm_measurement": 0, "pcm_stage": 0,
             "gn_step": 0, "shift_window": 0, "ca_tick": 0, "radar_cov": 0,
-            "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0}
+            "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0,
+            "avgicp_register": 0, "hash_register": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -194,9 +210,9 @@ SHARED_TILES = 8192
 #: what a sorting kernel's entry returns when no such cluster fits the card
 #: (csrc/sort.cuh kNoCluster)
 NO_CLUSTER = -1
-#: what the P2P loop's entry returns when the card has no cooperative launch,
-#: or when no CTA of the loop kernel fits an SM (csrc/p2p_register.cu
-#: kNoCooperative, kNoRoom)
+#: what a loop entry (the P2P, AVGICP and hash loops) returns when the card
+#: has no cooperative launch, or when no CTA of the loop kernel fits an SM
+#: (csrc/gn_loop.cuh kNoCooperative, kNoRoom)
 NO_COOPERATIVE = -2
 NO_ROOM = -3
 
@@ -870,6 +886,41 @@ def p2p_register_capacity() -> int:
     return ctas.value
 
 
+def _carry_in(pose, fitness, local_cov, total, params, max_iteration: int):
+    """The loop entries' carry in, constants and trip limit (csrc/gn_loop.cuh
+    ``GnLoop``): pose [4,4], fitness, local_cov [6,6], total, the search
+    distance, the overlap ratio, lambda, the termination threshold,
+    ``max_iteration``."""
+    return [_check(pose, "pose", _F32, (4, 4)), _check(fitness, "fitness", _F32, ()),
+            _check(local_cov, "local_cov", _F32, (6, 6)), _check(total, "total", _F32, ()),
+            _check(params.max_search_dist, "max_search_dist", _F32, ()),
+            _check(params.min_overlap_ratio, "min_overlap_ratio", _F32, ()),
+            _check(params.lm_lambda, "lm_lambda", _F32, ()),
+            _check(params.termination_threshold, "termination_threshold", _F32, ()),
+            ctypes.c_int(max_iteration)]
+
+
+def _gn_loop(name, entry, args, rows: int, n_sums: int, like):
+    """One launch of a loop entry (``args``: its arguments before the
+    scratch) over ``rows`` slot rows of ``n_sums`` partials. Returns (pose
+    [4,4], local_cov [6,6], fitness, overlap, failed, iterations int32),
+    views of the launch's carry: nothing is read back."""
+    dev = like.device
+    # carry (pose, local_cov, fitness, overlap), sums, partials; counters and
+    # the iteration count; the flags (stop, failed)
+    f = torch.empty(54 + n_sums * (1 + max(rows, 1)), dtype=_F32, device=dev)
+    i = torch.empty(3, dtype=torch.int32, device=dev)   # the counters: zeroed by the kernel
+    flags = torch.empty(2, dtype=_BOOL, device=dev)
+    carry, sums, partials = f[:54], f[54:54 + n_sums], f[54 + n_sums:]
+    rc = getattr(library(), entry)(*args, _ptr(partials), _ptr(sums), _ptr(i), _ptr(carry),
+                                   _ptr(flags), ctypes.c_void_p(i.data_ptr() + 8),
+                                   _stream(like))
+    _raise_on(rc, name)
+    launches[name] += 1
+    return (carry[:16].view(4, 4), carry[16:52].view(6, 6), carry[52], carry[53], flags[1],
+            i[2])
+
+
 def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                  params, max_iteration: int, *, voxel_size, tile_size, tx0, ty0, ty_dim):
     """Kernels A and M as one loop (icp.p2p_register_plain): the whole P2P
@@ -880,32 +931,53 @@ def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, 
     iterations int32)."""
     s, qb = _qb_of(qmask, "p2p_register")
     t1, mhp = halo_points.shape[:2]
-    dev = sbuf.device
     args = [
         _check(halo_points, "halo_points", _F32, (t1, mhp, 3)), ctypes.c_int(mhp),
         _check(slot_tile, "slot_tile", torch.int32, (s,)),
         _check(sbuf, "sbuf", _F32, (s, qb, 3)),
         _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
-        _check(pose, "pose", _F32, (4, 4)), _check(fitness, "fitness", _F32, ()),
-        _check(local_cov, "local_cov", _F32, (6, 6)), _check(total, "total", _F32, ()),
-        _check(params.max_search_dist, "max_search_dist", _F32, ()),
-        _check(params.min_overlap_ratio, "min_overlap_ratio", _F32, ()),
-        _check(params.lm_lambda, "lm_lambda", _F32, ()),
-        _check(params.termination_threshold, "termination_threshold", _F32, ()),
-        ctypes.c_int(max_iteration), ctypes.c_float(voxel_size), ctypes.c_float(tile_size),
-        ctypes.c_int(tx0), ctypes.c_int(ty0), ctypes.c_int(ty_dim)]
-    partials = torch.empty((max(s, 1), P2P_SUMS), dtype=_F32, device=dev)
-    sums = torch.empty(P2P_SUMS, dtype=_F32, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)   # zeroed by the kernel
-    carry = torch.empty(54, dtype=_F32, device=dev)
-    flags = torch.empty(2, dtype=_BOOL, device=dev)
-    iterations = torch.empty((), dtype=torch.int32, device=dev)
-    rc = library().elm_p2p_register(*args, _ptr(partials), _ptr(sums), _ptr(counters),
-                                    _ptr(carry), _ptr(flags), _ptr(iterations), _stream(sbuf))
-    _raise_on(rc, "p2p_register")
-    launches["p2p_register"] += 1
-    return (carry[:16].view(4, 4), carry[16:52].view(6, 6), carry[52], carry[53], flags[1],
-            iterations)
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
+        ctypes.c_float(voxel_size), ctypes.c_float(tile_size), ctypes.c_int(tx0),
+        ctypes.c_int(ty0), ctypes.c_int(ty_dim)]
+    return _gn_loop("p2p_register", "elm_p2p_register", args, s, P2P_SUMS, sbuf)
+
+
+def avgicp_register_capacity(qb: int, radar: bool = False) -> int:
+    """The CTAs of the AVGICP loop kernel (its radar form with ``radar``)
+    that the current card holds at once with slot blocks of ``qb`` queries
+    (its grid is the smaller of this and the slot count)."""
+    ctas = ctypes.c_int(0)
+    _raise_on(library().elm_avgicp_register_capacity(ctypes.c_int(qb), ctypes.c_int(int(radar)),
+                                                     ctypes.byref(ctas)), "avgicp_register")
+    return ctas.value
+
+
+def avgicp_register(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf, qmask, pose,
+                    fitness, local_cov, total, params, max_iteration: int, *, voxel_size,
+                    radar=None):
+    """Kernels G and M as one loop (icp.avgicp_register_plain): the whole
+    AVGICP GN/LM loop of one registration on the tile backend (the radar
+    form with the slot-packed ``radar`` [S,QB,3,3]), from the carry
+    (``pose`` [4,4], ``fitness``, ``local_cov`` [6,6]) for at most
+    ``max_iteration`` iterations, in one cooperative launch; nothing is read
+    back. Returns (pose [4,4], local_cov [6,6], fitness, overlap, failed,
+    iterations int32)."""
+    s, qb = _qb_of(qmask, "avgicp_register")
+    if halo_vox_mean is None or halo_vox_cov is None:
+        raise ValueError("avgicp_register: the tile map has no voxel covariances "
+                         "(build it with the covariances this method needs)")
+    t1, m = halo_vox_mean.shape[:2]
+    args = [
+        _check(halo_vox_mean, "halo_vox_mean", _F32, (t1, m, 3)),
+        _check(halo_vox_cov, "halo_vox_cov", _F32, (t1, m, 3, 3)),
+        _check(halo_vox_coord, "halo_vox_coord", torch.int32, (t1, m, 3)), ctypes.c_int(m),
+        _check(slot_tile, "slot_tile", torch.int32, (s,)),
+        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
+        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
+        ctypes.c_float(voxel_size),
+        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3))]
+    return _gn_loop("avgicp_register", "elm_avgicp_register", args, s, GN_SUMS, sbuf)
 
 
 # --------------------------------------------------------------------------- #
@@ -1025,6 +1097,38 @@ def hash_correspond(grid, src, valid, pose, max_dist, method: str, radar=None):
     _raise_on(rc, "hash_correspond")
     launches["hash_correspond"] += 1
     return sums
+
+
+def hash_register_capacity(method: str, radar: bool = False) -> int:
+    """The CTAs of the hash loop kernel of ``method`` (its radar form with
+    ``radar``) that the current card holds at once (its grid is the smaller
+    of this and the scan's blocks of 128 points)."""
+    ctas = ctypes.c_int(0)
+    _raise_on(library().elm_hash_register_capacity(
+        ctypes.c_int(HASH_METHODS[method]), ctypes.c_int(int(radar)), ctypes.byref(ctas)),
+        "hash_register")
+    return ctas.value
+
+
+def hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
+                  max_iteration: int, method: str, radar=None):
+    """Kernels Q and M as one loop (icp.hash_register_plain): the whole GN/LM
+    loop of one registration of ``method`` on the hash grid, the scan
+    ``src`` [N, 3] (mask ``valid``) looked up from the current pose every
+    iteration (the radar form of GICP, VGICP and AVGICP with ``radar``
+    [N, 3, 3] in query order), from the carry (``pose`` [4,4], ``fitness``,
+    ``local_cov`` [6,6]) for at most ``max_iteration`` iterations, in one
+    cooperative launch; nothing is read back. Returns (pose [4,4],
+    local_cov [6,6], fitness, overlap, failed, iterations int32)."""
+    n = src.shape[0]
+    args = _grid_args(grid, method) + [
+        _check(src, "src", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,)), ctypes.c_int(n),
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
+        ctypes.c_void_p(None) if radar is None or method == "P2P"
+        else _check(radar, "radar", _F32, (n, 3, 3)), ctypes.c_int(HASH_METHODS[method])]
+    return _gn_loop("hash_register", "elm_hash_register", args,
+                    (n + _HASH_THREADS - 1) // _HASH_THREADS,
+                    P2P_SUMS if method == "P2P" else GN_SUMS, src)
 
 
 def hash_query(grid, queries, max_dist, method: str):

@@ -61,6 +61,13 @@ _SIGNATURES = {
     "elm_p2p_register": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_p2p_register_capacity": [ctypes.POINTER(_I)],
+    "elm_avgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+    "elm_avgicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+    "elm_hash_register": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                          _P, _P],
+    "elm_hash_register_capacity": [_I, _I, ctypes.POINTER(_I)],
     "elm_shift_window": [_PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P, _I, _P],
     "elm_hash_search_reduce": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P,
                                _I, _P, _P, _P, _I, _P, _P, _P],

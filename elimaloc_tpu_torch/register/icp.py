@@ -11,25 +11,29 @@ conjugation (icp.py:630-632, 824-825) is kept on the host around the loop;
 it is a zero shift for full maps. Only GICP exports
 ``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
 
-P2P on the tile backend runs the whole loop in one call: on a CUDA tensor
-one cooperative launch of ``kernels.p2p_register`` (csrc/
-``p2p_register.cu``: kernel A's slot search and partials, the reduction and
-kernel M's step every iteration, the termination test on the card; the host
-reads nothing back); on a CPU tensor :func:`p2p_register_plain`, the host
-loop of the plain versions with one readback per iteration.
+P2P and AVGICP on the tile backend and every method on the hash backend
+run the whole loop in one call: on a CUDA tensor one cooperative launch of
+a loop kernel (csrc/``gn_loop.cuh`` around the method's search:
+``kernels.p2p_register``, ``p2p_register.cu``, kernel A's slot code;
+``kernels.avgicp_register``, ``avgicp_register.cu``, kernel G's;
+``kernels.hash_register``, ``hash_register.cu``, kernel Q's), the reduction
+and kernel M's step every iteration, the termination test on the card; the
+host reads nothing back. On a CPU tensor :func:`p2p_register_plain`,
+:func:`avgicp_register_plain` and :func:`hash_register_plain`, the host loop
+of the plain versions with one readback per iteration.
 
-The other methods loop on the host, one GN iteration (:func:`gn_iteration`)
-at a time, and read ONE scalar back per iteration (``done | failed``) to
-decide whether to go on. On a CUDA tensor an iteration is two launches on
-one stream: the method's fused search + reduction kernel
-(:func:`search_sums`; csrc/: E ``gicp.cu``, F ``vgicp.cu``, G
-``avgicp.cu``), then kernel M (``gn_step.cu``: the LM step, the gates and
+GICP and VGICP on the tile backend loop on the host, one GN iteration
+(:func:`gn_iteration`) at a time, and read ONE scalar back per iteration
+(``done | failed``) to decide whether to go on. On a CUDA tensor an
+iteration is two launches on one stream: the method's fused search +
+reduction kernel (:func:`search_sums`; csrc/: E ``gicp.cu``, F
+``vgicp.cu``), then kernel M (``gn_step.cu``: the LM step, the gates and
 the carries), whose stop flag is the iteration's one readback. On a CPU
 tensor it is the plain versions: the tiles search composed with the
 method's tail (``*_search_reduce_plain``, icp.py:495-555) and
-:func:`gn_update_plain`. Kernel A (``correspond.cu``, P2P) keeps its
-one-iteration entry (:func:`search_sums`), the reference the loop kernel is
-held to.
+:func:`gn_update_plain`. Kernels A, G (:func:`search_sums`) and Q
+(:func:`gn_iteration_hash`) keep their one-iteration entries, the reference
+each loop kernel is held to.
 
 With ``use_radar_cov`` every GICP / VGICP / AVGICP row adds its point's
 range / azimuth / elevation covariance (:func:`radar_point_cov`) to
@@ -43,8 +47,8 @@ The hash backend (``backend="hash"``, icp.py:612-675, the JAX package's
 semantic reference for the tile engine) registers against a
 ``map.grid.MapGrid`` in world coordinates: no slot assignment (``dropped``
 is 0), no window origin, and every GN iteration looks the voxels up again
-from the current pose (:func:`gn_iteration_hash`: kernel Q
-``hash_correspond.cu``, then kernel M, on the card; on a CPU tensor
+from the current pose (:func:`hash_register`: kernel Q's body
+``hash_correspond.cuh`` inside the loop kernel on the card; on a CPU tensor
 :func:`hash_search_reduce_plain`, the grid queries composed with the same
 tails, icp.py:429-467, and :func:`gn_update_plain`). The radar covariances
 come in query order, from kernel P on the rows 0..N-1. As in JAX,
@@ -643,6 +647,40 @@ def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
         ty0=ay0, ty_dim=tmap.ty_dim)
 
 
+def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                          params: IcpParams, budget: maptiles.TileQueryBudget,
+                          max_iteration: int, radar=None):
+    """Plain PyTorch version of the AVGICP loop kernel
+    (``kernels.avgicp_register``): :func:`host_loop` of
+    :func:`avgicp_search_reduce_plain` (with the slot-packed ``radar`` when
+    given) then :func:`gn_update_plain` from the carry. Returns (pose,
+    local_cov, fitness, overlap, failed, iterations int32)."""
+    extra = () if radar is None else (radar,)
+
+    def step(pose, fitness, local_cov):
+        eq = avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget,
+                                        *extra)[:4]
+        return gn_update_plain(*eq, pose, fitness, local_cov, total, params, False)
+
+    return host_loop(step, pose, fitness, local_cov, max_iteration)
+
+
+def avgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                    params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
+                    radar=None):
+    """The AVGICP registration loop on the tile backend:
+    :func:`avgicp_register_plain` for CPU tensors, one launch of the loop
+    kernel for CUDA ones (its gate runs in world coordinates: no window
+    anchor)."""
+    if not _on_card(sbuf):
+        return avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                     total, params, budget, max_iteration, radar)
+    return kernels.avgicp_register(
+        tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, slot_tile, sbuf, qmask,
+        pose, fitness, local_cov, total, params, max_iteration, voxel_size=tmap.voxel_size,
+        radar=radar)
+
+
 # --------------------------------------------------------------------------- #
 # The hash backend's GN iteration (kernel Q)
 # --------------------------------------------------------------------------- #
@@ -693,6 +731,33 @@ def gn_iteration_hash(method: int, grid, src, valid, pose, fitness, local_cov, t
     return kernels.gn_step(sums, *carry, gicp)
 
 
+def hash_register_plain(method: int, grid, src, valid, pose, fitness, local_cov, total,
+                        params: IcpParams, max_iteration: int, radar=None):
+    """Plain PyTorch version of the hash loop kernel (``kernels.hash_register``):
+    :func:`host_loop` of :func:`hash_search_reduce_plain` (``radar`` [N,3,3]
+    in query order or None) then :func:`gn_update_plain` from the carry.
+    Returns (pose, local_cov, fitness, overlap, failed, iterations int32)."""
+    gicp = method == int(IcpMethod.GICP)
+
+    def step(pose, fitness, local_cov):
+        return gn_update_plain(
+            *hash_search_reduce_plain(grid, src, valid, pose, params, method, radar), pose,
+            fitness, local_cov, total, params, gicp)
+
+    return host_loop(step, pose, fitness, local_cov, max_iteration)
+
+
+def hash_register(method: int, grid, src, valid, pose, fitness, local_cov, total,
+                  params: IcpParams, max_iteration: int, radar=None):
+    """The registration loop on the hash backend: :func:`hash_register_plain`
+    for CPU tensors, one launch of the loop kernel for CUDA ones."""
+    if not _on_card(src):
+        return hash_register_plain(method, grid, src, valid, pose, fitness, local_cov, total,
+                                   params, max_iteration, radar)
+    return kernels.hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
+                                 max_iteration, IcpMethod(method).name, radar)
+
+
 def radar_points(src_local, pose, params: IcpParams):
     """:func:`radar_point_cov` of the scan at the world pose, in query order
     [N, 3, 3] (icp.py:619-623): :func:`radar_slots` on the rows 0..N-1 (kernel
@@ -726,10 +791,6 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
         origin = None
         dropped = torch.zeros((), dtype=torch.int32, device=dev)
         radar = radar_points(src_local, pose_world, params) if use_radar else None
-
-        def step(pose, fitness, local_cov):
-            return gn_iteration_hash(static.method, tmap, src_local, src_valid, pose,
-                                     fitness, local_cov, total, params, radar)
         pose = pose_world
     else:
         origin = tmap.origin.to(dtype)
@@ -746,24 +807,31 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
         # window-origin shift), packed into the slot layout
         radar = (radar_slots(src_local, asg.qidx, asg.qmask, pose_world, params)
                  if use_radar else None)
-
-        def step(pose, fitness, local_cov):
-            return gn_iteration(static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose,
-                                fitness, local_cov, total, params, static.tile_budget,
-                                radar)
     if mark is not None:
         mark("assign")
 
     fitness = torch.zeros((), dtype=dtype, device=dev)
     local_cov = torch.eye(6, dtype=dtype, device=dev)
-    if static.backend == "tile" and static.method == int(IcpMethod.P2P):
+    carry = (pose, fitness, local_cov, total, params)
+    if static.backend == "hash":
         # the whole loop in one call: no readback on the card
-        pose, local_cov, fitness, overlap, failed, iterations = p2p_register(
-            tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, params,
-            static.tile_budget, static.max_iteration)
+        loop = hash_register(static.method, tmap, src_local, src_valid, *carry,
+                             static.max_iteration, radar)
+    elif static.method == int(IcpMethod.P2P):
+        loop = p2p_register(tmap, asg.slot_tile, sbuf, asg.qmask, *carry, static.tile_budget,
+                            static.max_iteration)
+    elif static.method == int(IcpMethod.AVGICP):
+        loop = avgicp_register(tmap, asg.slot_tile, sbuf, asg.qmask, *carry,
+                               static.tile_budget, static.max_iteration, radar)
     else:
-        pose, local_cov, fitness, overlap, failed, iterations = host_loop(
-            step, pose, fitness, local_cov, static.max_iteration)
+        # GICP and VGICP on tiles: E or F, then M, and one readback an iteration
+        def step(pose, fitness, local_cov):
+            return gn_iteration(static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose,
+                                fitness, local_cov, total, params, static.tile_budget,
+                                radar)
+
+        loop = host_loop(step, pose, fitness, local_cov, static.max_iteration)
+    pose, local_cov, fitness, overlap, failed, iterations = loop
     if mark is not None:
         mark("gn")
 

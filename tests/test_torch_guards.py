@@ -192,7 +192,7 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
                "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
                "tools/time_gn_loop.py", "tools/time_pcm_stage.py",
-               "tools/time_scan_front.py"]
+               "tools/time_scan_front.py", "tools/time_register_loops.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
