@@ -50,17 +50,16 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         reduce_partials_kernel, kernel M, the stop flag read back each
         iteration) and within A's and M's tolerances of its plain version,
         then kernel A and kernel M alone on frame 10's first iteration; on
-        the tile AVGICP paths (AVGICP, its radar form, the fusion path) the
-        AVGICP loop kernel (``avgicp_register``: kernels G and M as one
-        cooperative launch) and on every hash path the hash loop kernel
+        the tile GICP, VGICP and AVGICP paths (their radar forms, AVGICP's
+        fusion path) the method's loop kernel (``gicp_register``,
+        ``vgicp_register``, ``avgicp_register``: kernel E, F or G and M as
+        one cooperative launch) and on every hash path the hash loop kernel
         (``hash_register``: kernels Q and M) the same way, bit for bit
         against their chains on every registration (in the radar forms the
         distance from the plain loop is recorded, not gated: the search
-        kernels' radar rows are held to a float64 tail), then G or Q and M
-        alone on frame 10's first iteration (the radar rows on an iteration
-        with a finite pose and a match); on the tile GICP and VGICP paths
-        the method's fused search + GN kernel (E, F) and kernel M (the GN
-        step); on the
+        kernels' radar rows are held to a float64 tail), then E, F, G or Q
+        and M alone on frame 10's first iteration (the radar rows on an
+        iteration with a finite pose and a match); on the
         P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
         stage: the sensor-frame conversion, the EKF chain and both ring
         pushes, against its plain composition; one profiled call of the
@@ -94,11 +93,13 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         without them; on every tile
         P2P path, the replays, the tick mode, the relocalizations and the
         windowed runs below, the loop kernel once a registration and kernels
-        A and M never; on every tile AVGICP path (with the event loop and the
+        A and M never; on every tile GICP and VGICP path (with "GICP
+        frames") the method's loop once a registration, E, F and M never;
+        on every tile AVGICP path (with the event loop and the
         Joseph replay) the AVGICP loop once a registration, G and M never;
         on every hash path (with its frames and relocalization) the hash
-        loop once a registration, Q and M never), on the P2P path the GN stage a frame and the scans/s
-        beside the three-launch GN loop's (CHAIN_P2P), the scan's end
+        loop once a registration, Q and M never), on the P2P path the GN
+        stage a frame and the scans/s beside the three-launch GN loop's (CHAIN_P2P), the scan's end
         (kernel S's stage) beside L, I and the eager epilogue's
         (CHAIN_SCAN_END),
         applied ratio, ATE against ground truth, slot drops, downsample
@@ -156,8 +157,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      epilogue kernel after the loop, and running kernel T's two kernels
      once, K and D never, with no eager range-gate or scan-times kernel
      between kernel H and T (the kernels there are listed); the same traced
-     replay on the tile AVGICP path (its loop kernel, no kernel G,
-     reduce_partials_kernel or M); on "AVGICP hash" one more replay with
+     replay on the tile GICP and AVGICP paths (the loop kernel, no kernel
+     E or G, reduce_partials_kernel or M); on "AVGICP hash" one more replay with
      each registration (the "assign" mark to the "gn" mark) under
      set_sync_debug_mode("error") and the rest of each frame under "warn":
      no synchronizing call inside a registration, any other listed by its
@@ -304,13 +305,18 @@ CHAIN_SCAN_END = {"ms": 1.256, "frame_ms_p50": 2.80}
 #: cooperative launch a registration (the whole GN loop on the card), its
 #: source and the JAX loop it replaces
 LOOP = "p2p_register"
-#: the AVGICP registration on the tile backend and every registration on the
-#: hash backend: kernels G and Q with M as one cooperative launch a
-#: registration (csrc/gn_loop.cuh around G's and Q's bodies)
+#: the GICP, VGICP and AVGICP registrations on the tile backend and every
+#: registration on the hash backend: kernels E, F, G and Q with M as one
+#: cooperative launch a registration (csrc/gn_loop.cuh around their bodies)
+GICP_LOOP, VGICP_LOOP = "gicp_register", "vgicp_register"
 AVG_LOOP, HASH_LOOP = "avgicp_register", "hash_register"
+#: the tile loop of each covariance method
+TILE_LOOPS = {"GICP": GICP_LOOP, "VGICP": VGICP_LOOP, "AVGICP": AVG_LOOP}
 #: each loop kernel's source and the JAX loop it replaces
 LOOP_SOURCE = {
     LOOP: "elimaloc_tpu_torch/csrc/p2p_register.cu + correspond.cuh + gn_loop.cuh + gn_step.cuh",
+    GICP_LOOP: "elimaloc_tpu_torch/csrc/gicp.cu + gicp.cuh + gn_loop.cuh + gn_step.cuh",
+    VGICP_LOOP: "elimaloc_tpu_torch/csrc/vgicp.cu + vgicp.cuh + gn_loop.cuh + gn_step.cuh",
     AVG_LOOP: "elimaloc_tpu_torch/csrc/avgicp.cu + avgicp.cuh + gn_loop.cuh + gn_step.cuh",
     HASH_LOOP: ("elimaloc_tpu_torch/csrc/hash_correspond.cu + hash_correspond.cuh + hash.cuh + "
                 "gn_loop.cuh + gn_step.cuh")}
@@ -318,6 +324,13 @@ LOOP_REPLACES = {
     LOOP: ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (P2P, tile): "
            "per iteration elimaloc_tpu/map/tiles.py:712 + register/icp.py:283 + :202 + :209 + "
            "the body :761-795"),
+    GICP_LOOP: ("elimaloc_tpu/register/icp.py:588-821 run_register's lax.while_loop (GICP, "
+                "tile; the loop :821): per iteration elimaloc_tpu/map/tiles.py:712 "
+                "(with_point_cov) + register/icp.py:324 (radar: :331-333) + :202 + :209 + the "
+                "body :761-795"),
+    VGICP_LOOP: ("elimaloc_tpu/register/icp.py:588-821 run_register's lax.while_loop (VGICP, "
+                 "tile; the loop :821): per iteration elimaloc_tpu/map/tiles.py:803 + "
+                 "register/icp.py:354 (radar: :361-363) + :202 + :209 + the body :761-795"),
     AVG_LOOP: ("elimaloc_tpu/register/icp.py:728-821 run_register's lax.while_loop (AVGICP, "
                "tile): per iteration elimaloc_tpu/map/tiles.py:869 + register/icp.py:381 (radar: "
                ":551-562) + :202 + :209 + the body :761-795"),
@@ -325,15 +338,18 @@ LOOP_REPLACES = {
                 "per iteration :429 _iteration with elimaloc_tpu/map/grid.py:181, :209, :228, "
                 ":251 and the tails :283, :324, :354, :381 (radar :331-333, :361-363, :459-467) "
                 "+ :202 + :209 + the body :761-795")}
-#: each loop kernel's one-iteration search kernel (kernel A, G or Q), which
-#: with kernel M is the chain the loop is held to and launches on no path
-#: the loop serves
-LOOP_SEARCH = {LOOP: "p2p_correspond", AVG_LOOP: "avgicp_correspond",
+#: each loop kernel's one-iteration search kernel (kernel A, E, F, G or Q),
+#: which with kernel M is the chain the loop is held to and launches on no
+#: path the loop serves
+LOOP_SEARCH = {LOOP: "p2p_correspond", GICP_LOOP: "gicp_correspond",
+               VGICP_LOOP: "vgicp_correspond", AVG_LOOP: "avgicp_correspond",
                HASH_LOOP: "hash_correspond"}
 #: each loop kernel's device kernel and its chain's (torch.profiler names)
-LOOP_DEVICE = {LOOP: "p2p_register_kernel", AVG_LOOP: "avgicp_register_kernel",
+LOOP_DEVICE = {LOOP: "p2p_register_kernel", GICP_LOOP: "gicp_register_kernel",
+               VGICP_LOOP: "vgicp_register_kernel", AVG_LOOP: "avgicp_register_kernel",
                HASH_LOOP: "hash_register_kernel"}
-CHAIN_DEVICE = {LOOP: "p2p_search_kernel", AVG_LOOP: "avgicp_search_kernel",
+CHAIN_DEVICE = {LOOP: "p2p_search_kernel", GICP_LOOP: "gicp_search_kernel",
+                VGICP_LOOP: "vgicp_search_kernel", AVG_LOOP: "avgicp_search_kernel",
                 HASH_LOOP: "hash_search_kernel"}
 #: the tile P2P headline path's GN stage, scans/s and frame p50 with the
 #: three-launch GN loop (kernel A's search, reduce_partials_kernel, kernel
@@ -364,7 +380,7 @@ GROUND = ("elimaloc_tpu_torch/csrc/ground_height.cu",
           "elimaloc_tpu/map/grid.py:320 find_ground_height")
 #: the tile backend's kernels, never launched on a hash path
 TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_correspond",
-             "avgicp_correspond")
+             "avgicp_correspond", LOOP, GICP_LOOP, VGICP_LOOP, AVG_LOOP)
 #: truth ATE gate per method on the headline log, m. AVGICP does not
 #: converge within max_iteration on this sparse map (8 iterations a frame
 #: against ~2 for the other methods, 0.19 m on the H100): its gate follows the
@@ -390,11 +406,11 @@ def is_hash(path):
 
 
 def path_loop(path):
-    """The loop kernel that runs a path's registrations (the P2P or AVGICP
-    tile loop, the hash loop), or None (GICP, VGICP on tiles: E / F + M)."""
+    """The loop kernel that runs a path's registrations (the method's tile
+    loop, the hash loop)."""
     if is_hash(path):
         return HASH_LOOP
-    return {"P2P": LOOP, "AVGICP": AVG_LOOP}.get(path_method(path))
+    return {"P2P": LOOP, **TILE_LOOPS}[path_method(path)]
 
 
 def same_bits(x, y):
@@ -1623,7 +1639,8 @@ def gn_step_row(path, calls, mods):
 
 def loop_parts(name, pipe, mods, a, k):
     """One recorded call of loop kernel ``name``: the per-iteration search
-    call at a pose (``search(pose)`` -> (args, kwargs) of kernel A, G or Q),
+    call at a pose (``search(pose)`` -> (args, kwargs) of kernel A, E, F, G
+    or Q),
     M's gicp flag, the carry, the trip limit and its place in the call's
     arguments, the plain loop (``plain(max_iteration)``) and the plain
     search + reduction at a pose (``eq(pose)`` -> (matched, JTJ, JTr,
@@ -1644,24 +1661,25 @@ def loop_parts(name, pipe, mods, a, k):
         def plain(m=max_it):
             return icp.p2p_register_plain(tmap, *a[1:9], budget, m)
         radar, gicp, it_at = None, False, 9
-    elif name == AVG_LOOP:
-        vmean, vcov, vcoord, slot_tile, sbuf, qmask, *carry, max_it = a
+    elif name in TILE_LOOPS.values():
+        halo, (slot_tile, sbuf, qmask), (*carry, max_it) = a[:3], a[3:6], a[6:]
         pose, fitness, local_cov, total, params = carry
         radar = k.get("radar")
+        method = next(m for m, n in TILE_LOOPS.items() if n == name)
+        search_plain = getattr(icp, KERNEL[method][3])
         extra = () if radar is None else (radar,)
 
         def search(p):
-            return ((vmean, vcov, vcoord, slot_tile, sbuf, qmask, p, params.max_search_dist),
-                    dict(voxel_size=k["voxel_size"], radar=radar))
+            # the search kernel takes the loop's keywords: its geometry, radar
+            return (*halo, slot_tile, sbuf, qmask, p, params.max_search_dist), dict(k)
 
         def eq(p):
-            return icp.avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, p, params,
-                                                  budget, *extra)[:4]
+            return search_plain(tmap, slot_tile, sbuf, qmask, p, params, budget, *extra)[:4]
 
         def plain(m=max_it):
-            return icp.avgicp_register_plain(tmap, slot_tile, sbuf, qmask, *carry, budget, m,
-                                             radar)
-        gicp, it_at = False, 11
+            return getattr(icp, f"{name}_plain")(tmap, slot_tile, sbuf, qmask, *carry, budget,
+                                                 m, radar)
+        gicp, it_at = name == GICP_LOOP, 11
     else:
         grid, src, valid, *carry, max_it, method, radar = a
         pose, fitness, local_cov, total, params = carry
@@ -1735,7 +1753,7 @@ def loop_bytes_ops(name, pipe, mods, parts, calls, sums):
     else:
         a = calls[0][0]
         halo, (slot_tile, sbuf, qmask) = a[0], a[-5:-2]
-        method = "P2P" if name == LOOP else "AVGICP"
+        method = next(m for m, n in {"P2P": LOOP, **TILE_LOOPS}.items() if n == name)
         radar = parts.radar
         live = int(qmask.sum())
         n_tiles = int(torch.unique(slot_tile[qmask.any(1)]).numel())
@@ -1756,9 +1774,9 @@ def loop_capacity(kernels, name, parts):
     a = parts.search(parts.carry[0])[0]
     if name == LOOP:
         return kernels.p2p_register_capacity(), a[3].shape[0]
-    if name == AVG_LOOP:
+    if name in TILE_LOOPS.values():
         qmask = a[5]
-        return (kernels.avgicp_register_capacity(qmask.shape[1], parts.radar is not None),
+        return (getattr(kernels, f"{name}_capacity")(qmask.shape[1], parts.radar is not None),
                 qmask.shape[0])
     method = a[5]
     return (kernels.hash_register_capacity(method, parts.radar is not None),
@@ -1776,9 +1794,9 @@ def loop_row(name, label, pipe, rec, mods, row=True):
     in another order), failed equal; over the whole loop iterations and
     failed equal, the pose within 1e-4 and fitness and overlap within rel
     1e-4 (P2P, which converges in 1-3 iterations), or within 1e-4 and rel
-    1e-4 a GN iteration run (AVGICP and the hash methods: each iteration's
+    1e-4 a GN iteration run (the other loops: each iteration's
     float32 sums carry their rounding into the next pose, which moves a few
-    (point, voxel) pairs across the distance gate, and AVGICP runs 8-10
+    matches across the distance gate, and AVGICP runs 8-10
     iterations a frame on this map without converging); where the two stop after
     different counts, the plain loop's termination norm there must lie
     within 0.1% of the threshold (the sums' rtol moves the step that much)
@@ -1875,14 +1893,15 @@ def loop_row(name, label, pipe, rec, mods, row=True):
 
 def loop_trace_check(pipe, log, runtime, n, path="P2P", loop=LOOP):
     """One more run_fused replay of a tile path whose registrations a loop
-    kernel runs (``path``: P2P or AVGICP, ``loop``: its loop kernel) under
+    kernel runs (``path``: P2P, GICP or AVGICP, ``loop``: its loop kernel) under
     torch.profiler, each frame in a record_function range and under
     torch.cuda.set_sync_debug_mode("error") (a synchronizing call inside a
     frame raises): on the device no search kernel of the chain (kernel A's
-    p2p_search_kernel, G's avgicp_search_kernel), reduce_partials_kernel or
-    gn_step_kernel and one loop kernel a frame; between the first frame's start and the last frame's end
-    no runtime call that synchronizes; no device-to-host copy issued by an
-    operation inside a frame (the copy's linked operation, where the trace
+    p2p_search_kernel, E's gicp_search_kernel, G's avgicp_search_kernel),
+    reduce_partials_kernel or gn_step_kernel and one loop kernel a frame;
+    between the first frame's start and the last frame's end no runtime
+    call that synchronizes; no device-to-host copy issued by an operation
+    inside a frame (the copy's linked operation, where the trace
     links them; else no such copy before the last loop kernel ends). Memory
     copies on the device inside a frame (clones, device to device) are
     counted by kind, not refused. The device kernels of each frame (from
@@ -2163,29 +2182,22 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
                     + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ())
                     + (("ekf_update",) if fusion else ()))
-    # P2P and AVGICP on the tile backend and every hash path: the GN loop is
-    # one launch of a loop kernel a registration
+    # every path: the GN loop is one launch of a loop kernel a registration
     loop = path_loop(path)
-    if loop:
-        path_kernels = loop_kernels(path_kernels, loop)
+    path_kernels = loop_kernels(path_kernels, loop)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
-                  every=("ekf_update", "pcm_stage") + ((wrapper,) if radar and not loop else ())
-                  + ((loop,) if loop else ()) + (("scan_front",) if path == "P2P" else ())
-                  ) as rec:
+                  every=("ekf_update", "pcm_stage", loop)
+                  + (("scan_front",) if path == "P2P" else ())) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
     rows = []
-    loop_summary = {}
-    if loop:
-        # the loop kernel against its chain on every registration; the search
-        # kernel's and M's rows take frame rec.at's first iteration (the radar
-        # rows pick one below among every registration's iterations)
-        label = (LOOP if loop == LOOP else f"{loop}[{method}{' radar' if radar else ''}]"
-                 if hashed else f"{AVG_LOOP}{'[radar]' if radar else ''}")
-        if fusion:
-            label = f"{AVG_LOOP}[fusion]"
-        row, loop_summary = loop_row(loop, label, pipe, rec, mods, row=not fusion)
-        rows += [row] if row else []
+    # the loop kernel against its chain on every registration; the search
+    # kernel's and M's rows take frame rec.at's first iteration (the radar
+    # rows pick one below among every registration's iterations)
+    label = (f"{loop}[{method}{' radar' if radar else ''}]" if hashed
+             else f"{loop}[fusion]" if fusion else f"{loop}{'[radar]' if radar else ''}")
+    row, loop_summary = loop_row(loop, label, pipe, rec, mods, row=not fusion)
+    rows += [row] if row else []
     if radar:
         # the kernel-vs-plain row takes the first iteration from the recorded
         # frame on whose pose is finite and that matched something: a
@@ -2248,8 +2260,7 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
              f"host batch prep + upload included), launches {launches}, packs {packs}")
     check_imu_stage(path, launches, packs, n)
     check_scan_end(path, launches, n, n if fusion else 0)
-    if loop:
-        check_loop(path, launches, n, loop)
+    check_loop(path, launches, n, loop)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
@@ -2304,7 +2315,7 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
             raise AssertionError(f"[{path}] the profiled replay saw no device kernel or a "
                                  f"library sort: {sorts}")
         summary["device_kernels_profiled"] = len(per)
-        if path in ("P2P", "AVGICP"):
+        if path in ("P2P", "GICP", "AVGICP"):
             summary.update(loop_trace_check(pipe, log, runtime, n, path, loop))
         if path == "AVGICP hash":
             summary.update(hash_sync_check(pipe, log, runtime, n, path))
@@ -2408,8 +2419,8 @@ def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
     counts from 0 around it, its frames against that pipeline's run_fused
     (ego_pos within 1e-6 m, applied equal: the same kernels in the same
     order), scans/s and the frame time p50/p95."""
-    names = names or (SHARED + (KERNEL["GICP"][0],) + tuple(EKF_KERNELS)
-                      + tuple(SCAN_KERNELS))
+    names = names or loop_kernels(SHARED + (KERNEL["GICP"][0],) + tuple(EKF_KERNELS)
+                                  + tuple(SCAN_KERNELS), GICP_LOOP)
     stages = StageTimer()
     seen = []
     kernels.reset_launches()
@@ -3276,6 +3287,7 @@ def main():
             del pipes[path]
         torch.cuda.empty_cache()
     slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
+    check_loop(FRAMES, kernels.launches, len(log.scan_t), GICP_LOOP)
     slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse)
     r, slices[JOSEPH] = joseph_path(pipes[FUSION], log, fused[FUSION], recs[FUSION], mods)
     rows += r

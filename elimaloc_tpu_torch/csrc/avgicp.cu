@@ -95,11 +95,6 @@ __global__ void avgicp_search_kernel(
                       max_dist, voxel, radar, partials, cov_out, mean_out, ok_out, sm, part);
 }
 
-
-// The largest slot block a loop launch takes (kernels.py _qb_of), for the
-// dynamic shared memory the kernel opts into.
-constexpr int kMaxQb = 256;
-
 // One slot of kernel G at the staged pose (gn_loop's ``slots``).
 template <bool kRadar>
 struct AvgSlots {
@@ -143,15 +138,6 @@ const void* loop_kernel(bool radar) {
                : (const void*)avgicp_register_kernel<false>;
 }
 
-int smem_of(int qb) { return qb * kGnSums * (int)sizeof(float); }
-
-// One cache key per instantiation and qb (a power of two in [8, 256]).
-int key_of(int qb, bool radar) {
-  int k = 0;
-  while ((8 << k) < qb) ++k;
-  return 8 * (int)radar + k;
-}
-
 }  // namespace
 
 extern "C" int elm_avgicp_search_reduce(
@@ -179,8 +165,7 @@ extern "C" int elm_avgicp_search_reduce(
 // The co-resident CTAs of the loop kernel on the current device for slot
 // blocks of ``qb`` queries (the radar form with ``radar`` != 0).
 extern "C" int elm_avgicp_register_capacity(int qb, int radar, int* ctas) {
-  return co_resident(loop_kernel(radar != 0), kThreads, smem_of(qb),
-                     smem_of(kMaxQb), key_of(qb, radar != 0), ctas);
+  return tile_loop_capacity(loop_kernel(radar != 0), qb, radar != 0, ctas);
 }
 
 // carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
@@ -194,13 +179,11 @@ extern "C" int elm_avgicp_register(
     const float* termination_threshold, int max_iteration, float voxel, const float* radar,
     float* partials, float* sums, int* counters, float* carry, bool* flags, int* iterations,
     cudaStream_t stream) {
-  if (qb < 8 || qb > kMaxQb) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kGnSums, 0, partials, sums,
                     counters, carry, flags, iterations};
   void* args[] = {&vmean, &vcov, &vcoord, &mhv, &slot_tile, &sbuf, &qmask, &s, &qb,
                   &max_dist, &voxel, &radar, (void*)&loop};
   const bool r = radar != nullptr;
-  return launch_loop(loop_kernel(r), s, kThreads, smem_of(qb), smem_of(kMaxQb),
-                     key_of(qb, r), args, stream);
+  return launch_tile_loop(loop_kernel(r), s, qb, r, args, stream);
 }

@@ -217,6 +217,15 @@ __device__ __forceinline__ void cube_argmin(
   }
 }
 
+// A CTA's static shared memory for kernels E and F's slot search: the staged
+// candidates and the slot's live flag (the slot's [qb, kGnSums] rows are
+// dynamic).
+struct CubeShared {
+  float cl[kChunk * 3];
+  int cv[kChunk * 3];
+  int any_live;
+};
+
 // Threads < np sum the slot's [qb, np] rows of ``part`` in query order into
 // ``out`` (the slot's partials). Call after a barrier.
 __device__ __forceinline__ void slot_partials(const float* part, int qb, int np,

@@ -32,7 +32,43 @@
 // Bound: the search, as kernel A (S * QB * MHP cube tests and distances per
 // GN iteration); the tail is ~300 FLOP per query, the covariance gather
 // 48 B per query (84 B with radar).
-#include "common.cuh"
+// Kernel E's one-iteration entry (elm_gicp_search_reduce) is the reference
+// the GICP loop below is held to, and serves the matches (with_matches).
+//
+// The GICP registration loop on the card (gicp_register_kernel): kernels E
+// and M as one cooperative launch per registration on the tile backend
+// (K1 with the point covariances + K11a + K3 and the loop around them).
+//
+// Replaces elimaloc_tpu/register/icp.py:run_register's lax.while_loop
+// (:588-821, the loop at :821) for GICP on the tile backend: every
+// iteration's search + GN partials (tiles.py:nearest_point_slots :712 with
+// with_point_cov + icp.py:_gicp_tail :324; the radar form :331-333), the
+// fixed-order reduction, the LM step (icp.py:_solve_step :202,
+// _step_transform :209, the body :761-795, local_cov = inv(JTJ + lambda
+// diag) exported as GICP's) and the termination test, with the same trip
+// count and carry. The host loop it replaces on the card was three launches
+// (kernel E's search, reduce_partials_kernel, kernel M) and one stop-flag
+// readback per iteration.
+//
+// Design: gn_loop.cuh's loop (a cooperative grid of min(S, co-resident
+// CTAs) CTAs of 256 threads, slots from an alternating atomic counter, the
+// 44 columns reduced one a CTA in reduce_partials_kernel's order, M's step
+// out of line on CTA 0 with gicp = 1, the stop flag after the last
+// grid.sync()) around kernel E's slot code (gicp.cuh: gicp_slot, the
+// matches not written; one __noinline__ copy in this translation unit,
+// which kernel E and the loop both call, so the loop rounds as E does
+// instruction for instruction), the same [S, 44] partials, each in its
+// slot's row; the radar form is its own instantiation. The shared memory
+// is E's: the staged candidates (24 KB static) and the slot's [qb, 44]
+// rows (dynamic), which the reduction reuses. The grid is sized per
+// instantiation and qb with cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+// The tile geometry comes in as host ints, so a window swap only hands new
+// tensors and ints to the next launch. The result equals the three-launch
+// chain's bit for bit.
+// Bound: as kernel E's per iteration, times the iterations; grid.sync and
+// the serial LM step are latency.
+#include "gicp.cuh"
+#include "gn_loop.cuh"
 
 using namespace elm;
 
@@ -47,38 +83,56 @@ __global__ void gicp_search_kernel(
     float voxel, float tile_size, int tx0, int ty0, int ty_dim,
     const float* __restrict__ radar, float* __restrict__ partials,
     float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
-  __shared__ float cl[kChunk * 3];
-  __shared__ int cv[kChunk * 3];
-  __shared__ int any_live;
+  __shared__ CubeShared sm;
   extern __shared__ float part[];  // [qb, kGnSums]
+  gicp_slot<kRadar>(blockIdx.x, halo, pcov, pmean, mhp, slot_tile, sbuf, qmask, qb, pose,
+                    max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials, cov_out,
+                    mean_out, ok_out, sm, part);
+}
 
-  const SlotQuery u = slot_query(blockIdx.x, slot_tile, sbuf, qmask, qb, pose, voxel,
-                                 tile_size, tx0, ty0, ty_dim);
-  const bool live_slot = slot_any_live(u, &any_live);
-  const size_t base = (size_t)u.tile * mhp;
-  float best_d2;
-  int best;
-  cube_argmin(u, live_slot, mhp, PointStage{halo + base * 3, u.c0, u.c1, voxel},
-              cl, cv, best_d2, best);
-
-  if (u.gl == 0) {
-    const float md = max_dist[0];
-    const bool ok = u.live && best_d2 < mul(md, md);
-    float C[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-    float mu[3] = {u.q[0], u.q[1], u.q[2]};
-    if (ok) {
-      for (int k = 0; k < 9; ++k) C[k] = pcov[(base + best) * 9 + k];
-      for (int k = 0; k < 3; ++k) mu[k] = pmean[(base + best) * 3 + k];
-    }
-    if (cov_out != nullptr) {
-      for (int k = 0; k < 9; ++k) cov_out[(size_t)u.row * 9 + k] = C[k];
-      for (int k = 0; k < 3; ++k) mean_out[(size_t)u.row * 3 + k] = mu[k];
-      ok_out[u.row] = ok;
-    }
-    gicp_row<kRadar>(u, ok, C, mu, md, radar, part + u.j * kGnSums);
+// One slot of kernel E at the staged pose (gn_loop's ``slots``).
+template <bool kRadar>
+struct GicpSlots {
+  const float* halo;
+  const float* pcov;
+  const float* pmean;
+  int mhp;
+  const int* slot_tile;
+  const float* sbuf;
+  const bool* qmask;
+  int qb;
+  const float* max_dist;
+  float voxel, tile_size;
+  int tx0, ty0, ty_dim;
+  const float* radar;
+  float* partials;
+  CubeShared* sm;
+  float* part;
+  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
+    gicp_slot<kRadar>(slot, halo, pcov, pmean, mhp, slot_tile, sbuf, qmask, qb, pose,
+                      max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials, nullptr,
+                      nullptr, nullptr, *sm, part);
   }
-  __syncthreads();
-  slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);
+};
+
+template <bool kRadar>
+__global__ void __launch_bounds__(kThreads) gicp_register_kernel(
+    const float* __restrict__ halo, const float* __restrict__ pcov,
+    const float* __restrict__ pmean, int mhp, const int* __restrict__ slot_tile,
+    const float* __restrict__ sbuf, const bool* __restrict__ qmask, int s, int qb,
+    const float* __restrict__ max_dist, float voxel, float tile_size, int tx0, int ty0,
+    int ty_dim, const float* __restrict__ radar, const GnLoop loop) {
+  __shared__ CubeShared sm;
+  extern __shared__ float part[];  // [qb, kGnSums]; the reduction's 256 floats after
+  const GicpSlots<kRadar> slots{halo,      pcov,  pmean, mhp,    slot_tile,     sbuf,
+                                qmask,     qb,    max_dist, voxel, tile_size,   tx0,
+                                ty0,       ty_dim, radar, loop.partials, &sm,   part};
+  gn_loop(loop, s, slots, part);
+}
+
+const void* loop_kernel(bool radar) {
+  return radar ? (const void*)gicp_register_kernel<true>
+               : (const void*)gicp_register_kernel<false>;
 }
 
 }  // namespace
@@ -89,7 +143,7 @@ extern "C" int elm_gicp_search_reduce(
     const float* pose, const float* max_dist, float voxel, float tile_size, int tx0,
     int ty0, int ty_dim, const float* radar, float* partials, float* sums, float* cov_out,
     float* mean_out, bool* ok_out, cudaStream_t stream) {
-  const int smem = qb * kGnSums * (int)sizeof(float);
+  const int smem = rows_smem(qb);
   // the radar form is its own instantiation: the reference form keeps its
   // registers
   const auto kernel =
@@ -103,4 +157,31 @@ extern "C" int elm_gicp_search_reduce(
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();
+}
+
+// The co-resident CTAs of the loop kernel on the current device for slot
+// blocks of ``qb`` queries (the radar form with ``radar`` != 0).
+extern "C" int elm_gicp_register_capacity(int qb, int radar, int* ctas) {
+  return tile_loop_capacity(loop_kernel(radar != 0), qb, radar != 0, ctas);
+}
+
+// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
+// failed; iterations: int32. Scratch: partials [max(s, 1), 44], sums [44],
+// counters [2]. ``radar`` [s, qb, 3, 3] or null (the radar form).
+extern "C" int elm_gicp_register(
+    const float* halo, const float* pcov, const float* pmean, int mhp, const int* slot_tile,
+    const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
+    const float* fitness, const float* local_cov, const float* total, const float* max_dist,
+    const float* min_overlap_ratio, const float* lm_lambda,
+    const float* termination_threshold, int max_iteration, float voxel, float tile_size,
+    int tx0, int ty0, int ty_dim, const float* radar, float* partials, float* sums,
+    int* counters, float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+  const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
+                    termination_threshold, max_iteration, kGnSums, 1, partials, sums,
+                    counters, carry, flags, iterations};
+  void* args[] = {&halo, &pcov, &pmean, &mhp, &slot_tile, &sbuf, &qmask, &s, &qb,
+                  &max_dist, &voxel, &tile_size, &tx0, &ty0, &ty_dim, &radar,
+                  (void*)&loop};
+  const bool r = radar != nullptr;
+  return launch_tile_loop(loop_kernel(r), s, qb, r, args, stream);
 }

@@ -1,6 +1,6 @@
 // The registration's GN/LM loop on the card, shared by the loop kernels
-// (p2p_register.cu; avgicp.cu and hash_correspond.cu, beside their
-// one-iteration kernels G and Q): one cooperative
+// (p2p_register.cu; gicp.cu, vgicp.cu, avgicp.cu and hash_correspond.cu,
+// beside their one-iteration kernels E, F, G and Q): one cooperative
 // launch runs every iteration of one registration (K1 + K2 + K3 and the
 // loop around them), with no readback.
 //
@@ -215,6 +215,36 @@ inline int launch_loop(const void* kernel, int n_slots, int threads, int smem, i
       cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The tile loops around kernels E, F and G (gicp.cu, vgicp.cu, avgicp.cu):
+// the slot's [qb, kGnSums] rows are dynamic shared memory, which the
+// reduction reuses (256 floats: qb >= 8), opted into up to the largest slot
+// block a launch takes (kMaxQb, kernels/__init__.py _qb_of); one
+// co-residency cache key per instantiation (the radar form or not) and qb (a
+// power of two in [8, 256]).
+constexpr int kMaxQb = 256;
+
+inline int rows_smem(int qb) { return qb * elm::kGnSums * (int)sizeof(float); }
+
+inline int qb_key(int qb, bool radar) {
+  int k = 0;
+  while ((8 << k) < qb) ++k;
+  return 8 * (int)radar + k;
+}
+
+// The co-resident CTAs of a tile loop kernel for slot blocks of ``qb``.
+inline int tile_loop_capacity(const void* kernel, int qb, bool radar, int* ctas) {
+  return co_resident(kernel, elm::kThreads, rows_smem(qb), rows_smem(kMaxQb), qb_key(qb, radar),
+                     ctas);
+}
+
+// One cooperative launch of a tile loop kernel over ``s`` slots of ``qb``.
+inline int launch_tile_loop(const void* kernel, int s, int qb, bool radar, void** args,
+                            cudaStream_t stream) {
+  if (qb < 8 || qb > kMaxQb) return (int)cudaErrorInvalidValue;
+  return launch_loop(kernel, s, elm::kThreads, rows_smem(qb), rows_smem(kMaxQb),
+                     qb_key(qb, radar), args, stream);
 }
 
 }  // namespace

@@ -25,7 +25,34 @@
 // masked rows included (common.cuh: masked_radar_row).
 // Bound: the S * QB * MHV cube tests and distances (~2000 * 16 * 152 = 5M
 // per GN iteration at the headline scan), FP32 issue and shared memory.
-#include "common.cuh"
+// Kernel F's one-iteration entry (elm_vgicp_search_reduce) is the reference
+// the VGICP loop below is held to, and serves the matches (with_matches).
+//
+// The VGICP registration loop on the card (vgicp_register_kernel): kernels F
+// and M as one cooperative launch per registration on the tile backend
+// (K9 + K11b + K3 and the loop around them).
+//
+// Replaces elimaloc_tpu/register/icp.py:run_register's lax.while_loop
+// (:588-821, the loop at :821) for VGICP on the tile backend: every
+// iteration's search + GN partials (tiles.py:nearest_voxel_cov_slots :803 +
+// icp.py:_voxcov_tail :354; the radar form :361-363), the fixed-order
+// reduction, the LM step (icp.py:_solve_step :202, _step_transform :209,
+// the body :761-795) and the termination test, with the same trip count and
+// carry. The host loop it replaces on the card was three launches (kernel
+// F's search, reduce_partials_kernel, kernel M) and one stop-flag readback
+// per iteration.
+//
+// Design: as the GICP loop (gicp.cu) around kernel F's slot code
+// (vgicp.cuh: vgicp_slot, one __noinline__ copy in this translation unit
+// that kernel F and the loop both call), M's step with gicp = 0; the radar
+// form is its own instantiation. The shared memory is F's: the staged
+// voxel means and coords (24 KB static) and the slot's [qb, 44] rows
+// (dynamic), which the reduction reuses. The result equals the
+// three-launch chain's bit for bit.
+// Bound: as kernel F's per iteration, times the iterations; grid.sync and
+// the serial LM step are latency.
+#include "gn_loop.cuh"
+#include "vgicp.cuh"
 
 using namespace elm;
 
@@ -40,39 +67,56 @@ __global__ void vgicp_search_kernel(
     float voxel, float tile_size, int tx0, int ty0, int ty_dim,
     const float* __restrict__ radar, float* __restrict__ partials,
     float* __restrict__ cov_out, float* __restrict__ mean_out, bool* __restrict__ ok_out) {
-  __shared__ float cl[kChunk * 3];
-  __shared__ int cv[kChunk * 3];
-  __shared__ int any_live;
+  __shared__ CubeShared sm;
   extern __shared__ float part[];  // [qb, kGnSums]
+  vgicp_slot<kRadar>(blockIdx.x, vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose,
+                     max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials, cov_out,
+                     mean_out, ok_out, sm, part);
+}
 
-  const SlotQuery u = slot_query(blockIdx.x, slot_tile, sbuf, qmask, qb, pose, voxel,
-                                 tile_size, tx0, ty0, ty_dim);
-  const bool live_slot = slot_any_live(u, &any_live);
-  const size_t base = (size_t)u.tile * mhv;
-  float best_d2;
-  int best;
-  cube_argmin(u, live_slot, mhv,
-              VoxelStage{vmean + base * 3, vcoord + base * 3, u.c0, u.c1}, cl, cv,
-              best_d2, best);
-
-  if (u.gl == 0) {
-    const float md = max_dist[0];
-    const bool ok = u.live && best_d2 < mul(md, md);
-    float C[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-    float mu[3] = {u.q[0], u.q[1], u.q[2]};
-    if (ok) {
-      for (int k = 0; k < 9; ++k) C[k] = vcov[(base + best) * 9 + k];
-      for (int k = 0; k < 3; ++k) mu[k] = vmean[(base + best) * 3 + k];
-    }
-    if (cov_out != nullptr) {
-      for (int k = 0; k < 9; ++k) cov_out[(size_t)u.row * 9 + k] = C[k];
-      for (int k = 0; k < 3; ++k) mean_out[(size_t)u.row * 3 + k] = mu[k];
-      ok_out[u.row] = ok;
-    }
-    vgicp_row<kRadar>(u, ok, C, mu, md, radar, part + u.j * kGnSums);
+// One slot of kernel F at the staged pose (gn_loop's ``slots``).
+template <bool kRadar>
+struct VgicpSlots {
+  const float* vmean;
+  const float* vcov;
+  const int* vcoord;
+  int mhv;
+  const int* slot_tile;
+  const float* sbuf;
+  const bool* qmask;
+  int qb;
+  const float* max_dist;
+  float voxel, tile_size;
+  int tx0, ty0, ty_dim;
+  const float* radar;
+  float* partials;
+  CubeShared* sm;
+  float* part;
+  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
+    vgicp_slot<kRadar>(slot, vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose,
+                       max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials,
+                       nullptr, nullptr, nullptr, *sm, part);
   }
-  __syncthreads();
-  slot_partials(part, qb, kGnSums, partials + (size_t)blockIdx.x * kGnSums);
+};
+
+template <bool kRadar>
+__global__ void __launch_bounds__(kThreads) vgicp_register_kernel(
+    const float* __restrict__ vmean, const float* __restrict__ vcov,
+    const int* __restrict__ vcoord, int mhv, const int* __restrict__ slot_tile,
+    const float* __restrict__ sbuf, const bool* __restrict__ qmask, int s, int qb,
+    const float* __restrict__ max_dist, float voxel, float tile_size, int tx0, int ty0,
+    int ty_dim, const float* __restrict__ radar, const GnLoop loop) {
+  __shared__ CubeShared sm;
+  extern __shared__ float part[];  // [qb, kGnSums]; the reduction's 256 floats after
+  const VgicpSlots<kRadar> slots{vmean,     vcov,  vcoord, mhv,    slot_tile,     sbuf,
+                                 qmask,     qb,    max_dist, voxel, tile_size,   tx0,
+                                 ty0,       ty_dim, radar, loop.partials, &sm,   part};
+  gn_loop(loop, s, slots, part);
+}
+
+const void* loop_kernel(bool radar) {
+  return radar ? (const void*)vgicp_register_kernel<true>
+               : (const void*)vgicp_register_kernel<false>;
 }
 
 }  // namespace
@@ -83,7 +127,7 @@ extern "C" int elm_vgicp_search_reduce(
     const float* pose, const float* max_dist, float voxel, float tile_size, int tx0,
     int ty0, int ty_dim, const float* radar, float* partials, float* sums, float* cov_out,
     float* mean_out, bool* ok_out, cudaStream_t stream) {
-  const int smem = qb * kGnSums * (int)sizeof(float);
+  const int smem = rows_smem(qb);
   // the radar form is its own instantiation: the reference form keeps its
   // registers
   const auto kernel =
@@ -97,4 +141,31 @@ extern "C" int elm_vgicp_search_reduce(
   }
   reduce_partials_kernel<<<1, kThreads, 0, stream>>>(partials, s, kGnSums, sums);
   return (int)cudaGetLastError();
+}
+
+// The co-resident CTAs of the loop kernel on the current device for slot
+// blocks of ``qb`` queries (the radar form with ``radar`` != 0).
+extern "C" int elm_vgicp_register_capacity(int qb, int radar, int* ctas) {
+  return tile_loop_capacity(loop_kernel(radar != 0), qb, radar != 0, ctas);
+}
+
+// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
+// failed; iterations: int32. Scratch: partials [max(s, 1), 44], sums [44],
+// counters [2]. ``radar`` [s, qb, 3, 3] or null (the radar form).
+extern "C" int elm_vgicp_register(
+    const float* vmean, const float* vcov, const int* vcoord, int mhv, const int* slot_tile,
+    const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
+    const float* fitness, const float* local_cov, const float* total, const float* max_dist,
+    const float* min_overlap_ratio, const float* lm_lambda,
+    const float* termination_threshold, int max_iteration, float voxel, float tile_size,
+    int tx0, int ty0, int ty_dim, const float* radar, float* partials, float* sums,
+    int* counters, float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+  const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
+                    termination_threshold, max_iteration, kGnSums, 0, partials, sums,
+                    counters, carry, flags, iterations};
+  void* args[] = {&vmean, &vcov, &vcoord, &mhv, &slot_tile, &sbuf, &qmask, &s, &qb,
+                  &max_dist, &voxel, &tile_size, &tx0, &ty0, &ty_dim, &radar,
+                  (void*)&loop};
+  const bool r = radar != nullptr;
+  return launch_tile_loop(loop_kernel(r), s, qb, r, args, stream);
 }

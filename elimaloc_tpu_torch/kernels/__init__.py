@@ -8,11 +8,14 @@ ekf/filter.py, pipeline/rings.py, pipeline/runtime.py) run the plain
 PyTorch version for a CPU tensor and one of these for any other; a
 non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
-GPS + CAN) and of the event loop except the method kernels (the P2P and
-AVGICP loops on the tile backend, E, F), N, O and P, kernel I, which runs
-only for CAN and GPS, the per-iteration entries A, G, Q and M where a loop
-kernel takes their place, L, whose body runs inside S, and D and K, whose
-bodies run inside T.
+GPS + CAN) and of the event loop except the method's loop kernel on the
+tile backend (p2p_register, gicp_register, vgicp_register,
+avgicp_register: one of them a path), N, O and P, kernel I, which runs
+only for CAN and GPS, the one-iteration entries A, E, F, G, Q and M, which
+launch on no path (a loop kernel runs their slot code and M's step every
+iteration; they stay as the reference each loop is held to, and E and F
+for the matches), L, whose body runs inside S, and D and K, whose bodies
+run inside T.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -22,6 +25,13 @@ A + M     p2p_register        register/icp.py:run_register's lax.while_loop for
                               the reduction and M's step every iteration, the
                               termination test; one cooperative launch per
                               registration, no readback
+E + M     gicp_register       register/icp.py:run_register's lax.while_loop for
+                              GICP on the tile backend (the radar form too):
+                              E's search and partials, the reduction and M's
+                              step (local_cov exported) every iteration; one
+                              cooperative launch per registration, no readback
+F + M     vgicp_register      the same for VGICP: F's search and partials, the
+                              reduction and M's step every iteration
 G + M     avgicp_register     register/icp.py:run_register's lax.while_loop for
                               AVGICP on the tile backend (the radar form too):
                               G's search and partials, the reduction and M's
@@ -40,8 +50,12 @@ C         voxel_downsample    map/grid.py:voxel_downsample
 D         deskew              deskew.py:_find_rotation_batch + deskew_points
                               (kernel T's reference; its body runs inside T)
 E         gicp_correspond     tiles.nearest_point_slots(with_point_cov) +
-                              icp._gicp_tail
-F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail
+                              icp._gicp_tail, one GN iteration (the loop's
+                              reference; its slot code runs inside
+                              gicp_register)
+F         vgicp_correspond    tiles.nearest_voxel_cov_slots + icp._voxcov_tail,
+                              one GN iteration (the loop's reference; its slot
+                              code runs inside vgicp_register)
 G         avgicp_correspond   tiles.all_voxel_cov_slots + icp._avg_voxcov_tail,
                               one GN iteration (the loop's reference; its slot
                               code runs inside avgicp_register)
@@ -60,10 +74,9 @@ L         pcm_measurement     runtime.shape_icp_covariance +
                               rings.gnss_time_compensation + scan_step's glue
                               (kernel S's reference; its body runs inside S)
 M         gn_step             register/icp.py:_solve_step + _step_transform + the
-                              GN loop body (compose, so3_log, the gates) after
-                              E or F; its step (gn_step.cuh) runs inside the
-                              loop kernels (p2p_register, avgicp_register,
-                              hash_register)
+                              GN loop body (compose, so3_log, the gates), one
+                              step (the loops' reference); its step
+                              (gn_step.cuh) runs inside every loop kernel
 N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
                               incremental move of an active map window
 O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False,
@@ -121,7 +134,8 @@ launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "scan_ring_query": 0, "scan_front": 0, "pcm_measurement": 0, "pcm_stage": 0,
             "gn_step": 0, "shift_window": 0, "ca_tick": 0, "radar_cov": 0,
             "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0,
-            "avgicp_register": 0, "hash_register": 0}
+            "gicp_register": 0, "vgicp_register": 0, "avgicp_register": 0,
+            "hash_register": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -326,6 +340,18 @@ def p2p_correspond(halo_points, slot_tile, sbuf, qmask, pose, max_dist, *,
 GN_SUMS = 44
 
 
+def _halo_rows(name, rows):
+    """The checked halo inputs (``rows``: (name, tensor, dtype, trailing
+    shape), one map row each) and the row length, as kernels E, F and G and
+    their loops take them."""
+    for field, t, _, _ in rows:
+        if t is None:
+            raise ValueError(f"{name}: the tile map has no {field} "
+                             "(build it with the covariances this method needs)")
+    t1, m = rows[0][1].shape[:2]
+    return [_check(t, n, dt, (t1, m) + tail) for n, t, dt, tail in rows] + [ctypes.c_int(m)]
+
+
 def _cov_search(name, entry, rows, slot_tile, sbuf, qmask, pose, max_dist,
                 geometry, with_matches, pairs, radar):
     """Shared launch of kernels E, F and G: ``rows`` are the (name, tensor,
@@ -334,15 +360,10 @@ def _cov_search(name, entry, rows, slot_tile, sbuf, qmask, pose, max_dist,
     the slot-packed radar covariances [S, QB, 3, 3] of the radar form, or
     None."""
     s, qb = _qb_of(qmask, name)
-    for field, t, _, _ in rows:
-        if t is None:
-            raise ValueError(f"{name}: the tile map has no {field} "
-                             "(build it with the covariances this method needs)")
-    t1, m = rows[0][1].shape[:2]
     f32 = torch.float32
     dev = sbuf.device
-    args = [_check(t, n, dt, (t1, m) + tail) for n, t, dt, tail in rows]
-    args += [ctypes.c_int(m), _check(slot_tile, "slot_tile", torch.int32, (s,)),
+    args = _halo_rows(name, rows)
+    args += [_check(slot_tile, "slot_tile", torch.int32, (s,)),
              _check(sbuf, "sbuf", f32, (s, qb, 3)),
              _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s),
              ctypes.c_int(qb), _check(pose, "pose", f32, (4, 4)),
@@ -942,42 +963,95 @@ def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, 
     return _gn_loop("p2p_register", "elm_p2p_register", args, s, P2P_SUMS, sbuf)
 
 
-def avgicp_register_capacity(qb: int, radar: bool = False) -> int:
-    """The CTAs of the AVGICP loop kernel (its radar form with ``radar``)
-    that the current card holds at once with slot blocks of ``qb`` queries
-    (its grid is the smaller of this and the slot count)."""
+def _loop_capacity(name, qb: int, radar: bool) -> int:
     ctas = ctypes.c_int(0)
-    _raise_on(library().elm_avgicp_register_capacity(ctypes.c_int(qb), ctypes.c_int(int(radar)),
-                                                     ctypes.byref(ctas)), "avgicp_register")
+    _raise_on(getattr(library(), f"elm_{name}_capacity")(
+        ctypes.c_int(qb), ctypes.c_int(int(radar)), ctypes.byref(ctas)), name)
     return ctas.value
+
+
+def gicp_register_capacity(qb: int, radar: bool = False) -> int:
+    """The CTAs of the GICP loop kernel (its radar form with ``radar``) that
+    the current card holds at once with slot blocks of ``qb`` queries (its
+    grid is the smaller of this and the slot count)."""
+    return _loop_capacity("gicp_register", qb, radar)
+
+
+def vgicp_register_capacity(qb: int, radar: bool = False) -> int:
+    """The CTAs of the VGICP loop kernel (its radar form with ``radar``),
+    as :func:`gicp_register_capacity`."""
+    return _loop_capacity("vgicp_register", qb, radar)
+
+
+def avgicp_register_capacity(qb: int, radar: bool = False) -> int:
+    """The CTAs of the AVGICP loop kernel (its radar form with ``radar``),
+    as :func:`gicp_register_capacity`."""
+    return _loop_capacity("avgicp_register", qb, radar)
+
+
+def _cov_loop(name, rows, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+              max_iteration, geometry, radar):
+    """One launch of the tile loop of kernel E, F or G (``rows`` as
+    :func:`_cov_search`'s, ``geometry`` the tile geometry the search
+    takes)."""
+    s, qb = _qb_of(qmask, name)
+    args = _halo_rows(name, rows) + [
+        _check(slot_tile, "slot_tile", torch.int32, (s,)),
+        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
+        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration), *geometry,
+        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3))]
+    return _gn_loop(name, f"elm_{name}", args, s, GN_SUMS, sbuf)
+
+
+def gicp_register(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile, sbuf, qmask,
+                  pose, fitness, local_cov, total, params, max_iteration: int, *, voxel_size,
+                  tile_size, tx0, ty0, ty_dim, radar=None):
+    """Kernels E and M as one loop (icp.gicp_register_plain): the whole GICP
+    GN/LM loop of one registration on the tile backend (the radar form with
+    the slot-packed ``radar`` [S,QB,3,3]), from the carry (``pose`` [4,4],
+    ``fitness``, ``local_cov`` [6,6]) for at most ``max_iteration``
+    iterations, in one cooperative launch; nothing is read back. Returns
+    (pose [4,4], local_cov [6,6] = (JTJ + lambda diag)^-1, fitness,
+    overlap, failed, iterations int32)."""
+    return _cov_loop(
+        "gicp_register",
+        [("halo_points", halo_points, _F32, (3,)),
+         ("halo_point_cov", halo_point_cov, _F32, (3, 3)),
+         ("halo_point_cov_mean", halo_point_cov_mean, _F32, (3,))],
+        slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_iteration,
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), radar)
+
+
+def vgicp_register(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf, qmask, pose,
+                   fitness, local_cov, total, params, max_iteration: int, *, voxel_size,
+                   tile_size, tx0, ty0, ty_dim, radar=None):
+    """Kernels F and M as one loop (icp.vgicp_register_plain): the whole
+    VGICP GN/LM loop of one registration on the tile backend, as
+    :func:`gicp_register` (local_cov comes back as given)."""
+    return _cov_loop(
+        "vgicp_register",
+        [("halo_vox_mean", halo_vox_mean, _F32, (3,)),
+         ("halo_vox_cov", halo_vox_cov, _F32, (3, 3)),
+         ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
+        slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_iteration,
+        _tile_geometry(voxel_size, tile_size, tx0, ty0, ty_dim), radar)
 
 
 def avgicp_register(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sbuf, qmask, pose,
                     fitness, local_cov, total, params, max_iteration: int, *, voxel_size,
                     radar=None):
     """Kernels G and M as one loop (icp.avgicp_register_plain): the whole
-    AVGICP GN/LM loop of one registration on the tile backend (the radar
-    form with the slot-packed ``radar`` [S,QB,3,3]), from the carry
-    (``pose`` [4,4], ``fitness``, ``local_cov`` [6,6]) for at most
-    ``max_iteration`` iterations, in one cooperative launch; nothing is read
-    back. Returns (pose [4,4], local_cov [6,6], fitness, overlap, failed,
-    iterations int32)."""
-    s, qb = _qb_of(qmask, "avgicp_register")
-    if halo_vox_mean is None or halo_vox_cov is None:
-        raise ValueError("avgicp_register: the tile map has no voxel covariances "
-                         "(build it with the covariances this method needs)")
-    t1, m = halo_vox_mean.shape[:2]
-    args = [
-        _check(halo_vox_mean, "halo_vox_mean", _F32, (t1, m, 3)),
-        _check(halo_vox_cov, "halo_vox_cov", _F32, (t1, m, 3, 3)),
-        _check(halo_vox_coord, "halo_vox_coord", torch.int32, (t1, m, 3)), ctypes.c_int(m),
-        _check(slot_tile, "slot_tile", torch.int32, (s,)),
-        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
-        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
-        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
-        ctypes.c_float(voxel_size),
-        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3))]
-    return _gn_loop("avgicp_register", "elm_avgicp_register", args, s, GN_SUMS, sbuf)
+    AVGICP GN/LM loop of one registration on the tile backend, as
+    :func:`gicp_register` (local_cov comes back as given; G's gate runs in
+    world coordinates: no tile geometry)."""
+    return _cov_loop(
+        "avgicp_register",
+        [("halo_vox_mean", halo_vox_mean, _F32, (3,)),
+         ("halo_vox_cov", halo_vox_cov, _F32, (3, 3)),
+         ("halo_vox_coord", halo_vox_coord, torch.int32, (3,))],
+        slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, max_iteration,
+        [ctypes.c_float(voxel_size)], radar)
 
 
 # --------------------------------------------------------------------------- #

@@ -64,6 +64,12 @@ _SIGNATURES = {
     "elm_avgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "elm_avgicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+    "elm_gicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "elm_gicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+    "elm_vgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "elm_vgicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
     "elm_hash_register": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                           _P, _P],

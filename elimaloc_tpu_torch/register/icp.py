@@ -11,29 +11,27 @@ conjugation (icp.py:630-632, 824-825) is kept on the host around the loop;
 it is a zero shift for full maps. Only GICP exports
 ``local_cov = inv(JTJ + lambda diag)`` (icp.py:791-795).
 
-P2P and AVGICP on the tile backend and every method on the hash backend
-run the whole loop in one call: on a CUDA tensor one cooperative launch of
-a loop kernel (csrc/``gn_loop.cuh`` around the method's search:
-``kernels.p2p_register``, ``p2p_register.cu``, kernel A's slot code;
-``kernels.avgicp_register``, ``avgicp_register.cu``, kernel G's;
-``kernels.hash_register``, ``hash_register.cu``, kernel Q's), the reduction
-and kernel M's step every iteration, the termination test on the card; the
-host reads nothing back. On a CPU tensor :func:`p2p_register_plain`,
-:func:`avgicp_register_plain` and :func:`hash_register_plain`, the host loop
-of the plain versions with one readback per iteration.
+Every registration runs the whole loop in one call: on a CUDA tensor one
+cooperative launch of a loop kernel (csrc/``gn_loop.cuh`` around the
+method's search: on the tile backend ``kernels.p2p_register``,
+``p2p_register.cu``, kernel A's slot code; ``kernels.gicp_register``,
+``gicp.cu``, kernel E's; ``kernels.vgicp_register``, ``vgicp.cu``, kernel
+F's; ``kernels.avgicp_register``, ``avgicp.cu``, kernel G's; on the hash
+backend ``kernels.hash_register``, ``hash_correspond.cu``, kernel Q's),
+the reduction and kernel M's step every iteration, the termination test on
+the card; the host reads nothing back. On a CPU tensor
+:func:`p2p_register_plain`, :func:`gicp_register_plain`,
+:func:`vgicp_register_plain`, :func:`avgicp_register_plain` and
+:func:`hash_register_plain`: :func:`host_loop` of the plain versions (the
+search composed with the method's tail, ``*_search_reduce_plain``,
+icp.py:495-555 on tiles, then :func:`gn_update_plain`) with one readback
+per iteration.
 
-GICP and VGICP on the tile backend loop on the host, one GN iteration
-(:func:`gn_iteration`) at a time, and read ONE scalar back per iteration
-(``done | failed``) to decide whether to go on. On a CUDA tensor an
-iteration is two launches on one stream: the method's fused search +
-reduction kernel (:func:`search_sums`; csrc/: E ``gicp.cu``, F
-``vgicp.cu``), then kernel M (``gn_step.cu``: the LM step, the gates and
-the carries), whose stop flag is the iteration's one readback. On a CPU
-tensor it is the plain versions: the tiles search composed with the
-method's tail (``*_search_reduce_plain``, icp.py:495-555) and
-:func:`gn_update_plain`. Kernels A, G (:func:`search_sums`) and Q
-(:func:`gn_iteration_hash`) keep their one-iteration entries, the reference
-each loop kernel is held to.
+:func:`gn_iteration` (on a CUDA tensor kernel A, E, F or G through
+:func:`search_sums`, then kernel M ``gn_step.cu``) and
+:func:`gn_iteration_hash` (kernel Q, then M) keep one GN iteration: they
+launch on no path, and are the reference each loop kernel is held to, bit
+for bit, through the same host loop.
 
 With ``use_radar_cov`` every GICP / VGICP / AVGICP row adds its point's
 range / azimuth / elevation covariance (:func:`radar_point_cov`) to
@@ -504,6 +502,13 @@ _PLAIN = {
 }
 
 
+def _tile_geometry(tmap):
+    """The tile geometry the searches take as host numbers."""
+    ax0, ay0 = tmap.grid_origin   # a shifted window's anchor (host ints)
+    return dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0, ty0=ay0,
+                ty_dim=tmap.ty_dim)
+
+
 def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
                 radar=None):
     """One GN iteration's search + reduction on the card: the method's
@@ -511,10 +516,7 @@ def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpPara
     given) -> the reduced sums, [18] for P2P (:func:`assemble_p2p`'s
     layout) or [44] (:func:`assemble_gn`'s)."""
     args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
-    # the grid origin carries a shifted window's anchor (host ints)
-    ax0, ay0 = tmap.grid_origin
-    geo = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0,
-               ty0=ay0, ty_dim=tmap.ty_dim)
+    geo = _tile_geometry(tmap)
     if method == int(IcpMethod.P2P):
         return kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0]
     if method == int(IcpMethod.GICP):
@@ -626,11 +628,9 @@ def p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, t
     :func:`gn_update_plain` from the carry (``pose``, ``fitness``,
     ``local_cov``). Returns (pose, local_cov, fitness, overlap, failed,
     iterations int32)."""
-    def step(pose, fitness, local_cov):
-        eq = p2p_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
-        return gn_update_plain(*eq, pose, fitness, local_cov, total, params, False)
-
-    return host_loop(step, pose, fitness, local_cov, max_iteration)
+    return _tile_register_plain(p2p_search_reduce_plain, False, tmap, slot_tile, sbuf, qmask,
+                                pose, fitness, local_cov, total, params, budget,
+                                max_iteration, None)
 
 
 def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -640,11 +640,79 @@ def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
     if not _on_card(sbuf):
         return p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
                                   total, params, budget, max_iteration)
-    ax0, ay0 = tmap.grid_origin   # a shifted window's anchor (host ints)
     return kernels.p2p_register(
         tmap.halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
-        max_iteration, voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0,
-        ty0=ay0, ty_dim=tmap.ty_dim)
+        max_iteration, **_tile_geometry(tmap))
+
+
+def _tile_register_plain(search, gicp, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                         total, params, budget, max_iteration, radar):
+    """:func:`host_loop` of the plain search + reduction ``search`` (with the
+    slot-packed ``radar`` when given) then :func:`gn_update_plain` from the
+    carry (``gicp``: export local_cov)."""
+    extra = () if radar is None else (radar,)
+
+    def step(pose, fitness, local_cov):
+        eq = search(tmap, slot_tile, sbuf, qmask, pose, params, budget, *extra)[:4]
+        return gn_update_plain(*eq, pose, fitness, local_cov, total, params, gicp)
+
+    return host_loop(step, pose, fitness, local_cov, max_iteration)
+
+
+def gicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                        params: IcpParams, budget: maptiles.TileQueryBudget,
+                        max_iteration: int, radar=None):
+    """Plain PyTorch version of the GICP loop kernel
+    (``kernels.gicp_register``): :func:`host_loop` of
+    :func:`gicp_search_reduce_plain` (with the slot-packed ``radar`` when
+    given) then :func:`gn_update_plain` with GICP's local_cov, from the
+    carry. Returns (pose, local_cov, fitness, overlap, failed, iterations
+    int32)."""
+    return _tile_register_plain(gicp_search_reduce_plain, True, tmap, slot_tile, sbuf, qmask,
+                                pose, fitness, local_cov, total, params, budget,
+                                max_iteration, radar)
+
+
+def vgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                         params: IcpParams, budget: maptiles.TileQueryBudget,
+                         max_iteration: int, radar=None):
+    """Plain PyTorch version of the VGICP loop kernel
+    (``kernels.vgicp_register``): :func:`host_loop` of
+    :func:`vgicp_search_reduce_plain` then :func:`gn_update_plain`, as
+    :func:`gicp_register_plain` (local_cov stays as given)."""
+    return _tile_register_plain(vgicp_search_reduce_plain, False, tmap, slot_tile, sbuf,
+                                qmask, pose, fitness, local_cov, total, params, budget,
+                                max_iteration, radar)
+
+
+def gicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                  params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
+                  radar=None):
+    """The GICP registration loop on the tile backend:
+    :func:`gicp_register_plain` for CPU tensors, one launch of the loop
+    kernel for CUDA ones."""
+    if not _on_card(sbuf):
+        return gicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                   total, params, budget, max_iteration, radar)
+    return kernels.gicp_register(
+        tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, slot_tile, sbuf,
+        qmask, pose, fitness, local_cov, total, params, max_iteration, radar=radar,
+        **_tile_geometry(tmap))
+
+
+def vgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                   params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
+                   radar=None):
+    """The VGICP registration loop on the tile backend:
+    :func:`vgicp_register_plain` for CPU tensors, one launch of the loop
+    kernel for CUDA ones."""
+    if not _on_card(sbuf):
+        return vgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                    total, params, budget, max_iteration, radar)
+    return kernels.vgicp_register(
+        tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, slot_tile, sbuf, qmask,
+        pose, fitness, local_cov, total, params, max_iteration, radar=radar,
+        **_tile_geometry(tmap))
 
 
 def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -655,14 +723,9 @@ def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov
     :func:`avgicp_search_reduce_plain` (with the slot-packed ``radar`` when
     given) then :func:`gn_update_plain` from the carry. Returns (pose,
     local_cov, fitness, overlap, failed, iterations int32)."""
-    extra = () if radar is None else (radar,)
-
-    def step(pose, fitness, local_cov):
-        eq = avgicp_search_reduce_plain(tmap, slot_tile, sbuf, qmask, pose, params, budget,
-                                        *extra)[:4]
-        return gn_update_plain(*eq, pose, fitness, local_cov, total, params, False)
-
-    return host_loop(step, pose, fitness, local_cov, max_iteration)
+    return _tile_register_plain(avgicp_search_reduce_plain, False, tmap, slot_tile, sbuf,
+                                qmask, pose, fitness, local_cov, total, params, budget,
+                                max_iteration, radar)
 
 
 def avgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -768,6 +831,11 @@ def radar_points(src_local, pose, params: IcpParams):
     return radar_slots(src_local, qidx, qmask, pose, params).view(n, 3, 3)
 
 
+#: the tile backend's registration loop of each covariance method
+_TILE_LOOPS = {int(IcpMethod.GICP): gicp_register, int(IcpMethod.VGICP): vgicp_register,
+               int(IcpMethod.AVGICP): avgicp_register}
+
+
 # --------------------------------------------------------------------------- #
 # RunRegister (cpp:273-418)
 # --------------------------------------------------------------------------- #
@@ -820,17 +888,9 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     elif static.method == int(IcpMethod.P2P):
         loop = p2p_register(tmap, asg.slot_tile, sbuf, asg.qmask, *carry, static.tile_budget,
                             static.max_iteration)
-    elif static.method == int(IcpMethod.AVGICP):
-        loop = avgicp_register(tmap, asg.slot_tile, sbuf, asg.qmask, *carry,
-                               static.tile_budget, static.max_iteration, radar)
     else:
-        # GICP and VGICP on tiles: E or F, then M, and one readback an iteration
-        def step(pose, fitness, local_cov):
-            return gn_iteration(static.method, tmap, asg.slot_tile, sbuf, asg.qmask, pose,
-                                fitness, local_cov, total, params, static.tile_budget,
-                                radar)
-
-        loop = host_loop(step, pose, fitness, local_cov, static.max_iteration)
+        loop = _TILE_LOOPS[static.method](tmap, asg.slot_tile, sbuf, asg.qmask, *carry,
+                                          static.tile_budget, static.max_iteration, radar)
     pose, local_cov, fitness, overlap, failed, iterations = loop
     if mark is not None:
         mark("gn")

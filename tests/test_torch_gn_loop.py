@@ -9,11 +9,12 @@ plain loop bit-equal to the host loop it replaces (``gn_iteration`` + one
 stop-flag readback per iteration) in both dtypes, at convergence, at
 ``max_iteration``, on a first-iteration overlap failure and at
 ``max_iteration == 0``; and ``run_register``'s dispatch on a stubbed card
-route (the loop kernel once for P2P, never kernel A or M; GICP keeps E + M
-per iteration). On the card (``cuda`` marker): the loop kernel bit-equal
-to the three-launch chain (kernel A's search + reduction, kernel M, the
-host loop) with one launch a call, over multi-iteration registrations and
-over slot counts below, at 0 and well above the kernel's grid.
+route (the loop kernel once for P2P, never kernel A or M; the GICP loop
+kernel once for GICP, never kernel E or M). On the card (``cuda``
+marker): the loop kernel bit-equal to the three-launch chain (kernel A's
+search + reduction, kernel M, the host loop) with one launch a call, over
+multi-iteration registrations and over slot counts below, at 0 and well
+above the kernel's grid.
 """
 
 import dataclasses
@@ -239,51 +240,44 @@ def test_p2p_register_plain_equals_the_host_loop(world, dt_name, case):
 
 
 def _stub_card(monkeypatch, tmap, budget):
-    """A card route on CPU tensors: the loop's callers take the kernel branch
-    (``icp._on_card``), and each kernel wrapper of the GN loop is a stub
-    that counts its calls and returns its plain version's result."""
-    calls = {"p2p_register": [], "p2p_correspond": 0, "gicp_correspond": 0, "gn_step": 0}
+    """A card route on CPU tensors: the loops' callers take the kernel branch
+    (``icp._on_card``), each loop wrapper of the GN loop is a stub that
+    records its call and returns its plain version's result, and the
+    per-iteration kernels the loops replace (A, E, M) raise."""
+    calls = {"p2p_register": [], "gicp_register": []}
 
-    def loop(halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
-             max_iteration, **geo):
+    def p2p_loop(halo, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+                 max_iteration, **geo):
         calls["p2p_register"].append((halo, geo))
         return ticp.p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness,
                                        local_cov, total, params, budget, max_iteration)
 
-    def p2p_correspond(*a, **k):
-        calls["p2p_correspond"] += 1
-        raise AssertionError("kernel A launched on the P2P tile path")
+    def gicp_loop(halo, cov, mean, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                  params, max_iteration, *, radar=None, **geo):
+        calls["gicp_register"].append((halo, geo))
+        return ticp.gicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness,
+                                        local_cov, total, params, budget, max_iteration, radar)
 
-    def gicp_correspond(halo, cov, mean, slot_tile, sbuf, qmask, pose, max_dist, **k):
-        calls["gicp_correspond"] += 1
-        params = dataclasses.replace(ticp.make_icp_params(tconfig.PcmConfig(),
-                                                          dtype=sbuf.dtype),
-                                     max_search_dist=max_dist)
-        matched, JTJ, JTr, fit = ticp.gicp_search_reduce_plain(
-            tmap, slot_tile, sbuf, qmask, pose, params, budget)[:4]
-        blocks = [JTJ[:3, :3], JTJ[:3, 3:], JTJ[3:, :3], JTJ[3:, 3:]]
-        sums = torch.cat([b.reshape(-1) for b in blocks]
-                         + [JTr, fit[None], matched[None].to(sbuf.dtype)])
-        return sums, None, None, None
-
-    def gn_step(sums, pose, fitness, local_cov, total, params, gicp):
-        calls["gn_step"] += 1
-        return ticp.gn_update_plain(*ticp.assemble_gn(sums), pose, fitness, local_cov,
-                                    total, params, gicp)
+    def refused(name):
+        def fn(*a, **k):
+            raise AssertionError(f"{name} launched on a path a loop kernel serves")
+        return fn
 
     monkeypatch.setattr(ticp, "_on_card", lambda t: True)
-    for name, fn in (("p2p_register", loop), ("p2p_correspond", p2p_correspond),
-                     ("gicp_correspond", gicp_correspond), ("gn_step", gn_step)):
+    for name, fn in (("p2p_register", p2p_loop), ("gicp_register", gicp_loop),
+                     ("p2p_correspond", refused("p2p_correspond")),
+                     ("gicp_correspond", refused("gicp_correspond")),
+                     ("gn_step", refused("gn_step"))):
         monkeypatch.setattr(kernels, name, fn)
     return calls
 
 
 @pytest.mark.parametrize("method", ["P2P", "GICP"])
 def test_run_register_dispatch_on_the_card_route(world, method, monkeypatch):
-    """On the card route run_register's P2P tile branch makes one call of the
-    loop kernel (with the map's halo and geometry) and none of kernel A or
-    M; GICP keeps kernel E + kernel M once per iteration. Both give what the
-    CPU route gives."""
+    """On the card route run_register's tile branch makes one call of the
+    method's loop kernel (P2P: p2p_register, GICP: gicp_register, with the
+    map's halo and geometry) and none of kernel A, E or M. Both give what
+    the CPU route gives."""
     map_pts, _, scan, _ = world
     tdt = torch.float64
     m = tconfig.IcpMethod[method]
@@ -300,19 +294,14 @@ def test_run_register_dispatch_on_the_card_route(world, method, monkeypatch):
     got = ticp.run_register(*args)
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
-    iters = int(ref.iterations)
-    assert iters >= 2
-    if method == "P2P":
-        assert len(calls["p2p_register"]) == 1
-        halo, geo = calls["p2p_register"][0]
-        assert halo is tmap.halo_points
-        assert geo == dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size,
-                           tx0=tmap.grid_origin[0], ty0=tmap.grid_origin[1],
-                           ty_dim=tmap.ty_dim)
-        assert calls["p2p_correspond"] == calls["gn_step"] == calls["gicp_correspond"] == 0
-    else:
-        assert calls["gicp_correspond"] == calls["gn_step"] == iters
-        assert calls["p2p_register"] == [] and calls["p2p_correspond"] == 0
+    assert int(ref.iterations) >= 2
+    mine, other = (("p2p_register", "gicp_register") if method == "P2P"
+                   else ("gicp_register", "p2p_register"))
+    assert len(calls[mine]) == 1 and calls[other] == []
+    halo, geo = calls[mine][0]
+    assert halo is tmap.halo_points
+    assert geo == dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size,
+                       tx0=tmap.grid_origin[0], ty0=tmap.grid_origin[1], ty_dim=tmap.ty_dim)
 
 
 # --------------------------------------------------------------------------- #

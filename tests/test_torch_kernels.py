@@ -183,8 +183,8 @@ def test_launch_counters_name_all_seven_kernels():
     query and lookup entries), the ground probe R, the P2P loop kernel (A
     and M in one launch), the scan's end S (L and I's PCM leg in one
     launch), the scan's front T (the gate, the scan times, K and D in
-    one host call) and the AVGICP and hash loop kernels (G and M, Q and M in
-    one launch); the record packs apart."""
+    one host call) and the GICP, VGICP, AVGICP and hash loop kernels (E, F,
+    G or Q with M in one launch); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
@@ -192,7 +192,8 @@ def test_launch_counters_name_all_seven_kernels():
         "ekf_update", "ring_push", "scan_ring_query", "scan_front", "pcm_measurement",
         "pcm_stage",
         "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
-        "hash_lookup", "ground_height", "avgicp_register", "hash_register"])
+        "hash_lookup", "ground_height", "gicp_register", "vgicp_register", "avgicp_register",
+        "hash_register"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():

@@ -1,25 +1,29 @@
-"""The AVGICP registration loop on the tile backend and the registration loop
-of the hash backend: the plain versions ``icp.avgicp_register_plain`` and
-``icp.hash_register_plain`` and the loop kernels ``kernels.avgicp_register``
-(csrc/avgicp_register.cu: kernels G and M as one cooperative launch) and
-``kernels.hash_register`` (csrc/hash_register.cu: kernels Q and M).
+"""The tile GICP, VGICP and AVGICP registration loops and the registration
+loop of the hash backend: the plain versions ``icp.gicp_register_plain``,
+``icp.vgicp_register_plain``, ``icp.avgicp_register_plain`` and
+``icp.hash_register_plain`` and the loop kernels ``kernels.gicp_register``
+(csrc/gicp.cu: kernels E and M as one cooperative launch),
+``kernels.vgicp_register`` (csrc/vgicp.cu: kernels F and M),
+``kernels.avgicp_register`` (csrc/avgicp.cu: kernels G and M) and
+``kernels.hash_register`` (csrc/hash_correspond.cu: kernels Q and M).
 
-On the CPU: each plain loop against JAX's ``run_register`` (tile AVGICP on
-a halo margin 2 map; hash AVGICP and GICP) on tests/test_icp.py's world,
-float64 at atol 1e-9 and float32 at atol 1e-4 (tests/test_torch_gn_loop.py's
-bounds), with equal iteration counts and success; each plain loop bit-equal
-to the host loop it replaces (``gn_iteration`` / ``gn_iteration_hash`` + one
-stop-flag readback per iteration) for tile AVGICP, every hash method and
-one radar form of each (in a map frame 1 km off the origin, where the
-reference's world-frame radar model is well-posed), at convergence, at
-``max_iteration``, on a first-iteration overlap failure and at
-``max_iteration == 0``; ``run_register``'s dispatch on a stubbed card route
-(one loop call per registration for tile AVGICP and every hash method,
-never kernel G, Q or M; tile GICP and VGICP keep E / F + M per iteration);
-each wrapper refuses a CPU tensor. On the card (``cuda`` marker): each
-loop kernel bit-equal to its three-launch chain (G or Q's search +
-reduction, kernel M, the host loop), one launch a call, at slot or block
-counts below, at and well above the kernel's grid.
+On the CPU: each plain loop against JAX's ``run_register`` (tile GICP,
+VGICP and AVGICP on a halo margin 2 map; hash AVGICP and GICP) on
+tests/test_icp.py's world, float64 at atol 1e-9 and float32 at atol 1e-4
+(tests/test_torch_gn_loop.py's bounds), with equal iteration counts and
+success; each plain loop bit-equal to the host loop it replaces
+(``gn_iteration`` / ``gn_iteration_hash`` + one stop-flag readback per
+iteration) for tile GICP, VGICP and AVGICP, every hash method and the
+radar forms of the tile methods and of hash GICP (in a map frame 1 km off
+the origin, where the reference's world-frame radar model is well-posed),
+at convergence, at ``max_iteration``, on a first-iteration overlap failure
+and at ``max_iteration == 0``; ``run_register``'s dispatch on a stubbed
+card route (one loop call per registration for tile GICP, VGICP, AVGICP
+and their radar forms and every hash method, never kernel E, F, G, Q or
+M); each loop wrapper refuses a CPU tensor. On the card (``cuda``
+marker): each loop kernel bit-equal to its three-launch chain (E, F, G or
+Q's search + reduction, kernel M, the host loop), one launch a call, at
+slot or block counts below, at and well above the kernel's grid.
 """
 
 import dataclasses
@@ -45,7 +49,9 @@ BUDGET = dict(qb=32, max_slots=256)
 #: the radar forms' map frame (tests/test_torch_radar.py)
 FAR = np.array([1000.0, 0.0, 0.0])
 #: loop -> (backend, method, radar form)
-LOOPS = {"tile AVGICP": ("tile", "AVGICP", False), "tile AVGICP radar": ("tile", "AVGICP", True),
+LOOPS = {"tile GICP": ("tile", "GICP", False), "tile GICP radar": ("tile", "GICP", True),
+         "tile VGICP": ("tile", "VGICP", False), "tile VGICP radar": ("tile", "VGICP", True),
+         "tile AVGICP": ("tile", "AVGICP", False), "tile AVGICP radar": ("tile", "AVGICP", True),
          "hash P2P": ("hash", "P2P", False), "hash GICP": ("hash", "GICP", False),
          "hash VGICP": ("hash", "VGICP", False), "hash AVGICP": ("hash", "AVGICP", False),
          "hash GICP radar": ("hash", "GICP", True)}
@@ -127,7 +133,8 @@ def _case(maps, loop, tdt, case, device="cpu", budget=None):
                                      fitness, local_cov, carry[3], params,
                                      static.tile_budget, rad)
 
-        plain, loop_fn = ticp.avgicp_register_plain, ticp.avgicp_register
+        plain = getattr(ticp, f"{method.lower()}_register_plain")
+        loop_fn = getattr(ticp, f"{method.lower()}_register")
     else:
         grid = tgrid.to_device(built, device, tdt)
         valid = torch.ones(len(scan), dtype=torch.bool, device=device)
@@ -167,7 +174,8 @@ def jax_built(maps):
                                     compute_point_cov=True, use_native=False)
 
 
-@pytest.mark.parametrize("loop", ["tile AVGICP", "hash AVGICP", "hash GICP"])
+@pytest.mark.parametrize("loop", ["tile GICP", "tile VGICP", "tile AVGICP", "hash AVGICP",
+                                  "hash GICP"])
 @pytest.mark.parametrize("dt_name", sorted(TOL))
 def test_plain_loop_matches_jax(maps, jax_built, dt_name, loop):
     """The plain loop against JAX's run_register on the JAX builder's map
@@ -206,7 +214,7 @@ def test_plain_loop_matches_jax(maps, jax_built, dt_name, loop):
         static = ticp.make_icp_static(tcfg, tile_budget=ttiles.TileQueryBudget(**BUDGET),
                                       reassign_each_iter=False)
         asg, sbuf, carry = _loop_inputs(tmap, src, pose0, static)
-        pose, _, fitness, _, failed, iters = ticp.avgicp_register_plain(
+        pose, _, fitness, _, failed, iters = getattr(ticp, f"{method.lower()}_register_plain")(
             tmap, asg.slot_tile, sbuf, asg.qmask, *carry, params, static.tile_budget,
             static.max_iteration)
         pose = pose.clone()
@@ -255,29 +263,30 @@ def test_plain_loop_equals_the_host_loop(maps, dt_name, loop, case):
 # run_register's dispatch on the card route
 # --------------------------------------------------------------------------- #
 
-def _sums(eq, dtype):
-    """(matched, JTJ, JTr, fit_num) -> kernels E/F's [44] sums."""
-    matched, JTJ, JTr, fit = eq
-    blocks = [JTJ[:3, :3], JTJ[:3, 3:], JTJ[3:, :3], JTJ[3:, 3:]]
-    return torch.cat([b.reshape(-1) for b in blocks] + [JTr, fit[None],
-                                                       matched[None].to(dtype)])
+#: the tile backend's loop wrappers of the covariance methods
+TILE_LOOPS = ("gicp_register", "vgicp_register", "avgicp_register")
+#: the halo fields each tile loop takes
+HALO = {"GICP": ("halo_points", "halo_point_cov", "halo_point_cov_mean"),
+        "VGICP": ("halo_vox_mean", "halo_vox_cov", "halo_vox_coord"),
+        "AVGICP": ("halo_vox_mean", "halo_vox_cov", "halo_vox_coord")}
 
 
 def _stub_card(monkeypatch, tmap, budget):
     """A card route on CPU tensors: the loops' callers take the kernel branch
     (``icp._on_card``), each loop wrapper is a stub that records its call
-    and returns its plain version's result, E and F return their plain sums,
-    M runs ``gn_update_plain``, and the per-iteration kernels the loops
-    replace (A, G, Q) raise."""
-    calls = {"avgicp_register": [], "hash_register": [], "gicp_correspond": 0,
-             "vgicp_correspond": 0, "gn_step": 0}
+    and returns its plain version's result, and the per-iteration kernels
+    the loops replace (A, E, F, G, Q and M) raise."""
+    calls = {name: [] for name in TILE_LOOPS + ("hash_register",)}
 
-    def avgicp_loop(vmean, vcov, vcoord, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                    total, params, max_iteration, *, voxel_size, radar=None):
-        calls["avgicp_register"].append((vmean, vcov, vcoord, voxel_size, radar))
-        return ticp.avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness,
-                                          local_cov, total, params, budget, max_iteration,
-                                          radar)
+    def tile_loop(name):
+        plain = getattr(ticp, f"{name}_plain")
+
+        def fn(a, b, c, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+               max_iteration, *, radar=None, **geo):
+            calls[name].append(((a, b, c), geo, radar))
+            return plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                         params, budget, max_iteration, radar)
+        return fn
 
     def hash_loop(grid, src, valid, pose, fitness, local_cov, total, params, max_iteration,
                   method, radar=None):
@@ -285,51 +294,34 @@ def _stub_card(monkeypatch, tmap, budget):
         return ticp.hash_register_plain(int(M[method]), grid, src, valid, pose, fitness,
                                         local_cov, total, params, max_iteration, radar)
 
-    def cov_search(name, plain):
-        def fn(a, b, c, slot_tile, sbuf, qmask, pose, max_dist, radar=None, **k):
-            calls[name] += 1
-            params = dataclasses.replace(ticp.make_icp_params(tconfig.PcmConfig(),
-                                                              dtype=sbuf.dtype),
-                                         max_search_dist=max_dist)
-            extra = () if radar is None else (radar,)
-            eq = plain(tmap, slot_tile, sbuf, qmask, pose, params, budget, *extra)[:4]
-            return _sums(eq, sbuf.dtype), None, None, None
-        return fn
-
-    def gn_step(sums, pose, fitness, local_cov, total, params, gicp):
-        calls["gn_step"] += 1
-        return ticp.gn_update_plain(*ticp.assemble_gn(sums), pose, fitness, local_cov,
-                                    total, params, gicp)
-
     def refused(name):
         def fn(*a, **k):
             raise AssertionError(f"{name} launched on a path a loop kernel serves")
         return fn
 
     monkeypatch.setattr(ticp, "_on_card", lambda t: True)
-    stubs = {"avgicp_register": avgicp_loop, "hash_register": hash_loop,
-             "gicp_correspond": cov_search("gicp_correspond", ticp.gicp_search_reduce_plain),
-             "vgicp_correspond": cov_search("vgicp_correspond",
-                                            ticp.vgicp_search_reduce_plain),
-             "gn_step": gn_step}
-    for name in ("p2p_correspond", "avgicp_correspond", "hash_correspond"):
+    stubs = {name: tile_loop(name) for name in TILE_LOOPS}
+    stubs["hash_register"] = hash_loop
+    for name in ("p2p_correspond", "gicp_correspond", "vgicp_correspond", "avgicp_correspond",
+                 "hash_correspond", "gn_step"):
         stubs[name] = refused(name)
     for name, fn in stubs.items():
         monkeypatch.setattr(kernels, name, fn)
     return calls
 
 
-DISPATCH = ["tile AVGICP", "tile AVGICP radar", "tile GICP", "tile VGICP", "hash P2P",
-            "hash GICP", "hash VGICP", "hash AVGICP", "hash GICP radar"]
+DISPATCH = ["tile AVGICP", "tile AVGICP radar", "tile GICP", "tile GICP radar", "tile VGICP",
+            "tile VGICP radar", "hash P2P", "hash GICP", "hash VGICP", "hash AVGICP",
+            "hash GICP radar"]
 
 
 @pytest.mark.parametrize("route", DISPATCH)
 def test_run_register_dispatch_on_the_card_route(maps, route, monkeypatch):
     """On the card route run_register makes one loop call a registration for
-    tile AVGICP (with the map's voxel fields and the slot-packed radar) and
-    for every hash method (with the grid, the method and the query-order
-    radar), and never launches kernel A, G, Q or M there; tile GICP and
-    VGICP keep kernel E or F + kernel M once per iteration. Each gives what
+    tile GICP, VGICP and AVGICP (with the map's halo fields, the tile
+    geometry where the search takes it, and the slot-packed radar) and for
+    every hash method (with the grid, the method and the query-order
+    radar), and never launches kernel A, E, F, G, Q or M. Each gives what
     the CPU route gives."""
     backend, method, *rest = route.split()
     radar = bool(rest)
@@ -350,41 +342,41 @@ def test_run_register_dispatch_on_the_card_route(maps, route, monkeypatch):
     got = ticp.run_register(*args)
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
-    iters = int(ref.iterations)
-    assert iters >= 2
-    if route.startswith("tile AVGICP"):
-        assert len(calls["avgicp_register"]) == 1 and calls["hash_register"] == []
-        vmean, vcov, vcoord, voxel, rad = calls["avgicp_register"][0]
-        assert (vmean, vcov, vcoord) == (tmap.halo_vox_mean, tmap.halo_vox_cov,
-                                         tmap.halo_vox_coord)
-        assert voxel == tmap.voxel_size and (rad is not None) == radar
-        assert calls["gn_step"] == calls["gicp_correspond"] == calls["vgicp_correspond"] == 0
-    elif backend == "hash":
-        assert len(calls["hash_register"]) == 1 and calls["avgicp_register"] == []
-        grid, name, rad = calls["hash_register"][0]
-        assert grid is tmap and name == method and (rad is not None) == radar
-        assert calls["gn_step"] == calls["gicp_correspond"] == calls["vgicp_correspond"] == 0
+    assert int(ref.iterations) >= 2
+    mine = "hash_register" if backend == "hash" else f"{method.lower()}_register"
+    assert len(calls[mine]) == 1
+    assert all(c == [] for name, c in calls.items() if name != mine)
+    if backend == "tile":
+        halo, geo, rad = calls[mine][0]
+        assert halo == tuple(getattr(tmap, f) for f in HALO[method])
+        full = dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size,
+                    tx0=tmap.grid_origin[0], ty0=tmap.grid_origin[1], ty_dim=tmap.ty_dim)
+        assert geo == (dict(voxel_size=tmap.voxel_size) if method == "AVGICP" else full)
+        assert (rad is not None) == radar
     else:
-        wrapper = f"{method.lower()}_correspond"
-        assert calls[wrapper] == calls["gn_step"] == iters
-        assert calls["avgicp_register"] == calls["hash_register"] == []
+        grid, name, rad = calls[mine][0]
+        assert grid is tmap and name == method and (rad is not None) == radar
 
 
-@pytest.mark.parametrize("which", ["avgicp_register", "hash_register"])
+@pytest.mark.parametrize("which", TILE_LOOPS + ("hash_register",))
 def test_loop_wrappers_refuse_cpu_tensors(maps, which):
     """A CPU tensor never reaches a loop kernel: its wrapper raises."""
-    loop = "tile AVGICP" if which == "avgicp_register" else "hash AVGICP"
+    loop = ("hash AVGICP" if which == "hash_register"
+            else f"tile {which.split('_')[0].upper()}")
     args = _case(maps, loop, torch.float32, "converges").args
     with pytest.raises(ValueError, match="CUDA tensor required"):
-        if which == "avgicp_register":
-            tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, _, m, _ = args
-            kernels.avgicp_register(tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord,
-                                    slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
-                                    params, m, voxel_size=tmap.voxel_size)
-        else:
+        if which == "hash_register":
             _, grid, src, valid, pose, fitness, local_cov, total, params, m, _ = args
             kernels.hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
                                   m, "AVGICP")
+        else:
+            tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, _, m, _ = args
+            geo = dict(voxel_size=tmap.voxel_size)
+            if which != "avgicp_register":
+                geo.update(tile_size=tmap.tile_size, tx0=0, ty0=0, ty_dim=tmap.ty_dim)
+            halo = [getattr(tmap, f) for f in HALO[LOOPS[loop][1]]]
+            getattr(kernels, which)(*halo, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                    total, params, m, **geo)
 
 
 # --------------------------------------------------------------------------- #
@@ -410,14 +402,15 @@ def _kernel_and_chain(c, name):
 
 
 def _loop_name(loop):
-    return "avgicp_register" if loop.startswith("tile") else "hash_register"
+    backend, method, _ = LOOPS[loop]
+    return "hash_register" if backend == "hash" else f"{method.lower()}_register"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("loop", sorted(LOOPS))
 def test_loop_kernel_equals_the_chain_on_card(maps, cuda, loop, case):
-    """Each loop kernel against its chain (kernel G or Q's search +
+    """Each loop kernel against its chain (kernel E, F, G or Q's search +
     reduce_partials_kernel, kernel M, the host loop) on the same inputs:
     pose, local_cov, fitness, overlap, failed and the iteration count bit
     for bit, one launch a call; the converging case moves the pose over two
@@ -432,13 +425,14 @@ def test_loop_kernel_equals_the_chain_on_card(maps, cuda, loop, case):
 def _capacity(loop, qb):
     backend, method, radar = LOOPS[loop]
     if backend == "tile":
-        return kernels.avgicp_register_capacity(qb, radar)
+        return getattr(kernels, f"{method.lower()}_register_capacity")(qb, radar)
     return kernels.hash_register_capacity(method, radar)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", ["below_grid", "at_grid", "zero", "above_grid"])
-@pytest.mark.parametrize("loop", ["tile AVGICP", "hash AVGICP", "hash GICP"])
+@pytest.mark.parametrize("loop", ["tile GICP", "tile VGICP", "tile AVGICP", "hash AVGICP",
+                                  "hash GICP"])
 def test_loop_kernel_grid_sizes_on_card(maps, cuda, loop, size):
     """Slot (tile) or 128-point block (hash) counts below the kernel's
     co-resident grid, at it, zero (one CTA, zero sums: the overlap gate fails
@@ -483,13 +477,14 @@ def test_loop_kernel_grid_sizes_on_card(maps, cuda, loop, size):
             assert (n + 127) // 128 < cap
         args = (code, grid, src, val, *rest)
     c.args = args
-    fn = ticp.avgicp_register if loop.startswith("tile") else ticp.hash_register
+    backend, method, _ = LOOPS[loop]
+    fn = getattr(ticp, _loop_name(loop))
     c.loop = lambda: fn(*args)
-    if loop.startswith("tile"):
+    if backend == "tile":
         tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params, budget, m, r = args
 
         def step(pose, fitness, local_cov):
-            return ticp.gn_iteration(int(M.AVGICP), tmap, slot_tile, sbuf, qmask, pose,
+            return ticp.gn_iteration(int(M[method]), tmap, slot_tile, sbuf, qmask, pose,
                                      fitness, local_cov, total, params, budget, r)
     else:
         code, grid, src, val, pose, fitness, local_cov, total, params, m, r = args

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""Time the GN loop of the tile AVGICP and the hash-backend registrations on
-one GPU: the "gn" stage of each frame, the frame, the GN kernels' device
-time and the relocalization.
+"""Time the GN loop of the tile GICP, VGICP and AVGICP (and their radar
+forms) and the hash-backend registrations on one GPU: the "gn" stage of
+each frame, the frame, the GN kernels' device time and the
+relocalization.
 
 Imports ``elimaloc_tpu_torch`` from the current directory, so the same
 script times two checkouts on one card in one call: run it from the root
 of each, in turns (parent, change, change, parent). It drives only entry
 points both designs have (``run_fused``, ``initialize_at``) and sums the
 device time of every GN kernel name either runs (the one-iteration search
-kernels ``avgicp_search_kernel`` and ``hash_search_kernel``,
+kernels ``gicp_search_kernel``, ``vgicp_search_kernel``,
+``avgicp_search_kernel`` and ``hash_search_kernel``,
 ``reduce_partials_kernel``, kernel M's ``gn_step_kernel``, the loop kernels
+``gicp_register_kernel``, ``vgicp_register_kernel``,
 ``avgicp_register_kernel`` and ``hash_register_kernel``).
 
 The headline of chip_smoke.py, made from its seeds: the 21-scan log of
 ``synthesize_log(make_world(seed=3, extent=120, 400k + 200k),
 points_per_scan=131072, seed=4)`` sampled 1/5, the budgets of
 ``autosize_budgets`` (qb = 16), one map with both covariances packed at
-halo margin 2 (AVGICP) and put on the card as the hash grid, rings of 512
-and 256 rows, chip_smoke.py's configurations. The map's build is kept in
+halo margin 1 (GICP, VGICP) and 2 (AVGICP) and put on the card as the hash
+grid, rings of 512 and 256 rows, chip_smoke.py's configurations (the radar
+forms with ``use_radar_cov``). The map's build is kept in
 ``--cache`` (an .npz, made by the first run that finds none) for the runs
 after it.
 
-1. ``run_fused`` on tile AVGICP, AVGICP+GPS+CAN and the hash backend's P2P,
-   GICP, VGICP and AVGICP: a warm-up replay, then REPLAYS replays with a
+1. ``run_fused`` on tile GICP, VGICP, GICP+radar, VGICP+radar, AVGICP,
+   AVGICP+GPS+CAN and the hash backend's P2P, GICP, VGICP and AVGICP (or
+   the ``--paths`` given): a warm-up replay, then REPLAYS replays with a
    CUDA event at every stage boundary: ms a frame of each stage (frames 1..
    of each; "gn" is the registration's loop), the frame time p50 and p95
    over all of their frames, the median scans per second, the mean GN
@@ -31,12 +36,12 @@ after it.
    the GN kernels, by name and summed, of all kernels, and the device's
    busy share.
 3. ``initialize_at`` (relocalization, ``max_iteration`` 10) on the tile
-   AVGICP and the hash P2P pipelines from a click 0.7 m and 1 deg off the
+   GICP, AVGICP and the hash P2P pipelines from a click 0.7 m and 1 deg off the
    truth at scan 0: wall-clock ms, median of RELOC_CALLS calls after 2
    warm-ups (it reads the registration's success back, so the wall clock is
    its latency).
 
-    python3 tools/time_register_loops.py [--label NAME] [--cache PATH]
+    python3 tools/time_register_loops.py [--label NAME] [--cache PATH] [--paths P ...]
 
 Prints one JSON line, with the card's name and power limit. Exits 1
 without a CUDA device.
@@ -56,10 +61,13 @@ import torch
 N_SCANS = 20
 REPLAYS = 3
 RELOC_CALLS = 20
-PATHS = ("AVGICP", "AVGICP+GPS+CAN", "P2P hash", "GICP hash", "VGICP hash", "AVGICP hash")
-GN_KERNELS = ("avgicp_search_kernel", "hash_search_kernel", "reduce_partials_kernel",
-              "gn_step_kernel", "avgicp_register_kernel", "hash_register_kernel")
-RELOC_PATHS = ("AVGICP", "P2P hash")
+PATHS = ("GICP", "VGICP", "GICP+radar", "VGICP+radar", "AVGICP", "AVGICP+GPS+CAN", "P2P hash",
+         "GICP hash", "VGICP hash", "AVGICP hash")
+GN_KERNELS = ("gicp_search_kernel", "vgicp_search_kernel", "avgicp_search_kernel",
+              "hash_search_kernel", "reduce_partials_kernel", "gn_step_kernel",
+              "gicp_register_kernel", "vgicp_register_kernel", "avgicp_register_kernel",
+              "hash_register_kernel")
+RELOC_PATHS = ("GICP", "AVGICP", "P2P hash")
 
 
 class Marks:
@@ -111,6 +119,7 @@ def path_cfg(config, path):
     cfg = config.ElimalocConfig()
     cfg.pcm.icp_method = config.IcpMethod[method]
     cfg.ekf.use_gps = cfg.ekf.use_can = "+GPS+CAN" in path
+    cfg.pcm.use_radar_cov = path.endswith("+radar")
     cfg.pcm.lidar_time_delay = 0.0
     cfg.ekf.ekf_init_x_m = 60.0
     cfg.ekf.ekf_init_y_m = 0.0
@@ -146,6 +155,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
     ap.add_argument("--cache", default=None, help="an .npz for the headline map's build")
+    ap.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_register_loops: no CUDA device", file=sys.stderr)
@@ -172,13 +182,13 @@ def main():
     t0 = time.time()
     built = built_map(builder, world, pcm, args.cache)
     map_s = time.time() - t0
-    packed = tiles.build_tile_map(built, tile_voxels=4, halo_margin=2)
+    packed = {m: tiles.build_tile_map(built, tile_voxels=4, halo_margin=m) for m in (1, 2)}
     kernels.library()
     n = len(log.scan_t)
     out = {"label": args.label, "card": smi, "map_s": map_s}
     x, y = log.truth_pos[0][:2] + 0.7
     yaw = log.truth_rpy[0][2] + np.deg2rad(1.0)
-    for path in PATHS:
+    for path in args.paths:
         cfg = path_cfg(config, path)
         if path.endswith(" hash"):
             pipe = runtime.LocalizationPipeline(
@@ -186,8 +196,9 @@ def main():
                 ego_ring_size=512, imu_ring_size=256)
         else:
             pipe = runtime.LocalizationPipeline(
-                cfg, packed, device="cuda", ds_points=ds_points, ego_ring_size=512,
-                imu_ring_size=256, tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots))
+                cfg, packed[2 if path.startswith("AVGICP") else 1], device="cuda",
+                ds_points=ds_points, ego_ring_size=512, imu_ring_size=256,
+                tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots))
         _, outs = pipe.run_fused(log)
         splits, frame_ms, rates = [], [], []
         for _ in range(REPLAYS):
