@@ -16,8 +16,8 @@ covariances (``use_radar_cov``: kernel P and the radar forms of E, F, G);
 ``run`` (the per-event loop) on the config-5 pipeline ("FUSION events"); the
 config-5 replay with the Joseph-form updates (kernels H, I and S with
 ``joseph_form``); ``run`` with ``use_imu=False`` on the P2P configuration
-("P2P tick events": a CA tick at 100 Hz, kernel O, and the IMU ring
-intake). Then ``initialize_at`` (relocalization) on the P2P
+("P2P tick events": a CA tick with its ego push at 100 Hz, kernel U, and
+the IMU ring intake, kernel V). Then ``initialize_at`` (relocalization) on the P2P
 pipeline, and "P2P windowed": active-window serving, the bench.py:327-346
 row (``_cfg(P2P)`` with a 40 m sensor gate, ``map_window_radius=48``) over
 the margin-1 map written with ``build_tile_map(storage_dir=)`` and reopened
@@ -114,8 +114,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      against their plain versions on the fusion path's inputs, then its
      replay (applied >= 0.9, under the closed-loop contract against the
      reference form's, P asymmetry no larger, P diagonal positive); the
-     tick mode: O and J's one-ring form against their plain versions, O
-     launched once per tick, no kernel H, ATE under JAX's 2.0 m tick-mode
+     tick mode: every tick and IMU event of a warm-up replay under
+     ``set_sync_debug_mode("error")``, kernel U bit for bit against kernel
+     O then kernel J's ego push and V bit for bit against kernel H's IMU
+     ring (within the rotation's rounding bound of the cuBLAS rotation + J
+     it replaced), each against its plain version, O and J's one-ring form
+     (their reference) against theirs; U launched once a tick, V once an
+     IMU sample, O, J and H never; one profiled tick and one profiled IMU
+     event each a single device kernel; ATE under JAX's 2.0 m tick-mode
      bound; then relocalization from a click 1 m and 1 deg off the truth;
   5. "P2P windowed" (after the relocalization above): a warm-up windowed
      replay that records kernel N's first call, N against
@@ -140,9 +146,10 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels B-D, H-T and the
+  6. torch.profiler, after every timed replay: kernels B-D, H-V and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
-     the gate, scan times, K and D beside T),
+     the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
+     rotation and J beside V),
      and one more replay per run_fused
      path and of the windowed run_fused for the device's busy share and
      its top kernels; no kernel of a run_fused replay may be a library sort
@@ -205,9 +212,13 @@ PATHS = ("P2P", "GICP", "VGICP", "AVGICP", FUSION)
 RADAR_PATHS = ("GICP+radar", "VGICP+radar", "AVGICP+radar")
 #: the fusion path's replay with the Joseph-form updates (kernels H, I)
 JOSEPH = FUSION + " joseph"
-#: the event loop with use_imu=False: CA ticks (kernel O) and the IMU ring
-#: intake (kernel J with one ring)
+#: the event loop with use_imu=False: CA ticks with their ego push (kernel
+#: U) and the IMU ring intake (kernel V)
 TICK = "P2P tick events"
+#: f32 operations of one CA tick: G = F P and G F^T (39 nonzeros of F per
+#: column of P, a multiply and an add each, twice), the nominal step and the
+#: ego row (~600)
+TICK_OPS = 2 * 2 * 39 * 27 + 600
 TICK_ATE_GATE = 2.0  # JAX's own tick-mode bound, tests/test_pipeline_modes.py:82-90
 #: the map frame of the radar paths' card-vs-CPU references: the same drive
 #: with every position 1 km off the map origin, where the reference's
@@ -228,8 +239,8 @@ EKF_UPDATE = ("elimaloc_tpu_torch/csrc/ekf_update.cu + ekf_update.cuh",
               "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 update_gnss + "
               ":705 update_can as elimaloc_tpu/pipeline/runtime.py:453-480 (the CAN / GPS "
               "sub-batches)")
-#: kernel J, whose one-ring entry serves the tick mode (kernel H pushes a
-#: frame's and an IMU event's rows itself): its source and what it replaces
+#: kernel J, whose one-ring entry is the reference of kernels U and V (H, U
+#: and V push their rows themselves): its source and what it replaces
 RING_PUSH = ("elimaloc_tpu_torch/csrc/rings.cu + rings.cuh",
              "elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch (+ :75, :183, :192)")
 #: published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and
@@ -2609,11 +2620,11 @@ def joseph_path(pipe, log, fused, rec, mods):
 
 
 def ca_tick_row(call, mods):
-    """Kernel O against ``ca_tick_plain`` on a recorded tick of the tick
-    path: pos / vel within 1e-4 m, the quaternion 1e-6, each P entry within
-    1e-5 sqrt(P_ii P_jj) plus the rounding term (``p_entry_err``; the plain
-    dense F P F^T goes through cuBLAS), the flags equal, the ego-ring row as
-    kernel H's history."""
+    """Kernel O (kernel U's reference) against ``ca_tick_plain`` on the
+    recorded tick's inputs: pos / vel within 1e-4 m, the quaternion 1e-6,
+    each P entry within 1e-5 sqrt(P_ii P_jj) plus the rounding term
+    (``p_entry_err``; the plain dense F P F^T goes through cuBLAS), the
+    flags equal, the ego-ring row as kernel H's history."""
     kernels, efilter = mods[0], mods[7]
     st, t, params = call
     got, ghist = kernels.ca_tick(*call)
@@ -2630,22 +2641,20 @@ def ca_tick_row(call, mods):
              + ", ego row " + ", ".join(f"{e:.2e}" for e in hist_err))
     if not all(gates):
         raise AssertionError("ca_tick kernel vs plain: outside its gates")
-    # G = F P and G F^T: 39 nonzeros of F per column of P, a multiply and an
-    # add each, twice; the nominal step and the ego row (~600)
     moved = 2 * state_bytes(kernels, st) + params_bytes(kernels, params) + nbytes(t, *ghist)
-    return dict(name="ca_tick", source="elimaloc_tpu_torch/csrc/ca_tick.cu",
+    return dict(name="ca_tick", source="elimaloc_tpu_torch/csrc/ca_tick.cu + ca_tick.cuh",
                 replaces="elimaloc_tpu/ekf/filter.py:568 predict + elimaloc_tpu/pipeline/"
                          "runtime.py:249 tick_step (+ :174 _push_ego's ego_state)",
                 max_abs_err=max(err["pos"], err["vel"], err["rot"], *hist_err),
                 ms=time_ms(lambda: kernels.ca_tick(*call)),
                 plain_ms=time_ms(lambda: efilter.ca_tick_plain(*call)),
                 device_fn=(lambda: kernels.ca_tick(*call), "ca_tick_kernel"),
-                bound=bound(2 * 2 * 39 * 27 + 600, moved))
+                bound=bound(TICK_OPS, moved))
 
 
 def tick_push_row(call, mods):
-    """Kernel J with its IMU ring left out (the tick's ego push) against
-    ``push_rings_plain``: exactly equal."""
+    """Kernel J with its IMU ring left out (the tick's ego push, kernel U's
+    reference) against ``push_rings_plain``: exactly equal."""
     kernels, rings = mods[0], mods[8]
     got = kernels.ring_push(*call)
     ref = rings.push_rings_plain(*call)
@@ -2669,6 +2678,143 @@ def tick_push_row(call, mods):
                 launches_key="ring_push", bound=bound(8, moved))
 
 
+def same_ring(a, b):
+    """Two rings equal bit for bit, field by field."""
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(b))
+
+
+def ring_bytes(ring):
+    """A ring whole: its times, fields and count."""
+    return nbytes(*(getattr(ring, f.name) for f in dataclasses.fields(ring)))
+
+
+def o_then_j(kernels, st, t, params, ego):
+    """The launches kernel U replaced, on U's inputs: kernel O, then kernel J
+    pushing O's row into the ego ring alone."""
+    ekf, row = kernels.ca_tick(st, t, params)
+    one = torch.ones(1, dtype=torch.bool, device=t.device)
+    return ekf, kernels.ring_push(ego, None, row, None, one)[0]
+
+
+def tick_stage_row(call, pipe, mods):
+    """Kernel U, the tick with its ego push in one launch, on the recorded
+    tick: bit for bit against kernel O then kernel J's ego push (every
+    field of the state and of the ring), and against ``tick_stage_plain``
+    as kernel O is held (the ring's times and count exactly, its pos /
+    vel_local / gyro within 1e-4, rpy 1e-5 rad). One call of
+    ``runtime.tick_step`` must show exactly one device kernel, U's, under
+    torch.profiler. Bound: the record and the ego ring read and written
+    whole, the params, ``t``."""
+    kernels, runtime, efilter = mods[0], mods[6], mods[7]
+    st, t, params, ego = call
+    got, ring = kernels.tick_stage(*call)
+    ref, ref_ring = o_then_j(kernels, *call)
+    for f, _, _ in kernels.EKF_FIELDS:
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"tick_stage differs from kernel O in {f}")
+    if not same_ring(ring, ref_ring):
+        raise AssertionError("tick_stage differs from kernel J's ego push")
+    plain, plain_ring = efilter.tick_stage_plain(st, ego, t, params)
+    err = {f: float((getattr(got, f) - getattr(plain, f)).abs().max())
+           for f in ("pos", "vel", "rot")}
+    err["P share of its limit"] = p_entry_err(got.P, plain.P, st.P, 1e-5)
+    ekf_field_errors(kernels, got, plain)
+    tols = dict(pos=1e-4, rpy=1e-5, vel_local=1e-4, gyro=1e-4)
+    ring_err = {f: float((getattr(ring, f) - getattr(plain_ring, f)).abs().max()) for f in tols}
+    gates = [err["pos"] <= 1e-4, err["vel"] <= 1e-4, err["rot"] <= 1e-6,
+             err["P share of its limit"] <= 1.0, not torch.equal(plain.P, st.P),
+             torch.equal(ring.t, plain_ring.t), torch.equal(ring.count, plain_ring.count)]
+    gates += [ring_err[f] <= tol for f, tol in tols.items()]
+    log_line(f"  tick_stage: bit for bit = kernel O then kernel J; ego ring "
+             f"{int(ego.count)} -> {int(ring.count)} / {ego.capacity}; against plain "
+             + ", ".join(f"{k} {v:.2e}" for k, v in {**err, **ring_err}.items()))
+    if not all(gates):
+        raise AssertionError("tick_stage kernel vs plain: outside its gates")
+    pst = runtime.PipelineState(ekf=st, ego_ring=ego,
+                                imu_ring=mods[8].make_imu_ring(8, device=t.device))
+    moved = (2 * state_bytes(kernels, st) + params_bytes(kernels, params) + nbytes(t)
+             + ring_bytes(ego) + ring_bytes(ring))
+    return dict(name="tick_stage", source="elimaloc_tpu_torch/csrc/ca_tick.cu + ca_tick.cuh + "
+                "rings.cuh",
+                replaces="elimaloc_tpu/ekf/filter.py:568 predict + elimaloc_tpu/pipeline/"
+                         "runtime.py:249 tick_step with :172-179 _push_ego (elimaloc_tpu/"
+                         "pipeline/rings.py:126 as :183)",
+                max_abs_err=max(err["pos"], err["vel"], err["rot"], *ring_err.values()),
+                ms=time_ms(lambda: kernels.tick_stage(*call)),
+                plain_ms=time_ms(lambda: efilter.tick_stage_plain(st, ego, t, params)),
+                device_fn=(lambda: kernels.tick_stage(*call), "tick_stage_kernel"),
+                stage_fn=(lambda: runtime.tick_step(pst, t, pipe.params, pipe.static),
+                          "tick_stage_kernel"),
+                chain_fn=lambda: o_then_j(kernels, *call),
+                chain_label="kernel O, the valid flag's fill and kernel J",
+                bound=bound(TICK_OPS, moved))
+
+
+def imu_intake_row(call, tick_call, pipe, mods):
+    """Kernel V, the tick mode's IMU intake in one launch, on the recorded
+    IMU event: bit for bit against kernel H's IMU ring on the same sample
+    (H's CTA-1 work), against the chain it replaced (the rotation as two
+    cuBLAS products, then kernel J) within the rotation's rounding bound on
+    each side, 3 float32 eps of sum_j |R_ij v_j| (cuBLAS may contract into
+    FMAs; where the terms cancel that is more than one ulp of the result;
+    the largest difference is printed in ulps of the products' scale), and
+    against ``imu_intake_plain`` (times and count exactly,
+    gyro and acc within 1e-5). One call of ``runtime.imu_ring_step`` must
+    show exactly one device kernel, V's, under torch.profiler. Bound: the
+    IMU ring read and written whole, the sample and the rotation."""
+    kernels, runtime, rings = mods[0], mods[6], mods[8]
+    imu, t, acc, gyro, rot = call
+    st, _, params, ego = tick_call
+    got = kernels.imu_intake(*call)
+    _, _, h_imu = kernels.imu_stage(st, ego, imu, t.reshape(1), acc[None], gyro[None], None,
+                                    rot, pipe.params.ego_to_imu_trans, params,
+                                    pipe.static.ekf_flags)
+    if not same_ring(got, h_imu):
+        raise AssertionError("imu_intake differs from kernel H's IMU ring")
+    one = torch.ones(1, dtype=torch.bool, device=t.device)
+
+    def chain():
+        new = (t.reshape(1), gyro[None] @ rot.T, acc[None] @ rot.T)
+        return kernels.ring_push(None, imu, None, new, one)[1]
+
+    old = chain()
+    gates = [torch.equal(got.t, old.t), torch.equal(got.count, old.count)]
+    eps = torch.finfo(torch.float32).eps
+    chain_ulps = {}
+    for f, v in (("gyro", gyro), ("acc", acc)):
+        scale = (rot.abs() @ v.abs()) * eps
+        d = (getattr(got, f) - getattr(old, f)).abs()
+        chain_ulps[f] = float((d / scale).max())
+        gates.append(chain_ulps[f] <= 3.0)
+    plain = rings.imu_intake_plain(*call)
+    err = {f: float((getattr(got, f) - getattr(plain, f)).abs().max()) for f in ("gyro", "acc")}
+    gates += [torch.equal(got.t, plain.t), torch.equal(got.count, plain.count)]
+    gates += [e <= 1e-5 for e in err.values()]
+    log_line(f"  imu_intake: bit for bit = kernel H's IMU ring; against the cuBLAS rotation "
+             f"+ kernel J, in eps of the products' scale: "
+             + ", ".join(f"{k} {v:.2f}" for k, v in chain_ulps.items())
+             + f" (at most 3); IMU ring {int(imu.count)} -> "
+             f"{int(got.count)} / {imu.capacity}; against plain "
+             + ", ".join(f"{k} {v:.2e}" for k, v in err.items()))
+    if not all(gates):
+        raise AssertionError("imu_intake kernel vs the chain or plain: outside its gates")
+    pst = runtime.PipelineState(ekf=st, ego_ring=ego, imu_ring=imu)
+    # per sample the two 3x3 rotations (30); the copy is bytes
+    moved = nbytes(t, acc, gyro, rot) + ring_bytes(imu) + ring_bytes(got)
+    return dict(name="imu_intake", source="elimaloc_tpu_torch/csrc/imu_chain.cu + rings.cuh",
+                replaces="elimaloc_tpu/pipeline/runtime.py:237-246 imu_ring_step "
+                         "(elimaloc_tpu/pipeline/rings.py:126 as :192)",
+                max_abs_err=max(err.values()),
+                ms=time_ms(lambda: kernels.imu_intake(*call)),
+                plain_ms=time_ms(lambda: rings.imu_intake_plain(*call)),
+                device_fn=(lambda: kernels.imu_intake(*call), "imu_intake_kernel"),
+                stage_fn=(lambda: runtime.imu_ring_step(pst, t, acc, gyro, pipe.params,
+                                                        pipe.static), "imu_intake_kernel"),
+                chain_fn=chain, chain_label="the rotation (cuBLAS) and kernel J",
+                bound=bound(30, moved))
+
+
 def tick_count(log):
     """The ticks the event loop makes over the log: np.arange over the
     rebased float64 IMU span at the 100 Hz tick rate (runtime.run)."""
@@ -2676,14 +2822,31 @@ def tick_count(log):
     return len(np.arange(log.imu_t[0] - base, log.imu_t[-1] - base, 0.01))
 
 
+def sync_free(fn):
+    """fn under ``torch.cuda.set_sync_debug_mode("error")``: a host sync
+    inside it raises."""
+    def step(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return step
+
+
 def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
     """``run`` with use_imu=False (the reference's tick mode) on the P2P
-    configuration: a warm-up run recording the 100th tick's inputs and its
-    ego push, kernel O and J's one-ring form against their plain versions,
-    then the timed run: launch counts from 0 around it (O once per tick, no
-    IMU chain, J once per tick and per IMU sample), the events of each kind
-    and their time, applied, and the truth ATE under JAX's own tick-mode
-    bound (2.0 m)."""
+    configuration: a warm-up run with every tick and IMU event under
+    ``set_sync_debug_mode("error")``, in which every launch of kernel U is
+    held bit for bit to kernel O then kernel J's ego push on its inputs and
+    every launch of kernel V to kernel H's IMU ring on its sample, and
+    which records the 100th tick's call of U and the first IMU event's call
+    of V after it; U and V against their plain versions on those calls, O
+    and J's one-ring form (their reference) against their plain versions
+    on U's inputs; then the timed run: launch counts from 0 around
+    it (U once per tick, V once per IMU sample, O, J and the IMU chain H
+    never), the events of each kind and their time, applied, and the truth
+    ATE under JAX's own tick-mode bound (2.0 m)."""
     kernels, tiles, cfg_mod, runtime = mods[0], mods[3], mods[5], mods[6]
     cfg = method_cfg(cfg_mod, "P2P")
     cfg.ekf.use_imu = False
@@ -2692,26 +2855,60 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
         tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots),
         ego_ring_size=512, imu_ring_size=256)
     rec = {"n": 0}
-    orig_tick, orig_push = kernels.ca_tick, kernels.ring_push
+    orig_kernels = {n: getattr(kernels, n) for n in ("tick_stage", "imu_intake")}
+    orig_steps = {n: getattr(runtime, n) for n in ("tick_step", "imu_ring_step")}
+    # (output, reference) of every launch, compared after the replay (a
+    # comparison inside a step would be a host sync); H's IMU ring does not
+    # read the filter or the ego ring it is given
+    pairs = {"tick_stage": [], "imu_intake": []}
+    h_state = mods[7].init_state(pipe.params.ekf)
+    h_ego = mods[8].make_ego_ring(8, device="cuda")
 
     def tick(*a):
         rec["n"] += 1
         if rec["n"] == 100:
-            rec["ca_tick"] = a
-        return orig_tick(*a)
+            rec["tick_stage"] = a
+        out = orig_kernels["tick_stage"](*a)
+        pairs["tick_stage"].append((out, o_then_j(kernels, *a)))
+        return out
 
-    def push(*a):
-        if "ca_tick" in rec and "ring_push" not in rec and a[1] is None:
-            rec["ring_push"] = a
-        return orig_push(*a)
+    def intake(*a):
+        if "tick_stage" in rec and "imu_intake" not in rec:
+            rec["imu_intake"] = a
+        out = orig_kernels["imu_intake"](*a)
+        imu, t, acc, gyro, rot = a
+        pairs["imu_intake"].append((out, kernels.imu_stage(
+            h_state, h_ego, imu, t.reshape(1), acc[None], gyro[None], None, rot,
+            pipe.params.ego_to_imu_trans, pipe.params.ekf, pipe.static.ekf_flags)[2]))
+        return out
 
-    kernels.ca_tick, kernels.ring_push = tick, push
+    kernels.tick_stage, kernels.imu_intake = tick, intake
+    for name, fn in orig_steps.items():
+        setattr(runtime, name, sync_free(fn))
     try:
         pipe.run(log)
     finally:
-        kernels.ca_tick, kernels.ring_push = orig_tick, orig_push
+        for name, fn in {**orig_kernels, **orig_steps}.items():
+            setattr(kernels if name in orig_kernels else runtime, name, fn)
     torch.cuda.synchronize()
-    rows = [ca_tick_row(rec["ca_tick"], mods), tick_push_row(rec["ring_push"], mods)]
+    for (state, ring), (ref, ref_ring) in pairs["tick_stage"]:
+        if not (all(torch.equal(getattr(state, f), getattr(ref, f))
+                    for f, _, _ in kernels.EKF_FIELDS) and same_ring(ring, ref_ring)):
+            raise AssertionError(f"[{TICK}] a tick of kernel U differs from kernel O then J")
+    if not all(same_ring(v, h) for v, h in pairs["imu_intake"]):
+        raise AssertionError(f"[{TICK}] an IMU event of kernel V differs from kernel H's IMU ring")
+    log_line(f"[{TICK}] warm-up replay: every tick and IMU event ran under "
+             "set_sync_debug_mode('error') (no host sync); U bit for bit = O then J on all "
+             f"{len(pairs['tick_stage'])} ticks, V = H's IMU ring on all "
+             f"{len(pairs['imu_intake'])} IMU events")
+    del pairs
+    st, t, params, ego = rec["tick_stage"]
+    o_call = (st, t, params)
+    _, row = kernels.ca_tick(*o_call)
+    j_call = (ego, None, row, None, torch.ones(1, dtype=torch.bool, device=t.device))
+    rows = [tick_stage_row(rec["tick_stage"], pipe, mods),
+            imu_intake_row(rec["imu_intake"], rec["tick_stage"], pipe, mods),
+            ca_tick_row(o_call, mods), tick_push_row(j_call, mods)]
     for r in rows:
         log_line(f"[{TICK}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
@@ -2754,11 +2951,12 @@ def tick_path(packed, log, ds_points, max_slots, mods, ate_rmse):
              + f"; ticks expected {n_ticks}, IMU samples {n_imu}; applied {applied:.3f}, "
              f"ATE {ate:.4f} m, launches {launches}")
     check_launches(TICK, launches, loop_kernels(
-        SHARED + (KERNEL["P2P"][0], "ca_tick", "ring_push") + tuple(SCAN_KERNELS)))
+        SHARED + (KERNEL["P2P"][0], "tick_stage", "imu_intake") + tuple(SCAN_KERNELS)))
     check_loop(TICK, launches, per_kind["scan"][0])
     check_scan_end(TICK, launches, per_kind["scan"][0], 0)
-    if not (launches["ca_tick"] == n_ticks and launches["imu_stage"] == 0
-            and launches["ring_push"] == n_ticks + n_imu):
+    if not (launches["tick_stage"] == n_ticks and launches["imu_intake"] == n_imu
+            and launches["ca_tick"] == 0 and launches["ring_push"] == 0
+            and launches["imu_stage"] == 0):
         raise AssertionError(f"[{TICK}] launch counts: {launches}")
     if not (ate < TICK_ATE_GATE and np.all(np.isfinite(traj["pos"]))
             and traj["pos"].shape == (n, 3)):
@@ -3315,7 +3513,7 @@ def main():
         if "stage_fn" in r:
             # one call of the stage's runtime entry: its kernels alone on the
             # device (the IMU stage: H; the scan's front: T's two; the scan's
-            # end: S)
+            # end: S; the tick: U; the tick mode's IMU event: V)
             fn, names = r.pop("stage_fn")
             names = names if isinstance(names, tuple) else (names,)
             per, _ = device_profile(fn)

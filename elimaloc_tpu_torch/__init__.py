@@ -19,9 +19,11 @@ updates), J (the ring pushes), K (the ring queries at a scan's times), L
 (the PCM measurement), M (the GN step), N (the window shift), O (the CA
 tick), P (the radar covariances), Q (the hash grid's search and queries),
 R (the ground probe), S (the scan's end: L's measurement, the PCM
-update and the frame's published outputs in one launch) and T (the scan's
+update and the frame's published outputs in one launch), T (the scan's
 front: the range gate, the scan times, K's ring queries and D's deskew in
-one host call). On CPU tensors
+one host call), U (the tick mode's CA tick: O's body and J's ego push in
+one launch) and V (the tick mode's IMU-only intake in one launch). On CPU
+tensors
 their plain PyTorch versions run instead. ``LocalizationPipeline`` runs on
 the card unless given ``device="cpu"``.
 """

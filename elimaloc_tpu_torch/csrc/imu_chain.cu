@@ -16,7 +16,7 @@
 // two CTAs that share nothing.
 //   CTA 1 rotates the samples into the ego frame (no lever arm) and pushes
 //   the IMU ring (rings.cuh), which depends on the raw samples alone: it
-//   runs beside the chain.
+//   runs beside the chain (imu_intake, which kernel V runs alone).
 //   CTA 0 stages the state record, the params record and every sample (each
 //   converted by one thread, acc + w x (w x (-r)) after the rotation) into
 //   shared memory, so no serial step reads global memory. Per sample thread
@@ -33,6 +33,14 @@
 //   record and pushes the ego ring from those rows in shared memory.
 // Every arithmetic step is the plain version's, in its order, with the
 // rounding helpers of common.cuh and ekf.cuh (no FMA contraction).
+//
+// Kernel V: the tick mode's IMU-only intake (use_imu=False), one launch an
+// IMU sample. Replaces elimaloc_tpu/pipeline/runtime.py:imu_ring_step
+// (:237-246): the sample rotated by ego_to_imu_rot without lever-arm
+// compensation, pushed into the IMU ring (pipeline/rings.py:126 as :192,
+// eps 0). Bound: latency (a 256 x 7-float ring copied each way). Design:
+// H's CTA-1 work (imu_intake) run as one CTA, so V's ring is H's bit for
+// bit on the same sample.
 #include "ekf.cuh"
 #include "rings.cuh"
 
@@ -236,7 +244,7 @@ struct Samples {
   bool* valid;
 };
 
-__host__ __device__ __forceinline__ size_t samples_bytes(int n, int cap) {
+__host__ __device__ constexpr size_t samples_bytes(int n, int cap) {
   return (size_t)27 * n * sizeof(float) + (size_t)(n < cap ? n : cap) * sizeof(int) + n;
 }
 
@@ -275,6 +283,34 @@ struct Args {
   ring::Ring ego, imu;
 };
 
+// The whole CTA (H's CTA 1, kernel V's one): the n samples rotated by
+// ``rot`` (ego_to_imu_rot [3, 3], no lever arm: runtime.py:420-423,
+// :237-246) into ``m``'s t, g and a, then pushed into the IMU ring ``g``.
+__device__ void imu_intake(const float* __restrict__ ts, const float* __restrict__ acc,
+                           const float* __restrict__ gyro, const bool* __restrict__ valid,
+                           int n, const float* __restrict__ rot, ring::Ring g,
+                           const Samples& m) {
+  __shared__ float R[9];
+  if (threadIdx.x < 9) R[threadIdx.x] = rot[threadIdx.x];
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    m.t[j] = ts[j];
+    m.valid[j] = valid == nullptr || valid[j];
+    float ai[3], gi[3];
+    for (int c = 0; c < 3; ++c) {
+      ai[c] = acc[3 * j + c];
+      gi[c] = gyro[3 * j + c];
+    }
+    matvec(R, gi, m.g + 3 * j);
+    matvec(R, ai, m.a + 3 * j);
+  }
+  __syncthreads();
+  g.new_t = m.t;
+  g.new_f[0] = m.g;
+  g.new_f[1] = m.a;
+  ring::push(g, n, m.valid, m.ranks);
+}
+
 __global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) char smem[];
   __shared__ State s;
@@ -283,47 +319,36 @@ __global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_consta
   __shared__ Update u;
   __shared__ float R[9], neg_r[3];
   const int n = a.n;
-  const bool ekf = blockIdx.x == 0;
-  const Samples m = carve(smem, n, ekf ? a.ego.cap : a.imu.cap);
+  if (blockIdx.x == 1) {
+    imu_intake(a.ts, a.acc, a.gyro, a.valid, n, a.rot, a.imu, carve(smem, n, a.imu.cap));
+    return;
+  }
+  const Samples m = carve(smem, n, a.ego.cap);
   if (threadIdx.x < 9) R[threadIdx.x] = a.rot[threadIdx.x];
   if (threadIdx.x < 3) neg_r[threadIdx.x] = -a.trans[threadIdx.x];
-  if (ekf) {
-    load_state(a.rec_in, s);
-    load_params(a.prm, prm);
-  }
+  load_state(a.rec_in, s);
+  load_params(a.prm, prm);
   __syncthreads();
-  // the samples in the ego frame (ops/frames.py imu_to_ego on CTA 0, the
-  // rotation alone on CTA 1: runtime.py:420-423)
+  // the samples in the ego frame (ops/frames.py imu_to_ego: the rotation,
+  // then the lever arm)
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     m.t[j] = a.ts[j];
     m.valid[j] = a.valid == nullptr || a.valid[j];
-    float ai[3], gi[3], ar[3], gr[3];
+    float ai[3], gi[3], ar[3], gr[3], c1[3], c2[3];
     for (int c = 0; c < 3; ++c) {
       ai[c] = a.acc[3 * j + c];
       gi[c] = a.gyro[3 * j + c];
     }
     matvec(R, gi, gr);
     matvec(R, ai, ar);
-    if (ekf) {
-      float c1[3], c2[3];
-      cross(gr, neg_r, c1);
-      cross(gr, c1, c2);
-      for (int c = 0; c < 3; ++c) ar[c] = add(ar[c], c2[c]);
-    }
+    cross(gr, neg_r, c1);
+    cross(gr, c1, c2);
     for (int c = 0; c < 3; ++c) {
-      m.a[3 * j + c] = ar[c];
+      m.a[3 * j + c] = add(ar[c], c2[c]);
       m.g[3 * j + c] = gr[c];
     }
   }
   __syncthreads();
-  if (!ekf) {
-    ring::Ring g = a.imu;
-    g.new_t = m.t;
-    g.new_f[0] = m.g;
-    g.new_f[1] = m.a;
-    ring::push(g, n, m.valid, m.ranks);
-    return;
-  }
   const bool gravity = a.flags & kGravity, joseph = a.flags & kJoseph;
   const bool run_cf = a.flags & kRunCf, use_zupt = a.flags & kUseZupt;
   for (int k = 0; k < n; ++k) {
@@ -402,6 +427,16 @@ __global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_consta
   ring::push(g, n, m.valid, m.ranks);
 }
 
+// Kernel V: one sample through imu_intake, its staging in static shared
+// memory.
+__global__ void __launch_bounds__(kThreads) imu_intake_kernel(
+    const float* __restrict__ t, const float* __restrict__ acc,
+    const float* __restrict__ gyro, const float* __restrict__ rot,
+    const __grid_constant__ ring::Ring imu) {
+  __shared__ __align__(16) char smem[samples_bytes(1, 1)];
+  imu_intake(t, acc, gyro, nullptr, 1, rot, imu, carve(smem, 1, 1));
+}
+
 }  // namespace
 
 // ego: t, pos, rpy, vel_local, gyro, count of the ego ring in; imu: t, gyro,
@@ -439,5 +474,18 @@ extern "C" int elm_imu_stage(const void* rec_in, void* rec_out, const float* par
     allowed = bytes;
   }
   imu_stage_kernel<<<2, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// imu: t, gyro, acc, count of the IMU ring in; ring_out: its t [imu_cap]
+// and its two [imu_cap, 3] fields, then the int32 count. One sample (t,
+// acc [3], gyro [3], raw) and ego_to_imu_rot [3, 3].
+extern "C" int elm_imu_intake(void* const* imu, int imu_cap, const float* t, const float* acc,
+                              const float* gyro, const float* rot, float* ring_out,
+                              cudaStream_t stream) {
+  ring::Ring g;
+  ring::fill_in(g, imu_cap, 2, 0.0f, imu);
+  ring::fill_out(g, ring_out, (int*)(ring_out + 7 * imu_cap));
+  imu_intake_kernel<<<1, kThreads, 0, stream>>>(t, acc, gyro, rot, g);
   return (int)cudaGetLastError();
 }

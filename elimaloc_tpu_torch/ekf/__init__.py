@@ -2,7 +2,6 @@
 
 from .filter import (  # noqa: F401
     EkfFlags,
-    ca_tick,
     ego_state,
     init_state,
     predict,

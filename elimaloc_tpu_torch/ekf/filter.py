@@ -17,11 +17,12 @@ samples run through :func:`imu_chain_plain` and :func:`ego_history` in the
 plain composition of ``pipeline.runtime.imu_subbatch_plain``; on the card
 the whole IMU stage (sensor-frame conversion, this chain, the ego-ring rows
 and both ring pushes) is one launch of kernel H, ``kernels.imu_stage``.
-:func:`ca_tick` (one CA tick; kernel O) and :func:`update_chain` (CAN, GPS
-and PCM updates; kernel I) dispatch by device. ``EkfFlags.joseph_form``
-selects the Joseph-form covariance update in the plain versions and in
-kernels H and I, which take and give the state as one packed record
-(``state.RECORD_FIELDS``).
+:func:`update_chain` (CAN, GPS and PCM updates; kernel I) dispatches by
+device; :func:`tick_stage_plain` (one CA tick and its ego push) is kernel
+U's plain version, which ``pipeline.runtime.tick_step`` runs on CPU
+tensors. ``EkfFlags.joseph_form`` selects the Joseph-form covariance update
+in the plain versions and in kernels H and I, which take and give the
+state as one packed record (``state.RECORD_FIELDS``).
 """
 
 from __future__ import annotations
@@ -656,9 +657,9 @@ def update_can(state: EkfState, can: CanMeas, params: EkfParams,
 
 
 # --------------------------------------------------------------------------- #
-# A frame's sequences: the plain versions of kernels H (the chain half), O
-# and I, and the dispatch of O and I (plain for CPU tensors, the kernel for
-# CUDA ones; kernel H's is runtime.imu_subbatch)
+# A frame's sequences: the plain versions of kernels H (the chain half), O,
+# U and I, and the dispatch of I (plain for CPU tensors, the kernel for CUDA
+# ones; kernel H's is runtime.imu_subbatch, kernel U's runtime.tick_step)
 # --------------------------------------------------------------------------- #
 
 def imu_chain_plain(state: EkfState, ts, acc, gyro, valid, params: EkfParams,
@@ -693,11 +694,16 @@ def ca_tick_plain(state: EkfState, t, params: EkfParams):
     return state, ego_history(*(x[None] for x in row))
 
 
-def ca_tick(state: EkfState, t, params: EkfParams):
-    """:func:`ca_tick_plain` for CPU tensors, kernel O for CUDA ones."""
-    if state.P.device.type == "cpu":
-        return ca_tick_plain(state, t, params)
-    return kernels.ca_tick(state, t, params)
+def tick_stage_plain(state: EkfState, ego_ring, t, params: EkfParams):
+    """Plain PyTorch version of kernel U: :func:`ca_tick_plain` at ``t``,
+    then its row pushed into ``ego_ring`` (``pipeline.rings.push_ego_batch``,
+    eps 1e-5): JAX ``runtime.py:249`` tick_step with its ``_push_ego``
+    (:172-179). Returns (state, ego ring)."""
+    from ..pipeline import rings  # the pipeline package imports this module
+
+    state, row = ca_tick_plain(state, t, params)
+    one = torch.ones(1, dtype=torch.bool, device=t.device)
+    return state, rings.push_ego_batch(ego_ring, *row, one)
 
 
 def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,

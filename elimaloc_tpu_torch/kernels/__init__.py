@@ -10,12 +10,13 @@ non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method's loop kernel on the
 tile backend (p2p_register, gicp_register, vgicp_register,
-avgicp_register: one of them a path), N, O and P, kernel I, which runs
+avgicp_register: one of them a path), N, P, U and V, kernel I, which runs
 only for CAN and GPS, the one-iteration entries A, E, F, G, Q and M, which
 launch on no path (a loop kernel runs their slot code and M's step every
 iteration; they stay as the reference each loop is held to, and E and F
-for the matches), L, whose body runs inside S, and D and K, whose bodies
-run inside T.
+for the matches), L, whose body runs inside S, D and K, whose bodies run
+inside T, and O and J, which launch on no path (U runs O's body and J's
+push, V H's IMU intake; they stay as U's and V's reference).
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -66,7 +67,8 @@ I         ekf_update          filter._ekf_measurement_update + update_gnss +
                               update_can (the CAN / GPS sub-batches; its PCM
                               leg is kernel S's reference)
 J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
-                              (the tick mode's ego push, its IMU intake)
+                              (kernel U's and V's reference; its body runs
+                              inside H, U and V)
 K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
                               + the initial guess's compose (runtime.py:338)
                               (kernel T's reference; its body runs inside T)
@@ -79,8 +81,9 @@ M         gn_step             register/icp.py:_solve_step + _step_transform + th
                               (gn_step.cuh) runs inside every loop kernel
 N         shift_window        map/tiles.py:_shift_window_impl (shift_window), the
                               incremental move of an active map window
-O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False,
-                              runtime.tick_step) + its ego-ring entry
+O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=False)
+                              + its ego-ring entry (kernel U's reference; its
+                              body runs inside U)
 P         radar_cov           register/icp.py:radar_point_cov + the slot packing
                               of run_register (use_radar_cov)
 Q         hash_correspond     map/grid.py:lookup + query_* + icp._iteration (the
@@ -99,14 +102,22 @@ T         scan_front          runtime.scan_front_plain: the scan's front, the
                               delayed stamp, the range gate, the scan times,
                               K's ring queries and D's deskew, one host call
                               (two launches) a scan
+U         tick_stage          ekf.filter.tick_stage_plain: the tick mode's CA
+                              tick (O's body) and the push of its row into the
+                              ego ring (J's push), one launch a tick
+                              (runtime.tick_step)
+V         imu_intake          pipeline.rings.imu_intake_plain: the tick mode's
+                              IMU-only intake, the sample rotated and pushed
+                              into the IMU ring (H's CTA-1 work), one launch
+                              an IMU sample (runtime.imu_ring_step)
 ========  ==================  ===================================================
 
-Kernel N runs only on the active-window path (``map_window_radius``), O and
-J only in the event loop's tick mode (``use_imu=False``), P once per registration
+Kernel N runs only on the active-window path (``map_window_radius``), U and
+V only in the event loop's tick mode (``use_imu=False``), P once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
 place of B and of A, E, F, G (inside hash_register on the registration
 path); its query and lookup entries and R serve the
-grid's own functions. H, I, O and S take and give the EKF state as one packed
+grid's own functions. H, I, O, S and U take and give the EKF state as one packed
 record and read the parameters from one (``ekf.state``): a state whose
 fields are not the views of one record is packed first, and counted in
 :data:`packs`; they return ``ekf.state.RecordState``, whose fields are
@@ -135,7 +146,7 @@ launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "gn_step": 0, "shift_window": 0, "ca_tick": 0, "radar_cov": 0,
             "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0,
             "gicp_register": 0, "vgicp_register": 0, "avgicp_register": 0,
-            "hash_register": 0}
+            "hash_register": 0, "tick_stage": 0, "imu_intake": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -440,8 +451,8 @@ def avgicp_correspond(halo_vox_mean, halo_vox_cov, halo_vox_coord, slot_tile, sb
 
 
 # --------------------------------------------------------------------------- #
-# Kernels H, I and O: the EKF in one CTA (csrc/ekf.cuh), the state and the
-# parameters as packed records (ekf/state.py)
+# Kernels H, I, O, U and V: the EKF and its rings (csrc/ekf.cuh, rings.cuh),
+# the state and the parameters as packed records (ekf/state.py)
 # --------------------------------------------------------------------------- #
 
 _F32, _BOOL = torch.float32, torch.bool
@@ -539,6 +550,18 @@ _EGO_FIELDS = ("pos", "rpy", "vel_local", "gyro")
 _IMU_FIELDS = ("gyro", "acc")
 
 
+def _made_ring(cls, name, fields, t, f, count):
+    """The ring ``cls`` a kernel wrote: its times ``t`` [cap], its fields
+    ``f`` ([cap, 3] each, one after another) and its int32 ``count``, all
+    views of the launch's fresh buffer; remembered with the pointer list
+    :func:`_ring_in` makes, so the next kernel that takes it skips the
+    checks."""
+    f = f.view(len(fields), -1, 3).unbind()
+    ring = cls(t=t, count=count, **dict(zip(fields, f)))
+    _remember(name, ring, _ptr_array([v.data_ptr() for v in (t, *f, count)]))
+    return ring
+
+
 def _ring_in(ring, name, fields):
     """The pointer list of a ring going in: t, its [cap, 3] fields, count."""
     ptrs = _known(name, ring)
@@ -580,21 +603,17 @@ def imu_stage(state, ego, imu, ts, acc, gyro, valid, rot, trans, params, flags):
     _raise_on(rc, "imu_stage")
     launches["imu_stage"] += 1
     t_e, f_e, t_i, f_i, counts = buf.split_with_sizes((re, 12 * re, ri, 6 * ri, 2))
-    f_e, f_i = f_e.view(4, re, 3).unbind(), f_i.view(2, ri, 3).unbind()
-    counts = counts.view(torch.int32).unbind()
-    ego = type(ego)(t=t_e, pos=f_e[0], rpy=f_e[1], vel_local=f_e[2], gyro=f_e[3],
-                    count=counts[0])
-    imu = type(imu)(t=t_i, gyro=f_i[0], acc=f_i[1], count=counts[1])
-    # the rings' pointer lists as _ring_in makes them: t, fields, count
-    _remember("ego_ring", ego, _ptr_array([v.data_ptr() for v in (t_e, *f_e, counts[0])]))
-    _remember("imu_ring", imu, _ptr_array([v.data_ptr() for v in (t_i, *f_i, counts[1])]))
-    return ekf_state.RecordState(out), ego, imu
+    c_e, c_i = counts.view(torch.int32).unbind()
+    return (ekf_state.RecordState(out),
+            _made_ring(type(ego), "ego_ring", _EGO_FIELDS, t_e, f_e, c_e),
+            _made_ring(type(imu), "imu_ring", _IMU_FIELDS, t_i, f_i, c_i))
 
 
 def ca_tick(state, t, params):
     """Kernel O (ekf.filter.ca_tick_plain): ``predict`` at the device scalar
     ``t`` (one constant-acceleration tick), then the tick's ego-ring entry.
-    Returns (state, (t [1], pos, rpy, vel_local, gyro [1, 3]))."""
+    Returns (state, (t [1], pos, rpy, vel_local, gyro [1, 3])). Kernel U's
+    reference: :func:`tick_stage` runs its body and the push."""
     (p_state, state), (p_params, params) = _state_in(state), _params(params)
     args = [p_state, None, p_params, _check(t, "t", _F32, ())]
     out, args[1] = _state_out(t.device)
@@ -604,6 +623,45 @@ def ca_tick(state, t, params):
     _raise_on(rc, "ca_tick")
     launches["ca_tick"] += 1
     return ekf_state.RecordState(out), (hist[:1],) + hist[1:].view(4, 1, 3).unbind()
+
+
+def tick_stage(state, t, params, ego):
+    """Kernel U (ekf.filter.tick_stage_plain): ``predict`` at the device
+    scalar ``t`` (one constant-acceleration tick), then the tick's ego row
+    pushed into the ego ring ``ego`` (dedupe eps 1e-5), in one launch: kernel
+    O's body and kernel J's push. Returns (state, ego ring), the ring's
+    fields views of one fresh buffer."""
+    re = ego.capacity
+    dev = t.device
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    args = [p_state, None, p_params, _check(t, "t", _F32, ()),
+            _ring_in(ego, "ego_ring", _EGO_FIELDS), ctypes.c_int(re)]
+    out, args[1] = _state_out(dev)
+    buf = torch.empty(13 * re + 1, dtype=_F32, device=dev)
+    rc = library().elm_tick_stage(*args, ctypes.c_void_p(buf.data_ptr()), _stream(t))
+    _raise_on(rc, "tick_stage")
+    launches["tick_stage"] += 1
+    t_e, f_e, c_e = buf.split_with_sizes((re, 12 * re, 1))
+    return ekf_state.RecordState(out), _made_ring(type(ego), "ego_ring", _EGO_FIELDS, t_e, f_e,
+                                                  c_e.view(torch.int32)[0])
+
+
+def imu_intake(imu, t, acc, gyro, rot):
+    """Kernel V (pipeline.rings.imu_intake_plain): one raw IMU sample (the
+    device scalar ``t``, ``acc`` [3], ``gyro`` [3]) rotated by ``rot``
+    (ego_to_imu_rot [3, 3], no lever arm) and pushed into the IMU ring
+    ``imu`` (eps 0), in one launch: kernel H's IMU intake. Returns the IMU
+    ring, its fields views of one fresh buffer."""
+    ri = imu.capacity
+    args = [_ring_in(imu, "imu_ring", _IMU_FIELDS), ctypes.c_int(ri), _check(t, "t", _F32, ()),
+            _check(acc, "acc", _F32, _V3), _check(gyro, "gyro", _F32, _V3),
+            _check(rot, "ego_to_imu_rot", _F32, (3, 3))]
+    buf = torch.empty(7 * ri + 1, dtype=_F32, device=t.device)
+    rc = library().elm_imu_intake(*args, ctypes.c_void_p(buf.data_ptr()), _stream(t))
+    _raise_on(rc, "imu_intake")
+    launches["imu_intake"] += 1
+    t_i, f_i, c_i = buf.split_with_sizes((ri, 6 * ri, 1))
+    return _made_ring(type(imu), "imu_ring", _IMU_FIELDS, t_i, f_i, c_i.view(torch.int32)[0])
 
 
 def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
@@ -682,10 +740,10 @@ def ring_push(ego, imu, ego_new, imu_new, valid):
     ``ego_new = (t, pos, rpy, vel_local, gyro)`` into the ego ring (dedupe
     eps 1e-5) and ``imu_new = (t, gyro, acc)`` into the IMU ring (eps 0),
     both masked by ``valid``, in one launch. A ring given as None (its
-    samples None) is left out and comes back None. Kernel H pushes the
-    frame's and the IMU event's rows itself; this entry serves the tick
-    mode (kernel O's row, the IMU-only intake). Returns (ego ring, IMU
-    ring)."""
+    samples None) is left out and comes back None. Kernels H, U and V push
+    their rows themselves; this entry is U's and V's reference (O's row into
+    the ego ring, the IMU-only intake into the IMU ring). Returns (ego ring,
+    IMU ring)."""
     m = valid.shape[0]
     dev = valid.device
     re = 0 if ego is None else ego.capacity

@@ -7,10 +7,13 @@ masked resets, and a batch push gives the same result as sequential pushes.
 
 On the card a frame's (and an IMU event's) pushes into both rings run
 inside kernel H (``runtime.imu_subbatch``), the tick mode's one-ring
-pushes as kernel J (:func:`push_rings`), the pose sync inside kernel T
-(kernel K's body, ``runtime.scan_front``) and the latency compensation
-inside kernel S (kernel L's body, ``runtime.pcm_stage``); the functions
-here are their plain versions, which CPU tensors run.
+pushes inside kernels U (the tick's ego push, ``runtime.tick_step``) and V
+(the IMU-only intake, ``runtime.imu_ring_step``), the pose sync inside
+kernel T (kernel K's body, ``runtime.scan_front``) and the latency
+compensation inside kernel S (kernel L's body, ``runtime.pcm_stage``); the
+functions here are their plain versions, which CPU tensors run. Kernel J
+(``kernels.ring_push``, plain version :func:`push_rings_plain`) is U's and
+V's reference.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import dataclasses
 
 import torch
 
-from .. import kernels
 from ..ops import lie
 from ..struct import Struct
 
@@ -157,13 +159,14 @@ def push_rings_plain(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
             None if imu is None else push_imu_batch(imu, *imu_new, valid))
 
 
-def push_rings(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
-    """Pushes into both rings or into one of them (the tick mode's ego push,
-    its IMU intake): :func:`push_rings_plain` for CPU tensors, kernel J for
-    CUDA ones."""
-    if valid.device.type == "cpu":
-        return push_rings_plain(ego, imu, ego_new, imu_new, valid)
-    return kernels.ring_push(ego, imu, ego_new, imu_new, valid)
+def imu_intake_plain(ring: ImuRing, t, acc_raw, gyro_raw, ego_to_imu_rot) -> ImuRing:
+    """Plain PyTorch version of kernel V: one raw IMU sample rotated into
+    the ego frame without lever-arm compensation, then pushed into the IMU
+    ring (:func:`push_imu_batch`, eps 0): JAX ``runtime.py:237-246``
+    imu_ring_step."""
+    one = torch.ones(1, dtype=torch.bool, device=t.device)
+    return push_imu_batch(ring, t.reshape(1), gyro_raw[None] @ ego_to_imu_rot.T,
+                          acc_raw[None] @ ego_to_imu_rot.T, one)
 
 
 # --------------------------------------------------------------------------- #

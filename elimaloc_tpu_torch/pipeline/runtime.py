@@ -29,9 +29,9 @@ next window from the host map on a side CUDA stream and moves it in place
 with kernel N (``tiles.shift_window``) while frames run on the old one.
 
 With ``use_imu=False`` the event loop runs the reference's tick mode: a
-constant-acceleration prediction per system-clock tick (:func:`tick_step`,
-kernel O, then the ego push, kernel J's one-ring entry) while raw IMU only
-feeds the IMU ring (:func:`imu_ring_step`, kernel J).
+constant-acceleration prediction and its ego push per system-clock tick
+(:func:`tick_step`, one launch of kernel U) while raw IMU only feeds the IMU
+ring (:func:`imu_ring_step`, one launch of kernel V).
 
 Refused with NotImplementedError, naming the ROADMAP Queue 1 item: fleet
 replay ("Fleet") and the live dashboard ("Host modules and utilities").
@@ -56,13 +56,12 @@ from ..ekf import (
     EkfParams,
     EkfState,
     GnssMeas,
-    ca_tick,
     init_state,
     make_params,
     update_chain,
     update_gnss,
 )
-from ..ekf.filter import ego_history, imu_chain_plain, update_chain_plain
+from ..ekf.filter import ego_history, imu_chain_plain, tick_stage_plain, update_chain_plain
 from ..ekf.state import pack_state
 from ..map import builder as map_builder
 from ..map import grid as map_grid
@@ -483,11 +482,14 @@ def imu_ring_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams
     use_imu off the matching node still consumes IMU for deskewing
     (pcm_matching.cpp:39, 326-336). The sample rotated into the ego frame
     without lever-arm compensation, as :func:`imu_subbatch` does, then a
-    push of one row into the IMU ring alone (kernel J on the card)."""
-    one = torch.ones(1, dtype=torch.bool, device=acc_raw.device)
-    imu_new = (t.reshape(1), gyro_raw[None] @ pp.ego_to_imu_rot.T,
-               acc_raw[None] @ pp.ego_to_imu_rot.T)
-    _, imu_ring = rings.push_rings(None, state.imu_ring, None, imu_new, one)
+    push of one row into the IMU ring alone: ``rings.imu_intake_plain`` for
+    CPU tensors, one launch of kernel V (``kernels.imu_intake``) for CUDA
+    ones."""
+    if t.device.type == "cpu":
+        imu_ring = rings.imu_intake_plain(state.imu_ring, t, acc_raw, gyro_raw,
+                                          pp.ego_to_imu_rot)
+    else:
+        imu_ring = kernels.imu_intake(state.imu_ring, t, acc_raw, gyro_raw, pp.ego_to_imu_rot)
     return state.replace(imu_ring=imu_ring)
 
 
@@ -495,12 +497,14 @@ def tick_step(state: PipelineState, t, pp: PipelineParams,
               ps: PipelineStatic) -> PipelineState:
     """System-clock CA prediction tick of use_imu=False (runtime.py:249-257;
     the reference's 100 Hz MainLoop -> RunPrediction, ekf_localization.cpp:
-    206-216, 660-676): ``ekf.filter.ca_tick`` (kernel O on the card), then
-    its ego state pushed into the ego ring alone (``_push_ego``,
-    runtime.py:174-180; kernel J)."""
-    ekf, row = ca_tick(state.ekf, t, pp.ekf)
-    one = torch.ones(1, dtype=torch.bool, device=t.device)
-    ego_ring, _ = rings.push_rings(state.ego_ring, None, row, None, one)
+    206-216, 660-676): the CA ``predict``, then its ego state pushed into
+    the ego ring alone (``_push_ego``, runtime.py:172-179):
+    ``ekf.filter.tick_stage_plain`` for CPU tensors, one launch of kernel U
+    (``kernels.tick_stage``) for CUDA ones."""
+    if t.device.type == "cpu":
+        ekf, ego_ring = tick_stage_plain(state.ekf, state.ego_ring, t, pp.ekf)
+    else:
+        ekf, ego_ring = kernels.tick_stage(state.ekf, t, pp.ekf, state.ego_ring)
     return state.replace(ekf=ekf, ego_ring=ego_ring)
 
 

@@ -182,7 +182,7 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: tick mode and the radar covariances, kernels J-P and their plain versions
 #: live in, the packed EKF records, the smoke script and the timing scripts
 #: of kernels B and C, of the IMU stage, of the P2P GN loop, of the scan's
-#: end and of its front
+#: end, of its front, of the registration loops and of the tick mode
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -192,7 +192,8 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/convert.py", "elimaloc_tpu_torch/config.py",
                "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
                "tools/time_gn_loop.py", "tools/time_pcm_stage.py",
-               "tools/time_scan_front.py", "tools/time_register_loops.py"]
+               "tools/time_scan_front.py", "tools/time_register_loops.py",
+               "tools/time_tick_mode.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)

@@ -183,8 +183,10 @@ def test_launch_counters_name_all_seven_kernels():
     query and lookup entries), the ground probe R, the P2P loop kernel (A
     and M in one launch), the scan's end S (L and I's PCM leg in one
     launch), the scan's front T (the gate, the scan times, K and D in
-    one host call) and the GICP, VGICP, AVGICP and hash loop kernels (E, F,
-    G or Q with M in one launch); the record packs apart."""
+    one host call), the GICP, VGICP, AVGICP and hash loop kernels (E, F,
+    G or Q with M in one launch) and the tick mode's U (O's tick and J's
+    ego push in one launch) and V (its IMU intake); the record packs
+    apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
@@ -193,7 +195,7 @@ def test_launch_counters_name_all_seven_kernels():
         "pcm_stage",
         "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height", "gicp_register", "vgicp_register", "avgicp_register",
-        "hash_register"])
+        "hash_register", "tick_stage", "imu_intake"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -309,7 +311,8 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
                                    "ekf_update", "ring_push", "scan_ring_query",
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
                                    "radar_cov", "hash_correspond", "hash_query",
-                                   "hash_lookup", "ground_height"])
+                                   "hash_lookup", "ground_height", "tick_stage",
+                                   "imu_intake"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
     if which in ("hash_correspond", "hash_query", "hash_lookup", "ground_height"):
         g = grid.to_device(scene[3], "cpu")
@@ -340,7 +343,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
                 kernels.gn_step(torch.zeros(18), torch.eye(4), torch.zeros(()),
                                 torch.eye(6), torch.ones(()), params, False)
         return
-    if which in ("imu_stage", "ekf_update", "ca_tick"):
+    if which in ("imu_stage", "ekf_update", "ca_tick", "tick_stage", "imu_intake"):
         st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
         with pytest.raises(ValueError, match="CUDA tensor required"):
             if which == "imu_stage":
@@ -348,6 +351,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
                                   pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, flags)
             elif which == "ca_tick":
                 kernels.ca_tick(st, torch.tensor(1.01), pp.ekf)
+            elif which == "tick_stage":
+                kernels.tick_stage(st, torch.tensor(1.01), pp.ekf, rings.make_ego_ring(8))
+            elif which == "imu_intake":
+                kernels.imu_intake(rings.make_imu_ring(8), imu[0][0], imu[1][0], imu[2][0],
+                                   pp.ego_to_imu_rot)
             else:
                 kernels.ekf_update(st, pp.ekf, flags, can=can)
         return
@@ -681,7 +689,7 @@ def test_packed_states_flow_through_kernels_h_i_o_on_card(cuda):
     kw = dict(can=can, gps=gps, gnss_uncertainty_max=pp.gnss_uncertainty_max,
               pcm=(meas, torch.tensor(True, device=cuda)))
     upd = efilter.update_chain(st.ekf, pp.ekf, flags, **kw)
-    tick, _ = efilter.ca_tick(upd, torch.tensor(1.2, device=cuda), pp.ekf)
+    tick, _ = kernels.ca_tick(upd, torch.tensor(1.2, device=cuda), pp.ekf)
     torch.cuda.synchronize()
     assert kernels.packs == {"ekf_state": 1, "ekf_params": 0}
     assert (kernels.launches["imu_stage"], kernels.launches["ekf_update"],
@@ -772,7 +780,7 @@ def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["imu_stage", "ekf_update"])
+@pytest.mark.parametrize("which", ["imu_stage", "ekf_update", "tick_stage", "imu_intake"])
 def test_ekf_kernels_refuse_float64_on_card(cuda, which):
     st, pp, flags, imu, can, *_ = _ekf_inputs(cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
@@ -780,6 +788,11 @@ def test_ekf_kernels_refuse_float64_on_card(cuda, which):
             kernels.imu_stage(st, rings.make_ego_ring(8, torch.float64, cuda),
                               rings.make_imu_ring(8, torch.float64, cuda), *imu,
                               pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, flags)
+        elif which == "tick_stage":
+            kernels.tick_stage(st, imu[0][0], pp.ekf, rings.make_ego_ring(8, torch.float64, cuda))
+        elif which == "imu_intake":
+            kernels.imu_intake(rings.make_imu_ring(8, torch.float64, cuda), imu[0][0],
+                               imu[1][0], imu[2][0], pp.ego_to_imu_rot)
         else:
             kernels.ekf_update(st, pp.ekf, flags, can=can)
 
@@ -886,7 +899,8 @@ def _gn_inputs(scene, device, method):
 
 
 def test_cpu_scan_time_callers_run_plain_versions_only(scene, monkeypatch):
-    """The callers of J, K, L, M on CPU tensors: the plain versions, no
+    """The callers of K, L, M and of the ring pushes (the tick mode's steps,
+    kernels U and V on the card) on CPU tensors: the plain versions, no
     library, no launch."""
     def no_library():
         raise AssertionError("the kernel library was requested for CPU tensors")
@@ -895,10 +909,16 @@ def test_cpu_scan_time_callers_run_plain_versions_only(scene, monkeypatch):
     monkeypatch.setattr(kernels, "library", no_library)
     kernels.reset_launches()
     ego, imu, ego_new, imu_new, valid = _push_inputs("cpu", "append")
-    got = rings.push_rings(ego, imu, ego_new, imu_new, valid)
-    ref = rings.push_rings_plain(ego, imu, ego_new, imu_new, valid)
-    for a, b in zip(got, ref):
-        assert all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("t", "count"))
+    st, pp, *_ = _tick_state("cpu", "predict")
+    pst = runtime.PipelineState(ekf=st, ego_ring=ego, imu_ring=imu)
+    ps = runtime.make_pipeline_static(ElimalocConfig())
+    t, acc, gyro = ego_new[0][1], imu_new[2][0], imu_new[1][0]
+    got = runtime.imu_ring_step(pst, t, acc, gyro, pp, ps).imu_ring
+    ref = rings.imu_intake_plain(imu, t, acc, gyro, pp.ego_to_imu_rot)
+    assert all(torch.equal(getattr(got, k), getattr(ref, k)) for k in ("t", "count", "acc"))
+    got = runtime.tick_step(pst, t, pp, ps).ego_ring
+    _, ref = efilter.tick_stage_plain(st, ego, t, pp.ekf)
+    assert all(torch.equal(getattr(got, k), getattr(ref, k)) for k in ("t", "count", "pos"))
     query = _query_inputs("cpu", "inside")
     info, guess, found, usable = deskew.scan_ring_query(*query)
     assert bool(found) and bool(usable) and bool(info.imu_available)
@@ -919,7 +939,7 @@ def test_ring_push_matches_plain_on_card(cuda, case):
     same copies and float32 comparisons)."""
     args = _push_inputs(cuda, case)
     kernels.reset_launches()
-    got = rings.push_rings(*args)
+    got = kernels.ring_push(*args)
     torch.cuda.synchronize()
     assert kernels.launches["ring_push"] == 1
     ref = rings.push_rings_plain(*args)
@@ -1067,7 +1087,7 @@ def _tick_state(device, case):
 def test_ca_tick_matches_plain_on_card(cuda, case):
     st, pp, t = _tick_state(cuda, case)
     kernels.reset_launches()
-    got, ghist = efilter.ca_tick(st, t, pp.ekf)
+    got, ghist = kernels.ca_tick(st, t, pp.ekf)
     torch.cuda.synchronize()
     assert kernels.launches["ca_tick"] == 1
     ref, rhist = efilter.ca_tick_plain(st, t, pp.ekf)
@@ -1189,7 +1209,7 @@ def test_ring_push_one_side_matches_plain_on_card(cuda, side):
     else:
         ego = ego_new = None
     kernels.reset_launches()
-    got = rings.push_rings(ego, imu, ego_new, imu_new, valid)
+    got = kernels.ring_push(ego, imu, ego_new, imu_new, valid)
     torch.cuda.synchronize()
     assert kernels.launches["ring_push"] == 1
     ref = rings.push_rings_plain(ego, imu, ego_new, imu_new, valid)
