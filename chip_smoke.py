@@ -7,11 +7,11 @@ points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
 (P2P, GICP, VGICP) and 2 (AVGICP); the hash paths put the same BuiltMap
-on the card as the hash grid (``backend="hash"``). Twenty-two paths:
+on the card as the hash grid (``backend="hash"``). Twenty-three paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
 AVGICP), for AVGICP with GPS and CAN fusion (BASELINE config 5,
 bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
-covariances (``use_radar_cov``: kernel P and the radar forms of E, F, G);
+covariances (``use_radar_cov``: kernel X and the radar forms of E, F, G);
 ``run_frames`` (the online mode) on the GICP pipeline ("GICP frames");
 ``run`` (the per-event loop) on the config-5 pipeline ("FUSION events"); the
 config-5 replay with the Joseph-form updates (kernels H, I and S with
@@ -31,8 +31,10 @@ registration, in place of B and A, E, F, G):
 ``run_fused`` as "P2P hash", "GICP hash", "VGICP hash", "AVGICP hash" and
 the radar forms "GICP / VGICP / AVGICP hash+radar"; "GICP hash frames"
 (``run_frames``); "reloc hash" (``initialize_at`` on the P2P hash
-pipeline); and "hash grid": the grid's own lookup, four queries (Q's other
-entries) and ground probe (kernel R) on the card.
+pipeline); "hash grid": the grid's own lookup, four queries (Q's other
+entries) and ground probe (kernel R) on the card; and "P2P long lead": a
+small log whose IMU stream leads its first scan by 12 s (kernel H twice a
+frame), through ``run_fused`` and ``run_frames``.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
@@ -62,35 +64,42 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         iteration with a finite pose and a match); on the
         P2P path (the main path) kernels B, C, D, H (the frame's whole IMU
         stage: the sensor-frame conversion, the EKF chain and both ring
-        pushes, against its plain composition; one profiled call of the
+        pushes, against its plain composition; five profiled calls of the
         stage must show H alone on the device), S (the scan's end in one
         launch: the PCM measurement, the PCM update and the frame's
         outputs) bit for bit against kernel L then kernel I on every
-        frame's call and against its plain composition on one (one profiled
-        call of the stage must show S alone on the device), T (the scan's
+        frame's call and against its plain composition on one (five profiled
+        calls of the stage must show S alone on the device), T (the scan's
         front in one host call: the range gate, the scan times, K's ring
         queries and D's deskew) bit for bit against the chain it replaced
         (the gate and the scan times in torch, kernel K, then kernel D) on
         every frame's call and on one frame with each of scan_time_end off,
         run_deskew off and bug_compat_z, its valid' point for point the
-        torch gate's, and against its plain composition on one (one
-        profiled call of the stage must show T's two kernels alone on the
+        torch gate's, and against its plain composition on one (five
+        profiled calls of the stage must show T's two kernels alone on the
         device), D and K (T's reference entries, on the chain's inputs) and
         L (S's reference entry, on S's inputs), B and C beside
         ``torch.sort(stable=True)`` of their keys alone (a partial
         yardstick) and on the sort's edge inputs (tests/sort_edges.py, bit
         for bit, one launch a call); on the fusion
-        path kernel I's launch a frame (the CAN + GPS sub-batches);
-        on the radar paths the method's kernel in its radar form (rtol 1e-3)
-        and, on GICP's, kernel P; on the hash paths kernel Q (its radar form
-        against a float64 tail, as E, F, G's) and M;
+        path kernel W's launch a frame (the CAN + GPS sub-batches) and
+        kernel I (W's reference) on the same calls, W bit for bit against
+        I on every frame's call and on a 6-DOF (NOVATEL) fix and a 3-DOF
+        fix with yaw not yet initialised; on every radar path kernel X bit
+        for bit against kernel P (X's reference) on every registration; on
+        the radar paths the method's kernel in its radar form (rtol 1e-3)
+        and, on GICP's, kernels X and P (five profiled calls of
+        ``icp.radar_slots`` must show X alone on the device); on the hash
+        paths kernel Q (its radar form against a float64 tail, as E, F,
+        G's) and M;
      c. the timed replay: the launch counts set to 0 just before it and
         read just after (every kernel of the path must have launched; H once
         a frame, J never, no EKF state or params packed: the same on every
         replay with IMU below, H once an IMU event in ``run``; on every path
         below that runs scan_step, T once a scan, K and D never, S once a
-        scan, L never, I once a fusion frame or CAN / GPS event and never
-        without them; on every tile
+        scan, L never, W once a fusion frame or CAN / GPS event and never
+        without them, I never; X once a radar registration, P never; on
+        every tile
         P2P path, the replays, the tick mode, the relocalizations and the
         windowed runs below, the loop kernel once a registration and kernels
         A and M never; on every tile GICP and VGICP path (with "GICP
@@ -108,9 +117,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
         admitted; a radar path is held to its method's ATE gate where it
         converges (applied >= 0.9) and otherwise recorded with the reason;
   4. "GICP frames" and "FUSION events", each with its launch counts: the
-     frame loop must equal run_fused to 1e-6 m; the event loop must hold
+     frame loop must equal run_fused to 1e-6 m; the event loop (after a
+     warm-up replay holding kernel W bit for bit to kernel I on every CAN
+     and GPS event; five profiled CAN events and five GPS events, each a
+     single device kernel, W's) must hold
      applied >= 0.9, ATE < 0.3 m, its last pose within 0.15 m of run_fused's
-     and admit CAN and GPS; the Joseph form: H, I and S with ``joseph_form``
+     and admit CAN and GPS; the Joseph form: H, W (and I) and S with ``joseph_form``
      against their plain versions on the fusion path's inputs, then its
      replay (applied >= 0.9, under the closed-loop contract against the
      reference form's, P asymmetry no larger, P diagonal positive); the
@@ -120,7 +132,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      ring (within the rotation's rounding bound of the cuBLAS rotation + J
      it replaced), each against its plain version, O and J's one-ring form
      (their reference) against theirs; U launched once a tick, V once an
-     IMU sample, O, J and H never; one profiled tick and one profiled IMU
+     IMU sample, O, J and H never; five profiled ticks and five profiled IMU
      event each a single device kernel; ATE under JAX's 2.0 m tick-mode
      bound; then relocalization from a click 1 m and 1 deg off the truth;
   5. "P2P windowed" (after the relocalization above): a warm-up windowed
@@ -146,7 +158,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      their plain versions, R's found equal and z within one ulp; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
-  6. torch.profiler, after every timed replay: kernels B-D, H-V and the
+  5c. "P2P long lead" (``long_lead_phase``): a small P2P log whose IMU
+     stream leads its first scan by 12 s, every frame padded past one
+     launch of kernel H: run_fused and run_frames on the card with H
+     ceil(cap / 1024) times a frame, run_frames = run_fused to 1e-6 m, the
+     card against the CPU port under the closed-loop contract;
+  6. torch.profiler, after every timed replay: kernels B-D, H-X and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
      rotation and J beside V),
@@ -205,9 +222,17 @@ N_SCANS = 20
 RAW_POINTS = 131072
 INDEX_SAMPLING = 5
 REPEATS = 20
+#: calls of a stage's runtime entry under one torch.profiler pass when its
+#: device kernels are listed
+STAGE_CALLS = 5
+#: host idle (s) at each end of a profiler pass: unpadded, a short pass
+#: now and then comes back with no device record at all (the profiled
+#: events and stages below failed so; tools/probe_profiler_drops.py counts
+#: such passes)
+PROFILE_PAD_S = 0.05
 FUSION = "AVGICP+GPS+CAN"
 PATHS = ("P2P", "GICP", "VGICP", "AVGICP", FUSION)
-#: the run_fused paths with the radar covariances (use_radar_cov): kernel P
+#: the run_fused paths with the radar covariances (use_radar_cov): kernel X
 #: and the radar forms of E, F, G
 RADAR_PATHS = ("GICP+radar", "VGICP+radar", "AVGICP+radar")
 #: the fusion path's replay with the Joseph-form updates (kernels H, I)
@@ -232,13 +257,25 @@ EKF_KERNELS = {
                   ":390, :424, :493), elimaloc_tpu/pipeline/rings.py:126 _push_arrays_batch "
                   "as :183, :192"),
 }
-#: kernel I, launched for the CAN and GPS updates alone (a fusion frame's
-#: sub-batches, the event loop's CAN and GPS events): its source and what it
-#: replaces; its PCM leg is kernel S's reference
+#: kernel I, the CAN and GPS updates' reference entry (kernel W's, bit for
+#: bit; its PCM leg is kernel S's): its source and what it replaces
 EKF_UPDATE = ("elimaloc_tpu_torch/csrc/ekf_update.cu + ekf_update.cuh",
               "elimaloc_tpu/ekf/filter.py:221 _ekf_measurement_update + :616 update_gnss + "
               ":705 update_can as elimaloc_tpu/pipeline/runtime.py:453-480 (the CAN / GPS "
               "sub-batches)")
+#: kernel W, launched for the CAN and GPS updates (once a fusion frame for
+#: its CAN + GPS sub-batches, once a CAN or GPS event of ``run``)
+CAN_GPS = ("elimaloc_tpu_torch/csrc/can_gps_update.cu + ekf_update.cuh + ekf.cuh",
+           EKF_UPDATE[1] + " and runtime.py:205, :260 (the event loop's GPS and CAN steps)")
+#: kernels X (launched once a radar registration) and P (X's reference)
+RADAR_ROWS = ("elimaloc_tpu_torch/csrc/radar_rows.cu",
+              "elimaloc_tpu/register/icp.py:251 radar_point_cov + :619-623 and :652-655 (the "
+              "slot packing of run_register; the hash backend's query order)")
+RADAR_COV = ("elimaloc_tpu_torch/csrc/radar_cov.cu", RADAR_ROWS[1])
+#: the long-lead log: its IMU stream starts LEAD_S before the first scan
+#: (the vehicle at rest), so every frame is padded past one launch of H
+LEAD_S = 12.0
+LEAD = "P2P long lead"
 #: kernel J, whose one-ring entry is the reference of kernels U and V (H, U
 #: and V push their rows themselves): its source and what it replaces
 RING_PUSH = ("elimaloc_tpu_torch/csrc/rings.cu + rings.cuh",
@@ -774,7 +811,7 @@ def method_kernel_row(method, pipe, calls, mods):
     """The method's fused search + GN kernel against its plain version: the
     matches exactly equal, ``matched`` equal, JTJ / JTr / fitness numerator
     within rtol 1e-4 on the norms (per-row products with FMAs, sums in
-    another order). In its radar form (the recorded call carries kernel P's
+    another order). In its radar form (the recorded call carries kernel X's
     ``radar``) R^T C R + radar is not symmetric and rows can be near-
     singular, so the float32 sums carry the rows' condition numbers: both
     the kernel and its plain version are held to the same tail evaluated in
@@ -998,48 +1035,80 @@ def hash_grid_phase(pipe, calls, mods):
                  "ground": {"found": bool(found), "z": float(z)}}
 
 
-def radar_cov_row(calls, mods):
-    """Kernel P against ``radar_slots_plain`` on the GICP radar path's
-    registration: atol 1e-5 on entries up to ~1 m^2 (the plain transform is
-    a cuBLAS product with FMAs, the trigonometry the same libm), dead rows
-    exactly zero."""
-    kernels, icp = mods[0], mods[4]
-    a, _ = calls["radar_cov"]
+def p_args(a):
+    """Kernel P's arguments for a recorded call of kernel X: rows 0..N-1
+    (no index, no mask) as an arange index and an all-true mask."""
     src, qidx, qmask, pose, params = a
-    got = kernels.radar_cov(*a)
+    if qidx is None:
+        n = src.shape[0]
+        qidx = torch.arange(n, dtype=torch.int32, device=src.device).view(1, n)
+        qmask = torch.ones((1, n), dtype=torch.bool, device=src.device)
+    return src, qidx, qmask, pose, params
+
+
+def x_against_p(kernels, calls, what):
+    """Kernel X bit for bit against kernel P on every recorded call of X."""
+    bad = [i for i, (a, _) in enumerate(calls)
+           if not torch.equal(kernels.radar_rows(*a).flatten(),
+                              kernels.radar_cov(*p_args(a)).flatten())]
+    log_line(f"[{what}] kernel X bit for bit = kernel P on {len(calls) - len(bad)} of "
+             f"{len(calls)} registrations")
+    if bad or not calls:
+        raise AssertionError(f"[{what}] kernel X differs from kernel P on calls {bad[:10]}")
+
+
+def radar_row(calls, mods, wrapper):
+    """Kernel X (``wrapper`` "radar_rows", once a radar registration) or
+    kernel P ("radar_cov", X's reference: 0 launches on every path)
+    against ``radar_slots_plain`` on the GICP radar path's registration:
+    atol 1e-5 on entries up to ~1 m^2 (the plain transform is a cuBLAS
+    product with FMAs, the trigonometry the same libm), dead rows exactly
+    zero. X's row also holds profiled calls of ``icp.radar_slots`` to
+    one device kernel, X's."""
+    kernels, icp = mods[0], mods[4]
+    a, _ = calls["radar_rows"]
+    fn = getattr(kernels, wrapper)
+    aa = a if wrapper == "radar_rows" else p_args(a)
+    src, qidx, qmask, pose, params = aa
+    got = fn(*aa)
     ref = icp.radar_slots_plain(*a)
     err = float((got - ref).abs().max())
     live = int(qmask.sum())
     if not (err <= 1e-5 and bool((got[~qmask] == 0).all())):
-        raise AssertionError(f"radar_cov kernel vs plain: max abs err {err} > 1e-5")
-    log_line(f"  radar_cov: slots {tuple(qmask.shape)}, live rows {live} of {qmask.numel()}, "
+        raise AssertionError(f"{wrapper} kernel vs plain: max abs err {err} > 1e-5")
+    log_line(f"  {wrapper}: slots {tuple(qmask.shape)}, live rows {live} of {qmask.numel()}, "
              f"scan {tuple(src.shape)}, max |R S| {float(ref.abs().max()):.3f}, "
              f"max abs err {err:.2e}")
     # per row its index and mask, per live row its point and ~40 operations
     # with four transcendentals (~20 each); the [S, QB, 9] output
     moved = nbytes(qidx, qmask, pose, params.range_variance_m, params.azimuth_variance_deg,
                    params.elevation_variance_deg, got) + live * 12
-    return dict(name="radar_cov", source="elimaloc_tpu_torch/csrc/radar_cov.cu",
-                replaces="elimaloc_tpu/register/icp.py:251 radar_point_cov + :619-623 and "
-                         ":652-655 (the slot packing of run_register)",
-                max_abs_err=err, ms=time_ms(lambda: kernels.radar_cov(*a)),
-                plain_ms=time_ms(lambda: icp.radar_slots_plain(*a)),
-                device_fn=(lambda: kernels.radar_cov(*a), "radar_cov_kernel"),
-                bound=bound(live * 120, moved))
+    row = dict(name=wrapper, source=(RADAR_ROWS if wrapper == "radar_rows" else RADAR_COV)[0],
+               replaces=RADAR_ROWS[1], max_abs_err=err, ms=time_ms(lambda: fn(*aa)),
+               plain_ms=time_ms(lambda: icp.radar_slots_plain(*a)),
+               device_fn=(lambda: fn(*aa), f"{wrapper}_kernel"),
+               bound=bound(live * 120, moved))
+    if wrapper == "radar_rows":
+        row["stage_fn"] = (lambda: icp.radar_slots(*a), "radar_rows_kernel")
+    return row
 
 
 def device_profile(fn):
     """({kernel name: device us summed}, wall ms) of fn() under one
     torch.profiler pass; the dict is empty where the profiler saw no device
-    activity."""
+    activity. The pass idles PROFILE_PAD_S on the host before fn and after
+    its last kernel: without it the profiler now and then loses the device
+    records of the pass's first moments, all of a short pass's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     per = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1194,33 +1263,102 @@ def imu_stage_row(calls, pipe, mods, joseph=False):
                 bound=bound(int(valid.sum()) * per_sample + 20 * valid.shape[0], moved))
 
 
-def ekf_update_row(rec, mods, joseph=False):
-    """Kernel I against ``update_chain_plain`` on a CAN sub-batch and a GPS
-    fix the fusion path gave it: each P entry within 1e-5 sqrt(P_ii P_jj)
-    plus the rounding term (``p_entry_err``), every other float field within
-    rel 1e-5 of its largest entry, the flags and counters equal. Its time is
-    one fusion frame's launch (the CAN + GPS sub-batches, as the path made
-    it at the recorded frame; the PCM pose runs in kernel S). With
-    ``joseph`` the same calls with the Joseph-form updates, held the same
-    way."""
+def i_args(k):
+    """Kernel I's keyword arguments for a recorded call of kernel W: a
+    ``valid`` of None (every sample valid) as an all-true mask."""
+    out = dict(k)
+    for key in ("can", "gps"):
+        v = out.get(key)
+        if v is not None and v[3] is None:
+            out[key] = v[:3] + (torch.ones(v[0].shape[0], dtype=torch.bool,
+                                           device=v[0].device),)
+    return out
+
+
+def same_record(a, b):
+    """Two kernel outputs (``ekf.state.RecordState``) hold equal records."""
+    return torch.equal(a.intact_record(), b.intact_record())
+
+
+def w_against_i(kernels, calls, what):
+    """Kernel W bit for bit against kernel I (its reference) on every
+    recorded call of W: the state records equal. Returns the call count."""
+    bad = [i for i, (a, k) in enumerate(calls)
+           if not same_record(kernels.can_gps_update(*a, **k),
+                              kernels.ekf_update(*a, **i_args(k)))]
+    log_line(f"  [{what}] kernel W bit for bit = kernel I on {len(calls) - len(bad)} of "
+             f"{len(calls)} recorded calls")
+    if bad or not calls:
+        raise AssertionError(f"[{what}] kernel W differs from kernel I on calls {bad[:10]}")
+    return len(calls)
+
+
+def extra_fixes(mods, gps_call):
+    """Kernel W against kernel I, and against the plain chain within its
+    gate, on a GPS fix of the recorded path turned into a 6-DOF one (the
+    NOVATEL source, as gps_type ODOMETRY gives) and into a 3-DOF one with
+    yaw not yet initialised (yaw std 12.8 deg: the antenna inflation)."""
+    kernels, efilter, cfg_mod = mods[0], mods[7], mods[5]
+    (st, params, flags), k = gps_call
+    p = st.P.clone()
+    p[5, 5] = 0.05
+    cases = {"6-DOF": (st, dataclasses.replace(flags, gps_type=cfg_mod.GpsType.ODOMETRY)),
+             "3-DOF yaw uninitialised": (st.replace(P=p), flags)}
+    for what, (s0, fl) in cases.items():
+        kw = {"gps": k["gps"], "gnss_uncertainty_max": k["gnss_uncertainty_max"],
+              "gps_source": efilter.GPS_SOURCE[fl.gps_type]}
+        got = kernels.can_gps_update(s0, params, fl, **kw)
+        ref_i = kernels.ekf_update(s0, params, fl, **i_args(kw))
+        ref = efilter.update_chain_plain(s0, params, fl, gps=kw["gps"],
+                                         gnss_uncertainty_max=kw["gnss_uncertainty_max"])
+        rel = ekf_field_errors(kernels, got, ref)
+        rel.pop("P")
+        p_err = p_entry_err(got.P, ref.P, s0.P, 1e-5)
+        log_line(f"  can_gps_update {what} fix: W = I {same_record(got, ref_i)}, P "
+                 f"share of its limit vs plain {p_err:.2e}, worst rel err of the rest "
+                 f"{max(rel.values()):.2e}, yaw_initialized {bool(got.yaw_initialized)}")
+        if not (same_record(got, ref_i) and p_err <= 1.0
+                and max(rel.values()) <= 1e-5):
+            raise AssertionError(f"can_gps_update on the {what} fix: outside its gates")
+        if what.startswith("3") and bool(got.yaw_initialized):
+            raise AssertionError("the 3-DOF fix did not run with yaw uninitialised")
+
+
+def update_row(rec, mods, wrapper, joseph=False):
+    """Kernel W (``wrapper`` "can_gps_update", on the CAN and GPS path) or
+    kernel I ("ekf_update", W's reference: 0 launches on every path) against
+    ``update_chain_plain`` on a CAN sub-batch and a GPS fix the fusion path
+    gave kernel W: each P entry within 1e-5 sqrt(P_ii P_jj) plus the
+    rounding term (``p_entry_err``), every other float field within rel 1e-5
+    of its largest entry, the flags and counters equal. Its time is one
+    fusion frame's launch (the CAN + GPS sub-batches, as the path made it at
+    the recorded frame; the PCM pose runs in kernel S). W is also held bit
+    for bit to kernel I on every recorded call and on the extra fixes
+    (``extra_fixes``). With ``joseph`` the same calls with the Joseph-form
+    updates, held the same way."""
     kernels, efilter = mods[0], mods[7]
+    fn = getattr(kernels, wrapper)
+    args_of = (lambda k: k) if wrapper == "can_gps_update" else i_args
 
     def plain(*a, gps_source=None, **k):  # the plain chain reads it from the flags
         return efilter.update_chain_plain(*a, **k)
 
-    calls = rec.every["ekf_update"]
+    calls = rec.every["can_gps_update"]
     if joseph:
         calls = [with_joseph(c, 2) for c in calls]
-    name = "ekf_update[joseph]" if joseph else "ekf_update[fusion frame]"
+    name = f"{wrapper}[{'joseph' if joseph else 'fusion frame'}]"
     frame_can = next(c for c in calls[rec.at:] if c[1].get("can") is not None)
     gps = next(c for c in calls if c[1].get("gps") is not None and bool(c[1]["gps"][3].any()))
+    if wrapper == "can_gps_update":
+        w_against_i(kernels, calls, name)
+        extra_fixes(mods, gps)
     checks = {
         "CAN": (frame_can[0], {"can": frame_can[1]["can"]}),
         "GPS": (gps[0], {k: gps[1][k] for k in ("gps", "gps_source", "gnss_uncertainty_max")}),
     }
     worst = 0.0
     for what, (a, k) in checks.items():
-        got = kernels.ekf_update(*a, **k)
+        got = fn(*a, **args_of(k))
         ref = plain(*a, **k)
         rel = ekf_field_errors(kernels, got, ref)
         rel.pop("P")
@@ -1234,19 +1372,20 @@ def ekf_update_row(rec, mods, joseph=False):
         worst = max(worst, max(float((getattr(got, f) - getattr(ref, f)).abs().max())
                                for f in (*rel, "P")))
     a, k = frame_can
+    kk = args_of(k)
     t, vx, yaw, cvalid = k["can"]
     gt, gpos, gcov, gvalid = k["gps"]
     ops = (int(cvalid.sum()) * (kalman_ops(4, joseph) + 150)
            + int(gvalid.sum()) * (kalman_ops(3, joseph) + 250))
     moved = (2 * state_bytes(kernels, a[0]) + params_bytes(kernels, a[1])
              + nbytes(t, vx, yaw, cvalid, gt, gpos, gcov, gvalid))
-    return dict(name=name, source=EKF_UPDATE[0],
-                replaces=EKF_UPDATE[1] + (" with joseph_form (filter.py:252-259)"
-                                          if joseph else ""),
-                launches_key="ekf_update", max_abs_err=worst,
-                ms=time_ms(lambda: kernels.ekf_update(*a, **k)),
+    source, replaces = CAN_GPS if wrapper == "can_gps_update" else EKF_UPDATE
+    return dict(name=name, source=source,
+                replaces=replaces + (" with joseph_form (filter.py:252-259)" if joseph else ""),
+                launches_key=wrapper, max_abs_err=worst,
+                ms=time_ms(lambda: fn(*a, **kk)),
                 plain_ms=time_ms(lambda: plain(*a, **k)),
-                device_fn=(lambda: kernels.ekf_update(*a, **k), "ekf_update_kernel"),
+                device_fn=(lambda: fn(*a, **kk), f"{wrapper}_kernel"),
                 bound=bound(ops, moved))
 
 
@@ -1939,8 +2078,10 @@ def loop_trace_check(pipe, log, runtime, n, path="P2P", loop=LOOP):
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             pipe.run_fused(log)
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
     finally:
         runtime.fused_frame = orig
     cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -2191,14 +2332,15 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     radar = is_radar(path)
     fusion = path == FUSION
     path_kernels = ((SHARED[:2] if hashed else SHARED) + (wrapper,) + tuple(EKF_KERNELS)
-                    + tuple(SCAN_KERNELS) + (("radar_cov",) if radar else ())
-                    + (("ekf_update",) if fusion else ()))
+                    + tuple(SCAN_KERNELS) + (("radar_rows",) if radar else ())
+                    + (("can_gps_update",) if fusion else ()))
     # every path: the GN loop is one launch of a loop kernel a registration
     loop = path_loop(path)
     path_kernels = loop_kernels(path_kernels, loop)
     with Recorder(kernels, path_kernels, at=N_SCANS // 2,
-                  every=("ekf_update", "pcm_stage", loop)
-                  + (("scan_front",) if path == "P2P" else ())) as rec:
+                  every=("can_gps_update", "pcm_stage", loop)
+                  + (("scan_front",) if path == "P2P" else ())
+                  + (("radar_rows",) if radar else ())) as rec:
         pipe.run_fused(log)
     torch.cuda.synchronize()
     rows = []
@@ -2235,8 +2377,10 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
         rows += [imu_stage_row(rec.calls, pipe, mods), pcm_stage_row(rec, mods),
                  front_row(rec, mods), query_row(rec.calls, mods),
                  measurement_row(rec.calls, mods)]
+    if radar:
+        x_against_p(kernels, rec.every["radar_rows"], path)
     if fusion:
-        rows += [ekf_update_row(rec, mods)]
+        rows += [update_row(rec, mods, "can_gps_update"), update_row(rec, mods, "ekf_update")]
     elif hashed:
         rows += [hash_kernel_row(path, pipe, rec.calls, mods)]
         if not radar:
@@ -2244,7 +2388,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     elif radar:
         rows += [method_kernel_row(method, pipe, rec.calls, mods[:5])]
         if method == "GICP":
-            rows += [radar_cov_row(rec.calls, mods)]
+            rows += [radar_row(rec.calls, mods, "radar_rows"),
+                     radar_row(rec.calls, mods, "radar_cov")]
     else:
         rows += [method_kernel_row(method, pipe, rec.calls, mods[:5]),
                  gn_step_row(path, rec.calls, mods)]
@@ -2272,6 +2417,7 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
     check_imu_stage(path, launches, packs, n)
     check_scan_end(path, launches, n, n if fusion else 0)
     check_loop(path, launches, n, loop)
+    check_radar(path, launches, n if radar else 0)
     log_line(f"[{path}] stage ms/frame (frames 1..{frames}): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
              + f", total {sum(split.values()):.3f}; frame ms p50 {p50:.3f} "
@@ -2398,19 +2544,29 @@ def check_loop(what, launches, registrations, loop=LOOP):
 def check_scan_end(what, launches, scans, updates):
     """Every scan starts in one call of kernel T, whose reference entries K
     and D never launch, and ends in one launch of kernel S; kernel L never
-    launches, and kernel I only for the CAN and GPS updates (``updates``
+    launches, kernel W only for the CAN and GPS updates (``updates``
     launches: one a fusion frame, one an event in ``run``, none without GPS
-    and CAN)."""
+    and CAN), and kernel I (W's and S's reference) never."""
     if not (launches["scan_front"] == scans and launches["scan_ring_query"] == 0
             and launches["deskew"] == 0):
         raise AssertionError(f"[{what}] scan_front launched {launches['scan_front']} times for "
                              f"{scans} scans, scan_ring_query {launches['scan_ring_query']}, "
                              f"deskew {launches['deskew']}")
     if not (launches["pcm_stage"] == scans and launches["pcm_measurement"] == 0
-            and launches["ekf_update"] == updates):
+            and launches["can_gps_update"] == updates and launches["ekf_update"] == 0):
         raise AssertionError(f"[{what}] pcm_stage launched {launches['pcm_stage']} times for "
                              f"{scans} scans, pcm_measurement {launches['pcm_measurement']}, "
-                             f"ekf_update {launches['ekf_update']} (expected {updates})")
+                             f"can_gps_update {launches['can_gps_update']} (expected "
+                             f"{updates}), ekf_update {launches['ekf_update']}")
+
+
+def check_radar(what, launches, registrations):
+    """Kernel X once a radar registration (``registrations``: 0 on a path
+    without the radar covariances), kernel P (X's reference) never."""
+    if not (launches["radar_rows"] == registrations and launches["radar_cov"] == 0):
+        raise AssertionError(f"[{what}] radar_rows launched {launches['radar_rows']} times for "
+                             f"{registrations} radar registrations, radar_cov "
+                             f"{launches['radar_cov']}")
 
 
 def check_imu_stage(what, launches, packs, frames):
@@ -2459,14 +2615,24 @@ def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
             "stage_ms": split, "ego_pos_vs_fused_m": err}
 
 
-def events_path(pipe, log, fused, mods, ate_rmse):
-    """``run`` (the per-event loop) on the config-5 pipeline: the launch
-    counts from 0 around it, the events of each kind and their time (CUDA
-    events around each step: the enqueue, while the device keeps up),
-    scans/s, and the gates applied >= 0.9, ATE < 0.3 m, the last pose within
-    0.15 m of run_fused's (the event order differs within a frame,
-    tests/test_pipeline_modes.py:194-203), CAN and GPS admitted."""
+def events_path(pipe, log, fused, mods, ate_rmse, deferred):
+    """``run`` (the per-event loop) on the config-5 pipeline: a warm-up
+    replay recording every launch of kernel W (once a CAN or GPS event),
+    each held bit for bit to kernel I; then the launch counts from 0 around
+    the timed replay, the events of each kind and their time (CUDA events
+    around each step: the enqueue, while the device keeps up), scans/s, and
+    the gates applied >= 0.9, ATE < 0.3 m, the last pose within 0.15 m of
+    run_fused's (the event order differs within a frame,
+    tests/test_pipeline_modes.py:194-203), CAN and GPS admitted. Into
+    ``deferred`` (after every timed replay): one CAN event and one GPS event
+    (``runtime.can_step`` / ``gps_step`` on recorded inputs) under
+    torch.profiler, each one device kernel, W's."""
     kernels, runtime = mods[0], mods[6]
+    with Recorder(kernels, ("can_gps_update",), at=0, every=("can_gps_update",)) as rec:
+        pipe.run(log)
+    torch.cuda.synchronize()
+    w_calls = rec.every["can_gps_update"]
+    w_against_i(kernels, w_calls, EVENTS)
     steps = ("imu_step", "scan_step", "gps_step", "can_step")
     orig = {n: getattr(runtime, n) for n in steps}
     spans = {n: [] for n in steps}
@@ -2521,7 +2687,7 @@ def events_path(pipe, log, fused, mods, ate_rmse):
     log_line(f"[{EVENTS}] stage ms per scan (imu = every event between two scans): "
              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     check_launches(EVENTS, launches, loop_kernels(
-        SHARED + (KERNEL["AVGICP"][0], "ekf_update") + tuple(EKF_KERNELS)
+        SHARED + (KERNEL["AVGICP"][0], "can_gps_update") + tuple(EKF_KERNELS)
         + tuple(SCAN_KERNELS), AVG_LOOP))
     check_loop(EVENTS, launches, per_kind["scan"][0], AVG_LOOP)
     check_imu_stage(EVENTS, launches, packs, per_kind["imu"][0])
@@ -2530,10 +2696,36 @@ def events_path(pipe, log, fused, mods, ate_rmse):
     if not (applied >= 0.9 and ate < 0.3 and last < 0.15 and n_can > 0 and n_gps > 0
             and np.all(np.isfinite(traj["pos"]))):
         raise AssertionError(f"[{EVENTS}] the event loop failed its acceptance bounds")
-    return {"scans_per_s": n / wall, "events": {k: c for k, (c, _) in per_kind.items()},
-            "event_ms": {k: ms for k, (_, ms) in per_kind.items()}, "applied": applied,
-            "ate_m": ate, "last_vs_fused_m": last, "can_admitted": n_can, "gps_admitted": n_gps,
-            "stage_ms": split}
+    summary = {"scans_per_s": n / wall, "events": {k: c for k, (c, _) in per_kind.items()},
+               "event_ms": {k: ms for k, (_, ms) in per_kind.items()}, "applied": applied,
+               "ate_m": ate, "last_vs_fused_m": last, "can_admitted": n_can,
+               "gps_admitted": n_gps, "stage_ms": split, "w_bit_equal_to_i_calls": len(w_calls)}
+
+    def profiled_events():
+        """One CAN and one GPS event of ``run`` on recorded inputs: kernel W
+        alone on the device (no mask tensor is made)."""
+        can = next((a, k) for a, k in w_calls if k.get("can") is not None)
+        gps = next((a, k) for a, k in w_calls if k.get("gps") is not None)
+        steps = {"can": lambda: runtime.can_step(
+                     runtime.PipelineState(ekf=can[0][0], ego_ring=None, imu_ring=None),
+                     *(x[0] for x in can[1]["can"][:3]), pipe.params, pipe.static),
+                 "gps": lambda: runtime.gps_step(
+                     runtime.PipelineState(ekf=gps[0][0], ego_ring=None, imu_ring=None),
+                     *(x[0] for x in gps[1]["gps"][:3]), pipe.params, pipe.static)}
+        for kind, fn in steps.items():
+            before = dict(kernels.launches)
+            per, _ = device_profile(lambda: [fn() for _ in range(STAGE_CALLS)])
+            counted = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+            log_line(f"[{EVENTS}] {STAGE_CALLS} {kind} events under torch.profiler: device "
+                     f"kernels {per}, launches counted {counted}")
+            if (len(per) != 1 or not any("can_gps_update_kernel" in k for k in per)
+                    or counted != {"can_gps_update": STAGE_CALLS}):
+                raise AssertionError(f"[{EVENTS}] a {kind} event launched {sorted(per)}, not "
+                                     "kernel W alone")
+            summary[f"device_kernels_a_{kind}_event"] = len(per)
+
+    deferred.append(profiled_events)
+    return summary
 
 
 def reloc_phase(pipe, log, kernels, what="reloc", names=None):
@@ -2575,7 +2767,9 @@ def joseph_path(pipe, log, fused, rec, mods):
     reference form's and every P diagonal positive."""
     kernels = mods[0]
     rows = [imu_stage_row(rec.calls, pipe, mods, joseph=True),
-            ekf_update_row(rec, mods, joseph=True), pcm_stage_row(rec, mods, joseph=True)]
+            update_row(rec, mods, "can_gps_update", joseph=True),
+            update_row(rec, mods, "ekf_update", joseph=True),
+            pcm_stage_row(rec, mods, joseph=True)]
     for r in rows:
         log_line(f"[{JOSEPH}] kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
                  f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
@@ -2605,7 +2799,7 @@ def joseph_path(pipe, log, fused, rec, mods):
              f"{err[-3:].max():.2e} m; P asymmetry max {asym:.3e} (reference form "
              f"{asym_plain:.3e}), min diagonal {dmin:.3e}, launches {launches}")
     check_launches(JOSEPH, launches, loop_kernels(
-        SHARED + (KERNEL["AVGICP"][0], "ekf_update") + tuple(EKF_KERNELS)
+        SHARED + (KERNEL["AVGICP"][0], "can_gps_update") + tuple(EKF_KERNELS)
         + tuple(SCAN_KERNELS), AVG_LOOP))
     check_loop(JOSEPH, launches, n, AVG_LOOP)
     if not (applied >= 0.9 and contract(err) and asym <= asym_plain and dmin > 0.0):
@@ -3290,6 +3484,70 @@ def window_reference_phase(cfg_mod, runtime, builder, tiles, log_mod):
             "last3_m": float(err[-3:].max()), "swaps": stats["cuda"]["swaps"]}
 
 
+def long_lead_phase(mods, builder, log_mod):
+    """A log whose IMU stream leads its first scan by LEAD_S (the vehicle at
+    rest; the small P2P log of the reference phase, 1024 points a scan):
+    frame 0 holds the lead's samples and ``build_fused_batches`` pads every
+    frame to them, past the 1,024 samples one launch of kernel H takes.
+    ``run_fused`` and ``run_frames`` on the card, launch counts from 0
+    around each: H ceil(cap / 1024) times a frame (``runtime.imu_chunks``),
+    J never, no pack; ``run_frames`` equals ``run_fused`` to 1e-6 m with
+    ``applied`` equal; every scan applied; the card's ``run_fused`` against
+    the port on the CPU under the closed-loop contract. Rings of 2,048 rows
+    hold a whole padded frame (with smaller rings one batch push keeps only
+    a padded frame's last positions, as JAX's does, and neither package
+    localizes past frame 0)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import stationary_lead
+
+    kernels, tiles, cfg_mod, runtime = mods[0], mods[3], mods[5], mods[6]
+    cfg = method_cfg(cfg_mod, "P2P")
+    cfg.pcm.input_voxel_ds_m = 1.0
+    world = log_mod.make_world(seed=9, extent=70.0, n_ground=60_000, n_wall=30_000)
+    log = stationary_lead(log_mod.synthesize_log(world, duration=0.7, points_per_scan=1024,
+                                                 max_range=50.0, seed=10, gps_hz=1.0),
+                          LEAD_S, seed=11)
+    built = builder.build_voxel_map(world, 1.0, 30)
+    n = len(log.scan_t)
+    cap = runtime.build_fused_batches(log)["imu_t"].shape[1]
+    per_frame = -(-cap // kernels.IMU_STAGE_MAX_SAMPLES)
+
+    def make(device):
+        return runtime.LocalizationPipeline(
+            cfg, built, device=device, ds_points=1024,
+            tile_budget=tiles.TileQueryBudget(qb=8, max_slots=1024), ego_ring_size=2048,
+            imu_ring_size=2048)
+
+    pipe = make("cuda")
+    outs, out = {}, {"scans": n, "imu_per_frame": cap, "h_launches_a_frame": per_frame,
+                     "lead_s": float(log.scan_t[0] - log.imu_t[0])}
+    for loop in ("run_fused", "run_frames"):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[loop] = getattr(pipe, loop)(log)[1]
+        torch.cuda.synchronize()
+        out[f"{loop}_scans_per_s"] = n / (time.perf_counter() - t0)
+        launches, packs = dict(kernels.launches), dict(kernels.packs)
+        log_line(f"[{LEAD}] {loop}: {n} scans, lead {out['lead_s']:.2f} s, {cap} IMU samples "
+                 f"a frame, imu_stage launched {launches['imu_stage']} times "
+                 f"({per_frame} a frame), applied {outs[loop]['applied'].tolist()}")
+        check_imu_stage(f"{LEAD} {loop}", launches, packs, n * per_frame)
+        check_scan_end(f"{LEAD} {loop}", launches, n, 0)
+    frames_err = float(np.abs(outs["run_frames"]["ego_pos"] - outs["run_fused"]["ego_pos"]).max())
+    cpu = make("cpu").run_fused(log)[1]["ego_pos"]
+    err = np.linalg.norm(outs["run_fused"]["ego_pos"] - cpu, axis=1)
+    out.update(run_frames_vs_fused_m=frames_err, reference=_stats(err))
+    log_line(f"[{LEAD}] run_frames vs run_fused max {frames_err:.2e} m; card vs CPU port over "
+             f"{n} scans: max {err.max():.2e} m, median {np.median(err):.2e} m, last 3 max "
+             f"{err[-3:].max():.2e} m")
+    if not (per_frame >= 2 and frames_err <= 1e-6 and contract(err)
+            and np.array_equal(outs["run_frames"]["applied"], outs["run_fused"]["applied"])
+            and outs["run_fused"]["applied"].all()):
+        raise AssertionError(f"[{LEAD}] the long-lead replay failed its gates")
+    return out
+
+
 def reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
     """A small log on the card (kernels) against the same port on the CPU
     (plain versions, which tests/test_torch_*.py hold to the JAX package),
@@ -3486,7 +3744,7 @@ def main():
         torch.cuda.empty_cache()
     slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
     check_loop(FRAMES, kernels.launches, len(log.scan_t), GICP_LOOP)
-    slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse)
+    slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse, deferred)
     r, slices[JOSEPH] = joseph_path(pipes[FUSION], log, fused[FUSION], recs[FUSION], mods)
     rows += r
     r, slices[TICK] = tick_path(packed, log, ds_points, max_slots, mods, ate_rmse)
@@ -3507,17 +3765,18 @@ def main():
         raise AssertionError(f"[reloc hash] a tile kernel ran: {kernels.launches}")
     r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)
     rows += r
+    slices[LEAD] = long_lead_phase(mods, builder, log_mod)
     slices["hash vs tile"] = hash_vs_tile(fused, slices)
     # the profiler passes, after every timed replay
     for r in rows:
         if "stage_fn" in r:
-            # one call of the stage's runtime entry: its kernels alone on the
+            # STAGE_CALLS calls of the stage's runtime entry: its kernels alone on the
             # device (the IMU stage: H; the scan's front: T's two; the scan's
             # end: S; the tick: U; the tick mode's IMU event: V)
             fn, names = r.pop("stage_fn")
             names = names if isinstance(names, tuple) else (names,)
-            per, _ = device_profile(fn)
-            log_line(f"kernel {r['name']}: one call of its runtime entry under "
+            per, _ = device_profile(lambda: [fn() for _ in range(STAGE_CALLS)])
+            log_line(f"kernel {r['name']}: {STAGE_CALLS} calls of its runtime entry under "
                      f"torch.profiler, device kernels {per}")
             if len(per) != len(names) or not all(any(n in k for k in per) for n in names):
                 raise AssertionError(f"{r['name']}: its stage launched {sorted(per)} on the "

@@ -22,8 +22,9 @@ R (the ground probe), S (the scan's end: L's measurement, the PCM
 update and the frame's published outputs in one launch), T (the scan's
 front: the range gate, the scan times, K's ring queries and D's deskew in
 one host call), U (the tick mode's CA tick: O's body and J's ego push in
-one launch) and V (the tick mode's IMU-only intake in one launch). On CPU
-tensors
+one launch), V (the tick mode's IMU-only intake in one launch), W (the
+CAN and GPS updates, I redesigned: I stays as its reference) and X (the
+radar covariances, P redesigned: P stays as its reference). On CPU tensors
 their plain PyTorch versions run instead. ``LocalizationPipeline`` runs on
 the card unless given ``device="cpu"``.
 """

@@ -17,12 +17,13 @@ samples run through :func:`imu_chain_plain` and :func:`ego_history` in the
 plain composition of ``pipeline.runtime.imu_subbatch_plain``; on the card
 the whole IMU stage (sensor-frame conversion, this chain, the ego-ring rows
 and both ring pushes) is one launch of kernel H, ``kernels.imu_stage``.
-:func:`update_chain` (CAN, GPS and PCM updates; kernel I) dispatches by
-device; :func:`tick_stage_plain` (one CA tick and its ego push) is kernel
-U's plain version, which ``pipeline.runtime.tick_step`` runs on CPU
-tensors. ``EkfFlags.joseph_form`` selects the Joseph-form covariance update
-in the plain versions and in kernels H and I, which take and give the
-state as one packed record (``state.RECORD_FIELDS``).
+:func:`update_chain` (CAN and GPS updates: kernel W; with a PCM pose,
+kernel I) dispatches by device; :func:`tick_stage_plain` (one CA tick and
+its ego push) is kernel U's plain version, which
+``pipeline.runtime.tick_step`` runs on CPU tensors. ``EkfFlags.joseph_form``
+selects the Joseph-form covariance update in the plain versions and in
+kernels H, I and W, which take and give the state as one packed record
+(``state.RECORD_FIELDS``).
 """
 
 from __future__ import annotations
@@ -714,15 +715,15 @@ def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,
     the GPS fixes ``gps = (t, pos, cov_diag, valid)`` through
     :func:`update_gps`, each masked by its ``valid``, then the PCM pose
     ``pcm = (GnssMeas, apply)`` through :func:`update_gnss` masked by
-    ``apply``."""
+    ``apply``. A ``valid`` of None means every sample is valid (no select)."""
     if can is not None:
-        for t, vx, yr, v in zip(*can):
-            state = select(v, update_can(state, can_meas(t, vx, yr), params, flags),
-                           state)
+        for k, (t, vx, yr) in enumerate(zip(*can[:3])):
+            nxt = update_can(state, can_meas(t, vx, yr), params, flags)
+            state = nxt if can[3] is None else select(can[3][k], nxt, state)
     if gps is not None:
-        for t, pos, cov, v in zip(*gps):
-            state = select(v, update_gps(state, t, pos, cov, params, flags,
-                                         gnss_uncertainty_max), state)
+        for k, (t, pos, cov) in enumerate(zip(*gps[:3])):
+            nxt = update_gps(state, t, pos, cov, params, flags, gnss_uncertainty_max)
+            state = nxt if gps[3] is None else select(gps[3][k], nxt, state)
     if pcm is not None:
         meas, apply = pcm
         state = select(apply, update_gnss(state, meas, params, flags), state)
@@ -730,12 +731,18 @@ def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,
 
 
 def update_chain(state: EkfState, params: EkfParams, flags: EkfFlags, **kw):
-    """:func:`update_chain_plain` for CPU tensors, kernel I for CUDA ones."""
+    """:func:`update_chain_plain` for CPU tensors; for CUDA ones kernel W
+    (``kernels.can_gps_update``), or kernel I (``kernels.ekf_update``, W's
+    reference) when a PCM pose is given: the pipeline's PCM update runs in
+    kernel S (``pipeline.runtime.pcm_stage``)."""
     if state.P.device.type == "cpu":
         return update_chain_plain(state, params, flags, **kw)
     if kw.get("gps") is not None:
         kw["gps_source"] = GPS_SOURCE[flags.gps_type]
-    return kernels.ekf_update(state, params, flags, **kw)
+    pcm = kw.pop("pcm", None)
+    if pcm is not None:
+        return kernels.ekf_update(state, params, flags, pcm=pcm, **kw)
+    return kernels.can_gps_update(state, params, flags, **kw)
 
 
 # --------------------------------------------------------------------------- #

@@ -10,13 +10,15 @@ non-CUDA tensor that reaches a wrapper raises. Every kernel runs on every
 path of the fused frame (P2P, GICP, VGICP, AVGICP, and any of them with
 GPS + CAN) and of the event loop except the method's loop kernel on the
 tile backend (p2p_register, gicp_register, vgicp_register,
-avgicp_register: one of them a path), N, P, U and V, kernel I, which runs
+avgicp_register: one of them a path), N, U, V and X, kernel W, which runs
 only for CAN and GPS, the one-iteration entries A, E, F, G, Q and M, which
 launch on no path (a loop kernel runs their slot code and M's step every
 iteration; they stay as the reference each loop is held to, and E and F
 for the matches), L, whose body runs inside S, D and K, whose bodies run
-inside T, and O and J, which launch on no path (U runs O's body and J's
-push, V H's IMU intake; they stay as U's and V's reference).
+inside T, O and J, which launch on no path (U runs O's body and J's
+push, V H's IMU intake; they stay as U's and V's reference), and I and P,
+which launch on no path either (W and X, their redesigns, are held to
+them bit for bit).
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -64,8 +66,8 @@ H         imu_stage           pipeline/runtime.py:imu_subbatch, the whole IMU st
                               frames.imu_to_ego, the predict_imu chain, the
                               ego rows and both rings' batch pushes
 I         ekf_update          filter._ekf_measurement_update + update_gnss +
-                              update_can (the CAN / GPS sub-batches; its PCM
-                              leg is kernel S's reference)
+                              update_can (kernel W's reference for the CAN /
+                              GPS sub-batches; its PCM leg is kernel S's)
 J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
                               (kernel U's and V's reference; its body runs
                               inside H, U and V)
@@ -85,7 +87,7 @@ O         ca_tick             ekf/filter.py:predict (the CA tick of use_imu=Fals
                               + its ego-ring entry (kernel U's reference; its
                               body runs inside U)
 P         radar_cov           register/icp.py:radar_point_cov + the slot packing
-                              of run_register (use_radar_cov)
+                              of run_register (kernel X's reference)
 Q         hash_correspond     map/grid.py:lookup + query_* + icp._iteration (the
                               hash backend's search fused with the method's GN
                               reduction, one GN iteration: the loop's
@@ -110,20 +112,30 @@ V         imu_intake          pipeline.rings.imu_intake_plain: the tick mode's
                               IMU-only intake, the sample rotated and pushed
                               into the IMU ring (H's CTA-1 work), one launch
                               an IMU sample (runtime.imu_ring_step)
+W         can_gps_update      ekf.filter.update_chain_plain without a PCM pose:
+                              a frame's CAN then GPS sub-batch (or one CAN /
+                              GPS event), kernel I's CAN and GPS legs
+                              redesigned (m a template parameter, inputs in
+                              shared memory, three barriers an update), one
+                              launch a call
+X         radar_rows          register/icp.py:radar_slots_plain: kernel P
+                              redesigned, and the hash backend's rows in query
+                              order with no index or mask tensor, one launch
+                              a radar registration
 ========  ==================  ===================================================
 
 Kernel N runs only on the active-window path (``map_window_radius``), U and
-V only in the event loop's tick mode (``use_imu=False``), P once per registration
+V only in the event loop's tick mode (``use_imu=False``), X once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
 place of B and of A, E, F, G (inside hash_register on the registration
 path); its query and lookup entries and R serve the
-grid's own functions. H, I, O, S and U take and give the EKF state as one packed
+grid's own functions. H, I, O, S, U and W take and give the EKF state as one packed
 record and read the parameters from one (``ekf.state``): a state whose
 fields are not the views of one record is packed first, and counted in
 :data:`packs`; they return ``ekf.state.RecordState``, whose fields are
-viewed only when read. Flagged forms: H, I and S take ``EkfFlags.joseph_form``
+viewed only when read. Flagged forms: H, I, S and W take ``EkfFlags.joseph_form``
 (the Joseph-form covariance update), E, F and G a slot-packed ``radar``
-(kernel P's output) and Q a ``radar`` in query order, added before their
+(kernel X's output) and Q a ``radar`` in query order, added before their
 3x3 inverse.
 """
 
@@ -146,7 +158,8 @@ launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "gn_step": 0, "shift_window": 0, "ca_tick": 0, "radar_cov": 0,
             "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0,
             "gicp_register": 0, "vgicp_register": 0, "avgicp_register": 0,
-            "hash_register": 0, "tick_stage": 0, "imu_intake": 0}
+            "hash_register": 0, "tick_stage": 0, "imu_intake": 0, "can_gps_update": 0,
+            "radar_rows": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -712,6 +725,57 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
     return ekf_state.RecordState(out)
 
 
+#: the last gnss_uncertainty_max given and its pointer: a pipeline passes
+#: the same parameter tensor every GPS fix
+_gnss_max = [None, None]
+
+
+def _sub_batch(xs, names, vec):
+    """The pointers of a CAN or GPS sub-batch (t, a, b, valid): valid None
+    (every sample valid) goes in as a null pointer; ``vec`` names the
+    fields of three floats a sample."""
+    n = xs[0].shape[0]
+    ptrs = [_check(x, name, _F32, (n, 3) if name in vec else (n,))
+            for x, name in zip(xs[:3], names)]
+    valid = xs[3]
+    ptrs.append(ctypes.c_void_p(None) if valid is None
+                else _check(valid, names[3], _BOOL, (n,)))
+    return [ctypes.c_int(n)] + ptrs
+
+
+def can_gps_update(state, params, flags, *, can=None, gps=None, gps_source=None,
+                   gnss_uncertainty_max=None):
+    """Kernel W (ekf.filter.update_chain_plain without a PCM pose): the CAN
+    samples ``can = (t, vel_x, yaw_rate, valid)``, then the GPS fixes
+    ``gps = (t, pos, cov_diag, valid)`` (as GNSS source ``gps_source``,
+    gated by ``gnss_uncertainty_max``), in one launch, each update in the
+    Joseph form with ``flags.joseph_form``; a ``valid`` of None means every
+    sample is valid. Kernel I's CAN and GPS legs, bit for bit."""
+    null = ctypes.c_void_p(None)
+    can_args = [ctypes.c_int(0), null, null, null, null]
+    if can is not None:
+        can_args = _sub_batch(can, ("can_t", "can_vel", "can_yaw", "can_valid"), ())
+    gps_args = [ctypes.c_int(0), ctypes.c_int(0), null, null, null, null, null]
+    if gps is not None:
+        if gps_source is None or gps_source == _PCM:
+            raise ValueError(f"can_gps_update: GPS fixes need a GNSS source other than PCM, "
+                             f"got {gps_source}")
+        if gnss_uncertainty_max is not _gnss_max[0]:
+            _gnss_max[:] = [gnss_uncertainty_max, _check(
+                gnss_uncertainty_max, "gnss_uncertainty_max", _F32, ())]
+        n, *ptrs = _sub_batch(gps, ("gps_t", "gps_pos", "gps_cov", "gps_valid"),
+                              ("gps_pos", "gps_cov"))
+        gps_args = [n, ctypes.c_int(gps_source), _gnss_max[1], *ptrs]
+    (p_state, state), (p_params, params) = _state_in(state), _params(params)
+    out, out_ptr = _state_out(params.init_pos.device)
+    rc = library().elm_can_gps_update(p_state, out_ptr, p_params, *can_args, *gps_args,
+                                      ctypes.c_int(int(flags.joseph_form)),
+                                      _stream(params.init_pos))
+    _raise_on(rc, "can_gps_update")
+    launches["can_gps_update"] += 1
+    return ekf_state.RecordState(out)
+
+
 # --------------------------------------------------------------------------- #
 # Kernels J, K, L, M: the scan-time ring ops and the GN step (one CTA each;
 # their outputs are views into one or two fresh buffers, so a launch costs
@@ -1169,6 +1233,41 @@ def radar_cov(src_local, qidx, qmask, pose, params):
     rc = library().elm_radar_cov(*args, _ptr(out), _stream(src_local))
     _raise_on(rc, "radar_cov")
     launches["radar_cov"] += 1
+    return out
+
+
+#: the last IcpParams given, its three variance tensors and their pointer
+#: record: a pipeline passes the same params object every registration
+_radar_params = [None, (), None]
+
+
+def _variances(params):
+    fields = (params.range_variance_m, params.azimuth_variance_deg,
+              params.elevation_variance_deg)
+    if params is not _radar_params[0] or not all(map(operator.is_, fields, _radar_params[1])):
+        names = ("range_variance_m", "azimuth_variance_deg", "elevation_variance_deg")
+        ptrs = _ptr_array([_check(f, n, _F32, ()).value for f, n in zip(fields, names)])
+        _radar_params[:] = [params, fields, ptrs]
+    return _radar_params[2]
+
+
+def radar_rows(src_local, qidx, qmask, pose, params):
+    """Kernel X (register.icp.radar_slots_plain): ``radar_point_cov`` of the
+    scan [N, 3] at the world pose [4, 4] on the rows of the slot assignment
+    (``qidx``, ``qmask`` [S, QB]), zero where ``qmask`` is false: [S, QB,
+    3, 3]; with ``qidx`` and ``qmask`` None on the rows 0..N-1 in order: [N,
+    3, 3]. Kernel P's rows, bit for bit."""
+    n = src_local.shape[0]
+    shape = (n,) if qidx is None else tuple(qmask.shape)
+    rows = n if qidx is None else qmask.numel()
+    args = [_check(src_local, "src_local", _F32, (n, 3)), ctypes.c_int(n),
+            _ptr(None) if qidx is None else _check(qidx, "qidx", torch.int32, shape),
+            _ptr(None) if qidx is None else _check(qmask, "qmask", _BOOL, shape),
+            ctypes.c_int(rows), _check(pose, "pose", _F32, (4, 4)), _variances(params)]
+    out = torch.empty(shape + (3, 3), dtype=_F32, device=src_local.device)
+    rc = library().elm_radar_rows(*args, _ptr(out), _stream(src_local))
+    _raise_on(rc, "radar_rows")
+    launches["radar_rows"] += 1
     return out
 
 

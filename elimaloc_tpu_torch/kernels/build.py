@@ -52,6 +52,9 @@ _SIGNATURES = {
     "elm_tick_stage": [_P, _P, _P, _P, _PP, _I, _P, _P],
     "elm_imu_intake": [_PP, _I, _P, _P, _P, _P, _P, _P],
     "elm_radar_cov": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "elm_radar_rows": [_P, _I, _P, _P, _I, _P, _PP, _P, _P],
+    "elm_can_gps_update": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
+                           _P],
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P],

@@ -13,9 +13,9 @@ the EKF PCM update and the frame's published outputs) and
 one LiDAR frame: :func:`imu_subbatch` (the frame's IMU samples into the
 ego frame, through the EKF prediction, then one push into each ring: one
 launch of kernel H), the frame's CAN and GPS samples when the
-configuration fuses them (kernel I), then :func:`scan_step`. The EKF
+configuration fuses them (kernel W), then :func:`scan_step`. The EKF
 state lives on the card as one packed record (``ekf.state``), which
-kernels H, I, O and S take and give.
+kernels H, W, U and S take and give.
 
 :class:`LocalizationPipeline` drives them three ways, as the JAX package
 does: ``run`` (the per-event loop over a log in time order), ``run_frames``
@@ -404,9 +404,8 @@ def pcm_init_step(state: PipelineState, t, pose, pp: PipelineParams,
 
 
 def _one(*xs):
-    """One sample as a sub-batch of one, valid."""
-    return tuple(x[None] for x in xs) + (torch.ones(1, dtype=torch.bool,
-                                                    device=xs[0].device),)
+    """One sample as a sub-batch of one, valid (a ``valid`` of None)."""
+    return tuple(x[None] for x in xs) + (None,)
 
 
 def gps_step(state: PipelineState, t, pos, cov_diag, pp: PipelineParams,
@@ -414,7 +413,7 @@ def gps_step(state: PipelineState, t, pos, cov_diag, pp: PipelineParams,
     """GPS fix update (runtime.py:205-234): the configured gps_type picks the
     source, NAVSATFIX / BESTPOS 3-DOF and ODOMETRY the NOVATEL 6-DOF path;
     see ``ekf.filter.update_gps``. A GPS sub-batch of one through
-    ``update_chain`` (kernel I on the card)."""
+    ``update_chain`` (kernel W on the card)."""
     if not ps.use_gps:
         return state
     return state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
@@ -425,7 +424,7 @@ def gps_step(state: PipelineState, t, pos, cov_diag, pp: PipelineParams,
 def can_step(state: PipelineState, t, vel_x, yaw_rate, pp: PipelineParams,
              ps: PipelineStatic) -> PipelineState:
     """CAN wheel-speed update (runtime.py:260-272): a CAN sub-batch of one
-    through ``update_chain`` (kernel I on the card)."""
+    through ``update_chain`` (kernel W on the card)."""
     if not ps.use_can:
         return state
     return state.replace(ekf=update_chain(state.ekf, pp.ekf, ps.ekf_flags,
@@ -452,17 +451,57 @@ def imu_subbatch_plain(st: PipelineState, b, pp: PipelineParams,
     return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
 
 
-def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
-                 ps: PipelineStatic) -> PipelineState:
-    """The frame's IMU stage (runtime.py:405-441): :func:`imu_subbatch_plain`
-    for CPU tensors, one launch of kernel H (``kernels.imu_stage``) for CUDA
-    ones."""
+_IMU_KEYS = ("imu_t", "imu_acc", "imu_gyro", "imu_valid")
+
+
+def _imu_stage(st: PipelineState, b, pp: PipelineParams, ps: PipelineStatic) -> PipelineState:
+    """:func:`imu_subbatch_plain` for CPU tensors, one launch of kernel H
+    (``kernels.imu_stage``) for CUDA ones."""
     if b["imu_t"].device.type == "cpu":
         return imu_subbatch_plain(st, b, pp, ps)
     ekf, ego_ring, imu_ring = kernels.imu_stage(
         st.ekf, st.ego_ring, st.imu_ring, b["imu_t"], b["imu_acc"], b["imu_gyro"],
         b["imu_valid"], pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, ps.ekf_flags)
     return st.replace(ekf=ekf, ego_ring=ego_ring, imu_ring=imu_ring)
+
+
+def imu_chunks(n: int, caps=()) -> list:
+    """The [start, end) ranges a frame of ``n`` IMU samples runs in, in
+    order: cut from the end at most ``kernels.IMU_STAGE_MAX_SAMPLES`` apart,
+    and at n - C for each ring capacity C in ``caps`` between that and n.
+    A batch push of n rows into a ring of C < n keeps only rows n - C..n-1
+    (rings._push_arrays_batch, as JAX's): so the last range, and any range
+    past n - C, brings the ring exactly those rows."""
+    cut = kernels.IMU_STAGE_MAX_SAMPLES
+    bounds = sorted({0, n} | {n - c for c in caps if cut < c < n})
+    chunks = []
+    for s, e in zip(bounds, bounds[1:]):
+        chunks += [(max(s, k - cut), k) for k in range(e, s, -cut)]
+    return sorted(chunks)
+
+
+def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
+                 ps: PipelineStatic) -> PipelineState:
+    """The frame's IMU stage (runtime.py:405-441): :func:`imu_subbatch_plain`
+    for CPU tensors, kernel H (``kernels.imu_stage``) for CUDA ones, one call
+    a range of :func:`imu_chunks` (one launch for a frame of at most
+    ``kernels.IMU_STAGE_MAX_SAMPLES`` samples). Each range takes the EKF
+    state the one before gave; a ring takes a range's output only from the
+    ranges its batch push would keep, so the split frame's rings are the
+    unsplit push's (``build_fused_batches`` pads every frame to the largest
+    frame's count, which a long IMU lead before the first scan makes
+    large)."""
+    n = b["imu_t"].shape[0]
+    chunks = imu_chunks(n, [r.capacity for r in (st.ego_ring, st.imu_ring) if r is not None])
+    if len(chunks) <= 1:
+        return _imu_stage(st, b, pp, ps)
+    for s, e in chunks:
+        part = {k: None if b[k] is None else b[k][s:e] for k in _IMU_KEYS}
+        out = _imu_stage(st, part, pp, ps)
+        ego, imu = (new if old is None or e > n - old.capacity else old
+                    for old, new in zip((st.ego_ring, st.imu_ring), (out.ego_ring, out.imu_ring)))
+        st = st.replace(ekf=out.ekf, ego_ring=ego, imu_ring=imu)
+    return st
 
 
 def imu_step(state: PipelineState, t, acc_raw, gyro_raw, pp: PipelineParams,

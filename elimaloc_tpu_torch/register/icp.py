@@ -37,8 +37,9 @@ With ``use_radar_cov`` every GICP / VGICP / AVGICP row adds its point's
 range / azimuth / elevation covariance (:func:`radar_point_cov`) to
 R^T C R before the inverse. It is computed once per registration from the
 WORLD initial pose, before the window-origin shift, and packed into the
-slot layout (icp.py:619-632, 652-655): :func:`radar_slots`, kernel P
-``radar_cov.cu`` on the card. AVGICP then takes the flattened per-pair tail
+slot layout (icp.py:619-632, 652-655), or in query order on the hash
+backend: :func:`radar_slots`, kernel X ``radar_rows.cu`` on the card (kernel
+P ``radar_cov.cu`` is its reference). AVGICP then takes the flattened per-pair tail
 (icp.py:551-562) instead of the world-frame reduction.
 
 The hash backend (``backend="hash"``, icp.py:612-675, the JAX package's
@@ -49,7 +50,7 @@ from the current pose (:func:`hash_register`: kernel Q's body
 ``hash_correspond.cuh`` inside the loop kernel on the card; on a CPU tensor
 :func:`hash_search_reduce_plain`, the grid queries composed with the same
 tails, icp.py:429-467, and :func:`gn_update_plain`). The radar covariances
-come in query order, from kernel P on the rows 0..N-1. As in JAX,
+come in query order, from kernel X on the rows 0..N-1. As in JAX,
 ``corr_reuse`` and ``reassign_each_iter`` do nothing there.
 
 Not ported, refused with NotImplementedError: the tile backend's
@@ -340,21 +341,25 @@ def radar_point_cov(points, params: IcpParams):
 
 
 def radar_slots_plain(src_local, qidx, qmask, pose, params: IcpParams):
-    """Plain PyTorch version of kernel P: :func:`radar_point_cov` of the scan
-    at the world pose ``pose``, gathered into the slot layout of the
-    assignment (``qidx``, ``qmask`` [S, QB]) and zero where ``qmask`` is
-    false (icp.py:619-623, 652-655). Returns [S, QB, 3, 3]."""
+    """Plain PyTorch version of kernels P and X: :func:`radar_point_cov` of
+    the scan at the world pose ``pose``, gathered into the slot layout of
+    the assignment (``qidx``, ``qmask`` [S, QB]) and zero where ``qmask`` is
+    false (icp.py:619-623, 652-655). Returns [S, QB, 3, 3]; with ``qidx``
+    and ``qmask`` None, the rows 0..N-1 in order, [N, 3, 3]."""
     radar = radar_point_cov(lie.transform_points(pose, src_local), params)
+    if qidx is None:
+        return radar
     safe_idx = torch.clamp(qidx.to(torch.int64), max=src_local.shape[0] - 1)
     return torch.where(qmask[..., None, None], radar[safe_idx],
                        torch.zeros((), dtype=radar.dtype, device=radar.device))
 
 
 def radar_slots(src_local, qidx, qmask, pose, params: IcpParams):
-    """:func:`radar_slots_plain` for CPU tensors, kernel P for CUDA ones."""
+    """:func:`radar_slots_plain` for CPU tensors, kernel X
+    (``kernels.radar_rows``) for CUDA ones."""
     if src_local.device.type == "cpu":
         return radar_slots_plain(src_local, qidx, qmask, pose, params)
-    return kernels.radar_cov(src_local, qidx, qmask, pose, params)
+    return kernels.radar_rows(src_local, qidx, qmask, pose, params)
 
 
 def _gicp_tail(pose, src, cov, cov_mean, valid, params: IcpParams, radar=None):
@@ -823,12 +828,10 @@ def hash_register(method: int, grid, src, valid, pose, fitness, local_cov, total
 
 def radar_points(src_local, pose, params: IcpParams):
     """:func:`radar_point_cov` of the scan at the world pose, in query order
-    [N, 3, 3] (icp.py:619-623): :func:`radar_slots` on the rows 0..N-1 (kernel
-    P on the card)."""
-    n = src_local.shape[0]
-    qidx = torch.arange(n, dtype=torch.int32, device=src_local.device).view(1, n)
-    qmask = torch.ones((1, n), dtype=torch.bool, device=src_local.device)
-    return radar_slots(src_local, qidx, qmask, pose, params).view(n, 3, 3)
+    [N, 3, 3] (icp.py:619-623): :func:`radar_slots` on the rows 0..N-1, given
+    as no index and no mask (kernel X on the card: no index or mask tensor
+    is made)."""
+    return radar_slots(src_local, None, None, pose, params)
 
 
 #: the tile backend's registration loop of each covariance method

@@ -182,7 +182,8 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: tick mode and the radar covariances, kernels J-P and their plain versions
 #: live in, the packed EKF records, the smoke script and the timing scripts
 #: of kernels B and C, of the IMU stage, of the P2P GN loop, of the scan's
-#: end, of its front, of the registration loops and of the tick mode
+#: end, of its front, of the registration loops, of the tick mode and of
+#: the CAN / GPS updates and radar rows (kernels W and X)
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -193,7 +194,8 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "chip_smoke.py", "tools/time_sort_kernels.py", "tools/time_imu_stage.py",
                "tools/time_gn_loop.py", "tools/time_pcm_stage.py",
                "tools/time_scan_front.py", "tools/time_register_loops.py",
-               "tools/time_tick_mode.py"]
+               "tools/time_tick_mode.py", "tools/time_ekf_update.py",
+               "tools/probe_profiler_drops.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
@@ -233,7 +235,8 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
             "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov",
             "elm_hash_search_reduce", "elm_hash_query", "elm_hash_lookup",
-            "elm_ground_height", "elm_assign_slots", "elm_voxel_downsample"} <= set(found)
+            "elm_ground_height", "elm_assign_slots", "elm_voxel_downsample",
+            "elm_can_gps_update", "elm_radar_rows"} <= set(found)
     # kernels B and C are one entry each; their former two-launch halves are gone
     assert not {"elm_tile_keys", "elm_assign_scatter", "elm_voxel_keys",
                 "elm_voxel_compact"} & set(found)

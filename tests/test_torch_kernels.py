@@ -185,8 +185,8 @@ def test_launch_counters_name_all_seven_kernels():
     launch), the scan's front T (the gate, the scan times, K and D in
     one host call), the GICP, VGICP, AVGICP and hash loop kernels (E, F,
     G or Q with M in one launch) and the tick mode's U (O's tick and J's
-    ego push in one launch) and V (its IMU intake); the record packs
-    apart."""
+    ego push in one launch) and V (its IMU intake), and W and X (I's CAN and
+    GPS legs and P, redesigned); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
@@ -195,7 +195,7 @@ def test_launch_counters_name_all_seven_kernels():
         "pcm_stage",
         "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height", "gicp_register", "vgicp_register", "avgicp_register",
-        "hash_register", "tick_stage", "imu_intake"])
+        "hash_register", "tick_stage", "imu_intake", "can_gps_update", "radar_rows"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -312,7 +312,7 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
                                    "radar_cov", "hash_correspond", "hash_query",
                                    "hash_lookup", "ground_height", "tick_stage",
-                                   "imu_intake"])
+                                   "imu_intake", "can_gps_update", "radar_rows"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
     if which in ("hash_correspond", "hash_query", "hash_lookup", "ground_height"):
         g = grid.to_device(scene[3], "cpu")
@@ -343,7 +343,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
                 kernels.gn_step(torch.zeros(18), torch.eye(4), torch.zeros(()),
                                 torch.eye(6), torch.ones(()), params, False)
         return
-    if which in ("imu_stage", "ekf_update", "ca_tick", "tick_stage", "imu_intake"):
+    if which in ("imu_stage", "ekf_update", "ca_tick", "tick_stage", "imu_intake",
+                 "can_gps_update"):
         st, pp, flags, imu, can, *_ = _ekf_inputs("cpu")
         with pytest.raises(ValueError, match="CUDA tensor required"):
             if which == "imu_stage":
@@ -356,14 +357,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
             elif which == "imu_intake":
                 kernels.imu_intake(rings.make_imu_ring(8), imu[0][0], imu[1][0], imu[2][0],
                                    pp.ego_to_imu_rot)
+            elif which == "can_gps_update":
+                kernels.can_gps_update(st, pp.ekf, flags, can=can[:3] + (None,))
             else:
                 kernels.ekf_update(st, pp.ekf, flags, can=can)
         return
-    if which == "radar_cov":
+    if which in ("radar_cov", "radar_rows"):
         params = icp.make_icp_params(icp.PcmConfig())
         with pytest.raises(ValueError, match="CUDA tensor required"):
-            kernels.radar_cov(torch.zeros(16, 3), torch.zeros(2, 8, dtype=torch.int32),
-                              torch.ones(2, 8, dtype=torch.bool), torch.eye(4), params)
+            getattr(kernels, which)(torch.zeros(16, 3), torch.zeros(2, 8, dtype=torch.int32),
+                                    torch.ones(2, 8, dtype=torch.bool), torch.eye(4), params)
         return
     inp = _inputs(scene, "cpu")
     tm = inp["tmap"]
@@ -705,8 +708,9 @@ def test_packed_states_flow_through_kernels_h_i_o_on_card(cuda):
 
 @pytest.mark.cuda
 def test_hot_reload_reaches_kernel_i_on_card(cuda):
-    """A value-only reload (a new params record) changes kernel I's CAN
-    gain as it changes the plain version's."""
+    """A value-only reload (a new params record) changes the CAN gain of
+    ``update_chain`` on the card (kernel W) as it changes the plain
+    version's."""
     st, pp, flags, _, can, *_ = _ekf_inputs(cuda)
     cfg = ElimalocConfig()
     cfg.ekf.can_meas_uncertainty_vel_mps *= 0.01
@@ -735,7 +739,7 @@ def test_ekf_update_matches_plain_on_card(cuda, case):
     kernels.reset_launches()
     got = efilter.update_chain(st, pp.ekf, flags, **kw)
     torch.cuda.synchronize()
-    assert kernels.launches["ekf_update"] == 1
+    assert kernels.launches["ekf_update" if "pcm" in kw else "can_gps_update"] == 1
     ref = efilter.update_chain_plain(st, pp.ekf, flags, **kw)
     for f, _, _ in kernels.EKF_FIELDS:
         a, b = getattr(got, f), getattr(ref, f)
@@ -752,7 +756,8 @@ def test_ekf_update_matches_plain_on_card(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", ["can_step", "gps_step"])
 def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
-    """The pipeline's one-sample CAN and GPS steps launch kernel I once."""
+    """The pipeline's one-sample CAN and GPS steps launch kernel W once
+    (kernel I's CAN and GPS legs, redesigned), with no mask tensor."""
     st, pp, flags, _, can, gps, _ = _ekf_inputs(cuda)
     ps = dataclasses.replace(runtime.make_pipeline_static(ElimalocConfig()),
                              ekf_flags=flags, use_can=True, use_gps=True)
@@ -767,7 +772,7 @@ def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
         ref = efilter.update_chain_plain(st, pp.ekf, flags, gps=gps,
                                          gnss_uncertainty_max=pp.gnss_uncertainty_max)
     torch.cuda.synchronize()
-    assert kernels.launches["ekf_update"] == 1
+    assert kernels.launches["can_gps_update"] == 1 == sum(kernels.launches.values())
     assert float((ref.P - st.P).abs().max()) > 0.0
     for f, _, _ in kernels.EKF_FIELDS:
         a, b = getattr(got, f), getattr(ref, f)
@@ -780,7 +785,8 @@ def test_pipeline_steps_go_through_kernel_i_on_card(cuda, step):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["imu_stage", "ekf_update", "tick_stage", "imu_intake"])
+@pytest.mark.parametrize("which", ["imu_stage", "ekf_update", "tick_stage", "imu_intake",
+                                   "can_gps_update"])
 def test_ekf_kernels_refuse_float64_on_card(cuda, which):
     st, pp, flags, imu, can, *_ = _ekf_inputs(cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
@@ -793,8 +799,149 @@ def test_ekf_kernels_refuse_float64_on_card(cuda, which):
         elif which == "imu_intake":
             kernels.imu_intake(rings.make_imu_ring(8, torch.float64, cuda), imu[0][0],
                                imu[1][0], imu[2][0], pp.ego_to_imu_rot)
+        elif which == "can_gps_update":
+            kernels.can_gps_update(st, pp.ekf, flags, can=can)
         else:
             kernels.ekf_update(st, pp.ekf, flags, can=can)
+
+
+def _w_inputs(cuda, case):
+    """(state, params, flags, kwargs) of one CAN / GPS call: the frame's CAN
+    sub-batch (a padded slot last), a 3-DOF fix, one with yaw not yet
+    initialised (the antenna inflation: yaw std above 5 deg), a 6-DOF
+    (NOVATEL) fix, a frame of both, every slot padded, one sample with
+    ``valid`` None (the event loop's steps), and 300 CAN samples (more than
+    one staging pass of kernel W, every seventh invalid)."""
+    st, pp, flags, _, can, gps, _ = _ekf_inputs(cuda, flags="odometry" if case == "gps6"
+                                               else "default")
+    gate = pp.gnss_uncertainty_max
+    src = efilter.GPS_SOURCE[flags.gps_type]
+    g = dict(gps=gps, gps_source=src, gnss_uncertainty_max=gate)
+    if case == "gps3_yaw_uninit":
+        p = st.P.clone()
+        p[5, 5] = 0.05
+        st = st.replace(P=p)
+    if case == "can_long":
+        n = 300
+        f = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+        can = (f(1.0 + 0.02 * np.arange(1, n + 1)), f(5.0 + 0.1 * np.sin(np.arange(n))),
+               f(0.1 + 0.01 * np.cos(np.arange(n))), f(np.arange(n) % 7 != 3, torch.bool))
+    kw = {"can": dict(can=can), "gps3": g, "gps3_yaw_uninit": g, "gps6": g,
+          "frame": dict(can=can, **g),
+          "padded": dict(can=can[:3] + (torch.zeros_like(can[3]),),
+                         gps=gps[:3] + (torch.zeros_like(gps[3]),), gps_source=src,
+                         gnss_uncertainty_max=gate),
+          "one_sample": dict(can=tuple(x[1:2] for x in can[:3]) + (None,),
+                             gps=tuple(x[:1] for x in gps[:3]) + (None,), gps_source=src,
+                             gnss_uncertainty_max=gate),
+          "can_long": dict(can=can)}[case]
+    return st, pp, flags, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joseph", [False, True], ids=["reference", "joseph"])
+@pytest.mark.parametrize("case", ["can", "gps3", "gps3_yaw_uninit", "gps6", "frame", "padded",
+                                  "one_sample", "can_long"])
+def test_can_gps_update_matches_kernel_i_on_card(cuda, case, joseph):
+    """Kernel W bit for bit against kernel I, its reference, on the same
+    inputs (I takes an explicit all-true mask where W takes None), one
+    launch each; and against the plain version within I's gates, except
+    the 300 chained Joseph-form CAN updates: the kernels' Joseph pass
+    mirrors P's upper triangle and the plain version's two products do
+    not, a rounding difference that 300 updates grow past a gate set for
+    one frame's sub-batch (to 2.5 times it on the H100, with W equal to I
+    bit for bit)."""
+    st, pp, flags, kw = _w_inputs(cuda, case)
+    flags = dataclasses.replace(flags, joseph_form=joseph)
+    kernels.reset_launches()
+    got = kernels.can_gps_update(st, pp.ekf, flags, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["can_gps_update"] == 1 == sum(kernels.launches.values())
+    ikw = {k: (v[:3] + (torch.ones(v[0].shape[0], dtype=torch.bool, device=cuda),)
+               if k in ("can", "gps") and v[3] is None else v) for k, v in kw.items()}
+    ref_i = kernels.ekf_update(st, pp.ekf, flags, **ikw)
+    assert torch.equal(got.intact_record(), ref_i.intact_record()), case
+    ref = efilter.update_chain_plain(st, pp.ekf, flags,
+                                     **{k: v for k, v in kw.items() if k != "gps_source"})
+    moved = float((ref.P - st.P).abs().max())
+    assert (moved == 0.0) == (case == "padded")
+    if case == "can_long" and joseph:
+        return
+    assert _p_entry_err(got.P, ref.P, st.P, 1e-5) <= 1.0
+    for f, dt, _ in kernels.EKF_FIELDS:
+        if dt == torch.float32 and f != "P":
+            assert _rel(getattr(got, f), getattr(ref, f)) <= 1e-5, f
+        elif dt != torch.float32:
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["slots", "identity"])
+def test_radar_rows_match_kernel_p_on_card(scene, cuda, rows):
+    """Kernel X bit for bit against kernel P, its reference: on a slot
+    assignment of the scene's scan (live and dead rows), and on the rows
+    0..N-1 given as no index and no mask (the hash backend's query order)
+    against P on an arange index and an all-true mask."""
+    inp = _inputs(scene, cuda)
+    out = _calls(inp, tiles.TileQueryBudget(qb=16, max_slots=256))
+    asg, ds = out["assign"], out["downsample"][0]
+    params = icp.make_icp_params(icp.PcmConfig(), device=cuda)
+    n = ds.shape[0]
+    if rows == "slots":
+        qidx, qmask, ref_args = asg.qidx, asg.qmask, (asg.qidx, asg.qmask)
+    else:
+        qidx = qmask = None
+        ref_args = (torch.arange(n, dtype=torch.int32, device=cuda).view(1, n),
+                    torch.ones((1, n), dtype=torch.bool, device=cuda))
+    kernels.reset_launches()
+    got = kernels.radar_rows(ds, qidx, qmask, inp["pose"], params)
+    torch.cuda.synchronize()
+    assert kernels.launches["radar_rows"] == 1 == sum(kernels.launches.values())
+    ref = kernels.radar_cov(ds, *ref_args, inp["pose"], params)
+    assert torch.equal(got.view(ref.shape), ref)
+    assert got.shape == ((n, 3, 3) if rows == "identity" else tuple(asg.qmask.shape) + (3, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["window_in_last_range", "rings_past_the_cap"])
+def test_imu_stage_split_matches_plain_on_card(cuda, case):
+    """A frame of more samples than one launch of kernel H takes
+    (``kernels.IMU_STAGE_MAX_SAMPLES``): ``runtime.imu_subbatch`` runs it in
+    the ranges of ``runtime.imu_chunks``, chaining the state and the rings,
+    against one unsplit call of the plain composition within H's gates.
+    The frame is a long lead's padded frame: valid samples at its start
+    and end, padding between (H's gates hold over these ~40 predictions).
+    Rings of 16 / 8 rows keep only the last range's rows; rings of 1100
+    rows (past the cap, below n) take the ranges past n - 1100, and not the
+    20 valid samples before it, as one push would."""
+    pst, b, pp, ps = _stage_inputs(cuda)
+    n = kernels.IMU_STAGE_MAX_SAMPLES + 200
+    k = b["imu_t"].shape[0]
+    rng = np.random.default_rng(12)
+    ts = np.zeros(n)
+    valid = np.zeros(n, bool)
+    ts[:20] = 1.0 + 0.01 * np.arange(1, 21)
+    ts[-20:] = 1.2 + 0.01 * np.arange(1, 21)
+    valid[:20] = valid[-20:] = True
+    acc = rng.normal(0, 0.3, (n, 3)) + [0.5, 0.1, 9.81]
+    gyro = rng.normal(0, 0.05, (n, 3)) + [0.0, 0.0, 0.13]
+    f = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+    b = {"imu_t": f(ts), "imu_acc": f(acc), "imu_gyro": f(gyro),
+         "imu_valid": f(valid, torch.bool)}
+    assert k < n
+    if case == "rings_past_the_cap":
+        pst = pst.replace(ego_ring=rings.make_ego_ring(1100, device=cuda),
+                          imu_ring=rings.make_imu_ring(1100, device=cuda))
+    chunks = runtime.imu_chunks(n, (pst.ego_ring.capacity, pst.imu_ring.capacity))
+    kernels.reset_launches()
+    got = runtime.imu_subbatch(pst, b, pp, ps)
+    torch.cuda.synchronize()
+    assert kernels.launches["imu_stage"] == len(chunks) >= 2
+    assert sum(kernels.launches.values()) == len(chunks)
+    ref = runtime.imu_subbatch_plain(pst, b, pp, ps)
+    _check_stage(got, ref, pst.ekf)
+    assert len(chunks) == (2 if case == "window_in_last_range" else 3)
+    assert int(got.ego_ring.count) == (16 if case == "window_in_last_range" else 20)
 
 
 # --------------------------------------------------------------------------- #
@@ -1107,8 +1254,10 @@ def test_ca_tick_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 def test_radar_cov_matches_plain_on_card(scene, cuda):
-    """Kernel P on a slot assignment of the scene's scan (live and dead
-    rows, a world pose far from the map origin)."""
+    """The radar rows on a slot assignment of the scene's scan (live and
+    dead rows, a world pose far from the map origin): ``icp.radar_slots``
+    on the card, kernel X (kernel P redesigned), against the plain
+    version."""
     inp = _inputs(scene, cuda)
     out = _calls(inp, tiles.TileQueryBudget(qb=16, max_slots=256))
     asg = out["assign"]
@@ -1117,7 +1266,7 @@ def test_radar_cov_matches_plain_on_card(scene, cuda):
     kernels.reset_launches()
     got = icp.radar_slots(ds, asg.qidx, asg.qmask, inp["pose"], params)
     torch.cuda.synchronize()
-    assert kernels.launches["radar_cov"] == 1
+    assert kernels.launches["radar_rows"] == 1 == sum(kernels.launches.values())
     ref = icp.radar_slots_plain(ds, asg.qidx, asg.qmask, inp["pose"], params)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
     assert torch.equal(got[~asg.qmask], torch.zeros_like(got[~asg.qmask]))
@@ -1153,7 +1302,7 @@ def test_ekf_update_joseph_matches_plain_on_card(cuda, case):
     kernels.reset_launches()
     got = efilter.update_chain(st, pp.ekf, flags, **kw)
     torch.cuda.synchronize()
-    assert kernels.launches["ekf_update"] == 1
+    assert kernels.launches["ekf_update" if "pcm" in kw else "can_gps_update"] == 1
     ref = efilter.update_chain_plain(st, pp.ekf, flags, **kw)
     for f, _, _ in kernels.EKF_FIELDS:
         a, b = getattr(got, f), getattr(ref, f)

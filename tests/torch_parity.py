@@ -95,3 +95,19 @@ def tiny_world_and_log(log_mod, duration=3.0):
     log = log_mod.synthesize_log(world, duration=duration, points_per_scan=1024,
                                  max_range=50.0, seed=10, gps_hz=1.0)
     return world, log
+
+
+def stationary_lead(log, seconds, seed):
+    """``log`` with ``seconds`` of 100 Hz IMU before its first sample, the
+    vehicle at rest (it starts from rest, pipeline/log.py ``_traj``): the
+    specific force and the rates are synthesize_log's biases, gravity and
+    noise. Frame 0 then holds the lead's samples, and
+    ``build_fused_batches`` pads every frame to them."""
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * 100))
+    t = log.imu_t[0] - 0.01 * np.arange(n, 0, -1)
+    acc = np.array([0.02, -0.01, 9.81 + 0.015]) + rng.normal(0, 0.02, (n, 3))
+    gyro = np.array([0.002, -0.001, 0.003]) + rng.normal(0, 0.002, (n, 3))
+    return dataclasses.replace(log, imu_t=np.r_[t, log.imu_t],
+                               imu_acc=np.r_[acc, log.imu_acc],
+                               imu_gyro=np.r_[gyro, log.imu_gyro])
