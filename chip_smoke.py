@@ -31,8 +31,9 @@ registration, in place of B and A, E, F, G):
 ``run_fused`` as "P2P hash", "GICP hash", "VGICP hash", "AVGICP hash" and
 the radar forms "GICP / VGICP / AVGICP hash+radar"; "GICP hash frames"
 (``run_frames``); "reloc hash" (``initialize_at`` on the P2P hash
-pipeline); "hash grid": the grid's own lookup, four queries (Q's other
-entries) and ground probe (kernel R) on the card; and "P2P long lead": a
+pipeline); "hash grid": the grid's own lookup (Q's lookup entry), four
+queries (kernel Y, Q's query entry redesigned) and ground probe (kernel Z,
+R redesigned) on the card; and "P2P long lead": a
 small log whose IMU stream leads its first scan by 12 s (kernel H twice a
 frame), through ``run_fused`` and ``run_frames``.
 
@@ -154,8 +155,11 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
   5b. the hash backend: each hash path held to its method's gates (as its
      tile path) with the hash loop launched once a registration, Q and M
      never, and no tile kernel; "GICP hash frames" = its run_fused to 1e-6 m; "reloc hash"
-     within 1.5 m; "hash grid": lookup and the queries bit for bit against
-     their plain versions, R's found equal and z within one ulp; each hash
+     within 1.5 m; "hash grid": the public calls launch Y four times and Z
+     once (Q's query entry and R never), the lookup and Y's queries bit for
+     bit against their plain versions and Y against Q's query entry, Z's
+     (found, z) bit for bit against R's and z within one ulp of the plain
+     version, the launch floor (an empty kernel) beside the lookup; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
   5c. "P2P long lead" (``long_lead_phase``): a small P2P log whose IMU
@@ -163,7 +167,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      launch of kernel H: run_fused and run_frames on the card with H
      ceil(cap / 1024) times a frame, run_frames = run_fused to 1e-6 m, the
      card against the CPU port under the closed-loop contract;
-  6. torch.profiler, after every timed replay: kernels B-D, H-X and the
+  6. torch.profiler, after every timed replay: kernels B-D, H-Z and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
      rotation and J beside V),
@@ -426,6 +430,12 @@ HASH = ("elimaloc_tpu_torch/csrc/hash_correspond.cu",
         "elimaloc_tpu/register/icp.py:429 _iteration (+ the tails :283, :324, :354, :381)")
 GROUND = ("elimaloc_tpu_torch/csrc/ground_height.cu",
           "elimaloc_tpu/map/grid.py:320 find_ground_height")
+#: kernels Y and Z (Q's query entry and R redesigned)
+GRID_QUERY = ("elimaloc_tpu_torch/csrc/grid_query.cu",
+              "elimaloc_tpu/map/grid.py:181 query_nearest_point, :211 query_nearest_point_cov, "
+              ":233 query_nearest_voxel_cov, :254 query_all_voxel_cov (+ :153 lookup)")
+GROUND_PROBE = ("elimaloc_tpu_torch/csrc/ground_probe.cu",
+                "elimaloc_tpu/map/grid.py:320 find_ground_height")
 #: the tile backend's kernels, never launched on a hash path
 TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_correspond",
              "avgicp_correspond", LOOP, GICP_LOOP, VGICP_LOOP, AVG_LOOP)
@@ -959,11 +969,15 @@ def hash_kernel_row(path, pipe, calls, mods):
 def hash_grid_phase(pipe, calls, mods):
     """The grid's own functions on the card at the P2P hash path's last
     recorded GN iteration (its world queries, their voxels, the scan's
-    position): ``lookup`` and the four queries (kernel Q's lookup and query
-    entries) and ``find_ground_height`` (kernel R), the counts set to 0
-    just before and read just after. Then each against its plain version:
-    the lookup and the queries bit for bit (the same exact search, then
-    copies), R's ``found`` equal and z within one float32 ulp."""
+    position): the four queries (kernel Y), ``lookup`` (kernel Q's lookup
+    entry) and ``find_ground_height`` (kernel Z), the counts set to 0 just
+    before and read just after: Y four times, Z once, their references (Q's
+    query entry, R) never. Then each against its plain version and its
+    reference: Y against the plain queries and against Q's query entry bit
+    for bit (the same exact search, then copies), the lookup bit for bit,
+    Z's (found, z) against R's bit for bit and z within one float32 ulp of
+    the plain version. The launch floor (an empty kernel) is measured
+    beside the lookup."""
     kernels, grid_mod, icp = mods[0], mods[2], mods[4]
     g = pipe.map
     a, _ = calls["hash_correspond"]
@@ -984,8 +998,9 @@ def hash_grid_phase(pipe, calls, mods):
     found, z = grid_mod.find_ground_height(g, xy)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    if not (launches["hash_query"] == 4 and launches["hash_lookup"] == 1
-            and launches["ground_height"] == 1):
+    if not (launches["grid_query"] == 4 and launches["hash_lookup"] == 1
+            and launches["ground_probe"] == 1 and launches["hash_query"] == 0
+            and launches["ground_height"] == 0):
         raise AssertionError(f"[{HASH_GRID}] launches {launches}")
     out = []
     n = q.shape[0]
@@ -994,15 +1009,27 @@ def hash_grid_phase(pipe, calls, mods):
         for i, (x, y) in enumerate(zip(got[m], ref)):
             if not torch.equal(x, y.to(x.dtype)):
                 raise AssertionError(f"[{HASH_GRID}] query {m} output {i} differs from plain")
+        y_out, q_out = kernels.grid_query(g, q, md, m), kernels.hash_query(g, q, md, m)
+        for k in y_out:
+            if not torch.equal(y_out[k], q_out[k]):
+                raise AssertionError(f"[{HASH_GRID}] kernel Y {m} {k} differs from kernel Q's "
+                                     "query entry")
         valid_q = ref[1] if m == "P2P" else ref[-1]
         moved, ops = hash_search_bytes_ops(m, grid_mod, g, q, int(valid_q.sum()))
         moved += nbytes(q, md, *got[m])
-        out.append(dict(name=f"hash_query[{m}]", source=HASH[0], replaces=HASH[1],
-                        max_abs_err=0.0, ms=time_ms(lambda: fn(g, q, md)),
-                        plain_ms=time_ms(lambda: plain(g, q, md)), launches=1,
-                        device_fn=(lambda fn=fn: fn(g, q, md), "hash_query_kernel"),
+        plain_ms = time_ms(lambda: plain(g, q, md))
+        out.append(dict(name=f"grid_query[{m}]", source=GRID_QUERY[0],
+                        replaces=GRID_QUERY[1], max_abs_err=0.0,
+                        ms=time_ms(lambda: fn(g, q, md)), plain_ms=plain_ms, launches=1,
+                        device_fn=(lambda fn=fn: fn(g, q, md), "grid_query"),
                         bound=bound(ops, moved)))
-        log_line(f"  hash_query[{m}]: {n} queries, {int(valid_q.sum())} valid, bit for bit")
+        out.append(dict(name=f"hash_query[{m}]", source=HASH[0], replaces=HASH[1],
+                        max_abs_err=0.0, ms=time_ms(lambda: kernels.hash_query(g, q, md, m)),
+                        plain_ms=plain_ms, launches=launches["hash_query"],
+                        device_fn=(lambda m=m: kernels.hash_query(g, q, md, m),
+                                   "hash_query_kernel"), bound=bound(ops, moved)))
+        log_line(f"  grid_query[{m}]: {n} queries, {int(valid_q.sum())} valid, bit for bit "
+                 "= plain = kernel Q's query entry")
     ref_rows = grid_mod.lookup_plain(g, coords)
     if not torch.equal(rows, ref_rows):
         raise AssertionError(f"[{HASH_GRID}] lookup differs from its plain version")
@@ -1012,27 +1039,48 @@ def hash_grid_phase(pipe, calls, mods):
                     plain_ms=time_ms(lambda: grid_mod.lookup_plain(g, coords)), launches=1,
                     device_fn=(lambda: grid_mod.lookup(g, coords), "hash_lookup_kernel"),
                     bound=bound(n * 40, nbytes(coords, rows) + probes * 8)))
+    floor = {"device_ms": kernel_device_ms(kernels.launch_floor, "launch_floor_kernel"),
+             "event_ms": time_ms(kernels.launch_floor)}
+    log_line(f"  launch floor (an empty kernel, beside hash_lookup): on the device "
+             + (f"{floor['device_ms']:.4f} ms" if floor["device_ms"] else "not measured")
+             + f" (torch.profiler), event {floor['event_ms']:.4f} ms")
     rf, rz = grid_mod.find_ground_height_plain(g, xy)
+    r_found, r_z = kernels.ground_height(g.points, xy, 5.0, 5)
+    if not (torch.equal(found, r_found) and torch.equal(z, r_z)):
+        raise AssertionError(f"[{HASH_GRID}] kernel Z ({bool(found)}, {float(z)}) differs from "
+                             f"kernel R ({bool(r_found)}, {float(r_z)})")
     ulp = float(torch.finfo(torch.float32).eps) * max(abs(float(rz)), 1e-30)
     z_err = abs(float(z) - float(rz)) if torch.isfinite(rz) else float(z != rz)
     if not (bool(found) == bool(rf) and z_err <= ulp):
         raise AssertionError(f"[{HASH_GRID}] ground height ({bool(found)}, {float(z)}) vs "
                              f"plain ({bool(rf)}, {float(rz)})")
     v, m_pts = g.points.shape[0] - 1, g.points.shape[1]
-    out.append(dict(name="ground_height", source=GROUND[0], replaces=GROUND[1],
+    real = int(g.counts[:-1].sum())
+    plain_ms = time_ms(lambda: grid_mod.find_ground_height_plain(g, xy))
+    # Z: each count and each point below its count read once, the outputs
+    out.append(dict(name="ground_probe", source=GROUND_PROBE[0], replaces=GROUND_PROBE[1],
                     max_abs_err=z_err, ms=time_ms(lambda: grid_mod.find_ground_height(g, xy)),
-                    plain_ms=time_ms(lambda: grid_mod.find_ground_height_plain(g, xy)),
-                    launches=1, device_fn=(lambda: grid_mod.find_ground_height(g, xy),
-                                           "ground_"),
+                    plain_ms=plain_ms, launches=1,
+                    device_fn=(lambda: grid_mod.find_ground_height(g, xy),
+                               "ground_probe_kernel"),
+                    bound=bound(real * 8, v * 4 + real * 12 + 5)))
+    # R: the dense plane it streams
+    out.append(dict(name="ground_height", source=GROUND[0], replaces=GROUND[1],
+                    max_abs_err=z_err, ms=time_ms(lambda: kernels.ground_height(g.points, xy,
+                                                                                5.0, 5)),
+                    plain_ms=plain_ms, launches=launches["ground_height"],
+                    device_fn=(lambda: kernels.ground_height(g.points, xy, 5.0, 5), "ground_"),
                     bound=bound(v * m_pts * 6, v * m_pts * 12 + 8)))
     log_line(f"[{HASH_GRID}] lookup of {n} voxels bit for bit; ground height at "
              f"({xy[0]:.2f}, {xy[1]:.2f}): found {bool(found)}, z {float(z):.6f} (plain "
-             f"{float(rz):.6f}); launches {launches}")
+             f"{float(rz):.6f}; kernel R bit for bit); {real} map points in {v} voxels "
+             f"of {m_pts} slots; launches {launches}")
     for r in out:
         r["route"] = "cuda"
-    return out, {"launches": {k: launches[k] for k in ("hash_query", "hash_lookup",
+    return out, {"launches": {k: launches[k] for k in ("grid_query", "hash_lookup",
+                                                         "ground_probe", "hash_query",
                                                          "ground_height")},
-                 "ground": {"found": bool(found), "z": float(z)}}
+                 "ground": {"found": bool(found), "z": float(z)}, "launch_floor": floor}
 
 
 def p_args(a):

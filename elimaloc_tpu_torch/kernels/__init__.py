@@ -18,7 +18,10 @@ for the matches), L, whose body runs inside S, D and K, whose bodies run
 inside T, O and J, which launch on no path (U runs O's body and J's
 push, V H's IMU intake; they stay as U's and V's reference), and I and P,
 which launch on no path either (W and X, their redesigns, are held to
-them bit for bit).
+them bit for bit). Q's lookup entry, Y and Z serve the grid's own
+functions (lookup, the queries, the ground probe) and run on no replay
+path; Q's query entry and R, which Y and Z redesign and are held to bit
+for bit, launch on none at all.
 
 ========  ==================  ===================================================
 kernel    wrapper             replaces (JAX package)
@@ -94,8 +97,11 @@ Q         hash_correspond     map/grid.py:lookup + query_* + icp._iteration (the
                               reference; its body runs inside hash_register)
 Q         hash_query          map/grid.py:query_nearest_point(_cov),
                               query_nearest_voxel_cov, query_all_voxel_cov
+                              (kernel Y's reference, one thread a query)
 Q         hash_lookup         map/grid.py:lookup
-R         ground_height       map/grid.py:find_ground_height
+R         ground_height       map/grid.py:find_ground_height (kernel Z's
+                              reference: the whole [V, M] plane, two
+                              launches)
 S         pcm_stage           runtime.pcm_stage_plain: the scan's end, L's PCM
                               measurement, I's PCM update and the fused
                               frame's epilogue (the ego pose, P's asymmetry
@@ -122,14 +128,24 @@ X         radar_rows          register/icp.py:radar_slots_plain: kernel P
                               redesigned, and the hash backend's rows in query
                               order with no index or mask tensor, one launch
                               a radar registration
+Y         grid_query          map/grid.py:query_nearest_point(_cov),
+                              query_nearest_voxel_cov, query_all_voxel_cov:
+                              Q's query entry redesigned (a warp a query,
+                              the 27 probe windows in parallel, the
+                              candidates read 32 at a time; AVGICP 8 lanes a
+                              query), one launch a query call
+Z         ground_probe        map/grid.py:find_ground_height: R redesigned
+                              (only the slots below each voxel's count, the
+                              CTAs' lists merged by the last CTA), one launch
+                              a call
 ========  ==================  ===================================================
 
 Kernel N runs only on the active-window path (``map_window_radius``), U and
 V only in the event loop's tick mode (``use_imu=False``), X once per registration
 with ``use_radar_cov``. On the hash backend (``backend="hash"``) Q takes the
 place of B and of A, E, F, G (inside hash_register on the registration
-path); its query and lookup entries and R serve the
-grid's own functions. H, I, O, S, U and W take and give the EKF state as one packed
+path); its lookup entry, Y (the queries) and Z (the
+ground probe) serve the grid's own functions. H, I, O, S, U and W take and give the EKF state as one packed
 record and read the parameters from one (``ekf.state``): a state whose
 fields are not the views of one record is packed first, and counted in
 :data:`packs`; they return ``ekf.state.RecordState``, whose fields are
@@ -159,7 +175,7 @@ launches = {"p2p_register": 0, "p2p_correspond": 0, "assign_slots": 0,
             "hash_correspond": 0, "hash_query": 0, "hash_lookup": 0, "ground_height": 0,
             "gicp_register": 0, "vgicp_register": 0, "avgicp_register": 0,
             "hash_register": 0, "tick_stage": 0, "imu_intake": 0, "can_gps_update": 0,
-            "radar_rows": 0}
+            "radar_rows": 0, "grid_query": 0, "ground_probe": 0}
 
 
 #: EKF states and params packed into a fresh record (``ekf.state.pack_state``,
@@ -1272,8 +1288,8 @@ def radar_rows(src_local, qidx, qmask, pose, params):
 
 
 # --------------------------------------------------------------------------- #
-# Kernels Q and R: the hash grid (csrc/hash_correspond.cu, csrc/hash.cuh,
-# csrc/ground_height.cu)
+# Kernels Q, R, Y and Z: the hash grid (csrc/hash_correspond.cu, csrc/hash.cuh,
+# csrc/ground_height.cu, csrc/grid_query.cu, csrc/ground_probe.cu)
 # --------------------------------------------------------------------------- #
 
 #: kernel Q's method codes (csrc/hash_correspond.cu ``Method``)
@@ -1362,12 +1378,9 @@ def hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
                     P2P_SUMS if method == "P2P" else GN_SUMS, src)
 
 
-def hash_query(grid, queries, max_dist, method: str):
-    """Kernel Q's query entry (map.grid.query_*_plain): per world query
-    [N, 3], a dict of ``rows``, ``slots`` (int32), ``valid`` and the method's
-    ``target`` [N, 3] (P2P, GICP), ``mean``, ``cov`` (GICP, VGICP: [N, 3] /
-    [N, 3, 3]; AVGICP: [N, 7, 3] / [N, 7, 3, 3], and rows, slots, valid
-    [N, 7])."""
+def _query(entry, name, grid, queries, max_dist, method):
+    """One launch of ``entry`` (kernel Y's or Q's query entry, the same C
+    arguments) on the world queries [N, 3]; counted under ``name``."""
     n = queries.shape[0]
     dev = queries.device
     lead = (n, 7) if method == "AVGICP" else (n,)
@@ -1384,10 +1397,25 @@ def hash_query(grid, queries, max_dist, method: str):
         _check(queries, "queries", _F32, (n, 3)), ctypes.c_int(n),
         _check(md, "max_dist", _F32, ()), ctypes.c_int(HASH_METHODS[method])]
     args += [_ptr(out.get(k)) for k in ("rows", "slots", "valid", "target", "mean", "cov")]
-    rc = library().elm_hash_query(*args, _stream(queries))
-    _raise_on(rc, "hash_query")
-    launches["hash_query"] += 1
+    rc = getattr(library(), entry)(*args, _stream(queries))
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
+
+
+def grid_query(grid, queries, max_dist, method: str):
+    """Kernel Y (map.grid.query_*_plain): per world query [N, 3], a dict of
+    ``rows``, ``slots`` (int32), ``valid`` and the method's ``target``
+    [N, 3] (P2P, GICP), ``mean``, ``cov`` (GICP, VGICP: [N, 3] /
+    [N, 3, 3]; AVGICP: [N, 7, 3] / [N, 7, 3, 3], and rows, slots, valid
+    [N, 7]); a warp a query (AVGICP: 8 lanes)."""
+    return _query("elm_grid_query", "grid_query", grid, queries, max_dist, method)
+
+
+def hash_query(grid, queries, max_dist, method: str):
+    """Kernel Q's query entry, one thread a query: :func:`grid_query`'s
+    outputs, bit for bit. Kernel Y's reference; no path launches it."""
+    return _query("elm_hash_query", "hash_query", grid, queries, max_dist, method)
 
 
 def hash_lookup(grid, coords):
@@ -1409,7 +1437,8 @@ _GROUND_BLOCKS = 264
 
 def ground_height(points, position_xy, search_range: float, k: int):
     """Kernel R (map.grid.find_ground_height_plain) over the grid's points
-    [V+1, M, 3] without the sentinel row: (found, ground_z) device scalars."""
+    [V+1, M, 3] without the sentinel row: (found, ground_z) device scalars.
+    Kernel Z's reference; no path launches it."""
     v1, m = points.shape[:2]
     if not 1 <= k <= 8:
         raise ValueError(f"ground_height: k in [1, 8] required, got {k}")
@@ -1429,3 +1458,48 @@ def ground_height(points, position_xy, search_range: float, k: int):
     _raise_on(rc, "ground_height")
     launches["ground_height"] += 1
     return found, ground_z
+
+
+#: kernel Z's workspace words (csrc/ground_probe.cu: the done counter, then
+#: a count and 8 floats for each of at most 2,048 CTAs)
+_PROBE_WORDS = 1 + 9 * 2048
+#: kernel Z's workspace on each (device, stream): the done counter is 0
+#: between calls (the last CTA resets it), so calls on one stream share it
+#: in turn and calls on two streams never share one
+_probe_work = {}
+
+
+def ground_probe(grid, position_xy, search_range: float, k: int):
+    """Kernel Z (map.grid.find_ground_height_plain) over the grid's voxels
+    without the sentinel row, reading only the slots below each count:
+    (found, ground_z) device scalars, kernel R's bits, in one launch; the
+    two outputs are the call's only allocations."""
+    v1, m = grid.points.shape[:2]
+    if not 1 <= k <= 8:
+        raise ValueError(f"ground_probe: k in [1, 8] required, got {k}")
+    args = [_check(grid.points, "points", _F32, (v1, m, 3)),
+            _check(grid.counts, "counts", torch.int32, (v1,)), ctypes.c_int(v1 - 1),
+            ctypes.c_int(m)]
+    x, y = (float(v) for v in position_xy)
+    dev = grid.points.device
+    stream = _stream(grid.points)
+    work = _probe_work.get((dev, stream.value))
+    if work is None:
+        work = _probe_work[(dev, stream.value)] = torch.zeros(_PROBE_WORDS, dtype=torch.int32,
+                                                              device=dev)
+    found = torch.empty((), dtype=_BOOL, device=dev)
+    ground_z = torch.empty((), dtype=_F32, device=dev)
+    rc = library().elm_ground_probe(
+        *args, ctypes.c_float(x), ctypes.c_float(y), ctypes.c_float(search_range * search_range),
+        ctypes.c_int(k), _ptr(work), _ptr(found), _ptr(ground_z), stream)
+    _raise_on(rc, "ground_probe")
+    launches["ground_probe"] += 1
+    return found, ground_z
+
+
+def launch_floor():
+    """One launch of an empty kernel on the current stream (csrc/grid_query.cu
+    launch_floor_kernel): the device time under any launch, a yardstick of
+    the timing tools; no path launches it, and it is not counted."""
+    rc = library().elm_launch_floor(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(rc, "launch_floor")

@@ -86,6 +86,10 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P],
     "elm_hash_lookup": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
     "elm_ground_height": [_P, ctypes.c_longlong, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    "elm_grid_query": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _I, _P, _I,
+                       _P, _P, _P, _P, _P, _P, _P],
+    "elm_launch_floor": [_P],
+    "elm_ground_probe": [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P],
 }
 
 

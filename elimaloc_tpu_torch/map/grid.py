@@ -12,10 +12,13 @@ nearest point of its 27-voxel neighbourhood (P2P; with that point's
 covariance for GICP), the nearest voxel mean (VGICP) or every occupied
 face-adjacent voxel within range (AVGICP); :func:`find_ground_height`
 (grid.py:320) is the relocalization's ground probe. On a CUDA tensor the
-lookup and the queries launch kernel Q's query entry (csrc/hash_correspond.cu,
-the lookup in csrc/hash.cuh) and the ground probe kernel R
-(csrc/ground_height.cu); on a CPU tensor they run their ``*_plain``
-versions. The registration's hash backend fuses Q's search with the GN
+lookup launches kernel Q's lookup entry (csrc/hash_correspond.cu, the
+lookup in csrc/hash.cuh), the queries kernel Y (csrc/grid_query.cu: Q's
+query entry redesigned, a warp a query) and the ground probe kernel Z
+(csrc/ground_probe.cu: kernel R redesigned, one launch reading only the
+slots below each voxel's count); on a CPU tensor they run their
+``*_plain`` versions. Q's query entry and R stay as Y's and Z's bit-exact
+references and launch on no path. The registration's hash backend fuses Q's search with the GN
 reduction (register/icp.py).
 
 The fingerprints are uint32 in the builder; here they are kept as their
@@ -55,7 +58,8 @@ class MapGrid(Struct):
     """Packed map tensors (grid.py:42-69). Row V (the last) of every
     voxel-indexed tensor is a sentinel: coords that never match, count 0,
     +inf geometry, identity covariances. Points past a voxel's count are
-    +inf (the builder's padding)."""
+    +inf (the builder's padding): kernel Z reads only the slots below each
+    count and is exact because of it (tests/test_torch_grid_probe.py)."""
 
     table: torch.Tensor            # [T+P] int32: voxel row or -1
     table_fp: torch.Tensor         # [T+P] int32: the uint32 fingerprint's bits
@@ -291,7 +295,7 @@ def query_nearest_point(grid: MapGrid, queries, max_dist):
     an invalid target is the query."""
     if queries.device.type == "cpu":
         return query_nearest_point_plain(grid, queries, max_dist)
-    out = kernels.hash_query(grid, queries, max_dist, "P2P")
+    out = kernels.grid_query(grid, queries, max_dist, "P2P")
     return out["target"], out["valid"], out["rows"], out["slots"]
 
 
@@ -301,7 +305,7 @@ def query_nearest_point_cov(grid: MapGrid, queries, max_dist):
     invalid). Returns (target, cov [N,3,3], mean [N,3], valid)."""
     if queries.device.type == "cpu":
         return query_nearest_point_cov_plain(grid, queries, max_dist)
-    out = kernels.hash_query(grid, queries, max_dist, "GICP")
+    out = kernels.grid_query(grid, queries, max_dist, "GICP")
     return out["target"], out["cov"], out["mean"], out["valid"]
 
 
@@ -311,7 +315,7 @@ def query_nearest_voxel_cov(grid: MapGrid, queries, max_dist):
     Returns (cov [N,3,3], mean [N,3], valid [N])."""
     if queries.device.type == "cpu":
         return query_nearest_voxel_cov_plain(grid, queries, max_dist)
-    out = kernels.hash_query(grid, queries, max_dist, "VGICP")
+    out = kernels.grid_query(grid, queries, max_dist, "VGICP")
     return out["cov"], out["mean"], out["valid"]
 
 
@@ -321,7 +325,7 @@ def query_all_voxel_cov(grid: MapGrid, queries, max_dist):
     (cov [N,7,3,3], mean [N,7,3], valid [N,7])."""
     if queries.device.type == "cpu":
         return query_all_voxel_cov_plain(grid, queries, max_dist)
-    out = kernels.hash_query(grid, queries, max_dist, "AVGICP")
+    out = kernels.grid_query(grid, queries, max_dist, "AVGICP")
     return out["cov"], out["mean"], out["valid"]
 
 
@@ -344,11 +348,11 @@ def find_ground_height_plain(grid: MapGrid, position_xy, search_range: float = 5
 def find_ground_height(grid: MapGrid, position_xy, search_range: float = 5.0, k: int = 5):
     """Mean z of the ``k`` lowest map points within ``search_range`` (XY) —
     FindGroundHeight (voxel_hash_map.hpp:285-322) on the device. Returns
-    (found, ground_z) as device scalars: kernel R on a CUDA grid,
+    (found, ground_z) as device scalars: kernel Z on a CUDA grid,
     :func:`find_ground_height_plain` on a CPU one."""
     if grid.points.device.type == "cpu":
         return find_ground_height_plain(grid, position_xy, search_range, k)
-    return kernels.ground_height(grid.points, position_xy, search_range, k)
+    return kernels.ground_probe(grid, position_xy, search_range, k)
 
 
 def voxel_downsample_plain(points, valid, voxel_size, out_size: int):

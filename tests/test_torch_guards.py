@@ -236,7 +236,8 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
             "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov",
             "elm_hash_search_reduce", "elm_hash_query", "elm_hash_lookup",
             "elm_ground_height", "elm_assign_slots", "elm_voxel_downsample",
-            "elm_can_gps_update", "elm_radar_rows"} <= set(found)
+            "elm_can_gps_update", "elm_radar_rows", "elm_grid_query",
+            "elm_ground_probe"} <= set(found)
     # kernels B and C are one entry each; their former two-launch halves are gone
     assert not {"elm_tile_keys", "elm_assign_scatter", "elm_voxel_keys",
                 "elm_voxel_compact"} & set(found)

@@ -49,6 +49,7 @@ imports jax, which the GPU host does not have).
 """
 
 import dataclasses
+import functools
 import re
 
 import numpy as np
@@ -185,8 +186,9 @@ def test_launch_counters_name_all_seven_kernels():
     launch), the scan's front T (the gate, the scan times, K and D in
     one host call), the GICP, VGICP, AVGICP and hash loop kernels (E, F,
     G or Q with M in one launch) and the tick mode's U (O's tick and J's
-    ego push in one launch) and V (its IMU intake), and W and X (I's CAN and
-    GPS legs and P, redesigned); the record packs apart."""
+    ego push in one launch) and V (its IMU intake), W and X (I's CAN and
+    GPS legs and P, redesigned), and Y and Z (Q's query entry and R,
+    redesigned); the record packs apart."""
     assert sorted(kernels.packs) == ["ekf_params", "ekf_state"]
     assert sorted(kernels.launches) == sorted([
         "p2p_register", "p2p_correspond", "assign_slots", "voxel_downsample", "deskew",
@@ -195,7 +197,8 @@ def test_launch_counters_name_all_seven_kernels():
         "pcm_stage",
         "gn_step", "shift_window", "ca_tick", "radar_cov", "hash_correspond", "hash_query",
         "hash_lookup", "ground_height", "gicp_register", "vgicp_register", "avgicp_register",
-        "hash_register", "tick_stage", "imu_intake", "can_gps_update", "radar_rows"])
+        "hash_register", "tick_stage", "imu_intake", "can_gps_update", "radar_rows",
+        "grid_query", "ground_probe"])
 
 
 def test_ekf_field_tables_match_the_records_and_the_kernels():
@@ -312,19 +315,23 @@ def test_ekf_callers_run_the_joseph_form_plain_on_cpu(which, monkeypatch):
                                    "pcm_measurement", "gn_step", "shift_window", "ca_tick",
                                    "radar_cov", "hash_correspond", "hash_query",
                                    "hash_lookup", "ground_height", "tick_stage",
-                                   "imu_intake", "can_gps_update", "radar_rows"])
+                                   "imu_intake", "can_gps_update", "radar_rows",
+                                   "grid_query", "ground_probe"])
 def test_kernel_wrappers_refuse_cpu_tensors(scene, which):
-    if which in ("hash_correspond", "hash_query", "hash_lookup", "ground_height"):
+    if which in ("hash_correspond", "hash_query", "hash_lookup", "ground_height",
+                 "grid_query", "ground_probe"):
         g = grid.to_device(scene[3], "cpu")
         q = torch.zeros(16, 3)
         with pytest.raises(ValueError, match="CUDA tensor required"):
             if which == "hash_correspond":
                 kernels.hash_correspond(g, q, torch.ones(16, dtype=torch.bool), torch.eye(4),
                                         torch.tensor(1.0), "GICP")
-            elif which == "hash_query":
-                kernels.hash_query(g, q, 1.0, "AVGICP")
+            elif which in ("hash_query", "grid_query"):
+                getattr(kernels, which)(g, q, 1.0, "AVGICP")
             elif which == "hash_lookup":
                 kernels.hash_lookup(g, torch.zeros(16, 3, dtype=torch.int32))
+            elif which == "ground_probe":
+                kernels.ground_probe(g, (0.0, 0.0), 5.0, 5)
             else:
                 kernels.ground_height(g.points, (0.0, 0.0), 5.0, 5)
         return
@@ -1446,23 +1453,137 @@ def test_hash_correspond_matches_plain_on_card(scene, cuda, method, radar):
     assert bool(torch.isfinite(out[0]).all())
 
 
+#: the ground probe's card cases on the scene's grid: (xy, r, k)
+GROUND_CASES = {"centre": ((20.0, 0.0), 5.0, 5), "off_centre": ((-7.5, 12.25), 5.0, 5),
+                "off_map": ((500.0, 0.0), 5.0, 5), "small_radius": ((20.0, 0.0), 0.4, 5),
+                "k1": ((20.0, 0.0), 5.0, 1), "k8": ((-7.5, 12.25), 5.0, 8)}
+
+
+def _ulp_close(z, rz):
+    """z within one float32 ulp of rz (equal where rz is not finite)."""
+    if torch.isfinite(rz):
+        return abs(float(z) - float(rz)) <= float(torch.finfo(torch.float32).eps) * max(
+            abs(float(rz)), 1e-30)
+    return float(z) == float(rz)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("xy,r", [((20.0, 0.0), 5.0), ((-7.5, 12.25), 5.0),
-                                  ((500.0, 0.0), 5.0), ((20.0, 0.0), 0.4)],
-                         ids=["centre", "off_centre", "off_map", "small_radius"])
+@pytest.mark.parametrize("xy,r", [c[:2] for k, c in GROUND_CASES.items() if c[2] == 5],
+                         ids=[k for k, c in GROUND_CASES.items() if c[2] == 5])
 def test_ground_height_matches_plain_on_card(scene, cuda, xy, r):
-    """Kernel R against ``find_ground_height_plain``: found equal, z within
+    """Kernel R (kernel Z's reference, called through its wrapper: no path
+    launches it) against ``find_ground_height_plain``: found equal, z within
     one float32 ulp (the plain mean sums its 5 values in another order);
     +inf on both sides where fewer than 5 points are in range."""
     g = grid.to_device(scene[3], cuda)
     kernels.reset_launches()
-    found, z = grid.find_ground_height(g, xy, r)
+    found, z = kernels.ground_height(g.points, xy, r, 5)
     torch.cuda.synchronize()
     assert kernels.launches["ground_height"] == 1
     rf, rz = grid.find_ground_height_plain(g, xy, r)
     assert bool(found) == bool(rf)
-    if torch.isfinite(rz):
-        assert abs(float(z) - float(rz)) <= float(torch.finfo(torch.float32).eps) * max(
-            abs(float(rz)), 1e-30)
+    assert _ulp_close(z, rz)
+
+
+#: tests/test_torch_hash.py's tie (a query equidistant from two map points)
+#: and its query set; a query whose neighbourhood is empty
+TIE_POINTS = np.array([[0.25, 0.5, 40.5], [1.75, 0.5, 40.5]])
+TIE_QUERY = np.array([[1.0, 0.5, 40.5]])
+EMPTY_QUERY = np.array([[500.0, 500.0, 0.0]])
+
+
+@functools.lru_cache(maxsize=None)
+def _small_built(name):
+    """The host maps of kernel Y's and Z's extra card cases (both
+    covariances, M = 10 or, with full voxels, 60)."""
+    kw = dict(compute_voxel_cov=True, compute_point_cov=True, gicp_cov_search_dist=0.5,
+              use_native=False)
+    if name == "m60":
+        pts = np.random.default_rng(61).uniform(-3.0, 3.0, size=(20_000, 3))
+        return builder.build_voxel_map(pts, 1.0, 60, **kw)
+    pts = np.r_[np.random.default_rng(33).uniform(-15.0, 15.0, size=(4000, 3)), TIE_POINTS]
+    load = 0.9 if name == "long_chains" else 0.25
+    return builder.build_voxel_map(pts, 1.0, 10, table_load_factor=load, **kw)
+
+
+def _y_case(scene, device, case):
+    """(grid, queries, max_dist) of one of kernel Y's card cases."""
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    if case in ("scene", "scene_odd"):
+        g, _, _, _, params, q = _hash_inputs(scene, device)
+        # 1,001 queries: not a multiple of a CTA's 8 (32 for AVGICP)
+        return g, q[:1001] if case == "scene_odd" else q, params.max_search_dist
+    rng = np.random.default_rng(5)
+    if case == "m60":
+        g = grid.to_device(_small_built("m60"), device)
+        return g, f(np.r_[rng.uniform(-3.5, 3.5, size=(200, 3)), EMPTY_QUERY]), f(0.8)
+    g = grid.to_device(_small_built("long_chains" if case == "long_chains" else "tie"), device)
+    if case == "n1":
+        return g, f(TIE_QUERY), f(0.8)
+    if case == "empty":
+        return g, f(EMPTY_QUERY + rng.uniform(-50.0, 50.0, size=(37, 3))), f(0.8)
+    return g, f(np.r_[rng.uniform(-16.0, 16.0, size=(512, 3)), TIE_QUERY, EMPTY_QUERY]), f(0.8)
+
+
+#: each grid query's public function (kernel Y on the card)
+GRID_QUERIES = {"P2P": grid.query_nearest_point, "GICP": grid.query_nearest_point_cov,
+                "VGICP": grid.query_nearest_voxel_cov, "AVGICP": grid.query_all_voxel_cov}
+Y_CASES = ("scene", "scene_odd", "tie", "long_chains", "m60", "n1", "empty")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", Y_CASES)
+@pytest.mark.parametrize("method", sorted(HASH_QUERIES))
+def test_grid_query_matches_q_and_plain_on_card(cuda, scene, method, case):
+    """Kernel Y against kernel Q's query entry and the plain queries: every
+    output bit for bit (the same exact search, then copies), through its
+    wrapper and through the public ``map.grid`` function (one launch of Y,
+    none of Q)."""
+    g, q, md = _y_case(scene, cuda, case)
+    plain, keys = HASH_QUERIES[method]
+    kernels.reset_launches()
+    out = kernels.grid_query(g, q, md, method)
+    torch.cuda.synchronize()
+    assert kernels.launches["grid_query"] == 1
+    ref = kernels.hash_query(g, q, md, method)
+    assert out.keys() == ref.keys()
+    for k in out:
+        assert torch.equal(out[k], ref[k]), (method, case, k)
+    want = plain(g, q, md)
+    for k, r in zip(keys, want):
+        assert torch.equal(out[k], r.to(out[k].dtype)), (method, case, k)
+    kernels.reset_launches()
+    got = GRID_QUERIES[method](g, q, md)
+    torch.cuda.synchronize()
+    assert kernels.launches["grid_query"] == 1 and kernels.launches["hash_query"] == 0
+    for a, r in zip(got, want):
+        assert torch.equal(a, r.to(a.dtype)), (method, case)
+    n_valid = int(out["valid"].sum())
+    if case == "empty":
+        assert n_valid == 0 and bool((out["rows"] == g.sentinel).all())
+    elif case != "n1":
+        assert 0 < n_valid < out["valid"].numel(), (method, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUND_CASES) + ["m60"])
+def test_ground_probe_matches_r_and_plain_on_card(cuda, scene, case):
+    """Kernel Z through ``find_ground_height`` (one launch of Z, none of
+    R) against kernel R bit for bit and ``find_ground_height_plain`` within
+    one float32 ulp; the M = 60 grid's voxels are full."""
+    if case == "m60":
+        g, (xy, r, k) = grid.to_device(_small_built("m60"), cuda), ((0.5, -0.5), 2.0, 5)
     else:
-        assert float(z) == float(rz)
+        g, (xy, r, k) = grid.to_device(scene[3], cuda), GROUND_CASES[case]
+    kernels.reset_launches()
+    found, z = grid.find_ground_height(g, xy, r, k)
+    torch.cuda.synchronize()
+    assert kernels.launches["ground_probe"] == 1 and kernels.launches["ground_height"] == 0
+    rf, rz = kernels.ground_height(g.points, xy, r, k)
+    assert torch.equal(found, rf) and torch.equal(z, rz), (case, float(z), float(rz))
+    pf, pz = grid.find_ground_height_plain(g, xy, r, k)
+    assert bool(found) == bool(pf)
+    assert _ulp_close(z, pz), (case, float(z), float(pz))
+    # the workspace's done counter is back at 0: a second call agrees
+    f2, z2 = kernels.ground_probe(g, xy, r, k)
+    assert torch.equal(f2, found) and torch.equal(z2, z)
