@@ -7,7 +7,7 @@ points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
 (P2P, GICP, VGICP) and 2 (AVGICP); the hash paths put the same BuiltMap
-on the card as the hash grid (``backend="hash"``). Twenty-three paths:
+on the card as the hash grid (``backend="hash"``). Twenty-four paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
 AVGICP), for AVGICP with GPS and CAN fusion (BASELINE config 5,
 bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
@@ -35,7 +35,11 @@ pipeline); "hash grid": the grid's own lookup (Q's lookup entry), four
 queries (kernel Y, Q's query entry redesigned) and ground probe (kernel Z,
 R redesigned) on the card; and "P2P long lead": a
 small log whose IMU stream leads its first scan by 12 s (kernel H twice a
-frame), through ``run_fused`` and ``run_frames``.
+frame), through ``run_fused`` and ``run_frames``; and "P2P fleet":
+``run_fused_fleet`` on 8 lanes at the headline width (the headline log and
+a second log of the same world and duration, seed 5, alternating), each
+fleet frame one launch of the lane form of kernels H, C, B, S and the P2P
+loop for all lanes and T's two kernels once each.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
@@ -167,6 +171,24 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      launch of kernel H: run_fused and run_frames on the card with H
      ceil(cap / 1024) times a frame, run_frames = run_fused to 1e-6 m, the
      card against the CPU port under the closed-loop contract;
+  5d. "P2P fleet" (``fleet_phase``): a warm-up fleet replay recording one
+     fleet frame's stage calls; each lane form (``imu_stage[fleet]``,
+     ``scan_front[fleet]``, ``voxel_downsample[fleet]``,
+     ``assign_slots[fleet]``, ``p2p_register[fleet]``, ``pcm_stage[fleet]``)
+     bit for bit against 8 single-lane launches on its lanes' inputs and
+     against its plain lane form (H, T, S and the loop within 1e-4 x max(1,
+     |plain|) on every float output, C and B exactly; integers and flags
+     equal), with its event time, the single launches', the plain lane
+     form's and its bound; the timed fleet replay (launch counts from 0:
+     each lane form 21 times, T's host call 21, nothing else, no pack) with
+     its stage marks, the single-stream run_fused in the same call, the
+     fleet's scans/s (8 x 21 / wall); each lane bit for bit its log's
+     ``run_frames`` on a fresh pipeline with the lane's padded batches,
+     every output of every frame; each lane's ATE < 0.1 m, applied >= 0.9;
+     with the profiler passes, one fleet replay traced with every frame
+     under set_sync_debug_mode("error"): each lane-form kernel once a
+     frame, no chain kernel, no synchronizing call, the device's busy
+     share;
   6. torch.profiler, after every timed replay: kernels B-D, H-Z and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
@@ -229,6 +251,9 @@ REPEATS = 20
 #: calls of a stage's runtime entry under one torch.profiler pass when its
 #: device kernels are listed
 STAGE_CALLS = 5
+#: timings of a plain lane form (a loop of eager plain versions over the
+#: lanes: seconds a call, hundreds of thousands of small kernels)
+PLAIN_LANE_REPEATS = 5
 #: host idle (s) at each end of a profiler pass: unpadded, a short pass
 #: now and then comes back with no device record at all (the profiled
 #: events and stages below failed so; tools/probe_profiler_drops.py counts
@@ -445,6 +470,45 @@ TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_corresp
 #: reference's own looser AVGICP truth bounds (tests/test_icp.py 0.45 m,
 #: tests/test_oracle_parity.py:221 0.8 m), not the other methods' 0.15 m.
 ATE_GATE = {"P2P": 0.1, "GICP": 0.15, "VGICP": 0.15, "AVGICP": 0.3}
+#: the fleet path: run_fused_fleet on the tile P2P pipeline, FLEET_LANES
+#: lanes alternating the headline log (seed 4) and a second log of the same
+#: world and duration (seed FLEET_SEED), every frame one launch of each
+#: kernel's lane form for all lanes
+FLEET = "P2P fleet"
+FLEET_LANES = 8
+FLEET_SEED = 5
+#: the fleet frame's stages: label -> (the module attribute the frame calls
+#: it through, the kernel's launch counter, the positional arguments with a
+#: lane axis, the kernel's device name(s), |lane form - plain lane form| <=
+#: tol * max(1, |plain|) on every float output, integers and flags equal)
+FLEET_STAGES = {
+    "imu_stage": ("runtime._imu_stage", (0, 1), "imu_stage_kernel", 1e-4),
+    "scan_front": ("runtime.scan_front", (0, 1, 2, 3, 4), "scan_", 1e-4),
+    "voxel_downsample": ("runtime.voxel_downsample", (0, 1), "voxel_downsample_kernel", 0.0),
+    "assign_slots": ("tiles.assign_slots", (1, 2), "assign_slots_kernel", 0.0),
+    LOOP: ("icp.p2p_register", (1, 2, 3, 4, 5, 6, 7), "p2p_register_kernel", 1e-4),
+    "pcm_stage": ("runtime.pcm_stage", (0, 1, 3, 4, 5), "pcm_stage_kernel", 1e-4),
+}
+#: each lane form's plain lane form (the same arguments as its dispatcher)
+FLEET_PLAIN = {"imu_stage": "runtime.imu_subbatch_lanes_plain",
+               "scan_front": "runtime.scan_front_lanes_plain",
+               "voxel_downsample": "grid.voxel_downsample_lanes_plain",
+               "assign_slots": "tiles.assign_slots_lanes_plain",
+               LOOP: "icp.p2p_register_lanes_plain",
+               "pcm_stage": "runtime.pcm_stage_lanes_plain"}
+#: each lane form's source and what it replaces
+FLEET_SOURCE = {
+    "imu_stage": ("elimaloc_tpu_torch/csrc/imu_chain.cu + rings.cuh", EKF_KERNELS["imu_stage"][1]),
+    "scan_front": FRONT,
+    "voxel_downsample": ("elimaloc_tpu_torch/csrc/downsample.cu + sort.cuh",
+                         "elimaloc_tpu/map/grid.py:271 (+ the sort :300)"),
+    "assign_slots": ("elimaloc_tpu_torch/csrc/assign.cu + sort.cuh",
+                     "elimaloc_tpu/map/tiles.py:577 (+ the sort :609)"),
+    LOOP: (LOOP_SOURCE[LOOP], LOOP_REPLACES[LOOP]),
+    "pcm_stage": ("elimaloc_tpu_torch/csrc/" + SCAN_KERNELS["pcm_stage"][0],
+                  SCAN_KERNELS["pcm_stage"][1])}
+FLEET_VMAP = ", vmapped over the fleet's lanes (elimaloc_tpu/parallel/sharding.py:264-281 " \
+    "replay_fused_fleet, elimaloc_tpu/pipeline/runtime.py:1590-1649 run_fused_fleet)"
 
 
 def log_line(*parts):
@@ -551,16 +615,23 @@ def method_cfg(cfg_mod, path):
     return cfg
 
 
-def make_headline(cfg_mod, runtime, builder, tiles, log_mod):
-    """The bench.py:140-169 world and log, one map built with both
-    covariances and packed at halo margins 1 and 2, and the budgets."""
-    world = log_mod.make_world(seed=3, extent=120.0, n_ground=400_000, n_wall=200_000)
+def headline_log(world, log_mod, seed=4):
+    """The bench.py:140-146 log (``seed`` 4) on ``world``: N_SCANS + 3
+    tenths of a second, RAW_POINTS points a scan sampled 1/INDEX_SAMPLING."""
     log = log_mod.synthesize_log(world, duration=(N_SCANS + 3) * 0.1,
-                                 points_per_scan=RAW_POINTS, max_range=100.0, seed=4)
+                                 points_per_scan=RAW_POINTS, max_range=100.0, seed=seed)
     sl = slice(None, None, INDEX_SAMPLING)  # reference ingest, pcm_matching.cpp:908-921
     log.scan_points = np.ascontiguousarray(log.scan_points[:, sl])
     log.scan_times = np.ascontiguousarray(log.scan_times[:, sl])
     log.scan_valid = np.ascontiguousarray(log.scan_valid[:, sl])
+    return log
+
+
+def make_headline(cfg_mod, runtime, builder, tiles, log_mod):
+    """The bench.py:140-169 world and log, one map built with both
+    covariances and packed at halo margins 1 and 2, and the budgets."""
+    world = log_mod.make_world(seed=3, extent=120.0, n_ground=400_000, n_wall=200_000)
+    log = headline_log(world, log_mod)
     pcm = cfg_mod.ElimalocConfig().pcm
     t0 = time.time()
     built = builder.build_voxel_map(
@@ -609,12 +680,13 @@ class Recorder:
             setattr(self.kernels, name, fn)
 
 
-def time_ms(fn):
-    """Median of REPEATS CUDA-event timings of fn() after two warm calls."""
+def time_ms(fn, repeats=REPEATS):
+    """Median of ``repeats`` CUDA-event timings of fn() after two warm
+    calls."""
     for _ in range(2):
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -1141,26 +1213,38 @@ def radar_row(calls, mods, wrapper):
     return row
 
 
+#: torch.profiler passes a measurement takes at most when a pass comes back
+#: with no device record at all (the profiler lost them; fn ran again)
+PROFILE_TRIES = 3
+
+
 def device_profile(fn):
     """({kernel name: device us summed}, wall ms) of fn() under one
     torch.profiler pass; the dict is empty where the profiler saw no device
     activity. The pass idles PROFILE_PAD_S on the host before fn and after
     its last kernel: without it the profiler now and then loses the device
-    records of the pass's first moments, all of a short pass's."""
+    records of the pass's first moments, all of a short pass's. A pass with
+    no device record at all is taken again, up to PROFILE_TRIES passes, and
+    said so (the pads make such a pass rare, not impossible)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILE_PAD_S)
-    per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if per:
+            break
+        log_line(f"  torch.profiler: pass {attempt + 1} of {PROFILE_TRIES} came back with no "
+                 "device record")
     return per, wall
 
 
@@ -3532,6 +3616,357 @@ def window_reference_phase(cfg_mod, runtime, builder, tiles, log_mod):
             "last3_m": float(err[-3:].max()), "swaps": stats["cuda"]["swaps"]}
 
 
+class StageRecorder:
+    """Wraps the fleet frame's stage dispatchers (FLEET_STAGES: module
+    attributes) to keep the arguments of their call ``at`` (one fleet
+    frame's), so the lane-form rows run on the main path's inputs."""
+
+    def __init__(self, mods, at):
+        self.mods, self.at, self.calls, self.seen, self.orig = mods, at, {}, {}, {}
+
+    def __enter__(self):
+        for name, (where, *_) in FLEET_STAGES.items():
+            mod, attr = where.split(".")
+            fn = getattr(self.mods[mod], attr)
+            self.orig[name] = (self.mods[mod], attr, fn)
+
+            def wrapped(*a, _n=name, _f=fn, **k):
+                i = self.seen.get(_n, 0)
+                self.seen[_n] = i + 1
+                if i == self.at:
+                    self.calls[_n] = (a, k)
+                return _f(*a, **k)
+            setattr(self.mods[mod], attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.orig.values():
+            setattr(mod, attr, fn)
+
+
+def leaves(tree):
+    """The tensors of a stage's output in a fixed order (records field by
+    field, dicts by key)."""
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in leaves(x)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def lane_bound(name, a, got, pipe, kernels):
+    """(operations, bytes) of one lane-form call on its lanes' inputs ``a``
+    (the dispatcher's arguments) and outputs ``got``: each lane's count as
+    the single kernel's row counts it, summed over the lanes."""
+    rec_b = state_bytes(kernels, None)
+    if name == "imu_stage":
+        st, b = a[0], a[1]
+        flags = a[3].ekf_flags
+        per_sample = 7760 + (kalman_ops(2) + 200 if flags.run_cf else 0) + (
+            kalman_ops(3) + 300 if flags.imu_estimate_calibration else 0)
+        valid = b["imu_valid"]
+        ops = int(valid.sum()) * per_sample + 20 * valid.numel()
+        moved = (2 * rec_b * valid.shape[0] + params_bytes(kernels, None)
+                 + nbytes(b["imu_t"], b["imu_acc"], b["imu_gyro"], valid))
+        for old, new in ((st.ego_ring, got.ego_ring), (st.imu_ring, got.imu_ring)):
+            per_row = 4 * (1 + 3 * (len(dataclasses.fields(old)) - 2))
+            moved += per_row * int(old.count.sum() + new.count.sum()) + 8 * old.count.numel()
+        return ops, moved
+    if name == "scan_front":
+        st, stamp, points, times, valid = a[:5]
+        w = got.info.imu_time.shape[-1]
+        n = points.shape[1]
+        counts = int(st.imu_ring.count.sum() + st.ego_ring.count.sum())
+        ops = (7 * n * points.shape[0] + int(got.valid.sum()) * (10 * w + 60) + 10 * counts
+               + (20 * w + 2000) * points.shape[0])
+        moved = (nbytes(points, times, valid, stamp, got.points, got.valid) + 52 * counts
+                 + nbytes(*leaves(got.info), got.init_guess))
+        return ops, moved
+    if name == "voxel_downsample":
+        points, valid = a[:2]
+        ops = points.shape[0] * points.shape[1] * (17 + 6 * 4) + int(got[2].sum()) * 3
+        return ops, nbytes(points, valid, *got)
+    if name == "assign_slots":
+        tmap, queries, valid = a[:3]
+        passes = max(1, -(-tmap.sentinel.bit_length() // 8))
+        ops = queries.shape[0] * (queries.shape[1] * (14 + 6 * passes) + (tmap.sentinel + 1) * 6)
+        return ops, nbytes(queries, valid, *leaves(got))
+    if name == LOOP:
+        tmap, slot_tile, sbuf, qmask = a[:4]
+        row = tmap.halo_points.shape[1]
+        ops = moved = 0
+        for i in range(sbuf.shape[0]):
+            live = int(qmask[i].sum())
+            n_tiles = int(torch.unique(slot_tile[i][qmask[i].any(1)]).numel())
+            its = int(got[5][i])
+            matched = int(round(float(got[3][i]) * float(a[7][i])))
+            ops += its * (live * row * 6 + matched * SEARCH_COST["P2P"][2] + 600)
+            moved += n_tiles * row * SEARCH_COST["P2P"][0] + live * 12
+        return ops, moved + nbytes(qmask, slot_tile, *a[4:8], *got)
+    ekf, res, ego, end, usable = a[0], a[1], a[3], a[4], a[5]
+    lanes = end.shape[0]
+    n_ego = int(ego.count.sum())
+    applied = int(got[2]["applied"].sum())
+    ops = lanes * (700 + 2 * 729 + 60) + 2 * n_ego + applied * (kalman_ops(6) + 250)
+    moved = (2 * rec_b * lanes + params_bytes(kernels, None) + 28 * n_ego
+             + nbytes(res.pose, res.local_cov, res.fitness, res.success, usable, end)
+             + lanes * (4 * kernels.PCM_STAGE_FLOATS + 1))
+    return ops, moved
+
+
+def same_leaves(got, ref):
+    """Every tensor of ``got`` equal to ``ref``'s, NaN where the other is."""
+    return len(got) == len(ref) and all(
+        same_bits(g, r) if g.dtype.is_floating_point else torch.equal(g, r)
+        for g, r in zip(got, ref))
+
+
+def fleet_rows(pipe, rec, mods, launches):
+    """Each lane form on the recorded fleet frame (FLEET_LANES lanes at the
+    headline widths): bit for bit against FLEET_LANES single-lane launches
+    on the lanes' inputs, and against its plain lane form on the same
+    inputs within its tolerance (FLEET_STAGES); its event time through its
+    dispatcher, the plain lane form's, the single launches' and its bound."""
+    kernels, struct = mods["kernels"], mods["struct"]
+    rows = []
+    for name, (where, lane_args, device, tol) in FLEET_STAGES.items():
+        mod, attr = where.split(".")
+        fn = getattr(mods[mod], attr)
+        pmod, pattr = FLEET_PLAIN[name].split(".")
+        plain = getattr(mods[pmod], pattr)
+        a, k = rec.calls[name]
+        first = a[lane_args[0]]  # a tensor, a pipeline state or an EKF state
+        lanes = (first if isinstance(first, torch.Tensor)
+                 else getattr(first, "ekf", first).P).shape[0]
+
+        def one(i, a=a, k=k, fn=fn, lane_args=lane_args):
+            return fn(*(struct.lane(x, i) if j in lane_args else x for j, x in enumerate(a)),
+                      **k)
+
+        kernels.reset_launches()
+        got = fn(*a, **k)
+        torch.cuda.synchronize()
+        if kernels.launches[name] != 1:
+            raise AssertionError(f"[{FLEET}] {name}: the lane form launched "
+                                 f"{kernels.launches[name]} times for one call")
+        g = leaves(got)
+        singles = [leaves(one(i)) for i in range(lanes)]
+        per_lane = [same_leaves([x[i] for x in g], singles[i]) for i in range(lanes)]
+        ref = leaves(plain(*a, **k))
+        err, rel, exact = 0.0, 0.0, True
+        for x, r in zip(g, ref):
+            if x.dtype.is_floating_point:
+                if not torch.equal(torch.isnan(x), torch.isnan(r)):
+                    exact = False
+                d = torch.nan_to_num((x - r).abs())
+                if d.numel():
+                    err = max(err, float(d.max()))
+                    rel = max(rel, float((d / torch.clamp(r.abs(), min=1.0)).max()))
+            elif not torch.equal(x, r):
+                exact = False
+        ops, moved = lane_bound(name, a, got, pipe, kernels)
+        ms = time_ms(lambda: fn(*a, **k))
+        singles_ms = time_ms(lambda: [one(i) for i in range(lanes)])
+        label = f"{name}[fleet]"
+        log_line(f"[{FLEET}] kernel {label}: {lanes} lanes, each lane bit for bit its "
+                 f"single-lane launch: {per_lane.count(True)} of {lanes}; against the plain "
+                 f"lane form max abs err {err:.3g}, max rel err {rel:.3g} (tolerance {tol:g} x "
+                 f"max(1, |plain|)), integers and flags equal: {exact}; {ms:.4f} ms (the "
+                 f"{lanes} single-lane launches {singles_ms:.4f} ms); card {card()}")
+        if not all(per_lane) or not exact or rel > tol:
+            raise AssertionError(f"[{FLEET}] {label}: the lane form fails its checks")
+        src, replaces = FLEET_SOURCE[name]
+        # the plain lane form is timed last in the run (main): a profiler
+        # pass after its flood of small eager kernels lost device records
+        rows.append(dict(name=label, source=src, replaces=replaces + FLEET_VMAP, route="cuda",
+                         launches=launches[name], max_abs_err=err,
+                         plain_fn=lambda a=a, k=k, plain=plain: plain(*a, **k), ms=ms,
+                         singles_ms=singles_ms, tolerance=tol, lanes=lanes,
+                         device_fn=(lambda a=a, k=k, fn=fn: fn(*a, **k), device),
+                         bound=bound(ops, moved)))
+    return rows
+
+
+def fleet_trace(pipe, logs, runtime, n):
+    """One more fleet replay under torch.profiler, every frame under
+    set_sync_debug_mode("error") (a synchronizing call inside a frame
+    raises): the device's busy share, and each frame's lane forms on the
+    device, once each a frame (T's two kernels once each), no kernel of the
+    single chain (A, M, K, D, L, I, J) and no device-to-host copy or
+    synchronizing runtime call inside the frames."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    orig = runtime.fused_frame
+
+    def frame(*a, **k):
+        with record_function("chip_smoke.fleet_frame"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    runtime.fused_frame = frame
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            pipe.run_fused_fleet(logs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+    finally:
+        runtime.fused_frame = orig
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = list(prof.events())
+    spans = [e for e in evs if e.device_type == cpu and e.name == "chip_smoke.fleet_frame"]
+    t0, t1 = min(e.time_range.start for e in spans), max(e.time_range.end for e in spans)
+    inside = [e.name for e in evs if e.device_type == cpu and t0 <= e.time_range.start <= t1]
+    blocking = sorted({x for x in inside if "Synchronize" in x or "DtoH" in x})
+    kern = [e for e in evs if e.device_type == dev]
+    busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-3
+    count = {d: sum(d in e.name for e in kern) for d in (
+        "imu_stage_kernel", "scan_gate_query_kernel", "scan_deskew_points_kernel",
+        "voxel_downsample_kernel", "assign_slots_kernel", "p2p_register_kernel",
+        "pcm_stage_kernel")}
+    chain = sorted({e.name for e in kern if any(x in e.name for x in (
+        "p2p_search_kernel", "gn_step_kernel", "scan_ring_query_kernel", "deskew_kernel",
+        "pcm_measurement_kernel", "ekf_update_kernel", "ring_push_kernel"))})
+    top = {}
+    for e in kern:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:6]
+    log_line(f"[{FLEET}] traced fleet replay: {len(spans)} frames, device busy {busy:.2f} ms of "
+             f"{wall:.2f} ms wall ({100 * busy / wall:.1f}%); lane-form kernels on the device "
+             f"{count}; chain kernels {chain}; synchronizing calls inside the frames "
+             f"{blocking}; top: " + "; ".join(f"{k[:40]} {v * 1e-3 / n:.3f} ms/frame"
+                                              for k, v in top) + f"; card {card()}")
+    if len(spans) != n or any(v != n for v in count.values()) or chain or blocking:
+        raise AssertionError(f"[{FLEET}] the traced fleet replay breaks the one-launch-a-"
+                             "frame contract")
+    return {"device_busy_share_profiled": busy / wall, "profiled_wall_ms": wall,
+            "traced_lane_kernels": count}
+
+
+def fleet_phase(world, log, packed, mods, ate_rmse, log_mod, deferred):
+    """"P2P fleet": ``run_fused_fleet`` on FLEET_LANES lanes (the headline
+    log and a second log of the same world and duration, alternating) at the
+    headline widths, on a tile P2P pipeline whose budgets fit both logs. A
+    warm-up fleet replay records one fleet frame's stage calls
+    (StageRecorder); the lane-form rows (``fleet_rows``); the timed replay
+    with the launch counts from 0 (each lane form once a frame: 21 each, T's
+    host call once a frame, no single chain kernel, no pack) beside the
+    single-stream run_fused of the headline log in the same call; each lane
+    bit for bit its log's ``run_frames`` on a fresh pipeline with the lane's
+    padded batches; each lane's ATE < 0.1 m and applied >= 0.9; the traced
+    replay (``fleet_trace``) with the other profiler passes."""
+    kernels, tiles, cfg_mod, runtime = mods["kernels"], mods["tiles"], mods["cfg"], \
+        mods["runtime"]
+    second = headline_log(world, log_mod, FLEET_SEED)
+    logs = [log if i % 2 == 0 else second for i in range(FLEET_LANES)]
+    pcm = cfg_mod.ElimalocConfig().pcm
+    sizes = [runtime.autosize_budgets(lg, float(pcm.input_voxel_ds_m), 4.0 * pcm.pcm_voxel_size,
+                                      qb=16) for lg in (log, second)]
+    ds_points, max_slots = (max(x) for x in zip(*sizes))
+
+    def make():
+        return runtime.LocalizationPipeline(
+            method_cfg(cfg_mod, "P2P"), packed[1], device="cuda", ds_points=ds_points,
+            tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots), ego_ring_size=512,
+            imu_ring_size=256)
+
+    pipe = make()
+    n = len(log.scan_t)
+    log_line(f"[{FLEET}] {FLEET_LANES} lanes x {n} scans x {log.scan_points.shape[1]} points "
+             f"(seeds 4 and {FLEET_SEED} alternating), ds_points {ds_points}, max_slots "
+             f"{max_slots}")
+    with StageRecorder(mods, N_SCANS // 2) as rec:
+        pipe.run_fused_fleet(logs)
+    torch.cuda.synchronize()
+
+    # the timed replay, then the single stream in the same call, each with
+    # its stage marks (CUDA events), and the fleet's host batch prep alone
+    stages = StageTimer()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, outs = pipe.run_fused_fleet(logs, mark=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, packs = dict(kernels.launches), dict(kernels.packs)
+    pipe.run_fused(log)
+    single = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run_fused(log, mark=single)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime.fleet_batches(logs)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    lane_forms = tuple(FLEET_STAGES)
+    split = {}
+    for what, timer in (("fleet", stages), ("single", single)):
+        per_stage, frames, per_frame = timer.split()
+        split[what] = {"stage_ms": per_stage, "frame_ms_p50": float(np.percentile(per_frame, 50)),
+                       "frame_ms_p95": float(np.percentile(per_frame, 95))}
+        log_line(f"[{FLEET}] {what} stage ms/frame (frames 1..{frames}): "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
+                 + f"; frame ms p50 {split[what]['frame_ms_p50']:.3f} p95 "
+                 f"{split[what]['frame_ms_p95']:.3f}")
+    log_line(f"[{FLEET}] {FLEET_LANES * n / wall:.2f} scans/s ({wall:.3f} s for "
+             f"{FLEET_LANES} x {n} scans, host batch prep + upload included; the prep "
+             f"alone, runtime.fleet_batches, {prep_ms:.1f} ms); single-stream run_fused of "
+             f"the headline log {n / single_wall:.2f} scans/s; launches {launches}, packs "
+             f"{packs}; card {card()}")
+    others = {k: v for k, v in launches.items() if k not in lane_forms and v}
+    if any(launches[k] != n for k in lane_forms) or others or any(packs.values()):
+        raise AssertionError(f"[{FLEET}] not one launch of each lane form a fleet frame: "
+                             f"{launches}, packs {packs}")
+
+    # each lane against its log's run_frames on a fresh pipeline
+    _, batches = runtime.fleet_batches(logs)
+    mismatch = []
+    for j, lg in enumerate((log, second)):
+        _, ref = make().run_frames(lg, batches={k: v[j] for k, v in batches.items()})
+        for lane in range(j, FLEET_LANES, 2):
+            for k, v in ref.items():
+                x = outs[k][lane]
+                same = (np.array_equal(x, v, equal_nan=True) if x.dtype.kind == "f"
+                        else np.array_equal(x, v))
+                if not same or x.shape != v.shape:
+                    mismatch.append((lane, k))
+    ates = [ate_rmse(outs["ego_t_abs"][i], outs["ego_pos"][i], lg.truth_t, lg.truth_pos)
+            for i, lg in enumerate(logs)]
+    applied = [float(x.mean()) for x in outs["applied"]]
+    log_line(f"[{FLEET}] each lane against its log's run_frames (fresh pipeline, the lane's "
+             f"padded batches), every output of every frame bit for bit: mismatches "
+             f"{mismatch[:6]}; ATE per lane {[round(a, 4) for a in ates]} m, applied "
+             f"{[round(a, 3) for a in applied]}, slots_dropped max "
+             f"{int(outs['slots_dropped'].max())}, iterations mean "
+             f"{float(outs['iterations'].mean()):.2f}")
+    if mismatch or not all(a < ATE_GATE["P2P"] for a in ates) or min(applied) < 0.9:
+        raise AssertionError(f"[{FLEET}] the fleet's lanes fail their gates")
+    if outs["ego_pos"].shape != (FLEET_LANES, n, 3) or states.ekf.P.shape[0] != FLEET_LANES:
+        raise AssertionError(f"[{FLEET}] misshapen fleet outputs")
+
+    rows = fleet_rows(pipe, rec, mods, launches)
+    summary = {"lanes": FLEET_LANES, "scans": n, "fleet_scans_per_s": FLEET_LANES * n / wall,
+               "single_stream_scans_per_s": n / single_wall, "batch_prep_ms": prep_ms,
+               **split, "ate_m": ates,
+               "applied": applied, "launches": {k: launches[k] for k in lane_forms},
+               "ds_points": ds_points, "max_slots": max_slots}
+
+    def traced():
+        summary.update(fleet_trace(pipe, logs, runtime, n))
+
+    deferred.append(traced)
+    return rows, summary
+
+
 def long_lead_phase(mods, builder, log_mod):
     """A log whose IMU stream leads its first scan by LEAD_S (the vehicle at
     rest; the small P2P log of the reference phase, 1024 points a scan):
@@ -3768,6 +4203,7 @@ def main():
     import elimaloc_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
     from elimaloc_tpu_torch import config as cfg_mod
     from elimaloc_tpu_torch import deskew, kernels
+    from elimaloc_tpu_torch import struct as struct_mod
     from elimaloc_tpu_torch.ekf import filter as efilter
     from elimaloc_tpu_torch.kernels import build
     from elimaloc_tpu_torch.map import builder, grid, tiles
@@ -3814,6 +4250,10 @@ def main():
     r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)
     rows += r
     slices[LEAD] = long_lead_phase(mods, builder, log_mod)
+    fleet_mods = {"kernels": kernels, "runtime": runtime, "tiles": tiles, "icp": icp,
+                  "grid": grid, "struct": struct_mod, "cfg": cfg_mod}
+    r, slices[FLEET] = fleet_phase(world, log, packed, fleet_mods, ate_rmse, log_mod, deferred)
+    rows += r
     slices["hash vs tile"] = hash_vs_tile(fused, slices)
     # the profiler passes, after every timed replay
     for r in rows:
@@ -3847,6 +4287,11 @@ def main():
     slices[TICK]["reference"] = tick_reference_phase(cfg_mod, runtime, builder, tiles, log_mod)
     slices[WINDOWED]["reference"] = window_reference_phase(cfg_mod, runtime, builder, tiles,
                                                            log_mod)
+    for r in rows:
+        if "plain_fn" in r:  # the plain lane forms, after every profiler pass
+            r["plain_ms"] = time_ms(r.pop("plain_fn"), PLAIN_LANE_REPEATS)
+            log_line(f"kernel {r['name']}: the plain lane form {r['plain_ms']:.4f} ms (median "
+                     f"of {PLAIN_LANE_REPEATS}); card {card()}")
     log_line(f"chip_smoke: {time.time() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -3859,6 +4304,9 @@ def main():
         if "partial_library_ms" in r:  # B, C: the library sort of their keys alone
             row["partial_library_ms"] = r["partial_library_ms"]
             row["partial_library_call"] = r["partial_library_call"]
+        if "singles_ms" in r:  # a lane form: its lanes' single-lane launches one by one
+            row["lanes"] = r["lanes"]
+            row["single_lane_launches_ms"] = r["singles_ms"]
         table.append(row)
     log_line(json.dumps({"slices": slices, "card": smi}))
     log_line(json.dumps({"kernels": table}))

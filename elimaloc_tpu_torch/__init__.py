@@ -8,7 +8,9 @@ AVGICP), covariance shaping, latency compensation and the EKF PCM update,
 driven three ways (the event loop ``run``, the online frame loop
 ``run_frames``, the whole-log ``run_fused``), on a full map or an active
 window of a disk-backed one (``map_window_radius``), with relocalization
-(``initialize_at``), config hot reload and the geodetic projection.
+(``initialize_at``), config hot reload and the geodetic projection, and
+fleet replay (``run_fused_fleet``: B logs in one frame loop, each kernel of
+the tile P2P frame launched once for all lanes).
 
 The hot ops the JAX package laid out by hand for the TPU run as
 hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G

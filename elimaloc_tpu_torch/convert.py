@@ -19,6 +19,7 @@ import torch
 from .ekf.state import EkfParams, EkfState
 from .map.grid import MapGrid
 from .map.tiles import TileMap
+from .parallel import stack_streams
 from .pipeline.runtime import PipelineParams, PipelineState
 from .register.icp import IcpParams
 
@@ -65,6 +66,24 @@ def pipeline_params(fields, *, dtype=torch.float32, device=None) -> PipelinePara
 def pipeline_state(fields, *, dtype=torch.float32, device=None) -> PipelineState:
     """``PipelineState``: the EKF state and both rings."""
     return to_struct(PipelineState, fields, dtype=dtype, device=device)
+
+
+def _lane_fields(fields, i):
+    """Lane ``i`` of flattened fields with a leading lane axis."""
+    if isinstance(fields, dict):
+        return {k: _lane_fields(v, i) for k, v in fields.items()}
+    return np.asarray(fields)[i]
+
+
+def fleet_state(fields, *, dtype=torch.float32, device=None) -> PipelineState:
+    """A fleet's ``PipelineState`` (every field with a leading lane axis, the
+    EKF states stacked by ``parallel.stack_streams``) from a list of B
+    flattened states, or from one flattened state whose arrays carry a
+    leading lane axis (the JAX package's lane-stacked states)."""
+    if isinstance(fields, dict):
+        lanes = np.asarray(fields["ekf"]["P"]).shape[0]
+        fields = [_lane_fields(fields, i) for i in range(lanes)]
+    return stack_streams([pipeline_state(f, dtype=dtype, device=device) for f in fields])
 
 
 def tile_map(fields, *, dtype=torch.float32, device=None) -> TileMap:

@@ -25,6 +25,12 @@
 //      gets its fill (0 / 0 / false / n / T), so the outputs need no fill
 //      launch; the dropped queries are summed in CTA 0.
 // Bound: latency (sort.cuh); the bytes are well under 1 MB.
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) launches one cluster a lane (sort.cuh cluster_lane)
+// on the shared tile geometry, each on its lane's queries, scratch, global
+// tables and outputs (``dropped`` a lane) at their lane strides; the
+// clusters share nothing, so they may run in waves. One lane is the single
+// launch.
 #include "sort.cuh"
 
 namespace {
@@ -43,12 +49,28 @@ assign_slots_kernel(const float* __restrict__ q, const bool* __restrict__ valid,
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   elm::SortShared& sm = *reinterpret_cast<elm::SortShared*>(smem_raw);
+  const int t_sent = tx_dim * ty_dim;
+  const int nt = t_sent + 1;  // table entries: tiles 0..T
+  {  // this cluster's lane: its queries, scratch, tables and outputs
+    const size_t l = elm::cluster_lane(), f = (size_t)s * qb * l;
+    q += 3 * (size_t)n * l;
+    valid += (size_t)n * l;
+    k0 += 4 * (size_t)n * l;
+    v0 += 4 * (size_t)n * l;
+    k1 += 4 * (size_t)n * l;
+    v1 += 4 * (size_t)n * l;
+    if (gtab != nullptr) gtab += (size_t)elm::kSortCtas * 3 * nt * l;
+    qbuf += 3 * f;
+    qvox += 3 * f;
+    qmask += f;
+    qidx += f;
+    slot_tile += (size_t)s * l;
+    dropped += l;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int t_sent = tx_dim * ty_dim;
-  const int nt = t_sent + 1;  // table entries: tiles 0..T
   // this CTA's tables: its per-tile counts, then start and base
   int* part = gtab ? gtab + (size_t)rank * 3 * nt
                    : reinterpret_cast<int*>(smem_raw + sizeof(elm::SortShared));
@@ -195,10 +217,14 @@ bool g_checked = false;
 }  // namespace
 
 // scratch: 4 * n int32 (the sort's two key and two index halves); table:
-// null when T + 1 <= kSharedTiles, else kSortCtas * 3 * (T + 1) int32
+// null when T + 1 <= kSharedTiles, else kSortCtas * 3 * (T + 1) int32.
+// ``lanes`` scans of n queries, one cluster each: q [lanes, n, 3], valid
+// [lanes, n], scratch and table a lane's size each at its lane stride,
+// qbuf, qvox [lanes, s, qb, 3], qmask, qidx [lanes, s, qb], slot_tile
+// [lanes, s], dropped [lanes].
 extern "C" int elm_assign_slots(const float* q, const bool* valid, int n, float voxel,
                                 float tile_size, int tv, int tx0, int ty0, int tx_dim,
-                                int ty_dim, int qb, int s, int* scratch, int* table,
+                                int ty_dim, int qb, int s, int lanes, int* scratch, int* table,
                                 float* qbuf, int* qvox, bool* qmask, int* qidx,
                                 int* slot_tile, long long* dropped, cudaStream_t stream) {
   const int t_sent = tx_dim * ty_dim;
@@ -211,8 +237,8 @@ extern "C" int elm_assign_slots(const float* q, const bool* valid, int n, float 
   const size_t max_smem = sort_smem + 3 * sizeof(int) * (size_t)kSharedTiles;
   const size_t smem = shared ? sort_smem + 3 * sizeof(int) * (size_t)(t_sent + 1) : sort_smem;
   uint32_t* k0 = reinterpret_cast<uint32_t*>(scratch);
-  return elm::launch_cluster(assign_slots_kernel, smem, max_smem, &g_checked, stream, q,
-                             valid, n, voxel, tile_size, tv, tx0, ty0, tx_dim, ty_dim, qb,
+  return elm::launch_cluster(assign_slots_kernel, smem, max_smem, &g_checked, stream, lanes,
+                             q, valid, n, voxel, tile_size, tv, tx0, ty0, tx_dim, ty_dim, qb,
                              s, passes, k0, scratch + n, k0 + 2 * (size_t)n,
                              scratch + 3 * (size_t)n, shared ? nullptr : table, qbuf, qvox,
                              qmask, qidx, slot_tile, dropped);

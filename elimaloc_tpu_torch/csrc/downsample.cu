@@ -21,6 +21,11 @@
 //      and the kept count clamped to the budget.
 // Bound: latency (sort.cuh); the bytes are ~1 MB at the headline 26,215
 // points.
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) launches one cluster a lane (sort.cuh cluster_lane),
+// each on its lane's points, scratch and outputs at their lane strides; the
+// clusters share nothing, so they may run in waves. One lane is the single
+// launch.
 #include "hash.cuh"
 #include "sort.cuh"
 
@@ -37,6 +42,17 @@ voxel_downsample_kernel(const float* __restrict__ points, const bool* __restrict
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   elm::SortShared& sm = *reinterpret_cast<elm::SortShared*>(smem_raw);
+  // this cluster's lane: its inputs, scratch (4 n ints a lane) and outputs
+  const size_t l = elm::cluster_lane();
+  points += 3 * n * l;
+  valid += n * l;
+  k0 += 4 * n * l;
+  v0 += 4 * n * l;
+  k1 += 4 * n * l;
+  v1 += 4 * n * l;
+  out += 3 * (size_t)out_size * l;
+  out_valid += (size_t)out_size * l;
+  kept_out += l;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
@@ -129,14 +145,17 @@ bool g_checked = false;
 
 }  // namespace
 
-// scratch: 4 * n int32 (the sort's two key and two index halves)
+// scratch: 4 * n int32 (the sort's two key and two index halves). ``lanes``
+// scans of n points, one cluster each: points [lanes, n, 3], valid
+// [lanes, n], scratch 4 n int32 a lane, out [lanes, out_size, 3],
+// out_valid [lanes, out_size], kept [lanes].
 extern "C" int elm_voxel_downsample(const float* points, const bool* valid, int n,
-                                    const float* voxel, int out_size, int* scratch,
+                                    const float* voxel, int out_size, int lanes, int* scratch,
                                     float* out, bool* out_valid, long long* kept,
                                     cudaStream_t stream) {
   uint32_t* k0 = reinterpret_cast<uint32_t*>(scratch);
   const size_t smem = sizeof(elm::SortShared);
-  return elm::launch_cluster(voxel_downsample_kernel, smem, smem, &g_checked, stream,
+  return elm::launch_cluster(voxel_downsample_kernel, smem, smem, &g_checked, stream, lanes,
                              points, valid, n, voxel, out_size, k0, scratch + n,
                              k0 + 2 * (size_t)n, scratch + 3 * (size_t)n, out, out_valid,
                              kept);

@@ -38,6 +38,26 @@
 // iteration count the host loop's, so the result equals the three-launch
 // chain's bit for bit. max_iteration == 0 returns the initial carry after 0
 // iterations; S == 0 (one CTA, zero sums) fails the overlap gate after 1.
+//
+// The lane form (gn_loop_lanes, the P2P loop's: a fleet of B registrations,
+// each against its own slots, in one cooperative launch; replaces the
+// jax.vmap of run_register inside replay_fused_fleet,
+// elimaloc_tpu/parallel/sharding.py:256-281): the carry, the flags and the
+// iteration count are per lane, field-major (pose [B, 16], local_cov
+// [B, 36], fitness [B], overlap [B]; stop [B], failed [B]; iterations
+// [B]), the partials [B, max(S, 1), n_sums], the sums [B, n_sums]. Per
+// iteration each CTA lists the lanes not yet stopped (their stop flags,
+// volatile, in lane order: every CTA finds the same list); the slot counter
+// hands out (lane, slot) pairs over them, lane-major, and a CTA stages a
+// lane's pose when the lane it takes changes; CTAs reduce the B x n_sums
+// columns of the live lanes, each in reduce_column's order; then CTA j runs
+// the LM step of live lanes j, j + grid, ... on its thread 0 (in parallel
+// across CTAs), which writes that lane's carry, flags and iteration count.
+// A stopped lane keeps its carry and its count; the loop ends when no lane
+// is live or at max_iteration. Per lane the slots, the sums and the step
+// are the single registration's, so lane l equals a one-lane launch on its
+// inputs bit for bit, and one lane is the single loop; a lane with no live
+// slot fails the overlap gate after one iteration, as a single run does.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -71,7 +91,14 @@ struct GnLoop {
   float* carry;
   bool* flags;
   int* iterations;
+  // the lane form's lanes and partial rows a lane (max(S, 1)); the single
+  // loop reads neither
+  int lanes, rows;
 };
+
+// The most lanes one launch of a lane form takes (its live-lane list is in
+// shared memory).
+constexpr int kMaxLanes = 128;
 
 }  // namespace elm
 
@@ -164,6 +191,97 @@ __device__ __forceinline__ void gn_loop(const elm::GnLoop& a, int n_slots, const
     if (*(volatile const bool*)a.flags) break;
   }
   if (lead) *a.iterations = it;
+}
+
+// The lane form of gn_loop (see above): ``slots(lane, slot, pose)`` runs
+// slot ``slot`` of lane ``lane`` at the staged ``pose`` and writes its
+// partials into that lane's row ``slot``.
+template <class Slots>
+__device__ __forceinline__ void gn_loop_lanes(const elm::GnLoop& a, int n_slots,
+                                              const Slots& slots, float* red) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float pose[16];
+  __shared__ int taken, n_live;
+  __shared__ int live[elm::kMaxLanes];
+  const int lanes = a.lanes, np = a.n_sums;
+  float* c_pose = a.carry;
+  float* c_cov = a.carry + 16 * lanes;
+  float* c_fit = a.carry + 52 * lanes;
+  float* c_overlap = a.carry + 53 * lanes;
+  bool* stop = a.flags;
+  bool* failed = a.flags + lanes;
+  if (blockIdx.x == 0) {  // the initial carries (fitness = overlap = 0, not failed)
+    for (int e = threadIdx.x; e < 16 * lanes; e += blockDim.x) c_pose[e] = a.pose0[e];
+    for (int e = threadIdx.x; e < 36 * lanes; e += blockDim.x) c_cov[e] = a.local_cov0[e];
+    for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
+      c_fit[l] = a.fitness0[l];
+      c_overlap[l] = 0.0f;
+      stop[l] = failed[l] = false;
+      a.iterations[l] = 0;
+    }
+    if (threadIdx.x == 0) a.counters[0] = a.counters[1] = 0;
+  }
+  if (a.max_iteration > 0) grid.sync();  // the counters are zero, the flags false
+  for (int it = 0; it < a.max_iteration; ++it) {
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int l = 0; l < lanes; ++l)
+        if (!*(volatile const bool*)(stop + l)) live[n++] = l;
+      n_live = n;
+    }
+    __syncthreads();
+    const int nl = n_live;
+    if (nl == 0) break;  // every CTA read the same flags
+    const int work = nl * n_slots;
+    int* counter = a.counters + (it & 1);
+    int staged = -1;
+    for (;;) {
+      if (threadIdx.x == 0) taken = atomicAdd(counter, 1);
+      __syncthreads();
+      const int g = taken;
+      if (g >= work) break;  // the whole CTA leaves together
+      const int k = g / n_slots;
+      const int lane = live[k], slot = g - k * n_slots;
+      if (lane != staged) {  // every thread is past the previous slot
+        if (threadIdx.x < 16)
+          pose[threadIdx.x] = it == 0 ? a.pose0[16 * lane + threadIdx.x]
+                                      : __ldcg(c_pose + 16 * lane + threadIdx.x);
+        staged = lane;
+        __syncthreads();
+      }
+      slots(lane, slot, pose);
+    }
+    grid.sync();
+    for (int c = blockIdx.x; c < nl * np; c += gridDim.x) {
+      const int lane = live[c / np];
+      reduce_column(a.partials + (size_t)lane * a.rows * np, n_slots, np, c % np, red,
+                    a.sums + lane * np);
+    }
+    grid.sync();
+    if (threadIdx.x == 0) {
+      for (int j = blockIdx.x; j < nl; j += gridDim.x) {
+        const int lane = live[j];
+        float p[16], cov[36], sum[elm::kGnSums], out[54];
+        bool fl[2];
+        for (int k = 0; k < np; ++k) sum[k] = __ldcg(a.sums + lane * np + k);
+        for (int e = 0; e < 16; ++e) p[e] = __ldcg(c_pose + 16 * lane + e);
+        for (int e = 0; e < 36; ++e) cov[e] = __ldcg(c_cov + 36 * lane + e);
+        lm_step(sum, np, p, __ldcg(c_fit + lane), cov, a.total[lane], *a.min_overlap_ratio,
+                *a.lm_lambda, *a.termination_threshold, a.gicp, out, fl);
+        for (int e = 0; e < 16; ++e) c_pose[16 * lane + e] = out[e];
+        for (int e = 0; e < 36; ++e) c_cov[36 * lane + e] = out[16 + e];
+        c_fit[lane] = out[52];
+        c_overlap[lane] = out[53];
+        stop[lane] = fl[0];
+        failed[lane] = fl[1];
+        a.iterations[lane] = it + 1;
+      }
+      // no CTA takes from the other counter until the next iteration
+      if (blockIdx.x == 0) a.counters[(it + 1) & 1] = 0;
+    }
+    grid.sync();
+  }
 }
 
 // The most CTAs of ``kernel`` (``threads`` a CTA, ``smem`` bytes of dynamic

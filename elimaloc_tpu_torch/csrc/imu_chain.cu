@@ -33,6 +33,10 @@
 //   record and pushes the ego ring from those rows in shared memory.
 // Every arithmetic step is the plain version's, in its order, with the
 // rounding helpers of common.cuh and ekf.cuh (no FMA contraction).
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) launches a grid of (2, B): CTA pair l runs lane l,
+// its record, samples and rings at their lane strides; the serial chain
+// stays one lane's. One lane is the single launch.
 //
 // Kernel V: the tick mode's IMU-only intake (use_imu=False), one launch an
 // IMU sample. Replaces elimaloc_tpu/pipeline/runtime.py:imu_ring_step
@@ -311,13 +315,29 @@ __device__ void imu_intake(const float* __restrict__ ts, const float* __restrict
   ring::push(g, n, m.valid, m.ranks);
 }
 
-__global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_constant__ Args a) {
+// Args ``a`` at lane ``l``: the record, the samples and the rings at their
+// lane strides.
+__device__ __forceinline__ Args lane_args(const Args& in, int l) {
+  Args a = in;
+  a.rec_in += l * kRecordWords;
+  a.rec_out += l * kRecordWords;
+  a.ts += (size_t)l * a.n;
+  a.acc += (size_t)3 * l * a.n;
+  a.gyro += (size_t)3 * l * a.n;
+  if (a.valid != nullptr) a.valid += (size_t)l * a.n;
+  a.ego = ring::lane_of(a.ego, l);
+  a.imu = ring::lane_of(a.imu, l);
+  return a;
+}
+
+__global__ void __launch_bounds__(kThreads) imu_stage_kernel(const __grid_constant__ Args in) {
   extern __shared__ __align__(16) char smem[];
   __shared__ State s;
   __shared__ Params prm;
   __shared__ Step w;
   __shared__ Update u;
   __shared__ float R[9], neg_r[3];
+  const Args a = lane_args(in, blockIdx.y);
   const int n = a.n;
   if (blockIdx.x == 1) {
     imu_intake(a.ts, a.acc, a.gyro, a.valid, n, a.rot, a.imu, carve(smem, n, a.imu.cap));
@@ -442,12 +462,16 @@ __global__ void __launch_bounds__(kThreads) imu_intake_kernel(
 // ego: t, pos, rpy, vel_local, gyro, count of the ego ring in; imu: t, gyro,
 // acc, count of the IMU ring in; rings_out: the ego ring's t [ego_cap] and
 // its four [ego_cap, 3] fields, the IMU ring's t [imu_cap] and its two
-// [imu_cap, 3] fields, then the two int32 counts.
+// [imu_cap, 3] fields, then the two int32 counts. ``lanes`` frames, one pair
+// of CTAs each: the records, the samples ([lanes, n], [lanes, n, 3]) and
+// the rings in at their lane strides; rings_out holds the ego ring's t
+// [lanes, ego_cap] and each of its fields [lanes, ego_cap, 3], the IMU
+// ring's likewise, then the ego counts [lanes] and the IMU counts [lanes].
 extern "C" int elm_imu_stage(const void* rec_in, void* rec_out, const float* params,
                              const float* ts, const float* acc, const float* gyro,
                              const bool* valid, int n, const float* rot, const float* trans,
                              int flags, void* const* ego, int ego_cap, void* const* imu,
-                             int imu_cap, float* rings_out, cudaStream_t stream) {
+                             int imu_cap, int lanes, float* rings_out, cudaStream_t stream) {
   Args a;
   a.rec_in = (const int*)rec_in;
   a.rec_out = (int*)rec_out;
@@ -462,9 +486,10 @@ extern "C" int elm_imu_stage(const void* rec_in, void* rec_out, const float* par
   a.trans = trans;
   ring::fill_in(a.ego, ego_cap, 4, 1e-5f, ego);
   ring::fill_in(a.imu, imu_cap, 2, 0.0f, imu);
-  int* counts = (int*)(rings_out + 13 * ego_cap + 7 * imu_cap);
-  ring::fill_out(a.ego, rings_out, counts);
-  ring::fill_out(a.imu, rings_out + 13 * ego_cap, counts + 1);
+  float* imu_out = rings_out + (size_t)13 * lanes * ego_cap;
+  int* counts = (int*)(imu_out + (size_t)7 * lanes * imu_cap);
+  ring::fill_out(a.ego, rings_out, counts, lanes);
+  ring::fill_out(a.imu, imu_out, counts + lanes, lanes);
   const size_t bytes = samples_bytes(n, ego_cap > imu_cap ? ego_cap : imu_cap);
   static size_t allowed = 48 * 1024;
   if (bytes > allowed) {
@@ -473,7 +498,7 @@ extern "C" int elm_imu_stage(const void* rec_in, void* rec_out, const float* par
     if (rc != cudaSuccess) return (int)rc;
     allowed = bytes;
   }
-  imu_stage_kernel<<<2, kThreads, bytes, stream>>>(a);
+  imu_stage_kernel<<<dim3(2, lanes), kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

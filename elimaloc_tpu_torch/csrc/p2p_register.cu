@@ -18,6 +18,13 @@
 // kernel A's slot code (correspond.cuh: p2p_slot), the same [S, 18]
 // partials, each in its slot's row. The result equals the three-launch
 // chain's bit for bit.
+// Lanes: one launch serves a fleet of B registrations (replay_fused_fleet's
+// vmap of run_register, elimaloc_tpu/parallel/sharding.py:256-281), lane l
+// on its own slots (slot_tile [B, S], sbuf [B, S, qb, 3], qmask [B, S, qb])
+// and carry, through gn_loop_lanes (gn_loop.cuh): the grid is min(B x S,
+// co-resident CTAs), the counter hands out (lane, slot) over the lanes
+// still iterating, each lane's LM step runs on one CTA. One lane is the
+// single registration, bit for bit.
 // Bound: as kernel A's per iteration, times the iterations (FP32 issue and
 // shared memory in the candidate scan; grid.sync and the serial LM step are
 // latency).
@@ -28,21 +35,24 @@ using namespace elm;
 
 namespace {
 
-// One slot of kernel A at the staged pose (gn_loop's ``slots``).
+// One slot of kernel A at the staged pose (gn_loop_lanes' ``slots``): lane
+// ``lane``'s slot block and partial rows.
 struct P2pSlots {
   const float* halo;
   int mhp;
   const int* slot_tile;
   const float* sbuf;
   const bool* qmask;
-  int qb;
+  int s, qb, rows;
   float md, voxel, tile_size;
   int tx0, ty0, ty_dim;
   float* partials;
   P2pShared* sm;
-  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
-    p2p_slot(slot, halo, mhp, slot_tile, sbuf, qmask, qb, pose, md, voxel, tile_size, tx0,
-             ty0, ty_dim, partials, nullptr, nullptr, *sm);
+  __device__ __forceinline__ void operator()(int lane, int slot, const float* pose) const {
+    const size_t block = (size_t)lane * s * qb;
+    p2p_slot(slot, halo, mhp, slot_tile + (size_t)lane * s, sbuf + 3 * block, qmask + block,
+             qb, pose, md, voxel, tile_size, tx0, ty0, ty_dim,
+             partials + (size_t)lane * rows * kP2pParts, nullptr, nullptr, *sm);
   }
 };
 
@@ -52,9 +62,9 @@ __global__ void __launch_bounds__(kThreads, 4) p2p_register_kernel(
     const float* __restrict__ max_dist, float voxel, float tile_size, int tx0, int ty0,
     int ty_dim, const GnLoop loop) {
   __shared__ P2pShared sm;
-  const P2pSlots slots{halo, mhp, slot_tile, sbuf, qmask, qb, *max_dist, voxel, tile_size,
-                       tx0, ty0, ty_dim, loop.partials, &sm};
-  gn_loop(loop, s, slots, sm.part);
+  const P2pSlots slots{halo, mhp, slot_tile, sbuf, qmask, s, qb, loop.rows, *max_dist, voxel,
+                       tile_size, tx0, ty0, ty_dim, loop.partials, &sm};
+  gn_loop_lanes(loop, s, slots, sm.part);
 }
 
 // The loop kernel's co-resident CTAs (one cache key: no dynamic shared
@@ -68,20 +78,27 @@ int capacity(int* ctas) {
 // The co-resident CTAs of the loop kernel on the current device.
 extern "C" int elm_p2p_register_capacity(int* ctas) { return capacity(ctas); }
 
-// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
-// failed; iterations: int32. Scratch: partials [max(s, 1), 18], sums
-// [18], counters [2].
+// ``lanes`` registrations (1 <= lanes <= kMaxLanes), each lane's inputs
+// and outputs at its lane stride: slot_tile [lanes, s], sbuf [lanes, s, qb,
+// 3], qmask [lanes, s, qb], pose [lanes, 4, 4], fitness [lanes], local_cov
+// [lanes, 6, 6], total [lanes]. carry: pose [lanes, 4, 4], local_cov
+// [lanes, 6, 6], fitness [lanes], overlap [lanes]; flags: stop [lanes],
+// failed [lanes]; iterations: int32 [lanes]. Scratch: partials [lanes,
+// max(s, 1), 18], sums [lanes, 18], counters [2].
 extern "C" int elm_p2p_register(
     const float* halo, int mhp, const int* slot_tile, const float* sbuf, const bool* qmask,
     int s, int qb, const float* pose, const float* fitness, const float* local_cov,
     const float* total, const float* max_dist, const float* min_overlap_ratio,
     const float* lm_lambda, const float* termination_threshold, int max_iteration,
-    float voxel, float tile_size, int tx0, int ty0, int ty_dim, float* partials, float* sums,
-    int* counters, float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+    float voxel, float tile_size, int tx0, int ty0, int ty_dim, int lanes, float* partials,
+    float* sums, int* counters, float* carry, bool* flags, int* iterations,
+    cudaStream_t stream) {
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kP2pParts, 0, partials, sums,
-                    counters, carry, flags, iterations};
+                    counters, carry, flags, iterations, lanes, s > 1 ? s : 1};
   void* args[] = {&halo, &mhp, &slot_tile, &sbuf, &qmask, &s, &qb, &max_dist, &voxel,
                   &tile_size, &tx0, &ty0, &ty_dim, (void*)&loop};
-  return launch_loop((const void*)p2p_register_kernel, s, kThreads, 0, 0, 0, args, stream);
+  return launch_loop((const void*)p2p_register_kernel, s * lanes, kThreads, 0, 0, 0, args,
+                     stream);
 }

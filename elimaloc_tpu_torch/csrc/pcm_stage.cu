@@ -28,6 +28,10 @@
 // the two P statistics as block reductions over P in shared memory (max
 // and min are exact in any order: no float atomics). The state and the
 // measurement are bit-equal to kernel L then kernel I on the same inputs.
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) launches one CTA a lane, each on its lane's record,
+// registration, ego ring and outputs at their lane strides; one lane is the
+// single launch.
 #include <math.h>
 
 #include "ekf_update.cuh"
@@ -42,7 +46,7 @@ constexpr int kWarps = kThreads / 32;
 // the output buffer, in floats: the measurement (kernel L's 42), ego pos
 // [3], rpy [3], t, p_asym, p_min_diag; ``applied`` follows as a byte
 constexpr int kEgoPos = kPcmMeasWords, kEgoRpy = kEgoPos + 3, kEgoT = kEgoRpy + 3,
-              kAsym = kEgoT + 1, kMinDiag = kAsym + 1;
+              kAsym = kEgoT + 1, kMinDiag = kAsym + 1, kOutFloats = kMinDiag + 1;
 
 // torch.max / torch.min: a NaN anywhere wins.
 __device__ __forceinline__ float max_nan(float a, float b) { return b > a || b != b ? b : a; }
@@ -57,7 +61,24 @@ __global__ void __launch_bounds__(kThreads) pcm_stage_kernel(
     const bool* __restrict__ usable, const float* __restrict__ ring_t,
     const float* __restrict__ ring_pos, const float* __restrict__ ring_rpy,
     const int* __restrict__ ring_count, int cap, const float* __restrict__ scan_end,
-    int use_pcm, float* __restrict__ out, bool* __restrict__ applied) {
+    int use_pcm, float* __restrict__ out, bool* __restrict__ applied, int usable_stride,
+    int scan_end_stride) {
+  // this CTA's lane: its inputs and outputs at their lane strides
+  const int l = blockIdx.x;
+  rec_in += l * kRecordWords;
+  rec_out += l * kRecordWords;
+  icp_pose += 16 * l;
+  local_cov += 36 * l;
+  fitness += l;
+  success += l;
+  usable += l * usable_stride;
+  ring_t += (size_t)l * cap;
+  ring_pos += (size_t)3 * l * cap;
+  ring_rpy += (size_t)3 * l * cap;
+  ring_count += l;
+  scan_end += l * scan_end_stride;
+  out += l * kOutFloats;
+  applied += l;
   __shared__ State s;
   __shared__ Params prm;
   __shared__ Update u;
@@ -122,17 +143,24 @@ __global__ void __launch_bounds__(kThreads) pcm_stage_kernel(
 
 // out: icp_pose [4, 4], t, pos [3], quat [4], pos_cov [3, 3], rot_cov [3, 3]
 // (kernel L's layout), ego pos [3], ego rpy [3], ego t, p_asym, p_min_diag.
+// ``lanes`` frames, one CTA each: the records, icp_pose [lanes, 4, 4],
+// local_cov [lanes, 6, 6], fitness, success, the ego ring ([lanes, cap],
+// [lanes, cap, 3], [lanes]), out [lanes, 51] and applied [lanes] at their
+// lane strides; usable and scan_end every ``usable_stride`` bytes and
+// ``scan_end_stride`` floats (views of kernel T's lane outputs).
 extern "C" int elm_pcm_stage(const void* rec_in, void* rec_out, const float* params,
                              const float* icp_pose, const float* tf_lidar_to_ego,
                              const float* local_cov, const float* fitness, const bool* success,
                              const bool* usable, const float* ring_t, const float* ring_pos,
                              const float* ring_rpy, const int* ring_count, int cap,
                              const float* scan_end, int use_pcm, int joseph, float* out,
-                             bool* applied, cudaStream_t stream) {
+                             bool* applied, int lanes, int usable_stride, int scan_end_stride,
+                             cudaStream_t stream) {
   auto kernel = joseph ? pcm_stage_kernel<true> : pcm_stage_kernel<false>;
-  kernel<<<1, kThreads, 0, stream>>>((const int*)rec_in, (int*)rec_out, params, icp_pose,
-                                     tf_lidar_to_ego, local_cov, fitness, success, usable,
-                                     ring_t, ring_pos, ring_rpy, ring_count, cap, scan_end,
-                                     use_pcm, out, applied);
+  kernel<<<lanes, kThreads, 0, stream>>>((const int*)rec_in, (int*)rec_out, params, icp_pose,
+                                         tf_lidar_to_ego, local_cov, fitness, success, usable,
+                                         ring_t, ring_pos, ring_rpy, ring_count, cap, scan_end,
+                                         use_pcm, out, applied, usable_stride,
+                                         scan_end_stride);
   return (int)cudaGetLastError();
 }

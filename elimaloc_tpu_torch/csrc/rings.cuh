@@ -79,6 +79,21 @@ __device__ __forceinline__ void push(const Ring& g, int m, const bool* valid, in
   }
 }
 
+// Lane ``l`` of a lane-stacked ring (its [lanes, cap] times, [lanes, cap, 3]
+// fields and [lanes] counts, in and out): each pointer at its lane stride.
+__device__ __forceinline__ Ring lane_of(Ring g, int l) {
+  const size_t t = (size_t)l * g.cap;
+  g.t_in += t;
+  g.t_out += t;
+  for (int f = 0; f < g.nf; ++f) {
+    g.f_in[f] += 3 * t;
+    g.f_out[f] += 3 * t;
+  }
+  g.count_in += l;
+  g.count_out += l;
+  return g;
+}
+
 // ptrs: t_in, nf fields in, count_in (the ego ring's nf = 4, the IMU ring's
 // 2), as the wrappers pass a ring.
 __host__ __forceinline__ void fill_in(Ring& g, int cap, int nf, float eps,
@@ -92,10 +107,12 @@ __host__ __forceinline__ void fill_in(Ring& g, int cap, int nf, float eps,
 }
 
 // The out-of-place ring at ``out``: its [cap] times, then its nf [cap, 3]
-// fields one after another; the count apart.
-__host__ __forceinline__ void fill_out(Ring& g, float* out, int* count_out) {
+// fields one after another; the count apart. Of ``lanes`` rings: the
+// [lanes, cap] times, then each field's [lanes, cap, 3], the [lanes]
+// counts apart (lane_of picks one).
+__host__ __forceinline__ void fill_out(Ring& g, float* out, int* count_out, int lanes = 1) {
   g.t_out = out;
-  for (int f = 0; f < g.nf; ++f) g.f_out[f] = out + g.cap * (1 + 3 * f);
+  for (int f = 0; f < g.nf; ++f) g.f_out[f] = out + (size_t)lanes * g.cap * (1 + 3 * f);
   g.count_out = count_out;
 }
 

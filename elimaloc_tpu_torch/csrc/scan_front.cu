@@ -41,6 +41,11 @@
 //     plain version's subtraction) and never stored.
 // The shared bodies give T the same bits as the gate and scan times in
 // torch, then kernel K, then kernel D.
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) runs both launches with the lane as blockIdx.y, each
+// lane's points, rings and outputs at their lane strides and its own three
+// workspace ints (the last-CTA hand-off is per lane). One lane is the single
+// call.
 #include "deskew.cuh"
 #include "scan_ring.cuh"
 
@@ -80,7 +85,31 @@ struct FrontArgs {
   float* pts_out;
 };
 
-__global__ void __launch_bounds__(kQueryThreads) scan_gate_query_kernel(FrontArgs a) {
+// Lane l's arguments: the points, times, valid, stamp, rings, workspace and
+// outputs at their lane strides (the delay, max_dist and tf are shared).
+__device__ __forceinline__ FrontArgs lane_args(FrontArgs a, int l) {
+  const size_t n = a.n;
+  a.points += 3 * n * l;
+  a.times += n * l;
+  a.valid += n * l;
+  a.stamp += l;
+  a.imu_t += (size_t)a.imu_cap * l;
+  a.imu_gyro += (size_t)3 * a.imu_cap * l;
+  a.imu_count += l;
+  const size_t e = (size_t)a.ego.cap * l;
+  a.ego = Ego{a.ego.t + e, a.ego.pos + 3 * e, a.ego.rpy + 3 * e, a.ego.vel + 3 * e,
+              a.ego.gyro + 3 * e, a.ego.count + l, a.ego.cap};
+  a.work += 3 * l;
+  a.iout += 2 * l;
+  a.fout += (size_t)(query_floats(a.w) + kFrontScalars) * l;
+  a.bout += (size_t)(a.w + kFrontFlags) * l;
+  a.valid_out += n * l;
+  if (a.pts_out != nullptr) a.pts_out += 3 * n * l;
+  return a;
+}
+
+__global__ void __launch_bounds__(kQueryThreads) scan_gate_query_kernel(FrontArgs in) {
+  const FrontArgs a = lane_args(in, blockIdx.y);
   __shared__ QueryShared sh;
   __shared__ int s_lo[kWarps], s_hi[kWarps];
   __shared__ bool s_last;
@@ -152,7 +181,8 @@ __global__ void __launch_bounds__(kQueryThreads) scan_gate_query_kernel(FrontArg
   if (threadIdx.x == 0) a.bout[a.w + kQueryFlags] = a.bout[a.w] && a.bout[a.w + 1];
 }
 
-__global__ void __launch_bounds__(kDeskewThreads) scan_deskew_points_kernel(FrontArgs a) {
+__global__ void __launch_bounds__(kDeskewThreads) scan_deskew_points_kernel(FrontArgs in) {
+  const FrontArgs a = lane_args(in, blockIdx.y);
   extern __shared__ float table[];  // [w] t_prev, [w] dt, [3w] d_rot
   const int w = a.w;
   stage_table(table, a.fout, a.fout + w, a.bout, w);
@@ -176,11 +206,17 @@ __global__ void __launch_bounds__(kDeskewThreads) scan_deskew_points_kernel(Fron
 // scan_end, front_t, then the bools imu_included [w], imu_available,
 // odom_available, imu_covers_start, found, usable, deskew_ok, valid' [n];
 // pts_out: the deskewed points [n, 3] (run_deskew only). n >= 1.
+// ``lanes`` scans of n points each (1 <= lanes <= 65535): the points
+// [lanes, n, 3], times and valid [lanes, n], stamp [lanes] and the rings
+// ([lanes, cap], [lanes, cap, 3], [lanes]) at their lane strides, work
+// 3 ints a lane; out holds the int64 pairs [lanes, 2], then the floats
+// [lanes, 4w + 23], the bools [lanes, w + 6] and valid' [lanes, n] (one
+// lane: the layout above), pts_out [lanes, n, 3].
 extern "C" int elm_scan_front(const float* points, const float* times, const bool* valid, int n,
                               const float* stamp, const float* delay, const float* max_dist,
                               void* const* imu, int imu_cap, void* const* ego, int ego_cap,
-                              const float* tf_ego_to_lidar, int w, int flags, int* work,
-                              void* out, float* pts_out, cudaStream_t stream) {
+                              const float* tf_ego_to_lidar, int w, int flags, int lanes,
+                              int* work, void* out, float* pts_out, cudaStream_t stream) {
   FrontArgs a;
   a.points = points;
   a.times = times;
@@ -201,18 +237,18 @@ extern "C" int elm_scan_front(const float* points, const float* times, const boo
   a.work = work;
   char* o = (char*)out;
   a.iout = (long long*)o;
-  a.fout = (float*)(o + 16);
-  a.bout = (bool*)(o + 16 + 4 * (query_floats(w) + kFrontScalars));
-  a.valid_out = a.bout + w + kFrontFlags;
+  a.fout = (float*)(o + 16 * (size_t)lanes);
+  a.bout = (bool*)(a.fout + (size_t)lanes * (query_floats(w) + kFrontScalars));
+  a.valid_out = a.bout + (size_t)lanes * (w + kFrontFlags);
   a.pts_out = pts_out;
   int blocks = (n + kQueryThreads - 1) / kQueryThreads;
   if (blocks > kMaxGateCtas) blocks = kMaxGateCtas;
-  scan_gate_query_kernel<<<blocks, kQueryThreads, 0, stream>>>(a);
+  scan_gate_query_kernel<<<dim3(blocks, lanes), kQueryThreads, 0, stream>>>(a);
   if (flags & kRunDeskew) {
     const cudaError_t rc = cudaGetLastError();
     if (rc != cudaSuccess) return (int)rc;
-    scan_deskew_points_kernel<<<(n + kDeskewThreads - 1) / kDeskewThreads, kDeskewThreads,
-                         sizeof(float) * 5 * (size_t)w, stream>>>(a);
+    scan_deskew_points_kernel<<<dim3((n + kDeskewThreads - 1) / kDeskewThreads, lanes),
+                                kDeskewThreads, sizeof(float) * 5 * (size_t)w, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -247,8 +247,14 @@ __device__ inline void cluster_exclusive(int a, int b, SortShared& sm) {
   __syncthreads();
 }
 
-// Launches ``kernel`` as one cluster of kSortCtas x kSortThreads with
-// ``smem`` bytes of dynamic shared memory. At first use it raises the
+// The cluster's lane when a launch holds one cluster a lane (a fleet frame,
+// kernels B and C): clusters tile the grid in x, so cluster l is CTAs
+// [l * kSortCtas, (l + 1) * kSortCtas). No state crosses clusters, and the
+// card may run them in waves.
+__device__ __forceinline__ int cluster_lane() { return (int)blockIdx.x / kSortCtas; }
+
+// Launches ``kernel`` as ``lanes`` clusters of kSortCtas x kSortThreads
+// with ``smem`` bytes of dynamic shared memory. At first use it raises the
 // kernel's dynamic shared memory limit to ``max_smem`` and asks
 // cudaOccupancyMaxActiveClusters whether such a cluster fits the card:
 // if none does, kNoCluster comes back and nothing is launched.
@@ -256,9 +262,9 @@ constexpr int kNoCluster = -1;
 
 template <class... Params, class... Args>
 int launch_cluster(void (*kernel)(Params...), size_t smem, size_t max_smem,
-                   bool* checked, cudaStream_t stream, Args... args) {
+                   bool* checked, cudaStream_t stream, int lanes, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSortCtas, 1, 1);
+  cfg.gridDim = dim3(kSortCtas * lanes, 1, 1);
   cfg.blockDim = dim3(kSortThreads, 1, 1);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

@@ -17,6 +17,13 @@ view at its offset of one record of the right size), so a state with a
 replaced field is not taken for packed, and :func:`pack_state` copies any
 state into a fresh record (counted in :data:`packs`). ``EkfParams`` is
 packed the same way, once per params object, by :func:`make_params`.
+
+A fleet's states (``parallel.stack_streams``) are B records in one
+[B, nbytes] buffer, lane stride nbytes (3,072 bytes in f32): a
+:class:`RecordState` on such a root views every field with a leading lane
+axis, and the EKF kernels' lane forms take it by one pointer.
+:func:`stack_states` makes one from B states, stacking intact records
+without packing them.
 """
 
 from __future__ import annotations
@@ -245,8 +252,10 @@ class RecordState(EkfState):
     """An EkfState read from a record (``root``, uint8, of a state of float
     ``dtype``): each field is made on first access as its typed view of the
     record, so a state handed from one EKF kernel to the next is never
-    viewed field by field. Built from fields (``dataclasses.replace``,
-    ``struct.select``) it is an EkfState like any other."""
+    viewed field by field. A root of [B, nbytes] holds B records, a fleet's
+    lanes: every field then has a leading lane axis. Built from fields
+    (``dataclasses.replace``, ``struct.select``) it is an EkfState like any
+    other."""
 
     def __init__(self, root=None, dtype=torch.float32, **fields):
         if fields:
@@ -263,6 +272,8 @@ class RecordState(EkfState):
         typed = d["_typed"].get(dtype)
         if typed is None:
             typed = d["_typed"][dtype] = d["_root"].view(dtype)
+        if typed.dim() == 2:  # lanes: one record a row
+            shape, strides = (typed.shape[0],) + shape, (typed.shape[1],) + strides
         v = typed.as_strided(shape, strides, offset)
         d[name] = d["_views"][name] = v
         return v
@@ -280,10 +291,12 @@ class RecordState(EkfState):
         return d["_root"]
 
 
-def empty_state(dtype, device) -> RecordState:
-    """A state in a fresh record, every field zero or false."""
-    root = torch.zeros(record_layout(dtype).nbytes, dtype=torch.uint8, device=device)
-    return RecordState(root, dtype)
+def empty_state(dtype, device, lanes=None) -> RecordState:
+    """A state in a fresh record, every field zero or false (``lanes``
+    records in one buffer when given)."""
+    nbytes = record_layout(dtype).nbytes
+    shape = (nbytes,) if lanes is None else (lanes, nbytes)
+    return RecordState(torch.zeros(shape, dtype=torch.uint8, device=device), dtype)
 
 
 def state_record(state: EkfState):
@@ -310,12 +323,28 @@ def state_record(state: EkfState):
 
 
 def pack_state(state: EkfState) -> EkfState:
-    """``state`` copied field by field into a fresh record (counted)."""
-    out = empty_state(state.P.dtype, state.P.device)
+    """``state`` copied field by field into a fresh record (counted); a
+    state with a leading lane axis (P [B, 27, 27]) into B records of one
+    buffer."""
+    P = state.P
+    out = empty_state(P.dtype, P.device, P.shape[0] if P.dim() == 3 else None)
     for name, _, _ in RECORD_FIELDS:
         getattr(out, name).copy_(getattr(state, name))
     packs["ekf_state"] += 1
     return out
+
+
+def stack_states(states) -> EkfState:
+    """B states as one fleet state with a leading lane axis: intact records
+    of one dtype (``init_state``'s, a kernel's) are stacked into one
+    [B, nbytes] buffer, which is not a pack; other states are stacked field
+    by field, and the EKF kernels pack that when they take it."""
+    roots = [s.intact_record() if isinstance(s, RecordState) else None for s in states]
+    dtypes = {s.P.dtype for s in states}
+    if len(dtypes) == 1 and all(r is not None and r.dim() == 1 for r in roots):
+        return RecordState(torch.stack(roots), dtypes.pop())
+    return EkfState(**{f.name: torch.stack([getattr(s, f.name) for s in states])
+                       for f in dataclasses.fields(EkfState)})
 
 
 def _param_views(rec) -> dict:

@@ -153,6 +153,14 @@ viewed only when read. Flagged forms: H, I, S and W take ``EkfFlags.joseph_form`
 (the Joseph-form covariance update), E, F and G a slot-packed ``radar``
 (kernel X's output) and Q a ``radar`` in query order, added before their
 3x3 inverse.
+
+Lane forms (the fleet frame of ``run_fused_fleet``, JAX
+parallel/sharding.py:256-281): H, T, C, B, the P2P loop and S take a
+leading lane axis on their per-frame inputs (B frames of one fleet, one
+launch of each for all lanes; T's two launches once each), the EKF state
+as B records of one buffer and the rings with a lane axis; their outputs
+carry it too. One lane is the single launch's form, bit for bit; the
+wrappers tell the forms apart by the inputs' rank.
 """
 
 from __future__ import annotations
@@ -269,21 +277,29 @@ NO_CLUSTER = -1
 #: (csrc/gn_loop.cuh kNoCooperative, kNoRoom)
 NO_COOPERATIVE = -2
 NO_ROOM = -3
+#: the most lanes one launch of a loop's lane form takes (csrc/gn_loop.cuh
+#: kMaxLanes)
+MAX_LANES = 128
 
 
 def voxel_downsample(points, valid, voxel_size, out_size: int):
     """Kernel C (map.grid.voxel_downsample): (points [out,3], valid [out],
-    kept), one launch: keys, the cluster's radix sort and the compaction."""
-    n = points.shape[0]
+    kept), one launch: keys, the cluster's radix sort and the compaction.
+    The lane form: points [B, n, 3] and valid [B, n] give [B, out, 3],
+    [B, out] and kept [B], one cluster a lane in the one launch."""
+    lanes, lead = _lanes(points, 2)
+    n = points.shape[-2]
     f32 = torch.float32
     dev = points.device
     voxel = _scalar(voxel_size, points)
-    args = [_check(points, "points", f32, (n, 3)), _check(valid, "valid", torch.bool, (n,)),
-            ctypes.c_int(n), _check(voxel, "voxel_size", f32, ()), ctypes.c_int(out_size)]
-    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
-    out = torch.empty((out_size, 3), dtype=f32, device=dev)
-    out_valid = torch.empty(out_size, dtype=torch.bool, device=dev)
-    kept = torch.empty((), dtype=torch.int64, device=dev)
+    args = [_check(points, "points", f32, lead + (n, 3)),
+            _check(valid, "valid", torch.bool, lead + (n,)), ctypes.c_int(n),
+            _check(voxel, "voxel_size", f32, ()), ctypes.c_int(out_size),
+            ctypes.c_int(lanes or 1)]
+    scratch = torch.empty(4 * n * (lanes or 1), dtype=torch.int32, device=dev)
+    out = torch.empty(lead + (out_size, 3), dtype=f32, device=dev)
+    out_valid = torch.empty(lead + (out_size,), dtype=torch.bool, device=dev)
+    kept = torch.empty(lead, dtype=torch.int64, device=dev)
     rc = library().elm_voxel_downsample(*args, _ptr(scratch), _ptr(out), _ptr(out_valid),
                                         _ptr(kept), _stream(points))
     _raise_on(rc, "voxel_downsample")
@@ -295,27 +311,32 @@ def assign_slots(queries, valid, qb: int, max_slots: int, *, voxel_size,
                  tile_size, tx0, ty0, tx_dim, ty_dim):
     """Kernel B (map.tiles.assign_slots): the SlotAssignment fields as a
     dict, one launch: tile keys, the cluster's radix sort on them, the
-    per-tile slot arithmetic and the scatter (every entry written)."""
-    n = queries.shape[0]
+    per-tile slot arithmetic and the scatter (every entry written). The
+    lane form: queries [B, n, 3] and valid [B, n] give every field with a
+    leading lane axis (``dropped`` [B]), one cluster a lane in the one
+    launch, on one tile geometry."""
+    lanes, lead = _lanes(queries, 2)
+    n = queries.shape[-2]
     s = max_slots
     dev = queries.device
     t_sent = tx_dim * ty_dim
-    args = [_check(queries, "queries", torch.float32, (n, 3)),
-            _check(valid, "valid", torch.bool, (n,)), ctypes.c_int(n),
+    args = [_check(queries, "queries", torch.float32, lead + (n, 3)),
+            _check(valid, "valid", torch.bool, lead + (n,)), ctypes.c_int(n),
             ctypes.c_float(voxel_size), ctypes.c_float(tile_size),
             ctypes.c_int(int(round(tile_size / voxel_size))), ctypes.c_int(tx0),
             ctypes.c_int(ty0), ctypes.c_int(tx_dim), ctypes.c_int(ty_dim),
-            ctypes.c_int(qb), ctypes.c_int(s)]
-    scratch = torch.empty(4 * n, dtype=torch.int32, device=dev)
+            ctypes.c_int(qb), ctypes.c_int(s), ctypes.c_int(lanes or 1)]
+    scratch = torch.empty(4 * n * (lanes or 1), dtype=torch.int32, device=dev)
     table = (None if t_sent + 1 <= SHARED_TILES else
-             torch.empty(SORT_CTAS * 3 * (t_sent + 1), dtype=torch.int32, device=dev))
+             torch.empty((lanes or 1) * SORT_CTAS * 3 * (t_sent + 1), dtype=torch.int32,
+                         device=dev))
     out = dict(
-        qbuf=torch.empty((s, qb, 3), dtype=torch.float32, device=dev),
-        qvox=torch.empty((s, qb, 3), dtype=torch.int32, device=dev),
-        qmask=torch.empty((s, qb), dtype=torch.bool, device=dev),
-        qidx=torch.empty((s, qb), dtype=torch.int32, device=dev),
-        slot_tile=torch.empty((s,), dtype=torch.int32, device=dev),
-        dropped=torch.empty((), dtype=torch.int64, device=dev),
+        qbuf=torch.empty(lead + (s, qb, 3), dtype=torch.float32, device=dev),
+        qvox=torch.empty(lead + (s, qb, 3), dtype=torch.int32, device=dev),
+        qmask=torch.empty(lead + (s, qb), dtype=torch.bool, device=dev),
+        qidx=torch.empty(lead + (s, qb), dtype=torch.int32, device=dev),
+        slot_tile=torch.empty(lead + (s,), dtype=torch.int32, device=dev),
+        dropped=torch.empty(lead, dtype=torch.int64, device=dev),
     )
     rc = library().elm_assign_slots(*args, _ptr(scratch), _ptr(table),
                                     *(_ptr(v) for v in out.values()), _stream(queries))
@@ -333,6 +354,32 @@ def _qb_of(qmask, name):
 
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _lanes(t, single_dim: int):
+    """(lanes, the leading shape) of a wrapper's input ``t``: None and ()
+    when it has its single form's rank ``single_dim``, else its first
+    extent and (that extent,)."""
+    if t.dim() == single_dim:
+        return None, ()
+    if t.dim() != single_dim + 1 or t.shape[0] < 1:
+        raise ValueError(f"rank {single_dim} or a leading lane axis required, got "
+                         f"{tuple(t.shape)}")
+    return t.shape[0], (t.shape[0],)
+
+
+def _lane_vec(t, name, dtype, lanes):
+    """(pointer, element stride) of a [lanes] vector that may be a strided
+    view (kernel T's scalars in its lane outputs); a 0-d tensor for the
+    single form."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: CUDA tensor required, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {dtype} required, got {t.dtype}")
+    want = () if lanes is None else (lanes,)
+    if t.shape != want:
+        raise ValueError(f"{name}: shape {want} required, got {tuple(t.shape)}")
+    return ctypes.c_void_p(t.data_ptr()), ctypes.c_int(t.stride(0) if lanes else 0)
 
 
 #: order of kernel A's sums: sum w, sum w p (3), sum w p p^T (xx xy xz yy yz
@@ -520,24 +567,29 @@ def _known(key, obj):
     return None
 
 
-def _state_in(state):
+def _state_in(state, lanes=None):
     """(the pointer of ``state``'s float32 record, the state that holds the
     record): a kernel's output whose fields are untouched goes in as it is;
     a state that is not one record's views is packed into a fresh one first
-    (counted in packs), which the caller keeps until the launch is queued."""
+    (counted in packs), which the caller keeps until the launch is queued.
+    ``lanes``: a fleet state, B records of one [B, nbytes] buffer (a lane
+    form's output, ``ekf.state.stack_states``), or else packed so."""
+    lead = () if lanes is None else (lanes,)
     if isinstance(state, ekf_state.RecordState):
         rec = state.intact_record()
         if rec is not None:
-            return _check(rec, "EKF state record", torch.uint8, (_RECORD.nbytes,)), state
-    _check(state.P, "P", _F32, (27, 27))
-    if ekf_state.state_record(state) is None:
+            return (_check(rec, "EKF state record", torch.uint8, lead + (_RECORD.nbytes,)),
+                    state)
+    _check(state.P, "P", _F32, lead + (27, 27))
+    if lanes is not None or ekf_state.state_record(state) is None:
         state = ekf_state.pack_state(state)
     return ctypes.c_void_p(state.P.data_ptr()), state
 
 
-def _state_out(dev):
-    """(a fresh record, its pointer)."""
-    rec = torch.empty(_RECORD.nbytes, dtype=torch.uint8, device=dev)
+def _state_out(dev, lanes=None):
+    """(a fresh record, its pointer); ``lanes`` records in one buffer."""
+    shape = (_RECORD.nbytes,) if lanes is None else (lanes, _RECORD.nbytes)
+    rec = torch.empty(shape, dtype=torch.uint8, device=dev)
     return rec, ctypes.c_void_p(rec.data_ptr())
 
 
@@ -579,27 +631,33 @@ _EGO_FIELDS = ("pos", "rpy", "vel_local", "gyro")
 _IMU_FIELDS = ("gyro", "acc")
 
 
-def _made_ring(cls, name, fields, t, f, count):
+def _made_ring(cls, name, fields, t, f, count, lanes=None):
     """The ring ``cls`` a kernel wrote: its times ``t`` [cap], its fields
     ``f`` ([cap, 3] each, one after another) and its int32 ``count``, all
     views of the launch's fresh buffer; remembered with the pointer list
     :func:`_ring_in` makes, so the next kernel that takes it skips the
-    checks."""
-    f = f.view(len(fields), -1, 3).unbind()
+    checks. ``lanes``: a fleet's rings, t [B * cap], each field's
+    [B, cap, 3] one after another, count [B]."""
+    lead = () if lanes is None else (lanes,)
+    t = t.view(lead + (-1,))
+    f = f.view((len(fields),) + lead + (t.shape[-1], 3)).unbind()
     ring = cls(t=t, count=count, **dict(zip(fields, f)))
     _remember(name, ring, _ptr_array([v.data_ptr() for v in (t, *f, count)]))
     return ring
 
 
-def _ring_in(ring, name, fields):
-    """The pointer list of a ring going in: t, its [cap, 3] fields, count."""
+def _ring_in(ring, name, fields, lanes=None):
+    """The pointer list of a ring going in: t, its [cap, 3] fields, count
+    (with ``lanes``, each with a leading lane axis)."""
     ptrs = _known(name, ring)
-    if ptrs is not None:
+    if ptrs is not None and ring.count.shape == (() if lanes is None else (lanes,)):
         return ptrs
     cap = ring.capacity
-    ptrs = [_check(ring.t, f"{name}.t", _F32, (cap,)).value]
-    ptrs += [_check(getattr(ring, f), f"{name}.{f}", _F32, (cap, 3)).value for f in fields]
-    ptrs.append(_check(ring.count, f"{name}.count", torch.int32, ()).value)
+    lead = () if lanes is None else (lanes,)
+    ptrs = [_check(ring.t, f"{name}.t", _F32, lead + (cap,)).value]
+    ptrs += [_check(getattr(ring, f), f"{name}.{f}", _F32, lead + (cap, 3)).value
+             for f in fields]
+    ptrs.append(_check(ring.count, f"{name}.count", torch.int32, lead).value)
     return _ptr_array(ptrs)
 
 
@@ -611,31 +669,39 @@ def imu_stage(state, ego, imu, ts, acc, gyro, valid, rot, trans, params, flags):
     ego-to-IMU calibration), the ``predict_imu`` chain (the updates in the
     Joseph form with ``flags.joseph_form``), the ego rows and the batch
     pushes into the ego and IMU rings, in one launch. Returns (state, ego
-    ring, IMU ring), the rings' fields views of one fresh buffer."""
-    n = ts.shape[0]
+    ring, IMU ring), the rings' fields views of one fresh buffer. The lane
+    form: ``ts`` [B, n] (``acc``, ``gyro`` [B, n, 3], ``valid`` [B, n]), a
+    fleet state (B records) and rings with a lane axis; a CTA pair a lane
+    in the one launch."""
+    lanes, lead = _lanes(ts, 1)
+    n = ts.shape[-1]
     if n > IMU_STAGE_MAX_SAMPLES:
         raise ValueError(f"imu_stage: at most {IMU_STAGE_MAX_SAMPLES} IMU samples a "
                          f"launch, got {n}")
     re, ri = ego.capacity, imu.capacity
+    ln = lanes or 1
     dev = ts.device
-    (p_state, state), (p_params, params) = _state_in(state), _params(params)
-    args = [p_state, None, p_params, _check(ts, "ts", _F32, (n,)),
-            _check(acc, "acc", _F32, (n, 3)), _check(gyro, "gyro", _F32, (n, 3)),
-            ctypes.c_void_p(None) if valid is None else _check(valid, "valid", _BOOL, (n,)),
+    (p_state, state), (p_params, params) = _state_in(state, lanes), _params(params)
+    args = [p_state, None, p_params, _check(ts, "ts", _F32, lead + (n,)),
+            _check(acc, "acc", _F32, lead + (n, 3)), _check(gyro, "gyro", _F32, lead + (n, 3)),
+            ctypes.c_void_p(None) if valid is None
+            else _check(valid, "valid", _BOOL, lead + (n,)),
             ctypes.c_int(n), _check(rot, "ego_to_imu_rot", _F32, (3, 3)),
             _check(trans, "ego_to_imu_trans", _F32, _V3), ctypes.c_int(_flag_bits(flags)),
-            _ring_in(ego, "ego_ring", _EGO_FIELDS), ctypes.c_int(re),
-            _ring_in(imu, "imu_ring", _IMU_FIELDS), ctypes.c_int(ri)]
-    out, args[1] = _state_out(dev)
-    buf = torch.empty(13 * re + 7 * ri + 2, dtype=_F32, device=dev)
+            _ring_in(ego, "ego_ring", _EGO_FIELDS, lanes), ctypes.c_int(re),
+            _ring_in(imu, "imu_ring", _IMU_FIELDS, lanes), ctypes.c_int(ri),
+            ctypes.c_int(ln)]
+    out, args[1] = _state_out(dev, lanes)
+    buf = torch.empty(ln * (13 * re + 7 * ri + 2), dtype=_F32, device=dev)
     rc = library().elm_imu_stage(*args, ctypes.c_void_p(buf.data_ptr()), _stream(ts))
     _raise_on(rc, "imu_stage")
     launches["imu_stage"] += 1
-    t_e, f_e, t_i, f_i, counts = buf.split_with_sizes((re, 12 * re, ri, 6 * ri, 2))
-    c_e, c_i = counts.view(torch.int32).unbind()
+    t_e, f_e, t_i, f_i, counts = buf.split_with_sizes(
+        (ln * re, ln * 12 * re, ln * ri, ln * 6 * ri, 2 * ln))
+    c_e, c_i = counts.view(torch.int32).view((2,) + lead).unbind()
     return (ekf_state.RecordState(out),
-            _made_ring(type(ego), "ego_ring", _EGO_FIELDS, t_e, f_e, c_e),
-            _made_ring(type(imu), "imu_ring", _IMU_FIELDS, t_i, f_i, c_i))
+            _made_ring(type(ego), "ego_ring", _EGO_FIELDS, t_e, f_e, c_e, lanes),
+            _made_ring(type(imu), "imu_ring", _IMU_FIELDS, t_i, f_i, c_i, lanes))
 
 
 def ca_tick(state, t, params):
@@ -879,8 +945,10 @@ def scan_ring_query(imu, ego, scan_cur, scan_end, tf_ego_to_lidar, window: int,
 #: delayed stamp, scan_cur, scan_end, front_t), csrc/scan_front.cu
 _SCAN_TIME_END, _RUN_DESKEW, _BUG_COMPAT_Z = 1, 2, 4
 FRONT_SCALARS = 4
-#: kernel T's workspace on each device (the done counter, the first and the
-#: last valid index: 0, INT_MAX, -1 between calls; the last CTA resets it)
+#: kernel T's workspace on each (device, stream): three ints a lane (the
+#: done counter, the first and the last valid index: 0, INT_MAX, -1 between
+#: calls; each lane's last CTA resets its own), as many lanes as the widest
+#: call on that stream took; calls on one stream use it in turn
 _front_work = {}
 #: the last (delay, max_dist, tf_ego_to_lidar) given and their pointers: a
 #: pipeline passes the same parameter tensors every scan
@@ -908,44 +976,53 @@ def scan_front(points, times, valid, stamp, delay, max_dist, imu, ego, tf_ego_to
     info's imu_time [w], imu_rot [w,3], imu_included [w], first_idx,
     last_idx, odom_incre [3], imu_available, odom_available,
     imu_covers_start); all but points' are views of one fresh buffer; w =
-    min(window, IMU ring capacity)."""
-    n = points.shape[0]
+    min(window, IMU ring capacity). The lane form: points [B, n, 3],
+    ``times`` and ``valid`` [B, n], ``stamp`` [B] and rings with a lane axis
+    give every output with a leading lane axis (the scalars as strided
+    views); both launches run the lanes as blockIdx.y."""
+    lanes, lead = _lanes(points, 2)
+    ln = lanes or 1
+    n = points.shape[-2]
     if n == 0:
         raise ValueError("scan_front: a scan of at least one point required")
     ri, re = imu.capacity, ego.capacity
     w = min(int(window), ri)
     dev = points.device
     p_delay, p_dist, p_tf = _front_in(delay, max_dist, tf_ego_to_lidar)
-    args = [_check(points, "points", _F32, (n, 3)), _check(times, "times", _F32, (n,)),
-            _check(valid, "valid", _BOOL, (n,)), ctypes.c_int(n),
-            _check(stamp, "stamp", _F32, ()), p_delay, p_dist,
-            _ring_in(imu, "imu_ring", _IMU_FIELDS), ctypes.c_int(ri),
-            _ring_in(ego, "ego_ring", _EGO_FIELDS), ctypes.c_int(re), p_tf]
-    # kernels launch on one stream at a time: each call's last CTA leaves
-    # the workspace clean for the next
-    work = _front_work.get(dev)
-    if work is None:
-        work = _front_work[dev] = torch.tensor([0, 2 ** 31 - 1, -1], dtype=torch.int32,
-                                               device=dev)
+    args = [_check(points, "points", _F32, lead + (n, 3)),
+            _check(times, "times", _F32, lead + (n,)),
+            _check(valid, "valid", _BOOL, lead + (n,)), ctypes.c_int(n),
+            _check(stamp, "stamp", _F32, lead), p_delay, p_dist,
+            _ring_in(imu, "imu_ring", _IMU_FIELDS, lanes), ctypes.c_int(ri),
+            _ring_in(ego, "ego_ring", _EGO_FIELDS, lanes), ctypes.c_int(re), p_tf]
+    # kernels launch on one stream at a time: each call's last CTA of a lane
+    # leaves that lane's workspace clean for the next
+    stream = _stream(points)
+    work = _front_work.get((dev, stream.value))
+    if work is None or work.numel() < 3 * ln:
+        work = _front_work[(dev, stream.value)] = torch.tensor(
+            [0, 2 ** 31 - 1, -1] * ln, dtype=torch.int32, device=dev)
     flags = ((_SCAN_TIME_END if scan_time_end else 0) | (_RUN_DESKEW if run_deskew else 0)
              | (_BUG_COMPAT_Z if bug_compat_z else 0))
     nf = 4 * (4 * w + 19 + FRONT_SCALARS)
-    buf = torch.empty(16 + nf + w + 6 + n, dtype=torch.uint8, device=dev)
+    buf = torch.empty(ln * (16 + nf + w + 6 + n), dtype=torch.uint8, device=dev)
     pts = torch.empty_like(points) if run_deskew else points
-    rc = library().elm_scan_front(*args, ctypes.c_int(w), ctypes.c_int(flags), _ptr(work),
-                                  _ptr(buf), _ptr(pts) if run_deskew else _ptr(None),
-                                  _stream(points))
+    rc = library().elm_scan_front(*args, ctypes.c_int(w), ctypes.c_int(flags), ctypes.c_int(ln),
+                                  _ptr(work), _ptr(buf), _ptr(pts) if run_deskew else _ptr(None),
+                                  stream)
     _raise_on(rc, "scan_front")
     launches["scan_front"] += 1
-    i, f, b = buf.split_with_sizes((16, nf, w + 6 + n))
-    imu_time, imu_rot, incre, guess, scalars = f.view(_F32).split_with_sizes(
-        (w, 3 * w, 3, 16, FRONT_SCALARS))
-    included, flag_views, valid_out = b.view(_BOOL).split_with_sizes((w, 6, n))
-    imu_ok, odom_ok, covers, found, usable, desk_ok = flag_views.unbind()
-    first_idx, last_idx = i.view(torch.int64).unbind()
-    _, cur, end, _ = scalars.unbind()
-    return (valid_out, pts, cur, end, guess.view(4, 4), found, usable, desk_ok, imu_time,
-            imu_rot.view(w, 3), included, first_idx, last_idx, incre, imu_ok, odom_ok, covers)
+    i, f, b, v = buf.split_with_sizes((16 * ln, nf * ln, (w + 6) * ln, n * ln))
+    i = i.view(torch.int64).view(ln, 2)
+    f = f.view(_F32).view(ln, -1)
+    b = b.view(_BOOL).view(ln, w + 6)
+    v = v.view(_BOOL).view(ln, n)
+    out = (v, f[:, 4 * w + 20], f[:, 4 * w + 21], f[:, 4 * w + 3:4 * w + 19].unflatten(-1, (4, 4)),
+           b[:, w + 3], b[:, w + 4], b[:, w + 5], f[:, :w], f[:, w:4 * w].unflatten(-1, (w, 3)),
+           b[:, :w], i[:, 0], i[:, 1], f[:, 4 * w:4 * w + 3], b[:, w], b[:, w + 1], b[:, w + 2])
+    if lanes is None:
+        out = tuple(x[0] for x in out)
+    return out[:1] + (pts,) + out[1:]
 
 
 def pcm_measurement(icp_pose, tf_lidar_to_ego, local_cov, fitness, success, usable, ego,
@@ -986,32 +1063,43 @@ def pcm_stage(state, params, flags, icp_pose, tf_lidar_to_ego, local_cov, fitnes
     frame's published outputs, in one launch. Returns (state, (icp_pose
     [4,4] in the ego frame, the PCM GnssMeas fields t, pos [3], quat [4],
     pos_cov [3,3], rot_cov [3,3], applied, ego_pos [3], ego_rpy [3], ego_t,
-    p_asym, p_min_diag)): the outputs are views of one fresh buffer."""
+    p_asym, p_min_diag)): the outputs are views of one fresh buffer. The
+    lane form: ``scan_end`` [B] (with ``usable`` [B], both maybe strided
+    views of kernel T's lane outputs), a fleet state, the registration's
+    outputs and the ego ring with a lane axis; a CTA a lane in the one
+    launch, every output with a leading lane axis."""
+    lanes, lead = _lanes(scan_end, 0)
+    ln = lanes or 1
     re = ego.capacity
     dev = scan_end.device
-    args = [_check(icp_pose, "icp_pose", _F32, (4, 4)),
+    p_usable, usable_stride = _lane_vec(usable, "usable", _BOOL, lanes)
+    p_end, end_stride = _lane_vec(scan_end, "scan_end", _F32, lanes)
+    args = [_check(icp_pose, "icp_pose", _F32, lead + (4, 4)),
             _check(tf_lidar_to_ego, "tf_lidar_to_ego", _F32, (4, 4)),
-            _check(local_cov, "local_cov", _F32, (6, 6)), _check(fitness, "fitness", _F32, ()),
-            _check(success, "success", _BOOL, ()), _check(usable, "usable", _BOOL, ()),
-            _check(ego.t, "ego_ring.t", _F32, (re,)),
-            _check(ego.pos, "ego_ring.pos", _F32, (re, 3)),
-            _check(ego.rpy, "ego_ring.rpy", _F32, (re, 3)),
-            _check(ego.count, "ego_ring.count", torch.int32, ()), ctypes.c_int(re),
-            _check(scan_end, "scan_end", _F32, ()), ctypes.c_int(int(use_pcm)),
-            ctypes.c_int(int(flags.joseph_form))]
-    (p_state, state), (p_params, params) = _state_in(state), _params(params)
-    out, out_ptr = _state_out(dev)
+            _check(local_cov, "local_cov", _F32, lead + (6, 6)),
+            _check(fitness, "fitness", _F32, lead), _check(success, "success", _BOOL, lead),
+            p_usable, _check(ego.t, "ego_ring.t", _F32, lead + (re,)),
+            _check(ego.pos, "ego_ring.pos", _F32, lead + (re, 3)),
+            _check(ego.rpy, "ego_ring.rpy", _F32, lead + (re, 3)),
+            _check(ego.count, "ego_ring.count", torch.int32, lead), ctypes.c_int(re),
+            p_end, ctypes.c_int(int(use_pcm)), ctypes.c_int(int(flags.joseph_form))]
+    (p_state, state), (p_params, params) = _state_in(state, lanes), _params(params)
+    out, out_ptr = _state_out(dev, lanes)
     nf = 4 * PCM_STAGE_FLOATS
-    buf = torch.empty(nf + 4, dtype=torch.uint8, device=dev)
+    buf = torch.empty(ln * (nf + 4), dtype=torch.uint8, device=dev)
     rc = library().elm_pcm_stage(p_state, out_ptr, p_params, *args, _ptr(buf),
-                                 ctypes.c_void_p(buf.data_ptr() + nf), _stream(scan_end))
+                                 ctypes.c_void_p(buf.data_ptr() + nf * ln), ctypes.c_int(ln),
+                                 usable_stride, end_stride, _stream(scan_end))
     _raise_on(rc, "pcm_stage")
     launches["pcm_stage"] += 1
-    f = buf[:nf].view(_F32)
-    return ekf_state.RecordState(out), (
-        f[:16].view(4, 4), f[16], f[17:20], f[20:24], f[24:33].view(3, 3),
-        f[33:42].view(3, 3), buf[nf:nf + 1].view(_BOOL)[0], f[42:45], f[45:48], f[48], f[49],
-        f[50])
+    f = buf[:nf * ln].view(_F32).view(ln, PCM_STAGE_FLOATS)
+    res = (f[:, :16].unflatten(-1, (4, 4)), f[:, 16], f[:, 17:20], f[:, 20:24],
+           f[:, 24:33].unflatten(-1, (3, 3)), f[:, 33:42].unflatten(-1, (3, 3)),
+           buf[nf * ln:nf * ln + ln].view(_BOOL), f[:, 42:45], f[:, 45:48], f[:, 48], f[:, 49],
+           f[:, 50])
+    if lanes is None:
+        res = tuple(x[0] for x in res)
+    return ekf_state.RecordState(out), res
 
 
 def gn_step(sums, pose, fitness, local_cov, total, params, gicp: bool):
@@ -1045,13 +1133,16 @@ def p2p_register_capacity() -> int:
     return ctas.value
 
 
-def _carry_in(pose, fitness, local_cov, total, params, max_iteration: int):
+def _carry_in(pose, fitness, local_cov, total, params, max_iteration: int, lead=()):
     """The loop entries' carry in, constants and trip limit (csrc/gn_loop.cuh
-    ``GnLoop``): pose [4,4], fitness, local_cov [6,6], total, the search
+    ``GnLoop``): pose [4,4], fitness, local_cov [6,6], total (each with the
+    leading shape ``lead``: a lane axis for the lane form), the search
     distance, the overlap ratio, lambda, the termination threshold,
     ``max_iteration``."""
-    return [_check(pose, "pose", _F32, (4, 4)), _check(fitness, "fitness", _F32, ()),
-            _check(local_cov, "local_cov", _F32, (6, 6)), _check(total, "total", _F32, ()),
+    return [_check(pose, "pose", _F32, lead + (4, 4)),
+            _check(fitness, "fitness", _F32, lead),
+            _check(local_cov, "local_cov", _F32, lead + (6, 6)),
+            _check(total, "total", _F32, lead),
             _check(params.max_search_dist, "max_search_dist", _F32, ()),
             _check(params.min_overlap_ratio, "min_overlap_ratio", _F32, ()),
             _check(params.lm_lambda, "lm_lambda", _F32, ()),
@@ -1059,25 +1150,31 @@ def _carry_in(pose, fitness, local_cov, total, params, max_iteration: int):
             ctypes.c_int(max_iteration)]
 
 
-def _gn_loop(name, entry, args, rows: int, n_sums: int, like):
+def _gn_loop(name, entry, args, rows: int, n_sums: int, like, lanes=None):
     """One launch of a loop entry (``args``: its arguments before the
-    scratch) over ``rows`` slot rows of ``n_sums`` partials. Returns (pose
-    [4,4], local_cov [6,6], fitness, overlap, failed, iterations int32),
-    views of the launch's carry: nothing is read back."""
+    scratch) over ``rows`` slot rows of ``n_sums`` partials (``lanes``: the
+    lane form's, each lane ``rows`` of them). Returns (pose [4,4], local_cov
+    [6,6], fitness, overlap, failed, iterations int32), views of the
+    launch's carry (with a leading lane axis in the lane form, the carry
+    field-major): nothing is read back."""
     dev = like.device
+    ln = lanes or 1
     # carry (pose, local_cov, fitness, overlap), sums, partials; counters and
-    # the iteration count; the flags (stop, failed)
-    f = torch.empty(54 + n_sums * (1 + max(rows, 1)), dtype=_F32, device=dev)
-    i = torch.empty(3, dtype=torch.int32, device=dev)   # the counters: zeroed by the kernel
-    flags = torch.empty(2, dtype=_BOOL, device=dev)
-    carry, sums, partials = f[:54], f[54:54 + n_sums], f[54 + n_sums:]
+    # the iteration counts; the flags (stop, failed)
+    f = torch.empty(ln * (54 + n_sums * (1 + max(rows, 1))), dtype=_F32, device=dev)
+    i = torch.empty(2 + ln, dtype=torch.int32, device=dev)  # the counters: zeroed by the kernel
+    flags = torch.empty(2 * ln, dtype=_BOOL, device=dev)
+    carry, sums, partials = f[:54 * ln], f[54 * ln:(54 + n_sums) * ln], f[(54 + n_sums) * ln:]
     rc = getattr(library(), entry)(*args, _ptr(partials), _ptr(sums), _ptr(i), _ptr(carry),
                                    _ptr(flags), ctypes.c_void_p(i.data_ptr() + 8),
                                    _stream(like))
     _raise_on(rc, name)
     launches[name] += 1
-    return (carry[:16].view(4, 4), carry[16:52].view(6, 6), carry[52], carry[53], flags[1],
-            i[2])
+    if lanes is None:
+        return (carry[:16].view(4, 4), carry[16:52].view(6, 6), carry[52], carry[53], flags[1],
+                i[2])
+    return (carry[:16 * ln].view(ln, 4, 4), carry[16 * ln:52 * ln].view(ln, 6, 6),
+            carry[52 * ln:53 * ln], carry[53 * ln:], flags[ln:], i[2:])
 
 
 def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -1087,18 +1184,25 @@ def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, 
     (``pose`` [4,4], ``fitness``, ``local_cov`` [6,6]) for at most
     ``max_iteration`` iterations, in one cooperative launch; nothing is read
     back. Returns (pose [4,4], local_cov [6,6], fitness, overlap, failed,
-    iterations int32)."""
-    s, qb = _qb_of(qmask, "p2p_register")
+    iterations int32). The lane form: ``slot_tile`` [B, S], ``sbuf``
+    [B, S, QB, 3], ``qmask`` [B, S, QB], the carry and ``total`` with a
+    lane axis: B registrations in the one launch (csrc/gn_loop.cuh
+    gn_loop_lanes), each output with a leading lane axis, a stopped lane
+    keeping its carry and its count while the others iterate."""
+    lanes, lead = _lanes(sbuf, 3)
+    if lanes is not None and lanes > MAX_LANES:
+        raise ValueError(f"p2p_register: at most {MAX_LANES} lanes a launch, got {lanes}")
+    s, qb = _qb_of(qmask[0] if lanes else qmask, "p2p_register")
     t1, mhp = halo_points.shape[:2]
     args = [
         _check(halo_points, "halo_points", _F32, (t1, mhp, 3)), ctypes.c_int(mhp),
-        _check(slot_tile, "slot_tile", torch.int32, (s,)),
-        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
-        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
-        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
+        _check(slot_tile, "slot_tile", torch.int32, lead + (s,)),
+        _check(sbuf, "sbuf", _F32, lead + (s, qb, 3)),
+        _check(qmask, "qmask", torch.bool, lead + (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration, lead),
         ctypes.c_float(voxel_size), ctypes.c_float(tile_size), ctypes.c_int(tx0),
-        ctypes.c_int(ty0), ctypes.c_int(ty_dim)]
-    return _gn_loop("p2p_register", "elm_p2p_register", args, s, P2P_SUMS, sbuf)
+        ctypes.c_int(ty0), ctypes.c_int(ty_dim), ctypes.c_int(lanes or 1)]
+    return _gn_loop("p2p_register", "elm_p2p_register", args, s, P2P_SUMS, sbuf, lanes)
 
 
 def _loop_capacity(name, qb: int, radar: bool) -> int:

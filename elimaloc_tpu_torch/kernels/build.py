@@ -34,9 +34,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "elm_deskew": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                    _P, _P],
-    "elm_voxel_downsample": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
-    "elm_assign_slots": [_P, _P, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P],
+    "elm_voxel_downsample": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "elm_assign_slots": [_P, _P, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P],
     "elm_p2p_search_reduce": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _F, _F, _I,
                               _I, _I, _P, _P, _P, _P, _P],
     "elm_gicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
@@ -45,7 +45,8 @@ _SIGNATURES = {
                                 _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_avgicp_search_reduce": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _F,
                                  _P, _P, _P, _P, _P, _P, _P],
-    "elm_imu_stage": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _PP, _I, _PP, _I, _P, _P],
+    "elm_imu_stage": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _PP, _I, _PP, _I, _I, _P,
+                      _P],
     "elm_ekf_update": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                        _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "elm_ca_tick": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -58,13 +59,14 @@ _SIGNATURES = {
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P],
-    "elm_scan_front": [_P, _P, _P, _I, _P, _P, _P, _PP, _I, _PP, _I, _P, _I, _I, _P, _P, _P, _P],
+    "elm_scan_front": [_P, _P, _P, _I, _P, _P, _P, _PP, _I, _PP, _I, _P, _I, _I, _I, _P, _P,
+                       _P, _P],
     "elm_pcm_measurement": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "elm_pcm_stage": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
-                      _P, _P],
+                      _P, _I, _I, _I, _P],
     "elm_gn_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "elm_p2p_register": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                         _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_p2p_register_capacity": [ctypes.POINTER(_I)],
     "elm_avgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],

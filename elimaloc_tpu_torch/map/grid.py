@@ -378,9 +378,20 @@ def voxel_downsample_plain(points, valid, voxel_size, out_size: int):
     return out[:out_size], out_valid, torch.clamp(kept, max=out_size)
 
 
+def voxel_downsample_lanes_plain(points, valid, voxel_size, out_size: int):
+    """Plain lane form of kernel C: :func:`voxel_downsample_plain` on each
+    lane of points [B, N, 3] and valid [B, N], stacked (a fleet frame's
+    downsample, JAX's vmap of grid.py:271)."""
+    outs = [voxel_downsample_plain(p, v, voxel_size, out_size) for p, v in zip(points, valid)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def voxel_downsample(points, valid, voxel_size, out_size: int):
     """VoxelDownsample (hpp:260-283) on the device. Returns (points
-    [out_size,3], valid [out_size], kept_count)."""
+    [out_size,3], valid [out_size], kept_count); with a leading lane axis
+    on every input and output for a fleet frame (kernel C's lane form, or
+    :func:`voxel_downsample_lanes_plain` on CPU tensors)."""
     if points.device.type == "cpu":
-        return voxel_downsample_plain(points, valid, voxel_size, out_size)
+        plain = voxel_downsample_lanes_plain if points.dim() == 3 else voxel_downsample_plain
+        return plain(points, valid, voxel_size, out_size)
     return kernels.voxel_downsample(points, valid, voxel_size, out_size)

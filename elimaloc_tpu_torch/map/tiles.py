@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..parallel import stack_streams
 from ..struct import Struct
 from .builder import BuiltMap
 from .grid import OFFSETS_7, div, sq_norm3
@@ -614,11 +615,24 @@ def assign_slots_plain(tmap: TileMap, queries, valid,
     )
 
 
+def assign_slots_lanes_plain(tmap: TileMap, queries, valid,
+                             budget: TileQueryBudget) -> SlotAssignment:
+    """Plain lane form of kernel B: :func:`assign_slots_plain` on each lane
+    of queries [B, N, 3] and valid [B, N] against the one map, stacked (a
+    fleet frame's assignment, JAX's vmap of tiles.py:577)."""
+    return stack_streams([assign_slots_plain(tmap, q, v, budget)
+                          for q, v in zip(queries, valid)])
+
+
 def assign_slots(tmap: TileMap, queries, valid,
                  budget: TileQueryBudget) -> SlotAssignment:
-    """Tile-slot assignment; kernel B on CUDA, the plain version on CPU."""
+    """Tile-slot assignment; kernel B on CUDA, the plain version on CPU.
+    With a leading lane axis on the queries and valid (a fleet frame) every
+    field has one: kernel B's lane form, or
+    :func:`assign_slots_lanes_plain`."""
     if queries.device.type == "cpu":
-        return assign_slots_plain(tmap, queries, valid, budget)
+        plain = assign_slots_lanes_plain if queries.dim() == 3 else assign_slots_plain
+        return plain(tmap, queries, valid, budget)
     ax0, ay0 = tmap.grid_origin
     out = kernels.assign_slots(
         queries, valid, budget.qb, budget.max_slots, voxel_size=tmap.voxel_size,

@@ -14,6 +14,9 @@ compensation inside kernel S (kernel L's body, ``runtime.pcm_stage``); the
 functions here are their plain versions, which CPU tensors run. Kernel J
 (``kernels.ring_push``, plain version :func:`push_rings_plain`) is U's and
 V's reference.
+
+A fleet's rings carry a leading lane axis on every field (t [B, R], the
+[B, R, 3] fields, count [B]); ``capacity`` is R either way.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ class EgoRing(Struct):
 
     @property
     def capacity(self) -> int:
-        return self.t.shape[0]
+        return self.t.shape[-1]
 
     def valid_mask(self):
         return torch.arange(self.capacity, device=self.t.device) < self.count
@@ -54,7 +57,7 @@ class ImuRing(Struct):
 
     @property
     def capacity(self) -> int:
-        return self.t.shape[0]
+        return self.t.shape[-1]
 
     def valid_mask(self):
         return torch.arange(self.capacity, device=self.t.device) < self.count

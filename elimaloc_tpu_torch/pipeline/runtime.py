@@ -33,8 +33,17 @@ constant-acceleration prediction and its ego push per system-clock tick
 (:func:`tick_step`, one launch of kernel U) while raw IMU only feeds the IMU
 ring (:func:`imu_ring_step`, one launch of kernel V).
 
-Refused with NotImplementedError, naming the ROADMAP Queue 1 item: fleet
-replay ("Fleet") and the live dashboard ("Host modules and utilities").
+:meth:`LocalizationPipeline.run_fused_fleet` localizes B logs against the
+one map in one frame loop (JAX runtime.py:1590-1649, the single-chip fleet
+mode): the logs' batches padded to the fleet's capacities and stacked on a
+lane axis (:func:`fleet_batches`, ``parallel.stack_streams``), then
+``parallel.replay_fused_fleet``: :func:`fused_frame` with a lane axis, one
+call of each stage serving every lane (on the card one launch each of the
+lane forms of kernels H, C, B, S and the P2P loop, T's two launches once
+each). It runs P2P on the tile backend with the IMU chain; GICP, VGICP,
+AVGICP, the hash backend, CAN or GPS fusion, the radar covariances and
+``use_imu=False`` are refused with NotImplementedError, naming ROADMAP
+Queue 1 "Fleet", as the live dashboard is ("Host modules and utilities").
 """
 
 from __future__ import annotations
@@ -77,7 +86,8 @@ from ..register.icp import (
     make_icp_static,
     run_register,
 )
-from ..struct import Struct
+from ..parallel import stack_streams
+from ..struct import Struct, lane
 from . import rings
 from .log import ReplayLog
 
@@ -249,6 +259,17 @@ def pcm_stage_plain(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usa
                        "p_min_diag": torch.min(torch.diagonal(P))}
 
 
+def pcm_stage_lanes_plain(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usable,
+                          params: EkfParams, flags: EkfFlags, use_pcm: bool):
+    """Plain lane form of kernel S: :func:`pcm_stage_plain` on each lane of a
+    fleet frame (``scan_end`` [B]; the state, the registration's result
+    and the ego ring with a lane axis), stacked."""
+    outs = [pcm_stage_plain(lane(ekf, i), lane(res, i), tf_lidar_to_ego, lane(ego_ring, i),
+                            scan_end[i], usable[i], params, flags, use_pcm)
+            for i in range(scan_end.shape[0])]
+    return tuple(stack_streams(list(x)) for x in zip(*outs))
+
+
 def _on_card(t) -> bool:
     """Whether the scan's front and end launch kernels T and S for ``t`` (any
     device but the CPU, where they run their plain versions)."""
@@ -258,10 +279,12 @@ def _on_card(t) -> bool:
 def pcm_stage(ekf: EkfState, res, tf_lidar_to_ego, ego_ring, scan_end, usable,
               params: EkfParams, flags: EkfFlags, use_pcm: bool):
     """The scan's end: :func:`pcm_stage_plain` for CPU tensors, one launch of
-    kernel S (``kernels.pcm_stage``) for CUDA ones."""
+    kernel S (``kernels.pcm_stage``) for CUDA ones; for a fleet frame
+    (``scan_end`` [B]) :func:`pcm_stage_lanes_plain` or S's lane form."""
     if not _on_card(scan_end):
-        return pcm_stage_plain(ekf, res, tf_lidar_to_ego, ego_ring, scan_end, usable, params,
-                               flags, use_pcm)
+        plain = pcm_stage_lanes_plain if scan_end.dim() == 1 else pcm_stage_plain
+        return plain(ekf, res, tf_lidar_to_ego, ego_ring, scan_end, usable, params, flags,
+                     use_pcm)
     ekf, (pose, t, pos, quat, pos_cov, rot_cov, apply, ego_pos, ego_rpy, ego_t, p_asym,
           p_min_diag) = kernels.pcm_stage(
         ekf, params, flags, res.pose, tf_lidar_to_ego, res.local_cov, res.fitness,
@@ -314,12 +337,24 @@ def scan_front_plain(state: PipelineState, stamp, points, rel_raw, valid,
                      info=info)
 
 
+def scan_front_lanes_plain(state: PipelineState, stamp, points, rel_raw, valid,
+                           pp: PipelineParams, ps: PipelineStatic) -> ScanFront:
+    """Plain lane form of kernel T: :func:`scan_front_plain` on each lane of
+    a fleet frame (``stamp`` [B], points [B, N, 3], the state with a lane
+    axis), stacked."""
+    return stack_streams([scan_front_plain(lane(state, i), stamp[i], points[i], rel_raw[i],
+                                           valid[i], pp, ps) for i in range(points.shape[0])])
+
+
 def scan_front(state: PipelineState, stamp, points, rel_raw, valid, pp: PipelineParams,
                ps: PipelineStatic) -> ScanFront:
     """The scan's front: :func:`scan_front_plain` for CPU tensors, one call of
-    kernel T (``kernels.scan_front``: two launches) for CUDA ones."""
+    kernel T (``kernels.scan_front``: two launches) for CUDA ones; for a
+    fleet frame (points [B, N, 3]) :func:`scan_front_lanes_plain` or T's
+    lane form."""
     if not _on_card(points):
-        return scan_front_plain(state, stamp, points, rel_raw, valid, pp, ps)
+        plain = scan_front_lanes_plain if points.dim() == 3 else scan_front_plain
+        return plain(state, stamp, points, rel_raw, valid, pp, ps)
     (valid, pts, cur, end, guess, found, usable, ok, imu_time, imu_rot, included, first_idx,
      last_idx, incre, imu_ok, odom_ok, covers) = kernels.scan_front(
         points, rel_raw, valid, stamp, pp.lidar_time_delay, pp.input_max_dist,
@@ -454,11 +489,23 @@ def imu_subbatch_plain(st: PipelineState, b, pp: PipelineParams,
 _IMU_KEYS = ("imu_t", "imu_acc", "imu_gyro", "imu_valid")
 
 
+def imu_subbatch_lanes_plain(st: PipelineState, b, pp: PipelineParams,
+                             ps: PipelineStatic) -> PipelineState:
+    """Plain lane form of kernel H: :func:`imu_subbatch_plain` on each lane of
+    a fleet frame (``b["imu_t"]`` [B, n], the state with a lane axis),
+    stacked."""
+    return stack_streams([imu_subbatch_plain(lane(st, i), {k: None if b[k] is None else b[k][i]
+                                                           for k in _IMU_KEYS}, pp, ps)
+                          for i in range(b["imu_t"].shape[0])])
+
+
 def _imu_stage(st: PipelineState, b, pp: PipelineParams, ps: PipelineStatic) -> PipelineState:
     """:func:`imu_subbatch_plain` for CPU tensors, one launch of kernel H
-    (``kernels.imu_stage``) for CUDA ones."""
+    (``kernels.imu_stage``) for CUDA ones; for a fleet frame (``imu_t``
+    [B, n]) :func:`imu_subbatch_lanes_plain` or H's lane form."""
     if b["imu_t"].device.type == "cpu":
-        return imu_subbatch_plain(st, b, pp, ps)
+        plain = imu_subbatch_lanes_plain if b["imu_t"].dim() == 2 else imu_subbatch_plain
+        return plain(st, b, pp, ps)
     ekf, ego_ring, imu_ring = kernels.imu_stage(
         st.ekf, st.ego_ring, st.imu_ring, b["imu_t"], b["imu_acc"], b["imu_gyro"],
         b["imu_valid"], pp.ego_to_imu_rot, pp.ego_to_imu_trans, pp.ekf, ps.ekf_flags)
@@ -490,13 +537,16 @@ def imu_subbatch(st: PipelineState, b, pp: PipelineParams,
     ranges its batch push would keep, so the split frame's rings are the
     unsplit push's (``build_fused_batches`` pads every frame to the largest
     frame's count, which a long IMU lead before the first scan makes
-    large)."""
-    n = b["imu_t"].shape[0]
+    large). A fleet frame (``imu_t`` [B, n], padded to the fleet's count)
+    splits every lane at the same ranges."""
+    n = b["imu_t"].shape[-1]
     chunks = imu_chunks(n, [r.capacity for r in (st.ego_ring, st.imu_ring) if r is not None])
     if len(chunks) <= 1:
         return _imu_stage(st, b, pp, ps)
+    axis = b["imu_t"].dim() - 1  # the sample axis: 1 for a fleet frame
     for s, e in chunks:
-        part = {k: None if b[k] is None else b[k][s:e] for k in _IMU_KEYS}
+        part = {k: None if b[k] is None else b[k].narrow(axis, s, e - s).contiguous()
+                for k in _IMU_KEYS}
         out = _imu_stage(st, part, pp, ps)
         ego, imu = (new if old is None or e > n - old.capacity else old
                     for old, new in zip((st.ego_ring, st.imu_ring), (out.ego_ring, out.imu_ring)))
@@ -562,7 +612,10 @@ def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
     whose end (kernel S on the card) also gives the frame's published
     outputs. ``mark(name)`` gets "imu" after the IMU chain and the ring
     pushes, "can_gps" after the CAN / GPS updates, the scan_step marks, and
-    "outputs" at the end of the frame."""
+    "outputs" at the end of the frame. A fleet frame (``parallel.
+    replay_fused_fleet``) is the same call with a leading lane axis on the
+    state and every batch entry: each stage then runs its lane form once
+    for all lanes."""
     st = imu_subbatch(st, b, pp, ps)
     mark("imu")
     if ps.use_can or ps.use_gps:
@@ -651,6 +704,34 @@ def build_fused_batches(log: ReplayLog, dtype=np.float32, time_base: float = 0.0
         batches.update(gps_t=gps[0], gps_valid=gps[1], gps_pos=gps[2],
                        gps_cov=gps[3])
     return batches
+
+
+def fleet_batches(logs):
+    """The fleet's batches (JAX runtime.py:1614-1640): each log's
+    :func:`build_fused_batches` on its own time base floor(min(imu_t[0],
+    scan_t[0])), every per-frame capacity axis padded to the fleet's largest
+    with zero rows (``valid`` False, which every consumer masks), stacked
+    on a leading lane axis (``parallel.stack_streams``). Returns (the bases
+    [B] in float64, the batch dict of [B, F, ...] arrays). ValueError, as
+    JAX's, for logs of different scan counts or sensor streams."""
+    ns = {len(log.scan_t) for log in logs}
+    if len(ns) != 1:
+        raise ValueError(f"fleet logs must share a scan count, got {sorted(ns)}")
+    bases, batch_list = [], []
+    for log in logs:
+        tb = float(np.floor(min(log.imu_t[0], log.scan_t[0])))
+        bases.append(tb)
+        batch_list.append(build_fused_batches(log, time_base=tb))
+    keys = set(batch_list[0])
+    if any(set(b) != keys for b in batch_list[1:]):
+        raise ValueError("fleet logs must share sensor streams (can/gps)")
+    for k in keys:
+        shapes = [b[k].shape for b in batch_list]
+        mx = tuple(max(sh[d] for sh in shapes) for d in range(len(shapes[0])))
+        for b in batch_list:
+            if b[k].shape != mx:
+                b[k] = np.pad(b[k], [(0, m - n) for n, m in zip(b[k].shape, mx)])
+    return np.asarray(bases, np.float64), stack_streams(batch_list)
 
 
 def batches_to_device(batches, device=None, dtype=torch.float32):
@@ -1534,8 +1615,48 @@ class LocalizationPipeline:
             return self.run_frames(log, state, chunk=max(int(window_chunk), 1), mark=mark)
         return self._frames(log, state, None, None, mark, poll=False)
 
-    def run_fused_fleet(self, logs, states=None):
-        """Multi-stream fused replay (runtime.py:1590-1649): not ported."""
-        raise NotImplementedError(
-            "run_fused_fleet: fleet lanes (a batch dimension in every kernel) are in "
-            'ROADMAP Queue 1, "Fleet"')
+    def _refuse_fleet(self) -> None:
+        """The configurations whose fleet lanes are not ported yet."""
+        ps, st = self.static, self.static.icp_static
+        unported = [name for name, on in (
+            ("the hash backend", st.backend != "tile"),
+            (f"{IcpMethod(st.method).name} registration", st.method != int(IcpMethod.P2P)),
+            ("CAN / GPS fusion", ps.use_can or ps.use_gps),
+            ("radar covariances", st.use_radar_cov),
+            ("use_imu=False", not ps.use_imu)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"run_fused_fleet: the lane forms for {', '.join(unported)} are in ROADMAP "
+                'Queue 1, "Fleet" (ported: P2P on the tile backend with the IMU chain)')
+
+    def run_fused_fleet(self, logs, states=None, mark=_no_mark):
+        """Multi-stream fused replay (runtime.py:1590-1649): ``B`` independent
+        logs localized against the shared map in one frame loop
+        (``parallel.replay_fused_fleet``: each frame one call of every stage
+        for all lanes, on the card one launch of each kernel's lane form).
+        The logs must share a scan count and sensor streams; per-frame
+        capacities are padded to the fleet's largest (:func:`fleet_batches`).
+        ``states``: a list of B single states (default: ``reset()`` each),
+        stacked on a lane axis (``parallel.stack_streams``). Returns
+        ``(states, outs)`` with a leading lane axis on every field, ``outs``
+        as NumPy arrays [B, F, ...] plus ``ego_t_abs`` on each lane's own
+        time base; each lane's trajectory is its log's :meth:`run_fused`.
+        ``time_base`` is None afterwards (the bases are per lane). P2P on
+        the tile backend only (:meth:`_refuse_fleet`)."""
+        from ..parallel import replay_fused_fleet
+
+        if self.windowed:
+            raise ValueError(
+                "fleet replay compiles the whole log batch into one program "
+                "and cannot swap map windows; use run()/run_frames() per "
+                "stream with map_window_radius")
+        self._refuse_fleet()
+        bases, batches = fleet_batches(logs)
+        if states is None:
+            states = [self.reset() for _ in logs]
+        states, outs = replay_fused_fleet(stack_streams(states), batches, self.map,
+                                          self.params, self.static, mark=mark)
+        outs = {k: v.cpu().numpy() for k, v in outs.items()}
+        outs["ego_t_abs"] = outs["ego_t"].astype(np.float64) + bases[:, None]
+        self.time_base = None  # per-lane bases; the host clock is lane-local
+        return states, outs

@@ -53,6 +53,12 @@ tails, icp.py:429-467, and :func:`gn_update_plain`). The radar covariances
 come in query order, from kernel X on the rows 0..N-1. As in JAX,
 ``corr_reuse`` and ``reassign_each_iter`` do nothing there.
 
+A fleet frame's registrations (:func:`run_register_lanes`, a scan with a
+leading lane axis) run P2P on the tile backend: kernel B's lane form, the
+batched set-up and tail, and one launch of the P2P loop's lane form for
+all lanes (:func:`p2p_register`; :func:`p2p_register_lanes_plain` on CPU
+tensors).
+
 Not ported, refused with NotImplementedError: the tile backend's
 correspondence-reuse and per-iteration reassignment loops (ROADMAP "Not
 ported") and the sharded modes (ROADMAP Queue 1, ``parallel/sharding.py``).
@@ -638,13 +644,30 @@ def p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, t
                                 max_iteration, None)
 
 
+def p2p_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                             params: IcpParams, budget: maptiles.TileQueryBudget,
+                             max_iteration: int):
+    """Plain lane form of the P2P loop kernel: :func:`p2p_register_plain` on
+    each lane (every input with a leading lane axis but the map and the
+    params), the outputs stacked. Each lane iterates until its own gates
+    release and keeps its carry and its count: JAX's vmapped while_loop
+    (masked per lane) gives every lane the result of its own run."""
+    per_lane = (slot_tile, sbuf, qmask, pose, fitness, local_cov, total)
+    outs = [p2p_register_plain(tmap, *(x[i] for x in per_lane), params, budget, max_iteration)
+            for i in range(sbuf.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                  params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int):
     """The P2P registration loop on the tile backend: :func:`p2p_register_plain`
-    for CPU tensors, one launch of the loop kernel for CUDA ones."""
+    for CPU tensors, one launch of the loop kernel for CUDA ones. With a
+    leading lane axis on the slots and the carry (a fleet frame): the loop
+    kernel's lane form, or :func:`p2p_register_lanes_plain`."""
     if not _on_card(sbuf):
-        return p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                                  total, params, budget, max_iteration)
+        plain = p2p_register_lanes_plain if sbuf.dim() == 4 else p2p_register_plain
+        return plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+                     budget, max_iteration)
     return kernels.p2p_register(
         tmap.halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
         max_iteration, **_tile_geometry(tmap))
@@ -849,8 +872,12 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     ``TileMap`` on the tile backend, a ``MapGrid`` on the hash backend) from
     a global initial pose [4,4]. ``mark(name)``, when given, is called
     after the set-up (the slot assignment and the radar covariances,
-    "assign") and after the GN loop ("gn")."""
+    "assign") and after the GN loop ("gn"). A scan [B, N, 3] with a pose
+    [B, 4, 4] is a fleet frame's B registrations (:func:`run_register_lanes`)."""
     check_supported(static)
+    if src_local.dim() == 3:
+        return run_register_lanes(src_local, src_valid, tmap, initial_guess, params, static,
+                                  mark)
     dtype = src_local.dtype
     dev = src_local.device
     pose_world = initial_guess.to(dtype)
@@ -909,4 +936,56 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
         iterations=iterations,
         overlap=overlap,
         dropped=dropped,
+    )
+
+
+def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpParams,
+                       static: IcpStatic, mark=None) -> IcpResult:
+    """A fleet frame's registrations (JAX's vmap of run_register inside
+    replay_fused_fleet, parallel/sharding.py:256-281): B scans [B, N, 3]
+    (masks [B, N]) from B global initial poses [B, 4, 4] against the one
+    tile map, P2P. The set-up (the origin shift, the query transform, kernel
+    B's lane form, the clamp and the gather of the slot blocks) and the
+    pose / success tail run batched over the lanes, the GN loops as one
+    launch of the loop kernel's lane form (:func:`p2p_register`); every
+    field of the result has a leading lane axis. Other methods and the hash
+    backend are refused, naming ROADMAP Queue 1 "Fleet"."""
+    if static.backend != "tile" or static.method != int(IcpMethod.P2P):
+        raise NotImplementedError(
+            "fleet registration runs P2P on the tile backend: the other methods' and the "
+            'hash backend\'s lane forms are in ROADMAP Queue 1, "Fleet"')
+    dtype = src_local.dtype
+    dev = src_local.device
+    lanes, n = src_local.shape[:2]
+    total = torch.clamp(torch.sum(src_valid, dim=-1), min=1).to(dtype)
+    origin = tmap.origin.to(dtype)
+    pose = initial_guess.to(dtype).clone(memory_format=torch.contiguous_format)
+    pose[:, :2, 3] -= origin
+    asg = maptiles.assign_slots(tmap, lie.transform_points(pose, src_local), src_valid,
+                                static.tile_budget)
+    safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
+    rows = torch.arange(lanes, device=dev)[:, None, None]
+    sbuf = torch.where(asg.qmask[..., None], src_local[rows, safe_idx],
+                       torch.zeros((), dtype=dtype, device=dev))
+    if mark is not None:
+        mark("assign")
+
+    fitness = torch.zeros(lanes, dtype=dtype, device=dev)
+    local_cov = torch.eye(6, dtype=dtype, device=dev).repeat(lanes, 1, 1)
+    pose, local_cov, fitness, overlap, failed, iterations = p2p_register(
+        tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, params,
+        static.tile_budget, static.max_iteration)
+    if mark is not None:
+        mark("gn")
+
+    pose = pose.clone()
+    pose[:, :2, 3] += origin
+    return IcpResult(
+        pose=pose,
+        success=~failed & (fitness <= params.max_fitness_score),
+        fitness=fitness,
+        local_cov=local_cov,
+        iterations=iterations,
+        overlap=overlap,
+        dropped=asg.dropped.to(torch.int32),
     )

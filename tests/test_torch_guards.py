@@ -135,14 +135,18 @@ def test_pipeline_refuses_unported(both_worlds, change):
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
     kw = {}
+    if change == "fleet":
+        # fleet replay runs P2P on the tile backend (tests/test_torch_fleet.py);
+        # a GICP pipeline's fleet is refused
+        cfg.pcm.icp_method = tconfig.IcpMethod.GICP
     if change == "hash":
         # a hash-backend pipeline builds (the test below); its fleet replay
-        # is refused like the tile backend's
+        # is refused
         kw["backend"] = "hash"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
                                              **kw)
-        # the pipeline is built; fleet replay (JAX runtime.py:1590) is refused
+        # the pipeline is built; its fleet replay (JAX runtime.py:1590) is refused
         pipe.run_fused_fleet([])
 
 
@@ -195,7 +199,9 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "tools/time_gn_loop.py", "tools/time_pcm_stage.py",
                "tools/time_scan_front.py", "tools/time_register_loops.py",
                "tools/time_tick_mode.py", "tools/time_ekf_update.py",
-               "tools/probe_profiler_drops.py"]
+               "tools/probe_profiler_drops.py", "elimaloc_tpu_torch/parallel/__init__.py",
+               "elimaloc_tpu_torch/parallel/sharding.py", "elimaloc_tpu_torch/struct.py",
+               "tools/compare_checkouts.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)
