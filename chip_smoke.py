@@ -7,7 +7,7 @@ points per scan sampled 1/5, 1 Hz GPS and 50 Hz CAN in the log, qb=16 and
 budgets sized from the log, the bench.py ``_cfg(method)`` configuration. One
 BuiltMap with both covariances (bench.py:567-571) is packed at halo margin 1
 (P2P, GICP, VGICP) and 2 (AVGICP); the hash paths put the same BuiltMap
-on the card as the hash grid (``backend="hash"``). Twenty-four paths:
+on the card as the hash grid (``backend="hash"``). Twenty-eight paths:
 ``LocalizationPipeline.run_fused`` for each ICP method (P2P, GICP, VGICP,
 AVGICP), for AVGICP with GPS and CAN fusion (BASELINE config 5,
 bench.py:573-582) and for GICP, VGICP and AVGICP with the radar
@@ -35,11 +35,14 @@ pipeline); "hash grid": the grid's own lookup (Q's lookup entry), four
 queries (kernel Y, Q's query entry redesigned) and ground probe (kernel Z,
 R redesigned) on the card; and "P2P long lead": a
 small log whose IMU stream leads its first scan by 12 s (kernel H twice a
-frame), through ``run_fused`` and ``run_frames``; and "P2P fleet":
-``run_fused_fleet`` on 8 lanes at the headline width (the headline log and
-a second log of the same world and duration, seed 5, alternating), each
-fleet frame one launch of the lane form of kernels H, C, B, S and the P2P
-loop for all lanes and T's two kernels once each.
+frame), through ``run_fused`` and ``run_frames``; and the fleet paths
+"P2P fleet", "GICP fleet", "VGICP fleet", "AVGICP fleet" and "AVG+GPS+CAN
+fleet" (the run_fused configurations of P2P, GICP, VGICP, AVGICP and
+AVGICP with GPS + CAN): ``run_fused_fleet`` on 8 lanes at the headline
+width (the headline log and a second log of the same world and duration,
+seed 5, alternating), each fleet frame one launch of the lane form of
+kernels H, C, B, S, the method's loop kernel and, with fusion, W for all
+lanes and T's two kernels once each.
 
 Phases (each prints a line; any failure raises, so the exit code is not 0):
   1. device: ``nvidia-smi`` name and power limit, the TF32 flags off;
@@ -171,24 +174,27 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      launch of kernel H: run_fused and run_frames on the card with H
      ceil(cap / 1024) times a frame, run_frames = run_fused to 1e-6 m, the
      card against the CPU port under the closed-loop contract;
-  5d. "P2P fleet" (``fleet_phase``): a warm-up fleet replay recording one
-     fleet frame's stage calls; each lane form (``imu_stage[fleet]``,
-     ``scan_front[fleet]``, ``voxel_downsample[fleet]``,
-     ``assign_slots[fleet]``, ``p2p_register[fleet]``, ``pcm_stage[fleet]``)
-     bit for bit against 8 single-lane launches on its lanes' inputs and
-     against its plain lane form (H, T, S and the loop within 1e-4 x max(1,
-     |plain|) on every float output, C and B exactly; integers and flags
-     equal), with its event time, the single launches', the plain lane
-     form's and its bound; the timed fleet replay (launch counts from 0:
-     each lane form 21 times, T's host call 21, nothing else, no pack) with
-     its stage marks, the single-stream run_fused in the same call, the
-     fleet's scans/s (8 x 21 / wall); each lane bit for bit its log's
-     ``run_frames`` on a fresh pipeline with the lane's padded batches,
-     every output of every frame; each lane's ATE < 0.1 m, applied >= 0.9;
-     with the profiler passes, one fleet replay traced with every frame
-     under set_sync_debug_mode("error"): each lane-form kernel once a
-     frame, no chain kernel, no synchronizing call, the device's busy
-     share;
+  5d. the fleet paths (``fleet_phase``), each: a warm-up fleet replay
+     recording one fleet frame's stage calls (the fusion path: a frame
+     with a GPS fix); its lane forms' rows ("P2P fleet": ``imu_stage``,
+     ``scan_front``, ``voxel_downsample``, ``assign_slots``,
+     ``p2p_register`` and ``pcm_stage``; the GICP, VGICP and AVGICP fleets
+     their loop's, ``gicp_register`` etc.; "AVG+GPS+CAN fleet" W's,
+     ``can_gps_update``; each as ``[fleet]``), each bit for bit against 8
+     single-lane launches on its lanes' inputs and against its plain lane
+     form (H, T, S, W and the loops within 1e-4 x max(1, |plain|) on every
+     float output, C and B exactly; integers and flags equal), with its
+     event time, the single launches', the plain lane form's and its
+     bound; the timed fleet replay (launch counts from 0: each lane form
+     21 times, T's host call 21, nothing else, no pack) with its stage
+     marks, the single-stream run_fused of the same configuration in the
+     same call, the fleet's scans/s (8 x 21 / wall); each lane bit for bit
+     its log's ``run_frames`` on a fresh pipeline with the lane's padded
+     batches, every output of every frame; each lane's ATE within its
+     method's ATE_GATE, applied >= 0.9; with the profiler passes, one fleet
+     replay traced with every frame under set_sync_debug_mode("error"):
+     each lane-form kernel once a frame, no chain kernel, no synchronizing
+     call, the device's busy share;
   6. torch.profiler, after every timed replay: kernels B-D, H-Z and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
@@ -470,41 +476,54 @@ TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_corresp
 #: reference's own looser AVGICP truth bounds (tests/test_icp.py 0.45 m,
 #: tests/test_oracle_parity.py:221 0.8 m), not the other methods' 0.15 m.
 ATE_GATE = {"P2P": 0.1, "GICP": 0.15, "VGICP": 0.15, "AVGICP": 0.3}
-#: the fleet path: run_fused_fleet on the tile P2P pipeline, FLEET_LANES
-#: lanes alternating the headline log (seed 4) and a second log of the same
-#: world and duration (seed FLEET_SEED), every frame one launch of each
-#: kernel's lane form for all lanes
+#: the fleet paths: run_fused_fleet on the tile pipeline of a run_fused
+#: path's configuration (label -> that path), FLEET_LANES lanes alternating
+#: the headline log (seed 4) and a second log of the same world and duration
+#: (seed FLEET_SEED), every frame one launch of each kernel's lane form for
+#: all lanes
 FLEET = "P2P fleet"
+FUSION_FLEET = "AVG+GPS+CAN fleet"
+FLEET_PATHS = {FLEET: "P2P", "GICP fleet": "GICP", "VGICP fleet": "VGICP",
+               "AVGICP fleet": "AVGICP", FUSION_FLEET: FUSION}
 FLEET_LANES = 8
 FLEET_SEED = 5
+#: the lane forms every fleet frame launches, besides its method's loop
+#: and, with CAN and GPS fusion, kernel W's
+FLEET_SHARED = ("imu_stage", "scan_front", "voxel_downsample", "assign_slots", "pcm_stage")
 #: the fleet frame's stages: label -> (the module attribute the frame calls
 #: it through, the kernel's launch counter, the positional arguments with a
 #: lane axis, the kernel's device name(s), |lane form - plain lane form| <=
 #: tol * max(1, |plain|) on every float output, integers and flags equal)
 FLEET_STAGES = {
     "imu_stage": ("runtime._imu_stage", (0, 1), "imu_stage_kernel", 1e-4),
+    "can_gps_update": ("runtime.update_chain", (0,), "can_gps_update_kernel", 1e-4),
     "scan_front": ("runtime.scan_front", (0, 1, 2, 3, 4), "scan_", 1e-4),
     "voxel_downsample": ("runtime.voxel_downsample", (0, 1), "voxel_downsample_kernel", 0.0),
     "assign_slots": ("tiles.assign_slots", (1, 2), "assign_slots_kernel", 0.0),
-    LOOP: ("icp.p2p_register", (1, 2, 3, 4, 5, 6, 7), "p2p_register_kernel", 1e-4),
+    **{loop: (f"icp.{loop}", (1, 2, 3, 4, 5, 6, 7), LOOP_DEVICE[loop], 1e-4)
+       for loop in (LOOP, *TILE_LOOPS.values())},
     "pcm_stage": ("runtime.pcm_stage", (0, 1, 3, 4, 5), "pcm_stage_kernel", 1e-4),
 }
+#: the keyword arguments with a lane axis (each a tuple of [B, ...] rows)
+FLEET_LANE_KW = {"can_gps_update": ("can", "gps")}
 #: each lane form's plain lane form (the same arguments as its dispatcher)
 FLEET_PLAIN = {"imu_stage": "runtime.imu_subbatch_lanes_plain",
+               "can_gps_update": "efilter.update_chain_lanes_plain",
                "scan_front": "runtime.scan_front_lanes_plain",
                "voxel_downsample": "grid.voxel_downsample_lanes_plain",
                "assign_slots": "tiles.assign_slots_lanes_plain",
-               LOOP: "icp.p2p_register_lanes_plain",
+               **{loop: f"icp.{loop}_lanes_plain" for loop in (LOOP, *TILE_LOOPS.values())},
                "pcm_stage": "runtime.pcm_stage_lanes_plain"}
 #: each lane form's source and what it replaces
 FLEET_SOURCE = {
     "imu_stage": ("elimaloc_tpu_torch/csrc/imu_chain.cu + rings.cuh", EKF_KERNELS["imu_stage"][1]),
+    "can_gps_update": CAN_GPS,
     "scan_front": FRONT,
     "voxel_downsample": ("elimaloc_tpu_torch/csrc/downsample.cu + sort.cuh",
                          "elimaloc_tpu/map/grid.py:271 (+ the sort :300)"),
     "assign_slots": ("elimaloc_tpu_torch/csrc/assign.cu + sort.cuh",
                      "elimaloc_tpu/map/tiles.py:577 (+ the sort :609)"),
-    LOOP: (LOOP_SOURCE[LOOP], LOOP_REPLACES[LOOP]),
+    **{loop: (LOOP_SOURCE[loop], LOOP_REPLACES[loop]) for loop in (LOOP, *TILE_LOOPS.values())},
     "pcm_stage": ("elimaloc_tpu_torch/csrc/" + SCAN_KERNELS["pcm_stage"][0],
                   SCAN_KERNELS["pcm_stage"][1])}
 FLEET_VMAP = ", vmapped over the fleet's lanes (elimaloc_tpu/parallel/sharding.py:264-281 " \
@@ -3617,15 +3636,17 @@ def window_reference_phase(cfg_mod, runtime, builder, tiles, log_mod):
 
 
 class StageRecorder:
-    """Wraps the fleet frame's stage dispatchers (FLEET_STAGES: module
-    attributes) to keep the arguments of their call ``at`` (one fleet
+    """Wraps the fleet frame's stage dispatchers ``names`` (FLEET_STAGES:
+    module attributes) to keep the arguments of their call ``at`` (one fleet
     frame's), so the lane-form rows run on the main path's inputs."""
 
-    def __init__(self, mods, at):
+    def __init__(self, mods, at, names):
         self.mods, self.at, self.calls, self.seen, self.orig = mods, at, {}, {}, {}
+        self.names = names
 
     def __enter__(self):
-        for name, (where, *_) in FLEET_STAGES.items():
+        for name in self.names:
+            where = FLEET_STAGES[name][0]
             mod, attr = where.split(".")
             fn = getattr(self.mods[mod], attr)
             self.orig[name] = (self.mods[mod], attr, fn)
@@ -3656,10 +3677,10 @@ def leaves(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-def lane_bound(name, a, got, pipe, kernels):
-    """(operations, bytes) of one lane-form call on its lanes' inputs ``a``
-    (the dispatcher's arguments) and outputs ``got``: each lane's count as
-    the single kernel's row counts it, summed over the lanes."""
+def lane_bound(name, a, k, got, pipe, kernels):
+    """(operations, bytes) of one lane-form call on its lanes' inputs ``a``,
+    ``k`` (the dispatcher's arguments) and outputs ``got``: each lane's
+    count as the single kernel's row counts it, summed over the lanes."""
     rec_b = state_bytes(kernels, None)
     if name == "imu_stage":
         st, b = a[0], a[1]
@@ -3693,18 +3714,36 @@ def lane_bound(name, a, got, pipe, kernels):
         passes = max(1, -(-tmap.sentinel.bit_length() // 8))
         ops = queries.shape[0] * (queries.shape[1] * (14 + 6 * passes) + (tmap.sentinel + 1) * 6)
         return ops, nbytes(queries, valid, *leaves(got))
-    if name == LOOP:
+    if name in (LOOP, *TILE_LOOPS.values()):
+        # per lane, its iterations of the search and M's step as
+        # loop_bytes_ops counts a registration, the matches its last
+        # iteration's (overlap x total)
         tmap, slot_tile, sbuf, qmask = a[:4]
-        row = tmap.halo_points.shape[1]
+        method = next(m for m, n in {"P2P": LOOP, **TILE_LOOPS}.items() if n == name)
+        row = (tmap.halo_points if method in ("P2P", "GICP") else tmap.halo_vox_mean).shape[1]
+        cand_b, match_b, match_ops = SEARCH_COST[method]
         ops = moved = 0
         for i in range(sbuf.shape[0]):
             live = int(qmask[i].sum())
             n_tiles = int(torch.unique(slot_tile[i][qmask[i].any(1)]).numel())
             its = int(got[5][i])
             matched = int(round(float(got[3][i]) * float(a[7][i])))
-            ops += its * (live * row * 6 + matched * SEARCH_COST["P2P"][2] + 600)
-            moved += n_tiles * row * SEARCH_COST["P2P"][0] + live * 12
+            ops += its * (live * row * 6 + matched * match_ops + 600)
+            moved += n_tiles * row * cand_b + live * 12 + matched * match_b
         return ops, moved + nbytes(qmask, slot_tile, *a[4:8], *got)
+    if name == "can_gps_update":
+        # per lane its valid CAN samples and GPS fixes, as update_row counts
+        # one frame's
+        can, gps = k.get("can"), k.get("gps")
+        ops = moved = 0
+        if can is not None:
+            ops += int(can[3].sum()) * (kalman_ops(4) + 150)
+            moved += nbytes(*can)
+        if gps is not None:
+            ops += int(gps[3].sum()) * (kalman_ops(3) + 250)
+            moved += nbytes(*gps)
+        lanes = (can if can is not None else gps)[0].shape[0]
+        return ops, moved + 2 * rec_b * lanes + params_bytes(kernels, None)
     ekf, res, ego, end, usable = a[0], a[1], a[3], a[4], a[5]
     lanes = end.shape[0]
     n_ego = int(ego.count.sum())
@@ -3723,15 +3762,17 @@ def same_leaves(got, ref):
         for g, r in zip(got, ref))
 
 
-def fleet_rows(pipe, rec, mods, launches):
-    """Each lane form on the recorded fleet frame (FLEET_LANES lanes at the
-    headline widths): bit for bit against FLEET_LANES single-lane launches
-    on the lanes' inputs, and against its plain lane form on the same
-    inputs within its tolerance (FLEET_STAGES); its event time through its
-    dispatcher, the plain lane form's, the single launches' and its bound."""
+def fleet_rows(path, names, pipe, rec, mods, launches):
+    """Each lane form ``names`` on the recorded fleet frame of ``path``
+    (FLEET_LANES lanes at the headline widths): bit for bit against
+    FLEET_LANES single-lane launches on the lanes' inputs, and against its
+    plain lane form on the same inputs within its tolerance
+    (FLEET_STAGES); its event time through its dispatcher, the plain lane
+    form's, the single launches' and its bound."""
     kernels, struct = mods["kernels"], mods["struct"]
     rows = []
-    for name, (where, lane_args, device, tol) in FLEET_STAGES.items():
+    for name in names:
+        where, lane_args, device, tol = FLEET_STAGES[name]
         mod, attr = where.split(".")
         fn = getattr(mods[mod], attr)
         pmod, pattr = FLEET_PLAIN[name].split(".")
@@ -3740,16 +3781,19 @@ def fleet_rows(pipe, rec, mods, launches):
         first = a[lane_args[0]]  # a tensor, a pipeline state or an EKF state
         lanes = (first if isinstance(first, torch.Tensor)
                  else getattr(first, "ekf", first).P).shape[0]
+        lane_kw = FLEET_LANE_KW.get(name, ())
 
-        def one(i, a=a, k=k, fn=fn, lane_args=lane_args):
+        def one(i, a=a, k=k, fn=fn, lane_args=lane_args, lane_kw=lane_kw):
+            kw = {key: tuple(x[i] for x in v) if key in lane_kw and v is not None else v
+                  for key, v in k.items()}
             return fn(*(struct.lane(x, i) if j in lane_args else x for j, x in enumerate(a)),
-                      **k)
+                      **kw)
 
         kernels.reset_launches()
         got = fn(*a, **k)
         torch.cuda.synchronize()
         if kernels.launches[name] != 1:
-            raise AssertionError(f"[{FLEET}] {name}: the lane form launched "
+            raise AssertionError(f"[{path}] {name}: the lane form launched "
                                  f"{kernels.launches[name]} times for one call")
         g = leaves(got)
         singles = [leaves(one(i)) for i in range(lanes)]
@@ -3766,17 +3810,22 @@ def fleet_rows(pipe, rec, mods, launches):
                     rel = max(rel, float((d / torch.clamp(r.abs(), min=1.0)).max()))
             elif not torch.equal(x, r):
                 exact = False
-        ops, moved = lane_bound(name, a, got, pipe, kernels)
+        ops, moved = lane_bound(name, a, k, got, pipe, kernels)
         ms = time_ms(lambda: fn(*a, **k))
         singles_ms = time_ms(lambda: [one(i) for i in range(lanes)])
         label = f"{name}[fleet]"
-        log_line(f"[{FLEET}] kernel {label}: {lanes} lanes, each lane bit for bit its "
+        grid = ""
+        if name in TILE_LOOPS.values():  # the lane form's and the single loop's
+            caps = [getattr(kernels, f"{name}_capacity")(a[3].shape[-1], False, n)
+                    for n in (lanes, 1)]
+            grid = f"; co-resident CTAs {caps[0]} (the single loop's {caps[1]})"
+        log_line(f"[{path}] kernel {label}: {lanes} lanes, each lane bit for bit its "
                  f"single-lane launch: {per_lane.count(True)} of {lanes}; against the plain "
                  f"lane form max abs err {err:.3g}, max rel err {rel:.3g} (tolerance {tol:g} x "
                  f"max(1, |plain|)), integers and flags equal: {exact}; {ms:.4f} ms (the "
-                 f"{lanes} single-lane launches {singles_ms:.4f} ms); card {card()}")
+                 f"{lanes} single-lane launches {singles_ms:.4f} ms){grid}; card {card()}")
         if not all(per_lane) or not exact or rel > tol:
-            raise AssertionError(f"[{FLEET}] {label}: the lane form fails its checks")
+            raise AssertionError(f"[{path}] {label}: the lane form fails its checks")
         src, replaces = FLEET_SOURCE[name]
         # the plain lane form is timed last in the run (main): a profiler
         # pass after its flood of small eager kernels lost device records
@@ -3789,13 +3838,14 @@ def fleet_rows(pipe, rec, mods, launches):
     return rows
 
 
-def fleet_trace(pipe, logs, runtime, n):
-    """One more fleet replay under torch.profiler, every frame under
-    set_sync_debug_mode("error") (a synchronizing call inside a frame
-    raises): the device's busy share, and each frame's lane forms on the
-    device, once each a frame (T's two kernels once each), no kernel of the
-    single chain (A, M, K, D, L, I, J) and no device-to-host copy or
-    synchronizing runtime call inside the frames."""
+def fleet_trace(path, pipe, logs, runtime, n, launched):
+    """One more fleet replay of ``path`` under torch.profiler, every frame
+    under set_sync_debug_mode("error") (a synchronizing call inside a frame
+    raises): the device's busy share, and each frame's lane forms
+    ``launched`` on the device, once each a frame (T's two kernels once
+    each), no kernel of the single chain (A, E, F, G, M, K, D, L, I, J) and
+    no device-to-host copy or synchronizing runtime call inside the
+    frames."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     orig = runtime.fused_frame
@@ -3826,46 +3876,67 @@ def fleet_trace(pipe, logs, runtime, n):
     t0, t1 = min(e.time_range.start for e in spans), max(e.time_range.end for e in spans)
     inside = [e.name for e in evs if e.device_type == cpu and t0 <= e.time_range.start <= t1]
     blocking = sorted({x for x in inside if "Synchronize" in x or "DtoH" in x})
-    kern = [e for e in evs if e.device_type == dev]
+    # the frame range's device-side span covers the frame's kernels: it is
+    # not device work of its own
+    kern = [e for e in evs if e.device_type == dev and e.name != "chip_smoke.fleet_frame"]
     busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-3
+    copies = sum(e.time_range.elapsed_us() for e in kern if e.name.startswith("Memcpy")) * 1e-3
+    devices = [FLEET_STAGES[x][2] for x in launched if x != "scan_front"]
     count = {d: sum(d in e.name for e in kern) for d in (
-        "imu_stage_kernel", "scan_gate_query_kernel", "scan_deskew_points_kernel",
-        "voxel_downsample_kernel", "assign_slots_kernel", "p2p_register_kernel",
-        "pcm_stage_kernel")}
+        *devices, "scan_gate_query_kernel", "scan_deskew_points_kernel")}
     chain = sorted({e.name for e in kern if any(x in e.name for x in (
-        "p2p_search_kernel", "gn_step_kernel", "scan_ring_query_kernel", "deskew_kernel",
+        *CHAIN_DEVICE.values(), "gn_step_kernel", "scan_ring_query_kernel", "deskew_kernel",
         "pcm_measurement_kernel", "ekf_update_kernel", "ring_push_kernel"))})
     top = {}
     for e in kern:
         top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(top.items(), key=lambda kv: -kv[1])[:6]
-    log_line(f"[{FLEET}] traced fleet replay: {len(spans)} frames, device busy {busy:.2f} ms of "
-             f"{wall:.2f} ms wall ({100 * busy / wall:.1f}%); lane-form kernels on the device "
+    log_line(f"[{path}] traced fleet replay: {len(spans)} frames, device busy {busy:.2f} ms of "
+             f"{wall:.2f} ms wall ({100 * busy / wall:.1f}%; copies {copies:.2f} ms of it); "
+             f"lane-form kernels on the device "
              f"{count}; chain kernels {chain}; synchronizing calls inside the frames "
              f"{blocking}; top: " + "; ".join(f"{k[:40]} {v * 1e-3 / n:.3f} ms/frame"
                                               for k, v in top) + f"; card {card()}")
     if len(spans) != n or any(v != n for v in count.values()) or chain or blocking:
-        raise AssertionError(f"[{FLEET}] the traced fleet replay breaks the one-launch-a-"
+        raise AssertionError(f"[{path}] the traced fleet replay breaks the one-launch-a-"
                              "frame contract")
     return {"device_busy_share_profiled": busy / wall, "profiled_wall_ms": wall,
-            "traced_lane_kernels": count}
+            "device_copies_ms": copies, "traced_lane_kernels": count}
 
 
-def fleet_phase(world, log, packed, mods, ate_rmse, log_mod, deferred):
-    """"P2P fleet": ``run_fused_fleet`` on FLEET_LANES lanes (the headline
-    log and a second log of the same world and duration, alternating) at the
-    headline widths, on a tile P2P pipeline whose budgets fit both logs. A
+def fleet_lane_forms(path):
+    """(the lane forms each frame of fleet path ``path`` launches once, the
+    ones whose rows it adds): the P2P fleet's rows are its own lane forms,
+    the other paths' what they add to them (their method's loop; the
+    fusion path kernel W)."""
+    cfg_path = FLEET_PATHS[path]
+    fusion = cfg_path == FUSION
+    launched = FLEET_SHARED + (path_loop(cfg_path),) + (("can_gps_update",) if fusion else ())
+    if path == FLEET:
+        return launched, launched
+    return launched, ("can_gps_update",) if fusion else (path_loop(cfg_path),)
+
+
+def fleet_phase(path, log, second, packed, mods, ate_rmse, deferred):
+    """A fleet path (FLEET_PATHS): ``run_fused_fleet`` on FLEET_LANES lanes
+    (the headline log and ``second``, a log of the same world and
+    duration, alternating) at the headline widths, on the tile pipeline of
+    the path's run_fused configuration whose budgets fit both logs. A
     warm-up fleet replay records one fleet frame's stage calls
-    (StageRecorder); the lane-form rows (``fleet_rows``); the timed replay
-    with the launch counts from 0 (each lane form once a frame: 21 each, T's
-    host call once a frame, no single chain kernel, no pack) beside the
-    single-stream run_fused of the headline log in the same call; each lane
-    bit for bit its log's ``run_frames`` on a fresh pipeline with the lane's
-    padded batches; each lane's ATE < 0.1 m and applied >= 0.9; the traced
-    replay (``fleet_trace``) with the other profiler passes."""
+    (StageRecorder; on the fusion path a frame with a GPS fix); the
+    lane-form rows (``fleet_rows``); the timed replay with the launch counts
+    from 0 (each lane form once a frame: 21 each, T's host call once a
+    frame, no single chain kernel, no pack) beside the single-stream
+    run_fused of the headline log in the same call; each lane bit for bit
+    its log's ``run_frames`` on a fresh pipeline with the lane's padded
+    batches; each lane's ATE within its method's ATE_GATE and applied >=
+    0.9; the traced replay (``fleet_trace``) with the other profiler
+    passes."""
     kernels, tiles, cfg_mod, runtime = mods["kernels"], mods["tiles"], mods["cfg"], \
         mods["runtime"]
-    second = headline_log(world, log_mod, FLEET_SEED)
+    cfg_path = FLEET_PATHS[path]
+    method = path_method(cfg_path)
+    launched, row_names = fleet_lane_forms(path)
     logs = [log if i % 2 == 0 else second for i in range(FLEET_LANES)]
     pcm = cfg_mod.ElimalocConfig().pcm
     sizes = [runtime.autosize_budgets(lg, float(pcm.input_voxel_ds_m), 4.0 * pcm.pcm_voxel_size,
@@ -3874,16 +3945,21 @@ def fleet_phase(world, log, packed, mods, ate_rmse, log_mod, deferred):
 
     def make():
         return runtime.LocalizationPipeline(
-            method_cfg(cfg_mod, "P2P"), packed[1], device="cuda", ds_points=ds_points,
+            method_cfg(cfg_mod, cfg_path), packed[2 if method == "AVGICP" else 1],
+            device="cuda", ds_points=ds_points,
             tile_budget=tiles.TileQueryBudget(qb=16, max_slots=max_slots), ego_ring_size=512,
             imu_ring_size=256)
 
     pipe = make()
     n = len(log.scan_t)
-    log_line(f"[{FLEET}] {FLEET_LANES} lanes x {n} scans x {log.scan_points.shape[1]} points "
-             f"(seeds 4 and {FLEET_SEED} alternating), ds_points {ds_points}, max_slots "
-             f"{max_slots}")
-    with StageRecorder(mods, N_SCANS // 2) as rec:
+    _, batches = runtime.fleet_batches(logs)
+    at = N_SCANS // 2
+    if cfg_path == FUSION:  # record a frame with a GPS fix for W's row
+        at = next(k for k in range(at, n) if batches["gps_valid"][:, k].any())
+    log_line(f"[{path}] {FLEET_LANES} lanes x {n} scans x {log.scan_points.shape[1]} points "
+             f"(seeds 4 and {FLEET_SEED} alternating), the {cfg_path} configuration, "
+             f"ds_points {ds_points}, max_slots {max_slots}; lane forms {launched}")
+    with StageRecorder(mods, at, row_names) as rec:
         pipe.run_fused_fleet(logs)
     torch.cuda.synchronize()
 
@@ -3907,28 +3983,26 @@ def fleet_phase(world, log, packed, mods, ate_rmse, log_mod, deferred):
     t0 = time.perf_counter()
     runtime.fleet_batches(logs)
     prep_ms = (time.perf_counter() - t0) * 1e3
-    lane_forms = tuple(FLEET_STAGES)
     split = {}
     for what, timer in (("fleet", stages), ("single", single)):
         per_stage, frames, per_frame = timer.split()
         split[what] = {"stage_ms": per_stage, "frame_ms_p50": float(np.percentile(per_frame, 50)),
                        "frame_ms_p95": float(np.percentile(per_frame, 95))}
-        log_line(f"[{FLEET}] {what} stage ms/frame (frames 1..{frames}): "
+        log_line(f"[{path}] {what} stage ms/frame (frames 1..{frames}): "
                  + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
                  + f"; frame ms p50 {split[what]['frame_ms_p50']:.3f} p95 "
                  f"{split[what]['frame_ms_p95']:.3f}")
-    log_line(f"[{FLEET}] {FLEET_LANES * n / wall:.2f} scans/s ({wall:.3f} s for "
+    log_line(f"[{path}] {FLEET_LANES * n / wall:.2f} scans/s ({wall:.3f} s for "
              f"{FLEET_LANES} x {n} scans, host batch prep + upload included; the prep "
              f"alone, runtime.fleet_batches, {prep_ms:.1f} ms); single-stream run_fused of "
-             f"the headline log {n / single_wall:.2f} scans/s; launches {launches}, packs "
-             f"{packs}; card {card()}")
-    others = {k: v for k, v in launches.items() if k not in lane_forms and v}
-    if any(launches[k] != n for k in lane_forms) or others or any(packs.values()):
-        raise AssertionError(f"[{FLEET}] not one launch of each lane form a fleet frame: "
+             f"the headline log ({cfg_path}) {n / single_wall:.2f} scans/s; launches "
+             f"{launches}, packs {packs}; card {card()}")
+    others = {k: v for k, v in launches.items() if k not in launched and v}
+    if any(launches[k] != n for k in launched) or others or any(packs.values()):
+        raise AssertionError(f"[{path}] not one launch of each lane form a fleet frame: "
                              f"{launches}, packs {packs}")
 
     # each lane against its log's run_frames on a fresh pipeline
-    _, batches = runtime.fleet_batches(logs)
     mismatch = []
     for j, lg in enumerate((log, second)):
         _, ref = make().run_frames(lg, batches={k: v[j] for k, v in batches.items()})
@@ -3942,26 +4016,27 @@ def fleet_phase(world, log, packed, mods, ate_rmse, log_mod, deferred):
     ates = [ate_rmse(outs["ego_t_abs"][i], outs["ego_pos"][i], lg.truth_t, lg.truth_pos)
             for i, lg in enumerate(logs)]
     applied = [float(x.mean()) for x in outs["applied"]]
-    log_line(f"[{FLEET}] each lane against its log's run_frames (fresh pipeline, the lane's "
+    log_line(f"[{path}] each lane against its log's run_frames (fresh pipeline, the lane's "
              f"padded batches), every output of every frame bit for bit: mismatches "
-             f"{mismatch[:6]}; ATE per lane {[round(a, 4) for a in ates]} m, applied "
-             f"{[round(a, 3) for a in applied]}, slots_dropped max "
-             f"{int(outs['slots_dropped'].max())}, iterations mean "
+             f"{mismatch[:6]}; ATE per lane {[round(a, 4) for a in ates]} m (gate "
+             f"{ATE_GATE[method]} m), applied {[round(a, 3) for a in applied]}, slots_dropped "
+             f"max {int(outs['slots_dropped'].max())}, iterations mean "
              f"{float(outs['iterations'].mean()):.2f}")
-    if mismatch or not all(a < ATE_GATE["P2P"] for a in ates) or min(applied) < 0.9:
-        raise AssertionError(f"[{FLEET}] the fleet's lanes fail their gates")
+    if mismatch or not all(a < ATE_GATE[method] for a in ates) or min(applied) < 0.9:
+        raise AssertionError(f"[{path}] the fleet's lanes fail their gates")
     if outs["ego_pos"].shape != (FLEET_LANES, n, 3) or states.ekf.P.shape[0] != FLEET_LANES:
-        raise AssertionError(f"[{FLEET}] misshapen fleet outputs")
+        raise AssertionError(f"[{path}] misshapen fleet outputs")
 
-    rows = fleet_rows(pipe, rec, mods, launches)
-    summary = {"lanes": FLEET_LANES, "scans": n, "fleet_scans_per_s": FLEET_LANES * n / wall,
+    rows = fleet_rows(path, row_names, pipe, rec, mods, launches)
+    summary = {"lanes": FLEET_LANES, "scans": n, "configuration": cfg_path,
+               "fleet_scans_per_s": FLEET_LANES * n / wall,
                "single_stream_scans_per_s": n / single_wall, "batch_prep_ms": prep_ms,
                **split, "ate_m": ates,
-               "applied": applied, "launches": {k: launches[k] for k in lane_forms},
+               "applied": applied, "launches": {k: launches[k] for k in launched},
                "ds_points": ds_points, "max_slots": max_slots}
 
     def traced():
-        summary.update(fleet_trace(pipe, logs, runtime, n))
+        summary.update(fleet_trace(path, pipe, logs, runtime, n, launched))
 
     deferred.append(traced)
     return rows, summary
@@ -4251,9 +4326,12 @@ def main():
     rows += r
     slices[LEAD] = long_lead_phase(mods, builder, log_mod)
     fleet_mods = {"kernels": kernels, "runtime": runtime, "tiles": tiles, "icp": icp,
-                  "grid": grid, "struct": struct_mod, "cfg": cfg_mod}
-    r, slices[FLEET] = fleet_phase(world, log, packed, fleet_mods, ate_rmse, log_mod, deferred)
-    rows += r
+                  "grid": grid, "struct": struct_mod, "cfg": cfg_mod, "efilter": efilter}
+    second = headline_log(world, log_mod, FLEET_SEED)
+    for path in FLEET_PATHS:
+        r, slices[path] = fleet_phase(path, log, second, packed, fleet_mods, ate_rmse, deferred)
+        rows += r
+        torch.cuda.empty_cache()
     slices["hash vs tile"] = hash_vs_tile(fused, slices)
     # the profiler passes, after every timed replay
     for r in rows:

@@ -37,6 +37,11 @@
 // Each element keeps kernel I's sequence of IEEE-rounded operations
 // (elm::mul / add / sub, __fdiv_rn, the same libm calls), so W's state
 // record equals I's bit for bit.
+// Lanes: a fleet frame (replay_fused_fleet's vmap, elimaloc_tpu/parallel/
+// sharding.py:256-281) launches one CTA a lane, as kernel S's lane form
+// (pcm_stage.cu), each on its lane's record and its CAN and GPS rows at
+// their lane strides (the fleet's padding rows are invalid and skipped as a
+// stream's own invalid rows are); one lane is the single launch.
 #include "ekf_update.cuh"
 
 using namespace elm;
@@ -358,6 +363,18 @@ __global__ void __launch_bounds__(kThreadsW) can_gps_update_kernel(
     const bool* __restrict__ can_valid, int n_gps, const float* __restrict__ gnss_max,
     const float* __restrict__ gps_t, const float* __restrict__ gps_pos,
     const float* __restrict__ gps_cov, const bool* __restrict__ gps_valid, bool joseph) {
+  // this CTA's lane: its record and its CAN / GPS rows at their lane strides
+  const int l = blockIdx.x;
+  rec_in += l * kRecordWords;
+  rec_out += l * kRecordWords;
+  can_t += (size_t)l * n_can;
+  can_vel += (size_t)l * n_can;
+  can_yaw += (size_t)l * n_can;
+  if (can_valid != nullptr) can_valid += (size_t)l * n_can;
+  gps_t += (size_t)l * n_gps;
+  gps_pos += (size_t)3 * l * n_gps;
+  gps_cov += (size_t)3 * l * n_gps;
+  if (gps_valid != nullptr) gps_valid += (size_t)l * n_gps;
   __shared__ State s;
   __shared__ Params prm;
   __shared__ Upd u;
@@ -415,15 +432,20 @@ __global__ void __launch_bounds__(kThreadsW) can_gps_update_kernel(
 
 }  // namespace
 
+// ``lanes`` frames, one CTA each: the records, can_* [lanes, n_can] and
+// gps_t / gps_valid [lanes, n_gps], gps_pos / gps_cov [lanes, n_gps, 3] at
+// their lane strides; the GNSS source and gnss_max are the fleet's.
 extern "C" int elm_can_gps_update(const void* rec_in, void* rec_out, const float* params,
                                   int n_can, const float* can_t, const float* can_vel,
                                   const float* can_yaw, const bool* can_valid, int n_gps,
                                   int gps_src, const float* gnss_max, const float* gps_t,
                                   const float* gps_pos, const float* gps_cov,
-                                  const bool* gps_valid, int joseph, cudaStream_t stream) {
+                                  const bool* gps_valid, int joseph, int lanes,
+                                  cudaStream_t stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
   const auto kernel =
       n_gps > 0 && gps_src == NOVATEL ? can_gps_update_kernel<6> : can_gps_update_kernel<3>;
-  kernel<<<1, kThreadsW, 0, stream>>>((const int*)rec_in, (int*)rec_out, params, n_can, can_t,
+  kernel<<<lanes, kThreadsW, 0, stream>>>((const int*)rec_in, (int*)rec_out, params, n_can, can_t,
                                       can_vel, can_yaw, can_valid, n_gps, gnss_max, gps_t,
                                       gps_pos, gps_cov, gps_valid, joseph != 0);
   return (int)cudaGetLastError();

@@ -65,6 +65,19 @@
 // The tile geometry comes in as host ints, so a window swap only hands new
 // tensors and ints to the next launch. The result equals the three-launch
 // chain's bit for bit.
+// Lanes: one launch serves a fleet of B registrations (replay_fused_fleet's
+// vmap of run_register, elimaloc_tpu/parallel/sharding.py:256-281), lane l
+// on its own slots (slot_tile [B, S], sbuf [B, S, qb, 3], qmask [B, S, qb])
+// and carry, through gn_loop_lanes (gn_loop.cuh), as the P2P loop's
+// (p2p_register.cu): the grid is min(B x S, co-resident CTAs), the counter
+// hands out (lane, slot) over the lanes still iterating, each lane's LM step
+// (local_cov exported per lane) runs on one CTA; each lane is its single
+// registration, bit for bit. The lane form is an instantiation of its own
+// (kLanes, launched for lanes > 1): on gn_loop_lanes the single loop took
+// 110 registers (2 CTAs an SM, 80 on gn_loop) and ~5% more device time a
+// registration. The launch bound keeps both at 80 registers, 3 CTAs an
+// SM. The radar form stays single-lane (gn_loop): the fleet refuses radar
+// covariances.
 // Bound: as kernel E's per iteration, times the iterations; grid.sync and
 // the serial LM step are latency.
 #include "gicp.cuh"
@@ -90,7 +103,9 @@ __global__ void gicp_search_kernel(
                     mean_out, ok_out, sm, part);
 }
 
-// One slot of kernel E at the staged pose (gn_loop's ``slots``).
+// One slot of kernel E at the staged pose: gn_loop_lanes' ``slots(lane,
+// slot, pose)``, lane ``lane``'s slot block and partial rows at its lane
+// stride; gn_loop's ``slots(slot, pose)`` (one registration) is lane 0.
 template <bool kRadar>
 struct GicpSlots {
   const float* halo;
@@ -100,7 +115,7 @@ struct GicpSlots {
   const int* slot_tile;
   const float* sbuf;
   const bool* qmask;
-  int qb;
+  int s, qb, rows;
   const float* max_dist;
   float voxel, tile_size;
   int tx0, ty0, ty_dim;
@@ -108,15 +123,20 @@ struct GicpSlots {
   float* partials;
   CubeShared* sm;
   float* part;
+  __device__ __forceinline__ void operator()(int lane, int slot, const float* pose) const {
+    const size_t block = (size_t)lane * s * qb;
+    gicp_slot<kRadar>(slot, halo, pcov, pmean, mhp, slot_tile + (size_t)lane * s,
+                      sbuf + 3 * block, qmask + block, qb, pose, max_dist, voxel, tile_size,
+                      tx0, ty0, ty_dim, radar, partials + (size_t)lane * rows * kGnSums,
+                      nullptr, nullptr, nullptr, *sm, part);
+  }
   __device__ __forceinline__ void operator()(int slot, const float* pose) const {
-    gicp_slot<kRadar>(slot, halo, pcov, pmean, mhp, slot_tile, sbuf, qmask, qb, pose,
-                      max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials, nullptr,
-                      nullptr, nullptr, *sm, part);
+    (*this)(0, slot, pose);
   }
 };
 
-template <bool kRadar>
-__global__ void __launch_bounds__(kThreads) gicp_register_kernel(
+template <bool kRadar, bool kLanes>
+__global__ void __launch_bounds__(kThreads, 3) gicp_register_kernel(
     const float* __restrict__ halo, const float* __restrict__ pcov,
     const float* __restrict__ pmean, int mhp, const int* __restrict__ slot_tile,
     const float* __restrict__ sbuf, const bool* __restrict__ qmask, int s, int qb,
@@ -124,15 +144,20 @@ __global__ void __launch_bounds__(kThreads) gicp_register_kernel(
     int ty_dim, const float* __restrict__ radar, const GnLoop loop) {
   __shared__ CubeShared sm;
   extern __shared__ float part[];  // [qb, kGnSums]; the reduction's 256 floats after
-  const GicpSlots<kRadar> slots{halo,      pcov,  pmean, mhp,    slot_tile,     sbuf,
-                                qmask,     qb,    max_dist, voxel, tile_size,   tx0,
-                                ty0,       ty_dim, radar, loop.partials, &sm,   part};
-  gn_loop(loop, s, slots, part);
+  const GicpSlots<kRadar> slots{halo,     pcov,  pmean,     mhp, slot_tile, sbuf,
+                                qmask,    s,     qb,        loop.rows, max_dist, voxel,
+                                tile_size, tx0,  ty0,       ty_dim, radar,    loop.partials,
+                                &sm,      part};
+  if constexpr (kLanes)
+    gn_loop_lanes(loop, s, slots, part);
+  else
+    gn_loop(loop, s, slots, part);
 }
 
-const void* loop_kernel(bool radar) {
-  return radar ? (const void*)gicp_register_kernel<true>
-               : (const void*)gicp_register_kernel<false>;
+const void* loop_kernel(TileLoop form) {
+  return form == kRadarForm  ? (const void*)gicp_register_kernel<true, false>
+         : form == kLaneForm ? (const void*)gicp_register_kernel<false, true>
+                             : (const void*)gicp_register_kernel<false, false>;
 }
 
 }  // namespace
@@ -160,28 +185,38 @@ extern "C" int elm_gicp_search_reduce(
 }
 
 // The co-resident CTAs of the loop kernel on the current device for slot
-// blocks of ``qb`` queries (the radar form with ``radar`` != 0).
-extern "C" int elm_gicp_register_capacity(int qb, int radar, int* ctas) {
-  return tile_loop_capacity(loop_kernel(radar != 0), qb, radar != 0, ctas);
+// blocks of ``qb`` queries: the radar form with ``radar`` != 0, else the
+// lane form with ``lanes`` > 1, else the single registration's.
+extern "C" int elm_gicp_register_capacity(int qb, int radar, int lanes, int* ctas) {
+  const TileLoop form = tile_loop(radar != 0, lanes);
+  return tile_loop_capacity(loop_kernel(form), qb, form, ctas);
 }
 
-// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
-// failed; iterations: int32. Scratch: partials [max(s, 1), 44], sums [44],
-// counters [2]. ``radar`` [s, qb, 3, 3] or null (the radar form).
+// ``lanes`` registrations (1 <= lanes <= kMaxLanes; the radar form takes
+// one), each lane's inputs and outputs at its lane stride: slot_tile
+// [lanes, s], sbuf [lanes, s, qb, 3], qmask [lanes, s, qb], pose [lanes, 4,
+// 4], fitness [lanes], local_cov [lanes, 6, 6], total [lanes]. carry: pose
+// [lanes, 4, 4], local_cov [lanes, 6, 6], fitness [lanes], overlap [lanes];
+// flags: stop [lanes], failed [lanes]; iterations: int32 [lanes]. Scratch:
+// partials [lanes, max(s, 1), 44], sums [lanes, 44], counters [2]. ``radar``
+// [s, qb, 3, 3] or null (the radar form).
 extern "C" int elm_gicp_register(
     const float* halo, const float* pcov, const float* pmean, int mhp, const int* slot_tile,
     const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
     const float* fitness, const float* local_cov, const float* total, const float* max_dist,
     const float* min_overlap_ratio, const float* lm_lambda,
     const float* termination_threshold, int max_iteration, float voxel, float tile_size,
-    int tx0, int ty0, int ty_dim, const float* radar, float* partials, float* sums,
-    int* counters, float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+    int tx0, int ty0, int ty_dim, const float* radar, int lanes, float* partials,
+    float* sums, int* counters, float* carry, bool* flags, int* iterations,
+    cudaStream_t stream) {
+  const bool r = radar != nullptr;
+  if (lanes < 1 || lanes > kMaxLanes || (r && lanes != 1)) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kGnSums, 1, partials, sums,
-                    counters, carry, flags, iterations};
+                    counters, carry, flags, iterations, lanes, s > 1 ? s : 1};
   void* args[] = {&halo, &pcov, &pmean, &mhp, &slot_tile, &sbuf, &qmask, &s, &qb,
                   &max_dist, &voxel, &tile_size, &tx0, &ty0, &ty_dim, &radar,
                   (void*)&loop};
-  const bool r = radar != nullptr;
-  return launch_tile_loop(loop_kernel(r), s, qb, r, args, stream);
+  const TileLoop form = tile_loop(r, lanes);
+  return launch_tile_loop(loop_kernel(form), s * lanes, qb, form, args, stream);
 }

@@ -39,7 +39,8 @@
 // chain's bit for bit. max_iteration == 0 returns the initial carry after 0
 // iterations; S == 0 (one CTA, zero sums) fails the overlap gate after 1.
 //
-// The lane form (gn_loop_lanes, the P2P loop's: a fleet of B registrations,
+// The lane form (gn_loop_lanes, the P2P loop's and the GICP, VGICP and
+// AVGICP loops' lane instantiations: a fleet of B registrations,
 // each against its own slots, in one cooperative launch; replaces the
 // jax.vmap of run_register inside replay_fused_fleet,
 // elimaloc_tpu/parallel/sharding.py:256-281): the carry, the flags and the
@@ -287,11 +288,11 @@ __device__ __forceinline__ void gn_loop_lanes(const elm::GnLoop& a, int n_slots,
 // The most CTAs of ``kernel`` (``threads`` a CTA, ``smem`` bytes of dynamic
 // shared memory, opted into up to ``max_smem``) that the current device
 // holds at once (0 when none fits), or kNoCooperative; cached per device
-// and ``key`` (< 16: one per kernel instantiation and shared-memory size
+// and ``key`` (< 24: one per kernel instantiation and shared-memory size
 // the file launches).
 inline int co_resident(const void* kernel, int threads, int smem, int max_smem, int key,
                        int* ctas) {
-  constexpr int kDevices = 64, kKeys = 16;
+  constexpr int kDevices = 64, kKeys = 24;
   static int cached[kDevices][kKeys];
   static bool known[kDevices][kKeys];
   int dev = 0;
@@ -339,30 +340,40 @@ inline int launch_loop(const void* kernel, int n_slots, int threads, int smem, i
 // the slot's [qb, kGnSums] rows are dynamic shared memory, which the
 // reduction reuses (256 floats: qb >= 8), opted into up to the largest slot
 // block a launch takes (kMaxQb, kernels/__init__.py _qb_of); one
-// co-residency cache key per instantiation (the radar form or not) and qb (a
-// power of two in [8, 256]).
+// co-residency cache key per instantiation (TileLoop) and qb (a power of
+// two in [8, 256]). Each tile loop has three instantiations: the single
+// registration's on gn_loop (the lane form's extra live state would cost it
+// registers), its radar form (single too) and the lane form on
+// gn_loop_lanes.
 constexpr int kMaxQb = 256;
+
+enum TileLoop { kSingle = 0, kRadarForm = 1, kLaneForm = 2 };
+
+// The instantiation a launch of ``lanes`` registrations takes.
+inline TileLoop tile_loop(bool radar, int lanes) {
+  return radar ? kRadarForm : (lanes > 1 ? kLaneForm : kSingle);
+}
 
 inline int rows_smem(int qb) { return qb * elm::kGnSums * (int)sizeof(float); }
 
-inline int qb_key(int qb, bool radar) {
+inline int qb_key(int qb, TileLoop form) {
   int k = 0;
   while ((8 << k) < qb) ++k;
-  return 8 * (int)radar + k;
+  return 8 * (int)form + k;
 }
 
 // The co-resident CTAs of a tile loop kernel for slot blocks of ``qb``.
-inline int tile_loop_capacity(const void* kernel, int qb, bool radar, int* ctas) {
-  return co_resident(kernel, elm::kThreads, rows_smem(qb), rows_smem(kMaxQb), qb_key(qb, radar),
+inline int tile_loop_capacity(const void* kernel, int qb, TileLoop form, int* ctas) {
+  return co_resident(kernel, elm::kThreads, rows_smem(qb), rows_smem(kMaxQb), qb_key(qb, form),
                      ctas);
 }
 
 // One cooperative launch of a tile loop kernel over ``s`` slots of ``qb``.
-inline int launch_tile_loop(const void* kernel, int s, int qb, bool radar, void** args,
+inline int launch_tile_loop(const void* kernel, int s, int qb, TileLoop form, void** args,
                             cudaStream_t stream) {
   if (qb < 8 || qb > kMaxQb) return (int)cudaErrorInvalidValue;
   return launch_loop(kernel, s, elm::kThreads, rows_smem(qb), rows_smem(kMaxQb),
-                     qb_key(qb, radar), args, stream);
+                     qb_key(qb, form), args, stream);
 }
 
 }  // namespace

@@ -48,7 +48,9 @@
 // form is its own instantiation. The shared memory is F's: the staged
 // voxel means and coords (24 KB static) and the slot's [qb, 44] rows
 // (dynamic), which the reduction reuses. The result equals the
-// three-launch chain's bit for bit.
+// three-launch chain's bit for bit. Lanes: as the GICP loop's (gicp.cu),
+// an instantiation of its own on gn_loop_lanes; the radar form stays
+// single-lane.
 // Bound: as kernel F's per iteration, times the iterations; grid.sync and
 // the serial LM step are latency.
 #include "gn_loop.cuh"
@@ -74,7 +76,8 @@ __global__ void vgicp_search_kernel(
                      mean_out, ok_out, sm, part);
 }
 
-// One slot of kernel F at the staged pose (gn_loop's ``slots``).
+// One slot of kernel F at the staged pose, as GicpSlots (gicp.cu): lane
+// ``lane``'s slot block and partial rows; one registration's is lane 0.
 template <bool kRadar>
 struct VgicpSlots {
   const float* vmean;
@@ -84,7 +87,7 @@ struct VgicpSlots {
   const int* slot_tile;
   const float* sbuf;
   const bool* qmask;
-  int qb;
+  int s, qb, rows;
   const float* max_dist;
   float voxel, tile_size;
   int tx0, ty0, ty_dim;
@@ -92,14 +95,19 @@ struct VgicpSlots {
   float* partials;
   CubeShared* sm;
   float* part;
-  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
-    vgicp_slot<kRadar>(slot, vmean, vcov, vcoord, mhv, slot_tile, sbuf, qmask, qb, pose,
-                       max_dist, voxel, tile_size, tx0, ty0, ty_dim, radar, partials,
+  __device__ __forceinline__ void operator()(int lane, int slot, const float* pose) const {
+    const size_t block = (size_t)lane * s * qb;
+    vgicp_slot<kRadar>(slot, vmean, vcov, vcoord, mhv, slot_tile + (size_t)lane * s,
+                       sbuf + 3 * block, qmask + block, qb, pose, max_dist, voxel, tile_size,
+                       tx0, ty0, ty_dim, radar, partials + (size_t)lane * rows * kGnSums,
                        nullptr, nullptr, nullptr, *sm, part);
+  }
+  __device__ __forceinline__ void operator()(int slot, const float* pose) const {
+    (*this)(0, slot, pose);
   }
 };
 
-template <bool kRadar>
+template <bool kRadar, bool kLanes>
 __global__ void __launch_bounds__(kThreads) vgicp_register_kernel(
     const float* __restrict__ vmean, const float* __restrict__ vcov,
     const int* __restrict__ vcoord, int mhv, const int* __restrict__ slot_tile,
@@ -108,15 +116,20 @@ __global__ void __launch_bounds__(kThreads) vgicp_register_kernel(
     int ty_dim, const float* __restrict__ radar, const GnLoop loop) {
   __shared__ CubeShared sm;
   extern __shared__ float part[];  // [qb, kGnSums]; the reduction's 256 floats after
-  const VgicpSlots<kRadar> slots{vmean,     vcov,  vcoord, mhv,    slot_tile,     sbuf,
-                                 qmask,     qb,    max_dist, voxel, tile_size,   tx0,
-                                 ty0,       ty_dim, radar, loop.partials, &sm,   part};
-  gn_loop(loop, s, slots, part);
+  const VgicpSlots<kRadar> slots{vmean,     vcov, vcoord, mhv,       slot_tile, sbuf,
+                                 qmask,     s,    qb,     loop.rows, max_dist,  voxel,
+                                 tile_size, tx0,  ty0,    ty_dim,    radar,     loop.partials,
+                                 &sm,       part};
+  if constexpr (kLanes)
+    gn_loop_lanes(loop, s, slots, part);
+  else
+    gn_loop(loop, s, slots, part);
 }
 
-const void* loop_kernel(bool radar) {
-  return radar ? (const void*)vgicp_register_kernel<true>
-               : (const void*)vgicp_register_kernel<false>;
+const void* loop_kernel(TileLoop form) {
+  return form == kRadarForm  ? (const void*)vgicp_register_kernel<true, false>
+         : form == kLaneForm ? (const void*)vgicp_register_kernel<false, true>
+                             : (const void*)vgicp_register_kernel<false, false>;
 }
 
 }  // namespace
@@ -144,28 +157,33 @@ extern "C" int elm_vgicp_search_reduce(
 }
 
 // The co-resident CTAs of the loop kernel on the current device for slot
-// blocks of ``qb`` queries (the radar form with ``radar`` != 0).
-extern "C" int elm_vgicp_register_capacity(int qb, int radar, int* ctas) {
-  return tile_loop_capacity(loop_kernel(radar != 0), qb, radar != 0, ctas);
+// blocks of ``qb`` queries: the radar form with ``radar`` != 0, else the
+// lane form with ``lanes`` > 1, else the single registration's.
+extern "C" int elm_vgicp_register_capacity(int qb, int radar, int lanes, int* ctas) {
+  const TileLoop form = tile_loop(radar != 0, lanes);
+  return tile_loop_capacity(loop_kernel(form), qb, form, ctas);
 }
 
-// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
-// failed; iterations: int32. Scratch: partials [max(s, 1), 44], sums [44],
-// counters [2]. ``radar`` [s, qb, 3, 3] or null (the radar form).
+// ``lanes`` registrations, as elm_gicp_register (gicp.cu): the inputs, the
+// carry, the flags, the iterations and the scratch at their lane strides;
+// the radar form (``radar`` [s, qb, 3, 3]) takes one lane.
 extern "C" int elm_vgicp_register(
     const float* vmean, const float* vcov, const int* vcoord, int mhv, const int* slot_tile,
     const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
     const float* fitness, const float* local_cov, const float* total, const float* max_dist,
     const float* min_overlap_ratio, const float* lm_lambda,
     const float* termination_threshold, int max_iteration, float voxel, float tile_size,
-    int tx0, int ty0, int ty_dim, const float* radar, float* partials, float* sums,
-    int* counters, float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+    int tx0, int ty0, int ty_dim, const float* radar, int lanes, float* partials,
+    float* sums, int* counters, float* carry, bool* flags, int* iterations,
+    cudaStream_t stream) {
+  const bool r = radar != nullptr;
+  if (lanes < 1 || lanes > kMaxLanes || (r && lanes != 1)) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kGnSums, 0, partials, sums,
-                    counters, carry, flags, iterations};
+                    counters, carry, flags, iterations, lanes, s > 1 ? s : 1};
   void* args[] = {&vmean, &vcov, &vcoord, &mhv, &slot_tile, &sbuf, &qmask, &s, &qb,
                   &max_dist, &voxel, &tile_size, &tx0, &ty0, &ty_dim, &radar,
                   (void*)&loop};
-  const bool r = radar != nullptr;
-  return launch_tile_loop(loop_kernel(r), s, qb, r, args, stream);
+  const TileLoop form = tile_loop(r, lanes);
+  return launch_tile_loop(loop_kernel(form), s * lanes, qb, form, args, stream);
 }

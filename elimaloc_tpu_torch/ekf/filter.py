@@ -38,7 +38,7 @@ from .. import kernels
 from ..config import EkfConfig, GnssSource, GpsType
 from ..ops import lie
 from ..ops.frames import global_to_local_velocity
-from ..struct import select
+from ..struct import lane, select
 from .state import (
     CanMeas,
     EkfParams,
@@ -64,6 +64,7 @@ from .state import (
     S_YAW_RATE,
     S_Z,
     empty_state,
+    stack_states,
 )
 
 _D2R = math.pi / 180.0
@@ -730,13 +731,31 @@ def update_chain_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,
     return state
 
 
+def update_chain_lanes_plain(state: EkfState, params: EkfParams, flags: EkfFlags, *,
+                             can=None, gps=None, gnss_uncertainty_max=None):
+    """Plain lane form of kernel W: :func:`update_chain_plain` on each lane of
+    a fleet frame (the state with a lane axis, P [B, 27, 27]; each given
+    sub-batch's rows [B, n], its ``valid`` [B, n] masking the fleet's
+    padding as a stream's own invalid rows), stacked."""
+    def rows(xs, i):
+        return None if xs is None else tuple(None if x is None else x[i] for x in xs)
+
+    return stack_states([update_chain_plain(lane(state, i), params, flags, can=rows(can, i),
+                                            gps=rows(gps, i),
+                                            gnss_uncertainty_max=gnss_uncertainty_max)
+                         for i in range(state.P.shape[0])])
+
+
 def update_chain(state: EkfState, params: EkfParams, flags: EkfFlags, **kw):
     """:func:`update_chain_plain` for CPU tensors; for CUDA ones kernel W
     (``kernels.can_gps_update``), or kernel I (``kernels.ekf_update``, W's
     reference) when a PCM pose is given: the pipeline's PCM update runs in
-    kernel S (``pipeline.runtime.pcm_stage``)."""
+    kernel S (``pipeline.runtime.pcm_stage``). A fleet state (P [B, 27,
+    27]) with [B, n] CAN / GPS rows goes to W's lane form, or on CPU
+    tensors to :func:`update_chain_lanes_plain`."""
     if state.P.device.type == "cpu":
-        return update_chain_plain(state, params, flags, **kw)
+        plain = update_chain_lanes_plain if state.P.dim() == 3 else update_chain_plain
+        return plain(state, params, flags, **kw)
     if kw.get("gps") is not None:
         kw["gps_source"] = GPS_SOURCE[flags.gps_type]
     pcm = kw.pop("pcm", None)

@@ -812,16 +812,17 @@ def ekf_update(state, params, flags, *, can=None, gps=None, gps_source=None,
 _gnss_max = [None, None]
 
 
-def _sub_batch(xs, names, vec):
+def _sub_batch(xs, names, vec, lead=()):
     """The pointers of a CAN or GPS sub-batch (t, a, b, valid): valid None
     (every sample valid) goes in as a null pointer; ``vec`` names the
-    fields of three floats a sample."""
-    n = xs[0].shape[0]
-    ptrs = [_check(x, name, _F32, (n, 3) if name in vec else (n,))
+    fields of three floats a sample; ``lead`` the lane axis of a fleet's
+    ([B, n] rows)."""
+    n = xs[0].shape[len(lead)]
+    ptrs = [_check(x, name, _F32, lead + ((n, 3) if name in vec else (n,)))
             for x, name in zip(xs[:3], names)]
     valid = xs[3]
     ptrs.append(ctypes.c_void_p(None) if valid is None
-                else _check(valid, names[3], _BOOL, (n,)))
+                else _check(valid, names[3], _BOOL, lead + (n,)))
     return [ctypes.c_int(n)] + ptrs
 
 
@@ -832,11 +833,16 @@ def can_gps_update(state, params, flags, *, can=None, gps=None, gps_source=None,
     ``gps = (t, pos, cov_diag, valid)`` (as GNSS source ``gps_source``,
     gated by ``gnss_uncertainty_max``), in one launch, each update in the
     Joseph form with ``flags.joseph_form``; a ``valid`` of None means every
-    sample is valid. Kernel I's CAN and GPS legs, bit for bit."""
+    sample is valid. Kernel I's CAN and GPS legs, bit for bit. The lane
+    form: a fleet state (P [B, 27, 27]) and each sub-batch's rows [B, n]
+    (``valid`` given), one CTA a lane in the one launch; the GNSS source
+    and the gate are the fleet's."""
+    first = can if can is not None else gps
+    lanes, lead = (None, ()) if first is None else _lanes(first[0], 1)
     null = ctypes.c_void_p(None)
     can_args = [ctypes.c_int(0), null, null, null, null]
     if can is not None:
-        can_args = _sub_batch(can, ("can_t", "can_vel", "can_yaw", "can_valid"), ())
+        can_args = _sub_batch(can, ("can_t", "can_vel", "can_yaw", "can_valid"), (), lead)
     gps_args = [ctypes.c_int(0), ctypes.c_int(0), null, null, null, null, null]
     if gps is not None:
         if gps_source is None or gps_source == _PCM:
@@ -846,13 +852,13 @@ def can_gps_update(state, params, flags, *, can=None, gps=None, gps_source=None,
             _gnss_max[:] = [gnss_uncertainty_max, _check(
                 gnss_uncertainty_max, "gnss_uncertainty_max", _F32, ())]
         n, *ptrs = _sub_batch(gps, ("gps_t", "gps_pos", "gps_cov", "gps_valid"),
-                              ("gps_pos", "gps_cov"))
+                              ("gps_pos", "gps_cov"), lead)
         gps_args = [n, ctypes.c_int(gps_source), _gnss_max[1], *ptrs]
-    (p_state, state), (p_params, params) = _state_in(state), _params(params)
-    out, out_ptr = _state_out(params.init_pos.device)
+    (p_state, state), (p_params, params) = _state_in(state, lanes), _params(params)
+    out, out_ptr = _state_out(params.init_pos.device, lanes)
     rc = library().elm_can_gps_update(p_state, out_ptr, p_params, *can_args, *gps_args,
                                       ctypes.c_int(int(flags.joseph_form)),
-                                      _stream(params.init_pos))
+                                      ctypes.c_int(lanes or 1), _stream(params.init_pos))
     _raise_on(rc, "can_gps_update")
     launches["can_gps_update"] += 1
     return ekf_state.RecordState(out)
@@ -1205,45 +1211,55 @@ def p2p_register(halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, 
     return _gn_loop("p2p_register", "elm_p2p_register", args, s, P2P_SUMS, sbuf, lanes)
 
 
-def _loop_capacity(name, qb: int, radar: bool) -> int:
+def _loop_capacity(name, qb: int, radar: bool, lanes: int) -> int:
     ctas = ctypes.c_int(0)
     _raise_on(getattr(library(), f"elm_{name}_capacity")(
-        ctypes.c_int(qb), ctypes.c_int(int(radar)), ctypes.byref(ctas)), name)
+        ctypes.c_int(qb), ctypes.c_int(int(radar)), ctypes.c_int(lanes), ctypes.byref(ctas)),
+        name)
     return ctas.value
 
 
-def gicp_register_capacity(qb: int, radar: bool = False) -> int:
-    """The CTAs of the GICP loop kernel (its radar form with ``radar``) that
-    the current card holds at once with slot blocks of ``qb`` queries (its
-    grid is the smaller of this and the slot count)."""
-    return _loop_capacity("gicp_register", qb, radar)
+def gicp_register_capacity(qb: int, radar: bool = False, lanes: int = 1) -> int:
+    """The CTAs of the GICP loop kernel (its radar form with ``radar``, its
+    lane form with ``lanes`` > 1) that the current card holds at once with
+    slot blocks of ``qb`` queries (its grid is the smaller of this and the
+    slot count, over every lane)."""
+    return _loop_capacity("gicp_register", qb, radar, lanes)
 
 
-def vgicp_register_capacity(qb: int, radar: bool = False) -> int:
-    """The CTAs of the VGICP loop kernel (its radar form with ``radar``),
-    as :func:`gicp_register_capacity`."""
-    return _loop_capacity("vgicp_register", qb, radar)
+def vgicp_register_capacity(qb: int, radar: bool = False, lanes: int = 1) -> int:
+    """The CTAs of the VGICP loop kernel (its radar or lane form), as
+    :func:`gicp_register_capacity`."""
+    return _loop_capacity("vgicp_register", qb, radar, lanes)
 
 
-def avgicp_register_capacity(qb: int, radar: bool = False) -> int:
-    """The CTAs of the AVGICP loop kernel (its radar form with ``radar``),
-    as :func:`gicp_register_capacity`."""
-    return _loop_capacity("avgicp_register", qb, radar)
+def avgicp_register_capacity(qb: int, radar: bool = False, lanes: int = 1) -> int:
+    """The CTAs of the AVGICP loop kernel (its radar or lane form), as
+    :func:`gicp_register_capacity`."""
+    return _loop_capacity("avgicp_register", qb, radar, lanes)
 
 
 def _cov_loop(name, rows, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
               max_iteration, geometry, radar):
     """One launch of the tile loop of kernel E, F or G (``rows`` as
     :func:`_cov_search`'s, ``geometry`` the tile geometry the search
-    takes)."""
-    s, qb = _qb_of(qmask, name)
+    takes). The lane form, as :func:`p2p_register`'s: ``slot_tile``
+    [B, S], ``sbuf`` [B, S, QB, 3], ``qmask`` [B, S, QB] and the carry
+    with a lane axis, no ``radar`` (its form is single-lane)."""
+    lanes, lead = _lanes(sbuf, 3)
+    if lanes is not None and lanes > MAX_LANES:
+        raise ValueError(f"{name}: at most {MAX_LANES} lanes a launch, got {lanes}")
+    if lanes is not None and radar is not None:
+        raise ValueError(f"{name}: the radar form takes one registration a launch")
+    s, qb = _qb_of(qmask[0] if lanes else qmask, name)
     args = _halo_rows(name, rows) + [
-        _check(slot_tile, "slot_tile", torch.int32, (s,)),
-        _check(sbuf, "sbuf", _F32, (s, qb, 3)),
-        _check(qmask, "qmask", torch.bool, (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
-        *_carry_in(pose, fitness, local_cov, total, params, max_iteration), *geometry,
-        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3))]
-    return _gn_loop(name, f"elm_{name}", args, s, GN_SUMS, sbuf)
+        _check(slot_tile, "slot_tile", torch.int32, lead + (s,)),
+        _check(sbuf, "sbuf", _F32, lead + (s, qb, 3)),
+        _check(qmask, "qmask", torch.bool, lead + (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
+        *_carry_in(pose, fitness, local_cov, total, params, max_iteration, lead), *geometry,
+        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3)),
+        ctypes.c_int(lanes or 1)]
+    return _gn_loop(name, f"elm_{name}", args, s, GN_SUMS, sbuf, lanes)
 
 
 def gicp_register(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile, sbuf, qmask,
@@ -1255,7 +1271,9 @@ def gicp_register(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile, s
     ``fitness``, ``local_cov`` [6,6]) for at most ``max_iteration``
     iterations, in one cooperative launch; nothing is read back. Returns
     (pose [4,4], local_cov [6,6] = (JTJ + lambda diag)^-1, fitness,
-    overlap, failed, iterations int32)."""
+    overlap, failed, iterations int32). The lane form, as
+    :func:`p2p_register`'s (no ``radar``): B registrations in the one
+    launch, local_cov exported per lane."""
     return _cov_loop(
         "gicp_register",
         [("halo_points", halo_points, _F32, (3,)),

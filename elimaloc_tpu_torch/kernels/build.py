@@ -55,7 +55,7 @@ _SIGNATURES = {
     "elm_radar_cov": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "elm_radar_rows": [_P, _I, _P, _P, _I, _P, _PP, _P, _P],
     "elm_can_gps_update": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
-                           _P],
+                           _I, _P],
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
     "elm_scan_ring_query": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P],
@@ -69,14 +69,14 @@ _SIGNATURES = {
                          _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_p2p_register_capacity": [ctypes.POINTER(_I)],
     "elm_avgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
-    "elm_avgicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+                            _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "elm_avgicp_register_capacity": [_I, _I, _I, ctypes.POINTER(_I)],
     "elm_gicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "elm_gicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+                          _P, _I, _F, _F, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "elm_gicp_register_capacity": [_I, _I, _I, ctypes.POINTER(_I)],
     "elm_vgicp_register": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "elm_vgicp_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+                           _P, _I, _F, _F, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "elm_vgicp_register_capacity": [_I, _I, _I, ctypes.POINTER(_I)],
     "elm_hash_register": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                           _P, _P],

@@ -39,9 +39,10 @@ mode): the logs' batches padded to the fleet's capacities and stacked on a
 lane axis (:func:`fleet_batches`, ``parallel.stack_streams``), then
 ``parallel.replay_fused_fleet``: :func:`fused_frame` with a lane axis, one
 call of each stage serving every lane (on the card one launch each of the
-lane forms of kernels H, C, B, S and the P2P loop, T's two launches once
-each). It runs P2P on the tile backend with the IMU chain; GICP, VGICP,
-AVGICP, the hash backend, CAN or GPS fusion, the radar covariances and
+lane forms of kernels H, C, B, S, W with CAN or GPS fusion, and the
+method's loop kernel, T's two launches once each). It runs P2P, GICP,
+VGICP and AVGICP on the tile backend with the IMU chain, with or without
+CAN and GPS fusion; the hash backend, the radar covariances and
 ``use_imu=False`` are refused with NotImplementedError, naming ROADMAP
 Queue 1 "Fleet", as the live dashboard is ("Host modules and utilities").
 """
@@ -195,6 +196,10 @@ def shape_icp_covariance(rot_ego, local_cov, fitness):
         min2 = torch.clamp(torch.min(torch.diagonal(cov2)), min=1e-9)
         return torch.clamp(cov2 / min2, max=5.0)
 
+    # row-major first: CPU matmul rounds a column-major block (a CPU
+    # inverse's) differently, and a fleet lane's block (a view of the
+    # stacked [B, 6, 6]) must round as its single stream's does
+    local_cov = local_cov.contiguous()
     t_cov = rot_ego @ local_cov[:3, :3] @ rot_ego.T
     r_cov = local_cov[3:, 3:]
     # row-major, as kernel I reads them (an inverse on the card may come
@@ -1620,14 +1625,13 @@ class LocalizationPipeline:
         ps, st = self.static, self.static.icp_static
         unported = [name for name, on in (
             ("the hash backend", st.backend != "tile"),
-            (f"{IcpMethod(st.method).name} registration", st.method != int(IcpMethod.P2P)),
-            ("CAN / GPS fusion", ps.use_can or ps.use_gps),
             ("radar covariances", st.use_radar_cov),
             ("use_imu=False", not ps.use_imu)) if on]
         if unported:
             raise NotImplementedError(
                 f"run_fused_fleet: the lane forms for {', '.join(unported)} are in ROADMAP "
-                'Queue 1, "Fleet" (ported: P2P on the tile backend with the IMU chain)')
+                'Queue 1, "Fleet" (ported: P2P, GICP, VGICP and AVGICP on the tile backend '
+                "with the IMU chain, with or without CAN and GPS fusion)")
 
     def run_fused_fleet(self, logs, states=None, mark=_no_mark):
         """Multi-stream fused replay (runtime.py:1590-1649): ``B`` independent
@@ -1641,8 +1645,10 @@ class LocalizationPipeline:
         ``(states, outs)`` with a leading lane axis on every field, ``outs``
         as NumPy arrays [B, F, ...] plus ``ego_t_abs`` on each lane's own
         time base; each lane's trajectory is its log's :meth:`run_fused`.
-        ``time_base`` is None afterwards (the bases are per lane). P2P on
-        the tile backend only (:meth:`_refuse_fleet`)."""
+        ``time_base`` is None afterwards (the bases are per lane). P2P, GICP,
+        VGICP and AVGICP on the tile backend, with or without CAN and GPS
+        fusion; the hash backend, radar covariances and ``use_imu=False``
+        are refused (:meth:`_refuse_fleet`)."""
         from ..parallel import replay_fused_fleet
 
         if self.windowed:

@@ -644,18 +644,26 @@ def p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, t
                                 max_iteration, None)
 
 
+def _register_lanes_plain(single, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                          total, params, budget, max_iteration):
+    """A loop kernel's plain lane form: its plain version ``single`` on each
+    lane (every input with a leading lane axis but the map and the params),
+    the outputs stacked. Each lane iterates until its own gates release and
+    keeps its carry and its count: JAX's vmapped while_loop (masked per
+    lane) gives every lane the result of its own run."""
+    per_lane = (slot_tile, sbuf, qmask, pose, fitness, local_cov, total)
+    outs = [single(tmap, *(x[i] for x in per_lane), params, budget, max_iteration)
+            for i in range(sbuf.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def p2p_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                              params: IcpParams, budget: maptiles.TileQueryBudget,
                              max_iteration: int):
     """Plain lane form of the P2P loop kernel: :func:`p2p_register_plain` on
-    each lane (every input with a leading lane axis but the map and the
-    params), the outputs stacked. Each lane iterates until its own gates
-    release and keeps its carry and its count: JAX's vmapped while_loop
-    (masked per lane) gives every lane the result of its own run."""
-    per_lane = (slot_tile, sbuf, qmask, pose, fitness, local_cov, total)
-    outs = [p2p_register_plain(tmap, *(x[i] for x in per_lane), params, budget, max_iteration)
-            for i in range(sbuf.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    each lane, the outputs stacked (:func:`_register_lanes_plain`)."""
+    return _register_lanes_plain(p2p_register_plain, tmap, slot_tile, sbuf, qmask, pose,
+                                 fitness, local_cov, total, params, budget, max_iteration)
 
 
 def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -713,15 +721,50 @@ def vgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
                                 max_iteration, radar)
 
 
+def gicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                              params: IcpParams, budget: maptiles.TileQueryBudget,
+                              max_iteration: int):
+    """Plain lane form of the GICP loop kernel: :func:`gicp_register_plain`
+    on each lane (no radar), the outputs stacked, local_cov per lane."""
+    return _register_lanes_plain(gicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
+                                 fitness, local_cov, total, params, budget, max_iteration)
+
+
+def vgicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                               params: IcpParams, budget: maptiles.TileQueryBudget,
+                               max_iteration: int):
+    """Plain lane form of the VGICP loop kernel: :func:`vgicp_register_plain`
+    on each lane (no radar), the outputs stacked."""
+    return _register_lanes_plain(vgicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
+                                 fitness, local_cov, total, params, budget, max_iteration)
+
+
+def _cov_register_plain(single, lanes_plain, tmap, slot_tile, sbuf, qmask, pose, fitness,
+                        local_cov, total, params, budget, max_iteration, radar):
+    """A covariance method's loop on CPU tensors: its plain version, or with
+    a lane axis on the slots (a fleet frame: ``sbuf`` [B, S, QB, 3]) its
+    plain lane form, which takes no radar."""
+    if sbuf.dim() == 4:
+        if radar is not None:
+            raise ValueError("the radar form takes one registration a call")
+        return lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                           params, budget, max_iteration)
+    return single(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+                  budget, max_iteration, radar)
+
+
 def gicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                   params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
                   radar=None):
     """The GICP registration loop on the tile backend:
     :func:`gicp_register_plain` for CPU tensors, one launch of the loop
-    kernel for CUDA ones."""
+    kernel for CUDA ones. With a leading lane axis on the slots and the
+    carry (a fleet frame): the loop kernel's lane form, or
+    :func:`gicp_register_lanes_plain`."""
     if not _on_card(sbuf):
-        return gicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                                   total, params, budget, max_iteration, radar)
+        return _cov_register_plain(gicp_register_plain, gicp_register_lanes_plain, tmap,
+                                   slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                                   params, budget, max_iteration, radar)
     return kernels.gicp_register(
         tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, slot_tile, sbuf,
         qmask, pose, fitness, local_cov, total, params, max_iteration, radar=radar,
@@ -733,10 +776,11 @@ def vgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total
                    radar=None):
     """The VGICP registration loop on the tile backend:
     :func:`vgicp_register_plain` for CPU tensors, one launch of the loop
-    kernel for CUDA ones."""
+    kernel for CUDA ones; a fleet frame's as :func:`gicp_register`."""
     if not _on_card(sbuf):
-        return vgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                                    total, params, budget, max_iteration, radar)
+        return _cov_register_plain(vgicp_register_plain, vgicp_register_lanes_plain, tmap,
+                                   slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                                   params, budget, max_iteration, radar)
     return kernels.vgicp_register(
         tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, slot_tile, sbuf, qmask,
         pose, fitness, local_cov, total, params, max_iteration, radar=radar,
@@ -756,16 +800,26 @@ def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov
                                 max_iteration, radar)
 
 
+def avgicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
+                                total, params: IcpParams, budget: maptiles.TileQueryBudget,
+                                max_iteration: int):
+    """Plain lane form of the AVGICP loop kernel: :func:`avgicp_register_plain`
+    on each lane (no radar), the outputs stacked."""
+    return _register_lanes_plain(avgicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
+                                 fitness, local_cov, total, params, budget, max_iteration)
+
+
 def avgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                     params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
                     radar=None):
     """The AVGICP registration loop on the tile backend:
     :func:`avgicp_register_plain` for CPU tensors, one launch of the loop
     kernel for CUDA ones (its gate runs in world coordinates: no window
-    anchor)."""
+    anchor); a fleet frame's as :func:`gicp_register`."""
     if not _on_card(sbuf):
-        return avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                                     total, params, budget, max_iteration, radar)
+        return _cov_register_plain(avgicp_register_plain, avgicp_register_lanes_plain, tmap,
+                                   slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
+                                   params, budget, max_iteration, radar)
     return kernels.avgicp_register(
         tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, slot_tile, sbuf, qmask,
         pose, fitness, local_cov, total, params, max_iteration, voxel_size=tmap.voxel_size,
@@ -857,9 +911,11 @@ def radar_points(src_local, pose, params: IcpParams):
     return radar_slots(src_local, None, None, pose, params)
 
 
-#: the tile backend's registration loop of each covariance method
-_TILE_LOOPS = {int(IcpMethod.GICP): gicp_register, int(IcpMethod.VGICP): vgicp_register,
-               int(IcpMethod.AVGICP): avgicp_register}
+def _tile_loop(method: int):
+    """The tile backend's registration loop of ``method``, looked up in this
+    module at each call (a wrapper set on the module is the one called)."""
+    return {int(IcpMethod.P2P): p2p_register, int(IcpMethod.GICP): gicp_register,
+            int(IcpMethod.VGICP): vgicp_register, int(IcpMethod.AVGICP): avgicp_register}[method]
 
 
 # --------------------------------------------------------------------------- #
@@ -919,7 +975,7 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
         loop = p2p_register(tmap, asg.slot_tile, sbuf, asg.qmask, *carry, static.tile_budget,
                             static.max_iteration)
     else:
-        loop = _TILE_LOOPS[static.method](tmap, asg.slot_tile, sbuf, asg.qmask, *carry,
+        loop = _tile_loop(static.method)(tmap, asg.slot_tile, sbuf, asg.qmask, *carry,
                                           static.tile_budget, static.max_iteration, radar)
     pose, local_cov, fitness, overlap, failed, iterations = loop
     if mark is not None:
@@ -944,16 +1000,20 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
     """A fleet frame's registrations (JAX's vmap of run_register inside
     replay_fused_fleet, parallel/sharding.py:256-281): B scans [B, N, 3]
     (masks [B, N]) from B global initial poses [B, 4, 4] against the one
-    tile map, P2P. The set-up (the origin shift, the query transform, kernel
-    B's lane form, the clamp and the gather of the slot blocks) and the
-    pose / success tail run batched over the lanes, the GN loops as one
-    launch of the loop kernel's lane form (:func:`p2p_register`); every
-    field of the result has a leading lane axis. Other methods and the hash
-    backend are refused, naming ROADMAP Queue 1 "Fleet"."""
-    if static.backend != "tile" or static.method != int(IcpMethod.P2P):
+    tile map, by P2P, GICP, VGICP or AVGICP. The set-up (the origin shift,
+    the query transform, kernel B's lane form, the clamp and the gather of
+    the slot blocks) and the pose / success tail run batched over the
+    lanes, the GN loops as one launch of the method's loop kernel's lane
+    form (:func:`p2p_register`, :func:`gicp_register`,
+    :func:`vgicp_register`, :func:`avgicp_register`); every field of the
+    result has a leading lane axis (GICP's local_cov per lane). The hash
+    backend and the radar covariances are refused, naming ROADMAP Queue 1
+    "Fleet"."""
+    use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
+    if static.backend != "tile" or use_radar:
         raise NotImplementedError(
-            "fleet registration runs P2P on the tile backend: the other methods' and the "
-            'hash backend\'s lane forms are in ROADMAP Queue 1, "Fleet"')
+            "fleet registration runs on the tile backend without radar covariances: the "
+            'hash backend\'s and the radar forms\' lane forms are in ROADMAP Queue 1, "Fleet"')
     dtype = src_local.dtype
     dev = src_local.device
     lanes, n = src_local.shape[:2]
@@ -972,7 +1032,7 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
 
     fitness = torch.zeros(lanes, dtype=dtype, device=dev)
     local_cov = torch.eye(6, dtype=dtype, device=dev).repeat(lanes, 1, 1)
-    pose, local_cov, fitness, overlap, failed, iterations = p2p_register(
+    pose, local_cov, fitness, overlap, failed, iterations = _tile_loop(static.method)(
         tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, params,
         static.tile_budget, static.max_iteration)
     if mark is not None:

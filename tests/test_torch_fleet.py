@@ -18,8 +18,10 @@ of the same world, 2 s each.
   one lane holding no valid point (its registration fails the overlap gate
   after one iteration, before the others stop).
 * The ValueErrors of JAX's run_fused_fleet, ``states=`` passed in, and the
-  configurations whose lane forms are not ported refused with
-  NotImplementedError naming ROADMAP Queue 1 "Fleet".
+  configurations whose lane forms are not ported (the hash backend, radar
+  covariances, ``use_imu=False``) refused with NotImplementedError naming
+  ROADMAP Queue 1 "Fleet". (GICP, VGICP, AVGICP and CAN + GPS fusion:
+  tests/test_torch_fleet_methods.py, tests/test_torch_fleet_fusion.py.)
 * ``cuda``-marked (skipped without a card): each kernel's lane form against
   its plain lane form and bit for bit against single-lane launches. This
   module imports JAX only inside its JAX fixture, so those cases also run
@@ -251,29 +253,28 @@ def test_fleet_splits_a_frame_past_one_launch(world_logs, pipe64, monkeypatch):
 
 
 def _refused_cfg(change):
+    """The configuration of a refusal case: "radar" is P2P with radar
+    covariances (refused for every method), "X+radar" method X with them,
+    "hash X" method X on the hash backend, "hash AVGICP+GPS" with GPS."""
     cfg = tiny_cfg(tconfig)
-    if change in ("GICP", "VGICP", "AVGICP"):
-        cfg.pcm.icp_method = tconfig.IcpMethod[change]
-    elif change == "can":
-        cfg.ekf.use_can = True
-    elif change == "gps":
-        cfg.ekf.use_gps = True
-    elif change == "radar":
-        cfg.pcm.icp_method = tconfig.IcpMethod.GICP
-        cfg.pcm.use_radar_cov = True
-    elif change == "tick_mode":
-        cfg.ekf.use_imu = False
+    method = change.split()[-1].split("+")[0]
+    if method in ("GICP", "VGICP", "AVGICP"):
+        cfg.pcm.icp_method = tconfig.IcpMethod[method]
+    cfg.pcm.use_radar_cov = change.endswith("radar")
+    cfg.ekf.use_gps = change.endswith("+GPS")
+    cfg.ekf.use_imu = change != "tick_mode"
     return cfg
 
 
-@pytest.mark.parametrize("change", ["GICP", "VGICP", "AVGICP", "hash", "can", "gps", "radar",
-                                    "tick_mode"])
+@pytest.mark.parametrize("change", ["hash", "radar", "tick_mode", "GICP+radar", "VGICP+radar",
+                                    "AVGICP+radar", "hash GICP", "hash AVGICP+GPS"])
 def test_fleet_refuses_unported_configurations(world_logs, change):
-    """A P2P pipeline (the hash one built so) hot-reloaded into each
+    """A P2P pipeline (the hash ones built so) hot-reloaded into each
     configuration whose lane forms are not ported: its fleet replay is
     refused before any frame runs."""
     world, logs = world_logs
-    kw = {"backend": "hash"} if change == "hash" else {"halo_margin": 2}
+    hashed = change.startswith("hash")
+    kw = {"backend": "hash"} if hashed else {"halo_margin": 2}
     pipe = TPipeline(tiny_cfg(tconfig), world[:3000], device="cpu", **KW, **kw)
     if change != "hash":
         pipe.reload_config(_refused_cfg(change))

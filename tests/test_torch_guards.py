@@ -136,9 +136,11 @@ def test_pipeline_refuses_unported(both_worlds, change):
     cfg = tiny_cfg(tconfig)
     kw = {}
     if change == "fleet":
-        # fleet replay runs P2P on the tile backend (tests/test_torch_fleet.py);
-        # a GICP pipeline's fleet is refused
+        # fleet replay runs every method on the tile backend without radar
+        # covariances (tests/test_torch_fleet*.py); a GICP + radar
+        # pipeline's fleet is refused
         cfg.pcm.icp_method = tconfig.IcpMethod.GICP
+        cfg.pcm.use_radar_cov = True
     if change == "hash":
         # a hash-backend pipeline builds (the test below); its fleet replay
         # is refused
