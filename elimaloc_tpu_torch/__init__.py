@@ -9,14 +9,18 @@ driven three ways (the event loop ``run``, the online frame loop
 ``run_frames``, the whole-log ``run_fused``), on a full map or an active
 window of a disk-backed one (``map_window_radius``), with relocalization
 (``initialize_at``), config hot reload and the geodetic projection, and
-fleet replay (``run_fused_fleet``: B logs in one frame loop, each kernel of
-the tile P2P frame launched once for all lanes).
+fleet replay (``run_fused_fleet``: B logs in one frame loop, every method
+on either backend, with or without radar covariances and CAN + GPS, with
+or without the IMU chain; each kernel of the frame launched once for all
+lanes).
 
 The hot ops the JAX package laid out by hand for the TPU run as
-hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): A, E, F, G
-(one search + Gauss-Newton kernel per ICP method; A with M as one
-cooperative loop kernel for P2P on tiles), B (slot assignment), C (voxel
-downsample), D (deskew), H (the frame's IMU stage), I (the CAN and GPS
+hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): the loop
+kernels (one cooperative launch a registration, or a fleet frame's
+registrations: A, E, F, G, the tile search + Gauss-Newton kernel of each
+ICP method, or Q on the hash grid, with M's step, every GN iteration; A,
+E, F, G, Q and M alone are only the loops' references), B (slot
+assignment), C (voxel downsample), D (deskew), H (the frame's IMU stage), I (the CAN and GPS
 updates), J (the ring pushes), K (the ring queries at a scan's times), L
 (the PCM measurement), M (the GN step), N (the window shift), O (the CA
 tick), P (the radar covariances), Q (the hash grid's search and queries),
@@ -25,10 +29,11 @@ update and the frame's published outputs in one launch), T (the scan's
 front: the range gate, the scan times, K's ring queries and D's deskew in
 one host call), U (the tick mode's CA tick: O's body and J's ego push in
 one launch), V (the tick mode's IMU-only intake in one launch), W (the
-CAN and GPS updates, I redesigned: I stays as its reference) and X (the
-radar covariances, P redesigned: P stays as its reference). On CPU tensors
-their plain PyTorch versions run instead. ``LocalizationPipeline`` runs on
-the card unless given ``device="cpu"``.
+CAN and GPS updates, I redesigned: I stays as its reference), X (the
+radar covariances, P redesigned: P stays as its reference), Y (the hash
+grid's four queries, Q's query entry redesigned) and Z (the ground probe,
+R redesigned). On CPU tensors their plain PyTorch versions run instead.
+``LocalizationPipeline`` runs on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

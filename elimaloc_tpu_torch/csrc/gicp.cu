@@ -76,8 +76,10 @@
 // (kLanes, launched for lanes > 1): on gn_loop_lanes the single loop took
 // 110 registers (2 CTAs an SM, 80 on gn_loop) and ~5% more device time a
 // registration. The launch bound keeps both at 80 registers, 3 CTAs an
-// SM. The radar form stays single-lane (gn_loop): the fleet refuses radar
-// covariances.
+// SM. The radar form has its lane form too (kRadarLaneForm: radar
+// [B, S, qb, 3, 3] at the lane stride, a lane's rows where its slots are).
+// A fleet frame of more than kMaxLanes lanes is launched in parts by the
+// wrapper.
 // Bound: as kernel E's per iteration, times the iterations; grid.sync and
 // the serial LM step are latency.
 #include "gicp.cuh"
@@ -127,7 +129,8 @@ struct GicpSlots {
     const size_t block = (size_t)lane * s * qb;
     gicp_slot<kRadar>(slot, halo, pcov, pmean, mhp, slot_tile + (size_t)lane * s,
                       sbuf + 3 * block, qmask + block, qb, pose, max_dist, voxel, tile_size,
-                      tx0, ty0, ty_dim, radar, partials + (size_t)lane * rows * kGnSums,
+                      tx0, ty0, ty_dim, kRadar ? radar + 9 * block : radar,
+                      partials + (size_t)lane * rows * kGnSums,
                       nullptr, nullptr, nullptr, *sm, part);
   }
   __device__ __forceinline__ void operator()(int slot, const float* pose) const {
@@ -155,9 +158,16 @@ __global__ void __launch_bounds__(kThreads, 3) gicp_register_kernel(
 }
 
 const void* loop_kernel(TileLoop form) {
-  return form == kRadarForm  ? (const void*)gicp_register_kernel<true, false>
-         : form == kLaneForm ? (const void*)gicp_register_kernel<false, true>
-                             : (const void*)gicp_register_kernel<false, false>;
+  switch (form) {
+    case kRadarForm:
+      return (const void*)gicp_register_kernel<true, false>;
+    case kLaneForm:
+      return (const void*)gicp_register_kernel<false, true>;
+    case kRadarLaneForm:
+      return (const void*)gicp_register_kernel<true, true>;
+    default:
+      return (const void*)gicp_register_kernel<false, false>;
+  }
 }
 
 }  // namespace
@@ -185,21 +195,20 @@ extern "C" int elm_gicp_search_reduce(
 }
 
 // The co-resident CTAs of the loop kernel on the current device for slot
-// blocks of ``qb`` queries: the radar form with ``radar`` != 0, else the
-// lane form with ``lanes`` > 1, else the single registration's.
+// blocks of ``qb`` queries: the radar form with ``radar`` != 0, the lane
+// form of either with ``lanes`` > 1.
 extern "C" int elm_gicp_register_capacity(int qb, int radar, int lanes, int* ctas) {
   const TileLoop form = tile_loop(radar != 0, lanes);
   return tile_loop_capacity(loop_kernel(form), qb, form, ctas);
 }
 
-// ``lanes`` registrations (1 <= lanes <= kMaxLanes; the radar form takes
-// one), each lane's inputs and outputs at its lane stride: slot_tile
+// ``lanes`` registrations (1 <= lanes <= kMaxLanes), each lane's inputs and outputs at its lane stride: slot_tile
 // [lanes, s], sbuf [lanes, s, qb, 3], qmask [lanes, s, qb], pose [lanes, 4,
 // 4], fitness [lanes], local_cov [lanes, 6, 6], total [lanes]. carry: pose
 // [lanes, 4, 4], local_cov [lanes, 6, 6], fitness [lanes], overlap [lanes];
 // flags: stop [lanes], failed [lanes]; iterations: int32 [lanes]. Scratch:
 // partials [lanes, max(s, 1), 44], sums [lanes, 44], counters [2]. ``radar``
-// [s, qb, 3, 3] or null (the radar form).
+// [lanes, s, qb, 3, 3] or null (the radar forms).
 extern "C" int elm_gicp_register(
     const float* halo, const float* pcov, const float* pmean, int mhp, const int* slot_tile,
     const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
@@ -210,7 +219,7 @@ extern "C" int elm_gicp_register(
     float* sums, int* counters, float* carry, bool* flags, int* iterations,
     cudaStream_t stream) {
   const bool r = radar != nullptr;
-  if (lanes < 1 || lanes > kMaxLanes || (r && lanes != 1)) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kGnSums, 1, partials, sums,
                     counters, carry, flags, iterations, lanes, s > 1 ? s : 1};

@@ -39,8 +39,9 @@
 // chain's bit for bit. max_iteration == 0 returns the initial carry after 0
 // iterations; S == 0 (one CTA, zero sums) fails the overlap gate after 1.
 //
-// The lane form (gn_loop_lanes, the P2P loop's and the GICP, VGICP and
-// AVGICP loops' lane instantiations: a fleet of B registrations,
+// The lane form (gn_loop_lanes, the lane instantiations of the P2P loop,
+// of the GICP, VGICP and AVGICP loops and their radar forms, and of the hash
+// loop for every method and radar form: a fleet of B registrations,
 // each against its own slots, in one cooperative launch; replaces the
 // jax.vmap of run_register inside replay_fused_fleet,
 // elimaloc_tpu/parallel/sharding.py:256-281): the carry, the flags and the
@@ -98,7 +99,9 @@ struct GnLoop {
 };
 
 // The most lanes one launch of a lane form takes (its live-lane list is in
-// shared memory).
+// shared memory); the wrappers run a larger fleet frame in launches of at
+// most this many lanes (the lanes are independent: each one's result is
+// the same in any launch).
 constexpr int kMaxLanes = 128;
 
 }  // namespace elm
@@ -288,11 +291,11 @@ __device__ __forceinline__ void gn_loop_lanes(const elm::GnLoop& a, int n_slots,
 // The most CTAs of ``kernel`` (``threads`` a CTA, ``smem`` bytes of dynamic
 // shared memory, opted into up to ``max_smem``) that the current device
 // holds at once (0 when none fits), or kNoCooperative; cached per device
-// and ``key`` (< 24: one per kernel instantiation and shared-memory size
+// and ``key`` (< 32: one per kernel instantiation and shared-memory size
 // the file launches).
 inline int co_resident(const void* kernel, int threads, int smem, int max_smem, int key,
                        int* ctas) {
-  constexpr int kDevices = 64, kKeys = 24;
+  constexpr int kDevices = 64, kKeys = 32;
   static int cached[kDevices][kKeys];
   static bool known[kDevices][kKeys];
   int dev = 0;
@@ -341,17 +344,19 @@ inline int launch_loop(const void* kernel, int n_slots, int threads, int smem, i
 // reduction reuses (256 floats: qb >= 8), opted into up to the largest slot
 // block a launch takes (kMaxQb, kernels/__init__.py _qb_of); one
 // co-residency cache key per instantiation (TileLoop) and qb (a power of
-// two in [8, 256]). Each tile loop has three instantiations: the single
+// two in [8, 256]). Each tile loop has four instantiations: the single
 // registration's on gn_loop (the lane form's extra live state would cost it
-// registers), its radar form (single too) and the lane form on
+// registers), its radar form (single too), and the lane forms of both on
 // gn_loop_lanes.
 constexpr int kMaxQb = 256;
 
-enum TileLoop { kSingle = 0, kRadarForm = 1, kLaneForm = 2 };
+enum TileLoop { kSingle = 0, kRadarForm = 1, kLaneForm = 2, kRadarLaneForm = 3 };
 
-// The instantiation a launch of ``lanes`` registrations takes.
+// The instantiation a launch of ``lanes`` registrations takes (one lane:
+// the single forms).
 inline TileLoop tile_loop(bool radar, int lanes) {
-  return radar ? kRadarForm : (lanes > 1 ? kLaneForm : kSingle);
+  if (lanes > 1) return radar ? kRadarLaneForm : kLaneForm;
+  return radar ? kRadarForm : kSingle;
 }
 
 inline int rows_smem(int qb) { return qb * elm::kGnSums * (int)sizeof(float); }

@@ -80,6 +80,17 @@
 // 128 x 18 or 44 rows (9 or 22.5 KB static), which the reduction reuses.
 // GICP exports local_cov (M's gicp flag). The result equals the
 // three-launch chain's bit for bit.
+// Lanes: one launch serves a fleet frame's B registrations
+// (replay_fused_fleet's vmap of run_register, elimaloc_tpu/parallel/
+// sharding.py:256-281) through gn_loop_lanes (gn_loop.cuh), as the tile
+// loops' lane forms do: a slot is a (lane, 128-point block) pair, B x
+// ceil(N / 128) of them handed out over the lanes still iterating; each
+// lane's scan, mask, total and radar rows at its lane stride, its carry,
+// flags and iteration count field-major; each lane's LM step on one CTA.
+// Every method and radar form has a lane instantiation of its own (eight),
+// around the same __noinline__ hash_point, so each lane equals its
+// single-lane launch bit for bit. A fleet frame of more than kMaxLanes
+// lanes is launched in parts by the wrapper.
 // Bound: as kernel Q's per iteration (bytes: the probe windows, the
 // neighbour voxels' points or means, the match payloads), times the
 // iterations; grid.sync and the serial LM step are latency.
@@ -173,52 +184,81 @@ void launch_search(const HashGrid& g, const float* src, const bool* valid, int n
 }
 
 
-// One block of kernel Q at the staged pose (gn_loop's ``slots``).
+// One block of kernel Q at the staged pose: gn_loop_lanes' ``slots(lane,
+// block, pose)``, lane ``lane``'s scan, mask, radar rows and partial rows at
+// its lane stride (src [B, n, 3], valid [B, n], radar [B, n, 3, 3],
+// partials [B, rows, 18 or 44]); gn_loop's ``slots(block, pose)`` (one
+// registration) is lane 0.
 template <int kMethod, bool kRadar>
 struct HashSlots {
   HashGrid g;
   const float* src;
   const bool* valid;
-  int n;
+  int n, rows;
   const float* max_dist;
   const float* radar;
   float* partials;
   float* part;
+  __device__ __forceinline__ void operator()(int lane, int block, const float* pose) const {
+    constexpr int kParts = kMethod == kP2P ? kP2PSums : kGnSums;
+    const size_t at = (size_t)lane * n;
+    hash_block<kMethod, kRadar>(block, g, src + 3 * at, valid + at, n, pose, max_dist,
+                                kRadar ? radar + 9 * at : radar, part,
+                                partials + (size_t)lane * rows * kParts);
+  }
   __device__ __forceinline__ void operator()(int block, const float* pose) const {
-    hash_block<kMethod, kRadar>(block, g, src, valid, n, pose, max_dist, radar, part,
-                                partials);
+    (*this)(0, block, pose);
   }
 };
 
-template <int kMethod, bool kRadar>
+// The hash loop of ``kMethod`` (its radar form with kRadar), one
+// registration on gn_loop or, with kLanes, a fleet frame's on
+// gn_loop_lanes: each its own instantiation around the one __noinline__
+// hash_point, so a one-lane launch keeps the single loop's registers and
+// every lane rounds as the single loop does.
+template <int kMethod, bool kRadar, bool kLanes>
 __global__ void __launch_bounds__(kHashThreads) hash_register_kernel(
     const HashGrid g, const float* __restrict__ src, const bool* __restrict__ valid, int n,
     const float* __restrict__ max_dist, const float* __restrict__ radar, const GnLoop loop) {
   constexpr int kParts = kMethod == kP2P ? kP2PSums : kGnSums;
   __shared__ float part[kHashThreads * kParts];
-  const HashSlots<kMethod, kRadar> slots{g, src, valid, n, max_dist, radar, loop.partials,
-                                         part};
-  gn_loop(loop, (n + kHashThreads - 1) / kHashThreads, slots, part);
+  const HashSlots<kMethod, kRadar> slots{g,      src,      valid,         n,   loop.rows,
+                                         max_dist, radar, loop.partials, part};
+  const int blocks = (n + kHashThreads - 1) / kHashThreads;
+  if constexpr (kLanes)
+    gn_loop_lanes(loop, blocks, slots, part);
+  else
+    gn_loop(loop, blocks, slots, part);
 }
 
-// The instantiation of ``method`` (its radar form with ``radar``; P2P has
-// none), or null.
-const void* loop_kernel(int method, bool radar) {
+template <bool kLanes>
+const void* loop_kernel_of(int method, bool radar) {
   switch (method) {
     case kP2P:
-      return (const void*)hash_register_kernel<kP2P, false>;
+      return (const void*)hash_register_kernel<kP2P, false, kLanes>;
     case kGICP:
-      return radar ? (const void*)hash_register_kernel<kGICP, true>
-                   : (const void*)hash_register_kernel<kGICP, false>;
+      return radar ? (const void*)hash_register_kernel<kGICP, true, kLanes>
+                   : (const void*)hash_register_kernel<kGICP, false, kLanes>;
     case kVGICP:
-      return radar ? (const void*)hash_register_kernel<kVGICP, true>
-                   : (const void*)hash_register_kernel<kVGICP, false>;
+      return radar ? (const void*)hash_register_kernel<kVGICP, true, kLanes>
+                   : (const void*)hash_register_kernel<kVGICP, false, kLanes>;
     case kAVGICP:
-      return radar ? (const void*)hash_register_kernel<kAVGICP, true>
-                   : (const void*)hash_register_kernel<kAVGICP, false>;
+      return radar ? (const void*)hash_register_kernel<kAVGICP, true, kLanes>
+                   : (const void*)hash_register_kernel<kAVGICP, false, kLanes>;
     default:
       return nullptr;
   }
+}
+
+// The instantiation of ``method`` (its radar form with ``radar``; P2P has
+// none; the lane form with ``lanes`` > 1), or null.
+const void* loop_kernel(int method, bool radar, int lanes) {
+  return lanes > 1 ? loop_kernel_of<true>(method, radar) : loop_kernel_of<false>(method, radar);
+}
+
+// The co-residency cache key of an instantiation (< 16).
+int loop_key(int method, bool radar, int lanes) {
+  return 8 * (int)(lanes > 1) + 2 * method + (int)radar;
 }
 
 }  // namespace
@@ -294,18 +334,23 @@ extern "C" int elm_hash_lookup(const int* table, const int* table_fp, int table_
 }
 
 // The co-resident CTAs of the loop kernel of ``method`` (its radar form
-// with ``radar`` != 0) on the current device.
-extern "C" int elm_hash_register_capacity(int method, int radar, int* ctas) {
+// with ``radar`` != 0, its lane form with ``lanes`` > 1) on the current
+// device.
+extern "C" int elm_hash_register_capacity(int method, int radar, int lanes, int* ctas) {
   const bool r = radar != 0 && method != kP2P;
-  const void* kernel = loop_kernel(method, r);
+  const void* kernel = loop_kernel(method, r, lanes);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  return co_resident(kernel, kHashThreads, 0, 0, 2 * method + (int)r, ctas);
+  return co_resident(kernel, kHashThreads, 0, 0, loop_key(method, r, lanes), ctas);
 }
 
-// carry: pose [4, 4], local_cov [6, 6], fitness, overlap; flags: stop,
-// failed; iterations: int32. Scratch: partials [max(ceil(n / 128), 1), 18
-// (P2P) or 44], sums [18 or 44], counters [2]. ``radar`` [n, 3, 3] or null
-// (the radar form; ignored for P2P).
+// ``lanes`` registrations (1 <= lanes <= kMaxLanes), each lane's inputs and
+// outputs at its lane stride: src [lanes, n, 3], valid [lanes, n], pose
+// [lanes, 4, 4], fitness [lanes], local_cov [lanes, 6, 6], total [lanes],
+// ``radar`` [lanes, n, 3, 3] or null (the radar form; ignored for P2P).
+// carry: pose [lanes, 4, 4], local_cov [lanes, 6, 6], fitness [lanes],
+// overlap [lanes]; flags: stop [lanes], failed [lanes]; iterations: int32
+// [lanes]. Scratch: partials [lanes, max(ceil(n / 128), 1), 18 (P2P) or
+// 44], sums [lanes, 18 or 44], counters [2]. One lane is the single loop.
 extern "C" int elm_hash_register(
     const int* table, const int* table_fp, int table_size, int max_probe, int sentinel,
     const float* points, int m, const int* counts, const float* pcov, const float* pmean,
@@ -313,19 +358,21 @@ extern "C" int elm_hash_register(
     int n, const float* pose, const float* fitness, const float* local_cov,
     const float* total, const float* max_dist, const float* min_overlap_ratio,
     const float* lm_lambda, const float* termination_threshold, int max_iteration,
-    const float* radar, int method, float* partials, float* sums, int* counters,
+    const float* radar, int method, int lanes, float* partials, float* sums, int* counters,
     float* carry, bool* flags, int* iterations, cudaStream_t stream) {
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const bool r = radar != nullptr && method != kP2P;
-  const void* kernel = loop_kernel(method, r);
+  const void* kernel = loop_kernel(method, r, lanes);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const HashGrid g{table, table_fp, table_size, max_probe, sentinel, points, m,
                    counts, pcov, pmean, vmean, vcov, voxel};
   const float* rad = r ? radar : nullptr;
+  const int blocks = (n + kHashThreads - 1) / kHashThreads;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, method == kP2P ? kP2PSums : kGnSums,
                     method == kGICP ? 1 : 0, partials, sums, counters, carry, flags,
-                    iterations};
+                    iterations, lanes, blocks > 1 ? blocks : 1};
   void* args[] = {(void*)&g, &src, &valid, &n, &max_dist, &rad, (void*)&loop};
-  return launch_loop(kernel, (n + kHashThreads - 1) / kHashThreads, kHashThreads, 0, 0,
-                     2 * method + (int)r, args, stream);
+  return launch_loop(kernel, blocks * lanes, kHashThreads, 0, 0, loop_key(method, r, lanes),
+                     args, stream);
 }

@@ -26,6 +26,16 @@
 // The arithmetic of a row is P's (radar_cov.cu:53-64), one IEEE-rounded
 // operation at a time with the CUDA math library's sinf / cosf / atan2f /
 // sqrtf, so X's rows equal P's bit for bit.
+//
+// Lanes: one launch serves a fleet frame's B registrations (replay_fused_
+// fleet's vmap of run_register, elimaloc_tpu/parallel/sharding.py:256-281),
+// the lane as blockIdx.y: src [B, n, 3], qidx / qmask [B, rows] (null on
+// the hash backend: each lane's rows 0..n-1), pose [B, 4, 4], out [B, rows,
+// 9], each at its lane stride. A lane's rows are those of its single
+// launch, bit for bit (the same code on offset pointers); a lane's first
+// row is 16-byte aligned only when rows * 9 is a multiple of 4, so the
+// staged rows go out as float4 stores where the lane's output is aligned
+// and as floats where not.
 #include <math.h>
 
 #include "common.cuh"
@@ -44,6 +54,12 @@ __global__ void __launch_bounds__(kRowThreads) radar_rows_kernel(
     const float* __restrict__ ele_var_deg, float* __restrict__ out) {
   __shared__ float sines[3];
   __shared__ __align__(16) float tile[kRowThreads * 9];
+  const size_t lane = blockIdx.y;  // the lane's inputs and rows
+  src += 3 * n * lane;
+  if (qidx != nullptr) qidx += rows * lane;
+  if (qmask != nullptr) qmask += rows * lane;
+  pose += 16 * lane;
+  out += 9 * rows * lane;
   const float d2r = (float)kDegToRad;
   if (threadIdx.x == 0) {
     sines[0] = *range_var;
@@ -75,10 +91,11 @@ __global__ void __launch_bounds__(kRowThreads) radar_rows_kernel(
     }
   }
   __syncthreads();
-  // the CTA's rows are contiguous in ``out``: float4 stores, then the tail
+  // the CTA's rows are contiguous in ``out``: float4 stores where they are
+  // aligned, then the tail
   const int nf = min(kRowThreads, rows - first) * 9;
   float* dst = out + (size_t)first * 9;
-  const int n4 = nf / 4;
+  const int n4 = ((uintptr_t)dst & 15) == 0 ? nf / 4 : 0;
   for (int k = threadIdx.x; k < n4; k += kRowThreads)
     reinterpret_cast<float4*>(dst)[k] = reinterpret_cast<const float4*>(tile)[k];
   for (int k = 4 * n4 + threadIdx.x; k < nf; k += kRowThreads) dst[k] = tile[k];
@@ -86,11 +103,15 @@ __global__ void __launch_bounds__(kRowThreads) radar_rows_kernel(
 
 }  // namespace
 
+// ``lanes`` registrations' rows (1 <= lanes <= 65535), each lane's inputs
+// and rows at its lane stride (see above); one lane is the single launch.
 extern "C" int elm_radar_rows(const float* src, int n, const int* qidx, const bool* qmask,
                               int rows, const float* pose, const float* const* variances,
-                              float* out, cudaStream_t stream) {
+                              int lanes, float* out, cudaStream_t stream) {
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (rows > 0)
-    radar_rows_kernel<<<(rows + kRowThreads - 1) / kRowThreads, kRowThreads, 0, stream>>>(
-        src, n, qidx, qmask, rows, pose, variances[0], variances[1], variances[2], out);
+    radar_rows_kernel<<<dim3((rows + kRowThreads - 1) / kRowThreads, lanes), kRowThreads, 0,
+                        stream>>>(src, n, qidx, qmask, rows, pose, variances[0], variances[1],
+                                  variances[2], out);
   return (int)cudaGetLastError();
 }

@@ -49,8 +49,8 @@
 // voxel means and coords (24 KB static) and the slot's [qb, 44] rows
 // (dynamic), which the reduction reuses. The result equals the
 // three-launch chain's bit for bit. Lanes: as the GICP loop's (gicp.cu),
-// an instantiation of its own on gn_loop_lanes; the radar form stays
-// single-lane.
+// an instantiation of its own on gn_loop_lanes, and the radar form's
+// lane form another.
 // Bound: as kernel F's per iteration, times the iterations; grid.sync and
 // the serial LM step are latency.
 #include "gn_loop.cuh"
@@ -99,7 +99,8 @@ struct VgicpSlots {
     const size_t block = (size_t)lane * s * qb;
     vgicp_slot<kRadar>(slot, vmean, vcov, vcoord, mhv, slot_tile + (size_t)lane * s,
                        sbuf + 3 * block, qmask + block, qb, pose, max_dist, voxel, tile_size,
-                       tx0, ty0, ty_dim, radar, partials + (size_t)lane * rows * kGnSums,
+                       tx0, ty0, ty_dim, kRadar ? radar + 9 * block : radar,
+                       partials + (size_t)lane * rows * kGnSums,
                        nullptr, nullptr, nullptr, *sm, part);
   }
   __device__ __forceinline__ void operator()(int slot, const float* pose) const {
@@ -127,9 +128,16 @@ __global__ void __launch_bounds__(kThreads) vgicp_register_kernel(
 }
 
 const void* loop_kernel(TileLoop form) {
-  return form == kRadarForm  ? (const void*)vgicp_register_kernel<true, false>
-         : form == kLaneForm ? (const void*)vgicp_register_kernel<false, true>
-                             : (const void*)vgicp_register_kernel<false, false>;
+  switch (form) {
+    case kRadarForm:
+      return (const void*)vgicp_register_kernel<true, false>;
+    case kLaneForm:
+      return (const void*)vgicp_register_kernel<false, true>;
+    case kRadarLaneForm:
+      return (const void*)vgicp_register_kernel<true, true>;
+    default:
+      return (const void*)vgicp_register_kernel<false, false>;
+  }
 }
 
 }  // namespace
@@ -157,8 +165,8 @@ extern "C" int elm_vgicp_search_reduce(
 }
 
 // The co-resident CTAs of the loop kernel on the current device for slot
-// blocks of ``qb`` queries: the radar form with ``radar`` != 0, else the
-// lane form with ``lanes`` > 1, else the single registration's.
+// blocks of ``qb`` queries: the radar form with ``radar`` != 0, the lane
+// form of either with ``lanes`` > 1.
 extern "C" int elm_vgicp_register_capacity(int qb, int radar, int lanes, int* ctas) {
   const TileLoop form = tile_loop(radar != 0, lanes);
   return tile_loop_capacity(loop_kernel(form), qb, form, ctas);
@@ -166,7 +174,7 @@ extern "C" int elm_vgicp_register_capacity(int qb, int radar, int lanes, int* ct
 
 // ``lanes`` registrations, as elm_gicp_register (gicp.cu): the inputs, the
 // carry, the flags, the iterations and the scratch at their lane strides;
-// the radar form (``radar`` [s, qb, 3, 3]) takes one lane.
+// the radar forms take ``radar`` [lanes, s, qb, 3, 3].
 extern "C" int elm_vgicp_register(
     const float* vmean, const float* vcov, const int* vcoord, int mhv, const int* slot_tile,
     const float* sbuf, const bool* qmask, int s, int qb, const float* pose,
@@ -177,7 +185,7 @@ extern "C" int elm_vgicp_register(
     float* sums, int* counters, float* carry, bool* flags, int* iterations,
     cudaStream_t stream) {
   const bool r = radar != nullptr;
-  if (lanes < 1 || lanes > kMaxLanes || (r && lanes != 1)) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   const GnLoop loop{pose, fitness, local_cov, total, min_overlap_ratio, lm_lambda,
                     termination_threshold, max_iteration, kGnSums, 0, partials, sums,
                     counters, carry, flags, iterations, lanes, s > 1 ? s : 1};

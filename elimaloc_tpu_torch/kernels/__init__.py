@@ -155,12 +155,14 @@ viewed only when read. Flagged forms: H, I, S and W take ``EkfFlags.joseph_form`
 3x3 inverse.
 
 Lane forms (the fleet frame of ``run_fused_fleet``, JAX
-parallel/sharding.py:256-281): H, T, C, B, the P2P loop and S take a
-leading lane axis on their per-frame inputs (B frames of one fleet, one
-launch of each for all lanes; T's two launches once each), the EKF state
-as B records of one buffer and the rings with a lane axis; their outputs
-carry it too. One lane is the single launch's form, bit for bit; the
-wrappers tell the forms apart by the inputs' rank.
+parallel/sharding.py:256-281): H, T, C, B, S, W, X and every loop kernel
+(the P2P, GICP, VGICP and AVGICP loops and the hash loop, with and without
+a radar term) take a leading lane axis on their per-frame inputs (B frames
+of one fleet, one launch of each for all lanes; T's two launches once
+each; a loop's launch takes at most :data:`MAX_LANES` lanes), the EKF
+state as B records of one buffer and the rings with a lane axis; their
+outputs carry it too. One lane is the single launch's form, bit for bit;
+the wrappers tell the forms apart by the inputs' rank.
 """
 
 from __future__ import annotations
@@ -278,7 +280,8 @@ NO_CLUSTER = -1
 NO_COOPERATIVE = -2
 NO_ROOM = -3
 #: the most lanes one launch of a loop's lane form takes (csrc/gn_loop.cuh
-#: kMaxLanes)
+#: kMaxLanes); ``register.icp.run_register_lanes`` runs a larger fleet
+#: frame's registrations in launches of at most this many lanes
 MAX_LANES = 128
 
 
@@ -1244,20 +1247,20 @@ def _cov_loop(name, rows, slot_tile, sbuf, qmask, pose, fitness, local_cov, tota
     """One launch of the tile loop of kernel E, F or G (``rows`` as
     :func:`_cov_search`'s, ``geometry`` the tile geometry the search
     takes). The lane form, as :func:`p2p_register`'s: ``slot_tile``
-    [B, S], ``sbuf`` [B, S, QB, 3], ``qmask`` [B, S, QB] and the carry
-    with a lane axis, no ``radar`` (its form is single-lane)."""
+    [B, S], ``sbuf`` [B, S, QB, 3], ``qmask`` [B, S, QB], the carry and
+    ``radar`` ([B, S, QB, 3, 3]: the radar form's lane form) with a lane
+    axis."""
     lanes, lead = _lanes(sbuf, 3)
     if lanes is not None and lanes > MAX_LANES:
         raise ValueError(f"{name}: at most {MAX_LANES} lanes a launch, got {lanes}")
-    if lanes is not None and radar is not None:
-        raise ValueError(f"{name}: the radar form takes one registration a launch")
     s, qb = _qb_of(qmask[0] if lanes else qmask, name)
     args = _halo_rows(name, rows) + [
         _check(slot_tile, "slot_tile", torch.int32, lead + (s,)),
         _check(sbuf, "sbuf", _F32, lead + (s, qb, 3)),
         _check(qmask, "qmask", torch.bool, lead + (s, qb)), ctypes.c_int(s), ctypes.c_int(qb),
         *_carry_in(pose, fitness, local_cov, total, params, max_iteration, lead), *geometry,
-        ctypes.c_void_p(None) if radar is None else _check(radar, "radar", _F32, (s, qb, 3, 3)),
+        ctypes.c_void_p(None) if radar is None
+        else _check(radar, "radar", _F32, lead + (s, qb, 3, 3)),
         ctypes.c_int(lanes or 1)]
     return _gn_loop(name, f"elm_{name}", args, s, GN_SUMS, sbuf, lanes)
 
@@ -1272,8 +1275,8 @@ def gicp_register(halo_points, halo_point_cov, halo_point_cov_mean, slot_tile, s
     iterations, in one cooperative launch; nothing is read back. Returns
     (pose [4,4], local_cov [6,6] = (JTJ + lambda diag)^-1, fitness,
     overlap, failed, iterations int32). The lane form, as
-    :func:`p2p_register`'s (no ``radar``): B registrations in the one
-    launch, local_cov exported per lane."""
+    :func:`p2p_register`'s (``radar`` [B,S,QB,3,3] for the radar form's):
+    B registrations in the one launch, local_cov exported per lane."""
     return _cov_loop(
         "gicp_register",
         [("halo_points", halo_points, _F32, (3,)),
@@ -1394,15 +1397,20 @@ def radar_rows(src_local, qidx, qmask, pose, params):
     scan [N, 3] at the world pose [4, 4] on the rows of the slot assignment
     (``qidx``, ``qmask`` [S, QB]), zero where ``qmask`` is false: [S, QB,
     3, 3]; with ``qidx`` and ``qmask`` None on the rows 0..N-1 in order: [N,
-    3, 3]. Kernel P's rows, bit for bit."""
-    n = src_local.shape[0]
-    shape = (n,) if qidx is None else tuple(qmask.shape)
-    rows = n if qidx is None else qmask.numel()
-    args = [_check(src_local, "src_local", _F32, (n, 3)), ctypes.c_int(n),
-            _ptr(None) if qidx is None else _check(qidx, "qidx", torch.int32, shape),
-            _ptr(None) if qidx is None else _check(qmask, "qmask", _BOOL, shape),
-            ctypes.c_int(rows), _check(pose, "pose", _F32, (4, 4)), _variances(params)]
-    out = torch.empty(shape + (3, 3), dtype=_F32, device=src_local.device)
+    3, 3]. Kernel P's rows, bit for bit. The lane form: the scans
+    [B, N, 3], ``qidx`` / ``qmask`` [B, S, QB] (or None) and the poses
+    [B, 4, 4] give [B, S, QB, 3, 3] (or [B, N, 3, 3]) in one launch, each
+    lane its single launch's rows."""
+    lanes, lead = _lanes(src_local, 2)
+    n = src_local.shape[-2]
+    shape = (n,) if qidx is None else tuple(qmask.shape[len(lead):])
+    rows = n if qidx is None else qmask[0].numel() if lanes else qmask.numel()
+    args = [_check(src_local, "src_local", _F32, lead + (n, 3)), ctypes.c_int(n),
+            _ptr(None) if qidx is None else _check(qidx, "qidx", torch.int32, lead + shape),
+            _ptr(None) if qidx is None else _check(qmask, "qmask", _BOOL, lead + shape),
+            ctypes.c_int(rows), _check(pose, "pose", _F32, lead + (4, 4)), _variances(params),
+            ctypes.c_int(lanes or 1)]
+    out = torch.empty(lead + shape + (3, 3), dtype=_F32, device=src_local.device)
     rc = library().elm_radar_rows(*args, _ptr(out), _stream(src_local))
     _raise_on(rc, "radar_rows")
     launches["radar_rows"] += 1
@@ -1468,14 +1476,15 @@ def hash_correspond(grid, src, valid, pose, max_dist, method: str, radar=None):
     return sums
 
 
-def hash_register_capacity(method: str, radar: bool = False) -> int:
+def hash_register_capacity(method: str, radar: bool = False, lanes: int = 1) -> int:
     """The CTAs of the hash loop kernel of ``method`` (its radar form with
-    ``radar``) that the current card holds at once (its grid is the smaller
-    of this and the scan's blocks of 128 points)."""
+    ``radar``, its lane form with ``lanes`` > 1) that the current card holds
+    at once (its grid is the smaller of this and the scan's blocks of 128
+    points, over every lane)."""
     ctas = ctypes.c_int(0)
     _raise_on(library().elm_hash_register_capacity(
-        ctypes.c_int(HASH_METHODS[method]), ctypes.c_int(int(radar)), ctypes.byref(ctas)),
-        "hash_register")
+        ctypes.c_int(HASH_METHODS[method]), ctypes.c_int(int(radar)), ctypes.c_int(lanes),
+        ctypes.byref(ctas)), "hash_register")
     return ctas.value
 
 
@@ -1488,16 +1497,24 @@ def hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
     [N, 3, 3] in query order), from the carry (``pose`` [4,4], ``fitness``,
     ``local_cov`` [6,6]) for at most ``max_iteration`` iterations, in one
     cooperative launch; nothing is read back. Returns (pose [4,4],
-    local_cov [6,6], fitness, overlap, failed, iterations int32)."""
-    n = src.shape[0]
+    local_cov [6,6], fitness, overlap, failed, iterations int32). The lane
+    form: ``src`` [B, N, 3], ``valid`` [B, N], the carry, ``total`` and
+    ``radar`` ([B, N, 3, 3]) with a lane axis: B registrations in the one
+    launch (csrc/gn_loop.cuh gn_loop_lanes), each output with a leading
+    lane axis, as :func:`p2p_register`'s."""
+    lanes, lead = _lanes(src, 2)
+    if lanes is not None and lanes > MAX_LANES:
+        raise ValueError(f"hash_register: at most {MAX_LANES} lanes a launch, got {lanes}")
+    n = src.shape[-2]
     args = _grid_args(grid, method) + [
-        _check(src, "src", _F32, (n, 3)), _check(valid, "valid", _BOOL, (n,)), ctypes.c_int(n),
-        *_carry_in(pose, fitness, local_cov, total, params, max_iteration),
+        _check(src, "src", _F32, lead + (n, 3)), _check(valid, "valid", _BOOL, lead + (n,)),
+        ctypes.c_int(n), *_carry_in(pose, fitness, local_cov, total, params, max_iteration, lead),
         ctypes.c_void_p(None) if radar is None or method == "P2P"
-        else _check(radar, "radar", _F32, (n, 3, 3)), ctypes.c_int(HASH_METHODS[method])]
+        else _check(radar, "radar", _F32, lead + (n, 3, 3)), ctypes.c_int(HASH_METHODS[method]),
+        ctypes.c_int(lanes or 1)]
     return _gn_loop("hash_register", "elm_hash_register", args,
                     (n + _HASH_THREADS - 1) // _HASH_THREADS,
-                    P2P_SUMS if method == "P2P" else GN_SUMS, src)
+                    P2P_SUMS if method == "P2P" else GN_SUMS, src, lanes)
 
 
 def _query(entry, name, grid, queries, max_dist, method):

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "elm_tick_stage": [_P, _P, _P, _P, _PP, _I, _P, _P],
     "elm_imu_intake": [_PP, _I, _P, _P, _P, _P, _P, _P],
     "elm_radar_cov": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "elm_radar_rows": [_P, _I, _P, _P, _I, _P, _PP, _P, _P],
+    "elm_radar_rows": [_P, _I, _P, _P, _I, _P, _PP, _I, _P, _P],
     "elm_can_gps_update": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
                            _I, _P],
     "elm_ring_push": [_PP, _I, _PP, _I, _I, _P, _P],
@@ -78,9 +78,9 @@ _SIGNATURES = {
                            _P, _I, _F, _F, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "elm_vgicp_register_capacity": [_I, _I, _I, ctypes.POINTER(_I)],
     "elm_hash_register": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                          _P, _P],
-    "elm_hash_register_capacity": [_I, _I, ctypes.POINTER(_I)],
+                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _P, _P],
+    "elm_hash_register_capacity": [_I, _I, _I, ctypes.POINTER(_I)],
     "elm_shift_window": [_PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P, _I, _P],
     "elm_hash_search_reduce": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P,
                                _I, _P, _P, _P, _I, _P, _P, _P],

@@ -5,9 +5,10 @@ JAX vmaps its fused replay over a leading lane axis: B vehicles' logs
 localized against one shared map in one program. Here the lane axis is a
 batch dimension of every stage of :func:`pipeline.runtime.fused_frame`: on
 the card each frame launches each kernel's lane form once for all B lanes
-(kernels H, C, B, S, the method's loop kernel and with CAN or GPS fusion
-W; T's two kernels once each), on CPU tensors each stage runs its plain
-lane form. Per-lane trajectories equal
+(kernels H, C, S, on the tile backend B, with radar covariances X, with
+CAN or GPS fusion W, and the loop kernel of the method and backend, once
+for every 128 lanes; T's two kernels once each), on CPU tensors each stage
+runs its plain lane form. Per-lane trajectories equal
 single-stream replays: every lane's inputs go through the single frame's
 arithmetic, and the batched registration iterates until every lane's gates
 release, a stopped lane keeping its carry and its count.

@@ -39,12 +39,14 @@ mode): the logs' batches padded to the fleet's capacities and stacked on a
 lane axis (:func:`fleet_batches`, ``parallel.stack_streams``), then
 ``parallel.replay_fused_fleet``: :func:`fused_frame` with a lane axis, one
 call of each stage serving every lane (on the card one launch each of the
-lane forms of kernels H, C, B, S, W with CAN or GPS fusion, and the
-method's loop kernel, T's two launches once each). It runs P2P, GICP,
-VGICP and AVGICP on the tile backend with the IMU chain, with or without
-CAN and GPS fusion; the hash backend, the radar covariances and
-``use_imu=False`` are refused with NotImplementedError, naming ROADMAP
-Queue 1 "Fleet", as the live dashboard is ("Host modules and utilities").
+lane forms of kernels H, C, B (tile backend), X (radar covariances), S, W
+with CAN or GPS fusion, and the loop kernel (a launch per 128 lanes), T's
+two launches once each). It runs every configuration JAX's fleet runs:
+P2P, GICP, VGICP and AVGICP on the tile or the hash backend, with or
+without radar covariances and CAN and GPS fusion, with ``use_imu`` True or
+False (the fused frame runs the IMU chain either way, as JAX's vmapped
+``fused_frame`` does), for any number of lanes; a windowed pipeline is
+refused with JAX's ValueError.
 """
 
 from __future__ import annotations
@@ -1620,19 +1622,6 @@ class LocalizationPipeline:
             return self.run_frames(log, state, chunk=max(int(window_chunk), 1), mark=mark)
         return self._frames(log, state, None, None, mark, poll=False)
 
-    def _refuse_fleet(self) -> None:
-        """The configurations whose fleet lanes are not ported yet."""
-        ps, st = self.static, self.static.icp_static
-        unported = [name for name, on in (
-            ("the hash backend", st.backend != "tile"),
-            ("radar covariances", st.use_radar_cov),
-            ("use_imu=False", not ps.use_imu)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"run_fused_fleet: the lane forms for {', '.join(unported)} are in ROADMAP "
-                'Queue 1, "Fleet" (ported: P2P, GICP, VGICP and AVGICP on the tile backend '
-                "with the IMU chain, with or without CAN and GPS fusion)")
-
     def run_fused_fleet(self, logs, states=None, mark=_no_mark):
         """Multi-stream fused replay (runtime.py:1590-1649): ``B`` independent
         logs localized against the shared map in one frame loop
@@ -1645,10 +1634,10 @@ class LocalizationPipeline:
         ``(states, outs)`` with a leading lane axis on every field, ``outs``
         as NumPy arrays [B, F, ...] plus ``ego_t_abs`` on each lane's own
         time base; each lane's trajectory is its log's :meth:`run_fused`.
-        ``time_base`` is None afterwards (the bases are per lane). P2P, GICP,
-        VGICP and AVGICP on the tile backend, with or without CAN and GPS
-        fusion; the hash backend, radar covariances and ``use_imu=False``
-        are refused (:meth:`_refuse_fleet`)."""
+        ``time_base`` is None afterwards (the bases are per lane). Every
+        method on either backend, with or without radar covariances and CAN
+        and GPS fusion, with ``use_imu`` True or False; a windowed pipeline
+        raises ValueError, as JAX's does."""
         from ..parallel import replay_fused_fleet
 
         if self.windowed:
@@ -1656,7 +1645,6 @@ class LocalizationPipeline:
                 "fleet replay compiles the whole log batch into one program "
                 "and cannot swap map windows; use run()/run_frames() per "
                 "stream with map_window_radius")
-        self._refuse_fleet()
         bases, batches = fleet_batches(logs)
         if states is None:
             states = [self.reset() for _ in logs]

@@ -1,4 +1,6 @@
-"""Scan-to-map registration (port of elimaloc_tpu.register, P2P on tiles)."""
+"""Scan-to-map registration (port of elimaloc_tpu.register: P2P, GICP, VGICP
+and AVGICP on the tile and the hash backend, with or without radar
+covariances, one registration or a fleet frame's lanes)."""
 
 from .icp import (  # noqa: F401
     IcpParams,

@@ -54,10 +54,13 @@ come in query order, from kernel X on the rows 0..N-1. As in JAX,
 ``corr_reuse`` and ``reassign_each_iter`` do nothing there.
 
 A fleet frame's registrations (:func:`run_register_lanes`, a scan with a
-leading lane axis) run P2P on the tile backend: kernel B's lane form, the
-batched set-up and tail, and one launch of the P2P loop's lane form for
-all lanes (:func:`p2p_register`; :func:`p2p_register_lanes_plain` on CPU
-tensors).
+leading lane axis) run every method on either backend, with or without
+the radar covariances: the batched set-up (on tiles kernel B's lane form
+and the gather; with radar kernel X's lane form), one launch of the loop
+kernel's lane form for every ``kernels.MAX_LANES`` lanes
+(:func:`p2p_register`, :func:`gicp_register`, :func:`vgicp_register`,
+:func:`avgicp_register`, :func:`hash_register`; their ``*_lanes_plain``
+forms on CPU tensors) and the batched tail.
 
 Not ported, refused with NotImplementedError: the tile backend's
 correspondence-reuse and per-iteration reassignment loops (ROADMAP "Not
@@ -360,11 +363,24 @@ def radar_slots_plain(src_local, qidx, qmask, pose, params: IcpParams):
                        torch.zeros((), dtype=radar.dtype, device=radar.device))
 
 
+def radar_slots_lanes_plain(src_local, qidx, qmask, pose, params: IcpParams):
+    """Plain lane form of kernel X: :func:`radar_slots_plain` on each lane
+    of a fleet frame (scans [B, N, 3], ``qidx`` / ``qmask`` [B, S, QB] or
+    None, world poses [B, 4, 4]), the rows stacked: [B, S, QB, 3, 3] or
+    [B, N, 3, 3]."""
+    return torch.stack([
+        radar_slots_plain(src_local[i], None if qidx is None else qidx[i],
+                          None if qmask is None else qmask[i], pose[i], params)
+        for i in range(src_local.shape[0])])
+
+
 def radar_slots(src_local, qidx, qmask, pose, params: IcpParams):
     """:func:`radar_slots_plain` for CPU tensors, kernel X
-    (``kernels.radar_rows``) for CUDA ones."""
+    (``kernels.radar_rows``) for CUDA ones; with a lane axis on the scans
+    (a fleet frame) :func:`radar_slots_lanes_plain` or X's lane form."""
     if src_local.device.type == "cpu":
-        return radar_slots_plain(src_local, qidx, qmask, pose, params)
+        plain = radar_slots_lanes_plain if src_local.dim() == 3 else radar_slots_plain
+        return plain(src_local, qidx, qmask, pose, params)
     return kernels.radar_rows(src_local, qidx, qmask, pose, params)
 
 
@@ -645,14 +661,16 @@ def p2p_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, t
 
 
 def _register_lanes_plain(single, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
-                          total, params, budget, max_iteration):
+                          total, params, budget, max_iteration, radar=None):
     """A loop kernel's plain lane form: its plain version ``single`` on each
-    lane (every input with a leading lane axis but the map and the params),
-    the outputs stacked. Each lane iterates until its own gates release and
-    keeps its carry and its count: JAX's vmapped while_loop (masked per
-    lane) gives every lane the result of its own run."""
+    lane (every input with a leading lane axis but the map and the params;
+    ``radar`` [B, S, QB, 3, 3] or None), the outputs stacked. Each lane
+    iterates until its own gates release and keeps its carry and its
+    count: JAX's vmapped while_loop (masked per lane) gives every lane the
+    result of its own run."""
     per_lane = (slot_tile, sbuf, qmask, pose, fitness, local_cov, total)
-    outs = [single(tmap, *(x[i] for x in per_lane), params, budget, max_iteration)
+    extra = [()] * sbuf.shape[0] if radar is None else [(r,) for r in radar]
+    outs = [single(tmap, *(x[i] for x in per_lane), params, budget, max_iteration, *extra[i])
             for i in range(sbuf.shape[0])]
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -723,34 +741,33 @@ def vgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
 
 def gicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                               params: IcpParams, budget: maptiles.TileQueryBudget,
-                              max_iteration: int):
+                              max_iteration: int, radar=None):
     """Plain lane form of the GICP loop kernel: :func:`gicp_register_plain`
-    on each lane (no radar), the outputs stacked, local_cov per lane."""
+    on each lane (each with its lane of ``radar`` [B, S, QB, 3, 3] when
+    given), the outputs stacked, local_cov per lane."""
     return _register_lanes_plain(gicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
-                                 fitness, local_cov, total, params, budget, max_iteration)
+                                 fitness, local_cov, total, params, budget, max_iteration,
+                                 radar)
 
 
 def vgicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                                params: IcpParams, budget: maptiles.TileQueryBudget,
-                               max_iteration: int):
+                               max_iteration: int, radar=None):
     """Plain lane form of the VGICP loop kernel: :func:`vgicp_register_plain`
-    on each lane (no radar), the outputs stacked."""
+    on each lane (with its radar lane when given), the outputs stacked."""
     return _register_lanes_plain(vgicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
-                                 fitness, local_cov, total, params, budget, max_iteration)
+                                 fitness, local_cov, total, params, budget, max_iteration,
+                                 radar)
 
 
 def _cov_register_plain(single, lanes_plain, tmap, slot_tile, sbuf, qmask, pose, fitness,
                         local_cov, total, params, budget, max_iteration, radar):
     """A covariance method's loop on CPU tensors: its plain version, or with
     a lane axis on the slots (a fleet frame: ``sbuf`` [B, S, QB, 3]) its
-    plain lane form, which takes no radar."""
-    if sbuf.dim() == 4:
-        if radar is not None:
-            raise ValueError("the radar form takes one registration a call")
-        return lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
-                           params, budget, max_iteration)
-    return single(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
-                  budget, max_iteration, radar)
+    plain lane form."""
+    plain = lanes_plain if sbuf.dim() == 4 else single
+    return plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
+                 budget, max_iteration, radar)
 
 
 def gicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -802,11 +819,12 @@ def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov
 
 def avgicp_register_lanes_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
                                 total, params: IcpParams, budget: maptiles.TileQueryBudget,
-                                max_iteration: int):
+                                max_iteration: int, radar=None):
     """Plain lane form of the AVGICP loop kernel: :func:`avgicp_register_plain`
-    on each lane (no radar), the outputs stacked."""
+    on each lane (with its radar lane when given), the outputs stacked."""
     return _register_lanes_plain(avgicp_register_plain, tmap, slot_tile, sbuf, qmask, pose,
-                                 fitness, local_cov, total, params, budget, max_iteration)
+                                 fitness, local_cov, total, params, budget, max_iteration,
+                                 radar)
 
 
 def avgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -892,13 +910,29 @@ def hash_register_plain(method: int, grid, src, valid, pose, fitness, local_cov,
     return host_loop(step, pose, fitness, local_cov, max_iteration)
 
 
+def hash_register_lanes_plain(method: int, grid, src, valid, pose, fitness, local_cov, total,
+                              params: IcpParams, max_iteration: int, radar=None):
+    """Plain lane form of the hash loop kernel: :func:`hash_register_plain`
+    on each lane of a fleet frame (``src`` [B, N, 3], ``valid`` [B, N], the
+    carry, ``total`` and ``radar`` [B, N, 3, 3] with a lane axis), the
+    outputs stacked; each lane iterates until its own gates release."""
+    outs = [hash_register_plain(method, grid, src[i], valid[i], pose[i], fitness[i],
+                                local_cov[i], total[i], params, max_iteration,
+                                None if radar is None else radar[i])
+            for i in range(src.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def hash_register(method: int, grid, src, valid, pose, fitness, local_cov, total,
                   params: IcpParams, max_iteration: int, radar=None):
     """The registration loop on the hash backend: :func:`hash_register_plain`
-    for CPU tensors, one launch of the loop kernel for CUDA ones."""
+    for CPU tensors, one launch of the loop kernel for CUDA ones. With a
+    leading lane axis on the scan and the carry (a fleet frame): the loop
+    kernel's lane form, or :func:`hash_register_lanes_plain`."""
     if not _on_card(src):
-        return hash_register_plain(method, grid, src, valid, pose, fitness, local_cov, total,
-                                   params, max_iteration, radar)
+        plain = hash_register_lanes_plain if src.dim() == 3 else hash_register_plain
+        return plain(method, grid, src, valid, pose, fitness, local_cov, total, params,
+                     max_iteration, radar)
     return kernels.hash_register(grid, src, valid, pose, fitness, local_cov, total, params,
                                  max_iteration, IcpMethod(method).name, radar)
 
@@ -995,51 +1029,88 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     )
 
 
+def _in_launches(loop, lanes: int, per_lane):
+    """``loop(*per_lane)`` on a fleet frame's ``lanes`` registrations, in
+    runs of at most ``kernels.MAX_LANES`` lanes (one launch of a loop
+    kernel's lane form takes at most that many, csrc/gn_loop.cuh
+    kMaxLanes), the outputs concatenated on the lane axis. The lanes are
+    independent, so each lane's result is the same in any run."""
+    step = kernels.MAX_LANES
+    if lanes <= step:
+        return loop(*per_lane)
+    parts = [loop(*(None if x is None else x[k:k + step] for x in per_lane))
+             for k in range(0, lanes, step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpParams,
                        static: IcpStatic, mark=None) -> IcpResult:
     """A fleet frame's registrations (JAX's vmap of run_register inside
     replay_fused_fleet, parallel/sharding.py:256-281): B scans [B, N, 3]
     (masks [B, N]) from B global initial poses [B, 4, 4] against the one
-    tile map, by P2P, GICP, VGICP or AVGICP. The set-up (the origin shift,
-    the query transform, kernel B's lane form, the clamp and the gather of
-    the slot blocks) and the pose / success tail run batched over the
-    lanes, the GN loops as one launch of the method's loop kernel's lane
-    form (:func:`p2p_register`, :func:`gicp_register`,
-    :func:`vgicp_register`, :func:`avgicp_register`); every field of the
-    result has a leading lane axis (GICP's local_cov per lane). The hash
-    backend and the radar covariances are refused, naming ROADMAP Queue 1
-    "Fleet"."""
-    use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
-    if static.backend != "tile" or use_radar:
-        raise NotImplementedError(
-            "fleet registration runs on the tile backend without radar covariances: the "
-            'hash backend\'s and the radar forms\' lane forms are in ROADMAP Queue 1, "Fleet"')
+    map, by P2P, GICP, VGICP or AVGICP, on the tile or the hash backend,
+    with or without the radar covariances. The set-up (on tiles the origin
+    shift, the query transform, kernel B's lane form, the clamp and the
+    gather of the slot blocks; on the hash grid none: the world pose,
+    ``dropped`` zeros; the radar rows from the world pose, kernel X's lane
+    form) and the pose / success tail run batched over the lanes, the GN
+    loops as one launch of the loop kernel's lane form
+    (:func:`p2p_register`, :func:`gicp_register`, :func:`vgicp_register`,
+    :func:`avgicp_register`, :func:`hash_register`) for every
+    ``kernels.MAX_LANES`` lanes (:func:`_in_launches`); every field of the
+    result has a leading lane axis (GICP's local_cov per lane)."""
     dtype = src_local.dtype
     dev = src_local.device
     lanes, n = src_local.shape[:2]
     total = torch.clamp(torch.sum(src_valid, dim=-1), min=1).to(dtype)
-    origin = tmap.origin.to(dtype)
-    pose = initial_guess.to(dtype).clone(memory_format=torch.contiguous_format)
-    pose[:, :2, 3] -= origin
-    asg = maptiles.assign_slots(tmap, lie.transform_points(pose, src_local), src_valid,
-                                static.tile_budget)
-    safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
-    rows = torch.arange(lanes, device=dev)[:, None, None]
-    sbuf = torch.where(asg.qmask[..., None], src_local[rows, safe_idx],
-                       torch.zeros((), dtype=dtype, device=dev))
+    use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
+    pose_world = initial_guess.to(dtype).contiguous()
+    fitness = torch.zeros(lanes, dtype=dtype, device=dev)
+    local_cov = torch.eye(6, dtype=dtype, device=dev).repeat(lanes, 1, 1)
+
+    if static.backend == "hash":
+        # world coordinates, no window origin, no assignment (icp.py:630)
+        origin = None
+        dropped = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        radar = radar_points(src_local, pose_world, params) if use_radar else None
+
+        def loop(src, valid, pose, fitness, local_cov, total, radar):
+            return hash_register(static.method, tmap, src, valid, pose, fitness, local_cov,
+                                 total, params, static.max_iteration, radar)
+
+        per_lane = (src_local, src_valid, pose_world, fitness, local_cov, total, radar)
+    else:
+        origin = tmap.origin.to(dtype)
+        pose = pose_world.clone()
+        pose[:, :2, 3] -= origin
+        asg = maptiles.assign_slots(tmap, lie.transform_points(pose, src_local), src_valid,
+                                    static.tile_budget)
+        dropped = asg.dropped.to(torch.int32)
+        safe_idx = torch.clamp(asg.qidx.to(torch.int64), max=n - 1)
+        rows = torch.arange(lanes, device=dev)[:, None, None]
+        sbuf = torch.where(asg.qmask[..., None], src_local[rows, safe_idx],
+                           torch.zeros((), dtype=dtype, device=dev))
+        # from the WORLD initial poses, packed into each lane's slot layout
+        radar = (radar_slots(src_local, asg.qidx, asg.qmask, pose_world, params)
+                 if use_radar else None)
+
+        def loop(slot_tile, sbuf, qmask, pose, fitness, local_cov, total, radar):
+            extra = () if radar is None else (radar,)
+            return _tile_loop(static.method)(tmap, slot_tile, sbuf, qmask, pose, fitness,
+                                             local_cov, total, params, static.tile_budget,
+                                             static.max_iteration, *extra)
+
+        per_lane = (asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, radar)
     if mark is not None:
         mark("assign")
 
-    fitness = torch.zeros(lanes, dtype=dtype, device=dev)
-    local_cov = torch.eye(6, dtype=dtype, device=dev).repeat(lanes, 1, 1)
-    pose, local_cov, fitness, overlap, failed, iterations = _tile_loop(static.method)(
-        tmap, asg.slot_tile, sbuf, asg.qmask, pose, fitness, local_cov, total, params,
-        static.tile_budget, static.max_iteration)
+    pose, local_cov, fitness, overlap, failed, iterations = _in_launches(loop, lanes, per_lane)
     if mark is not None:
         mark("gn")
 
-    pose = pose.clone()
-    pose[:, :2, 3] += origin
+    if origin is not None:
+        pose = pose.clone()
+        pose[:, :2, 3] += origin
     return IcpResult(
         pose=pose,
         success=~failed & (fitness <= params.max_fitness_score),
@@ -1047,5 +1118,5 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
         local_cov=local_cov,
         iterations=iterations,
         overlap=overlap,
-        dropped=asg.dropped.to(torch.int32),
+        dropped=dropped,
     )

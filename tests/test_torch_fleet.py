@@ -17,11 +17,14 @@ of the same world, 2 s each.
   equals three single-lane plain calls bit for bit, on a fleet frame with
   one lane holding no valid point (its registration fails the overlap gate
   after one iteration, before the others stop).
-* The ValueErrors of JAX's run_fused_fleet, ``states=`` passed in, and the
-  configurations whose lane forms are not ported (the hash backend, radar
-  covariances, ``use_imu=False``) refused with NotImplementedError naming
-  ROADMAP Queue 1 "Fleet". (GICP, VGICP, AVGICP and CAN + GPS fusion:
-  tests/test_torch_fleet_methods.py, tests/test_torch_fleet_fusion.py.)
+* The ValueErrors of JAX's run_fused_fleet and ``states=`` passed in.
+* Eight configurations past the tile P2P frame (the hash backend, radar
+  covariances on every method, ``use_imu=False``, hash GICP, hash AVGICP
+  with GPS): a two-lane float32 fleet of short logs, each lane its log's
+  run_fused bit for bit. (GICP, VGICP, AVGICP and CAN + GPS fusion:
+  tests/test_torch_fleet_methods.py, tests/test_torch_fleet_fusion.py; the
+  hash backend and the radar forms against JAX: tests/
+  test_torch_fleet_hash.py, tests/test_torch_fleet_radar.py.)
 * ``cuda``-marked (skipped without a card): each kernel's lane form against
   its plain lane form and bit for bit against single-lane launches. This
   module imports JAX only inside its JAX fixture, so those cases also run
@@ -38,6 +41,7 @@ import torch
 from elimaloc_tpu_torch import config as tconfig
 from elimaloc_tpu_torch import convert, kernels
 from elimaloc_tpu_torch.kernels import build
+from elimaloc_tpu_torch.map import builder as tbuilder
 from elimaloc_tpu_torch.map import grid as tgrid
 from elimaloc_tpu_torch.map import tiles as ttiles
 from elimaloc_tpu_torch.map.tiles import TileQueryBudget as TBudget
@@ -252,34 +256,55 @@ def test_fleet_splits_a_frame_past_one_launch(world_logs, pipe64, monkeypatch):
             np.testing.assert_array_equal(fleet[k][i], v, err_msg=f"lane {i} {k}")
 
 
-def _refused_cfg(change):
-    """The configuration of a refusal case: "radar" is P2P with radar
-    covariances (refused for every method), "X+radar" method X with them,
-    "hash X" method X on the hash backend, "hash AVGICP+GPS" with GPS."""
+def _change_cfg(change):
+    """The configuration of a case: "radar" is P2P with radar covariances
+    (which P2P ignores), "X+radar" method X with them, "hash X" method X on
+    the hash backend, "hash AVGICP+GPS" with GPS, "tick_mode"
+    ``use_imu=False``; VGICP and AVGICP with bench.py's
+    ``max_fitness_score=2.0``."""
     cfg = tiny_cfg(tconfig)
     method = change.split()[-1].split("+")[0]
     if method in ("GICP", "VGICP", "AVGICP"):
         cfg.pcm.icp_method = tconfig.IcpMethod[method]
+    if method in ("VGICP", "AVGICP"):
+        cfg.pcm.max_fitness_score = 2.0
     cfg.pcm.use_radar_cov = change.endswith("radar")
     cfg.ekf.use_gps = change.endswith("+GPS")
     cfg.ekf.use_imu = change != "tick_mode"
     return cfg
 
 
+@pytest.fixture(scope="module")
+def world_built(world_logs):
+    """The tiny_pipe world's map with both covariances, built once."""
+    return tbuilder.build_voxel_map(world_logs[0], 1.0, 30, compute_voxel_cov=True,
+                                    compute_point_cov=True, use_native=False)
+
+
 @pytest.mark.parametrize("change", ["hash", "radar", "tick_mode", "GICP+radar", "VGICP+radar",
                                     "AVGICP+radar", "hash GICP", "hash AVGICP+GPS"])
-def test_fleet_refuses_unported_configurations(world_logs, change):
-    """A P2P pipeline (the hash ones built so) hot-reloaded into each
-    configuration whose lane forms are not ported: its fleet replay is
-    refused before any frame runs."""
-    world, logs = world_logs
+def test_fleet_runs_every_configuration(world_logs, world_built, change):
+    """A float32 pipeline in each configuration past the tile P2P frame
+    (all refused before the hash, radar and use_imu=False lane forms):
+    a two-lane fleet of 0.4 s logs, each lane its log's run_fused, every
+    output of every frame bit for bit; every slot assigned."""
+    world, _ = world_logs
+    # GPS at 10 Hz: fixes inside the short logs
+    logs = [tlog.synthesize_log(world, duration=0.4, points_per_scan=1024, max_range=50.0,
+                                seed=seed, gps_hz=10.0) for seed in (10, 77)]
     hashed = change.startswith("hash")
-    kw = {"backend": "hash"} if hashed else {"halo_margin": 2}
-    pipe = TPipeline(tiny_cfg(tconfig), world[:3000], device="cpu", **KW, **kw)
-    if change != "hash":
-        pipe.reload_config(_refused_cfg(change))
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1, "Fleet"'):
-        pipe.run_fused_fleet(logs)
+    kw = {"backend": "hash"} if hashed else {"tile_budget": TBudget(qb=8, max_slots=512)}
+    pipe = TPipeline(_change_cfg(change), world_built, device="cpu", **{**KW, **kw})
+    assert pipe.static.icp_static.backend == ("hash" if hashed else "tile")
+    assert pipe.static.use_imu == (change != "tick_mode")
+    _, fleet = pipe.run_fused_fleet(logs)
+    assert fleet["ego_pos"].shape == (2, len(logs[0].scan_t), 3)
+    assert int(fleet["slots_dropped"].max()) == 0
+    for i, log in enumerate(logs):
+        _, single = pipe.run_fused(log)
+        assert set(single) == set(fleet)
+        for k, v in single.items():
+            np.testing.assert_array_equal(fleet[k][i], v, err_msg=f"{change} lane {i} {k}")
 
 
 def test_lane_limit_matches_the_loop():

@@ -132,24 +132,29 @@ def test_fused_batches_bit_identical(both_worlds):
 
 @pytest.mark.parametrize("change", ["fleet", "hash"])
 def test_pipeline_refuses_unported(both_worlds, change):
+    """A GICP + radar pipeline ("fleet") and a hash-backend one ("hash"),
+    whose fleet replays were refused until their lane forms were ported
+    (tests/test_torch_fleet*.py run them now): their fleet replay refuses
+    only what JAX's run_fused_fleet refuses (runtime.py:1590-1649; here an
+    empty fleet, which shares no scan count), and the registration still
+    refuses what is not ported, naming its ROADMAP Queue 1 item
+    (multi-device registration, "parallel/sharding.py")."""
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
     kw = {}
     if change == "fleet":
-        # fleet replay runs every method on the tile backend without radar
-        # covariances (tests/test_torch_fleet*.py); a GICP + radar
-        # pipeline's fleet is refused
         cfg.pcm.icp_method = tconfig.IcpMethod.GICP
         cfg.pcm.use_radar_cov = True
     if change == "hash":
-        # a hash-backend pipeline builds (the test below); its fleet replay
-        # is refused
         kw["backend"] = "hash"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False,
-                                             **kw)
-        # the pipeline is built; its fleet replay (JAX runtime.py:1590) is refused
+    pipe = truntime.LocalizationPipeline(cfg, tw[:1000], device="cpu", use_native=False, **kw)
+    with pytest.raises(ValueError, match="share a scan count"):
         pipe.run_fused_fleet([])
+    from elimaloc_tpu_torch.register import icp as ticp
+
+    sharded = dataclasses.replace(pipe.static.icp_static, psum_axis="lanes")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        ticp.check_supported(sharded)
 
 
 @pytest.mark.parametrize("change", ["gicp_radar", "tick_mode", "hash", "hash_gicp_radar"])
@@ -224,10 +229,36 @@ def test_no_jax_import_anywhere_in_source(path):
     assert not bad, (path, bad)
 
 
+def _ctypes_kind(param):
+    """The ctypes argument types a C parameter declaration may be bound
+    with: a pointer (``cudaStream_t`` is one) any ctypes pointer type,
+    ``int`` ``c_int``, ``float`` ``c_float``, ``long long``
+    ``c_longlong``."""
+    import ctypes
+
+    decl = " ".join(param.split()[:-1])  # the type: the name dropped
+    if "*" in decl or decl == "cudaStream_t":
+        return "pointer"
+    return {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}[decl.replace("const ", "")]
+
+
+def _bound_kind(argtype):
+    import ctypes
+
+    if argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer):
+        return "pointer"
+    return argtype
+
+
 def test_every_kernel_entry_point_has_its_ctypes_signature():
     """Each ``extern "C" int elm_*`` of csrc/*.cu is bound in
     kernels/build.py with as many argument types as the C function has
-    parameters (ctypes would pass an unbound pointer as a 32-bit int)."""
+    parameters (ctypes would pass an unbound pointer as a 32-bit int), each
+    of the parameter's kind: a pointer as ``c_void_p`` or a ctypes pointer
+    type, an ``int`` as ``c_int``, a ``float`` as ``c_float``, a ``long
+    long`` as ``c_longlong`` (a float bound as an int, or an int where the C
+    entry takes a pointer, passes the wrong bits without an error)."""
     import re
 
     from elimaloc_tpu_torch.kernels import build
@@ -236,10 +267,13 @@ def test_every_kernel_entry_point_has_its_ctypes_signature():
     for src in build.sources():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (elm_\w+)\(([^)]*)\)', text):
-            found[m.group(1)] = len([p for p in m.group(2).split(",") if p.strip()])
+            found[m.group(1)] = [p.strip() for p in m.group(2).split(",") if p.strip()]
     assert set(found) == set(build._SIGNATURES)
-    for name, n in found.items():
-        assert len(build._SIGNATURES[name]) == n, name
+    for name, params in found.items():
+        bound = build._SIGNATURES[name]
+        assert len(bound) == len(params), name
+        for i, (param, argtype) in enumerate(zip(params, bound)):
+            assert _bound_kind(argtype) == _ctypes_kind(param), (name, i, param, argtype)
     assert {"elm_ring_push", "elm_scan_ring_query", "elm_pcm_measurement",
             "elm_gn_step", "elm_shift_window", "elm_ca_tick", "elm_radar_cov",
             "elm_hash_search_reduce", "elm_hash_query", "elm_hash_lookup",
