@@ -178,6 +178,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      version, the launch floor (an empty kernel) beside the lookup; each hash
      path's trajectory against its method's tile path (P2P, GICP, VGICP
      under the closed-loop contract; AVGICP's ATE beside the tile path's);
+     "tile queries" (``tile_query_phase``): the tile map's one-shot
+     queries (``map.tiles``: the nearest point, with GICP's covariance, the
+     nearest voxel, the 7 voxels) on the headline map at the "hash grid"
+     queries, some off the map and 5% not valid: the counts from 0 around
+     the four calls, kernel B 4, A 2, E, F, G once each and nothing else,
+     each call under set_sync_debug_mode("error"), each output bit for bit
+     its plain version, no slot dropped, kernel Y's answers on the same
+     queries (valid equal, distances, means and covariances within 1e-5),
+     and (``window_query_check``, run inside "P2P windowed") the replay's
+     window against the full map (ok equal, targets and means within 1e-5
+     m);
   5c. "P2P long lead" (``long_lead_phase``): a small P2P log whose IMU
      stream leads its first scan by 12 s, every frame padded past one
      launch of kernel H: run_fused and run_frames on the card with H
@@ -489,6 +500,31 @@ GRID_QUERY = ("elimaloc_tpu_torch/csrc/grid_query.cu",
               ":233 query_nearest_voxel_cov, :254 query_all_voxel_cov (+ :153 lookup)")
 GROUND_PROBE = ("elimaloc_tpu_torch/csrc/ground_probe.cu",
                 "elimaloc_tpu/map/grid.py:320 find_ground_height")
+#: the tile map's one-shot queries (map/tiles.py), per form: its function and
+#: keywords, the search kernels its card route launches after kernel B, the
+#: hash grid's function of the same method (kernel Y), the kernels' sources
+#: and the JAX function it ports
+TILE_QUERIES = "tile queries"
+TILE_QUERY = {
+    "P2P": ("query_nearest_point", {}, ("p2p_correspond",), "query_nearest_point",
+            "assign.cu + correspond.cu",
+            "elimaloc_tpu/map/tiles.py:776 query_nearest_point (+ :577 assign_slots, :712 "
+            "nearest_point_slots, :696 _scatter_back)"),
+    "GICP": ("query_nearest_point", {"with_point_cov": True},
+             ("p2p_correspond", "gicp_correspond"), "query_nearest_point_cov",
+             "assign.cu + correspond.cu + gicp.cu",
+             "elimaloc_tpu/map/tiles.py:776 query_nearest_point(with_point_cov) (+ :577, "
+             ":712, :696)"),
+    "VGICP": ("query_nearest_voxel_cov", {}, ("vgicp_correspond",), "query_nearest_voxel_cov",
+              "assign.cu + vgicp.cu",
+              "elimaloc_tpu/map/tiles.py:848 query_nearest_voxel_cov (+ :577, :803, :696)"),
+    "AVGICP": ("query_all_voxel_cov", {}, ("avgicp_correspond",), "query_all_voxel_cov",
+               "assign.cu + avgicp.cu",
+               "elimaloc_tpu/map/tiles.py:909 query_all_voxel_cov (+ :577, :869, :696)"),
+}
+#: queries of the headline scan moved off the map, and every TILE_NOT_VALID-th
+#: one marked not valid (5%)
+TILE_OFF_MAP, TILE_NOT_VALID = 8, 20
 #: the tile backend's kernels, never launched on a hash path
 TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_correspond",
              "avgicp_correspond", LOOP, GICP_LOOP, VGICP_LOOP, AVG_LOOP)
@@ -631,6 +667,11 @@ def bound(ops, nbytes):
     operations over F32_OPS."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs(t):
+    """The largest |entry| of ``t``, 0 when it is empty."""
+    return float(t.abs().max()) if t.numel() else 0.0
 
 
 def nbytes(*tensors):
@@ -1236,6 +1277,185 @@ def hash_grid_phase(pipe, calls, mods):
                                                          "ground_probe", "hash_query",
                                                          "ground_height")},
                  "ground": {"found": bool(found), "z": float(z)}, "launch_floor": floor}
+
+
+def tile_query_phase(pipe, grid_pipe, calls, mods, windowed, deferred):
+    """The tile map's one-shot queries on the card (``map.tiles``), on the
+    headline tile map with both covariances (the tile P2P pipeline's, halo
+    margin 1) and the P2P hash path's last recorded GN iteration's world
+    queries (those of the "hash grid" phase), TILE_OFF_MAP of them moved off
+    the map, every TILE_NOT_VALID-th one and the downsample's padding not
+    valid, at the pipeline's budget. The counts set to 0 just before the
+    four calls and read just after: kernel B 4, A 2, E 1, F 1, G 1, nothing
+    else (no loop kernel); each call under set_sync_debug_mode("error").
+    Each output bit for bit its plain version on the same tensors; no slot
+    dropped. Against kernel Y on the hash grid of the same map on the same
+    queries: valid equal (Y's and the input's), the nearest distances within
+    1e-5 m (tests/test_tiles.py:42-48), GICP's covariance and mean where the
+    same point was chosen, VGICP's and AVGICP's means and covariances within
+    1e-5 where valid. ``windowed``: the windowed check's summary
+    (``window_query_check``). A row a query form: B + its search kernel(s)
+    + the scatter, its event ms, Y's beside it; device ms (the call's
+    kernels, and Y's) in the profiler pass; into ``deferred``, a profiled
+    pass a form that splits its device time by kernel."""
+    kernels, grid_mod, tiles, icp = mods[0], mods[2], mods[3], mods[4]
+    tmap, g = pipe.map, grid_pipe.map
+    budget = pipe.static.icp_static.tile_budget
+    md = pipe.params.icp.max_search_dist
+    a, _ = calls["hash_correspond"]
+    q = icp.transform_slots(a[3], a[1])
+    q[:TILE_OFF_MAP, :2] += 1000.0
+    valid = a[2].clone()
+    valid[::TILE_NOT_VALID] = False
+    n = q.shape[0]
+
+    def call(m):
+        name, kw = TILE_QUERY[m][:2]
+        return lambda: getattr(tiles, name)(tmap, q, valid, md, budget, **kw)
+
+    got, per_call = {}, {}
+    kernels.reset_launches()
+    for m in TILE_QUERY:
+        before = dict(kernels.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got[m] = call(m)()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_call[m] = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    want = {"assign_slots": 4, "p2p_correspond": 2, "gicp_correspond": 1,
+            "vgicp_correspond": 1, "avgicp_correspond": 1}
+    if launches != want:
+        raise AssertionError(f"[{TILE_QUERIES}] launches {launches}, not {want}")
+    asg = tiles.assign_slots(tmap, q, valid, budget)
+    if int(asg.dropped):
+        raise AssertionError(f"[{TILE_QUERIES}] {int(asg.dropped)} queries dropped")
+    n_tiles = int(torch.unique(asg.slot_tile[asg.qmask.any(1)]).numel())
+    live = int(asg.qmask.sum())
+    out, summary = [], {"queries": n, "valid_in": int(valid.sum()), "tiles": n_tiles,
+                        "budget": [budget.qb, budget.max_slots], "launches": launches,
+                        "per_call": per_call, "windowed": windowed}
+    ys = {m: getattr(grid_mod, TILE_QUERY[m][3])(g, q, md) for m in TILE_QUERY}
+    ok_at = {"P2P": (1, 1), "GICP": (1, 3), "VGICP": (2, 2), "AVGICP": (2, 2)}
+    for m, (name, kw, searches, y_name, src, replaces) in TILE_QUERY.items():
+        plain = getattr(tiles, f"{name}_plain")
+        ref = plain(tmap, q, valid, md, budget, **kw)
+        for i, (x, y) in enumerate(zip(got[m], ref)):
+            if not (x.shape == y.shape and torch.equal(x, y)):
+                raise AssertionError(f"[{TILE_QUERIES}] {m} output {i} differs from plain")
+        t_ok, y_ok = got[m][ok_at[m][0]], ys[m][ok_at[m][1]]
+        v_in = valid if y_ok.dim() == 1 else valid[:, None]
+        if not torch.equal(t_ok, y_ok & v_in):
+            raise AssertionError(f"[{TILE_QUERIES}] {m}: valid differs from kernel Y's in "
+                                 f"{int((t_ok != (y_ok & v_in)).sum())} queries")
+        errs = {}
+        if m in ("P2P", "GICP"):
+            q64 = q.double()
+            d_t = (got[m][0].double() - q64).norm(dim=1)[t_ok]
+            d_y = (ys[m][0].double() - q64).norm(dim=1)[t_ok]
+            errs["nearest_distance_m"] = max_abs(d_t - d_y)
+            if m == "GICP":
+                same = t_ok & torch.isclose(got[m][0], ys[m][0]).all(1)
+                errs["same_point"] = int(same.sum())
+                errs["cov"] = max_abs((got[m][2] - ys[m][1])[same])
+                errs["mean_m"] = max_abs((got[m][3] - ys[m][2])[same])
+        else:
+            errs["cov"] = max_abs((got[m][0] - ys[m][0])[t_ok])
+            errs["mean_m"] = max_abs((got[m][1] - ys[m][1])[t_ok])
+        if not all(v <= 1e-5 for k, v in errs.items() if k != "same_point"):
+            raise AssertionError(f"[{TILE_QUERIES}] {m} against kernel Y: {errs}")
+        matched = int(t_ok.sum())
+        row = (tmap.halo_points if m in ("P2P", "GICP") else tmap.halo_vox_mean).shape[1]
+        cand_b, match_b, _ = SEARCH_COST[m]
+        # the queries and the mask read once, the halo rows of the tiles in
+        # use, the matched rows' covariance gathers, the outputs; 6
+        # operations per candidate (the 27-voxel cube test)
+        moved = nbytes(q, valid, *got[m]) + n_tiles * row * cand_b + matched * match_b
+        y_fn = getattr(grid_mod, y_name)
+        ms, y_ms = time_ms(call(m)), time_ms(lambda: y_fn(g, q, md))
+        summary[m] = {"valid": matched, "against_kernel_y": errs, "ms": ms, "kernel_y_ms": y_ms}
+        log_line(f"  {TILE_QUERIES}[{m}]: {n} queries ({live} in slots, {n_tiles} tiles), "
+                 f"valid {matched}, launches {per_call[m]}, bit for bit = plain; against "
+                 f"kernel Y {errs}; event {ms:.4f} ms, kernel Y {y_ms:.4f} ms")
+        out.append(dict(name=f"tile_query[{m}]", route="cuda",
+                        source=" + ".join(f"elimaloc_tpu_torch/csrc/{f}"
+                                          for f in src.split(" + ")),
+                        replaces=replaces, max_abs_err=0.0, ms=ms,
+                        plain_ms=time_ms(lambda: plain(tmap, q, valid, md, budget, **kw)),
+                        launches=sum(per_call[m].values()), device_fn=(call(m), ""),
+                        chain_fn=lambda y_fn=y_fn: y_fn(g, q, md),
+                        chain_label=f"kernel Y (grid.{y_name}) on the same queries",
+                        bound=bound(live * row * 6, moved)))
+    log_line(f"[{TILE_QUERIES}] launches {launches}; no slot dropped; windowed: {windowed}")
+
+    def split():
+        summary["device_split_ms"] = {}
+        for m in TILE_QUERY:
+            per, _ = device_profile(lambda m=m: [call(m)() for _ in range(REPEATS)])
+            ms = {k: v / REPEATS * 1e-3 for k, v in sorted(per.items(), key=lambda kv: -kv[1])}
+            summary["device_split_ms"][m] = ms
+            log_line(f"[{TILE_QUERIES}] {m}: device ms a call by kernel ({REPEATS} calls under "
+                     "torch.profiler): " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ms.items()))
+    deferred.append(split)
+    return out, summary
+
+
+def window_query_check(wmap, fmap, built, tiles, budget):
+    """The "P2P windowed" pipeline's window ``wmap`` (as the replay left
+    it) against the full map ``fmap``: map voxel means inside the window
+    (one tile in from its edge) plus noise, on a 2^-10 m grid so that their
+    window-local and world coordinates are both exact in float32, through
+    the four one-shot queries of each map; each windowed call bit for bit
+    its plain version, ``ok`` equal, the targets and means with the origin
+    added back within 1e-5 m, the covariances equal."""
+    ax0, ay0 = wmap.grid_origin
+    ts = wmap.tile_size
+    origin = torch.zeros(3, dtype=torch.float64, device=wmap.origin.device)
+    origin[:2] = wmap.origin.double()
+    o = origin.cpu().numpy()
+    lo = np.array([(ax0 + 1) * ts, (ay0 + 1) * ts]) + o[:2]
+    hi = np.array([(ax0 + wmap.tx_dim - 1) * ts, (ay0 + wmap.ty_dim - 1) * ts]) + o[:2]
+    rng = np.random.default_rng(7)
+    means = built.vox_mean[np.all((built.vox_mean[:, :2] >= lo) & (built.vox_mean[:, :2] < hi),
+                                  axis=1)]
+    pick = means[rng.choice(len(means), min(8192, len(means)), replace=False)]
+    pts = np.round((pick + rng.normal(0.0, 0.3, pick.shape)) * 1024.0) / 1024.0
+    q_world = torch.as_tensor(pts, dtype=torch.float32, device=wmap.origin.device)
+    q_local = (q_world.double() - origin).float()
+    if not torch.equal((q_local.double() + origin).float(), q_world):
+        raise AssertionError(f"[{TILE_QUERIES}] windowed: local queries not exact")
+    valid = torch.ones(len(pts), dtype=torch.bool, device=q_world.device)
+    res = {"queries": len(pts), "tile_anchor": list(wmap.tile_anchor)}
+    world_at = {"P2P": (0,), "GICP": (0, 3), "VGICP": (1,), "AVGICP": (1,)}
+    cov_at = {"GICP": (2,), "VGICP": (0,), "AVGICP": (0,)}
+    for m, (name, kw) in ((m, v[:2]) for m, v in TILE_QUERY.items()):
+        fn = getattr(tiles, name)
+        got = fn(wmap, q_local, valid, 5.0, budget, **kw)
+        ref = getattr(tiles, f"{name}_plain")(wmap, q_local, valid, 5.0, budget, **kw)
+        full = fn(fmap, q_world, valid, 5.0, budget, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"[{TILE_QUERIES}] windowed {m} differs from its plain version")
+        k = -1 if m in ("VGICP", "AVGICP") else 1
+        if not torch.equal(got[k], full[k]):
+            raise AssertionError(f"[{TILE_QUERIES}] windowed {m}: ok differs from the full "
+                                 f"map's in {int((got[k] != full[k]).sum())} queries")
+        shape = (1,) * (got[world_at[m][0]].dim() - 1) + (3,)
+        err = max(float((got[i].double() + origin.view(shape) - full[i].double()).abs().max())
+                  for i in world_at[m])
+        covs = all(torch.equal(got[i], full[i]) for i in cov_at.get(m, ()))
+        if not (err <= 1e-5 and covs):
+            raise AssertionError(f"[{TILE_QUERIES}] windowed {m}: {err} m from the full map, "
+                                 f"covariances equal: {covs}")
+        res[m] = {"valid": int(got[k].sum()), "max_err_m": err}
+    for tmap in (wmap, fmap):
+        if int(tiles.assign_slots(tmap, q_local if tmap is wmap else q_world, valid,
+                                  budget).dropped):
+            raise AssertionError(f"[{TILE_QUERIES}] windowed: slots dropped")
+    log_line(f"[{TILE_QUERIES}] windowed: the window at tile anchor {wmap.tile_anchor} against "
+             f"the full map on {len(pts)} queries: ok equal, bit for bit = plain, {res}")
+    return res
 
 
 def p_args(a):
@@ -3586,6 +3806,8 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
         log_line(f"[{WINDOWED}] kernel shift_window: max_abs_err 0, {row['ms']:.4f} ms vs plain "
                  f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms (bytes)")
         shifts = shift_chain_check(packed[1], mods)
+        window_queries = window_query_check(pipe.map, full.map, built, tiles,
+                                            tiles.TileQueryBudget(qb=16, max_slots=2048))
 
         def forced(p):
             orig = p._start_prefetch
@@ -3672,7 +3894,7 @@ def windowed_path(built, wlog, packed, mods, ate_rmse):
     row["launches"] = launches["shift_window"]
     summary.update(full_map_ate_m=full_ate, window_mb=win_bytes / 1e6,
                    full_map_mb=full_bytes / 1e6, index_select_roll_ms=roll_ms,
-                   shift_chain=shifts, reloc=reloc)
+                   shift_chain=shifts, reloc=reloc, tile_queries=window_queries)
     return [row], summary
 
 
@@ -4620,6 +4842,10 @@ def main():
     if any(kernels.launches[k] for k in TILE_ONLY):
         raise AssertionError(f"[reloc hash] a tile kernel ran: {kernels.launches}")
     r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)
+    rows += r
+    r, slices[TILE_QUERIES] = tile_query_phase(pipes["P2P"], pipes["P2P hash"],
+                                               recs["P2P hash"].calls, mods,
+                                               slices[WINDOWED]["tile_queries"], deferred)
     rows += r
     slices[LEAD] = long_lead_phase(mods, builder, log_mod)
     fleet_mods = {"kernels": kernels, "runtime": runtime, "tiles": tiles, "icp": icp,

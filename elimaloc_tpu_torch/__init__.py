@@ -19,7 +19,8 @@ hand-written CUDA kernels on Hopper (csrc/; see ``kernels``): the loop
 kernels (one cooperative launch a registration, or a fleet frame's
 registrations: A, E, F, G, the tile search + Gauss-Newton kernel of each
 ICP method, or Q on the hash grid, with M's step, every GN iteration; A,
-E, F, G, Q and M alone are only the loops' references), B (slot
+E, F, G, Q and M alone are the loops' references, and A, E, F and G, after
+B, also serve the tile map's one-shot queries), B (slot
 assignment), C (voxel downsample), D (deskew), H (the frame's IMU stage), I (the CAN and GPS
 updates), J (the ring pushes), K (the ring queries at a scan's times), L
 (the PCM measurement), M (the GN step), N (the window shift), O (the CA

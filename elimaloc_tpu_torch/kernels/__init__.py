@@ -12,9 +12,11 @@ GPS + CAN) and of the event loop except the method's loop kernel on the
 tile backend (p2p_register, gicp_register, vgicp_register,
 avgicp_register: one of them a path), N, U, V and X, kernel W, which runs
 only for CAN and GPS, the one-iteration entries A, E, F, G, Q and M, which
-launch on no path (a loop kernel runs their slot code and M's step every
-iteration; they stay as the reference each loop is held to, and E and F
-for the matches), L, whose body runs inside S, D and K, whose bodies run
+launch on no replay path (a loop kernel runs their slot code and M's step
+every iteration; they stay as the reference each loop is held to), though
+A, E, F and G, after B, also serve the tile map's one-shot queries with
+their matches (map/tiles.py: query_nearest_point, query_nearest_voxel_cov,
+query_all_voxel_cov), L, whose body runs inside S, D and K, whose bodies run
 inside T, O and J, which launch on no path (U runs O's body and J's
 push, V H's IMU intake; they stay as U's and V's reference), and I and P,
 which launch on no path either (W and X, their redesigns, are held to

@@ -18,7 +18,12 @@ that point's covariance and neighbourhood mean), ``nearest_voxel_cov_slots``
 (csrc/assign.cu) on a CUDA tensor and runs :func:`assign_slots_plain` on a
 CPU one. On CUDA each search is fused with its method's GN reduction into
 one kernel (A, E, F, G; register/icp.py); the plain versions here are their
-search halves. ``shift_window`` moves a resident window incrementally:
+search halves. The map's own one-shot queries in query order,
+``query_nearest_point`` (``with_point_cov`` for GICP),
+``query_nearest_voxel_cov`` and ``query_all_voxel_cov``, run B and then
+kernel A (A and E), F or G with its matches on a CUDA tensor, the plain
+assignment and search on a CPU one, and go back to query order through
+:func:`scatter_back`. ``shift_window`` moves a resident window incrementally:
 kernel N (csrc/window_shift.cu) on CUDA, :func:`shift_window_plain` on CPU.
 A window's ``tile_anchor`` reaches every search through
 ``TileMap.grid_origin``.
@@ -74,6 +79,14 @@ class TileMap(Struct):
         return self.tx0 + self.tile_anchor[0], self.ty0 + self.tile_anchor[1]
 
     @property
+    def search_geometry(self) -> dict:
+        """The tile geometry the search kernels take as host numbers, the
+        window anchor included (``grid_origin``)."""
+        ax0, ay0 = self.grid_origin
+        return dict(voxel_size=self.voxel_size, tile_size=self.tile_size, tx0=ax0, ty0=ay0,
+                    ty_dim=self.ty_dim)
+
+    @property
     def num_tiles(self) -> int:
         return self.tx_dim * self.ty_dim
 
@@ -90,6 +103,11 @@ class TileQueryBudget:
     qb: int = 32
     max_slots: int = 2560
     chunk: int = 88
+
+    def for_queries(self, n: int) -> "TileQueryBudget":
+        """The budget for a batch of ``n`` queries: this one, whatever
+        ``n`` (tiles.py:109-110)."""
+        return self
 
 
 def _halo_membership(vox_xy, tile_voxels, tx0, ty0, tx_dim, ty_dim,
@@ -771,3 +789,190 @@ def all_voxel_cov_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
         outs.append((torch.where(ok[..., None, None], cov, _eye_like(cov)),
                      torch.where(ok[..., None], mean, q[:, :, None, :]), ok))
     return tuple(torch.cat(x) for x in zip(*outs))
+
+
+# --------------------------------------------------------------------------- #
+# One-shot queries in query order: kernel B, then A, E, F or G with matches
+# --------------------------------------------------------------------------- #
+
+#: the halo fields each one-shot query reads
+_POINT_FIELDS = ("halo_points",)
+_POINT_COV_FIELDS = ("halo_points", "halo_point_cov", "halo_point_cov_mean")
+_VOXEL_FIELDS = ("halo_vox_mean", "halo_vox_cov", "halo_vox_coord")
+
+
+def _need(tmap: TileMap, name: str, fields):
+    """Raise as kernels E, F and G do (``kernels._halo_rows``) where the map
+    lacks a field the query reads, on either route and before any launch."""
+    for field in fields:
+        if getattr(tmap, field) is None:
+            raise ValueError(f"{name}: the tile map has no {field} "
+                             "(build it with the covariances this method needs)")
+
+
+def _max_dist(max_dist, queries):
+    """``max_dist`` (a Python float or a 0-dim tensor) as a 0-dim tensor of
+    the queries' dtype on their device (a fill, no host copy)."""
+    if isinstance(max_dist, torch.Tensor):
+        return max_dist.to(device=queries.device, dtype=queries.dtype).reshape(())
+    return torch.full((), max_dist, dtype=queries.dtype, device=queries.device)
+
+
+def _with_chunk(budget: TileQueryBudget, chunk):
+    """The budget whose ``chunk`` the plain searches use: ``chunk`` when
+    given (JAX's per-call override), else the budget's own."""
+    return budget if chunk is None else dataclasses.replace(budget, chunk=chunk)
+
+
+def scatter_back(n: int, qidx, *fields):
+    """[S,QB,...] slot results -> [N,...] in query order (tiles.py:696-705):
+    each ``(default, buf)`` gives ``default`` (a scalar or a tensor that
+    broadcasts over a row) wherever no slot holds the query (dropped, or
+    never assigned), ``buf``'s entry elsewhere. A scatter into n + 1 rows,
+    the unused entries (``qidx == n``) landing in the last, then a slice:
+    ``qidx`` is unique below n, so every kept row is written once and no
+    mask or readback is needed."""
+    idx = qidx.reshape(-1).long()
+    outs = []
+    for default, buf in fields:
+        flat = buf.reshape((-1,) + buf.shape[2:])
+        out = torch.empty((n + 1,) + flat.shape[1:], dtype=flat.dtype, device=flat.device)
+        if isinstance(default, torch.Tensor):
+            out.copy_(default)
+        else:
+            out.fill_(default)
+        out.index_copy_(0, idx, flat)
+        outs.append(out[:n])
+    return outs
+
+
+def _point_result(queries, qidx, res):
+    """Kernel A's or the plain search's (target, ok[, cov, mean]) in query
+    order; a target or mean that is not valid is the query itself, a
+    covariance the identity (tiles.py:788-799)."""
+    fields = [(0.0, res[0]), (False, res[1])]
+    if len(res) > 2:
+        eye = torch.eye(3, dtype=queries.dtype, device=queries.device)
+        fields += [(eye, res[2]), (0.0, res[3])]
+    out = scatter_back(queries.shape[0], qidx, *fields)
+    ok = out[1][:, None]
+    out[0] = torch.where(ok, out[0], queries)
+    if len(res) > 2:
+        out[3] = torch.where(ok, out[3], queries)
+    return tuple(out)
+
+
+def _voxel_result(queries, qidx, res):
+    """A VGICP (cov, mean, ok) or AVGICP (cov [.., 7, 3, 3], ...) result in
+    query order; a mean that is not valid is the query (tiles.py:858-866,
+    :919-928)."""
+    eye = torch.eye(3, dtype=queries.dtype, device=queries.device)
+    cov, mean, ok = scatter_back(queries.shape[0], qidx, (eye, res[0]), (0.0, res[1]),
+                                 (False, res[2]))
+    q = queries if ok.dim() == 1 else queries[:, None, :]
+    return cov, torch.where(ok[..., None], mean, q), ok
+
+
+def query_nearest_point_plain(tmap: TileMap, queries, valid, max_dist,
+                              budget: TileQueryBudget, *, with_point_cov: bool = False,
+                              chunk: Optional[int] = None):
+    """Plain version of :func:`query_nearest_point`: :func:`assign_slots_plain`,
+    :func:`nearest_point_slots`, then :func:`scatter_back`."""
+    _need(tmap, "query_nearest_point", _POINT_COV_FIELDS if with_point_cov else _POINT_FIELDS)
+    asg = assign_slots_plain(tmap, queries, valid, budget)
+    res = nearest_point_slots(tmap, asg.slot_tile, asg.qbuf, asg.qvox, asg.qmask,
+                              _max_dist(max_dist, queries), _with_chunk(budget, chunk),
+                              with_point_cov=with_point_cov)
+    return _point_result(queries, asg.qidx, res)
+
+
+def query_nearest_voxel_cov_plain(tmap: TileMap, queries, valid, max_dist,
+                                  budget: TileQueryBudget, chunk: Optional[int] = None):
+    """Plain version of :func:`query_nearest_voxel_cov`."""
+    _need(tmap, "query_nearest_voxel_cov", _VOXEL_FIELDS)
+    asg = assign_slots_plain(tmap, queries, valid, budget)
+    res = nearest_voxel_cov_slots(tmap, asg.slot_tile, asg.qbuf, asg.qvox, asg.qmask,
+                                  _max_dist(max_dist, queries), _with_chunk(budget, chunk))
+    return _voxel_result(queries, asg.qidx, res)
+
+
+def query_all_voxel_cov_plain(tmap: TileMap, queries, valid, max_dist,
+                              budget: TileQueryBudget, chunk: Optional[int] = None):
+    """Plain version of :func:`query_all_voxel_cov`."""
+    _need(tmap, "query_all_voxel_cov", _VOXEL_FIELDS)
+    asg = assign_slots_plain(tmap, queries, valid, budget)
+    res = all_voxel_cov_slots(tmap, asg.slot_tile, asg.qbuf, asg.qvox, asg.qmask,
+                              _max_dist(max_dist, queries), _with_chunk(budget, chunk))
+    return _voxel_result(queries, asg.qidx, res)
+
+
+def _card_search(tmap: TileMap, queries, valid, max_dist, budget: TileQueryBudget):
+    """The card route's set-up: kernel B's assignment, then the arguments
+    every search kernel takes after its halo rows: the slots, B's queries
+    as the source at the identity pose (the kernels' transform passes them
+    through exactly) and ``max_dist``."""
+    asg = assign_slots(tmap, queries, valid, budget)
+    eye = torch.eye(4, dtype=queries.dtype, device=queries.device)
+    return asg, (asg.slot_tile, asg.qbuf, asg.qmask, eye, _max_dist(max_dist, queries))
+
+
+def query_nearest_point(tmap: TileMap, queries, valid, max_dist, budget: TileQueryBudget,
+                        *, with_point_cov: bool = False, chunk: Optional[int] = None):
+    """Nearest map point within the exact 27-voxel cube of each query
+    [N,3] (world, or a window's local coordinates), gated by ``max_dist``
+    (tiles.py:776-800). Returns (target [N,3], valid [N]) plus, with
+    ``with_point_cov`` (GICP), (cov [N,3,3], mean [N,3]); a target or mean
+    that is not valid is the query, a covariance the identity. On CUDA
+    tensors: kernel B, then kernel A's matches (and kernel E's covariance
+    and mean with ``with_point_cov``), then :func:`scatter_back`; on CPU
+    tensors :func:`query_nearest_point_plain`. ``chunk`` is the plain
+    search's slots a step (JAX's API); a kernel takes every slot at once."""
+    if queries.device.type == "cpu":
+        return query_nearest_point_plain(tmap, queries, valid, max_dist, budget,
+                                         with_point_cov=with_point_cov, chunk=chunk)
+    _need(tmap, "query_nearest_point", _POINT_COV_FIELDS if with_point_cov else _POINT_FIELDS)
+    asg, args = _card_search(tmap, queries, valid, max_dist, budget)
+    geo = tmap.search_geometry
+    _, tgt, ok = kernels.p2p_correspond(tmap.halo_points, *args, **geo, with_matches=True)
+    res = (tgt, ok)
+    if with_point_cov:
+        # E writes no target: A's, on the same assignment (both first-index
+        # argmins of the same exact distances, so E's ok is A's)
+        _, cov, mean, _ = kernels.gicp_correspond(
+            tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, *args, **geo,
+            with_matches=True)
+        res += (cov, mean)
+    return _point_result(queries, asg.qidx, res)
+
+
+def query_nearest_voxel_cov(tmap: TileMap, queries, valid, max_dist,
+                            budget: TileQueryBudget, chunk: Optional[int] = None):
+    """VGICP: the covariance and mean of the 27-cube voxel whose mean is
+    nearest (tiles.py:848-866). Returns (cov [N,3,3], mean [N,3],
+    valid [N]); a mean that is not valid is the query. Kernel B then kernel
+    F's matches on CUDA tensors, :func:`query_nearest_voxel_cov_plain` on
+    CPU ones."""
+    if queries.device.type == "cpu":
+        return query_nearest_voxel_cov_plain(tmap, queries, valid, max_dist, budget, chunk)
+    _need(tmap, "query_nearest_voxel_cov", _VOXEL_FIELDS)
+    asg, args = _card_search(tmap, queries, valid, max_dist, budget)
+    res = kernels.vgicp_correspond(tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord,
+                                   *args, **tmap.search_geometry, with_matches=True)
+    return _voxel_result(queries, asg.qidx, res[1:])
+
+
+def query_all_voxel_cov(tmap: TileMap, queries, valid, max_dist,
+                        budget: TileQueryBudget, chunk: Optional[int] = None):
+    """AVGICP: the 7 face-adjacent voxels' covariances and means where they
+    exist and pass the distance gate (tiles.py:909-928). Returns
+    (cov [N,7,3,3], mean [N,7,3], valid [N,7]); a mean that is not valid is
+    the query. Kernel B then kernel G's matches on CUDA tensors,
+    :func:`query_all_voxel_cov_plain` on CPU ones."""
+    if queries.device.type == "cpu":
+        return query_all_voxel_cov_plain(tmap, queries, valid, max_dist, budget, chunk)
+    _need(tmap, "query_all_voxel_cov", _VOXEL_FIELDS)
+    asg, args = _card_search(tmap, queries, valid, max_dist, budget)
+    res = kernels.avgicp_correspond(tmap.halo_vox_mean, tmap.halo_vox_cov,
+                                    tmap.halo_vox_coord, *args,
+                                    voxel_size=tmap.voxel_size, with_matches=True)
+    return _voxel_result(queries, asg.qidx, res[1:])

@@ -529,13 +529,6 @@ _PLAIN = {
 }
 
 
-def _tile_geometry(tmap):
-    """The tile geometry the searches take as host numbers."""
-    ax0, ay0 = tmap.grid_origin   # a shifted window's anchor (host ints)
-    return dict(voxel_size=tmap.voxel_size, tile_size=tmap.tile_size, tx0=ax0, ty0=ay0,
-                ty_dim=tmap.ty_dim)
-
-
 def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
                 radar=None):
     """One GN iteration's search + reduction on the card: the method's
@@ -543,7 +536,7 @@ def search_sums(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpPara
     given) -> the reduced sums, [18] for P2P (:func:`assemble_p2p`'s
     layout) or [44] (:func:`assemble_gn`'s)."""
     args = (slot_tile, sbuf, qmask, pose, params.max_search_dist)
-    geo = _tile_geometry(tmap)
+    geo = tmap.search_geometry
     if method == int(IcpMethod.P2P):
         return kernels.p2p_correspond(tmap.halo_points, *args, **geo)[0]
     if method == int(IcpMethod.GICP):
@@ -696,7 +689,7 @@ def p2p_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
                      budget, max_iteration)
     return kernels.p2p_register(
         tmap.halo_points, slot_tile, sbuf, qmask, pose, fitness, local_cov, total, params,
-        max_iteration, **_tile_geometry(tmap))
+        max_iteration, **tmap.search_geometry)
 
 
 def _tile_register_plain(search, gicp, tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov,
@@ -785,7 +778,7 @@ def gicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
     return kernels.gicp_register(
         tmap.halo_points, tmap.halo_point_cov, tmap.halo_point_cov_mean, slot_tile, sbuf,
         qmask, pose, fitness, local_cov, total, params, max_iteration, radar=radar,
-        **_tile_geometry(tmap))
+        **tmap.search_geometry)
 
 
 def vgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
@@ -801,7 +794,7 @@ def vgicp_register(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total
     return kernels.vgicp_register(
         tmap.halo_vox_mean, tmap.halo_vox_cov, tmap.halo_vox_coord, slot_tile, sbuf, qmask,
         pose, fitness, local_cov, total, params, max_iteration, radar=radar,
-        **_tile_geometry(tmap))
+        **tmap.search_geometry)
 
 
 def avgicp_register_plain(tmap, slot_tile, sbuf, qmask, pose, fitness, local_cov, total,
