@@ -33,7 +33,9 @@ the radar forms "GICP / VGICP / AVGICP hash+radar"; "GICP hash frames"
 (``run_frames``); "reloc hash" (``initialize_at`` on the P2P hash
 pipeline); "hash grid": the grid's own lookup (Q's lookup entry), four
 queries (kernel Y, Q's query entry redesigned) and ground probe (kernel Z,
-R redesigned) on the card; and "P2P long lead": a
+R redesigned) on the card; "functional replay": ``runtime.replay_fused``,
+``replay_fused_chunk`` and ``fused_frame_at`` on four of the pipelines
+above; and "P2P long lead": a
 small log whose IMU stream leads its first scan by 12 s (kernel H twice a
 frame), through ``run_fused`` and ``run_frames``; and the fleet paths
 "P2P fleet", "GICP fleet", "VGICP fleet", "AVGICP fleet", "AVG+GPS+CAN
@@ -188,7 +190,18 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      queries (valid equal, distances, means and covariances within 1e-5),
      and (``window_query_check``, run inside "P2P windowed") the replay's
      window against the full map (ok equal, targets and means within 1e-5
-     m);
+     m); "functional replay" (``functional_replay_phase``) on the P2P,
+     GICP, AVGICP+GPS+CAN and P2P hash pipelines: ``runtime.replay_fused``
+     from ``reset()`` on the log's batches moved to the card first, against
+     the path's timed run_fused (ego_pos within 1e-6 m, applied equal,
+     whether every output is bit for bit printed, the launch counts from 0
+     equal to the timed replay's), then ``replay_fused_chunk`` with chunks
+     of 8 (the last with 3 clamped rows): the first 21 rows and the final
+     state bit for bit replay_fused's, each clamped row bit for bit
+     ``fused_frame_at(20)`` on that state; every call under
+     set_sync_debug_mode("error") on the tile paths, "warn" (recorded) on
+     the hash path; replay_fused's scans/s beside run_fused's (the median
+     of five of each, in turns) and the path's timed one;
   5c. "P2P long lead" (``long_lead_phase``): a small P2P log whose IMU
      stream leads its first scan by 12 s, every frame padded past one
      launch of kernel H: run_fused and run_frames on the card with H
@@ -267,6 +280,7 @@ JSON line, and the card's name and power limit; the last line is
     python3 chip_smoke.py
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -274,6 +288,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -525,6 +540,13 @@ TILE_QUERY = {
 #: queries of the headline scan moved off the map, and every TILE_NOT_VALID-th
 #: one marked not valid (5%)
 TILE_OFF_MAP, TILE_NOT_VALID = 8, 20
+#: "[functional replay]": runtime.replay_fused, replay_fused_chunk and
+#: fused_frame_at on the pipelines of these run_fused paths, chunks of
+#: FUNCTIONAL_CHUNK frames
+FUNCTIONAL = "functional replay"
+FUNCTIONAL_PATHS = ("P2P", "GICP", FUSION, "P2P hash")
+FUNCTIONAL_CHUNK = 8
+FUNCTIONAL_PAIRS = 5
 #: the tile backend's kernels, never launched on a hash path
 TILE_ONLY = ("assign_slots", "p2p_correspond", "gicp_correspond", "vgicp_correspond",
              "avgicp_correspond", LOOP, GICP_LOOP, VGICP_LOOP, AVG_LOOP)
@@ -2875,7 +2897,8 @@ def run_path(path, log, packed, built, ds_points, max_slots, mods, ate_rmse, def
              f"{iters:.2f}")
     summary = {"scans_per_s": n / wall, "stage_ms": split, "frame_ms_p50": p50,
                "frame_ms_p95": p95, "ate_m": ate, "applied": applied,
-               "iterations_mean": iters, **loop_summary}
+               "iterations_mean": iters, **loop_summary,
+               "launches": {k: v for k, v in launches.items() if v}}
     if path == "P2P":
         log_line(f"[{path}] GN stage {split['gn']:.3f} ms a frame (three-launch loop: "
                  f"{CHAIN_P2P['gn_ms']}), {n / wall:.2f} scans/s (three-launch loop: "
@@ -3055,6 +3078,140 @@ def frames_path(pipe, log, fused, kernels, what=FRAMES, names=None):
         raise AssertionError(f"[{what}] run_frames differs from run_fused")
     return {"scans_per_s": n / wall, "frame_ms_p50": p50, "frame_ms_p95": p95,
             "stage_ms": split, "ego_pos_vs_fused_m": err}
+
+
+@contextlib.contextmanager
+def sync_watch(strict):
+    """torch.cuda.set_sync_debug_mode("error") when ``strict`` (a
+    synchronizing call raises), else "warn"; yields a dict that counts each
+    synchronizing call by its Python location and message."""
+    syncs = {}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("error" if strict else "warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            where = f"{Path(w.filename).name}:{w.lineno}: {str(w.message)[:80]}"
+            syncs[where] = syncs.get(where, 0) + 1
+
+
+def functional_replay_phase(path, pipe, log, fused, summary, mods):
+    """"[functional replay]" on the pipeline of run_fused path ``path``:
+    ``runtime.replay_fused`` from ``pipe.reset()`` on the log's batches
+    moved to the card first, against the path's timed run_fused ``fused``
+    (ego_pos within 1e-6 m, applied equal; whether every output is bit
+    for bit is printed), its launch counts from 0 equal to the timed
+    replay's (``summary``: the path's slice numbers); then
+    ``replay_fused_chunk`` with chunks of FUNCTIONAL_CHUNK from k0 = 0
+    (the last one ragged): the first n rows
+    and the final state bit for bit replay_fused's, each clamped row bit
+    for bit ``fused_frame_at(n - 1)`` from that state, the launches those
+    of the chunks' frames. On a tile path every call runs under
+    set_sync_debug_mode("error"); on the hash path under "warn", the
+    synchronizing calls recorded. Then FUNCTIONAL_PAIRS pairs of a
+    run_fused and a replay_fused (the batches already on the card, no
+    readback) on the same pipeline, in turns, each to a synchronize: the
+    median scans/s of each beside the path's timed run_fused."""
+    kernels, runtime = mods[0], mods[6]
+    timed = summary["launches"]
+    what = f"{FUNCTIONAL}] [{path}"
+    strict = not is_hash(path)
+    n = len(log.scan_t)
+    state = pipe.reset()
+    pipe._rebase(min(log.imu_t[0], log.scan_t[0]))
+    t0 = time.perf_counter()
+    batches = runtime.batches_to_device(
+        runtime.build_fused_batches(log, time_base=pipe.time_base), pipe.device, pipe.dtype)
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    args = (pipe.map, pipe.params, pipe.static)
+    kernels.reset_launches()
+    with sync_watch(strict) as syncs:
+        final, outs = runtime.replay_fused(state, batches, *args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    got = {k: v.cpu().numpy() for k, v in outs.items()}
+    err = float(np.abs(got["ego_pos"] - fused["ego_pos"]).max())
+    same_applied = bool(np.array_equal(got["applied"], fused["applied"]))
+    bits = all(v.dtype == fused[k].dtype
+               and np.array_equal(v, fused[k], equal_nan=v.dtype.kind == "f")
+               for k, v in got.items())
+    log_line(f"[{what}] replay_fused from reset: {n} frames, ego_pos vs run_fused max "
+             f"{err:.2e} m, applied equal {same_applied}, every output bit for bit "
+             f"{bits}; launches {launches} (the timed run_fused: {timed}); synchronizing "
+             "calls " + ("none (sync debug mode: error)" if strict else
+                         ", ".join(f"{k} x{v}" for k, v in sorted(syncs.items())) or "none"))
+    if not (err <= 1e-6 and same_applied and got["ego_pos"].shape == (n, 3)):
+        raise AssertionError(f"[{what}] replay_fused differs from run_fused")
+    if launches != timed:
+        raise AssertionError(f"[{what}] replay_fused launched {launches}, the timed run_fused "
+                             f"{timed}")
+
+    # the chunks: the first n rows and the state as replay_fused's, the
+    # clamped rows frame n - 1 on the final state
+    rows, chunk_syncs = [], {}
+    st = pipe.reset()
+    kernels.reset_launches()
+    for k0 in range(0, n, FUNCTIONAL_CHUNK):
+        with sync_watch(strict) as seen:
+            st, out = runtime.replay_fused_chunk(st, batches, k0, *args, FUNCTIONAL_CHUNK)
+        rows.append(out)
+        for k, v in seen.items():
+            chunk_syncs[k] = chunk_syncs.get(k, 0) + v
+    torch.cuda.synchronize()
+    chunk_launches = {k: v for k, v in kernels.launches.items() if v}
+    total = len(rows) * FUNCTIONAL_CHUNK
+    cat = {k: torch.cat([o[k] for o in rows]) for k in rows[0]}
+    with sync_watch(strict):
+        _, last = runtime.fused_frame_at(final, batches, n - 1, *args)
+    torch.cuda.synchronize()
+    head_bits = same_leaves(leaves({k: v[:n] for k, v in cat.items()}), leaves(outs))
+    state_bits = same_leaves(leaves(st), leaves(final))
+    tail_bits = all(same_leaves(leaves({k: v[j] for k, v in cat.items()}), leaves(last))
+                    for j in range(n, total))
+    want = {k: v // n * total for k, v in timed.items()}
+    log_line(f"[{what}] replay_fused_chunk x{len(rows)} (chunk {FUNCTIONAL_CHUNK}, "
+             f"{total - n} clamped rows): first {n} rows bit for bit {head_bits}, final "
+             f"state bit for bit {state_bits}, clamped rows = fused_frame_at({n - 1}) bit for "
+             f"bit {tail_bits}; launches {chunk_launches}; synchronizing calls "
+             + ("none (sync debug mode: error)" if strict else
+                ", ".join(f"{k} x{v}" for k, v in sorted(chunk_syncs.items())) or "none"))
+    if not (head_bits and state_bits and tail_bits and total - n > 0):
+        raise AssertionError(f"[{what}] the chunks differ from replay_fused")
+    if any(v % n for v in timed.values()) or chunk_launches != want:
+        raise AssertionError(f"[{what}] the chunks launched {chunk_launches}, not {want}")
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    sps = {"run_fused": [], "replay_fused": []}
+    for i in range(FUNCTIONAL_PAIRS):
+        order = ("run_fused", "replay_fused") if i % 2 == 0 else ("replay_fused", "run_fused")
+        for name in order:
+            sps[name].append(timed_run(
+                (lambda: pipe.run_fused(log)) if name == "run_fused" else
+                (lambda: runtime.replay_fused(pipe.reset(), batches, *args))))
+    med = {k: float(np.median(v)) for k, v in sps.items()}
+    log_line(f"[{what}] scans/s, median of {FUNCTIONAL_PAIRS} in turns (min-max): "
+             + ", ".join(f"{k} {med[k]:.2f} ({min(v):.2f}-{max(v):.2f})"
+                         for k, v in sps.items())
+             + f", ratio {med['replay_fused'] / med['run_fused']:.3f}; the path's timed "
+             f"run_fused {summary['scans_per_s']:.2f}; the batches' prep + upload "
+             f"{prep:.4f} s; card {card()}")
+    return {"replay_fused_scans_per_s": med["replay_fused"],
+            "run_fused_scans_per_s": med["run_fused"], "scans_per_s_runs": sps,
+            "batch_prep_upload_s": prep, "ego_pos_vs_fused_m": err,
+            "outputs_bit_for_bit": bits, "launches": launches,
+            "chunk_launches": chunk_launches, "clamped_rows": total - n,
+            "syncs": None if strict else {"replay": syncs, "chunks": chunk_syncs}}
 
 
 def events_path(pipe, log, fused, mods, ate_rmse, deferred):
@@ -4847,6 +5004,9 @@ def main():
                                                recs["P2P hash"].calls, mods,
                                                slices[WINDOWED]["tile_queries"], deferred)
     rows += r
+    for path in FUNCTIONAL_PATHS:
+        slices[f"{FUNCTIONAL} {path}"] = functional_replay_phase(
+            path, pipes[path], log, fused[path], slices[path], mods)
     slices[LEAD] = long_lead_phase(mods, builder, log_mod)
     fleet_mods = {"kernels": kernels, "runtime": runtime, "tiles": tiles, "icp": icp,
                   "grid": grid, "struct": struct_mod, "cfg": cfg_mod, "efilter": efilter}

@@ -1,17 +1,18 @@
 """The single-device fleet mode — port of ``elimaloc_tpu/parallel/
 sharding.py:256-281`` (:func:`stack_streams`, :func:`replay_fused_fleet`).
 
-JAX vmaps its fused replay over a leading lane axis: B vehicles' logs
-localized against one shared map in one program. Here the lane axis is a
-batch dimension of every stage of :func:`pipeline.runtime.fused_frame`: on
-the card each frame launches each kernel's lane form once for all B lanes
-(kernels H, C, S, on the tile backend B, with radar covariances X, with
-CAN or GPS fusion W, and the loop kernel of the method and backend, once
-for every 128 lanes; T's two kernels once each), on CPU tensors each stage
-runs its plain lane form. Per-lane trajectories equal
-single-stream replays: every lane's inputs go through the single frame's
-arithmetic, and the batched registration iterates until every lane's gates
-release, a stopped lane keeping its carry and its count.
+JAX's fleet is ``jax.vmap(replay_fused)``: B vehicles' logs localized
+against one shared map in one program. Here it is
+:func:`pipeline.runtime.replay_fused` on the lanes' frames, the lane axis
+a batch dimension of every stage of ``fused_frame``: on the card each
+frame launches each kernel's lane form once for all B lanes (kernels H,
+C, S, on the tile backend B, with radar covariances X, with CAN or GPS
+fusion W, and the loop kernel of the method and backend, once for every
+128 lanes; T's two kernels once each), on CPU tensors each stage runs its
+plain lane form. Per-lane trajectories equal single-stream replays: every
+lane's inputs go through the single frame's arithmetic, and the batched
+registration iterates until every lane's gates release, a stopped lane
+keeping its carry and its count.
 
 The sharded modes (``replay_fused_dp`` over a device mesh, the meshes, the
 sharded registration) are not ported: ROADMAP Queue 1,
@@ -55,22 +56,18 @@ def _no_mark(name):
 
 def replay_fused_fleet(states, batches, tmap, pp, ps, mark=_no_mark):
     """Multi-stream fused replay on the current device without a mesh
-    (JAX sharding.py:264-281): ``B`` lanes, one shared map. ``states``
-    carries the leading lane axis (:func:`stack_streams`), ``batches`` is
-    a dict of [B, F, ...] arrays or tensors (``runtime.fleet_batches``),
-    moved to the map's device once, frame-major. Each frame is
-    ``runtime.fused_frame`` on the lanes' frame ([B, ...] per key), the
-    outputs stacked on the device. Returns (states, outs), ``outs`` a dict
-    of [B, F, ...] device tensors with ``fused_frame``'s keys."""
-    from ..pipeline.runtime import batches_to_device, fused_frame
+    (JAX sharding.py:264-281, ``vmap(replay_fused)``): ``B`` lanes, one
+    shared map. ``states`` carries the leading lane axis
+    (:func:`stack_streams`), ``batches`` is a dict of [B, F, ...] NumPy
+    arrays (``runtime.fleet_batches``; moved once to ``pp``'s device and
+    dtype) or tensors. The batches are made frame-major ([F, B, ...]) and
+    go through ``runtime.replay_fused``: each frame is ``fused_frame`` on
+    the lanes' frame ([B, ...] per key). Returns (states, outs), ``outs`` a
+    dict of [B, F, ...] device tensors (views of the frame-major stack)
+    with ``fused_frame``'s keys."""
+    from ..pipeline.runtime import _device_batches, replay_fused
 
-    dtype = pp.tf_ego_to_lidar.dtype
-    device = pp.tf_ego_to_lidar.device
     frames = {k: v.transpose(0, 1).contiguous()
-              for k, v in batches_to_device(batches, device, dtype).items()}
-    outs = []
-    for k in range(frames["scan_t"].shape[0]):
-        states, out = fused_frame(states, {key: v[k] for key, v in frames.items()}, tmap, pp,
-                                  ps, mark=mark)
-        outs.append(out)
-    return states, {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
+              for k, v in _device_batches(batches, pp).items()}
+    states, outs = replay_fused(states, frames, tmap, pp, ps, mark=mark)
+    return states, {k: v.transpose(0, 1) for k, v in outs.items()}

@@ -28,6 +28,12 @@ per-frame config poll); batches come from the NumPy
 next window from the host map on a side CUDA stream and moves it in place
 with kernel N (``tiles.shift_window``) while frames run on the old one.
 
+The functional replay runs the same frames on a batch dict with no
+pipeline object (JAX runtime.py:494-543): :func:`replay_fused` (every
+frame, the outputs stacked on the device), :func:`replay_fused_chunk`
+(frames [k0, k0 + chunk), the frames past the log's end on its last
+frame, their states dropped) and :func:`fused_frame_at` (one frame).
+
 With ``use_imu=False`` the event loop runs the reference's tick mode: a
 constant-acceleration prediction and its ego push per system-clock tick
 (:func:`tick_step`, one launch of kernel U) while raw IMU only feeds the IMU
@@ -37,8 +43,9 @@ ring (:func:`imu_ring_step`, one launch of kernel V).
 one map in one frame loop (JAX runtime.py:1590-1649, the single-chip fleet
 mode): the logs' batches padded to the fleet's capacities and stacked on a
 lane axis (:func:`fleet_batches`, ``parallel.stack_streams``), then
-``parallel.replay_fused_fleet``: :func:`fused_frame` with a lane axis, one
-call of each stage serving every lane (on the card one launch each of the
+``parallel.replay_fused_fleet``: :func:`replay_fused` over the lanes'
+frames, :func:`fused_frame` with a lane axis, one call of each stage
+serving every lane (on the card one launch each of the
 lane forms of kernels H, C, B (tile backend), X (radar covariances), S, W
 with CAN or GPS fusion, and the loop kernel (a launch per 128 lanes), T's
 two launches once each). It runs every configuration JAX's fleet runs:
@@ -53,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 import threading
 import time
 from typing import Optional
@@ -641,6 +649,79 @@ def fused_frame(st: PipelineState, b, tmap, pp: PipelineParams,
     out.update(pub)
     mark("outputs")
     return st, out
+
+
+# --------------------------------------------------------------------------- #
+# The functional whole-log replay (JAX runtime.py:494-543)
+# --------------------------------------------------------------------------- #
+
+def _device_batches(batches, pp: PipelineParams):
+    """``batches`` on ``pp``'s device: NumPy arrays moved once
+    (:func:`batches_to_device`, float arrays in ``pp``'s dtype), tensors
+    used as they are."""
+    host = {k: v for k, v in batches.items() if not isinstance(v, torch.Tensor)}
+    if not host:
+        return batches
+    moved = batches_to_device(host, pp.tf_ego_to_lidar.device, pp.tf_ego_to_lidar.dtype)
+    return {k: moved.get(k, v) for k, v in batches.items()}
+
+
+def fused_frame_at(state: PipelineState, batches, k, tmap, pp: PipelineParams,
+                   ps: PipelineStatic, mark=_no_mark):
+    """:func:`fused_frame` on frame ``k`` of a whole-log batch dict (JAX
+    runtime.py:494-501), each entry's row ``k`` a view. ``batches``: a
+    :func:`build_fused_batches` dict of NumPy arrays (moved to ``pp``'s
+    device and dtype first) or of tensors (used as they are). A ``k``
+    outside [0, n) raises IndexError, where JAX's traced index is clamped."""
+    k = operator.index(k)
+    batches = _device_batches(batches, pp)
+    n = batches["scan_t"].shape[0]
+    if not 0 <= k < n:
+        raise IndexError(f"frame {k} is outside the log's {n} frames")
+    return fused_frame(state, {key: v[k] for key, v in batches.items()}, tmap, pp, ps,
+                       mark=mark)
+
+
+def replay_fused(state: PipelineState, batches, tmap, pp: PipelineParams,
+                 ps: PipelineStatic, mark=_no_mark):
+    """One :func:`fused_frame` per frame of a whole-log batch dict, in order
+    (JAX runtime.py:504-512, its ``lax.scan``). ``batches`` as in
+    :func:`fused_frame_at`. Returns ``(state, outs)``, ``outs`` a dict of
+    ``fused_frame``'s keys, each stacked on the device to [F, ...]: no
+    readback and no ``ego_t_abs`` (``LocalizationPipeline.run_fused`` adds
+    them). It is :func:`replay_fused_chunk` over all n frames."""
+    return replay_fused_chunk(state, batches, 0, tmap, pp, ps, batches["scan_t"].shape[0],
+                              mark=mark)
+
+
+def replay_fused_chunk(state: PipelineState, batches, k0, tmap, pp: PipelineParams,
+                       ps: PipelineStatic, chunk, mark=_no_mark):
+    """One :func:`fused_frame` per frame of [k0, k0 + chunk) of a whole-log
+    batch dict, in order, the outputs stacked on the device to [chunk, ...]
+    (JAX runtime.py:515-543, the dispatch unit of JAX's chunked windowed
+    ``run_frames``). ``k0`` and ``chunk`` are host ints; ``chunk``
+    < 1 raises ValueError. ``batches`` as in :func:`fused_frame_at`: a
+    caller that runs many chunks moves them to the device once first.
+
+    The ragged tail, as JAX's: a frame ``k`` >= n runs on frame n - 1's
+    inputs from the carried state, and its output row is kept ([chunk, ...]
+    rows always), but its state is dropped (the choice is made on the host,
+    as k and n are host ints). Every stage returns fresh tensors, so a
+    dropped frame leaves the carried state as it was. ``mark`` as in
+    :func:`fused_frame`."""
+    k0, chunk = operator.index(k0), operator.index(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    batches = _device_batches(batches, pp)
+    n = batches["scan_t"].shape[0]
+    outs = []
+    for k in range(k0, k0 + chunk):
+        st, out = fused_frame(state, {key: v[min(k, n - 1)] for key, v in batches.items()},
+                              tmap, pp, ps, mark=mark)
+        if k < n:
+            state = st
+        outs.append(out)
+    return state, {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1625,8 +1706,9 @@ class LocalizationPipeline:
     def run_fused_fleet(self, logs, states=None, mark=_no_mark):
         """Multi-stream fused replay (runtime.py:1590-1649): ``B`` independent
         logs localized against the shared map in one frame loop
-        (``parallel.replay_fused_fleet``: each frame one call of every stage
-        for all lanes, on the card one launch of each kernel's lane form).
+        (``parallel.replay_fused_fleet``: :func:`replay_fused` over the
+        lanes' frames, each frame one call of every stage for all lanes, on
+        the card one launch of each kernel's lane form).
         The logs must share a scan count and sensor streams; per-frame
         capacities are padded to the fleet's largest (:func:`fleet_batches`).
         ``states``: a list of B single states (default: ``reset()`` each),
