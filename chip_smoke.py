@@ -237,7 +237,22 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      AVGICP tile loops' radar forms) on a recorded fleet frame, as a row
      with 0 launches; then the small fleets (``small_fleet_phase``): launch
      counts (the loop ceil(lanes / 128) times a frame), each lane bit for bit
-     its log's run_fused;
+     its log's run_fused; then "ring pushes" (``ring_push_phase``):
+     ``rings.push_ego`` / ``push_imu`` on card rings of the pipeline's
+     capacities over ``ring_push_sequence`` (accepts, an equal time, a time
+     inside the ego ring's dedupe eps, a one-ulp step, a regression that
+     clears, a roll, a regression of the full ring), each call one launch of
+     kernel J (its launches counted per ring around each call) and every
+     ring after every call bit for bit the plain version's, then J's one-row
+     push into a full ring timed beside U's and V's pushes; then "cli"
+     (``cli_phase``): ``elimaloc_tpu_torch.cli.main`` in process, ``synth``
+     (bit for bit the headline world and its log at the CLI's arguments),
+     ``build-map`` at its defaults (GICP) on every 16th world point (bit
+     for bit ``build_voxel_map`` of them), a binary PCD round trip of the
+     world, ``replay --fused --traj`` on the headline BuiltMap (the TUM file
+     line for line ``run_fused``'s on ``cli.replay_pipeline``'s pipeline,
+     GICP's gates) and the event-loop ``replay --metrics --viz --traj``,
+     each subcommand's wall clock;
   6. torch.profiler, after every timed replay: kernels B-D, H-Z and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
@@ -273,7 +288,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      tiny_pipe(use_imu=False); and the
      windowed ``run`` on the small windowed drive of
      tests/test_torch_window_replay.py.
-Before the last line come the slice numbers and the kernel table, each a
+Each phase ends with its wall clock (``[clock] <phase>: <s> s``, kept in
+the slices line under "clock"). Before the last line come the slice numbers and the kernel table, each a
 JSON line, and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network, no JAX, one card:
 
@@ -656,6 +672,22 @@ def log_line(*parts):
     print(*parts, flush=True)
 
 
+class PhaseClock:
+    """The wall clock of each phase of :func:`main`: ``lap(name)`` waits for
+    the card, prints the seconds since the last lap and keeps them for the
+    slices line."""
+
+    def __init__(self):
+        self.laps, self.last = {}, time.time()
+
+    def lap(self, name):
+        torch.cuda.synchronize()
+        now = time.time()
+        self.laps[name] = round(now - self.last, 2)
+        self.last = now
+        log_line(f"[clock] {name}: {self.laps[name]:.2f} s")
+
+
 def path_method(path):
     return path.split("+")[0].split(" ")[0]
 
@@ -682,6 +714,15 @@ def same_bits(x, y):
         return True
     nx, ny = torch.isnan(x), torch.isnan(y)
     return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x), torch.where(ny, 0.0, y))
+
+
+def same_array(x, y):
+    """Two NumPy arrays (or scalars, or both None) of one dtype and shape,
+    equal bit for bit."""
+    if x is None or y is None:
+        return x is None and y is None
+    x, y = np.asarray(x), np.asarray(y)
+    return x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
 
 
 def bound(ops, nbytes):
@@ -4946,6 +4987,327 @@ def radar_reference_phase(path, cfg_mod, runtime, builder, tiles, log_mod):
                            ego_ring_size=128, imu_ring_size=128), noise_floor=True)
 
 
+#: the ring pushes: LocalizationPipeline's ring capacities (ego_ring_size,
+#: imu_ring_size) and the one-ring push times of kernels U and V that
+#: PERF.md §6 holds (event ms, device ms), beside which J's are printed
+RING_PUSHES = "ring pushes"
+RING_CAPS = (1024, 512)
+UV_PUSH_MS = (0.0068, 0.0033)
+#: the command line: its replay's method is the CLI's default (GICP)
+CLI = "cli"
+#: "[cli]" builds its GICP map from every 16th point of the headline world:
+#: the per-point covariances are a NumPy build that costs ~90 s on the whole
+CLI_THIN = 16
+
+
+def ring_push_sequence(ego_cap=RING_CAPS[0], imu_cap=RING_CAPS[1], seed=11):
+    """The calls of "[ring pushes]" (and of tests/test_torch_small_api.py):
+    ``(ring, t, fields)`` in call order, ring "ego" (fields pos, rpy,
+    vel_local, gyro) or "imu" (gyro, acc), every value exact in float32.
+    Each ring sees pushes a step later, an equal time, a time 2**-18 s
+    later (inside the ego ring's 1e-5 dedupe, accepted by the IMU ring's
+    eps 0), a time one float32 ulp later, a time regression that clears it,
+    more accepted pushes than its capacity (the roll), then the equal,
+    in-eps and ulp times on the full ring and a regression of the full
+    ring."""
+    rng = np.random.default_rng(seed)
+
+    def calls(kind, cap, nf):
+        n = cap + 300
+        special = {5: "equal", 7: "eps", 9: "ulp", 200: "regress", n - 40: "equal",
+                   n - 38: "eps", n - 36: "ulp", n - 20: "regress"}
+        t, out = 1.0, []
+        for i in range(n):
+            s = special.get(i)
+            if s == "equal":
+                new = t
+            elif s == "eps":
+                new = t + 2.0 ** -18
+            elif s == "ulp":
+                new = float(np.nextafter(np.float32(t), np.float32(np.inf)))
+            elif s == "regress":
+                new = t - 1.0
+            else:
+                new = t + 10.0 / 1024.0
+            t = new if s == "regress" else max(t, new)
+            out.append((kind, new, tuple(rng.normal(size=(nf, 3)).astype(np.float32))))
+        return out
+
+    ego, imu = calls("ego", ego_cap, 4), calls("imu", imu_cap, 2)
+    seq = []
+    for i in range(max(len(ego), len(imu))):
+        seq += ego[i:i + 1] + imu[i:i + 1]
+    return seq
+
+
+def ring_push_phase(mods):
+    """"[ring pushes]": ``rings.push_ego`` / ``push_imu`` on card rings of the
+    pipeline's capacities over :func:`ring_push_sequence`, each call one
+    launch of kernel J, every ring after every call bit for bit the plain
+    version's (the same calls on CPU rings: ``push_ego_batch`` /
+    ``push_imu_batch`` of one row). Then J's one-row push into a full ring
+    (a roll, every row moved) timed by CUDA events and on the device alone,
+    beside U's and V's pushes. Rows ``ring_push[push_ego]`` and
+    ``ring_push[push_imu]``."""
+    kernels, rings = mods[0], mods[8]
+    dev = torch.device("cuda")
+    seq = ring_push_sequence()
+    make = {"ego": (rings.make_ego_ring, RING_CAPS[0], rings.push_ego),
+            "imu": (rings.make_imu_ring, RING_CAPS[1], rings.push_imu)}
+    on_card = {k: m(c, device=dev) for k, (m, c, _) in make.items()}
+    plain = {k: m(c, device="cpu") for k, (m, c, _) in make.items()}
+    fields = {k: torch.from_numpy(np.stack([f for kind, _, f in seq if kind == k])).to(dev)
+              for k in make}
+    idx = {"ego": 0, "imu": 0}
+    kernels.reset_launches()
+    counts, full, j_launches = {"ego": [], "imu": []}, {}, {"ego": 0, "imu": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kind, t, f in seq:
+        push = make[kind][2]
+        row = fields[kind][idx[kind]]
+        idx[kind] += 1
+        before = kernels.launches["ring_push"]
+        on_card[kind] = push(on_card[kind], t, *row.unbind(0))
+        j_launches[kind] += kernels.launches["ring_push"] - before
+        plain[kind] = push(plain[kind], t, *(torch.from_numpy(v) for v in f))
+        for fl in dataclasses.fields(plain[kind]):
+            got, ref = getattr(on_card[kind], fl.name).cpu(), getattr(plain[kind], fl.name)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"[{RING_PUSHES}] {kind} push at t={t!r}: kernel J "
+                                     f"differs from the plain version in {fl.name}")
+        counts[kind].append(int(plain[kind].count))
+        if counts[kind][-1] == make[kind][1]:
+            full[kind] = on_card[kind]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_calls = {k: sum(1 for kind, _, _ in seq if kind == k) for k in make}
+    if (j_launches != n_calls or launches["ring_push"] != len(seq)
+            or any(v for k, v in launches.items() if k != "ring_push")):
+        raise AssertionError(f"[{RING_PUSHES}] launches {launches}, kernel J's by ring "
+                             f"{j_launches}, for calls {n_calls}")
+    for k, (_, cap, _) in make.items():
+        c = counts[k]
+        if not (max(c) == cap and min(c[1:]) == 1 and c[-1] > 1):
+            raise AssertionError(f"[{RING_PUSHES}] the {k} sequence missed the roll or "
+                                 f"the clear: counts {c[:12]} ... {c[-24:]}")
+    log_line(f"[{RING_PUSHES}] {len(seq)} calls ({n_calls['ego']} push_ego, "
+             f"{n_calls['imu']} push_imu) on rings of {RING_CAPS[0]} and {RING_CAPS[1]} rows: "
+             f"every ring bit for bit the plain version's after every call, kernel J "
+             f"launched {launches['ring_push']} times ({j_launches['ego']} by push_ego, "
+             f"{j_launches['imu']} by push_imu, read from its count around each call), no "
+             f"other kernel; the counts reached "
+             f"the capacities (rolls) and 1 after each regression; {wall:.2f} s with the "
+             f"comparisons")
+    rows = []
+    for k, (_, cap, push) in make.items():
+        ring = full[k]           # the last full ring of the sequence
+        last = float(ring.t[-1])
+        f = fields[k][0].unbind(0)
+        t_row, rows_in, valid = rings._one_row(ring, last + 0.25, f)
+        new = (t_row, *rows_in)
+        if k == "ego":
+            def call(new=new, ring=ring, valid=valid):
+                return kernels.ring_push(ring, None, new, None, valid)
+
+            def plain_call(new=new, ring=ring, valid=valid):
+                return rings.push_ego_batch(ring, *new, valid)
+        else:
+            def call(new=new, ring=ring, valid=valid):
+                return kernels.ring_push(None, ring, None, new, valid)
+
+            def plain_call(new=new, ring=ring, valid=valid):
+                return rings.push_imu_batch(ring, *new, valid)
+        out = call()[0 if k == "ego" else 1]
+        if not same_ring(out, plain_call()):
+            raise AssertionError(f"[{RING_PUSHES}] the timed {k} push differs from plain")
+        ms = time_ms(call)
+        entry_ms = time_ms(lambda ring=ring, push=push, t=last + 0.25, f=f: push(ring, t, *f))
+        dev_ms = kernel_device_ms(call, "ring_push_kernel")
+        moved = ring_bytes(ring) + ring_bytes(out) + nbytes(*new, valid)
+        uv = UV_PUSH_MS[0] if k == "ego" else UV_PUSH_MS[1]
+        log_line(f"[{RING_PUSHES}] kernel J, one row into the full {k} ring ({cap} rows, a "
+                 f"roll): {ms:.4f} ms by CUDA events (push_{k} with its two fills "
+                 f"{entry_ms:.4f} ms), on the device alone "
+                 + (f"{dev_ms:.4f} ms" if dev_ms else "not measured")
+                 + f" (torch.profiler); PERF.md's {'U' if k == 'ego' else 'V'} push "
+                 f"{uv} ms; card {card()}")
+        rows.append(dict(name=f"ring_push[push_{k}]", route="cuda", source=RING_PUSH[0],
+                         replaces=f"elimaloc_tpu/pipeline/rings.py:{106 if k == 'ego' else 116}"
+                                  f" push_{k} (:75 _push_arrays)",
+                         launches=j_launches[k], max_abs_err=0.0, ms=ms,
+                         plain_ms=time_ms(plain_call), bound=bound(8, moved),
+                         device_ms=dev_ms))
+    return rows, {"calls": n_calls, "launches": j_launches, "seconds": wall,
+                  "device_ms": {r["name"]: r.pop("device_ms") for r in rows}}
+
+
+def cli_phase(world, built, log, mods, ate_rmse, ds_points, max_slots):
+    """"[cli]": ``elimaloc_tpu_torch.cli.main`` in process on the card, each
+    subcommand's wall clock printed. ``synth --seed 3 --points 131072`` at
+    the headline log's length: the world bit for bit the headline world,
+    the log bit for bit ``synthesize_log`` of that world with the CLI's
+    arguments (seed 4 as the headline log's; the CLI keeps the generator's
+    80 m range where the headline log asks 100 m, so the scans differ from
+    it). ``build-map`` with its defaults (GICP: the per-point covariances)
+    from every :data:`CLI_THIN`-th world point (the cut: the whole world's
+    covariance build costs ~90 s on the host): every field bit for bit
+    ``build_voxel_map`` of those points with the configuration's defaults.
+    The world through ``write_pcd`` (binary) and ``read_pcd_points``. The
+    headline BuiltMap through ``save_built_map`` is the replays' map:
+    ``replay --fused --traj`` (131,072-point scans, ``--ds-points`` /
+    ``--max-slots`` from this log's budgets as the headline's are sized)
+    must write the TUM file, line for line, that ``run_fused`` gives on the
+    pipeline of ``cli.replay_pipeline`` for the same arguments, with GICP's
+    gates: applied >= 0.9, no dropped slot,
+    ATE; each scan one launch of the GICP path's kernels. Then the event
+    loop ``replay --metrics --viz --traj``: the files complete and finite,
+    its applied share and ATE printed."""
+    from elimaloc_tpu_torch import cli
+    from elimaloc_tpu_torch.map import build_voxel_map, read_pcd_points, write_pcd
+    from elimaloc_tpu_torch.ops import lie
+    from elimaloc_tpu_torch.utils import export_trajectory_tum, load_built_map, save_built_map
+
+    kernels, cfg_mod, runtime = mods[0], mods[5], mods[6]
+    log_mod = sys.modules[type(log).__module__]
+    walls, out = {}, {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        return r
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = {k: str(Path(d) / v) for k, v in (
+            ("log", "drive.npz"), ("world", "world.npy"), ("thin", "thin.npy"),
+            ("map", "map.npz"),
+            ("pcd", "world.pcd"), ("built", "built.npz"), ("tum", "fused.tum"),
+            ("ref_tum", "run_fused.tum"), ("ev_tum", "events.tum"),
+            ("metrics", "metrics.jsonl"), ("viz", "replay.html"))}
+        duration = (N_SCANS + 3) * 0.1
+        timed("synth", lambda: cli.main([
+            "synth", "--out", paths["log"], "--map-out", paths["world"], "--seed", "3",
+            "--points", str(RAW_POINTS), "--duration", repr(duration)]))
+        cli_log = log_mod.ReplayLog.load(paths["log"])
+        ref = log_mod.synthesize_log(world, duration=duration, points_per_scan=RAW_POINTS,
+                                     seed=4)
+        same = {f.name: same_array(getattr(cli_log, f.name), getattr(ref, f.name))
+                for f in dataclasses.fields(ref)}
+        as_headline = [f.name for f in dataclasses.fields(log)
+                       if getattr(log, f.name) is not None
+                       and np.array_equal(getattr(cli_log, f.name), getattr(log, f.name))]
+        world_same = same_array(np.load(paths["world"]), world)
+        log_line(f"[{CLI}] synth: {walls['synth']:.2f} s, {len(cli_log.scan_t)} scans x "
+                 f"{cli_log.scan_points.shape[1]} points; world bit for bit the headline "
+                 f"world {world_same}; log bit for bit synthesize_log(headline world, seed 4, "
+                 f"{duration:.1f} s) in {sum(same.values())} of {len(same)} fields; fields "
+                 f"equal to the headline log's (range 100 m, scans 1/{INDEX_SAMPLING}): "
+                 f"{as_headline}")
+        if not (world_same and all(same.values())):
+            raise AssertionError(f"[{CLI}] synth differs: world {world_same}, log {same}")
+
+        thin = world[::CLI_THIN]
+        np.save(paths["thin"], thin)
+        timed("build-map", lambda: cli.main([
+            "build-map", "--points", paths["thin"], "--out", paths["map"]]))
+        got = load_built_map(paths["map"])
+        pcm = cfg_mod.ElimalocConfig().pcm
+        t0 = time.perf_counter()
+        ref_map = build_voxel_map(thin, pcm.pcm_voxel_size, pcm.pcm_voxel_max_point,
+                                  compute_voxel_cov=False, compute_point_cov=True,
+                                  gicp_cov_search_dist=pcm.gicp_cov_search_dist)
+        ref_s = time.perf_counter() - t0
+        fields = [f.name for f in dataclasses.fields(ref_map)]
+        differ = [k for k in fields if not same_array(getattr(got, k), getattr(ref_map, k))]
+        log_line(f"[{CLI}] build-map (its defaults: GICP, the per-point covariances) from "
+                 f"every {CLI_THIN}th world point (cut from {len(world)} for the host's "
+                 f"covariance build): {walls['build-map']:.2f} s for {len(thin)} points -> "
+                 f"{got.num_voxels} voxels, point_cov {np.shape(got.point_cov)}; "
+                 f"{len(fields) - len(differ)} of {len(fields)} fields bit for bit "
+                 f"build_voxel_map of those points at the configuration's defaults "
+                 f"({ref_s:.2f} s)")
+        if differ or got.point_cov is None:
+            raise AssertionError(f"[{CLI}] build-map differs from build_voxel_map in {differ}")
+
+        t0 = time.perf_counter()
+        write_pcd(paths["pcd"], world)
+        back = read_pcd_points(paths["pcd"])
+        walls["pcd"] = time.perf_counter() - t0
+        pcd_ok = same_array(back, world.astype(np.float32).astype(np.float64))
+        log_line(f"[{CLI}] write_pcd (binary) + read_pcd_points of the world: "
+                 f"{walls['pcd']:.2f} s, {Path(paths['pcd']).stat().st_size} bytes, the float32 "
+                 f"points back bit for bit {pcd_ok}")
+        if not pcd_ok:
+            raise AssertionError(f"[{CLI}] the PCD round trip changed the points")
+
+        t0 = time.perf_counter()
+        save_built_map(paths["built"], built)
+        walls["save_built_map"] = time.perf_counter() - t0
+        ds_cli, slots_cli = runtime.autosize_budgets(
+            cli_log, float(cfg_mod.ElimalocConfig().pcm.input_voxel_ds_m),
+            4.0 * cfg_mod.ElimalocConfig().pcm.pcm_voxel_size, qb=16)
+        replay = ["replay", "--log", paths["log"], "--map", paths["built"], "--ds-points",
+                  str(ds_cli), "--max-slots", str(slots_cli)]
+        kernels.reset_launches()
+        timed("replay --fused", lambda: cli.main([*replay, "--fused", "--traj",
+                                                  paths["tum"]]))
+        launches = dict(kernels.launches)
+        n = len(cli_log.scan_t)
+        want = loop_kernels(SHARED + (KERNEL["GICP"][0], "imu_stage") + tuple(SCAN_KERNELS),
+                            GICP_LOOP)
+        check_launches(f"{CLI}] [replay --fused", launches, want)
+        check_loop(f"{CLI}] [replay --fused", launches, n, GICP_LOOP)
+
+        pipe = cli.replay_pipeline(cli.parser().parse_args(replay), cli_log, built)
+        _, outs = pipe.run_fused(cli_log)
+        quats = lie.rot_to_quat(lie.euler_to_rot(torch.as_tensor(outs["ego_rpy"]))).numpy()
+        export_trajectory_tum(paths["ref_tum"], outs["ego_t_abs"], outs["ego_pos"], quats)
+        lines = Path(paths["tum"]).read_text().splitlines()
+        ref_lines = Path(paths["ref_tum"]).read_text().splitlines()
+        tum_equal = lines == ref_lines
+        applied = float(outs["applied"].mean())
+        dropped = int(np.asarray(outs["slots_dropped"]).max())
+        ate = ate_rmse(outs["ego_t_abs"], outs["ego_pos"], cli_log.truth_t, cli_log.truth_pos)
+        log_line(f"[{CLI}] replay --fused --traj (GICP, ds_points {ds_cli}, max_slots "
+                 f"{slots_cli}; the headline's {ds_points}, {max_slots}): "
+                 f"{walls['replay --fused']:.2f} s with the map's load and packing; TUM "
+                 f"{len(lines)} lines, equal line for line to run_fused's on "
+                 f"cli.replay_pipeline's pipeline {tum_equal}; applied {applied:.3f}, slots dropped "
+                 f"{dropped}, ATE {ate:.4f} m (gate {ATE_GATE['GICP']}); launches "
+                 + str({k: v for k, v in launches.items() if v}))
+        if not (tum_equal and len(lines) == n and applied >= 0.9 and dropped == 0
+                and ate < ATE_GATE["GICP"]):
+            raise AssertionError(f"[{CLI}] replay --fused failed its gates")
+
+        kernels.reset_launches()
+        timed("replay", lambda: cli.main([
+            *replay, "--metrics", paths["metrics"], "--viz", paths["viz"], "--traj",
+            paths["ev_tum"]]))
+        launches = dict(kernels.launches)
+        check_launches(f"{CLI}] [replay", launches, want)
+        check_loop(f"{CLI}] [replay", launches, n, GICP_LOOP)
+        metrics = [json.loads(x) for x in Path(paths["metrics"]).read_text().splitlines()]
+        tum = np.loadtxt(paths["ev_tum"], ndmin=2)
+        ev_ate = ate_rmse(tum[:, 0], tum[:, 1:4], cli_log.truth_t, cli_log.truth_pos)
+        ev_applied = float(np.mean([m["applied"] for m in metrics]))
+        html = Path(paths["viz"]).stat().st_size
+        log_line(f"[{CLI}] replay (event loop) --metrics --viz --traj: "
+                 f"{walls['replay']:.2f} s; {len(metrics)} metric rows, TUM {len(tum)} "
+                 f"lines, viz {html} bytes; applied {ev_applied:.3f}, ATE {ev_ate:.4f} m; "
+                 f"launches " + str({k: v for k, v in launches.items() if v}))
+        if not (len(metrics) == n and tum.shape == (n, 8) and np.isfinite(tum).all()
+                and html > 0):
+            raise AssertionError(f"[{CLI}] the event-loop replay's files are incomplete")
+    log_line(f"[{CLI}] wall clocks (s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+             + f"; card {card()}")
+    out.update(walls=walls, tum_lines_equal=tum_equal, applied=applied, ate_m=ate,
+               event_loop={"applied": ev_applied, "ate_m": ev_ate},
+               budgets={"ds_points": ds_cli, "max_slots": slots_cli})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -4964,10 +5326,14 @@ def main():
     from elimaloc_tpu_torch.register import icp
 
     t_start = time.time()
+    clock = PhaseClock()
     smi = device_phase()
+    clock.lap("device")
     build_phase(build)
+    clock.lap("build")
     world, built, log, packed, ds_points, max_slots = make_headline(
         cfg_mod, runtime, builder, tiles, log_mod)
+    clock.lap("headline world, map and log")
     mods = (kernels, deskew, grid, tiles, icp, cfg_mod, runtime, efilter, rings)
     rows, slices, deferred, pipes, fused, recs = [], {}, [], {}, {}, {}
     for path in PATHS + RADAR_PATHS + HASH_PATHS + HASH_RADAR_PATHS:
@@ -4977,37 +5343,50 @@ def main():
         if is_radar(path):
             del pipes[path]
         torch.cuda.empty_cache()
+        clock.lap(path)
     slices[FRAMES] = frames_path(pipes["GICP"], log, fused["GICP"], kernels)
     check_loop(FRAMES, kernels.launches, len(log.scan_t), GICP_LOOP)
+    clock.lap(FRAMES)
     slices[EVENTS] = events_path(pipes[FUSION], log, fused[FUSION], mods, ate_rmse, deferred)
+    clock.lap(EVENTS)
     r, slices[JOSEPH] = joseph_path(pipes[FUSION], log, fused[FUSION], recs[FUSION], mods)
     rows += r
+    clock.lap(JOSEPH)
     r, slices[TICK] = tick_path(packed, log, ds_points, max_slots, mods, ate_rmse)
     rows += r
+    clock.lap(TICK)
     slices["reloc"] = reloc_phase(pipes["P2P"], log, kernels)
+    clock.lap("reloc")
     r, slices[WINDOWED] = windowed_path(built, window_log(world, log_mod), packed, mods,
                                         ate_rmse)
     rows += r
+    clock.lap(WINDOWED)
     hash_kernels = loop_kernels(SHARED[:2] + ("hash_correspond",) + tuple(EKF_KERNELS)
                                 + tuple(SCAN_KERNELS), HASH_LOOP)
     slices[HASH_FRAMES] = frames_path(pipes["GICP hash"], log, fused["GICP hash"], kernels,
                                       HASH_FRAMES, hash_kernels)
     check_loop(HASH_FRAMES, kernels.launches, len(log.scan_t), HASH_LOOP)
+    clock.lap(HASH_FRAMES)
     slices["reloc hash"] = reloc_phase(pipes["P2P hash"], log, kernels, "reloc hash",
                                        ("voxel_downsample", HASH_LOOP))
     check_loop("reloc hash", kernels.launches, 1, HASH_LOOP)
     if any(kernels.launches[k] for k in TILE_ONLY):
         raise AssertionError(f"[reloc hash] a tile kernel ran: {kernels.launches}")
+    clock.lap("reloc hash")
     r, slices[HASH_GRID] = hash_grid_phase(pipes["P2P hash"], recs["P2P hash"].calls, mods)
     rows += r
+    clock.lap(HASH_GRID)
     r, slices[TILE_QUERIES] = tile_query_phase(pipes["P2P"], pipes["P2P hash"],
                                                recs["P2P hash"].calls, mods,
                                                slices[WINDOWED]["tile_queries"], deferred)
     rows += r
+    clock.lap(TILE_QUERIES)
     for path in FUNCTIONAL_PATHS:
         slices[f"{FUNCTIONAL} {path}"] = functional_replay_phase(
             path, pipes[path], log, fused[path], slices[path], mods)
+        clock.lap(f"{FUNCTIONAL} {path}")
     slices[LEAD] = long_lead_phase(mods, builder, log_mod)
+    clock.lap(LEAD)
     fleet_mods = {"kernels": kernels, "runtime": runtime, "tiles": tiles, "icp": icp,
                   "grid": grid, "struct": struct_mod, "cfg": cfg_mod, "efilter": efilter}
     second = headline_log(world, log_mod, FLEET_SEED)
@@ -5018,14 +5397,24 @@ def main():
                                                         ate_rmse, deferred)
         rows += r
         torch.cuda.empty_cache()
+        clock.lap(path)
     rows += other_lane_rows(fleet_recs, maps, fleet_mods, slices[RADAR_FLEET]["max_slots"])
+    clock.lap("other lane forms")
     slices[TICK_FLEET] = small_fleet_phase(TICK_FLEET, "GICP hash+radar", 2, world, maps,
                                            fleet_mods, log_mod, use_imu=False)
+    clock.lap(TICK_FLEET)
     slices[WIDE_FLEET] = small_fleet_phase(WIDE_FLEET, "GICP+radar", SMALL_WIDE_LANES, world,
                                            maps, fleet_mods, log_mod, fusion=True)
     del fleet_recs
     torch.cuda.empty_cache()
+    clock.lap(WIDE_FLEET)
     slices["hash vs tile"] = hash_vs_tile(fused, slices)
+    r, slices[RING_PUSHES] = ring_push_phase(mods)
+    rows += r
+    clock.lap(RING_PUSHES)
+    slices[CLI] = cli_phase(world, built, log, mods, ate_rmse, ds_points, max_slots)
+    torch.cuda.empty_cache()
+    clock.lap(CLI)
     # the profiler passes, after every timed replay
     for r in rows:
         if "stage_fn" in r:
@@ -5047,8 +5436,10 @@ def main():
             log_line(f"kernel {r['name']}: on the device alone "
                      + (f"{dev:.4f} ms" if dev else "not measured")
                      + " (torch.profiler)" + (f"; {label} {chain:.4f} ms" if chain else ""))
+    clock.lap("profiler passes")
     for job in deferred:
         job()
+    clock.lap("deferred checks")
     for path in PATHS + ("P2P hash",):
         slices[path]["reference"] = reference_phase(path, cfg_mod, runtime, builder,
                                                     tiles, log_mod)
@@ -5058,6 +5449,7 @@ def main():
     slices[TICK]["reference"] = tick_reference_phase(cfg_mod, runtime, builder, tiles, log_mod)
     slices[WINDOWED]["reference"] = window_reference_phase(cfg_mod, runtime, builder, tiles,
                                                            log_mod)
+    clock.lap("references")
     for r in rows:
         if "plain_check" in r:  # the lane forms against their plain lane forms
             r["max_abs_err"] = r.pop("plain_check")()
@@ -5065,7 +5457,10 @@ def main():
             r["plain_ms"] = time_ms(r.pop("plain_fn"), PLAIN_LANE_REPEATS)
             log_line(f"kernel {r['name']}: the plain lane form {r['plain_ms']:.4f} ms (median "
                      f"of {PLAIN_LANE_REPEATS}); card {card()}")
-    log_line(f"chip_smoke: {time.time() - t_start:.1f} s")
+    clock.lap("plain lane forms")
+    slices["clock"] = clock.laps
+    log_line(f"chip_smoke: {time.time() - t_start:.1f} s; by phase (s): "
+             + ", ".join(f"{k} {v:.2f}" for k, v in clock.laps.items()))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms")

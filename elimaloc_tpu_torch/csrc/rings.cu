@@ -5,15 +5,16 @@
 // push_ego_batch (:183, eps 1e-5) and push_imu_batch (:192, eps 0) drive it,
 // with the one-sample _push_arrays (:75) as the batch push of one row. The
 // frame's and the IMU event's pushes run inside kernel H (imu_chain.cu);
-// this entry serves the tick mode: the ego push of kernel O's row after each
-// CA tick (runtime.py:174 _push_ego) and the IMU-only intake (runtime.py:237
-// imu_ring_step). On the TPU these are a lax.scan and two roll + scatter
-// passes per field; the plain PyTorch version is a Python loop of a dozen
-// launches per sample.
+// this entry is the reference of the tick mode's kernels U and V (the ego
+// push of kernel O's row after each CA tick, runtime.py:174 _push_ego, and
+// the IMU-only intake, runtime.py:237 imu_ring_step) and the card form of
+// push_ego (:106) and push_imu (:116), one row into one ring. On the TPU
+// these are a lax.scan and two roll + scatter passes per field; the plain
+// PyTorch version is a Python loop of a dozen launches per sample.
 //
-// Bound: latency (one row into rings of 512 and 256 rows). Design: one
-// launch, one CTA per ring given (a ring passed as null is left out), the
-// push of rings.cuh.
+// Bound: latency (one row into the pipeline's rings of 1024 and 512 rows).
+// Design: one launch, one CTA per ring given (a ring passed as null is left
+// out), the push of rings.cuh.
 #include "rings.cuh"
 
 using namespace elm;

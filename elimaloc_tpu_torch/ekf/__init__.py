@@ -3,6 +3,7 @@
 from .filter import (  # noqa: F401
     EkfFlags,
     ego_state,
+    imu_calibration,
     init_state,
     predict,
     predict_imu,
@@ -17,5 +18,6 @@ from .state import (  # noqa: F401
     EkfState,
     GnssMeas,
     ImuMeas,
+    STATE_ORDER,
     make_params,
 )

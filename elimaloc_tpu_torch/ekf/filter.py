@@ -768,6 +768,12 @@ def update_chain(state: EkfState, params: EkfParams, flags: EkfFlags, **kw):
 # EgoState output (ekf_algorithm.cpp:778-833)
 # --------------------------------------------------------------------------- #
 
+def imu_calibration(state: EkfState):
+    """Estimated vehicle->IMU mounting rotation as Euler angles (radians):
+    GetImuCalibration (ekf_algorithm.cpp:835-838)."""
+    return lie.rot_to_euler(lie.quat_to_rot(state.imu_rot))
+
+
 def ego_state(state: EkfState):
     """The published odometry view of the filter (localization_struct.hpp:
     30-73); the covariance diagonal is rotated like a vector and abs'd, as

@@ -17,8 +17,9 @@ every iteration; they stay as the reference each loop is held to), though
 A, E, F and G, after B, also serve the tile map's one-shot queries with
 their matches (map/tiles.py: query_nearest_point, query_nearest_voxel_cov,
 query_all_voxel_cov), L, whose body runs inside S, D and K, whose bodies run
-inside T, O and J, which launch on no path (U runs O's body and J's
-push, V H's IMU intake; they stay as U's and V's reference), and I and P,
+inside T, O and J, which launch on no replay path (U runs O's body and
+J's push, V H's IMU intake; they stay as U's and V's reference; J is also
+the card form of pipeline.rings.push_ego / push_imu), and I and P,
 which launch on no path either (W and X, their redesigns, are held to
 them bit for bit). Q's lookup entry, Y and Z serve the grid's own
 functions (lookup, the queries, the ground probe) and run on no replay
@@ -75,7 +76,8 @@ I         ekf_update          filter._ekf_measurement_update + update_gnss +
                               GPS sub-batches; its PCM leg is kernel S's)
 J         ring_push           pipeline/rings.py:_push_arrays_batch into one ring
                               (kernel U's and V's reference; its body runs
-                              inside H, U and V)
+                              inside H, U and V); push_ego / push_imu's one
+                              row (rings.py:106, 116)
 K         scan_ring_query     deskew.py:make_deskew_info + rings.get_interpolated_pose
                               + the initial guess's compose (runtime.py:338)
                               (kernel T's reference; its body runs inside T)
@@ -899,8 +901,9 @@ def ring_push(ego, imu, ego_new, imu_new, valid):
     both masked by ``valid``, in one launch. A ring given as None (its
     samples None) is left out and comes back None. Kernels H, U and V push
     their rows themselves; this entry is U's and V's reference (O's row into
-    the ego ring, the IMU-only intake into the IMU ring). Returns (ego ring,
-    IMU ring)."""
+    the ego ring, the IMU-only intake into the IMU ring) and the card form
+    of ``pipeline.rings.push_ego`` / ``push_imu`` (one row into one ring).
+    Returns (ego ring, IMU ring)."""
     m = valid.shape[0]
     dev = valid.device
     re = 0 if ego is None else ego.capacity

@@ -1,9 +1,15 @@
-"""Map building, the hash grid and the tile correspondence engine (port of
-elimaloc_tpu.map)."""
+"""Map building, PCD I/O, the hash grid and the tile correspondence engine
+(port of elimaloc_tpu.map)."""
 
 from .builder import BuiltMap, build_voxel_map  # noqa: F401
 from .builder import find_ground_height as find_ground_height_host  # noqa: F401
 from .builder import voxel_downsample_host  # noqa: F401
+from .pcd import (  # noqa: F401
+    parse_origin_from_filename,
+    read_pcd,
+    read_pcd_points,
+    write_pcd,
+)
 from .grid import (  # noqa: F401
     MapGrid,
     OFFSETS_7,

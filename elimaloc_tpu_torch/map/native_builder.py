@@ -1,9 +1,11 @@
 """ctypes bridge to the C++ map-builder fast path (native/src/voxel_builder.cpp)
 — a copy of ``elimaloc_tpu.map.native_builder`` (jax-free). It loads the
 same ``native/build/libelimaloc_native.so`` through the same repo-relative
-path; without it the NumPy builder runs. Only the map build is bound here
-(the LZF and native scan-step entry points serve the JAX package's bench
-and PCD reader, not ported).
+path; without it the NumPy builder runs. Bound here: the map build, its
+insertion-only view and the LZF decompressor the PCD reader
+(``map/pcd.py``) takes for ``binary_compressed`` files. The native scan
+step serves the JAX package's bench and is not bound (ROADMAP Queue 1,
+the port's bench).
 
 The voxel insertion with min-spacing is an inherently sequential, hash-heavy
 host job (the reference does it in C++ at node startup, pcm_matching.cpp:86-89)
@@ -88,6 +90,15 @@ class _NativeBuilder:
             ctypes.POINTER(ctypes.c_double),  # out mean [V*3]
             ctypes.POINTER(ctypes.c_double),  # out raw cov [V*9]
         ]
+        try:
+            self._c.elm_lzf_decompress.restype = ctypes.c_int64
+            self._c.elm_lzf_decompress.argtypes = [
+                ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int64,
+            ]
+            self._has_lzf = True
+        except AttributeError:
+            self._has_lzf = False
 
     def build_map(self, points: np.ndarray, voxel_size: float, max_pts: int):
         """Two-phase build (voxel_builder.cpp): begin hashes + groups point
@@ -128,3 +139,20 @@ class _NativeBuilder:
             raw_cov.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
         )
         return vox_coords, block, counts, mean, raw_cov
+
+    def insert_points(self, points: np.ndarray, voxel_size: float, max_pts: int):
+        """Insertion-only view of :meth:`build_map` (block is f32-rounded
+        with +inf pads, unlike the raw-f64 NumPy fallback)."""
+        vox_coords, block, counts, _, _ = self.build_map(points, voxel_size, max_pts)
+        return vox_coords, block, counts
+
+    def lzf_decompress(self, src: bytes, expected: int):
+        """LZF decompression; returns bytes or None when unavailable/failed."""
+        if not self._has_lzf:
+            return None
+        out = (ctypes.c_ubyte * expected)()
+        src_buf = (ctypes.c_ubyte * len(src)).from_buffer_copy(src)
+        n = self._c.elm_lzf_decompress(src_buf, len(src), out, expected)
+        if n != expected:
+            return None
+        return bytes(out)

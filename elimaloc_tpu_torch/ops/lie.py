@@ -37,6 +37,23 @@ def norm_angle_rad(angle):
                        wrapped)
 
 
+def norm_angle_deg(angle):
+    """Wrap angle(s) to [0, 360). Reference: NormAngleDeg (hpp:248-256)."""
+    return torch.remainder(angle, 360.0)
+
+
+def angle_diff_rad(ref, rel):
+    """Shortest signed difference rel - ref in radians (AngleDiffRad)."""
+    return norm_angle_rad(rel - ref)
+
+
+def angle_diff_deg(ref, rel):
+    """Shortest signed difference rel - ref in degrees, in (-180, 180]
+    (AngleDiffDeg)."""
+    d = torch.remainder(rel - ref + 180.0, 360.0) - 180.0
+    return torch.where(d == -180.0, torch.full_like(d, 180.0), d)
+
+
 # --------------------------------------------------------------------------- #
 # so(3) <-> SO(3) (localization_functions.hpp:380-483)
 # --------------------------------------------------------------------------- #
@@ -79,6 +96,11 @@ def so3_log(rot):
         [log_m[..., 2, 1], log_m[..., 0, 2], log_m[..., 1, 0]], dim=-1)
     return torch.where(small[..., None], torch.zeros_like(vec),
                        theta[..., None] * vec)
+
+
+def exp_gyro_to_rot(gyro, dt):
+    """Rotation increment from body rates over dt (ExpGyroToRotMatrix)."""
+    return so3_exp(gyro * dt)
 
 
 def right_jacobian_d_rot_d_gyro(gyro, dt):

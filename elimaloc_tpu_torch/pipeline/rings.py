@@ -13,7 +13,8 @@ kernel T (kernel K's body, ``runtime.scan_front``) and the latency
 compensation inside kernel S (kernel L's body, ``runtime.pcm_stage``); the
 functions here are their plain versions, which CPU tensors run. Kernel J
 (``kernels.ring_push``, plain version :func:`push_rings_plain`) is U's and
-V's reference.
+V's reference, and pushes the one row of :func:`push_ego` and
+:func:`push_imu` on the card.
 
 A fleet's rings carry a leading lane axis on every field (t [B, R], the
 [B, R, 3] fields, count [B]); ``capacity`` is R either way.
@@ -25,6 +26,7 @@ import dataclasses
 
 import torch
 
+from .. import kernels
 from ..ops import lie
 from ..struct import Struct
 
@@ -160,6 +162,47 @@ def push_rings_plain(ego: EgoRing, imu: ImuRing, ego_new, imu_new, valid):
     None."""
     return (None if ego is None else push_ego_batch(ego, *ego_new, valid),
             None if imu is None else push_imu_batch(imu, *imu_new, valid))
+
+
+def _one_row(ring, t, fields):
+    """``t`` (a Python float or a 0-d tensor) and [3] fields as the one-row
+    batch of a push, in the ring's dtype on its device, with its mask. A
+    tensor must lie on the ring's device (no copy, no host read is made for
+    it); a Python number or an array is made there."""
+    like = ring.t
+
+    def on_ring(v, shape):
+        if isinstance(v, torch.Tensor):
+            if v.device != like.device:
+                raise ValueError(f"a push into a ring on {like.device} was given a "
+                                 f"tensor on {v.device}")
+            return v.to(like.dtype).reshape(shape)
+        if shape == (1,) and isinstance(v, (int, float)):
+            return torch.full(shape, v, dtype=like.dtype, device=like.device)
+        return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(shape)
+
+    rows = [on_ring(v, (1, 3)) for v in fields]
+    return on_ring(t, (1,)), rows, torch.ones(1, dtype=torch.bool, device=like.device)
+
+
+def push_ego(ring: EgoRing, t, pos, rpy, vel_local, gyro) -> EgoRing:
+    """One sample into the ego ring (rings.py:106): accepted when newer than
+    the last entry by 1e-5, a time regression clears the ring first, a full
+    ring rolls. On the card one launch of kernel J, on the CPU
+    :func:`push_ego_batch` of one row."""
+    t, rows, valid = _one_row(ring, t, (pos, rpy, vel_local, gyro))
+    if ring.t.device.type == "cpu":
+        return push_ego_batch(ring, t, *rows, valid)
+    return kernels.ring_push(ring, None, (t, *rows), None, valid)[0]
+
+
+def push_imu(ring: ImuRing, t, gyro, acc) -> ImuRing:
+    """One sample into the IMU ring (rings.py:116): as :func:`push_ego` with
+    eps 0, so an equal time is dropped."""
+    t, rows, valid = _one_row(ring, t, (gyro, acc))
+    if ring.t.device.type == "cpu":
+        return push_imu_batch(ring, t, *rows, valid)
+    return kernels.ring_push(None, ring, None, (t, *rows), valid)[1]
 
 
 def imu_intake_plain(ring: ImuRing, t, acc_raw, gyro_raw, ego_to_imu_rot) -> ImuRing:

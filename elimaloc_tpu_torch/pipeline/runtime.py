@@ -99,6 +99,7 @@ from ..register.icp import (
 )
 from ..parallel import stack_streams
 from ..struct import Struct, lane
+from ..utils.observability import state_dashboard
 from . import rings
 from .log import ReplayLog
 
@@ -1003,6 +1004,7 @@ class LocalizationPipeline:
         # a packed HostTileMap has no BuiltMap and probes its own halo rows
         self.built = None
         self._config_watcher = None
+        self._last_dashboard_t = None
         host_tmap = None
         if prebuilt:
             host_tmap = map_points
@@ -1413,11 +1415,17 @@ class LocalizationPipeline:
         if w is not None and w.poll():
             self.reload_config(w.cfg)
 
-    def _refuse_dashboard(self) -> None:
-        if self.cfg.ekf.debug_print:
-            raise NotImplementedError(
-                "debug_print: the live state dashboard (utils/observability.py) is in "
-                'ROADMAP Queue 1, "Host modules and utilities"')
+    def _maybe_dashboard(self, state: PipelineState) -> None:
+        """While ``debug_print`` is on, the state dashboard once a simulated
+        second (runtime.py:1378-1390; the reference prints PrintState from a
+        1 s timer, ekf_algorithm.cpp:176-180): one host read of the filter's
+        time a call, and the dashboard's fields when it prints."""
+        if not self.cfg.ekf.debug_print:
+            return
+        t = float(state.ekf.prev_timestamp)
+        if self._last_dashboard_t is None or t - self._last_dashboard_t >= 1.0:
+            self._last_dashboard_t = t
+            print(state_dashboard(state.ekf, self.cfg.ekf), flush=True)
 
     # ---- geodetic projection (runtime.py:1185-1210, float64 on the host) ----
     def project_gps(self, lat, lon, height):
@@ -1510,8 +1518,8 @@ class LocalizationPipeline:
         plus ``ego_pos`` and ``ego_t``, one readback per scan. A windowed
         pipeline consults its window ladder before each scan at the
         filter's position, with ~1 s of motion at its velocity as the
-        prefetch's lookahead (runtime.py:1315-1320)."""
-        self._refuse_dashboard()
+        prefetch's lookahead (runtime.py:1315-1320). With ``debug_print`` a
+        dashboard a simulated second, checked after each scan."""
         state = state if state is not None else self.reset()
         self._rebase(min(log.imu_t[0], log.scan_t[0]))
         use_imu = self.static.use_imu
@@ -1572,7 +1580,7 @@ class LocalizationPipeline:
                     on_scan({**{k: v.cpu().numpy() for k, v in out.items()},
                              "ego_pos": ego[-1]["pos"].cpu().numpy(),
                              "ego_t": float(ego[-1]["timestamp"]) + self.time_base})
-                self._refuse_dashboard()
+                self._maybe_dashboard(state)
             elif kind == "gps":
                 state = gps_step(state, *(x[i] for x in dev["gps"]), self.params, self.static)
             else:
@@ -1597,9 +1605,10 @@ class LocalizationPipeline:
                 chunk: Optional[int] = None):
         """One :func:`fused_frame` per scan over the log's batches (moved to
         the device once), the outputs stacked on the device and read back
-        once. With ``poll`` the config is polled (and the dashboard refused)
-        before each frame, or each chunk. ``run_fused`` on a full map (no
-        poll) has no dashboard to refuse, as in the JAX package.
+        once. With ``poll`` the config is polled before each frame, or each
+        chunk, and with ``debug_print`` a dashboard a simulated second is
+        checked after it; ``run_fused`` on a full map (no poll) prints none,
+        as in the JAX package.
 
         Per frame (runtime.py:1533-1564): a windowed pipeline consults its
         window ladder before each frame at the previous frame's pose, whose
@@ -1610,8 +1619,6 @@ class LocalizationPipeline:
         predicts, with one further chunk as the prefetch's lookahead; one
         pose fetch per chunk; ``on_scan(out)`` gets the chunk's outputs
         stacked, ``n - k0`` rows for the final ragged chunk."""
-        if poll:
-            self._refuse_dashboard()
         state = state if state is not None else self.reset()
         self._rebase(min(log.imu_t[0], log.scan_t[0]))
         if batches is None:
@@ -1672,7 +1679,7 @@ class LocalizationPipeline:
             if on_scan is not None:
                 on_scan(out)
             if poll:
-                self._refuse_dashboard()
+                self._maybe_dashboard(state)
         if windowed:
             self._join_prefetch()
         cat = torch.cat if step > 1 else torch.stack

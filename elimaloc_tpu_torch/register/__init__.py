@@ -6,7 +6,10 @@ from .icp import (  # noqa: F401
     IcpParams,
     IcpResult,
     IcpStatic,
+    calculate_velocity,
     make_icp_params,
     make_icp_static,
+    radar_point_cov,
     run_register,
+    separate_points_z,
 )

@@ -1113,3 +1113,16 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
         overlap=overlap,
         dropped=dropped,
     )
+
+
+def calculate_velocity(transform, dt):
+    """Rigid transform over dt -> (linear, angular) velocity (reference:
+    CalculateVelocity, registration.hpp:167-184)."""
+    return transform[:3, 3] / dt, lie.so3_log(transform[:3, :3]) / dt
+
+
+def separate_points_z(points, valid, z):
+    """Split a masked point set by z (reference: SeperatePointsZ,
+    registration.hpp:150-165). Returns (up_mask, down_mask)."""
+    above = points[:, 2] > z
+    return valid & above, valid & ~above

@@ -194,7 +194,8 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: live in, the packed EKF records, the smoke script and the timing scripts
 #: of kernels B and C, of the IMU stage, of the P2P GN loop, of the scan's
 #: end, of its front, of the registration loops, of the tick mode and of
-#: the CAN / GPS updates and radar rows (kernels W and X)
+#: the CAN / GPS updates and radar rows (kernels W and X), the command line
+#: and the host modules it imports (PCD, rosbag, sites, utils)
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -208,7 +209,14 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "tools/time_tick_mode.py", "tools/time_ekf_update.py",
                "tools/probe_profiler_drops.py", "elimaloc_tpu_torch/parallel/__init__.py",
                "elimaloc_tpu_torch/parallel/sharding.py", "elimaloc_tpu_torch/struct.py",
-               "tools/compare_checkouts.py"]
+               "tools/compare_checkouts.py", "elimaloc_tpu_torch/cli.py",
+               "elimaloc_tpu_torch/sites.py", "elimaloc_tpu_torch/map/pcd.py",
+               "elimaloc_tpu_torch/map/native_builder.py", "elimaloc_tpu_torch/pipeline/lz4f.py",
+               "elimaloc_tpu_torch/pipeline/pointcloud.py",
+               "elimaloc_tpu_torch/pipeline/rosbag.py", "elimaloc_tpu_torch/utils/__init__.py",
+               "elimaloc_tpu_torch/utils/checkpoint.py",
+               "elimaloc_tpu_torch/utils/observability.py",
+               "elimaloc_tpu_torch/utils/timing.py", "elimaloc_tpu_torch/utils/viz.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)

@@ -357,15 +357,32 @@ def test_ini_hot_reload_mid_run_frames(tiny, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["debug_print_run", "debug_print_frames"])
-def test_unported_modes_refuse(tiny, mode):
+def test_unported_modes_refuse(tiny, mode, capsys):
+    """``debug_print``, which this test once held refused, runs as JAX's
+    does (runtime.py:1378-1390): the state dashboard once a simulated
+    second of the filter's time, checked after each scan of ``run`` and each
+    frame of ``run_frames``."""
     world, log, _ = tiny
     pipe = _reload_pipe(world)
     pipe.cfg.ekf.debug_print = True
-    with pytest.raises(NotImplementedError, match='Queue 1, "Host modules and utilities"'):
-        if mode == "debug_print_run":
-            pipe.run(log)
-        else:
-            pipe.run_frames(log)
+    seen = []
+    check = pipe._maybe_dashboard
+
+    def watch(state):
+        seen.append(float(state.ekf.prev_timestamp))
+        check(state)
+
+    pipe._maybe_dashboard = watch
+    if mode == "debug_print_run":
+        pipe.run(log)
+    else:
+        pipe.run_frames(log)
+    expected, last = 0, None
+    for t in seen:
+        if last is None or t - last >= 1.0:
+            expected, last = expected + 1, t
+    printed = capsys.readouterr().out.count("State Std")
+    assert len(seen) == len(log.scan_t) and printed == expected >= 2, (seen, printed)
 
 
 def test_use_imu_off_by_hot_reload_switches_run_to_the_tick_mode(tiny):
