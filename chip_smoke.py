@@ -253,6 +253,19 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
      line for line ``run_fused``'s on ``cli.replay_pipeline``'s pipeline,
      GICP's gates) and the event-loop ``replay --metrics --viz --traj``,
      each subcommand's wall clock;
+  5e. "[sharding]" (``sharding_phase``): the sharded modes of
+     ``parallel/sharding.py`` over ``torch.distributed``, ranks spawned
+     from this script on the one card, the inputs (frame 10's registration
+     on the P2P, GICP, VGICP, AVGICP and P2P hash pipelines, four lanes of
+     P2P frames 9-12, the P2P replay, the P2P fleet's first four lanes)
+     through one file: a one-rank NCCL world, every entry point at its
+     mesh of one bit for bit the unsharded path; a four-rank gloo world,
+     the ranks bit for bit each other, the dp lanes bit for bit the fleet,
+     sp, slot and 2D within the bounds SHARD_TOL / SHARD_OVERLAP_TOL and
+     the closed-loop contract, the first iteration's all-reduced sums
+     within 4 eps of their float64 sum, per rank and GN iteration one
+     launch of A, E, F, G or Q, one of M and one all-reduce and no loop
+     kernel; each case's wall clock beside the card;
   6. torch.profiler, after every timed replay: kernels B-D, H-Z and the
      loop kernel alone on the device (and kernel L then kernel I beside S,
      the gate, scan times, K and D beside T, O and J beside U, the cuBLAS
@@ -5308,6 +5321,421 @@ def cli_phase(world, built, log, mods, ate_rmse, ds_points, max_slots):
     return out
 
 
+#: the sharded modes ("[sharding]", ``sharding_phase``): the tile methods
+#: and the hash P2P path registered at frame N_SCANS // 2, four lanes of
+#: P2P frames N_SCANS // 2 - 1 .. + 2, the P2P headline replay and the P2P
+#: fleet's first four lanes (the headline log and the seed-5 log in turns)
+SHARDING = "sharding"
+SHARD_WORLD = 4
+SHARD_LANES = 4
+SHARD_METHODS = ("P2P", "GICP", "VGICP", "AVGICP")
+SHARD_LOOPS = {"P2P": LOOP, "GICP": GICP_LOOP, "VGICP": VGICP_LOOP, "AVGICP": AVG_LOOP,
+               "P2P hash": HASH_LOOP}
+SHARD_SEARCH = {"P2P": "p2p_correspond", "GICP": "gicp_correspond",
+                "VGICP": "vgicp_correspond", "AVGICP": "avgicp_correspond",
+                "P2P hash": "hash_correspond"}
+#: set before the phase first ran on a card (PERF.md §6): a sharded
+#: registration against the unsharded loop kernel differs only in the f32
+#: GN sums' summation order: every pose entry within SHARD_TOL a GN
+#: iteration (the AVGICP loop's own bound against its plain version),
+#: fitness within SHARD_TOL x max(1, |fitness|), overlap within
+#: SHARD_OVERLAP_TOL (a match flipping at the search radius), iterations
+#: and success equal; a sharded replay against the unsharded one under the
+#: closed-loop contract (``contract``)
+SHARD_TOL = 1e-4
+SHARD_OVERLAP_TOL = 1e-3
+#: a rank's wait in a collective and the worlds' deadline, s
+SHARD_COLLECTIVE_S = 120
+SHARD_DEADLINE_S = 420
+
+
+def record_registrations(pipe, log, runtime, frames):
+    """The (scan, valid, initial guess) of ``run_register``'s calls at the
+    frame indices ``frames`` of one ``run_fused`` of ``log`` on ``pipe``
+    (copies on the card)."""
+    seen, calls, orig = [0], {}, runtime.run_register
+
+    def wrapped(src, valid, tmap, guess, params, static, mark=None):
+        if seen[0] in frames:
+            calls[seen[0]] = (src.clone(), valid.clone(), guess.clone())
+        seen[0] += 1
+        return orig(src, valid, tmap, guess, params, static, mark=mark)
+
+    runtime.run_register = wrapped
+    try:
+        pipe.run_fused(log)
+    finally:
+        runtime.run_register = orig
+    return [calls[k] for k in frames]
+
+
+def fresh_record(state):
+    """A pipeline state whose EKF state is a new view of its record, with no
+    typed field views made yet: ``torch.save`` refuses one storage seen as
+    several dtypes, and a record's fields are such views."""
+    from elimaloc_tpu_torch.ekf.state import RecordState
+
+    root = state.ekf.intact_record() if isinstance(state.ekf, RecordState) else None
+    return state if root is None else state.replace(ekf=RecordState(root, state.ekf.P.dtype))
+
+
+def to_numpy(tree):
+    """A record / dict / tuple of tensors as nested dicts of NumPy arrays."""
+    if dataclasses.is_dataclass(tree):
+        return {f.name: to_numpy(getattr(tree, f.name)) for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def same_tree(a, b, skip=()):
+    """Two :func:`to_numpy` trees equal bit for bit (keys in ``skip``
+    aside)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_tree(a[k], b[k], skip) for k in a if k not in skip)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_tree(x, y, skip) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return same_array(a, b)
+    return a == b
+
+
+def sharding_rank(rank, world, backend, tmp):
+    """One rank of a "[sharding]" world on cuda:0: the inputs from
+    ``tmp/inputs.pt``, the meshes (sp: 1 x world, dp: world x 1, 2d: 2 x
+    world / 2 or 1 x 1), every case of ``inputs["cases"]`` with its launch
+    counts, collectives, wall clock and, for a registration, the first
+    GN iteration's local sums beside their all-reduce; the results to
+    ``tmp/<backend>-rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous-{backend}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        import elimaloc_tpu_torch  # noqa: F401  (pins full-f32 matmuls)
+        from elimaloc_tpu_torch import kernels, parallel
+        from elimaloc_tpu_torch.parallel import sharding
+        from elimaloc_tpu_torch.register import icp
+
+        inp = torch.load(Path(tmp) / "inputs.pt", map_location="cuda:0", weights_only=False)
+        meshes = {"sp": sharding.make_mesh(world, dp=1),
+                  "dp": sharding.make_mesh(world, dp=world),
+                  "2d": sharding.make_mesh(world, dp=2 if world % 2 == 0 else 1)}
+        first, psum = [], sharding.psum
+
+        def recording_psum(t, axis, count="gn_sums"):
+            local = t.clone() if count == "gn_sums" and not first else None
+            out = psum(t, axis, count)
+            if local is not None:
+                first.append((local.cpu().numpy(), out.cpu().numpy()))
+            return out
+
+        sharding.psum = recording_psum
+        results = {}
+        for name, case in inp["cases"]:
+            kind, a = case["kind"], case
+            kernels.reset_launches()
+            sharding.reset_collectives()
+            first.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "point":
+                out = parallel.register_sharded(a["scan"], a["valid"], a["map"], a["guess"],
+                                                a["params"], a["static"], meshes["sp"])
+            elif kind == "slot":
+                static = dataclasses.replace(a["static"], slot_shard_axis="sp")
+                with sharding.use_mesh(meshes["sp"]):
+                    out = icp.run_register(a["scan"], a["valid"], a["map"], a["guess"],
+                                           a["params"], static)
+            elif kind in ("dp", "2d"):
+                fn = parallel.register_batch_dp if kind == "dp" else parallel.register_batch_2d
+                out = fn(a["scan"], a["valid"], a["map"], a["guess"], a["params"], a["static"],
+                         meshes[kind])
+            else:
+                fn = {"replay_sp": parallel.replay_fused_sp, "replay_dp": parallel.replay_fused_dp,
+                      "replay_2d": parallel.replay_fused_2d}[kind]
+                out = fn(a["state"], a["batches"], a["map"], a["pp"], a["ps"],
+                         meshes[kind.split("_")[1]])
+            torch.cuda.synchronize()
+            results[name] = {"out": to_numpy(out), "seconds": time.perf_counter() - t0,
+                             "launches": {k: v for k, v in kernels.launches.items() if v},
+                             "collectives": dict(sharding.collectives),
+                             "first": first[0] if first else None}
+        torch.save(results, Path(tmp) / f"{backend}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharding_world(tmp, world, backend, smi):
+    """``world`` spawned ranks of :func:`sharding_rank` on cuda:0; their
+    results, one dict a rank. A rank that fails, or a world past
+    SHARD_DEADLINE_S, raises here; every rank is stopped."""
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    ctx = mp.start_processes(sharding_rank, args=(world, backend, str(tmp)), nprocs=world,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=2):
+            if time.time() - t0 > SHARD_DEADLINE_S:
+                raise TimeoutError(f"[{SHARDING}] the {world}-rank {backend} world passed "
+                                   f"{SHARD_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    log_line(f"[{SHARDING}] the {world}-rank {backend} world on cuda:0: "
+             f"{time.time() - t0:.2f} s wall, spawn and set-up included; card {smi}")
+    return [torch.load(Path(tmp) / f"{backend}-rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def registration_close(got, ref):
+    """(within the sharded registration's bounds, the largest pose entry
+    error) of a sharded result against the unsharded loop kernel's."""
+    its = int(ref["iterations"])
+    err = float(np.abs(got["pose"].astype(np.float64) - ref["pose"]).max())
+    fit = float(ref["fitness"])
+    ok = (int(got["iterations"]) == its and bool(got["success"]) == bool(ref["success"])
+          and err <= SHARD_TOL * max(its, 1)
+          and abs(float(got["fitness"]) - fit) <= SHARD_TOL * max(1.0, abs(fit))
+          and abs(float(got["overlap"]) - float(ref["overlap"])) <= SHARD_OVERLAP_TOL)
+    return ok, err
+
+
+def sums_within_bound(name, res, groups):
+    """The first GN iteration's all-reduced sums against the float64 sum of
+    the local sums of each group of ranks that all-reduced together
+    (``groups``: lists of ranks): within 4 eps x the sum of |local sums|,
+    and the same bits on every rank of the group. Returns the largest error
+    in units of that bound."""
+    worst = 0.0
+    for group in groups:
+        firsts = [res[r][name]["first"] for r in group]
+        local = np.stack([f[0] for f in firsts]).astype(np.float64)
+        reduced = firsts[0][1]
+        if not all(same_array(f[1], reduced) for f in firsts):
+            raise AssertionError(f"[{SHARDING}] {name}: ranks {group}' all-reduced sums differ")
+        exact, scale = local.sum(0), np.abs(local).sum(0)
+        allowed = 4 * np.finfo(np.float32).eps * scale
+        over = np.abs(reduced.astype(np.float64) - exact) > allowed
+        if over.any():
+            raise AssertionError(f"[{SHARDING}] {name}: all-reduced sums off the float64 sum "
+                                 f"past 4 eps at {np.flatnonzero(over).tolist()}")
+        worst = max(worst, float(np.max(np.abs(reduced - exact)
+                                        / np.maximum(allowed, 1e-300))))
+    return worst
+
+
+def check_sharded_launches(name, res, iterations, search, lanes_launch=None):
+    """Each rank's launch counts and collectives for a sharded case:
+    ``iterations[r]`` GN iterations on rank r, each one launch of
+    ``search`` and one of M (kernel ``gn_step``) and one all-reduce of the
+    sums, no loop kernel; or with ``lanes_launch`` (the dp cases) that
+    many launches of the loop kernel's lane form and no search kernel, M
+    or all-reduce."""
+    for r, rr in enumerate(res):
+        launches, coll = rr[name]["launches"], rr[name]["collectives"]
+        if lanes_launch is not None:
+            loop, n = lanes_launch
+            ok = (launches.get(loop) == n and not launches.get(search)
+                  and not launches.get("gn_step") and coll["gn_sums"] == 0)
+        else:
+            its = iterations[r]
+            ok = (launches.get(search) == its and launches.get("gn_step") == its
+                  and coll["gn_sums"] == its
+                  and not any(launches.get(k) for k in SHARD_LOOPS.values()))
+        if not ok:
+            raise AssertionError(f"[{SHARDING}] {name} rank {r}: launches {launches}, "
+                                 f"collectives {coll}")
+
+
+def sharding_phase(pipes, log, second, mods):
+    """"[sharding]": the sharded modes of ``parallel/sharding.py`` on the
+    card, over ``torch.distributed`` at the headline width.
+
+    Inputs: frame N_SCANS // 2's registration (scan, valid, initial guess)
+    on the P2P, GICP, VGICP, AVGICP and P2P hash pipelines, recorded on one
+    ``run_fused`` each; four lanes of P2P frames 9-12; the P2P pipeline's
+    reset state and the headline log's batches; the P2P fleet's first four
+    lanes (the headline log and the seed-5 log in turns, ``fleet_batches``).
+    The unsharded references run here: ``run_register`` (the loop kernel),
+    ``run_register_lanes`` (its lane form), ``replay_fused`` and
+    ``replay_fused_fleet``. The ranks get the maps, states and batches
+    through one ``torch.save`` file; the kernels are already built.
+
+    A one-rank NCCL world: every entry point at its mesh of one (sp
+    ``register_sharded`` and slot-sharded ``run_register`` per method and
+    on the hash grid, ``register_batch_dp``, ``register_batch_2d``,
+    ``replay_fused_sp``, ``replay_fused_dp``, ``replay_fused_2d``), each
+    output bit for bit the unsharded path's. A four-rank gloo world on
+    cuda:0 (NCCL refuses two ranks on one card): sp = 4 and slot-sharded per
+    tile method, sp = 4 on the hash grid, dp = 4 and 2 x 2 batches, sp = 4,
+    dp = 4 and 2 x 2 replays. Checks: every rank's outputs bit for bit rank
+    0's (a point-sharded ``dropped`` aside); dp lanes bit for bit the
+    unsharded lanes; sp and 2D within SHARD_TOL / SHARD_OVERLAP_TOL
+    (registrations) or the closed-loop contract (replays); the first
+    iteration's all-reduced sums within 4 eps of the float64 sum of the
+    ranks' sums; per rank, per GN iteration one launch of the method's
+    search kernel (A, E, F, G or Q) and one of M and one all-reduce, no
+    loop kernel (dp: one lane-form loop launch a registration or frame).
+    Each case's wall clock is printed beside the card; these are not speed
+    figures (four ranks time-share one card). Returns the slice numbers."""
+    kernels, tiles, icp, runtime = mods[0], mods[3], mods[4], mods[6]
+    from elimaloc_tpu_torch import parallel
+
+    t_phase = time.time()
+    smi = card()
+    at = N_SCANS // 2
+    paths = SHARD_METHODS + ("P2P hash",)
+    dev_maps = {"P2P": pipes["P2P"].map, "GICP": pipes["P2P"].map, "VGICP": pipes["P2P"].map,
+                "AVGICP": pipes["AVGICP"].map, "P2P hash": pipes["P2P hash"].map}
+    # the slot axis must split max_slots into multiples of 8 (JAX's
+    # _shard_slots): the budget's slots rounded up to 8 x SHARD_WORLD, the
+    # unsharded references on the same budget
+    old = pipes["P2P"].static.icp_static.tile_budget
+    budget = tiles.TileQueryBudget(qb=old.qb, max_slots=-(-old.max_slots // (8 * SHARD_WORLD))
+                                   * 8 * SHARD_WORLD)
+    regs, refs = {}, {}
+    for path in paths:
+        pipe = pipes[path]
+        frames = tuple(range(at - 1, at + SHARD_LANES - 1)) if path == "P2P" else (at,)
+        calls = record_registrations(pipe, log, runtime, frames)
+        scan, valid, guess = calls[1] if path == "P2P" else calls[0]
+        static = dataclasses.replace(pipe.static.icp_static, tile_budget=budget)
+        regs[path] = dict(scan=scan, valid=valid, guess=guess, map=dev_maps[path],
+                          params=pipe.params.icp, static=static)
+        refs[path] = to_numpy(icp.run_register(scan, valid, dev_maps[path], guess,
+                                               pipe.params.icp, static))
+        if path == "P2P":
+            lanes = dict(regs[path], scan=torch.stack([c[0] for c in calls]),
+                         valid=torch.stack([c[1] for c in calls]),
+                         guess=torch.stack([c[2] for c in calls]))
+            refs["lanes"] = to_numpy(icp.run_register_lanes(
+                lanes["scan"], lanes["valid"], lanes["map"], lanes["guess"], lanes["params"],
+                lanes["static"]))
+    p2p = pipes["P2P"]
+    state = p2p.reset()
+    p2p._rebase(min(log.imu_t[0], log.scan_t[0]))
+    batches = runtime.batches_to_device(runtime.build_fused_batches(log, time_base=p2p.time_base),
+                                        p2p.device, p2p.dtype)
+    ps = dataclasses.replace(p2p.static, icp_static=regs["P2P"]["static"])
+    replay = dict(state=fresh_record(state), batches=batches, map=p2p.map, pp=p2p.params, ps=ps)
+    refs["replay"] = to_numpy(runtime.replay_fused(state, batches, p2p.map, p2p.params, ps))
+    _, fleet_b = runtime.fleet_batches([log, second] * (SHARD_LANES // 2))
+    fleet_b = runtime.batches_to_device(fleet_b, p2p.device, p2p.dtype)
+    states = parallel.stack_streams([p2p.reset() for _ in range(SHARD_LANES)])
+    fleet = dict(replay, state=fresh_record(states), batches=fleet_b)
+    refs["fleet"] = to_numpy(parallel.replay_fused_fleet(states, fleet_b, p2p.map, p2p.params,
+                                                         ps))
+    torch.cuda.synchronize()
+    log_line(f"[{SHARDING}] inputs and unsharded references: {time.time() - t_phase:.2f} s "
+             f"(a run_fused each on {', '.join(paths)} to record frame {at}'s registration; "
+             f"max_slots {old.max_slots} -> {budget.max_slots})")
+
+    cases = []
+    for path in paths:
+        cases += [(f"{path} sp", dict(regs[path], kind="point"))]
+        if path != "P2P hash":
+            cases += [(f"{path} slot", dict(regs[path], kind="slot"))]
+    cases += [("P2P dp", dict(lanes, kind="dp")), ("P2P 2d", dict(lanes, kind="2d")),
+              ("replay sp", dict(replay, kind="replay_sp")),
+              ("replay dp", dict(fleet, kind="replay_dp")),
+              ("replay 2d", dict(fleet, kind="replay_2d"))]
+    summary = {"cases": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        torch.save({"cases": cases}, Path(tmp) / "inputs.pt")
+        size = (Path(tmp) / "inputs.pt").stat().st_size
+        log_line(f"[{SHARDING}] inputs file: {size / 2**20:.1f} MiB in "
+                 f"{time.time() - t0:.2f} s")
+        one = sharding_world(tmp, 1, "nccl", smi)
+        four = sharding_world(tmp, SHARD_WORLD, "gloo", smi)
+
+    def ref_of(name):
+        if name.startswith("replay"):
+            return refs["fleet" if name != "replay sp" else "replay"]
+        return refs["lanes" if name in ("P2P dp", "P2P 2d") else name.rsplit(" ", 1)[0]]
+
+    # the one-rank NCCL world: every entry point bit for bit the unsharded path
+    for name, _ in cases:
+        got = one[0][name]["out"]
+        ok = same_tree(got, ref_of(name))
+        summary["cases"][f"{name} nccl x1"] = {"bit_for_bit": ok,
+                                               "s": round(one[0][name]["seconds"], 4)}
+        log_line(f"[{SHARDING}] nccl x1 {name}: bit for bit the unsharded path {ok}; "
+                 f"{one[0][name]['seconds']:.4f} s; launches {one[0][name]['launches']}; "
+                 f"card {smi}")
+        if not ok:
+            raise AssertionError(f"[{SHARDING}] nccl x1 {name} differs from the unsharded path")
+
+    # the four-rank gloo world on cuda:0
+    for name, case in cases:
+        kind = case["kind"]
+        skip = ("dropped",) if kind in ("point", "2d") else ()
+        if not all(same_tree(r[name]["out"], four[0][name]["out"], skip) for r in four[1:]):
+            raise AssertionError(f"[{SHARDING}] gloo x4 {name}: the ranks' outputs differ")
+        got, ref = four[0][name]["out"], ref_of(name)
+        row = {"s": [round(r[name]["seconds"], 4) for r in four]}
+        if kind in ("point", "slot"):
+            path = name.rsplit(" ", 1)[0]
+            ok, err = registration_close(got, ref)
+            its = int(got["iterations"])
+            check_sharded_launches(name, four, [its] * SHARD_WORLD, SHARD_SEARCH[path])
+            row.update(within=ok, pose_err=err, iterations=its,
+                       sums_err_in_bound=sums_within_bound(name, four, [range(SHARD_WORLD)]))
+        elif kind == "dp":
+            ok = same_tree(got, ref)
+            check_sharded_launches(name, four, None, "p2p_correspond", (LOOP, 1))
+            row.update(bit_for_bit=ok)
+        elif kind == "2d":
+            lane_ok = [registration_close({k: v[i] for k, v in got.items()},
+                                          {k: v[i] for k, v in ref.items()}) for i in range(4)]
+            ok = all(o for o, _ in lane_ok)
+            its = got["iterations"]
+            check_sharded_launches(name, four, [int(its[2 * (r // 2):2 * (r // 2) + 2].sum())
+                                                for r in range(SHARD_WORLD)], "p2p_correspond")
+            row.update(within=ok, pose_err=max(e for _, e in lane_ok),
+                       sums_err_in_bound=sums_within_bound(
+                           name, four, [range(g, g + 2) for g in range(0, SHARD_WORLD, 2)]))
+        else:
+            g, rf = got[1], ref[1]
+            frames = int(np.asarray(rf["iterations"]).shape[-1])
+            if kind == "replay_dp":
+                ok = same_tree(got, ref)
+                check_sharded_launches(name, four, None, "p2p_correspond", (LOOP, frames))
+                row.update(bit_for_bit=ok)
+            else:
+                pos, rpos = g["ego_pos"].reshape(-1, frames, 3), rf["ego_pos"].reshape(-1, frames, 3)
+                errs = [np.linalg.norm(pos[i].astype(np.float64) - rpos[i], axis=1)
+                        for i in range(pos.shape[0])]
+                ok = all(contract(e) for e in errs)
+                its = np.asarray(g["iterations"]).reshape(-1, frames).sum(1)
+                per_rank = ([int(its.sum())] * SHARD_WORLD if kind == "replay_sp" else
+                            [int(its[2 * (r // 2):2 * (r // 2) + 2].sum())
+                             for r in range(SHARD_WORLD)])
+                check_sharded_launches(name, four, per_rank, "p2p_correspond")
+                row.update(within=ok, ego_pos=[_stats(e) for e in errs],
+                           applied=float(np.mean(g["applied"])))
+        summary["cases"][f"{name} gloo x4"] = row
+        log_line(f"[{SHARDING}] gloo x4 {name}: {row}; launches (rank 0) "
+                 f"{four[0][name]['launches']}; card {smi}")
+        if not ok:
+            raise AssertionError(f"[{SHARDING}] gloo x4 {name} outside its bound: {row}")
+    summary["phase_s"] = round(time.time() - t_phase, 2)
+    summary["card"] = smi
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -5415,6 +5843,9 @@ def main():
     slices[CLI] = cli_phase(world, built, log, mods, ate_rmse, ds_points, max_slots)
     torch.cuda.empty_cache()
     clock.lap(CLI)
+    slices[SHARDING] = sharding_phase(pipes, log, second, mods)
+    torch.cuda.empty_cache()
+    clock.lap(SHARDING)
     # the profiler passes, after every timed replay
     for r in rows:
         if "stage_fn" in r:

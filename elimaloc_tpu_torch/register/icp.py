@@ -62,9 +62,30 @@ kernel's lane form for every ``kernels.MAX_LANES`` lanes
 :func:`avgicp_register`, :func:`hash_register`; their ``*_lanes_plain``
 forms on CPU tensors) and the batched tail.
 
+The sharded modes (JAX's ``psum_axis`` and ``slot_shard_axis``,
+icp.py:565-581, 613-616, 756-760; the entry points in
+``parallel/sharding.py``) resolve their axis names through the active
+``DeviceMesh`` (``parallel.sharding.use_mesh``; a name with no active mesh
+raises NameError). A loop kernel cannot hold a collective inside its
+cooperative launch, so a sharded registration runs :func:`host_loop` of one
+sharded iteration (:func:`sharded_loop`): the local search + reduction (on
+the card kernel A, E, F or G through :func:`search_sums`, or Q; on the CPU
+:func:`search_sums_plain` or :func:`hash_sums_plain`, the same 18 or 44
+sums), an all-reduce of the sums over the axis, then the step (kernel M, or
+:func:`gn_update_plain` on :func:`assemble_p2p` / :func:`assemble_gn`).
+Every rank then holds the same sums, so the ranks stay in lockstep, with
+one host sync an iteration; a device-side loop around the collective is
+later work. With ``psum_axis`` each rank registers its block of the scan
+(its own assignment) and the valid count is all-reduced too; ``dropped`` is
+the rank's own. With ``slot_shard_axis`` the inputs are replicated and each
+rank searches its range [lo, lo + S/n) of the slots. On the hash backend the
+slot-sharded mode, as JAX's ``partial_axis``, all-reduces replicated sums:
+the matched count and ``overlap`` come out n times larger, the step and the
+fitness unchanged. A fleet frame's sharded registrations run lane by lane.
+
 Not ported, refused with NotImplementedError: the tile backend's
 correspondence-reuse and per-iteration reassignment loops (ROADMAP "Not
-ported") and the sharded modes (ROADMAP Queue 1, ``parallel/sharding.py``).
+ported").
 """
 
 from __future__ import annotations
@@ -173,10 +194,6 @@ def check_supported(static: IcpStatic) -> None:
             "corr_reuse / reassign_each_iter are not ported (ROADMAP "
             "'Not ported'): the port searches every iteration on the hoisted "
             "assignment; AVGICP needs a halo_margin=2 tile map")
-    if static.psum_axis is not None or static.slot_shard_axis is not None:
-        raise NotImplementedError(
-            "psum_axis / slot_shard_axis: multi-device registration is in "
-            "ROADMAP Queue 1, parallel/sharding.py")
 
 
 def _on_card(t) -> bool:
@@ -946,6 +963,174 @@ def _tile_loop(method: int):
 
 
 # --------------------------------------------------------------------------- #
+# The sharded registration (icp.py:565-581, 613-616, 756-760)
+# --------------------------------------------------------------------------- #
+
+def pack_gn(matched, JTJ, JTr, fit_num):
+    """(matched, JTJ, JTr, fit_num) -> the [44] sums of kernels E/F/G in
+    :func:`assemble_gn`'s layout (exact: the entries are moved, not
+    recomputed)."""
+    blocks = (JTJ[:3, :3], JTJ[:3, 3:], JTJ[3:, :3], JTJ[3:, 3:])
+    return torch.cat([b.reshape(-1) for b in blocks]
+                     + [JTr, fit_num.reshape(1), matched.to(JTr.dtype).reshape(1)])
+
+
+def p2p_sums_plain(pose, src, target, valid, params: IcpParams):
+    """Kernel A's [18] sums (:func:`assemble_p2p`'s layout) from the
+    correspondences, in :func:`_p2p_tail`'s arithmetic: sum w, sum w p,
+    sum w p p^T (upper triangle), sum w r, sum w p x r, the fitness
+    numerator, the matched count."""
+    inv_pose = lie.transform_inverse(pose)
+    r = target @ inv_pose[:3, :3].T + inv_pose[:3, 3] - src
+    r2 = torch.sum(r * r, dim=-1)
+    th = params.max_search_dist
+    wv = th * th / (th + r2) ** 2 * valid.to(src.dtype)
+    wp = wv[:, None] * src
+    ppT = wp.T @ src
+    fit_num = torch.sum(torch.where(valid, torch.sqrt(r2), torch.zeros_like(r2)))
+    return torch.cat([torch.sum(wv).reshape(1), torch.sum(wp, dim=0),
+                      ppT[(0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2)],
+                      torch.sum(wv[:, None] * r, dim=0),
+                      torch.sum(torch.linalg.cross(wp, r), dim=0), fit_num.reshape(1),
+                      torch.sum(valid).to(src.dtype).reshape(1)])
+
+
+def search_sums_plain(method: int, tmap, slot_tile, sbuf, qmask, pose, params: IcpParams,
+                      budget: maptiles.TileQueryBudget, radar=None):
+    """Plain version of :func:`search_sums` on CPU tensors: one GN
+    iteration's search + reduction of ``method`` as the [18] (P2P) or [44]
+    sums the card's kernel A, E, F or G gives."""
+    if method == int(IcpMethod.P2P):
+        qbuf, qvox = _slot_queries(tmap, pose, sbuf)
+        tgt, ok = maptiles.nearest_point_slots(tmap, slot_tile, qbuf, qvox, qmask,
+                                               params.max_search_dist, budget)
+        return p2p_sums_plain(pose, sbuf.reshape(-1, 3), tgt.reshape(-1, 3), ok.reshape(-1),
+                              params)
+    return pack_gn(*search_reduce(method, tmap, slot_tile, sbuf, qmask, pose, params, budget,
+                                  radar))
+
+
+def hash_sums_plain(grid, src, valid, pose, params: IcpParams, method: int, radar=None):
+    """Plain version of kernel Q's sums (``kernels.hash_correspond``): one
+    GN iteration on the hash grid as the [18] (P2P) or [44] sums."""
+    if method == int(IcpMethod.P2P):
+        target, ok, _, _ = mapgrid.query_nearest_point_plain(
+            grid, transform_slots(pose, src), params.max_search_dist)
+        return p2p_sums_plain(pose, src, target, ok & valid, params)
+    return pack_gn(*hash_search_reduce_plain(grid, src, valid, pose, params, method, radar))
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """A registration's resolved axes: ``sums_axis`` all-reduces the GN sums
+    (``psum_axis``, else ``slot_shard_axis``: JAX's ``partial_axis``),
+    ``count_axis`` the valid count (``psum_axis`` or None), and ``slots``
+    is this rank's (index, size) on ``slot_shard_axis`` on the tile backend,
+    or None."""
+
+    sums_axis: str
+    count_axis: str | None
+    slots: tuple | None
+
+
+def shards(static: IcpStatic) -> Shards | None:
+    """The axes of a sharded registration resolved through the active mesh
+    (``parallel.sharding.use_mesh``), or None for an unsharded one. An axis
+    with no active mesh raises NameError; on the tile backend a slot-sharded
+    ``max_slots`` must split over the axis into a multiple of 8 slots a rank
+    (JAX ``_shard_slots``' assertions), else ValueError."""
+    axis = static.psum_axis or static.slot_shard_axis
+    if axis is None:
+        return None
+    from ..parallel import sharding  # deferred: parallel imports this module
+
+    for name in (static.psum_axis, static.slot_shard_axis):
+        if name is not None:
+            sharding.axis_group(name)  # NameError when the axis is unbound
+    slots = None
+    if static.slot_shard_axis is not None and static.backend == "tile":
+        n = sharding.axis_size(static.slot_shard_axis)
+        total = static.tile_budget.max_slots
+        if total % n:
+            raise ValueError(f"max_slots={total} must divide the "
+                             f"{static.slot_shard_axis!r} mesh axis ({n})")
+        if (total // n) % 8:
+            raise ValueError(f"max_slots={total} over {n} devices leaves {total // n} "
+                             "slots a device, not a multiple of 8")
+        slots = (sharding.axis_index(static.slot_shard_axis), n)
+    return Shards(axis, static.psum_axis, slots)
+
+
+def _psum(t, axis, count):
+    from ..parallel import sharding
+
+    return sharding.psum(t, axis, count)
+
+
+def valid_total(src_valid, shard: Shards | None, dtype):
+    """The overlap ratio's denominator, max(sum valid, 1) (icp.py:609-615):
+    over the last axis (a fleet frame: one a lane), all-reduced over the
+    point-sharded axis when there is one."""
+    total = torch.sum(src_valid, dim=-1)
+    if shard is not None and shard.count_axis is not None:
+        total = _psum(total, shard.count_axis, "valid_count")
+    return torch.clamp(total, min=1).to(dtype)
+
+
+def _slot_range(shard: Shards, *slotted):
+    """This rank's range [lo, lo + S/n) of each slot-major tensor (None
+    passes through; icp.py:565-581)."""
+    i, n = shard.slots
+    s = slotted[0].shape[0] // n
+    return tuple(None if x is None else x[i * s:(i + 1) * s] for x in slotted)
+
+
+def sharded_loop(method: int, backend: str, tmap, data, pose, fitness, local_cov, total,
+                 params: IcpParams, budget: maptiles.TileQueryBudget, max_iteration: int,
+                 shard: Shards, radar=None):
+    """One sharded registration: :func:`host_loop` of one sharded GN
+    iteration. ``data``: (slot_tile, sbuf, qmask) on the tile backend (the
+    whole assignment; the slot-sharded mode takes this rank's range of it
+    and of ``radar``), (src, valid) on the hash backend. Each iteration: the
+    local search + reduction into the [18] or [44] sums (kernel A, E, F, G
+    or Q on the card; :func:`search_sums_plain` / :func:`hash_sums_plain`
+    on the CPU), their all-reduce over ``shard.sums_axis``, then the step
+    (kernel M; :func:`gn_update_plain` after :func:`assemble_p2p` /
+    :func:`assemble_gn`). Returns (pose, local_cov, fitness, overlap,
+    failed, iterations int32)."""
+    gicp = method == int(IcpMethod.GICP)
+    card = _on_card(data[0])
+    if backend == "hash":
+        src, valid = data
+        name = IcpMethod(method).name
+
+        def search(p):
+            if card:
+                return kernels.hash_correspond(tmap, src, valid, p, params.max_search_dist,
+                                               name, radar)
+            return hash_sums_plain(tmap, src, valid, p, params, method, radar)
+    else:
+        if shard.slots is not None:
+            *data, radar = _slot_range(shard, *data, radar)
+        slot_tile, sbuf, qmask = data
+
+        def search(p):
+            if card:
+                return search_sums(method, tmap, slot_tile, sbuf, qmask, p, params, radar)
+            return search_sums_plain(method, tmap, slot_tile, sbuf, qmask, p, params, budget,
+                                     radar)
+
+    def step(pose, fitness, local_cov):
+        sums = _psum(search(pose), shard.sums_axis, "gn_sums")
+        if card:
+            return kernels.gn_step(sums, pose, fitness, local_cov, total, params, gicp)
+        assemble = assemble_p2p if sums.shape[0] == kernels.P2P_SUMS else assemble_gn
+        return gn_update_plain(*assemble(sums), pose, fitness, local_cov, total, params, gicp)
+
+    return host_loop(step, pose, fitness, local_cov, max_iteration)
+
+
+# --------------------------------------------------------------------------- #
 # RunRegister (cpp:273-418)
 # --------------------------------------------------------------------------- #
 
@@ -961,10 +1146,11 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     if src_local.dim() == 3:
         return run_register_lanes(src_local, src_valid, tmap, initial_guess, params, static,
                                   mark)
+    shard = shards(static)
     dtype = src_local.dtype
     dev = src_local.device
     pose_world = initial_guess.to(dtype)
-    total = torch.clamp(torch.sum(src_valid), min=1).to(dtype)
+    total = valid_total(src_valid, shard, dtype)
     use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
 
     if static.backend == "hash":
@@ -994,7 +1180,13 @@ def run_register(src_local, src_valid, tmap, initial_guess, params: IcpParams,
     fitness = torch.zeros((), dtype=dtype, device=dev)
     local_cov = torch.eye(6, dtype=dtype, device=dev)
     carry = (pose, fitness, local_cov, total, params)
-    if static.backend == "hash":
+    if shard is not None:
+        # one host loop of sharded iterations: search, all-reduce, step
+        data = ((src_local, src_valid) if static.backend == "hash"
+                else (asg.slot_tile, sbuf, asg.qmask))
+        loop = sharded_loop(static.method, static.backend, tmap, data, *carry,
+                            static.tile_budget, static.max_iteration, shard, radar)
+    elif static.backend == "hash":
         # the whole loop in one call: no readback on the card
         loop = hash_register(static.method, tmap, src_local, src_valid, *carry,
                              static.max_iteration, radar)
@@ -1051,11 +1243,14 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
     (:func:`p2p_register`, :func:`gicp_register`, :func:`vgicp_register`,
     :func:`avgicp_register`, :func:`hash_register`) for every
     ``kernels.MAX_LANES`` lanes (:func:`_in_launches`); every field of the
-    result has a leading lane axis (GICP's local_cov per lane)."""
+    result has a leading lane axis (GICP's local_cov per lane). With an
+    axis name (``psum_axis`` or ``slot_shard_axis``) each lane runs
+    :func:`sharded_loop` in turn, the valid counts all-reduced at once."""
+    shard = shards(static)
     dtype = src_local.dtype
     dev = src_local.device
     lanes, n = src_local.shape[:2]
-    total = torch.clamp(torch.sum(src_valid, dim=-1), min=1).to(dtype)
+    total = valid_total(src_valid, shard, dtype)
     use_radar = static.use_radar_cov and static.method != int(IcpMethod.P2P)
     pose_world = initial_guess.to(dtype).contiguous()
     fitness = torch.zeros(lanes, dtype=dtype, device=dev)
@@ -1068,6 +1263,10 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
         radar = radar_points(src_local, pose_world, params) if use_radar else None
 
         def loop(src, valid, pose, fitness, local_cov, total, radar):
+            if shard is not None:
+                return sharded_loop(static.method, "hash", tmap, (src, valid), pose, fitness,
+                                    local_cov, total, params, static.tile_budget,
+                                    static.max_iteration, shard, radar)
             return hash_register(static.method, tmap, src, valid, pose, fitness, local_cov,
                                  total, params, static.max_iteration, radar)
 
@@ -1088,6 +1287,10 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
                  if use_radar else None)
 
         def loop(slot_tile, sbuf, qmask, pose, fitness, local_cov, total, radar):
+            if shard is not None:
+                return sharded_loop(static.method, "tile", tmap, (slot_tile, sbuf, qmask), pose,
+                                    fitness, local_cov, total, params, static.tile_budget,
+                                    static.max_iteration, shard, radar)
             extra = () if radar is None else (radar,)
             return _tile_loop(static.method)(tmap, slot_tile, sbuf, qmask, pose, fitness,
                                              local_cov, total, params, static.tile_budget,
@@ -1097,7 +1300,15 @@ def run_register_lanes(src_local, src_valid, tmap, initial_guess, params: IcpPar
     if mark is not None:
         mark("assign")
 
-    pose, local_cov, fitness, overlap, failed, iterations = _in_launches(loop, lanes, per_lane)
+    if shard is not None:
+        # lane by lane, each until its own gates release (the vmapped
+        # while_loop's result); the ranks of the axis run the same lanes
+        outs = [loop(*(None if x is None else x[i] for x in per_lane)) for i in range(lanes)]
+        pose, local_cov, fitness, overlap, failed, iterations = (
+            torch.stack(x) for x in zip(*outs))
+    else:
+        pose, local_cov, fitness, overlap, failed, iterations = _in_launches(loop, lanes,
+                                                                             per_lane)
     if mark is not None:
         mark("gn")
 

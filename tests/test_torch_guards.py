@@ -5,9 +5,11 @@
 * The port's NumPy copies (config, the synthetic world and log, the voxel
   map builder, the tile packer, the fused batch builder) produce
   bit-identical output to the JAX package's on the same seeds.
+* The float64 oracle ``reference_cpu.py`` is JAX's file byte for byte.
 * Features the port does not run raise NotImplementedError naming the
   ROADMAP item instead of running silently; those it once refused (the
-  radar covariances, the tick mode, the hash backend) build.
+  radar covariances, the tick mode, the hash backend) build, and a sharded
+  registration outside a mesh refuses its unbound axis.
 """
 
 import dataclasses
@@ -136,9 +138,10 @@ def test_pipeline_refuses_unported(both_worlds, change):
     whose fleet replays were refused until their lane forms were ported
     (tests/test_torch_fleet*.py run them now): their fleet replay refuses
     only what JAX's run_fused_fleet refuses (runtime.py:1590-1649; here an
-    empty fleet, which shares no scan count), and the registration still
-    refuses what is not ported, naming its ROADMAP Queue 1 item
-    (multi-device registration, "parallel/sharding.py")."""
+    empty fleet, which shares no scan count), and a point-sharded
+    (``psum_axis``) registration outside the entry points of
+    parallel/sharding.py, with no active mesh, refuses its unbound axis
+    name (NameError, as JAX's)."""
     _, tw = both_worlds
     cfg = tiny_cfg(tconfig)
     kw = {}
@@ -153,8 +156,10 @@ def test_pipeline_refuses_unported(both_worlds, change):
     from elimaloc_tpu_torch.register import icp as ticp
 
     sharded = dataclasses.replace(pipe.static.icp_static, psum_axis="lanes")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ticp.check_supported(sharded)
+    ticp.check_supported(sharded)
+    with pytest.raises(NameError, match="unbound axis name: lanes"):
+        ticp.run_register(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), pipe.map,
+                          torch.eye(4), pipe.params.icp, sharded)
 
 
 @pytest.mark.parametrize("change", ["gicp_radar", "tick_mode", "hash", "hash_gicp_radar"])
@@ -188,6 +193,16 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 
 
 
+def test_oracle_copy_is_byte_identical():
+    """``elimaloc_tpu_torch/reference_cpu.py``, the float64 NumPy oracle, is
+    JAX's file byte for byte: its relative imports resolve to the port's
+    copies of ``config`` and ``map.builder``."""
+    with open(os.path.join(ROOT, "elimaloc_tpu/reference_cpu.py"), "rb") as f:
+        jax_side = f.read()
+    with open(os.path.join(ROOT, "elimaloc_tpu_torch/reference_cpu.py"), "rb") as f:
+        assert f.read() == jax_side
+
+
 #: the port's modules that the online entry points, the active-window
 #: serving path (the host crops, the shift and the window management), the
 #: tick mode and the radar covariances, kernels J-P and their plain versions
@@ -195,7 +210,8 @@ def test_pipeline_builds_the_configurations_it_once_refused(both_worlds, change)
 #: of kernels B and C, of the IMU stage, of the P2P GN loop, of the scan's
 #: end, of its front, of the registration loops, of the tick mode and of
 #: the CAN / GPS updates and radar rows (kernels W and X), the command line
-#: and the host modules it imports (PCD, rosbag, sites, utils)
+#: and the host modules it imports (PCD, rosbag, sites, utils), the float64
+#: oracle and the sharded modes' rank helper
 SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/runtime.py",
                "elimaloc_tpu_torch/ekf/filter.py", "elimaloc_tpu_torch/ekf/state.py",
                "elimaloc_tpu_torch/map/grid.py",
@@ -216,7 +232,8 @@ SLICE_FILES = ["elimaloc_tpu_torch/ops/geo.py", "elimaloc_tpu_torch/pipeline/run
                "elimaloc_tpu_torch/pipeline/rosbag.py", "elimaloc_tpu_torch/utils/__init__.py",
                "elimaloc_tpu_torch/utils/checkpoint.py",
                "elimaloc_tpu_torch/utils/observability.py",
-               "elimaloc_tpu_torch/utils/timing.py", "elimaloc_tpu_torch/utils/viz.py"]
+               "elimaloc_tpu_torch/utils/timing.py", "elimaloc_tpu_torch/utils/viz.py",
+               "elimaloc_tpu_torch/reference_cpu.py", "tests/torch_sharding_ranks.py"]
 
 
 @pytest.mark.parametrize("path", SLICE_FILES)

@@ -77,11 +77,23 @@ def test_run_register_p2p(dt_name, init):
     dict(corr_reuse=True), dict(reassign_each_iter=True),
     dict(psum_axis="sp"), dict(slot_shard_axis="sp"),
     # the hash backend runs (test_hash_backend_is_supported); its sharded
-    # mode does not
+    # mode needs an active mesh
     dict(backend="hash", psum_axis="sp"),
 ], ids=["avgicp", "corr_reuse", "reassign", "psum", "slot_shard", "hash"])
 def test_unported_features_refuse(change):
+    """What the port does not run raises NotImplementedError naming its
+    ROADMAP item. The sharded modes ("psum", "slot_shard", "hash") run
+    inside the entry points of parallel/sharding.py, which activate their
+    mesh (tests/test_torch_sharding.py); outside one, their axis name is
+    unbound and the registration refuses it (NameError, as JAX's unbound
+    axis)."""
     static = ticp.IcpStatic(**{"method": int(IcpMethod.P2P), **change})
+    if static.psum_axis or static.slot_shard_axis:
+        ticp.check_supported(static)
+        with pytest.raises(NameError, match="unbound axis name: sp"):
+            ticp.run_register(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), None,
+                              torch.eye(4), None, static)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ticp.check_supported(static)
 
